@@ -4,13 +4,18 @@
 
 Needs one CUDA card and exits non-zero on any failure, printing no result.
 It builds the port's kernels from `geovpr_torch/csrc/` with nvcc, checks
-kernel K1 (the fused attention half-block) against its plain PyTorch version
-on the card, drives the retrieve main path (`geovpr_torch.cli.retrieve.
-run_retrieval`) end to end at the full DINOv2-B/14 + SALAD width from a
-seeded random init, compares the kernel path with the plain path for the
-whole model, and times both. Every time is printed beside the card's name
-and power limit. The second-to-last line is a JSON record of the kernels;
-the last line is the JSON device record.
+each against its plain PyTorch version on the card (K1, the bf16 attention
+half-block; K2 and K3, the w8a8 attention and MLP half-blocks), then drives
+the retrieve main path (`geovpr_torch.cli.retrieve.run_retrieval`) end to
+end at the full DINOv2-B/14 + SALAD width from a seeded random init, twice:
+the bf16 path (K1) and the int8 serving path (calibrated on the first
+batch, K2 and K3 in every block, int8 index). For each path it compares
+the kernel path with the plain path for the whole model, counts the
+kernels' launches, times the path and the kernels (beside their plain
+versions, one library yardstick each and their bounds), and profiles one
+batch. Every time is printed beside the card's name and power limit. The
+second-to-last line is a JSON record of the kernels; the last line is the
+JSON device record.
 """
 
 from __future__ import annotations
@@ -40,6 +45,20 @@ MAIN_SHAPE = KERNEL_SHAPES[0]
 K1_X_SCALE = 1e-2
 K1_MAX_RATIO, K1_MEAN_RATIO = 1.25, 1.1
 MIN_COSINE = 0.9999
+# K2/K3 check (kernel against its plain version, both bf16 out): at most
+# INT8_MAX_SHARE of the elements off by more than 1e-3, so that a
+# systematic fault cannot hide, and max |error| <= 1.5 * max|one dequant
+# step| + 1e-3 (the JAX package's own bound, tests/test_pallas_ops.py:
+# 458-460, stated there for f32 outputs) + two bf16 spacings at the largest
+# output. The spacings are the bf16 store: a rare int8 rounding flip (an
+# f32 reduction ordered differently lands on the other side of .5) shifts a
+# row by a few dequant steps, which can round one bf16 step apart; the
+# healthy K2 read 0.03125 = one spacing at |out| ~5 on an H100 80GB HBM3
+# at 700 W, 7.7x the bound applied per element without them.
+INT8_ABS_TOL, INT8_MAX_SHARE = 1e-3, 0.01
+MIN_COSINE_INT8 = 0.999
+# the card's published dense peaks (NVIDIA H100 SXM data sheet)
+PEAK_BF16, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -116,6 +135,93 @@ def k1_errors(b, n, d, h, device, x_scale=K1_X_SCALE) -> dict:
                 plain_max=p_err.max().item(), plain_mean=p_err.mean().item())
 
 
+def int8_block_case(b, n, d, h, device, seed=SEED, x_scale=1.0):
+    """x and the folded arguments of K2 and K3 for one DINOv2 block with
+    seeded random weights (vectors perturbed, so a dropped bias or scale
+    shows), its static scales calibrated on x through the plain float path
+    as `quantize_for_serving` does."""
+    from geovpr_torch.models.dinov2 import DinoV2Block
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.quantize import quantize_for_serving
+
+    gen = torch.Generator().manual_seed(seed + n)
+    blk = DinoV2Block(d, h, dtype=torch.bfloat16, int8_attn=True,
+                      int8_mlp=True)
+    init_weights_(blk, gen)
+    with torch.no_grad():
+        for p in (blk.norm1.weight, blk.norm2.weight):
+            p.add_(torch.randn(d, generator=gen) * 0.1)
+        for p in (blk.norm1.bias, blk.norm2.bias, blk.attn.qkv_bias,
+                  blk.attn.proj_bias, blk.mlp.fc1.bias, blk.mlp.fc2.bias):
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+        for p in (blk.ls1.gamma, blk.ls2.gamma):
+            p.copy_(torch.randn(d, generator=gen) * 0.5)
+    x = (torch.randn(b, n, d, generator=gen) * x_scale).bfloat16().to(device)
+    blk = blk.to(device).eval()
+    quantize_for_serving(blk, [x])
+    return x, blk._folded_args(blk._k2), blk._folded_args(blk._k3)
+
+
+def bf16_spacing(v: torch.Tensor) -> torch.Tensor:
+    """The distance between neighbouring bf16 values at |v|."""
+    _, e = torch.frexp(v.float().abs())
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def int8_errors(got, want, step: float) -> dict:
+    err = (got.float() - want.float()).abs()
+    bound = (1.5 * step + INT8_ABS_TOL
+             + 2 * bf16_spacing(want.float().abs().max()).item())
+    return dict(finite=bool(torch.isfinite(got.float()).all()),
+                max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+                step=step, max_bound=bound,
+                share_over_1e3=(err > INT8_ABS_TOL).float().mean().item())
+
+
+def int8_within_bound(e: dict) -> bool:
+    return (e["finite"] and e["max_abs_err"] <= e["max_bound"]
+            and e["share_over_1e3"] <= INT8_MAX_SHARE)
+
+
+def int8_kernels_vs_plain(device) -> dict:
+    """Phase 3b: K2 and K3 against their plain versions at the main path's
+    shapes (K3 at the same rows), K3's separate-residual variant at the
+    main shape; scales calibrated on the seeded x."""
+    from geovpr_torch.ops.mhsa import (fused_mhsa_block_int8,
+                                       mhsa_block_int8_reference)
+    from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
+                                           mlp_block_int8_reference)
+
+    errs = {}
+    for shape in KERNEL_SHAPES:
+        b, n, d, h = shape
+        x, k2, k3 = int8_block_case(b, n, d, h, device)
+        res = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+            SEED), device="cpu").bfloat16().to(device)
+        runs = [("K2", lambda f, **kw: f(x, **k2, num_heads=h), (
+                    fused_mhsa_block_int8, mhsa_block_int8_reference),
+                 (k2["so_eff"] * k2["gamma"]).abs().max().item()),
+                ("K3", lambda f, **kw: f(x, **k3, **kw), (
+                    fused_mlp_block_int8, mlp_block_int8_reference),
+                 (k3["s2_eff"] * k3["gamma"]).abs().max().item())]
+        for name, call, (kernel, plain), step in runs:
+            variants = [{}] + ([{"residual": res}]
+                               if name == "K3" and shape == MAIN_SHAPE else [])
+            for kw in variants:
+                with torch.inference_mode():
+                    got = call(kernel, **kw)
+                    torch.cuda.synchronize()
+                    want = call(plain, **kw)
+                e = int8_errors(got, want, step)
+                tag = name + ("_residual" if kw else "")
+                phase("kernel", name=tag, shape="B{}_N{}_D{}_H{}".format(
+                    *shape), **e, max_share=INT8_MAX_SHARE)
+                check(int8_within_bound(e),
+                      f"{tag} error outside its bound at {shape}: {e}")
+                errs[(tag, shape)] = e["max_abs_err"]
+    return errs
+
+
 def k1_within_bound(e: dict) -> bool:
     return (e["finite"]
             and e["kernel_max"] <= K1_MAX_RATIO * e["plain_max"]
@@ -152,37 +258,54 @@ def synthetic_gallery(n: int, size: int, rng):
     return ArraySource(imgs, latlon, names)
 
 
-def slice_end_to_end(model, device, gallery, out_dir) -> int:
-    """Phase 4: the retrieve main path through run_retrieval."""
+def kernel_counters():
+    from geovpr_torch.ops.mhsa import fused_mhsa_block, fused_mhsa_block_int8
+    from geovpr_torch.ops.mlp_int8 import fused_mlp_block_int8
+    return {"fused_mhsa_block": fused_mhsa_block,
+            "fused_mhsa_block_int8": fused_mhsa_block_int8,
+            "fused_mlp_block_int8": fused_mlp_block_int8}
+
+
+def slice_end_to_end(model, device, gallery, out_dir, int8=False) -> dict:
+    """Phase 4 (bf16) / 8 (int8): the retrieve main path through
+    run_retrieval, every launch count set to 0 just before and read just
+    after. Returns the counts."""
     from geovpr_torch.cli.retrieve import run_retrieval
     from geovpr_torch.data.pipeline import ArraySource
-    from geovpr_torch.ops.mhsa import fused_mhsa_block
     from geovpr_torch.retrieval.index import load_index
 
     queries = ArraySource(gallery.images[:N_QUERY], gallery.targets[:N_QUERY],
                           [f"q_{i:04d}.jpg" for i in range(N_QUERY)])
     index_path = os.path.join(out_dir, "gallery_index.npz")
-    fused_mhsa_block.launches = 0
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     out = run_retrieval(model, gallery, queries, batch_size=BATCH,
                         top_k=TOP_K, positive_radius=25.0, out_dir=out_dir,
-                        device=device, save_index_path=index_path)
+                        device=device, save_index_path=index_path, int8=int8)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused_mhsa_block.launches
+    launches = {k: fn.launches for k, fn in counters.items()}
     n_batches = -(-N_GALLERY // BATCH) + -(-N_QUERY // BATCH)
     n_layers = len(model.backbone.blocks)
-    phase("slice", wall_s=wall, launches=launches,
-          expected_launches=n_layers * n_batches, **{
+    expected = dict.fromkeys(counters, 0)
+    for k in (("fused_mhsa_block_int8", "fused_mlp_block_int8") if int8
+              else ("fused_mhsa_block",)):
+        expected[k] = n_layers * n_batches
+    phase("slice", path="int8" if int8 else "bf16", wall_s=wall,
+          launches=launches, expected_launches=expected, **{
               k: v for k, v in out.items() if k.startswith("recall")})
-    check(launches == n_layers * n_batches,
-          f"K1 launched {launches} times, expected {n_layers * n_batches}")
+    check(launches == expected,
+          f"kernel launches {launches}, expected {expected}")
 
     index, meta = load_index(index_path, device)
-    rows = index._db.float()
+    rows = index._db[:index.size].float()
+    if index._db_scale is not None:
+        rows = rows * index._db_scale[:index.size, None]
     norms = rows.norm(dim=1)
-    phase("descriptors", shape=tuple(rows.shape),
-          max_norm_dev=(norms - 1).abs().max().item())
+    phase("descriptors", path="int8 index rows" if int8 else "bf16 index rows",
+          shape=tuple(rows.shape), max_norm_dev=(norms - 1).abs().max().item())
     check(tuple(rows.shape) == (N_GALLERY, model.descriptor_dim),
           f"descriptors {tuple(rows.shape)}")
     check(bool(torch.isfinite(rows).all()), "non-finite descriptors")
@@ -198,8 +321,10 @@ def slice_end_to_end(model, device, gallery, out_dir) -> int:
     return launches
 
 
-def kernel_path_vs_plain_path(model, images) -> float:
-    """Phase 5: whole-model descriptors, K1 path vs plain path."""
+def kernel_path_vs_plain_path(model, images, bound=MIN_COSINE,
+                              path="bf16") -> torch.Tensor:
+    """Phase 5 (bf16) / 9 (int8): whole-model descriptors, kernel path vs
+    plain path; returns the kernel path's descriptors."""
     from geovpr_torch.data.transforms import normalize
 
     blocks = model.backbone.blocks
@@ -214,45 +339,162 @@ def kernel_path_vs_plain_path(model, images) -> float:
             for blk in blocks:
                 blk.use_kernels = True
     cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
-    phase("model", min_cosine=cos.min().item(), bound=MIN_COSINE)
-    check(cos.min().item() >= MIN_COSINE,
-          f"kernel vs plain path cosine {cos.min().item()} < {MIN_COSINE}")
-    return cos.min().item()
+    norms = got.norm(dim=1)
+    phase("model", path=path, min_cosine=cos.min().item(),
+          mean_cosine=cos.mean().item(), bound=bound,
+          max_norm_dev=(norms - 1).abs().max().item())
+    check(cos.min().item() >= bound,
+          f"{path} kernel vs plain path cosine {cos.min().item()} < {bound}")
+    check(bool(((norms - 1).abs() <= 1e-3).all()), f"{path} not unit-norm")
+    return got
 
 
-def timings(model, images, card: str) -> dict:
-    """Phase 6: CUDA-event times of the slice and of K1 vs its plain
-    version at the main path's shape."""
+def interleaved_ms(fns: dict, iters: int) -> dict:
+    """CUDA-event ms of each fn, run in turns a, b, c, c, b, a; returns
+    the mean of each fn's two runs and the runs."""
+    names = list(fns)
+    runs = {k: [] for k in names}
+    for k in names + names[::-1]:
+        runs[k].append(cuda_ms(fns[k], iters=iters))
+    return {k: (sum(v) / 2, v) for k, v in runs.items()}
+
+
+def bounds(kind: str, b, n, d, h, residual=False) -> dict:
+    """The least time the card could take for one call at these shapes:
+    the larger of bytes (each input read once, each output written once)
+    over 3.35 TB/s and operations over the peak rate of their type."""
+    m, dh = b * n, d // h
+    att = 2 * b * h * n * n * dh         # one of q.k^T, P.V
+    io = 2 * m * d * 2                   # bf16 x in, out out
+    if kind == "K1":
+        ops_t = (2 * m * d * 4 * d + 2 * att) / PEAK_BF16
+        nbytes = io + 4 * d * d * 2 + (2 * d + 3 * d + 2 * d) * 4
+    elif kind == "K2":
+        ops_t = (2 * m * d * 4 * d + att) / PEAK_INT8 + att / PEAK_BF16
+        nbytes = io + 4 * d * d + (2 * d + 6 * d + 3 * d) * 4
+    else:
+        hid = 4 * d
+        ops_t = 4 * m * d * hid / PEAK_INT8
+        nbytes = io + (m * d * 2 if residual else 0) + 2 * d * hid + (
+            2 * d + 2 * hid + 3 * d) * 4
+    bytes_t = nbytes / PEAK_BYTES
+    return dict(bound_ms=max(ops_t, bytes_t) * 1e3,
+                bound_by="operations" if ops_t >= bytes_t else "bytes",
+                ops_bound_ms=ops_t * 1e3, bytes_bound_ms=bytes_t * 1e3)
+
+
+def library_k1(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma, h):
+    """K1's yardstick (timed only here, never called by the port):
+    F.layer_norm -> torch.matmul -> F.scaled_dot_product_attention ->
+    torch.matmul + epilogue, all bf16."""
+    import torch.nn.functional as F
+    b, n, d = x.shape
+    hx = F.layer_norm(x.float(), (d,), ln_scale, ln_bias, 1e-6).bfloat16()
+    qkv = (torch.matmul(hx, wqkv) + bqkv).bfloat16()
+    q, k, v = (t.reshape(b, n, h, d // h).transpose(1, 2)
+               for t in qkv.split(d, dim=-1))
+    o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(
+        b, n, d)
+    return ((torch.matmul(o, wo) + bo) * gamma + x).bfloat16()
+
+
+def library_k2(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
+               wo_q_t, so_eff, bo, gamma, cs, num_heads):
+    """K2's yardstick: F.layer_norm -> quantize -> torch._int_mm (qkv) ->
+    dequant -> F.scaled_dot_product_attention in bf16 -> quantize ->
+    torch._int_mm (out projection) + epilogue."""
+    import torch.nn.functional as F
+    b, n, d = x.shape
+    xq = torch.clamp(torch.round(F.layer_norm(x.float(), (d,), None, None,
+                                              1e-6) * ln_scale_q + ln_bias_q),
+                     -127, 127).to(torch.int8).reshape(-1, d)
+    qkv = (torch._int_mm(xq, wqkv_q_t.t()) * sqkv_eff + bqkv_eff).bfloat16()
+    q, k, v = (t.reshape(b, n, num_heads, d // num_heads).transpose(1, 2)
+               for t in qkv.split(d, dim=-1))
+    o = F.scaled_dot_product_attention(q, k, v)
+    c8 = torch.clamp(torch.round(o.transpose(1, 2).reshape(-1, d).float()),
+                     -127, 127).to(torch.int8)
+    out = torch._int_mm(c8, wo_q_t.t()) * so_eff + bo
+    return (out.reshape(b, n, d) * gamma + x).bfloat16()
+
+
+def library_k3(x, ln_scale_q, ln_bias_q, w1q_t, s1_eff, b1, w2q_t, s2_eff,
+               b2, gamma, inv_a_mid):
+    """K3's yardstick: F.layer_norm + two torch._int_mm with the
+    quantize / GELU / dequant steps between them."""
+    import torch.nn.functional as F
+    d = x.shape[-1]
+    xf = x.reshape(-1, d)
+    xq = torch.clamp(torch.round(F.layer_norm(xf.float(), (d,), None, None,
+                                              1e-6) * ln_scale_q + ln_bias_q),
+                     -127, 127).to(torch.int8)
+    hmid = F.gelu(torch._int_mm(xq, w1q_t.t()) * s1_eff + b1,
+                  approximate="tanh")
+    gq = torch.clamp(torch.round(hmid * inv_a_mid), -127, 127).to(torch.int8)
+    y = torch._int_mm(gq, w2q_t.t()) * s2_eff + b2
+    return (y * gamma + xf).bfloat16().reshape(x.shape)
+
+
+def kernel_times(device, card: str) -> dict:
+    """Phase 6b: K1, K2 and K3 at the main path's shape, each in turns with
+    its plain version and its library yardstick, beside its bound."""
+    from geovpr_torch.ops.mhsa import (fused_mhsa_block, fused_mhsa_block_int8,
+                                       mhsa_block_int8_reference,
+                                       mhsa_block_reference)
+    from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
+                                           mlp_block_int8_reference)
+
+    b, n, d, h = MAIN_SHAPE
+    x1, vecs, mats = block_inputs(b, n, d, torch.Generator().manual_seed(
+        SEED), device)
+    a1 = (x1, vecs["ln_scale"], vecs["ln_bias"], mats["wqkv"], vecs["bqkv"],
+          mats["wo"], vecs["bo"], vecs["gamma"], h)
+    x, k2, k3 = int8_block_case(b, n, d, h, device)
+    out = {}
+    with torch.inference_mode():
+        cases = {
+            "K1": {"kernel": lambda: fused_mhsa_block(*a1),
+                   "plain": lambda: mhsa_block_reference(*a1),
+                   "library": lambda: library_k1(*a1)},
+            "K2": {"kernel": lambda: fused_mhsa_block_int8(x, **k2,
+                                                           num_heads=h),
+                   "plain": lambda: mhsa_block_int8_reference(x, **k2,
+                                                              num_heads=h),
+                   "library": lambda: library_k2(x, **k2, num_heads=h)},
+            "K3": {"kernel": lambda: fused_mlp_block_int8(x, **k3),
+                   "plain": lambda: mlp_block_int8_reference(x, **k3),
+                   "library": lambda: library_k3(x, **k3)}}
+        for name, fns in cases.items():
+            t = interleaved_ms(fns, iters=10)
+            out[name] = dict(ms=t["kernel"][0], plain_ms=t["plain"][0],
+                             library_ms=t["library"][0],
+                             runs={k: v[1] for k, v in t.items()},
+                             **bounds(name, b, n, d, h))
+            phase("kernel_time", card=repr(card), name=name,
+                  shape="B{}_N{}_D{}_H{}".format(*MAIN_SHAPE), **out[name])
+    return out
+
+
+def model_times(model, images, card: str, path: str) -> None:
+    """Phase 6 (bf16) / 10 (int8): CUDA-event ms per B=64 batch of
+    descriptor extraction (images on the device, weights resident), img/s
+    and peak device memory."""
     from geovpr_torch.data.transforms import normalize
-    from geovpr_torch.ops.mhsa import fused_mhsa_block, mhsa_block_reference
 
     with torch.inference_mode():
         torch.cuda.reset_peak_memory_stats()
         ms_batch = cuda_ms(lambda: model(normalize(images)), iters=10)
         peak = torch.cuda.max_memory_allocated()
-        b, n, d, h = MAIN_SHAPE
-        x, vecs, mats = block_inputs(b, n, d, torch.Generator().manual_seed(
-            SEED), images.device)
-        args = (x, vecs["ln_scale"], vecs["ln_bias"], mats["wqkv"],
-                vecs["bqkv"], mats["wo"], vecs["bo"], vecs["gamma"], h)
-        # alternate plain, kernel, kernel, plain
-        plain_a = cuda_ms(lambda: mhsa_block_reference(*args), iters=10)
-        k_a = cuda_ms(lambda: fused_mhsa_block(*args), iters=20)
-        k_b = cuda_ms(lambda: fused_mhsa_block(*args), iters=20)
-        plain_b = cuda_ms(lambda: mhsa_block_reference(*args), iters=10)
-    t = dict(ms_per_batch=ms_batch, img_per_s=BATCH * 1e3 / ms_batch,
-             peak_mem_bytes=peak, k1_ms=(k_a + k_b) / 2,
-             k1_plain_ms=(plain_a + plain_b) / 2,
-             k1_ms_runs=[k_a, k_b], k1_plain_ms_runs=[plain_a, plain_b])
-    phase("times", card=repr(card), batch=BATCH, **{
-        k: v for k, v in t.items()})
-    return t
+    phase("times", card=repr(card), path=path, batch=BATCH,
+          ms_per_batch=ms_batch, img_per_s=BATCH * 1e3 / ms_batch,
+          peak_mem_bytes=peak)
 
 
-def breakdown(model, images, card: str) -> None:
-    """Phase 7: device time by kernel for one batch (torch.profiler), and
-    the device's idle share of that window (the profiler's own overhead
-    inflates the window, so the share is an upper bound)."""
+def breakdown(model, images, card: str, path: str = "bf16") -> None:
+    """Phase 7 (bf16) / 11 (int8): device time by kernel for one batch
+    (torch.profiler), and the device's idle share of that window (the
+    profiler's own overhead inflates the window, so the share is an upper
+    bound)."""
     from torch.profiler import ProfilerActivity, profile
 
     from geovpr_torch.data.transforms import normalize
@@ -270,12 +512,14 @@ def breakdown(model, images, card: str) -> None:
                if str(e.device_type).endswith("CUDA")]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not kernels:
-        phase("breakdown", card=repr(card), device_time="not measured")
+        phase("breakdown", card=repr(card), path=path,
+              device_time="not measured")
         return
-    phase("breakdown", card=repr(card), batch=BATCH, window_ms=wall_ms,
+    phase("breakdown", card=repr(card), path=path, batch=BATCH,
+          window_ms=wall_ms,
           device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        phase("kernel_time", ms=e.self_device_time_total / 1e3,
+        phase("device_time", path=path, ms=e.self_device_time_total / 1e3,
               calls=e.count, share=e.self_device_time_total / 1e3 / busy_ms,
               name=e.key[:90])
 
@@ -302,23 +546,51 @@ def main() -> int:
     phase("build", seconds=time.perf_counter() - t0)
 
     errs = kernel_vs_plain(device)
+    errs8 = int8_kernels_vs_plain(device)
 
-    model = build_model(VARIANT, IMAGE_SIZE, device, seed=SEED)
     gallery = synthetic_gallery(N_GALLERY, IMAGE_SIZE,
                                 np.random.default_rng(SEED))
+    images = torch.from_numpy(gallery.images[:BATCH]).to(device)
+
+    model = build_model(VARIANT, IMAGE_SIZE, device, seed=SEED)
     with tempfile.TemporaryDirectory() as tmp:
         launches = slice_end_to_end(model, device, gallery, tmp)
-    images = torch.from_numpy(gallery.images[:BATCH]).to(device)
-    kernel_path_vs_plain_path(model, images)
-    t = timings(model, images, card)
-    breakdown(model, images, card)
+    desc_bf16 = kernel_path_vs_plain_path(model, images)
+    model_times(model, images, card, "bf16")
+    breakdown(model, images, card, "bf16")
+    del model
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_mhsa_block", "route": "cuda",
-        "source": "geovpr_torch/csrc/mhsa.cu",
-        "replaces": "geovpr/ops/pallas_mhsa.py:904",
-        "launches": launches, "max_abs_err": errs[MAIN_SHAPE],
-        "ms": t["k1_ms"], "plain_ms": t["k1_plain_ms"]}]}))
+    model8 = build_model(VARIANT, IMAGE_SIZE, device, seed=SEED, int8=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches8 = slice_end_to_end(model8, device, gallery, tmp, int8=True)
+    desc_int8 = kernel_path_vs_plain_path(model8, images, MIN_COSINE_INT8,
+                                          "int8")
+    cos = torch.nn.functional.cosine_similarity(desc_int8, desc_bf16, dim=1)
+    phase("int8_vs_bf16", min_cosine=cos.min().item(),
+          mean_cosine=cos.mean().item())
+    model_times(model8, images, card, "int8")
+    breakdown(model8, images, card, "int8")
+    kt = kernel_times(device, card)
+
+    rows = []
+    for name, k, src, replaces, count, err in (
+            ("fused_mhsa_block", "K1", "geovpr_torch/csrc/mhsa.cu",
+             "geovpr/ops/pallas_mhsa.py:904", launches["fused_mhsa_block"],
+             errs[MAIN_SHAPE]),
+            ("fused_mhsa_block_int8", "K2", "geovpr_torch/csrc/mhsa_int8.cu",
+             "geovpr/ops/pallas_mhsa.py:554",
+             launches8["fused_mhsa_block_int8"], errs8[("K2", MAIN_SHAPE)]),
+            ("fused_mlp_block_int8", "K3", "geovpr_torch/csrc/mlp_int8.cu",
+             "geovpr/ops/pallas_mlp.py:91",
+             launches8["fused_mlp_block_int8"], errs8[("K3", MAIN_SHAPE)])):
+        t = kt[k]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": count,
+                     "max_abs_err": err, "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

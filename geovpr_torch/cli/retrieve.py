@@ -5,14 +5,18 @@
         --gallery-csv labels_train.csv --query-csv labels_val.csv \
         --image-root dataset/images --out-dir out \
         [--variables salad.msgpack] [--top-k 5] [--positive-radius 25] \
-        [--save-index gallery.npz | --load-index gallery.npz] [--device cuda]
+        [--save-index gallery.npz | --load-index gallery.npz] [--int8]
+        [--device cuda]
 
 Extracts DINOv2+SALAD descriptors (bf16) for gallery and queries, builds a
 device-resident bf16 index, searches cosine top-k, reports proximity
-Recall@k and writes `retrieval_matches.csv`. `--variables` reads the flax
-msgpack `geovpr.cli.retrieve` reads; without it the model is a seeded random
-init. `--device` defaults to cuda and fails when no card is present; pass
-`--device cpu` to run on the CPU. `--int8` is not ported yet.
+Recall@k and writes `retrieval_matches.csv`. `--int8` serves the w8a8 path
+instead: the model's static activation scales are calibrated on the first
+gallery batch (else the first query batch), after normalisation, every
+block runs kernels K2 and K3, and the gallery index is int8 with per-row
+scales. `--variables` reads the flax msgpack `geovpr.cli.retrieve` reads;
+without it the model is a seeded random init. `--device` defaults to cuda
+and fails when no card is present; pass `--device cpu` to run on the CPU.
 """
 
 from __future__ import annotations
@@ -24,10 +28,6 @@ import sys
 
 import numpy as np
 import torch
-
-INT8_TODO = ("int8 serving is not ported yet (ROADMAP Queue 1 item 5, the "
-             "int8 serving slice: kernels K2/K3, calibration, int8 index)")
-
 
 def extract_descriptors(model, source, batch_size: int,
                         device) -> np.ndarray:
@@ -47,19 +47,38 @@ def extract_descriptors(model, source, batch_size: int,
     return out
 
 
+def calibrate_int8(model, source, batch_size: int, device) -> dict:
+    """Calibrate an int8 model's static scales on the first batch of
+    `source`, normalised as the model sees it; returns the quant tree."""
+    from geovpr_torch.data.pipeline import iterate_batches
+    from geovpr_torch.data.transforms import normalize
+    from geovpr_torch.models.quantize import quantize_for_serving
+
+    batch = next(iter(iterate_batches(source, batch_size)))
+    images = normalize(torch.from_numpy(batch["image"]).to(device))
+    return quantize_for_serving(model, [images])
+
+
 def run_retrieval(model, gallery_source, query_source, *, batch_size: int,
                   top_k: int, positive_radius: float, out_dir: str, device,
-                  loaded_index=None, save_index_path: str = "") -> dict:
+                  loaded_index=None, save_index_path: str = "",
+                  int8: bool = False) -> dict:
     """The retrieve main path on in-memory or disk sources: extract gallery
     descriptors (or take `loaded_index` = (index, meta) from `load_index`),
     build the index, extract and search the queries, compute proximity
     Recall@k and write `retrieval_matches.csv` into `out_dir`. Sources carry
-    latlon as `targets` and names as `filenames`."""
+    latlon as `targets` and names as `filenames`. `int8`: the model (built
+    with `build_model(..., int8=True)`) is first calibrated on the first
+    gallery batch (the first query batch when the index is loaded), and the
+    gallery index is int8."""
     from geovpr_torch.retrieval.index import (
         DescriptorIndex, recall_at_k_radius, save_index,
         write_retrieval_matches_csv)
 
     os.makedirs(out_dir, exist_ok=True)
+    if int8:
+        calibrate_int8(model, gallery_source if loaded_index is None
+                       else query_source, batch_size, device)
     if loaded_index is not None:
         index, meta = loaded_index
         gallery_filenames = (list(meta["filenames"]) if "filenames" in meta
@@ -68,8 +87,8 @@ def run_retrieval(model, gallery_source, query_source, *, batch_size: int,
     else:
         g_desc = extract_descriptors(model, gallery_source, batch_size,
                                      device)
-        index = DescriptorIndex(dim=g_desc.shape[-1],
-                                device=device).build(g_desc)
+        index = DescriptorIndex(dim=g_desc.shape[-1], device=device,
+                                quantize=int8).build(g_desc)
         gallery_filenames = gallery_source.filenames
         gallery_latlon = np.asarray(gallery_source.targets, np.float32)
         if save_index_path:
@@ -100,19 +119,27 @@ def run_retrieval(model, gallery_source, query_source, *, batch_size: int,
 
 
 def build_model(variant: str, image_size: int, device, variables: str = "",
-                seed: int = 0):
+                seed: int = 0, int8: bool = False):
     """DinoV2Salad in bf16 on `device`, from flax msgpack variables or a
-    random init seeded with `seed`."""
+    random init seeded with `seed`; `int8` builds the w8a8 serving model
+    (`int8_attn` and `int8_mlp`), to be calibrated before use."""
     from geovpr_torch.models.layers import init_weights_
     from geovpr_torch.models.salad import DinoV2Salad
 
     model = DinoV2Salad(variant=variant, image_size=image_size,
-                        dtype=torch.bfloat16)
+                        dtype=torch.bfloat16, int8_attn=int8, int8_mlp=int8)
     if variables:
         from geovpr_torch.models.convert_jax import (load_flax_msgpack,
                                                      state_dict_from_flax)
-        model.load_state_dict(state_dict_from_flax(
-            load_flax_msgpack(variables)))
+        # an int8 model's quant buffers may be absent (flax variables hold
+        # params only); they are filled by calibration
+        res = model.load_state_dict(state_dict_from_flax(
+            load_flax_msgpack(variables)), strict=False)
+        params = {n for n, _ in model.named_parameters()}
+        bad = [k for k in res.missing_keys if k in params or not int8]
+        if bad or res.unexpected_keys:
+            raise RuntimeError(f"{variables}: missing {bad}, unexpected "
+                               f"{res.unexpected_keys}")
     else:
         init_weights_(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()
@@ -145,13 +172,13 @@ def main(argv=None):
                         "port's search stays exact (torch.topk has no "
                         "approximate counterpart of lax.approx_max_k)")
     p.add_argument("--int8", action="store_true",
-                   help="w8a8 serving path (not ported yet)")
+                   help="w8a8 serving path: static activation scales "
+                        "calibrated on the first gallery batch, kernels K2 "
+                        "and K3 in every block, int8 gallery index")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda (default) fails without a card")
     args = p.parse_args(argv)
 
-    if args.int8:
-        raise SystemExit(INT8_TODO)
     if not args.gallery_csv and not args.load_index:
         p.error("either --gallery-csv or --load-index is required")
     device = torch.device(args.device)
@@ -159,8 +186,8 @@ def main(argv=None):
         raise SystemExit("no CUDA device is available; pass --device cpu to "
                          "run on the CPU")
 
-    from geovpr.data.manifest import load_manifest
-    from geovpr.data.pipeline import ImageFolderSource
+    from geovpr_torch.data.manifest import load_manifest
+    from geovpr_torch.data.pipeline import ImageFolderSource
     from geovpr_torch.retrieval.index import load_index
 
     if args.approx:
@@ -170,7 +197,7 @@ def main(argv=None):
         print("WARNING: no --variables given; using random init "
               "(descriptors will not be meaningful)")
     model = build_model(args.variant, args.image_size, device,
-                        args.variables)
+                        args.variables, int8=args.int8)
 
     def source(path):
         m = load_manifest(path, args.image_root)
@@ -186,7 +213,7 @@ def main(argv=None):
         out_dir=args.out_dir, device=device,
         loaded_index=(load_index(args.load_index, device)
                       if args.load_index else None),
-        save_index_path=args.save_index)
+        save_index_path=args.save_index, int8=args.int8)
     print(json.dumps(out))
 
 

@@ -1,0 +1,409 @@
+// Fused w8a8 pre-LN attention half-block for Hopper (sm_90a), kernel K2:
+//
+//   out = x + gamma * ((int8(MHSA(int8(LN(x)*s + b) @ Wqkv_q)) @ Wo_q)
+//                      * so + bo)
+//
+// Replaces geovpr/ops/pallas_mhsa.py::fused_mhsa_block_int8 (body
+// _mhsa_kernel_v3_int8 with qk8=True, pv8=False and skip_max=True, the JAX
+// defaults). The static scales arrive folded by DinoV2Block's int8 fold
+// (geovpr/models/dinov2.py:201-249): 1/a_x in the LN scale and bias;
+// a_x * column scale in sqkv, with 1/a_q, 1/a_k and 1/a_ctx folded into the
+// q, k and v thirds; a_ctx * column scale in so; cs2 = a_q a_k dh^-0.5
+// log2(e), the score dequant constant in the exp2 domain. In order:
+//   1. LN -> * ln_scale + ln_bias -> int8 (round half to even);
+//   2. int8 GEMM with Wqkv_q -> * sqkv + bqkv;
+//   3. q and k rounded and clipped to int8; v rounded to bf16;
+//   4. per head, int8 q.k^T over dh = 64 (s32), times cs2;
+//   5. p = exp2(min(s, 100)), with no max-shift: the clamp keeps p below
+//      2^100, and p, held in f32 and rounded to bf16 for the product (never
+//      fp16, whose range ends at 65504), cannot overflow; no online
+//      rescaling is needed;
+//   6. ctx = (bf16(p) @ v) / sum(p), the sum taken over the f32 p;
+//   7. ctx -> int8;
+//   8. int8 GEMM with Wo_q -> * so + bo -> * gamma + x, bf16 store.
+//
+// The key split: the TPU kernel splits off the last key (na = n - 1) to fit
+// its 256-wide tiles and keeps that key's p in f32. This kernel masks keys
+// past N inside the kernel, for any N, as K1 does, and rounds every p to
+// bf16; the tolerance of its checks covers the difference.
+//
+// What bounds it on the H100: at DINOv2-B/14, B=64 (16,448 rows, D 768, 12
+// heads of 64) one call is 77.6 GOP of int8 projections + 6.5 GOP of int8
+// scores + 6.5 GFLOP of bf16 P.V, ~0.049 ms at 1,979 int8 TOP/s and 989
+// bf16 TFLOP/s, against ~53 MB of traffic (~0.016 ms at 3.35 TB/s): tensor-
+// core bound. The score planes never reach device memory.
+//
+// Design (first, simple version; K1's three launches on the caller's
+// stream):
+//   1. qkv_kernel: a 64-row block of x is LayerNorm-ed and quantized
+//      straight into shared memory (48 KB at D = 768, against K1's 142 KB,
+//      so three CTAs fit on an SM), then multiplied with 128-column slabs of
+//      Wqkv_q by mma.sync int8; q|k go to int8 scratch, v to bf16 scratch.
+//   2. attention_kernel: grid (query tile of 64, head, batch); four warps
+//      of 16 query rows; key tiles of 64 stream through shared memory;
+//      int8 scores by mma.sync in registers; P.V by WMMA bf16 with the
+//      context accumulated in registers across all key tiles (no rescale
+//      without a max-shift); ctx rounded to int8 scratch.
+//   3. proj_kernel: ctx8 @ Wo_q with the dequant, LayerScale and residual
+//      epilogue.
+// The q|k, v and ctx scratch round-trip through device memory between the
+// launches, and mma.sync stands in for wgmma/TMA: both are the first things
+// a faster version changes.
+
+#include <mma.h>
+
+#include "int8_common.cuh"
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int GEMM_THREADS = 256;
+using ProjGemm = Int8Gemm<2, 4>;  // 64 rows x 128 columns per CTA
+
+__host__ __device__ inline size_t gemm_smem_bytes(int D) {
+  return (size_t)ProjGemm::BM * (D + 16) + (size_t)ProjGemm::SMEM_B;
+}
+
+// x (M, D) bf16 -> LN -> int8 (folded scales) -> @ Wqkv_q (3D x D, k-
+// contiguous) -> * sqkv + bqkv; columns [0, 2D) to qk8 (M, 2D) int8,
+// [2D, 3D) to v (M, D) bf16.
+__global__ void __launch_bounds__(GEMM_THREADS)
+qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
+           const float* __restrict__ ln_bias, float eps,
+           const int8_t* __restrict__ wt, const float* __restrict__ sc,
+           const float* __restrict__ bias, int8_t* __restrict__ qk8,
+           bf16* __restrict__ v, int M, int D) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lda = D + 16;
+  int8_t* As = reinterpret_cast<int8_t*>(smem);
+  int8_t* Bs = As + ProjGemm::BM * lda;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n0 = blockIdx.x * ProjGemm::BN;
+  const int m0 = blockIdx.y * ProjGemm::BM;
+
+  for (int r = warp; r < ProjGemm::BM; r += GEMM_THREADS / 32) {
+    if (m0 + r < M) {
+      ln_quant_row(x + (size_t)(m0 + r) * D, D, ln_scale, ln_bias, eps,
+                   As + r * lda, lane);
+    } else {
+      for (int c = lane; c < D; c += 32) As[r * lda + c] = 0;
+    }
+  }
+  __syncthreads();
+
+  const int N3 = 3 * D;
+  int acc[2][4][4];
+  ProjGemm::run(As, lda, wt, n0, N3, D, Bs, acc);
+  const int wm = warp / 4;
+  const int wn = warp % 4;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int col = n0 + wn * 32 + ni * 8 + 2 * t;
+      if (col >= N3) continue;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = m0 + wm * 32 + mi * 16 + g + 8 * hr;
+        if (row >= M) continue;
+        const float f0 = (float)acc[mi][ni][2 * hr] * sc[col] + bias[col];
+        const float f1 = (float)acc[mi][ni][2 * hr + 1] * sc[col + 1] + bias[col + 1];
+        if (col < 2 * D) {
+          *reinterpret_cast<char2*>(qk8 + (size_t)row * 2 * D + col) =
+              make_char2(round_clip_i8(f0), round_clip_i8(f1));
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(v + (size_t)row * D + col - 2 * D) =
+              __floats2bfloat162_rn(f0, f1);
+        }
+      }
+    }
+}
+
+// ctx8 (M, D) int8 @ Wo_q (D x D, k-contiguous) -> * so + bo -> * gamma
+// + x -> out (M, D) bf16.
+__global__ void __launch_bounds__(GEMM_THREADS)
+proj_kernel(const int8_t* __restrict__ ctx8, const int8_t* __restrict__ wt,
+            const float* __restrict__ so, const float* __restrict__ bo,
+            const float* __restrict__ gamma, const bf16* __restrict__ x,
+            bf16* __restrict__ out, int M, int D) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lda = D + 16;
+  int8_t* As = reinterpret_cast<int8_t*>(smem);
+  int8_t* Bs = As + ProjGemm::BM * lda;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n0 = blockIdx.x * ProjGemm::BN;
+  const int m0 = blockIdx.y * ProjGemm::BM;
+
+  const int kc = D / 16;
+  for (int i = threadIdx.x; i < ProjGemm::BM * kc; i += GEMM_THREADS) {
+    const int r = i / kc;
+    const int c = i % kc;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (m0 + r < M)
+      val = *reinterpret_cast<const uint4*>(ctx8 + (size_t)(m0 + r) * D + c * 16);
+    *reinterpret_cast<uint4*>(As + r * lda + c * 16) = val;
+  }
+  __syncthreads();
+
+  int acc[2][4][4];
+  ProjGemm::run(As, lda, wt, n0, D, D, Bs, acc);
+  const int wm = warp / 4;
+  const int wn = warp % 4;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int col = n0 + wn * 32 + ni * 8 + 2 * t;
+      if (col >= D) continue;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = m0 + wm * 32 + mi * 16 + g + 8 * hr;
+        if (row >= M) continue;
+        const size_t o = (size_t)row * D + col;
+        const __nv_bfloat162 r2 = *reinterpret_cast<const __nv_bfloat162*>(x + o);
+        float y0 = (float)acc[mi][ni][2 * hr] * so[col] + bo[col];
+        float y1 = (float)acc[mi][ni][2 * hr + 1] * so[col + 1] + bo[col + 1];
+        y0 = y0 * gamma[col] + __low2float(r2);
+        y1 = y1 * gamma[col + 1] + __high2float(r2);
+        *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(y0, y1);
+      }
+    }
+}
+
+// ----------------------------------------------------------- attention ----
+constexpr int DH = 64;        // head dim (every DINOv2 variant)
+constexpr int ATT_BQ = 64;    // query rows per CTA, 16 per warp
+constexpr int ATT_BKV = 64;   // keys per tile
+constexpr int ATT_THREADS = 128;
+constexpr int I8_LD = DH + 16;     // bytes: int8 q/k tiles (20 words)
+constexpr int V_LD = DH + 8;       // bf16 v tile
+constexpr int P_LD = ATT_BKV + 8;  // bf16 probabilities
+constexpr int O_LD = DH + 4;       // f32 context
+
+constexpr size_t ATT_Q_OFF = 0;
+constexpr size_t ATT_K_OFF = ATT_Q_OFF + (size_t)ATT_BQ * I8_LD;
+constexpr size_t ATT_V_OFF = ATT_K_OFF + (size_t)ATT_BKV * I8_LD;
+constexpr size_t ATT_P_OFF = ATT_V_OFF + (size_t)ATT_BKV * V_LD * sizeof(bf16);
+constexpr size_t ATT_O_OFF = ATT_P_OFF + (size_t)ATT_BQ * P_LD * sizeof(bf16);
+constexpr size_t ATT_L_OFF = ATT_O_OFF + (size_t)ATT_BQ * O_LD * sizeof(float);
+constexpr size_t ATT_SMEM = ATT_L_OFF + (size_t)ATT_BQ * sizeof(float);
+
+// qk8: (B*N, 2D) int8, q at columns [0, D), k at [D, 2D), head h at h*DH
+// of each; v: (B*N, D) bf16; ctx8: (B*N, D) int8.
+__global__ void __launch_bounds__(ATT_THREADS)
+attention_kernel(const int8_t* __restrict__ qk8, const bf16* __restrict__ v,
+                 int8_t* __restrict__ ctx8, int N, int D, float cs2) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t* Qs = reinterpret_cast<int8_t*>(smem + ATT_Q_OFF);
+  int8_t* Ks = reinterpret_cast<int8_t*>(smem + ATT_K_OFF);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + ATT_V_OFF);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + ATT_P_OFF);
+  float* Os = reinterpret_cast<float*>(smem + ATT_O_OFF);
+  float* Ls = reinterpret_cast<float*>(smem + ATT_L_OFF);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int q0 = blockIdx.x * ATT_BQ;
+  const int h = blockIdx.y;
+  const size_t row0 = (size_t)blockIdx.z * N;
+  const size_t ldqk = 2 * (size_t)D;
+
+  // Q tile: 64 rows x 64 bytes, rows past N zero
+  for (int i = threadIdx.x; i < ATT_BQ * (DH / 16); i += ATT_THREADS) {
+    const int r = i / (DH / 16);
+    const int c = i % (DH / 16);
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (q0 + r < N)
+      val = *reinterpret_cast<const uint4*>(qk8 + (row0 + q0 + r) * ldqk + h * DH + c * 16);
+    *reinterpret_cast<uint4*>(Qs + r * I8_LD + c * 16) = val;
+  }
+  __syncthreads();
+
+  // this warp's 16 query rows as two k32 A fragments, held for all tiles
+  uint32_t aq[2][4];
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const int8_t* ap = Qs + (warp * 16 + g) * I8_LD + kk * 32 + t * 4;
+    aq[kk][0] = lds32(ap);
+    aq[kk][1] = lds32(ap + 8 * I8_LD);
+    aq[kk][2] = lds32(ap + 16);
+    aq[kk][3] = lds32(ap + 8 * I8_LD + 16);
+  }
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wmma::fill_fragment(o[j], 0.f);
+  float l_lo = 0.f;  // partial row sums of rows g and g + 8
+  float l_hi = 0.f;
+
+  for (int kv0 = 0; kv0 < N; kv0 += ATT_BKV) {
+    __syncthreads();  // the previous tile's K/V reads are done
+    for (int i = threadIdx.x; i < ATT_BKV * (DH / 16); i += ATT_THREADS) {
+      const int r = i / (DH / 16);
+      const int c = i % (DH / 16);
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (kv0 + r < N)
+        val = *reinterpret_cast<const uint4*>(qk8 + (row0 + kv0 + r) * ldqk + D + h * DH + c * 16);
+      *reinterpret_cast<uint4*>(Ks + r * I8_LD + c * 16) = val;
+    }
+    for (int i = threadIdx.x; i < ATT_BKV * (DH / 8); i += ATT_THREADS) {
+      const int r = i / (DH / 8);
+      const int c = i % (DH / 8);
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (kv0 + r < N)
+        val = *reinterpret_cast<const uint4*>(v + (row0 + kv0 + r) * D + h * DH + c * 8);
+      *reinterpret_cast<uint4*>(Vs + r * V_LD + c * 8) = val;
+    }
+    __syncthreads();
+
+    // S (16 x 64 per warp) = q8 . k8^T, exact in int32
+    int s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int8_t* bp = Ks + (j * 8 + g) * I8_LD + kk * 32 + t * 4;
+        mma_s8(s[j], aq[kk], lds32(bp), lds32(bp + 16));
+      }
+
+    // p = exp2(min(s * cs2, 100)), keys >= N masked to 0; bf16 into Ps
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int key = kv0 + j * 8 + 2 * t;
+        const float p0 = key < N ? exp2f(fminf((float)s[j][2 * hr] * cs2, 100.f)) : 0.f;
+        const float p1 = key + 1 < N ? exp2f(fminf((float)s[j][2 * hr + 1] * cs2, 100.f)) : 0.f;
+        if (hr == 0) l_lo += p0 + p1; else l_hi += p0 + p1;
+        *reinterpret_cast<__nv_bfloat162*>(Ps + (warp * 16 + g + 8 * hr) * P_LD + j * 8 + 2 * t) =
+            __floats2bfloat162_rn(p0, p1);
+      }
+    __syncwarp();
+
+    // O (16 x 64 per warp) += P V, f32 accumulation in registers
+#pragma unroll
+    for (int kk = 0; kk < ATT_BKV; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
+      wmma::load_matrix_sync(fp, Ps + warp * 16 * P_LD + kk, P_LD);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
+        wmma::load_matrix_sync(fv, Vs + kk * V_LD + j * 16, V_LD);
+        wmma::mma_sync(o[j], fp, fv, o[j]);
+      }
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wmma::store_matrix_sync(Os + warp * 16 * O_LD + j * 16, o[j], O_LD,
+                            wmma::mem_row_major);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  if (t == 0) {
+    Ls[warp * 16 + g] = l_lo;
+    Ls[warp * 16 + g + 8] = l_hi;
+  }
+  __syncwarp();
+
+  // lane pair (2r, 2r+1) writes row warp*16 + r, each lane half of it
+  const int r_loc = warp * 16 + (lane >> 1);
+  const int half = (lane & 1) * 32;
+  const int row = q0 + r_loc;
+  if (row < N) {
+    const float l = Ls[r_loc];
+    const float* orow = Os + r_loc * O_LD + half;
+    int8_t* dst = ctx8 + (row0 + row) * D + h * DH + half;
+#pragma unroll
+    for (int i = 0; i < 32; i += 4) {
+      char4 q;
+      q.x = round_clip_i8(orow[i] / l);
+      q.y = round_clip_i8(orow[i + 1] / l);
+      q.z = round_clip_i8(orow[i + 2] / l);
+      q.w = round_clip_i8(orow[i + 3] / l);
+      *reinterpret_cast<char4*>(dst + i) = q;
+    }
+  }
+}
+
+}  // namespace
+
+static const int kMaxSmem = 232448;
+
+// Raises the GEMM kernels' dynamic shared-memory limit on the current
+// device. Called once per device before the first launch; returns a
+// cudaError_t as int.
+extern "C" int geovpr_mhsa_int8_init(void) {
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(qkv_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kMaxSmem)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaFuncSetAttribute(proj_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kMaxSmem)) != cudaSuccess)
+    return (int)e;
+  return (int)cudaFuncSetAttribute(attention_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)ATT_SMEM);
+}
+
+// Returns a cudaError_t as int: 0 when every launch was accepted. x and out
+// are (B*N, D) bf16; wqkv_t (3D, D) and wo_t (D, D) int8, k-contiguous;
+// the vectors f32. Scratch: qk8 (B*N, 2D) int8, v (B*N, D) bf16, ctx8
+// (B*N, D) int8. D = 64 H, D <= 1024. cs2 = a_q a_k dh^-0.5 log2(e).
+extern "C" int geovpr_mhsa_block_int8(
+    const void* x, const void* ln_scale, const void* ln_bias,
+    const void* wqkv_t, const void* sqkv, const void* bqkv, const void* wo_t,
+    const void* so, const void* bo, const void* gamma, void* qk8, void* v,
+    void* ctx8, void* out, int B, int N, int D, int H, float eps, float cs2,
+    void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0 || D != H * DH || D > LN_MAX_D ||
+      gemm_smem_bytes(D) > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const int M = B * N;
+  const int m_blocks = (M + ProjGemm::BM - 1) / ProjGemm::BM;
+  if (m_blocks > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t gsmem = gemm_smem_bytes(D);
+  cudaError_t e;
+
+  qkv_kernel<<<dim3((3 * D + ProjGemm::BN - 1) / ProjGemm::BN, m_blocks),
+               GEMM_THREADS, gsmem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), eps,
+      static_cast<const int8_t*>(wqkv_t), static_cast<const float*>(sqkv),
+      static_cast<const float*>(bqkv), static_cast<int8_t*>(qk8),
+      static_cast<bf16*>(v), M, D);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+
+  attention_kernel<<<dim3((N + ATT_BQ - 1) / ATT_BQ, H, B), ATT_THREADS,
+                     ATT_SMEM, s>>>(static_cast<const int8_t*>(qk8),
+                                    static_cast<const bf16*>(v),
+                                    static_cast<int8_t*>(ctx8), N, D, cs2);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+
+  proj_kernel<<<dim3((D + ProjGemm::BN - 1) / ProjGemm::BN, m_blocks),
+                GEMM_THREADS, gsmem, s>>>(
+      static_cast<const int8_t*>(ctx8), static_cast<const int8_t*>(wo_t),
+      static_cast<const float*>(so), static_cast<const float*>(bo),
+      static_cast<const float*>(gamma), static_cast<const bf16*>(x),
+      static_cast<bf16*>(out), M, D);
+  return (int)cudaGetLastError();
+}

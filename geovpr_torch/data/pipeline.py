@@ -1,18 +1,18 @@
-"""Input pipeline of the port: in-memory source, static-shape batching and
-host-to-device prefetch (the counterparts of `geovpr.data.pipeline`'s
-`ArraySource`, `iterate_batches` and `prefetch_to_device`).
+"""Input pipeline of the port: in-memory and disk sources, static-shape
+batching and host-to-device prefetch (the counterparts of
+`geovpr.data.pipeline`'s `ArraySource`, `ImageFolderSource`,
+`iterate_batches` and `prefetch_to_device`).
 
-`ArraySource` and `iterate_batches` repeat the JAX package's host code so
-that the port's main path runs where neither jax nor `geovpr` is installed;
-tests hold them to the originals. The disk source (`ImageFolderSource`,
-PIL decode) is imported from `geovpr.data.pipeline` by the CLI.
+The host code repeats the JAX package's so that the port runs where
+neither jax nor `geovpr` is installed; tests hold it to the originals.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,6 +31,66 @@ class ArraySource:
 
     def get_batch(self, idx: np.ndarray) -> dict:
         return {"image": self.images[idx], "target": self.targets[idx]}
+
+
+@dataclasses.dataclass
+class ImageFolderSource:
+    """Disk-backed source: decodes JPEG/PNG with PIL in a thread pool at
+    batch-fetch time and resizes on the host (bilinear), as the original.
+    An unreadable file becomes a black frame, the reference's fallback
+    (`geovpr/data/pipeline.py:72-79`). Only `decoder="pil"` exists here:
+    the native libjpeg decoder is not ported (ROADMAP)."""
+
+    paths: Sequence[str]
+    targets: np.ndarray
+    image_size: int = 224
+    num_threads: int = 8
+    filenames: Optional[list[str]] = None
+    decoder: str = "pil"
+    # resize the short side to `resize_to`, then centre-crop `image_size`;
+    # 0 is a plain square resize
+    resize_to: int = 0
+
+    def __post_init__(self):
+        if self.decoder != "pil":
+            raise NotImplementedError(
+                f"decoder={self.decoder!r}: the port has only the PIL "
+                "decoder (the native libjpeg decoder is not ported yet, "
+                "ROADMAP)")
+        self._pool = concurrent.futures.ThreadPoolExecutor(self.num_threads)
+
+    def __len__(self):
+        return len(self.paths)
+
+    def _decode(self, path: str) -> np.ndarray:
+        try:
+            return self._decode_inner(path)
+        except Exception:
+            return np.zeros((self.image_size, self.image_size, 3), np.uint8)
+
+    def _decode_inner(self, path: str) -> np.ndarray:
+        from PIL import Image
+        with Image.open(path) as img:
+            img = img.convert("RGB")
+            if self.resize_to:
+                w, h = img.size
+                short = min(w, h)
+                nw, nh = (round(w * self.resize_to / short),
+                          round(h * self.resize_to / short))
+                img = img.resize((nw, nh), Image.BILINEAR)
+                left = (nw - self.image_size) // 2
+                top = (nh - self.image_size) // 2
+                img = img.crop((left, top, left + self.image_size,
+                                top + self.image_size))
+            else:
+                img = img.resize((self.image_size, self.image_size),
+                                 Image.BILINEAR)
+            return np.asarray(img, np.uint8)
+
+    def get_batch(self, idx: np.ndarray) -> dict:
+        imgs = list(self._pool.map(self._decode,
+                                   [self.paths[i] for i in idx]))
+        return {"image": np.stack(imgs), "target": self.targets[idx]}
 
 
 def iterate_batches(source, batch_size: int) -> Iterator[dict]:

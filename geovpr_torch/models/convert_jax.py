@@ -7,7 +7,10 @@ The inverse of `geovpr/models/convert_torch.py`'s layouts:
   (D, 3D) `attn.qkv_weight` with q|k|v column blocks and a (3D,) bias; the
   out projection stays (in, out) as `attn.proj_weight`, the layout the fused
   attention kernel takes;
-- LayerNorm scale/bias -> weight/bias; `blockN` -> `blocks.N`.
+- LayerNorm scale/bias -> weight/bias; `blockN` -> `blocks.N`;
+- the int8 serving "quant" collection, where present, -> the buffers of
+  the same names (`backbone.blocks.0.mlp.fc1_kernel_q`, ...), each leaf
+  kept as it is: int8 kernels int8 and (in, out), 0-d scales 0-d.
 
 `load_flax_msgpack` reads the `.msgpack` file `geovpr.cli.retrieve
 --variables` reads (flax's `msgpack_serialize` format) without flax or jax.
@@ -33,7 +36,8 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> dict:
     return out
 
 
-def _torch_name(path: tuple) -> str:
+def torch_name(path: tuple) -> str:
+    """A flax path -> the port's dotted state_dict name."""
     parts = []
     for p in path:
         if p.startswith("block") and p[5:].isdigit():
@@ -44,11 +48,13 @@ def _torch_name(path: tuple) -> str:
 
 
 def state_dict_from_flax(variables: Mapping[str, Any]) -> dict:
-    """Map a (numpy) flax variables tree — `{"params": ...}` or the params
-    tree itself — of `DinoV2`, `DinoV2Salad` or `SaladHead` to the port's
-    state_dict of float32 tensors (`load_state_dict` casts them to each
-    parameter's dtype)."""
+    """Map a (numpy) flax variables tree — `{"params": ...}` (with an
+    optional "quant" collection) or the params tree itself — of `DinoV2`,
+    `DinoV2Salad` or `SaladHead` to the port's state_dict: parameters as
+    float32 tensors (`load_state_dict` casts them to each parameter's
+    dtype), quant leaves in their own dtype and shape."""
     params = variables.get("params", variables)
+    quant = variables.get("quant", {}) if "params" in variables else {}
     flat = _flatten(params)
     sd: dict[str, np.ndarray] = {}
     qkv: dict[tuple, dict] = {}
@@ -58,10 +64,10 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict:
             qkv.setdefault(tuple(mod[:-1]), {})[(mod[-1], leaf)] = arr
             continue
         if len(mod) >= 2 and mod[-2] == "attn" and mod[-1] == "proj":
-            name = _torch_name(tuple(mod[:-1]))
+            name = torch_name(tuple(mod[:-1]))
             sd[f"{name}.proj_{'weight' if leaf == 'kernel' else 'bias'}"] = arr
             continue
-        name = _torch_name(tuple(mod))
+        name = torch_name(tuple(mod))
         prefix = f"{name}." if name else ""
         if leaf == "kernel" and arr.ndim == 4:
             sd[prefix + "weight"] = np.transpose(arr, (3, 2, 0, 1))
@@ -72,13 +78,16 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict:
         else:
             sd[prefix + leaf] = arr
     for mod, parts in qkv.items():
-        name = _torch_name(mod)
+        name = torch_name(mod)
         sd[f"{name}.qkv_weight"] = np.concatenate(
             [parts[(n, "kernel")] for n in _QKV], axis=1)
         sd[f"{name}.qkv_bias"] = np.concatenate(
             [parts[(n, "bias")] for n in _QKV])
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
-            for k, v in sd.items()}
+    out = {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+           for k, v in sd.items()}
+    for path, arr in _flatten(quant).items():
+        out[torch_name(path)] = torch.from_numpy(np.array(arr, order="C"))
+    return out
 
 
 def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:

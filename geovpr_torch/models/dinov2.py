@@ -4,12 +4,21 @@ Per layer: LN(eps 1e-6) -> MHSA -> out proj -> LayerScale -> +res, then
 LN -> MLP(4x GELU) -> LayerScale -> +res; final LN; `pooled` = CLS token.
 
 The attention half of every block is one call of
-`geovpr_torch.ops.mhsa.fused_mhsa_block` (kernel K1 on CUDA tensors).
-`use_kernels=False` selects its plain version on any device, as
-`use_pallas=False` does in JAX. The patch-embed conv and the MLP half are
-plain torch ops, as the JAX package leaves them to XLA. Matrices are held
-in the compute dtype (q|k|v fused into one (D, 3D) weight once, at load),
-LayerNorm, attention-bias and LayerScale vectors in f32.
+`geovpr_torch.ops.mhsa.fused_mhsa_block` (kernel K1 on CUDA tensors); on
+the w8a8 serving path (`int8_attn`, `int8_mlp`) the attention half is
+`fused_mhsa_block_int8` (K2) and the whole MLP half, LN included, is
+`geovpr_torch.ops.mlp_int8.fused_mlp_block_int8` (K3). `use_kernels=False`
+selects the plain versions on any device, as `use_pallas=False` does in
+JAX. The patch-embed conv and the bf16 MLP half are plain torch ops, as the
+JAX package leaves them to XLA. Matrices are held in the compute dtype
+(q|k|v fused into one (D, 3D) weight once, at load), LayerNorm,
+attention-bias and LayerScale vectors in f32.
+
+Not ported: resident padding (`geovpr/models/dinov2.py:437-480`), which
+pads the token stream to the TPU's 16-row sublane quantum across the block
+stack so that the per-layer pad/slice copies around the Mosaic kernel
+vanish. K1-K3 mask keys past N inside the kernel and take any row count,
+so those copies never exist here.
 """
 
 from __future__ import annotations
@@ -18,8 +27,14 @@ import torch
 from torch import nn
 
 from geovpr_torch.models.backbone import BackboneOutput
-from geovpr_torch.models.layers import LayerNorm, Mlp, lecun_normal_, normal_
-from geovpr_torch.ops.mhsa import fused_mhsa_block, mhsa_block_reference
+from geovpr_torch.models.layers import (LayerNorm, Mlp, lecun_normal_,
+                                        normal_, register_quant_buffers)
+from geovpr_torch.ops.mhsa import (fused_mhsa_block, fused_mhsa_block_int8,
+                                   mhsa_block_int8_reference,
+                                   mhsa_block_reference)
+from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
+                                       mlp_block_int8_reference)
+from geovpr_torch.ops.quant import act_scale, quantize_weight
 
 DINOV2_VARIANTS = {
     "small-14": dict(hidden_size=384, num_layers=12, num_heads=6),
@@ -68,24 +83,137 @@ class LayerScale(nn.Module):
 
 
 class DinoV2Block(nn.Module):
+    """One pre-LN ViT block. `int8_attn` / `int8_mlp` select the w8a8
+    serving halves (K2 / K3 on CUDA tensors, their plain versions on the
+    CPU or with `use_kernels=False`); their state is the JAX "quant"
+    collection's entries of this block (`attn_*` buffers here, the MLP's
+    on `self.mlp`), folded into the kernels' arguments once, whenever it
+    is installed (`load_state_dict`, `geovpr_torch.models.quantize`).
+    With `calib` set to a dict the block runs the float plain path and
+    records the attention amaxes (`attn_x`, `attn_q`, `attn_k`, `attn_v`,
+    `attn_ctx`) there, as JAX's calibration pass does."""
+
     def __init__(self, dim: int, num_heads: int, layerscale_init: float = 1.0,
                  use_kernels: bool = True, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, int8_attn: bool = False, int8_mlp: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.use_kernels = use_kernels
+        self.int8_attn = int8_attn
+        self.calib: dict | None = None
         self.norm1 = LayerNorm(dim, LN_EPS, device=device)
         self.attn = Attention(dim, dtype, device=device)
         self.ls1 = LayerScale(dim, layerscale_init, device=device)
         self.norm2 = LayerNorm(dim, LN_EPS, device=device)
-        self.mlp = Mlp(dim, 4 * dim, dtype=dtype, device=device)
+        self.mlp = Mlp(dim, 4 * dim, dtype=dtype, device=device,
+                       int8=int8_mlp)
         self.ls2 = LayerScale(dim, layerscale_init, device=device)
+        if int8_attn:
+            f32, i8 = torch.float32, torch.int8
+            register_quant_buffers(self, (
+                *((n, (), f32, 1.0) for n in (
+                    "attn_a_x", "attn_a_ctx", "attn_a_q", "attn_a_k",
+                    "attn_a_v")),
+                ("attn_wqkv_q", (dim, 3 * dim), i8, 0),
+                ("attn_wqkv_scale", (3 * dim,), f32, 1.0),
+                ("attn_wo_q", (dim, dim), i8, 0),
+                ("attn_wo_scale", (dim,), f32, 1.0)))
+        self._k2: dict | None = None
+        self._k3: dict | None = None
+        if int8_attn or int8_mlp:
+            self.register_load_state_dict_post_hook(
+                lambda module, _keys: module.fold_int8())
+
+    @torch.no_grad()
+    def fold_int8(self) -> None:
+        """Fold the static scales into K2's and K3's arguments (once per
+        installed quant state, not per call), held as non-persistent
+        buffers so that `.to(device)` moves them."""
+        if self.int8_attn:
+            self._k2 = self._fold("k2", self._attn_int8_fold())
+        if self.mlp.int8:
+            self._k3 = self._fold("k3", self.mlp.int8_args(
+                self.norm2.weight, self.norm2.bias, self.ls2.gamma))
+            self._k3["inv_a_mid"] = float(1.0 / self.mlp.a_mid_scale)
+
+    def _fold(self, kernel: str, args: dict) -> dict:
+        """Register a kernel's tensor arguments as non-persistent buffers
+        (`_k2_ln_scale_q`, ...); return the argument dict naming them,
+        scalars as Python floats."""
+        out = {}
+        for k, v in args.items():
+            if isinstance(v, torch.Tensor) and v.dim() > 0:
+                name = f"_{kernel}_{k}"
+                self.register_buffer(name, v.detach().contiguous(),
+                                     persistent=False)
+                out[k] = name
+            else:
+                out[k] = float(v)
+        return out
+
+    def _attn_int8_fold(self) -> dict:
+        """`DinoV2Block._attn_int8_fold` (`geovpr/models/dinov2.py:201-249`)
+        at the JAX defaults (int8 scores on, int8 P.V off): 1/a_x into the
+        LN scale and bias; a_x * column scale into the qkv dequant row, with
+        1/a_q, 1/a_k and 1/a_ctx folded into its q, k and v thirds; a_ctx *
+        column scale into the out-projection row; cs = a_q a_k dh^-0.5."""
+        d = self.attn.proj_weight.shape[0]
+        a_x, a_ctx = self.attn_a_x, self.attn_a_ctx
+        a_q, a_k = self.attn_a_q, self.attn_a_k
+        col3 = torch.arange(3 * d, device=a_x.device)
+        thirds = torch.where(col3 < d, 1.0 / a_q,
+                             torch.where(col3 < 2 * d, 1.0 / a_k,
+                                         1.0 / a_ctx))
+        return dict(ln_scale_q=self.norm1.weight.float() / a_x,
+                    ln_bias_q=self.norm1.bias.float() / a_x,
+                    wqkv_q_t=self.attn_wqkv_q.t().contiguous(),
+                    sqkv_eff=a_x * self.attn_wqkv_scale * thirds,
+                    bqkv_eff=self.attn.qkv_bias.float() * thirds,
+                    wo_q_t=self.attn_wo_q.t().contiguous(),
+                    so_eff=a_ctx * self.attn_wo_scale,
+                    bo=self.attn.proj_bias.float(),
+                    gamma=self.ls1.gamma.float(),
+                    cs=a_q * a_k * (d // self.num_heads) ** -0.5)
+
+    def quant_state(self, amax: dict) -> dict:
+        """The JAX "quant" entries of this block's attention from its
+        calibration amaxes (`geovpr/models/quantize.py:60-83`)."""
+        wq, sq = quantize_weight(self.attn.qkv_weight)
+        woq, so = quantize_weight(self.attn.proj_weight)
+        out = {f"attn_a_{k}": act_scale(amax[f"attn_{k}"])
+               for k in ("x", "ctx", "q", "k", "v")}
+        out.update(attn_wqkv_q=wq, attn_wqkv_scale=sq, attn_wo_q=woq,
+                   attn_wo_scale=so)
+        return out
+
+    def _folded_args(self, folded: dict | None) -> dict:
+        if folded is None:
+            raise RuntimeError(
+                "int8 block without a quantized state: calibrate with "
+                "geovpr_torch.models.quantize.quantize_for_serving or load "
+                "a state_dict that carries one")
+        return {k: getattr(self, v) if isinstance(v, str) else v
+                for k, v in folded.items()}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        attn = fused_mhsa_block if self.use_kernels else mhsa_block_reference
-        x = attn(x, self.norm1.weight, self.norm1.bias, self.attn.qkv_weight,
-                 self.attn.qkv_bias, self.attn.proj_weight,
-                 self.attn.proj_bias, self.ls1.gamma, self.num_heads, LN_EPS)
+        calibrating = self.calib is not None or self.mlp.calib is not None
+        if self.int8_attn and not calibrating:
+            attn = (fused_mhsa_block_int8 if self.use_kernels
+                    else mhsa_block_int8_reference)
+            x = attn(x, **self._folded_args(self._k2),
+                     num_heads=self.num_heads, ln_eps=LN_EPS)
+        else:
+            attn = (fused_mhsa_block if self.use_kernels and not calibrating
+                    else mhsa_block_reference)
+            kw = {"calib": self.calib} if calibrating else {}
+            x = attn(x, self.norm1.weight, self.norm1.bias,
+                     self.attn.qkv_weight, self.attn.qkv_bias,
+                     self.attn.proj_weight, self.attn.proj_bias,
+                     self.ls1.gamma, self.num_heads, LN_EPS, **kw)
+        if self.mlp.int8 and not calibrating:
+            mlp = (fused_mlp_block_int8 if self.use_kernels
+                   else mlp_block_int8_reference)
+            return mlp(x, **self._folded_args(self._k3), ln_eps=LN_EPS)
         h = self.mlp(self.norm2(x))
         return x + h * self.ls2.gamma.to(h.dtype)
 
@@ -95,7 +223,8 @@ class DinoV2(nn.Module):
                  num_heads: int = 12, patch_size: int = 14,
                  image_size: int = 224, layerscale_init: float = 1.0,
                  use_kernels: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 int8_attn: bool = False, int8_mlp: bool = False):
         super().__init__()
         self.hidden_size = hidden_size
         self.dtype = dtype
@@ -109,7 +238,8 @@ class DinoV2(nn.Module):
             torch.empty(1, self.num_patches + 1, hidden_size, device=device))
         self.blocks = nn.ModuleList(
             DinoV2Block(hidden_size, num_heads, layerscale_init, use_kernels,
-                        dtype, device) for _ in range(num_layers))
+                        dtype, device, int8_attn=int8_attn,
+                        int8_mlp=int8_mlp) for _ in range(num_layers))
         self.norm = LayerNorm(hidden_size, LN_EPS, device=device)
 
     def _init_weights(self, generator: torch.Generator) -> None:

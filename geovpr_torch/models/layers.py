@@ -1,4 +1,4 @@
-"""Shared building blocks (the float path of `geovpr.models.layers`).
+"""Shared building blocks (the port of `geovpr.models.layers`).
 
 Parameters are created empty; `init_weights_` fills a whole model from an
 explicit `torch.Generator` with the JAX package's initialiser families
@@ -13,6 +13,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from geovpr_torch.ops.quant import act_scale, amax_into, quantize_weight
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -74,19 +76,81 @@ class LayerNorm(nn.Module):
                             self.bias, self.eps).to(x.dtype)
 
 
+def register_quant_buffers(module: nn.Module, specs) -> None:
+    """Register the int8 serving state of `module` as buffers named as in
+    the JAX package's "quant" collection, at their JAX init values (0-d
+    scales and f32 vectors ones or zeros, int8 kernels zeros, (in, out)):
+    `specs` holds (name, shape, dtype, fill)."""
+    for name, shape, dtype, fill in specs:
+        module.register_buffer(name, torch.full(shape, fill, dtype=dtype))
+
+
 class Mlp(nn.Module):
     """Transformer MLP: Linear -> gelu_fast -> Linear, in the compute dtype
-    (float path of `geovpr.models.layers.Mlp`; no int8 branch yet)."""
+    (`geovpr.models.layers.Mlp`).
+
+    - `calib` (a dict, set by `geovpr_torch.models.quantize`): the float
+      path records the amax of its input (`a_in`) and of its activation
+      output (`a_mid`), as the JAX `calibrate=True` sow points do.
+    - `int8=True`: the w8a8 serving state lives in buffers named as in
+      JAX's "quant" collection (`a_in_scale`, `fc1_kernel_q` (in, hidden)
+      int8, ...). The int8 forward is the fused half-block (LN -> K3),
+      driven by the owning block (`DinoV2Block`) with scales folded once,
+      when the state is installed.
+    """
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int | None = None,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 int8: bool = False):
         super().__init__()
+        out_dim = out_dim or in_dim
+        self.int8 = int8
+        self.calib: dict | None = None
         self.fc1 = nn.Linear(in_dim, hidden_dim, dtype=dtype, device=device)
-        self.fc2 = nn.Linear(hidden_dim, out_dim or in_dim, dtype=dtype,
-                             device=device)
+        self.fc2 = nn.Linear(hidden_dim, out_dim, dtype=dtype, device=device)
+        if int8:
+            f32, i8 = torch.float32, torch.int8
+            register_quant_buffers(self, (
+                ("a_in_scale", (), f32, 1.0), ("a_mid_scale", (), f32, 1.0),
+                ("fc1_kernel_q", (in_dim, hidden_dim), i8, 0),
+                ("fc1_kernel_scale", (hidden_dim,), f32, 1.0),
+                ("fc1_bias", (hidden_dim,), f32, 0.0),
+                ("fc2_kernel_q", (hidden_dim, out_dim), i8, 0),
+                ("fc2_kernel_scale", (out_dim,), f32, 1.0),
+                ("fc2_bias", (out_dim,), f32, 0.0)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu_fast(self.fc1(x)))
+        if self.calib is not None:
+            amax_into(self.calib, "a_in", x)
+        h = gelu_fast(self.fc1(x))
+        if self.calib is not None:
+            amax_into(self.calib, "a_mid", h)
+        return self.fc2(h)
+
+    def quant_state(self, amax: dict) -> dict:
+        """The JAX "quant" entries of this Mlp from its calibration amaxes
+        (`geovpr/models/quantize.py:34-47`)."""
+        w1q, s1 = quantize_weight(self.fc1.weight.t())
+        w2q, s2 = quantize_weight(self.fc2.weight.t())
+        return {"a_in_scale": act_scale(amax["a_in"]),
+                "a_mid_scale": act_scale(amax["a_mid"]),
+                "fc1_kernel_q": w1q, "fc1_kernel_scale": s1,
+                "fc1_bias": self.fc1.bias.detach().float().cpu(),
+                "fc2_kernel_q": w2q, "fc2_kernel_scale": s2,
+                "fc2_bias": self.fc2.bias.detach().float().cpu()}
+
+    def int8_args(self, ln_scale, ln_bias, gamma) -> dict:
+        """K3's arguments with the static scales folded as
+        `geovpr/models/layers.py:148-158` folds them, and the int8 kernels
+        transposed to (out, in)."""
+        a_in, a_mid = self.a_in_scale, self.a_mid_scale
+        return dict(ln_scale_q=ln_scale.float() / a_in,
+                    ln_bias_q=ln_bias.float() / a_in,
+                    w1q_t=self.fc1_kernel_q.t().contiguous(),
+                    s1_eff=a_in * self.fc1_kernel_scale, b1=self.fc1_bias,
+                    w2q_t=self.fc2_kernel_q.t().contiguous(),
+                    s2_eff=a_mid * self.fc2_kernel_scale, b2=self.fc2_bias,
+                    gamma=gamma.float())
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int,

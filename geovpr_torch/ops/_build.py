@@ -44,6 +44,8 @@ def find_nvcc() -> str:
 
 
 def _sources() -> list[Path]:
+    """The translation units; the `*.cuh` headers they include are hashed
+    by `library_path` too."""
     return sorted(CSRC.glob("*.cu"))
 
 
@@ -75,13 +77,23 @@ def _compile(out: Path) -> None:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.geovpr_mhsa_block_bf16.argtypes = [vp] * 11 + [ci] * 4 + [
-        ctypes.c_float, vp]
-    lib.geovpr_mhsa_block_bf16.restype = ci
-    for name in ("geovpr_mhsa_max_dim", "geovpr_mhsa_init"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ci
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    signatures = {
+        # K1 (mhsa.cu): 11 pointers, B N D H, eps, stream
+        "geovpr_mhsa_block_bf16": [vp] * 11 + [ci] * 4 + [cf, vp],
+        # K2 (mhsa_int8.cu): 14 pointers, B N D H, eps, cs2, stream
+        "geovpr_mhsa_block_int8": [vp] * 14 + [ci] * 4 + [cf, cf, vp],
+        # K3 (mlp_int8.cu): 12 pointers, M D HID, inv_a_mid, eps, stream
+        "geovpr_mlp_block_int8": [vp] * 12 + [ci] * 3 + [cf, cf, vp],
+        "geovpr_mhsa_max_dim": [],
+        "geovpr_mhsa_init": [],
+        "geovpr_mhsa_int8_init": [],
+        "geovpr_mlp_int8_init": [],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ci
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,4 +104,18 @@ def load_library() -> ctypes.CDLL:
         _compile(path)
     lib = ctypes.CDLL(str(path))
     _declare(lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library_on(device_index: int, init: str) -> ctypes.CDLL:
+    """The loaded library after its C function `init` (a kernel's
+    shared-memory set-up) has run once on CUDA device `device_index`."""
+    import torch
+
+    lib = load_library()
+    with torch.cuda.device(device_index):
+        rc = getattr(lib, init)()
+    if rc != 0:
+        raise RuntimeError(f"{init} failed: CUDA error {rc}")
     return lib

@@ -1,0 +1,120 @@
+"""w8a8 int8 quantization primitives of the serving path (the port of
+`geovpr.ops.quant`).
+
+Scheme (static post-training quantization, as in the JAX package):
+- weights: symmetric per-out-channel int8, quantized once (`quantize_weight`);
+- activations: symmetric per-tensor int8 with static scales calibrated on
+  sample batches (`geovpr_torch.models.quantize`).
+
+The JAX package's two mode switches stay at their defaults here, with no
+environment knob: int8 q·kᵀ score matmuls on (`INT8_QK_SCORES`), int8 P·V
+off (`INT8_PV`).
+
+Rounding: `torch.round` rounds half to even, as `jnp.round` does.
+Exactness: an int8 product summed over K terms reaches 127² K, which f32
+holds exactly only below 2²⁴ (K ≤ 1040), so every int8 GEMM here goes
+through `torch._int_mm` (exact int32 sums).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+INT8_QK_SCORES = True
+INT8_PV = False
+
+
+def quantize_weight(w) -> tuple[torch.Tensor, torch.Tensor]:
+    """(in, out) float kernel -> (int8 kernel (in, out), (out,) f32 scale),
+    computed in numpy f32 exactly as `geovpr.ops.quant.quantize_weight`."""
+    if isinstance(w, torch.Tensor):
+        w = w.detach().float().cpu().numpy()
+    w = np.asarray(w, np.float32)
+    scale = np.abs(w).max(axis=0) / 127.0 + 1e-12
+    q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+    return torch.from_numpy(q), torch.from_numpy(scale.astype(np.float32))
+
+
+def round_clip_int8(v: torch.Tensor) -> torch.Tensor:
+    """f32 -> int8: round half to even, clip to [-127, 127]."""
+    return torch.clamp(torch.round(v), -127, 127).to(torch.int8)
+
+
+def quantize_act(x: torch.Tensor, a_scale) -> torch.Tensor:
+    """f32 activations -> int8 with a static per-tensor scale."""
+    return round_clip_int8(x * (1.0 / a_scale))
+
+
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8 x int8 -> int32 matmul, a (M, K) @ b (K, N), through
+    `torch._int_mm`. On CUDA `_int_mm` needs M > 16 and K, N multiples of 8:
+    fewer rows are padded with zeros (and cut off again); K or N off the
+    multiple of 8 raises there."""
+    m = a.shape[0]
+    if a.is_cuda and m <= 16:
+        a = torch.cat([a, a.new_zeros(17 - m, a.shape[1])])
+    return torch._int_mm(a.contiguous(), b)[:m]
+
+
+def int8_dense(x: torch.Tensor, a_scale, wq: torch.Tensor,
+               w_scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """w8a8 matmul: f32 in -> int8 x int8 -> int32 -> dequantized f32 out.
+    x (M, in) f32; wq (in, out) int8; w_scale, bias (out,)."""
+    yi = int_mm(quantize_act(x, a_scale), wq)
+    return yi.float() * (a_scale * w_scale) + bias
+
+
+def amax_into(calib: dict, key: str, x: torch.Tensor) -> None:
+    """Calibration hook (the JAX package's `sow` into "quant_calib"):
+    keep the running max of |x| over calibration batches under `key`."""
+    a = float(x.detach().float().abs().max())
+    calib[key] = max(calib.get(key, a), a)
+
+
+def act_scale(amax: float) -> torch.Tensor:
+    """Static per-tensor activation scale from a calibration amax, computed
+    as the JAX package does (in Python floats, then f32)."""
+    return torch.tensor(amax / 127.0 + 1e-12, dtype=torch.float32)
+
+
+def layer_norm_f32(xf: torch.Tensor, eps: float) -> torch.Tensor:
+    """Unscaled LayerNorm in f32 with two-pass statistics, as the JAX
+    kernels compute it."""
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return (xf - mu) * torch.rsqrt(var + eps)
+
+
+def check_shapes(want: dict, got: dict) -> None:
+    """Raise ValueError unless every tensor in `got` has the shape in
+    `want`."""
+    for name, shape in want.items():
+        if tuple(got[name].shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(got[name].shape)}")
+
+
+def check_int8_kernel_args(x, mats: dict, vecs: dict, extra=()) -> None:
+    """What the int8 kernels take on CUDA: bf16 x (and `extra` tensors),
+    int8 matrices, f32 vectors, all contiguous, on x's device, forward
+    only. Raises on anything else."""
+    tensors = {"x": x, **dict(extra), **mats, **vecs}
+    for name, t in tensors.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in tensors.values()):
+        raise RuntimeError("the int8 serving kernels have no backward; run "
+                           "the forward under torch.inference_mode()")
+    for name, t in (("x", x), *dict(extra).items()):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} must be bfloat16 on CUDA, got {t.dtype}")
+    for name, t in mats.items():
+        if t.dtype != torch.int8:
+            raise TypeError(f"{name} must be int8, got {t.dtype}")
+    for name, t in vecs.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")

@@ -1,22 +1,26 @@
 """Device-resident descriptor retrieval (the port of
-`geovpr.retrieval.index`, single device, bf16 rows).
+`geovpr.retrieval.index`, single device).
 
-- the database lives on the device in bf16 (2 bytes a dimension);
-- query scoring is one cosine matmul in f32 (bf16 rows widened first, as
-  `DescriptorIndex._scores` does: a bf16 matmul reorders near-ties) and the
-  reduction is `torch.topk`; both stay plain torch ops, as the JAX package
-  keeps them outside any kernel;
+- the database lives on the device in bf16 (2 bytes a dimension), or with
+  `quantize=True` as per-row symmetric int8 with one f32 scale a row (1
+  byte a dimension);
+- query scoring is one cosine matmul: in f32 for bf16 rows (widened first,
+  as `DescriptorIndex._scores` does: a bf16 matmul reorders near-ties); for
+  int8 rows the queries are quantized per row and the plane is
+  `_int_mm(q8, db8^T) * q_scale (x) db_scale`, the quantized vectors' exact
+  inner products. The reduction is `torch.topk`. All stay plain torch ops,
+  as the JAX package keeps them outside any kernel;
 - queries are processed in `query_chunk`-row blocks so one (chunk, rows)
   score plane is live at a time;
 - padded database rows (an index installed with `n_real` < rows) are masked
-  to -inf in the plane, before any top-k.
+  to -inf in the plane, before any top-k. The int8 index pads its rows to a
+  multiple of 8, as `torch._int_mm` needs on CUDA (which also needs more
+  than 16 query rows: `geovpr_torch.ops.quant.int_mm` pads those).
 
-Not ported yet: the int8 index (`quantize=True`, ROADMAP Queue 1 item 5,
-the int8 serving slice) and the sharded search over a mesh (ROADMAP Queue 1
-item 11). There is no approximate top-k (`topk_method="approx"` in JAX):
-torch has no counterpart of `jax.lax.approx_max_k`, the search is always
-exact, and on the CPU JAX lowers it to the exact top-k as well (ROADMAP
-Queue 3).
+Not ported yet: the sharded search over a mesh (ROADMAP Queue 1 item 11).
+There is no approximate top-k (`topk_method="approx"` in JAX): torch has no
+counterpart of `jax.lax.approx_max_k`, the search is always exact, and on
+the CPU JAX lowers it to the exact top-k as well (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -29,14 +33,24 @@ import numpy as np
 import torch
 
 from geovpr_torch.models.layers import normalize_l2
+from geovpr_torch.ops.quant import int_mm, round_clip_int8
 
-_INT8_TODO = ("the int8 index is not ported yet (ROADMAP Queue 1 item 5, "
-              "the int8 serving slice)")
+_ROW_QUANTUM = 8   # int8 gallery rows are padded to a multiple of this
 
 
 def _as_tensor(x, device=None) -> torch.Tensor:
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
     return t if device is None else t.to(device)
+
+
+def quantize_rows(x: torch.Tensor):
+    """Symmetric per-row int8 quantization (`_quantize_rows` of the JAX
+    index): returns (q (N, D) int8, scale (N,) f32) with x ~ q * scale[:,
+    None]. Zero rows get scale 1."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    return round_clip_int8(xf / scale[:, None]), scale
 
 
 def cosine_topk(queries: torch.Tensor, database: torch.Tensor, k: int,
@@ -85,11 +99,10 @@ class DescriptorIndex:
     # query rows per score plane; 0 disables chunking
     query_chunk: int = 1024
     _db: Optional[torch.Tensor] = None
+    _db_scale: Optional[torch.Tensor] = None
     _n: int = 0
 
     def __post_init__(self):
-        if self.quantize:
-            raise NotImplementedError(_INT8_TODO)
         if self.mesh is not None:
             raise NotImplementedError(
                 "the sharded index is not ported yet (ROADMAP Queue 1 item "
@@ -103,21 +116,41 @@ class DescriptorIndex:
                              f"{self.dim}")
         if not normalized:
             x = normalize_l2(x.float())
-        self._install(x.to(self.dtype))
+        if self.quantize:
+            self._install_int8(*quantize_rows(x))
+        else:
+            self._install(x.to(self.dtype))
         return self
 
-    def _install(self, rows: torch.Tensor, n_real: Optional[int] = None):
-        """Place (already cast) rows on the device. Rows past `n_real` are
-        padding and never appear in a search result."""
+    def _install(self, rows: torch.Tensor, scale=None,
+                 n_real: Optional[int] = None):
+        """Place (already cast or quantized) rows, and the int8 rows'
+        scales, on the device. Rows past `n_real` are padding and never
+        appear in a search result."""
         self._db = rows.to(self.device).contiguous()
+        self._db_scale = None if scale is None else scale.to(self.device)
         self._n = int(n_real if n_real is not None else rows.shape[0])
+
+    def _install_int8(self, rows: torch.Tensor, scale: torch.Tensor):
+        """int8 rows padded with zero rows (scale 1) to a multiple of 8."""
+        n = rows.shape[0]
+        pad = -n % _ROW_QUANTUM
+        if pad:
+            rows = torch.cat([rows, rows.new_zeros(pad, rows.shape[1])])
+            scale = torch.cat([scale, scale.new_ones(pad)])
+        self._install(rows, scale, n_real=n)
 
     @property
     def size(self) -> int:
         return self._n
 
     def _chunk_topk(self, q: torch.Tensor, k: int):
-        plane = torch.matmul(q.float(), self._db.float().T)
+        if self._db_scale is not None:
+            q8, q_scale = quantize_rows(q)
+            plane = (int_mm(q8, self._db.T).float() * q_scale[:, None]
+                     * self._db_scale[None, :])
+        else:
+            plane = torch.matmul(q.float(), self._db.float().T)
         if self._db.shape[0] != self._n:
             col = torch.arange(plane.shape[1], device=plane.device)
             plane = plane.masked_fill(col >= self._n, float("-inf"))
@@ -130,7 +163,8 @@ class DescriptorIndex:
             raise ValueError("index not built")
         if k > self._n:
             raise ValueError(f"k={k} exceeds index size {self._n}")
-        q = _as_tensor(queries, self.device).to(self.dtype)
+        q = _as_tensor(queries, self.device)
+        q = q.float() if self.quantize else q.to(self.dtype)
         chunk = self.query_chunk or q.shape[0]
         scores, idx = [], []
         for start in range(0, q.shape[0], chunk):
@@ -143,14 +177,18 @@ class DescriptorIndex:
 def save_index(index: DescriptorIndex, path: str, filenames=None,
                latlon=None) -> None:
     """Persist a built index to one `.npz` in the format of
-    `geovpr.retrieval.index.save_index` (bf16 rows as their uint16 bit
-    pattern), so either package reads the other's file."""
+    `geovpr.retrieval.index.save_index` (int8 rows and per-row scales as
+    `rows_int8`/`row_scale`, bf16 rows as their uint16 bit pattern), so
+    either package reads the other's file."""
     if index._db is None:
         raise ValueError("index not built")
     rows = index._db[:index._n].cpu()
     payload = {"dim": np.int64(index.dim), "n": np.int64(index._n),
-               "quantize": np.bool_(False)}
-    if rows.dtype == torch.bfloat16:
+               "quantize": np.bool_(index.quantize)}
+    if index.quantize:
+        payload["rows_int8"] = rows.numpy()
+        payload["row_scale"] = index._db_scale[:index._n].cpu().numpy()
+    elif rows.dtype == torch.bfloat16:
         payload["rows_bf16_bits"] = rows.view(torch.int16).numpy().view(
             np.uint16)
     else:
@@ -169,16 +207,23 @@ def load_index(path: str, device="cpu"):
     ({"filenames", "latlon"})."""
     with np.load(path) as z:
         dim = int(z["dim"])
-        if bool(z["quantize"]):
-            raise NotImplementedError(_INT8_TODO)
-        if "rows_bf16_bits" in z:
+        quantize = bool(z["quantize"])
+        scale = None
+        if quantize:
+            rows = torch.from_numpy(z["rows_int8"].copy())
+            scale = torch.from_numpy(z["row_scale"].copy())
+        elif "rows_bf16_bits" in z:
             rows = torch.from_numpy(
                 z["rows_bf16_bits"].view(np.int16).copy()).view(torch.bfloat16)
         else:
             rows = torch.from_numpy(z["rows"].copy())
         meta = {k: z[k] for k in ("filenames", "latlon") if k in z}
-    index = DescriptorIndex(dim=dim, dtype=rows.dtype, device=device)
-    index._install(rows)
+    if quantize:
+        index = DescriptorIndex(dim=dim, device=device, quantize=True)
+        index._install_int8(rows, scale)
+    else:
+        index = DescriptorIndex(dim=dim, dtype=rows.dtype, device=device)
+        index._install(rows)
     return index, meta
 
 

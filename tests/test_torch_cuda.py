@@ -8,7 +8,12 @@ This file imports no jax, so it also runs where only the port is installed:
 import pytest
 import torch
 
-from geovpr_torch.ops.mhsa import fused_mhsa_block, mhsa_block_reference
+from chip_smoke import int8_block_case, int8_errors, int8_within_bound
+from geovpr_torch.ops.mhsa import (fused_mhsa_block, fused_mhsa_block_int8,
+                                   mhsa_block_int8_reference,
+                                   mhsa_block_reference)
+from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
+                                       mlp_block_int8_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -83,4 +88,88 @@ def test_model_launches_once_per_layer(cuda):
         out = model(x)
         torch.cuda.synchronize()
     assert fused_mhsa_block.launches == before + 2
+    assert torch.isfinite(out.tokens.float()).all()
+
+
+_INT8_SHAPES = [(3, 50, 384, 6), (2, 17, 64, 1), (1, 1, 768, 12),
+                (2, 300, 768, 12)]
+
+
+@pytest.mark.parametrize("shape", _INT8_SHAPES)
+def test_k2_matches_plain_version(cuda, shape):
+    """Bound as in chip_smoke.py: at most 1% of the elements off by more
+    than 1e-3, and max |error| <= 1.5 x the largest dequant step + 1e-3 +
+    two bf16 spacings at the largest output."""
+    b, n, d, h = shape
+    x, k2, _ = int8_block_case(b, n, d, h, cuda)
+    with torch.inference_mode():
+        before = fused_mhsa_block_int8.launches
+        got = fused_mhsa_block_int8(x, **k2, num_heads=h)
+        torch.cuda.synchronize()
+        want = mhsa_block_int8_reference(x, **k2, num_heads=h)
+    assert fused_mhsa_block_int8.launches == before + 1
+    e = int8_errors(got, want, (k2["so_eff"] * k2["gamma"]).abs().max()
+                    .item())
+    assert int8_within_bound(e), e
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("shape", _INT8_SHAPES)
+def test_k3_matches_plain_version(cuda, shape, residual):
+    b, n, d, h = shape
+    x, _, k3 = int8_block_case(b, n, d, h, cuda)
+    kw = {"residual": torch.randn_like(x)} if residual else {}
+    with torch.inference_mode():
+        before = fused_mlp_block_int8.launches
+        got = fused_mlp_block_int8(x, **k3, **kw)
+        torch.cuda.synchronize()
+        want = mlp_block_int8_reference(x, **k3, **kw)
+    assert fused_mlp_block_int8.launches == before + 1
+    e = int8_errors(got, want, (k3["s2_eff"] * k3["gamma"]).abs().max()
+                    .item())
+    assert int8_within_bound(e), e
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(cuda):
+    x, k2, k3 = int8_block_case(1, 5, 64, 1, cuda)
+    with torch.inference_mode():
+        with pytest.raises(NotImplementedError):
+            fused_mhsa_block_int8(x, **{**k2, "cs": None}, num_heads=1)
+        with pytest.raises(NotImplementedError):
+            fused_mhsa_block_int8(x, **k2, num_heads=1, cpv=1.0, cpl=1.0)
+        with pytest.raises(TypeError):
+            fused_mhsa_block_int8(x.float(), **k2, num_heads=1)
+        with pytest.raises(TypeError):
+            fused_mlp_block_int8(x.float(), **k3)
+        with pytest.raises(TypeError):
+            fused_mlp_block_int8(x, **{**k3, "w1q_t": k3["w1q_t"].float()})
+        with pytest.raises(ValueError):
+            fused_mlp_block_int8(x[..., ::2].contiguous(), **{
+                **k3, **{k: k3[k][::2].contiguous() for k in (
+                    "ln_scale_q", "ln_bias_q", "s2_eff", "b2", "gamma")},
+                "w1q_t": k3["w1q_t"][:, ::2].contiguous(),
+                "w2q_t": k3["w2q_t"][::2].contiguous()})
+    gamma = k3["gamma"].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="backward"):
+        fused_mlp_block_int8(x, **{**k3, "gamma": gamma})
+
+
+def test_int8_model_launches_once_per_layer(cuda):
+    from geovpr_torch.models.dinov2 import DinoV2
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.quantize import quantize_for_serving
+
+    model = DinoV2(hidden_size=128, num_layers=2, num_heads=2, image_size=28,
+                   dtype=torch.bfloat16, int8_attn=True, int8_mlp=True)
+    init_weights_(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    x = torch.randn(3, 28, 28, 3, device=cuda)
+    quantize_for_serving(model, [x])
+    with torch.inference_mode():
+        before = (fused_mhsa_block_int8.launches,
+                  fused_mlp_block_int8.launches)
+        out = model(x)
+        torch.cuda.synchronize()
+    assert (fused_mhsa_block_int8.launches,
+            fused_mlp_block_int8.launches) == (before[0] + 2, before[1] + 2)
     assert torch.isfinite(out.tokens.float()).all()

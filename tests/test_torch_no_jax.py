@@ -1,6 +1,8 @@
-"""The port runs without jax (and without the JAX package on its main
-path), and chip_smoke.py fails where it cannot run."""
+"""The port runs without jax and without the JAX package (`geovpr`), through
+`run_retrieval` and through the CLI's `main` with `--int8`, and
+chip_smoke.py fails where it cannot run."""
 
+import json
 import os
 import re
 import shutil
@@ -50,14 +52,76 @@ def test_main_path_runs_without_jax_or_geovpr():
     assert proc.stdout.strip().endswith("OK")
 
 
-def test_no_jax_import_lines():
-    pat = re.compile(r"^\s*(import|from) (jax|flax|optax|orbax)\b")
+_CLI_INT8 = """
+import sys
+for name in {block!r}:
+    sys.modules[name] = None
+import json, os, tempfile
+import numpy as np
+from PIL import Image
+from geovpr_torch.cli.retrieve import main
+from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
+DINOV2_VARIANTS["tiny"] = dict(hidden_size=64, num_layers=2, num_heads=4)
+
+with tempfile.TemporaryDirectory() as d:
+    os.makedirs(os.path.join(d, "img"))
+    rng = np.random.default_rng(0)
+    with open(os.path.join(d, "labels.csv"), "w") as f:
+        f.write("filename,timestamp,latitude,longitude,angle,Region_ID\\n")
+        for i in range(5):
+            Image.fromarray(rng.integers(0, 255, (20, 20, 3)).astype(
+                np.uint8)).save(os.path.join(d, "img", f"p{{i}}.png"))
+            f.write(f"p{{i}}.png,0,{{i * 100.0}},0,0,1\\n")
+    csv = os.path.join(d, "labels.csv")
+    main(["--gallery-csv", csv, "--query-csv", csv, "--image-root",
+          os.path.join(d, "img"), "--variant", "tiny", "--image-size",
+          "28", "--batch-size", "4", "--top-k", "2", "--int8", "--device",
+          "cpu", "--out-dir", os.path.join(d, "out")])
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split(".")[0] in {block!r})
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_cli_int8_runs_without_jax_or_geovpr():
+    """`main([... "--int8", "--device", "cpu"])` over a folder of PNGs,
+    with jax, flax and `geovpr` blocked: manifest, PIL decode, calibration,
+    int8 model and int8 index all come from the port."""
+    block = _BLOCK + ("geovpr",)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_INT8.format(block=block)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = proc.stdout.strip().splitlines()
+    assert out[-1] == "OK"
+    assert json.loads(out[-2])["gallery_size"] == 5
+
+
+def _import_lines(pattern: str) -> list[str]:
+    pat = re.compile(pattern)
     files = sorted((REPO / "geovpr_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
-    bad = [f"{f}:{i}" for f in files
-           for i, line in enumerate(f.read_text().splitlines(), 1)
-           if pat.match(line)]
-    assert not bad
+        REPO / "chip_smoke.py", REPO / "chip_faults.py"]
+    return [f"{f}:{i}" for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pat.match(line)]
+
+
+_GEOVPR_IMPORT = r"^\s*(import|from) geovpr(\.|\s|$)"
+
+
+def test_no_jax_import_lines():
+    assert not _import_lines(r"^\s*(import|from) (jax|flax|optax|orbax)\b")
+
+
+def test_no_geovpr_import_lines():
+    """Nothing of the JAX package is imported either, not even a module
+    of it that does not import jax."""
+    pat = re.compile(_GEOVPR_IMPORT)
+    assert pat.match("    from geovpr.data.manifest import load_manifest")
+    assert pat.match("import geovpr")
+    assert not pat.match("from geovpr_torch.data import manifest")
+    assert not _import_lines(_GEOVPR_IMPORT)
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -78,8 +78,10 @@ def test_build_normalizes_when_asked():
 
 
 def test_index_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="int8"):
-        tidx.DescriptorIndex(dim=DIM, quantize=True)
+    """The sharded index is not ported (the int8 index is:
+    tests/test_torch_index_int8.py); k past the index size raises."""
+    with pytest.raises(NotImplementedError, match="sharded"):
+        tidx.DescriptorIndex(dim=DIM, mesh=object())
     t = tidx.DescriptorIndex(dim=DIM).build(_unit(np.random.default_rng(3),
                                                   4))
     with pytest.raises(ValueError):

@@ -133,20 +133,37 @@ def test_port_cli_save_then_load_index(dataset, capsys):
     assert j_index.size == N_GALLERY and len(meta["filenames"]) == N_GALLERY
 
 
-@pytest.mark.parametrize("flags,message", [
-    (["--int8", "--device", "cpu"], "int8 serving is not ported yet"),
-    (["--device", "cpu"], None),
-])
-def test_port_cli_refuses_what_it_cannot_do(dataset, flags, message):
-    """--int8 exits with the ROADMAP pointer; without --gallery-csv or
-    --load-index argparse exits with usage (code 2)."""
+@pytest.mark.parametrize("flags", [["--device", "cpu"],
+                                   ["--int8", "--device", "cpu"]])
+def test_port_cli_refuses_what_it_cannot_do(dataset, flags):
+    """Without --gallery-csv or --load-index argparse exits with usage
+    (code 2), with or without --int8."""
     root, common = dataset
     with pytest.raises(SystemExit) as e:
         torch_main(common + flags)
-    if message:
-        assert message in str(e.value.code)
-    else:
-        assert e.value.code == 2
+    assert e.value.code == 2
+
+
+def test_port_cli_int8(dataset, capsys):
+    """--int8 on the CPU: the JAX variables load into the int8 model (its
+    quant buffers filled by calibration on the first gallery batch), every
+    query gets its matches, and the saved index is int8 and loads in the
+    JAX package with the same rows."""
+    root, common = dataset
+    idx = os.path.join(root, "port_index_int8.npz")
+    out, rows = _run(torch_main, common, capsys, [
+        "--gallery-csv", os.path.join(root, "gallery.csv"), "--int8",
+        "--save-index", idx, "--top-k", "3", "--device", "cpu",
+        "--out-dir", os.path.join(root, "int8")])
+    assert out["gallery_size"] == N_GALLERY and len(rows) == 3 * N_QUERY
+    assert 0.0 <= out["recall@1"] <= out["recall@3"] <= 1.0
+    from geovpr.retrieval.index import load_index as j_load_index
+    from geovpr_torch.retrieval.index import load_index
+    j_index, _ = j_load_index(idx)
+    t_index, _ = load_index(idx)
+    assert j_index.quantize and t_index.quantize
+    np.testing.assert_array_equal(np.asarray(j_index._db),
+                                  t_index._db[:N_GALLERY].numpy())
 
 
 def test_port_cli_fails_without_a_card(dataset, monkeypatch):
