@@ -1,14 +1,17 @@
-"""Planted-fault check of the K2/K3 bounds in chip_smoke.py.
+"""Planted-fault check of the kernel bounds in chip_smoke.py.
 
     python3 chip_faults.py
 
 For each planted fault it copies `geovpr_torch/` into a temporary
 directory, breaks one line of a kernel source there (K2 without its key
-mask; K3 with b2 dropped from its epilogue), builds that copy and runs
-chip_smoke.py's K2/K3 check (`int8_kernels_vs_plain`) against it at one
-shape. It prints the check's error line for the faulty kernel and whether
-the check rejected it, and exits non-zero if a planted fault passes. Needs
-one CUDA card; the checkout itself is never modified.
+mask; K3 with b2 dropped from its epilogue; K4 without the shift mask or
+without the relative-position bias; K6 with x10 and x01 swapped in the
+concat order), builds that copy and runs the chip_smoke.py check of that
+kernel (`int8_kernels_vs_plain` for K2/K3, `swin_kernels_vs_plain` for
+K4/K6) against it at one shape. It prints the check's error line for the
+faulty kernel and whether the check rejected it, and exits non-zero if a
+planted fault passes. Needs one CUDA card; the checkout itself is never
+modified.
 """
 
 from __future__ import annotations
@@ -21,16 +24,36 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# name -> (source file, [(original text, faulty text)], shape checked)
+_INT8 = ("cs.KERNEL_SHAPES = ({shape!r},); cs.MAIN_SHAPE = {shape!r}; "
+         "cs.int8_kernels_vs_plain(dev)")
+_SWIN = ("cs.swin_kernels_vs_plain(dev, attn_shapes={attn!r}, "
+         "merge_shapes={merge!r})")
+_STAGE0 = (16, 128, 4, 96, 12, 6)    # Swin-B-384 stage 0, shifted, B=16
+
+# name -> (source file, [(original text, faulty text)], check to run)
 FAULTS = {
     "K2 key mask removed": ("mhsa_int8.cu", [
         ("const float p0 = key < N ?", "const float p0 = true ?"),
         ("const float p1 = key + 1 < N ?", "const float p1 = true ?")],
-        (2, 1370, 768, 12)),
+        _INT8.format(shape=(2, 1370, 768, 12))),
     "K3 b2 dropped": ("mlp_int8.cu", [
         ("* s2[col] + b2[col];", "* s2[col];"),
         ("* s2[col + 1] + b2[col + 1];", "* s2[col + 1];")],
-        (64, 257, 768, 12)),
+        _INT8.format(shape=(64, 257, 768, 12))),
+    "K4 shift mask dropped": ("swin_attn.cu", [
+        ("if (shift && (hi ? lab1 : lab0) != lab_s[key])",
+         "if (false && (hi ? lab1 : lab0) != lab_s[key])")],
+        _SWIN.format(attn=(_STAGE0,), merge=())),
+    "K4 relative-position bias dropped": ("swin_attn.cu", [
+        ("__fadd_rn(s[j][e], tab_s[(hi ? pos1 : pos0) - pos_s[key]]);",
+         "__fadd_rn(s[j][e], 0.f);")],
+        _SWIN.format(attn=(_STAGE0,), merge=())),
+    "K6 x10 and x01 swapped": ("patch_merge.cu", [
+        ("src_s[r * 4 + 1] = base < 0 ? -1 : base + S;",
+         "src_s[r * 4 + 1] = base < 0 ? -1 : base + 1;"),
+        ("src_s[r * 4 + 2] = base < 0 ? -1 : base + 1;",
+         "src_s[r * 4 + 2] = base < 0 ? -1 : base + S;")],
+        _SWIN.format(attn=(), merge=((16, 128, 96),))),
 }
 
 _RUN = """
@@ -41,10 +64,9 @@ import geovpr_torch
 assert geovpr_torch.__file__.startswith({tmp!r}), geovpr_torch.__file__
 import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
-cs.KERNEL_SHAPES = ({shape!r},)
-cs.MAIN_SHAPE = {shape!r}
+dev = torch.device("cuda")
 try:
-    cs.int8_kernels_vs_plain(torch.device("cuda"))
+    {call}
 except cs.SmokeFailure as e:
     print("REJECTED:", str(e)[:160])
 else:
@@ -54,7 +76,7 @@ else:
 
 def main() -> int:
     passed = []
-    for name, (src, edits, shape) in FAULTS.items():
+    for name, (src, edits, call) in FAULTS.items():
         with tempfile.TemporaryDirectory() as tmp:
             pkg = Path(tmp) / "geovpr_torch"
             shutil.copytree(REPO / "geovpr_torch", pkg, ignore=
@@ -69,12 +91,12 @@ def main() -> int:
             path.write_text(text)
             proc = subprocess.run(
                 [sys.executable, "-c", _RUN.format(tmp=tmp, repo=str(REPO),
-                                                   shape=shape)],
+                                                   call=call)],
                 cwd=tmp, capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines()
                  if ln.startswith("[kernel]") or ln.startswith(
                      ("REJECTED", "PASSED"))]
-        print(f"== {name} at {shape}")
+        print(f"== {name}: {call}")
         print("\n".join(lines) if lines else proc.stderr[-2000:], flush=True)
         if proc.returncode != 0 or not lines or lines[-1] == "PASSED":
             passed.append(name)

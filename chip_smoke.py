@@ -3,15 +3,24 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and exits non-zero on any failure, printing no result.
-It builds the port's kernels from `geovpr_torch/csrc/` with nvcc, checks
-each against its plain PyTorch version on the card (K1, the bf16 attention
-half-block; K2 and K3, the w8a8 attention and MLP half-blocks), then drives
-the retrieve main path (`geovpr_torch.cli.retrieve.run_retrieval`) end to
-end at the full DINOv2-B/14 + SALAD width from a seeded random init, twice:
-the bf16 path (K1) and the int8 serving path (calibrated on the first
-batch, K2 and K3 in every block, int8 index). For each path it compares
-the kernel path with the plain path for the whole model, counts the
-kernels' launches, times the path and the kernels (beside their plain
+It builds the port's kernels from `geovpr_torch/csrc/` with nvcc (one
+process per source, in parallel), checks each against its plain PyTorch
+version on the card, and drives the port's two serving paths end to end
+from seeded random weights:
+
+- retrieve (`geovpr_torch.cli.retrieve.run_retrieval`), DINOv2-B/14 + SALAD
+  at full width: bf16 (K1 in every block) and int8 (calibrated on the
+  first batch; K2 and K3 in every block, int8 index);
+- geopose (`geovpr_torch.cli.evaluate.run_evaluate`), Swin-B-384 + MLP
+  head (preset swin_b384_gemini2) at full width: bf16 (K4 in every block)
+  and int8 (calibrated on the first batch; K5 and K3 in every block), K6 at
+  every stage boundary on both.
+
+Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
+form and the w8a8 MLP half-block), K4 and K5 (the Swin window-attention
+half-block, bf16 and w8a8) and K6 (Swin PatchMerging). For each path it
+compares the kernel path with the plain path for the whole model, counts
+the kernels' launches, times the path and the kernels (beside their plain
 versions, one library yardstick each and their bounds), and profiles one
 batch. Every time is printed beside the card's name and power limit. The
 second-to-last line is a JSON record of the kernels; the last line is the
@@ -59,6 +68,19 @@ INT8_ABS_TOL, INT8_MAX_SHARE = 1e-3, 0.01
 MIN_COSINE_INT8 = 0.999
 # the card's published dense peaks (NVIDIA H100 SXM data sheet)
 PEAK_BF16, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12
+# Swin-B-384 geopose serving (preset swin_b384_gemini2) at B=64: the K4/K5
+# shapes (B, C, H, resolution, window, shift) of stages 0-3 (shifted where
+# the stage has shifted blocks) and the K6 boundaries (B, C, resolution)
+SWIN_PRESET, SWIN_BATCH, SWIN_N_VAL = "swin_b384_gemini2", 64, 192
+SWIN_ATTN_SHAPES = ((64, 128, 4, 96, 12, 6), (64, 256, 8, 48, 12, 6),
+                    (64, 512, 16, 24, 12, 6), (64, 1024, 32, 12, 12, 0))
+SWIN_CHECK_SHAPES = (SWIN_ATTN_SHAPES[0], SWIN_ATTN_SHAPES[2],
+                     SWIN_ATTN_SHAPES[3])
+SWIN_MERGE_SHAPES = ((64, 128, 96), (64, 256, 48), (64, 512, 24))
+SWIN_MAIN, MERGE_MAIN = SWIN_ATTN_SHAPES[0], SWIN_MERGE_SHAPES[0]
+# launches per batch of 64 images: one K4 (bf16) or K5 + K3 (int8) per
+# block (2 + 2 + 18 + 2), one K6 per stage boundary
+SWIN_BLOCKS, SWIN_BOUNDARIES = 24, 3
 
 
 class SmokeFailure(RuntimeError):
@@ -475,7 +497,7 @@ def kernel_times(device, card: str) -> dict:
     return out
 
 
-def model_times(model, images, card: str, path: str) -> None:
+def model_times(model, images, card: str, path: str, batch=BATCH) -> None:
     """Phase 6 (bf16) / 10 (int8): CUDA-event ms per B=64 batch of
     descriptor extraction (images on the device, weights resident), img/s
     and peak device memory."""
@@ -485,12 +507,13 @@ def model_times(model, images, card: str, path: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         ms_batch = cuda_ms(lambda: model(normalize(images)), iters=10)
         peak = torch.cuda.max_memory_allocated()
-    phase("times", card=repr(card), path=path, batch=BATCH,
-          ms_per_batch=ms_batch, img_per_s=BATCH * 1e3 / ms_batch,
+    phase("times", card=repr(card), path=path, batch=batch,
+          ms_per_batch=ms_batch, img_per_s=batch * 1e3 / ms_batch,
           peak_mem_bytes=peak)
 
 
-def breakdown(model, images, card: str, path: str = "bf16") -> None:
+def breakdown(model, images, card: str, path: str = "bf16",
+              batch=BATCH) -> None:
     """Phase 7 (bf16) / 11 (int8): device time by kernel for one batch
     (torch.profiler), and the device's idle share of that window (the
     profiler's own overhead inflates the window, so the share is an upper
@@ -515,13 +538,451 @@ def breakdown(model, images, card: str, path: str = "bf16") -> None:
         phase("breakdown", card=repr(card), path=path,
               device_time="not measured")
         return
-    phase("breakdown", card=repr(card), path=path, batch=BATCH,
+    phase("breakdown", card=repr(card), path=path, batch=batch,
           window_ms=wall_ms,
           device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         phase("device_time", path=path, ms=e.self_device_time_total / 1e3,
               calls=e.count, share=e.self_device_time_total / 1e3 / busy_ms,
               name=e.key[:90])
+
+
+
+# ----------------------------------------------------------- Swin / K4-K6 --
+
+def swin_block_case(shape, device, int8=False, seed=SEED, x_scale=1.0):
+    """x and a Swin block at one stage's widths, seeded random weights with
+    perturbed vectors and a random relative-position table (so that a
+    dropped bias, scale or table shows); int8: its static scales calibrated
+    on x through the plain float path."""
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.quantize import quantize_for_serving
+    from geovpr_torch.models.swin import SwinBlock
+
+    b, c, h, res, win, shift = shape
+    gen = torch.Generator().manual_seed(seed + c + shift)
+    blk = SwinBlock(c, h, res, win, shift, dtype=torch.bfloat16,
+                    int8_attn=int8, int8_mlp=int8)
+    init_weights_(blk, gen)
+    perturb_swin_(blk, gen)
+    x = (torch.randn(b, res * res, c, generator=gen) * x_scale).bfloat16()
+    blk = blk.to(device).eval()
+    x = x.to(device)
+    if int8:
+        quantize_for_serving(blk, [x])
+    return x, blk
+
+
+@torch.no_grad()
+def perturb_swin_(model, gen) -> None:
+    """LayerNorm vectors and attention biases off their init values, the
+    relative-position tables (zero at init, as in JAX) drawn at unit
+    scale: a random model that uses every input of K4-K6."""
+    for name, p in model.named_parameters():
+        if name.endswith("relative_position_bias_table"):
+            p.copy_(torch.randn(p.shape, generator=gen))
+        elif p.dim() == 1 and "norm" in name and name.endswith("weight"):
+            p.add_(torch.randn(p.shape, generator=gen).to(p.device) * 0.1)
+        elif p.dim() == 1 and ("norm" in name or "attn" in name):
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+
+
+def k4_args(x, blk):
+    a = blk.attn
+    return (x, blk.norm1.weight, blk.norm1.bias, a.qkv_weight, a.qkv_bias,
+            a.proj_weight, a.proj_bias, a.relative_position_bias_table,
+            blk.num_heads, blk.resolution, blk.window, blk.shift)
+
+
+def k5_kwargs(blk):
+    return dict(blk._folded_args(blk._k5),
+                table=blk.attn.relative_position_bias_table,
+                num_heads=blk.num_heads, resolution=blk.resolution,
+                window=blk.window, shift=blk.shift)
+
+
+def ratio_errors(kernel, plain, args, f32_args) -> dict:
+    """K1's bound applied to another bf16 kernel: max and mean |error| of
+    the kernel and of the bf16 plain version, each against the plain
+    version in f32."""
+    with torch.inference_mode():
+        ref32 = plain(*f32_args)
+        want = plain(*args)
+        got = kernel(*args)
+        torch.cuda.synchronize()
+    k_err = (got.float() - ref32).abs()
+    p_err = (want.float() - ref32).abs()
+    return dict(finite=bool(torch.isfinite(got.float()).all()),
+                kernel_max=k_err.max().item(), kernel_mean=k_err.mean().item(),
+                plain_max=p_err.max().item(), plain_mean=p_err.mean().item())
+
+
+def f32(args):
+    return [a.float() if isinstance(a, torch.Tensor) else a for a in args]
+
+
+def merge_case(shape, device, seed=SEED):
+    b, c, res = shape
+    gen = torch.Generator().manual_seed(seed + c)
+    x = torch.randn(b, res * res, c, generator=gen).bfloat16().to(device)
+    ln_s = (1 + 0.1 * torch.randn(4 * c, generator=gen)).to(device)
+    ln_b = (0.1 * torch.randn(4 * c, generator=gen)).to(device)
+    w = (torch.randn(4 * c, 2 * c, generator=gen) * (4 * c) ** -0.5
+         ).bfloat16().to(device)
+    return x, ln_s, ln_b, w, res
+
+
+def swin_kernels_vs_plain(device, attn_shapes=SWIN_CHECK_SHAPES,
+                          merge_shapes=SWIN_MERGE_SHAPES) -> dict:
+    """Phase 12: K4 and K5 at Swin-B-384 B=64 stage shapes (x for K4 at
+    1e-2, as K1's check), K6 at the three boundaries, each against its
+    plain version: K4 and K6 under K1's ratio bound, K5 under K2's."""
+    from geovpr_torch.ops.patch_merge import (fused_patch_merge,
+                                              patch_merge_reference)
+    from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
+                                             fused_swin_attn_block_int8,
+                                             swin_attn_block_int8_reference,
+                                             swin_attn_block_reference)
+
+    errs = {}
+    for shape in attn_shapes:
+        tag = "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape)
+        x, blk = swin_block_case(shape, device, x_scale=K1_X_SCALE)
+        args = k4_args(x, blk)
+        e = ratio_errors(fused_swin_attn_block, swin_attn_block_reference,
+                         args, f32(args))
+        phase("kernel", name="K4", shape=tag, x_scale=K1_X_SCALE, **e,
+              max_bound=K1_MAX_RATIO * e["plain_max"],
+              mean_bound=K1_MEAN_RATIO * e["plain_mean"])
+        check(k1_within_bound(e), f"K4 error outside its bound at {shape}: "
+                                  f"{e}")
+        errs[("K4", shape)] = e["kernel_max"]
+        del x, blk, args
+
+        x, blk = swin_block_case(shape, device, int8=True)
+        kw = k5_kwargs(blk)
+        with torch.inference_mode():
+            got = fused_swin_attn_block_int8(x, **kw)
+            torch.cuda.synchronize()
+            want = swin_attn_block_int8_reference(x, **kw)
+        e = int8_errors(got, want, kw["so_eff"].abs().max().item())
+        phase("kernel", name="K5", shape=tag, **e, max_share=INT8_MAX_SHARE)
+        check(int8_within_bound(e), f"K5 error outside its bound at {shape}:"
+                                    f" {e}")
+        errs[("K5", shape)] = e["max_abs_err"]
+        del x, blk, kw, got, want
+    for shape in merge_shapes:
+        args = merge_case(shape, device)
+        e = ratio_errors(fused_patch_merge, patch_merge_reference, args,
+                         f32(args))
+        phase("kernel", name="K6", shape="B{}_C{}_S{}".format(*shape), **e,
+              max_bound=K1_MAX_RATIO * e["plain_max"],
+              mean_bound=K1_MEAN_RATIO * e["plain_mean"])
+        check(k1_within_bound(e), f"K6 error outside its bound at {shape}: "
+                                  f"{e}")
+        errs[("K6", shape)] = e["kernel_max"]
+    return errs
+
+
+def swin_model(device, targets, int8=False):
+    """The preset's RegressionModel (Swin-B-384 + MLP head 512) in bf16 on
+    the card, from seed 0 (`build_geopose_model`), perturbed as
+    `perturb_swin_`; the target scaler fitted on `targets`."""
+    from geovpr_torch.cli.evaluate import build_geopose_model
+    from geovpr_torch.cli.presets import build_preset
+    from geovpr_torch.objectives.scaler import scaler_from_arrays
+
+    model, _ = build_geopose_model(build_preset(SWIN_PRESET), "cpu",
+                                   seed=SEED, int8=int8)
+    perturb_swin_(model, torch.Generator().manual_seed(SEED))
+    scaler = scaler_from_arrays(targets.mean(0), targets.std(0))
+    return model.to(device), scaler.to(device)
+
+
+def synthetic_val(n: int, size: int, rng):
+    """Images as `synthetic_gallery`'s, (lat, lon) targets around the
+    reference campus's scale."""
+    from geovpr_torch.data.pipeline import ArraySource
+
+    cell = size // 8
+    base = rng.integers(0, 256, (n, 8, 8, 3)).astype(np.float32)
+    up = np.repeat(np.repeat(base, cell, 1), cell, 2)
+    imgs = np.clip(up + rng.normal(0, 20, up.shape), 0, 255).astype(np.uint8)
+    latlon = np.stack([219000.0 + rng.normal(0, 300.0, n),
+                       143000.0 + rng.normal(0, 100.0, n)], 1).astype(
+                           np.float32)
+    return ArraySource(imgs, latlon, [f"v_{i:04d}.jpg" for i in range(n)])
+
+
+def swin_counters():
+    from geovpr_torch.ops.mlp_int8 import fused_mlp_block_int8
+    from geovpr_torch.ops.patch_merge import fused_patch_merge
+    from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
+                                             fused_swin_attn_block_int8)
+    return {"fused_swin_attn_block": fused_swin_attn_block,
+            "fused_swin_attn_block_int8": fused_swin_attn_block_int8,
+            "fused_mlp_block_int8": fused_mlp_block_int8,
+            "fused_patch_merge": fused_patch_merge}
+
+
+def geopose_end_to_end(model, scaler, device, source, out_dir,
+                       int8=False) -> tuple[dict, np.ndarray]:
+    """Phase 13 (bf16) / 16 (int8): the geopose path through run_evaluate
+    (int8: calibration on the first batch, then the w8a8 model), every
+    kernel's launch count set to 0 just before and read just after."""
+    from geovpr_torch.cli.evaluate import run_evaluate
+
+    counters = {**kernel_counters(), **swin_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out, preds = run_evaluate(model, scaler, source, batch_size=SWIN_BATCH,
+                              out_dir=out_dir, device=device, int8=int8,
+                              submission_csv="preds.csv")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n_batches = -(-len(source) // SWIN_BATCH)
+    expected = dict.fromkeys(counters, 0)
+    expected["fused_patch_merge"] = SWIN_BOUNDARIES * n_batches
+    for k in (("fused_swin_attn_block_int8", "fused_mlp_block_int8") if int8
+              else ("fused_swin_attn_block",)):
+        expected[k] = SWIN_BLOCKS * n_batches
+    phase("geopose", path="int8" if int8 else "bf16", wall_s=wall,
+          batches=n_batches, launches=launches, expected_launches=expected,
+          **out["metrics"])
+    check(launches == expected,
+          f"kernel launches {launches}, expected {expected}")
+    check(preds.shape == (len(source), 2) and bool(np.isfinite(preds).all()),
+          f"predictions {preds.shape}, finite {np.isfinite(preds).all()}")
+    check(all(np.isfinite(v) for v in out["metrics"].values()),
+          f"metrics {out['metrics']}")
+    with open(out["validation_csv"], newline="") as f:
+        rows = list(csv.DictReader(f))
+    check(len(rows) == len(source), f"{len(rows)} validation CSV rows")
+    check(os.path.isfile(out["submission_csv"]), "no submission CSV")
+    return launches, preds
+
+
+def swin_kernel_path_vs_plain_path(model, images, bound=MIN_COSINE,
+                                   path="bf16"):
+    """Phase 14 (bf16) / 17 (int8): pooled features and predictions of the
+    kernel path against the plain path on one batch; returns the kernel
+    path's pooled features."""
+    from geovpr_torch.data.transforms import normalize
+
+    def forward():
+        out = model.backbone(normalize(images))
+        return out.pooled.float(), model.head(model.pool(out))
+
+    layers = model.backbone.blocks
+    with torch.inference_mode():
+        pooled, preds = forward()
+        for m in layers:
+            m.use_kernels = False
+        try:
+            pooled_p, preds_p = forward()
+        finally:
+            for m in layers:
+                m.use_kernels = True
+    cos = torch.nn.functional.cosine_similarity(pooled, pooled_p, dim=1)
+    cos_pred = torch.nn.functional.cosine_similarity(preds, preds_p, dim=1)
+    phase("swin_model", path=path, pooled_min_cosine=cos.min().item(),
+          pooled_mean_cosine=cos.mean().item(),
+          pred_min_cosine=cos_pred.min().item(),
+          pred_max_abs_diff=(preds - preds_p).abs().max().item(),
+          bound=bound)
+    check(cos.min().item() >= bound and cos_pred.min().item() >= bound,
+          f"{path} Swin kernel vs plain path cosine {cos.min().item()}, "
+          f"predictions {cos_pred.min().item()} < {bound}")
+    check(bool(torch.isfinite(pooled).all()), f"{path} pooled not finite")
+    return pooled
+
+
+def swin_bounds(kind: str, shape) -> dict:
+    """The least time of one call of K4 / K5 at (B, C, H, S, w, shift), or
+    of K6 at (B, C, S): bytes over 3.35 TB/s against operations over the
+    peak of their type (the JAX cost estimate: 8 BW N C^2 + 4 BW H N^2 dh
+    for the half-block)."""
+    if kind == "K6":
+        b, c, res = shape
+        m2 = b * (res // 2) ** 2
+        ops_t = 2 * m2 * 4 * c * 2 * c / PEAK_BF16
+        nbytes = b * res * res * c * 2 + m2 * 2 * c * 2 + 8 * c * c * 2 \
+            + 8 * c * 4
+    else:
+        b, c, h, res, win, _ = shape
+        m, n = b * res * res, win * win
+        bw = m // n
+        att = 2 * bw * h * n * n * (c // h)      # one of q.k^T, P.V
+        proj = 8 * m * c * c
+        wbytes = 4 * c * c * (2 if kind == "K4" else 1)
+        nbytes = 2 * m * c * 2 + wbytes + (2 * c + 6 * c + 2 * c) * 4 + (
+            (2 * win - 1) ** 2 * h * 4)
+        if kind == "K4":
+            ops_t = (proj + 2 * att) / PEAK_BF16
+        else:
+            ops_t = (proj + att) / PEAK_INT8 + att / PEAK_BF16
+    bytes_t = nbytes / PEAK_BYTES
+    return dict(bound_ms=max(ops_t, bytes_t) * 1e3,
+                bound_by="operations" if ops_t >= bytes_t else "bytes",
+                ops_bound_ms=ops_t * 1e3, bytes_bound_ms=bytes_t * 1e3)
+
+
+def library_k4(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, table, h, res,
+               win, shift, ln_eps=1e-5):
+    """K4's yardstick (timed only here, never called by the port):
+    F.layer_norm -> torch.matmul -> windows (torch.roll + partition) ->
+    F.scaled_dot_product_attention with bias [+ mask] as a float mask ->
+    back to raster -> torch.matmul + bias + residual, all bf16."""
+    import torch.nn.functional as F
+
+    from geovpr_torch.ops.window_attention import (from_windows,
+                                                   relative_position_bias,
+                                                   shift_mask, to_windows)
+    b, l, c = x.shape
+    hx = F.layer_norm(x.float(), (c,), ln_scale, ln_bias, ln_eps).bfloat16()
+    qkv = to_windows((torch.matmul(hx, wqkv) + bqkv).bfloat16(), res, win,
+                     shift)
+    bw, n, _ = qkv.shape
+    q, k, v = (t.reshape(bw, n, h, c // h).transpose(1, 2)
+               for t in qkv.split(c, dim=-1))
+    mask = relative_position_bias(table, win)[None]
+    sm = shift_mask(res, win, shift, x.device)
+    if sm is not None:
+        mask = (mask.reshape(1, 1, h, n, n) + sm[None, :, None]).reshape(
+            1, -1, h, n, n).expand(b, -1, -1, -1, -1).reshape(bw, h, n, n)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask.bfloat16())
+    o = from_windows(o.transpose(1, 2).reshape(bw, n, c), res, win, shift)
+    return (torch.matmul(o, wo) + bo + x).bfloat16()
+
+
+def library_k5(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
+               wo_q_t, so_eff, bo, cs, table, num_heads, resolution, window,
+               shift, ln_eps=1e-5):
+    """K5's yardstick: F.layer_norm -> quantize -> torch._int_mm (qkv) ->
+    dequant -> K4's windowed bf16 SDPA with the float bias/mask (q and k in
+    their int8 units, scaled by cs) -> quantize -> torch._int_mm (out
+    projection) + epilogue."""
+    import torch.nn.functional as F
+
+    from geovpr_torch.ops.window_attention import (from_windows,
+                                                   relative_position_bias,
+                                                   shift_mask, to_windows)
+    b, l, c = x.shape
+    h, win = num_heads, window
+    xq = torch.clamp(torch.round(F.layer_norm(
+        x.float(), (c,), None, None, ln_eps) * ln_scale_q + ln_bias_q),
+        -127, 127).to(torch.int8).reshape(-1, c)
+    qkv = (torch._int_mm(xq, wqkv_q_t.t()) * sqkv_eff + bqkv_eff).bfloat16()
+    qkv = to_windows(qkv.reshape(b, l, 3 * c), resolution, win, shift)
+    bw, n, _ = qkv.shape
+    q, k, v = (t.reshape(bw, n, h, c // h).transpose(1, 2)
+               for t in qkv.split(c, dim=-1))
+    mask = relative_position_bias(table, win)[None]
+    sm = shift_mask(resolution, win, shift, x.device)
+    if sm is not None:
+        mask = (mask.reshape(1, 1, h, n, n) + sm[None, :, None]).reshape(
+            1, -1, h, n, n).expand(b, -1, -1, -1, -1).reshape(bw, h, n, n)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask.bfloat16(),
+                                       scale=float(cs))
+    o = from_windows(o.transpose(1, 2).reshape(bw, n, c), resolution, win,
+                     shift)
+    c8 = torch.clamp(torch.round(o.reshape(-1, c).float()), -127,
+                     127).to(torch.int8)
+    out = torch._int_mm(c8, wo_q_t.t()) * so_eff + bo
+    return (out.reshape(b, l, c) + x).bfloat16()
+
+
+def library_k6(x, ln_scale, ln_bias, w, res, ln_eps=1e-5):
+    """K6's yardstick: the 2x2 gather -> F.layer_norm -> torch.matmul."""
+    import torch.nn.functional as F
+
+    from geovpr_torch.ops.patch_merge import merge_gather
+    m = merge_gather(x, res)
+    ln = F.layer_norm(m.float(), (m.shape[-1],), ln_scale, ln_bias,
+                      ln_eps).bfloat16()
+    return torch.matmul(ln, w)
+
+
+def swin_kernel_times(device, card: str) -> dict:
+    """Phase 19: K4 and K5 at every stage of Swin-B-384 at B=64, K6 at every
+    boundary, each in turns with its plain version and its library
+    yardstick, beside its bound."""
+    from geovpr_torch.ops.patch_merge import (fused_patch_merge,
+                                              patch_merge_reference)
+    from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
+                                             fused_swin_attn_block_int8,
+                                             swin_attn_block_int8_reference,
+                                             swin_attn_block_reference)
+
+    out = {}
+
+    def record(name, shape, tag, fns):
+        t = interleaved_ms(fns, iters=3)
+        out[(name, shape)] = dict(ms=t["kernel"][0], plain_ms=t["plain"][0],
+                                  library_ms=t["library"][0],
+                                  runs={k: v[1] for k, v in t.items()},
+                                  **swin_bounds(name, shape))
+        phase("kernel_time", card=repr(card), name=name, shape=tag,
+              **out[(name, shape)])
+
+    with torch.inference_mode():
+        for shape in SWIN_ATTN_SHAPES:
+            tag = "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape)
+            x, blk = swin_block_case(shape, device)
+            a = k4_args(x, blk)
+            record("K4", shape, tag, {
+                "kernel": lambda: fused_swin_attn_block(*a),
+                "plain": lambda: swin_attn_block_reference(*a),
+                "library": lambda: library_k4(*a)})
+            x, blk = swin_block_case(shape, device, int8=True)
+            kw = k5_kwargs(blk)
+            record("K5", shape, tag, {
+                "kernel": lambda: fused_swin_attn_block_int8(x, **kw),
+                "plain": lambda: swin_attn_block_int8_reference(x, **kw),
+                "library": lambda: library_k5(x, **kw)})
+            del x, blk, a, kw
+        for shape in SWIN_MERGE_SHAPES:
+            m = merge_case(shape, device)
+            record("K6", shape, "B{}_C{}_S{}".format(*shape), {
+                "kernel": lambda: fused_patch_merge(*m),
+                "plain": lambda: patch_merge_reference(*m),
+                "library": lambda: library_k6(*m)})
+    return out
+
+
+def swin_path(device, card: str) -> dict:
+    """Phases 13-18: the geopose path end to end, bf16 then int8, each
+    with its kernel-vs-plain comparison, img/s and profile."""
+    source = synthetic_val(SWIN_N_VAL, 384, np.random.default_rng(SEED))
+    images = torch.from_numpy(source.images[:SWIN_BATCH]).to(device)
+    model, scaler = swin_model(device, source.targets)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, preds = geopose_end_to_end(model, scaler, device, source,
+                                             tmp)
+    pooled = swin_kernel_path_vs_plain_path(model, images)
+    model_times(model, images, card, "swin-bf16", batch=SWIN_BATCH)
+    breakdown(model, images, card, "swin-bf16", batch=SWIN_BATCH)
+    state = model.state_dict()
+    del model
+
+    model8, scaler = swin_model(device, source.targets, int8=True)
+    model8.load_state_dict(state, strict=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches8, preds8 = geopose_end_to_end(model8, scaler, device,
+                                               source, tmp, int8=True)
+    pooled8 = swin_kernel_path_vs_plain_path(model8, images,
+                                             MIN_COSINE_INT8, "int8")
+    cos = torch.nn.functional.cosine_similarity(pooled8, pooled, dim=1)
+    cos_pred = torch.nn.functional.cosine_similarity(
+        torch.from_numpy(preds8), torch.from_numpy(preds), dim=1)
+    phase("swin_int8_vs_bf16", pooled_min_cosine=cos.min().item(),
+          pooled_mean_cosine=cos.mean().item(),
+          pred_min_cosine=cos_pred.min().item())
+    model_times(model8, images, card, "swin-int8", batch=SWIN_BATCH)
+    breakdown(model8, images, card, "swin-int8", batch=SWIN_BATCH)
+    return {"bf16": launches, "int8": launches8}
 
 
 def main() -> int:
@@ -570,7 +1031,12 @@ def main() -> int:
           mean_cosine=cos.mean().item())
     model_times(model8, images, card, "int8")
     breakdown(model8, images, card, "int8")
+    del model8
     kt = kernel_times(device, card)
+
+    swin_errs = swin_kernels_vs_plain(device)
+    swin_launches = swin_path(device, card)
+    skt = swin_kernel_times(device, card)
 
     rows = []
     for name, k, src, replaces, count, err in (
@@ -587,6 +1053,27 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": count,
                      "max_abs_err": err, "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
+    # K3 also serves the int8 Swin path: its launches there are added
+    rows[2]["launches"] += swin_launches["int8"]["fused_mlp_block_int8"]
+    for name, k, src, replaces, count, shape in (
+            ("fused_swin_attn_block", "K4", "geovpr_torch/csrc/swin_attn.cu",
+             "geovpr/ops/pallas_swin_block.py:1125",
+             swin_launches["bf16"]["fused_swin_attn_block"], SWIN_MAIN),
+            ("fused_swin_attn_block_int8", "K5",
+             "geovpr_torch/csrc/swin_attn.cu",
+             "geovpr/ops/pallas_swin_block.py:1159",
+             swin_launches["int8"]["fused_swin_attn_block_int8"], SWIN_MAIN),
+            ("fused_patch_merge", "K6", "geovpr_torch/csrc/patch_merge.cu",
+             "geovpr/ops/pallas_patch_merge.py:112",
+             swin_launches["bf16"]["fused_patch_merge"]
+             + swin_launches["int8"]["fused_patch_merge"], MERGE_MAIN)):
+        t = skt[(k, shape)]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": count,
+                     "max_abs_err": swin_errs[(k, shape)], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})

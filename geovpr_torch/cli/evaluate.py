@@ -1,0 +1,216 @@
+"""Geopose evaluation / prediction-export entry point of the port (the
+counterpart of `geovpr.cli.evaluate`, same flags but `--variables` in place
+of `--run-dir`/`--checkpoint`).
+
+    python -m geovpr_torch.cli.evaluate --preset swin_b384_gemini2 \
+        --val-csv labels_val.csv --image-root images --out-dir out \
+        [--variables model.msgpack] [--test-dir test] \
+        [--submission-csv preds.csv] [--int8] [--batch-size 64] \
+        [--device cuda]
+
+Computes the geopose metric suite on the val split, writes
+`validation_predictions.csv`, with `--test-dir` the sorted
+`test_predictions_sorted.csv`, with `--submission-csv` the submission file,
+and prints the same JSON as the JAX CLI. `--variables` is a flax
+`msgpack_serialize` file of {"params": <RegressionModel params>, "scaler":
+{"mean": (2,), "scale": (2,)}}; without it the model is a seeded random
+init with the identity scaler. `--int8` calibrates the static activation
+scales on the first val batch (as `Trainer.enable_int8_serving` does) and
+serves the w8a8 model: on Swin, kernels K5 and K3 in every block. The bf16
+Swin path runs K4 in every block; both run K6 at every stage boundary.
+`--device` defaults to cuda and fails when no card is present; pass
+`--device cpu` to run on the CPU. Angle presets and the efficientnet and
+convnext families are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+
+def build_geopose_model(cfg, device, variables: str = "", seed: int = 0,
+                        int8: bool = False):
+    """The preset's `RegressionModel` in its compute dtype on `device` and
+    its target scaler: from a flax msgpack of {"params", "scaler"}, or a
+    random init seeded with `seed` and the identity scaler. `int8` builds
+    the w8a8 serving model, to be calibrated before use."""
+    from geovpr_torch.core.config import GeoposeConfig
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.regression import RegressionModel
+    from geovpr_torch.objectives.scaler import (identity_scaler,
+                                                scaler_from_arrays)
+
+    if not isinstance(cfg, GeoposeConfig):
+        raise NotImplementedError(
+            "angle presets are not ported yet: the port serves geopose "
+            "presets; the angle objectives come with the angle-head slice "
+            "(ROADMAP)")
+    mcfg = dataclasses.replace(cfg.model, image_size=cfg.data.image_size)
+    model = RegressionModel(mcfg, dtype=getattr(torch, mcfg.compute_dtype),
+                            int8=int8)
+    if variables:
+        from geovpr_torch.models.convert_jax import (load_flax_msgpack,
+                                                     state_dict_from_flax)
+        tree = load_flax_msgpack(variables)
+        res = model.load_state_dict(state_dict_from_flax(tree), strict=False)
+        params = {n for n, _ in model.named_parameters()}
+        bad = [k for k in res.missing_keys if k in params or not int8]
+        if bad or res.unexpected_keys:
+            raise RuntimeError(f"{variables}: missing {bad}, unexpected "
+                               f"{res.unexpected_keys}")
+        scaler = scaler_from_arrays(tree["scaler"]["mean"],
+                                    tree["scaler"]["scale"])
+    else:
+        init_weights_(model, torch.Generator().manual_seed(seed))
+        scaler = identity_scaler(mcfg.out_dim)
+    return model.to(device).eval(), scaler.to(device)
+
+
+def calibrate_int8(model, source, batch_size: int, device) -> dict:
+    """Static scales from the first batch of `source`, normalised as the
+    model sees it (`Trainer.enable_int8_serving`); returns the quant tree."""
+    from geovpr_torch.data.pipeline import iterate_batches
+    from geovpr_torch.data.transforms import normalize
+    from geovpr_torch.models.quantize import quantize_for_serving
+
+    batch = next(iter(iterate_batches(source, batch_size)))
+    images = normalize(torch.from_numpy(batch["image"]).to(device))
+    return quantize_for_serving(model, [images])
+
+
+def evaluate_and_predict(model, scaler, source, batch_size: int,
+                         device) -> tuple[dict, np.ndarray]:
+    """Metrics and per-row decoded (lat, lon) predictions in one pass
+    (`Trainer.evaluate_and_predict`): eval sums accumulated on the device,
+    summarised on the host; predictions in source order."""
+    from geovpr_torch.data.pipeline import iterate_batches, prefetch_to_device
+    from geovpr_torch.data.transforms import normalize
+    from geovpr_torch.objectives.workloads import GeoposeObjective
+    from geovpr_torch.serve.eval import add_sums, eval_sums, summarize_eval
+
+    if len(source) == 0:
+        raise ValueError("predict on an empty source — check the CSV / "
+                         "image root")
+    objective = GeoposeObjective()
+    sums, out = None, np.zeros((len(source), 2), np.float32)
+    with torch.inference_mode():
+        for batch in prefetch_to_device(iterate_batches(source, batch_size),
+                                        device):
+            idx = batch["_indices"]
+            preds = model(normalize(batch["image"]))
+            decoded = objective.decode_predictions(preds, scaler)
+            sums = add_sums(sums, eval_sums(decoded, batch["target"],
+                                            batch["mask"]))
+            out[idx] = decoded[:len(idx)].cpu().numpy()
+    return summarize_eval(sums), out
+
+
+def run_evaluate(model, scaler, source, *, batch_size: int, out_dir: str,
+                 device, int8: bool = False, test_source=None,
+                 submission_csv: str = "") -> tuple[dict, np.ndarray]:
+    """The geopose serving path on in-memory or disk sources (latlon as
+    `targets`, names as `filenames`): with `int8` (a model built with
+    `int8=True`) calibrate on the first batch of `source` first; then
+    metrics and predictions over `source`, `validation_predictions.csv`
+    in `out_dir`, and with `test_source` / `submission_csv` the test and
+    submission CSVs. Returns the CLI's JSON record and the val
+    predictions."""
+    from geovpr_torch.pipeline.export import (write_geopose_preds_csv,
+                                              write_geopose_test_csv,
+                                              write_geopose_validation_csv)
+
+    os.makedirs(out_dir, exist_ok=True)
+    if int8:
+        calibrate_int8(model, source, batch_size, device)
+    metrics, preds = evaluate_and_predict(model, scaler, source, batch_size,
+                                          device)
+    val_csv = os.path.join(out_dir, "validation_predictions.csv")
+    write_geopose_validation_csv(val_csv, source.filenames,
+                                 np.asarray(source.targets, np.float32), preds)
+    outputs = {"metrics": metrics, "validation_csv": val_csv}
+    if submission_csv:
+        sub = (submission_csv if os.path.isabs(submission_csv)
+               else os.path.join(out_dir, submission_csv))
+        write_geopose_preds_csv(sub, source.filenames, preds)
+        outputs["submission_csv"] = sub
+    if test_source is not None:
+        _, test_preds = evaluate_and_predict(model, scaler, test_source,
+                                             batch_size, device)
+        path = os.path.join(out_dir, "test_predictions_sorted.csv")
+        write_geopose_test_csv(path, test_source.filenames, test_preds)
+        outputs["test_csv"] = path
+    return outputs, preds
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--preset", required=True)
+    p.add_argument("--variables", default="",
+                   help="flax msgpack of {params, scaler}; random init and "
+                        "the identity scaler if omitted")
+    p.add_argument("--val-csv", required=True)
+    p.add_argument("--image-root", required=True)
+    p.add_argument("--test-dir", default="")
+    p.add_argument("--out-dir", default="evaluate_out")
+    p.add_argument("--submission-csv", default="",
+                   help="also write the submission-format preds.csv "
+                        "(ID,latitude,longitude; ID parsed from filename "
+                        "digits, sorted numerically) from the val "
+                        "predictions")
+    p.add_argument("--int8", action="store_true",
+                   help="w8a8 serving path: static activation scales "
+                        "calibrated on the first val batch")
+    p.add_argument("--batch-size", type=int, default=0,
+                   help="eval batch size (default: the preset's)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; cuda (default) fails without a card")
+    args = p.parse_args(argv)
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device is available; pass --device cpu to "
+                         "run on the CPU")
+
+    from geovpr_torch.cli.presets import build_preset
+    from geovpr_torch.data.manifest import list_test_images, load_manifest
+    from geovpr_torch.data.pipeline import ImageFolderSource
+
+    cfg = build_preset(args.preset)
+    if not args.variables:
+        print("WARNING: no --variables given; using random init "
+              "(predictions will not be meaningful)", file=sys.stderr)
+    model, scaler = build_geopose_model(cfg, device, args.variables,
+                                        int8=args.int8)
+    data = cfg.data
+
+    def make_source(paths, targets, names):
+        return ImageFolderSource(paths=paths, targets=np.asarray(targets),
+                                 image_size=data.image_size, filenames=names,
+                                 resize_to=data.eval_resize_to)
+
+    manifest = load_manifest(args.val_csv, args.image_root)
+    val_source = make_source(manifest.paths(), manifest.latlon,
+                             manifest.filenames)
+    test_source = None
+    if args.test_dir:
+        names = list_test_images(args.test_dir)
+        test_source = make_source(
+            [os.path.join(args.test_dir, n) for n in names],
+            np.zeros((len(names), 2), np.float32), names)
+    outputs, _ = run_evaluate(
+        model, scaler, val_source,
+        batch_size=args.batch_size or data.batch_size,
+        out_dir=args.out_dir, device=device, int8=args.int8,
+        test_source=test_source, submission_csv=args.submission_csv)
+    print(json.dumps(outputs))
+
+
+if __name__ == "__main__":
+    main()

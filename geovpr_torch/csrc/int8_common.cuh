@@ -1,7 +1,8 @@
-// Shared pieces of the w8a8 kernels (mhsa_int8.cu, mlp_int8.cu) for Hopper
-// (sm_90a): the int8 tensor-core product mma.sync.m16n8k32 (s8 x s8 -> s32),
-// a block GEMM that streams k-contiguous int8 weights through shared memory
-// with cp.async double buffering, and the LayerNorm -> int8 row prologue.
+// Shared pieces of the w8a8 kernels (mhsa_int8.cu, mlp_int8.cu,
+// swin_attn.cu) for Hopper (sm_90a): the int8 tensor-core product
+// mma.sync.m16n8k32 (s8 x s8 -> s32), a block GEMM that streams
+// k-contiguous int8 weights through shared memory with cp.async double
+// buffering, and the LayerNorm -> int8 row prologue.
 //
 // Weights arrive transposed, (out, in) row-major (nn.Linear's layout), so
 // both mma operands are k-contiguous: mma.sync takes int8 operands only in

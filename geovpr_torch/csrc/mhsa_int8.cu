@@ -35,147 +35,29 @@
 //
 // Design (first, simple version; K1's three launches on the caller's
 // stream):
-//   1. qkv_kernel: a 64-row block of x is LayerNorm-ed and quantized
-//      straight into shared memory (48 KB at D = 768, against K1's 142 KB,
-//      so three CTAs fit on an SM), then multiplied with 128-column slabs of
-//      Wqkv_q by mma.sync int8; q|k go to int8 scratch, v to bf16 scratch.
+//   1. int8_qkv_kernel (int8_attn.cuh): a 64-row block of x is LayerNorm-ed
+//      and quantized straight into shared memory (48 KB at D = 768, against
+//      K1's 142 KB, so three CTAs fit on an SM), then multiplied with
+//      128-column slabs of Wqkv_q by mma.sync int8; q|k go to int8
+//      scratch, v to bf16 scratch.
 //   2. attention_kernel: grid (query tile of 64, head, batch); four warps
 //      of 16 query rows; key tiles of 64 stream through shared memory;
 //      int8 scores by mma.sync in registers; P.V by WMMA bf16 with the
 //      context accumulated in registers across all key tiles (no rescale
 //      without a max-shift); ctx rounded to int8 scratch.
-//   3. proj_kernel: ctx8 @ Wo_q with the dequant, LayerScale and residual
-//      epilogue.
+//   3. int8_proj_kernel (int8_attn.cuh): ctx8 @ Wo_q with the dequant,
+//      LayerScale and residual epilogue.
 // The q|k, v and ctx scratch round-trip through device memory between the
 // launches, and mma.sync stands in for wgmma/TMA: both are the first things
 // a faster version changes.
 
 #include <mma.h>
 
-#include "int8_common.cuh"
+#include "int8_attn.cuh"
 
 using namespace nvcuda;
 
 namespace {
-
-constexpr int GEMM_THREADS = 256;
-using ProjGemm = Int8Gemm<2, 4>;  // 64 rows x 128 columns per CTA
-
-__host__ __device__ inline size_t gemm_smem_bytes(int D) {
-  return (size_t)ProjGemm::BM * (D + 16) + (size_t)ProjGemm::SMEM_B;
-}
-
-// x (M, D) bf16 -> LN -> int8 (folded scales) -> @ Wqkv_q (3D x D, k-
-// contiguous) -> * sqkv + bqkv; columns [0, 2D) to qk8 (M, 2D) int8,
-// [2D, 3D) to v (M, D) bf16.
-__global__ void __launch_bounds__(GEMM_THREADS)
-qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
-           const float* __restrict__ ln_bias, float eps,
-           const int8_t* __restrict__ wt, const float* __restrict__ sc,
-           const float* __restrict__ bias, int8_t* __restrict__ qk8,
-           bf16* __restrict__ v, int M, int D) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = D + 16;
-  int8_t* As = reinterpret_cast<int8_t*>(smem);
-  int8_t* Bs = As + ProjGemm::BM * lda;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int n0 = blockIdx.x * ProjGemm::BN;
-  const int m0 = blockIdx.y * ProjGemm::BM;
-
-  for (int r = warp; r < ProjGemm::BM; r += GEMM_THREADS / 32) {
-    if (m0 + r < M) {
-      ln_quant_row(x + (size_t)(m0 + r) * D, D, ln_scale, ln_bias, eps,
-                   As + r * lda, lane);
-    } else {
-      for (int c = lane; c < D; c += 32) As[r * lda + c] = 0;
-    }
-  }
-  __syncthreads();
-
-  const int N3 = 3 * D;
-  int acc[2][4][4];
-  ProjGemm::run(As, lda, wt, n0, N3, D, Bs, acc);
-  const int wm = warp / 4;
-  const int wn = warp % 4;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-      if (col >= N3) continue;
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int row = m0 + wm * 32 + mi * 16 + g + 8 * hr;
-        if (row >= M) continue;
-        const float f0 = (float)acc[mi][ni][2 * hr] * sc[col] + bias[col];
-        const float f1 = (float)acc[mi][ni][2 * hr + 1] * sc[col + 1] + bias[col + 1];
-        if (col < 2 * D) {
-          *reinterpret_cast<char2*>(qk8 + (size_t)row * 2 * D + col) =
-              make_char2(round_clip_i8(f0), round_clip_i8(f1));
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(v + (size_t)row * D + col - 2 * D) =
-              __floats2bfloat162_rn(f0, f1);
-        }
-      }
-    }
-}
-
-// ctx8 (M, D) int8 @ Wo_q (D x D, k-contiguous) -> * so + bo -> * gamma
-// + x -> out (M, D) bf16.
-__global__ void __launch_bounds__(GEMM_THREADS)
-proj_kernel(const int8_t* __restrict__ ctx8, const int8_t* __restrict__ wt,
-            const float* __restrict__ so, const float* __restrict__ bo,
-            const float* __restrict__ gamma, const bf16* __restrict__ x,
-            bf16* __restrict__ out, int M, int D) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = D + 16;
-  int8_t* As = reinterpret_cast<int8_t*>(smem);
-  int8_t* Bs = As + ProjGemm::BM * lda;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int n0 = blockIdx.x * ProjGemm::BN;
-  const int m0 = blockIdx.y * ProjGemm::BM;
-
-  const int kc = D / 16;
-  for (int i = threadIdx.x; i < ProjGemm::BM * kc; i += GEMM_THREADS) {
-    const int r = i / kc;
-    const int c = i % kc;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (m0 + r < M)
-      val = *reinterpret_cast<const uint4*>(ctx8 + (size_t)(m0 + r) * D + c * 16);
-    *reinterpret_cast<uint4*>(As + r * lda + c * 16) = val;
-  }
-  __syncthreads();
-
-  int acc[2][4][4];
-  ProjGemm::run(As, lda, wt, n0, D, D, Bs, acc);
-  const int wm = warp / 4;
-  const int wn = warp % 4;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-      if (col >= D) continue;
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int row = m0 + wm * 32 + mi * 16 + g + 8 * hr;
-        if (row >= M) continue;
-        const size_t o = (size_t)row * D + col;
-        const __nv_bfloat162 r2 = *reinterpret_cast<const __nv_bfloat162*>(x + o);
-        float y0 = (float)acc[mi][ni][2 * hr] * so[col] + bo[col];
-        float y1 = (float)acc[mi][ni][2 * hr + 1] * so[col + 1] + bo[col + 1];
-        y0 = y0 * gamma[col] + __low2float(r2);
-        y1 = y1 * gamma[col + 1] + __high2float(r2);
-        *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(y0, y1);
-      }
-    }
-}
 
 // ----------------------------------------------------------- attention ----
 constexpr int DH = 64;        // head dim (every DINOv2 variant)
@@ -351,11 +233,11 @@ static const int kMaxSmem = 232448;
 // cudaError_t as int.
 extern "C" int geovpr_mhsa_int8_init(void) {
   cudaError_t e;
-  if ((e = cudaFuncSetAttribute(qkv_kernel,
+  if ((e = cudaFuncSetAttribute(int8_qkv_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 kMaxSmem)) != cudaSuccess)
     return (int)e;
-  if ((e = cudaFuncSetAttribute(proj_kernel,
+  if ((e = cudaFuncSetAttribute(int8_proj_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 kMaxSmem)) != cudaSuccess)
     return (int)e;
@@ -375,17 +257,17 @@ extern "C" int geovpr_mhsa_block_int8(
     void* ctx8, void* out, int B, int N, int D, int H, float eps, float cs2,
     void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || D != H * DH || D > LN_MAX_D ||
-      gemm_smem_bytes(D) > (size_t)kMaxSmem)
+      int8_proj_smem_bytes(D) > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   const int M = B * N;
   const int m_blocks = (M + ProjGemm::BM - 1) / ProjGemm::BM;
   if (m_blocks > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t gsmem = gemm_smem_bytes(D);
+  const size_t gsmem = int8_proj_smem_bytes(D);
   cudaError_t e;
 
-  qkv_kernel<<<dim3((3 * D + ProjGemm::BN - 1) / ProjGemm::BN, m_blocks),
-               GEMM_THREADS, gsmem, s>>>(
+  int8_qkv_kernel<<<dim3((3 * D + ProjGemm::BN - 1) / ProjGemm::BN, m_blocks),
+               I8_THREADS, gsmem, s>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
       static_cast<const float*>(ln_bias), eps,
       static_cast<const int8_t*>(wqkv_t), static_cast<const float*>(sqkv),
@@ -399,8 +281,8 @@ extern "C" int geovpr_mhsa_block_int8(
                                     static_cast<int8_t*>(ctx8), N, D, cs2);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  proj_kernel<<<dim3((D + ProjGemm::BN - 1) / ProjGemm::BN, m_blocks),
-                GEMM_THREADS, gsmem, s>>>(
+  int8_proj_kernel<<<dim3((D + ProjGemm::BN - 1) / ProjGemm::BN, m_blocks),
+                I8_THREADS, gsmem, s>>>(
       static_cast<const int8_t*>(ctx8), static_cast<const int8_t*>(wo_t),
       static_cast<const float*>(so), static_cast<const float*>(bo),
       static_cast<const float*>(gamma), static_cast<const bf16*>(x),

@@ -1,5 +1,6 @@
 """Label CSV manifests (the port's copy of `geovpr.data.manifest`'s
-`Manifest` and `load_manifest`, so the CLI needs nothing of `geovpr`).
+`Manifest`, `load_manifest` and `list_test_images`, so the CLIs need
+nothing of `geovpr`).
 
 A manifest CSV has the columns filename, timestamp, latitude, longitude,
 angle, Region_ID. Rows whose image is missing under `image_root` are
@@ -15,6 +16,8 @@ import os
 from typing import Sequence
 
 import numpy as np
+
+IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 
 
 @dataclasses.dataclass
@@ -85,3 +88,10 @@ def load_manifest(csv_path: str, image_root: str = "",
         region_id=np.asarray(region, np.int32),
         image_root=image_root,
     )
+
+
+def list_test_images(test_dir: str) -> list[str]:
+    """Unlabeled test images: the files with an image extension, sorted by
+    name (val_and_test_swin_2.py:125-140)."""
+    return sorted(n for n in os.listdir(test_dir)
+                  if n.lower().endswith(IMAGE_EXTENSIONS))

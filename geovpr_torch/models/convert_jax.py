@@ -7,7 +7,13 @@ The inverse of `geovpr/models/convert_torch.py`'s layouts:
   (D, 3D) `attn.qkv_weight` with q|k|v column blocks and a (3D,) bias; the
   out projection stays (in, out) as `attn.proj_weight`, the layout the fused
   attention kernel takes;
-- LayerNorm scale/bias -> weight/bias; `blockN` -> `blocks.N`;
+- Swin's PatchMerging `reduction` kernel (no bias) stays (in, out) as
+  `reduction_weight`, the layout the fused boundary kernel takes; the
+  relative-position bias table keeps its name and layout;
+- LayerNorm scale/bias (and the `PScaleBias` scale/bias of Swin's
+  norm1/norm2) -> weight/bias; `blockN` -> `blocks.N`; Swin's
+  `stage{s}_block{b}` and `stage{s}_downsample` scopes keep their names,
+  and `RegressionModel`'s `backbone`/`head` scopes become its submodules;
 - the int8 serving "quant" collection, where present, -> the buffers of
   the same names (`backbone.blocks.0.mlp.fc1_kernel_q`, ...), each leaf
   kept as it is: int8 kernels int8 and (in, out), 0-d scales 0-d.
@@ -50,7 +56,9 @@ def torch_name(path: tuple) -> str:
 def state_dict_from_flax(variables: Mapping[str, Any]) -> dict:
     """Map a (numpy) flax variables tree — `{"params": ...}` (with an
     optional "quant" collection) or the params tree itself — of `DinoV2`,
-    `DinoV2Salad` or `SaladHead` to the port's state_dict: parameters as
+    `DinoV2Salad`, `SaladHead`, `SwinTransformer` or `RegressionModel`
+    (a `scaler` entry beside "params" is not part of it) to the port's
+    state_dict: parameters as
     float32 tensors (`load_state_dict` casts them to each parameter's
     dtype), quant leaves in their own dtype and shape."""
     params = variables.get("params", variables)
@@ -66,6 +74,9 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict:
         if len(mod) >= 2 and mod[-2] == "attn" and mod[-1] == "proj":
             name = torch_name(tuple(mod[:-1]))
             sd[f"{name}.proj_{'weight' if leaf == 'kernel' else 'bias'}"] = arr
+            continue
+        if mod and mod[-1] == "reduction" and leaf == "kernel":
+            sd[f"{torch_name(tuple(mod[:-1]))}.reduction_weight"] = arr
             continue
         name = torch_name(tuple(mod))
         prefix = f"{name}." if name else ""

@@ -27,14 +27,13 @@ import torch
 from torch import nn
 
 from geovpr_torch.models.backbone import BackboneOutput
-from geovpr_torch.models.layers import (LayerNorm, Mlp, lecun_normal_,
-                                        normal_, register_quant_buffers)
+from geovpr_torch.models.layers import (LayerNorm, Mlp, QuantBlock,
+                                        lecun_normal_, normal_)
 from geovpr_torch.ops.mhsa import (fused_mhsa_block, fused_mhsa_block_int8,
                                    mhsa_block_int8_reference,
                                    mhsa_block_reference)
 from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
                                        mlp_block_int8_reference)
-from geovpr_torch.ops.quant import act_scale, quantize_weight
 
 DINOV2_VARIANTS = {
     "small-14": dict(hidden_size=384, num_layers=12, num_heads=6),
@@ -82,7 +81,7 @@ class LayerScale(nn.Module):
             self.gamma.fill_(self.init_value)
 
 
-class DinoV2Block(nn.Module):
+class DinoV2Block(QuantBlock):
     """One pre-LN ViT block. `int8_attn` / `int8_mlp` select the w8a8
     serving halves (K2 / K3 on CUDA tensors, their plain versions on the
     CPU or with `use_kernels=False`); their state is the JAX "quant"
@@ -99,8 +98,6 @@ class DinoV2Block(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.use_kernels = use_kernels
-        self.int8_attn = int8_attn
-        self.calib: dict | None = None
         self.norm1 = LayerNorm(dim, LN_EPS, device=device)
         self.attn = Attention(dim, dtype, device=device)
         self.ls1 = LayerScale(dim, layerscale_init, device=device)
@@ -108,21 +105,9 @@ class DinoV2Block(nn.Module):
         self.mlp = Mlp(dim, 4 * dim, dtype=dtype, device=device,
                        int8=int8_mlp)
         self.ls2 = LayerScale(dim, layerscale_init, device=device)
-        if int8_attn:
-            f32, i8 = torch.float32, torch.int8
-            register_quant_buffers(self, (
-                *((n, (), f32, 1.0) for n in (
-                    "attn_a_x", "attn_a_ctx", "attn_a_q", "attn_a_k",
-                    "attn_a_v")),
-                ("attn_wqkv_q", (dim, 3 * dim), i8, 0),
-                ("attn_wqkv_scale", (3 * dim,), f32, 1.0),
-                ("attn_wo_q", (dim, dim), i8, 0),
-                ("attn_wo_scale", (dim,), f32, 1.0)))
         self._k2: dict | None = None
         self._k3: dict | None = None
-        if int8_attn or int8_mlp:
-            self.register_load_state_dict_post_hook(
-                lambda module, _keys: module.fold_int8())
+        self._init_quant(dim, int8_attn, int8_mlp)
 
     @torch.no_grad()
     def fold_int8(self) -> None:
@@ -130,73 +115,15 @@ class DinoV2Block(nn.Module):
         installed quant state, not per call), held as non-persistent
         buffers so that `.to(device)` moves them."""
         if self.int8_attn:
-            self._k2 = self._fold("k2", self._attn_int8_fold())
+            self._k2 = self._fold("k2", dict(self._attn_int8_fold(),
+                                             gamma=self.ls1.gamma.float()))
         if self.mlp.int8:
             self._k3 = self._fold("k3", self.mlp.int8_args(
                 self.norm2.weight, self.norm2.bias, self.ls2.gamma))
             self._k3["inv_a_mid"] = float(1.0 / self.mlp.a_mid_scale)
 
-    def _fold(self, kernel: str, args: dict) -> dict:
-        """Register a kernel's tensor arguments as non-persistent buffers
-        (`_k2_ln_scale_q`, ...); return the argument dict naming them,
-        scalars as Python floats."""
-        out = {}
-        for k, v in args.items():
-            if isinstance(v, torch.Tensor) and v.dim() > 0:
-                name = f"_{kernel}_{k}"
-                self.register_buffer(name, v.detach().contiguous(),
-                                     persistent=False)
-                out[k] = name
-            else:
-                out[k] = float(v)
-        return out
-
-    def _attn_int8_fold(self) -> dict:
-        """`DinoV2Block._attn_int8_fold` (`geovpr/models/dinov2.py:201-249`)
-        at the JAX defaults (int8 scores on, int8 P.V off): 1/a_x into the
-        LN scale and bias; a_x * column scale into the qkv dequant row, with
-        1/a_q, 1/a_k and 1/a_ctx folded into its q, k and v thirds; a_ctx *
-        column scale into the out-projection row; cs = a_q a_k dh^-0.5."""
-        d = self.attn.proj_weight.shape[0]
-        a_x, a_ctx = self.attn_a_x, self.attn_a_ctx
-        a_q, a_k = self.attn_a_q, self.attn_a_k
-        col3 = torch.arange(3 * d, device=a_x.device)
-        thirds = torch.where(col3 < d, 1.0 / a_q,
-                             torch.where(col3 < 2 * d, 1.0 / a_k,
-                                         1.0 / a_ctx))
-        return dict(ln_scale_q=self.norm1.weight.float() / a_x,
-                    ln_bias_q=self.norm1.bias.float() / a_x,
-                    wqkv_q_t=self.attn_wqkv_q.t().contiguous(),
-                    sqkv_eff=a_x * self.attn_wqkv_scale * thirds,
-                    bqkv_eff=self.attn.qkv_bias.float() * thirds,
-                    wo_q_t=self.attn_wo_q.t().contiguous(),
-                    so_eff=a_ctx * self.attn_wo_scale,
-                    bo=self.attn.proj_bias.float(),
-                    gamma=self.ls1.gamma.float(),
-                    cs=a_q * a_k * (d // self.num_heads) ** -0.5)
-
-    def quant_state(self, amax: dict) -> dict:
-        """The JAX "quant" entries of this block's attention from its
-        calibration amaxes (`geovpr/models/quantize.py:60-83`)."""
-        wq, sq = quantize_weight(self.attn.qkv_weight)
-        woq, so = quantize_weight(self.attn.proj_weight)
-        out = {f"attn_a_{k}": act_scale(amax[f"attn_{k}"])
-               for k in ("x", "ctx", "q", "k", "v")}
-        out.update(attn_wqkv_q=wq, attn_wqkv_scale=sq, attn_wo_q=woq,
-                   attn_wo_scale=so)
-        return out
-
-    def _folded_args(self, folded: dict | None) -> dict:
-        if folded is None:
-            raise RuntimeError(
-                "int8 block without a quantized state: calibrate with "
-                "geovpr_torch.models.quantize.quantize_for_serving or load "
-                "a state_dict that carries one")
-        return {k: getattr(self, v) if isinstance(v, str) else v
-                for k, v in folded.items()}
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        calibrating = self.calib is not None or self.mlp.calib is not None
+        calibrating = self.calibrating
         if self.int8_attn and not calibrating:
             attn = (fused_mhsa_block_int8 if self.use_kernels
                     else mhsa_block_int8_reference)

@@ -153,6 +153,99 @@ class Mlp(nn.Module):
                     gamma=gamma.float())
 
 
+class QuantBlock(nn.Module):
+    """The int8 serving state shared by the transformer blocks
+    (`DinoV2Block`, `SwinBlock`): the JAX "quant" collection's attention
+    entries as buffers of the same names, the folding of a kernel's static
+    scales into non-persistent buffers, once per installed state, and the
+    quant entries built from calibration amaxes. A block owns `attn` (with
+    `qkv_weight`, `proj_weight`), `norm1` and `mlp`; subclasses fold their
+    own kernels' arguments in `fold_int8`."""
+
+    def _init_quant(self, dim: int, int8_attn: bool, int8_mlp: bool) -> None:
+        self.int8_attn = int8_attn
+        self.calib: dict | None = None
+        if int8_attn:
+            f32, i8 = torch.float32, torch.int8
+            register_quant_buffers(self, (
+                *((n, (), f32, 1.0) for n in (
+                    "attn_a_x", "attn_a_ctx", "attn_a_q", "attn_a_k",
+                    "attn_a_v")),
+                ("attn_wqkv_q", (dim, 3 * dim), i8, 0),
+                ("attn_wqkv_scale", (3 * dim,), f32, 1.0),
+                ("attn_wo_q", (dim, dim), i8, 0),
+                ("attn_wo_scale", (dim,), f32, 1.0)))
+        if int8_attn or int8_mlp:
+            self.register_load_state_dict_post_hook(
+                lambda module, _keys: module.fold_int8())
+
+    def fold_int8(self) -> None:
+        raise NotImplementedError
+
+    @property
+    def calibrating(self) -> bool:
+        return self.calib is not None or self.mlp.calib is not None
+
+    def _fold(self, kernel: str, args: dict) -> dict:
+        """Register a kernel's tensor arguments as non-persistent buffers
+        (`_k2_ln_scale_q`, ...); return the argument dict naming them,
+        scalars as Python floats."""
+        out = {}
+        for k, v in args.items():
+            if isinstance(v, torch.Tensor) and v.dim() > 0:
+                name = f"_{kernel}_{k}"
+                self.register_buffer(name, v.detach().contiguous(),
+                                     persistent=False)
+                out[k] = name
+            else:
+                out[k] = float(v)
+        return out
+
+    def _folded_args(self, folded: dict | None) -> dict:
+        if folded is None:
+            raise RuntimeError(
+                "int8 block without a quantized state: calibrate with "
+                "geovpr_torch.models.quantize.quantize_for_serving or load "
+                "a state_dict that carries one")
+        return {k: getattr(self, v) if isinstance(v, str) else v
+                for k, v in folded.items()}
+
+    def _attn_int8_fold(self) -> dict:
+        """The attention half's fold at the JAX defaults (int8 scores on,
+        int8 P.V off; `_attn_int8_fold` in `geovpr/models/dinov2.py:201-249`
+        and `swin.py:588-629`): 1/a_x into the LN scale and bias; a_x *
+        column scale into the qkv dequant row, with 1/a_q, 1/a_k and 1/a_ctx
+        folded into its q, k and v thirds; a_ctx * column scale into the
+        out-projection row; cs = a_q a_k dh^-0.5."""
+        d = self.attn.proj_weight.shape[0]
+        a_x, a_ctx = self.attn_a_x, self.attn_a_ctx
+        a_q, a_k = self.attn_a_q, self.attn_a_k
+        col3 = torch.arange(3 * d, device=a_x.device)
+        thirds = torch.where(col3 < d, 1.0 / a_q,
+                             torch.where(col3 < 2 * d, 1.0 / a_k,
+                                         1.0 / a_ctx))
+        return dict(ln_scale_q=self.norm1.weight.float() / a_x,
+                    ln_bias_q=self.norm1.bias.float() / a_x,
+                    wqkv_q_t=self.attn_wqkv_q.t().contiguous(),
+                    sqkv_eff=a_x * self.attn_wqkv_scale * thirds,
+                    bqkv_eff=self.attn.qkv_bias.float() * thirds,
+                    wo_q_t=self.attn_wo_q.t().contiguous(),
+                    so_eff=a_ctx * self.attn_wo_scale,
+                    bo=self.attn.proj_bias.float(),
+                    cs=a_q * a_k * (d // self.num_heads) ** -0.5)
+
+    def quant_state(self, amax: dict) -> dict:
+        """The JAX "quant" entries of this block's attention from its
+        calibration amaxes (`geovpr/models/quantize.py:60-83`)."""
+        wq, sq = quantize_weight(self.attn.qkv_weight)
+        woq, so = quantize_weight(self.attn.proj_weight)
+        out = {f"attn_a_{k}": act_scale(amax[f"attn_{k}"])
+               for k in ("x", "ctx", "q", "k", "v")}
+        out.update(attn_wqkv_q=wq, attn_wqkv_scale=sq, attn_wo_q=woq,
+                   attn_wo_scale=so)
+        return out
+
+
 def lecun_normal_(t: torch.Tensor, fan_in: int,
                   generator: torch.Generator) -> None:
     """flax `lecun_normal`: truncated normal (at +-2 std) with variance

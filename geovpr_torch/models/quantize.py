@@ -3,8 +3,9 @@
 
 `quantize_for_serving(model, calib_batches)` runs the calibration batches
 through the model's plain float path, as JAX's calibration clone does
-(`geovpr/models/dinov2.py:156-160`: the fused kernels never materialize the
-amaxes it reads), with every `Mlp`, `DinoV2Block` and `SaladHead` recording
+(`geovpr/models/dinov2.py:156-160`, `swin.py:386-391`: the fused kernels
+never materialize the amaxes it reads), with every `Mlp`, `DinoV2Block`,
+`SwinBlock` and `SaladHead` recording
 the amax of its calibration points into its `calib` dict. Static scales are
 max over batches / 127 (+1e-12), weights are quantized per out-channel
 from the model's own weights, and the result is the JAX "quant" tree: the
@@ -22,8 +23,9 @@ import torch
 from geovpr_torch.models.dinov2 import DinoV2Block
 from geovpr_torch.models.layers import Mlp
 from geovpr_torch.models.salad import SaladHead
+from geovpr_torch.models.swin import SwinBlock
 
-_CALIBRATED = (Mlp, DinoV2Block, SaladHead)
+_CALIBRATED = (Mlp, DinoV2Block, SwinBlock, SaladHead)
 
 
 def _flax_path(name: str) -> tuple:
@@ -44,11 +46,17 @@ def _flax_path(name: str) -> tuple:
 @torch.no_grad()
 def calibrate(model: torch.nn.Module, calib_batches: Iterable) -> dict:
     """Run the batches (normalised NHWC images) through the plain float
-    path; returns {module name: {calibration point: amax}}."""
+    path (every module's `use_kernels` off for the pass, so that no kernel
+    runs, as none does in JAX's calibration); returns {module name:
+    {calibration point: amax}}."""
     mods = {n: m for n, m in model.named_modules()
             if isinstance(m, _CALIBRATED)}
+    kernel_mods = [m for m in model.modules() if hasattr(m, "use_kernels")]
+    use = [m.use_kernels for m in kernel_mods]
     for m in mods.values():
         m.calib = {}
+    for m in kernel_mods:
+        m.use_kernels = False
     seen = 0
     try:
         for images in calib_batches:
@@ -58,6 +66,8 @@ def calibrate(model: torch.nn.Module, calib_batches: Iterable) -> dict:
     finally:
         for m in mods.values():
             m.calib = None
+        for m, u in zip(kernel_mods, use):
+            m.use_kernels = u
     if not seen:
         raise ValueError("calib_batches is empty")
     return stats

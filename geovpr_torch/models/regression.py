@@ -1,0 +1,58 @@
+"""Backbone + pooling + head (the serving forward of
+`geovpr/train/model.py::RegressionModel`).
+
+`pooling` picks the feature the head reads: "pooler" the backbone's
+`pooled` (the mean of tokens for Swin, CLS for DINOv2), "mean" the f32
+mean over the full last hidden state (CLS included for ViTs), "cls" the CLS
+token; the SALAD descriptor is always the feature of `dinov2_salad`.
+Submodules are `backbone` and `head`, as in the flax tree. The head holds
+f32 weights and emits f32.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from geovpr_torch.core.config import ModelConfig
+from geovpr_torch.heads.regression import build_head
+from geovpr_torch.models.registry import build_backbone
+
+
+def feature_dim(backbone: nn.Module, family: str) -> int:
+    if family == "swin":
+        return backbone.num_features
+    if family == "dinov2_salad":
+        return backbone.descriptor_dim
+    return backbone.hidden_size
+
+
+class RegressionModel(nn.Module):
+    def __init__(self, config: ModelConfig,
+                 dtype: torch.dtype = torch.float32, int8: bool = False,
+                 device=None):
+        super().__init__()
+        self.config = config
+        self.backbone = build_backbone(config, dtype, int8=int8,
+                                       device=device)
+        self.head = build_head(config.head,
+                               feature_dim(self.backbone, config.family),
+                               config.out_dim, hidden=config.head_hidden,
+                               dropout=config.head_dropout, device=device)
+
+    def pool(self, out) -> torch.Tensor:
+        if self.config.family == "dinov2_salad":
+            return out.pooled
+        if self.config.pooling == "cls" and out.cls is not None:
+            return out.cls
+        if self.config.pooling == "mean" and out.tokens is not None:
+            tok_sum = out.tokens.float().sum(dim=1)
+            n = out.tokens.shape[1]
+            if out.cls is not None:
+                return (tok_sum + out.cls.float()) / (n + 1)
+            return tok_sum / n
+        return out.pooled
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) normalised NHWC images -> (B, out_dim) f32."""
+        return self.head(self.pool(self.backbone(images)))

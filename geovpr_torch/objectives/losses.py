@@ -1,0 +1,58 @@
+"""Geopose metrics (the port of the geopose half of
+`geovpr.objectives.losses`): masked means over the valid rows of a batch.
+
+- MSE, RMSE, MAE and per-axis MAE (`swin_attempt_2.py:216-220`,
+  `validation_swin_2.py:191-195`);
+- the "competition loss" 0.5 * (sum(dlat^2) + sum(dlon^2)) / N
+  (`swin_validation.py:100`).
+
+`mask` is an optional (B,) bool tensor; padded rows never contribute.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if mask is None:
+        return x.mean()
+    m = mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim())).to(x.dtype)
+    per_row = x.numel() // mask.numel()
+    denom = torch.clamp(m.sum() * per_row, min=1.0)
+    return (x * m).sum() / denom
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _masked_mean((pred - target) ** 2, mask)
+
+
+def competition_loss(pred_latlon: torch.Tensor, true_latlon: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """0.5 * (sum(dlat^2) + sum(dlon^2)) / N, the mean over lat and lon of
+    the per-axis MSE."""
+    sq = (pred_latlon - true_latlon) ** 2
+    if mask is not None:
+        m = mask.to(sq.dtype)[:, None]
+        n = torch.clamp(m.sum(), min=1.0)
+        return 0.5 * (sq * m).sum() / n
+    return 0.5 * sq.sum() / sq.shape[0]
+
+
+def geopose_metrics(pred_latlon: torch.Tensor, true_latlon: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> dict:
+    """MSE, RMSE, MAE, per-axis MAE and the competition loss, on the
+    original target scale."""
+    err = pred_latlon - true_latlon
+    mse = mse_loss(pred_latlon, true_latlon, mask)
+    return {
+        "mse": mse,
+        "rmse": torch.sqrt(mse),
+        "mae": _masked_mean(err.abs(), mask),
+        "mae_lat": _masked_mean(err[:, 0:1].abs(), mask),
+        "mae_lon": _masked_mean(err[:, 1:2].abs(), mask),
+        "competition_loss": competition_loss(pred_latlon, true_latlon, mask),
+    }

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc at first use; load them with ctypes.
 
-Every ``geovpr_torch/csrc/*.cu`` is compiled in one ``nvcc`` call into a
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds, not minutes). The library name carries a hash of the sources
+Every ``geovpr_torch/csrc/*.cu`` is compiled by its own ``nvcc``, all
+started together, and the objects are linked into one shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds, not
+minutes). The library name carries a hash of the sources
 and the flags, so a stale library is never loaded. Nothing is compiled at
 import: `load_library` runs on the first CUDA launch, or when a caller (the
 chip smoke script) asks for the build up front.
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -59,18 +60,37 @@ def library_path() -> Path:
 
 def _compile(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources())]
-    print("[geovpr_torch build] " + shlex.join(cmd), file=sys.stderr)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    for stream in (proc.stdout, proc.stderr):
-        if stream.strip():
-            print(stream.rstrip(), file=sys.stderr)
-    if proc.returncode != 0:
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        print("[geovpr_torch build] " + shlex.join(cmd), file=sys.stderr)
+        objs.append(obj)
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for src, proc in zip(_sources(), procs):
+        log = proc.communicate()[0]
+        if log.strip():
+            print(log.rstrip(), file=sys.stderr)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (exit code {proc.returncode})")
+    tmp = out.with_name(f"{tag}.so.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            print(link.stdout + link.stderr, file=sys.stderr)
+            failed.append(f"link (exit code {link.returncode})")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}")
+        raise RuntimeError("nvcc failed: " + ", ".join(failed))
     os.replace(tmp, out)
     print(f"[geovpr_torch build] {out.name} in "
           f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
@@ -85,10 +105,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         "geovpr_mhsa_block_int8": [vp] * 14 + [ci] * 4 + [cf, cf, vp],
         # K3 (mlp_int8.cu): 12 pointers, M D HID, inv_a_mid, eps, stream
         "geovpr_mlp_block_int8": [vp] * 12 + [ci] * 3 + [cf, cf, vp],
+        # K4 (swin_attn.cu): 11 pointers, B S C H win shift, eps, qscale,
+        # stream
+        "geovpr_swin_attn_bf16": [vp] * 11 + [ci] * 6 + [cf, cf, vp],
+        # K5 (swin_attn.cu): 14 pointers, B S C H win shift, eps, cs2, stream
+        "geovpr_swin_attn_int8": [vp] * 14 + [ci] * 6 + [cf, cf, vp],
+        # K6 (patch_merge.cu): 5 pointers, B S C, eps, stream
+        "geovpr_patch_merge": [vp] * 5 + [ci] * 3 + [cf, vp],
         "geovpr_mhsa_max_dim": [],
         "geovpr_mhsa_init": [],
         "geovpr_mhsa_int8_init": [],
         "geovpr_mlp_int8_init": [],
+        "geovpr_swin_init": [],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -95,6 +95,14 @@ def check_shapes(want: dict, got: dict) -> None:
                              f"{tuple(got[name].shape)}")
 
 
+def check_devices(x, tensors: dict) -> None:
+    """Raise ValueError unless every tensor in `tensors` lies on x's
+    device."""
+    for name, t in tensors.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
 def check_int8_kernel_args(x, mats: dict, vecs: dict, extra=()) -> None:
     """What the int8 kernels take on CUDA: bf16 x (and `extra` tensors),
     int8 matrices, f32 vectors, all contiguous, on x's device, forward

@@ -8,7 +8,9 @@ This file imports no jax, so it also runs where only the port is installed:
 import pytest
 import torch
 
-from chip_smoke import int8_block_case, int8_errors, int8_within_bound
+from chip_smoke import (f32, int8_block_case, int8_errors, int8_within_bound,
+                        k1_within_bound, k4_args, k5_kwargs, merge_case,
+                        ratio_errors, swin_block_case)
 from geovpr_torch.ops.mhsa import (fused_mhsa_block, fused_mhsa_block_int8,
                                    mhsa_block_int8_reference,
                                    mhsa_block_reference)
@@ -173,3 +175,104 @@ def test_int8_model_launches_once_per_layer(cuda):
     assert (fused_mhsa_block_int8.launches,
             fused_mlp_block_int8.launches) == (before[0] + 2, before[1] + 2)
     assert torch.isfinite(out.tokens.float()).all()
+
+
+_SWIN_SHAPES = [(2, 128, 4, 24, 12, 6), (2, 64, 2, 8, 4, 2),
+                (1, 1024, 32, 12, 12, 0), (3, 256, 8, 24, 12, 0)]
+
+
+@pytest.mark.parametrize("shape", _SWIN_SHAPES)
+def test_k4_matches_plain_version(cuda, shape):
+    """K1's bound (x at 1e-2; max and mean |error| against the f32 plain
+    version within 1.25x and 1.1x the bf16 plain version's)."""
+    from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
+                                             swin_attn_block_reference)
+    x, blk = swin_block_case(shape, cuda, x_scale=1e-2)
+    args = k4_args(x, blk)
+    before = fused_swin_attn_block.launches
+    e = ratio_errors(fused_swin_attn_block, swin_attn_block_reference, args,
+                     f32(args))
+    assert fused_swin_attn_block.launches == before + 1
+    assert k1_within_bound(e), e
+
+
+@pytest.mark.parametrize("shape", _SWIN_SHAPES)
+def test_k5_matches_plain_version(cuda, shape):
+    """K2's bound (share of elements off by more than 1e-3 at most 1%, max
+    |error| within 1.5 x the largest dequant step + 1e-3 + two bf16
+    spacings)."""
+    from geovpr_torch.ops.swin_block import (fused_swin_attn_block_int8,
+                                             swin_attn_block_int8_reference)
+    x, blk = swin_block_case(shape, cuda, int8=True)
+    kw = k5_kwargs(blk)
+    with torch.inference_mode():
+        before = fused_swin_attn_block_int8.launches
+        got = fused_swin_attn_block_int8(x, **kw)
+        torch.cuda.synchronize()
+        want = swin_attn_block_int8_reference(x, **kw)
+    assert fused_swin_attn_block_int8.launches == before + 1
+    e = int8_errors(got, want, kw["so_eff"].abs().max().item())
+    assert int8_within_bound(e), e
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 24), (3, 64, 10), (1, 512, 24)])
+def test_k6_matches_plain_version(cuda, shape):
+    from geovpr_torch.ops.patch_merge import (fused_patch_merge,
+                                              patch_merge_reference)
+    args = merge_case(shape, cuda)
+    before = fused_patch_merge.launches
+    e = ratio_errors(fused_patch_merge, patch_merge_reference, args,
+                     f32(args))
+    assert fused_patch_merge.launches == before + 1
+    assert k1_within_bound(e), e
+
+
+def test_swin_kernels_refuse_what_they_do_not_take(cuda):
+    from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
+                                             fused_swin_attn_block_int8)
+    x, blk = swin_block_case((1, 64, 2, 8, 4, 2), cuda)
+    args = list(k4_args(x, blk))
+    with torch.inference_mode(), pytest.raises(TypeError):
+        fused_swin_attn_block(x.float(), *args[1:])
+    table = args[7][:, :1].contiguous()                # one head of 64
+    with torch.inference_mode(), pytest.raises(ValueError, match="head dim"):
+        fused_swin_attn_block(*args[:7], table, 1, *args[9:])
+    with pytest.raises(RuntimeError, match="backward"):
+        fused_swin_attn_block(*args)                     # grads enabled
+    x, blk = swin_block_case((1, 64, 2, 8, 4, 2), cuda, int8=True)
+    kw = k5_kwargs(blk)
+    with torch.inference_mode(), pytest.raises(NotImplementedError):
+        fused_swin_attn_block_int8(x, **{**kw, "cs": None})
+    with torch.inference_mode(), pytest.raises(NotImplementedError):
+        fused_swin_attn_block_int8(x, **kw, cpv=1.0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_swin_model_launches_per_block(cuda, int8):
+    """A two-stage Swin: one K4 (bf16) or K5 + K3 (int8) per block, one K6
+    at the boundary."""
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.quantize import quantize_for_serving
+    from geovpr_torch.models.swin import SwinTransformer
+    from geovpr_torch.ops.patch_merge import fused_patch_merge
+    from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
+                                             fused_swin_attn_block_int8)
+
+    model = SwinTransformer(embed_dim=64, depths=(2, 2), num_heads=(2, 4),
+                            window_size=4, image_size=32,
+                            dtype=torch.bfloat16, int8_attn=int8,
+                            int8_mlp=int8)
+    init_weights_(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    x = torch.randn(2, 32, 32, 3, device=cuda)
+    if int8:
+        quantize_for_serving(model, [x])
+    fns = (fused_swin_attn_block, fused_swin_attn_block_int8,
+           fused_mlp_block_int8, fused_patch_merge)
+    before = [f.launches for f in fns]
+    with torch.inference_mode():
+        out = model(x)
+        torch.cuda.synchronize()
+    got = [f.launches - b for f, b in zip(fns, before)]
+    assert got == ([0, 4, 4, 1] if int8 else [4, 0, 0, 1])
+    assert torch.isfinite(out.tokens).all()

@@ -1,6 +1,7 @@
 """The port runs without jax and without the JAX package (`geovpr`), through
-`run_retrieval` and through the CLI's `main` with `--int8`, and
-chip_smoke.py fails where it cannot run."""
+`run_retrieval`, the retrieve CLI's `main` with `--int8` and the evaluate
+CLI's `main` (bf16 and `--int8`), and chip_smoke.py fails where it cannot
+run."""
 
 import json
 import os
@@ -10,6 +11,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
@@ -96,6 +98,59 @@ def test_cli_int8_runs_without_jax_or_geovpr():
     out = proc.stdout.strip().splitlines()
     assert out[-1] == "OK"
     assert json.loads(out[-2])["gallery_size"] == 5
+
+
+_EVALUATE = """
+import sys
+for name in {block!r}:
+    sys.modules[name] = None
+import json, os, tempfile
+import numpy as np
+from PIL import Image
+from geovpr_torch.cli import presets
+from geovpr_torch.cli.evaluate import main
+from geovpr_torch.core.config import DataConfig, GeoposeConfig, ModelConfig
+from geovpr_torch.models.swin import SWIN_VARIANTS
+SWIN_VARIANTS["test-32"] = dict(embed_dim=32, depths=(2, 2), num_heads=(1, 2),
+                                window_size=4, image_size=32)
+presets.GEOPOSE_PRESETS["swin_test"] = GeoposeConfig(
+    data=DataConfig(image_size=32, batch_size=2),
+    model=ModelConfig(family="swin", variant="test-32", head="mlp",
+                      head_hidden=16))
+
+with tempfile.TemporaryDirectory() as d:
+    os.makedirs(os.path.join(d, "img"))
+    rng = np.random.default_rng(0)
+    with open(os.path.join(d, "labels.csv"), "w") as f:
+        f.write("filename,timestamp,latitude,longitude,angle,Region_ID\\n")
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 255, (20, 20, 3)).astype(
+                np.uint8)).save(os.path.join(d, "img", f"p{{i}}.png"))
+            f.write(f"p{{i}}.png,0,{{i * 100.0}},0,0,1\\n")
+    for extra in ([], ["--int8"]):
+        main(["--preset", "swin_test", "--val-csv",
+              os.path.join(d, "labels.csv"), "--image-root",
+              os.path.join(d, "img"), "--out-dir", os.path.join(d, "out"),
+              "--device", "cpu"] + extra)
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split(".")[0] in {block!r})
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_evaluate_cli_runs_without_jax_or_geovpr():
+    """`geovpr_torch.cli.evaluate.main` on a small Swin preset over a folder
+    of PNGs, bf16 and `--int8`, with jax, flax and `geovpr` blocked."""
+    block = _BLOCK + ("geovpr",)
+    proc = subprocess.run(
+        [sys.executable, "-c", _EVALUATE.format(block=block)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = proc.stdout.strip().splitlines()
+    assert out[-1] == "OK"
+    for line in out[-3:-1]:
+        assert np.isfinite(json.loads(line)["metrics"]["mse"])
 
 
 def _import_lines(pattern: str) -> list[str]:

@@ -1,0 +1,385 @@
+"""The plain versions of kernels K4 (`swin_attn_block_reference`), K5
+(`swin_attn_block_int8_reference`) and K6 (`patch_merge_reference`), and
+their wrappers on CPU tensors, against the JAX package: its Pallas kernels
+in interpret mode (as tests/test_swin.py runs them on the CPU) and its XLA
+oracles (`_swin_attn_block_xla`, the unfused int8 fallback, flax
+`PatchMerging`).
+
+The port works on the raster (B, L, C) stream and the JAX kernels on
+(B*nW, N, C) windows in a (shifted) window layout; the test converts with
+numpy (roll by -shift, partition; and back).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import geovpr.ops.pallas_patch_merge as ppm
+import geovpr.ops.pallas_swin_block as psb
+from geovpr.models.swin import PatchMerging as JPatchMerging
+from geovpr.models.swin import (_SWIN_LOG2E, relative_position_index,
+                                shifted_window_mask)
+from geovpr_torch.models.layers import init_weights_
+from geovpr_torch.models.quantize import quantize_for_serving
+from geovpr_torch.models.swin import SwinBlock
+from geovpr_torch.ops.patch_merge import (fused_patch_merge,
+                                          patch_merge_reference)
+from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
+                                         fused_swin_attn_block_int8,
+                                         swin_attn_block_int8_reference,
+                                         swin_attn_block_reference)
+
+B, RES, WIN, C, H = 2, 24, 12, 128, 4     # kernel-eligible: N=144, C=128
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    orig = pl.pallas_call
+    monkeypatch.setattr(pl, "pallas_call",
+                        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+
+
+def to_windows(x, res, win, shift):
+    """numpy raster (B, L, C) -> (B*nW, N, C) windows of the -shift roll."""
+    b, _, c = x.shape
+    t = np.roll(x.reshape(b, res, res, c), (-shift, -shift), axis=(1, 2))
+    t = t.reshape(b, res // win, win, res // win, win, c)
+    return t.transpose(0, 1, 3, 2, 4, 5).reshape(-1, win * win, c)
+
+
+def from_windows(xw, res, win, shift):
+    c = xw.shape[-1]
+    b = xw.shape[0] // (res // win) ** 2
+    t = xw.reshape(b, res // win, res // win, win, win, c)
+    t = t.transpose(0, 1, 3, 2, 4, 5).reshape(b, res, res, c)
+    return np.roll(t, (shift, shift), axis=(1, 2)).reshape(b, res * res, c)
+
+
+def _attn_case(seed):
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, scale=1.0, shift=0.0):
+        return (rng.normal(size=shape) * scale + shift).astype(np.float32)
+
+    return dict(x=r(B, RES * RES, C), ln_scale=r(C, scale=0.1, shift=1.0),
+                ln_bias=r(C, scale=0.1), wqkv=r(C, 3 * C, scale=C ** -0.5),
+                bqkv=r(3 * C, scale=0.1), wo=r(C, C, scale=C ** -0.5),
+                bo=r(C, scale=0.1), table=r((2 * WIN - 1) ** 2, H))
+
+
+_LOW = ("x", "wqkv", "wo")
+
+
+def _port(inp, dtype, shift):
+    t = {k: torch.from_numpy(v).to(dtype if k in _LOW else torch.float32)
+         for k, v in inp.items()}
+    return (t["x"], t["ln_scale"], t["ln_bias"], t["wqkv"], t["bqkv"],
+            t["wo"], t["bo"], t["table"], H, RES, WIN, shift)
+
+
+def _jax_window_args(inp, dtype, shift):
+    """(xw, ln_scale, ln_bias, wqkv, bqkv, wo, bo, bias, mask) for the JAX
+    half-block on the windows of the -shift roll."""
+    n = WIN * WIN
+    bias = inp["table"][relative_position_index(WIN).reshape(-1)].reshape(
+        n, n, H).transpose(2, 0, 1)
+    mask = (jnp.asarray(shifted_window_mask(RES, RES, WIN, shift))
+            if shift else None)
+    low = lambda a: jnp.asarray(a).astype(dtype)  # noqa: E731
+    return (low(to_windows(inp["x"], RES, WIN, shift)),
+            jnp.asarray(inp["ln_scale"]), jnp.asarray(inp["ln_bias"]),
+            low(inp["wqkv"]), jnp.asarray(inp["bqkv"]), low(inp["wo"]),
+            jnp.asarray(inp["bo"]), jnp.asarray(bias), mask)
+
+
+def _raster(out_w, shift):
+    return from_windows(np.asarray(out_w.astype(jnp.float32)), RES, WIN,
+                        shift)
+
+
+# Tolerances. f32: both sides run the same f32 arithmetic, in another
+# summation order -> 1e-4 at |out| <= ~5. bf16: the same rounding points,
+# but a reduction ordered differently can land a bf16 rounding (q, P, the
+# context) on the other side, moving an output by one bf16 ulp at |out| <=
+# ~5 (2^-5); measured max 0.031 -> 0.07.
+_TOL = {"float32": 1e-4, "bfloat16": 0.07}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shift", [0, WIN // 2])
+def test_k4_plain_matches_jax_kernel(interpret, shift, dtype):
+    inp = _attn_case(seed=shift)
+    want = psb.fused_swin_attn_block(
+        *_jax_window_args(inp, getattr(jnp, dtype), shift), H, 1e-5)
+    got = swin_attn_block_reference(*_port(inp, getattr(torch, dtype),
+                                           shift))
+    assert got.dtype == getattr(torch, dtype)
+    err = np.abs(got.float().numpy() - _raster(want, shift))
+    assert err.max() <= _TOL[dtype], err.max()
+
+
+def test_k4_plain_matches_jax_rolled_kernel(interpret):
+    """The rolled entry takes the stream in the unshifted window layout and
+    assembles this (shifted) block's windows itself (roll_sign +1); its
+    output is in the shifted layout. One port call covers it."""
+    shift = WIN // 2
+    inp = _attn_case(seed=3)
+    args = _jax_window_args(inp, jnp.float32, shift)
+    xw0 = jnp.asarray(to_windows(inp["x"], RES, WIN, 0))
+    nw = RES // WIN
+    want = psb.fused_swin_attn_block_rolled(xw0, *args[1:], H, 1, WIN, nw, nw,
+                                            1e-5)
+    got = swin_attn_block_reference(*_port(inp, torch.float32, shift))
+    err = np.abs(got.numpy() - _raster(want, shift))
+    assert err.max() <= _TOL["float32"], err.max()
+
+
+@pytest.mark.parametrize("shift", [0, WIN // 2])
+def test_k4_plain_matches_jax_oracle(shift):
+    """`_swin_attn_block_xla`, the kernel's numeric oracle: scaled scores,
+    max-shifted softmax normalised before P.V, in f32. The plain version
+    forms the serving softmax (exp2, no max-shift, normalised after P.V):
+    the same function, to f32 rounding."""
+    inp = _attn_case(seed=10 + shift)
+    want = psb._swin_attn_block_xla(*_jax_window_args(inp, jnp.float32, shift),
+                                    num_heads=H, ln_eps=1e-5)
+    got = swin_attn_block_reference(*_port(inp, torch.float32, shift))
+    err = np.abs(got.numpy() - _raster(want, shift))
+    assert err.max() <= 1e-4, err.max()
+
+
+def _int8_block(shift, seed=5):
+    """A port SwinBlock (f32) with perturbed vectors and table, its int8
+    state calibrated on x by the port (`quantize_for_serving`); returns x,
+    the block and K5's folded arguments."""
+    g = torch.Generator().manual_seed(seed)
+    blk = SwinBlock(C, H, RES, WIN, shift, int8_attn=True, int8_mlp=True)
+    init_weights_(blk, g)
+    with torch.no_grad():
+        for p in (blk.norm1.weight, blk.norm2.weight):
+            p.add_(torch.randn(C, generator=g) * 0.1)
+        for p in (blk.norm1.bias, blk.norm2.bias, blk.attn.qkv_bias,
+                  blk.attn.proj_bias):
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+        blk.attn.relative_position_bias_table.copy_(torch.randn(
+            blk.attn.relative_position_bias_table.shape, generator=g))
+    x = torch.randn(B, RES * RES, C, generator=g)
+    quantize_for_serving(blk.eval(), [x])
+    return x, blk, blk._folded_args(blk._k5)
+
+
+def _int8_errors(got, want, so_eff):
+    """|error| and its bound. int8 products are exact on both sides, so the
+    two differ only where an f32 reduction (LayerNorm, the softmax sum, P.V)
+    lands a value on the other side of an int8 rounding boundary. A flipped
+    context value moves its row by |wo_q| x so_eff <= 127 max|so_eff|: the
+    bound allows two flips in a row, + 1e-3."""
+    err = np.abs(np.asarray(got, np.float32) - np.asarray(want, np.float32))
+    return err, 2 * 127 * float(so_eff.abs().max()) + 1e-3
+
+
+def _rows_off(err, tol):
+    """Share of token rows with an element off by more than tol."""
+    return (err > tol).any(-1).mean()
+
+
+@pytest.mark.parametrize("shift", [0, WIN // 2])
+def test_k5_plain_matches_jax_kernel(interpret, shift):
+    """K5's plain version against `fused_swin_attn_block_int8` interpreted,
+    on the port's fold: the same arithmetic, so at most 1% of the rows may
+    differ by more than 1e-5 (measured: 1 row of 1,152, one context flip, at
+    shift 0; none shifted), each within the flip bound of `_int8_errors`."""
+    x, blk, k5 = _int8_block(shift)
+    n = WIN * WIN
+    table = blk.attn.relative_position_bias_table.detach().numpy()
+    bias = table[relative_position_index(WIN).reshape(-1)].reshape(
+        n, n, H).transpose(2, 0, 1)
+    mask = (jnp.asarray(shifted_window_mask(RES, RES, WIN, shift))
+            if shift else None)
+    j = {k: jnp.asarray(v.numpy()) for k, v in k5.items()
+         if isinstance(v, torch.Tensor)}
+    want = psb.fused_swin_attn_block_int8(
+        jnp.asarray(to_windows(x.numpy(), RES, WIN, shift)), j["ln_scale_q"],
+        j["ln_bias_q"], j["wqkv_q_t"].T, j["sqkv_eff"], j["bqkv_eff"],
+        j["wo_q_t"].T, j["so_eff"], j["bo"], jnp.asarray(bias), mask, H,
+        1e-5, cs=jnp.float32(k5["cs"]) * _SWIN_LOG2E)
+    with torch.no_grad():
+        got = swin_attn_block_int8_reference(
+            x, **k5, table=blk.attn.relative_position_bias_table,
+            num_heads=H, resolution=RES, window=WIN, shift=shift)
+    err, bound = _int8_errors(got.numpy(), _raster(want, shift),
+                              k5["so_eff"])
+    assert err.max() <= bound, (err.max(), bound)
+    assert _rows_off(err, 1e-5) <= 0.01
+
+
+@pytest.mark.parametrize("mode", ["qk8", "qk8_pv8", "bf16_scores"])
+def test_k5_plain_matches_jax_fallback(mode):
+    """All three modes against the JAX block's XLA int8 fallback
+    (`SwinBlock._attention_int8`, `geovpr/models/swin.py:662-729`), driven
+    through the JAX block on windows with the port's quant state. The
+    default mode forms the softmax as the kernel does (exp2, no max-shift,
+    unnormalised P rounded to bf16) and rounds the context to int8 once,
+    where the fallback normalises first and rounds the context to bf16
+    before int8 (`swin.py:713-722`; ROADMAP Queue 3). bf16 spaces values of
+    64..127 by 0.5, so the double rounding moves many int8 contexts by one:
+    99% of the rows differ here (pinned: at least half), while the
+    attention branch (out - x) keeps cosine 0.99992 and max error 1.2% of
+    its largest value (bounds 0.9995 and 3%). The other two modes repeat
+    the fallback's arithmetic: bound 1e-4."""
+    import geovpr.models.swin as jswin
+    shift = WIN // 2
+    x, blk, k5 = _int8_block(shift, seed=6)
+    n = WIN * WIN
+    table = blk.attn.relative_position_bias_table.detach().numpy()
+    bias = table[relative_position_index(WIN).reshape(-1)].reshape(
+        n, n, H).transpose(2, 0, 1)
+    mask = jnp.asarray(shifted_window_mask(RES, RES, WIN, shift))
+    cs = cpv = None
+    if mode != "bf16_scores":
+        cs = jnp.float32(k5["cs"])
+    a_v, a_ctx = blk.attn_a_v.item(), blk.attn_a_ctx.item()
+    kw = dict(k5)
+    if mode == "qk8_pv8":
+        cpv = np.float32(a_v / (127.0 * a_ctx))
+        # the v third carries 1/a_v instead of 1/a_ctx in this mode
+        thirds = np.ones(3 * C, np.float32)
+        thirds[2 * C:] = a_ctx / a_v
+        kw["sqkv_eff"] = k5["sqkv_eff"] * torch.from_numpy(thirds)
+        kw["bqkv_eff"] = k5["bqkv_eff"] * torch.from_numpy(thirds)
+    if mode == "bf16_scores":
+        thirds = np.ones(3 * C, np.float32)
+        thirds[:C] = blk.attn_a_q.item()
+        thirds[C:2 * C] = blk.attn_a_k.item()
+        kw["sqkv_eff"] = k5["sqkv_eff"] * torch.from_numpy(thirds)
+        kw["bqkv_eff"] = k5["bqkv_eff"] * torch.from_numpy(thirds)
+        kw["cs"] = None
+    j = {k: jnp.asarray(v.numpy()) for k, v in kw.items()
+         if isinstance(v, torch.Tensor)}
+    attn_args = (j["ln_scale_q"], j["ln_bias_q"], j["wqkv_q_t"].T,
+                 j["sqkv_eff"], j["bqkv_eff"], j["wo_q_t"].T, j["so_eff"],
+                 j["bo"], cs, None if cpv is None else jnp.asarray(cpv))
+    jb = jswin.SwinBlock(dim=C, num_heads=H, resolution=RES, window=WIN,
+                         shift=shift, use_pallas=False)
+    want = jb._attention_int8(jnp.asarray(to_windows(x.numpy(), RES, WIN,
+                                                     shift)),
+                              attn_args, jnp.asarray(bias), mask)
+    with torch.no_grad():
+        got = swin_attn_block_int8_reference(
+            x, **kw, table=blk.attn.relative_position_bias_table,
+            num_heads=H, resolution=RES, window=WIN, shift=shift,
+            cpv=None if cpv is None else float(cpv))
+    err = np.abs(got.numpy() - _raster(want, shift))
+    if mode == "qk8":
+        xf = x.numpy()
+        g = (got.numpy() - xf).ravel()
+        w = (_raster(want, shift) - xf).ravel()
+        cos = g @ w / np.linalg.norm(g) / np.linalg.norm(w)
+        assert cos >= 0.9995, cos
+        assert err.max() <= 0.03 * np.abs(w).max(), err.max()
+        # the double rounding is visible: most rows differ
+        assert _rows_off(err, 1e-5) >= 0.5
+    else:
+        assert err.max() <= 1e-4, err.max()
+
+
+def _merge_case(res, c, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, sc=1.0, sh=0.0: (rng.normal(size=s) * sc + sh).astype(  # noqa: E731
+        np.float32)
+    return (f(B, res * res, c), f(4 * c, sc=0.1, sh=1.0), f(4 * c, sc=0.1),
+            f(4 * c, 2 * c, sc=(4 * c) ** -0.5))
+
+
+# (res, C, window, shift) that patch_merge_rolled_ok admits
+@pytest.mark.parametrize("res,c,win,shift", [(16, 128, 4, 2),
+                                             (48, 128, 12, 6)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k6_plain_matches_jax_kernel(interpret, res, c, win, shift, dtype):
+    """The JAX kernel reads the last block's shifted window layout and
+    writes the next stage's windows; the port reads and writes raster rows.
+    Same arithmetic: f32 to 1e-4; bf16 one ulp of a rounding landed apart
+    at |out| <= ~4 -> 0.04."""
+    x, ln_s, ln_b, w = _merge_case(res, c)
+    dt = getattr(jnp, dtype)
+    assert ppm.patch_merge_rolled_ok(res, c, win, win, shift,
+                                     B * (res // win) ** 2)
+    want = ppm.fused_patch_merge_rolled(
+        jnp.asarray(to_windows(x, res, win, shift)).astype(dt),
+        jnp.asarray(ln_s), jnp.asarray(ln_b), jnp.asarray(w).astype(dt),
+        resolution=res, window=win, next_window=win, shift=shift)
+    want = from_windows(np.asarray(want.astype(jnp.float32)), res // 2, win,
+                        0)
+    td = getattr(torch, dtype)
+    got = patch_merge_reference(torch.from_numpy(x).to(td),
+                                torch.from_numpy(ln_s), torch.from_numpy(ln_b),
+                                torch.from_numpy(w).to(td), res)
+    err = np.abs(got.float().numpy() - want)
+    assert err.max() <= (1e-4 if dtype == "float32" else 0.04), err.max()
+
+
+def test_k6_plain_matches_flax_patch_merging():
+    """Against the JAX model's XLA boundary (concat, flax LayerNorm, Dense)
+    in f32: flax takes the variance as E[x^2] - E[x]^2, the plain version
+    in two passes -> 1e-4."""
+    res, c = 8, 32
+    x, ln_s, ln_b, w = _merge_case(res, c, seed=4)
+    want = JPatchMerging(dim=c, resolution=res).apply(
+        {"params": {"norm": {"scale": ln_s, "bias": ln_b},
+                    "reduction": {"kernel": w}}}, jnp.asarray(x))
+    got = patch_merge_reference(torch.from_numpy(x), torch.from_numpy(ln_s),
+                                torch.from_numpy(ln_b), torch.from_numpy(w),
+                                res)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-4)
+
+
+def test_wrappers_on_cpu_run_the_plain_versions():
+    inp = _attn_case(seed=20)
+    args = _port(inp, torch.bfloat16, WIN // 2)
+    before = fused_swin_attn_block.launches
+    assert torch.equal(fused_swin_attn_block(*args),
+                       swin_attn_block_reference(*args))
+    assert fused_swin_attn_block.launches == before
+    x, blk, k5 = _int8_block(0, seed=7)
+    geom = dict(table=blk.attn.relative_position_bias_table, num_heads=H,
+                resolution=RES, window=WIN, shift=0)
+    before = fused_swin_attn_block_int8.launches
+    with torch.no_grad():
+        assert torch.equal(fused_swin_attn_block_int8(x, **k5, **geom),
+                           swin_attn_block_int8_reference(x, **k5, **geom))
+    assert fused_swin_attn_block_int8.launches == before
+    xm, ln_s, ln_b, w = (torch.from_numpy(a) for a in _merge_case(8, 16))
+    before = fused_patch_merge.launches
+    assert torch.equal(fused_patch_merge(xm, ln_s, ln_b, w, 8),
+                       patch_merge_reference(xm, ln_s, ln_b, w, 8))
+    assert fused_patch_merge.launches == before
+
+
+@pytest.mark.parametrize("bad", ["table", "grid", "shift", "device"])
+def test_k4_wrapper_rejects_bad_inputs(bad):
+    args = list(_port(_attn_case(seed=21), torch.float32, 0))
+    if bad == "table":
+        args[7] = args[7][:, :2]
+    elif bad == "grid":
+        args[0] = args[0][:, :100]
+    elif bad == "shift":
+        args[11] = WIN
+    else:
+        args[1] = args[1].to("meta")
+    with pytest.raises(ValueError):
+        fused_swin_attn_block(*args)
+
+
+@pytest.mark.parametrize("bad", ["w", "odd"])
+def test_k6_wrapper_rejects_bad_inputs(bad):
+    x, ln_s, ln_b, w = (torch.from_numpy(a) for a in _merge_case(8, 16))
+    res = 8
+    if bad == "w":
+        w = w[:, :16]
+    else:
+        x, res = x[:, :49], 7
+    with pytest.raises(ValueError):
+        fused_patch_merge(x, ln_s, ln_b, w, res)
