@@ -5,10 +5,11 @@
 For each planted fault it copies `geovpr_torch/` into a temporary
 directory, breaks one line of a kernel source there (K2 without its key
 mask; K3 with b2 dropped from its epilogue; K4 without the shift mask or
-without the relative-position bias; K6 with x10 and x01 swapped in the
-concat order), builds that copy and runs the chip_smoke.py check of that
-kernel (`int8_kernels_vs_plain` for K2/K3, `swin_kernels_vs_plain` for
-K4/K6) against it at one shape. It prints the check's error line for the
+without the relative-position bias; K7 counting the pad keys past N, or
+without the shift mask; K6 with x10 and x01 swapped in the concat order),
+builds that copy and runs the chip_smoke.py check of that kernel
+(`int8_kernels_vs_plain` for K2/K3, `swin_kernels_vs_plain` for K4/K6,
+`k7_kernels_vs_plain` for K7) against it at one shape. It prints the check's error line for the
 faulty kernel and whether the check rejected it, and exits non-zero if a
 planted fault passes. Needs one CUDA card; the checkout itself is never
 modified.
@@ -29,6 +30,8 @@ _INT8 = ("cs.KERNEL_SHAPES = ({shape!r},); cs.MAIN_SHAPE = {shape!r}; "
 _SWIN = ("cs.swin_kernels_vs_plain(dev, attn_shapes={attn!r}, "
          "merge_shapes={merge!r})")
 _STAGE0 = (16, 128, 4, 96, 12, 6)    # Swin-B-384 stage 0, shifted, B=16
+_K7 = "cs.k7_kernels_vs_plain(dev, shapes={shapes!r})"
+_K7_STAGE0 = (1024, 3, 49, 64)       # Swin-T-224 stage 0, shifted, B=16
 
 # name -> (source file, [(original text, faulty text)], check to run)
 FAULTS = {
@@ -45,9 +48,17 @@ FAULTS = {
          "if (false && (hi ? lab1 : lab0) != lab_s[key])")],
         _SWIN.format(attn=(_STAGE0,), merge=())),
     "K4 relative-position bias dropped": ("swin_attn.cu", [
-        ("__fadd_rn(s[j][e], tab_s[(hi ? pos1 : pos0) - pos_s[key]]);",
-         "__fadd_rn(s[j][e], 0.f);")],
+        ("__fadd_rn(sv, tab_s[(hi ? pos1 : pos0) - pos_s[key]]);",
+         "__fadd_rn(sv, 0.f);")],
         _SWIN.format(attn=(_STAGE0,), merge=())),
+    "K7 pad keys counted": ("window_attn.cu", [
+        ("if (key >= N || row >= N) return 0.f;",
+         "if (row >= N) return 0.f;\n"
+         "        if (key >= N) return exp2f(fminf(sv, 100.f));")],
+        _K7.format(shapes=(_K7_STAGE0,))),
+    "K7 shift mask dropped": ("window_attn.cu", [
+        ("if (mask_w) x = __fadd_rn(", "if (false) x = __fadd_rn(")],
+        _K7.format(shapes=(_K7_STAGE0,))),
     "K6 x10 and x01 swapped": ("patch_merge.cu", [
         ("src_s[r * 4 + 1] = base < 0 ? -1 : base + S;",
          "src_s[r * 4 + 1] = base < 0 ? -1 : base + 1;"),

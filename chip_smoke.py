@@ -14,11 +14,18 @@ from seeded random weights:
 - geopose (`geovpr_torch.cli.evaluate.run_evaluate`), Swin-B-384 + MLP
   head (preset swin_b384_gemini2) at full width: bf16 (K4 in every block)
   and int8 (calibrated on the first batch; K5 and K3 in every block), K6 at
-  every stage boundary on both.
+  every stage boundary on both;
+- angle (`run_evaluate` with the preset's angle objective), bf16 at full
+  width: Swin-T-224 at window 7 + sin/cos MLP head (preset
+  swin_t224_sincos_gemini; K7 in every block, K6 at every boundary), and
+  EfficientNet-B0 (efficientnet_sincos_gemini) and ConvNeXt-B
+  (convnext_direct_maae), which run on cuDNN and launch no kernel of the
+  port.
 
 Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
 form and the w8a8 MLP half-block), K4 and K5 (the Swin window-attention
-half-block, bf16 and w8a8) and K6 (Swin PatchMerging). For each path it
+half-block, bf16 and w8a8), K6 (Swin PatchMerging) and K7 (the window-7
+attention core on pre-split windows). For each path it
 compares the kernel path with the plain path for the whole model, counts
 the kernels' launches, times the path and the kernels (beside their plain
 versions, one library yardstick each and their bounds), and profiles one
@@ -81,6 +88,19 @@ SWIN_MAIN, MERGE_MAIN = SWIN_ATTN_SHAPES[0], SWIN_MERGE_SHAPES[0]
 # launches per batch of 64 images: one K4 (bf16) or K5 + K3 (int8) per
 # block (2 + 2 + 18 + 2), one K6 per stage boundary
 SWIN_BLOCKS, SWIN_BOUNDARIES = 24, 3
+# angle serving at B=64: Swin-T-224 (window 7; one K7 per block, 2 + 2 + 6
+# + 2, one K6 per boundary), then the two CNN presets. K7's checked shapes
+# (BW, H, N, nW; nW 0 = unshifted) are Swin-T-224's stages 0, 2 and 3 and a
+# window-12 case (N 144) that shows the kernel is not tied to N = 49.
+ANGLE_PRESET, ANGLE_BATCH, ANGLE_N_VAL = "swin_t224_sincos_gemini", 64, 192
+CNN_PRESETS = ("efficientnet_sincos_gemini", "convnext_direct_maae")
+SWIN_T_BLOCKS = 12
+K7_SHAPES = ((4096, 3, 49, 64), (256, 12, 49, 4), (64, 24, 49, 0),
+             (256, 16, 144, 0))
+K7_MAIN = K7_SHAPES[0]
+# Swin-T-224's K6 boundaries (B, C, resolution): 2C = 192 ends on a partial
+# 128-column output tile of patch_merge.cu, which Swin-B's never do
+SWIN_T_MERGE_SHAPES = ((64, 96, 56), (64, 192, 28), (64, 384, 14))
 
 
 class SmokeFailure(RuntimeError):
@@ -636,7 +656,9 @@ def swin_kernels_vs_plain(device, attn_shapes=SWIN_CHECK_SHAPES,
                           merge_shapes=SWIN_MERGE_SHAPES) -> dict:
     """Phase 12: K4 and K5 at Swin-B-384 B=64 stage shapes (x for K4 at
     1e-2, as K1's check), K6 at the three boundaries, each against its
-    plain version: K4 and K6 under K1's ratio bound, K5 under K2's."""
+    plain version: K4 and K6 under K1's ratio bound, K5 under K2's. The
+    angle phase calls it again with no attention shape, for K6 at
+    Swin-T-224's boundaries."""
     from geovpr_torch.ops.patch_merge import (fused_patch_merge,
                                               patch_merge_reference)
     from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
@@ -686,32 +708,35 @@ def swin_kernels_vs_plain(device, attn_shapes=SWIN_CHECK_SHAPES,
 
 def swin_model(device, targets, int8=False):
     """The preset's RegressionModel (Swin-B-384 + MLP head 512) in bf16 on
-    the card, from seed 0 (`build_geopose_model`), perturbed as
+    the card, from seed 0 (`build_model`), perturbed as
     `perturb_swin_`; the target scaler fitted on `targets`."""
-    from geovpr_torch.cli.evaluate import build_geopose_model
+    from geovpr_torch.cli.evaluate import build_model
     from geovpr_torch.cli.presets import build_preset
     from geovpr_torch.objectives.scaler import scaler_from_arrays
 
-    model, _ = build_geopose_model(build_preset(SWIN_PRESET), "cpu",
-                                   seed=SEED, int8=int8)
+    model, _ = build_model(build_preset(SWIN_PRESET), "cpu", seed=SEED,
+                           int8=int8)
     perturb_swin_(model, torch.Generator().manual_seed(SEED))
     scaler = scaler_from_arrays(targets.mean(0), targets.std(0))
     return model.to(device), scaler.to(device)
 
 
-def synthetic_val(n: int, size: int, rng):
+def synthetic_val(n: int, size: int, rng, angles: bool = False):
     """Images as `synthetic_gallery`'s, (lat, lon) targets around the
-    reference campus's scale."""
+    reference campus's scale, or with `angles` headings in [0, 360)."""
     from geovpr_torch.data.pipeline import ArraySource
 
     cell = size // 8
     base = rng.integers(0, 256, (n, 8, 8, 3)).astype(np.float32)
     up = np.repeat(np.repeat(base, cell, 1), cell, 2)
     imgs = np.clip(up + rng.normal(0, 20, up.shape), 0, 255).astype(np.uint8)
-    latlon = np.stack([219000.0 + rng.normal(0, 300.0, n),
-                       143000.0 + rng.normal(0, 100.0, n)], 1).astype(
-                           np.float32)
-    return ArraySource(imgs, latlon, [f"v_{i:04d}.jpg" for i in range(n)])
+    if angles:
+        targets = rng.uniform(0.0, 360.0, n).astype(np.float32)
+    else:
+        targets = np.stack([219000.0 + rng.normal(0, 300.0, n),
+                            143000.0 + rng.normal(0, 100.0, n)], 1).astype(
+                                np.float32)
+    return ArraySource(imgs, targets, [f"v_{i:04d}.jpg" for i in range(n)])
 
 
 def swin_counters():
@@ -719,10 +744,12 @@ def swin_counters():
     from geovpr_torch.ops.patch_merge import fused_patch_merge
     from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
                                              fused_swin_attn_block_int8)
+    from geovpr_torch.ops.window_attention import window_attention_kernel
     return {"fused_swin_attn_block": fused_swin_attn_block,
             "fused_swin_attn_block_int8": fused_swin_attn_block_int8,
             "fused_mlp_block_int8": fused_mlp_block_int8,
-            "fused_patch_merge": fused_patch_merge}
+            "fused_patch_merge": fused_patch_merge,
+            "window_attention_kernel": window_attention_kernel}
 
 
 def geopose_end_to_end(model, scaler, device, source, out_dir,
@@ -985,6 +1012,209 @@ def swin_path(device, card: str) -> dict:
     return {"bf16": launches, "int8": launches8}
 
 
+# ------------------------------------------------------ angle heads / K7 --
+
+def k7_case(shape, device, seed=SEED):
+    """K7's operands at (BW, H, N, nW): q, k and v drawn N(0, 1) in bf16,
+    the (H, N, N) bias gathered from a relative-position table drawn at
+    unit scale (a perturbed table: zero at init), and the real shift mask
+    of a stage of nW windows of side sqrt(N) (None where nW is 0)."""
+    from geovpr_torch.ops.window_attention import (relative_position_bias,
+                                                   shift_mask)
+    bw, h, n, nw = shape
+    win = int(round(n ** 0.5))
+    gen = torch.Generator().manual_seed(seed + bw + h + n)
+    q, k, v = (torch.randn(bw, h, n, 32, generator=gen).bfloat16().to(device)
+               for _ in range(3))
+    table = torch.randn((2 * win - 1) ** 2, h, generator=gen)
+    bias = relative_position_bias(table, win).contiguous().to(device)
+    mask = (shift_mask(win * int(round(nw ** 0.5)), win, win // 2, device)
+            if nw else None)
+    return q, k, v, bias, mask
+
+
+def k7_kernels_vs_plain(device, shapes=K7_SHAPES) -> dict:
+    """Phase 20: K7 against its plain version at Swin-T-224's B=64 stage
+    shapes (shifted at stages 0 and 2) and at N = 144, under K1's ratio
+    bound."""
+    from geovpr_torch.ops.window_attention import (
+        window_attention_kernel, window_attention_serving_reference)
+
+    errs = {}
+    for shape in shapes:
+        args = k7_case(shape, device)
+        e = ratio_errors(window_attention_kernel,
+                         window_attention_serving_reference, args, f32(args))
+        phase("kernel", name="K7", shape="BW{}_H{}_N{}_nW{}".format(*shape),
+              **e, max_bound=K1_MAX_RATIO * e["plain_max"],
+              mean_bound=K1_MEAN_RATIO * e["plain_mean"])
+        check(k1_within_bound(e), f"K7 error outside its bound at {shape}: "
+                                  f"{e}")
+        errs[shape] = e["kernel_max"]
+    return errs
+
+
+@torch.no_grad()
+def perturb_cnn_(model, gen) -> None:
+    """Norm, BatchNorm and bias vectors and ConvNeXt's LayerScale off their
+    init values, BatchNorm running means off 0 and variances off 1: a
+    random model that uses every input of its layers."""
+    for name, p in model.named_parameters():
+        if p.dim() != 1:
+            continue
+        noise = torch.randn(p.shape, generator=gen) * 0.1
+        if name.endswith("weight") and not name.endswith("gamma"):
+            p.add_(noise.to(p.device, p.dtype))
+        else:
+            p.copy_(noise)
+    for name, b in model.named_buffers():
+        if name.endswith("running_mean"):
+            b.copy_(torch.randn(b.shape, generator=gen) * 0.1)
+        elif name.endswith("running_var"):
+            b.copy_(torch.rand(b.shape, generator=gen) + 0.5)
+
+
+def angle_model(device, preset):
+    """The preset's RegressionModel in bf16 on the card, from seed 0
+    (`build_model`), perturbed as `perturb_swin_` (Swin) or `perturb_cnn_`;
+    returns it and the preset's config."""
+    from geovpr_torch.cli.evaluate import build_model
+    from geovpr_torch.cli.presets import build_preset
+
+    cfg = build_preset(preset)
+    model, _ = build_model(cfg, "cpu", seed=SEED)
+    perturb = perturb_swin_ if cfg.model.family == "swin" else perturb_cnn_
+    perturb(model, torch.Generator().manual_seed(SEED))
+    return model.to(device), cfg
+
+
+def angle_end_to_end(model, cfg, device, source, out_dir,
+                     per_batch: dict) -> dict:
+    """Phase 21 (Swin-T) / 24 (CNNs): the angle path through run_evaluate
+    with the preset's objective, every kernel's launch count set to 0 just
+    before and read just after; `per_batch` the expected launches of a
+    batch. Returns the counts."""
+    from geovpr_torch.cli.evaluate import run_evaluate
+    from geovpr_torch.cli.presets import objective_for
+
+    counters = {**kernel_counters(), **swin_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out, preds = run_evaluate(model, None, source, batch_size=ANGLE_BATCH,
+                              out_dir=out_dir, device=device,
+                              objective=objective_for(cfg))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n_batches = -(-len(source) // ANGLE_BATCH)
+    expected = dict.fromkeys(counters, 0)
+    expected.update({k: v * n_batches for k, v in per_batch.items()})
+    phase("angle", family=cfg.model.family, wall_s=wall, batches=n_batches,
+          launches=launches, expected_launches=expected, **out["metrics"])
+    check(launches == expected,
+          f"kernel launches {launches}, expected {expected}")
+    check(preds.shape == (len(source),) and bool(np.isfinite(preds).all())
+          and bool(((preds >= 0) & (preds < 360)).all()),
+          f"angles {preds.shape}, range [{preds.min()}, {preds.max()}]")
+    check(set(out["metrics"]) == {"maae", "mse"}
+          and all(np.isfinite(v) for v in out["metrics"].values()),
+          f"metrics {out['metrics']}")
+    with open(out["validation_csv"], newline="") as f:
+        rows = list(csv.DictReader(f))
+    check(len(rows) == len(source), f"{len(rows)} validation CSV rows")
+    return launches
+
+
+def angle_path(device, card: str) -> dict:
+    """Phases 21-25: the angle path end to end at B=64, bf16: Swin-T-224
+    (K7 and K6 launches per batch, kernel path against plain path, img/s,
+    profile), then EfficientNet-B0 and ConvNeXt-B (no kernel of the port;
+    finite outputs, img/s, profile). Returns the Swin-T launch counts."""
+    from geovpr_torch.data.transforms import normalize
+
+    source = synthetic_val(ANGLE_N_VAL, 224, np.random.default_rng(SEED),
+                           angles=True)
+    images = torch.from_numpy(source.images[:ANGLE_BATCH]).to(device)
+    model, cfg = angle_model(device, ANGLE_PRESET)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = angle_end_to_end(model, cfg, device, source, tmp, {
+            "window_attention_kernel": SWIN_T_BLOCKS,
+            "fused_patch_merge": SWIN_BOUNDARIES})
+    swin_kernel_path_vs_plain_path(model, images, path="swin-t-bf16")
+    model_times(model, images, card, "swin-t-bf16", batch=ANGLE_BATCH)
+    breakdown(model, images, card, "swin-t-bf16", batch=ANGLE_BATCH)
+    del model
+    for preset in CNN_PRESETS:
+        model, cfg = angle_model(device, preset)
+        with tempfile.TemporaryDirectory() as tmp:
+            angle_end_to_end(model, cfg, device, source, tmp, {})
+        with torch.inference_mode():
+            out = model.backbone(normalize(images))
+            preds = model.head(model.pool(out))
+        phase("cnn_model", preset=preset, pooled_shape=tuple(out.pooled.shape),
+              pooled_abs_max=out.pooled.abs().max().item(),
+              pred_abs_max=preds.abs().max().item())
+        check(out.pooled.shape == (ANGLE_BATCH, model.backbone.num_features)
+              and bool(torch.isfinite(out.pooled).all())
+              and bool(torch.isfinite(preds).all()),
+              f"{preset}: pooled {tuple(out.pooled.shape)} or predictions "
+              f"not finite")
+        path = cfg.model.family + "-bf16"
+        model_times(model, images, card, path, batch=ANGLE_BATCH)
+        breakdown(model, images, card, path, batch=ANGLE_BATCH)
+        del model
+    return launches
+
+
+def k7_bounds(shape) -> dict:
+    """The least time of one K7 call at (BW, H, N, nW): q, k, v read once
+    and out written once (bf16), the bias and mask read once (f32), over
+    3.35 TB/s, against q.k^T and P.V (4 BW H N^2 dh) at the bf16 peak."""
+    bw, h, n, nw = shape
+    nbytes = 4 * bw * h * n * 32 * 2 + (h + nw) * n * n * 4
+    ops_t = 4 * bw * h * n * n * 32 / PEAK_BF16
+    bytes_t = nbytes / PEAK_BYTES
+    return dict(bound_ms=max(ops_t, bytes_t) * 1e3,
+                bound_by="operations" if ops_t >= bytes_t else "bytes",
+                ops_bound_ms=ops_t * 1e3, bytes_bound_ms=bytes_t * 1e3)
+
+
+def library_k7_mask(bias, mask, bw):
+    """The float mask of K7's yardstick: bias [+ each window's shift mask]
+    tiled to (BW, H, N, N) bf16 (window w takes mask w mod nW), built once,
+    outside the timing."""
+    m = bias[None] if mask is None else bias[None] + mask[:, None]
+    return m.bfloat16().repeat(bw // m.shape[0], 1, 1, 1)
+
+
+def k7_kernel_times(device, card: str) -> dict:
+    """Phase 26: K7 at Swin-T-224 stage 0 (B=64), in turns with its plain
+    version and its library yardstick (F.scaled_dot_product_attention with
+    bias + mask as a float (BW, H, N, N) mask; never on the port's path),
+    beside its bound."""
+    import torch.nn.functional as F
+
+    from geovpr_torch.ops.window_attention import (
+        window_attention_kernel, window_attention_serving_reference)
+
+    q, k, v, bias, mask = args = k7_case(K7_MAIN, device)
+    lib_mask = library_k7_mask(bias, mask, K7_MAIN[0])
+    with torch.inference_mode():
+        t = interleaved_ms({
+            "kernel": lambda: window_attention_kernel(*args),
+            "plain": lambda: window_attention_serving_reference(*args),
+            "library": lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=lib_mask)}, iters=20)
+    out = dict(ms=t["kernel"][0], plain_ms=t["plain"][0],
+               library_ms=t["library"][0],
+               runs={k: v[1] for k, v in t.items()}, **k7_bounds(K7_MAIN))
+    phase("kernel_time", card=repr(card), name="K7",
+          shape="BW{}_H{}_N{}_nW{}".format(*K7_MAIN),
+          launches_per_batch=SWIN_T_BLOCKS, **out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1038,6 +1268,12 @@ def main() -> int:
     swin_launches = swin_path(device, card)
     skt = swin_kernel_times(device, card)
 
+    k7_errs = k7_kernels_vs_plain(device)
+    swin_kernels_vs_plain(device, attn_shapes=(),
+                          merge_shapes=SWIN_T_MERGE_SHAPES)
+    angle_launches = angle_path(device, card)
+    k7t = k7_kernel_times(device, card)
+
     rows = []
     for name, k, src, replaces, count, err in (
             ("fused_mhsa_block", "K1", "geovpr_torch/csrc/mhsa.cu",
@@ -1069,7 +1305,8 @@ def main() -> int:
             ("fused_patch_merge", "K6", "geovpr_torch/csrc/patch_merge.cu",
              "geovpr/ops/pallas_patch_merge.py:112",
              swin_launches["bf16"]["fused_patch_merge"]
-             + swin_launches["int8"]["fused_patch_merge"], MERGE_MAIN)):
+             + swin_launches["int8"]["fused_patch_merge"]
+             + angle_launches["fused_patch_merge"], MERGE_MAIN)):
         t = skt[(k, shape)]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": count,
@@ -1077,6 +1314,14 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    rows.append({"name": "window_attention_kernel", "route": "cuda",
+                 "source": "geovpr_torch/csrc/window_attn.cu",
+                 "replaces": "geovpr/ops/pallas_window_attention.py:182",
+                 "launches": angle_launches["window_attention_kernel"],
+                 "max_abs_err": k7_errs[K7_MAIN], "ms": k7t["ms"],
+                 "plain_ms": k7t["plain_ms"], "bound_ms": k7t["bound_ms"],
+                 "bound_by": k7t["bound_by"],
+                 "library_ms": k7t["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,6 @@
-"""Geopose evaluation / prediction-export entry point of the port (the
-counterpart of `geovpr.cli.evaluate`, same flags but `--variables` in place
-of `--run-dir`/`--checkpoint`).
+"""Evaluation / prediction-export entry point of the port, geopose and
+angle presets (the counterpart of `geovpr.cli.evaluate`, same flags but
+`--variables` in place of `--run-dir`/`--checkpoint`).
 
     python -m geovpr_torch.cli.evaluate --preset swin_b384_gemini2 \
         --val-csv labels_val.csv --image-root images --out-dir out \
@@ -8,19 +8,26 @@ of `--run-dir`/`--checkpoint`).
         [--submission-csv preds.csv] [--int8] [--batch-size 64] \
         [--device cuda]
 
-Computes the geopose metric suite on the val split, writes
-`validation_predictions.csv`, with `--test-dir` the sorted
-`test_predictions_sorted.csv`, with `--submission-csv` the submission file,
-and prints the same JSON as the JAX CLI. `--variables` is a flax
-`msgpack_serialize` file of {"params": <RegressionModel params>, "scaler":
-{"mean": (2,), "scale": (2,)}}; without it the model is a seeded random
-init with the identity scaler. `--int8` calibrates the static activation
-scales on the first val batch (as `Trainer.enable_int8_serving` does) and
-serves the w8a8 model: on Swin, kernels K5 and K3 in every block. The bf16
-Swin path runs K4 in every block; both run K6 at every stage boundary.
-`--device` defaults to cuda and fails when no card is present; pass
-`--device cpu` to run on the CPU. Angle presets and the efficientnet and
-convnext families are not ported yet.
+Computes the preset's metric suite on the val split (geopose: MSE, RMSE,
+MAE, per-axis MAE and the competition loss on (lat, lon); angle: MAAE and
+the mean squared circular error on `manifest.angle`), writes
+`validation_predictions.csv`, with `--test-dir` the sorted test CSV
+(`test_predictions_sorted.csv`, or `test_pred.csv` for angles), with
+`--submission-csv` the geopose submission file, and prints the same JSON as
+the JAX CLI. `--variables` is a flax `msgpack_serialize` file of
+{"params": <RegressionModel params>, "scaler": {"mean": (2,), "scale":
+(2,)}} for geopose, {"params"} or {"params", "batch_stats"} (EfficientNet)
+for angles; without it the model is a seeded random init (and the identity
+scaler). `--int8` calibrates the static activation scales on the first val
+batch (as `Trainer.enable_int8_serving` does) and serves the w8a8 model.
+
+Kernels on each path: Swin at window 12 runs K4 in every block (K5 and K3
+with `--int8`), Swin-T at window 7 runs K7 inside every block's attention
+half, both run K6 at every stage boundary; DINOv2 runs K1 (K2 and K3 with
+`--int8`); EfficientNet-B0 and ConvNeXt run on cuDNN convolutions and have
+no kernel of their own. `--int8` on window-7 Swin or ConvNeXt is not ported
+yet; EfficientNet has no int8 path. `--device` defaults to cuda and fails
+when no card is present; pass `--device cpu` to run on the CPU.
 """
 
 from __future__ import annotations
@@ -35,26 +42,24 @@ import numpy as np
 import torch
 
 
-def build_geopose_model(cfg, device, variables: str = "", seed: int = 0,
-                        int8: bool = False):
-    """The preset's `RegressionModel` in its compute dtype on `device` and
-    its target scaler: from a flax msgpack of {"params", "scaler"}, or a
-    random init seeded with `seed` and the identity scaler. `int8` builds
-    the w8a8 serving model, to be calibrated before use."""
+def build_model(cfg, device, variables: str = "", seed: int = 0,
+                int8: bool = False):
+    """The preset's `RegressionModel` in its compute dtype on `device`, and
+    for a geopose preset its target scaler (None for an angle preset): from
+    a flax msgpack, or a random init seeded with `seed` (and the identity
+    scaler). `int8` builds the w8a8 serving model, to be calibrated before
+    use."""
     from geovpr_torch.core.config import GeoposeConfig
     from geovpr_torch.models.layers import init_weights_
     from geovpr_torch.models.regression import RegressionModel
     from geovpr_torch.objectives.scaler import (identity_scaler,
                                                 scaler_from_arrays)
 
-    if not isinstance(cfg, GeoposeConfig):
-        raise NotImplementedError(
-            "angle presets are not ported yet: the port serves geopose "
-            "presets; the angle objectives come with the angle-head slice "
-            "(ROADMAP)")
+    geo = isinstance(cfg, GeoposeConfig)
     mcfg = dataclasses.replace(cfg.model, image_size=cfg.data.image_size)
     model = RegressionModel(mcfg, dtype=getattr(torch, mcfg.compute_dtype),
                             int8=int8)
+    scaler = identity_scaler(mcfg.out_dim) if geo else None
     if variables:
         from geovpr_torch.models.convert_jax import (load_flax_msgpack,
                                                      state_dict_from_flax)
@@ -65,12 +70,13 @@ def build_geopose_model(cfg, device, variables: str = "", seed: int = 0,
         if bad or res.unexpected_keys:
             raise RuntimeError(f"{variables}: missing {bad}, unexpected "
                                f"{res.unexpected_keys}")
-        scaler = scaler_from_arrays(tree["scaler"]["mean"],
-                                    tree["scaler"]["scale"])
+        if geo:
+            scaler = scaler_from_arrays(tree["scaler"]["mean"],
+                                        tree["scaler"]["scale"])
     else:
         init_weights_(model, torch.Generator().manual_seed(seed))
-        scaler = identity_scaler(mcfg.out_dim)
-    return model.to(device).eval(), scaler.to(device)
+    return model.to(device).eval(), None if scaler is None else \
+        scaler.to(device)
 
 
 def calibrate_int8(model, source, batch_size: int, device) -> dict:
@@ -85,11 +91,12 @@ def calibrate_int8(model, source, batch_size: int, device) -> dict:
     return quantize_for_serving(model, [images])
 
 
-def evaluate_and_predict(model, scaler, source, batch_size: int,
-                         device) -> tuple[dict, np.ndarray]:
-    """Metrics and per-row decoded (lat, lon) predictions in one pass
+def evaluate_and_predict(model, scaler, source, batch_size: int, device,
+                         objective=None) -> tuple[dict, np.ndarray]:
+    """Metrics and per-row decoded predictions in one pass
     (`Trainer.evaluate_and_predict`): eval sums accumulated on the device,
-    summarised on the host; predictions in source order."""
+    summarised on the host; predictions in source order, (N, 2) (lat, lon)
+    for geopose (the default objective), (N,) degrees for angles."""
     from geovpr_torch.data.pipeline import iterate_batches, prefetch_to_device
     from geovpr_torch.data.transforms import normalize
     from geovpr_torch.objectives.workloads import GeoposeObjective
@@ -98,8 +105,8 @@ def evaluate_and_predict(model, scaler, source, batch_size: int,
     if len(source) == 0:
         raise ValueError("predict on an empty source — check the CSV / "
                          "image root")
-    objective = GeoposeObjective()
-    sums, out = None, np.zeros((len(source), 2), np.float32)
+    objective = objective or GeoposeObjective()
+    sums, out = None, None
     with torch.inference_mode():
         for batch in prefetch_to_device(iterate_batches(source, batch_size),
                                         device):
@@ -108,43 +115,61 @@ def evaluate_and_predict(model, scaler, source, batch_size: int,
             decoded = objective.decode_predictions(preds, scaler)
             sums = add_sums(sums, eval_sums(decoded, batch["target"],
                                             batch["mask"]))
+            if out is None:
+                out = np.zeros((len(source),) + tuple(decoded.shape[1:]),
+                               np.float32)
             out[idx] = decoded[:len(idx)].cpu().numpy()
     return summarize_eval(sums), out
 
 
 def run_evaluate(model, scaler, source, *, batch_size: int, out_dir: str,
                  device, int8: bool = False, test_source=None,
-                 submission_csv: str = "") -> tuple[dict, np.ndarray]:
-    """The geopose serving path on in-memory or disk sources (latlon as
-    `targets`, names as `filenames`): with `int8` (a model built with
-    `int8=True`) calibrate on the first batch of `source` first; then
-    metrics and predictions over `source`, `validation_predictions.csv`
-    in `out_dir`, and with `test_source` / `submission_csv` the test and
-    submission CSVs. Returns the CLI's JSON record and the val
-    predictions."""
-    from geovpr_torch.pipeline.export import (write_geopose_preds_csv,
-                                              write_geopose_test_csv,
-                                              write_geopose_validation_csv)
+                 submission_csv: str = "",
+                 objective=None) -> tuple[dict, np.ndarray]:
+    """The serving path on in-memory or disk sources (targets as `targets`,
+    names as `filenames`): geopose with the default objective ((lat, lon)
+    targets), angles with an angle objective (`cli.presets.objective_for`;
+    degree targets). With `int8` (a model built with `int8=True`) calibrate
+    on the first batch of `source` first; then metrics and predictions over
+    `source`, `validation_predictions.csv` in `out_dir`, and with
+    `test_source` / `submission_csv` the test and submission CSVs. Returns
+    the CLI's JSON record and the val predictions."""
+    from geovpr_torch.objectives.workloads import GeoposeObjective
+    from geovpr_torch.pipeline import export
 
+    objective = objective or GeoposeObjective()
+    geo = isinstance(objective, GeoposeObjective)
+    if submission_csv and not geo:
+        raise SystemExit("--submission-csv is a geopose export "
+                         "(ID,latitude,longitude); this preset is an angle "
+                         "workload")
     os.makedirs(out_dir, exist_ok=True)
     if int8:
         calibrate_int8(model, source, batch_size, device)
     metrics, preds = evaluate_and_predict(model, scaler, source, batch_size,
-                                          device)
+                                          device, objective)
     val_csv = os.path.join(out_dir, "validation_predictions.csv")
-    write_geopose_validation_csv(val_csv, source.filenames,
-                                 np.asarray(source.targets, np.float32), preds)
+    write_val = (export.write_geopose_validation_csv if geo
+                 else export.write_angle_validation_csv)
+    write_val(val_csv, source.filenames,
+              np.asarray(source.targets, np.float32), preds)
     outputs = {"metrics": metrics, "validation_csv": val_csv}
     if submission_csv:
         sub = (submission_csv if os.path.isabs(submission_csv)
                else os.path.join(out_dir, submission_csv))
-        write_geopose_preds_csv(sub, source.filenames, preds)
+        export.write_geopose_preds_csv(sub, source.filenames, preds)
         outputs["submission_csv"] = sub
     if test_source is not None:
         _, test_preds = evaluate_and_predict(model, scaler, test_source,
-                                             batch_size, device)
-        path = os.path.join(out_dir, "test_predictions_sorted.csv")
-        write_geopose_test_csv(path, test_source.filenames, test_preds)
+                                             batch_size, device, objective)
+        if geo:
+            path = os.path.join(out_dir, "test_predictions_sorted.csv")
+            export.write_geopose_test_csv(path, test_source.filenames,
+                                          test_preds)
+        else:
+            path = os.path.join(out_dir, "test_pred.csv")
+            export.write_angle_test_csv(path, test_source.filenames,
+                                        test_preds)
         outputs["test_csv"] = path
     return outputs, preds
 
@@ -153,8 +178,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--preset", required=True)
     p.add_argument("--variables", default="",
-                   help="flax msgpack of {params, scaler}; random init and "
-                        "the identity scaler if omitted")
+                   help="flax msgpack of {params, scaler} (geopose) or "
+                        "{params[, batch_stats]} (angle); random init if "
+                        "omitted")
     p.add_argument("--val-csv", required=True)
     p.add_argument("--image-root", required=True)
     p.add_argument("--test-dir", default="")
@@ -178,16 +204,23 @@ def main(argv=None):
         raise SystemExit("no CUDA device is available; pass --device cpu to "
                          "run on the CPU")
 
-    from geovpr_torch.cli.presets import build_preset
+    from geovpr_torch.cli.presets import build_preset, objective_for
+    from geovpr_torch.core.config import GeoposeConfig
     from geovpr_torch.data.manifest import list_test_images, load_manifest
     from geovpr_torch.data.pipeline import ImageFolderSource
+    from geovpr_torch.models.registry import check_int8_serving
 
     cfg = build_preset(args.preset)
+    geo = isinstance(cfg, GeoposeConfig)
+    if args.int8:
+        try:
+            check_int8_serving(cfg.model)
+        except ValueError as e:
+            raise SystemExit(f"--int8: {e}") from None
     if not args.variables:
         print("WARNING: no --variables given; using random init "
               "(predictions will not be meaningful)", file=sys.stderr)
-    model, scaler = build_geopose_model(cfg, device, args.variables,
-                                        int8=args.int8)
+    model, scaler = build_model(cfg, device, args.variables, int8=args.int8)
     data = cfg.data
 
     def make_source(paths, targets, names):
@@ -196,19 +229,21 @@ def main(argv=None):
                                  resize_to=data.eval_resize_to)
 
     manifest = load_manifest(args.val_csv, args.image_root)
-    val_source = make_source(manifest.paths(), manifest.latlon,
+    val_source = make_source(manifest.paths(),
+                             manifest.latlon if geo else manifest.angle,
                              manifest.filenames)
     test_source = None
     if args.test_dir:
         names = list_test_images(args.test_dir)
         test_source = make_source(
             [os.path.join(args.test_dir, n) for n in names],
-            np.zeros((len(names), 2), np.float32), names)
+            np.zeros((len(names), 2 if geo else 1), np.float32), names)
     outputs, _ = run_evaluate(
         model, scaler, val_source,
         batch_size=args.batch_size or data.batch_size,
         out_dir=args.out_dir, device=device, int8=args.int8,
-        test_source=test_source, submission_csv=args.submission_csv)
+        test_source=test_source, submission_csv=args.submission_csv,
+        objective=objective_for(cfg))
     print(json.dumps(outputs))
 
 

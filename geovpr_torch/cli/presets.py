@@ -2,8 +2,7 @@
 data: the same names and config trees; `tests/test_torch_config.py` holds
 them equal). `build_preset(name)` returns the full config tree;
 hyperparameters are cited to the reference lines they reproduce.
-`objective_for` is left out: the port's serving path builds its geopose
-objective in `geovpr_torch.cli.evaluate`.
+`objective_for` gives a preset's serving objective (decode and metrics).
 """
 
 from __future__ import annotations
@@ -173,3 +172,18 @@ def build_preset(name: str):
     known = sorted([*GEOPOSE_PRESETS, *ANGLE_PRESETS, *RETRIEVAL_PRESETS])
     raise ValueError(f"unknown preset {name!r}; known: {known}")
 
+
+def objective_for(cfg):
+    """Config -> the serving objective (`geovpr.cli.presets.objective_for`)."""
+    from geovpr_torch.objectives.angle_codec import SinCosCodec
+    from geovpr_torch.objectives.workloads import (AngleDirectObjective,
+                                                   AngleSinCosObjective,
+                                                   GeoposeObjective)
+
+    if isinstance(cfg, GeoposeConfig):
+        return GeoposeObjective()
+    if isinstance(cfg, AngleConfig):
+        if cfg.loss == "direct":
+            return AngleDirectObjective()
+        return AngleSinCosObjective(codec=SinCosCodec(cfg.codec_order))
+    raise TypeError(type(cfg))

@@ -45,7 +45,8 @@
 //      of 16 query rows; the window's q, k and v^T (head dim 32) gathered
 //      into shared memory by the raster addressing above, the head's bias
 //      table and the tokens' positions and labels beside them. Each warp
-//      walks the keys in tiles of 16: scores by mma.sync (bf16 m16n8k16, or
+//      runs window_attn.cuh's tile loop (shared with K7), walking the keys
+//      in tiles of 16: scores by mma.sync (bf16 m16n8k16, or
 //      s8 m16n8k32 for K5) in registers, bias + mask + exp2 in registers,
 //      the probabilities repacked as the A operand of the P.V mma.sync
 //      (no rescale is needed without a max-shift), context accumulated in
@@ -58,29 +59,14 @@
 
 #include "bf16_gemm.cuh"
 #include "int8_attn.cuh"
+#include "window_attn.cuh"
 
 namespace {
 
-constexpr int SW_DH = 32;             // head dim of every Swin variant
 constexpr int SW_MAX_N = 256;         // window tokens (16 warps)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaskL2 = -100.f * kLog2e;
-constexpr int QK_LD_BF16 = 80;        // bytes per q/k row: 64 + 16 pad
 constexpr int QK_LD_I8 = 48;          // bytes per q/k row: 32 + 16 pad
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __host__ __device__ inline size_t round16(size_t v) { return (v + 15) & ~(size_t)15; }
 
@@ -199,15 +185,7 @@ swin_window_attention_kernel(const void* __restrict__ qk,
   // A fragments of the warp's 16 query rows, held for every key tile
   uint32_t qa[2][4];
   if (!kInt8) {
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const unsigned char* p0 = q_s + r0 * QK_LD_BF16 + kk * 32 + t * 4;
-      const unsigned char* p1 = q_s + r1 * QK_LD_BF16 + kk * 32 + t * 4;
-      qa[kk][0] = *reinterpret_cast<const uint32_t*>(p0);
-      qa[kk][1] = *reinterpret_cast<const uint32_t*>(p1);
-      qa[kk][2] = *reinterpret_cast<const uint32_t*>(p0 + 16);
-      qa[kk][3] = *reinterpret_cast<const uint32_t*>(p1 + 16);
-    }
+    load_q_frags_bf16(q_s, r0, t, qa);
   } else {
     const unsigned char* p0 = q_s + r0 * QK_LD_I8 + t * 4;
     const unsigned char* p1 = q_s + r1 * QK_LD_I8 + t * 4;
@@ -223,69 +201,31 @@ swin_window_attention_kernel(const void* __restrict__ qk,
   const int lab1 = lab_s[r1];
 
   float o[4][4];
+  float l0, l1;
+  warp_window_attention(
+      N, vt_s, vt_ld,
+      [&](int kr, float (&sj)[4]) {
+        if (!kInt8) {
+          scores_bf16(qa, k_s, kr, t, sj);
+        } else {
+          int si[4] = {0, 0, 0, 0};
+          const unsigned char* kp = k_s + kr * QK_LD_I8 + t * 4;
+          mma_s8(si, qa[0], *reinterpret_cast<const uint32_t*>(kp),
+                 *reinterpret_cast<const uint32_t*>(kp + 16));
+          // rounded product, then the sums below: no fused multiply-add, so
+          // that s rounds as the plain version's and JAX's do
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float l0 = 0.f;  // partial row sums of rows r0, r1 (this lane's keys)
-  float l1 = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += 16) {
-    // S (16 x 16 per warp) as two 16 x 8 tiles: key k0 + 8j + 2t + (e & 1)
-    float s[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int kr = k0 + j * 8 + g;
-      if (!kInt8) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          const unsigned char* kp = k_s + kr * QK_LD_BF16 + kk * 32 + t * 4;
-          mma_bf16(s[j], qa[kk], *reinterpret_cast<const uint32_t*>(kp),
-                   *reinterpret_cast<const uint32_t*>(kp + 16));
+          for (int e = 0; e < 4; ++e) sj[e] = __fmul_rn((float)si[e], cs2);
         }
-      } else {
-        int si[4] = {0, 0, 0, 0};
-        const unsigned char* kp = k_s + kr * QK_LD_I8 + t * 4;
-        mma_s8(si, qa[0], *reinterpret_cast<const uint32_t*>(kp),
-               *reinterpret_cast<const uint32_t*>(kp + 16));
-        // rounded product, then the sums below: no fused multiply-add, so
-        // that s rounds as the plain version's and JAX's do
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn((float)si[e], cs2);
-      }
-    }
-    // + bias [+ mask], p = exp2(min(s, 100)), row sums
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const bool hi = e >= 2;
-        float v = __fadd_rn(s[j][e], tab_s[(hi ? pos1 : pos0) - pos_s[key]]);
+      },
+      // + bias [+ mask], p = exp2(min(s, 100))
+      [&](int key, bool hi, float sv) {
+        float v = __fadd_rn(sv, tab_s[(hi ? pos1 : pos0) - pos_s[key]]);
         if (shift && (hi ? lab1 : lab0) != lab_s[key]) v = __fadd_rn(v, kMaskL2);
-        const float p = exp2f(fminf(v, 100.f));
-        if (hi) l1 += p; else l0 += p;
-        s[j][e] = p;
-      }
-    // P as the A operand (16 x 16 keys) of P.V
-    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]),
-                            pack_bf16(s[0][2], s[0][3]),
-                            pack_bf16(s[1][0], s[1][1]),
-                            pack_bf16(s[1][2], s[1][3])};
-#pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
-      const bf16* vp = vt_s + (jn * 8 + g) * vt_ld + k0 + 2 * t;
-      mma_bf16(o[jn], pa, *reinterpret_cast<const uint32_t*>(vp),
-               *reinterpret_cast<const uint32_t*>(vp + 8));
-    }
-  }
+        return exp2f(fminf(v, 100.f));
+      },
+      o, l0, l1);
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const size_t out0 = (size_t)rows_s[r0] * C + h * SW_DH + 2 * t;
   const size_t out1 = (size_t)rows_s[r1] * C + h * SW_DH + 2 * t;
 #pragma unroll

@@ -16,7 +16,13 @@ The inverse of `geovpr/models/convert_torch.py`'s layouts:
   and `RegressionModel`'s `backbone`/`head` scopes become its submodules;
 - the int8 serving "quant" collection, where present, -> the buffers of
   the same names (`backbone.blocks.0.mlp.fc1_kernel_q`, ...), each leaf
-  kept as it is: int8 kernels int8 and (in, out), 0-d scales 0-d.
+  kept as it is: int8 kernels int8 and (in, out), 0-d scales 0-d;
+- the "batch_stats" collection (EfficientNet's BatchNorms) -> each
+  BatchNorm's buffers, `mean` -> `running_mean`, `var` -> `running_var`;
+- depthwise kernels (kh, kw, 1, C) take the same 4-D transpose as any conv,
+  to torch's (C, 1, kh, kw); EfficientNet's squeeze-excite `fc1`/`fc2` are
+  1x1 convs and ConvNeXt's LayerScale `gamma` a leaf of its block's scope,
+  so both map by name.
 
 `load_flax_msgpack` reads the `.msgpack` file `geovpr.cli.retrieve
 --variables` reads (flax's `msgpack_serialize` format) without flax or jax.
@@ -54,15 +60,17 @@ def torch_name(path: tuple) -> str:
 
 
 def state_dict_from_flax(variables: Mapping[str, Any]) -> dict:
-    """Map a (numpy) flax variables tree — `{"params": ...}` (with an
-    optional "quant" collection) or the params tree itself — of `DinoV2`,
-    `DinoV2Salad`, `SaladHead`, `SwinTransformer` or `RegressionModel`
+    """Map a (numpy) flax variables tree — `{"params": ...}` (with optional
+    "quant" and "batch_stats" collections) or the params tree itself — of
+    `DinoV2`, `DinoV2Salad`, `SaladHead`, `SwinTransformer`,
+    `EfficientNetB0`, `ConvNeXt` or `RegressionModel`
     (a `scaler` entry beside "params" is not part of it) to the port's
     state_dict: parameters as
     float32 tensors (`load_state_dict` casts them to each parameter's
     dtype), quant leaves in their own dtype and shape."""
     params = variables.get("params", variables)
     quant = variables.get("quant", {}) if "params" in variables else {}
+    stats = variables.get("batch_stats", {}) if "params" in variables else {}
     flat = _flatten(params)
     sd: dict[str, np.ndarray] = {}
     qkv: dict[tuple, dict] = {}
@@ -98,6 +106,9 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict:
            for k, v in sd.items()}
     for path, arr in _flatten(quant).items():
         out[torch_name(path)] = torch.from_numpy(np.array(arr, order="C"))
+    for (*mod, leaf), arr in _flatten(stats).items():
+        out[f"{torch_name(tuple(mod))}.running_{leaf}"] = torch.from_numpy(
+            np.array(arr, dtype=np.float32, order="C"))
     return out
 
 

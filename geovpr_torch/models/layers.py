@@ -76,6 +76,93 @@ class LayerNorm(nn.Module):
                             self.bias, self.eps).to(x.dtype)
 
 
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm over the running statistics, computed in f32
+    whatever the input dtype and returned in f32, as flax
+    `nn.BatchNorm(use_running_average=True, dtype=jnp.float32)`
+    (`geovpr/models/efficientnet.py:83-85`). Parameters `weight`, `bias`
+    (flax `scale`, `bias`) and buffers `running_mean`, `running_var` (flax
+    `batch_stats` `mean`, `var`); (B, C, H, W) input."""
+
+    def __init__(self, channels: int, eps: float, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(channels, device=device))
+        self.bias = nn.Parameter(torch.empty(channels, device=device))
+        self.register_buffer("running_mean", torch.zeros(channels,
+                                                         device=device))
+        self.register_buffer("running_var", torch.ones(channels,
+                                                       device=device))
+
+    def _init_weights(self, generator: torch.Generator) -> None:
+        del generator
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x.float(), self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0, self.eps)
+
+
+class ConvBNAct(nn.Module):
+    """Conv (no bias, in the compute dtype) -> eval BatchNorm in f32 ->
+    SiLU on that f32 (`geovpr/models/efficientnet.py:56-88`). The input is
+    cast to the compute dtype for the conv; the output is f32. Padding
+    "torch" is symmetric, (k-1)//2 a side (torchvision); "tf" is TF-SAME's
+    asymmetric (k//2 - 1, k//2) for stride 2 (HF / google checkpoints) and
+    symmetric otherwise."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 groups: int = 1, use_act: bool = True,
+                 conv_padding: str = "torch", bn_eps: float = 1e-3,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        half = kernel // 2
+        if conv_padding == "tf" and stride == 2:
+            lo = half - 1 if half > 0 else 0
+            self.pad, sym = (lo, half, lo, half), 0
+        elif conv_padding in ("torch", "tf"):
+            self.pad, sym = None, (kernel - 1) // 2
+        else:
+            raise ValueError(f"unknown conv_padding {conv_padding!r}")
+        self.use_act = use_act
+        self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride, padding=sym,
+                              groups=groups, bias=False, dtype=dtype,
+                              device=device)
+        self.bn = BatchNorm(out_ch, bn_eps, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.conv.weight.dtype)
+        if self.pad is not None:
+            x = F.pad(x, self.pad)
+        x = self.bn(self.conv(x))
+        return F.silu(x) if self.use_act else x
+
+
+class SqueezeExcite(nn.Module):
+    """SE gate (`geovpr/models/layers.py:53-71`, torchvision
+    `SqueezeExcitation`): spatial mean (in the input's dtype) -> 1x1 conv
+    `fc1` -> SiLU -> 1x1 conv `fc2` -> sigmoid, the convs and the gate in
+    the compute dtype, the product in the input's dtype promoted with the
+    gate's; (B, C, H, W)."""
+
+    def __init__(self, channels: int, squeeze_channels: int,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.fc1 = nn.Conv2d(channels, squeeze_channels, 1, dtype=dtype,
+                             device=device)
+        self.fc2 = nn.Conv2d(squeeze_channels, channels, 1, dtype=dtype,
+                             device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.mean(dim=(2, 3), keepdim=True).to(self.fc1.weight.dtype)
+        s = self.fc2(F.silu(self.fc1(s)))
+        return x * torch.sigmoid(s)
+
+
 def register_quant_buffers(module: nn.Module, specs) -> None:
     """Register the int8 serving state of `module` as buffers named as in
     the JAX package's "quant" collection, at their JAX init values (0-d

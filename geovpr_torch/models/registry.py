@@ -1,6 +1,5 @@
 """Backbone registry: ModelConfig -> torch module (the port of
-`geovpr.models.registry` for the families the port serves: swin, dinov2,
-dinov2_salad; efficientnet and convnext come with the angle-head slice)."""
+`geovpr.models.registry`)."""
 
 from __future__ import annotations
 
@@ -8,18 +7,59 @@ import torch
 
 from geovpr_torch.core.config import ModelConfig
 
-NOT_PORTED = ("efficientnet", "convnext")
+
+def supports_int8(family: str) -> bool:
+    """Families with a w8a8 serving path in the JAX package (its
+    `supports_int8`): the ViTs and Swin quantize attention and MLPs,
+    ConvNeXt its channel MLPs; EfficientNet has none (bandwidth-bound and
+    BN-based, so cheaper matmul math buys nothing). The port serves all of
+    them but window-7 Swin and ConvNeXt, see `check_int8_serving`."""
+    return family in ("swin", "dinov2", "dinov2_salad", "convnext")
+
+
+def check_int8_serving(cfg: ModelConfig) -> None:
+    """The one rule for whether the port serves `cfg` in w8a8: ValueError
+    where the JAX package has no int8 path either (`supports_int8`),
+    NotImplementedError where the port has not ported it yet (window-7
+    Swin, ConvNeXt)."""
+    if not supports_int8(cfg.family):
+        raise ValueError(
+            f"family {cfg.family!r} has no int8 serving path "
+            "(supported: swin, dinov2, dinov2_salad, convnext)")
+    if cfg.family == "convnext":
+        raise NotImplementedError(
+            "w8a8 ConvNeXt is not ported yet (ROADMAP Queue 1 item 7: "
+            "its calibration and K3's separate-residual path)")
+    if cfg.family == "swin":
+        from geovpr_torch.models.swin import SWIN_VARIANTS
+        from geovpr_torch.ops.swin_block import fused_window_ok
+        window = SWIN_VARIANTS.get(cfg.variant, {}).get("window_size")
+        if window is not None and not fused_window_ok(window):
+            raise NotImplementedError(
+                f"w8a8 Swin at window {window} is not ported yet (ROADMAP "
+                "Queue 1 item 6: K3 at D = 96 and the int8 window-7 "
+                "attention)")
 
 
 def build_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32, *,
                    int8: bool = False, device=None):
-    """Every family the port builds has a w8a8 serving path (`int8`)."""
+    """`int8` builds the w8a8 serving model (to be calibrated before use),
+    where `check_int8_serving` allows it and raises otherwise."""
     family = cfg.family
-    if family in NOT_PORTED:
-        raise NotImplementedError(
-            f"model family {family!r} is not ported yet (ROADMAP Queue 1 "
-            "item 8, the angle heads)")
+    if int8:
+        check_int8_serving(cfg)
     kw = dict(dtype=dtype, device=device, int8_attn=int8, int8_mlp=int8)
+    if family == "efficientnet":
+        from geovpr_torch.models.efficientnet import EfficientNetB0
+        if cfg.variant != "b0":
+            raise ValueError(f"unknown efficientnet variant {cfg.variant!r}")
+        return EfficientNetB0(dtype=dtype, device=device)
+    if family == "convnext":
+        from geovpr_torch.models.convnext import CONVNEXT_VARIANTS, ConvNeXt
+        if cfg.variant not in CONVNEXT_VARIANTS:
+            raise ValueError(f"unknown convnext variant {cfg.variant!r}")
+        return ConvNeXt(**CONVNEXT_VARIANTS[cfg.variant], dtype=dtype,
+                        device=device)
     if family == "swin":
         from geovpr_torch.models.swin import SWIN_VARIANTS, SwinTransformer
         if cfg.variant not in SWIN_VARIANTS:

@@ -2,7 +2,8 @@
 `geovpr/train/model.py::RegressionModel`).
 
 `pooling` picks the feature the head reads: "pooler" the backbone's
-`pooled` (the mean of tokens for Swin, CLS for DINOv2), "mean" the f32
+`pooled` (the mean of tokens for Swin and EfficientNet, its LayerNorm for
+ConvNeXt, CLS for DINOv2), "mean" the f32
 mean over the full last hidden state (CLS included for ViTs), "cls" the CLS
 token; the SALAD descriptor is always the feature of `dinov2_salad`.
 Submodules are `backbone` and `head`, as in the flax tree. The head holds
@@ -20,7 +21,10 @@ from geovpr_torch.models.registry import build_backbone
 
 
 def feature_dim(backbone: nn.Module, family: str) -> int:
-    if family == "swin":
+    """The head's input width: 1,280 for EfficientNet-B0, the last stage's
+    width for Swin and ConvNeXt, 8,448 for the SALAD descriptor, the hidden
+    size for DINOv2."""
+    if family in ("swin", "efficientnet", "convnext"):
         return backbone.num_features
     if family == "dinov2_salad":
         return backbone.descriptor_dim

@@ -19,8 +19,13 @@ neighbours from raster rows (K6, `csrc/patch_merge.cu`). No relayout copy
 runs on the serving path.
 
 Each block's attention half is one call of
-`geovpr_torch.ops.swin_block.fused_swin_attn_block` (K4 on CUDA tensors);
-on the w8a8 path (`int8_attn`, `int8_mlp`) it is
+`geovpr_torch.ops.swin_block.fused_swin_attn_block` (K4 on CUDA tensors)
+where the window holds a multiple of 16 tokens (window 12); at window 7
+(N = 49, Swin-T-224) it is the JAX package's unfused half, LN and the q/k/v
+and out projections as torch ops around
+`geovpr_torch.ops.window_attention.window_attention_kernel` (K7), as JAX
+runs `window_attention_pallas` there (`fused_window_ok`). On the w8a8 path
+(`int8_attn`, `int8_mlp`, window 12 only) it is
 `fused_swin_attn_block_int8` (K5) and the MLP half, LN included,
 `geovpr_torch.ops.mlp_int8.fused_mlp_block_int8` (K3, no LayerScale, so
 gamma = ones). Every boundary is `geovpr_torch.ops.patch_merge.
@@ -44,11 +49,13 @@ from geovpr_torch.ops.patch_merge import (fused_patch_merge,
                                           patch_merge_reference)
 from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
                                          fused_swin_attn_block_int8,
+                                         fused_window_ok,
                                          swin_attn_block_int8_reference,
                                          swin_attn_block_reference,
                                          swin_attn_block_unfused)
 from geovpr_torch.ops.window_attention import (  # noqa: F401 (re-exported)
     relative_position_index, shifted_window_labels, shifted_window_mask,
+    window_attention_kernel, window_attention_serving_reference,
     window_partition, window_reverse)
 
 SWIN_VARIANTS = {
@@ -141,10 +148,14 @@ class SwinBlock(QuantBlock):
                     self.attn.proj_weight, self.attn.proj_bias, table)
             if calibrating:
                 x = swin_attn_block_unfused(*args, **geom, calib=self.calib)
-            else:
+            elif fused_window_ok(self.window):
                 attn = (fused_swin_attn_block if self.use_kernels
                         else swin_attn_block_reference)
                 x = attn(*args, **geom)
+            else:
+                x = swin_attn_block_unfused(*args, **geom, attention=(
+                    window_attention_kernel if self.use_kernels
+                    else window_attention_serving_reference))
         if self.mlp.int8 and not calibrating:
             mlp = (fused_mlp_block_int8 if self.use_kernels
                    else mlp_block_int8_reference)

@@ -1,10 +1,15 @@
-"""Geopose metrics (the port of the geopose half of
+"""Serving metrics (the port of the metric half of
 `geovpr.objectives.losses`): masked means over the valid rows of a batch.
 
 - MSE, RMSE, MAE and per-axis MAE (`swin_attempt_2.py:216-220`,
   `validation_swin_2.py:191-195`);
 - the "competition loss" 0.5 * (sum(dlat^2) + sum(dlon^2)) / N
-  (`swin_validation.py:100`).
+  (`swin_validation.py:100`);
+- the circular angle error and its mean, MAAE
+  (`efficientnet_finetuning.py:66-68`).
+
+The training losses (Huber, the acos angle loss) come with the training
+slice.
 
 `mask` is an optional (B,) bool tensor; padded rows never contribute.
 """
@@ -56,3 +61,18 @@ def geopose_metrics(pred_latlon: torch.Tensor, true_latlon: torch.Tensor,
         "mae_lon": _masked_mean(err[:, 1:2].abs(), mask),
         "competition_loss": competition_loss(pred_latlon, true_latlon, mask),
     }
+
+
+def angular_error_deg(pred_deg: torch.Tensor,
+                      true_deg: torch.Tensor) -> torch.Tensor:
+    """Per-sample circular error in degrees: min(|d| mod 360,
+    360 - |d| mod 360)."""
+    d = torch.remainder(torch.abs(pred_deg - true_deg), 360.0)
+    return torch.minimum(d, 360.0 - d)
+
+
+def maae_deg(pred_deg: torch.Tensor, true_deg: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean absolute angular error in degrees
+    (efficientnet_finetuning.py:66-68)."""
+    return _masked_mean(angular_error_deg(pred_deg, true_deg), mask)

@@ -112,11 +112,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         "geovpr_swin_attn_int8": [vp] * 14 + [ci] * 6 + [cf, cf, vp],
         # K6 (patch_merge.cu): 5 pointers, B S C, eps, stream
         "geovpr_patch_merge": [vp] * 5 + [ci] * 3 + [cf, vp],
+        # K7 (window_attn.cu): 6 pointers, BW H N nW, qscale, stream
+        "geovpr_window_attention": [vp] * 6 + [ci] * 4 + [cf, vp],
         "geovpr_mhsa_max_dim": [],
         "geovpr_mhsa_init": [],
         "geovpr_mhsa_int8_init": [],
         "geovpr_mlp_int8_init": [],
         "geovpr_swin_init": [],
+        "geovpr_window_attention_init": [],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

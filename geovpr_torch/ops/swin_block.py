@@ -46,6 +46,18 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
+def _proj(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., K) @ (K, N) with f32 accumulation and an f32 result, as JAX's
+    `jnp.dot(..., preferred_element_type=jnp.float32)`: bf16 operands on a
+    CUDA device go to cuBLAS's tensor cores with an f32 output
+    (`torch.mm(..., out_dtype=torch.float32)`), anything else to an f32
+    matmul."""
+    if a.is_cuda and a.dtype == w.dtype == torch.bfloat16:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], w.shape[-1])
+    return _mm(a, w)
+
+
 def _exact_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched product of int8-valued tensors, exact (f64), as f32."""
     return torch.matmul(a.double(), b.double()).float()
@@ -102,33 +114,39 @@ def swin_attn_block_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
 def swin_attn_block_unfused(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
                             table, num_heads: int, resolution: int,
                             window: int, shift: int, ln_eps: float = 1e-5,
-                            calib: dict | None = None):
-    """The JAX package's unfused path (`SwinBlock` without the kernel,
-    `geovpr/models/swin.py:559-584`): LN, the q/k/v projections rounded to
-    x.dtype, `window_attention` (scaled scores, max-shifted softmax), the
-    out projection rounded to x.dtype, the residual added in x.dtype. With
-    `calib` (a dict) it records the amaxes the int8 calibration reads, at
-    the points JAX sows them: `attn_x` the LN output, `attn_q/k/v` the
-    projections, `attn_ctx` the context before the out projection."""
+                            calib: dict | None = None,
+                            attention=window_attention):
+    """The JAX package's unfused path (`SwinBlock` without the fused kernel,
+    `geovpr/models/swin.py:559-584`): LN, the q/k/v projections (f32
+    accumulation) rounded to x.dtype, `attention` on the (BW, H, N, dh)
+    windows, the out projection rounded to x.dtype, the residual added in
+    x.dtype. `attention` is `window_attention` (JAX's XLA path: scaled
+    scores, max-shifted softmax) for calibration, or on the window-7 serving
+    path `window_attention_kernel` (K7, JAX's `use_pallas=True`) or its
+    plain version. With `calib` (a dict) it records the amaxes the int8
+    calibration reads, at the points JAX sows them: `attn_x` the LN output,
+    `attn_q/k/v` the projections, `attn_ctx` the context before the out
+    projection."""
     from geovpr_torch.ops.quant import amax_into
 
     c = x.shape[-1]
     dt = x.dtype
     h = (layer_norm_f32(x.float(), ln_eps) * ln_scale.float()
          + ln_bias.float()).to(dt)
-    qkv = (_mm(h, wqkv) + bqkv.float()).to(dt)
+    qkv = (_proj(h, wqkv) + bqkv.float()).to(dt)
     if calib is not None:
         amax_into(calib, "attn_x", h)
         for key, t in zip(("attn_q", "attn_k", "attn_v"), qkv.split(c, -1)):
             amax_into(calib, key, t)
-    q, k, v = _windows_qkv(qkv, resolution, window, shift, num_heads)
-    mask = shift_mask(resolution, window, shift, x.device)
-    ctx = window_attention(q, k, v, relative_position_bias(table, window),
-                           mask)
+    q, k, v = (t.contiguous() for t in
+               _windows_qkv(qkv, resolution, window, shift, num_heads))
+    ctx = attention(q, k, v,
+                    relative_position_bias(table, window).contiguous(),
+                    shift_mask(resolution, window, shift, x.device))
     ctx = _raster_ctx(ctx, resolution, window, shift)
     if calib is not None:
         amax_into(calib, "attn_ctx", ctx)
-    return x + (_mm(ctx, wo) + bo.float()).to(dt)
+    return x + (_proj(ctx, wo) + bo.float()).to(dt)
 
 
 def _check_geometry(x, num_heads, resolution, window, shift):
@@ -146,11 +164,26 @@ def _check_geometry(x, num_heads, resolution, window, shift):
 
 def _kernel_geometry_ok(c, num_heads, window):
     n = window * window
-    if c // num_heads != _KERNEL_HEAD_DIM or n % 16 or n > 256:
+    if c // num_heads != _KERNEL_HEAD_DIM or not fused_window_ok(window):
         raise ValueError(
             f"the kernel takes head dim {_KERNEL_HEAD_DIM} and windows of "
             f"16..256 tokens in multiples of 16, got C={c}, {num_heads} "
-            f"heads, window {window} (N={n}; window 7 is K7's, to port)")
+            f"heads, window {window} (N={n}; other windows take the unfused "
+            f"half around K7, `swin_attn_block_unfused`)")
+
+
+def fused_window_ok(window: int) -> bool:
+    """Which attention half a Swin block takes: the fused half-block (K4,
+    K5) for windows of N = window**2 tokens in multiples of 16 up to 256,
+    the unfused half around K7 (`swin_attn_block_unfused` with
+    `window_attention_kernel`) otherwise, e.g. window 7 (N = 49). The JAX
+    package routes with `swin_block_kernel_ok`
+    (`geovpr/ops/pallas_swin_block.py:87-92`), which also asks C % 128 == 0:
+    that is the TPU's 128-lane rule, which the port's kernels do not have
+    (K4 takes any C = 32 H). At the repo's variants (window 7, and window 12
+    with C a multiple of 128) both rules route every block alike."""
+    n = window * window
+    return n % 16 == 0 and n <= 256
 
 
 def fused_swin_attn_block(x: torch.Tensor, ln_scale: torch.Tensor,

@@ -11,14 +11,28 @@ into (B*nW, N, C) windows and back; the kernels K4/K5
 `window_attention` is the JAX package's XLA path (scaled scores, bias,
 mask, max-shifted softmax, P.V with P rounded to v's dtype): the Swin
 calibration pass runs it, as the JAX calibration pass does.
+
+`window_attention_kernel` is kernel K7, the port of
+`geovpr/ops/pallas_window_attention.py::window_attention_pallas` with JAX's
+operands and result: (BW, H, N, dh) q, k, v in, the same out, bias (H, N,
+N), mask (nW, N, N) or None. On a CUDA tensor it launches the hand-written
+Hopper kernel of `geovpr_torch/csrc/window_attn.cu` or raises; on a CPU
+tensor it runs `window_attention_serving_reference`, which rounds where the
+JAX kernel body `_kernel` rounds (serving softmax, `_SKIP_MAX`).
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import numpy as np
 import torch
+
+LOG2E = math.log2(math.e)
+_KERNEL_HEAD_DIM = 32
+_KERNEL_MAX_N = 256
 
 
 def relative_position_index(window: int) -> np.ndarray:
@@ -97,22 +111,44 @@ def from_windows(xw: torch.Tensor, resolution: int, window: int,
     return t.reshape(t.shape[0], resolution * resolution, t.shape[-1])
 
 
+def _constant(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A geometry constant on `device`, made outside inference mode and
+    autograd: the caches below hand it to every later call, and a tensor
+    made under `torch.inference_mode()` could not be saved for a later
+    grad-enabled forward's backward (`table[index]` saves the index)."""
+    with torch.inference_mode(False), torch.no_grad():
+        return torch.from_numpy(array).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _position_index(window: int, device: torch.device) -> torch.Tensor:
+    return _constant(relative_position_index(window).reshape(-1)
+                     .astype(np.int64), device)
+
+
 def relative_position_bias(table: torch.Tensor, window: int) -> torch.Tensor:
     """(H, N, N) bias gathered from the ((2w-1)^2, H) table, as
     `SwinBlock` gathers it (`geovpr/models/swin.py:396-398`)."""
     n = window * window
-    idx = torch.from_numpy(relative_position_index(window).reshape(-1)).long()
-    bias = table[idx.to(table.device)].reshape(n, n, table.shape[-1])
+    bias = table[_position_index(window, table.device)].reshape(
+        n, n, table.shape[-1])
     return bias.permute(2, 0, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_mask(resolution: int, window: int, shift: int,
+                device: torch.device) -> torch.Tensor:
+    return _constant(shifted_window_mask(resolution, resolution, window,
+                                         shift), device)
 
 
 def shift_mask(resolution: int, window: int, shift: int,
                device=None) -> Optional[torch.Tensor]:
-    """The (nW, N, N) additive mask of a shifted block, None unshifted."""
+    """The (nW, N, N) additive mask of a shifted block, None unshifted;
+    built once per geometry and device (callers never write to it)."""
     if not shift:
         return None
-    return torch.from_numpy(shifted_window_mask(
-        resolution, resolution, window, shift)).to(device)
+    return _shift_mask(resolution, window, shift, torch.device(device or "cpu"))
 
 
 def add_bias_mask(s: torch.Tensor, bias: torch.Tensor,
@@ -140,3 +176,87 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(add_bias_mask(s, bias, mask), dim=-1)
     out = torch.matmul(p.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
+
+
+def window_attention_serving_reference(q: torch.Tensor, k: torch.Tensor,
+                                       v: torch.Tensor, bias: torch.Tensor,
+                                       mask: Optional[torch.Tensor]
+                                       ) -> torch.Tensor:
+    """Plain PyTorch version of K7: the serving form of the JAX kernel body
+    (`pallas_window_attention.py:59-114`). q is rounded again after the f32
+    scale dh^-0.5 log2(e); s = f32(qs k^T) + f32(bias) log2(e) [+ f32(mask)
+    log2(e)]; p = exp2(min(s, 100)) with no max-shift, rounded to v's dtype
+    for P.V; the f32 row sum divides the context, rounded to v's dtype."""
+    dt = v.dtype
+    qscale = 1.0 / (q.shape[-1] ** 0.5) * LOG2E
+    qs = (q.float() * qscale).to(q.dtype).float()
+    s = torch.matmul(qs, k.float().transpose(-1, -2))
+    s = add_bias_mask(s, bias.float() * LOG2E,
+                      None if mask is None else mask.float() * LOG2E)
+    p = torch.exp2(torch.clamp(s, max=100.0))
+    out = torch.matmul(p.to(dt).float(), v.float()) / p.sum(-1, keepdim=True)
+    return out.to(dt)
+
+
+def window_attention_kernel(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, bias: torch.Tensor,
+                            mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Window attention over pre-split windows (BW, H, N, dh), with JAX's
+    operands. CPU tensors run the plain version; CUDA tensors launch K7
+    (bf16 q, k, v; f32 bias and mask; contiguous and 16-byte aligned; head
+    dim 32; N up to 256; BW a multiple of nW; forward only) or raise."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be one (BW, H, N, dh) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    bw, h, n, dh = q.shape
+    if tuple(bias.shape) != (h, n, n):
+        raise ValueError(f"bias must be {(h, n, n)}, got {tuple(bias.shape)}")
+    if mask is not None and (mask.dim() != 3 or mask.shape[1:] != (n, n)
+                             or bw % mask.shape[0]):
+        raise ValueError(f"mask must be (nW, {n}, {n}) with nW dividing "
+                         f"BW={bw}, got {tuple(mask.shape)}")
+    tensors = {"q": q, "k": k, "v": v, "bias": bias}
+    if mask is not None:
+        tensors["mask"] = mask
+    if any(t.device != q.device for t in tensors.values()):
+        raise ValueError("q, k, v, bias and mask must be on one device")
+    if q.device.type == "cpu":
+        return window_attention_serving_reference(q, k, v, bias, mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in tensors.values()):
+        raise RuntimeError(
+            "window_attention_kernel has no backward kernel (the JAX "
+            "backward is an XLA recompute); run the forward under "
+            "torch.inference_mode()")
+    for name, t in tensors.items():
+        want = torch.float32 if name in ("bias", "mask") else torch.bfloat16
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want} on CUDA, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if dh != _KERNEL_HEAD_DIM or n > _KERNEL_MAX_N:
+        raise ValueError(f"the kernel takes head dim {_KERNEL_HEAD_DIM} and "
+                         f"windows of up to {_KERNEL_MAX_N} tokens, got "
+                         f"dh={dh}, N={n}")
+
+    from geovpr_torch.ops._build import library_on
+    lib = library_on(q.device.index, "geovpr_window_attention_init")
+    out = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        rc = lib.geovpr_window_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(), bw, h,
+            n, 1 if mask is None else mask.shape[0],
+            float(1.0 / (dh ** 0.5) * LOG2E),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"window_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    window_attention_kernel.launches += 1
+    return out
+
+
+window_attention_kernel.launches = 0

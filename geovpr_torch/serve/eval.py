@@ -1,10 +1,13 @@
-"""Per-batch eval sums and their summary (the geopose half of
-`geovpr/train/steps.py:111-188`, `make_eval_step` and `summarize_eval`).
+"""Per-batch eval sums and their summary (`make_eval_step`'s sums and
+`summarize_eval`, `geovpr/train/steps.py:111-188`).
 
 A batch contributes SUMS over its valid rows (f32, on the device) plus the
 valid count, so that a ragged final batch, padded by `iterate_batches`,
 counts exactly; `summarize_eval` turns the accumulated sums into the
-reference's metric suite on the host.
+reference's metric suite on the host. Geopose predictions are (B, 2)
+(lat, lon); angle predictions (B,) degrees, whose error sums are all
+circular: the train manifest holds targets up to 750 deg, so a raw
+difference is never taken.
 """
 
 from __future__ import annotations
@@ -13,20 +16,25 @@ from typing import Optional
 
 import torch
 
+from geovpr_torch.objectives.losses import angular_error_deg
+
 
 def eval_sums(decoded: torch.Tensor, target: torch.Tensor,
               mask: Optional[torch.Tensor] = None) -> dict:
-    """Error sums of one batch of decoded (lat, lon) predictions, (B, 2)
-    f32, against raw targets (B, 2); `mask` (B,) bool marks real rows."""
-    if decoded.dim() != 2:
-        raise NotImplementedError(
-            "only geopose (B, 2) predictions are served by the port so far; "
-            "the angle objectives come with the angle-head slice")
+    """Error sums of one batch of decoded predictions, f32, against raw
+    targets: geopose (B, 2) against (B, 2), angle (B,) against (B,) or (B,
+    1); `mask` (B,) bool marks real rows."""
     if mask is None:
         mask = torch.ones(decoded.shape[0], dtype=torch.bool,
                           device=decoded.device)
     m = mask.to(torch.float32)
-    err = decoded - target.to(decoded.dtype)
+    target = target.to(decoded.dtype)
+    if decoded.dim() == 1:
+        ang = angular_error_deg(decoded, target.reshape(-1))
+        ang_err = (ang * m).sum()
+        return {"count": m.sum(), "sq_err": (ang ** 2 * m).sum(),
+                "abs_err": ang_err, "ang_err": ang_err}
+    err = decoded - target
     return {
         "count": m.sum(),
         "sq_err": ((err.T * m).T ** 2).sum(),
@@ -47,9 +55,13 @@ def add_sums(total: Optional[dict], sums: dict) -> dict:
 
 
 def summarize_eval(sums: dict) -> dict:
-    """Host-side reduction into the geopose metric suite: MSE averaged over
-    both axes (= the competition loss), RMSE, MAE, per-axis MAE."""
+    """Host-side reduction into the metric suite: for angles MAAE and the
+    mean squared circular error; for geopose MSE averaged over both axes
+    (= the competition loss), RMSE, MAE, per-axis MAE."""
     n = max(float(sums["count"]), 1.0)
+    if "ang_err" in sums:
+        return {"maae": float(sums["ang_err"]) / n,
+                "mse": float(sums["sq_err"]) / n}
     out = {"mse": float(sums["sq_err"]) / (2 * n)}
     out["rmse"] = out["mse"] ** 0.5
     out["mae"] = float(sums["abs_err"]) / (2 * n)

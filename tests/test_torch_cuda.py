@@ -9,8 +9,8 @@ import pytest
 import torch
 
 from chip_smoke import (f32, int8_block_case, int8_errors, int8_within_bound,
-                        k1_within_bound, k4_args, k5_kwargs, merge_case,
-                        ratio_errors, swin_block_case)
+                        k1_within_bound, k4_args, k5_kwargs, k7_case,
+                        merge_case, ratio_errors, swin_block_case)
 from geovpr_torch.ops.mhsa import (fused_mhsa_block, fused_mhsa_block_int8,
                                    mhsa_block_int8_reference,
                                    mhsa_block_reference)
@@ -215,8 +215,11 @@ def test_k5_matches_plain_version(cuda, shape):
     assert int8_within_bound(e), e
 
 
-@pytest.mark.parametrize("shape", [(2, 128, 24), (3, 64, 10), (1, 512, 24)])
+@pytest.mark.parametrize("shape", [(2, 128, 24), (3, 64, 10), (1, 512, 24),
+                                   (2, 96, 14)])
 def test_k6_matches_plain_version(cuda, shape):
+    """C = 96 (2C = 192, Swin-T's stage 0) ends on a partial 128-column
+    output tile."""
     from geovpr_torch.ops.patch_merge import (fused_patch_merge,
                                               patch_merge_reference)
     args = merge_case(shape, cuda)
@@ -275,4 +278,75 @@ def test_swin_model_launches_per_block(cuda, int8):
         torch.cuda.synchronize()
     got = [f.launches - b for f, b in zip(fns, before)]
     assert got == ([0, 4, 4, 1] if int8 else [4, 0, 0, 1])
+    assert torch.isfinite(out.tokens).all()
+
+
+_K7_SHAPES = [(8, 3, 49, 4), (4, 2, 49, 0), (2, 16, 144, 0), (4, 1, 144, 4),
+              (2, 1, 225, 0)]
+
+
+@pytest.mark.parametrize("shape", _K7_SHAPES)
+def test_k7_matches_plain_version(cuda, shape):
+    """K1's bound: max and mean |error| against the f32 plain version
+    within 1.25x and 1.1x the bf16 plain version's; N = 49 and 144 with and
+    without the shift mask, and N = 225 (above 48 KB of shared memory)."""
+    from geovpr_torch.ops.window_attention import (
+        window_attention_kernel, window_attention_serving_reference)
+    args = k7_case(shape, cuda)
+    before = window_attention_kernel.launches
+    e = ratio_errors(window_attention_kernel,
+                     window_attention_serving_reference, args, f32(args))
+    assert window_attention_kernel.launches == before + 1
+    assert k1_within_bound(e), e
+
+
+def test_k7_refuses_what_it_does_not_take(cuda):
+    from geovpr_torch.ops.window_attention import window_attention_kernel
+    q, k, v, bias, mask = k7_case((8, 3, 49, 4), cuda)
+    with torch.inference_mode():
+        with pytest.raises(TypeError):
+            window_attention_kernel(q.float(), k, v, bias, mask)
+        with pytest.raises(TypeError):
+            window_attention_kernel(q, k, v, bias.double(), mask)
+        with pytest.raises(TypeError):
+            window_attention_kernel(q, k, v, bias, mask.bfloat16())
+        with pytest.raises(ValueError, match="contiguous"):
+            window_attention_kernel(q.transpose(0, 1).contiguous()
+                                    .transpose(0, 1), k, v, bias, mask)
+        with pytest.raises(ValueError, match="head dim"):
+            window_attention_kernel(*(t.reshape(8, 3, 49 // 7, 7 * 32)
+                                      [..., :64].contiguous()
+                                      for t in (q, k, v)),
+                                    bias[:, :7, :7].contiguous(),
+                                    mask[:, :7, :7].contiguous())
+        big = torch.zeros(1, 1, 289, 32, dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="256 tokens"):
+            window_attention_kernel(big, big, big, torch.zeros(
+                1, 289, 289, device=cuda), None)
+    with pytest.raises(RuntimeError, match="backward"):
+        window_attention_kernel(q, k, v, bias.clone().requires_grad_(True),
+                                mask)
+
+
+def test_swin7_model_launches_per_block(cuda):
+    """A two-stage window-7 Swin: one K7 per block, one K6 at the boundary,
+    no K4."""
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.swin import SwinTransformer
+    from geovpr_torch.ops.patch_merge import fused_patch_merge
+    from geovpr_torch.ops.swin_block import fused_swin_attn_block
+    from geovpr_torch.ops.window_attention import window_attention_kernel
+
+    model = SwinTransformer(embed_dim=64, depths=(2, 2), num_heads=(2, 4),
+                            window_size=7, image_size=56,
+                            dtype=torch.bfloat16)
+    init_weights_(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    x = torch.randn(2, 56, 56, 3, device=cuda)
+    fns = (window_attention_kernel, fused_patch_merge, fused_swin_attn_block)
+    before = [f.launches for f in fns]
+    with torch.inference_mode():
+        out = model(x)
+        torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [4, 1, 0]
     assert torch.isfinite(out.tokens).all()

@@ -1,7 +1,7 @@
 """The port runs without jax and without the JAX package (`geovpr`), through
 `run_retrieval`, the retrieve CLI's `main` with `--int8` and the evaluate
-CLI's `main` (bf16 and `--int8`), and chip_smoke.py fails where it cannot
-run."""
+CLI's `main` (geopose bf16 and `--int8`; angle presets), and chip_smoke.py
+fails where it cannot run."""
 
 import json
 import os
@@ -151,6 +151,65 @@ def test_evaluate_cli_runs_without_jax_or_geovpr():
     assert out[-1] == "OK"
     for line in out[-3:-1]:
         assert np.isfinite(json.loads(line)["metrics"]["mse"])
+
+
+_EVALUATE_ANGLE = """
+import sys
+for name in {block!r}:
+    sys.modules[name] = None
+import dataclasses, json, os, tempfile
+import numpy as np
+from PIL import Image
+from geovpr_torch.cli import presets
+from geovpr_torch.cli.evaluate import main
+from geovpr_torch.models.swin import SWIN_VARIANTS
+SWIN_VARIANTS["test-w7"] = dict(embed_dim=64, depths=(2, 2),
+                                num_heads=(2, 4), window_size=7,
+                                image_size=56)
+for name, variant, size in (("swin_t224_sincos_gemini", "test-w7", 56),
+                            ("efficientnet_sincos_gemini", "b0", 32)):
+    cfg = presets.ANGLE_PRESETS[name]
+    presets.ANGLE_PRESETS[name] = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, image_size=size,
+                                      batch_size=2),
+        model=dataclasses.replace(cfg.model, variant=variant))
+
+with tempfile.TemporaryDirectory() as d:
+    os.makedirs(os.path.join(d, "img"))
+    rng = np.random.default_rng(0)
+    with open(os.path.join(d, "labels.csv"), "w") as f:
+        f.write("filename,timestamp,latitude,longitude,angle,Region_ID\\n")
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 255, (60, 60, 3)).astype(
+                np.uint8)).save(os.path.join(d, "img", f"p{{i}}.png"))
+            f.write(f"p{{i}}.png,0,0,0,{{i * 170.0}},1\\n")
+    for name in ("swin_t224_sincos_gemini", "efficientnet_sincos_gemini"):
+        main(["--preset", name, "--val-csv", os.path.join(d, "labels.csv"),
+              "--image-root", os.path.join(d, "img"), "--out-dir",
+              os.path.join(d, "out"), "--test-dir", os.path.join(d, "img"),
+              "--device", "cpu"])
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split(".")[0] in {block!r})
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_evaluate_cli_angle_runs_without_jax_or_geovpr():
+    """`geovpr_torch.cli.evaluate.main` on angle presets (a small window-7
+    Swin, so the K7 path, and EfficientNet-B0 on small images) over a
+    folder of PNGs, with jax, flax and `geovpr` blocked."""
+    block = _BLOCK + ("geovpr",)
+    proc = subprocess.run(
+        [sys.executable, "-c", _EVALUATE_ANGLE.format(block=block)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = proc.stdout.strip().splitlines()
+    assert out[-1] == "OK"
+    for line in out[-3:-1]:
+        rec = json.loads(line)
+        assert set(rec["metrics"]) == {"maae", "mse"}
+        assert rec["test_csv"].endswith("test_pred.csv")
 
 
 def _import_lines(pattern: str) -> list[str]:
