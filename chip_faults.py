@@ -6,10 +6,13 @@ For each planted fault it copies `geovpr_torch/` into a temporary
 directory, breaks one line of a kernel source there (K2 without its key
 mask; K3 with b2 dropped from its epilogue; K4 without the shift mask or
 without the relative-position bias; K7 counting the pad keys past N, or
-without the shift mask; K6 with x10 and x01 swapped in the concat order),
+without the shift mask; K6 with x10 and x01 swapped in the concat order;
+K9a without the shift mask; K9b without the sum of dp * p in the softmax
+backward; K9c with dbias taken from one CTA's partial sum only),
 builds that copy and runs the chip_smoke.py check of that kernel
 (`int8_kernels_vs_plain` for K2/K3, `swin_kernels_vs_plain` for K4/K6,
-`k7_kernels_vs_plain` for K7) against it at one shape. It prints the check's error line for the
+`k7_kernels_vs_plain` for K7, `k9_kernels_vs_plain` for K9a-K9c) against
+it at one shape. It prints the check's error line for the
 faulty kernel and whether the check rejected it, and exits non-zero if a
 planted fault passes. Needs one CUDA card; the checkout itself is never
 modified.
@@ -32,6 +35,7 @@ _SWIN = ("cs.swin_kernels_vs_plain(dev, attn_shapes={attn!r}, "
 _STAGE0 = (16, 128, 4, 96, 12, 6)    # Swin-B-384 stage 0, shifted, B=16
 _K7 = "cs.k7_kernels_vs_plain(dev, shapes={shapes!r})"
 _K7_STAGE0 = (1024, 3, 49, 64)       # Swin-T-224 stage 0, shifted, B=16
+_K9 = "cs.k9_kernels_vs_plain(dev, shapes=({shape!r},))"
 
 # name -> (source file, [(original text, faulty text)], check to run)
 FAULTS = {
@@ -65,6 +69,20 @@ FAULTS = {
         ("src_s[r * 4 + 2] = base < 0 ? -1 : base + 1;",
          "src_s[r * 4 + 2] = base < 0 ? -1 : base + S;")],
         _SWIN.format(attn=(), merge=((16, 128, 96),))),
+    "K9a shift mask dropped": ("swin_train.cu", [
+        ("if (shift && (hi ? lab1 : lab0) != lab_s[key]) v = __fadd_rn(v, "
+         "kMaskL2T);",
+         "if (false && (hi ? lab1 : lab0) != lab_s[key]) v = __fadd_rn(v, "
+         "kMaskL2T);")],
+        _K9.format(shape=_STAGE0)),
+    "K9b sum of dp * p dropped": ("swin_train.cu", [
+        ("ds[e] = pv[e] * (dp[e] - (e >= 2 ? sub1 : sub0));",
+         "ds[e] = pv[e] * dp[e];")],
+        _K9.format(shape=_STAGE0)),
+    "K9c dbias from one CTA's partial": ("swin_train.cu", [
+        ("reduce(st, part, G, (size_t)H * TR_N * TR_N, dbias)",
+         "reduce(st, part, 1, (size_t)H * TR_N * TR_N, dbias)")],
+        _K9.format(shape=_STAGE0)),
 }
 
 _RUN = """

@@ -20,12 +20,20 @@ from seeded random weights:
   swin_t224_sincos_gemini; K7 in every block, K6 at every boundary), and
   EfficientNet-B0 (efficientnet_sincos_gemini) and ConvNeXt-B
   (convnext_direct_maae), which run on cuDNN and launch no kernel of the
-  port.
+  port;
+- training (`geovpr_torch.cli.train.run_train`), Swin-B-384 + MLP head
+  (preset swin_b384_gemini2) at full width and the preset's B=16: two
+  epochs of 4 steps with validation and checkpoints (K9a in every block,
+  K9c in the 22 blocks with C <= 512, K9b in the 2 with C = 1024; K4 and
+  K6 in validation), a resumed epoch, kernel-vs-plain gradients and a
+  fixed-batch descent.
 
 Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
 form and the w8a8 MLP half-block), K4 and K5 (the Swin window-attention
-half-block, bf16 and w8a8), K6 (Swin PatchMerging) and K7 (the window-7
-attention core on pre-split windows). For each path it
+half-block, bf16 and w8a8), K6 (Swin PatchMerging), K7 (the window-7
+attention core on pre-split windows), and K9a, K9b and K9c (the Swin
+attention half-block's training forward, core backward and whole
+backward). For each path it
 compares the kernel path with the plain path for the whole model, counts
 the kernels' launches, times the path and the kernels (beside their plain
 versions, one library yardstick each and their bounds), and profiles one
@@ -856,6 +864,21 @@ def swin_bounds(kind: str, shape) -> dict:
                 ops_bound_ms=ops_t * 1e3, bytes_bound_ms=bytes_t * 1e3)
 
 
+def library_mask(table, h, b, res, win, shift):
+    """The yardsticks' float attention mask, bf16 (BW, H, N, N): the
+    relative-position bias [+ the shift mask, window w of an image taking
+    mask w]."""
+    from geovpr_torch.ops.window_attention import (relative_position_bias,
+                                                   shift_mask)
+    n = win * win
+    mask = relative_position_bias(table, win)[None]
+    sm = shift_mask(res, win, shift, table.device)
+    if sm is not None:
+        mask = (mask.reshape(1, 1, h, n, n) + sm[None, :, None]).reshape(
+            1, -1, h, n, n).expand(b, -1, -1, -1, -1).reshape(-1, h, n, n)
+    return mask.bfloat16()
+
+
 def library_k4(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, table, h, res,
                win, shift, ln_eps=1e-5):
     """K4's yardstick (timed only here, never called by the port):
@@ -864,9 +887,7 @@ def library_k4(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, table, h, res,
     back to raster -> torch.matmul + bias + residual, all bf16."""
     import torch.nn.functional as F
 
-    from geovpr_torch.ops.window_attention import (from_windows,
-                                                   relative_position_bias,
-                                                   shift_mask, to_windows)
+    from geovpr_torch.ops.window_attention import from_windows, to_windows
     b, l, c = x.shape
     hx = F.layer_norm(x.float(), (c,), ln_scale, ln_bias, ln_eps).bfloat16()
     qkv = to_windows((torch.matmul(hx, wqkv) + bqkv).bfloat16(), res, win,
@@ -874,12 +895,8 @@ def library_k4(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, table, h, res,
     bw, n, _ = qkv.shape
     q, k, v = (t.reshape(bw, n, h, c // h).transpose(1, 2)
                for t in qkv.split(c, dim=-1))
-    mask = relative_position_bias(table, win)[None]
-    sm = shift_mask(res, win, shift, x.device)
-    if sm is not None:
-        mask = (mask.reshape(1, 1, h, n, n) + sm[None, :, None]).reshape(
-            1, -1, h, n, n).expand(b, -1, -1, -1, -1).reshape(bw, h, n, n)
-    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask.bfloat16())
+    o = F.scaled_dot_product_attention(
+        q, k, v, attn_mask=library_mask(table, h, b, res, win, shift))
     o = from_windows(o.transpose(1, 2).reshape(bw, n, c), res, win, shift)
     return (torch.matmul(o, wo) + bo + x).bfloat16()
 
@@ -893,9 +910,7 @@ def library_k5(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
     projection) + epilogue."""
     import torch.nn.functional as F
 
-    from geovpr_torch.ops.window_attention import (from_windows,
-                                                   relative_position_bias,
-                                                   shift_mask, to_windows)
+    from geovpr_torch.ops.window_attention import from_windows, to_windows
     b, l, c = x.shape
     h, win = num_heads, window
     xq = torch.clamp(torch.round(F.layer_norm(
@@ -906,13 +921,9 @@ def library_k5(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
     bw, n, _ = qkv.shape
     q, k, v = (t.reshape(bw, n, h, c // h).transpose(1, 2)
                for t in qkv.split(c, dim=-1))
-    mask = relative_position_bias(table, win)[None]
-    sm = shift_mask(resolution, win, shift, x.device)
-    if sm is not None:
-        mask = (mask.reshape(1, 1, h, n, n) + sm[None, :, None]).reshape(
-            1, -1, h, n, n).expand(b, -1, -1, -1, -1).reshape(bw, h, n, n)
-    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask.bfloat16(),
-                                       scale=float(cs))
+    o = F.scaled_dot_product_attention(
+        q, k, v, attn_mask=library_mask(table, h, b, resolution, win, shift),
+        scale=float(cs))
     o = from_windows(o.transpose(1, 2).reshape(bw, n, c), resolution, win,
                      shift)
     c8 = torch.clamp(torch.round(o.reshape(-1, c).float()), -127,
@@ -1215,6 +1226,462 @@ def k7_kernel_times(device, card: str) -> dict:
     return out
 
 
+# ------------------------------------------- Swin training / K9a-K9c --
+
+# Swin-B-384 geopose training (preset swin_b384_gemini2) at its B=16: the
+# K9 shapes (B, C, H, resolution, window, shift) of stages 0-3; stage 3
+# (C = 1024) takes the split backward (K9b and torch products), the others
+# K9c. Launches per training step: K9a in every block (24), K9c in the 22
+# blocks with C <= 512, K9b in the 2 with C = 1024.
+TRAIN_BATCH = 16
+K9_SHAPES = ((16, 128, 4, 96, 12, 6), (16, 256, 8, 48, 12, 6),
+             (16, 512, 16, 24, 12, 6), (16, 1024, 32, 12, 12, 0))
+K9_MAIN = K9_SHAPES[0]
+
+
+def k9_case(shape, device, seed=SEED):
+    """K9's operands at one stage: x at K1_X_SCALE (bf16), LN vectors and
+    biases off their init, bf16 matrices at fan-in scale, a table drawn
+    N(0, 1) (zero at init), and an upstream gradient g drawn N(0, 1)."""
+    b, c, h, res, win, shift = shape
+    gen = torch.Generator().manual_seed(seed + c + shift)
+
+    def r(*s, scale=1.0):
+        return torch.randn(*s, generator=gen) * scale
+
+    args = dict(x=r(b, res * res, c, scale=K1_X_SCALE).bfloat16(),
+                ln_scale=1 + r(c, scale=0.1), ln_bias=r(c, scale=0.1),
+                wqkv=r(c, 3 * c, scale=c ** -0.5).bfloat16(),
+                bqkv=r(3 * c, scale=0.1),
+                wo=r(c, c, scale=c ** -0.5).bfloat16(), bo=r(c, scale=0.1),
+                table=r((2 * win - 1) ** 2, h))
+    g = r(b, res * res, c).bfloat16()
+    geom = dict(num_heads=h, resolution=res, window=win, shift=shift)
+    return ({k: v.to(device) for k, v in args.items()}, g.to(device), geom)
+
+
+# An output that is a sum over every row (dbo = sum g) can come out of the
+# bf16 and f32 plain versions bit-equal (the same f32 sum of the same bf16
+# values), so the ratio bound is 0; the kernel sums in another order. Its
+# bounds are floored at F32_SUM_REL of the f32 plain version's max and mean
+# |value|: the roundoff of an f32 sum of 10^5 terms is ~1e-6 relative.
+F32_SUM_REL = 1e-5
+
+
+def k9_ratio(name, tag, got, want, ref32) -> dict:
+    """K1's ratio bound on one output: the kernel's max and mean |error|
+    against the f32 plain version within 1.25x and 1.1x the bf16 plain
+    version's (floored at F32_SUM_REL of the output's scale)."""
+    k_err = (got.float() - ref32.float()).abs()
+    p_err = (want.float() - ref32.float()).abs()
+    scale = ref32.float().abs()
+    e = dict(finite=bool(torch.isfinite(got.float()).all()),
+             kernel_max=k_err.max().item(), kernel_mean=k_err.mean().item(),
+             plain_max=p_err.max().item(), plain_mean=p_err.mean().item())
+    bounds = dict(
+        max_bound=max(K1_MAX_RATIO * e["plain_max"],
+                      F32_SUM_REL * scale.max().item()),
+        mean_bound=max(K1_MEAN_RATIO * e["plain_mean"],
+                       F32_SUM_REL * scale.mean().item()))
+    phase("kernel", name=name, shape=tag, **e, **bounds)
+    check(e["finite"] and e["kernel_max"] <= bounds["max_bound"]
+          and e["kernel_mean"] <= bounds["mean_bound"],
+          f"{name} error outside its bound at {tag}: {e}, {bounds}")
+    return e
+
+
+def k9_kernels_vs_plain(device, shapes=K9_SHAPES) -> dict:
+    """K9a, K9b and K9c (stage 3: the split backward through K9b) against
+    their plain versions at the Swin-B-384 B=16 stage shapes, every output
+    under K1's ratio bound. The backward kernels take the bf16 plain
+    forward's residuals, so that each is checked alone; the f32 plain
+    version runs on the f32 forward's. Returns the max errors of y (K9a),
+    dqkv (K9b) and dx (K9c) by shape."""
+    from geovpr_torch.ops import swin_block as sb
+
+    errs = {}
+    for shape in shapes:
+        tag = "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape)
+        a, g, geom = k9_case(shape, device)
+        geo = tuple(geom.values())
+        a32 = {k: v.float() for k, v in a.items()}
+        fwd_args = lambda d: (d["x"], d["ln_scale"], d["ln_bias"], d["wqkv"],
+                              d["bqkv"], d["wo"], d["bo"], d["table"], *geo,
+                              1e-5)
+        with torch.no_grad():
+            got = sb.fused_swin_attn_train_fwd(*fwd_args(a))
+            torch.cuda.synchronize()
+            want = sb._train_plain_fwd(*fwd_args(a))
+            ref32 = sb._train_plain_fwd(*fwd_args(a32))
+        for i, out in enumerate(("y", "qkv", "ctx", "p")):
+            e = k9_ratio(f"K9a.{out}", tag, got[i], want[i], ref32[i])
+            if out == "y":
+                errs[("K9a", shape)] = e["kernel_max"]
+        del got
+
+        _, qkv, ctx, p = want
+        _, qkv32, ctx32, p32 = ref32
+        da = torch.randn(g.shape, generator=torch.Generator().manual_seed(
+            SEED + 1)).bfloat16().to(device)
+        def core_plain(qk, pp, dd):
+            dq, db = sb.swin_attn_core_bwd_reference(
+                sb._raster_to_rows(qk, *geo[1:]), pp,
+                sb._raster_to_rows(dd, *geo[1:]), geo[0])
+            return sb._rows_to_raster(dq, *geo[1:]), db
+
+        with torch.no_grad():
+            got = sb.fused_swin_attn_bwd_core(qkv, p, da, *geo)
+            torch.cuda.synchronize()
+            want_c = core_plain(qkv, p, da)
+            ref_c = core_plain(qkv32, p32, da.float())
+        for i, out in enumerate(("dqkv", "dbias")):
+            e = k9_ratio(f"K9b.{out}", tag, got[i], want_c[i], ref_c[i])
+            if out == "dqkv":
+                errs[("K9b", shape)] = e["kernel_max"]
+        del got, want_c, ref_c
+
+        split = shape[1] > 512
+        bwd_args = lambda d, qk, cx, pp, gg: (
+            d["x"], d["ln_scale"], d["ln_bias"], d["wqkv"], d["wo"], qk, cx,
+            pp, gg, *geo, 1e-5)
+        with torch.no_grad():
+            kern = sb.swin_attn_train_bwd_split if split else \
+                sb.fused_swin_attn_bwd_all
+            got = kern(*bwd_args(a, qkv, ctx, p, g))
+            torch.cuda.synchronize()
+            want_b = sb._train_plain_bwd(*bwd_args(a, qkv, ctx, p, g),
+                                         split=split)
+            ref_b = sb._train_plain_bwd(*bwd_args(a32, qkv32, ctx32, p32,
+                                                  g.float()), split=split)
+        name = "K9b_split" if split else "K9c"
+        dts = (None, None, None, torch.bfloat16, None, torch.bfloat16, None,
+               None)
+        for i, out in enumerate(("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo",
+                                 "dbo", "dbias")):
+            gt = got[i] if dts[i] is None else got[i].to(dts[i])
+            e = k9_ratio(f"{name}.{out}", tag, gt, want_b[i], ref_b[i])
+            if out == "dx":
+                errs[(name, shape)] = e["kernel_max"]
+        del a, a32, g, got, want, ref32, want_b, ref_b
+        torch.cuda.empty_cache()
+    return errs
+
+
+def k9_bounds(kind: str, shape) -> dict:
+    """The least time of one K9 call at (B, C, H, S, w, shift): each input
+    read once and each output written once (bf16 streams, f32 vectors,
+    biases, table and weight gradients) over 3.35 TB/s, against the
+    products at the bf16 peak (JAX's cost estimates: 8 M C^2 + 4 BW H N^2
+    dh forward, 8 BW H N^2 dh for the core backward, + 16 M C^2 for the
+    whole backward)."""
+    b, c, h, res, win, _ = shape
+    m, n = b * res * res, win * win
+    bw = m // n
+    att = 2 * bw * h * n * n * (c // h)          # one N x N x dh product
+    p_bytes = bw * h * n * n * 2
+    if kind == "K9a":
+        # reads x, the weights, ln_scale, ln_bias, bqkv, bo and the table;
+        # writes y, qkv, ctx and p
+        ops = 8 * m * c * c + 2 * att
+        nbytes = m * c * 2 + 4 * c * c * 2 + 6 * c * 4 \
+            + (2 * win - 1) ** 2 * h * 4 + (3 * m * c + 2 * m * c) * 2 \
+            + p_bytes
+    elif kind == "K9b":
+        ops = 4 * att
+        nbytes = (3 * m * c + m * c + 3 * m * c) * 2 + p_bytes + h * n * n * 4
+    else:
+        # reads x, qkv, ctx, g, p, the weights, ln_scale and ln_bias; writes
+        # dx, dls, dlb, dwqkv, dbqkv, dwo, dbo (f32) and dbias (f32)
+        ops = 4 * att + 16 * m * c * c
+        nbytes = (4 * m * c + 3 * m * c) * 2 + p_bytes + 4 * c * c * 2 \
+            + 2 * c * 4 + (4 * c * c + 6 * c) * 4 + h * n * n * 4
+    ops_t, bytes_t = ops / PEAK_BF16, nbytes / PEAK_BYTES
+    return dict(bound_ms=max(ops_t, bytes_t) * 1e3,
+                bound_by="operations" if ops_t >= bytes_t else "bytes",
+                ops_bound_ms=ops_t * 1e3, bytes_bound_ms=bytes_t * 1e3)
+
+
+def k9_kernel_times(device, card: str, shape=K9_MAIN) -> dict:
+    """K9a, K9b and K9c at Swin-B-384 stage 0 (B=16), each in turns with
+    its plain version and its library yardstick (`library_k4`'s forward for
+    K9a and its whole backward for K9c, each with K4's residual add, one
+    elementwise pass; for K9b the backward of F.scaled_dot_product_attention
+    alone, on the same windows and float mask), beside its bound."""
+    import torch.nn.functional as F
+
+    from geovpr_torch.ops import swin_block as sb
+    from geovpr_torch.ops.window_attention import to_windows
+
+    a, g, geom = k9_case(shape, device)
+    geo = tuple(geom.values())
+    fa = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["bqkv"], a["wo"],
+          a["bo"], a["table"], *geo, 1e-5)
+    out = {}
+    with torch.no_grad():
+        _, qkv, ctx, p = sb.fused_swin_attn_train_fwd(*fa)
+    ba = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["wo"], qkv, ctx,
+          p, g, *geo, 1e-5)
+    b, c = shape[0], shape[1]
+    leaves = [t.detach().requires_grad_() for t in fa[:8]]
+    qkv_w = to_windows(qkv, *geo[1:])
+    n = qkv_w.shape[1]
+    qh, kh, vh = (t.reshape(-1, n, geo[0], c // geo[0]).transpose(1, 2)
+                  .contiguous().requires_grad_()
+                  for t in qkv_w.split(c, dim=-1))
+    lib_mask = library_mask(a["table"], geo[0], b, *geo[1:])
+    with torch.enable_grad():
+        y_lib = library_k4(*leaves, *geo)
+        o_lib = F.scaled_dot_product_attention(qh, kh, vh,
+                                               attn_mask=lib_mask)
+    g_o = torch.randn(o_lib.shape, device=device, dtype=o_lib.dtype)
+    cases = {
+        "K9a": {"kernel": lambda: sb.fused_swin_attn_train_fwd(*fa),
+                "plain": lambda: sb._train_plain_fwd(*fa),
+                "library": lambda: library_k4(*fa[:8], *geo)},
+        "K9b": {"kernel": lambda: sb.fused_swin_attn_bwd_core(qkv, p, g,
+                                                              *geo),
+                "plain": lambda: sb.swin_attn_core_bwd_reference(
+                    sb._raster_to_rows(qkv, *geo[1:]), p,
+                    sb._raster_to_rows(g, *geo[1:]), geo[0]),
+                "library": lambda: torch.autograd.grad(
+                    o_lib, (qh, kh, vh), g_o, retain_graph=True)},
+        "K9c": {"kernel": lambda: sb.fused_swin_attn_bwd_all(*ba),
+                "plain": lambda: sb._train_plain_bwd(*ba, split=False),
+                "library": lambda: torch.autograd.grad(
+                    y_lib, leaves, g, retain_graph=True)}}
+    for name, fns in cases.items():
+        with torch.no_grad() if name == "K9a" else torch.enable_grad():
+            t = interleaved_ms(fns, iters=5)
+        out[name] = dict(ms=t["kernel"][0], plain_ms=t["plain"][0],
+                         library_ms=t["library"][0],
+                         runs={k: v[1] for k, v in t.items()},
+                         **k9_bounds(name, shape))
+        phase("kernel_time", card=repr(card), name=name,
+              shape="B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape),
+              **out[name])
+    return out
+
+
+TRAIN_PRESET, TRAIN_N, TRAIN_N_VAL, TRAIN_EPOCHS = (
+    "swin_b384_gemini2", 64, 32, 2)
+# launches per step: K9a in all 24 blocks, K9c in the 22 with C <= 512,
+# K9b in the 2 with C = 1024
+TRAIN_K9C_BLOCKS, TRAIN_K9B_BLOCKS = 22, 2
+
+
+def train_counters() -> dict:
+    from geovpr_torch.ops import swin_block as sb
+    return {**kernel_counters(), **swin_counters(),
+            "fused_swin_attn_train_fwd": sb.fused_swin_attn_train_fwd,
+            "fused_swin_attn_bwd_all": sb.fused_swin_attn_bwd_all,
+            "fused_swin_attn_bwd_core": sb.fused_swin_attn_bwd_core}
+
+
+@torch.no_grad()
+def _drop_rates(model, rate) -> list:
+    """Set every DropPath / Dropout rate of `model` to `rate`, a float or
+    a list of rates in module order; returns the rates it replaced."""
+    from geovpr_torch.models.layers import Dropout, DropPath
+    mods = [m for m in model.modules() if isinstance(m, (Dropout, DropPath))]
+    old = [m.rate for m in mods]
+    for i, m in enumerate(mods):
+        m.rate = rate[i] if isinstance(rate, list) else rate
+    return old
+
+
+def train_grads_vs_plain(trainer, batch) -> None:
+    """On one batch with dropout and DropPath off, the gradient of every
+    parameter on the kernel path (K9a/K9c/K9b) against the plain path,
+    cosine >= 0.999 for each tensor."""
+    st, model = trainer.state, trainer.state.model
+    saved = _drop_rates(model, 0.0)
+    model.train()
+    enc = trainer.objective.encode_targets(batch["target"], st.scaler)
+    names = [n for n, _ in model.named_parameters()]
+
+    def grads(kernels: bool):
+        for m in model.backbone.blocks:
+            m.use_kernels = kernels
+        try:
+            loss = trainer.objective.loss(
+                model(trainer._normalize(batch["image"])), enc,
+                batch["mask"])
+            return torch.autograd.grad(loss, list(model.parameters()))
+        finally:
+            for m in model.backbone.blocks:
+                m.use_kernels = True
+
+    got, want = grads(True), grads(False)
+    _drop_rates(model, saved)
+    cos = {n: torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0).item()
+        for n, a, b in zip(names, got, want)}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    phase("train_grads", tensors=len(cos), min_cosine=worst[0][1],
+          worst=repr(worst), bound=0.999)
+    check(min(cos.values()) >= 0.999,
+          f"kernel vs plain gradient cosine below 0.999: {worst}")
+
+
+def train_loss_falls(device) -> None:
+    """A fresh model, dropout and DropPath off, five steps on one fixed
+    batch of 16 synthetic images: the loss falls."""
+    from geovpr_torch.cli.presets import build_preset, objective_for
+    from geovpr_torch.models.regression import RegressionModel
+    from geovpr_torch.objectives.scaler import fit_scaler
+    from geovpr_torch.train.state import create_train_state
+    from geovpr_torch.train.steps import make_train_step
+
+    cfg = build_preset(TRAIN_PRESET)
+    src = synthetic_val(TRAIN_BATCH, 384, np.random.default_rng(SEED + 7))
+    model = RegressionModel(cfg.model, dtype=torch.bfloat16,
+                            train=True).to(device)
+    st = create_train_state(model, cfg.optim, seed=SEED,
+                            scaler=fit_scaler(src.targets))
+    _drop_rates(model, 0.0)
+    step = make_train_step(objective_for(cfg))
+    batch = {"image": torch.from_numpy(src.images).to(device),
+             "target": torch.from_numpy(src.targets).to(device),
+             "mask": torch.ones(TRAIN_BATCH, dtype=torch.bool,
+                                device=device)}
+    losses = [float(step(st, batch)["loss"]) for _ in range(5)]
+    phase("train_fixed_batch", losses=losses)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"the loss on a fixed batch did not fall: {losses}")
+
+
+def train_times(trainer, batch, card: str) -> None:
+    """ms per training step (host clock around synchronised steps on one
+    batch), img/s and peak device memory; one step under torch.profiler
+    (device busy and idle share, top device ops)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = trainer._train_step
+    st = trainer.state
+    step(st, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(st, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    phase("train_times", card=repr(card), batch=TRAIN_BATCH, ms_per_step=ms,
+          img_per_s=TRAIN_BATCH * 1e3 / ms, peak_mem_bytes=peak)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(st, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    if not kernels:
+        phase("breakdown", card=repr(card), path="swin-b-train",
+              device_time="not measured")
+        return
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    phase("breakdown", card=repr(card), path="swin-b-train",
+          batch=TRAIN_BATCH, window_ms=wall_ms, device_busy_ms=busy_ms,
+          idle_share=1 - busy_ms / wall_ms)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        phase("device_time", path="swin-b-train",
+              ms=e.self_device_time_total / 1e3, calls=e.count,
+              share=e.self_device_time_total / 1e3 / busy_ms,
+              name=e.key[:90])
+
+
+def train_path(device, card: str) -> dict:
+    """The training path at full width: `run_train` on swin_b384_gemini2
+    (B=16, geo_light, dropout 0.3, DropPath 0.1) over 64 synthetic images
+    with synthetic (lat, lon) and a fitted scaler, two epochs of 4 steps
+    with a validation pass (32 images) and a checkpoint each, every launch
+    count set to 0 just before and read just after; then a run resumed
+    from the first epoch's checkpoint, whose first step must repeat the
+    unbroken run's loss bit for bit; the kernel-vs-plain gradients, a
+    falling loss on a fixed batch, and the step's times. Returns the
+    launch counts of the unbroken run."""
+    import shutil
+
+    from geovpr_torch.cli.presets import build_preset
+    from geovpr_torch.cli.train import run_train
+
+    cfg = build_preset(TRAIN_PRESET)
+    rng = np.random.default_rng(SEED + 3)
+    train_src = synthetic_val(TRAIN_N, 384, rng)
+    val_src = synthetic_val(TRAIN_N_VAL, 384, rng)
+
+    counters = train_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer = run_train(cfg, train_src, val_src, save_dir=tmp,
+                            device=device, epochs=TRAIN_EPOCHS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        steps = TRAIN_EPOCHS * TRAIN_N // TRAIN_BATCH
+        val_batches = TRAIN_EPOCHS * -(-TRAIN_N_VAL // TRAIN_BATCH)
+        expected = dict.fromkeys(counters, 0)
+        expected.update({
+            "fused_swin_attn_train_fwd": SWIN_BLOCKS * steps,
+            "fused_swin_attn_bwd_all": TRAIN_K9C_BLOCKS * steps,
+            "fused_swin_attn_bwd_core": TRAIN_K9B_BLOCKS * steps,
+            "fused_swin_attn_block": SWIN_BLOCKS * val_batches,
+            "fused_patch_merge": SWIN_BOUNDARIES * val_batches})
+        hist = trainer.history
+        phase("train", preset=TRAIN_PRESET, batch=TRAIN_BATCH, steps=steps,
+              wall_s=wall, launches=launches, expected_launches=expected,
+              per_step={k: launches[k] / steps for k in (
+                  "fused_swin_attn_train_fwd", "fused_swin_attn_bwd_all",
+                  "fused_swin_attn_bwd_core")},
+              step_losses=trainer.step_losses, history=json.dumps(hist))
+        check(launches == expected,
+              f"kernel launches {launches}, expected {expected}")
+        check(len(hist) == TRAIN_EPOCHS
+              and all(np.isfinite(r["train_loss"])
+                      and np.isfinite(r["val_mse"]) for r in hist),
+              f"training history {hist}")
+        run = trainer.run_dir
+        check(all(os.path.isfile(os.path.join(run, d, "state.pt"))
+                  for d in ("checkpoint_0", "checkpoint_1", "best"))
+              and os.path.isfile(os.path.join(run, "metrics.jsonl")),
+              f"run directory {sorted(os.listdir(run))}")
+
+        batch = next(iter(_train_batches(train_src, device)))
+        train_grads_vs_plain(trainer, batch)
+        train_times(trainer, batch, card)
+        first_unbroken = trainer.step_losses[1]
+        del trainer
+        torch.cuda.empty_cache()
+
+        resumed_dir = os.path.join(tmp, "resumed")
+        os.makedirs(resumed_dir)
+        shutil.copytree(os.path.join(run, "checkpoint_0"),
+                        os.path.join(resumed_dir, "checkpoint_0"))
+        resumed = run_train(cfg, train_src, val_src, save_dir=tmp,
+                            device=device, epochs=TRAIN_EPOCHS,
+                            resume=resumed_dir)
+        got = resumed.step_losses[1]
+        phase("train_resume", unbroken=first_unbroken, resumed=got,
+              first_step_equal=got[0] == first_unbroken[0])
+        check(sorted(resumed.step_losses) == [1]
+              and got[0] == first_unbroken[0],
+              f"resumed first-step loss {got[0]} != unbroken "
+              f"{first_unbroken[0]}")
+        del resumed
+        torch.cuda.empty_cache()
+    train_loss_falls(device)
+    return launches
+
+
+def _train_batches(source, device):
+    from geovpr_torch.data.pipeline import iterate_batches, prefetch_to_device
+    return prefetch_to_device(iterate_batches(source, TRAIN_BATCH), device)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1274,6 +1741,10 @@ def main() -> int:
     angle_launches = angle_path(device, card)
     k7t = k7_kernel_times(device, card)
 
+    k9_errs = k9_kernels_vs_plain(device)
+    train_launches = train_path(device, card)
+    k9t = k9_kernel_times(device, card)
+
     rows = []
     for name, k, src, replaces, count, err in (
             ("fused_mhsa_block", "K1", "geovpr_torch/csrc/mhsa.cu",
@@ -1322,6 +1793,19 @@ def main() -> int:
                  "plain_ms": k7t["plain_ms"], "bound_ms": k7t["bound_ms"],
                  "bound_by": k7t["bound_by"],
                  "library_ms": k7t["library_ms"]})
+    for name, k, line, err in (
+            ("fused_swin_attn_train_fwd", "K9a", 1263, "K9a"),
+            ("fused_swin_attn_bwd_core", "K9b", 1351, "K9b"),
+            ("fused_swin_attn_bwd_all", "K9c", 910, "K9c")):
+        t = k9t[k]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "geovpr_torch/csrc/swin_train.cu",
+                     "replaces": f"geovpr/ops/pallas_swin_block.py:{line}",
+                     "launches": train_launches[name],
+                     "max_abs_err": k9_errs[(err, K9_MAIN)], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

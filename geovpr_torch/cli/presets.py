@@ -2,7 +2,7 @@
 data: the same names and config trees; `tests/test_torch_config.py` holds
 them equal). `build_preset(name)` returns the full config tree;
 hyperparameters are cited to the reference lines they reproduce.
-`objective_for` gives a preset's serving objective (decode and metrics).
+`objective_for` gives a preset's objective (loss, decode and metrics).
 """
 
 from __future__ import annotations
@@ -174,16 +174,19 @@ def build_preset(name: str):
 
 
 def objective_for(cfg):
-    """Config -> the serving objective (`geovpr.cli.presets.objective_for`)."""
+    """Config -> the objective (`geovpr.cli.presets.objective_for`)."""
     from geovpr_torch.objectives.angle_codec import SinCosCodec
     from geovpr_torch.objectives.workloads import (AngleDirectObjective,
                                                    AngleSinCosObjective,
                                                    GeoposeObjective)
 
     if isinstance(cfg, GeoposeConfig):
-        return GeoposeObjective()
+        return GeoposeObjective(loss_name=cfg.loss,
+                                huber_delta=cfg.huber_delta)
     if isinstance(cfg, AngleConfig):
         if cfg.loss == "direct":
             return AngleDirectObjective()
-        return AngleSinCosObjective(codec=SinCosCodec(cfg.codec_order))
+        return AngleSinCosObjective(
+            loss_name="acos" if cfg.loss == "sincos_acos" else "mse",
+            codec=SinCosCodec(cfg.codec_order))
     raise TypeError(type(cfg))

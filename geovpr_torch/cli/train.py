@@ -1,0 +1,175 @@
+"""Training entry point of the port (the counterpart of `geovpr.cli.train`,
+flag for flag).
+
+    python -m geovpr_torch.cli.train --preset swin_b384_gemini2 \
+        --train-csv labels_train.csv --val-csv labels_val.csv \
+        --image-root images --save-dir runs \
+        [--epochs N] [--batch-size B] [--seed S] \
+        [--pretrained backbone.msgpack] [--resume DIR | --auto-resume DIR] \
+        [--profile] [--device cuda|cpu]
+
+Trains the presets whose every kernel and module is ported: Swin at
+window 12 (`swin_b384_gemini2`, `swin_b384_v4_diff_lr`,
+`swin_b384_direct_maae`), each attention half through K9a forward and K9c
+(or K9b) backward, validation through K4. Other presets raise
+NotImplementedError naming the ROADMAP item. Checkpoints are the port's
+own (`train.checkpoint`), in the JAX CLI's run-directory layout;
+`--pretrained` reads a flax msgpack of backbone variables (as
+`geovpr.cli.convert` writes it). `--device` defaults to cuda and fails
+when no card is present; pass `--device cpu` to run on the CPU.
+`--async-checkpoint` is refused; `--multihost` and its companions are not
+ported (ROADMAP Queue 1 item 11).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+
+import numpy as np
+import torch
+
+
+def load_pretrained_backbone(path: str) -> dict:
+    """A flax msgpack of backbone variables -> the training model's
+    state_dict entries under `backbone.`."""
+    from geovpr_torch.models.convert_jax import (load_flax_msgpack,
+                                                 state_dict_from_flax)
+    sd = state_dict_from_flax(load_flax_msgpack(path))
+    return {f"backbone.{k}": v for k, v in sd.items()}
+
+
+def run_train(cfg, train_source, val_source=None, *, save_dir: str = "runs",
+              device="cuda", epochs: int = 0, batch_size: int = 0,
+              seed: int = -1, pretrained: dict | None = None,
+              resume: str = "", auto_resume: str = "",
+              profile: bool = False):
+    """Train preset `cfg` on in-memory or disk sources (targets as
+    `targets`): the scaler fitted on the train targets (geopose), a
+    seeded random init with `pretrained` laid over it, or the latest
+    checkpoint of `resume` / `auto_resume`. Returns the Trainer (its
+    `history`, `step_losses`, `run_dir`, `state`)."""
+    from geovpr_torch.cli.presets import objective_for
+    from geovpr_torch.core.config import GeoposeConfig
+    from geovpr_torch.models.regression import RegressionModel
+    from geovpr_torch.objectives.scaler import fit_scaler
+    from geovpr_torch.train.loop import Trainer
+
+    data = dataclasses.replace(
+        cfg.data, **({"batch_size": batch_size} if batch_size else {}))
+    train_cfg = dataclasses.replace(
+        cfg.train, save_dir=save_dir, profile=profile,
+        **({"epochs": epochs} if epochs else {}),
+        **({"seed": seed} if seed >= 0 else {}))
+    geo = isinstance(cfg, GeoposeConfig)
+    scaler = (fit_scaler(np.asarray(train_source.targets, np.float32))
+              if geo and cfg.scale_targets else None)
+    mcfg = dataclasses.replace(cfg.model, image_size=data.image_size)
+    model = RegressionModel(mcfg, dtype=getattr(torch, mcfg.compute_dtype),
+                            train=True)
+    trainer = Trainer(model=model, objective=objective_for(cfg),
+                      optim_cfg=cfg.optim, train_cfg=train_cfg,
+                      data_cfg=data, device=device, scaler=scaler,
+                      pretrained=pretrained,
+                      run_dir=resume or auto_resume or "")
+    start_epoch = 0
+    resume_dir = resume or auto_resume
+    if resume_dir:
+        spe = Trainer.steps_per_epoch(len(train_source), data)
+        trainer.init_state(total_steps=spe * train_cfg.epochs,
+                           steps_per_epoch=spe)
+        start_epoch = trainer.restore_latest(resume_dir,
+                                             require=bool(resume))
+        print(f"resumed {resume_dir}; continuing at epoch {start_epoch}"
+              if start_epoch else
+              f"no checkpoint under {resume_dir}; starting fresh there",
+              file=sys.stderr)
+    trainer.fit(train_source, val_source, start_epoch=start_epoch)
+    return trainer
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--preset", required=True)
+    p.add_argument("--train-csv", required=True)
+    p.add_argument("--val-csv", default="")
+    p.add_argument("--image-root", required=True)
+    p.add_argument("--save-dir", default="runs")
+    p.add_argument("--epochs", type=int, default=0)
+    p.add_argument("--batch-size", type=int, default=0)
+    p.add_argument("--seed", type=int, default=-1)
+    p.add_argument("--pretrained", default="",
+                   help="flax msgpack of BACKBONE variables to initialise "
+                        "from (the head stays fresh)")
+    p.add_argument("--resume", default="",
+                   help="run dir to resume from (errors if it holds no "
+                        "checkpoint)")
+    p.add_argument("--auto-resume", default="",
+                   help="run dir: resume from its latest checkpoint if one "
+                        "exists, else start a fresh run in it")
+    p.add_argument("--profile", action="store_true",
+                   help="torch.profiler trace of a few steps into "
+                        "<run_dir>/profile")
+    p.add_argument("--async-checkpoint", action="store_true",
+                   help="not ported: refused")
+    p.add_argument("--multihost", action="store_true",
+                   help="not ported (ROADMAP Queue 1 item 11)")
+    p.add_argument("--coordinator", default="")
+    p.add_argument("--num-processes", type=int, default=0)
+    p.add_argument("--process-id", type=int, default=-1)
+    p.add_argument("--device", default="cuda",
+                   help="torch device; cuda (default) fails without a card")
+    args = p.parse_args(argv)
+    if args.resume and args.auto_resume:
+        p.error("--resume and --auto-resume are mutually exclusive")
+    if args.async_checkpoint:
+        raise SystemExit("--async-checkpoint is not ported: the port writes "
+                         "its checkpoints synchronously (drop the flag)")
+    if (args.multihost or args.coordinator or args.num_processes
+            or args.process_id >= 0):
+        raise NotImplementedError(
+            "multi-host training is not ported yet (ROADMAP Queue 1 item "
+            "11)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device is available; pass --device cpu to "
+                         "run on the CPU")
+
+    from geovpr_torch.cli.presets import build_preset
+    from geovpr_torch.core.config import GeoposeConfig
+    from geovpr_torch.data.manifest import load_manifest
+    from geovpr_torch.data.pipeline import ImageFolderSource
+
+    cfg = build_preset(args.preset)
+    data = cfg.data
+    geo = isinstance(cfg, GeoposeConfig)
+
+    def make_source(manifest, resize_to=0):
+        return ImageFolderSource(
+            paths=manifest.paths(),
+            targets=np.asarray(manifest.latlon if geo else manifest.angle),
+            image_size=data.image_size, num_threads=data.num_decode_threads,
+            filenames=manifest.filenames, decoder=data.decoder,
+            resize_to=resize_to)
+
+    train_manifest = load_manifest(args.train_csv, args.image_root,
+                                   data.screen_missing_files,
+                                   data.screen_corrupt_images)
+    val_source = (make_source(load_manifest(args.val_csv, args.image_root),
+                              data.eval_resize_to) if args.val_csv else None)
+    trainer = run_train(
+        cfg, make_source(train_manifest), val_source, save_dir=args.save_dir,
+        device=device, epochs=args.epochs, batch_size=args.batch_size,
+        seed=args.seed, profile=args.profile,
+        pretrained=(load_pretrained_backbone(args.pretrained)
+                    if args.pretrained else None),
+        resume=args.resume, auto_resume=args.auto_resume)
+    print(json.dumps({"run_dir": trainer.run_dir,
+                      "final": trainer.history[-1] if trainer.history
+                      else {}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -11,7 +11,10 @@
 // Epilogues, in f32, rounded to bf16 at the store:
 //   EPI_QKV:  acc + bias, times qscale on the first qcols columns (K4 folds
 //             the softmax scale and log2(e) into q there; K1 passes 0);
-//   EPI_PROJ: (acc + bias) * gamma (when given) + resid.
+//   EPI_PROJ: (acc + bias) * gamma (when given) + resid;
+//   EPI_QKV_TRAIN: acc + bias to `out` unscaled on every column, and
+//             (acc + bias) * qscale on the first qcols columns to `out2`
+//             ((M, qcols), K9a's scaled-q copy), both rounded once from f32.
 
 #pragma once
 
@@ -35,7 +38,7 @@ constexpr int A_PAD = 8;           // bf16 elements of row padding in smem
 constexpr int B_LD = GEMM_BN + 8;
 constexpr int C_LD = GEMM_BN + 4;
 
-enum { EPI_QKV = 0, EPI_PROJ = 1 };
+enum { EPI_QKV = 0, EPI_PROJ = 1, EPI_QKV_TRAIN = 2 };
 
 __host__ __device__ inline size_t gemm_smem_bytes(int K) {
   return (size_t)GEMM_BM * (K + A_PAD) * sizeof(bf16) +
@@ -59,7 +62,8 @@ gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
             const float* __restrict__ ln_bias, float eps,
             const float* __restrict__ gamma,
             const bf16* __restrict__ resid, bf16* __restrict__ out,
-            int M, int K, int Nc, float qscale, int qcols) {
+            int M, int K, int Nc, float qscale, int qcols,
+            bf16* __restrict__ out2 = nullptr) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int lda = K + A_PAD;
   bf16* As = reinterpret_cast<bf16*>(smem);
@@ -162,6 +166,8 @@ gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
     const int col = n0 + c;
     if (row >= M || col >= Nc) continue;
     float v = Cs[r * C_LD + c] + bias[col];
+    if (kEpi == EPI_QKV_TRAIN && col < qcols)
+      out2[(size_t)row * qcols + col] = __float2bfloat16(v * qscale);
     if (kEpi == EPI_QKV && col < qcols) v *= qscale;
     if (kEpi == EPI_PROJ) {
       if (gamma) v *= gamma[col];

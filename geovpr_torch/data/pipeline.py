@@ -93,13 +93,20 @@ class ImageFolderSource:
         return {"image": np.stack(imgs), "target": self.targets[idx]}
 
 
-def iterate_batches(source, batch_size: int) -> Iterator[dict]:
-    """Yield static-shape batches in order; the final partial batch is padded
-    by repeating its last row, `mask` marks the real rows and `_indices`
-    holds their source indices."""
+def iterate_batches(source, batch_size: int, shuffle: bool = False,
+                    seed: int = 0, epoch: int = 0,
+                    drop_remainder: bool = False) -> Iterator[dict]:
+    """Yield static-shape batches, in order or (`shuffle`) in the order of
+    numpy's `default_rng(seed + epoch)`, the JAX package's exactly; the
+    final partial batch is dropped (`drop_remainder`) or padded by
+    repeating its last row, `mask` marks the real rows and `_indices` holds
+    their source indices."""
     n = len(source)
     order = np.arange(n)
-    for start in range(0, n, batch_size):
+    if shuffle:
+        np.random.default_rng(seed + epoch).shuffle(order)
+    stop = (n // batch_size) * batch_size if drop_remainder else n
+    for start in range(0, stop, batch_size):
         idx = order[start:start + batch_size]
         valid = idx.shape[0]
         if valid < batch_size:

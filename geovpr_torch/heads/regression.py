@@ -8,6 +8,8 @@
 Submodule names follow the flax tree (`hidden0`, `out`), so the weight
 bridge maps `head/hidden0/kernel` to `head.hidden0.weight`. Heads hold f32
 weights, compute in f32 and emit f32 whatever the backbone's dtype.
+In training mode the dropouts have flax's semantics and draw from the
+generator `geovpr_torch.models.layers.set_rng` gives them.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from geovpr_torch.models.layers import normalize_l2
+from geovpr_torch.models.layers import Dropout, normalize_l2
 
 
 class LinearHead(nn.Module):
@@ -37,7 +39,7 @@ class MlpHead(nn.Module):
         for i in range(num_hidden_layers):
             self.add_module(f"hidden{i}", nn.Linear(dims[i], hidden,
                                                     device=device))
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         self.out = nn.Linear(dims[-1], out_dim, device=device)
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:
@@ -52,7 +54,7 @@ class SinCosHead(nn.Module):
                  unit_normalize: bool = False, hidden: int = 0, device=None):
         super().__init__()
         self.unit_normalize = unit_normalize
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         self.hidden0 = (nn.Linear(in_dim, hidden, device=device) if hidden
                         else None)
         self.out = nn.Linear(hidden or in_dim, 2, device=device)

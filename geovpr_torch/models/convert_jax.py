@@ -26,6 +26,9 @@ The inverse of `geovpr/models/convert_torch.py`'s layouts:
 
 `load_flax_msgpack` reads the `.msgpack` file `geovpr.cli.retrieve
 --variables` reads (flax's `msgpack_serialize` format) without flax or jax.
+`optimizer_state_from_flax` carries optax's Adam state (`mu`, `nu`,
+`count`, `lr_scale`) across to the port's `train.optimizer.Optimizer`,
+the moments through the same name and layout map as the parameters.
 """
 
 from __future__ import annotations
@@ -162,3 +165,58 @@ def load_flax_msgpack(path: str) -> dict:
     with open(path, "rb") as f:
         tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
     return _unchunk(tree)
+
+
+def _adam_states(tree) -> list:
+    """Every node of an optax state tree (numpy leaves; namedtuples, or
+    the dicts flax's `to_state_dict` makes of them) that holds Adam's
+    `count`, `mu` and `nu`."""
+    def field(node, name):
+        if isinstance(node, Mapping):
+            return node.get(name)
+        return getattr(node, name, None)
+
+    if all(field(tree, k) is not None for k in ("count", "mu", "nu")):
+        return [tree]
+    if isinstance(tree, Mapping):
+        children = tree.values()
+    elif isinstance(tree, (tuple, list)):
+        children = tree
+    else:
+        return []
+    return [s for c in children for s in _adam_states(c)]
+
+
+def _arrays_only(tree):
+    """A moment tree without optax's masked-out (non-array) leaves."""
+    if isinstance(tree, Mapping):
+        out = {k: _arrays_only(v) for k, v in tree.items()}
+        return {k: v for k, v in out.items()
+                if v is not None and not (isinstance(v, dict) and not v)}
+    return tree if isinstance(tree, np.ndarray) or np.isscalar(tree) \
+        else None
+
+
+def optimizer_state_from_flax(opt_state) -> dict:
+    """optax's state of `geovpr.train.optimizer.build_optimizer` (numpy
+    leaves) -> the port's `Optimizer.state_dict()`: mu and nu of every
+    trained parameter under the port's names (the per-label Adam states of
+    a multi-transform merged), the count and lr_scale. The params tree is
+    RegressionModel's, so names start with `backbone.` / `head.`."""
+    states = _adam_states(opt_state["inner"] if isinstance(opt_state, Mapping)
+                          else opt_state)
+    if not states:
+        raise ValueError("no Adam state (count, mu, nu) in the optax state")
+    mu, nu = {}, {}
+
+    def field(node, name):
+        return node[name] if isinstance(node, Mapping) else getattr(node,
+                                                                    name)
+
+    for s in states:
+        mu.update(state_dict_from_flax(_arrays_only(field(s, "mu"))))
+        nu.update(state_dict_from_flax(_arrays_only(field(s, "nu"))))
+    lr_scale = (opt_state["lr_scale"] if isinstance(opt_state, Mapping)
+                else 1.0)
+    return {"mu": mu, "nu": nu, "count": int(field(states[0], "count")),
+            "lr_scale": float(np.asarray(lr_scale))}

@@ -39,19 +39,60 @@ def normalize_l2(x: torch.Tensor, dim: int = -1,
 
 class DropPath(nn.Module):
     """Stochastic depth: drops the whole residual branch per sample in
-    training; identity at eval or rate 0."""
+    training, keeping it scaled by 1/keep (`geovpr.models.layers.DropPath`:
+    `where(mask, x / keep, 0)`); identity at eval or rate 0. Draws from
+    `self.generator`, which the training step sets (`set_rng`) from (seed,
+    step); a caller that sets none draws from torch's default generator."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.generator: torch.Generator | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device) < keep
+        mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
+                          generator=self.generator, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout` semantics: each element kept with probability
+    1 - rate and scaled by 1/keep, all zeros at rate 1; identity at eval or
+    rate 0. Draws from `self.generator`, as DropPath."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_rng(model: nn.Module, generator: torch.Generator | None) -> None:
+    """Point every DropPath and Dropout of `model` at `generator`; they
+    draw from it in forward order."""
+    for m in model.modules():
+        if isinstance(m, (DropPath, Dropout)):
+            m.generator = generator
+
+
+def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """`layer(x)` in x's dtype: a layer held in f32 for training computes
+    with its weight and bias cast to the compute dtype, as a flax Dense with
+    `dtype` does; a serving layer in x's dtype is called unchanged."""
+    w, b = layer.weight, layer.bias
+    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
 
 
 class LayerNorm(nn.Module):
@@ -209,10 +250,10 @@ class Mlp(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.calib is not None:
             amax_into(self.calib, "a_in", x)
-        h = gelu_fast(self.fc1(x))
+        h = gelu_fast(linear(x, self.fc1))
         if self.calib is not None:
             amax_into(self.calib, "a_mid", h)
-        return self.fc2(h)
+        return linear(h, self.fc2)
 
     def quant_state(self, amax: dict) -> dict:
         """The JAX "quant" entries of this Mlp from its calibration amaxes

@@ -41,13 +41,43 @@ def check_int8_serving(cfg: ModelConfig) -> None:
                 "attention)")
 
 
+def check_training(cfg: ModelConfig) -> None:
+    """The one rule for whether the port trains `cfg`: Swin at window 12,
+    whose attention halves have the training kernels K9a-K9c.
+    NotImplementedError, naming the ROADMAP item, for the rest."""
+    family = cfg.family
+    if family == "swin":
+        from geovpr_torch.models.swin import SWIN_VARIANTS
+        from geovpr_torch.ops.swin_block import fused_window_ok
+        window = SWIN_VARIANTS.get(cfg.variant, {}).get("window_size")
+        if window is not None and not fused_window_ok(window):
+            raise NotImplementedError(
+                f"training Swin at window {window} is not ported yet (ROADMAP "
+                "Queue 1 item 10: K7 has no backward yet)")
+        return
+    item = {"dinov2": "the DINOv2 training kernels K8a-K8c",
+            "dinov2_salad": "the DINOv2 training kernels K8a-K8c",
+            "efficientnet": "BatchNorm in training mode",
+            "convnext": "ConvNeXt training"}.get(family)
+    if item is None:
+        raise ValueError(f"unknown model family {family!r}")
+    raise NotImplementedError(
+        f"training {family} is not ported yet (ROADMAP Queue 1 item 10: "
+        f"{item})")
+
+
 def build_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32, *,
-                   int8: bool = False, device=None):
+                   int8: bool = False, device=None, train: bool = False):
     """`int8` builds the w8a8 serving model (to be calibrated before use),
-    where `check_int8_serving` allows it and raises otherwise."""
+    where `check_int8_serving` allows it and raises otherwise. `train`
+    builds the training model, parameters held in f32 and cast to `dtype`
+    in the forward, where `check_training` allows it and raises
+    otherwise."""
     family = cfg.family
     if int8:
         check_int8_serving(cfg)
+    if train:
+        check_training(cfg)
     kw = dict(dtype=dtype, device=device, int8_attn=int8, int8_mlp=int8)
     if family == "efficientnet":
         from geovpr_torch.models.efficientnet import EfficientNetB0
@@ -70,7 +100,10 @@ def build_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32, *,
                 f"swin variant {cfg.variant!r} is fixed at "
                 f"{spec['image_size']}px (window partitioning); got "
                 f"image_size={cfg.image_size}")
-        return SwinTransformer(**spec, **kw)
+        if train:   # JAX's SwinTransformer default (`swin.py:843`)
+            spec = {"drop_path_rate": 0.1, **spec}
+        return SwinTransformer(**spec, **kw, param_dtype=(
+            torch.float32 if train else None))
     if family == "dinov2":
         from geovpr_torch.models.dinov2 import DINOV2_VARIANTS, DinoV2
         if cfg.variant not in DINOV2_VARIANTS:

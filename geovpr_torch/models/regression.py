@@ -7,7 +7,9 @@ ConvNeXt, CLS for DINOv2), "mean" the f32
 mean over the full last hidden state (CLS included for ViTs), "cls" the CLS
 token; the SALAD descriptor is always the feature of `dinov2_salad`.
 Submodules are `backbone` and `head`, as in the flax tree. The head holds
-f32 weights and emits f32.
+f32 weights and emits f32. `train=True` builds the training model
+(`registry.check_training`): the backbone's parameters in f32, cast to
+the compute dtype in the forward.
 """
 
 from __future__ import annotations
@@ -34,11 +36,11 @@ def feature_dim(backbone: nn.Module, family: str) -> int:
 class RegressionModel(nn.Module):
     def __init__(self, config: ModelConfig,
                  dtype: torch.dtype = torch.float32, int8: bool = False,
-                 device=None):
+                 device=None, train: bool = False):
         super().__init__()
         self.config = config
         self.backbone = build_backbone(config, dtype, int8=int8,
-                                       device=device)
+                                       device=device, train=train)
         self.head = build_head(config.head,
                                feature_dim(self.backbone, config.family),
                                config.out_dim, hidden=config.head_hidden,

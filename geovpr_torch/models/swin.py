@@ -1,4 +1,4 @@
-"""Swin Transformer backbone, serving forward (the port of
+"""Swin Transformer backbone, serving and training forward (the port of
 `geovpr.models.swin`, NHWC input).
 
 Architecture (HF `SwinModel`): patch embed conv k4/s4 -> LayerNorm; per
@@ -34,21 +34,38 @@ any device. The patch-embed conv, the bf16 MLP half and the LayerNorms
 outside the kernels are plain torch ops, as the JAX package leaves them to
 XLA. Calibration (`calib` dicts, set by `geovpr_torch.models.quantize`)
 runs the unfused float attention, as the JAX calibration pass does.
+
+Training (grad enabled, window 12): each block's attention half is
+`geovpr_torch.ops.swin_block.fused_swin_attn_train` (K9a forward, K9c or
+K9b backward), y = proj(W-MSA(LN(x))) with the residual and DropPath added
+outside, as JAX's train path does (`swin.py:554-558`); the MLP half and
+the LayerNorms are torch ops under autograd, and the stage boundaries run
+the plain PatchMerging (JAX trains on XLA's LN + Dense there; K6 is
+forward only). DropPath rates rise linearly from 0 to `drop_path_rate`
+over the blocks (`swin.py:875`); the training build passes JAX's 0.1
+(`swin.py:843`), a serving build has none. A training build holds its
+parameters in `param_dtype` (f32) and casts them to the compute dtype in
+the forward, as flax keeps f32 params and computes in `dtype`; a serving
+build has `param_dtype = dtype`, so its casts are no-ops.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from geovpr_torch.models.backbone import BackboneOutput
-from geovpr_torch.models.layers import LayerNorm, Mlp, QuantBlock, lecun_normal_
+from geovpr_torch.models.layers import (DropPath, LayerNorm, Mlp, QuantBlock,
+                                        lecun_normal_)
 from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
                                        mlp_block_int8_reference)
 from geovpr_torch.ops.patch_merge import (fused_patch_merge,
                                           patch_merge_reference)
 from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
                                          fused_swin_attn_block_int8,
+                                         fused_swin_attn_train,
                                          fused_window_ok,
                                          swin_attn_block_int8_reference,
                                          swin_attn_block_reference,
@@ -107,11 +124,13 @@ class SwinBlock(QuantBlock):
     def __init__(self, dim: int, num_heads: int, resolution: int,
                  window: int, shift: int, use_kernels: bool = True,
                  dtype: torch.dtype = torch.float32, device=None,
-                 int8_attn: bool = False, int8_mlp: bool = False):
+                 int8_attn: bool = False, int8_mlp: bool = False,
+                 drop_path: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.resolution, self.window, self.shift = resolution, window, shift
         self.use_kernels = use_kernels
+        self.drop_path = DropPath(drop_path)
         self.norm1 = LayerNorm(dim, LN_EPS, device=device)
         self.attn = SwinAttention(dim, num_heads, window, dtype, device)
         self.norm2 = LayerNorm(dim, LN_EPS, device=device)
@@ -143,11 +162,15 @@ class SwinBlock(QuantBlock):
                     else swin_attn_block_int8_reference)
             x = attn(x, **self._folded_args(self._k5), table=table, **geom)
         else:
+            dt = x.dtype
             args = (x, self.norm1.weight, self.norm1.bias,
-                    self.attn.qkv_weight, self.attn.qkv_bias,
-                    self.attn.proj_weight, self.attn.proj_bias, table)
+                    self.attn.qkv_weight.to(dt), self.attn.qkv_bias,
+                    self.attn.proj_weight.to(dt), self.attn.proj_bias, table)
             if calibrating:
                 x = swin_attn_block_unfused(*args, **geom, calib=self.calib)
+            elif torch.is_grad_enabled() and fused_window_ok(self.window):
+                x = x + self.drop_path(fused_swin_attn_train(
+                    *args, **geom, kernels=self.use_kernels))
             elif fused_window_ok(self.window):
                 attn = (fused_swin_attn_block if self.use_kernels
                         else swin_attn_block_reference)
@@ -160,7 +183,7 @@ class SwinBlock(QuantBlock):
             mlp = (fused_mlp_block_int8 if self.use_kernels
                    else mlp_block_int8_reference)
             return mlp(x, **self._folded_args(self._k3), ln_eps=LN_EPS)
-        return x + self.mlp(self.norm2(x))
+        return x + self.drop_path(self.mlp(self.norm2(x)))
 
 
 class PatchMerging(nn.Module):
@@ -182,10 +205,13 @@ class PatchMerging(nn.Module):
                       generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        merge = fused_patch_merge if self.use_kernels else \
-            patch_merge_reference
+        """K6 on the serving path; the plain version under grad (K6 is
+        forward only, and JAX trains on XLA's LN + Dense here)."""
+        merge = (fused_patch_merge if self.use_kernels
+                 and not torch.is_grad_enabled() else patch_merge_reference)
         return merge(x, self.norm.weight, self.norm.bias,
-                     self.reduction_weight, self.resolution, LN_EPS)
+                     self.reduction_weight.to(x.dtype), self.resolution,
+                     LN_EPS)
 
 
 class SwinTransformer(nn.Module):
@@ -198,18 +224,23 @@ class SwinTransformer(nn.Module):
                  image_size: int = 384, patch_size: int = 4,
                  use_kernels: bool = True,
                  dtype: torch.dtype = torch.float32, device=None,
-                 int8_attn: bool = False, int8_mlp: bool = False):
+                 int8_attn: bool = False, int8_mlp: bool = False,
+                 drop_path_rate: float = 0.0,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
+        pdt = param_dtype or dtype
         res = image_size // patch_size
         if res % window_size:
             raise ValueError(
                 f"patch grid {res} not divisible by window {window_size}")
+        self.patch_size = patch_size
         self.patch_embed = nn.Conv2d(3, embed_dim, patch_size,
-                                     stride=patch_size, dtype=dtype,
+                                     stride=patch_size, dtype=pdt,
                                      device=device)
         self.embed_norm = LayerNorm(embed_dim, LN_EPS, device=device)
         self.layers: list[str] = []
+        dprates = np.linspace(0, drop_path_rate, sum(depths))
         dim = embed_dim
         for s, depth in enumerate(depths):
             win = min(window_size, res)
@@ -218,13 +249,14 @@ class SwinTransformer(nn.Module):
                     else window_size // 2
                 name = f"stage{s}_block{i}"
                 self.add_module(name, SwinBlock(
-                    dim, num_heads[s], res, win, shift, use_kernels, dtype,
-                    device, int8_attn=int8_attn, int8_mlp=int8_mlp))
+                    dim, num_heads[s], res, win, shift, use_kernels, pdt,
+                    device, int8_attn=int8_attn, int8_mlp=int8_mlp,
+                    drop_path=float(dprates[sum(depths[:s]) + i])))
                 self.layers.append(name)
             if s < len(depths) - 1:
                 name = f"stage{s}_downsample"
                 self.add_module(name, PatchMerging(dim, res, use_kernels,
-                                                   dtype, device))
+                                                   pdt, device))
                 self.layers.append(name)
                 dim *= 2
                 res //= 2
@@ -239,7 +271,9 @@ class SwinTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> BackboneOutput:
         """x: (B, H, W, 3) NHWC images."""
-        x = self.patch_embed(x.to(self.dtype).permute(0, 3, 1, 2))
+        conv, dt = self.patch_embed, self.dtype
+        x = F.conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt),
+                     conv.bias.to(dt), stride=self.patch_size)
         x = self.embed_norm(x.flatten(2).transpose(1, 2).contiguous())
         for name in self.layers:
             x = getattr(self, name)(x)

@@ -1,5 +1,5 @@
-"""Serving metrics (the port of the metric half of
-`geovpr.objectives.losses`): masked means over the valid rows of a batch.
+"""Losses and metrics (the port of `geovpr.objectives.losses`): masked
+means over the valid rows of a batch.
 
 - MSE, RMSE, MAE and per-axis MAE (`swin_attempt_2.py:216-220`,
   `validation_swin_2.py:191-195`);
@@ -8,8 +8,10 @@
 - the circular angle error and its mean, MAAE
   (`efficientnet_finetuning.py:66-68`).
 
-The training losses (Huber, the acos angle loss) come with the training
-slice.
+Training losses: MSE (`swin_finetuning.py:89`), Huber with torch
+`HuberLoss` semantics (`swin_attempt_2.py:158`), MAAE as a loss
+(`efficientnet_finetuning.py:66-68`) and the acos angle loss in degrees
+(`swin_angle_finetuning_sin_cos.py:65-69`).
 
 `mask` is an optional (B,) bool tensor; padded rows never contribute.
 """
@@ -33,6 +35,25 @@ def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
 def mse_loss(pred: torch.Tensor, target: torch.Tensor,
              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     return _masked_mean((pred - target) ** 2, mask)
+
+
+def huber_loss(pred: torch.Tensor, target: torch.Tensor, delta: float = 1.0,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """0.5 d^2 where |d| < delta, else delta (|d| - 0.5 delta), masked mean
+    over the valid elements."""
+    d = torch.abs(pred - target)
+    return _masked_mean(torch.where(d < delta, 0.5 * d * d,
+                                    delta * (d - 0.5 * delta)), mask)
+
+
+def acos_angular_loss_deg(pred_unit: torch.Tensor, target_unit: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          eps: float = 1e-7) -> torch.Tensor:
+    """Mean geodesic angle in degrees between unit sin/cos vectors:
+    acos of their dot product clamped to [-1 + eps, 1 - eps]."""
+    dot = torch.clamp(torch.sum(pred_unit * target_unit, dim=-1),
+                      -1.0 + eps, 1.0 - eps)
+    return _masked_mean(torch.rad2deg(torch.arccos(dot)), mask)
 
 
 def competition_loss(pred_latlon: torch.Tensor, true_latlon: torch.Tensor,

@@ -18,6 +18,9 @@ class ScalerState(NamedTuple):
     mean: torch.Tensor   # (D,) f32
     scale: torch.Tensor  # (D,) f32, std with ddof=0, zeros replaced by 1.0
 
+    def transform(self, x: torch.Tensor) -> torch.Tensor:
+        return (x - self.mean) / self.scale
+
     def inverse_transform(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.scale + self.mean
 
@@ -30,6 +33,16 @@ def scaler_from_arrays(mean, scale) -> ScalerState:
     file), held as f32 tensors."""
     return ScalerState(torch.from_numpy(np.asarray(mean, np.float32).copy()),
                        torch.from_numpy(np.asarray(scale, np.float32).copy()))
+
+
+def fit_scaler(x) -> ScalerState:
+    """Fit on (N, D) f32 training targets: mean and std with ddof 0, a zero
+    std replaced by 1.0 (`geovpr/objectives/scaler.py:33-41`). The sums run
+    in f64 and the statistics are returned in f32, so a constant column
+    gives exactly 0 and then 1.0, as sklearn's does."""
+    x = np.asarray(x, np.float32).astype(np.float64)
+    mean, std = x.mean(axis=0), x.std(axis=0)
+    return scaler_from_arrays(mean, np.where(std == 0.0, 1.0, std))
 
 
 def identity_scaler(dim: int) -> ScalerState:

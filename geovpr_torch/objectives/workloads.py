@@ -1,6 +1,6 @@
-"""The objectives' serving half (the port of
-`geovpr.objectives.workloads`: decode, metrics and the monitored metric;
-the training losses come with the training slice).
+"""Workload objectives (the port of `geovpr.objectives.workloads`):
+target encoding, training loss, flip remapping of targets, decoding,
+metrics and the monitored metric.
 
 | Objective            | Reference recipe                                      |
 |----------------------|-------------------------------------------------------|
@@ -16,15 +16,45 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from geovpr_torch.objectives.angle_codec import SinCosCodec, wrap_degrees
-from geovpr_torch.objectives.losses import (angular_error_deg,
-                                            geopose_metrics, maae_deg)
+from geovpr_torch.objectives.losses import (acos_angular_loss_deg,
+                                            angular_error_deg,
+                                            geopose_metrics, huber_loss,
+                                            maae_deg, mse_loss)
 from geovpr_torch.objectives.scaler import ScalerState
+
+
+def _flip_heading(targets, flip):
+    """A horizontal flip mirrors a heading: theta -> (180 - theta) mod 360,
+    with the same flip decision that transformed the image."""
+    flip = flip.reshape(flip.shape + (1,) * (targets.dim() - flip.dim()))
+    return torch.where(flip, torch.remainder(180.0 - targets, 360.0),
+                       targets)
 
 
 @dataclasses.dataclass(frozen=True)
 class GeoposeObjective:
-    """(lat, lon) regression with the StandardScaler target codec."""
+    """(lat, lon) regression with the StandardScaler target codec; Huber
+    (delta `huber_delta`) or MSE on the scaled targets."""
+
+    loss_name: str = "huber"
+    huber_delta: float = 1.0
+    out_dim: int = 2
+
+    def encode_targets(self, latlon, scaler: ScalerState):
+        return scaler.transform(latlon)
+
+    def loss(self, preds, enc_targets, mask=None):
+        if self.loss_name == "huber":
+            return huber_loss(preds, enc_targets, self.huber_delta, mask)
+        if self.loss_name == "mse":
+            return mse_loss(preds, enc_targets, mask)
+        raise ValueError(self.loss_name)
+
+    def remap_flip(self, targets, flip):
+        return targets   # a flip does not move the camera
 
     def decode_predictions(self, preds, scaler: ScalerState):
         return scaler.inverse_transform(preds)
@@ -32,10 +62,24 @@ class GeoposeObjective:
     def metrics(self, decoded, raw_targets, mask=None):
         return geopose_metrics(decoded, raw_targets, mask)
 
+    monitor = "mse"
+
 
 @dataclasses.dataclass(frozen=True)
 class AngleDirectObjective:
-    """Direct scalar-degree regression; predictions wrapped % 360."""
+    """Direct scalar-degree regression, the circular MAAE as the loss;
+    predictions wrapped % 360."""
+
+    out_dim: int = 1
+
+    def encode_targets(self, angle_deg, scaler=None):
+        return angle_deg.reshape(-1, 1)
+
+    def loss(self, preds, enc_targets, mask=None):
+        return maae_deg(wrap_degrees(preds[:, 0]), enc_targets[:, 0], mask)
+
+    def remap_flip(self, targets, flip):
+        return _flip_heading(targets, flip)
 
     def decode_predictions(self, preds, scaler=None):
         return wrap_degrees(preds[:, 0])
@@ -48,9 +92,27 @@ class AngleDirectObjective:
 
 @dataclasses.dataclass(frozen=True)
 class AngleSinCosObjective:
-    """sin/cos-encoded angle regression, decoded by the codec's order."""
+    """sin/cos-encoded angle regression, decoded by the codec's order; MSE
+    on the encoded pair, or ("acos") the geodesic loss of the unit-
+    normalised prediction."""
 
+    loss_name: str = "mse"
     codec: SinCosCodec = SinCosCodec("cos_sin")
+    out_dim: int = 2
+
+    def encode_targets(self, angle_deg, scaler=None):
+        return self.codec.encode(angle_deg)
+
+    def loss(self, preds, enc_targets, mask=None):
+        if self.loss_name == "mse":
+            return mse_loss(preds, enc_targets, mask)
+        if self.loss_name == "acos":
+            return acos_angular_loss_deg(self.codec.normalize(preds),
+                                         enc_targets, mask)
+        raise ValueError(self.loss_name)
+
+    def remap_flip(self, targets, flip):
+        return _flip_heading(targets, flip)
 
     def decode_predictions(self, preds, scaler=None):
         return self.codec.decode(preds)

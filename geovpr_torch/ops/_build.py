@@ -114,6 +114,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         "geovpr_patch_merge": [vp] * 5 + [ci] * 3 + [cf, vp],
         # K7 (window_attn.cu): 6 pointers, BW H N nW, qscale, stream
         "geovpr_window_attention": [vp] * 6 + [ci] * 4 + [cf, vp],
+        # K9a/K9b/K9c (swin_train.cu): pointers, B S C H win shift, floats,
+        # stream
+        "geovpr_swin_train_fwd": [vp] * 13 + [ci] * 6 + [cf, cf, vp],
+        "geovpr_swin_train_bwd_core": [vp] * 6 + [ci] * 6 + [cf, vp],
+        "geovpr_swin_train_bwd_all": [vp] * 22 + [ci] * 6 + [cf, cf, vp],
+        "geovpr_swin_train_scratch_floats": [ci] * 5,
+        "geovpr_swin_train_init": [],
         "geovpr_mhsa_max_dim": [],
         "geovpr_mhsa_init": [],
         "geovpr_mhsa_int8_init": [],
@@ -125,6 +132,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ci
+    # the one entry that returns a size, not a cudaError_t
+    lib.geovpr_swin_train_scratch_floats.restype = ctypes.c_longlong
 
 
 @functools.lru_cache(maxsize=None)

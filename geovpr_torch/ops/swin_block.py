@@ -1,5 +1,6 @@
 """Fused Swin attention half-blocks and their plain versions: kernel K4
-(bf16) and kernel K5 (w8a8).
+(bf16) and kernel K5 (w8a8) for serving, and the training half-block's
+kernels K9a (forward), K9b and K9c (backward) below.
 
     out = x + proj(W-MSA(LN(x)) + relative-position bias [+ shift mask])
 
@@ -25,8 +26,10 @@ plain versions, which round where the JAX kernels round (`_kernel`,
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from geovpr_torch.ops.quant import (check_devices, check_int8_kernel_args,
@@ -34,6 +37,7 @@ from geovpr_torch.ops.quant import (check_devices, check_int8_kernel_args,
                                     round_clip_int8)
 from geovpr_torch.ops.window_attention import (add_bias_mask, from_windows,
                                                relative_position_bias,
+                                               relative_position_index,
                                                shift_mask, to_windows,
                                                window_attention)
 
@@ -215,8 +219,9 @@ def fused_swin_attn_block(x: torch.Tensor, ln_scale: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad for t in
                                        (x, *got.values())):
         raise RuntimeError(
-            "fused_swin_attn_block has no backward kernel yet (K9 in ROADMAP "
-            "Queue 2); run the forward under torch.inference_mode()")
+            "fused_swin_attn_block (K4) is the serving half-block and has no "
+            "backward; under grad the block runs fused_swin_attn_train (K9), "
+            "or run this forward under torch.inference_mode()")
     for name, t in (("x", x), ("wqkv", wqkv), ("wo", wo)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name} must be bfloat16 on CUDA, got {t.dtype}")
@@ -383,3 +388,476 @@ def fused_swin_attn_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
 
 
 fused_swin_attn_block_int8.launches = 0
+
+
+# ------------------------------------------------------------ K9a/b/c ----
+#
+# The training half-block, y = proj(W-MSA(LN(x))) with no residual (the
+# caller adds DropPath and the residual), and its structured backward: the
+# port of `fused_swin_attn_train` (`pallas_swin_block.py:1400-1486`), its
+# forward kernel `_swin_train_fwd_pallas` (K9a), the attention-core
+# backward `_swin_attn_bwd_pallas` (K9b) and the all-in-one backward
+# `_swin_attn_bwd_all_pallas` (K9c). The plain versions keep JAX's window
+# form, (BW, N, C) windows with an (H, N, N) bias and an (nW, N, N) mask,
+# and its rounding points (`_train_kernel`, `_train_bwd_kernel`,
+# `_train_bwd_all_kernel`); the wrappers take the raster stream as K4 does,
+# so the shifted blocks' partition and its inverse (JAX's `repartition` and
+# `roll_relayout`, K10b) are the kernels' row addressing. On CUDA the
+# residuals are qkv and ctx in raster order and p (BW, H, N, N).
+
+_TRAIN_WINDOW = 12          # the training kernels take N = 144
+
+
+def _heads(t, num_heads):
+    """(BW, N, H * dh) -> (BW, H, N, dh)."""
+    bw, n, c = t.shape
+    return t.reshape(bw, n, num_heads, c // num_heads).transpose(1, 2)
+
+
+def _unheads(t):
+    """(BW, H, N, dh) -> (BW * N, H * dh)."""
+    bw, h, n, dh = t.shape
+    return t.transpose(1, 2).reshape(bw * n, h * dh)
+
+
+def swin_attn_train_reference(xw, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                              bias, mask, num_heads: int,
+                              ln_eps: float = 1e-5):
+    """Plain K9a on windows: xw (BW, N, C), bias (H, N, N) and mask (nW, N,
+    N) | None in the natural-log domain. Returns y (BW, N, C) and the
+    residuals qkv (BW*N, 3C, post-bias, unscaled), ctx (BW*N, C) and the
+    normalised probabilities p (BW, H, N, N), all in xw.dtype, rounded where
+    `_train_kernel` rounds: the LN output, qkv, the scaled q (from the f32
+    qkv), p after its normalisation by the reciprocal row sum, ctx, y."""
+    bw, n, c = xw.shape
+    dt = xw.dtype
+    h = (layer_norm_f32(xw.float().reshape(bw * n, c), ln_eps)
+         * ln_scale.float() + ln_bias.float()).to(dt)
+    qkvf = _mm(h, wqkv) + bqkv.float()
+    srow = torch.ones(3 * c, device=xw.device)
+    srow[:c] = (c // num_heads) ** -0.5 * LOG2E
+    qs = (qkvf * srow).to(dt).reshape(bw, n, 3 * c)
+    q, k, v = (_heads(t, num_heads) for t in qs.split(c, dim=-1))
+    s = add_bias_mask(_mm(q, k.transpose(-1, -2)), bias.float() * LOG2E,
+                      None if mask is None else mask.float() * LOG2E)
+    p = torch.exp2(torch.clamp(s, max=100.0))
+    p = (p * (1.0 / p.sum(-1, keepdim=True))).to(dt)
+    ctx = _unheads(_mm(p, v)).to(dt)
+    y = (_mm(ctx, wo) + bo.float()).to(dt)
+    return y.reshape(bw, n, c), qkvf.to(dt), ctx, p
+
+
+def swin_attn_core_bwd_reference(qkv, p, da, num_heads: int):
+    """Plain K9b: qkv (BW*N, 3C), p (BW, H, N, N), da (BW*N, C) in window
+    order -> dqkv (BW*N, 3C) in qkv.dtype and dbias (H, N, N) f32, rounded
+    as `_train_bwd_kernel`: ds * dh^-0.5 to the stream dtype before dq and
+    dk, dq, dk, dv each once."""
+    bw, _, n, _ = p.shape
+    c = da.shape[-1]
+    dt = qkv.dtype
+    scale = (c // num_heads) ** -0.5
+    q, k, v = (_heads(t.reshape(bw, n, c), num_heads)
+               for t in qkv.split(c, dim=-1))
+    dah = _heads(da.reshape(bw, n, c), num_heads)
+    pf = p.float()
+    dp = _mm(dah, v.transpose(-1, -2))
+    ds = pf * (dp - (dp * pf).sum(-1, keepdim=True))
+    dsb = (ds * scale).to(dt)
+    dq = _mm(dsb, k).to(dt)
+    dk = _mm(dsb.transpose(-1, -2), q).to(dt)
+    dv = _mm(p.transpose(-1, -2), dah).to(dt)
+    dqkv = torch.cat([_unheads(dq), _unheads(dk), _unheads(dv)], dim=-1)
+    return dqkv, ds.sum(0)
+
+
+def _ln_parts(x2d, ln_scale, ln_bias, ln_eps, dt):
+    """f32 xhat, 1/std and the LN output rounded to dt."""
+    xf = x2d.float()
+    mu = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((xf - mu) ** 2).mean(-1, keepdim=True) + ln_eps)
+    xhat = (xf - mu) * rstd
+    return xhat, rstd, (xhat * ln_scale.float() + ln_bias.float()).to(dt)
+
+
+def swin_attn_train_bwd_reference(xw, ln_scale, ln_bias, wqkv, wo, qkv, ctx,
+                                  p, g, num_heads: int,
+                                  ln_eps: float = 1e-5, split: bool = False):
+    """The plain structured backward from the saved tensors (window form,
+    as `swin_attn_train_reference` returns them; g (BW, N, C) the
+    cotangent of y). Returns dx (BW, N, C) in xw.dtype, dls, dlb (f32),
+    dwqkv, dwo (in the weights' dtype), dbqkv, dbo (f32) and dbias (H, N,
+    N) f32. `split=False` is the all-in-one form (`_train_bwd_all_kernel`:
+    the LN VJP written out); `split=True` the split form of the C > 512
+    blocks (`_train_bwd_core`: the LN VJP by autograd of the LN). Both round
+    da, the recomputed LN output, dqkv and dh to the stream dtype."""
+    bw, n, c = xw.shape
+    dt = xw.dtype
+    m = bw * n
+    gb = g.reshape(m, c).to(dt)
+    da = _mm(gb, wo.t()).to(dt)
+    dwo = _mm(ctx.t(), gb)
+    dbo = gb.float().sum(0)
+    dqkv, dbias = swin_attn_core_bwd_reference(qkv, p, da, num_heads)
+    x2d = xw.reshape(m, c)
+    if split:
+        with torch.enable_grad():
+            xs, ls, lb = (t.detach().requires_grad_() for t in
+                          (x2d, ln_scale, ln_bias))
+            h = _ln_parts(xs, ls, lb, ln_eps, dt)[2]
+            dh = _mm(dqkv, wqkv.t()).to(dt)
+            dx, dls, dlb = torch.autograd.grad(h, (xs, ls, lb), dh)
+        h = h.detach()
+    else:
+        xhat, rstd, h = _ln_parts(x2d, ln_scale, ln_bias, ln_eps, dt)
+        dhf = _mm(dqkv, wqkv.t()).to(dt).float()
+        dls = (dhf * xhat).sum(0)
+        dlb = dhf.sum(0)
+        dxhat = dhf * ln_scale.float()
+        dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                     - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    dwqkv = _mm(h.t(), dqkv)
+    dbqkv = dqkv.float().sum(0)
+    return (dx.to(dt).reshape(bw, n, c), dls.float(), dlb.float(),
+            dwqkv.to(wqkv.dtype), dbqkv, dwo.to(wo.dtype), dbo, dbias)
+
+
+def _raster_to_rows(t, resolution, window, shift):
+    """raster (B, L, W) -> window-order rows (BW*N, W)."""
+    return to_windows(t, resolution, window, shift).reshape(-1, t.shape[-1])
+
+
+def _rows_to_raster(t, resolution, window, shift):
+    n = window * window
+    return from_windows(t.reshape(-1, n, t.shape[-1]), resolution, window,
+                        shift)
+
+
+def _check_train_cuda(tensors: dict, c, num_heads, window):
+    """What the training kernels take on CUDA: bf16 stream, residuals and
+    matrices, f32 vectors and table, contiguous; head dim 32, window 12,
+    C a multiple of 64 up to 1024."""
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        want = (torch.float32 if name in ("ln_scale", "ln_bias", "bqkv",
+                                          "bo", "table") else torch.bfloat16)
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want} on CUDA, got {t.dtype}")
+    if (c // num_heads != _KERNEL_HEAD_DIM or window != _TRAIN_WINDOW
+            or c % 64 or c > 1024):
+        raise ValueError(
+            f"the training kernels take head dim {_KERNEL_HEAD_DIM}, window "
+            f"{_TRAIN_WINDOW} and C a multiple of 64 up to 1024, got C={c}, "
+            f"{num_heads} heads, window {window}")
+
+
+def _check_residuals(b, l, c, num_heads, resolution, window, shift,
+                     tensors: dict) -> None:
+    """The shapes of K9's residuals and gradients on a (B, L, C) stream
+    (raise ValueError on any other): x, ctx, g and da (B, L, C), qkv (B,
+    L, 3C), p (BW, H, N, N), the matrices and vectors of the block."""
+    _check_geometry(torch.empty(b, l, c, device="meta"), num_heads,
+                    resolution, window, shift)
+    n = window * window
+    want = {"x": (b, l, c), "ctx": (b, l, c), "g": (b, l, c),
+            "da": (b, l, c), "qkv": (b, l, 3 * c),
+            "p": (b * l // n, num_heads, n, n), "wqkv": (c, 3 * c),
+            "wo": (c, c), "ln_scale": (c,), "ln_bias": (c,)}
+    check_shapes({k: want[k] for k in tensors}, tensors)
+    first = next(iter(tensors.values()))
+    check_devices(first, tensors)
+
+
+def _train_lib(device):
+    from geovpr_torch.ops._build import library_on
+    return library_on(device.index, "geovpr_swin_train_init")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _train_plain_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, table,
+                     num_heads, resolution, window, shift, ln_eps):
+    xw = to_windows(x, resolution, window, shift)
+    y, qkv, ctx, p = swin_attn_train_reference(
+        xw, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+        relative_position_bias(table.float(), window),
+        shift_mask(resolution, window, shift, x.device), num_heads, ln_eps)
+    return (from_windows(y, resolution, window, shift),
+            _rows_to_raster(qkv, resolution, window, shift),
+            _rows_to_raster(ctx, resolution, window, shift), p)
+
+
+def fused_swin_attn_train_fwd(x: torch.Tensor, ln_scale: torch.Tensor,
+                              ln_bias: torch.Tensor, wqkv: torch.Tensor,
+                              bqkv: torch.Tensor, wo: torch.Tensor,
+                              bo: torch.Tensor, table: torch.Tensor,
+                              num_heads: int, resolution: int, window: int,
+                              shift: int, ln_eps: float = 1e-5):
+    """K9a on the raster stream: y (B, L, C), qkv (B, L, 3C), ctx (B, L, C)
+    and p (BW, H, N, N). CPU tensors run the plain version; CUDA tensors
+    launch K9a or raise."""
+    _check_geometry(x, num_heads, resolution, window, shift)
+    b, l, c = x.shape
+    got = {"ln_scale": ln_scale, "ln_bias": ln_bias, "wqkv": wqkv,
+           "bqkv": bqkv, "wo": wo, "bo": bo, "table": table}
+    check_shapes({"ln_scale": (c,), "ln_bias": (c,), "wqkv": (c, 3 * c),
+                  "bqkv": (3 * c,), "wo": (c, c), "bo": (c,),
+                  "table": ((2 * window - 1) ** 2, num_heads)}, got)
+    check_devices(x, got)
+    if x.device.type == "cpu":
+        return _train_plain_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                                table, num_heads, resolution, window, shift,
+                                ln_eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_train_cuda({"x": x, **got}, c, num_heads, window)
+    lib = _train_lib(x.device)
+    n = window * window
+    bw = b * l // n
+    qkv = torch.empty((b, l, 3 * c), dtype=x.dtype, device=x.device)
+    qs = torch.empty((b, l, c), dtype=x.dtype, device=x.device)
+    ctx = torch.empty_like(qs)
+    p = torch.empty((bw, num_heads, n, n), dtype=x.dtype, device=x.device)
+    y = torch.empty_like(x)
+    qscale = (c // num_heads) ** -0.5 * LOG2E
+    with torch.cuda.device(x.device):
+        rc = lib.geovpr_swin_train_fwd(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+            table.data_ptr(), qkv.data_ptr(), qs.data_ptr(), ctx.data_ptr(),
+            p.data_ptr(), y.data_ptr(), b, resolution, c, num_heads, window,
+            shift, float(ln_eps), float(qscale), _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"swin_train_fwd launch failed: CUDA error {rc}")
+    fused_swin_attn_train_fwd.launches += 1
+    return y, qkv, ctx, p
+
+
+fused_swin_attn_train_fwd.launches = 0
+
+
+def _train_scratch(lib, b, resolution, c, num_heads, window, device):
+    floats = lib.geovpr_swin_train_scratch_floats(b, resolution, c,
+                                                  num_heads, window)
+    return torch.empty(floats, dtype=torch.float32, device=device)
+
+
+def fused_swin_attn_bwd_core(qkv: torch.Tensor, p: torch.Tensor,
+                             da: torch.Tensor, num_heads: int,
+                             resolution: int, window: int, shift: int):
+    """K9b on raster residuals: qkv (B, L, 3C), p (BW, H, N, N), da (B, L,
+    C) -> dqkv (B, L, 3C), dbias (H, N, N) f32. CPU tensors run the plain
+    version; CUDA tensors launch K9b or raise."""
+    b, l, c3 = qkv.shape
+    c = c3 // 3
+    _check_residuals(b, l, c, num_heads, resolution, window, shift,
+                     {"qkv": qkv, "p": p, "da": da})
+    if qkv.device.type == "cpu":
+        dqkv, dbias = swin_attn_core_bwd_reference(
+            _raster_to_rows(qkv, resolution, window, shift), p,
+            _raster_to_rows(da, resolution, window, shift), num_heads)
+        return _rows_to_raster(dqkv, resolution, window, shift), dbias
+    if qkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qkv.device}")
+    _check_train_cuda({"qkv": qkv, "p": p, "da": da}, c, num_heads, window)
+    lib = _train_lib(qkv.device)
+    n = window * window
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty((num_heads, n, n), dtype=torch.float32,
+                        device=qkv.device)
+    part = _train_scratch(lib, b, resolution, c, num_heads, window,
+                          qkv.device)
+    with torch.cuda.device(qkv.device):
+        rc = lib.geovpr_swin_train_bwd_core(
+            qkv.data_ptr(), p.data_ptr(), da.data_ptr(), dqkv.data_ptr(),
+            part.data_ptr(), dbias.data_ptr(), b, resolution, c, num_heads,
+            window, shift, float((c // num_heads) ** -0.5),
+            _stream(qkv.device))
+    if rc != 0:
+        raise RuntimeError(f"swin_train_bwd_core launch failed: CUDA error "
+                           f"{rc}")
+    fused_swin_attn_bwd_core.launches += 1
+    return dqkv, dbias
+
+
+fused_swin_attn_bwd_core.launches = 0
+
+
+def _train_plain_bwd(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p, g,
+                     num_heads, resolution, window, shift, ln_eps, split):
+    def rows(t):
+        return _raster_to_rows(t, resolution, window, shift)
+
+    out = swin_attn_train_bwd_reference(
+        to_windows(x, resolution, window, shift), ln_scale, ln_bias, wqkv,
+        wo, rows(qkv), rows(ctx), p, rows(g), num_heads, ln_eps, split)
+    return (from_windows(out[0], resolution, window, shift),) + out[1:]
+
+
+def fused_swin_attn_bwd_all(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p, g,
+                            num_heads: int, resolution: int, window: int,
+                            shift: int, ln_eps: float = 1e-5):
+    """K9c on the raster stream: the whole attention-half backward from
+    K9a's residuals and g = dL/dy (B, L, C). Returns dx (B, L, C), dls,
+    dlb, dwqkv, dbqkv, dwo, dbo (f32) and dbias (H, N, N) f32. CPU tensors
+    run the plain all-in-one form; CUDA tensors launch K9c (C <= 512) or
+    raise."""
+    b, l, c = x.shape
+    _check_residuals(b, l, c, num_heads, resolution, window, shift, {
+        "x": x, "ln_scale": ln_scale, "ln_bias": ln_bias, "wqkv": wqkv,
+        "wo": wo, "qkv": qkv, "ctx": ctx, "p": p, "g": g})
+    if x.device.type == "cpu":
+        out = _train_plain_bwd(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p,
+                               g, num_heads, resolution, window, shift,
+                               ln_eps, split=False)
+        return out[:3] + (out[3].float(), out[4], out[5].float()) + out[6:]
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_train_cuda({"x": x, "ln_scale": ln_scale, "ln_bias": ln_bias,
+                       "wqkv": wqkv, "wo": wo, "qkv": qkv, "ctx": ctx,
+                       "p": p, "g": g}, c, num_heads, window)
+    if c > 512:
+        raise ValueError(f"K9c takes C <= 512 (the split backward with K9b "
+                         f"takes the wider blocks), got C={c}")
+    lib = _train_lib(x.device)
+    n = window * window
+    dev, m = x.device, b * l
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    da, h, dx = (torch.empty_like(x) for _ in range(3))
+    dqkv = torch.empty_like(qkv)
+    stats = f32(m, 2)
+    part = _train_scratch(lib, b, resolution, c, num_heads, window, dev)
+    dwqkv, dbqkv, dwo, dbo = f32(c, 3 * c), f32(3 * c), f32(c, c), f32(c)
+    dbias, dls, dlb = f32(num_heads, n, n), f32(c), f32(c)
+    with torch.cuda.device(dev):
+        rc = lib.geovpr_swin_train_bwd_all(
+            x.data_ptr(), qkv.data_ptr(), p.data_ptr(), ctx.data_ptr(),
+            g.data_ptr(), wqkv.data_ptr(), wo.data_ptr(), ln_scale.data_ptr(),
+            ln_bias.data_ptr(), da.data_ptr(), dqkv.data_ptr(), h.data_ptr(),
+            stats.data_ptr(), part.data_ptr(), dx.data_ptr(),
+            dwqkv.data_ptr(), dbqkv.data_ptr(), dwo.data_ptr(),
+            dbo.data_ptr(), dbias.data_ptr(), dls.data_ptr(), dlb.data_ptr(),
+            b, resolution, c, num_heads, window, shift, float(ln_eps),
+            float((c // num_heads) ** -0.5), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"swin_train_bwd_all launch failed: CUDA error "
+                           f"{rc}")
+    fused_swin_attn_bwd_all.launches += 1
+    return dx, dls, dlb, dwqkv, dbqkv, dwo, dbo, dbias
+
+
+fused_swin_attn_bwd_all.launches = 0
+
+
+def swin_attn_train_bwd_split(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p,
+                              g, num_heads: int, resolution: int,
+                              window: int, shift: int, ln_eps: float = 1e-5):
+    """The split backward of the C > 512 blocks (`_train_bwd_core`'s else
+    branch): da, dWo, dbo, the LN recompute and VJP, dWqkv, dbqkv and dh as
+    torch ops (bf16 products with f32 accumulation, as JAX leaves them to
+    XLA) around K9b (`fused_swin_attn_bwd_core`). Same returns as
+    `fused_swin_attn_bwd_all`."""
+    b, l, c = x.shape
+    dt = x.dtype
+    gb = g.reshape(b * l, c)
+    da = _proj(gb, wo.t().contiguous()).to(dt).reshape(b, l, c)
+    dqkv, dbias = fused_swin_attn_bwd_core(qkv, p, da, num_heads, resolution,
+                                           window, shift)
+    dwo = _proj(ctx.reshape(-1, c).t().contiguous(), gb)
+    dbo = gb.float().sum(0)
+    dq2 = dqkv.reshape(-1, 3 * c)
+    with torch.enable_grad():
+        xs, ls, lb = (t.detach().requires_grad_() for t in
+                      (x.reshape(-1, c), ln_scale, ln_bias))
+        h = _ln_parts(xs, ls, lb, ln_eps, dt)[2]
+        dh = _proj(dq2, wqkv.t().contiguous()).to(dt)
+        dx, dls, dlb = torch.autograd.grad(h, (xs, ls, lb), dh)
+    dwqkv = _proj(h.detach().t().contiguous(), dq2)
+    return (dx.to(dt).reshape(b, l, c), dls, dlb, dwqkv,
+            dq2.float().sum(0), dwo, dbo, dbias)
+
+
+@functools.lru_cache(maxsize=None)
+def _table_positions(window: int, device: torch.device) -> torch.Tensor:
+    """(T^2, w^2): for each entry of the ((2w-1)^2, H) table the flat (i, j)
+    positions of the (N, N) bias that read it, padded with N^2 (a zero
+    row)."""
+    n = window * window
+    idx = relative_position_index(window).reshape(-1)
+    t2 = (2 * window - 1) ** 2
+    pos = np.full((t2, n), n * n, np.int64)
+    for e in range(t2):
+        where = np.flatnonzero(idx == e)
+        pos[e, :where.size] = where
+    with torch.inference_mode(False), torch.no_grad():
+        return torch.from_numpy(pos).to(device)
+
+
+def table_grad(dbias: torch.Tensor, window: int) -> torch.Tensor:
+    """The relative-position table's gradient from the bias's, dbias (H, N,
+    N) -> ((2w-1)^2, H): the VJP of the gather `relative_position_bias`,
+    summed in a fixed order (a padded gather and a sum, no atomics), so
+    that a step repeats bit for bit."""
+    h = dbias.shape[0]
+    flat = torch.cat([dbias.reshape(h, -1).t(),
+                      dbias.new_zeros(1, h)])
+    return flat[_table_positions(window, dbias.device)].sum(1)
+
+
+class _SwinAttnTrain(torch.autograd.Function):
+    """K9a forward, K9c (C <= 512) or the split backward with K9b (wider)
+    backward, as `_bwd_fused_ok` routes (`pallas_swin_block.py:771-780`);
+    `kernels=False` runs the plain versions on any device."""
+
+    @staticmethod
+    def forward(ctx_, x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, table,
+                num_heads, resolution, window, shift, ln_eps, kernels):
+        fwd = fused_swin_attn_train_fwd if kernels else _train_plain_fwd
+        y, qkv, ctx, p = fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, table,
+                             num_heads, resolution, window, shift, ln_eps)
+        ctx_.save_for_backward(x, ln_scale, ln_bias, wqkv, wo, table, qkv,
+                               ctx, p)
+        ctx_.geom = (num_heads, resolution, window, shift, ln_eps)
+        ctx_.kernels = kernels
+        return y
+
+    @staticmethod
+    def backward(ctx_, gy):
+        x, ln_scale, ln_bias, wqkv, wo, table, qkv, ctx, p = \
+            ctx_.saved_tensors
+        num_heads, resolution, window, shift, ln_eps = ctx_.geom
+        g = gy.to(x.dtype).contiguous()
+        args = (x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p, g, num_heads,
+                resolution, window, shift, ln_eps)
+        split = x.shape[-1] > 512
+        if not ctx_.kernels:
+            out = _train_plain_bwd(*args, split=split)
+        elif split:
+            out = swin_attn_train_bwd_split(*args)
+        else:
+            out = fused_swin_attn_bwd_all(*args)
+        dx, dls, dlb, dwqkv, dbqkv, dwo, dbo, dbias = out
+        dtable = table_grad(dbias, window).to(table.dtype)
+        return (dx, dls.to(ln_scale.dtype), dlb.to(ln_bias.dtype),
+                dwqkv.to(wqkv.dtype), dbqkv, dwo.to(wo.dtype), dbo, dtable,
+                None, None, None, None, None, None)
+
+
+def fused_swin_attn_train(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, table,
+                          num_heads: int, resolution: int, window: int,
+                          shift: int, ln_eps: float = 1e-5,
+                          kernels: bool = True) -> torch.Tensor:
+    """The differentiable training half-block on the raster stream:
+    y = proj(W-MSA(LN(x))) (B, L, C), no residual. The gradients of the
+    matrices come back in their own dtype, as JAX's `.astype(wqkv.dtype)`
+    (`pallas_swin_block.py:1448-1451`); the table's is dbias gathered back
+    through the relative-position index. On CUDA tensors K9a/K9b/K9c launch
+    or raise; `kernels=False` takes the plain versions on any device."""
+    return _SwinAttnTrain.apply(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                                table, num_heads, resolution, window, shift,
+                                ln_eps, kernels)

@@ -1,0 +1,91 @@
+"""Checkpoints of the port (the counterpart of `geovpr.train.checkpoint`):
+the port's own format, `torch.save` of plain tensors, with the JAX
+package's directory contract.
+
+- `checkpoint_{epoch}/` per epoch and `best/` for the best model, each a
+  directory holding `state.pt` (step, parameters, optimizer moments, count
+  and lr_scale, the target scaler, the seed, the epoch) and the
+  `run_metrics.json` sidecar (the epoch and the loop's counters:
+  `bad_epochs`, `plateau_bad`, `best`, `best_epoch`, or the val metrics);
+- writes are atomic: the directory is written under a temporary name and
+  renamed into place;
+- `latest_checkpoint` finds the newest `checkpoint_{epoch}`.
+
+Reading the JAX package's orbax run directories is not ported (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Optional
+
+import torch
+
+from geovpr_torch.objectives.scaler import ScalerState
+from geovpr_torch.train.state import TrainState
+
+
+def _cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    return tree
+
+
+def save_checkpoint(path: str, state: TrainState, epoch: int,
+                    metrics: Optional[dict] = None) -> None:
+    path = os.path.abspath(path)
+    tmp = f"{path}.tmp-{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save({"step": state.step, "epoch": epoch, "seed": state.seed,
+                "params": _cpu(state.model.state_dict()),
+                "opt": _cpu(state.opt.state_dict()),
+                "scaler": {"mean": state.scaler.mean.cpu(),
+                           "scale": state.scaler.scale.cpu()}},
+               os.path.join(tmp, "state.pt"))
+    with open(os.path.join(tmp, "run_metrics.json"), "w") as f:
+        json.dump({"epoch": epoch, **{k: float(v) for k, v in
+                                      (metrics or {}).items()}}, f)
+    old = f"{path}.old-{os.getpid()}"
+    if os.path.exists(path):
+        os.replace(path, old)
+    os.replace(tmp, path)
+    shutil.rmtree(old, ignore_errors=True)
+
+
+def restore_checkpoint(path: str, state: TrainState) -> tuple:
+    """Load `path` into `state` (its model and optimizer, on their device).
+    Returns (state, epoch)."""
+    device = next(state.model.parameters()).device
+    ck = torch.load(os.path.join(path, "state.pt"), map_location=device,
+                    weights_only=True)
+    state.model.load_state_dict(ck["params"])
+    state.opt.load_state_dict(ck["opt"])
+    state.scaler = ScalerState(ck["scaler"]["mean"], ck["scaler"]["scale"])
+    state.step = int(ck["step"])
+    state.seed = int(ck["seed"])
+    return state, int(ck["epoch"])
+
+
+def checkpoint_epoch(dirname: str) -> Optional[int]:
+    """`checkpoint_{epoch}` -> epoch; None for anything else (temporary
+    directories of an unfinished write included)."""
+    if not dirname.startswith("checkpoint_"):
+        return None
+    try:
+        return int(dirname.split("_", 1)[1])
+    except ValueError:
+        return None
+
+
+def latest_checkpoint(run_dir: str) -> Optional[str]:
+    if not os.path.isdir(run_dir):
+        return None
+    cands = [d for d in os.listdir(run_dir) if checkpoint_epoch(d) is not None]
+    if not cands:
+        return None
+    return os.path.join(run_dir, max(cands, key=checkpoint_epoch))

@@ -350,3 +350,78 @@ def test_swin7_model_launches_per_block(cuda):
         torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(fns, before)] == [4, 1, 0]
     assert torch.isfinite(out.tokens).all()
+
+
+_K9_SHAPES = [(2, 128, 4, 24, 12, 6), (2, 256, 8, 24, 12, 6),
+              (1, 512, 16, 24, 12, 6), (2, 1024, 32, 12, 12, 0)]
+
+
+@pytest.mark.parametrize("shape", _K9_SHAPES)
+def test_k9_matches_plain_version(cuda, shape):
+    """chip_smoke's K9 check at small batches of Swin-B-384's four stage
+    widths: K9a's y, qkv, ctx and p, K9b's dqkv and dbias, and K9c's (or,
+    at C = 1024, the split backward's) dx and every weight gradient within
+    K1's ratio bound; one launch each."""
+    from chip_smoke import k9_kernels_vs_plain
+    from geovpr_torch.ops import swin_block as sb
+    fns = (sb.fused_swin_attn_train_fwd, sb.fused_swin_attn_bwd_core,
+           sb.fused_swin_attn_bwd_all)
+    before = [f.launches for f in fns]
+    k9_kernels_vs_plain(cuda, shapes=(shape,))
+    split = shape[1] > 512
+    assert [f.launches - b for f, b in zip(fns, before)] == \
+        [1, 2 if split else 1, 0 if split else 1]
+
+
+def test_k9_refuses_what_it_does_not_take(cuda):
+    from chip_smoke import k9_case
+    from geovpr_torch.ops import swin_block as sb
+    a, g, geom = k9_case((1, 128, 4, 24, 12, 6), cuda)
+    args = [a[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "bqkv", "wo",
+                           "bo", "table")]
+    geo = list(geom.values())
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            sb.fused_swin_attn_train_fwd(args[0].float(), *args[1:], *geo)
+        with pytest.raises(TypeError):
+            sb.fused_swin_attn_train_fwd(*args[:7], args[7].bfloat16(),
+                                         *geo)
+        x8 = args[0][:, :64].contiguous()
+        with pytest.raises(ValueError, match="window 12"):
+            sb.fused_swin_attn_train_fwd(x8, *args[1:7], torch.zeros(
+                49, 4, device=cuda), 4, 8, 4, 2)
+        _, qkv, ctx, p = sb.fused_swin_attn_train_fwd(*args, *geo)
+        wide = torch.zeros(1, 144, 1024, dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="C <= 512"):
+            sb.fused_swin_attn_bwd_all(
+                wide, *(torch.zeros(1024, device=cuda),) * 2,
+                torch.zeros(1024, 3072, dtype=torch.bfloat16, device=cuda),
+                torch.zeros(1024, 1024, dtype=torch.bfloat16, device=cuda),
+                torch.zeros(1, 144, 3072, dtype=torch.bfloat16, device=cuda),
+                wide, torch.zeros(1, 32, 144, 144, dtype=torch.bfloat16,
+                                  device=cuda), wide, 32, 12, 12, 0)
+
+
+def test_swin_train_launches_per_step(cuda):
+    """A two-stage window-12 Swin under grad: one K9a and one K9c per
+    block, no K4, and finite gradients for every parameter."""
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.swin import SwinTransformer
+    from geovpr_torch.ops import swin_block as sb
+
+    model = SwinTransformer(embed_dim=64, depths=(2, 2), num_heads=(2, 4),
+                            window_size=12, image_size=96,
+                            dtype=torch.bfloat16, param_dtype=torch.float32,
+                            drop_path_rate=0.0)
+    init_weights_(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).train()
+    x = torch.randn(2, 96, 96, 3, device=cuda)
+    fns = (sb.fused_swin_attn_train_fwd, sb.fused_swin_attn_bwd_all,
+           sb.fused_swin_attn_bwd_core, sb.fused_swin_attn_block)
+    before = [f.launches for f in fns]
+    loss = model(x).pooled.square().sum()
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [4, 4, 0, 0]
+    assert all(bool(torch.isfinite(g).all()) and g.dtype == torch.float32
+               for g in grads)

@@ -212,6 +212,64 @@ def test_evaluate_cli_angle_runs_without_jax_or_geovpr():
         assert rec["test_csv"].endswith("test_pred.csv")
 
 
+_TRAIN = """
+import sys
+for name in {block!r}:
+    sys.modules[name] = None
+import dataclasses, json, os, tempfile
+import numpy as np
+import torch
+from PIL import Image
+from geovpr_torch.cli import presets
+from geovpr_torch.cli.train import main
+torch.set_num_threads(1)  # a small model, on cores the test workers share
+from geovpr_torch.models.swin import SWIN_VARIANTS
+SWIN_VARIANTS["test-w4"] = dict(embed_dim=64, depths=(2, 2),
+                                num_heads=(2, 4), window_size=4,
+                                image_size=32)
+cfg = presets.GEOPOSE_PRESETS["swin_b384_gemini2"]
+presets.GEOPOSE_PRESETS["swin_b384_gemini2"] = dataclasses.replace(
+    cfg, data=dataclasses.replace(cfg.data, image_size=32, batch_size=2),
+    model=dataclasses.replace(cfg.model, variant="test-w4"))
+
+with tempfile.TemporaryDirectory() as d:
+    os.makedirs(os.path.join(d, "img"))
+    rng = np.random.default_rng(0)
+    with open(os.path.join(d, "labels.csv"), "w") as f:
+        f.write("filename,timestamp,latitude,longitude,angle,Region_ID\\n")
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 255, (40, 40, 3)).astype(
+                np.uint8)).save(os.path.join(d, "img", f"p{{i}}.png"))
+            f.write(f"p{{i}}.png,0,{{219000 + i * 50.0}},{{143000 - i}},"
+                    "0,1\\n")
+    csv = os.path.join(d, "labels.csv")
+    main(["--preset", "swin_b384_gemini2", "--train-csv", csv, "--val-csv",
+          csv, "--image-root", os.path.join(d, "img"), "--save-dir",
+          os.path.join(d, "runs"), "--epochs", "1", "--device", "cpu"])
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split(".")[0] in {block!r})
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_train_cli_runs_without_jax_or_geovpr():
+    """`geovpr_torch.cli.train.main` for one epoch of a small window-4 Swin
+    on the geopose preset (geo_light augmentation, dropout, DropPath) over
+    a folder of PNGs, with jax, flax and `geovpr` blocked."""
+    block = _BLOCK + ("geovpr",)
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAIN.format(block=block)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = proc.stdout.strip().splitlines()
+    assert out[-1] == "OK"
+    rec = json.loads(out[-2])
+    assert rec["final"]["epoch"] == 0
+    assert np.isfinite(rec["final"]["train_loss"])
+    assert np.isfinite(rec["final"]["val_mse"])
+
+
 def _import_lines(pattern: str) -> list[str]:
     pat = re.compile(pattern)
     files = sorted((REPO / "geovpr_torch").rglob("*.py")) + [

@@ -1,0 +1,190 @@
+"""The port's training loop (`geovpr_torch.train.loop.Trainer`,
+`geovpr_torch.cli.train`): a fit of a small registered Swin preset on the
+CPU writes `metrics.jsonl`, `checkpoint_{epoch}/` and `best/`; the plateau
+and early-stop counters follow the JAX `Trainer`'s rule on a scripted
+validation sequence (both loops driven with their steps and evaluations
+replaced); a run resumed from `checkpoint_0` ends where the unbroken run
+ends, bit for bit; and the CLI refuses what is not ported.
+"""
+
+import dataclasses
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import linen as fnn
+
+import geovpr.train.loop as jloop
+from geovpr.core.config import DataConfig as JDataConfig
+from geovpr.core.config import OptimConfig as JOptimConfig
+from geovpr.core.config import TrainConfig as JTrainConfig
+from geovpr.data.pipeline import ArraySource as JArraySource
+from geovpr.objectives.workloads import GeoposeObjective as JGeopose
+from geovpr_torch.cli import presets
+from geovpr_torch.cli.train import main, run_train
+from geovpr_torch.core.config import DataConfig, OptimConfig, TrainConfig
+from geovpr_torch.data.pipeline import ArraySource
+from geovpr_torch.models.swin import SWIN_VARIANTS
+from geovpr_torch.objectives.workloads import GeoposeObjective
+from geovpr_torch.train.loop import Trainer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small shapes: the test workers share
+    the cores, and torch's thread pool oversubscribed by them runs the
+    tiny ops tens of times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+TINY = dict(embed_dim=64, depths=(2, 2), num_heads=(2, 4), window_size=4,
+            image_size=32)
+
+
+def _tiny_preset():
+    cfg = presets.GEOPOSE_PRESETS["swin_b384_gemini2"]
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, variant="tiny-test",
+                                       compute_dtype="float32"),
+        data=dataclasses.replace(cfg.data, image_size=32, batch_size=4),
+        train=dataclasses.replace(cfg.train, epochs=2))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The tiny preset trained for two epochs in one run, and for one epoch
+    and then resumed from its checkpoint_0 for the second."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(SWIN_VARIANTS, "tiny-test", TINY)
+        cfg, src = _tiny_preset(), _source()
+        tmp = tmp_path_factory.mktemp("runs")
+        whole = run_train(cfg, src, src, save_dir=str(tmp / "a"),
+                          device="cpu")
+        part = run_train(cfg, src, src, save_dir=str(tmp / "b"),
+                         device="cpu", epochs=1)
+        resumed = run_train(cfg, src, src, save_dir=str(tmp / "b"),
+                            device="cpu", resume=part.run_dir)
+        yield whole, resumed
+
+
+def _source(n=10, seed=0):
+    rng = np.random.default_rng(seed)
+    return ArraySource(
+        rng.integers(0, 256, (n, 32, 32, 3)).astype(np.uint8),
+        (rng.normal(size=(n, 2)) * [300, 100] + [219000, 143000]).astype(
+            np.float32), [f"{i}.jpg" for i in range(n)])
+
+
+def test_fit_writes_run_directory(runs):
+    tr = runs[0]
+    files = sorted(os.listdir(tr.run_dir))
+    assert {"best", "checkpoint_0", "checkpoint_1",
+            "metrics.jsonl"} <= set(files)
+    with open(os.path.join(tr.run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    assert [r["epoch"] for r in recs] == [0, 1]
+    assert {"train_loss", "skipped_updates", "lr_scale", "seconds",
+            "val_mse", "val_rmse", "val_mae_lat"} <= set(recs[0])
+    with open(os.path.join(tr.run_dir, "checkpoint_1",
+                           "run_metrics.json")) as f:
+        side = json.load(f)
+    assert {"epoch", "bad_epochs", "plateau_bad", "best",
+            "best_epoch"} <= set(side)
+    assert tr.state.step == 2 * 3 and tr.state.opt.count == 6
+    assert len(tr.step_losses[1]) == 3
+
+
+def test_resume_equals_unbroken_run(runs):
+    """Two epochs in one run against one epoch and a resume from its
+    checkpoint_0: the same parameters, optimizer state and history (the
+    CPU run is deterministic; every draw derives from (seed, step))."""
+    whole, resumed = runs
+    assert sorted(resumed.step_losses) == [1]
+    assert resumed.step_losses[1] == whole.step_losses[1]
+    for (n, a), (_, b) in zip(whole.state.model.state_dict().items(),
+                              resumed.state.model.state_dict().items()):
+        assert torch.equal(a, b), n
+    for n, t in whole.state.opt.mu.items():
+        assert torch.equal(t, resumed.state.opt.mu[n]), n
+    assert resumed.state.opt.count == whole.state.opt.count == 6
+    strip = lambda r: {k: v for k, v in r.items()  # noqa: E731
+                       if k != "seconds"}
+    assert [strip(r) for r in resumed.history] == \
+        [strip(r) for r in whole.history[1:]]
+
+
+# validation MSE per epoch: improvements, ties (not < best - 1e-12), a
+# tiny gain, then a plateau long enough to stop early
+SCRIPT = [5.0, 4.0, 4.0, 4.5, 4.0 - 1e-13, 3.9, 3.9, 4.2, 4.1, 4.0, 3.95,
+          3.9, 3.9, 3.9, 3.9]
+
+
+class _JHead(fnn.Module):
+    @fnn.compact
+    def __call__(self, x, train=False, deterministic=True):
+        return fnn.Dense(2)(x.reshape(x.shape[0], -1)[:, :4])
+
+
+def _jax_run(tmp_path, monkeypatch, optim, train_cfg):
+    it = iter(SCRIPT)
+    monkeypatch.setattr(jloop, "save_checkpoint", lambda *a, **k: None)
+    tr = jloop.Trainer(model=_JHead(), objective=JGeopose(),
+                       optim_cfg=JOptimConfig(**optim),
+                       train_cfg=JTrainConfig(**train_cfg,
+                                              save_dir=str(tmp_path / "j")),
+                       data_cfg=JDataConfig(image_size=2, batch_size=2))
+    tr._train_step = lambda state, batch: (state, {
+        "loss": jnp.float32(1.0), "skipped": jnp.float32(0.0)})
+    tr.evaluate = lambda source, _step=None: {"mse": next(it)}
+    src = JArraySource(np.zeros((4, 2, 2, 3), np.uint8),
+                       np.zeros((4, 2), np.float32))
+    return tr.fit(src, src)
+
+
+def _port_run(tmp_path, optim, train_cfg):
+    it = iter(SCRIPT)
+    tr = Trainer(model=torch.nn.Linear(4, 2), objective=GeoposeObjective(),
+                 optim_cfg=OptimConfig(**optim),
+                 train_cfg=TrainConfig(**train_cfg,
+                                       save_dir=str(tmp_path / "t")),
+                 data_cfg=DataConfig(image_size=2, batch_size=2),
+                 device="cpu")
+    tr._train_step = lambda state, batch: {
+        "loss": torch.tensor(1.0), "skipped": torch.tensor(0.0)}
+    tr.evaluate = lambda source: {"mse": next(it)}
+    src = ArraySource(np.zeros((4, 2, 2, 3), np.uint8),
+                      np.zeros((4, 2), np.float32))
+    return tr.fit(src, src)
+
+
+def test_plateau_and_early_stop_follow_jax(tmp_path, monkeypatch):
+    optim = dict(schedule="plateau", plateau_factor=0.2, plateau_patience=2)
+    train_cfg = dict(epochs=len(SCRIPT), early_stop_patience=6,
+                     checkpoint_every=0)
+    want = _jax_run(tmp_path, monkeypatch, optim, train_cfg)
+    got = _port_run(tmp_path, optim, train_cfg)
+    assert len(got) == len(want) < len(SCRIPT)
+    np.testing.assert_allclose([r["lr_scale"] for r in got],
+                               [r["lr_scale"] for r in want], rtol=1e-6)
+    assert [r["val_mse"] for r in got] == [r["val_mse"] for r in want]
+    assert min(r["lr_scale"] for r in got) < 1.0
+
+
+def test_cli_refuses_what_is_not_ported():
+    args = ["--preset", "swin_b384_gemini2", "--train-csv", "x.csv",
+            "--image-root", ".", "--device", "cpu"]
+    with pytest.raises(SystemExit, match="async"):
+        main(args + ["--async-checkpoint"])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        main(args + ["--multihost"])
+    for name in ("swin_t224_sincos_gemini", "dinov2_meanpool_huber",
+                 "efficientnet_sincos_gemini", "convnext_direct_maae"):
+        cfg = presets.build_preset(name)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run_train(cfg, _source(2), device="cpu", save_dir="unused")
