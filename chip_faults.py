@@ -8,12 +8,16 @@ mask; K3 with b2 dropped from its epilogue; K4 without the shift mask or
 without the relative-position bias; K7 counting the pad keys past N, or
 without the shift mask; K6 with x10 and x01 swapped in the concat order;
 K9a without the shift mask; K9b without the sum of dp * p in the softmax
-backward; K9c with dbias taken from one CTA's partial sum only),
+backward; K9c with dbias taken from one CTA's partial sum only; K8a
+(K1's attention) without the mask of the keys past N; K8b without the
+sum of dp * p; K8c with dWqkv taken from one CTA's partial sum only),
 builds that copy and runs the chip_smoke.py check of that kernel
 (`int8_kernels_vs_plain` for K2/K3, `swin_kernels_vs_plain` for K4/K6,
-`k7_kernels_vs_plain` for K7, `k9_kernels_vs_plain` for K9a-K9c) against
-it at one shape. It prints the check's error line for the
-faulty kernel and whether the check rejected it, and exits non-zero if a
+`k7_kernels_vs_plain` for K7, `k9_kernels_vs_plain` for K9a-K9c,
+`k8_kernels_vs_plain` for K8a-K8c) against it at one shape. Arguments,
+where given, pick the faults whose names start with them (`python3
+chip_faults.py K8`). It prints the check's error line for the faulty
+kernel and whether the check rejected it, and exits non-zero if a
 planted fault passes. Needs one CUDA card; the checkout itself is never
 modified.
 """
@@ -36,6 +40,7 @@ _STAGE0 = (16, 128, 4, 96, 12, 6)    # Swin-B-384 stage 0, shifted, B=16
 _K7 = "cs.k7_kernels_vs_plain(dev, shapes={shapes!r})"
 _K7_STAGE0 = (1024, 3, 49, 64)       # Swin-T-224 stage 0, shifted, B=16
 _K9 = "cs.k9_kernels_vs_plain(dev, shapes=({shape!r},))"
+_K8 = "cs.k8_kernels_vs_plain(dev, shapes=((16, 257, 768, 12),))"
 
 # name -> (source file, [(original text, faulty text)], check to run)
 FAULTS = {
@@ -83,6 +88,20 @@ FAULTS = {
         ("reduce(st, part, G, (size_t)H * TR_N * TR_N, dbias)",
          "reduce(st, part, 1, (size_t)H * TR_N * TR_N, dbias)")],
         _K9.format(shape=_STAGE0)),
+    "K8a key mask past N dropped": ("vit_attn.cuh", [
+        ("if (k0 + kg * 8 + 2 * t + (e & 1) < N)\n          stat_add(",
+         "if (true)\n          stat_add("),
+        ("p[j][e] = k0 + kt * 16 + j * 8 + 2 * t + (e & 1) < N",
+         "p[j][e] = true")], _K8),
+    "K8b sum of dp * p dropped": ("mhsa_train.cu", [
+        ("ds[j][e] = p * (dp[e] - (hi ? sub1 : sub0)) * scale;",
+         "ds[j][e] = p * dp[e] * scale;"),
+        ("ds[j][e] = pv * (dp[e] - sq.z) * scale;",
+         "ds[j][e] = pv * dp[e] * scale;")], _K8),
+    "K8c dWqkv from one CTA's partial": ("mhsa_train.cu", [
+        ("reduce(st, pt, S1, (size_t)D * 3 * D, static_cast<float*>(dwqkv))",
+         "reduce(st, pt, 1, (size_t)D * 3 * D, static_cast<float*>(dwqkv))")],
+        _K8),
 }
 
 _RUN = """
@@ -103,9 +122,12 @@ else:
 """
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    picks = sys.argv[1:] if argv is None else argv
     passed = []
     for name, (src, edits, call) in FAULTS.items():
+        if picks and not name.startswith(tuple(picks)):
+            continue
         with tempfile.TemporaryDirectory() as tmp:
             pkg = Path(tmp) / "geovpr_torch"
             shutil.copytree(REPO / "geovpr_torch", pkg, ignore=

@@ -5,8 +5,8 @@
 Needs one CUDA card and exits non-zero on any failure, printing no result.
 It builds the port's kernels from `geovpr_torch/csrc/` with nvcc (one
 process per source, in parallel), checks each against its plain PyTorch
-version on the card, and drives the port's two serving paths end to end
-from seeded random weights:
+version on the card, and drives the port's serving and training paths
+end to end from seeded random weights:
 
 - retrieve (`geovpr_torch.cli.retrieve.run_retrieval`), DINOv2-B/14 + SALAD
   at full width: bf16 (K1 in every block) and int8 (calibrated on the
@@ -26,14 +26,23 @@ from seeded random weights:
   epochs of 4 steps with validation and checkpoints (K9a in every block,
   K9c in the 22 blocks with C <= 512, K9b in the 2 with C = 1024; K4 and
   K6 in validation), a resumed epoch, kernel-vs-plain gradients and a
-  fixed-batch descent.
+  fixed-batch descent;
+- DINOv2 training (`run_train`) at full width: DINOv2-B/14 with mean
+  pooling and the MLP head (preset dinov2_meanpool_huber, B=16: K8a and
+  K8c in every block, K1 in validation), then `geovpr_torch.cli.evaluate
+  --run-dir` on the run it wrote; the same preset at large-14 (D = 1024,
+  24 blocks: K8a and K8b in every block); and dinov2_cls_direct_maae (CLS,
+  linear head, B=32); each with resumed epochs and kernel-vs-plain
+  gradients.
 
 Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
 form and the w8a8 MLP half-block), K4 and K5 (the Swin window-attention
 half-block, bf16 and w8a8), K6 (Swin PatchMerging), K7 (the window-7
 attention core on pre-split windows), and K9a, K9b and K9c (the Swin
 attention half-block's training forward, core backward and whole
-backward). For each path it
+backward), and K8a, K8b and K8c (the same for the ViT attention
+half-block of DINOv2; K8a launches K1's kernels and keeps the qkv and ctx
+they write). For each path it
 compares the kernel path with the plain path for the whole model, counts
 the kernels' launches, times the path and the kernels (beside their plain
 versions, one library yardstick each and their bounds), and profiles one
@@ -1462,19 +1471,208 @@ def k9_kernel_times(device, card: str, shape=K9_MAIN) -> dict:
     return out
 
 
+# DINOv2 training (preset dinov2_meanpool_huber) at its B=16: the K8
+# shapes (B, N, D, H) of base-14, which takes K8c, and of large-14, where
+# JAX's size gate (`bwd_all_ok`) fails and the split backward runs K8b and
+# torch products.
+K8_SHAPES = ((16, 257, 768, 12), (16, 257, 1024, 16))
+K8_MAIN = K8_SHAPES[0]
+K8_OUTS = ("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo", "dbo", "dgamma")
+
+
+def k8_case(shape, device, seed=SEED):
+    """K8's operands at one shape: K1's block inputs (x at K1_X_SCALE,
+    vectors off their init, bf16 matrices at fan-in scale) and an upstream
+    gradient g drawn N(0, 1)."""
+    b, n, d, h = shape
+    gen = torch.Generator().manual_seed(seed + d)
+    x, vecs, mats = block_inputs(b, n, d, gen, device)
+    g = torch.randn(b, n, d, generator=gen).bfloat16().to(device)
+    return {"x": x, **vecs, **mats}, g
+
+
+def _k8_fwd_args(a, h):
+    return (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["bqkv"],
+            a["wo"], a["bo"], a["gamma"], h, 1e-6)
+
+
+def _k8_bwd_args(a, res, g, h):
+    return (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["wo"],
+            a["bo"], a["gamma"], res[1], res[2], g, h, 1e-6)
+
+
+def k8_kernels_vs_plain(device, shapes=K8_SHAPES) -> dict:
+    """K8a, K8b and the whole backward (K8c where `bwd_all_ok`, else the
+    split composition through K8b) against their plain versions, every
+    output under K9's ratio bound. The backward kernels take the bf16 plain
+    forward's residuals, so that each is checked alone; the f32 plain
+    version runs on the f32 forward's. Also prints the share of K8a's
+    saved qkv that equals the bf16 plain version's bit for bit. Returns the
+    max errors of out (K8a), dqkv (K8b) and dx (K8c) by shape."""
+    from geovpr_torch.ops import mhsa as mh
+
+    errs = {}
+    for shape in shapes:
+        h = shape[3]
+        tag = "B{}_N{}_D{}_H{}".format(*shape)
+        a, g = k8_case(shape, device)
+        a32 = {k: v.float() for k, v in a.items()}
+        with torch.no_grad():
+            got = mh.fused_mhsa_train_fwd(*_k8_fwd_args(a, h))
+            torch.cuda.synchronize()
+            want = mh.mhsa_train_fwd_reference(*_k8_fwd_args(a, h))
+            ref32 = mh.mhsa_train_fwd_reference(*_k8_fwd_args(a32, h))
+        for i, out in enumerate(("out", "qkv", "ctx")):
+            e = k9_ratio(f"K8a.{out}", tag, got[i], want[i], ref32[i])
+            if out == "out":
+                errs[("K8a", shape)] = e["kernel_max"]
+        phase("k8a_qkv", shape=tag,
+              bit_equal_share=(got[1] == want[1]).float().mean().item(),
+              max_abs_diff=(got[1].float() - want[1].float()).abs().max()
+              .item())
+        del got
+
+        da = torch.randn(g.shape, generator=torch.Generator().manual_seed(
+            SEED + 1)).bfloat16().to(device)
+        with torch.no_grad():
+            got = mh.fused_mhsa_bwd_core(want[1], da, h)
+            torch.cuda.synchronize()
+            e = k9_ratio("K8b.dqkv", tag, got,
+                         mh.mhsa_attn_bwd_core_reference(want[1], da, h),
+                         mh.mhsa_attn_bwd_core_reference(ref32[1], da.float(),
+                                                         h))
+        errs[("K8b", shape)] = e["kernel_max"]
+        del got, da
+
+        split = not mh.bwd_all_ok(shape[2])
+        with torch.no_grad():
+            if split:
+                got = mh.mhsa_train_bwd_reference(
+                    *_k8_bwd_args(a, want, g, h), split=True,
+                    core=mh.fused_mhsa_bwd_core)
+            else:
+                got = mh.fused_mhsa_bwd_all(*_k8_bwd_args(a, want, g, h))
+            torch.cuda.synchronize()
+            want_b = mh.mhsa_train_bwd_reference(
+                *_k8_bwd_args(a, want, g, h), split=split)
+            ref_b = mh.mhsa_train_bwd_reference(
+                *_k8_bwd_args(a32, ref32, g.float(), h), split=split)
+        name = "K8b_split" if split else "K8c"
+        for i, out in enumerate(K8_OUTS):
+            e = k9_ratio(f"{name}.{out}", tag, got[i], want_b[i], ref_b[i])
+            if out == "dx":
+                errs[(name, shape)] = e["kernel_max"]
+        del a, a32, g, got, want, ref32, want_b, ref_b
+        torch.cuda.empty_cache()
+    return errs
+
+
+def k8_bounds(kind: str, shape) -> dict:
+    """The least time of one K8 call at (B, N, D, H): each input read once
+    and each output written once (bf16 streams and matrices, f32 vectors
+    and weight gradients) over 3.35 TB/s, against the products at the bf16
+    peak (8 M D^2 + two N x N x dh products a head forward; five such
+    products for the core backward; + 18 M D^2 for the whole backward:
+    da, dWo, the y recompute, dWqkv and dh)."""
+    b, n, d, h = shape
+    m = b * n
+    att = 2 * b * h * n * n * (d // h)       # one N x N x dh product
+    if kind == "K8a":
+        # reads x, the weights and 7 D of vectors; writes out, qkv, ctx
+        ops = 8 * m * d * d + 2 * att
+        nbytes = m * d * 2 + 4 * d * d * 2 + 7 * d * 4 + 5 * m * d * 2
+    elif kind == "K8b":
+        # reads qkv and da, writes dqkv
+        ops = 5 * att
+        nbytes = 7 * m * d * 2
+    else:
+        # reads x, qkv, ctx, g, the weights, bo, gamma, ln_scale, ln_bias;
+        # writes dx and the f32 dwqkv, dbqkv, dwo, dbo, dgamma, dls, dlb
+        ops = 5 * att + 18 * m * d * d
+        nbytes = 7 * m * d * 2 + 4 * d * d * 2 + 4 * d * 4 \
+            + (4 * d * d + 7 * d) * 4
+    ops_t, bytes_t = ops / PEAK_BF16, nbytes / PEAK_BYTES
+    return dict(bound_ms=max(ops_t, bytes_t) * 1e3,
+                bound_by="operations" if ops_t >= bytes_t else "bytes",
+                ops_bound_ms=ops_t * 1e3, bytes_bound_ms=bytes_t * 1e3)
+
+
+def k8_kernel_times(device, card: str, shape=K8_MAIN) -> dict:
+    """K8a, K8b and K8c at DINOv2-B/14's training shape (B=16), each in
+    turns with its plain version and its library yardstick
+    (`library_k1`'s forward for K8a and its whole backward for K8c; for
+    K8b the backward of F.scaled_dot_product_attention alone, on the same
+    q, k, v), beside its bound."""
+    import torch.nn.functional as F
+
+    from geovpr_torch.ops import mhsa as mh
+
+    h = shape[3]
+    a, g = k8_case(shape, device)
+    fa = _k8_fwd_args(a, h)
+    with torch.no_grad():
+        res = mh.fused_mhsa_train_fwd(*fa)
+    ba = _k8_bwd_args(a, res, g, h)
+    d = shape[2]
+    leaves = [t.detach().requires_grad_() for t in fa[:8]]
+    qh, kh, vh = (mh._heads(t, h).contiguous().requires_grad_()
+                  for t in res[1].split(d, dim=-1))
+    with torch.enable_grad():
+        y_lib = library_k1(*leaves, h)
+        o_lib = F.scaled_dot_product_attention(qh, kh, vh)
+    g_o = torch.randn(o_lib.shape, device=device, dtype=o_lib.dtype)
+    cases = {
+        "K8a": {"kernel": lambda: mh.fused_mhsa_train_fwd(*fa),
+                "plain": lambda: mh.mhsa_train_fwd_reference(*fa),
+                "library": lambda: library_k1(*fa[:9])},
+        "K8b": {"kernel": lambda: mh.fused_mhsa_bwd_core(res[1], g, h),
+                "plain": lambda: mh.mhsa_attn_bwd_core_reference(res[1], g,
+                                                                 h),
+                "library": lambda: torch.autograd.grad(
+                    o_lib, (qh, kh, vh), g_o, retain_graph=True)},
+        "K8c": {"kernel": lambda: mh.fused_mhsa_bwd_all(*ba),
+                "plain": lambda: mh.mhsa_train_bwd_reference(*ba),
+                "library": lambda: torch.autograd.grad(
+                    y_lib, leaves, g, retain_graph=True)}}
+    out = {}
+    for name, fns in cases.items():
+        with torch.no_grad() if name == "K8a" else torch.enable_grad():
+            t = interleaved_ms(fns, iters=5)
+        out[name] = dict(ms=t["kernel"][0], plain_ms=t["plain"][0],
+                         library_ms=t["library"][0],
+                         runs={k: v[1] for k, v in t.items()},
+                         **k8_bounds(name, shape))
+        phase("kernel_time", card=repr(card), name=name,
+              shape="B{}_N{}_D{}_H{}".format(*shape), **out[name])
+    return out
+
+
 TRAIN_PRESET, TRAIN_N, TRAIN_N_VAL, TRAIN_EPOCHS = (
     "swin_b384_gemini2", 64, 32, 2)
 # launches per step: K9a in all 24 blocks, K9c in the 22 with C <= 512,
 # K9b in the 2 with C = 1024
 TRAIN_K9C_BLOCKS, TRAIN_K9B_BLOCKS = 22, 2
+# DINOv2 training at full width: dinov2_meanpool_huber (base-14, 12
+# blocks, B=16; K8a and K8c in every block, K1 in validation), its
+# large-14 form (24 blocks, D = 1024: K8a and K8b in every block) and
+# dinov2_cls_direct_maae (base-14 at its own B=32). (preset, variant or
+# None for the preset's, batch, training images, validation images,
+# epochs)
+DINO_CASES = (("dinov2_meanpool_huber", None, 16, 64, 32, 2),
+              ("dinov2_cls_direct_maae", None, 32, 64, 32, 2),
+              ("dinov2_meanpool_huber", "large-14", 16, 32, 16, 2))
 
 
 def train_counters() -> dict:
+    from geovpr_torch.ops import mhsa as mh
     from geovpr_torch.ops import swin_block as sb
     return {**kernel_counters(), **swin_counters(),
             "fused_swin_attn_train_fwd": sb.fused_swin_attn_train_fwd,
             "fused_swin_attn_bwd_all": sb.fused_swin_attn_bwd_all,
-            "fused_swin_attn_bwd_core": sb.fused_swin_attn_bwd_core}
+            "fused_swin_attn_bwd_core": sb.fused_swin_attn_bwd_core,
+            "fused_mhsa_train_fwd": mh.fused_mhsa_train_fwd,
+            "fused_mhsa_bwd_all": mh.fused_mhsa_bwd_all,
+            "fused_mhsa_bwd_core": mh.fused_mhsa_bwd_core}
 
 
 @torch.no_grad()
@@ -1489,19 +1687,34 @@ def _drop_rates(model, rate) -> list:
     return old
 
 
-def train_grads_vs_plain(trainer, batch) -> None:
+def _cosine(a, b) -> float:
+    """Cosine of two gradients; 1 where both are exactly zero (a sum of
+    signs that cancels, as the direct MAAE loss gives its head bias)."""
+    if not (a.any() or b.any()):
+        return 1.0
+    return torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0).item()
+
+
+def train_grads_vs_plain(trainer, batch, path: str) -> None:
     """On one batch with dropout and DropPath off, the gradient of every
-    parameter on the kernel path (K9a/K9c/K9b) against the plain path,
-    cosine >= 0.999 for each tensor."""
+    parameter on the kernel path against the plain path, cosine >= 0.999
+    for each tensor. Beside it, for the worst relative-position table of a
+    Swin model (the worst tensor of any other), the cosine of the kernel
+    path's and of the bf16 plain path's gradient, each against the plain
+    path run in f32 (`[train_grads_f32]`): where the two are alike, the
+    kernel's departure is the bf16 path's own cancellation."""
     st, model = trainer.state, trainer.state.model
     saved = _drop_rates(model, 0.0)
     model.train()
     enc = trainer.objective.encode_targets(batch["target"], st.scaler)
     names = [n for n, _ in model.named_parameters()]
+    compute_dtype = model.backbone.dtype
 
-    def grads(kernels: bool):
+    def grads(kernels: bool, dtype=compute_dtype):
         for m in model.backbone.blocks:
             m.use_kernels = kernels
+        model.backbone.dtype = dtype
         try:
             loss = trainer.objective.loss(
                 model(trainer._normalize(batch["image"])), enc,
@@ -1510,47 +1723,66 @@ def train_grads_vs_plain(trainer, batch) -> None:
         finally:
             for m in model.backbone.blocks:
                 m.use_kernels = True
+            model.backbone.dtype = compute_dtype
 
     got, want = grads(True), grads(False)
-    _drop_rates(model, saved)
-    cos = {n: torch.nn.functional.cosine_similarity(
-        a.float().flatten(), b.float().flatten(), dim=0).item()
-        for n, a, b in zip(names, got, want)}
+    cos = {n: _cosine(a, b) for n, a, b in zip(names, got, want)}
     worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
-    phase("train_grads", tensors=len(cos), min_cosine=worst[0][1],
-          worst=repr(worst), bound=0.999)
+    phase("train_grads", path=path, tensors=len(cos),
+          min_cosine=worst[0][1], worst=repr(worst), bound=0.999)
+    tables = {n: c for n, c in cos.items()
+              if n.endswith("relative_position_bias_table")}
+    name = min(tables or cos, key=(tables or cos).get)
+    i = names.index(name)
+    ref = grads(False, torch.float32)[i]
+    _drop_rates(model, saved)
+    phase("train_grads_f32", path=path, tensor=name,
+          kernel_vs_plain=cos[name], kernel_vs_f32=_cosine(got[i], ref),
+          plain_vs_f32=_cosine(want[i], ref))
     check(min(cos.values()) >= 0.999,
           f"kernel vs plain gradient cosine below 0.999: {worst}")
 
 
-def train_loss_falls(device) -> None:
-    """A fresh model, dropout and DropPath off, five steps on one fixed
-    batch of 16 synthetic images: the loss falls."""
+def train_loss_falls(device, preset: str = TRAIN_PRESET,
+                     steps: int = 5) -> None:
+    """A fresh model of `preset`, dropout and DropPath off, `steps` steps
+    on one fixed batch of 16 synthetic images: the last loss is below the
+    first. Adam's first step from a random init overshoots (the second
+    loss is the largest), so the run needs steps enough to come back
+    below the start: 5 for Swin-B-384; 12 for DINOv2-B/14, whose fifth
+    loss still read 0.623 against a first of 0.519 on an H100."""
+    import dataclasses
+
     from geovpr_torch.cli.presets import build_preset, objective_for
+    from geovpr_torch.core.config import GeoposeConfig
     from geovpr_torch.models.regression import RegressionModel
     from geovpr_torch.objectives.scaler import fit_scaler
     from geovpr_torch.train.state import create_train_state
     from geovpr_torch.train.steps import make_train_step
 
-    cfg = build_preset(TRAIN_PRESET)
-    src = synthetic_val(TRAIN_BATCH, 384, np.random.default_rng(SEED + 7))
-    model = RegressionModel(cfg.model, dtype=torch.bfloat16,
-                            train=True).to(device)
+    cfg = build_preset(preset)
+    geo = isinstance(cfg, GeoposeConfig)
+    size = cfg.data.image_size
+    src = synthetic_val(TRAIN_BATCH, size, np.random.default_rng(SEED + 7),
+                        angles=not geo)
+    model = RegressionModel(dataclasses.replace(cfg.model, image_size=size),
+                            dtype=torch.bfloat16, train=True).to(device)
     st = create_train_state(model, cfg.optim, seed=SEED,
-                            scaler=fit_scaler(src.targets))
+                            scaler=fit_scaler(src.targets) if geo else None,
+                            out_dim=cfg.model.out_dim)
     _drop_rates(model, 0.0)
     step = make_train_step(objective_for(cfg))
     batch = {"image": torch.from_numpy(src.images).to(device),
              "target": torch.from_numpy(src.targets).to(device),
              "mask": torch.ones(TRAIN_BATCH, dtype=torch.bool,
                                 device=device)}
-    losses = [float(step(st, batch)["loss"]) for _ in range(5)]
-    phase("train_fixed_batch", losses=losses)
+    losses = [float(step(st, batch)["loss"]) for _ in range(steps)]
+    phase("train_fixed_batch", preset=preset, losses=losses)
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"the loss on a fixed batch did not fall: {losses}")
 
 
-def train_times(trainer, batch, card: str) -> None:
+def train_times(trainer, batch, card: str, path: str) -> None:
     """ms per training step (host clock around synchronised steps on one
     batch), img/s and peak device memory; one step under torch.profiler
     (device busy and idle share, top device ops)."""
@@ -1558,6 +1790,7 @@ def train_times(trainer, batch, card: str) -> None:
 
     step = trainer._train_step
     st = trainer.state
+    b = batch["image"].shape[0]
     step(st, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1567,8 +1800,8 @@ def train_times(trainer, batch, card: str) -> None:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / 5 * 1e3
     peak = torch.cuda.max_memory_allocated()
-    phase("train_times", card=repr(card), batch=TRAIN_BATCH, ms_per_step=ms,
-          img_per_s=TRAIN_BATCH * 1e3 / ms, peak_mem_bytes=peak)
+    phase("train_times", card=repr(card), path=path, batch=b,
+          ms_per_step=ms, img_per_s=b * 1e3 / ms, peak_mem_bytes=peak)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1578,18 +1811,84 @@ def train_times(trainer, batch, card: str) -> None:
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
     if not kernels:
-        phase("breakdown", card=repr(card), path="swin-b-train",
+        phase("breakdown", card=repr(card), path=path,
               device_time="not measured")
         return
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    phase("breakdown", card=repr(card), path="swin-b-train",
-          batch=TRAIN_BATCH, window_ms=wall_ms, device_busy_ms=busy_ms,
+    phase("breakdown", card=repr(card), path=path, batch=b,
+          window_ms=wall_ms, device_busy_ms=busy_ms,
           idle_share=1 - busy_ms / wall_ms)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        phase("device_time", path="swin-b-train",
-              ms=e.self_device_time_total / 1e3, calls=e.count,
-              share=e.self_device_time_total / 1e3 / busy_ms,
+        phase("device_time", path=path, ms=e.self_device_time_total / 1e3,
+              calls=e.count, share=e.self_device_time_total / 1e3 / busy_ms,
               name=e.key[:90])
+
+
+def train_run(cfg, train_src, val_src, device, save_dir: str, epochs: int,
+              expected_per: dict, tag: str):
+    """`run_train` with every launch count set to 0 just before and read
+    just after: the counts must equal `expected_per` ({counter: (per
+    step, per validation batch)}; every other counter 0), the losses and
+    validation metrics finite, and the run directory complete. Returns
+    the trainer and the counts."""
+    from geovpr_torch.cli.train import run_train
+
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer = run_train(cfg, train_src, val_src, save_dir=save_dir,
+                        device=device, epochs=epochs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    b = cfg.data.batch_size
+    steps = epochs * (len(train_src) // b)
+    val_batches = epochs * -(-len(val_src) // b)
+    expected = dict.fromkeys(counters, 0)
+    expected.update({k: s * steps + v * val_batches
+                     for k, (s, v) in expected_per.items()})
+    hist = trainer.history
+    phase("train", path=tag, batch=b, steps=steps, wall_s=wall,
+          launches=launches, expected_launches=expected,
+          per_step={k: launches[k] / steps for k, (s, _) in
+                    expected_per.items() if s},
+          step_losses=trainer.step_losses, history=json.dumps(hist))
+    check(launches == expected,
+          f"{tag}: kernel launches {launches}, expected {expected}")
+    check(len(hist) == epochs
+          and all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_mse"])
+                  for r in hist), f"{tag}: training history {hist}")
+    run = trainer.run_dir
+    check(all(os.path.isfile(os.path.join(run, d, "state.pt"))
+              for d in [f"checkpoint_{e}" for e in range(epochs)] + ["best"])
+          and os.path.isfile(os.path.join(run, "metrics.jsonl")),
+          f"{tag}: run directory {sorted(os.listdir(run))}")
+    return trainer, launches
+
+
+def train_resume(cfg, train_src, val_src, device, tmp: str, trainer,
+                 tag: str) -> None:
+    """A run resumed from the first epoch's checkpoint: every step loss of
+    its epochs must repeat the unbroken run's bit for bit."""
+    import shutil
+
+    from geovpr_torch.cli.train import run_train
+
+    unbroken = {e: trainer.step_losses[e] for e in trainer.step_losses
+                if e > 0}
+    epochs = len(trainer.history)
+    resumed_dir = os.path.join(tmp, f"resumed_{tag}")
+    os.makedirs(resumed_dir)
+    shutil.copytree(os.path.join(trainer.run_dir, "checkpoint_0"),
+                    os.path.join(resumed_dir, "checkpoint_0"))
+    resumed = run_train(cfg, train_src, val_src, save_dir=tmp, device=device,
+                        epochs=epochs, resume=resumed_dir)
+    got = resumed.step_losses
+    phase("train_resume", path=tag, unbroken=unbroken, resumed=got,
+          equal=got == unbroken)
+    check(got == unbroken,
+          f"{tag}: resumed losses {got} != unbroken {unbroken}")
 
 
 def train_path(device, card: str) -> dict:
@@ -1598,88 +1897,141 @@ def train_path(device, card: str) -> dict:
     with synthetic (lat, lon) and a fitted scaler, two epochs of 4 steps
     with a validation pass (32 images) and a checkpoint each, every launch
     count set to 0 just before and read just after; then a run resumed
-    from the first epoch's checkpoint, whose first step must repeat the
-    unbroken run's loss bit for bit; the kernel-vs-plain gradients, a
-    falling loss on a fixed batch, and the step's times. Returns the
-    launch counts of the unbroken run."""
-    import shutil
-
+    from the first epoch's checkpoint, whose steps must repeat the unbroken
+    run's losses bit for bit; the kernel-vs-plain gradients, a falling
+    loss on a fixed batch, and the step's times. Returns the launch counts
+    of the unbroken run."""
     from geovpr_torch.cli.presets import build_preset
-    from geovpr_torch.cli.train import run_train
 
     cfg = build_preset(TRAIN_PRESET)
     rng = np.random.default_rng(SEED + 3)
     train_src = synthetic_val(TRAIN_N, 384, rng)
     val_src = synthetic_val(TRAIN_N_VAL, 384, rng)
-
-    counters = train_counters()
     with tempfile.TemporaryDirectory() as tmp:
-        for fn in counters.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        trainer = run_train(cfg, train_src, val_src, save_dir=tmp,
-                            device=device, epochs=TRAIN_EPOCHS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
-        steps = TRAIN_EPOCHS * TRAIN_N // TRAIN_BATCH
-        val_batches = TRAIN_EPOCHS * -(-TRAIN_N_VAL // TRAIN_BATCH)
-        expected = dict.fromkeys(counters, 0)
-        expected.update({
-            "fused_swin_attn_train_fwd": SWIN_BLOCKS * steps,
-            "fused_swin_attn_bwd_all": TRAIN_K9C_BLOCKS * steps,
-            "fused_swin_attn_bwd_core": TRAIN_K9B_BLOCKS * steps,
-            "fused_swin_attn_block": SWIN_BLOCKS * val_batches,
-            "fused_patch_merge": SWIN_BOUNDARIES * val_batches})
-        hist = trainer.history
-        phase("train", preset=TRAIN_PRESET, batch=TRAIN_BATCH, steps=steps,
-              wall_s=wall, launches=launches, expected_launches=expected,
-              per_step={k: launches[k] / steps for k in (
-                  "fused_swin_attn_train_fwd", "fused_swin_attn_bwd_all",
-                  "fused_swin_attn_bwd_core")},
-              step_losses=trainer.step_losses, history=json.dumps(hist))
-        check(launches == expected,
-              f"kernel launches {launches}, expected {expected}")
-        check(len(hist) == TRAIN_EPOCHS
-              and all(np.isfinite(r["train_loss"])
-                      and np.isfinite(r["val_mse"]) for r in hist),
-              f"training history {hist}")
-        run = trainer.run_dir
-        check(all(os.path.isfile(os.path.join(run, d, "state.pt"))
-                  for d in ("checkpoint_0", "checkpoint_1", "best"))
-              and os.path.isfile(os.path.join(run, "metrics.jsonl")),
-              f"run directory {sorted(os.listdir(run))}")
-
+        trainer, launches = train_run(
+            cfg, train_src, val_src, device, tmp, TRAIN_EPOCHS, {
+                "fused_swin_attn_train_fwd": (SWIN_BLOCKS, 0),
+                "fused_swin_attn_bwd_all": (TRAIN_K9C_BLOCKS, 0),
+                "fused_swin_attn_bwd_core": (TRAIN_K9B_BLOCKS, 0),
+                "fused_swin_attn_block": (0, SWIN_BLOCKS),
+                "fused_patch_merge": (0, SWIN_BOUNDARIES)}, "swin-b-train")
         batch = next(iter(_train_batches(train_src, device)))
-        train_grads_vs_plain(trainer, batch)
-        train_times(trainer, batch, card)
-        first_unbroken = trainer.step_losses[1]
+        train_grads_vs_plain(trainer, batch, "swin-b-train")
+        train_times(trainer, batch, card, "swin-b-train")
+        train_resume(cfg, train_src, val_src, device, tmp, trainer,
+                     "swin-b-train")
         del trainer
-        torch.cuda.empty_cache()
-
-        resumed_dir = os.path.join(tmp, "resumed")
-        os.makedirs(resumed_dir)
-        shutil.copytree(os.path.join(run, "checkpoint_0"),
-                        os.path.join(resumed_dir, "checkpoint_0"))
-        resumed = run_train(cfg, train_src, val_src, save_dir=tmp,
-                            device=device, epochs=TRAIN_EPOCHS,
-                            resume=resumed_dir)
-        got = resumed.step_losses[1]
-        phase("train_resume", unbroken=first_unbroken, resumed=got,
-              first_step_equal=got[0] == first_unbroken[0])
-        check(sorted(resumed.step_losses) == [1]
-              and got[0] == first_unbroken[0],
-              f"resumed first-step loss {got[0]} != unbroken "
-              f"{first_unbroken[0]}")
-        del resumed
         torch.cuda.empty_cache()
     train_loss_falls(device)
     return launches
 
 
-def _train_batches(source, device):
+def evaluate_run_dir(preset: str, run_dir: str, source, batch: int,
+                     blocks: int, device, tag: str) -> None:
+    """`geovpr_torch.cli.evaluate.main --run-dir <run> --checkpoint best`
+    on `source` written out as PNGs with a label CSV: finite metrics, one
+    CSV row per image, and K1 in every block of every batch."""
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    from geovpr_torch.cli.evaluate import main as evaluate
+    from geovpr_torch.ops.mhsa import fused_mhsa_block
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "img"))
+        with open(os.path.join(tmp, "labels.csv"), "w") as f:
+            f.write("filename,timestamp,latitude,longitude,angle,"
+                    "Region_ID\n")
+            for name, img, (lat, lon) in zip(source.filenames, source.images,
+                                             source.targets):
+                name = name.replace(".jpg", ".png")
+                Image.fromarray(img).save(os.path.join(tmp, "img", name))
+                f.write(f"{name},0,{float(lat)!r},{float(lon)!r},0,1\n")
+        out = io.StringIO()
+        fused_mhsa_block.launches = 0
+        with contextlib.redirect_stdout(out):
+            evaluate(["--preset", preset, "--run-dir", run_dir,
+                      "--checkpoint", "best", "--val-csv",
+                      os.path.join(tmp, "labels.csv"), "--image-root",
+                      os.path.join(tmp, "img"), "--batch-size", str(batch),
+                      "--out-dir", tmp, "--device", str(device)])
+        torch.cuda.synchronize()
+        rec = json.loads(out.getvalue().strip().splitlines()[-1])
+        with open(rec["validation_csv"]) as f:
+            rows = f.read().splitlines()
+    n = len(source)
+    launches = fused_mhsa_block.launches
+    phase("evaluate_run_dir", path=tag, metrics=json.dumps(rec["metrics"]),
+          rows=len(rows) - 1, k1_launches=launches)
+    check(all(np.isfinite(v) for v in rec["metrics"].values())
+          and len(rows) == n + 1
+          and launches == blocks * -(-n // batch),
+          f"{tag}: evaluate --run-dir gave {rec}, {len(rows) - 1} rows, "
+          f"{launches} K1 launches")
+
+
+def dinov2_train_path(device, card: str) -> dict:
+    """The DINOv2 training path at full width through `run_train`, from
+    seeded random weights on synthetic images and targets, for each of
+    DINO_CASES: the launches (K8a and K8c, or K8b where `bwd_all_ok`
+    fails, in every block of every step; K1 in every block of every
+    validation batch; nothing else), finite losses and metrics, the run
+    directory, the kernel-vs-plain gradients and a resumed run that repeats
+    the unbroken run's losses bit for bit. On dinov2_meanpool_huber also
+    the step's times and profile, `cli.evaluate --run-dir` on the run it
+    wrote, and a falling loss on a fixed batch. Returns the launch counts
+    summed over the cases."""
+    import dataclasses
+
+    from geovpr_torch.cli.presets import build_preset
+    from geovpr_torch.core.config import GeoposeConfig
+    from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
+    from geovpr_torch.ops.mhsa import bwd_all_ok
+
+    total = {}
+    for preset, variant, batch, n_train, n_val, epochs in DINO_CASES:
+        cfg = build_preset(preset)
+        if variant:
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, variant=variant))
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, batch_size=batch))
+        variant = cfg.model.variant
+        spec = DINOV2_VARIANTS[variant]
+        blocks = spec["num_layers"]
+        tag = f"{preset}-{variant}"
+        geo = isinstance(cfg, GeoposeConfig)
+        rng = np.random.default_rng(SEED + 5)
+        size = cfg.data.image_size
+        train_src = synthetic_val(n_train, size, rng, angles=not geo)
+        val_src = synthetic_val(n_val, size, rng, angles=not geo)
+        bwd = ("fused_mhsa_bwd_all" if bwd_all_ok(spec["hidden_size"])
+               else "fused_mhsa_bwd_core")
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer, launches = train_run(
+                cfg, train_src, val_src, device, tmp, epochs, {
+                    "fused_mhsa_train_fwd": (blocks, 0), bwd: (blocks, 0),
+                    "fused_mhsa_block": (0, blocks)}, tag)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            tb = next(iter(_train_batches(train_src, device, batch)))
+            train_grads_vs_plain(trainer, tb, tag)
+            if (preset, variant) == ("dinov2_meanpool_huber", "base-14"):
+                train_times(trainer, tb, card, "dinov2-b-train")
+                evaluate_run_dir(preset, trainer.run_dir, val_src, batch,
+                                 blocks, device, tag)
+            train_resume(cfg, train_src, val_src, device, tmp, trainer, tag)
+            del trainer
+            torch.cuda.empty_cache()
+    train_loss_falls(device, "dinov2_meanpool_huber", steps=12)
+    return total
+
+
+def _train_batches(source, device, batch: int = TRAIN_BATCH):
     from geovpr_torch.data.pipeline import iterate_batches, prefetch_to_device
-    return prefetch_to_device(iterate_batches(source, TRAIN_BATCH), device)
+    return prefetch_to_device(iterate_batches(source, batch), device)
 
 
 def main() -> int:
@@ -1745,6 +2097,10 @@ def main() -> int:
     train_launches = train_path(device, card)
     k9t = k9_kernel_times(device, card)
 
+    k8_errs = k8_kernels_vs_plain(device)
+    dino_launches = dinov2_train_path(device, card)
+    k8t = k8_kernel_times(device, card)
+
     rows = []
     for name, k, src, replaces, count, err in (
             ("fused_mhsa_block", "K1", "geovpr_torch/csrc/mhsa.cu",
@@ -1803,6 +2159,20 @@ def main() -> int:
                      "replaces": f"geovpr/ops/pallas_swin_block.py:{line}",
                      "launches": train_launches[name],
                      "max_abs_err": k9_errs[(err, K9_MAIN)], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
+    for name, k, line, src in (("fused_mhsa_train_fwd", "K8a", 1094, "mhsa"),
+                               ("fused_mhsa_bwd_core", "K8b", 1166,
+                                "mhsa_train"),
+                               ("fused_mhsa_bwd_all", "K8c", 1385,
+                                "mhsa_train")):
+        t = k8t[k]
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"geovpr_torch/csrc/{src}.cu",
+                     "replaces": f"geovpr/ops/pallas_mhsa.py:{line}",
+                     "launches": dino_launches[name],
+                     "max_abs_err": k8_errs[(k, K8_MAIN)], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})

@@ -1,10 +1,11 @@
 """Evaluation / prediction-export entry point of the port, geopose and
-angle presets (the counterpart of `geovpr.cli.evaluate`, same flags but
-`--variables` in place of `--run-dir`/`--checkpoint`).
+angle presets (the counterpart of `geovpr.cli.evaluate`, the same flags
+and `--variables` beside `--run-dir`/`--checkpoint`).
 
     python -m geovpr_torch.cli.evaluate --preset swin_b384_gemini2 \
-        --val-csv labels_val.csv --image-root images --out-dir out \
-        [--variables model.msgpack] [--test-dir test] \
+        --val-csv labels_val.csv --image-root images \
+        [--run-dir runs/training_... [--checkpoint best|latest|<name>] |
+         --variables model.msgpack] [--out-dir out] [--test-dir test] \
         [--submission-csv preds.csv] [--int8] [--batch-size 64] \
         [--device cuda]
 
@@ -14,11 +15,15 @@ the mean squared circular error on `manifest.angle`), writes
 `validation_predictions.csv`, with `--test-dir` the sorted test CSV
 (`test_predictions_sorted.csv`, or `test_pred.csv` for angles), with
 `--submission-csv` the geopose submission file, and prints the same JSON as
-the JAX CLI. `--variables` is a flax `msgpack_serialize` file of
+the JAX CLI. `--run-dir` reads a run directory that
+`geovpr_torch.cli.train` wrote: the parameters and the scaler of its
+`best/` checkpoint, of the newest `checkpoint_{epoch}/` with `--checkpoint
+latest`, or of the named one; `--out-dir` defaults to the run directory
+there, as in JAX. `--variables` is a flax `msgpack_serialize` file of
 {"params": <RegressionModel params>, "scaler": {"mean": (2,), "scale":
 (2,)}} for geopose, {"params"} or {"params", "batch_stats"} (EfficientNet)
-for angles; without it the model is a seeded random init (and the identity
-scaler). `--int8` calibrates the static activation scales on the first val
+for angles. At most one of the two may be given; without either the model
+is a seeded random init (and the identity scaler). `--int8` calibrates the static activation scales on the first val
 batch (as `Trainer.enable_int8_serving` does) and serves the w8a8 model.
 
 Kernels on each path: Swin at window 12 runs K4 in every block (K5 and K3
@@ -43,12 +48,13 @@ import torch
 
 
 def build_model(cfg, device, variables: str = "", seed: int = 0,
-                int8: bool = False):
+                int8: bool = False, run_dir: str = "",
+                checkpoint: str = "best"):
     """The preset's `RegressionModel` in its compute dtype on `device`, and
     for a geopose preset its target scaler (None for an angle preset): from
-    a flax msgpack, or a random init seeded with `seed` (and the identity
-    scaler). `int8` builds the w8a8 serving model, to be calibrated before
-    use."""
+    a flax msgpack, from `checkpoint` of a run directory the port's trainer
+    wrote, or a random init seeded with `seed` (and the identity scaler).
+    `int8` builds the w8a8 serving model, to be calibrated before use."""
     from geovpr_torch.core.config import GeoposeConfig
     from geovpr_torch.models.layers import init_weights_
     from geovpr_torch.models.regression import RegressionModel
@@ -60,19 +66,27 @@ def build_model(cfg, device, variables: str = "", seed: int = 0,
     model = RegressionModel(mcfg, dtype=getattr(torch, mcfg.compute_dtype),
                             int8=int8)
     scaler = identity_scaler(mcfg.out_dim) if geo else None
-    if variables:
-        from geovpr_torch.models.convert_jax import (load_flax_msgpack,
-                                                     state_dict_from_flax)
-        tree = load_flax_msgpack(variables)
-        res = model.load_state_dict(state_dict_from_flax(tree), strict=False)
+    if variables or run_dir:
+        if run_dir:
+            from geovpr_torch.train.checkpoint import load_run_checkpoint
+            state, saved_scaler = load_run_checkpoint(run_dir, checkpoint)
+            source = os.path.join(run_dir, checkpoint)
+        else:
+            from geovpr_torch.models.convert_jax import (
+                load_flax_msgpack, state_dict_from_flax)
+            tree = load_flax_msgpack(variables)
+            state, source = state_dict_from_flax(tree), variables
+            saved_scaler = (scaler_from_arrays(tree["scaler"]["mean"],
+                                               tree["scaler"]["scale"])
+                            if geo else None)
+        res = model.load_state_dict(state, strict=False)
         params = {n for n, _ in model.named_parameters()}
         bad = [k for k in res.missing_keys if k in params or not int8]
         if bad or res.unexpected_keys:
-            raise RuntimeError(f"{variables}: missing {bad}, unexpected "
+            raise RuntimeError(f"{source}: missing {bad}, unexpected "
                                f"{res.unexpected_keys}")
         if geo:
-            scaler = scaler_from_arrays(tree["scaler"]["mean"],
-                                        tree["scaler"]["scale"])
+            scaler = saved_scaler
     else:
         init_weights_(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval(), None if scaler is None else \
@@ -177,14 +191,20 @@ def run_evaluate(model, scaler, source, *, batch_size: int, out_dir: str,
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--preset", required=True)
+    p.add_argument("--run-dir", default="",
+                   help="run directory of geovpr_torch.cli.train to score")
+    p.add_argument("--checkpoint", default="best",
+                   help="'best', 'latest', or a checkpoint dir name under "
+                        "--run-dir")
     p.add_argument("--variables", default="",
                    help="flax msgpack of {params, scaler} (geopose) or "
                         "{params[, batch_stats]} (angle); random init if "
-                        "omitted")
+                        "neither this nor --run-dir is given")
     p.add_argument("--val-csv", required=True)
     p.add_argument("--image-root", required=True)
     p.add_argument("--test-dir", default="")
-    p.add_argument("--out-dir", default="evaluate_out")
+    p.add_argument("--out-dir", default="",
+                   help="default: --run-dir, else evaluate_out")
     p.add_argument("--submission-csv", default="",
                    help="also write the submission-format preds.csv "
                         "(ID,latitude,longitude; ID parsed from filename "
@@ -198,6 +218,8 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda (default) fails without a card")
     args = p.parse_args(argv)
+    if args.variables and args.run_dir:
+        p.error("give at most one of --variables and --run-dir")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -217,10 +239,13 @@ def main(argv=None):
             check_int8_serving(cfg.model)
         except ValueError as e:
             raise SystemExit(f"--int8: {e}") from None
-    if not args.variables:
-        print("WARNING: no --variables given; using random init "
-              "(predictions will not be meaningful)", file=sys.stderr)
-    model, scaler = build_model(cfg, device, args.variables, int8=args.int8)
+    if not (args.variables or args.run_dir):
+        print("WARNING: neither --variables nor --run-dir given; using "
+              "random init (predictions will not be meaningful)",
+              file=sys.stderr)
+    model, scaler = build_model(cfg, device, args.variables, int8=args.int8,
+                                run_dir=args.run_dir,
+                                checkpoint=args.checkpoint)
     data = cfg.data
 
     def make_source(paths, targets, names):
@@ -241,7 +266,8 @@ def main(argv=None):
     outputs, _ = run_evaluate(
         model, scaler, val_source,
         batch_size=args.batch_size or data.batch_size,
-        out_dir=args.out_dir, device=device, int8=args.int8,
+        out_dir=args.out_dir or args.run_dir or "evaluate_out",
+        device=device, int8=args.int8,
         test_source=test_source, submission_csv=args.submission_csv,
         objective=objective_for(cfg))
     print(json.dumps(outputs))

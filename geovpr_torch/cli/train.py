@@ -8,17 +8,23 @@ flag for flag).
         [--pretrained backbone.msgpack] [--resume DIR | --auto-resume DIR] \
         [--profile] [--device cuda|cpu]
 
-Trains the presets whose every kernel and module is ported: Swin at
-window 12 (`swin_b384_gemini2`, `swin_b384_v4_diff_lr`,
-`swin_b384_direct_maae`), each attention half through K9a forward and K9c
-(or K9b) backward, validation through K4. Other presets raise
-NotImplementedError naming the ROADMAP item. Checkpoints are the port's
+Trains the presets whose every kernel and module is ported:
+- Swin at window 12 (`swin_b384_gemini2`, `swin_b384_v4_diff_lr`,
+  `swin_b384_direct_maae`): each attention half through K9a forward and
+  K9c (or K9b, at C = 1024) backward a step, validation through K4 and K6;
+- DINOv2 (`dinov2_meanpool_huber`, `dinov2_cls_direct_maae`, any
+  variant): each attention half through K8a forward and K8c backward a
+  step (K8b and torch products where D fails JAX's size gate
+  `bwd_all_ok`, as at large-14, D = 1024), validation through K1.
+Other presets raise NotImplementedError naming the ROADMAP item, and so do
+the config fields the port does not honour yet (`data.cache_decoded`,
+`model.remat`). Checkpoints are the port's
 own (`train.checkpoint`), in the JAX CLI's run-directory layout;
 `--pretrained` reads a flax msgpack of backbone variables (as
 `geovpr.cli.convert` writes it). `--device` defaults to cuda and fails
 when no card is present; pass `--device cpu` to run on the CPU.
 `--async-checkpoint` is refused; `--multihost` and its companions are not
-ported (ROADMAP Queue 1 item 11).
+ported (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -50,13 +56,20 @@ def run_train(cfg, train_source, val_source=None, *, save_dir: str = "runs",
     `targets`): the scaler fitted on the train targets (geopose), a
     seeded random init with `pretrained` laid over it, or the latest
     checkpoint of `resume` / `auto_resume`. Returns the Trainer (its
-    `history`, `step_losses`, `run_dir`, `state`)."""
+    `history`, `step_losses`, `run_dir`, `state`). Raises
+    NotImplementedError on `data.cache_decoded` and `model.remat`, which
+    the port does not honour yet."""
     from geovpr_torch.cli.presets import objective_for
     from geovpr_torch.core.config import GeoposeConfig
     from geovpr_torch.models.regression import RegressionModel
     from geovpr_torch.objectives.scaler import fit_scaler
     from geovpr_torch.train.loop import Trainer
 
+    if cfg.data.cache_decoded or cfg.model.remat:
+        raise NotImplementedError(
+            "data.cache_decoded (CachedImageSource) and model.remat (a "
+            "recompute per block) are not ported yet (ROADMAP Queue 1 item "
+            "9); unset them")
     data = dataclasses.replace(
         cfg.data, **({"batch_size": batch_size} if batch_size else {}))
     train_cfg = dataclasses.replace(
@@ -115,7 +128,7 @@ def main(argv=None):
     p.add_argument("--async-checkpoint", action="store_true",
                    help="not ported: refused")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported (ROADMAP Queue 1 item 11)")
+                   help="not ported (ROADMAP Queue 1 item 7)")
     p.add_argument("--coordinator", default="")
     p.add_argument("--num-processes", type=int, default=0)
     p.add_argument("--process-id", type=int, default=-1)
@@ -131,7 +144,7 @@ def main(argv=None):
             or args.process_id >= 0):
         raise NotImplementedError(
             "multi-host training is not ported yet (ROADMAP Queue 1 item "
-            "11)")
+            "7)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available; pass --device cpu to "

@@ -47,10 +47,7 @@
 // keeping dqkv on chip and wgmma/TMA are the first things a faster version
 // changes. The kernels allocate nothing; the caller passes the scratch.
 
-#include <algorithm>
-#include <type_traits>
-
-#include "bf16_gemm.cuh"
+#include "train_gemm.cuh"
 #include "window_attn.cuh"
 
 namespace {
@@ -451,236 +448,7 @@ swin_train_attn_bwd_kernel(const bf16* __restrict__ qkv,
     }
 }
 
-// --------------------------------------------------------- plain GEMMs ----
-// out = op(A) op(B) with f32 accumulation, WMMA 16x16x16 bf16, 64 x 64
-// tiles, 4 warps of 32 x 32. op(A) is (M, K): A row-major (M, K), or with
-// kTA stored (K, M) row-major (a transpose read in place by col-major
-// fragments); op(B) is (K, N): B row-major (K, N), or with kTB stored
-// (N, K). blockIdx.z splits K into chunks of kchunk (a multiple of 32).
-// Epilogues: TG_BF16 writes bf16(acc + bias[col]) (bias may be null);
-// TG_F32 writes the split's partial acc to out_f32 + z * M * N.
-// Requires the contiguous dimension of each operand to be a multiple of 8.
-constexpr int TG_BM = 64, TG_BN = 64, TG_BK = 32, TG_THREADS = 128;
-enum { TG_BF16 = 0, TG_F32 = 1 };
-
-template <bool kTA, bool kTB, int kEpi>
-__global__ void __launch_bounds__(TG_THREADS)
-tgemm_kernel(const bf16* __restrict__ a, int lda, const bf16* __restrict__ b,
-             int ldb, int M, int N, int K, int kchunk,
-             const float* __restrict__ bias, bf16* __restrict__ out_bf16,
-             float* __restrict__ out_f32) {
-  constexpr int A_ROWS = kTA ? TG_BK : TG_BM;
-  constexpr int A_LD = (kTA ? TG_BM : TG_BK) + 8;
-  constexpr int B_ROWS = kTB ? TG_BN : TG_BK;
-  constexpr int B_LDT = (kTB ? TG_BK : TG_BN) + 8;
-  constexpr int CS_LD = TG_BN + 4;
-  __shared__ __align__(128) bf16 As[A_ROWS * A_LD];
-  __shared__ __align__(128) bf16 Bs[B_ROWS * B_LDT];
-  __shared__ __align__(128) float Cs[TG_BM * CS_LD];
-  typedef typename std::conditional<kTA, wmma::col_major, wmma::row_major>::type LA;
-  typedef typename std::conditional<kTB, wmma::col_major, wmma::row_major>::type LB;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
-  const int m0 = blockIdx.y * TG_BM;
-  const int n0 = blockIdx.x * TG_BN;
-  const int kbeg = blockIdx.z * kchunk;
-  const int kend = min(K, kbeg + kchunk);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = kbeg; k0 < kend; k0 += TG_BK) {
-    // A tile: (rows, 8-element chunks along the contiguous dimension)
-    constexpr int A_CH = (A_LD - 8) / 8;
-    for (int i = tid; i < A_ROWS * A_CH; i += TG_THREADS) {
-      const int r = i / A_CH;
-      const int c8 = (i % A_CH) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (!kTA) {
-        if (m0 + r < M && k0 + c8 < kend)
-          v = *reinterpret_cast<const uint4*>(a + (size_t)(m0 + r) * lda + k0 + c8);
-      } else {
-        if (k0 + r < kend && m0 + c8 < M)
-          v = *reinterpret_cast<const uint4*>(a + (size_t)(k0 + r) * lda + m0 + c8);
-      }
-      *reinterpret_cast<uint4*>(As + r * A_LD + c8) = v;
-    }
-    constexpr int B_CH = (B_LDT - 8) / 8;
-    for (int i = tid; i < B_ROWS * B_CH; i += TG_THREADS) {
-      const int r = i / B_CH;
-      const int c8 = (i % B_CH) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (!kTB) {
-        if (k0 + r < kend && n0 + c8 < N)
-          v = *reinterpret_cast<const uint4*>(b + (size_t)(k0 + r) * ldb + n0 + c8);
-      } else {
-        if (n0 + r < N && k0 + c8 < kend)
-          v = *reinterpret_cast<const uint4*>(b + (size_t)(n0 + r) * ldb + k0 + c8);
-      }
-      *reinterpret_cast<uint4*>(Bs + r * B_LDT + c8) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TG_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int mm = wm * 32 + i * 16;
-        wmma::load_matrix_sync(fa[i], kTA ? As + kk * A_LD + mm : As + mm * A_LD + kk,
-                               A_LD);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int nn = wn * 32 + j * 16;
-        wmma::load_matrix_sync(fb[j], kTB ? Bs + nn * B_LDT + kk : Bs + kk * B_LDT + nn,
-                               B_LDT);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * CS_LD + wn * 32 + j * 16,
-                              acc[i][j], CS_LD, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < TG_BM * TG_BN; i += TG_THREADS) {
-    const int r = i / TG_BN;
-    const int c = i % TG_BN;
-    const int row = m0 + r;
-    const int col = n0 + c;
-    if (row >= M || col >= N) continue;
-    const float v = Cs[r * CS_LD + c];
-    if (kEpi == TG_BF16)
-      out_bf16[(size_t)row * N + col] = __float2bfloat16(bias ? v + bias[col] : v);
-    else
-      out_f32[(size_t)blockIdx.z * M * N + (size_t)row * N + col] = v;
-  }
-}
-
-// out[e] = sum_s part[s * n + e], s in order: the deterministic reduction
-// of every partial sum above.
-__global__ void reduce_partials_kernel(const float* __restrict__ part, int S,
-                                       size_t n, float* __restrict__ out) {
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int i = 0; i < S; ++i) s += part[(size_t)i * n + e];
-    out[e] = s;
-  }
-}
-
-// part[z][c] = sum over rows [z * rchunk, (z + 1) * rchunk) of x[row][c]
-__global__ void colsum_partials_kernel(const bf16* __restrict__ x, int M,
-                                       int C, int rchunk,
-                                       float* __restrict__ part) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const int r1 = min(M, (blockIdx.y + 1) * rchunk);
-  float s = 0.f;
-  for (int r = blockIdx.y * rchunk; r < r1; ++r)
-    s += __bfloat162float(x[(size_t)r * C + c]);
-  part[(size_t)blockIdx.y * C + c] = s;
-}
-
-// The LN recompute of K9c, one warp per row: f32 two-pass statistics (as
-// bf16_gemm.cuh's prologue), h = bf16(xhat * ls + lb), and each row's mean
-// and 1/std for the VJP.
-__global__ void ln_rows_kernel(const bf16* __restrict__ x,
-                               const float* __restrict__ ls,
-                               const float* __restrict__ lb, float eps, int M,
-                               int C, bf16* __restrict__ h,
-                               float2* __restrict__ stats) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= M) return;
-  const bf16* xr = x + (size_t)row * C;
-  float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += __bfloat162float(xr[c]);
-  const float mu = warp_sum(s) / C;
-  float q = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = __bfloat162float(xr[c]) - mu;
-    q += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(q) / C + eps);
-  for (int c = lane; c < C; c += 32) {
-    const float d = __bfloat162float(xr[c]) - mu;
-    h[(size_t)row * C + c] = __float2bfloat16(d * rstd * ls[c] + lb[c]);
-  }
-  if (lane == 0) stats[row] = make_float2(mu, rstd);
-}
-
-// The LN VJP of K9c, one warp per row, CPL = C / 32 columns a lane:
-// dx = rstd (dh ls - mean(dh ls) - xhat mean(dh ls xhat)) (bf16), and the
-// warp's partial sums of dh xhat (dls) and dh (dlb) over its rows, written
-// to part_ls / part_lb at row blockIdx.x * warps + warp.
-template <int CPL>
-__global__ void __launch_bounds__(256)
-ln_vjp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dh,
-              const float2* __restrict__ stats, const float* __restrict__ ls,
-              int M, bf16* __restrict__ dx, float* __restrict__ part_ls,
-              float* __restrict__ part_lb) {
-  constexpr int C = CPL * 32;
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const int wid = blockIdx.x * warps + (threadIdx.x >> 5);
-  float acc_ls[CPL], acc_lb[CPL], lsv[CPL];
-#pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    acc_ls[i] = 0.f;
-    acc_lb[i] = 0.f;
-    lsv[i] = ls[lane + 32 * i];
-  }
-  for (int row = wid; row < M; row += gridDim.x * warps) {
-    const float2 st = stats[row];
-    float xh[CPL], dxh[CPL];
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const size_t o = (size_t)row * C + lane + 32 * i;
-      xh[i] = (__bfloat162float(x[o]) - st.x) * st.y;
-      const float d = __bfloat162float(dh[o]);
-      acc_ls[i] += d * xh[i];
-      acc_lb[i] += d;
-      dxh[i] = d * lsv[i];
-      s1 += dxh[i];
-      s2 += dxh[i] * xh[i];
-    }
-    const float m1 = warp_sum(s1) / C;
-    const float m2 = warp_sum(s2) / C;
-#pragma unroll
-    for (int i = 0; i < CPL; ++i)
-      dx[(size_t)row * C + lane + 32 * i] =
-          __float2bfloat16(st.y * (dxh[i] - m1 - xh[i] * m2));
-  }
-#pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    part_ls[(size_t)wid * C + lane + 32 * i] = acc_ls[i];
-    part_lb[(size_t)wid * C + lane + 32 * i] = acc_lb[i];
-  }
-}
-
 // ---------------------------------------------------------------- host ----
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
 
 bool train_shapes_ok(int B, int S, int C, int H, int win, int shift) {
   return B > 0 && H > 0 && C == H * SW_DH && C % 64 == 0 && C <= 1024 &&
@@ -689,48 +457,8 @@ bool train_shapes_ok(int B, int S, int C, int H, int win, int shift) {
          (long long)B * S * S / GEMM_BM + 1 <= 65535;
 }
 
-int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
-
-// split of a reduction over `rows` rows into S chunks (multiples of 32) so
-// that about 4 CTAs per SM run: S = ceil(528 / tiles), at most rows / 32
-void split_rows(int rows, int tiles, int* S, int* chunk) {
-  int s = cdiv(528, tiles);
-  s = std::max(1, std::min(s, cdiv(rows, TG_BK)));
-  int c = cdiv(cdiv(rows, s), TG_BK) * TG_BK;
-  *S = cdiv(rows, c);
-  *chunk = c;
-}
-
-template <bool kTA, bool kTB, int kEpi>
-cudaError_t tgemm(cudaStream_t st, const bf16* a, int lda, const bf16* b,
-                  int ldb, int M, int N, int K, int splits, int kchunk,
-                  const float* bias, bf16* out_bf16, float* out_f32) {
-  tgemm_kernel<kTA, kTB, kEpi>
-      <<<dim3(cdiv(N, TG_BN), cdiv(M, TG_BM), splits), TG_THREADS, 0, st>>>(
-          a, lda, b, ldb, M, N, K, kchunk, bias, out_bf16, out_f32);
-  return cudaGetLastError();
-}
-
-cudaError_t reduce(cudaStream_t st, const float* part, int S, size_t n, float* out) {
-  reduce_partials_kernel<<<std::min(cdiv(n, 256), 4096), 256, 0, st>>>(part, S, n, out);
-  return cudaGetLastError();
-}
-
-// column sums of a bf16 (M, C) matrix into out (C) through part (S * C)
-cudaError_t colsum(cudaStream_t st, const bf16* x, int M, int C, float* part,
-                   float* out) {
-  int S, chunk;
-  split_rows(M, cdiv(C, 128), &S, &chunk);
-  colsum_partials_kernel<<<dim3(cdiv(C, 128), S), 128, 0, st>>>(x, M, C, chunk, part);
-  cudaError_t e = cudaGetLastError();
-  return e != cudaSuccess ? e : reduce(st, part, S, C, out);
-}
-
 // the window groups of the core backward: about 2 CTAs per SM over all heads
 int core_groups(int BW, int H) { return std::max(1, std::min(BW, cdiv(264, H))); }
-
-constexpr int LN_VJP_BLOCKS = 132;
-constexpr int LN_VJP_WARPS = 8;
 
 // f32 scratch K9c needs (the largest partial-sum buffer of its launches)
 long long bwd_scratch_floats(int B, int S, int C, int H, int win) {
@@ -896,21 +624,10 @@ extern "C" int geovpr_swin_train_bwd_all(
   const int parts = LN_VJP_BLOCKS * LN_VJP_WARPS;
   float* pls = pt;
   float* plb = pt + (size_t)parts * C;
-  const float2* stt = static_cast<const float2*>(stats);
-  const float* lsp = static_cast<const float*>(ln_scale);
-  bf16* dxb = static_cast<bf16*>(dx);
-  switch (C / 32) {
-    case 2: ln_vjp_kernel<2><<<LN_VJP_BLOCKS, 256, 0, st>>>(xb, dab, stt, lsp, M, dxb, pls, plb); break;
-    case 4: ln_vjp_kernel<4><<<LN_VJP_BLOCKS, 256, 0, st>>>(xb, dab, stt, lsp, M, dxb, pls, plb); break;
-    case 6: ln_vjp_kernel<6><<<LN_VJP_BLOCKS, 256, 0, st>>>(xb, dab, stt, lsp, M, dxb, pls, plb); break;
-    case 8: ln_vjp_kernel<8><<<LN_VJP_BLOCKS, 256, 0, st>>>(xb, dab, stt, lsp, M, dxb, pls, plb); break;
-    case 10: ln_vjp_kernel<10><<<LN_VJP_BLOCKS, 256, 0, st>>>(xb, dab, stt, lsp, M, dxb, pls, plb); break;
-    case 12: ln_vjp_kernel<12><<<LN_VJP_BLOCKS, 256, 0, st>>>(xb, dab, stt, lsp, M, dxb, pls, plb); break;
-    case 14: ln_vjp_kernel<14><<<LN_VJP_BLOCKS, 256, 0, st>>>(xb, dab, stt, lsp, M, dxb, pls, plb); break;
-    case 16: ln_vjp_kernel<16><<<LN_VJP_BLOCKS, 256, 0, st>>>(xb, dab, stt, lsp, M, dxb, pls, plb); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if ((e = ln_vjp(st, xb, dab, static_cast<const float2*>(stats),
+                  static_cast<const float*>(ln_scale), nullptr, M, C,
+                  static_cast<bf16*>(dx), pls, plb)) != cudaSuccess)
+    return (int)e;
   if ((e = reduce(st, pls, parts, C, static_cast<float*>(dls))) != cudaSuccess)
     return (int)e;
   return (int)reduce(st, plb, parts, C, static_cast<float*>(dlb));

@@ -1,0 +1,350 @@
+// The row-stream pieces shared by the training backward kernels K9c
+// (swin_train.cu) and K8c (mhsa_train.cu), for Hopper (sm_90a): a WMMA
+// GEMM with transposed operands read in place and a split-K partial-sum
+// epilogue, the fixed-order reduction of partial sums, column sums, and
+// the LayerNorm recompute and VJP, one warp per row. No atomics: every
+// cross-CTA sum is a partial per CTA and one reduce_partials launch that
+// adds the partials in order, so a training step repeats bit for bit.
+
+#pragma once
+
+#include <algorithm>
+#include <type_traits>
+
+#include "bf16_gemm.cuh"
+
+namespace {
+
+// --------------------------------------------------------- plain GEMMs ----
+// out = op(A) op(B) with f32 accumulation, WMMA 16x16x16 bf16, 64 x 64
+// tiles, 4 warps of 32 x 32. op(A) is (M, K): A row-major (M, K), or with
+// kTA stored (K, M) row-major (a transpose read in place by col-major
+// fragments); op(B) is (K, N): B row-major (K, N), or with kTB stored
+// (N, K). blockIdx.z splits K into chunks of kchunk (a multiple of 32).
+// Epilogues: TG_BF16 writes bf16(acc + bias[col]) (bias may be null);
+// TG_F32 writes the split's partial acc to out_f32 + z * M * N; TG_GY (no
+// K split) writes, for the tile's row block y, the column sums
+// out_f32[y * N + col] = sum over its rows of rowmul[row][col] *
+// (acc + bias[col]), each column summed in row order.
+// Requires the contiguous dimension of each operand to be a multiple of 8.
+constexpr int TG_BM = 64, TG_BN = 64, TG_BK = 32, TG_THREADS = 128;
+enum { TG_BF16 = 0, TG_F32 = 1, TG_GY = 2 };
+
+template <bool kTA, bool kTB, int kEpi>
+__global__ void __launch_bounds__(TG_THREADS)
+tgemm_kernel(const bf16* __restrict__ a, int lda, const bf16* __restrict__ b,
+             int ldb, int M, int N, int K, int kchunk,
+             const float* __restrict__ bias, bf16* __restrict__ out_bf16,
+             float* __restrict__ out_f32,
+             const bf16* __restrict__ rowmul = nullptr) {
+  constexpr int A_ROWS = kTA ? TG_BK : TG_BM;
+  constexpr int A_LD = (kTA ? TG_BM : TG_BK) + 8;
+  constexpr int B_ROWS = kTB ? TG_BN : TG_BK;
+  constexpr int B_LDT = (kTB ? TG_BK : TG_BN) + 8;
+  constexpr int CS_LD = TG_BN + 4;
+  __shared__ __align__(128) bf16 As[A_ROWS * A_LD];
+  __shared__ __align__(128) bf16 Bs[B_ROWS * B_LDT];
+  __shared__ __align__(128) float Cs[TG_BM * CS_LD];
+  typedef typename std::conditional<kTA, wmma::col_major, wmma::row_major>::type LA;
+  typedef typename std::conditional<kTB, wmma::col_major, wmma::row_major>::type LB;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wm = warp >> 1;
+  const int wn = warp & 1;
+  const int m0 = blockIdx.y * TG_BM;
+  const int n0 = blockIdx.x * TG_BN;
+  const int kbeg = blockIdx.z * kchunk;
+  const int kend = min(K, kbeg + kchunk);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int k0 = kbeg; k0 < kend; k0 += TG_BK) {
+    // A tile: (rows, 8-element chunks along the contiguous dimension)
+    constexpr int A_CH = (A_LD - 8) / 8;
+    for (int i = tid; i < A_ROWS * A_CH; i += TG_THREADS) {
+      const int r = i / A_CH;
+      const int c8 = (i % A_CH) * 8;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (!kTA) {
+        if (m0 + r < M && k0 + c8 < kend)
+          v = *reinterpret_cast<const uint4*>(a + (size_t)(m0 + r) * lda + k0 + c8);
+      } else {
+        if (k0 + r < kend && m0 + c8 < M)
+          v = *reinterpret_cast<const uint4*>(a + (size_t)(k0 + r) * lda + m0 + c8);
+      }
+      *reinterpret_cast<uint4*>(As + r * A_LD + c8) = v;
+    }
+    constexpr int B_CH = (B_LDT - 8) / 8;
+    for (int i = tid; i < B_ROWS * B_CH; i += TG_THREADS) {
+      const int r = i / B_CH;
+      const int c8 = (i % B_CH) * 8;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (!kTB) {
+        if (k0 + r < kend && n0 + c8 < N)
+          v = *reinterpret_cast<const uint4*>(b + (size_t)(k0 + r) * ldb + n0 + c8);
+      } else {
+        if (n0 + r < N && k0 + c8 < kend)
+          v = *reinterpret_cast<const uint4*>(b + (size_t)(n0 + r) * ldb + k0 + c8);
+      }
+      *reinterpret_cast<uint4*>(Bs + r * B_LDT + c8) = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < TG_BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int mm = wm * 32 + i * 16;
+        wmma::load_matrix_sync(fa[i], kTA ? As + kk * A_LD + mm : As + mm * A_LD + kk,
+                               A_LD);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int nn = wn * 32 + j * 16;
+        wmma::load_matrix_sync(fb[j], kTB ? Bs + nn * B_LDT + kk : Bs + kk * B_LDT + nn,
+                               B_LDT);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * CS_LD + wn * 32 + j * 16,
+                              acc[i][j], CS_LD, wmma::mem_row_major);
+  __syncthreads();
+  if (kEpi == TG_GY) {
+    for (int c = tid; c < TG_BN; c += TG_THREADS) {
+      const int col = n0 + c;
+      if (col >= N) continue;
+      float s = 0.f;
+      for (int r = 0; r < TG_BM && m0 + r < M; ++r)
+        s += __bfloat162float(rowmul[(size_t)(m0 + r) * N + col]) *
+             (Cs[r * CS_LD + c] + bias[col]);
+      out_f32[(size_t)blockIdx.y * N + col] = s;
+    }
+    return;
+  }
+  for (int i = tid; i < TG_BM * TG_BN; i += TG_THREADS) {
+    const int r = i / TG_BN;
+    const int c = i % TG_BN;
+    const int row = m0 + r;
+    const int col = n0 + c;
+    if (row >= M || col >= N) continue;
+    const float v = Cs[r * CS_LD + c];
+    if (kEpi == TG_BF16)
+      out_bf16[(size_t)row * N + col] = __float2bfloat16(bias ? v + bias[col] : v);
+    else
+      out_f32[(size_t)blockIdx.z * M * N + (size_t)row * N + col] = v;
+  }
+}
+
+// out[e] = sum_s part[s * n + e], s in order: the deterministic reduction
+// of every partial sum above.
+__global__ void reduce_partials_kernel(const float* __restrict__ part, int S,
+                                       size_t n, float* __restrict__ out) {
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int i = 0; i < S; ++i) s += part[(size_t)i * n + e];
+    out[e] = s;
+  }
+}
+
+// part[z][c] = sum over rows [z * rchunk, (z + 1) * rchunk) of x[row][c],
+// each term times mul[c] in f32 where mul is given
+__global__ void colsum_partials_kernel(const bf16* __restrict__ x, int M,
+                                       int C, int rchunk,
+                                       float* __restrict__ part,
+                                       const float* __restrict__ mul) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const int r1 = min(M, (blockIdx.y + 1) * rchunk);
+  float s = 0.f;
+  if (mul) {
+    const float m = mul[c];
+    for (int r = blockIdx.y * rchunk; r < r1; ++r)
+      s += __bfloat162float(x[(size_t)r * C + c]) * m;
+  } else {
+    for (int r = blockIdx.y * rchunk; r < r1; ++r)
+      s += __bfloat162float(x[(size_t)r * C + c]);
+  }
+  part[(size_t)blockIdx.y * C + c] = s;
+}
+
+// The LN recompute of K9c, one warp per row: f32 two-pass statistics (as
+// bf16_gemm.cuh's prologue), h = bf16(xhat * ls + lb), and each row's mean
+// and 1/std for the VJP.
+__global__ void ln_rows_kernel(const bf16* __restrict__ x,
+                               const float* __restrict__ ls,
+                               const float* __restrict__ lb, float eps, int M,
+                               int C, bf16* __restrict__ h,
+                               float2* __restrict__ stats) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= M) return;
+  const bf16* xr = x + (size_t)row * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += __bfloat162float(xr[c]);
+  const float mu = warp_sum(s) / C;
+  float q = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = __bfloat162float(xr[c]) - mu;
+    q += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(q) / C + eps);
+  for (int c = lane; c < C; c += 32) {
+    const float d = __bfloat162float(xr[c]) - mu;
+    h[(size_t)row * C + c] = __float2bfloat16(d * rstd * ls[c] + lb[c]);
+  }
+  if (lane == 0) stats[row] = make_float2(mu, rstd);
+}
+
+// The LN VJP of K9c and K8c, one warp per row, CPL = C / 32 columns a lane:
+// dx = rstd (dh ls - mean(dh ls) - xhat mean(dh ls xhat)) [+ resid, in
+// f32] (bf16), and the
+// warp's partial sums of dh xhat (dls) and dh (dlb) over its rows, written
+// to part_ls / part_lb at row blockIdx.x * warps + warp.
+template <int CPL>
+__global__ void __launch_bounds__(256)
+ln_vjp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dh,
+              const float2* __restrict__ stats, const float* __restrict__ ls,
+              const bf16* __restrict__ resid, int M, bf16* __restrict__ dx,
+              float* __restrict__ part_ls, float* __restrict__ part_lb) {
+  constexpr int C = CPL * 32;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int wid = blockIdx.x * warps + (threadIdx.x >> 5);
+  float acc_ls[CPL], acc_lb[CPL], lsv[CPL];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    acc_ls[i] = 0.f;
+    acc_lb[i] = 0.f;
+    lsv[i] = ls[lane + 32 * i];
+  }
+  for (int row = wid; row < M; row += gridDim.x * warps) {
+    const float2 st = stats[row];
+    float xh[CPL], dxh[CPL];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const size_t o = (size_t)row * C + lane + 32 * i;
+      xh[i] = (__bfloat162float(x[o]) - st.x) * st.y;
+      const float d = __bfloat162float(dh[o]);
+      acc_ls[i] += d * xh[i];
+      acc_lb[i] += d;
+      dxh[i] = d * lsv[i];
+      s1 += dxh[i];
+      s2 += dxh[i] * xh[i];
+    }
+    const float m1 = warp_sum(s1) / C;
+    const float m2 = warp_sum(s2) / C;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const size_t o = (size_t)row * C + lane + 32 * i;
+      float v = st.y * (dxh[i] - m1 - xh[i] * m2);
+      if (resid) v += __bfloat162float(resid[o]);
+      dx[o] = __float2bfloat16(v);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    part_ls[(size_t)wid * C + lane + 32 * i] = acc_ls[i];
+    part_lb[(size_t)wid * C + lane + 32 * i] = acc_lb[i];
+  }
+}
+
+
+// ---------------------------------------------------------------- host ----
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+// split of a reduction over `rows` rows into S chunks (multiples of 32) so
+// that about 4 CTAs per SM run: S = ceil(528 / tiles), at most rows / 32
+void split_rows(int rows, int tiles, int* S, int* chunk) {
+  int s = cdiv(528, tiles);
+  s = std::max(1, std::min(s, cdiv(rows, TG_BK)));
+  int c = cdiv(cdiv(rows, s), TG_BK) * TG_BK;
+  *S = cdiv(rows, c);
+  *chunk = c;
+}
+
+template <bool kTA, bool kTB, int kEpi>
+cudaError_t tgemm(cudaStream_t st, const bf16* a, int lda, const bf16* b,
+                  int ldb, int M, int N, int K, int splits, int kchunk,
+                  const float* bias, bf16* out_bf16, float* out_f32,
+                  const bf16* rowmul = nullptr) {
+  tgemm_kernel<kTA, kTB, kEpi>
+      <<<dim3(cdiv(N, TG_BN), cdiv(M, TG_BM), splits), TG_THREADS, 0, st>>>(
+          a, lda, b, ldb, M, N, K, kchunk, bias, out_bf16, out_f32, rowmul);
+  return cudaGetLastError();
+}
+
+cudaError_t reduce(cudaStream_t st, const float* part, int S, size_t n, float* out) {
+  reduce_partials_kernel<<<std::min(cdiv(n, 256), 4096), 256, 0, st>>>(part, S, n, out);
+  return cudaGetLastError();
+}
+
+// the number of partials `colsum` writes for an (M, C) matrix
+int colsum_parts(int M, int C) {
+  int S, chunk;
+  split_rows(M, cdiv(C, 128), &S, &chunk);
+  return S;
+}
+
+// column sums of a bf16 (M, C) matrix, each term times mul[c] where mul is
+// given, into out (C) through part (colsum_parts * C)
+cudaError_t colsum(cudaStream_t st, const bf16* x, int M, int C, float* part,
+                   float* out, const float* mul = nullptr) {
+  int S, chunk;
+  split_rows(M, cdiv(C, 128), &S, &chunk);
+  colsum_partials_kernel<<<dim3(cdiv(C, 128), S), 128, 0, st>>>(x, M, C, chunk, part,
+                                                                  mul);
+  cudaError_t e = cudaGetLastError();
+  return e != cudaSuccess ? e : reduce(st, part, S, C, out);
+}
+
+constexpr int LN_VJP_BLOCKS = 132;
+constexpr int LN_VJP_WARPS = 8;
+
+// ln_vjp_kernel at C = 64 .. 832 (a multiple of 64): dx (bf16, plus resid
+// where given) and the partial sums of dls / dlb, LN_VJP_BLOCKS *
+// LN_VJP_WARPS rows of C each, at part_ls / part_lb
+cudaError_t ln_vjp(cudaStream_t st, const bf16* x, const bf16* dh,
+                   const float2* stats, const float* ls, const bf16* resid,
+                   int M, int C, bf16* dx, float* part_ls, float* part_lb) {
+  switch (C / 32) {
+#define GEOVPR_LN_VJP(cpl)                                                   \
+  case cpl:                                                                  \
+    ln_vjp_kernel<cpl><<<LN_VJP_BLOCKS, LN_VJP_WARPS * 32, 0, st>>>(         \
+        x, dh, stats, ls, resid, M, dx, part_ls, part_lb);                   \
+    break;
+    GEOVPR_LN_VJP(2) GEOVPR_LN_VJP(4) GEOVPR_LN_VJP(6) GEOVPR_LN_VJP(8)
+    GEOVPR_LN_VJP(10) GEOVPR_LN_VJP(12) GEOVPR_LN_VJP(14) GEOVPR_LN_VJP(16)
+    GEOVPR_LN_VJP(18) GEOVPR_LN_VJP(20) GEOVPR_LN_VJP(22) GEOVPR_LN_VJP(24)
+    GEOVPR_LN_VJP(26)
+#undef GEOVPR_LN_VJP
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace

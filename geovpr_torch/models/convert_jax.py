@@ -70,7 +70,9 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict:
     (a `scaler` entry beside "params" is not part of it) to the port's
     state_dict: parameters as
     float32 tensors (`load_state_dict` casts them to each parameter's
-    dtype), quant leaves in their own dtype and shape."""
+    dtype: a serving build's compute dtype, a training build's f32, where
+    the fused (D, 3D) qkv weight of DINOv2 and Swin keeps JAX's f32 q, k
+    and v kernels exactly), quant leaves in their own dtype and shape."""
     params = variables.get("params", variables)
     quant = variables.get("quant", {}) if "params" in variables else {}
     stats = variables.get("batch_stats", {}) if "params" in variables else {}

@@ -10,9 +10,22 @@ the w8a8 serving path (`int8_attn`, `int8_mlp`) the attention half is
 `geovpr_torch.ops.mlp_int8.fused_mlp_block_int8` (K3). `use_kernels=False`
 selects the plain versions on any device, as `use_pallas=False` does in
 JAX. The patch-embed conv and the bf16 MLP half are plain torch ops, as the
-JAX package leaves them to XLA. Matrices are held in the compute dtype
-(q|k|v fused into one (D, 3D) weight once, at load), LayerNorm,
-attention-bias and LayerScale vectors in f32.
+JAX package leaves them to XLA. Matrices are held in `param_dtype` (q|k|v
+fused into one (D, 3D) weight once, at load) and cast to the compute dtype
+in the forward, LayerNorm, attention-bias and LayerScale vectors in f32.
+
+Training (grad enabled) routes the attention half as JAX does
+(`geovpr/models/dinov2.py:158-172`): with DropPath inert (rate 0, or the
+module in eval mode) it is `fused_mhsa_block_train` (K8a forward; K8c
+backward, or K8b where the f32 weight-gradient accumulators fail JAX's
+size gate `bwd_all_ok`, as at large-14, D = 1024); with a DropPath rate in
+training mode it is JAX's XLA route, `mhsa_attention_unfused` as torch
+ops, LayerScale, DropPath and the residual. The MLP half stays torch ops under autograd, with DropPath on its
+branch, as JAX leaves it to XLA. DropPath has one rate in every block,
+`drop_path_rate` (JAX's default 0, `dinov2.py:402`, which every preset
+keeps). A training build holds its parameters in f32 (`param_dtype`), as
+Swin's does; a serving build has `param_dtype = dtype`, so its casts are
+no-ops.
 
 Not ported: resident padding (`geovpr/models/dinov2.py:437-480`), which
 pads the token stream to the TPU's 16-row sublane quantum across the block
@@ -24,12 +37,15 @@ so those copies never exist here.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from geovpr_torch.models.backbone import BackboneOutput
-from geovpr_torch.models.layers import (LayerNorm, Mlp, QuantBlock,
-                                        lecun_normal_, normal_)
+from geovpr_torch.models.layers import (DropPath, LayerNorm, Mlp,
+                                        QuantBlock, lecun_normal_, normal_)
 from geovpr_torch.ops.mhsa import (fused_mhsa_block, fused_mhsa_block_int8,
+                                   fused_mhsa_block_train,
+                                   mhsa_attention_unfused,
                                    mhsa_block_int8_reference,
                                    mhsa_block_reference)
 from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
@@ -47,7 +63,7 @@ LN_EPS = 1e-6
 class Attention(nn.Module):
     """Parameters of the attention half: qkv_weight (D, 3D) with q|k|v
     column blocks and proj_weight (D, D), both (in, out) as the kernel takes
-    them, in the compute dtype; f32 biases."""
+    them, in the parameter dtype; f32 biases."""
 
     def __init__(self, dim: int, dtype: torch.dtype, device=None):
         super().__init__()
@@ -94,10 +110,12 @@ class DinoV2Block(QuantBlock):
 
     def __init__(self, dim: int, num_heads: int, layerscale_init: float = 1.0,
                  use_kernels: bool = True, dtype: torch.dtype = torch.float32,
-                 device=None, int8_attn: bool = False, int8_mlp: bool = False):
+                 device=None, int8_attn: bool = False, int8_mlp: bool = False,
+                 drop_path: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.use_kernels = use_kernels
+        self.drop_path = DropPath(drop_path)
         self.norm1 = LayerNorm(dim, LN_EPS, device=device)
         self.attn = Attention(dim, dtype, device=device)
         self.ls1 = LayerScale(dim, layerscale_init, device=device)
@@ -130,19 +148,31 @@ class DinoV2Block(QuantBlock):
             x = attn(x, **self._folded_args(self._k2),
                      num_heads=self.num_heads, ln_eps=LN_EPS)
         else:
-            attn = (fused_mhsa_block if self.use_kernels and not calibrating
-                    else mhsa_block_reference)
-            kw = {"calib": self.calib} if calibrating else {}
-            x = attn(x, self.norm1.weight, self.norm1.bias,
-                     self.attn.qkv_weight, self.attn.qkv_bias,
-                     self.attn.proj_weight, self.attn.proj_bias,
-                     self.ls1.gamma, self.num_heads, LN_EPS, **kw)
+            dt = x.dtype
+            args = (x, self.norm1.weight, self.norm1.bias,
+                    self.attn.qkv_weight.to(dt), self.attn.qkv_bias,
+                    self.attn.proj_weight.to(dt), self.attn.proj_bias)
+            gamma = self.ls1.gamma
+            dropping = self.drop_path.rate > 0 and self.training
+            if calibrating:
+                x = mhsa_block_reference(*args, gamma, self.num_heads, LN_EPS,
+                                         calib=self.calib)
+            elif torch.is_grad_enabled() and dropping:
+                h = mhsa_attention_unfused(*args, self.num_heads, LN_EPS)
+                x = x + self.drop_path(h * gamma.to(dt))
+            elif torch.is_grad_enabled():
+                x = fused_mhsa_block_train(*args, gamma, self.num_heads,
+                                           LN_EPS, kernels=self.use_kernels)
+            else:
+                attn = (fused_mhsa_block if self.use_kernels
+                        else mhsa_block_reference)
+                x = attn(*args, gamma, self.num_heads, LN_EPS)
         if self.mlp.int8 and not calibrating:
             mlp = (fused_mlp_block_int8 if self.use_kernels
                    else mlp_block_int8_reference)
             return mlp(x, **self._folded_args(self._k3), ln_eps=LN_EPS)
         h = self.mlp(self.norm2(x))
-        return x + h * self.ls2.gamma.to(h.dtype)
+        return x + self.drop_path(h * self.ls2.gamma.to(h.dtype))
 
 
 class DinoV2(nn.Module):
@@ -151,13 +181,17 @@ class DinoV2(nn.Module):
                  image_size: int = 224, layerscale_init: float = 1.0,
                  use_kernels: bool = True,
                  dtype: torch.dtype = torch.float32, device=None,
-                 int8_attn: bool = False, int8_mlp: bool = False):
+                 int8_attn: bool = False, int8_mlp: bool = False,
+                 drop_path_rate: float = 0.0,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
+        pdt = param_dtype or dtype
         self.hidden_size = hidden_size
         self.dtype = dtype
+        self.patch_size = patch_size
         self.num_patches = (image_size // patch_size) ** 2
         self.patch_embed = nn.Conv2d(3, hidden_size, patch_size,
-                                     stride=patch_size, dtype=dtype,
+                                     stride=patch_size, dtype=pdt,
                                      device=device)
         self.cls_token = nn.Parameter(
             torch.empty(1, 1, hidden_size, device=device))
@@ -165,8 +199,8 @@ class DinoV2(nn.Module):
             torch.empty(1, self.num_patches + 1, hidden_size, device=device))
         self.blocks = nn.ModuleList(
             DinoV2Block(hidden_size, num_heads, layerscale_init, use_kernels,
-                        dtype, device, int8_attn=int8_attn,
-                        int8_mlp=int8_mlp) for _ in range(num_layers))
+                        pdt, device, int8_attn=int8_attn, int8_mlp=int8_mlp,
+                        drop_path=drop_path_rate) for _ in range(num_layers))
         self.norm = LayerNorm(hidden_size, LN_EPS, device=device)
 
     def _init_weights(self, generator: torch.Generator) -> None:
@@ -175,9 +209,10 @@ class DinoV2(nn.Module):
 
     def forward(self, x: torch.Tensor) -> BackboneOutput:
         """x: (B, H, W, 3) NHWC images."""
-        dt = self.dtype
+        conv, dt = self.patch_embed, self.dtype
         b = x.shape[0]
-        x = self.patch_embed(x.to(dt).permute(0, 3, 1, 2))  # (B, D, h, w)
+        x = F.conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt),
+                     conv.bias.to(dt), stride=self.patch_size)  # (B, D, h, w)
         x = x.flatten(2).transpose(1, 2)                      # (B, h*w, D)
         x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1), x], dim=1)
         x = (x + self.pos_embed.to(dt)).contiguous()

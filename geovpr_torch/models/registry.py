@@ -28,7 +28,7 @@ def check_int8_serving(cfg: ModelConfig) -> None:
             "(supported: swin, dinov2, dinov2_salad, convnext)")
     if cfg.family == "convnext":
         raise NotImplementedError(
-            "w8a8 ConvNeXt is not ported yet (ROADMAP Queue 1 item 7: "
+            "w8a8 ConvNeXt is not ported yet (ROADMAP Queue 1 item 9: "
             "its calibration and K3's separate-residual path)")
     if cfg.family == "swin":
         from geovpr_torch.models.swin import SWIN_VARIANTS
@@ -37,15 +37,18 @@ def check_int8_serving(cfg: ModelConfig) -> None:
         if window is not None and not fused_window_ok(window):
             raise NotImplementedError(
                 f"w8a8 Swin at window {window} is not ported yet (ROADMAP "
-                "Queue 1 item 6: K3 at D = 96 and the int8 window-7 "
+                "Queue 1 item 9: K3 at D = 96 and the int8 window-7 "
                 "attention)")
 
 
 def check_training(cfg: ModelConfig) -> None:
     """The one rule for whether the port trains `cfg`: Swin at window 12,
-    whose attention halves have the training kernels K9a-K9c.
-    NotImplementedError, naming the ROADMAP item, for the rest."""
+    whose attention halves have the training kernels K9a-K9c, and DINOv2,
+    whose have K8a-K8c. NotImplementedError, naming the ROADMAP item, for
+    the rest."""
     family = cfg.family
+    if family == "dinov2":
+        return
     if family == "swin":
         from geovpr_torch.models.swin import SWIN_VARIANTS
         from geovpr_torch.ops.swin_block import fused_window_ok
@@ -53,17 +56,16 @@ def check_training(cfg: ModelConfig) -> None:
         if window is not None and not fused_window_ok(window):
             raise NotImplementedError(
                 f"training Swin at window {window} is not ported yet (ROADMAP "
-                "Queue 1 item 10: K7 has no backward yet)")
+                "Queue 1 item 4: K7 has no backward yet)")
         return
-    item = {"dinov2": "the DINOv2 training kernels K8a-K8c",
-            "dinov2_salad": "the DINOv2 training kernels K8a-K8c",
-            "efficientnet": "BatchNorm in training mode",
-            "convnext": "ConvNeXt training"}.get(family)
+    item = {"dinov2_salad": "2: the frozen backbone, freeze -> unfreeze "
+                            "and angle_rot of the DINOv2 + SALAD presets",
+            "efficientnet": "5: BatchNorm in training mode",
+            "convnext": "5: ConvNeXt training"}.get(family)
     if item is None:
         raise ValueError(f"unknown model family {family!r}")
     raise NotImplementedError(
-        f"training {family} is not ported yet (ROADMAP Queue 1 item 10: "
-        f"{item})")
+        f"training {family} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 def build_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32, *,
@@ -109,7 +111,8 @@ def build_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32, *,
         if cfg.variant not in DINOV2_VARIANTS:
             raise ValueError(f"unknown dinov2 variant {cfg.variant!r}")
         return DinoV2(**DINOV2_VARIANTS[cfg.variant],
-                      image_size=cfg.image_size or 224, **kw)
+                      image_size=cfg.image_size or 224, **kw,
+                      param_dtype=torch.float32 if train else None)
     if family == "dinov2_salad":
         from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
         from geovpr_torch.models.salad import DinoV2Salad

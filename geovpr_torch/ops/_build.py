@@ -120,6 +120,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         "geovpr_swin_train_bwd_core": [vp] * 6 + [ci] * 6 + [cf, vp],
         "geovpr_swin_train_bwd_all": [vp] * 22 + [ci] * 6 + [cf, cf, vp],
         "geovpr_swin_train_scratch_floats": [ci] * 5,
+        # K8b/K8c (mhsa_train.cu; K8a is K1): pointers, B N D H, floats, stream
+        "geovpr_vit_train_bwd_core": [vp] * 4 + [ci] * 4 + [cf, vp],
+        "geovpr_vit_train_bwd_all": [vp] * 25 + [ci] * 4 + [cf, cf, vp],
+        "geovpr_vit_train_scratch_floats": [ci] * 3,
         "geovpr_swin_train_init": [],
         "geovpr_mhsa_max_dim": [],
         "geovpr_mhsa_init": [],
@@ -132,8 +136,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ci
-    # the one entry that returns a size, not a cudaError_t
+    # the entries that return a size, not a cudaError_t
     lib.geovpr_swin_train_scratch_floats.restype = ctypes.c_longlong
+    lib.geovpr_vit_train_scratch_floats.restype = ctypes.c_longlong
 
 
 @functools.lru_cache(maxsize=None)

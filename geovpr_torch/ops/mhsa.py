@@ -1,5 +1,6 @@
 """Fused pre-LN attention half-blocks and their plain versions: kernel K1
-(bf16) and, below, kernel K2 (w8a8).
+(bf16 serving), kernel K2 (w8a8 serving) and, below, the training
+half-block's kernels K8a (forward), K8b and K8c (backward).
 
     out = x + gamma * (MHSA(LN(x)) @ Wo + bo)
 
@@ -17,9 +18,11 @@ import math
 
 import torch
 
-from geovpr_torch.ops.quant import (amax_into, check_int8_kernel_args,
-                                    check_shapes, int_mm, layer_norm_f32,
-                                    round_clip_int8)
+from geovpr_torch.ops.quant import (amax_into, check_devices,
+                                    check_int8_kernel_args, check_shapes,
+                                    int_mm, layer_norm_f32, round_clip_int8)
+from geovpr_torch.ops.swin_block import (_heads, _ln_parts, _proj, _stream,
+                                         _unheads)
 
 _KERNEL_HEAD_DIM = 64
 
@@ -41,6 +44,13 @@ def mhsa_block_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma,
     reads, at the points JAX's calibration pass sows them (`attn_x` the LN
     output, `attn_q`/`attn_k`/`attn_v` the projections, `attn_ctx` the
     context before the out projection)."""
+    return _mhsa_forward(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma,
+                         num_heads, ln_eps, calib)[0]
+
+
+def _mhsa_forward(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma,
+                  num_heads, ln_eps, calib=None):
+    """The plain half-block: out, qkv (B, N, 3D) and ctx (B, N, D)."""
     b, n, d = x.shape
     dh = d // num_heads
     dt = x.dtype
@@ -65,7 +75,7 @@ def mhsa_block_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma,
     if calib is not None:
         amax_into(calib, "attn_ctx", o)
     out = _mm(o, wo) + bo.float()
-    return (out * gamma.float() + xf).to(dt)
+    return (out * gamma.float() + xf).to(dt), qkv, o
 
 
 def _check(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma, num_heads):
@@ -113,40 +123,38 @@ def fused_mhsa_block(x: torch.Tensor, ln_scale: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad for t in
                                        (x, *got.values())):
         raise RuntimeError(
-            "fused_mhsa_block has no backward kernel yet (K8 in ROADMAP "
-            "Queue 2); run the forward under torch.inference_mode()")
-    for name, t in (("x", x), ("wqkv", wqkv), ("wo", wo)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16 on CUDA, got {t.dtype}")
-    for name in ("ln_scale", "ln_bias", "bqkv", "bo", "gamma"):
-        if got[name].dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {got[name].dtype}")
-    for name, t in (("x", x), *got.items()):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    b, n, d = x.shape
-    if d // num_heads != _KERNEL_HEAD_DIM:
-        raise ValueError(f"the kernel takes head dim {_KERNEL_HEAD_DIM}, got "
-                         f"{d // num_heads}")
+            "fused_mhsa_block is the serving forward (K1) and has no "
+            "backward: under grad call fused_mhsa_block_train (K8a-K8c), or "
+            "run the forward under torch.inference_mode()")
+    _check_cuda_args({"x": x, **got}, x.shape[-1], num_heads)
+    out = _launch_k1(x, got, num_heads, ln_eps)[0]
+    fused_mhsa_block.launches += 1
+    return out
 
+
+def _launch_k1(x, got: dict, num_heads: int, ln_eps: float):
+    """K1's launches on a checked bf16 CUDA stream x (B, N, D): out and
+    the qkv (B, N, 3D; post-bias, unscaled) and ctx (B, N, D) that K1
+    writes to device memory between its launches."""
+    b, n, d = x.shape
     lib, max_dim = _kernel_library(x.device.index)
     if d > max_dim:
         raise ValueError(f"D={d} exceeds the kernel's shared-memory limit "
                          f"({max_dim})")
-    qkv = torch.empty((b * n, 3 * d), dtype=x.dtype, device=x.device)
-    ctx = torch.empty((b * n, d), dtype=x.dtype, device=x.device)
+    qkv = torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device)
+    ctx = torch.empty_like(x)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = lib.geovpr_mhsa_block_bf16(
-            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-            gamma.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), out.data_ptr(),
-            b, n, d, num_heads, float(ln_eps),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), got["ln_scale"].data_ptr(),
+            got["ln_bias"].data_ptr(), got["wqkv"].data_ptr(),
+            got["bqkv"].data_ptr(), got["wo"].data_ptr(),
+            got["bo"].data_ptr(), got["gamma"].data_ptr(), qkv.data_ptr(),
+            ctx.data_ptr(), out.data_ptr(), b, n, d, num_heads, float(ln_eps),
+            _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"mhsa kernel launch failed: CUDA error {rc}")
-    fused_mhsa_block.launches += 1
-    return out
+    return out, qkv, ctx
 
 
 fused_mhsa_block.launches = 0
@@ -289,3 +297,326 @@ def fused_mhsa_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
 
 
 fused_mhsa_block_int8.launches = 0
+
+
+# ---------------------------------------------------------- K8a/b/c ----
+#
+# The training half-block, out = x + gamma * (MHSA(LN(x)) @ Wo + bo), and
+# its structured backward: the port of `fused_mhsa_block`'s custom VJP
+# (`pallas_mhsa.py:931-1015`), its forward kernel `_fused_mhsa_pallas_train`
+# (K8a), the attention-core backward `_attn_bwd_pallas` (K8b) and the
+# all-in-one backward `_mhsa_bwd_all_pallas` (K8c). The residuals are qkv
+# (B, N, 3D; post-bias, unscaled) and ctx (B, N, D), unpadded: the kernels
+# mask the keys past N, so JAX's padding of N to 16 rows has no
+# counterpart. K8a on the card is K1's launches (`csrc/mhsa.cu`), which
+# write qkv and ctx to device memory anyway: the training forward keeps
+# them. K8b and K8c are `csrc/mhsa_train.cu`; K1's attention and their p
+# recompute share `csrc/vit_attn.cuh`. The kernels and the plain versions
+# round where JAX's masked bodies round (`_mhsa_train_kernel`,
+# `_attn_bwd_kernel`, `_mhsa_bwd_all_kernel`) and its split composition
+# (`:971-1012`) rounds.
+
+
+def bwd_all_ok(d: int) -> bool:
+    """JAX's gate for the all-in-one backward (`_bwd_all_ok`,
+    `pallas_mhsa.py:1226-1237`): its f32 dWqkv (D, 3D) and dWo (D, D)
+    accumulators and six D vectors within 11 MiB. It holds at base-14 (D =
+    768, K8c) and fails at large-14 (D = 1024), where the split backward runs
+    K8b. JAX's second clause, which rejects f32 activations at production
+    sizes, is not copied: the card trains in bf16 only."""
+    return (4 * d * d + 6 * d) * 4 <= 11 * 1024 * 1024
+
+
+def mhsa_train_fwd_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma,
+                             num_heads: int, ln_eps: float = 1e-6):
+    """Plain K8a: out (B, N, D) and the residuals qkv (B, N, 3D) and ctx
+    (B, N, D), all in x.dtype, rounded where `_mhsa_train_kernel` rounds
+    (the LN output, qkv, p after its normalisation, ctx, out): the
+    arithmetic of `mhsa_block_reference`."""
+    return _mhsa_forward(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma,
+                         num_heads, ln_eps)
+
+
+def mhsa_attn_bwd_core_reference(qkv, da, num_heads: int):
+    """Plain K8b: qkv (B, N, 3D) and da = dL/dctx (B, N, D) -> dqkv (B, N,
+    3D) in qkv.dtype, with p recomputed (f32, max-shifted, normalised) and
+    rounded as `_attn_bwd_kernel` rounds: p to the stream dtype for dv =
+    p^T da, ds = p (dp - sum(dp p)) in f32 and ds * dh^-0.5 to the stream
+    dtype before dq = ds k and dk = ds^T q; dq, dk, dv each once."""
+    d = da.shape[-1]
+    dt = qkv.dtype
+    scale = (d // num_heads) ** -0.5
+    q, k, v = (_heads(t, num_heads) for t in qkv.split(d, dim=-1))
+    dah = _heads(da, num_heads)
+    p = torch.softmax(_mm(q, k.transpose(-1, -2)) * scale, dim=-1)
+    dp = _mm(dah, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dsb = (ds * scale).to(dt)
+    grads = (_mm(dsb, k), _mm(dsb.transpose(-1, -2), q),
+             _mm(p.to(dt).transpose(-1, -2), dah))
+    return torch.cat([_unheads(t).to(dt) for t in grads],
+                     dim=-1).reshape(qkv.shape)
+
+
+def mhsa_train_bwd_reference(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv,
+                             ctx, g, num_heads: int, ln_eps: float = 1e-6,
+                             split: bool = False, core=None):
+    """The plain structured backward from K8a's residuals and g = dL/dout
+    (B, N, D). Returns dx (B, N, D) in x.dtype and dls, dlb, dwqkv, dbqkv,
+    dwo, dbo, dgamma in f32. `split=False` is the all-in-one form
+    (`_mhsa_bwd_all_kernel`: the LN VJP written out, dx = g + dx_ln summed
+    in f32); `split=True` the split composition of the blocks where
+    `bwd_all_ok` fails (`pallas_mhsa.py:971-1012`: the LN VJP by autograd of
+    the LN, its dx_ln in the stream dtype before the f32 sum with g).
+    `core(qkv, da, num_heads)` gives dqkv: the plain K8b by default, the K8b
+    kernel on the card's split route. Both forms round dy = g gamma, da, the
+    recomputed LN output and dh to the stream dtype."""
+    b, n, d = x.shape
+    dt = x.dtype
+    m = b * n
+    gf = g.reshape(m, d).float()
+    dy = gf * gamma.float()
+    dyb = dy.to(dt)
+    da = _proj(dyb, wo.t().contiguous()).to(dt)
+    dqkv = (core or mhsa_attn_bwd_core_reference)(
+        qkv, da.reshape(b, n, d), num_heads).reshape(m, 3 * d)
+    c2 = ctx.reshape(m, d)
+    dgamma = (gf * (_proj(c2, wo) + bo.float())).sum(0)
+    dwo = _proj(c2.t().contiguous(), dyb)
+    dbo = dy.sum(0)
+    x2 = x.reshape(m, d)
+    if split:
+        with torch.enable_grad():
+            xs, ls, lb = (t.detach().requires_grad_() for t in
+                          (x2, ln_scale, ln_bias))
+            h = _ln_parts(xs, ls, lb, ln_eps, dt)[2]
+            dh = _proj(dqkv, wqkv.t().contiguous()).to(dt)
+            dx_ln, dls, dlb = torch.autograd.grad(h, (xs, ls, lb), dh)
+        h = h.detach()
+        dx = gf + dx_ln.float()
+    else:
+        xhat, rstd, h = _ln_parts(x2, ln_scale, ln_bias, ln_eps, dt)
+        dhf = _proj(dqkv, wqkv.t().contiguous()).to(dt).float()
+        dls = (dhf * xhat).sum(0)
+        dlb = dhf.sum(0)
+        dxhat = dhf * ln_scale.float()
+        dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                     - xhat * (dxhat * xhat).mean(-1, keepdim=True)) + gf
+    dwqkv = _proj(h.t().contiguous(), dqkv)
+    return (dx.to(dt).reshape(b, n, d), dls.float(), dlb.float(), dwqkv,
+            dqkv.float().sum(0), dwo, dbo, dgamma)
+
+
+_F32_VECTORS = ("ln_scale", "ln_bias", "bqkv", "bo", "gamma")
+
+
+def _check_cuda_args(tensors: dict, d: int, num_heads: int) -> None:
+    """What K1 and the training kernels take on CUDA: bf16 stream,
+    residuals and matrices, f32 vectors, all contiguous; head dim 64."""
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        want = torch.float32 if name in _F32_VECTORS else torch.bfloat16
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want} on CUDA, got {t.dtype}")
+    if d // num_heads != _KERNEL_HEAD_DIM:
+        raise ValueError(f"the kernels take head dim "
+                         f"{_KERNEL_HEAD_DIM}, got D={d}, {num_heads} heads")
+
+
+def _check_residuals(x, tensors: dict, num_heads: int) -> None:
+    """The shapes and devices of K8's residuals and gradients on a (B, N,
+    D) stream (ValueError on any other)."""
+    b, n, d = x.shape
+    if d % num_heads:
+        raise ValueError(f"D={d} is not divisible by num_heads={num_heads}")
+    want = {"g": (b, n, d), "ctx": (b, n, d), "da": (b, n, d),
+            "qkv": (b, n, 3 * d), "wqkv": (d, 3 * d), "wo": (d, d),
+            "ln_scale": (d,), "ln_bias": (d,), "bo": (d,), "gamma": (d,)}
+    check_shapes({k: want[k] for k in tensors}, tensors)
+    check_devices(x, tensors)
+
+
+def _train_lib():
+    """The built library (K8b's and K8c's kernels need no set-up)."""
+    from geovpr_torch.ops._build import load_library
+    return load_library()
+
+
+def fused_mhsa_train_fwd(x: torch.Tensor, ln_scale: torch.Tensor,
+                         ln_bias: torch.Tensor, wqkv: torch.Tensor,
+                         bqkv: torch.Tensor, wo: torch.Tensor,
+                         bo: torch.Tensor, gamma: torch.Tensor,
+                         num_heads: int, ln_eps: float = 1e-6):
+    """K8a: out (B, N, D), qkv (B, N, 3D) and ctx (B, N, D). CPU tensors
+    run the plain version; CUDA tensors launch K1's kernels, keeping the
+    qkv and ctx they write as the residuals, or raise."""
+    got = _check(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma, num_heads)
+    if x.device.type == "cpu":
+        return mhsa_train_fwd_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo,
+                                        bo, gamma, num_heads, ln_eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_cuda_args({"x": x, **got}, x.shape[-1], num_heads)
+    res = _launch_k1(x, got, num_heads, ln_eps)
+    fused_mhsa_train_fwd.launches += 1
+    return res
+
+
+fused_mhsa_train_fwd.launches = 0
+
+
+def fused_mhsa_bwd_core(qkv: torch.Tensor, da: torch.Tensor,
+                        num_heads: int) -> torch.Tensor:
+    """K8b: qkv (B, N, 3D), da (B, N, D) -> dqkv (B, N, 3D). CPU tensors run
+    the plain version; CUDA tensors launch K8b or raise."""
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    _check_residuals(da, {"qkv": qkv}, num_heads)
+    if qkv.device.type == "cpu":
+        return mhsa_attn_bwd_core_reference(qkv, da, num_heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qkv.device}")
+    _check_cuda_args({"qkv": qkv, "da": da}, d, num_heads)
+    lib = _train_lib()
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((b * n * num_heads, 4), dtype=torch.float32,
+                        device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        rc = lib.geovpr_vit_train_bwd_core(
+            qkv.data_ptr(), da.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            b, n, d, num_heads, float((d // num_heads) ** -0.5),
+            _stream(qkv.device))
+    if rc != 0:
+        raise RuntimeError(f"vit_train_bwd_core launch failed: CUDA error "
+                           f"{rc}")
+    fused_mhsa_bwd_core.launches += 1
+    return dqkv
+
+
+fused_mhsa_bwd_core.launches = 0
+
+
+def fused_mhsa_bwd_all(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv, ctx,
+                       g, num_heads: int, ln_eps: float = 1e-6):
+    """K8c: the whole attention-half backward from K8a's residuals and g =
+    dL/dout (B, N, D). Returns dx (B, N, D) and dls, dlb, dwqkv, dbqkv,
+    dwo, dbo, dgamma in f32. CPU tensors run the plain all-in-one form;
+    CUDA tensors launch K8c (where `bwd_all_ok`) or raise."""
+    b, n, d = x.shape
+    tensors = {"ln_scale": ln_scale, "ln_bias": ln_bias, "wqkv": wqkv,
+               "wo": wo, "bo": bo, "gamma": gamma, "qkv": qkv, "ctx": ctx,
+               "g": g}
+    _check_residuals(x, tensors, num_heads)
+    if x.device.type == "cpu":
+        return mhsa_train_bwd_reference(x, ln_scale, ln_bias, wqkv, wo, bo,
+                                        gamma, qkv, ctx, g, num_heads, ln_eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_cuda_args({"x": x, **tensors}, d, num_heads)
+    if not bwd_all_ok(d):
+        raise ValueError(f"K8c takes D where bwd_all_ok holds (the split "
+                         f"backward with K8b takes the wider blocks), got "
+                         f"D={d}")
+    lib = _train_lib()
+    dev, m = x.device, b * n
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    dy, da, h, dx = (torch.empty_like(x) for _ in range(4))
+    dqkv = torch.empty_like(qkv)
+    stats, astats = f32(m, 2), f32(m * num_heads, 4)
+    part = f32(lib.geovpr_vit_train_scratch_floats(b, n, d))
+    dwqkv, dbqkv, dwo = f32(d, 3 * d), f32(3 * d), f32(d, d)
+    dbo, dgamma, dls, dlb = f32(d), f32(d), f32(d), f32(d)
+    with torch.cuda.device(dev):
+        rc = lib.geovpr_vit_train_bwd_all(
+            x.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), g.data_ptr(),
+            wqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), gamma.data_ptr(),
+            ln_scale.data_ptr(), ln_bias.data_ptr(), dy.data_ptr(),
+            da.data_ptr(), dqkv.data_ptr(), h.data_ptr(), stats.data_ptr(),
+            astats.data_ptr(), part.data_ptr(), dx.data_ptr(),
+            dwqkv.data_ptr(), dbqkv.data_ptr(), dwo.data_ptr(),
+            dbo.data_ptr(), dgamma.data_ptr(), dls.data_ptr(),
+            dlb.data_ptr(), b, n, d, num_heads, float(ln_eps),
+            float((d // num_heads) ** -0.5), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"vit_train_bwd_all launch failed: CUDA error "
+                           f"{rc}")
+    fused_mhsa_bwd_all.launches += 1
+    return dx, dls, dlb, dwqkv, dbqkv, dwo, dbo, dgamma
+
+
+fused_mhsa_bwd_all.launches = 0
+
+
+class _MhsaTrain(torch.autograd.Function):
+    """K8a forward; K8c backward where `bwd_all_ok`, else the split
+    backward (torch products around K8b), as JAX's `bwd` routes
+    (`pallas_mhsa.py:946-1012`); `kernels=False` runs the plain versions
+    on any device."""
+
+    @staticmethod
+    def forward(ctx_, x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma,
+                num_heads, ln_eps, kernels):
+        fwd = fused_mhsa_train_fwd if kernels else mhsa_train_fwd_reference
+        out, qkv, ctx = fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma,
+                            num_heads, ln_eps)
+        ctx_.save_for_backward(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv,
+                               ctx)
+        ctx_.num_heads, ctx_.ln_eps, ctx_.kernels = num_heads, ln_eps, kernels
+        ctx_.bqkv_dtype = bqkv.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx_, g):
+        x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv, ctx = \
+            ctx_.saved_tensors
+        args = (x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv, ctx,
+                g.to(x.dtype).contiguous(), ctx_.num_heads, ctx_.ln_eps)
+        split = not bwd_all_ok(x.shape[-1])
+        if not ctx_.kernels:
+            out = mhsa_train_bwd_reference(*args, split=split)
+        elif split:
+            out = mhsa_train_bwd_reference(*args, split=True,
+                                           core=fused_mhsa_bwd_core)
+        else:
+            out = fused_mhsa_bwd_all(*args)
+        dx, dls, dlb, dwqkv, dbqkv, dwo, dbo, dgamma = out
+        return (dx, dls.to(ln_scale.dtype), dlb.to(ln_bias.dtype),
+                dwqkv.to(wqkv.dtype), dbqkv.to(ctx_.bqkv_dtype),
+                dwo.to(wo.dtype), dbo.to(bo.dtype), dgamma.to(gamma.dtype),
+                None, None, None)
+
+
+def fused_mhsa_block_train(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma,
+                           num_heads: int, ln_eps: float = 1e-6,
+                           kernels: bool = True) -> torch.Tensor:
+    """The differentiable half-block out = x + gamma * (MHSA(LN(x)) Wo +
+    bo), (B, N, D): `fused_mhsa_block`'s training form (its custom VJP,
+    `pallas_mhsa.py:931-1015`). The matrices' gradients come back in their
+    own dtype, as JAX's `.astype(wqkv.dtype)`. On CUDA tensors K8a and K8c
+    (or K8b) launch or raise; `kernels=False` takes the plain versions on
+    any device."""
+    return _MhsaTrain.apply(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma,
+                            num_heads, ln_eps, kernels)
+
+
+def mhsa_attention_unfused(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                           num_heads: int, ln_eps: float = 1e-6):
+    """The attention branch before LayerScale, h = proj(MHSA(LN(x))) in
+    x.dtype, as torch ops under autograd: JAX's XLA route for a training
+    block with DropPath (`geovpr/models/dinov2.py:166-172`, `_attention`),
+    which rounds the LN output, q, k, v, p, the context and h to the
+    compute dtype; the caller applies LayerScale, DropPath and the
+    residual."""
+    b, n, d = x.shape
+    dt = x.dtype
+    h = (layer_norm_f32(x.float(), ln_eps) * ln_scale.float()
+         + ln_bias.float()).to(dt)
+    qkv = (_mm(h, wqkv) + bqkv.float()).to(dt)
+    q, k, v = (_heads(t, num_heads) for t in qkv.split(d, dim=-1))
+    s = _mm(q, k.transpose(-1, -2)) * (d // num_heads) ** -0.5
+    ctx = _unheads(_mm(torch.softmax(s, dim=-1).to(dt), v)).to(dt)
+    return (_mm(ctx, wo) + bo.float()).to(dt).reshape(b, n, d)

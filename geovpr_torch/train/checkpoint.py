@@ -9,7 +9,11 @@ package's directory contract.
   `bad_epochs`, `plateau_bad`, `best`, `best_epoch`, or the val metrics);
 - writes are atomic: the directory is written under a temporary name and
   renamed into place;
-- `latest_checkpoint` finds the newest `checkpoint_{epoch}`.
+- `latest_checkpoint` finds the newest `checkpoint_{epoch}`;
+- `load_run_checkpoint` reads the parameters and the scaler of a run
+  directory's `best`, `latest` or named checkpoint, as
+  `geovpr.cli.common.load_trained` resolves them, for
+  `geovpr_torch.cli.evaluate --run-dir`.
 
 Reading the JAX package's orbax run directories is not ported (ROADMAP).
 """
@@ -89,3 +93,19 @@ def latest_checkpoint(run_dir: str) -> Optional[str]:
     if not cands:
         return None
     return os.path.join(run_dir, max(cands, key=checkpoint_epoch))
+
+
+def load_run_checkpoint(run_dir: str, checkpoint: str = "best") -> tuple:
+    """(params state_dict, ScalerState) of `checkpoint` under `run_dir`:
+    'best', 'latest' (the newest `checkpoint_{epoch}`) or a checkpoint
+    directory's name. Exits with JAX's message where there is none."""
+    if checkpoint == "latest":
+        ckpt = latest_checkpoint(run_dir)
+    else:
+        ckpt = os.path.join(run_dir, checkpoint)
+    if ckpt is None or not os.path.isfile(os.path.join(ckpt, "state.pt")):
+        raise SystemExit(f"no checkpoint {checkpoint!r} under {run_dir}")
+    ck = torch.load(os.path.join(ckpt, "state.pt"), map_location="cpu",
+                    weights_only=True)
+    return ck["params"], ScalerState(ck["scaler"]["mean"],
+                                     ck["scaler"]["scale"])

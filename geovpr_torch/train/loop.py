@@ -3,12 +3,13 @@ epochs, shuffling, the plateau LR rule, early stopping, best-model
 tracking, checkpoints and their pruning, `metrics.jsonl`, resume, and a
 `torch.profiler` trace of a few steps.
 
-Each step is `train.steps.make_train_step`'s; validation runs the serving
-forward (K4 on the card) under `torch.inference_mode()` on the same f32
-parameters, cast per call, and reduces the eval sums of
-`serve.eval` into the metric suite. Not ported: the frozen-feature cache
-and the freeze -> unfreeze phases (the DINOv2 slice), asynchronous
-checkpoints, meshes.
+Each step is `train.steps.make_train_step`'s: on the card, per block, K9a
+and K9c / K9b for Swin, K8a and K8c / K8b for DINOv2. Validation runs the
+serving forward (K4 and K6 for Swin, K1 for DINOv2) under
+`torch.inference_mode()` on the same f32 parameters, cast per call, and
+reduces the eval sums of `serve.eval` into the metric suite. Not ported:
+the frozen-feature cache and the freeze -> unfreeze phases (ROADMAP Queue
+1 item 2), asynchronous checkpoints and `remat` (item 9), meshes (item 7).
 """
 
 from __future__ import annotations
@@ -57,12 +58,12 @@ class Trainer:
     def __post_init__(self):
         if self.optim_cfg.freeze_backbone_epochs > 0:
             raise NotImplementedError(
-                "freeze -> unfreeze training comes with the DINOv2 slice "
-                "(ROADMAP Queue 1 item 10)")
+                "freeze -> unfreeze training comes with the rest of DINOv2 "
+                "training (ROADMAP Queue 1 item 2)")
         if self.train_cfg.async_checkpoint:
             raise NotImplementedError(
                 "asynchronous checkpoints are not ported (ROADMAP Queue 1 "
-                "item 10); checkpoints are written synchronously")
+                "item 9); checkpoints are written synchronously")
         if not self.run_dir:
             stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
             name = self.train_cfg.run_name or "run"

@@ -57,9 +57,12 @@ def create_train_state(model: nn.Module, optim_cfg: OptimConfig, seed: int,
 
 def _merge_pretrained(init: dict, pretrained: dict) -> dict:
     """Lay the pretrained tensors over the init state_dict (backbone
-    pretrained, head fresh). Every pretrained key must exist in the model
-    with the same shape (`geovpr/train/state.py:82-106`): an unknown key
-    would leave the real parameter at its random init."""
+    pretrained, head fresh), under the bridge's names for every backbone
+    (`backbone.blocks.N.attn.qkv_weight`, `backbone.cls_token`,
+    `backbone.pos_embed` for DINOv2; `backbone.stage{s}_block{b}.*` for
+    Swin). Every pretrained key must exist in the model with the same
+    shape (`geovpr/train/state.py:82-106`): an unknown key would leave the
+    real parameter at its random init."""
     out = dict(init)
     for k, v in pretrained.items():
         if k not in out:

@@ -425,3 +425,67 @@ def test_swin_train_launches_per_step(cuda):
     assert [f.launches - b for f, b in zip(fns, before)] == [4, 4, 0, 0]
     assert all(bool(torch.isfinite(g).all()) and g.dtype == torch.float32
                for g in grads)
+
+
+_K8_SHAPES = [(2, 257, 768, 12), (3, 50, 384, 6), (2, 17, 64, 1),
+              (2, 257, 1024, 16)]
+
+
+@pytest.mark.parametrize("shape", _K8_SHAPES)
+def test_k8_matches_plain_version(cuda, shape):
+    """chip_smoke's K8 check at small batches: K8a's out, qkv and ctx, K8b's
+    dqkv, and K8c's (or, where `bwd_all_ok` fails, the split backward's)
+    dx and every weight gradient within K9's ratio bound; one launch each
+    (N = 17 and 50 end inside a 64-row tile; D = 1024 takes the split
+    route)."""
+    from chip_smoke import k8_kernels_vs_plain
+    from geovpr_torch.ops import mhsa as mh
+    fns = (mh.fused_mhsa_train_fwd, mh.fused_mhsa_bwd_core,
+           mh.fused_mhsa_bwd_all)
+    before = [f.launches for f in fns]
+    k8_kernels_vs_plain(cuda, shapes=(shape,))
+    split = not mh.bwd_all_ok(shape[2])
+    assert [f.launches - b for f, b in zip(fns, before)] == \
+        [1, 2 if split else 1, 0 if split else 1]
+
+
+def test_k8_refuses_what_it_does_not_take(cuda):
+    from chip_smoke import _k8_bwd_args, _k8_fwd_args, k8_case
+    from geovpr_torch.ops import mhsa as mh
+    a, g = k8_case((1, 20, 1024, 16), cuda)
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            mh.fused_mhsa_train_fwd(*_k8_fwd_args(
+                {**a, "x": a["x"].float()}, 16))
+        with pytest.raises(ValueError, match="head dim"):
+            mh.fused_mhsa_train_fwd(*_k8_fwd_args(a, 8))
+        res = mh.fused_mhsa_train_fwd(*_k8_fwd_args(a, 16))
+        with pytest.raises(ValueError, match="bwd_all_ok"):
+            mh.fused_mhsa_bwd_all(*_k8_bwd_args(a, res, g, 16))
+
+
+@pytest.mark.parametrize("variant", ["base", "large"])
+def test_dinov2_train_launches_per_step(cuda, variant):
+    """A two-block DINOv2 under grad: one K8a and one K8c (D = 768) or one
+    K8b (D = 1024) per block, no K1, and finite f32 gradients for every
+    parameter."""
+    from geovpr_torch.models.dinov2 import DinoV2
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.ops import mhsa as mh
+
+    d, h = (768, 12) if variant == "base" else (1024, 16)
+    model = DinoV2(hidden_size=d, num_layers=2, num_heads=h, image_size=42,
+                   dtype=torch.bfloat16, param_dtype=torch.float32)
+    init_weights_(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).train()
+    x = torch.randn(2, 42, 42, 3, device=cuda)
+    fns = (mh.fused_mhsa_train_fwd, mh.fused_mhsa_bwd_all,
+           mh.fused_mhsa_bwd_core, mh.fused_mhsa_block)
+    before = [f.launches for f in fns]
+    loss = model(x).tokens.float().square().sum()
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    want = [2, 2, 0, 0] if variant == "base" else [2, 0, 2, 0]
+    assert [f.launches - b for f, b in zip(fns, before)] == want
+    assert all(bool(torch.isfinite(g).all()) and g.dtype == torch.float32
+               for g in grads)

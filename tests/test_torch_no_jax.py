@@ -270,6 +270,68 @@ def test_train_cli_runs_without_jax_or_geovpr():
     assert np.isfinite(rec["final"]["val_mse"])
 
 
+_TRAIN_DINOV2 = """
+import sys
+for name in {block!r}:
+    sys.modules[name] = None
+import dataclasses, json, os, tempfile
+import numpy as np
+import torch
+from PIL import Image
+from geovpr_torch.cli import presets
+from geovpr_torch.cli.evaluate import main as evaluate
+from geovpr_torch.cli.train import main as train
+torch.set_num_threads(1)  # a small model, on cores the test workers share
+from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
+DINOV2_VARIANTS["test"] = dict(hidden_size=64, num_layers=2, num_heads=2)
+cfg = presets.GEOPOSE_PRESETS["dinov2_meanpool_huber"]
+presets.GEOPOSE_PRESETS["dinov2_meanpool_huber"] = dataclasses.replace(
+    cfg, data=dataclasses.replace(cfg.data, image_size=28, batch_size=2),
+    model=dataclasses.replace(cfg.model, variant="test"))
+
+with tempfile.TemporaryDirectory() as d:
+    os.makedirs(os.path.join(d, "img"))
+    rng = np.random.default_rng(0)
+    with open(os.path.join(d, "labels.csv"), "w") as f:
+        f.write("filename,timestamp,latitude,longitude,angle,Region_ID\\n")
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 255, (40, 40, 3)).astype(
+                np.uint8)).save(os.path.join(d, "img", f"p{{i}}.png"))
+            f.write(f"p{{i}}.png,0,{{219000 + i * 50.0}},{{143000 - i}},"
+                    "0,1\\n")
+    csv = os.path.join(d, "labels.csv")
+    common = ["--preset", "dinov2_meanpool_huber", "--val-csv", csv,
+              "--image-root", os.path.join(d, "img"), "--device", "cpu"]
+    train(common + ["--train-csv", csv, "--save-dir",
+                    os.path.join(d, "runs"), "--epochs", "1"])
+    run_dir = os.path.join(d, "runs", os.listdir(os.path.join(d, "runs"))[0])
+    evaluate(common + ["--run-dir", run_dir, "--checkpoint", "latest"])
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split(".")[0] in {block!r})
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_dinov2_train_and_evaluate_cli_run_without_jax_or_geovpr():
+    """`geovpr_torch.cli.train.main` for one epoch of a small DINOv2 on
+    dinov2_meanpool_huber (the K8 training half-blocks' plain route), then
+    `geovpr_torch.cli.evaluate.main --run-dir` on the run it wrote, over a
+    folder of PNGs, with jax, flax and `geovpr` blocked."""
+    block = _BLOCK + ("geovpr",)
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAIN_DINOV2.format(block=block)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = proc.stdout.strip().splitlines()
+    assert out[-1] == "OK"
+    trained, scored = json.loads(out[-3]), json.loads(out[-2])
+    assert trained["final"]["epoch"] == 0
+    assert np.isfinite(trained["final"]["train_loss"])
+    assert scored["validation_csv"].startswith(trained["run_dir"])
+    assert np.isfinite(scored["metrics"]["mse"])
+
+
 def _import_lines(pattern: str) -> list[str]:
     pat = re.compile(pattern)
     files = sorted((REPO / "geovpr_torch").rglob("*.py")) + [
