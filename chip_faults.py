@@ -9,17 +9,18 @@ without the relative-position bias; K7 counting the pad keys past N, or
 without the shift mask; K6 with x10 and x01 swapped in the concat order;
 K9a without the shift mask; K9b without the sum of dp * p in the softmax
 backward; K9c with dbias taken from one CTA's partial sum only; K8a
-(K1's attention) without the mask of the keys past N; K8b without the
-sum of dp * p; K8c with dWqkv taken from one CTA's partial sum only),
+(K1's attention) without the mask of the keys past N; K1's TMA + wgmma
+GEMM (so K8a's) never consuming the last k tile of its ring; K8b without
+the sum of dp * p; K8c with dWqkv taken from one CTA's partial sum only),
 builds that copy and runs the chip_smoke.py check of that kernel
 (`int8_kernels_vs_plain` for K2/K3, `swin_kernels_vs_plain` for K4/K6,
 `k7_kernels_vs_plain` for K7, `k9_kernels_vs_plain` for K9a-K9c,
-`k8_kernels_vs_plain` for K8a-K8c) against it at one shape. Arguments,
-where given, pick the faults whose names start with them (`python3
-chip_faults.py K8`). It prints the check's error line for the faulty
-kernel and whether the check rejected it, and exits non-zero if a
-planted fault passes. Needs one CUDA card; the checkout itself is never
-modified.
+`k8_kernels_vs_plain` for K1's GEMM and K8a-K8c) against it at one
+shape. Arguments, where given, pick the faults whose names start with
+them (`python3 chip_faults.py K8`). It prints the check's error line for
+the faulty kernel and whether the check rejected it, and exits non-zero
+if a planted fault passes. Needs one CUDA card; the checkout itself is
+never modified.
 """
 
 from __future__ import annotations
@@ -88,11 +89,14 @@ FAULTS = {
         ("reduce(st, part, G, (size_t)H * TR_N * TR_N, dbias)",
          "reduce(st, part, 1, (size_t)H * TR_N * TR_N, dbias)")],
         _K9.format(shape=_STAGE0)),
-    "K8a key mask past N dropped": ("vit_attn.cuh", [
-        ("if (k0 + kg * 8 + 2 * t + (e & 1) < N)\n          stat_add(",
-         "if (true)\n          stat_add("),
-        ("p[j][e] = k0 + kt * 16 + j * 8 + 2 * t + (e & 1) < N",
-         "p[j][e] = true")], _K8),
+    "K8a key mask past N dropped": ("mhsa.cu", [
+        ("s[e] = key < N ? s[e] * scale : -INFINITY;",
+         "s[e] = s[e] * scale;"),
+        ("if (key + c < N) {", "if (true) {")], _K8),
+    "K1 GEMM's last k tile never consumed": ("hopper_gemm.cuh", [
+        ("for (int kt = 0; kt < ktiles; ++kt) {\n    const int s",
+         "for (int kt = 0; kt < ktiles - 1; ++kt) {\n    const int s")],
+        _K8),
     "K8b sum of dp * p dropped": ("mhsa_train.cu", [
         ("ds[j][e] = p * (dp[e] - (hi ? sub1 : sub0)) * scale;",
          "ds[j][e] = p * dp[e] * scale;"),

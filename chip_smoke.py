@@ -42,7 +42,9 @@ attention core on pre-split windows), and K9a, K9b and K9c (the Swin
 attention half-block's training forward, core backward and whole
 backward), and K8a, K8b and K8c (the same for the ViT attention
 half-block of DINOv2; K8a launches K1's kernels and keeps the qkv and ctx
-they write). For each path it
+they write). K1's four launches (LayerNorm, the TMA + wgmma QKV GEMM, the
+attention, the out projection) are also timed one by one, each beside its
+own bound, at K1's and K8a's shapes. For each path it
 compares the kernel path with the plain path for the whole model, counts
 the kernels' launches, times the path and the kernels (beside their plain
 versions, one library yardstick each and their bounds), and profiles one
@@ -92,6 +94,7 @@ INT8_ABS_TOL, INT8_MAX_SHARE = 1e-3, 0.01
 MIN_COSINE_INT8 = 0.999
 # the card's published dense peaks (NVIDIA H100 SXM data sheet)
 PEAK_BF16, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12
+PEAK_F32 = 67e12                     # outside the tensor cores
 # Swin-B-384 geopose serving (preset swin_b384_gemini2) at B=64: the K4/K5
 # shapes (B, C, H, resolution, window, shift) of stages 0-3 (shifted where
 # the stage has shifted blocks) and the K6 boundaries (B, C, resolution)
@@ -457,6 +460,87 @@ def library_k1(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma, h):
     return ((torch.matmul(o, wo) + bo) * gamma + x).bfloat16()
 
 
+def k1_part_bounds(part: str, b, n, d, h) -> dict:
+    """The least time of one of K1's four launches at (B, N, D, H): bytes
+    (each input read once, each output written once) over 3.35 TB/s
+    against operations at their peak (the products in bf16, LayerNorm's ~8
+    f32 operations an element)."""
+    m = b * n
+    if part == "layernorm":      # x -> LN(x); scale and bias
+        ops, peak = 8 * m * d, PEAK_F32
+        nbytes = 2 * m * d * 2 + 2 * d * 4
+    elif part == "qkv_gemm":     # LN(x), Wqkv, bqkv -> qkv
+        ops, peak = 2 * m * d * 3 * d, PEAK_BF16
+        nbytes = m * d * 2 + 3 * d * d * 2 + 3 * d * 4 + m * 3 * d * 2
+    elif part == "attention":    # qkv -> ctx: q k^T and P V, once each
+        ops, peak = 4 * b * h * n * n * (d // h), PEAK_BF16
+        nbytes = m * 3 * d * 2 + m * d * 2
+    else:                        # ctx, Wo, bo, gamma, x -> out
+        ops, peak = 2 * m * d * d, PEAK_BF16
+        nbytes = 3 * m * d * 2 + d * d * 2 + 2 * d * 4
+    ops_t, bytes_t = ops / peak, nbytes / PEAK_BYTES
+    return dict(bound_ms=max(ops_t, bytes_t) * 1e3,
+                bound_by="operations" if ops_t >= bytes_t else "bytes",
+                ops_bound_ms=ops_t * 1e3, bytes_bound_ms=bytes_t * 1e3)
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of fn() in ms, `iters` calls captured in one CUDA
+    graph and replayed, so that the host's cost of launching (Python,
+    ctypes, tens of microseconds a call) does not count."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def k1_part_times(x, args: dict, h: int, card: str, name: str) -> dict:
+    """K1's four launches (LayerNorm, QKV GEMM, attention, out projection)
+    timed one by one on x and the half-block's arguments `args` by
+    `graph_ms`, each beside its bound, after one whole K1 call has filled
+    the buffers they read, and the four together the same way (`graph_ms`
+    of the whole; the event time of a call launched from Python is in
+    `[kernel_time] name=K1` / `K8a`). The launches are not counted
+    (`k1_launch_part`)."""
+    from geovpr_torch.ops import mhsa as mh
+
+    b, n, d = x.shape
+    got = mh._check(x, *(args[k] for k in ("ln_scale", "ln_bias", "wqkv",
+                                           "bqkv", "wo", "bo", "gamma")), h)
+    bufs = (torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device),
+            torch.empty_like(x), torch.empty_like(x))
+
+    def launch(parts):
+        for i in parts:
+            mh.k1_launch_part(i, x, got, h, 1e-6, bufs)
+
+    out = {}
+    with torch.inference_mode():
+        whole = graph_ms(lambda: launch(range(len(mh.K1_PARTS))))
+        for i, part in enumerate(mh.K1_PARTS):
+            out[part] = dict(ms=graph_ms(lambda: launch((i,))),
+                             **k1_part_bounds(part, b, n, d, h))
+            phase("kernel_time", card=repr(card), name=f"{name}.{part}",
+                  shape=f"B{b}_N{n}_D{d}_H{h}", timed="cuda_graph",
+                  **out[part])
+    total = sum(v["ms"] for v in out.values())
+    phase("kernel_split", card=repr(card), name=name, graph_ms=whole,
+          sum_ms=total, **{f"{k}_share": v["ms"] / total
+                           for k, v in out.items()})
+    return out
+
+
 def library_k2(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
                wo_q_t, so_eff, bo, gamma, cs, num_heads):
     """K2's yardstick: F.layer_norm -> quantize -> torch._int_mm (qkv) ->
@@ -531,6 +615,7 @@ def kernel_times(device, card: str) -> dict:
                              **bounds(name, b, n, d, h))
             phase("kernel_time", card=repr(card), name=name,
                   shape="B{}_N{}_D{}_H{}".format(*MAIN_SHAPE), **out[name])
+    out["K1"]["parts"] = k1_part_times(x1, {**vecs, **mats}, h, card, "K1")
     return out
 
 
@@ -1644,6 +1729,7 @@ def k8_kernel_times(device, card: str, shape=K8_MAIN) -> dict:
                          **k8_bounds(name, shape))
         phase("kernel_time", card=repr(card), name=name,
               shape="B{}_N{}_D{}_H{}".format(*shape), **out[name])
+    out["K8a"]["parts"] = k1_part_times(a["x"], a, h, card, "K8a")
     return out
 
 

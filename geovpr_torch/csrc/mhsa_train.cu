@@ -4,8 +4,9 @@
 //
 //   K8a (forward):  K1 (mhsa.cu), whose launches write qkv (post-bias,
 //                   unscaled) and ctx to device memory; the training
-//                   forward keeps them. Its attention and the p that the
-//                   kernels here recompute are vit_attn.cuh's.
+//                   forward keeps them. The p that the kernels here
+//                   recompute (vit_attn.cuh) is the one its attention
+//                   rounds to bf16.
 //   K8b (core bwd): dqkv from the saved qkv and da = dL/dctx, with p
 //                   recomputed
 //   K8c (all bwd):  dy = g gamma, da = dy Wo^T, dgamma (the y = ctx Wo + bo

@@ -1,15 +1,14 @@
-// The ViT attention core shared by K1 (mhsa.cu, the half-block forward,
-// which K8a launches in training) and K8b/K8c (mhsa_train.cu, the
-// backward), for Hopper (sm_90a), head dim 64: 64-row query and key tiles
-// in shared memory, scores and P.V by mma.sync m16n8k16 in registers, and
-// the softmax p = exp(s - max) / sum in f32 from s = f32(q k^T) * dh^-0.5
-// with the keys >= N masked (no padding of the token stream), each row's
-// max and sum taken in a first pass over the keys. The forward rounds the
-// normalised p to bf16 for P.V, as JAX's oracle `_mhsa_block_xla` and its
-// masked training body `_mhsa_train_kernel` do; the backward recomputes
-// the same p from the saved qkv. Fragment layout (PTX ISA, m16n8k16): lane
-// = 4 g + t holds rows g and g + 8 and columns 2t, 2t + 1 of each 8-wide
-// tile.
+// The ViT attention core of K8b/K8c (mhsa_train.cu, the half-block
+// backward) for Hopper (sm_90a), head dim 64: 64-row query and key tiles
+// in shared memory, scores and products by mma.sync m16n8k16 in
+// registers, and the softmax p = exp(s - max) / sum in f32 from s =
+// f32(q k^T) * dh^-0.5 with the keys >= N masked (no padding of the token
+// stream), each row's max and sum taken in a first pass over the keys.
+// The backward recomputes the p that K1's forward (mhsa.cu, which K8a
+// launches) rounded to bf16 after its normalisation, as JAX's oracle
+// `_mhsa_block_xla` and its masked training body `_mhsa_train_kernel` do.
+// Fragment layout (PTX ISA, m16n8k16): lane = 4 g + t holds rows g and
+// g + 8 and columns 2t, 2t + 1 of each 8-wide tile.
 
 #pragma once
 
@@ -169,74 +168,6 @@ __device__ __forceinline__ void row_stats(const uint32_t (&qa)[4][4],
 
 __device__ __forceinline__ float prob(float s, float scale, const RowStat& st) {
   return expf(s * scale - st.m) / st.l;
-}
-
-// ------------------------------------------------------ the forward ----
-// K1's attention (and so K8a's): grid (query tiles of 64, H, B). qkv
-// (B*N, 3D) with q|k|v column blocks, head h at columns h*64 of each; ctx
-// (B*N, D). Pass 1 takes each row's max and sum over all N keys, pass 2
-// the normalised p, rounded to bf16, times V.
-__global__ void __launch_bounds__(VT_THREADS)
-vit_attn_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx,
-                    int N, int D, float scale) {
-  __shared__ __align__(16) bf16 q_s[VT_TILE];
-  __shared__ __align__(16) bf16 k_s[VT_TILE];
-  __shared__ __align__(16) bf16 vt_s[VT_DH * VT_TLD];
-  const int q0 = blockIdx.x * VT_CH;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const size_t ld = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)b * N * ld + h * VT_DH;
-
-  load_rows(q_s, base, q0, N, ld);
-  __syncthreads();
-  uint32_t qa[4][4];
-  a_frags(q_s, warp * 16 + g, t, qa);
-  RowStat st0, st1;
-  row_stats(qa, k_s, base + D, N, ld, scale, st0, st1);
-
-  float o[8][4];
-#pragma unroll
-  for (int jn = 0; jn < 8; ++jn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[jn][e] = 0.f;
-  for (int k0 = 0; k0 < N; k0 += VT_CH) {
-    __syncthreads();
-    load_rows(k_s, base + D, k0, N, ld);
-    load_cols(vt_s, base + 2 * D, k0, N, ld);
-    __syncthreads();
-#pragma unroll
-    for (int kt = 0; kt < VT_CH / 16; ++kt) {
-      float p[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        tile_dot(qa, k_s, kt * 16 + j * 8 + g, t, p[j]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          p[j][e] = k0 + kt * 16 + j * 8 + 2 * t + (e & 1) < N
-                        ? prob(p[j][e], scale, e >= 2 ? st1 : st0)
-                        : 0.f;
-      }
-      uint32_t pa[4];
-      pack_a(p, pa);
-      acc_tile(o, pa, vt_s, kt * 16, g, t);
-    }
-  }
-  const int r0 = q0 + warp * 16 + g;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r0 + 8 * half;
-    if (row >= N) continue;
-    bf16* dst = ctx + ((size_t)b * N + row) * D + h * VT_DH + 2 * t;
-#pragma unroll
-    for (int jn = 0; jn < 8; ++jn)
-      *reinterpret_cast<__nv_bfloat162*>(dst + jn * 8) =
-          __floats2bfloat162_rn(o[jn][2 * half], o[jn][2 * half + 1]);
-  }
 }
 
 }  // namespace

@@ -99,8 +99,10 @@ def _compile(out: Path) -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
-        # K1 (mhsa.cu): 11 pointers, B N D H, eps, stream
+        # K1 (mhsa.cu): 11 pointers, B N D H, eps, stream; _parts also
+        # takes the first and last of its four launches
         "geovpr_mhsa_block_bf16": [vp] * 11 + [ci] * 4 + [cf, vp],
+        "geovpr_mhsa_block_parts": [vp] * 11 + [ci] * 4 + [cf, ci, ci, vp],
         # K2 (mhsa_int8.cu): 14 pointers, B N D H, eps, cs2, stream
         "geovpr_mhsa_block_int8": [vp] * 14 + [ci] * 4 + [cf, cf, vp],
         # K3 (mlp_int8.cu): 12 pointers, M D HID, inv_a_mid, eps, stream

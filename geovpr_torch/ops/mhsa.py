@@ -137,24 +137,48 @@ def _launch_k1(x, got: dict, num_heads: int, ln_eps: float):
     the qkv (B, N, 3D; post-bias, unscaled) and ctx (B, N, D) that K1
     writes to device memory between its launches."""
     b, n, d = x.shape
-    lib, max_dim = _kernel_library(x.device.index)
-    if d > max_dim:
-        raise ValueError(f"D={d} exceeds the kernel's shared-memory limit "
-                         f"({max_dim})")
     qkv = torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device)
     ctx = torch.empty_like(x)
     out = torch.empty_like(x)
+    lib, args = _k1_args(x, got, num_heads, ln_eps, (qkv, ctx, out))
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_mhsa_block_bf16(
-            x.data_ptr(), got["ln_scale"].data_ptr(),
-            got["ln_bias"].data_ptr(), got["wqkv"].data_ptr(),
-            got["bqkv"].data_ptr(), got["wo"].data_ptr(),
-            got["bo"].data_ptr(), got["gamma"].data_ptr(), qkv.data_ptr(),
-            ctx.data_ptr(), out.data_ptr(), b, n, d, num_heads, float(ln_eps),
-            _stream(x.device))
+        rc = lib.geovpr_mhsa_block_bf16(*args, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"mhsa kernel launch failed: CUDA error {rc}")
     return out, qkv, ctx
+
+
+def _k1_args(x, got: dict, num_heads: int, ln_eps: float, bufs):
+    """The library and K1's C arguments (but the stream) for x and the
+    (qkv, ctx, out) buffers `bufs`."""
+    b, n, d = x.shape
+    lib, max_dim = _kernel_library(x.device.index)
+    if d > max_dim:
+        raise ValueError(f"D={d} exceeds the largest D the kernels take "
+                         f"({max_dim})")
+    ptrs = [x] + [got[k] for k in ("ln_scale", "ln_bias", "wqkv", "bqkv",
+                                   "wo", "bo", "gamma")] + list(bufs)
+    if any(t.data_ptr() % 16 for t in ptrs):
+        raise ValueError("K1 reads its tensors by TMA and 16-byte loads: "
+                         "each must start 16-byte aligned")
+    return lib, (*(t.data_ptr() for t in ptrs), b, n, d, num_heads,
+                 float(ln_eps))
+
+
+K1_PARTS = ("layernorm", "qkv_gemm", "attention", "out_proj")
+
+
+def k1_launch_part(part: int, x, got: dict, num_heads: int, ln_eps: float,
+                   bufs) -> None:
+    """One of K1's four launches (an index into K1_PARTS) alone on a
+    checked bf16 CUDA stream x and the (qkv, ctx, out) buffers `bufs` of
+    an earlier call, whose contents it reads. chip_smoke.py times K1's
+    launches one by one with it; it counts no launch."""
+    lib, args = _k1_args(x, got, num_heads, ln_eps, bufs)
+    with torch.cuda.device(x.device):
+        rc = lib.geovpr_mhsa_block_parts(*args, part, part, _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"mhsa kernel launch failed: CUDA error {rc}")
 
 
 fused_mhsa_block.launches = 0

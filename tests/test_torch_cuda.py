@@ -62,10 +62,57 @@ def test_kernel_matches_plain_version(cuda, shape):
     assert k_err.mean() <= 1.1 * p_err.mean()
 
 
+@pytest.mark.parametrize("shape", [
+    (3, 50, 384, 6), (3, 50, 768, 12), (3, 50, 1024, 16),
+    (2, 257, 384, 6), (2, 257, 1024, 16), (1, 1370, 384, 6),
+    (1, 1370, 1024, 16)])
+def test_k1_matches_plain_version_at_its_edges(cuda, shape):
+    """K1's LayerNorm, TMA + wgmma GEMMs and attention at D = 384 / 768 /
+    1024 (the GEMMs' 64- and 128-wide column tiles, 6 to 24 k tiles of the
+    ring), N = 50, 257 and 1370 (one key tile to 22, a part-filled last
+    one) and M = 150 (a ragged last row tile): chip_smoke's ratio bound."""
+    from chip_smoke import k1_errors
+    e = k1_errors(*shape, cuda)
+    assert k1_within_bound(e), e
+
+
+def test_k1_launches_one_by_one_equal_the_whole(cuda):
+    """The four launches run alone (`k1_launch_part`, which chip_smoke.py
+    times) leave the outputs of one whole call, bit for bit, and count no
+    launch."""
+    from geovpr_torch.ops import mhsa as mh
+    args = _args(2, 257, 768, 12, cuda)
+    with torch.inference_mode():
+        out, qkv, ctx = mh.fused_mhsa_train_fwd(*args)
+        got = mh._check(*args)
+        bufs = (torch.empty_like(qkv), torch.empty_like(ctx),
+                torch.empty_like(out))
+        before = (mh.fused_mhsa_block.launches,
+                  mh.fused_mhsa_train_fwd.launches)
+        for part in range(len(mh.K1_PARTS)):
+            mh.k1_launch_part(part, args[0], got, 12, 1e-6, bufs)
+        torch.cuda.synchronize()
+    assert (mh.fused_mhsa_block.launches,
+            mh.fused_mhsa_train_fwd.launches) == before
+    for a, b in zip(bufs, (qkv, ctx, out)):
+        assert torch.equal(a, b)
+
+
 def test_kernel_refuses_a_gradient(cuda):
     args = _args(1, 5, 64, 1, cuda)
     args[3].requires_grad_(True)
     with pytest.raises(RuntimeError, match="backward"):
+        fused_mhsa_block(*args)
+
+
+def test_kernel_refuses_misaligned_tensors(cuda):
+    """K1 reads by TMA and 16-byte loads: a contiguous x that starts 2
+    bytes into its storage is refused before any launch."""
+    args = _args(1, 5, 64, 1, cuda)
+    buf = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16,
+                      device=cuda)
+    args[0] = buf[1:].view_as(args[0]).copy_(args[0])
+    with torch.inference_mode(), pytest.raises(ValueError, match="aligned"):
         fused_mhsa_block(*args)
 
 
@@ -447,6 +494,44 @@ def test_k8_matches_plain_version(cuda, shape):
     split = not mh.bwd_all_ok(shape[2])
     assert [f.launches - b for f, b in zip(fns, before)] == \
         [1, 2 if split else 1, 0 if split else 1]
+
+
+@pytest.mark.parametrize("shape", [(2, 257, 768, 12), (2, 257, 1024, 16)])
+def test_k8a_residuals_feed_the_backward(cuda, shape):
+    """The qkv and ctx that K8a keeps feed K8b (D = 1024, the split
+    backward) and K8c (D = 768), whose outputs stay within K9's ratio bound
+    of the plain backward on the plain forward's residuals, against the f32
+    plain version on the f32 forward's."""
+    from chip_smoke import (K8_OUTS, _k8_bwd_args, _k8_fwd_args, k8_case,
+                            k9_ratio)
+    from geovpr_torch.ops import mhsa as mh
+    h = shape[3]
+    tag = "B{}_N{}_D{}_H{}".format(*shape)
+    a, g = k8_case(shape, cuda)
+    a32 = {k: v.float() for k, v in a.items()}
+    split = not mh.bwd_all_ok(shape[2])
+    before = mh.fused_mhsa_bwd_core.launches, mh.fused_mhsa_bwd_all.launches
+    with torch.no_grad():
+        res = mh.fused_mhsa_train_fwd(*_k8_fwd_args(a, h))
+        want = mh.mhsa_train_fwd_reference(*_k8_fwd_args(a, h))
+        ref32 = mh.mhsa_train_fwd_reference(*_k8_fwd_args(a32, h))
+        if split:
+            got = mh.mhsa_train_bwd_reference(
+                *_k8_bwd_args(a, res, g, h), split=True,
+                core=mh.fused_mhsa_bwd_core)
+        else:
+            got = mh.fused_mhsa_bwd_all(*_k8_bwd_args(a, res, g, h))
+        torch.cuda.synchronize()
+        plain = mh.mhsa_train_bwd_reference(*_k8_bwd_args(a, want, g, h),
+                                            split=split)
+        ref = mh.mhsa_train_bwd_reference(
+            *_k8_bwd_args(a32, ref32, g.float(), h), split=split)
+    assert (mh.fused_mhsa_bwd_core.launches - before[0],
+            mh.fused_mhsa_bwd_all.launches - before[1]) == \
+        ((1, 0) if split else (0, 1))
+    for i, out in enumerate(K8_OUTS):
+        k9_ratio(f"K8a->{'K8b' if split else 'K8c'}.{out}", tag, got[i],
+                 plain[i], ref[i])
 
 
 def test_k8_refuses_what_it_does_not_take(cuda):
