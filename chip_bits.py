@@ -1,0 +1,120 @@
+"""Bit-for-bit comparison of kernel outputs between this checkout and
+another one (an earlier commit, unpacked), on one CUDA card.
+
+    python3 chip_bits.py OTHER_CHECKOUT
+
+Each checkout runs in a process of its own (its `geovpr_torch` and its
+`chip_smoke.py` first on the path), builds its own kernels, and saves the
+outputs of the kernels it runs here on inputs its chip_smoke.py draws from
+seed 0: K1 (bf16 serving) and K8a (K1's launches, keeping qkv and ctx) at
+64x257x768x12 and 2x1370x768x12, K5 (the w8a8 Swin half-block) at
+Swin-B-384's stages 0 and 3 (B=16), K9a (the Swin training forward, its
+y, qkv, ctx and p) at stage 0 (B=16) and K7 at Swin-T-224's stage 0. The
+inputs are saved beside the outputs and compared too, so a change in how
+they are drawn shows as such. It prints one line per tensor and exits
+non-zero if any differs. Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parent
+K1_SHAPES = ((64, 257, 768, 12), (2, 1370, 768, 12))
+K5_SHAPES = ((16, 128, 4, 96, 12, 6), (16, 1024, 32, 12, 12, 0))
+K7_SHAPE = (1024, 3, 49, 64)
+K9_SHAPE = (16, 128, 4, 96, 12, 6)
+
+
+def run(out_path: str) -> None:
+    """In the child: this process's checkout's kernels on its inputs."""
+    import chip_smoke as cs
+    from geovpr_torch.ops import mhsa as mh
+    from geovpr_torch.ops.swin_block import (fused_swin_attn_block_int8,
+                                             fused_swin_attn_train_fwd)
+    from geovpr_torch.ops.window_attention import window_attention_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    res = {}
+    with torch.inference_mode():
+        for b, n, d, h in K1_SHAPES:
+            tag = f"B{b}_N{n}_D{d}"
+            gen = torch.Generator().manual_seed(cs.SEED + n)
+            x, vecs, mats = cs.block_inputs(b, n, d, gen, dev)
+            args = (x, vecs["ln_scale"], vecs["ln_bias"], mats["wqkv"],
+                    vecs["bqkv"], mats["wo"], vecs["bo"], vecs["gamma"], h)
+            res[f"input.K1.{tag}.x"] = x
+            res[f"input.K1.{tag}.wqkv"] = mats["wqkv"]
+            res[f"K1.{tag}.out"] = mh.fused_mhsa_block(*args)
+            out, qkv, ctx = mh.fused_mhsa_train_fwd(*args)
+            res.update({f"K8a.{tag}.out": out, f"K8a.{tag}.qkv": qkv,
+                        f"K8a.{tag}.ctx": ctx})
+        for shape in K5_SHAPES:
+            tag = "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape)
+            x, blk = cs.swin_block_case(shape, dev, int8=True)
+            kw = cs.k5_kwargs(blk)
+            res[f"input.K5.{tag}.x"] = x
+            res[f"input.K5.{tag}.wqkv_q_t"] = kw["wqkv_q_t"]
+            res[f"K5.{tag}.out"] = fused_swin_attn_block_int8(x, **kw)
+        a, _, geom = cs.k9_case(K9_SHAPE, dev)
+        res["input.K9a.x"] = a["x"]
+        outs = fused_swin_attn_train_fwd(
+            *(a[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "bqkv",
+                             "wo", "bo", "table")), *geom.values(), 1e-5)
+        res.update({f"K9a.{i}": o for i, o in enumerate(outs)})
+        q, k, v, bias, mask = cs.k7_case(K7_SHAPE, dev)
+        res["input.K7.q"] = q
+        res["K7.out"] = window_attention_kernel(q, k, v, bias, mask)
+        torch.cuda.synchronize()
+    torch.save({k: t.cpu() for k, t in res.items()}, out_path)
+
+
+def _child(checkout: Path, out: Path) -> None:
+    code = (f"import sys; sys.path[:0] = [{str(checkout)!r}]\n"
+            f"import geovpr_torch\n"
+            f"assert geovpr_torch.__file__.startswith({str(checkout)!r})\n"
+            f"sys.path.insert(1, {str(REPO)!r})\n"
+            f"import chip_bits\nchip_bits.run({str(out)!r})\n")
+    subprocess.run([sys.executable, "-c", code], cwd=checkout, check=True)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) != 1:
+        print(__doc__.strip().splitlines()[2], file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_bits: no CUDA device is available", file=sys.stderr)
+        return 1
+    other = Path(argv[0]).resolve()
+    with tempfile.TemporaryDirectory() as tmp:
+        mine, theirs = Path(tmp) / "this.pt", Path(tmp) / "other.pt"
+        _child(REPO, mine)
+        _child(other, theirs)
+        a, b = torch.load(mine), torch.load(theirs)
+    differ = []
+    for key in sorted(set(a) | set(b)):
+        if key not in a or key not in b:
+            print(f"[bits] {key} only in {'this' if key in a else 'other'}")
+            differ.append(key)
+            continue
+        same = a[key].shape == b[key].shape and torch.equal(a[key], b[key])
+        share = 1.0 if same else (
+            (a[key] == b[key]).float().mean().item()
+            if a[key].shape == b[key].shape else 0.0)
+        print(f"[bits] {key} shape={tuple(a[key].shape)} equal={same} "
+              f"equal_share={share}")
+        if not same:
+            differ.append(key)
+    print(f"[bits] other={other} differ={differ}")
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,13 +4,16 @@
 
 For each planted fault it copies `geovpr_torch/` into a temporary
 directory, breaks one line of a kernel source there (K2 without its key
-mask; K3 with b2 dropped from its epilogue; K4 without the shift mask or
-without the relative-position bias; K7 counting the pad keys past N, or
-without the shift mask; K6 with x10 and x01 swapped in the concat order;
+mask; K3 with b2 dropped from its epilogue; K4's window attention without
+the shift mask, without the relative-position bias, or loading the wrapped
+quarters of a shifted window from their unwrapped origin; K7 counting the
+pad keys past N, or without the shift mask; K6's merge-LN pass with x10
+and x01 swapped in the concat order, or reading x01 from the token below
+instead of the token to the right;
 K9a without the shift mask; K9b without the sum of dp * p in the softmax
 backward; K9c with dbias taken from one CTA's partial sum only; K8a
 (K1's attention) without the mask of the keys past N; K1's TMA + wgmma
-GEMM (so K8a's) never consuming the last k tile of its ring; K8b without
+GEMM (so K8a's) never multiplying the last k tile of a tile; K8b without
 the sum of dp * p; K8c with dWqkv taken from one CTA's partial sum only),
 builds that copy and runs the chip_smoke.py check of that kernel
 (`int8_kernels_vs_plain` for K2/K3, `swin_kernels_vs_plain` for K4/K6,
@@ -54,12 +57,15 @@ FAULTS = {
         ("* s2[col + 1] + b2[col + 1];", "* s2[col + 1];")],
         _INT8.format(shape=(64, 257, 768, 12))),
     "K4 shift mask dropped": ("swin_attn.cu", [
-        ("if (shift && (hi ? lab1 : lab0) != lab_s[key])",
-         "if (false && (hi ? lab1 : lab0) != lab_s[key])")],
+        ("if (kMasked && ((box[i][hi] ^ bk[j][c]) & wrap))",
+         "if (false)")],
         _SWIN.format(attn=(_STAGE0,), merge=())),
     "K4 relative-position bias dropped": ("swin_attn.cu", [
-        ("__fadd_rn(sv, tab_s[(hi ? pos1 : pos0) - pos_s[key]]);",
-         "__fadd_rn(sv, 0.f);")],
+        ("tab[pos[i][hi] - pk[j][c]]", "0.f")],
+        _SWIN.format(attn=(_STAGE0,), merge=())),
+    "K4 wrapped quarters loaded unwrapped": ("swin_attn.cu", [
+        ("from = sw_box_origin<W>(wx, wy, box, S, shift);",
+         "from = sw_box_origin<W>(wx, wy, box, 1 << 30, shift);")],
         _SWIN.format(attn=(_STAGE0,), merge=())),
     "K7 pad keys counted": ("window_attn.cu", [
         ("if (key >= N || row >= N) return 0.f;",
@@ -70,10 +76,11 @@ FAULTS = {
         ("if (mask_w) x = __fadd_rn(", "if (false) x = __fadd_rn(")],
         _K7.format(shapes=(_K7_STAGE0,))),
     "K6 x10 and x01 swapped": ("patch_merge.cu", [
-        ("src_s[r * 4 + 1] = base < 0 ? -1 : base + S;",
-         "src_s[r * 4 + 1] = base < 0 ? -1 : base + 1;"),
-        ("src_s[r * 4 + 2] = base < 0 ? -1 : base + 1;",
-         "src_s[r * 4 + 2] = base < 0 ? -1 : base + S;")],
+        ("quad == 1 ? r10 : quad == 2 ? r01",
+         "quad == 1 ? r01 : quad == 2 ? r10")],
+        _SWIN.format(attn=(), merge=((16, 128, 96),))),
+    "K6 x01 read at offset S": ("patch_merge.cu", [
+        ("r01 = x + (base + 1) * C;", "r01 = x + (base + S) * C;")],
         _SWIN.format(attn=(), merge=((16, 128, 96),))),
     "K9a shift mask dropped": ("swin_train.cu", [
         ("if (shift && (hi ? lab1 : lab0) != lab_s[key]) v = __fadd_rn(v, "
@@ -93,9 +100,9 @@ FAULTS = {
         ("s[e] = key < N ? s[e] * scale : -INFINITY;",
          "s[e] = s[e] * scale;"),
         ("if (key + c < N) {", "if (true) {")], _K8),
-    "K1 GEMM's last k tile never consumed": ("hopper_gemm.cuh", [
-        ("for (int kt = 0; kt < ktiles; ++kt) {\n    const int s",
-         "for (int kt = 0; kt < ktiles - 1; ++kt) {\n    const int s")],
+    "K1 GEMM's last k tile never multiplied": ("hopper_gemm.cuh", [
+        ("for (int kk = 0; kk < HG_BK / 16; ++kk) {",
+         "for (int kk = 0; kk < (kt + 1 < ktiles ? HG_BK / 16 : 0); ++kk) {")],
         _K8),
     "K8b sum of dp * p dropped": ("mhsa_train.cu", [
         ("ds[j][e] = p * (dp[e] - (hi ? sub1 : sub0)) * scale;",

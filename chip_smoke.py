@@ -44,7 +44,10 @@ backward), and K8a, K8b and K8c (the same for the ViT attention
 half-block of DINOv2; K8a launches K1's kernels and keeps the qkv and ctx
 they write). K1's four launches (LayerNorm, the TMA + wgmma QKV GEMM, the
 attention, the out projection) are also timed one by one, each beside its
-own bound, at K1's and K8a's shapes. For each path it
+own bound, at K1's and K8a's shapes, and so are K4's four (LayerNorm, the
+same GEMMs, the TMA-fed window attention) at the four Swin-B-384 stages
+and K6's two (the merge-LN pass, the GEMM) at its three boundaries. For
+each path it
 compares the kernel path with the plain path for the whole model, counts
 the kernels' launches, times the path and the kernels (beside their plain
 versions, one library yardstick each and their bounds), and profiles one
@@ -101,8 +104,6 @@ PEAK_F32 = 67e12                     # outside the tensor cores
 SWIN_PRESET, SWIN_BATCH, SWIN_N_VAL = "swin_b384_gemini2", 64, 192
 SWIN_ATTN_SHAPES = ((64, 128, 4, 96, 12, 6), (64, 256, 8, 48, 12, 6),
                     (64, 512, 16, 24, 12, 6), (64, 1024, 32, 12, 12, 0))
-SWIN_CHECK_SHAPES = (SWIN_ATTN_SHAPES[0], SWIN_ATTN_SHAPES[2],
-                     SWIN_ATTN_SHAPES[3])
 SWIN_MERGE_SHAPES = ((64, 128, 96), (64, 256, 48), (64, 512, 24))
 SWIN_MAIN, MERGE_MAIN = SWIN_ATTN_SHAPES[0], SWIN_MERGE_SHAPES[0]
 # launches per batch of 64 images: one K4 (bf16) or K5 + K3 (int8) per
@@ -460,28 +461,56 @@ def library_k1(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma, h):
     return ((torch.matmul(o, wo) + bo) * gamma + x).bfloat16()
 
 
-def k1_part_bounds(part: str, b, n, d, h) -> dict:
-    """The least time of one of K1's four launches at (B, N, D, H): bytes
-    (each input read once, each output written once) over 3.35 TB/s
-    against operations at their peak (the products in bf16, LayerNorm's ~8
-    f32 operations an element)."""
-    m = b * n
-    if part == "layernorm":      # x -> LN(x); scale and bias
-        ops, peak = 8 * m * d, PEAK_F32
-        nbytes = 2 * m * d * 2 + 2 * d * 4
-    elif part == "qkv_gemm":     # LN(x), Wqkv, bqkv -> qkv
-        ops, peak = 2 * m * d * 3 * d, PEAK_BF16
-        nbytes = m * d * 2 + 3 * d * d * 2 + 3 * d * 4 + m * 3 * d * 2
-    elif part == "attention":    # qkv -> ctx: q k^T and P V, once each
-        ops, peak = 4 * b * h * n * n * (d // h), PEAK_BF16
-        nbytes = m * 3 * d * 2 + m * d * 2
-    else:                        # ctx, Wo, bo, gamma, x -> out
-        ops, peak = 2 * m * d * d, PEAK_BF16
-        nbytes = 3 * m * d * 2 + d * d * 2 + 2 * d * 4
+def part_bound(ops, peak, nbytes) -> dict:
+    """The least time of one launch: `ops` operations at `peak` against
+    `nbytes` at 3.35 TB/s."""
     ops_t, bytes_t = ops / peak, nbytes / PEAK_BYTES
     return dict(bound_ms=max(ops_t, bytes_t) * 1e3,
                 bound_by="operations" if ops_t >= bytes_t else "bytes",
-                ops_bound_ms=ops_t * 1e3, bytes_bound_ms=bytes_t * 1e3)
+                ops_bound_ms=ops_t * 1e3, bytes_bound_ms=bytes_t * 1e3,
+                ops=ops)
+
+
+def k1_part_bounds(part: str, b, n, d, h, gamma=True) -> dict:
+    """The least time of one of K1's four launches at (B, N, D, H), B N
+    rows attending in groups of N: bytes (each input read once, each
+    output written once) over 3.35 TB/s against operations at their peak
+    (the products in bf16, LayerNorm's ~8 f32 operations an element).
+    K4's launches are the same with B windows of N tokens and no gamma."""
+    m = b * n
+    if part == "layernorm":      # x -> LN(x); scale and bias
+        return part_bound(8 * m * d, PEAK_F32, 2 * m * d * 2 + 2 * d * 4)
+    if part == "qkv_gemm":       # LN(x), Wqkv, bqkv -> qkv
+        return part_bound(2 * m * d * 3 * d, PEAK_BF16, m * d * 2 + 3 * d * d
+                          * 2 + 3 * d * 4 + m * 3 * d * 2)
+    if part == "attention":      # qkv -> ctx: q k^T and P V, once each
+        return part_bound(4 * b * h * n * n * (d // h), PEAK_BF16,
+                          m * 3 * d * 2 + m * d * 2)
+    # ctx, Wo, bo, gamma, x -> out
+    return part_bound(2 * m * d * d, PEAK_BF16, 3 * m * d * 2 + d * d * 2 + (
+        2 if gamma else 1) * d * 4)
+
+
+def k4_part_bounds(part: str, shape) -> dict:
+    """K1's formulas for one of K4's four launches at (B, C, H, S, w,
+    shift): the B S^2 / w^2 windows of N = w^2 tokens in place of K1's
+    images, no gamma."""
+    b, c, h, res, win, _ = shape
+    return k1_part_bounds(part, b * res * res // (win * win), win * win, c,
+                          h, gamma=False)
+
+
+def k6_part_bounds(part: str, shape) -> dict:
+    """One of K6's two launches at (B, C, S): the merge-LN pass (x read
+    once, bf16 LN(merged) (M2, 4C) written; ~8 f32 operations an element)
+    and the GEMM (LN(merged) and W read, out written)."""
+    b, c, res = shape
+    m2 = b * (res // 2) ** 2
+    if part == "merge_ln":
+        return part_bound(8 * m2 * 4 * c, PEAK_F32,
+                          2 * m2 * 4 * c * 2 + 2 * 4 * c * 4)
+    return part_bound(2 * m2 * 4 * c * 2 * c, PEAK_BF16,
+                      m2 * 4 * c * 2 + 8 * c * c * 2 + m2 * 2 * c * 2)
 
 
 def graph_ms(fn, iters: int = 20) -> float:
@@ -505,12 +534,31 @@ def graph_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def parts_split(card: str, name: str, tag: str, parts, launch,
+                bound) -> dict:
+    """The launches `parts` of one kernel timed one by one (`launch(i)`
+    runs launch i alone, on buffers a whole call has filled) by
+    `graph_ms`, each beside its bound `bound(part)`, and all of them
+    together the same way: `[kernel_time] name=<name>.<part>` and
+    `[kernel_split] name=<name>`."""
+    out = {}
+    whole = graph_ms(lambda: [launch(i) for i in range(len(parts))])
+    for i, part in enumerate(parts):
+        out[part] = dict(ms=graph_ms(lambda: launch(i)), **bound(part))
+        phase("kernel_time", card=repr(card), name=f"{name}.{part}",
+              shape=tag, timed="cuda_graph", **out[part])
+    total = sum(v["ms"] for v in out.values())
+    phase("kernel_split", card=repr(card), name=name, shape=tag,
+          graph_ms=whole, sum_ms=total,
+          bound_sum_ms=sum(v["bound_ms"] for v in out.values()),
+          **{f"{k}_share": v["ms"] / total for k, v in out.items()})
+    return out
+
+
 def k1_part_times(x, args: dict, h: int, card: str, name: str) -> dict:
     """K1's four launches (LayerNorm, QKV GEMM, attention, out projection)
     timed one by one on x and the half-block's arguments `args` by
-    `graph_ms`, each beside its bound, after one whole K1 call has filled
-    the buffers they read, and the four together the same way (`graph_ms`
-    of the whole; the event time of a call launched from Python is in
+    `parts_split` (the event time of a call launched from Python is in
     `[kernel_time] name=K1` / `K8a`). The launches are not counted
     (`k1_launch_part`)."""
     from geovpr_torch.ops import mhsa as mh
@@ -520,25 +568,11 @@ def k1_part_times(x, args: dict, h: int, card: str, name: str) -> dict:
                                            "bqkv", "wo", "bo", "gamma")), h)
     bufs = (torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device),
             torch.empty_like(x), torch.empty_like(x))
-
-    def launch(parts):
-        for i in parts:
-            mh.k1_launch_part(i, x, got, h, 1e-6, bufs)
-
-    out = {}
     with torch.inference_mode():
-        whole = graph_ms(lambda: launch(range(len(mh.K1_PARTS))))
-        for i, part in enumerate(mh.K1_PARTS):
-            out[part] = dict(ms=graph_ms(lambda: launch((i,))),
-                             **k1_part_bounds(part, b, n, d, h))
-            phase("kernel_time", card=repr(card), name=f"{name}.{part}",
-                  shape=f"B{b}_N{n}_D{d}_H{h}", timed="cuda_graph",
-                  **out[part])
-    total = sum(v["ms"] for v in out.values())
-    phase("kernel_split", card=repr(card), name=name, graph_ms=whole,
-          sum_ms=total, **{f"{k}_share": v["ms"] / total
-                           for k, v in out.items()})
-    return out
+        return parts_split(
+            card, name, f"B{b}_N{n}_D{d}_H{h}", mh.K1_PARTS,
+            lambda i: mh.k1_launch_part(i, x, got, h, 1e-6, bufs),
+            lambda part: k1_part_bounds(part, b, n, d, h))
 
 
 def library_k2(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
@@ -754,10 +788,10 @@ def merge_case(shape, device, seed=SEED):
     return x, ln_s, ln_b, w, res
 
 
-def swin_kernels_vs_plain(device, attn_shapes=SWIN_CHECK_SHAPES,
+def swin_kernels_vs_plain(device, attn_shapes=SWIN_ATTN_SHAPES,
                           merge_shapes=SWIN_MERGE_SHAPES) -> dict:
-    """Phase 12: K4 and K5 at Swin-B-384 B=64 stage shapes (x for K4 at
-    1e-2, as K1's check), K6 at the three boundaries, each against its
+    """Phase 12: K4 and K5 at the four Swin-B-384 B=64 stage shapes (x for
+    K4 at 1e-2, as K1's check), K6 at the three boundaries, each against its
     plain version: K4 and K6 under K1's ratio bound, K5 under K2's. The
     angle phase calls it again with no attention shape, for K6 at
     Swin-T-224's boundaries."""
@@ -936,7 +970,8 @@ def swin_bounds(kind: str, shape) -> dict:
     if kind == "K6":
         b, c, res = shape
         m2 = b * (res // 2) ** 2
-        ops_t = 2 * m2 * 4 * c * 2 * c / PEAK_BF16
+        ops = 2 * m2 * 4 * c * 2 * c
+        ops_t = ops / PEAK_BF16
         nbytes = b * res * res * c * 2 + m2 * 2 * c * 2 + 8 * c * c * 2 \
             + 8 * c * 4
     else:
@@ -945,17 +980,19 @@ def swin_bounds(kind: str, shape) -> dict:
         bw = m // n
         att = 2 * bw * h * n * n * (c // h)      # one of q.k^T, P.V
         proj = 8 * m * c * c
+        ops = proj + 2 * att
         wbytes = 4 * c * c * (2 if kind == "K4" else 1)
         nbytes = 2 * m * c * 2 + wbytes + (2 * c + 6 * c + 2 * c) * 4 + (
             (2 * win - 1) ** 2 * h * 4)
         if kind == "K4":
-            ops_t = (proj + 2 * att) / PEAK_BF16
+            ops_t = ops / PEAK_BF16
         else:
             ops_t = (proj + att) / PEAK_INT8 + att / PEAK_BF16
     bytes_t = nbytes / PEAK_BYTES
     return dict(bound_ms=max(ops_t, bytes_t) * 1e3,
                 bound_by="operations" if ops_t >= bytes_t else "bytes",
-                ops_bound_ms=ops_t * 1e3, bytes_bound_ms=bytes_t * 1e3)
+                ops_bound_ms=ops_t * 1e3, bytes_bound_ms=bytes_t * 1e3,
+                ops=ops)
 
 
 def library_mask(table, h, b, res, win, shift):
@@ -1081,6 +1118,45 @@ def swin_kernel_times(device, card: str) -> dict:
                 "kernel": lambda: fused_patch_merge(*m),
                 "plain": lambda: patch_merge_reference(*m),
                 "library": lambda: library_k6(*m)})
+    return out
+
+
+def swin_part_times(device, card: str) -> dict:
+    """Phase 19b: K4's four launches at every Swin-B-384 stage and K6's
+    two at every boundary, one by one beside `k4_part_bounds` /
+    `k6_part_bounds`, after one whole call has filled the buffers they
+    read; the launches are not counted (`k4_launch_part`,
+    `k6_launch_part`)."""
+    from geovpr_torch.ops import patch_merge as pm
+    from geovpr_torch.ops import swin_block as sb
+
+    out = {}
+    with torch.inference_mode():
+        for shape in SWIN_ATTN_SHAPES:
+            b, c, _, res, _, _ = shape
+            x, blk = swin_block_case(shape, device)
+            a = k4_args(x, blk)
+            bufs = (torch.empty((b * res * res, 3 * c), dtype=x.dtype,
+                                device=device),
+                    torch.empty((b * res * res, c), dtype=x.dtype,
+                                device=device), torch.empty_like(x))
+            out[("K4", shape)] = parts_split(
+                card, "K4", "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape),
+                sb.K4_PARTS,
+                lambda i: sb.k4_launch_part(i, *a, bufs=bufs),
+                lambda part: k4_part_bounds(part, shape))
+            del x, blk, a, bufs
+        for shape in SWIN_MERGE_SHAPES:
+            b, c, res = shape
+            m = merge_case(shape, device)
+            bufs = (torch.empty((b, res * res // 4, 4 * c),
+                                dtype=torch.bfloat16, device=device),
+                    torch.empty((b, res * res // 4, 2 * c),
+                                dtype=torch.bfloat16, device=device))
+            out[("K6", shape)] = parts_split(
+                card, "K6", "B{}_C{}_S{}".format(*shape), pm.K6_PARTS,
+                lambda i: pm.k6_launch_part(i, *m, bufs=bufs),
+                lambda part: k6_part_bounds(part, shape))
     return out
 
 
@@ -2172,6 +2248,7 @@ def main() -> int:
     swin_errs = swin_kernels_vs_plain(device)
     swin_launches = swin_path(device, card)
     skt = swin_kernel_times(device, card)
+    swin_part_times(device, card)
 
     k7_errs = k7_kernels_vs_plain(device)
     swin_kernels_vs_plain(device, attn_shapes=(),

@@ -1,5 +1,9 @@
-// The bf16 block GEMM with a LayerNorm prologue shared by K1 (mhsa.cu)
-// and K4 (swin_attn.cu), for Hopper (sm_90a):
+// The bf16 block GEMM with a LayerNorm prologue of K9a's forward
+// (swin_train.cu, EPI_QKV_TRAIN), and the warp helpers and WMMA set-up
+// that vit_attn.cuh (K8b/K8c) and train_gemm.cuh (K9c/K8c) include it
+// for, for Hopper (sm_90a). K1 and K4 run the TMA + wgmma GEMM of
+// hopper_gemm.cuh instead, so EPI_QKV, EPI_PROJ and the plain-A form
+// below have no caller left; K9a's EPI_QKV_TRAIN is the one in use:
 //
 //   out(M, Nc) = epilogue(A(M, K) @ W(K, Nc))
 //
@@ -9,8 +13,7 @@
 // multiplied against 32-row slabs of W with WMMA 16x16x16 bf16 tiles and
 // f32 accumulators, 8 warps as 2 x 4 warp tiles of 32 x 32.
 // Epilogues, in f32, rounded to bf16 at the store:
-//   EPI_QKV:  acc + bias, times qscale on the first qcols columns (K4 folds
-//             the softmax scale and log2(e) into q there; K1 passes 0);
+//   EPI_QKV:  acc + bias, times qscale on the first qcols columns;
 //   EPI_PROJ: (acc + bias) * gamma (when given) + resid;
 //   EPI_QKV_TRAIN: acc + bias to `out` unscaled on every column, and
 //             (acc + bias) * qscale on the first qcols columns to `out2`

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of K1's launches (hopper_gemm.cuh,
-// mhsa.cu): mbarriers, TMA tile loads, warpgroup matrix multiplies
-// (wgmma) on 128-byte-swizzled shared-memory tiles, and the host's
+// Hopper (sm_90a) building blocks of the TMA-fed kernels (hopper_gemm.cuh,
+// mhsa.cu, swin_attn.cu, patch_merge.cu): mbarriers, TMA tile loads and
+// stores, warpgroup matrix multiplies (wgmma) on 128-byte-swizzled
+// shared-memory tiles, ldmatrix on the same tiles, and the host's
 // tensor-map encoding.
 //
 // Every tile here is 64 bf16 (128 bytes) wide in its contiguous dimension,
@@ -107,6 +108,78 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// TMA store of the box at the given coordinates from shared memory at src;
+// elements out of bounds are not written. Tracked as a bulk group
+// (bulk_commit, bulk_wait_read).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// waits until the committed stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// orders this thread's shared-memory writes before a later TMA read of them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// barrier `id` (1..15) over the first `count` threads of the CTA
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+// four 8 x 8 bf16 matrices, lanes 8 i .. 8 i + 7 giving the row addresses
+// of matrix i; r[i] holds this lane's pair of matrix i (row lane / 4,
+// columns 2 (lane % 4), + 1), or with kTrans of its transpose
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  if constexpr (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr)
+        : "memory");
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr)
+        : "memory");
 }
 
 // descriptor of a 128-byte-swizzled tile (see the header note)
@@ -231,18 +304,19 @@ inline TmapEncodeFn tmap_encode_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (sizes and byte strides innermost first;
-// strides[0] is the stride of dim 1) read in boxes of box[] elements, each
-// 64 elements (128 bytes) wide, with the 128-byte swizzle; elements out of
-// bounds read as zero. False if the encoding is refused (or the base is
-// not 16-byte aligned).
+// A bf16 tensor map of `rank` (<= 5) dims (sizes and byte strides
+// innermost first; strides[0] is the stride of dim 1) read or written in
+// boxes of box[] elements, each 64 elements (128 bytes) wide, with the
+// 128-byte swizzle; elements out of bounds read as zero and are not
+// written. False if the encoding is refused (or the base is not 16-byte
+// aligned).
 inline bool make_tmap(CUtensorMap* map, const void* base, int rank,
                       const cuuint64_t* dims, const cuuint64_t* strides,
                       const cuuint32_t* box) {
   const TmapEncodeFn enc = tmap_encode_fn();
   if (enc == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) != 0)
     return false;
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
              const_cast<void*>(base), dims, strides, box, elem_strides,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,

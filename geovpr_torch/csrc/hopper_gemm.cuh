@@ -1,30 +1,40 @@
-// K1's LayerNorm and projection GEMMs for Hopper (sm_90a), bf16:
+// The LayerNorm and projection GEMMs of K1 (mhsa.cu), K4 (swin_attn.cu)
+// and K6 (patch_merge.cu) for Hopper (sm_90a), bf16:
 //
 //   ln_rows_kernel:     y(M, D) = bf16(LN(x) * ln_scale + ln_bias)
 //   hopper_gemm_kernel: out(M, Nc) = epilogue(A(M, K) @ W(K, Nc))
 //
-// LayerNorm runs once per row in a kernel of its own (one warp a row, the
-// row in registers, two-pass f32 statistics: the mean, then the mean
-// squared deviation), writing bf16 LN(x), the oracle's rounding point, to
-// a buffer the QKV GEMM then reads by TMA. Folding it into the GEMM's
-// prologue would recompute it in each of the 18 (D = 768) column tiles of
-// a row block and keep the A operand off TMA's path; the separate pass
-// costs one round trip of 2 M D bytes (0.015 ms at 3.35 TB/s for
-// 64 x 257 x 768).
+// LayerNorm runs once per row in a kernel of its own (a warp, or where
+// D <= 256 a part of one, a row; the row in registers, two-pass f32 statistics:
+// the mean, then the mean squared deviation), writing bf16 LN(x), the
+// oracle's rounding point, to a buffer the QKV GEMM then reads by TMA.
+// Folding it into the GEMM's prologue would recompute it in each of the
+// 18 (D = 768) column tiles of a row block and keep the A operand off
+// TMA's path; the separate pass costs one round trip of 2 M D bytes (0.015
+// ms at 3.35 TB/s for 64 x 257 x 768).
 //
-// The GEMM: a 128 x BN output tile (BN = 128, or 64 where Nc is not a
-// multiple of 128) per CTA, two CTAs an SM. One producer warp
-// keeps a ring of kStages shared-memory stages full by TMA (A: a 128 x 64
-// K-major box; W, row-major (K, Nc) as the port stores wqkv and wo: BN/64
-// boxes of 64 k x 64 columns, the MN-major B operand), each stage's
-// completion counted on an mbarrier; two consumer warpgroups each multiply
-// their 64 rows with wgmma m64n{BN}k16 (f32 accumulators in registers),
-// keep one k tile's products in flight and hand a stage back to the
-// producer on a second mbarrier when its products are done. The M tail
-// comes from TMA's zero fill; the epilogue, from the registers in f32,
-// masks rows >= M and stores bf16 pairs:
-//   EPI_QKV:  acc + bias;
-//   EPI_PROJ: (acc + bias) * gamma + resid.
+// The GEMM: 128 x BN output tiles (BN = 128, or 64 where Nc is not a
+// multiple of 128), two persistent CTAs an SM, each walking its share of
+// the tiles. One producer warp keeps a ring of kStages shared-memory
+// stages full by TMA (A: a 128 x 64 K-major box; W, row-major (K, Nc) as
+// the port stores wqkv, wo and the merge reduction: BN/64 boxes of 64 k x
+// 64 columns, the MN-major B operand), each stage's completion counted on
+// an mbarrier; two consumer warpgroups each multiply their 64 rows with
+// wgmma m64n{BN}k16 (f32 accumulators in registers), keep one k tile's
+// products in flight and hand a stage back to the producer on a second
+// mbarrier when its products are done; the producer runs on into the next
+// tile's k tiles. The M tail, a K tail (ceil(K / 64) k tiles) and a
+// column tail come from TMA's zero fill. The epilogue works from the
+// registers in f32, rounds once to bf16 into the tile's last stage (handed
+// back only after it) as 64 x 64 boxes with the 128-byte swizzle, and
+// stores each warpgroup's boxes by TMA, which drops rows >= M and columns
+// >= Nc: the rounding of a direct store, but whole 128-byte rows instead
+// of 4-byte pairs, and the next tile's loads overlap the epilogue:
+//   EPI_QKV:   acc + bias, times qscale on the first qcols columns (K4's
+//              dh^-0.5 log2 e on q; K1 passes qcols = 0);
+//   EPI_PROJ:  (acc + bias) * gamma + resid (K1's LayerScale);
+//   EPI_RESID: acc + bias + resid (K4: no LayerScale);
+//   EPI_NONE:  acc (K6, no bias).
 // What bounds it: at 64 x 257 x 768 the QKV GEMM is 58.2 GFLOP against
 // ~105 MB (tensor cores: 0.059 ms at the bf16 peak), the out projection
 // 19.4 GFLOP against ~77 MB (memory: 0.023 ms).
@@ -37,7 +47,16 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-enum { HG_EPI_QKV = 0, HG_EPI_PROJ = 1 };
+enum { HG_EPI_QKV, HG_EPI_PROJ, HG_EPI_RESID, HG_EPI_NONE };
+
+// What the epilogue adds (see the header note); unused fields are ignored.
+struct HgEpilogue {
+  const float* bias;   // (Nc,); null with HG_EPI_NONE
+  const float* gamma;  // (Nc,), HG_EPI_PROJ
+  const bf16* resid;   // (M, Nc), HG_EPI_PROJ and HG_EPI_RESID
+  float qscale;
+  int qcols;
+};
 
 constexpr int HG_BM = 128;        // rows of an output tile
 constexpr int HG_BK = 64;         // k of a stage: one 128-byte swizzle row
@@ -52,6 +71,8 @@ struct HgTile {
   static constexpr int kStageBytes = kABytes + kBBytes;
   // the ring, its 2 kStages barriers, and the slack of align1024
   static constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+  // the epilogue stages the bf16 output tile in one stage
+  static_assert(HG_BM * BN * 2 <= kStageBytes, "output tile");
 };
 
 constexpr int LN_ROWS = 8;        // rows (warps) of a LayerNorm block
@@ -64,23 +85,37 @@ __device__ __forceinline__ float hg_warp_sum(float v) {
   return v;
 }
 
-// y = LN(x) rounded to bf16, one warp a row; D % 8 == 0, D <= HG_MAX_DIM
+// the sum over each aligned group of kLanes lanes (hg_warp_sum at 32)
+template <int kLanes>
+__device__ __forceinline__ float hg_group_sum(float v) {
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// y = LN(x) rounded to bf16, kLanes lanes a row (32 / kLanes rows a
+// warp, so that a narrow row still uses every lane and a warp keeps ~1 KB
+// of loads in flight), kChunks 8-element chunks a lane; D % 8 == 0,
+// D <= 8 kLanes kChunks
+template <int kLanes, int kChunks>
 __global__ void __launch_bounds__(32 * LN_ROWS)
 ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
                const float* __restrict__ bias, bf16* __restrict__ y, int M,
                int D, float eps) {
-  const int row = blockIdx.x * LN_ROWS + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;
+  const int row = blockIdx.x * (LN_ROWS * 32 / kLanes) + threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const bool live = row < M;  // the group's shuffles need every lane
+  if (kLanes == 32 && !live) return;
   const int chunks = D / 8;
   const bf16* xr = x + (size_t)row * D;
-  float v[LN_MAX_CHUNKS][8];
+  float v[kChunks][8];
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < LN_MAX_CHUNKS; ++i) {
-    const int c = lane + 32 * i;
+  for (int i = 0; i < kChunks; ++i) {
+    const int c = lane + kLanes * i;
     uint4 u = make_uint4(0, 0, 0, 0);
-    if (c < chunks) u = *reinterpret_cast<const uint4*>(xr + 8 * c);
+    if (live && c < chunks) u = *reinterpret_cast<const uint4*>(xr + 8 * c);
     const bf16* e = reinterpret_cast<const bf16*>(&u);
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
@@ -88,21 +123,22 @@ ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
       s += v[i][k];
     }
   }
-  const float mu = hg_warp_sum(s) / D;
+  const float mu = hg_group_sum<kLanes>(s) / D;
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < LN_MAX_CHUNKS; ++i)
-    if (lane + 32 * i < chunks)
+  for (int i = 0; i < kChunks; ++i)
+    if (lane + kLanes * i < chunks)
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         const float d = v[i][k] - mu;
         q += d * d;
       }
-  const float rstd = rsqrtf(hg_warp_sum(q) / D + eps);
+  const float rstd = rsqrtf(hg_group_sum<kLanes>(q) / D + eps);
+  if (!live) return;
   bf16* yr = y + (size_t)row * D;
 #pragma unroll
-  for (int i = 0; i < LN_MAX_CHUNKS; ++i) {
-    const int c = lane + 32 * i;
+  for (int i = 0; i < kChunks; ++i) {
+    const int c = lane + kLanes * i;
     if (c >= chunks) continue;
     const float4 s0 = *reinterpret_cast<const float4*>(scale + 8 * c);
     const float4 s1 = *reinterpret_cast<const float4*>(scale + 8 * c + 4);
@@ -121,17 +157,41 @@ ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+template <int kLanes, int kChunks>
+void launch_ln(const bf16* x, const float* scale, const float* bias, bf16* y,
+               int M, int D, float eps, cudaStream_t s) {
+  constexpr int kRows = LN_ROWS * 32 / kLanes;  // rows of a block
+  ln_rows_kernel<kLanes, kChunks><<<(M + kRows - 1) / kRows, 32 * LN_ROWS, 0,
+                                    s>>>(x, scale, bias, y, M, D, eps);
+}
+
+// ln_rows_kernel at two chunks a lane up to D = 512 (D = 128: four rows a
+// warp), four above (K1's D = 768 and 1024: a warp a row)
+inline cudaError_t launch_ln_rows(const bf16* x, const float* scale,
+                                  const float* bias, bf16* y, int M, int D,
+                                  float eps, cudaStream_t s) {
+  if (D <= 128)
+    launch_ln<8, 2>(x, scale, bias, y, M, D, eps, s);
+  else if (D <= 256)
+    launch_ln<16, 2>(x, scale, bias, y, M, D, eps, s);
+  else if (D <= 512)
+    launch_ln<32, 2>(x, scale, bias, y, M, D, eps, s);
+  else
+    launch_ln<32, LN_MAX_CHUNKS>(x, scale, bias, y, M, D, eps, s);
+  return cudaGetLastError();
+}
+
 // out(M, Nc) = epilogue(A @ W): tm_a maps A (M, K) in 64 x 128 boxes, tm_w
-// W (K, Nc) in 64 x 64 boxes (both 128-byte swizzled). Grid (Nc / BN,
-// ceil(M / 128)); K % 64 == 0, Nc % BN == 0.
+// W (K, Nc) and tm_out out (M, Nc) in 64 x 64 boxes (all 128-byte
+// swizzled). Persistent: CTA c computes the output tiles c, c + gridDim.x,
+// ... of the ceil(M / 128) x ceil(Nc / BN) tiles, column tiles fastest;
+// Nc even.
 template <int BN, int kEpi>
 __global__ void __launch_bounds__(HG_THREADS, 2)
 hopper_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
                    const __grid_constant__ CUtensorMap tm_w,
-                   const float* __restrict__ bias,
-                   const float* __restrict__ gamma,
-                   const bf16* __restrict__ resid, bf16* __restrict__ out,
-                   int M, int K, int Nc) {
+                   const __grid_constant__ CUtensorMap tm_out,
+                   const HgEpilogue ep, int M, int K, int Nc) {
   using T = HgTile<BN>;
   extern __shared__ unsigned char hg_smem[];
   unsigned char* ring = align1024(hg_smem);
@@ -139,9 +199,9 @@ hopper_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
       reinterpret_cast<uint64_t*>(ring + T::kStages * T::kStageBytes);
   uint64_t* empty = full + T::kStages;
   const int warp = threadIdx.x / 32;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * HG_BM;
-  const int ktiles = K / HG_BK;
+  const int ktiles = (K + HG_BK - 1) / HG_BK;
+  const int ntiles = (Nc + BN - 1) / BN;
+  const int tiles = ntiles * ((M + HG_BM - 1) / HG_BM);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < T::kStages; ++s) {
@@ -153,81 +213,198 @@ hopper_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
   __syncthreads();
 
   if (warp == 4 * HG_CONSUMERS) {
-    // the producer: one lane keeps the ring full
+    // the producer: one lane keeps the ring full, across tiles
     if ((threadIdx.x & 31) == 0) {
-      for (int kt = 0; kt < ktiles; ++kt) {
-        const int s = kt % T::kStages;
-        mbar_wait(empty + s, ((kt / T::kStages) & 1) ^ 1);
-        unsigned char* a = ring + s * T::kStageBytes;
-        mbar_expect_tx(full + s, T::kStageBytes);
-        tma_load_2d(a, &tm_a, full + s, kt * HG_BK, m0);
+      int step = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int n0 = (tile % ntiles) * BN;
+        const int m0 = (tile / ntiles) * HG_BM;
+        for (int kt = 0; kt < ktiles; ++kt, ++step) {
+          const int s = step % T::kStages;
+          mbar_wait(empty + s, ((step / T::kStages) & 1) ^ 1);
+          unsigned char* a = ring + s * T::kStageBytes;
+          mbar_expect_tx(full + s, T::kStageBytes);
+          tma_load_2d(a, &tm_a, full + s, kt * HG_BK, m0);
 #pragma unroll
-        for (int c = 0; c < BN / 64; ++c)
-          tma_load_2d(a + T::kABytes + c * HG_BK * 128, &tm_w, full + s,
-                      n0 + 64 * c, kt * HG_BK);
+          for (int c = 0; c < BN / 64; ++c)
+            tma_load_2d(a + T::kABytes + c * HG_BK * 128, &tm_w, full + s,
+                        n0 + 64 * c, kt * HG_BK);
+        }
       }
     }
     return;
   }
 
-  // the consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
+  // the consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of a tile
   const int wg = warp / 4;
-  float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int s = kt % T::kStages;
-    mbar_wait(full + s, (kt / T::kStages) & 1);
-    const unsigned char* a = ring + s * T::kStageBytes + wg * 64 * 128;
-    const unsigned char* b = ring + s * T::kStageBytes + T::kABytes;
-    fence_regs(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < HG_BK / 16; ++kk) {
-      const uint64_t da = sw128_desc(a + kk * 32, 16, 1024);
-      const uint64_t db = sw128_desc(b + kk * 2048, HG_BK * 128, 1024);
-      if constexpr (BN == 128)
-        wgmma_m64n128<1>(acc, da, db, 1);
-      else
-        wgmma_m64n64<1>(acc, da, db, 1);
-    }
-    wgmma_commit();
-    // the previous k tile's products are done: hand its stage back
-    wgmma_wait<1>();
-    fence_regs(acc);
-    if (kt > 0 && (threadIdx.x & 127) == 0)
-      mbar_arrive(empty + (kt - 1) % T::kStages);
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-
   const int tid = threadIdx.x & 127;
   const int g = (tid & 31) >> 2;
   const int t = tid & 3;
-  const int r0 = m0 + wg * 64 + (tid >> 5) * 16 + g;
+  const int lr0 = (tid >> 5) * 16 + g;  // rows lr0, lr0 + 8 of the 64
+  int step = 0;
+  int held = -1;  // the stage the last tile's stores may still be reading
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n0 = (tile % ntiles) * BN;
+    const int m0 = (tile / ntiles) * HG_BM;
+    float acc[BN / 2];
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = n0 + 8 * j + 2 * t;
-    const float2 bb = *reinterpret_cast<const float2*>(bias + col);
-    float2 gg = make_float2(1.f, 1.f);
-    if (kEpi == HG_EPI_PROJ) gg = *reinterpret_cast<const float2*>(gamma + col);
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    int s = 0;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      s = (step + kt) % T::kStages;
+      mbar_wait(full + s, ((step + kt) / T::kStages) & 1);
+      const unsigned char* a = ring + s * T::kStageBytes + wg * 64 * 128;
+      const unsigned char* b = ring + s * T::kStageBytes + T::kABytes;
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r0 + 8 * half;
-      if (row >= M) continue;
-      const size_t at = (size_t)row * Nc + col;
-      float v0 = acc[4 * j + 2 * half] + bb.x;
-      float v1 = acc[4 * j + 2 * half + 1] + bb.y;
-      if (kEpi == HG_EPI_PROJ) {
-        const float2 r = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(resid + at));
-        v0 = v0 * gg.x + r.x;
-        v1 = v1 * gg.y + r.y;
+      for (int kk = 0; kk < HG_BK / 16; ++kk) {
+        const uint64_t da = sw128_desc(a + kk * 32, 16, 1024);
+        const uint64_t db = sw128_desc(b + kk * 2048, HG_BK * 128, 1024);
+        if constexpr (BN == 128)
+          wgmma_m64n128<1>(acc, da, db, 1);
+        else
+          wgmma_m64n64<1>(acc, da, db, 1);
       }
-      *reinterpret_cast<__nv_bfloat162*>(out + at) =
-          __floats2bfloat162_rn(v0, v1);
+      wgmma_commit();
+      if (held >= 0 && tid == 0) {
+        // the last tile's stores have read their stage by now, mostly
+        bulk_wait_read();
+        mbar_arrive(empty + held);
+      }
+      held = -1;
+      // the previous k tile's products are done: hand its stage back
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (kt > 0 && tid == 0)
+        mbar_arrive(empty + (step + kt - 1) % T::kStages);
     }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    step += ktiles;
+    // both warpgroups' products are done: the last k tile's stage s, not
+    // yet handed back, holds the output tile while the producer fills the
+    // others with the next tile
+    named_sync(1, 128 * HG_CONSUMERS);
+
+    const int r0 = m0 + wg * 64 + lr0;
+    unsigned char* out_s =
+        ring + s * T::kStageBytes + wg * 64 * BN * 2;  // BN / 64 boxes
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      if (col >= Nc) continue;
+      float2 bb = make_float2(0.f, 0.f);
+      if (kEpi != HG_EPI_NONE)
+        bb = *reinterpret_cast<const float2*>(ep.bias + col);
+      float2 gg = make_float2(1.f, 1.f);
+      if (kEpi == HG_EPI_PROJ)
+        gg = *reinterpret_cast<const float2*>(ep.gamma + col);
+      const bool scaled = kEpi == HG_EPI_QKV && col < ep.qcols;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 8 * half;
+        if (row >= M) continue;
+        const size_t at = (size_t)row * Nc + col;
+        const int lr = lr0 + 8 * half;
+        float v0 = acc[4 * j + 2 * half];
+        float v1 = acc[4 * j + 2 * half + 1];
+        if (kEpi != HG_EPI_NONE) {
+          v0 += bb.x;
+          v1 += bb.y;
+        }
+        if (scaled) {
+          v0 *= ep.qscale;
+          v1 *= ep.qscale;
+        }
+        if (kEpi == HG_EPI_PROJ || kEpi == HG_EPI_RESID) {
+          const float2 r = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(ep.resid + at));
+          if (kEpi == HG_EPI_PROJ) {
+            v0 = v0 * gg.x + r.x;
+            v1 = v1 * gg.y + r.y;
+          } else {
+            v0 += r.x;
+            v1 += r.y;
+          }
+        }
+        __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+        st_shared_u32(smem_u32(out_s + (j / 8) * 8192 + lr * 128 +
+                               (((j % 8) ^ (lr & 7)) << 4) + 4 * t),
+                      *reinterpret_cast<uint32_t*>(&v));
+      }
+    }
+    fence_proxy_async();
+    named_sync(2 + wg, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int c = 0; c < BN / 64; ++c)
+        tma_store_2d(&tm_out, out_s + c * 8192, n0 + 64 * c, m0 + wg * 64);
+      bulk_commit();
+    }
+    // the stage goes back to the producer once the stores have read it,
+    // which the next tile's first k step waits for
+    held = s;
   }
+  if (tid == 0) bulk_wait_read();
+}
+
+// 128-wide column tiles where Nc allows them (every DINOv2 width: 3D and
+// D are multiples of 128), else 64-wide (D = 64 H with H odd; Swin-T's
+// 2C = 192; a column tail masked). 64-wide tiles where they leave fewer
+// tiles to the busiest SM (K8a's B = 16) were no faster on an H100 80GB at
+// 700 W.
+template <int kEpi>
+cudaError_t launch_gemm(const CUtensorMap& ta, const bf16* w, int K, int Nc,
+                        const HgEpilogue& ep, bf16* out, int M,
+                        cudaStream_t s) {
+  const int bn = Nc % 128 == 0 ? 128 : 64;
+  CUtensorMap tw;
+  const cuuint64_t dims[2] = {(cuuint64_t)Nc, (cuuint64_t)K};
+  const cuuint64_t strides[1] = {(cuuint64_t)Nc * 2};
+  const cuuint32_t box[2] = {64, HG_BK};
+  if (!make_tmap(&tw, w, 2, dims, strides, box)) return cudaErrorInvalidValue;
+  CUtensorMap to;
+  const cuuint64_t odims[2] = {(cuuint64_t)Nc, (cuuint64_t)M};
+  const cuuint32_t obox[2] = {64, 64};
+  if (!make_tmap(&to, out, 2, odims, strides, obox))
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  const long long tiles =
+      (long long)((Nc + bn - 1) / bn) * ((M + HG_BM - 1) / HG_BM);
+  const int grid = (int)(tiles < 2 * sms ? tiles : 2 * sms);
+  if (bn == 128)
+    hopper_gemm_kernel<128, kEpi><<<grid, HG_THREADS, HgTile<128>::kSmem, s>>>(
+        ta, tw, to, ep, M, K, Nc);
+  else
+    hopper_gemm_kernel<64, kEpi><<<grid, HG_THREADS, HgTile<64>::kSmem, s>>>(
+        ta, tw, to, ep, M, K, Nc);
+  return cudaGetLastError();
+}
+
+// the A operand (M, K) of a GEMM in 64 x 128 boxes
+bool map_rows(CUtensorMap* m, const bf16* a, int M, int K) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box[2] = {HG_BK, HG_BM};
+  return make_tmap(m, a, 2, dims, strides, box);
+}
+
+// raises the dynamic shared-memory limit of this translation unit's GEMMs
+// with epilogue kEpi (both tile widths)
+template <int kEpi>
+cudaError_t allow_gemm_smem() {
+  const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  const cudaError_t e = cudaFuncSetAttribute(hopper_gemm_kernel<128, kEpi>, a,
+                                             HgTile<128>::kSmem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(hopper_gemm_kernel<64, kEpi>, a,
+                              HgTile<64>::kSmem);
 }
 
 }  // namespace

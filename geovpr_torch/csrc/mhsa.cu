@@ -249,38 +249,6 @@ vit_attn_tma_kernel(const __grid_constant__ CUtensorMap tm_qkv,
   }
 }
 
-// 128-wide column tiles where Nc allows them (every DINOv2 width: 3D and
-// D are multiples of 128), else 64-wide (D = 64 H with H odd). 64-wide
-// tiles where they leave fewer tiles to the busiest SM (K8a's B = 16) were
-// no faster on an H100 80GB at 700 W.
-template <int kEpi>
-cudaError_t launch_gemm(const CUtensorMap& ta, const bf16* w, int K, int Nc,
-                        const float* bias, const float* gamma,
-                        const bf16* resid, bf16* out, int M, cudaStream_t s) {
-  const int bn = Nc % 128 == 0 ? 128 : 64;
-  CUtensorMap tw;
-  const cuuint64_t dims[2] = {(cuuint64_t)Nc, (cuuint64_t)K};
-  const cuuint64_t strides[1] = {(cuuint64_t)Nc * 2};
-  const cuuint32_t box[2] = {64, HG_BK};
-  if (!make_tmap(&tw, w, 2, dims, strides, box)) return cudaErrorInvalidValue;
-  const dim3 grid(Nc / bn, (M + HG_BM - 1) / HG_BM);
-  if (bn == 128)
-    hopper_gemm_kernel<128, kEpi><<<grid, HG_THREADS, HgTile<128>::kSmem, s>>>(
-        ta, tw, bias, gamma, resid, out, M, K, Nc);
-  else
-    hopper_gemm_kernel<64, kEpi><<<grid, HG_THREADS, HgTile<64>::kSmem, s>>>(
-        ta, tw, bias, gamma, resid, out, M, K, Nc);
-  return cudaGetLastError();
-}
-
-// the A operand (M, K) of a GEMM in 64 x 128 boxes
-bool map_rows(CUtensorMap* m, const bf16* a, int M, int K) {
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t box[2] = {HG_BK, HG_BM};
-  return make_tmap(m, a, 2, dims, strides, box);
-}
-
 }  // namespace
 
 // Largest row width D the kernels take (the LayerNorm keeps a row in a
@@ -293,17 +261,12 @@ extern "C" int geovpr_mhsa_max_dim(void) { return HG_MAX_DIM; }
 extern "C" int geovpr_mhsa_init(void) {
   cudaError_t e;
   if (tmap_encode_fn() == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  if ((e = cudaFuncSetAttribute(hopper_gemm_kernel<128, HG_EPI_QKV>, a,
-                                HgTile<128>::kSmem)) != cudaSuccess ||
-      (e = cudaFuncSetAttribute(hopper_gemm_kernel<128, HG_EPI_PROJ>, a,
-                                HgTile<128>::kSmem)) != cudaSuccess ||
-      (e = cudaFuncSetAttribute(hopper_gemm_kernel<64, HG_EPI_QKV>, a,
-                                HgTile<64>::kSmem)) != cudaSuccess ||
-      (e = cudaFuncSetAttribute(hopper_gemm_kernel<64, HG_EPI_PROJ>, a,
-                                HgTile<64>::kSmem)) != cudaSuccess)
+  if ((e = allow_gemm_smem<HG_EPI_QKV>()) != cudaSuccess ||
+      (e = allow_gemm_smem<HG_EPI_PROJ>()) != cudaSuccess)
     return (int)e;
-  return (int)cudaFuncSetAttribute(vit_attn_tma_kernel, a, AT_SMEM);
+  return (int)cudaFuncSetAttribute(
+      vit_attn_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      AT_SMEM);
 }
 
 // K1's launches first..last (0 LayerNorm, 1 QKV GEMM, 2 attention, 3 out
@@ -332,17 +295,17 @@ extern "C" int geovpr_mhsa_block_parts(
   for (int part = first; part <= last; ++part) {
     switch (part) {
       case 0:
-        ln_rows_kernel<<<(M + LN_ROWS - 1) / LN_ROWS, 32 * LN_ROWS, 0, s>>>(
-            xb, static_cast<const float*>(ln_scale),
-            static_cast<const float*>(ln_bias), ctxb, M, D, eps);
-        e = cudaGetLastError();
+        e = launch_ln_rows(xb, static_cast<const float*>(ln_scale),
+                           static_cast<const float*>(ln_bias), ctxb, M, D,
+                           eps, s);
         break;
       case 1:
         if (!map_rows(&tm, ctxb, M, D)) return (int)cudaErrorInvalidValue;
-        e = launch_gemm<HG_EPI_QKV>(tm, static_cast<const bf16*>(wqkv), D,
-                                    3 * D,
-                                    static_cast<const float*>(bqkv), nullptr,
-                                    nullptr, qkvb, M, s);
+        e = launch_gemm<HG_EPI_QKV>(
+            tm, static_cast<const bf16*>(wqkv), D, 3 * D,
+            HgEpilogue{static_cast<const float*>(bqkv), nullptr, nullptr, 1.f,
+                       0},
+            qkvb, M, s);
         break;
       case 2: {
         const cuuint64_t dims[3] = {(cuuint64_t)3 * D, (cuuint64_t)N,
@@ -360,10 +323,11 @@ extern "C" int geovpr_mhsa_block_parts(
       }
       default:
         if (!map_rows(&tm, ctxb, M, D)) return (int)cudaErrorInvalidValue;
-        e = launch_gemm<HG_EPI_PROJ>(tm, static_cast<const bf16*>(wo), D, D,
-                                     static_cast<const float*>(bo),
-                                     static_cast<const float*>(gamma), xb,
-                                     static_cast<bf16*>(out), M, s);
+        e = launch_gemm<HG_EPI_PROJ>(
+            tm, static_cast<const bf16*>(wo), D, D,
+            HgEpilogue{static_cast<const float*>(bo),
+                       static_cast<const float*>(gamma), xb, 1.f, 0},
+            static_cast<bf16*>(out), M, s);
     }
     if (e != cudaSuccess) return (int)e;
   }

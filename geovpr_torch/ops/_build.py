@@ -108,12 +108,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         # K3 (mlp_int8.cu): 12 pointers, M D HID, inv_a_mid, eps, stream
         "geovpr_mlp_block_int8": [vp] * 12 + [ci] * 3 + [cf, cf, vp],
         # K4 (swin_attn.cu): 11 pointers, B S C H win shift, eps, qscale,
-        # stream
+        # stream; _parts also takes the first and last of its four launches
         "geovpr_swin_attn_bf16": [vp] * 11 + [ci] * 6 + [cf, cf, vp],
+        "geovpr_swin_attn_parts": [vp] * 11 + [ci] * 6 + [cf, cf, ci, ci, vp],
         # K5 (swin_attn.cu): 14 pointers, B S C H win shift, eps, cs2, stream
         "geovpr_swin_attn_int8": [vp] * 14 + [ci] * 6 + [cf, cf, vp],
-        # K6 (patch_merge.cu): 5 pointers, B S C, eps, stream
-        "geovpr_patch_merge": [vp] * 5 + [ci] * 3 + [cf, vp],
+        # K6 (patch_merge.cu): 6 pointers, B S C, eps, stream; _parts also
+        # takes the first and last of its two launches
+        "geovpr_patch_merge": [vp] * 6 + [ci] * 3 + [cf, vp],
+        "geovpr_patch_merge_parts": [vp] * 6 + [ci] * 3 + [cf, ci, ci, vp],
         # K7 (window_attn.cu): 6 pointers, BW H N nW, qscale, stream
         "geovpr_window_attention": [vp] * 6 + [ci] * 4 + [cf, vp],
         # K9a/K9b/K9c (swin_train.cu): pointers, B S C H win shift, floats,
@@ -132,6 +135,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "geovpr_mhsa_int8_init": [],
         "geovpr_mlp_int8_init": [],
         "geovpr_swin_init": [],
+        "geovpr_patch_merge_init": [],
         "geovpr_window_attention_init": [],
     }
     for name, argtypes in signatures.items():

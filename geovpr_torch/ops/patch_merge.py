@@ -14,7 +14,8 @@ un-roll: the JAX kernel exists to consume the shifted window layout, which
 the port never builds.
 
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel of
-`geovpr_torch/csrc/patch_merge.cu` or raises; on a CPU tensor it runs
+`geovpr_torch/csrc/patch_merge.cu` (two launches: the merge-LN pass, then
+the TMA + wgmma GEMM) or raises; on a CPU tensor it runs
 `patch_merge_reference`.
 """
 
@@ -23,6 +24,8 @@ from __future__ import annotations
 import torch
 
 from geovpr_torch.ops.quant import check_devices, check_shapes, layer_norm_f32
+
+_K6_MAX_C = 1024
 
 
 def merge_gather(x: torch.Tensor, resolution: int) -> torch.Tensor:
@@ -44,12 +47,23 @@ def patch_merge_reference(x, ln_scale, ln_bias, w, resolution: int,
     return torch.matmul(ln.float(), w.float()).to(x.dtype)
 
 
+def k6_shape_error(c: int) -> str | None:
+    """The rule of K6's kernels (`csrc/patch_merge.cu`), or None where they
+    take the width: C a multiple of 8 (16-byte rows for TMA and the
+    merge-LN pass's loads) up to 1024 (the merge-LN pass holds a 4C row in
+    one warp's registers)."""
+    if c % 8 or not 0 < c <= _K6_MAX_C:
+        return (f"the kernel takes C a multiple of 8 up to {_K6_MAX_C}, "
+                f"got C={c}")
+    return None
+
+
 def fused_patch_merge(x: torch.Tensor, ln_scale: torch.Tensor,
                       ln_bias: torch.Tensor, w: torch.Tensor,
                       resolution: int, ln_eps: float = 1e-5) -> torch.Tensor:
     """Swin stage boundary on the raster stream. CPU tensors run the plain
     version; CUDA tensors launch K6 (bf16 x and w, f32 LN vectors,
-    contiguous, C a multiple of 8, forward only) or raise."""
+    contiguous, `k6_shape_error`'s widths, forward only) or raise."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, L, C), got {tuple(x.shape)}")
     b, l, c = x.shape
@@ -77,21 +91,56 @@ def fused_patch_merge(x: torch.Tensor, ln_scale: torch.Tensor,
     for name in ("ln_scale", "ln_bias"):
         if got[name].dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {got[name].dtype}")
-    if c % 8:
-        raise ValueError(f"the kernel takes C a multiple of 8, got C={c}")
-
-    from geovpr_torch.ops._build import load_library
-    lib = load_library()
-    out = torch.empty((b, l // 4, 2 * c), dtype=x.dtype, device=x.device)
+    err = k6_shape_error(c)
+    if err:
+        raise ValueError(err)
+    bufs = (torch.empty((b, l // 4, 4 * c), dtype=x.dtype, device=x.device),
+            torch.empty((b, l // 4, 2 * c), dtype=x.dtype, device=x.device))
+    lib, args = _k6_args(x, got, resolution, ln_eps, bufs)
     with torch.cuda.device(x.device):
         rc = lib.geovpr_patch_merge(
-            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            w.data_ptr(), out.data_ptr(), b, resolution, c, float(ln_eps),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            *args, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"patch_merge kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(
+            f"patch_merge kernel launch failed: CUDA error {rc}")
     fused_patch_merge.launches += 1
-    return out
+    return bufs[1]
+
+
+def _k6_args(x, got: dict, resolution: int, ln_eps: float, bufs):
+    """The library and K6's C arguments (but the stream) for a checked
+    CUDA x and the (LN(merged) (B, L/4, 4C), out) buffers `bufs`."""
+    from geovpr_torch.ops._build import library_on
+    lib = library_on(x.device.index, "geovpr_patch_merge_init")
+    ptrs = [x, got["ln_scale"], got["ln_bias"], got["w"], *bufs]
+    if any(t.data_ptr() % 16 for t in ptrs):
+        raise ValueError("K6 reads its tensors by TMA and 16-byte loads: "
+                         "each must start 16-byte aligned")
+    return lib, (*(t.data_ptr() for t in ptrs), x.shape[0], resolution,
+                 x.shape[-1], float(ln_eps))
+
+
+K6_PARTS = ("merge_ln", "gemm")
+
+
+def k6_launch_part(part: int, x, ln_scale, ln_bias, w, resolution: int,
+                   ln_eps: float = 1e-5, *, bufs) -> None:
+    """One of K6's two launches (an index into K6_PARTS) alone, on the
+    arguments of `fused_patch_merge` (bf16 CUDA tensors it takes) and the
+    (LN(merged), out) buffers `bufs` of an earlier call, whose contents it
+    reads. chip_smoke.py times K6's launches one by one with it; it counts
+    no launch."""
+    err = k6_shape_error(x.shape[-1])
+    if err:
+        raise ValueError(err)
+    lib, args = _k6_args(x, {"ln_scale": ln_scale, "ln_bias": ln_bias,
+                             "w": w}, resolution, ln_eps, bufs)
+    with torch.cuda.device(x.device):
+        rc = lib.geovpr_patch_merge_parts(
+            *args, part, part, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"patch_merge kernel launch failed: CUDA error {rc}")
 
 
 fused_patch_merge.launches = 0

@@ -43,6 +43,7 @@ from geovpr_torch.ops.window_attention import (add_bias_mask, from_windows,
 
 LOG2E = math.log2(math.e)
 _KERNEL_HEAD_DIM = 32
+_K4_MAX_C = 1024
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -166,14 +167,40 @@ def _check_geometry(x, num_heads, resolution, window, shift):
         raise ValueError(f"shift {shift} outside [0, {window})")
 
 
-def _kernel_geometry_ok(c, num_heads, window):
-    n = window * window
+def _window_rule_error(c, num_heads, window) -> str | None:
+    """What K4 and K5 both ask: head dim 32 and a window of 16..256 tokens
+    in multiples of 16."""
     if c // num_heads != _KERNEL_HEAD_DIM or not fused_window_ok(window):
-        raise ValueError(
-            f"the kernel takes head dim {_KERNEL_HEAD_DIM} and windows of "
-            f"16..256 tokens in multiples of 16, got C={c}, {num_heads} "
-            f"heads, window {window} (N={n}; other windows take the unfused "
-            f"half around K7, `swin_attn_block_unfused`)")
+        return (f"the kernel takes head dim {_KERNEL_HEAD_DIM} and windows "
+                f"of 16..256 tokens in multiples of 16, got C={c}, "
+                f"{num_heads} heads, window {window} (N={window * window}; "
+                f"other windows take the unfused half around K7, "
+                f"`swin_attn_block_unfused`)")
+    return None
+
+
+def _kernel_geometry_ok(c, num_heads, window):
+    err = _window_rule_error(c, num_heads, window)
+    if err:
+        raise ValueError(err)
+
+
+def k4_shape_error(c: int, num_heads: int, window: int,
+                   shift: int) -> str | None:
+    """The rule of K4's kernels (`csrc/swin_attn.cu`), or None where they
+    take the shape: head dim 32 and a window of 16..256 tokens in multiples
+    of 16 (as K5), C <= 1024 (its LayerNorm holds a row in one warp's
+    registers), and a shift of 0 or window // 2, Swin's own (a quarter of
+    a window is one TMA box, so the cyclic shift never splits one)."""
+    err = _window_rule_error(c, num_heads, window)
+    if err:
+        return err
+    if c > _K4_MAX_C:
+        return f"K4 takes C <= {_K4_MAX_C}, got C={c}"
+    if shift not in (0, window // 2):
+        return (f"K4 takes a shift of 0 or window // 2 = {window // 2} (a "
+                f"quarter window is one TMA box), got shift {shift}")
+    return None
 
 
 def fused_window_ok(window: int) -> bool:
@@ -198,7 +225,8 @@ def fused_swin_attn_block(x: torch.Tensor, ln_scale: torch.Tensor,
                           shift: int, ln_eps: float = 1e-5) -> torch.Tensor:
     """Swin attention half-block on the raster stream. CPU tensors run the
     plain version; CUDA tensors launch K4 (bf16 x and matrices, f32
-    vectors and table, contiguous, head dim 32, forward only) or raise."""
+    vectors and table, contiguous, `k4_shape_error`'s geometry, forward
+    only) or raise."""
     _check_geometry(x, num_heads, resolution, window, shift)
     b, l, c = x.shape
     got = {"ln_scale": ln_scale, "ln_bias": ln_bias, "wqkv": wqkv,
@@ -228,26 +256,62 @@ def fused_swin_attn_block(x: torch.Tensor, ln_scale: torch.Tensor,
     for name in ("ln_scale", "ln_bias", "bqkv", "bo", "table"):
         if got[name].dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {got[name].dtype}")
-    _kernel_geometry_ok(c, num_heads, window)
-
-    from geovpr_torch.ops._build import library_on
-    lib = library_on(x.device.index, "geovpr_swin_init")
+    err = k4_shape_error(c, num_heads, window, shift)
+    if err:
+        raise ValueError(err)
     m = b * l
-    qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
-    ctx = torch.empty((m, c), dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
-    qscale = (c // num_heads) ** -0.5 * LOG2E
+    bufs = (torch.empty((m, 3 * c), dtype=x.dtype, device=x.device),
+            torch.empty((m, c), dtype=x.dtype, device=x.device),
+            torch.empty_like(x))
+    lib, args = _k4_args(x, got, num_heads, resolution, window, shift,
+                         ln_eps, bufs)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_swin_attn_bf16(
-            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-            table.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), out.data_ptr(),
-            b, resolution, c, num_heads, window, shift, float(ln_eps),
-            float(qscale), torch.cuda.current_stream(x.device).cuda_stream)
+        rc = lib.geovpr_swin_attn_bf16(*args, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"swin_attn kernel launch failed: CUDA error {rc}")
     fused_swin_attn_block.launches += 1
-    return out
+    return bufs[2]
+
+
+def _k4_args(x, got: dict, num_heads, resolution, window, shift, ln_eps,
+             bufs):
+    """The library and K4's C arguments (but the stream) for a checked
+    CUDA x and the (qkv, ctx, out) buffers `bufs`."""
+    from geovpr_torch.ops._build import library_on
+    lib = library_on(x.device.index, "geovpr_swin_init")
+    ptrs = [x] + [got[k] for k in ("ln_scale", "ln_bias", "wqkv", "bqkv",
+                                   "wo", "bo", "table")] + list(bufs)
+    if any(t.data_ptr() % 16 for t in ptrs):
+        raise ValueError("K4 reads its tensors by TMA and 16-byte loads: "
+                         "each must start 16-byte aligned")
+    c = x.shape[-1]
+    qscale = (c // num_heads) ** -0.5 * LOG2E
+    return lib, (*(t.data_ptr() for t in ptrs), x.shape[0], resolution, c,
+                 num_heads, window, shift, float(ln_eps), float(qscale))
+
+
+K4_PARTS = ("layernorm", "qkv_gemm", "attention", "out_proj")
+
+
+def k4_launch_part(part: int, x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                   table, num_heads: int, resolution: int, window: int,
+                   shift: int, ln_eps: float = 1e-5, *, bufs) -> None:
+    """One of K4's four launches (an index into K4_PARTS) alone, on the
+    arguments of `fused_swin_attn_block` (bf16 CUDA tensors it takes) and
+    the (qkv (B*L, 3C), ctx (B*L, C), out) buffers `bufs` of an earlier
+    call, whose contents it reads. chip_smoke.py times K4's launches one by
+    one with it; it counts no launch."""
+    got = {"ln_scale": ln_scale, "ln_bias": ln_bias, "wqkv": wqkv,
+           "bqkv": bqkv, "wo": wo, "bo": bo, "table": table}
+    err = k4_shape_error(x.shape[-1], num_heads, window, shift)
+    if err:
+        raise ValueError(err)
+    lib, args = _k4_args(x, got, num_heads, resolution, window, shift,
+                         ln_eps, bufs)
+    with torch.cuda.device(x.device):
+        rc = lib.geovpr_swin_attn_parts(*args, part, part, _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"swin_attn kernel launch failed: CUDA error {rc}")
 
 
 fused_swin_attn_block.launches = 0

@@ -226,9 +226,15 @@ def test_int8_model_launches_once_per_layer(cuda):
 
 _SWIN_SHAPES = [(2, 128, 4, 24, 12, 6), (2, 64, 2, 8, 4, 2),
                 (1, 1024, 32, 12, 12, 0), (3, 256, 8, 24, 12, 0)]
+# K4 also at Swin-B-384 stage 0's geometry (S = 96: 8 x 8 windows, the
+# last row and column wrapped by the shift), at odd H (a head pair with one
+# head; 3C = 288 and K = 96, column and k tails of the GEMMs) and at
+# windows 8 and 16
+_K4_SHAPES = _SWIN_SHAPES + [(2, 128, 4, 96, 12, 6), (1, 96, 3, 24, 12, 6),
+                             (2, 64, 2, 16, 8, 4), (1, 128, 4, 32, 16, 8)]
 
 
-@pytest.mark.parametrize("shape", _SWIN_SHAPES)
+@pytest.mark.parametrize("shape", _K4_SHAPES)
 def test_k4_matches_plain_version(cuda, shape):
     """K1's bound (x at 1e-2; max and mean |error| against the f32 plain
     version within 1.25x and 1.1x the bf16 plain version's)."""
@@ -241,6 +247,50 @@ def test_k4_matches_plain_version(cuda, shape):
                      f32(args))
     assert fused_swin_attn_block.launches == before + 1
     assert k1_within_bound(e), e
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 4, 24, 12, 6),
+                                   (2, 128, 4, 96, 12, 6)])
+def test_k4_launches_one_by_one_equal_the_whole(cuda, shape):
+    """K4's four launches run alone (`k4_launch_part`, which chip_smoke.py
+    times) leave one whole call's output, bit for bit, and count no
+    launch; both shapes have shifted windows that wrap at S - shift."""
+    from geovpr_torch.ops import swin_block as sb
+    x, blk = swin_block_case(shape, cuda, x_scale=1e-2)
+    args = k4_args(x, blk)
+    b, c, _, res, _, _ = shape
+    with torch.inference_mode():
+        out = sb.fused_swin_attn_block(*args)
+        bufs = (torch.empty((b * res * res, 3 * c), dtype=x.dtype,
+                            device=cuda),
+                torch.empty((b * res * res, c), dtype=x.dtype, device=cuda),
+                torch.empty_like(x))
+        before = sb.fused_swin_attn_block.launches
+        for part in range(len(sb.K4_PARTS)):
+            sb.k4_launch_part(part, *args, bufs=bufs)
+        torch.cuda.synchronize()
+    assert sb.fused_swin_attn_block.launches == before
+    assert torch.equal(bufs[2], out)
+
+
+@pytest.mark.parametrize("shape", [(2, 96, 14), (1, 512, 24)])
+def test_k6_launches_one_by_one_equal_the_whole(cuda, shape):
+    """K6's two launches run alone (`k6_launch_part`) leave one whole
+    call's output, bit for bit, and count no launch: at C = 96 (2C = 192,
+    a partial 128-column tile, 64-wide tiles) and C = 512 (K = 2048)."""
+    from geovpr_torch.ops import patch_merge as pm
+    args = merge_case(shape, cuda)
+    b, c, res = shape
+    with torch.inference_mode():
+        out = pm.fused_patch_merge(*args)
+        bufs = (torch.empty((b, res * res // 4, 4 * c), dtype=torch.bfloat16,
+                            device=cuda), torch.empty_like(out))
+        before = pm.fused_patch_merge.launches
+        for part in range(len(pm.K6_PARTS)):
+            pm.k6_launch_part(part, *args, bufs=bufs)
+        torch.cuda.synchronize()
+    assert pm.fused_patch_merge.launches == before
+    assert torch.equal(bufs[1], out)
 
 
 @pytest.mark.parametrize("shape", _SWIN_SHAPES)
@@ -263,10 +313,11 @@ def test_k5_matches_plain_version(cuda, shape):
 
 
 @pytest.mark.parametrize("shape", [(2, 128, 24), (3, 64, 10), (1, 512, 24),
-                                   (2, 96, 14)])
+                                   (2, 96, 14), (1, 1024, 6), (2, 40, 8)])
 def test_k6_matches_plain_version(cuda, shape):
-    """C = 96 (2C = 192, Swin-T's stage 0) ends on a partial 128-column
-    output tile."""
+    """C = 96 (2C = 192, Swin-T's stage 0) takes 64-wide output tiles;
+    C = 1024 holds 16 chunks a lane in the merge-LN pass; C = 40 ends K =
+    160 and 2C = 80 on partial tiles that TMA fills with zeros."""
     from geovpr_torch.ops.patch_merge import (fused_patch_merge,
                                               patch_merge_reference)
     args = merge_case(shape, cuda)
@@ -275,6 +326,18 @@ def test_k6_matches_plain_version(cuda, shape):
                      f32(args))
     assert fused_patch_merge.launches == before + 1
     assert k1_within_bound(e), e
+
+
+def test_k6_refuses_what_it_does_not_take(cuda):
+    from geovpr_torch.ops.patch_merge import fused_patch_merge
+    x, ln_s, ln_b, w, res = merge_case((1, 64, 8), cuda)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xm = buf[1:].view_as(x).copy_(x)
+    with torch.inference_mode(), pytest.raises(ValueError, match="aligned"):
+        fused_patch_merge(xm, ln_s, ln_b, w, res)
+    x, ln_s, ln_b, w, res = merge_case((1, 1032, 2), cuda)
+    with torch.inference_mode(), pytest.raises(ValueError, match="1024"):
+        fused_patch_merge(x, ln_s, ln_b, w, res)
 
 
 def test_swin_kernels_refuse_what_they_do_not_take(cuda):
@@ -289,6 +352,12 @@ def test_swin_kernels_refuse_what_they_do_not_take(cuda):
         fused_swin_attn_block(*args[:7], table, 1, *args[9:])
     with pytest.raises(RuntimeError, match="backward"):
         fused_swin_attn_block(*args)                     # grads enabled
+    with torch.inference_mode(), pytest.raises(ValueError, match="shift"):
+        fused_swin_attn_block(*args[:11], 1)             # not window // 2
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xm = buf[1:].view_as(x).copy_(x)                     # 2 bytes off
+    with torch.inference_mode(), pytest.raises(ValueError, match="aligned"):
+        fused_swin_attn_block(xm, *args[1:])
     x, blk = swin_block_case((1, 64, 2, 8, 4, 2), cuda, int8=True)
     kw = k5_kwargs(blk)
     with torch.inference_mode(), pytest.raises(NotImplementedError):
