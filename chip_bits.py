@@ -4,12 +4,14 @@ another one (an earlier commit, unpacked), on one CUDA card.
     python3 chip_bits.py OTHER_CHECKOUT
 
 Each checkout runs in a process of its own (its `geovpr_torch` and its
-`chip_smoke.py` first on the path), builds its own kernels, and saves the
-outputs of the kernels it runs here on inputs its chip_smoke.py draws from
-seed 0: K1 (bf16 serving) and K8a (K1's launches, keeping qkv and ctx) at
-64x257x768x12 and 2x1370x768x12, K5 (the w8a8 Swin half-block) at
-Swin-B-384's stages 0 and 3 (B=16), K9a (the Swin training forward, its
-y, qkv, ctx and p) at stage 0 (B=16) and K7 at Swin-T-224's stage 0. The
+`chip_smoke.py` first on the path, this file's `run`), builds its own
+kernels, and saves the outputs of the kernels it runs here on inputs its
+chip_smoke.py draws from seed 0: K1 (bf16 serving) and K8a (K1's
+launches, keeping qkv and ctx) at 64x257x768x12 and 2x1370x768x12, K2 and
+K3 (the w8a8 ViT attention and MLP half-blocks) at 64x257x768x12, K3 also
+at Swin-B-384's stage 0 and 3 widths (B=16), K4 (the bf16 Swin half-block)
+at stage 0 (B=16), K6 at C = 128, K9a (the Swin training forward, its y,
+qkv, ctx and p) at stage 0 (B=16) and K7 at Swin-T-224's stage 0. The
 inputs are saved beside the outputs and compared too, so a change in how
 they are drawn shows as such. It prints one line per tensor and exits
 non-zero if any differs. Needs one CUDA card.
@@ -26,7 +28,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 K1_SHAPES = ((64, 257, 768, 12), (2, 1370, 768, 12))
-K5_SHAPES = ((16, 128, 4, 96, 12, 6), (16, 1024, 32, 12, 12, 0))
+SWIN_SHAPES = ((16, 128, 4, 96, 12, 6), (16, 1024, 32, 12, 12, 0))
 K7_SHAPE = (1024, 3, 49, 64)
 K9_SHAPE = (16, 128, 4, 96, 12, 6)
 
@@ -35,7 +37,9 @@ def run(out_path: str) -> None:
     """In the child: this process's checkout's kernels on its inputs."""
     import chip_smoke as cs
     from geovpr_torch.ops import mhsa as mh
-    from geovpr_torch.ops.swin_block import (fused_swin_attn_block_int8,
+    from geovpr_torch.ops.mlp_int8 import fused_mlp_block_int8
+    from geovpr_torch.ops.patch_merge import fused_patch_merge
+    from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
                                              fused_swin_attn_train_fwd)
     from geovpr_torch.ops.window_attention import window_attention_kernel
 
@@ -55,13 +59,26 @@ def run(out_path: str) -> None:
             out, qkv, ctx = mh.fused_mhsa_train_fwd(*args)
             res.update({f"K8a.{tag}.out": out, f"K8a.{tag}.qkv": qkv,
                         f"K8a.{tag}.ctx": ctx})
-        for shape in K5_SHAPES:
+        b, n, d, h = K1_SHAPES[0]
+        x, k2, k3 = cs.int8_block_case(b, n, d, h, dev)
+        res["input.K2.x"] = x
+        res["input.K2.wqkv_q_t"] = k2["wqkv_q_t"]
+        res["input.K3.w1q_t"] = k3["w1q_t"]
+        res["K2.out"] = mh.fused_mhsa_block_int8(x, **k2, num_heads=h)
+        res["K3.out"] = fused_mlp_block_int8(x, **k3)
+        for shape in SWIN_SHAPES:
             tag = "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape)
             x, blk = cs.swin_block_case(shape, dev, int8=True)
-            kw = cs.k5_kwargs(blk)
-            res[f"input.K5.{tag}.x"] = x
-            res[f"input.K5.{tag}.wqkv_q_t"] = kw["wqkv_q_t"]
-            res[f"K5.{tag}.out"] = fused_swin_attn_block_int8(x, **kw)
+            k3 = blk._folded_args(blk._k3)
+            res[f"input.K3.{tag}.x"] = x
+            res[f"input.K3.{tag}.w2q_t"] = k3["w2q_t"]
+            res[f"K3.{tag}.out"] = fused_mlp_block_int8(x, **k3, ln_eps=1e-5)
+        x, blk = cs.swin_block_case(SWIN_SHAPES[0], dev, x_scale=1e-2)
+        res["input.K4.x"] = x
+        res["K4.out"] = fused_swin_attn_block(*cs.k4_args(x, blk))
+        m = cs.merge_case((16, 128, 96), dev)
+        res["input.K6.x"] = m[0]
+        res["K6.out"] = fused_patch_merge(*m)
         a, _, geom = cs.k9_case(K9_SHAPE, dev)
         res["input.K9a.x"] = a["x"]
         outs = fused_swin_attn_train_fwd(
@@ -79,8 +96,11 @@ def _child(checkout: Path, out: Path) -> None:
     code = (f"import sys; sys.path[:0] = [{str(checkout)!r}]\n"
             f"import geovpr_torch\n"
             f"assert geovpr_torch.__file__.startswith({str(checkout)!r})\n"
-            f"sys.path.insert(1, {str(REPO)!r})\n"
-            f"import chip_bits\nchip_bits.run({str(out)!r})\n")
+            f"import importlib.util as u\n"
+            f"spec = u.spec_from_file_location('chip_bits_run', "
+            f"{str(REPO / 'chip_bits.py')!r})\n"
+            f"mod = u.module_from_spec(spec); spec.loader.exec_module(mod)\n"
+            f"mod.run({str(out)!r})\n")
     subprocess.run([sys.executable, "-c", code], cwd=checkout, check=True)
 
 

@@ -4,9 +4,13 @@
 
 For each planted fault it copies `geovpr_torch/` into a temporary
 directory, breaks one line of a kernel source there (K2 without its key
-mask; K3 with b2 dropped from its epilogue; K4's window attention without
+mask; K3 with b2 dropped from its fc2 epilogue; the int8 TMA + wgmma GEMM
+of K3 and K5 never multiplying the last k tile of a tile, caught through
+K3, whose fc2 has the hidden width as K; K4's window attention without
 the shift mask, without the relative-position bias, or loading the wrapped
-quarters of a shifted window from their unwrapped origin; K7 counting the
+quarters of a shifted window from their unwrapped origin; K5's int8-score
+window attention without the shift mask, or loading its wrapped quarters
+from their unwrapped origin; K7 counting the
 pad keys past N, or without the shift mask; K6's merge-LN pass with x10
 and x01 swapped in the concat order, or reading x01 from the token below
 instead of the token to the right;
@@ -16,7 +20,8 @@ backward; K9c with dbias taken from one CTA's partial sum only; K8a
 GEMM (so K8a's) never multiplying the last k tile of a tile; K8b without
 the sum of dp * p; K8c with dWqkv taken from one CTA's partial sum only),
 builds that copy and runs the chip_smoke.py check of that kernel
-(`int8_kernels_vs_plain` for K2/K3, `swin_kernels_vs_plain` for K4/K6,
+(`int8_kernels_vs_plain` for K2/K3 and the int8 GEMM,
+`swin_kernels_vs_plain` for K4/K5/K6,
 `k7_kernels_vs_plain` for K7, `k9_kernels_vs_plain` for K9a-K9c,
 `k8_kernels_vs_plain` for K1's GEMM and K8a-K8c) against it at one
 shape. Arguments, where given, pick the faults whose names start with
@@ -52,9 +57,17 @@ FAULTS = {
         ("const float p0 = key < N ?", "const float p0 = true ?"),
         ("const float p1 = key + 1 < N ?", "const float p1 = true ?")],
         _INT8.format(shape=(2, 1370, 768, 12))),
-    "K3 b2 dropped": ("mlp_int8.cu", [
-        ("* s2[col] + b2[col];", "* s2[col];"),
-        ("* s2[col + 1] + b2[col + 1];", "* s2[col + 1];")],
+    "K3 b2 dropped": ("hopper_gemm_s8.cuh", [
+        ("float v0 = (float)a0 * sc.x + bb.x;",
+         "float v0 = (float)a0 * sc.x;"),
+        ("float v1 = (float)a1 * sc.y + bb.y;",
+         "float v1 = (float)a1 * sc.y;")],
+        _INT8.format(shape=(64, 257, 768, 12))),
+    "int8 GEMM's last k tile never multiplied (K3's fc2)": (
+        "hopper_gemm_s8.cuh", [
+            ("for (int kk = 0; kk < HS_BK / 32; ++kk)",
+             "for (int kk = 0; kk < (kt + 1 < ktiles ? HS_BK / 32 : 0); "
+             "++kk)")],
         _INT8.format(shape=(64, 257, 768, 12))),
     "K4 shift mask dropped": ("swin_attn.cu", [
         ("if (kMasked && ((box[i][hi] ^ bk[j][c]) & wrap))",
@@ -66,6 +79,14 @@ FAULTS = {
     "K4 wrapped quarters loaded unwrapped": ("swin_attn.cu", [
         ("from = sw_box_origin<W>(wx, wy, box, S, shift);",
          "from = sw_box_origin<W>(wx, wy, box, 1 << 30, shift);")],
+        _SWIN.format(attn=(_STAGE0,), merge=())),
+    "K5 shift mask dropped": ("swin_attn.cu", [
+        ("if (kMasked && ((box[i][hi] ^ kbox[j][c]) & wrap))",
+         "if (false)")],
+        _SWIN.format(attn=(_STAGE0,), merge=())),
+    "K5 wrapped quarters loaded unwrapped": ("swin_attn.cu", [
+        ("at = sw_box_origin<W>(wx, wy, box, S, shift);",
+         "at = sw_box_origin<W>(wx, wy, box, 1 << 30, shift);")],
         _SWIN.format(attn=(_STAGE0,), merge=())),
     "K7 pad keys counted": ("window_attn.cu", [
         ("if (key >= N || row >= N) return 0.f;",

@@ -36,18 +36,20 @@ end to end from seeded random weights:
   gradients.
 
 Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
-form and the w8a8 MLP half-block), K4 and K5 (the Swin window-attention
-half-block, bf16 and w8a8), K6 (Swin PatchMerging), K7 (the window-7
-attention core on pre-split windows), and K9a, K9b and K9c (the Swin
-attention half-block's training forward, core backward and whole
-backward), and K8a, K8b and K8c (the same for the ViT attention
-half-block of DINOv2; K8a launches K1's kernels and keeps the qkv and ctx
-they write). K1's four launches (LayerNorm, the TMA + wgmma QKV GEMM, the
-attention, the out projection) are also timed one by one, each beside its
-own bound, at K1's and K8a's shapes, and so are K4's four (LayerNorm, the
-same GEMMs, the TMA-fed window attention) at the four Swin-B-384 stages
-and K6's two (the merge-LN pass, the GEMM) at its three boundaries. For
-each path it
+form and the w8a8 MLP half-block, K3 also at the four Swin-B-384 stage
+widths), K4 and K5 (the Swin window-attention half-block, bf16 and w8a8),
+K6 (Swin PatchMerging), K7 (the window-7 attention core on pre-split
+windows), and K9a, K9b and K9c (the Swin attention half-block's training
+forward, core backward and whole backward), and K8a, K8b and K8c (the same
+for the ViT attention half-block of DINOv2; K8a launches K1's kernels and
+keeps the qkv and ctx they write). K1's four launches (LayerNorm, the TMA
++ wgmma QKV GEMM, the attention, the out projection) are also timed one
+by one, each beside its own bound, at K1's and K8a's shapes, and so are
+K4's four (LayerNorm, the same GEMMs, the TMA-fed window attention) and
+K5's four (LN-quant, the TMA + wgmma int8 GEMMs, the int8-score window
+attention) at the four Swin-B-384 stages, K3's three (LN-quant, fc1, fc2)
+at those stages' widths and at 64x257x768, and K6's two (the merge-LN
+pass, the GEMM) at its three boundaries. For each path it
 compares the kernel path with the plain path for the whole model, counts
 the kernels' launches, times the path and the kernels (beside their plain
 versions, one library yardstick each and their bounds), and profiles one
@@ -500,6 +502,49 @@ def k4_part_bounds(part: str, shape) -> dict:
                           h, gamma=False)
 
 
+def ln_quant_bound(m, d) -> dict:
+    """The LN-quant launch of K3 and K5: x (M, D) bf16 read, the int8 rows
+    written, ~8 f32 operations an element."""
+    return part_bound(8 * m * d, PEAK_F32, m * d * 2 + m * d + 2 * d * 4)
+
+
+def k5_part_bounds(part: str, shape) -> dict:
+    """The least time of one of K5's four launches at (B, C, H, S, w,
+    shift), M = B S^2 rows: bytes (each input read once, each output
+    written once) over 3.35 TB/s against operations at their peak (the
+    int8 products at 1,979 TOP/s, P V at the bf16 989 TFLOP/s)."""
+    b, c, h, res, win, _ = shape
+    m, n = b * res * res, win * win
+    if part == "ln_quant":
+        return ln_quant_bound(m, c)
+    if part == "qkv_gemm":       # xq, Wqkv, sqkv, bqkv -> qk8, v
+        return part_bound(2 * m * c * 3 * c, PEAK_INT8, m * c + 3 * c * c
+                          + 6 * c * 4 + m * 2 * c + m * c * 2)
+    if part == "attention":      # qk8, v, table -> ctx8
+        # q k^T in int8 and P V in bf16: the pair's rate is their mix
+        ops = 4 * m * n * c
+        ops_t = 2 * m * n * c / PEAK_INT8 + 2 * m * n * c / PEAK_BF16
+        return part_bound(ops, ops / ops_t, m * 2 * c + m * c * 2 + m * c
+                          + (2 * win - 1) ** 2 * h * 4)
+    # ctx8, Wo, so, bo, x -> out
+    return part_bound(2 * m * c * c, PEAK_INT8, m * c + c * c + 2 * c * 4
+                      + 2 * m * c * 2)
+
+
+def k3_part_bounds(part: str, m, d, hid) -> dict:
+    """The least time of one of K3's three launches on M rows of width D
+    (hidden HID), the residual x (bytes and operations as
+    `k5_part_bounds`)."""
+    if part == "ln_quant":
+        return ln_quant_bound(m, d)
+    if part == "fc1":            # xq, W1, s1, b1 -> the int8 hidden
+        return part_bound(2 * m * d * hid, PEAK_INT8, m * d + hid * d
+                          + 2 * hid * 4 + m * hid)
+    # the hidden, W2, s2, b2, gamma, res -> out
+    return part_bound(2 * m * hid * d, PEAK_INT8, m * hid + hid * d
+                      + 3 * d * 4 + 2 * m * d * 2)
+
+
 def k6_part_bounds(part: str, shape) -> dict:
     """One of K6's two launches at (B, C, S): the merge-LN pass (x read
     once, bf16 LN(merged) (M2, 4C) written; ~8 f32 operations an element)
@@ -596,14 +641,15 @@ def library_k2(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
 
 
 def library_k3(x, ln_scale_q, ln_bias_q, w1q_t, s1_eff, b1, w2q_t, s2_eff,
-               b2, gamma, inv_a_mid):
+               b2, gamma, inv_a_mid, ln_eps=1e-6):
     """K3's yardstick: F.layer_norm + two torch._int_mm with the
     quantize / GELU / dequant steps between them."""
     import torch.nn.functional as F
     d = x.shape[-1]
     xf = x.reshape(-1, d)
     xq = torch.clamp(torch.round(F.layer_norm(xf.float(), (d,), None, None,
-                                              1e-6) * ln_scale_q + ln_bias_q),
+                                              ln_eps) * ln_scale_q
+                                 + ln_bias_q),
                      -127, 127).to(torch.int8)
     hmid = F.gelu(torch._int_mm(xq, w1q_t.t()) * s1_eff + b1,
                   approximate="tanh")
@@ -650,7 +696,24 @@ def kernel_times(device, card: str) -> dict:
             phase("kernel_time", card=repr(card), name=name,
                   shape="B{}_N{}_D{}_H{}".format(*MAIN_SHAPE), **out[name])
     out["K1"]["parts"] = k1_part_times(x1, {**vecs, **mats}, h, card, "K1")
+    out["K3"]["parts"] = k3_part_times(x, k3, card, 1e-6)
     return out
+
+
+def k3_part_times(x, k3: dict, card: str, ln_eps: float) -> dict:
+    """K3's three launches (LN-quant, fc1, fc2) timed one by one on x and
+    the half-block's folded arguments `k3` by `parts_split`, beside
+    `k3_part_bounds`; the launches are not counted (`k3_launch_part`)."""
+    from geovpr_torch.ops import mlp_int8 as mi
+
+    d, hid = x.shape[-1], k3["w1q_t"].shape[0]
+    m = x.numel() // d
+    with torch.inference_mode():
+        bufs = mi.k3_buffers(x, hid)
+        return parts_split(
+            card, "K3", f"M{m}_D{d}_HID{hid}", mi.K3_PARTS,
+            lambda i: mi.k3_launch_part(i, x, **k3, ln_eps=ln_eps, bufs=bufs),
+            lambda part: k3_part_bounds(part, m, d, hid))
 
 
 def model_times(model, images, card: str, path: str, batch=BATCH) -> None:
@@ -790,11 +853,13 @@ def merge_case(shape, device, seed=SEED):
 
 def swin_kernels_vs_plain(device, attn_shapes=SWIN_ATTN_SHAPES,
                           merge_shapes=SWIN_MERGE_SHAPES) -> dict:
-    """Phase 12: K4 and K5 at the four Swin-B-384 B=64 stage shapes (x for
-    K4 at 1e-2, as K1's check), K6 at the three boundaries, each against its
-    plain version: K4 and K6 under K1's ratio bound, K5 under K2's. The
-    angle phase calls it again with no attention shape, for K6 at
-    Swin-T-224's boundaries."""
+    """Phase 12: K4, K5 and K3 (the int8 block's MLP half) at the four
+    Swin-B-384 B=64 stage shapes (x for K4 at 1e-2, as K1's check), K6 at
+    the three boundaries, each against its plain version: K4 and K6 under
+    K1's ratio bound, K5 and K3 under K2's. The angle phase calls it again
+    with no attention shape, for K6 at Swin-T-224's boundaries."""
+    from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
+                                           mlp_block_int8_reference)
     from geovpr_torch.ops.patch_merge import (fused_patch_merge,
                                               patch_merge_reference)
     from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
@@ -828,7 +893,19 @@ def swin_kernels_vs_plain(device, attn_shapes=SWIN_ATTN_SHAPES,
         check(int8_within_bound(e), f"K5 error outside its bound at {shape}:"
                                     f" {e}")
         errs[("K5", shape)] = e["max_abs_err"]
-        del x, blk, kw, got, want
+        # K3 at the stage's widths (rows B S^2, D = C, hidden 4C), on x
+        k3 = blk._folded_args(blk._k3)
+        with torch.inference_mode():
+            got = fused_mlp_block_int8(x, **k3, ln_eps=1e-5)
+            torch.cuda.synchronize()
+            want = mlp_block_int8_reference(x, **k3, ln_eps=1e-5)
+        e = int8_errors(got, want, (k3["s2_eff"] * k3["gamma"]).abs().max()
+                        .item())
+        phase("kernel", name="K3", shape=tag, **e, max_share=INT8_MAX_SHARE)
+        check(int8_within_bound(e), f"K3 error outside its bound at {shape}:"
+                                    f" {e}")
+        errs[("K3", shape)] = e["max_abs_err"]
+        del x, blk, kw, k3, got, want
     for shape in merge_shapes:
         args = merge_case(shape, device)
         e = ratio_errors(fused_patch_merge, patch_merge_reference, args,
@@ -1075,9 +1152,12 @@ def library_k6(x, ln_scale, ln_bias, w, res, ln_eps=1e-5):
 
 
 def swin_kernel_times(device, card: str) -> dict:
-    """Phase 19: K4 and K5 at every stage of Swin-B-384 at B=64, K6 at every
+    """Phase 19: K4, K5 and K3 at every stage of Swin-B-384 at B=64 (K3 at
+    the stage's widths: rows B S^2, D = C, hidden 4C), K6 at every
     boundary, each in turns with its plain version and its library
     yardstick, beside its bound."""
+    from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
+                                           mlp_block_int8_reference)
     from geovpr_torch.ops.patch_merge import (fused_patch_merge,
                                               patch_merge_reference)
     from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
@@ -1087,12 +1167,12 @@ def swin_kernel_times(device, card: str) -> dict:
 
     out = {}
 
-    def record(name, shape, tag, fns):
+    def record(name, shape, tag, fns, bound=None):
         t = interleaved_ms(fns, iters=3)
         out[(name, shape)] = dict(ms=t["kernel"][0], plain_ms=t["plain"][0],
                                   library_ms=t["library"][0],
                                   runs={k: v[1] for k, v in t.items()},
-                                  **swin_bounds(name, shape))
+                                  **(bound or swin_bounds(name, shape)))
         phase("kernel_time", card=repr(card), name=name, shape=tag,
               **out[(name, shape)])
 
@@ -1111,7 +1191,14 @@ def swin_kernel_times(device, card: str) -> dict:
                 "kernel": lambda: fused_swin_attn_block_int8(x, **kw),
                 "plain": lambda: swin_attn_block_int8_reference(x, **kw),
                 "library": lambda: library_k5(x, **kw)})
-            del x, blk, a, kw
+            k3 = dict(blk._folded_args(blk._k3), ln_eps=1e-5)
+            b, c, h, res, _, _ = shape
+            record("K3", shape, tag, {
+                "kernel": lambda: fused_mlp_block_int8(x, **k3),
+                "plain": lambda: mlp_block_int8_reference(x, **k3),
+                "library": lambda: library_k3(x, **k3)},
+                bounds("K3", b, res * res, c, h))
+            del x, blk, a, kw, k3
         for shape in SWIN_MERGE_SHAPES:
             m = merge_case(shape, device)
             record("K6", shape, "B{}_C{}_S{}".format(*shape), {
@@ -1122,11 +1209,12 @@ def swin_kernel_times(device, card: str) -> dict:
 
 
 def swin_part_times(device, card: str) -> dict:
-    """Phase 19b: K4's four launches at every Swin-B-384 stage and K6's
-    two at every boundary, one by one beside `k4_part_bounds` /
+    """Phase 19b: K4's four launches, K5's four and K3's three at every
+    Swin-B-384 stage and K6's two at every boundary, one by one beside
+    `k4_part_bounds` / `k5_part_bounds` / `k3_part_bounds` /
     `k6_part_bounds`, after one whole call has filled the buffers they
     read; the launches are not counted (`k4_launch_part`,
-    `k6_launch_part`)."""
+    `k5_launch_part`, `k3_launch_part`, `k6_launch_part`)."""
     from geovpr_torch.ops import patch_merge as pm
     from geovpr_torch.ops import swin_block as sb
 
@@ -1146,6 +1234,17 @@ def swin_part_times(device, card: str) -> dict:
                 lambda i: sb.k4_launch_part(i, *a, bufs=bufs),
                 lambda part: k4_part_bounds(part, shape))
             del x, blk, a, bufs
+            x, blk = swin_block_case(shape, device, int8=True)
+            kw = k5_kwargs(blk)
+            bufs = sb.k5_buffers(x)
+            out[("K5", shape)] = parts_split(
+                card, "K5", "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape),
+                sb.K5_PARTS,
+                lambda i: sb.k5_launch_part(i, x, **kw, bufs=bufs),
+                lambda part: k5_part_bounds(part, shape))
+            out[("K3", shape)] = k3_part_times(
+                x, blk._folded_args(blk._k3), card, 1e-5)
+            del x, blk, kw, bufs
         for shape in SWIN_MERGE_SHAPES:
             b, c, res = shape
             m = merge_case(shape, device)

@@ -1,18 +1,21 @@
 // Hopper (sm_90a) building blocks of the TMA-fed kernels (hopper_gemm.cuh,
-// mhsa.cu, swin_attn.cu, patch_merge.cu): mbarriers, TMA tile loads and
-// stores, warpgroup matrix multiplies (wgmma) on 128-byte-swizzled
-// shared-memory tiles, ldmatrix on the same tiles, and the host's
-// tensor-map encoding.
+// hopper_gemm_s8.cuh, mhsa.cu, swin_attn.cu, patch_merge.cu, mlp_int8.cu):
+// mbarriers, TMA tile loads and stores, warpgroup matrix multiplies (wgmma,
+// bf16 and int8) on 128-byte-swizzled shared-memory tiles, ldmatrix on the
+// same tiles, and the host's tensor-map encoding.
 //
-// Every tile here is 64 bf16 (128 bytes) wide in its contiguous dimension,
-// written by TMA with CU_TENSOR_MAP_SWIZZLE_128B at a 1024-byte-aligned
-// address: row r of the tile sits at r * 128 bytes, its 16-byte chunks
-// permuted by r % 8. wgmma reads such a tile through a descriptor
+// Every GEMM tile here is 128 bytes (64 bf16, 128 int8) wide in its
+// contiguous dimension, written by TMA with CU_TENSOR_MAP_SWIZZLE_128B at a
+// 1024-byte-aligned address: row r of the tile sits at r * 128 bytes, its
+// 16-byte chunks permuted by r % 8. (K5's int8 q and k tiles are 64 bytes
+// wide, with the 64-byte swizzle: swin_attn.cu.) wgmma reads such a tile
+// through a descriptor
 // (PTX ISA, "Matrix Descriptor Format"): the start address, the leading
 // and stride byte offsets (LBO, SBO) and the 128-byte swizzle mode.
-//   K-major operand (K contiguous: A of every product, K of q k^T): rows
-//     are M or N, 8 rows make one core group, SBO = 1024 bytes to the next
-//     8 rows, LBO unused; the k-th 16-wide slice starts k * 32 bytes in.
+//   K-major operand (K contiguous: A of every product, K of q k^T, both
+//     operands of the int8 products): rows are M or N, 8 rows make one
+//     core group, SBO = 1024 bytes to the next 8 rows, LBO unused; the
+//     k-th 32-byte slice (16 bf16 or 32 int8) starts k * 32 bytes in.
 //   MN-major operand (MN contiguous: W of the projections, V of P V; the
 //     transpose bit set): rows are k, SBO = 1024 bytes to the next 8 k,
 //     LBO = the distance between 64-wide MN chunks; the k-th 16-deep slice
@@ -161,6 +164,9 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
 }
+__device__ __forceinline__ void st_shared_u16(uint32_t addr, uint16_t v) {
+  asm volatile("st.shared.b16 [%0], %1;" ::"r"(addr), "h"(v) : "memory");
+}
 
 // four 8 x 8 bf16 matrices, lanes 8 i .. 8 i + 7 giving the row addresses
 // of matrix i; r[i] holds this lane's pair of matrix i (row lane / 4,
@@ -211,6 +217,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[R]) {
 }
 template <int R>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&r)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
@@ -271,9 +282,33 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB));
 }
 
+#define HP_I8(i)                                                        \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),           \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d (64 x 128, s32, in wgmma_m64n128's accumulator layout) = (accumulate ?
+// d : 0) + A (64 x 32 int8) * B (32 x 128 int8), both K-major shared
+// tiles (int8 wgmma takes no transposed operand); exact int32 sums
+__device__ __forceinline__ void wgmma_m64n128_s8(int (&d)[64], uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", %64, %65, p;\n}\n"
+      : HP_I8(0), HP_I8(8), HP_I8(16), HP_I8(24), HP_I8(32), HP_I8(40),
+        HP_I8(48), HP_I8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #undef HP_D8
 #undef HP_D32
 #undef HP_R32
+#undef HP_I8
 
 // -------------------------------------------------------------- host ----
 
@@ -304,24 +339,34 @@ inline TmapEncodeFn tmap_encode_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` (<= 5) dims (sizes and byte strides
+// A tensor map of `type` and `rank` (<= 5) dims (sizes and byte strides
 // innermost first; strides[0] is the stride of dim 1) read or written in
-// boxes of box[] elements, each 64 elements (128 bytes) wide, with the
-// 128-byte swizzle; elements out of bounds read as zero and are not
-// written. False if the encoding is refused (or the base is not 16-byte
-// aligned).
-inline bool make_tmap(CUtensorMap* map, const void* base, int rank,
-                      const cuuint64_t* dims, const cuuint64_t* strides,
-                      const cuuint32_t* box) {
+// boxes of box[] elements with the given swizzle (the box's contiguous
+// width in bytes at most the swizzle's); elements out of bounds read as
+// zero and are not written. False if the encoding is refused (or the base
+// is not 16-byte aligned).
+inline bool make_tmap_of(CUtensorMap* map, CUtensorMapDataType type,
+                         CUtensorMapSwizzle swizzle, const void* base,
+                         int rank, const cuuint64_t* dims,
+                         const cuuint64_t* strides, const cuuint32_t* box) {
   const TmapEncodeFn enc = tmap_encode_fn();
   if (enc == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) != 0)
     return false;
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-             const_cast<void*>(base), dims, strides, box, elem_strides,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return enc(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims,
+             strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a bf16 tensor map in boxes 64 elements (128 bytes) wide, 128-byte
+// swizzle
+inline bool make_tmap(CUtensorMap* map, const void* base, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box) {
+  return make_tmap_of(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      CU_TENSOR_MAP_SWIZZLE_128B, base, rank, dims, strides,
+                      box);
 }
 
 }  // namespace

@@ -1,5 +1,5 @@
-// The two projections of the w8a8 attention half-blocks K2 (mhsa_int8.cu)
-// and K5 (swin_attn.cu) for Hopper (sm_90a), on int8_common.cuh's GEMM:
+// The two projections of the w8a8 ViT attention half-block K2
+// (mhsa_int8.cu) for Hopper (sm_90a), on int8_common.cuh's GEMM:
 //   int8_qkv_kernel:  LN -> int8 -> @ Wqkv_q -> dequant; q|k to int8, v to
 //                     bf16 scratch;
 //   int8_proj_kernel: int8 ctx @ Wo_q -> dequant [* gamma] + residual.

@@ -1,8 +1,9 @@
-// Shared pieces of the w8a8 kernels (mhsa_int8.cu, mlp_int8.cu,
-// swin_attn.cu) for Hopper (sm_90a): the int8 tensor-core product
-// mma.sync.m16n8k32 (s8 x s8 -> s32), a block GEMM that streams
-// k-contiguous int8 weights through shared memory with cp.async double
-// buffering, and the LayerNorm -> int8 row prologue.
+// Shared pieces of the w8a8 kernels for Hopper (sm_90a): the int8 rounding
+// and tensor-core product mma.sync.m16n8k32 (s8 x s8 -> s32) of K2, K3 and
+// K5 (mhsa_int8.cu, hopper_gemm_s8.cuh, swin_attn.cu), and K2's block GEMM
+// that streams k-contiguous int8 weights through shared memory with
+// cp.async double buffering and its LayerNorm -> int8 row prologue, whose
+// f32 order hopper_gemm_s8.cuh's LN-quant pass keeps.
 //
 // Weights arrive transposed, (out, in) row-major (nn.Linear's layout), so
 // both mma operands are k-contiguous: mma.sync takes int8 operands only in

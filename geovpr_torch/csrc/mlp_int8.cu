@@ -10,167 +10,103 @@
 // geovpr/models/layers.py:148-158 passes them: 1/a_in in the LN scale and
 // bias, a_in*s1 and a_mid*s2 in the dequant rows, 1/a_mid as a scalar.
 //
-// What bounds it on the H100: at DINOv2-B/14, B=64 (16,448 rows x 768,
-// hidden 3,072) one call is 155 GOP of int8 products against ~55 MB of
-// traffic (x in, out out, 4.7 MB of int8 weights): ~0.078 ms at 1,979
-// int8 TOP/s against ~0.017 ms at 3.35 TB/s, so it is tensor-core bound.
+// Three launches on the caller's stream (`geovpr_mlp_int8_parts` runs a
+// range of them), on hopper_gemm_s8.cuh's pieces:
+//   0. ln_quant_kernel: int8(LN(x) s + b) -> xq (M, D), once per row;
+//   1. hopper_gemm_s8_kernel<EPI_GELU8> (fc1): xq W1q^T s1 + b1, tanh
+//      GELU in f32 (tanhf), * inv_a_mid, round_clip_i8 -> the int8 hidden
+//      (M, HID);
+//   2. hopper_gemm_s8_kernel<EPI_RESID_G> (fc2): (hidden W2q^T s2 + b2)
+//      gamma + res -> out (M, D) bf16.
+// The int32 sums are exact, the epilogues round where the plain version
+// rounds, and the LN-quant pass keeps ln_quant_row's order of f32 sums
+// (hopper_gemm_s8.cuh).
 //
 // What the TPU kernel keeps on chip is the (rows, 4D) hidden activation: a
-// 512-row f32 block (6 MB) in VMEM. 227 KB of shared memory cannot hold
-// that, so this kernel keeps the hidden in int8: a_mid is a static
-// per-tensor scale, so the int8 hidden is exactly the TPU kernel's gq, and
-// one 32-row block's int8 hidden (32 x 3,072 = 96 KB) sits in shared
-// memory between the two GEMMs. Nothing of the hidden reaches device
-// memory.
-//
-// Design (first, simple version; one launch, one 32-row block per CTA):
-//   1. LayerNorm each row in f32, fold in the scales, round to int8 into
-//      shared memory (whole row width resident).
-//   2. fc1 in 256-column slabs with mma.sync int8 (s32 accumulate), W1q
-//      streamed through shared memory by cp.async; epilogue dequant + b1,
-//      tanh GELU in f32 (tanhf), round to int8 into the resident hidden.
-//   3. fc2 over the resident hidden in 256-column slabs; epilogue dequant
-//      + b2, * gamma, + res in f32, bf16 store.
-// int32 sums are exact in any order, so the kernel and its plain version
-// differ only where LayerNorm's f32 reductions or tanhf move a value
-// across a rounding boundary. Each CTA reads both weight matrices from L2
-// (4.7 MB for 32 rows) and one CTA runs per SM (165 KB of shared memory):
-// larger row blocks (a second stage of hidden tiles accumulating fc2 in
-// registers) and wgmma/TMA are the first things a faster version changes.
+// 512-row f32 block (6 MB) in VMEM. Here the int8 hidden (a_mid is a
+// static per-tensor scale, so it is exactly the TPU kernel's gq) goes
+// through device memory: a wgmma-sized row block's hidden does not fit in
+// shared memory (64 x 3,072 int8 is 192 KB); a fused form would stream
+// hidden chunks and hold fc2's accumulators in registers, and a 32-row
+// block whose hidden fits streams both weight matrices from L2 for every
+// 32 rows (M D^2 / 4 bytes a call: 2.4 GB at every Swin-B-384 stage).
+// What bounds the split on the H100 (bytes of each launch's inputs and
+// outputs at 3.35 TB/s against its int8 operations at 1,979 TOP/s): at
+// DINOv2-B/14, B=64 (16,448 x 768, hidden 3,072) 0.011 + 0.039 + 0.039 =
+// 0.090 ms (the whole call's operations: 0.078); at Swin-B-384 stage 0
+// (589,824 x 128, hidden 512) 0.068 + 0.113 + 0.180 = 0.360 ms, the 302
+// MB hidden written and read (the whole call's bytes: 0.09).
 
-#include "int8_common.cuh"
+#include "hopper_gemm_s8.cuh"
 
-namespace {
-
-constexpr int MLP_BM = 32;
-constexpr int MLP_THREADS = 256;
-using MlpGemm = Int8Gemm<1, 8>;  // 32 rows x 256 columns per pass
-
-__host__ __device__ inline size_t mlp_smem_bytes(int D, int HID) {
-  return (size_t)MLP_BM * (D + 16) + (size_t)MLP_BM * (HID + 16) +
-         (size_t)MlpGemm::SMEM_B;
-}
-
-__global__ void __launch_bounds__(MLP_THREADS)
-mlp_int8_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
-                const float* __restrict__ ln_scale,
-                const float* __restrict__ ln_bias,
-                const int8_t* __restrict__ w1t, const float* __restrict__ s1,
-                const float* __restrict__ b1, const int8_t* __restrict__ w2t,
-                const float* __restrict__ s2, const float* __restrict__ b2,
-                const float* __restrict__ gamma, bf16* __restrict__ out,
-                int M, int D, int HID, float inv_a_mid, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldx = D + 16;
-  const int ldh = HID + 16;
-  int8_t* Xs = reinterpret_cast<int8_t*>(smem);
-  int8_t* Hs = Xs + MLP_BM * ldx;
-  int8_t* Bs = Hs + MLP_BM * ldh;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = blockIdx.x * MLP_BM;
-
-  // 1. LayerNorm -> int8, one warp per row; rows past M are zero
-  for (int r = warp; r < MLP_BM; r += MLP_THREADS / 32) {
-    if (m0 + r < M) {
-      ln_quant_row(x + (size_t)(m0 + r) * D, D, ln_scale, ln_bias, eps,
-                   Xs + r * ldx, lane);
-    } else {
-      for (int c = lane; c < D; c += 32) Xs[r * ldx + c] = 0;
-    }
-  }
-  __syncthreads();
-
-  // 2. fc1 -> tanh GELU -> int8 hidden, resident in shared memory
-  for (int n0 = 0; n0 < HID; n0 += MlpGemm::BN) {
-    int acc[2][4][4];
-    MlpGemm::run(Xs, ldx, w1t, n0, HID, D, Bs, acc);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + warp * 32 + ni * 8 + 2 * t;
-        if (col >= HID) continue;
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int row = mi * 16 + g + 8 * hr;
-          int8_t q[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float h = (float)acc[mi][ni][2 * hr + e] * s1[col + e] + b1[col + e];
-            const float gl = 0.5f * h *
-                (1.f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
-            q[e] = round_clip_i8(gl * inv_a_mid);
-          }
-          *reinterpret_cast<char2*>(Hs + row * ldh + col) = make_char2(q[0], q[1]);
-        }
-      }
-  }
-  __syncthreads();
-
-  // 3. fc2 -> dequant -> LayerScale -> + residual -> bf16
-  for (int n0 = 0; n0 < D; n0 += MlpGemm::BN) {
-    int acc[2][4][4];
-    MlpGemm::run(Hs, ldh, w2t, n0, D, HID, Bs, acc);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + warp * 32 + ni * 8 + 2 * t;
-        if (col >= D) continue;
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int row = m0 + mi * 16 + g + 8 * hr;
-          if (row >= M) continue;
-          const size_t o = (size_t)row * D + col;
-          const __nv_bfloat162 r2 = *reinterpret_cast<const __nv_bfloat162*>(res + o);
-          float y0 = (float)acc[mi][ni][2 * hr] * s2[col] + b2[col];
-          float y1 = (float)acc[mi][ni][2 * hr + 1] * s2[col + 1] + b2[col + 1];
-          y0 = y0 * gamma[col] + __low2float(r2);
-          y1 = y1 * gamma[col + 1] + __high2float(r2);
-          *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(y0, y1);
-        }
-      }
-  }
-}
-
-}  // namespace
-
-// Largest dynamic shared memory a block may use on the H100.
-static const int kMaxSmem = 232448;
-
-// Raises the kernel's dynamic shared-memory limit on the current device.
-// Called once per device before the first launch; returns a cudaError_t.
+// Raises the GEMMs' dynamic shared-memory limits on the current device and
+// finds the CUDA driver's tensor-map encoder. Called once per device before
+// the first launch; returns a cudaError_t.
 extern "C" int geovpr_mlp_int8_init(void) {
-  return (int)cudaFuncSetAttribute(
-      mlp_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (tmap_encode_fn() == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cudaError_t e = allow_gemm_s8_smem<HS_EPI_GELU8>();
+  if (e != cudaSuccess) return (int)e;
+  return (int)allow_gemm_s8_smem<HS_EPI_RESID_G>();
 }
 
-// Returns a cudaError_t as int: 0 when the launch was accepted. x, res and
-// out are (M, D) bf16 (res may equal x); w1t is (HID, D) and w2t (D, HID)
-// int8, k-contiguous; the vectors are f32. D and HID must be multiples of
-// 64, D <= 1024, and the 32-row block's resident buffers must fit in
-// shared memory (D + HID <= ~5,900).
+// K3's launches first..last (0 LN-quant, 1 fc1, 2 fc2); returns a
+// cudaError_t as int: 0 when every launch was accepted. x, res and out are
+// (M, D) bf16 (res may equal x); w1t is (HID, D) and w2t (D, HID) int8,
+// k-contiguous; the vectors are f32; all 16-byte aligned. Scratch: xq (M,
+// D) and hidden (M, HID) int8. D and HID multiples of 16, D <= 1024. A
+// launch alone reads what the earlier launches of an earlier call left in
+// the scratch. geovpr_mlp_int8_init must have run on the current device.
+extern "C" int geovpr_mlp_int8_parts(
+    const void* x, const void* res, const void* ln_scale, const void* ln_bias,
+    const void* w1t, const void* s1, const void* b1, const void* w2t,
+    const void* s2, const void* b2, const void* gamma, void* xq, void* hidden,
+    void* out, int M, int D, int HID, float inv_a_mid, float eps, int first,
+    int last, void* stream) {
+  if (M <= 0 || D <= 0 || HID <= 0 || D % 16 || HID % 16 ||
+      D > HG_MAX_DIM || first < 0 || last > 2 || first > last)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int8_t* xq8 = static_cast<int8_t*>(xq);
+  int8_t* h8 = static_cast<int8_t*>(hidden);
+  cudaError_t e;
+  for (int part = first; part <= last; ++part) {
+    switch (part) {
+      case 0:
+        e = launch_ln_quant(static_cast<const bf16*>(x),
+                            static_cast<const float*>(ln_scale),
+                            static_cast<const float*>(ln_bias), xq8, M, D, eps,
+                            s);
+        break;
+      case 1:
+        e = launch_gemm_s8<HS_EPI_GELU8>(
+            xq8, static_cast<const int8_t*>(w1t), M, D, HID,
+            HsEpilogue{static_cast<const float*>(s1),
+                       static_cast<const float*>(b1), nullptr, nullptr,
+                       inv_a_mid, 0},
+            h8, nullptr, s);
+        break;
+      default:
+        e = launch_gemm_s8<HS_EPI_RESID_G>(
+            h8, static_cast<const int8_t*>(w2t), M, HID, D,
+            HsEpilogue{static_cast<const float*>(s2),
+                       static_cast<const float*>(b2),
+                       static_cast<const float*>(gamma),
+                       static_cast<const bf16*>(res), 0.f, 0},
+            nullptr, static_cast<bf16*>(out), s);
+    }
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// K3, all three launches (the whole half-block).
 extern "C" int geovpr_mlp_block_int8(
     const void* x, const void* res, const void* ln_scale, const void* ln_bias,
     const void* w1t, const void* s1, const void* b1, const void* w2t,
-    const void* s2, const void* b2, const void* gamma, void* out, int M,
-    int D, int HID, float inv_a_mid, float eps, void* stream) {
-  if (M <= 0 || D <= 0 || HID <= 0 || D % 64 || HID % 64 || D > LN_MAX_D ||
-      mlp_smem_bytes(D, HID) > (size_t)kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  const int blocks = (M + MLP_BM - 1) / MLP_BM;
-  mlp_int8_kernel<<<blocks, MLP_THREADS, mlp_smem_bytes(D, HID),
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(res),
-      static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias),
-      static_cast<const int8_t*>(w1t), static_cast<const float*>(s1),
-      static_cast<const float*>(b1), static_cast<const int8_t*>(w2t),
-      static_cast<const float*>(s2), static_cast<const float*>(b2),
-      static_cast<const float*>(gamma), static_cast<bf16*>(out), M, D, HID,
-      inv_a_mid, eps);
-  return (int)cudaGetLastError();
+    const void* s2, const void* b2, const void* gamma, void* xq, void* hidden,
+    void* out, int M, int D, int HID, float inv_a_mid, float eps,
+    void* stream) {
+  return geovpr_mlp_int8_parts(x, res, ln_scale, ln_bias, w1t, s1, b1, w2t,
+                               s2, b2, gamma, xq, hidden, out, M, D, HID,
+                               inv_a_mid, eps, 0, 2, stream);
 }

@@ -85,210 +85,52 @@
 // at C = 1024); the attention's per-(window, head) CTA, its synchronous
 // gathers of 64-byte head slices and its element-by-element V transpose.
 //
-// K5 (three launches, unchanged since its port): int8_qkv_kernel
-// (int8_attn.cuh, K2's), swin_window_attention_kernel<true> (one CTA per
-// (window, head), q8/k8 and v^T gathered by the raster addressing below
-// into shared memory, window_attn.cuh's mma.sync tile loop, shared with
-// K7), int8_proj_kernel. Token (ry, rx) of window (wy, wx) of image b is
-// raster row
+// K5 (four launches on the caller's stream, as K4's;
+// `geovpr_swin_attn_int8_parts` runs a range of them):
+//   0. ln_quant_kernel (hopper_gemm_s8.cuh): int8(LN(x) s' + b') into the
+//      ctx8 buffer, free until the attention writes it, once per row;
+//   1. hopper_gemm_s8_kernel<EPI_QK8V> (the TMA + wgmma int8 GEMM):
+//      acc sqkv + bqkv, q | k rounded to int8 -> qk8 (M, 2C), v rounded to
+//      bf16 -> v (M, C);
+//   2. swin_attn8_tma_kernel (below): qk8, v -> ctx8 (M, C) int8;
+//   3. hopper_gemm_s8_kernel<EPI_RESID>: ctx8 Wo^T so + bo + x.
+// What bounds each launch on the H100 (Swin-B-384, B=64; stages 0 / 1 / 2
+// / 3): the LN-quant pass by bytes (0.068 / 0.034 / 0.017 / 0.008 ms); the
+// QKV GEMM by bytes at stages 0-1 (0.113 / 0.056 ms: qk8 and v written)
+// and by operations at 2-3 (58 GOP, 0.029 ms at 1,979 TOP/s); the
+// attention by bytes (qk8 and v read, ctx8 written: 0.113 / 0.056 / 0.028
+// / 0.014 ms); the out projection by bytes (0.113 / 0.056 / 0.028 /
+// 0.014). The sum, 0.406 / 0.203 / 0.103 / 0.066 ms, is what the split
+// can reach.
+//
+// swin_attn8_tma_kernel is swin_attn_tma_kernel's task walk, ring and
+// consumer groups on int8 q and k: a 4-d tensor map of qk8 in boxes of
+// (64 bytes = two heads, w/2, w/2, 1) with the 64-byte swizzle reads a
+// window's q8 and k8 as four quarters each, K4's bf16 boxes its v; wrapped
+// quarters are boxes at their wrapped origin and the shift mask is a
+// comparison of quarter indices, as in K4. Scores are exact int32 sums of
+// one mma.sync m16n8k32 a 16 x 8 tile (ldmatrix reads the int8 tiles as
+// b16), then __fmul_rn by cs2 and __fadd_rn of bias [+ mask], as the plain
+// version rounds; P V, the row sums and the division are K4's; the context
+// is rounded once to int8 over the q8 slot and stored by TMA (a 64-byte
+// box a quarter).
+//
+// Token (ry, rx) of window
+// (wy, wx) of image b is raster row
 //   b*S*S + ((wy*w + ry + shift) mod S) * S + (wx*w + rx + shift) mod S,
 // its bias index (y_i - y_j + w - 1)(2w - 1) + (x_i - x_j + w - 1) into the
 // ((2w-1)^2, H) table, and its shift-mask region label 3*ry' + rx' from its
 // rolled-frame position (geovpr/models/swin.py:88-104). The kernels
 // allocate nothing; the caller passes the scratch.
 
-#include "hopper_gemm.cuh"
-#include "int8_attn.cuh"
+#include "hopper_gemm_s8.cuh"
 #include "window_attn.cuh"
 
 namespace {
 
-constexpr int SW_MAX_N = 256;         // window tokens (16 warps)
+constexpr int SW_MAX_N = 256;         // window tokens
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaskL2 = -100.f * kLog2e;
-constexpr int QK_LD_I8 = 48;          // bytes per q/k row: 32 + 16 pad
-
-__host__ __device__ inline size_t round16(size_t v) { return (v + 15) & ~(size_t)15; }
-
-// Shared memory of one (window, head): token rows, positions and labels
-// (3 N ints), the head's bias table ((2w-1)^2 floats), q and k (N rows each)
-// and v^T (32 rows of N + 8 bf16).
-__host__ __device__ inline size_t win_smem_bytes(int win, bool int8) {
-  const int n = win * win;
-  const int t = 2 * win - 1;
-  return round16((size_t)(3 * n + t * t) * 4) +
-         (size_t)2 * n * (int8 ? QK_LD_I8 : QK_LD_BF16) +
-         (size_t)SW_DH * (n + 8) * sizeof(bf16);
-}
-
-// kInt8 == false (K4): qk is qkv (M, 3C) bf16 with q|k|v column blocks,
-// head h at columns h*32 of each (q pre-scaled by dh^-0.5 log2 e); vsrc
-// unused; ctx (M, C) bf16.
-// kInt8 == true (K5): qk is qk8 (M, 2C) int8 (q|k), vsrc (M, C) bf16,
-// ctx (M, C) int8; cs2 dequantizes the int32 scores into the exp2 domain.
-// table: ((2w-1)^2, H) f32, natural-log domain. Grid (B * nW, H); N/16
-// warps.
-template <bool kInt8>
-__global__ void __launch_bounds__(SW_MAX_N * 2)
-swin_window_attention_kernel(const void* __restrict__ qk,
-                             const bf16* __restrict__ vsrc,
-                             void* __restrict__ ctx,
-                             const float* __restrict__ table, int C, int H,
-                             int S, int win, int shift, float cs2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int N = win * win;
-  const int T = 2 * win - 1;
-  const int nwx = S / win;
-  const int h = blockIdx.y;
-  const int b = blockIdx.x / (nwx * nwx);
-  const int wy = (blockIdx.x / nwx) % nwx;
-  const int wx = blockIdx.x % nwx;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-
-  int* rows_s = reinterpret_cast<int*>(smem);
-  int* pos_s = rows_s + N;
-  int* lab_s = pos_s + N;
-  float* tab_s = reinterpret_cast<float*>(lab_s + N);
-  unsigned char* q_s = smem + round16((size_t)(3 * N + T * T) * 4);
-  const int qk_ld = kInt8 ? QK_LD_I8 : QK_LD_BF16;
-  unsigned char* k_s = q_s + (size_t)N * qk_ld;
-  bf16* vt_s = reinterpret_cast<bf16*>(k_s + (size_t)N * qk_ld);
-  const int vt_ld = N + 8;
-
-  for (int r = tid; r < N; r += nthreads) {
-    const int ry = r / win;
-    const int rx = r % win;
-    const int Y = wy * win + ry;  // rolled frame
-    const int X = wx * win + rx;
-    int y = Y + shift;
-    int x = X + shift;
-    if (y >= S) y -= S;
-    if (x >= S) x -= S;
-    rows_s[r] = (b * S + y) * S + x;
-    pos_s[r] = ry * T + rx;
-    lab_s[r] = shift ? 3 * (Y < S - win ? 0 : (Y < S - shift ? 1 : 2)) +
-                           (X < S - win ? 0 : (X < S - shift ? 1 : 2))
-                     : 0;
-  }
-  for (int i = tid; i < T * T; i += nthreads) tab_s[i] = table[i * H + h] * kLog2e;
-  __syncthreads();
-
-  // q, k (16-byte chunks) and v transposed, gathered by raster row
-  if (!kInt8) {
-    const bf16* src = static_cast<const bf16*>(qk);
-    const size_t ld = 3 * (size_t)C;
-    for (int i = tid; i < N * 4; i += nthreads) {
-      const int r = i >> 2;
-      const int c = i & 3;
-      const bf16* row = src + (size_t)rows_s[r] * ld + h * SW_DH + c * 8;
-      *reinterpret_cast<uint4*>(q_s + r * QK_LD_BF16 + c * 16) =
-          *reinterpret_cast<const uint4*>(row);
-      *reinterpret_cast<uint4*>(k_s + r * QK_LD_BF16 + c * 16) =
-          *reinterpret_cast<const uint4*>(row + C);
-      const uint4 vv = *reinterpret_cast<const uint4*>(row + 2 * C);
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt_s[(c * 8 + e) * vt_ld + r] = ve[e];
-    }
-  } else {
-    const int8_t* src = static_cast<const int8_t*>(qk);
-    const size_t ld = 2 * (size_t)C;
-    for (int i = tid; i < N * 2; i += nthreads) {
-      const int r = i >> 1;
-      const int c = i & 1;
-      const int8_t* row = src + (size_t)rows_s[r] * ld + h * SW_DH + c * 16;
-      *reinterpret_cast<uint4*>(q_s + r * QK_LD_I8 + c * 16) =
-          *reinterpret_cast<const uint4*>(row);
-      *reinterpret_cast<uint4*>(k_s + r * QK_LD_I8 + c * 16) =
-          *reinterpret_cast<const uint4*>(row + C);
-    }
-    for (int i = tid; i < N * 4; i += nthreads) {
-      const int r = i >> 2;
-      const int c = i & 3;
-      const uint4 vv = *reinterpret_cast<const uint4*>(
-          vsrc + (size_t)rows_s[r] * C + h * SW_DH + c * 8);
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt_s[(c * 8 + e) * vt_ld + r] = ve[e];
-    }
-  }
-  __syncthreads();
-
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = warp * 16 + g;  // this thread's two query rows
-  const int r1 = r0 + 8;
-
-  // A fragments of the warp's 16 query rows, held for every key tile
-  uint32_t qa[2][4];
-  if (!kInt8) {
-    load_q_frags_bf16(q_s, r0, t, qa);
-  } else {
-    const unsigned char* p0 = q_s + r0 * QK_LD_I8 + t * 4;
-    const unsigned char* p1 = q_s + r1 * QK_LD_I8 + t * 4;
-    qa[0][0] = *reinterpret_cast<const uint32_t*>(p0);
-    qa[0][1] = *reinterpret_cast<const uint32_t*>(p1);
-    qa[0][2] = *reinterpret_cast<const uint32_t*>(p0 + 16);
-    qa[0][3] = *reinterpret_cast<const uint32_t*>(p1 + 16);
-  }
-  const int base = (win - 1) * (T + 1);
-  const int pos0 = pos_s[r0] + base;
-  const int pos1 = pos_s[r1] + base;
-  const int lab0 = lab_s[r0];
-  const int lab1 = lab_s[r1];
-
-  float o[4][4];
-  float l0, l1;
-  warp_window_attention(
-      N, vt_s, vt_ld,
-      [&](int kr, float (&sj)[4]) {
-        if (!kInt8) {
-          scores_bf16(qa, k_s, kr, t, sj);
-        } else {
-          int si[4] = {0, 0, 0, 0};
-          const unsigned char* kp = k_s + kr * QK_LD_I8 + t * 4;
-          mma_s8(si, qa[0], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 16));
-          // rounded product, then the sums below: no fused multiply-add, so
-          // that s rounds as the plain version's and JAX's do
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sj[e] = __fmul_rn((float)si[e], cs2);
-        }
-      },
-      // + bias [+ mask], p = exp2(min(s, 100))
-      [&](int key, bool hi, float sv) {
-        float v = __fadd_rn(sv, tab_s[(hi ? pos1 : pos0) - pos_s[key]]);
-        if (shift && (hi ? lab1 : lab0) != lab_s[key]) v = __fadd_rn(v, kMaskL2);
-        return exp2f(fminf(v, 100.f));
-      },
-      o, l0, l1);
-
-  const size_t out0 = (size_t)rows_s[r0] * C + h * SW_DH + 2 * t;
-  const size_t out1 = (size_t)rows_s[r1] * C + h * SW_DH + 2 * t;
-#pragma unroll
-  for (int jn = 0; jn < 4; ++jn) {
-    const float a0 = o[jn][0] / l0;
-    const float a1 = o[jn][1] / l0;
-    const float b0 = o[jn][2] / l1;
-    const float b1 = o[jn][3] / l1;
-    if (!kInt8) {
-      bf16* dst = static_cast<bf16*>(ctx);
-      *reinterpret_cast<__nv_bfloat162*>(dst + out0 + jn * 8) =
-          __floats2bfloat162_rn(a0, a1);
-      *reinterpret_cast<__nv_bfloat162*>(dst + out1 + jn * 8) =
-          __floats2bfloat162_rn(b0, b1);
-    } else {
-      int8_t* dst = static_cast<int8_t*>(ctx);
-      *reinterpret_cast<char2*>(dst + out0 + jn * 8) =
-          make_char2(round_clip_i8(a0), round_clip_i8(a1));
-      *reinterpret_cast<char2*>(dst + out1 + jn * 8) =
-          make_char2(round_clip_i8(b0), round_clip_i8(b1));
-    }
-  }
-}
 
 // ------------------------------------------------ K4's window attention --
 
@@ -630,32 +472,325 @@ cudaError_t launch_swin_attn(const bf16* qkv, bf16* ctx, const float* table,
   return cudaGetLastError();
 }
 
-const int kMaxSmem = 232448;
+// ---------------------------------------- K5's int8-score attention --
 
-template <typename Kernel>
-cudaError_t allow_max_smem(Kernel* kernel) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              kMaxSmem);
+// Shared memory of swin_attn8_tma_kernel at window side W, on K4's thread
+// geometry and ring depth (SwTile<W>): a task's q8 and k8 are four boxes
+// each of two heads' int8 rows (64 bytes, the 64-byte swizzle), its v four
+// of K4's bf16 boxes (two heads, 128 bytes, the 128-byte swizzle).
+template <int W>
+struct SwTile8 {
+  using G = SwTile<W>;
+  static constexpr int kQSlot = (G::kBoxRows * 64 + 1023) / 1024 * 1024;
+  static constexpr int kQ = 4 * kQSlot;  // q8 or k8 of a task
+  static constexpr int kStageBytes = 2 * kQ + 4 * G::kSlot;
+  static constexpr int kTx = 4 * G::kBoxRows * (64 + 64 + 128);
+  static constexpr int kSmem = G::kStages * kStageBytes +
+                               G::kGroups * 2 * G::kT * G::kT * 4 +
+                               G::kN * 4 + G::kStages * 8 + 1024;
+};
+
+// Shared-memory address of chunk c (16 bytes: chunk 2 hh + j holds dims
+// 16 j .. 16 j + 15 of head hh of the pair) of token r (box-major, as
+// sw_addr) of a q8 or k8 tile at `base`, through the 64-byte swizzle
+// (16-byte chunk c of a 64-byte row lr sits at c ^ ((lr / 2) % 4)).
+template <int W>
+__device__ __forceinline__ uint32_t sw8_addr(uint32_t base, int r, int c) {
+  constexpr int kRows = SwTile<W>::kBoxRows;
+  const int lr = r % kRows;
+  return base + (r / kRows) * SwTile8<W>::kQSlot + lr * 64 +
+         ((c ^ ((lr >> 1) & 3)) << 4);
 }
 
-// What K5 takes: C = 32 H, windows of N = win^2 tokens with N a multiple
-// of 16 up to SW_MAX_N, a square stage of whole windows, a shift in [0,
-// win), and row blocks within the grid's y limit. K4 takes the same
-// geometry with C <= 1024 (its LayerNorm keeps a row in a warp's
-// registers) and a shift of 0 or win / 2 (Swin's own: a quarter of a
-// window is one TMA box).
-bool swin_shapes_ok(int B, int S, int C, int H, int win, int shift) {
-  const int n = win * win;
-  return B > 0 && H > 0 && C == H * SW_DH && win > 0 && n % 16 == 0 &&
-         n <= SW_MAX_N && S > 0 && S % win == 0 && shift >= 0 &&
-         shift < win && (long long)B * S * S / 64 + 1 <= 65535 &&
-         (long long)B * (S / win) * (S / win) <= 0x7fffffff;
+// One warp of K5: query rows [r_base, r_base + 16 kR) of head hh of a
+// task against all kN keys, as sw_attend but with int8 q and k: the
+// scores are exact int32 sums of one mma.sync m16n8k32 a 16 x 8 tile (dh
+// = 32, one k step; ldmatrix reads a 16 x 32 int8 tile as a 16 x 16 tile
+// of b16), dequantised by the rounded product si * cs2, then bias [+ mask]
+// added in the exp2 domain in f32, rounding as the plain version does;
+// p = 2^min(s, 100) rounded to bf16 for P V; the context, divided by the
+// f32 row sum, is rounded once to int8 over the same rows and head of the
+// q8 tile.
+template <int W, bool kMasked>
+__device__ __forceinline__ void sw8_attend(uint32_t qs, uint32_t ks,
+                                           uint32_t vs, const float* tab,
+                                           const int* pos_s, int r_base,
+                                           int hh, int wrap, float cs2,
+                                           int lane) {
+  using T = SwTile<W>;
+  constexpr int R = T::kR;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int base = (W - 1) * (T::kT + 1);
+  uint32_t qa[R][4];
+  int pos[R][2], box[R][2];  // of this lane's query rows 16 i + g (+ 8)
+  float o[R][4][4];
+  float l[R][2];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    ldmatrix_x4<false>(qa[i], sw8_addr<W>(qs, r_base + 16 * i + (lane & 15),
+                                          2 * hh + (lane >> 4)));
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int r = r_base + 16 * i + g + 8 * hi;
+      pos[i][hi] = pos_s[r] + base;
+      box[i][hi] = r / T::kBoxRows;
+      l[i][hi] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][j][e] = 0.f;
+  }
+
+#pragma unroll 1
+  for (int k0 = 0; k0 < T::kN; k0 += 16) {
+    // K8 of the 16 keys (kb[0..1]: keys k0 .. k0 + 7, kb[2..3]: the next
+    // 8), V by ldmatrix.trans, and the keys' positions and quarters
+    uint32_t kb[4], vb[2][4];
+    int kpos[2][2], kbox[2][2];  // key k0 + 8 j + 2 t + c
+    ldmatrix_x4<false>(kb, sw8_addr<W>(ks, k0 + (lane & 7) + ((lane >> 4) << 3),
+                                       2 * hh + ((lane >> 3) & 1)));
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      ldmatrix_x4<true>(vb[j], sw_addr<W>(vs, k0 + (lane & 7) + (lane & 8),
+                                          4 * hh + 2 * j + (lane >> 4)));
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + 8 * j + 2 * t + c;
+        kpos[j][c] = pos_s[key];
+        kbox[j][c] = key / T::kBoxRows;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      int si[2][4];
+      float s[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) si[j][e] = 0;
+        mma_s8(si[j], qa[i], kb[2 * j], kb[2 * j + 1]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            float v = __fadd_rn(__fmul_rn((float)si[j][2 * hi + c], cs2),
+                                tab[pos[i][hi] - kpos[j][c]]);
+            if (kMasked && ((box[i][hi] ^ kbox[j][c]) & wrap))
+              v = __fadd_rn(v, kMaskL2);
+            const float p = sw_exp2(fminf(v, 100.f));
+            l[i][hi] += p;
+            s[j][2 * hi + c] = p;
+          }
+      const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]),
+                              pack_bf16(s[0][2], s[0][3]),
+                              pack_bf16(s[1][0], s[1][1]),
+                              pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        mma_bf16(o[i][2 * j], pa, vb[j][0], vb[j][1]);
+        mma_bf16(o[i][2 * j + 1], pa, vb[j][2], vb[j][3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      float& li = l[i][hi];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      const int r = r_base + 16 * i + g + 8 * hi;
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+        st_shared_u16(sw8_addr<W>(qs, r, 2 * hh + (jn >> 1)) + (jn & 1) * 8 +
+                          2 * t,
+                      pack_i8x2(round_clip_i8(o[i][jn][2 * hi] / li),
+                                round_clip_i8(o[i][jn][2 * hi + 1] / li)));
+    }
 }
 
+// Loads task `task`'s q8, k8 (from qk8) and v into stage `st`, counted on
+// `bar`.
+template <int W>
+__device__ __forceinline__ void sw8_load_task(unsigned char* st, uint64_t* bar,
+                                              const CUtensorMap* tm_qk,
+                                              const CUtensorMap* tm_v,
+                                              int task, int n_windows, int C,
+                                              int S, int shift) {
+  using T8 = SwTile8<W>;
+  const int nw = S / W;
+  const int pair = task / n_windows;
+  const int win = task % n_windows;
+  const int img = win / (nw * nw);
+  const int wy = (win / nw) % nw;
+  const int wx = win % nw;
+  mbar_expect_tx(bar, T8::kTx);
+  for (int box = 0; box < 4; ++box) {
+    const int2 at = sw_box_origin<W>(wx, wy, box, S, shift);
+    tma_load_4d(st + box * T8::kQSlot, tm_qk, bar, 64 * pair, at.x, at.y,
+                img);
+    tma_load_4d(st + T8::kQ + box * T8::kQSlot, tm_qk, bar, C + 64 * pair,
+                at.x, at.y, img);
+    tma_load_4d(st + 2 * T8::kQ + box * SwTile<W>::kSlot, tm_v, bar,
+                64 * pair, at.x, at.y, img);
+  }
+}
+
+// ctx8 (B*S*S, C) int8 from qk8 (B*S*S, 2C) int8 and v (B*S*S, C) bf16:
+// tm_qk maps qk8 as (2C, S, S, B) and tm_ctx ctx8 as (C, S, S, B) in (64,
+// W/2, W/2, 1) boxes of bytes with the 64-byte swizzle, tm_v v as (C, S,
+// S, B) in K4's bf16 boxes; H even. The task walk, ring and consumer groups
+// are swin_attn_tma_kernel's.
+template <int W>
+__global__ void __launch_bounds__(SwTile<W>::kThreads, 1)
+swin_attn8_tma_kernel(const __grid_constant__ CUtensorMap tm_qk,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_ctx,
+                      const float* __restrict__ table, int C, int H, int S,
+                      int shift, float cs2, int n_windows, int n_tasks,
+                      int chunk) {
+  using T = SwTile<W>;
+  using T8 = SwTile8<W>;
+  constexpr int kTab = 2 * T::kT * T::kT;  // floats of a pair's tables
+  extern __shared__ unsigned char sw_smem[];
+  unsigned char* ring = align1024(sw_smem);
+  float* tab_s =
+      reinterpret_cast<float*>(ring + T::kStages * T8::kStageBytes);
+  int* pos_s = reinterpret_cast<int*>(tab_s + T::kGroups * kTab);
+  uint64_t* full = reinterpret_cast<uint64_t*>(pos_s + T::kN);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int nw = S / W;
+  const int first = blockIdx.x * chunk;
+  const int count = min(chunk, n_tasks - first);
+
+  for (int r = threadIdx.x; r < T::kN; r += T::kThreads) {
+    const int box = r / T::kBoxRows;
+    const int lr = r % T::kBoxRows;
+    pos_s[r] = ((box >> 1) * T::kH + lr / T::kH) * T::kT +
+               (box & 1) * T::kH + lr % T::kH;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) mbar_init(full + s, 1);
+    mbar_fence_init();
+    for (int i = 0; i < T::kStages && i < count; ++i)
+      sw8_load_task<W>(ring + i * T8::kStageBytes, full + i, &tm_qk, &tm_v,
+                       first + i, n_windows, C, S, shift);
+  }
+  __syncthreads();
+
+  const int grp = warp / T::kGroupWarps;
+  const int gw = warp % T::kGroupWarps;
+  const int gtid = threadIdx.x % T::kGroupThreads;
+  const int hh = gw / (T::kGroupWarps / 2);
+  const int r_base = 16 * T::kR * (gw % (T::kGroupWarps / 2));
+  float* tab = tab_s + grp * kTab;
+  int pair_loaded = -1;
+  for (int i = grp; i < count; i += T::kGroups) {
+    const int task = first + i;
+    const int s = i % T::kStages;
+    const int pair = task / n_windows;
+    const int win = task % n_windows;
+    const int img = win / (nw * nw);
+    const int wy = (win / nw) % nw;
+    const int wx = win % nw;
+    if (pair != pair_loaded) {
+      for (int k = gtid; k < kTab; k += T::kGroupThreads)
+        tab[k] = table[(k % (T::kT * T::kT)) * H + 2 * pair +
+                       k / (T::kT * T::kT)] * kLog2e;
+      named_sync(1 + grp, T::kGroupThreads);
+      pair_loaded = pair;
+    }
+    mbar_wait(full + s, (i / T::kStages) & 1);
+    unsigned char* st = ring + s * T8::kStageBytes;
+    const uint32_t qs = smem_u32(st);
+    const int wrap =
+        shift ? (wy == nw - 1 ? 2 : 0) | (wx == nw - 1 ? 1 : 0) : 0;
+    const float* tab_h = tab + hh * T::kT * T::kT;
+    if (wrap)
+      sw8_attend<W, true>(qs, qs + T8::kQ, qs + 2 * T8::kQ, tab_h, pos_s,
+                          r_base, hh, wrap, cs2, lane);
+    else
+      sw8_attend<W, false>(qs, qs + T8::kQ, qs + 2 * T8::kQ, tab_h, pos_s,
+                           r_base, hh, 0, cs2, lane);
+    fence_proxy_async();
+    named_sync(1 + grp, T::kGroupThreads);
+    if (gtid == 0) {
+      // ctx8 by TMA from the q8 slots; once the stores have read the
+      // stage it takes the task kStages on
+      for (int box = 0; box < 4; ++box) {
+        const int2 to = sw_box_origin<W>(wx, wy, box, S, shift);
+        tma_store_4d(&tm_ctx, st + box * T8::kQSlot, 64 * pair, to.x, to.y,
+                     img);
+      }
+      bulk_commit();
+      bulk_wait_read();
+      if (i + T::kStages < count)
+        sw8_load_task<W>(st, full + s, &tm_qk, &tm_v, task + T::kStages,
+                         n_windows, C, S, shift);
+    }
+  }
+}
+
+template <int W>
+cudaError_t launch_swin_attn8(const int8_t* qk8, const bf16* v, int8_t* ctx8,
+                              const float* table, int B, int S, int C, int H,
+                              int shift, float cs2, cudaStream_t s) {
+  using T = SwTile<W>;
+  CUtensorMap tq, tv, tc;
+  const cuuint32_t box[4] = {64, T::kH, T::kH, 1};
+  const cuuint64_t dq[4] = {(cuuint64_t)2 * C, (cuuint64_t)S, (cuuint64_t)S,
+                            (cuuint64_t)B};
+  const cuuint64_t dc[4] = {(cuuint64_t)C, (cuuint64_t)S, (cuuint64_t)S,
+                            (cuuint64_t)B};
+  // 2C bytes a row of qk8 and of v, C of ctx8
+  const cuuint64_t s2[3] = {(cuuint64_t)2 * C, (cuuint64_t)S * 2 * C,
+                            (cuuint64_t)S * S * 2 * C};
+  const cuuint64_t s1[3] = {(cuuint64_t)C, (cuuint64_t)S * C,
+                            (cuuint64_t)S * S * C};
+  if (!make_tmap_of(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                    CU_TENSOR_MAP_SWIZZLE_64B, qk8, 4, dq, s2, box) ||
+      !make_tmap(&tv, v, 4, dc, s2, box) ||
+      !make_tmap_of(&tc, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                    CU_TENSOR_MAP_SWIZZLE_64B, ctx8, 4, dc, s1, box))
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  const int n_windows = B * (S / W) * (S / W);
+  const int n_tasks = n_windows * (H / 2);
+  const int chunk = (n_tasks + sms - 1) / sms;
+  swin_attn8_tma_kernel<W><<<(n_tasks + chunk - 1) / chunk, T::kThreads,
+                             SwTile8<W>::kSmem, s>>>(
+      tq, tv, tc, table, C, H, S, shift, cs2, n_windows, n_tasks, chunk);
+  return cudaGetLastError();
+}
+
+// What K4 and K5 take: C = 32 H up to 1024 (the LayerNorms hold a row in
+// a warp's registers or a warp's staging), windows of N = win^2 tokens
+// with N a multiple of 16 up to SW_MAX_N, a square stage of whole windows,
+// and a shift of 0 or win / 2 (Swin's own: a quarter of a window is one
+// TMA box). K5 also takes only even H (C % 64 == 0): its q8 and k8 boxes
+// are head pairs of 64 bytes, and its QKV GEMM's 128-column tiles end
+// where qk8 ends.
 bool k4_shapes_ok(int B, int S, int C, int H, int win, int shift) {
-  return swin_shapes_ok(B, S, C, H, win, shift) && C <= HG_MAX_DIM &&
+  const int n = win * win;
+  return B > 0 && H > 0 && C == H * SW_DH && C <= HG_MAX_DIM && win > 0 &&
+         n % 16 == 0 && n <= SW_MAX_N && S > 0 && S % win == 0 &&
          (shift == 0 || 2 * shift == win) &&
          ((long long)B * S * S + HG_BM - 1) / HG_BM <= 65535;
+}
+
+bool k5_shapes_ok(int B, int S, int C, int H, int win, int shift) {
+  return k4_shapes_ok(B, S, C, H, win, shift) && C % 64 == 0;
 }
 
 }  // namespace
@@ -669,6 +804,8 @@ extern "C" int geovpr_swin_init(void) {
   const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
   if ((e = allow_gemm_smem<HG_EPI_QKV>()) != cudaSuccess ||
       (e = allow_gemm_smem<HG_EPI_RESID>()) != cudaSuccess ||
+      (e = allow_gemm_s8_smem<HS_EPI_QK8V>()) != cudaSuccess ||
+      (e = allow_gemm_s8_smem<HS_EPI_RESID>()) != cudaSuccess ||
       (e = cudaFuncSetAttribute(swin_attn_tma_kernel<4>, a,
                                 SwTile<4>::kSmem)) != cudaSuccess ||
       (e = cudaFuncSetAttribute(swin_attn_tma_kernel<8>, a,
@@ -677,10 +814,15 @@ extern "C" int geovpr_swin_init(void) {
                                 SwTile<12>::kSmem)) != cudaSuccess ||
       (e = cudaFuncSetAttribute(swin_attn_tma_kernel<16>, a,
                                 SwTile<16>::kSmem)) != cudaSuccess ||
-      (e = allow_max_smem(int8_qkv_kernel)) != cudaSuccess ||
-      (e = allow_max_smem(int8_proj_kernel)) != cudaSuccess)
+      (e = cudaFuncSetAttribute(swin_attn8_tma_kernel<4>, a,
+                                SwTile8<4>::kSmem)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(swin_attn8_tma_kernel<8>, a,
+                                SwTile8<8>::kSmem)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(swin_attn8_tma_kernel<12>, a,
+                                SwTile8<12>::kSmem)) != cudaSuccess)
     return (int)e;
-  return (int)allow_max_smem(swin_window_attention_kernel<true>);
+  return (int)cudaFuncSetAttribute(swin_attn8_tma_kernel<16>, a,
+                                   SwTile8<16>::kSmem);
 }
 
 // K4's launches first..last (0 LayerNorm, 1 QKV GEMM, 2 window attention,
@@ -755,45 +897,79 @@ extern "C" int geovpr_swin_attn_bf16(
                                 eps, qscale, 0, 3, stream);
 }
 
-// K5. Returns a cudaError_t as int. x and out (B*S*S, C) bf16; wqkv_t
-// (3C, C) and wo_t (C, C) int8, k-contiguous; vectors and table f32.
-// Scratch: qk8 (B*S*S, 2C) int8, v (B*S*S, C) bf16, ctx8 (B*S*S, C) int8.
-// C a multiple of 64 up to 1024. cs2 = a_q a_k dh^-0.5 log2(e).
+// K5's launches first..last (0 LN-quant, 1 QKV GEMM, 2 int8-score window
+// attention, 3 out projection); returns a cudaError_t as int. x and out
+// (B*S*S, C) bf16; wqkv_t (3C, C) and wo_t (C, C) int8, k-contiguous;
+// ln_scale, ln_bias (1/a_x folded in), sqkv, bqkv, so, bo and the table
+// f32; all 16-byte aligned. Scratch: qk8 (B*S*S, 2C) int8, v (B*S*S, C)
+// bf16, ctx8 (B*S*S, C) int8 (the LN-quant output until the attention
+// writes ctx8). cs2 = a_q a_k dh^-0.5 log2(e). A launch alone reads what
+// the earlier launches of an earlier call left in the scratch.
+// geovpr_swin_init must have run on the current device.
+extern "C" int geovpr_swin_attn_int8_parts(
+    const void* x, const void* ln_scale, const void* ln_bias,
+    const void* wqkv_t, const void* sqkv, const void* bqkv, const void* wo_t,
+    const void* so, const void* bo, const void* table, void* qk8, void* v,
+    void* ctx8, void* out, int B, int S, int C, int H, int win, int shift,
+    float eps, float cs2, int first, int last, void* stream) {
+  if (!k5_shapes_ok(B, S, C, H, win, shift) || first < 0 || last > 3 ||
+      first > last)
+    return (int)cudaErrorInvalidValue;
+  const int M = B * S * S;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* qk = static_cast<const int8_t*>(qk8);
+  const bf16* vb = static_cast<const bf16*>(v);
+  int8_t* c8 = static_cast<int8_t*>(ctx8);
+  const float* tab = static_cast<const float*>(table);
+  cudaError_t e;
+  for (int part = first; part <= last; ++part) {
+    switch (part) {
+      case 0:
+        e = launch_ln_quant(static_cast<const bf16*>(x),
+                            static_cast<const float*>(ln_scale),
+                            static_cast<const float*>(ln_bias), c8, M, C, eps,
+                            s);
+        break;
+      case 1:
+        e = launch_gemm_s8<HS_EPI_QK8V>(
+            c8, static_cast<const int8_t*>(wqkv_t), M, C, 3 * C,
+            HsEpilogue{static_cast<const float*>(sqkv),
+                       static_cast<const float*>(bqkv), nullptr, nullptr, 0.f,
+                       2 * C},
+            static_cast<int8_t*>(qk8), static_cast<bf16*>(v), s);
+        break;
+      case 2:
+        e = win == 4    ? launch_swin_attn8<4>(qk, vb, c8, tab, B, S, C, H,
+                                               shift, cs2, s)
+            : win == 8  ? launch_swin_attn8<8>(qk, vb, c8, tab, B, S, C, H,
+                                               shift, cs2, s)
+            : win == 12 ? launch_swin_attn8<12>(qk, vb, c8, tab, B, S, C, H,
+                                                shift, cs2, s)
+                        : launch_swin_attn8<16>(qk, vb, c8, tab, B, S, C, H,
+                                                shift, cs2, s);
+        break;
+      default:
+        e = launch_gemm_s8<HS_EPI_RESID>(
+            c8, static_cast<const int8_t*>(wo_t), M, C, C,
+            HsEpilogue{static_cast<const float*>(so),
+                       static_cast<const float*>(bo), nullptr,
+                       static_cast<const bf16*>(x), 0.f, 0},
+            nullptr, static_cast<bf16*>(out), s);
+    }
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// K5, all four launches (the whole half-block).
 extern "C" int geovpr_swin_attn_int8(
     const void* x, const void* ln_scale, const void* ln_bias,
     const void* wqkv_t, const void* sqkv, const void* bqkv, const void* wo_t,
     const void* so, const void* bo, const void* table, void* qk8, void* v,
     void* ctx8, void* out, int B, int S, int C, int H, int win, int shift,
     float eps, float cs2, void* stream) {
-  if (!swin_shapes_ok(B, S, C, H, win, shift) || C % 64 || C > LN_MAX_D ||
-      int8_proj_smem_bytes(C) > (size_t)kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  const int M = B * S * S;
-  const int m_blocks = (M + ProjGemm::BM - 1) / ProjGemm::BM;
-  const int N = win * win;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t gsmem = int8_proj_smem_bytes(C);
-  cudaError_t e;
-
-  int8_qkv_kernel<<<dim3((3 * C + ProjGemm::BN - 1) / ProjGemm::BN, m_blocks),
-                    I8_THREADS, gsmem, s>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), eps,
-      static_cast<const int8_t*>(wqkv_t), static_cast<const float*>(sqkv),
-      static_cast<const float*>(bqkv), static_cast<int8_t*>(qk8),
-      static_cast<bf16*>(v), M, C);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  swin_window_attention_kernel<true>
-      <<<dim3(B * (S / win) * (S / win), H), 2 * N, win_smem_bytes(win, true), s>>>(
-          qk8, static_cast<const bf16*>(v), ctx8,
-          static_cast<const float*>(table), C, H, S, win, shift, cs2);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  int8_proj_kernel<<<dim3((C + ProjGemm::BN - 1) / ProjGemm::BN, m_blocks),
-                     I8_THREADS, gsmem, s>>>(
-      static_cast<const int8_t*>(ctx8), static_cast<const int8_t*>(wo_t),
-      static_cast<const float*>(so), static_cast<const float*>(bo), nullptr,
-      static_cast<const bf16*>(x), static_cast<bf16*>(out), M, C);
-  return (int)cudaGetLastError();
+  return geovpr_swin_attn_int8_parts(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv,
+                                     wo_t, so, bo, table, qk8, v, ctx8, out, B,
+                                     S, C, H, win, shift, eps, cs2, 0, 3,
+                                     stream);
 }

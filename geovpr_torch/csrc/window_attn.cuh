@@ -1,9 +1,10 @@
-// The per-warp window-attention tile loop shared by K4/K5 (swin_attn.cu)
-// and K7 (window_attn.cu), for Hopper (sm_90a).
+// The per-warp window-attention tile loop of K7 (window_attn.cu), and the
+// mma.sync and fragment helpers it shares with K4/K5 (swin_attn.cu) and
+// K9 (swin_train.cu), for Hopper (sm_90a).
 //
 // One warp owns 16 query rows of one (window, head) at head dim 32 and
 // walks the keys in tiles of 16: scores by mma.sync m16n8k16 into registers
-// (the caller's `scores`: bf16 q.k^T, or K5's int8 form), the caller's
+// (the caller's `scores`), the caller's
 // `prob` turning each score into p (bias, mask, exp2 with no max-shift, or
 // 0 for a key it excludes), row sums of p in registers, and p repacked as
 // the bf16 A operand of the P.V mma.sync, accumulated over all tiles.

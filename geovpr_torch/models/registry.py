@@ -37,8 +37,7 @@ def check_int8_serving(cfg: ModelConfig) -> None:
         if window is not None and not fused_window_ok(window):
             raise NotImplementedError(
                 f"w8a8 Swin at window {window} is not ported yet (ROADMAP "
-                "Queue 1 item 9: K3 at D = 96 and the int8 window-7 "
-                "attention)")
+                "Queue 1 item 9: the int8 window-7 attention)")
 
 
 def check_training(cfg: ModelConfig) -> None:

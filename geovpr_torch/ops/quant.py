@@ -86,6 +86,28 @@ def layer_norm_f32(xf: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf - mu) * torch.rsqrt(var + eps)
 
 
+def ln_quant_reference(x: torch.Tensor, ln_scale_q: torch.Tensor,
+                       ln_bias_q: torch.Tensor, ln_eps: float) -> torch.Tensor:
+    """Plain version of the LN-quant launch of K3 and K5: the int8 rows
+    round_clip(LN(x) * s' + b') (M, D) of x (..., D), LayerNorm in f32
+    (two-pass), 1/a_x folded into s' and b'."""
+    d = x.shape[-1]
+    return round_clip_int8(layer_norm_f32(x.reshape(-1, d).float(), ln_eps)
+                           * ln_scale_q + ln_bias_q)
+
+
+def int8_resid_reference(a8: torch.Tensor, w_q_t: torch.Tensor,
+                         s_eff: torch.Tensor, b: torch.Tensor,
+                         res: torch.Tensor, gamma=None) -> torch.Tensor:
+    """Plain version of the int8 GEMM's residual epilogue (K5's out
+    projection, K3's fc2): (a8 w_q_t^T * s + b) [* gamma] + res in f32,
+    rounded to res.dtype; a8 (M, K) int8, w_q_t (N, K) int8, res (M, N)."""
+    y = int_mm(a8, w_q_t.t()).float() * s_eff + b
+    if gamma is not None:
+        y = y * gamma
+    return (y + res.float()).to(res.dtype)
+
+
 def check_shapes(want: dict, got: dict) -> None:
     """Raise ValueError unless every tensor in `got` has the shape in
     `want`."""

@@ -43,7 +43,7 @@ from geovpr_torch.ops.window_attention import (add_bias_mask, from_windows,
 
 LOG2E = math.log2(math.e)
 _KERNEL_HEAD_DIM = 32
-_K4_MAX_C = 1024
+_SWIN_MAX_C = 1024
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -179,28 +179,41 @@ def _window_rule_error(c, num_heads, window) -> str | None:
     return None
 
 
-def _kernel_geometry_ok(c, num_heads, window):
+def _swin_rule_error(name, c, num_heads, window, shift) -> str | None:
+    """What K4's and K5's kernels both ask: head dim 32 and a window of
+    16..256 tokens in multiples of 16, C <= 1024 (their LayerNorms hold a
+    row in one warp's registers or staging) and a shift of 0 or window //
+    2, Swin's own (a quarter of a window is one TMA box, so the cyclic
+    shift never splits one)."""
     err = _window_rule_error(c, num_heads, window)
     if err:
-        raise ValueError(err)
+        return err
+    if c > _SWIN_MAX_C:
+        return f"{name} takes C <= {_SWIN_MAX_C}, got C={c}"
+    if shift not in (0, window // 2):
+        return (f"{name} takes a shift of 0 or window // 2 = {window // 2} "
+                f"(a quarter window is one TMA box), got shift {shift}")
+    return None
 
 
 def k4_shape_error(c: int, num_heads: int, window: int,
                    shift: int) -> str | None:
     """The rule of K4's kernels (`csrc/swin_attn.cu`), or None where they
-    take the shape: head dim 32 and a window of 16..256 tokens in multiples
-    of 16 (as K5), C <= 1024 (its LayerNorm holds a row in one warp's
-    registers), and a shift of 0 or window // 2, Swin's own (a quarter of
-    a window is one TMA box, so the cyclic shift never splits one)."""
-    err = _window_rule_error(c, num_heads, window)
-    if err:
-        return err
-    if c > _K4_MAX_C:
-        return f"K4 takes C <= {_K4_MAX_C}, got C={c}"
-    if shift not in (0, window // 2):
-        return (f"K4 takes a shift of 0 or window // 2 = {window // 2} (a "
-                f"quarter window is one TMA box), got shift {shift}")
-    return None
+    take the shape (`_swin_rule_error`)."""
+    return _swin_rule_error("K4", c, num_heads, window, shift)
+
+
+def k5_shape_error(c: int, num_heads: int, window: int,
+                   shift: int) -> str | None:
+    """The rule of K5's kernels (`csrc/swin_attn.cu`), or None where they
+    take the shape: K4's (`_swin_rule_error`) and C a multiple of 64, an
+    even number of heads (the int8 q and k boxes are head pairs of 64
+    bytes, and the QKV GEMM's 128-column tiles end where q | k ends)."""
+    err = _swin_rule_error("K5", c, num_heads, window, shift)
+    if err is None and c % 64:
+        return (f"K5 takes C a multiple of 64 (an even number of heads: "
+                f"int8 q and k in head pairs), got C={c}")
+    return err
 
 
 def fused_window_ok(window: int) -> bool:
@@ -395,20 +408,12 @@ def fused_swin_attn_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
     """w8a8 Swin attention half-block on the raster stream. CPU tensors run
     the plain version in any mode; CUDA tensors launch K5 (int8 scores with
     `cs` given, bf16 P.V; bf16 x, int8 matrices, f32 vectors and table,
-    contiguous, head dim 32, C a multiple of 64 up to 1024, forward only)
-    or raise, also on the two modes the kernel does not take (`cs` None,
-    or `cpv` given)."""
+    contiguous, `k5_shape_error`'s geometry, forward only) or raise, also
+    on the two modes the kernel does not take (`cs` None, or `cpv`
+    given)."""
     _check_geometry(x, num_heads, resolution, window, shift)
-    b, l, c = x.shape
-    got = {"ln_scale_q": ln_scale_q, "ln_bias_q": ln_bias_q,
-           "wqkv_q_t": wqkv_q_t, "sqkv_eff": sqkv_eff, "bqkv_eff": bqkv_eff,
-           "wo_q_t": wo_q_t, "so_eff": so_eff, "bo": bo, "table": table}
-    check_shapes({"ln_scale_q": (c,), "ln_bias_q": (c,),
-                  "wqkv_q_t": (3 * c, c), "sqkv_eff": (3 * c,),
-                  "bqkv_eff": (3 * c,), "wo_q_t": (c, c), "so_eff": (c,),
-                  "bo": (c,), "table": ((2 * window - 1) ** 2, num_heads)},
-                 got)
-    check_devices(x, got)
+    got = _k5_got(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
+                  wo_q_t, so_eff, bo, table, num_heads, window)
     if x.device.type == "cpu":
         return swin_attn_block_int8_reference(
             x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff, wo_q_t,
@@ -423,32 +428,119 @@ def fused_swin_attn_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
     mats = {k: got[k] for k in ("wqkv_q_t", "wo_q_t")}
     vecs = {k: v for k, v in got.items() if k not in mats}
     check_int8_kernel_args(x, mats, vecs)
-    _kernel_geometry_ok(c, num_heads, window)
-    if c % 64 or c > 1024:
-        raise ValueError(f"the kernel takes C a multiple of 64 up to 1024, "
-                         f"got C={c}")
-
-    from geovpr_torch.ops._build import library_on
-    lib = library_on(x.device.index, "geovpr_swin_init")
-    m = b * l
-    qk8 = torch.empty((m, 2 * c), dtype=torch.int8, device=x.device)
-    v = torch.empty((m, c), dtype=torch.bfloat16, device=x.device)
-    ctx8 = torch.empty((m, c), dtype=torch.int8, device=x.device)
-    out = torch.empty_like(x)
+    err = k5_shape_error(x.shape[-1], num_heads, window, shift)
+    if err:
+        raise ValueError(err)
+    bufs = k5_buffers(x)
+    lib, args = _k5_args(x, got, num_heads, resolution, window, shift, ln_eps,
+                         cs, bufs)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_swin_attn_int8(
-            x.data_ptr(), ln_scale_q.data_ptr(), ln_bias_q.data_ptr(),
-            wqkv_q_t.data_ptr(), sqkv_eff.data_ptr(), bqkv_eff.data_ptr(),
-            wo_q_t.data_ptr(), so_eff.data_ptr(), bo.data_ptr(),
-            table.data_ptr(), qk8.data_ptr(), v.data_ptr(), ctx8.data_ptr(),
-            out.data_ptr(), b, resolution, c, num_heads, window, shift,
-            float(ln_eps), score_constant(cs),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        rc = lib.geovpr_swin_attn_int8(*args, _stream(x.device))
     if rc != 0:
         raise RuntimeError(
             f"swin_attn_int8 kernel launch failed: CUDA error {rc}")
     fused_swin_attn_block_int8.launches += 1
-    return out
+    return bufs[3]
+
+
+def _k5_got(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff, wo_q_t,
+            so_eff, bo, table, num_heads, window) -> dict:
+    """K5's tensor arguments by name, their shapes and devices checked."""
+    c = x.shape[-1]
+    got = {"ln_scale_q": ln_scale_q, "ln_bias_q": ln_bias_q,
+           "wqkv_q_t": wqkv_q_t, "sqkv_eff": sqkv_eff, "bqkv_eff": bqkv_eff,
+           "wo_q_t": wo_q_t, "so_eff": so_eff, "bo": bo, "table": table}
+    check_shapes({"ln_scale_q": (c,), "ln_bias_q": (c,),
+                  "wqkv_q_t": (3 * c, c), "sqkv_eff": (3 * c,),
+                  "bqkv_eff": (3 * c,), "wo_q_t": (c, c), "so_eff": (c,),
+                  "bo": (c,), "table": ((2 * window - 1) ** 2, num_heads)},
+                 got)
+    check_devices(x, got)
+    return got
+
+
+def k5_buffers(x: torch.Tensor) -> tuple:
+    """K5's scratch and output for x (B, L, C): qk8 (B*L, 2C) int8, v (B*L,
+    C) bf16, ctx8 (B*L, C) int8 (the LN-quant rows until the attention
+    writes it) and out."""
+    m, c = x.shape[0] * x.shape[1], x.shape[-1]
+    return (torch.empty((m, 2 * c), dtype=torch.int8, device=x.device),
+            torch.empty((m, c), dtype=torch.bfloat16, device=x.device),
+            torch.empty((m, c), dtype=torch.int8, device=x.device),
+            torch.empty_like(x))
+
+
+def _k5_args(x, got: dict, num_heads, resolution, window, shift, ln_eps, cs,
+             bufs):
+    """The library and K5's C arguments (but the stream) for a checked
+    CUDA x and the (qk8, v, ctx8, out) buffers `bufs`."""
+    from geovpr_torch.ops._build import library_on
+    lib = library_on(x.device.index, "geovpr_swin_init")
+    ptrs = [x] + list(got.values()) + list(bufs)
+    if any(t.data_ptr() % 16 for t in ptrs):
+        raise ValueError("K5 reads its tensors by TMA and 16-byte loads: "
+                         "each must start 16-byte aligned")
+    return lib, (*(t.data_ptr() for t in ptrs), x.shape[0], resolution,
+                 x.shape[-1], num_heads, window, shift, float(ln_eps),
+                 score_constant(cs))
+
+
+K5_PARTS = ("ln_quant", "qkv_gemm", "attention", "out_proj")
+
+
+def k5_launch_part(part: int, x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff,
+                   bqkv_eff, wo_q_t, so_eff, bo, table, num_heads: int,
+                   resolution: int, window: int, shift: int,
+                   ln_eps: float = 1e-5, cs=None, *, bufs) -> None:
+    """One of K5's four launches (an index into K5_PARTS) alone, on the
+    arguments of `fused_swin_attn_block_int8` (CUDA tensors it takes) and
+    the `k5_buffers` `bufs`, whose contents from an earlier call it reads.
+    chip_smoke.py times K5's launches one by one with it and the card tests
+    check each against its plain version; it counts no launch."""
+    got = _k5_got(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
+                  wo_q_t, so_eff, bo, table, num_heads, window)
+    err = k5_shape_error(x.shape[-1], num_heads, window, shift)
+    if err:
+        raise ValueError(err)
+    lib, args = _k5_args(x, got, num_heads, resolution, window, shift, ln_eps,
+                         cs, bufs)
+    with torch.cuda.device(x.device):
+        rc = lib.geovpr_swin_attn_int8_parts(*args, part, part,
+                                             _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(
+            f"swin_attn_int8 kernel launch failed: CUDA error {rc}")
+
+
+def swin_qkv8_reference(xq, wqkv_q_t, sqkv_eff, bqkv_eff):
+    """Plain version of K5's QKV launch: from the LN-quant rows xq (M, C)
+    int8, qk8 (M, 2C) int8 (q | k) and v (M, C) bf16, rounded from the f32
+    dequantised sums as `swin_attn_block_int8_reference` rounds them."""
+    c = xq.shape[-1]
+    f = int_mm(xq, wqkv_q_t.t()).float() * sqkv_eff + bqkv_eff
+    return round_clip_int8(f[:, :2 * c]), f[:, 2 * c:].to(torch.bfloat16)
+
+
+def swin_attention8_reference(qk8, v, table, num_heads: int, resolution: int,
+                              window: int, shift: int, cs):
+    """Plain version of K5's attention launch: ctx8 (M, C) int8 from the
+    raster qk8 (M, 2C) int8 and v (M, C) bf16, in the default mode of
+    `swin_attn_block_int8_reference`."""
+    m, c = v.shape
+    b = m // (resolution * resolution)
+
+    def heads(t):
+        w = to_windows(t.reshape(b, m // b, -1), resolution, window, shift)
+        bw, n, _ = w.shape
+        return w.reshape(bw, n, num_heads, -1).transpose(1, 2)
+
+    si = _exact_bmm(heads(qk8[:, :c]), heads(qk8[:, c:]).transpose(-1, -2))
+    bias2, mask2 = _log2_bias_mask(table, window, resolution, shift, v.device)
+    s = add_bias_mask(si * score_constant(cs), bias2, mask2)
+    p = torch.exp2(torch.clamp(s, max=100.0))
+    ctx = _mm(p.to(torch.bfloat16), heads(v)) / p.sum(-1, keepdim=True)
+    return round_clip_int8(_raster_ctx(ctx, resolution, window, shift)
+                           .reshape(m, c))
 
 
 fused_swin_attn_block_int8.launches = 0

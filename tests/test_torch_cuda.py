@@ -192,12 +192,12 @@ def test_int8_kernels_refuse_what_they_do_not_take(cuda):
             fused_mlp_block_int8(x.float(), **k3)
         with pytest.raises(TypeError):
             fused_mlp_block_int8(x, **{**k3, "w1q_t": k3["w1q_t"].float()})
-        with pytest.raises(ValueError):
-            fused_mlp_block_int8(x[..., ::2].contiguous(), **{
-                **k3, **{k: k3[k][::2].contiguous() for k in (
+        with pytest.raises(ValueError, match="multiples of 16"):
+            fused_mlp_block_int8(x[..., :40].contiguous(), **{
+                **k3, **{k: k3[k][:40].contiguous() for k in (
                     "ln_scale_q", "ln_bias_q", "s2_eff", "b2", "gamma")},
-                "w1q_t": k3["w1q_t"][:, ::2].contiguous(),
-                "w2q_t": k3["w2q_t"][::2].contiguous()})
+                "w1q_t": k3["w1q_t"][:, :40].contiguous(),
+                "w2q_t": k3["w2q_t"][:40].contiguous()})
     gamma = k3["gamma"].clone().requires_grad_(True)
     with pytest.raises(RuntimeError, match="backward"):
         fused_mlp_block_int8(x, **{**k3, "gamma": gamma})
@@ -293,7 +293,13 @@ def test_k6_launches_one_by_one_equal_the_whole(cuda, shape):
     assert torch.equal(bufs[1], out)
 
 
-@pytest.mark.parametrize("shape", _SWIN_SHAPES)
+# K5 also at Swin-B-384 stage 0's geometry (S = 96: the last window row
+# and column wrapped by the shift) and at windows 8 and 16
+_K5_SHAPES = _SWIN_SHAPES + [(2, 128, 4, 96, 12, 6), (2, 64, 2, 16, 8, 4),
+                             (1, 128, 4, 32, 16, 8)]
+
+
+@pytest.mark.parametrize("shape", _K5_SHAPES)
 def test_k5_matches_plain_version(cuda, shape):
     """K2's bound (share of elements off by more than 1e-3 at most 1%, max
     |error| within 1.5 x the largest dequant step + 1e-3 + two bf16
@@ -310,6 +316,172 @@ def test_k5_matches_plain_version(cuda, shape):
     assert fused_swin_attn_block_int8.launches == before + 1
     e = int8_errors(got, want, kw["so_eff"].abs().max().item())
     assert int8_within_bound(e), e
+
+
+def _int8_flips(got, want, share=0.01):
+    """An int8 launch against its plain part: f32 sums ordered otherwise
+    (LayerNorm) or fused multiply-adds move a value across a rounding
+    boundary at most one step, in at most `share` of the elements."""
+    d = (got.int() - want.int()).abs()
+    return d.max().item() <= 1 and (d > 0).float().mean().item() <= share
+
+
+def _bf16_close(got, want):
+    """A bf16 launch against its plain part: within one bf16 spacing (the
+    epilogue's fused multiply-add rounds once where torch rounds twice)."""
+    from chip_smoke import bf16_spacing
+    err = (got.float() - want.float()).abs()
+    return bool((err <= bf16_spacing(want.float()) + 1e-6).all())
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 4, 24, 12, 6),
+                                   (2, 128, 4, 96, 12, 6),
+                                   (1, 1024, 32, 12, 12, 0),
+                                   (2, 64, 2, 16, 8, 4)])
+def test_k5_launches_match_their_plain_parts(cuda, shape):
+    """Each of K5's four launches alone (`k5_launch_part`), fed the plain
+    parts' output of the launch before it, against its plain part
+    (tests/test_torch_int8_hopper.py composes the parts to the whole plain
+    version): LN-quant and the QKV GEMM's int8 columns within one int8 step
+    in at most 1% of the elements, v within one bf16 spacing, the
+    attention's int8 context within one step in at most 1%, the out
+    projection within one bf16 spacing."""
+    from geovpr_torch.ops import swin_block as sb
+    from geovpr_torch.ops.quant import int8_resid_reference, ln_quant_reference
+    x, blk = swin_block_case(shape, cuda, int8=True)
+    kw = k5_kwargs(blk)
+    m, c = x.shape[0] * x.shape[1], x.shape[-1]
+    with torch.inference_mode():
+        qk8, v, ctx8, out = bufs = sb.k5_buffers(x)
+        xq = ln_quant_reference(x, kw["ln_scale_q"], kw["ln_bias_q"], 1e-5)
+        sb.k5_launch_part(0, x, **kw, bufs=bufs)
+        torch.cuda.synchronize()
+        assert _int8_flips(ctx8, xq)
+        ctx8.copy_(xq)
+        sb.k5_launch_part(1, x, **kw, bufs=bufs)
+        torch.cuda.synchronize()
+        qk_p, v_p = sb.swin_qkv8_reference(xq, kw["wqkv_q_t"],
+                                           kw["sqkv_eff"], kw["bqkv_eff"])
+        assert _int8_flips(qk8, qk_p) and _bf16_close(v, v_p)
+        qk8.copy_(qk_p)
+        v.copy_(v_p)
+        sb.k5_launch_part(2, x, **kw, bufs=bufs)
+        torch.cuda.synchronize()
+        ctx_p = sb.swin_attention8_reference(
+            qk_p, v_p, kw["table"], kw["num_heads"], kw["resolution"],
+            kw["window"], kw["shift"], kw["cs"])
+        assert _int8_flips(ctx8, ctx_p)
+        assert ctx_p.abs().max() > 16
+        ctx8.copy_(ctx_p)
+        sb.k5_launch_part(3, x, **kw, bufs=bufs)
+        torch.cuda.synchronize()
+        want = int8_resid_reference(ctx_p, kw["wo_q_t"], kw["so_eff"],
+                                    kw["bo"], x.reshape(m, c))
+        assert _bf16_close(out.reshape(m, c), want)
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 4, 24, 12, 6),
+                                   (2, 128, 4, 96, 12, 6)])
+def test_k5_launches_one_by_one_equal_the_whole(cuda, shape):
+    """K5's four launches run alone (`k5_launch_part`, which chip_smoke.py
+    times) leave one whole call's output, bit for bit, and count no
+    launch; both shapes have shifted windows that wrap at S - shift."""
+    from geovpr_torch.ops import swin_block as sb
+    x, blk = swin_block_case(shape, cuda, int8=True)
+    kw = k5_kwargs(blk)
+    with torch.inference_mode():
+        out = sb.fused_swin_attn_block_int8(x, **kw)
+        bufs = sb.k5_buffers(x)
+        before = sb.fused_swin_attn_block_int8.launches
+        for part in range(len(sb.K5_PARTS)):
+            sb.k5_launch_part(part, x, **kw, bufs=bufs)
+        torch.cuda.synchronize()
+    assert sb.fused_swin_attn_block_int8.launches == before
+    assert torch.equal(bufs[3], out)
+
+
+# K3 at the Swin-B-384 stage widths (rows of a small batch, D = C, hidden
+# 4C) and at D = 96, hidden 384 (Swin-T's width)
+_K3_SWIN_SHAPES = [(2, 128, 4, 24, 12, 6), (1, 256, 8, 24, 12, 0),
+                   (2, 512, 16, 24, 12, 6), (1, 1024, 32, 12, 12, 0)]
+
+
+@pytest.mark.parametrize("shape", _K3_SWIN_SHAPES)
+def test_k3_matches_plain_version_at_swin_widths(cuda, shape):
+    from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
+                                           mlp_block_int8_reference)
+    x, blk = swin_block_case(shape, cuda, int8=True)
+    k3 = blk._folded_args(blk._k3)
+    with torch.inference_mode():
+        before = fused_mlp_block_int8.launches
+        got = fused_mlp_block_int8(x, **k3, ln_eps=1e-5)
+        torch.cuda.synchronize()
+        want = mlp_block_int8_reference(x, **k3, ln_eps=1e-5)
+    assert fused_mlp_block_int8.launches == before + 1
+    e = int8_errors(got, want, (k3["s2_eff"] * k3["gamma"]).abs().max()
+                    .item())
+    assert int8_within_bound(e), e
+
+
+def test_k3_matches_plain_version_at_d96(cuda):
+    x, _, k3 = int8_block_case(2, 33, 96, 1, cuda)
+    with torch.inference_mode():
+        got = fused_mlp_block_int8(x, **k3)
+        torch.cuda.synchronize()
+        want = mlp_block_int8_reference(x, **k3)
+    e = int8_errors(got, want, (k3["s2_eff"] * k3["gamma"]).abs().max()
+                    .item())
+    assert int8_within_bound(e), e
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("shape", [(2, 257, 768, 12), (2, 300, 1024, 16)])
+def test_k3_launches_match_their_plain_parts(cuda, shape, residual):
+    """Each of K3's three launches alone (`k3_launch_part`), fed the plain
+    parts' output of the launch before it, against its plain part:
+    LN-quant and fc1's int8 hidden within one int8 step in at most 1% of
+    the elements, fc2 within one bf16 spacing."""
+    from geovpr_torch.ops import mlp_int8 as mi
+    from geovpr_torch.ops.quant import int8_resid_reference, ln_quant_reference
+    b, n, d, h = shape
+    x, _, k3 = int8_block_case(b, n, d, h, cuda)
+    res = torch.randn_like(x) if residual else None
+    with torch.inference_mode():
+        xq, hid, out = bufs = mi.k3_buffers(x, k3["w1q_t"].shape[0])
+        xq_p = ln_quant_reference(x, k3["ln_scale_q"], k3["ln_bias_q"], 1e-6)
+        mi.k3_launch_part(0, x, **k3, residual=res, bufs=bufs)
+        torch.cuda.synchronize()
+        assert _int8_flips(xq, xq_p)
+        xq.copy_(xq_p)
+        mi.k3_launch_part(1, x, **k3, residual=res, bufs=bufs)
+        torch.cuda.synchronize()
+        hid_p = mi.mlp_fc1_int8_reference(xq_p, k3["w1q_t"], k3["s1_eff"],
+                                          k3["b1"], k3["inv_a_mid"])
+        assert _int8_flips(hid, hid_p)
+        assert hid_p.abs().max() > 16
+        hid.copy_(hid_p)
+        mi.k3_launch_part(2, x, **k3, residual=res, bufs=bufs)
+        torch.cuda.synchronize()
+        want = int8_resid_reference(hid_p, k3["w2q_t"], k3["s2_eff"],
+                                    k3["b2"], (x if res is None else res)
+                                    .reshape(-1, d), gamma=k3["gamma"])
+        assert _bf16_close(out.reshape(-1, d), want)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_k3_launches_one_by_one_equal_the_whole(cuda, residual):
+    from geovpr_torch.ops import mlp_int8 as mi
+    x, _, k3 = int8_block_case(2, 257, 768, 12, cuda)
+    res = torch.randn_like(x) if residual else None
+    with torch.inference_mode():
+        out = mi.fused_mlp_block_int8(x, **k3, residual=res)
+        bufs = mi.k3_buffers(x, k3["w1q_t"].shape[0])
+        before = mi.fused_mlp_block_int8.launches
+        for part in range(len(mi.K3_PARTS)):
+            mi.k3_launch_part(part, x, **k3, residual=res, bufs=bufs)
+        torch.cuda.synchronize()
+    assert mi.fused_mlp_block_int8.launches == before
+    assert torch.equal(bufs[2], out)
 
 
 @pytest.mark.parametrize("shape", [(2, 128, 24), (3, 64, 10), (1, 512, 24),
@@ -364,6 +536,14 @@ def test_swin_kernels_refuse_what_they_do_not_take(cuda):
         fused_swin_attn_block_int8(x, **{**kw, "cs": None})
     with torch.inference_mode(), pytest.raises(NotImplementedError):
         fused_swin_attn_block_int8(x, **kw, cpv=1.0)
+    with torch.inference_mode(), pytest.raises(ValueError, match="shift"):
+        fused_swin_attn_block_int8(x, **{**kw, "shift": 1})
+    with torch.inference_mode(), pytest.raises(ValueError, match="aligned"):
+        fused_swin_attn_block_int8(xm.bfloat16(), **kw)
+    x, blk = swin_block_case((1, 96, 3, 8, 4, 2), cuda, int8=True)
+    with torch.inference_mode(), pytest.raises(ValueError,
+                                               match="multiple of 64"):
+        fused_swin_attn_block_int8(x, **k5_kwargs(blk))
 
 
 @pytest.mark.parametrize("int8", [False, True])
