@@ -7,11 +7,14 @@ Each checkout runs in a process of its own (its `geovpr_torch` and its
 `chip_smoke.py` first on the path, this file's `run`), builds its own
 kernels, and saves the outputs of the kernels it runs here on inputs its
 chip_smoke.py draws from seed 0: K1 (bf16 serving) and K8a (K1's
-launches, keeping qkv and ctx) at 64x257x768x12 and 2x1370x768x12, K2 and
-K3 (the w8a8 ViT attention and MLP half-blocks) at 64x257x768x12, K3 also
-at Swin-B-384's stage 0 and 3 widths (B=16), K4 (the bf16 Swin half-block)
-at stage 0 (B=16), K6 at C = 128, K9a (the Swin training forward, its y,
-qkv, ctx and p) at stage 0 (B=16) and K7 at Swin-T-224's stage 0. The
+launches, keeping qkv and ctx) at 64x257x768x12 and 2x1370x768x12, K3 (the
+w8a8 MLP half-block) at 64x257x768x12 and at Swin-B-384's stage 0 and 3
+widths (B=16), K4 and K5 (the bf16 and w8a8 Swin half-blocks) at stage 0
+(B=16), K6 at C = 128, K9a (the Swin training forward, its y, qkv, ctx and
+p), K9b (the core backward) and K9c (the whole backward) at stage 0
+(B=16), K8b and K8c (the ViT half-block's backward) at 16x257x768x12, and
+K7 at Swin-T-224's stage 0. K2 is not among them: its attention sums in
+another order than the first port's. The
 inputs are saved beside the outputs and compared too, so a change in how
 they are drawn shows as such. It prints one line per tensor and exits
 non-zero if any differs. Needs one CUDA card.
@@ -31,6 +34,7 @@ K1_SHAPES = ((64, 257, 768, 12), (2, 1370, 768, 12))
 SWIN_SHAPES = ((16, 128, 4, 96, 12, 6), (16, 1024, 32, 12, 12, 0))
 K7_SHAPE = (1024, 3, 49, 64)
 K9_SHAPE = (16, 128, 4, 96, 12, 6)
+K8_SHAPE = (16, 257, 768, 12)
 
 
 def run(out_path: str) -> None:
@@ -40,6 +44,9 @@ def run(out_path: str) -> None:
     from geovpr_torch.ops.mlp_int8 import fused_mlp_block_int8
     from geovpr_torch.ops.patch_merge import fused_patch_merge
     from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
+                                             fused_swin_attn_block_int8,
+                                             fused_swin_attn_bwd_all,
+                                             fused_swin_attn_bwd_core,
                                              fused_swin_attn_train_fwd)
     from geovpr_torch.ops.window_attention import window_attention_kernel
 
@@ -60,11 +67,9 @@ def run(out_path: str) -> None:
             res.update({f"K8a.{tag}.out": out, f"K8a.{tag}.qkv": qkv,
                         f"K8a.{tag}.ctx": ctx})
         b, n, d, h = K1_SHAPES[0]
-        x, k2, k3 = cs.int8_block_case(b, n, d, h, dev)
-        res["input.K2.x"] = x
-        res["input.K2.wqkv_q_t"] = k2["wqkv_q_t"]
+        x, _, k3 = cs.int8_block_case(b, n, d, h, dev)
+        res["input.K3.x"] = x
         res["input.K3.w1q_t"] = k3["w1q_t"]
-        res["K2.out"] = mh.fused_mhsa_block_int8(x, **k2, num_heads=h)
         res["K3.out"] = fused_mlp_block_int8(x, **k3)
         for shape in SWIN_SHAPES:
             tag = "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape)
@@ -76,15 +81,33 @@ def run(out_path: str) -> None:
         x, blk = cs.swin_block_case(SWIN_SHAPES[0], dev, x_scale=1e-2)
         res["input.K4.x"] = x
         res["K4.out"] = fused_swin_attn_block(*cs.k4_args(x, blk))
+        x, blk = cs.swin_block_case(SWIN_SHAPES[0], dev, int8=True)
+        res["input.K5.x"] = x
+        res["K5.out"] = fused_swin_attn_block_int8(x, **cs.k5_kwargs(blk))
         m = cs.merge_case((16, 128, 96), dev)
         res["input.K6.x"] = m[0]
         res["K6.out"] = fused_patch_merge(*m)
-        a, _, geom = cs.k9_case(K9_SHAPE, dev)
+        a, g, geom = cs.k9_case(K9_SHAPE, dev)
         res["input.K9a.x"] = a["x"]
         outs = fused_swin_attn_train_fwd(
             *(a[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "bqkv",
                              "wo", "bo", "table")), *geom.values(), 1e-5)
         res.update({f"K9a.{i}": o for i, o in enumerate(outs)})
+        dqkv, dbias = fused_swin_attn_bwd_core(outs[1], outs[3], g,
+                                               *geom.values())
+        res.update({"K9b.dqkv": dqkv, "K9b.dbias": dbias})
+        outs = fused_swin_attn_bwd_all(
+            *(a[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "wo")),
+            outs[1], outs[2], outs[3], g, *geom.values(), 1e-5)
+        res.update({f"K9c.{k}": o for k, o in zip(cs.K8_OUTS[:7] + (
+            "dbias",), outs)})
+        a, g = cs.k8_case(K8_SHAPE, dev)
+        res["input.K8.x"] = a["x"]
+        _, qkv, ctx = mh.fused_mhsa_train_fwd(*cs._k8_fwd_args(a, K8_SHAPE[3]))
+        res["K8b.dqkv"] = mh.fused_mhsa_bwd_core(qkv, g, K8_SHAPE[3])
+        outs = mh.fused_mhsa_bwd_all(*cs._k8_bwd_args(a, (None, qkv, ctx), g,
+                                                      K8_SHAPE[3]))
+        res.update({f"K8c.{k}": o for k, o in zip(cs.K8_OUTS, outs)})
         q, k, v, bias, mask = cs.k7_case(K7_SHAPE, dev)
         res["input.K7.q"] = q
         res["K7.out"] = window_attention_kernel(q, k, v, bias, mask)

@@ -3,8 +3,9 @@
     python3 chip_faults.py
 
 For each planted fault it copies `geovpr_torch/` into a temporary
-directory, breaks one line of a kernel source there (K2 without its key
-mask; K3 with b2 dropped from its fc2 epilogue; the int8 TMA + wgmma GEMM
+directory, breaks one line of a kernel source there (K2's attention
+without its key mask, or skipping the last key tile, which at N = 257
+holds one key; K3 with b2 dropped from its fc2 epilogue; the int8 TMA + wgmma GEMM
 of K3 and K5 never multiplying the last k tile of a tile, caught through
 K3, whose fc2 has the hidden width as K; K4's window attention without
 the shift mask, without the relative-position bias, or loading the wrapped
@@ -15,7 +16,9 @@ pad keys past N, or without the shift mask; K6's merge-LN pass with x10
 and x01 swapped in the concat order, or reading x01 from the token below
 instead of the token to the right;
 K9a without the shift mask; K9b without the sum of dp * p in the softmax
-backward; K9c with dbias taken from one CTA's partial sum only; K8a
+backward; K9c with dbias taken from one CTA's partial sum only, its
+weight-gradient GEMM dropping the last chunk of rows, or da reading Wo
+with the wrong major-ness (g Wo for g Wo^T); K8a
 (K1's attention) without the mask of the keys past N; K1's TMA + wgmma
 GEMM (so K8a's) never multiplying the last k tile of a tile; K8b without
 the sum of dp * p; K8c with dWqkv taken from one CTA's partial sum only),
@@ -54,9 +57,12 @@ _K8 = "cs.k8_kernels_vs_plain(dev, shapes=((16, 257, 768, 12),))"
 # name -> (source file, [(original text, faulty text)], check to run)
 FAULTS = {
     "K2 key mask removed": ("mhsa_int8.cu", [
-        ("const float p0 = key < N ?", "const float p0 = true ?"),
-        ("const float p1 = key + 1 < N ?", "const float p1 = true ?")],
+        ("p[j][e] = key < N", "p[j][e] = true")],
         _INT8.format(shape=(2, 1370, 768, 12))),
+    "K2 attention skips the one-key tail tile": ("mhsa_int8.cu", [
+        ("const int tiles = (N + A8_KEYS - 1) / A8_KEYS;",
+         "const int tiles = N / A8_KEYS;")],
+        _INT8.format(shape=(64, 257, 768, 12))),
     "K3 b2 dropped": ("hopper_gemm_s8.cuh", [
         ("float v0 = (float)a0 * sc.x + bb.x;",
          "float v0 = (float)a0 * sc.x;"),
@@ -116,6 +122,18 @@ FAULTS = {
     "K9c dbias from one CTA's partial": ("swin_train.cu", [
         ("reduce(st, part, G, (size_t)H * TR_N * TR_N, dbias)",
          "reduce(st, part, 1, (size_t)H * TR_N * TR_N, dbias)")],
+        _K9.format(shape=_STAGE0)),
+    "K9c weight-gradient GEMM drops its last chunk of rows": (
+        "hopper_gemm.cuh", [
+            ("const int items = tiles * ((K + kchunk - 1) / kchunk);",
+             "const int items = tiles * max(1, (K - 1) / kchunk);")],
+        _K9.format(shape=_STAGE0)),
+    "K9c da reads Wo with the wrong major-ness": ("swin_train.cu", [
+        ("launch_gemm<HG_EPI_NONE, true>(ta, static_cast<const bf16*>(wo),",
+         "launch_gemm<HG_EPI_NONE, false>(ta, static_cast<const bf16*>(wo),"),
+        ("(e = allow_gemm_smem<HG_EPI_NONE, true>()) != cudaSuccess ||",
+         "(e = allow_gemm_smem<HG_EPI_NONE, true>()) != cudaSuccess ||\n"
+         "      (e = allow_gemm_smem<HG_EPI_NONE, false>()) != cudaSuccess ||")],
         _K9.format(shape=_STAGE0)),
     "K8a key mask past N dropped": ("mhsa.cu", [
         ("s[e] = key < N ? s[e] * scale : -INFINITY;",

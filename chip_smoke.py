@@ -45,11 +45,15 @@ for the ViT attention half-block of DINOv2; K8a launches K1's kernels and
 keeps the qkv and ctx they write). K1's four launches (LayerNorm, the TMA
 + wgmma QKV GEMM, the attention, the out projection) are also timed one
 by one, each beside its own bound, at K1's and K8a's shapes, and so are
-K4's four (LayerNorm, the same GEMMs, the TMA-fed window attention) and
-K5's four (LN-quant, the TMA + wgmma int8 GEMMs, the int8-score window
-attention) at the four Swin-B-384 stages, K3's three (LN-quant, fc1, fc2)
-at those stages' widths and at 64x257x768, and K6's two (the merge-LN
-pass, the GEMM) at its three boundaries. For each path it
+K2's four (LN-quant, the TMA + wgmma int8 GEMMs, the int8-score
+attention) at 64x257x768, K4's four (LayerNorm, the same GEMMs, the
+TMA-fed window attention) and K5's four (LN-quant, the int8 GEMMs, the
+int8-score window attention) at the four Swin-B-384 stages, K3's three
+(LN-quant, fc1, fc2) at those stages' widths and at 64x257x768, K6's two
+(the merge-LN pass, the GEMM) at its three boundaries, and K9c's nine
+(its four TMA + wgmma products, the column sums, the core, the LN
+recompute and VJP) at the three Swin-B-384 training stages that take it;
+K9a and K9c are also timed whole at those stages. For each path it
 compares the kernel path with the plain path for the whole model, counts
 the kernels' launches, times the path and the kernels (beside their plain
 versions, one library yardstick each and their bounds), and profiles one
@@ -493,6 +497,28 @@ def k1_part_bounds(part: str, b, n, d, h, gamma=True) -> dict:
         2 if gamma else 1) * d * 4)
 
 
+def k2_part_bounds(part: str, b, n, d, h) -> dict:
+    """The least time of one of K2's four launches at (B, N, D, H), M = B
+    N rows: bytes (each input read once, each output written once) over
+    3.35 TB/s against operations at their peak (the int8 products at
+    1,979 TOP/s, P V at the bf16 989 TFLOP/s)."""
+    m = b * n
+    if part == "ln_quant":
+        return ln_quant_bound(m, d)
+    if part == "qkv_gemm":       # xq, Wqkv, sqkv, bqkv -> qk8, v
+        return part_bound(2 * m * d * 3 * d, PEAK_INT8, m * d + 3 * d * d
+                          + 6 * d * 4 + m * 2 * d + m * d * 2)
+    if part == "attention":      # qk8, v -> ctx8
+        # q k^T in int8 and P V in bf16: the pair's rate is their mix
+        att = 2 * b * h * n * n * (d // h)
+        ops_t = att / PEAK_INT8 + att / PEAK_BF16
+        return part_bound(2 * att, 2 * att / ops_t,
+                          m * 2 * d + m * d * 2 + m * d)
+    # ctx8, Wo, so, bo, gamma, x -> out
+    return part_bound(2 * m * d * d, PEAK_INT8, m * d + d * d + 3 * d * 4
+                      + 2 * m * d * 2)
+
+
 def k4_part_bounds(part: str, shape) -> dict:
     """K1's formulas for one of K4's four launches at (B, C, H, S, w,
     shift): the B S^2 / w^2 windows of N = w^2 tokens in place of K1's
@@ -620,6 +646,22 @@ def k1_part_times(x, args: dict, h: int, card: str, name: str) -> dict:
             lambda part: k1_part_bounds(part, b, n, d, h))
 
 
+def k2_part_times(x, k2: dict, h: int, card: str) -> dict:
+    """K2's four launches (LN-quant, QKV GEMM, int8-score attention, out
+    projection) timed one by one on x and the half-block's folded
+    arguments `k2` by `parts_split`, beside `k2_part_bounds`; the launches
+    are not counted (`k2_launch_part`)."""
+    from geovpr_torch.ops import mhsa as mh
+
+    b, n, d = x.shape
+    with torch.inference_mode():
+        bufs = mh.k2_buffers(x)
+        return parts_split(
+            card, "K2", f"B{b}_N{n}_D{d}_H{h}", mh.K2_PARTS,
+            lambda i: mh.k2_launch_part(i, x, **k2, num_heads=h, bufs=bufs),
+            lambda part: k2_part_bounds(part, b, n, d, h))
+
+
 def library_k2(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
                wo_q_t, so_eff, bo, gamma, cs, num_heads):
     """K2's yardstick: F.layer_norm -> quantize -> torch._int_mm (qkv) ->
@@ -696,6 +738,7 @@ def kernel_times(device, card: str) -> dict:
             phase("kernel_time", card=repr(card), name=name,
                   shape="B{}_N{}_D{}_H{}".format(*MAIN_SHAPE), **out[name])
     out["K1"]["parts"] = k1_part_times(x1, {**vecs, **mats}, h, card, "K1")
+    out["K2"]["parts"] = k2_part_times(x, k2, h, card)
     out["K3"]["parts"] = k3_part_times(x, k3, card, 1e-6)
     return out
 
@@ -1670,8 +1713,10 @@ def k9_bounds(kind: str, shape) -> dict:
                 ops_bound_ms=ops_t * 1e3, bytes_bound_ms=bytes_t * 1e3)
 
 
-def k9_kernel_times(device, card: str, shape=K9_MAIN) -> dict:
-    """K9a, K9b and K9c at Swin-B-384 stage 0 (B=16), each in turns with
+def k9_kernel_times(device, card: str, shape=K9_MAIN,
+                    names=("K9a", "K9b", "K9c")) -> dict:
+    """K9a, K9b and K9c (those of `names`) at one Swin-B-384 stage (B=16;
+    stage 0 by default), each in turns with
     its plain version and its library yardstick (`library_k4`'s forward for
     K9a and its whole backward for K9c, each with K4's residual add, one
     elementwise pass; for K9b the backward of F.scaled_dot_product_attention
@@ -1718,7 +1763,8 @@ def k9_kernel_times(device, card: str, shape=K9_MAIN) -> dict:
                 "plain": lambda: sb._train_plain_bwd(*ba, split=False),
                 "library": lambda: torch.autograd.grad(
                     y_lib, leaves, g, retain_graph=True)}}
-    for name, fns in cases.items():
+    for name in names:
+        fns = cases[name]
         with torch.no_grad() if name == "K9a" else torch.enable_grad():
             t = interleaved_ms(fns, iters=5)
         out[name] = dict(ms=t["kernel"][0], plain_ms=t["plain"][0],
@@ -1728,6 +1774,79 @@ def k9_kernel_times(device, card: str, shape=K9_MAIN) -> dict:
         phase("kernel_time", card=repr(card), name=name,
               shape="B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape),
               **out[name])
+    return out
+
+
+def k9c_part_bounds(part: str, shape) -> dict:
+    """The least time of one of K9c's launches (with the reduce of its
+    partial sums) at (B, C, H, S, w, shift), M = B S^2 rows: its inputs
+    read once and its outputs written once (bf16 streams, f32 vectors and
+    weight gradients) over 3.35 TB/s, against its products at the bf16
+    peak or its f32 operations (column sums, the LayerNorm recompute and
+    VJP) at 67 TFLOP/s."""
+    b, c, h, res, win, _ = shape
+    m, n = b * res * res, win * win
+    bw = m // n
+    if part == "da":             # g, Wo -> da
+        return part_bound(2 * m * c * c, PEAK_BF16,
+                          2 * m * c * 2 + c * c * 2)
+    if part == "dwo":            # ctx, g -> dWo (f32)
+        return part_bound(2 * m * c * c, PEAK_BF16,
+                          2 * m * c * 2 + c * c * 4)
+    if part == "dbo":            # g -> dbo
+        return part_bound(m * c, PEAK_F32, m * c * 2 + c * 4)
+    if part == "core":           # qkv, p, da -> dqkv, dbias
+        att = 2 * bw * h * n * n * (c // h)
+        return part_bound(4 * att, PEAK_BF16, (3 * m * c + m * c
+                                               + 3 * m * c) * 2
+                          + bw * h * n * n * 2 + h * n * n * 4)
+    if part == "ln_rows":        # x, ln_scale, ln_bias -> h, stats
+        return part_bound(8 * m * c, PEAK_F32,
+                          2 * m * c * 2 + 2 * c * 4 + m * 8)
+    if part == "dwqkv":          # h, dqkv -> dWqkv (f32)
+        return part_bound(6 * m * c * c, PEAK_BF16,
+                          4 * m * c * 2 + 3 * c * c * 4)
+    if part == "dbqkv":          # dqkv -> dbqkv
+        return part_bound(3 * m * c, PEAK_F32, 3 * m * c * 2 + 3 * c * 4)
+    if part == "dh":             # dqkv, Wqkv -> dh
+        return part_bound(6 * m * c * c, PEAK_BF16,
+                          4 * m * c * 2 + 3 * c * c * 2)
+    # x, dh, stats, ln_scale -> dx, dls, dlb
+    return part_bound(10 * m * c, PEAK_F32,
+                      3 * m * c * 2 + m * 8 + 3 * c * 4)
+
+
+def k9c_part_times(device, card: str, shapes=K9_SHAPES[:3]) -> dict:
+    """K9c's launches (`K9C_PARTS`, each with the reduce of its partial
+    sums) timed one by one in CUDA graphs by `parts_split`, beside
+    `k9c_part_bounds`, at the Swin-B-384 stages that take K9c (B=16), and
+    the whole K9c called from Python (CUDA events,
+    `[kernel_time] name=K9c.call`). The launches are not counted
+    (`k9c_launch_part`)."""
+    from geovpr_torch.ops import swin_block as sb
+
+    out = {}
+    for shape in shapes:
+        tag = "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape)
+        a, g, geom = k9_case(shape, device)
+        geo = tuple(geom.values())
+        with torch.no_grad():
+            _, qkv, ctx, p = sb.fused_swin_attn_train_fwd(
+                a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["bqkv"],
+                a["wo"], a["bo"], a["table"], *geo, 1e-5)
+            ba = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["wo"],
+                  qkv, ctx, p, g, *geo, 1e-5)
+            call = cuda_ms(lambda: sb.fused_swin_attn_bwd_all(*ba), iters=5)
+            phase("kernel_time", card=repr(card), name="K9c.call", shape=tag,
+                  ms=call, timed="cuda_events", **k9_bounds("K9c", shape))
+            bufs = sb.k9c_buffers(a["x"], geo[0], geo[1], geo[2])
+            out[shape] = parts_split(
+                card, "K9c", tag, sb.K9C_PARTS,
+                lambda i: sb.k9c_launch_part(i, *ba, bufs=bufs),
+                lambda part: k9c_part_bounds(part, shape))
+            out[shape]["call_ms"] = call
+        del a, g, qkv, ctx, p, ba, bufs
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2358,6 +2477,10 @@ def main() -> int:
     k9_errs = k9_kernels_vs_plain(device)
     train_launches = train_path(device, card)
     k9t = k9_kernel_times(device, card)
+    for shape in K9_SHAPES[1:]:
+        k9_kernel_times(device, card, shape,
+                        ("K9a",) if shape[1] > 512 else ("K9a", "K9c"))
+    k9c_part_times(device, card)
 
     k8_errs = k8_kernels_vs_plain(device)
     dino_launches = dinov2_train_path(device, card)

@@ -1,31 +1,81 @@
-"""K3 and K5 times and the w8a8 models' img/s of several checkouts, in
-turns, on one CUDA card.
+"""K2 and K9c times, the w8a8 models' img/s and the Swin training step's
+device time of several checkouts, in turns, on one CUDA card.
 
     python3 chip_versus.py CHECKOUT [CHECKOUT ...]
 
 Each argument (`.` for this checkout, or an unpacked `git archive` of an
 earlier commit in a gitignored directory) runs in a process of its own,
 with its own `geovpr_torch` and `chip_smoke.py` first on the path, builds
-its own kernels and prints `[versus]` lines: the CUDA-event ms of K3 at
-DINOv2-B/14's 64x257x768 (hidden 3,072) and at the widths of the four
-Swin-B-384 stages at B=64 (rows B S^2, D = C, hidden 4C), of K5 at the
-four stages, and the ms per B=64 batch and img/s of the w8a8 DINOv2-B/14
+its own kernels and prints `[versus]` lines: the CUDA-event ms of K2 at
+DINOv2-B/14's 64x257x768x12 and of K9c at the three Swin-B-384 stages
+that take it (B=16), the ms per B=64 batch and img/s of the w8a8 DINOv2-B/14
 + SALAD descriptors (224 px) and the w8a8 Swin-B-384 geopose model (384
-px), each calibrated on its first batch. Inputs and weights are
-chip_smoke.py's, from seed 0. Name the checkouts in turns (`OLD . . OLD`)
-to compare two on one card. Needs one CUDA card.
+px), each calibrated on its first batch, and one Swin-B-384 training step
+(preset swin_b384_gemini2, B=16): host ms per step over 5 synchronised
+steps, and the device-busy ms of one step under torch.profiler. Inputs and
+weights are chip_smoke.py's, from seed 0. Name the checkouts in turns
+(`OLD . . OLD`) to compare two on one card. Needs one CUDA card.
 """
 
 from __future__ import annotations
 
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
 
 REPO = Path(__file__).resolve().parent
 ITERS = 10
+
+
+def _train_step_times(cs, dev, line) -> None:
+    """One Swin-B-384 training step on a fixed batch of 16 synthetic
+    images (dropout and DropPath off): host ms over 5 synchronised steps,
+    then the device-busy ms of one step under torch.profiler."""
+    import dataclasses
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from geovpr_torch.cli.presets import build_preset, objective_for
+    from geovpr_torch.models.regression import RegressionModel
+    from geovpr_torch.objectives.scaler import fit_scaler
+    from geovpr_torch.train.state import create_train_state
+    from geovpr_torch.train.steps import make_train_step
+
+    cfg = build_preset(cs.TRAIN_PRESET)
+    size = cfg.data.image_size
+    src = cs.synthetic_val(cs.TRAIN_BATCH, size,
+                           np.random.default_rng(cs.SEED + 7))
+    model = RegressionModel(dataclasses.replace(cfg.model, image_size=size),
+                            dtype=torch.bfloat16, train=True).to(dev)
+    st = create_train_state(model, cfg.optim, seed=cs.SEED,
+                            scaler=fit_scaler(src.targets),
+                            out_dim=cfg.model.out_dim)
+    cs._drop_rates(model, 0.0)
+    step = make_train_step(objective_for(cfg))
+    batch = {"image": torch.from_numpy(src.images).to(dev),
+             "target": torch.from_numpy(src.targets).to(dev),
+             "mask": torch.ones(cs.TRAIN_BATCH, dtype=torch.bool,
+                                device=dev)}
+    for _ in range(2):
+        step(st, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(st, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(st, batch)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / 1e3
+    line("swin_b384_train_step", f"B{cs.TRAIN_BATCH}", ms,
+         device_busy_ms=busy if busy else "not measured")
 
 
 def run(label: str) -> None:
@@ -36,9 +86,9 @@ def run(label: str) -> None:
     from geovpr_torch.cli.retrieve import build_model
     from geovpr_torch.data.transforms import normalize
     from geovpr_torch.models.quantize import quantize_for_serving
+    from geovpr_torch.ops import swin_block as sb
     from geovpr_torch.ops._build import load_library
-    from geovpr_torch.ops.mlp_int8 import fused_mlp_block_int8
-    from geovpr_torch.ops.swin_block import fused_swin_attn_block_int8
+    from geovpr_torch.ops.mhsa import fused_mhsa_block_int8
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -52,20 +102,25 @@ def run(label: str) -> None:
 
     with torch.inference_mode():
         b, n, d, h = cs.MAIN_SHAPE
-        x, _, k3 = cs.int8_block_case(b, n, d, h, dev)
-        line("K3", f"B{b}_N{n}_D{d}",
-             cs.cuda_ms(lambda: fused_mlp_block_int8(x, **k3), ITERS))
-        for shape in cs.SWIN_ATTN_SHAPES:
-            tag = "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape)
-            x, blk = cs.swin_block_case(shape, dev, int8=True)
-            kw = cs.k5_kwargs(blk)
-            k3 = blk._folded_args(blk._k3)
-            line("K5", tag, cs.cuda_ms(
-                lambda: fused_swin_attn_block_int8(x, **kw), ITERS))
-            line("K3", tag, cs.cuda_ms(
-                lambda: fused_mlp_block_int8(x, **k3, ln_eps=1e-5), ITERS))
-            del x, blk, kw, k3
+        x, k2, _ = cs.int8_block_case(b, n, d, h, dev)
+        line("K2", f"B{b}_N{n}_D{d}_H{h}", cs.cuda_ms(
+            lambda: fused_mhsa_block_int8(x, **k2, num_heads=h), ITERS))
+        del x, k2
+    with torch.no_grad():
+        for shape in cs.K9_SHAPES[:3]:
+            a, g, geom = cs.k9_case(shape, dev)
+            geo = tuple(geom.values())
+            _, qkv, ctx, p = sb.fused_swin_attn_train_fwd(
+                a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["bqkv"],
+                a["wo"], a["bo"], a["table"], *geo, 1e-5)
+            ba = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["wo"],
+                  qkv, ctx, p, g, *geo, 1e-5)
+            line("K9c", "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape),
+                 cs.cuda_ms(lambda: sb.fused_swin_attn_bwd_all(*ba), ITERS))
+            del a, g, qkv, ctx, p, ba
+        torch.cuda.empty_cache()
 
+    with torch.inference_mode():
         gallery = cs.synthetic_gallery(cs.BATCH, cs.IMAGE_SIZE,
                                        np.random.default_rng(cs.SEED))
         images = normalize(torch.from_numpy(gallery.images).to(dev))
@@ -85,6 +140,9 @@ def run(label: str) -> None:
         ms = cs.cuda_ms(lambda: model(images), ITERS)
         line("swin_b384_int8", f"B{cs.SWIN_BATCH}", ms,
              img_per_s=cs.SWIN_BATCH * 1e3 / ms)
+        del model, images
+    torch.cuda.empty_cache()
+    _train_step_times(cs, dev, line)
 
 
 def _child(checkout: Path, label: str) -> None:

@@ -1,23 +1,18 @@
 // The bf16 block GEMM with a LayerNorm prologue of K9a's forward
-// (swin_train.cu, EPI_QKV_TRAIN), and the warp helpers and WMMA set-up
-// that vit_attn.cuh (K8b/K8c) and train_gemm.cuh (K9c/K8c) include it
-// for, for Hopper (sm_90a). K1 and K4 run the TMA + wgmma GEMM of
-// hopper_gemm.cuh instead, so EPI_QKV, EPI_PROJ and the plain-A form
-// below have no caller left; K9a's EPI_QKV_TRAIN is the one in use:
+// (swin_train.cu), and the warp helpers and WMMA set-up that vit_attn.cuh
+// (K8b/K8c) and train_gemm.cuh (K9a's out projection, K8c) include it for,
+// for Hopper (sm_90a):
 //
-//   out(M, Nc) = epilogue(A(M, K) @ W(K, Nc))
+//   qkv(M, Nc) = LN(x)(M, K) @ W(K, Nc) + bias, and q_s = that * qscale on
+//   the first qcols columns
 //
-// A is x, LayerNorm-ed on load (f32 two-pass statistics, rounded to bf16
-// in shared memory), or a plain bf16 operand; W is row-major bf16. A
-// 64-row block of A is held whole (K + 8 columns) in shared memory and
-// multiplied against 32-row slabs of W with WMMA 16x16x16 bf16 tiles and
-// f32 accumulators, 8 warps as 2 x 4 warp tiles of 32 x 32.
-// Epilogues, in f32, rounded to bf16 at the store:
-//   EPI_QKV:  acc + bias, times qscale on the first qcols columns;
-//   EPI_PROJ: (acc + bias) * gamma (when given) + resid;
-//   EPI_QKV_TRAIN: acc + bias to `out` unscaled on every column, and
-//             (acc + bias) * qscale on the first qcols columns to `out2`
-//             ((M, qcols), K9a's scaled-q copy), both rounded once from f32.
+// x is LayerNorm-ed on load (f32 two-pass statistics, rounded to bf16 in
+// shared memory); W is row-major bf16. A 64-row block of x is held whole
+// (K + 8 columns) in shared memory and multiplied against 32-row slabs of
+// W with WMMA 16x16x16 bf16 tiles and f32 accumulators, 8 warps as 2 x 4
+// warp tiles of 32 x 32. The epilogue writes acc + bias to `out` unscaled
+// on every column, and (acc + bias) * qscale on the first qcols columns
+// to `out2` ((M, qcols), K9a's scaled-q copy), both rounded once from f32.
 
 #pragma once
 
@@ -41,8 +36,6 @@ constexpr int A_PAD = 8;           // bf16 elements of row padding in smem
 constexpr int B_LD = GEMM_BN + 8;
 constexpr int C_LD = GEMM_BN + 4;
 
-enum { EPI_QKV = 0, EPI_PROJ = 1, EPI_QKV_TRAIN = 2 };
-
 __host__ __device__ inline size_t gemm_smem_bytes(int K) {
   return (size_t)GEMM_BM * (K + A_PAD) * sizeof(bf16) +
          (size_t)GEMM_BK * B_LD * sizeof(bf16) +
@@ -55,18 +48,16 @@ __device__ inline float warp_sum(float v) {
   return v;
 }
 
-// out(M, Nc) = epilogue(A(M, K) @ W(K, Nc)). A is x (LayerNorm-ed on load)
-// or ctx; W row-major. Requires K % 16 == 0 and Nc % 8 == 0.
-template <bool kLayerNorm, int kEpi>
+// qkv = LN(x)(M, K) @ W(K, Nc) + bias into out, and its first qcols
+// columns times qscale into out2; W row-major. Requires K % 16 == 0 and
+// Nc % 8 == 0.
 __global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-            const float* __restrict__ bias,
-            const float* __restrict__ ln_scale,
-            const float* __restrict__ ln_bias, float eps,
-            const float* __restrict__ gamma,
-            const bf16* __restrict__ resid, bf16* __restrict__ out,
-            int M, int K, int Nc, float qscale, int qcols,
-            bf16* __restrict__ out2 = nullptr) {
+ln_qkv_gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ ln_scale,
+                   const float* __restrict__ ln_bias, float eps,
+                   bf16* __restrict__ out, int M, int K, int Nc, float qscale,
+                   int qcols, bf16* __restrict__ out2) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int lda = K + A_PAD;
   bf16* As = reinterpret_cast<bf16*>(smem);
@@ -92,28 +83,26 @@ gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
   }
   __syncthreads();
 
-  if (kLayerNorm) {
-    // two-pass f32 statistics per row (mean, then mean squared deviation),
-    // as the oracle computes them; one warp per row
-    for (int r = warp; r < GEMM_BM; r += GEMM_THREADS / 32) {
-      if (m0 + r >= M) continue;
-      bf16* row = As + r * lda;
-      float s = 0.f;
-      for (int c = lane; c < K; c += 32) s += __bfloat162float(row[c]);
-      const float mu = warp_sum(s) / K;
-      float q = 0.f;
-      for (int c = lane; c < K; c += 32) {
-        const float d = __bfloat162float(row[c]) - mu;
-        q += d * d;
-      }
-      const float rstd = rsqrtf(warp_sum(q) / K + eps);
-      for (int c = lane; c < K; c += 32) {
-        const float d = __bfloat162float(row[c]) - mu;
-        row[c] = __float2bfloat16(d * rstd * ln_scale[c] + ln_bias[c]);
-      }
+  // two-pass f32 statistics per row (mean, then mean squared deviation),
+  // as the oracle computes them; one warp per row
+  for (int r = warp; r < GEMM_BM; r += GEMM_THREADS / 32) {
+    if (m0 + r >= M) continue;
+    bf16* row = As + r * lda;
+    float s = 0.f;
+    for (int c = lane; c < K; c += 32) s += __bfloat162float(row[c]);
+    const float mu = warp_sum(s) / K;
+    float q = 0.f;
+    for (int c = lane; c < K; c += 32) {
+      const float d = __bfloat162float(row[c]) - mu;
+      q += d * d;
     }
-    __syncthreads();
+    const float rstd = rsqrtf(warp_sum(q) / K + eps);
+    for (int c = lane; c < K; c += 32) {
+      const float d = __bfloat162float(row[c]) - mu;
+      row[c] = __float2bfloat16(d * rstd * ln_scale[c] + ln_bias[c]);
+    }
   }
+  __syncthreads();
 
   const int wm = warp / 4;  // 0..1 -> rows wm*32
   const int wn = warp % 4;  // 0..3 -> cols wn*32
@@ -168,14 +157,9 @@ gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
     const int row = m0 + r;
     const int col = n0 + c;
     if (row >= M || col >= Nc) continue;
-    float v = Cs[r * C_LD + c] + bias[col];
-    if (kEpi == EPI_QKV_TRAIN && col < qcols)
+    const float v = Cs[r * C_LD + c] + bias[col];
+    if (col < qcols)
       out2[(size_t)row * qcols + col] = __float2bfloat16(v * qscale);
-    if (kEpi == EPI_QKV && col < qcols) v *= qscale;
-    if (kEpi == EPI_PROJ) {
-      if (gamma) v *= gamma[col];
-      v += __bfloat162float(resid[(size_t)row * Nc + col]);
-    }
     out[(size_t)row * Nc + col] = __float2bfloat16(v);
   }
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the TMA-fed kernels (hopper_gemm.cuh,
-// hopper_gemm_s8.cuh, mhsa.cu, swin_attn.cu, patch_merge.cu, mlp_int8.cu):
+// hopper_gemm_s8.cuh, mhsa.cu, mhsa_int8.cu, swin_attn.cu, patch_merge.cu,
+// mlp_int8.cu, swin_train.cu):
 // mbarriers, TMA tile loads and stores, warpgroup matrix multiplies (wgmma,
 // bf16 and int8) on 128-byte-swizzled shared-memory tiles, ldmatrix on the
 // same tiles, and the host's tensor-map encoding.
@@ -7,19 +8,20 @@
 // Every GEMM tile here is 128 bytes (64 bf16, 128 int8) wide in its
 // contiguous dimension, written by TMA with CU_TENSOR_MAP_SWIZZLE_128B at a
 // 1024-byte-aligned address: row r of the tile sits at r * 128 bytes, its
-// 16-byte chunks permuted by r % 8. (K5's int8 q and k tiles are 64 bytes
-// wide, with the 64-byte swizzle: swin_attn.cu.) wgmma reads such a tile
-// through a descriptor
-// (PTX ISA, "Matrix Descriptor Format"): the start address, the leading
-// and stride byte offsets (LBO, SBO) and the 128-byte swizzle mode.
-//   K-major operand (K contiguous: A of every product, K of q k^T, both
-//     operands of the int8 products): rows are M or N, 8 rows make one
+// 16-byte chunks permuted by r % 8. (K2's and K5's int8 q and k tiles are
+// 64 bytes wide, with the 64-byte swizzle, read by ldmatrix: mhsa_int8.cu,
+// swin_attn.cu.) wgmma reads such a tile through a descriptor (PTX ISA,
+// "Matrix Descriptor Format"): the start address, the leading and stride
+// byte offsets (LBO, SBO) and the 128-byte swizzle mode.
+//   K-major operand (K contiguous: A of the forward products, K of q k^T,
+//     both operands of the int8 products, the (in, out) weights of the
+//     training backward's da and dh): rows are M or N, 8 rows make one
 //     core group, SBO = 1024 bytes to the next 8 rows, LBO unused; the
 //     k-th 32-byte slice (16 bf16 or 32 int8) starts k * 32 bytes in.
-//   MN-major operand (MN contiguous: W of the projections, V of P V; the
-//     transpose bit set): rows are k, SBO = 1024 bytes to the next 8 k,
-//     LBO = the distance between 64-wide MN chunks; the k-th 16-deep slice
-//     starts k * 2048 bytes in.
+//   MN-major operand (MN contiguous: W of the projections, V of P V, both
+//     operands of a weight gradient; the transpose bit set): rows are k,
+//     SBO = 1024 bytes to the next 8 k, LBO = the distance between 64-wide
+//     MN chunks; the k-th 16-deep slice starts k * 2048 bytes in.
 // The tensor map is encoded on the host by cuTensorMapEncodeTiled, reached
 // through the runtime's cudaGetDriverEntryPoint, so the library needs no
 // link to libcuda; it is passed to the kernel as a __grid_constant__
@@ -136,6 +138,15 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
 }
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              const void* src, int c0, int c1,
                                              int c2, int c3) {
@@ -188,6 +199,15 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
         : "memory");
 }
 
+// 2^x by the SFU's ex2, flushing a result below 2^-126 to 0 (exp2f keeps
+// it as a subnormal: in the attentions' p = 2^min(s, 100), an f32 row sum
+// or a bf16 p that a term below 2^-126 would change does not occur)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // descriptor of a 128-byte-swizzled tile (see the header note)
 __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
                                                uint32_t sbo) {
@@ -237,17 +257,18 @@ __device__ __forceinline__ void fence_regs(int (&r)[R]) {
 
 // d (64 x 64, f32, the m64nNk16 accumulator layout: thread 32 w + 4 g + t
 // of the warpgroup holds rows 16 w + g (+ 8) and columns 8 j + 2 t (+ 1) in
-// d[4 j + 2 half + c]) = (accumulate ? d : 0) + A (64 x 16, K-major shared
-// tile) * B (16 x 64; K-major when kTransB is 0, MN-major when 1)
-template <int kTransB>
+// d[4 j + 2 half + c]) = (accumulate ? d : 0) + A (64 x 16 shared tile;
+// K-major when kTransA is 0, MN-major when 1) * B (16 x 64; K-major when
+// kTransB is 0, MN-major when 1)
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int accumulate) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HP_R32
-      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      ", %32, %33, p, 1, 1, %36, %35;\n}\n"
       : HP_D32
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB), "n"(kTransA));
 }
 
 // the same with A (64 x 16) in registers, in the m16n8k16 A-fragment
@@ -266,7 +287,7 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
 }
 
 // d (64 x 128) as wgmma_m64n64, N = 128
-template <int kTransB>
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int accumulate) {
   asm volatile(
@@ -277,9 +298,9 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      ", %64, %65, p, 1, 1, %68, %67;\n}\n"
       : HP_D32, HP_D8(32), HP_D8(40), HP_D8(48), HP_D8(56)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB), "n"(kTransA));
 }
 
 #define HP_I8(i)                                                        \

@@ -1,5 +1,6 @@
 // The LayerNorm and projection GEMMs of K1 (mhsa.cu), K4 (swin_attn.cu)
-// and K6 (patch_merge.cu) for Hopper (sm_90a), bf16:
+// and K6 (patch_merge.cu), and the four products of K9c (swin_train.cu),
+// for Hopper (sm_90a), bf16:
 //
 //   ln_rows_kernel:     y(M, D) = bf16(LN(x) * ln_scale + ln_bias)
 //   hopper_gemm_kernel: out(M, Nc) = epilogue(A(M, K) @ W(K, Nc))
@@ -34,7 +35,21 @@
 //              dh^-0.5 log2 e on q; K1 passes qcols = 0);
 //   EPI_PROJ:  (acc + bias) * gamma + resid (K1's LayerScale);
 //   EPI_RESID: acc + bias + resid (K4: no LayerScale);
-//   EPI_NONE:  acc (K6, no bias).
+//   EPI_NONE:  acc (K6, no bias; K9c's da and dh);
+//   EPI_F32:   acc in f32 to chunk z's slice of ep.part, unrounded (K9c's
+//              weight gradients, below).
+// Two operand forms serve the training backward's products, the same
+// kernel with the major-ness of each operand a template parameter: kBK
+// reads W K-major, stored (Nc, K) (da = g Wo^T with Wo stored (in, out):
+// the descriptor without the transpose bit), and kAT reads A MN-major,
+// stored (K, M) (dWo = ctx^T g: A's 64 x 64 boxes of rows of ctx, the
+// transpose bit set). A weight gradient sums over all rows: K is split into
+// fixed chunks of whole k16 steps (the caller's), each work item writes the
+// f32 partial of one output tile over its chunk, and the caller's
+// reduce_partials launch adds the partials in chunk order: no atomics, so
+// the sums repeat bit for bit. Every output element takes its k16 steps in
+// order, one wgmma each, as the first port's WMMA GEMM took them in
+// mma.sync steps.
 // What bounds it: at 64 x 257 x 768 the QKV GEMM is 58.2 GFLOP against
 // ~105 MB (tensor cores: 0.059 ms at the bf16 peak), the out projection
 // 19.4 GFLOP against ~77 MB (memory: 0.023 ms).
@@ -47,15 +62,16 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-enum { HG_EPI_QKV, HG_EPI_PROJ, HG_EPI_RESID, HG_EPI_NONE };
+enum { HG_EPI_QKV, HG_EPI_PROJ, HG_EPI_RESID, HG_EPI_NONE, HG_EPI_F32 };
 
 // What the epilogue adds (see the header note); unused fields are ignored.
 struct HgEpilogue {
-  const float* bias;   // (Nc,); null with HG_EPI_NONE
+  const float* bias;   // (Nc,); null with HG_EPI_NONE and HG_EPI_F32
   const float* gamma;  // (Nc,), HG_EPI_PROJ
   const bf16* resid;   // (M, Nc), HG_EPI_PROJ and HG_EPI_RESID
   float qscale;
   int qcols;
+  float* part;         // (splits, M, Nc) f32 partial sums, HG_EPI_F32
 };
 
 constexpr int HG_BM = 128;        // rows of an output tile
@@ -181,17 +197,25 @@ inline cudaError_t launch_ln_rows(const bf16* x, const float* scale,
   return cudaGetLastError();
 }
 
-// out(M, Nc) = epilogue(A @ W): tm_a maps A (M, K) in 64 x 128 boxes, tm_w
-// W (K, Nc) and tm_out out (M, Nc) in 64 x 64 boxes (all 128-byte
-// swizzled). Persistent: CTA c computes the output tiles c, c + gridDim.x,
-// ... of the ceil(M / 128) x ceil(Nc / BN) tiles, column tiles fastest;
-// Nc even.
-template <int BN, int kEpi>
+// out(M, Nc) = epilogue(A @ W), all boxes 128-byte swizzled. A (M, K):
+// tm_a maps it K-major, (M, K) in 128-row x 64-k boxes, or with kAT
+// MN-major, a stored (K, M) in 64 x 64 boxes (the transpose of a weight
+// gradient, ctx^T of dWo = ctx^T g). W (K, Nc): tm_w maps it MN-major,
+// stored (K, Nc) in 64 x 64 boxes, or with kBK K-major, stored (Nc, K) in
+// 64-k x BN-row boxes (the (in, out) weight of da = g Wo^T). tm_out maps
+// out (M, Nc) in 64 x 64 boxes; HG_EPI_F32 writes f32 partial sums to
+// ep.part instead. K splits into chunks of kchunk (a multiple of 16):
+// the work items are the ceil(M / 128) x ceil(Nc / BN) output tiles of
+// each chunk, column tiles fastest, then row tiles, then chunks; item i
+// of chunk z adds A's and W's k in [z kchunk, (z + 1) kchunk) into
+// partial z. Persistent: CTA c takes the items c, c + gridDim.x, ...; Nc
+// even.
+template <int BN, int kEpi, bool kBK = false, bool kAT = false>
 __global__ void __launch_bounds__(HG_THREADS, 2)
 hopper_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
                    const __grid_constant__ CUtensorMap tm_w,
                    const __grid_constant__ CUtensorMap tm_out,
-                   const HgEpilogue ep, int M, int K, int Nc) {
+                   const HgEpilogue ep, int M, int K, int Nc, int kchunk) {
   using T = HgTile<BN>;
   extern __shared__ unsigned char hg_smem[];
   unsigned char* ring = align1024(hg_smem);
@@ -199,9 +223,9 @@ hopper_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
       reinterpret_cast<uint64_t*>(ring + T::kStages * T::kStageBytes);
   uint64_t* empty = full + T::kStages;
   const int warp = threadIdx.x / 32;
-  const int ktiles = (K + HG_BK - 1) / HG_BK;
   const int ntiles = (Nc + BN - 1) / BN;
   const int tiles = ntiles * ((M + HG_BM - 1) / HG_BM);
+  const int items = tiles * ((K + kchunk - 1) / kchunk);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < T::kStages; ++s) {
@@ -216,19 +240,32 @@ hopper_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
     // the producer: one lane keeps the ring full, across tiles
     if ((threadIdx.x & 31) == 0) {
       int step = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int tile = item % tiles;
         const int n0 = (tile % ntiles) * BN;
         const int m0 = (tile / ntiles) * HG_BM;
+        const int k0 = item / tiles * kchunk;
+        const int ktiles = (min(K - k0, kchunk) + HG_BK - 1) / HG_BK;
         for (int kt = 0; kt < ktiles; ++kt, ++step) {
           const int s = step % T::kStages;
+          const int k = k0 + kt * HG_BK;
           mbar_wait(empty + s, ((step / T::kStages) & 1) ^ 1);
           unsigned char* a = ring + s * T::kStageBytes;
           mbar_expect_tx(full + s, T::kStageBytes);
-          tma_load_2d(a, &tm_a, full + s, kt * HG_BK, m0);
+          if (kAT) {
+            tma_load_2d(a, &tm_a, full + s, m0, k);
+            tma_load_2d(a + HG_BK * 128, &tm_a, full + s, m0 + 64, k);
+          } else {
+            tma_load_2d(a, &tm_a, full + s, k, m0);
+          }
+          if (kBK) {
+            tma_load_2d(a + T::kABytes, &tm_w, full + s, k, n0);
+          } else {
 #pragma unroll
-          for (int c = 0; c < BN / 64; ++c)
-            tma_load_2d(a + T::kABytes + c * HG_BK * 128, &tm_w, full + s,
-                        n0 + 64 * c, kt * HG_BK);
+            for (int c = 0; c < BN / 64; ++c)
+              tma_load_2d(a + T::kABytes + c * HG_BK * 128, &tm_w, full + s,
+                          n0 + 64 * c, k);
+          }
         }
       }
     }
@@ -243,9 +280,13 @@ hopper_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
   const int lr0 = (tid >> 5) * 16 + g;  // rows lr0, lr0 + 8 of the 64
   int step = 0;
   int held = -1;  // the stage the last tile's stores may still be reading
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int tile = item % tiles;
     const int n0 = (tile % ntiles) * BN;
     const int m0 = (tile / ntiles) * HG_BM;
+    const int z = item / tiles;
+    const int kend = min(K, z * kchunk + kchunk);
+    const int ktiles = (kend - z * kchunk + HG_BK - 1) / HG_BK;
     float acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
@@ -253,18 +294,28 @@ hopper_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
     for (int kt = 0; kt < ktiles; ++kt) {
       s = (step + kt) % T::kStages;
       mbar_wait(full + s, ((step + kt) / T::kStages) & 1);
+      // warpgroup wg's 64 rows of A: 64 K-major rows, or with kAT the
+      // second 64 x 64 box
       const unsigned char* a = ring + s * T::kStageBytes + wg * 64 * 128;
       const unsigned char* b = ring + s * T::kStageBytes + T::kABytes;
+      // a chunk that ends inside K ends on a k16 step: its last tile takes
+      // only its own rows (the rest of the box is the next chunk's)
+      const int k = z * kchunk + kt * HG_BK;
+      const int ksteps =
+          kend < K && kend - k < HG_BK ? (kend - k) / 16 : HG_BK / 16;
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HG_BK / 16; ++kk) {
-        const uint64_t da = sw128_desc(a + kk * 32, 16, 1024);
-        const uint64_t db = sw128_desc(b + kk * 2048, HG_BK * 128, 1024);
+        if (kk >= ksteps) break;
+        const uint64_t da = kAT ? sw128_desc(a + kk * 2048, HG_BK * 128, 1024)
+                                : sw128_desc(a + kk * 32, 16, 1024);
+        const uint64_t db = kBK ? sw128_desc(b + kk * 32, 16, 1024)
+                                : sw128_desc(b + kk * 2048, HG_BK * 128, 1024);
         if constexpr (BN == 128)
-          wgmma_m64n128<1>(acc, da, db, 1);
+          wgmma_m64n128<kBK ? 0 : 1, kAT ? 1 : 0>(acc, da, db, 1);
         else
-          wgmma_m64n64<1>(acc, da, db, 1);
+          wgmma_m64n64<kBK ? 0 : 1, kAT ? 1 : 0>(acc, da, db, 1);
       }
       wgmma_commit();
       if (held >= 0 && tid == 0) {
@@ -288,6 +339,22 @@ hopper_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
     named_sync(1, 128 * HG_CONSUMERS);
 
     const int r0 = m0 + wg * 64 + lr0;
+    if constexpr (kEpi == HG_EPI_F32) {
+      // chunk z's partial of the tile, straight from the registers
+      float* part = ep.part + (size_t)z * M * Nc;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          if (col < Nc && r0 + 8 * half < M)
+            *reinterpret_cast<float2*>(part + (size_t)(r0 + 8 * half) * Nc +
+                                       col) =
+                make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      }
+      held = s;
+      continue;
+    }
     unsigned char* out_s =
         ring + s * T::kStageBytes + wg * 64 * BN * 2;  // BN / 64 boxes
 #pragma unroll
@@ -353,38 +420,56 @@ hopper_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
 // D are multiples of 128), else 64-wide (D = 64 H with H odd; Swin-T's
 // 2C = 192; a column tail masked). 64-wide tiles where they leave fewer
 // tiles to the busiest SM (K8a's B = 16) were no faster on an H100 80GB at
-// 700 W.
-template <int kEpi>
+// 700 W. kchunk 0 is K (no split); a split's kchunk is a multiple of 16.
+// With kBK, w is stored (Nc, K); else (K, Nc).
+template <int kEpi, bool kBK = false, bool kAT = false>
 cudaError_t launch_gemm(const CUtensorMap& ta, const bf16* w, int K, int Nc,
                         const HgEpilogue& ep, bf16* out, int M,
-                        cudaStream_t s) {
+                        cudaStream_t s, int kchunk = 0) {
   const int bn = Nc % 128 == 0 ? 128 : 64;
+  if (kchunk <= 0) kchunk = K;
   CUtensorMap tw;
-  const cuuint64_t dims[2] = {(cuuint64_t)Nc, (cuuint64_t)K};
-  const cuuint64_t strides[1] = {(cuuint64_t)Nc * 2};
-  const cuuint32_t box[2] = {64, HG_BK};
+  const cuuint64_t dims[2] = {(cuuint64_t)(kBK ? K : Nc),
+                              (cuuint64_t)(kBK ? Nc : K)};
+  const cuuint64_t strides[1] = {(cuuint64_t)(kBK ? K : Nc) * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)(kBK ? bn : HG_BK)};
   if (!make_tmap(&tw, w, 2, dims, strides, box)) return cudaErrorInvalidValue;
-  CUtensorMap to;
-  const cuuint64_t odims[2] = {(cuuint64_t)Nc, (cuuint64_t)M};
-  const cuuint32_t obox[2] = {64, 64};
-  if (!make_tmap(&to, out, 2, odims, strides, obox))
-    return cudaErrorInvalidValue;
+  CUtensorMap to{};
+  if (kEpi != HG_EPI_F32) {
+    const cuuint64_t odims[2] = {(cuuint64_t)Nc, (cuuint64_t)M};
+    const cuuint64_t ostrides[1] = {(cuuint64_t)Nc * 2};
+    const cuuint32_t obox[2] = {64, 64};
+    if (!make_tmap(&to, out, 2, odims, ostrides, obox))
+      return cudaErrorInvalidValue;
+  }
   int dev = 0, sms = 0;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
       (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                   dev)) != cudaSuccess)
     return e;
-  const long long tiles =
-      (long long)((Nc + bn - 1) / bn) * ((M + HG_BM - 1) / HG_BM);
-  const int grid = (int)(tiles < 2 * sms ? tiles : 2 * sms);
+  const long long items = (long long)((Nc + bn - 1) / bn) *
+                          ((M + HG_BM - 1) / HG_BM) *
+                          ((K + kchunk - 1) / kchunk);
+  const int grid = (int)(items < 2 * sms ? items : 2 * sms);
   if (bn == 128)
-    hopper_gemm_kernel<128, kEpi><<<grid, HG_THREADS, HgTile<128>::kSmem, s>>>(
-        ta, tw, to, ep, M, K, Nc);
+    hopper_gemm_kernel<128, kEpi, kBK, kAT>
+        <<<grid, HG_THREADS, HgTile<128>::kSmem, s>>>(ta, tw, to, ep, M, K,
+                                                       Nc, kchunk);
   else
-    hopper_gemm_kernel<64, kEpi><<<grid, HG_THREADS, HgTile<64>::kSmem, s>>>(
-        ta, tw, to, ep, M, K, Nc);
+    hopper_gemm_kernel<64, kEpi, kBK, kAT>
+        <<<grid, HG_THREADS, HgTile<64>::kSmem, s>>>(ta, tw, to, ep, M, K,
+                                                      Nc, kchunk);
   return cudaGetLastError();
+}
+
+// a bf16 (rows, cols) matrix in 64 x 64 boxes: the MN-major A of a weight
+// gradient (rows = K, cols = M)
+bool map_tiles64(CUtensorMap* m, const bf16* a, int rows, int cols) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, 64};
+  return make_tmap(m, a, 2, dims, strides, box);
 }
 
 // the A operand (M, K) of a GEMM in 64 x 128 boxes
@@ -396,14 +481,14 @@ bool map_rows(CUtensorMap* m, const bf16* a, int M, int K) {
 }
 
 // raises the dynamic shared-memory limit of this translation unit's GEMMs
-// with epilogue kEpi (both tile widths)
-template <int kEpi>
+// with epilogue kEpi and operand forms kBK, kAT (both tile widths)
+template <int kEpi, bool kBK = false, bool kAT = false>
 cudaError_t allow_gemm_smem() {
   const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  const cudaError_t e = cudaFuncSetAttribute(hopper_gemm_kernel<128, kEpi>, a,
-                                             HgTile<128>::kSmem);
+  const cudaError_t e = cudaFuncSetAttribute(
+      hopper_gemm_kernel<128, kEpi, kBK, kAT>, a, HgTile<128>::kSmem);
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(hopper_gemm_kernel<64, kEpi>, a,
+  return cudaFuncSetAttribute(hopper_gemm_kernel<64, kEpi, kBK, kAT>, a,
                               HgTile<64>::kSmem);
 }
 

@@ -1,5 +1,5 @@
-// The LN-quant pass and the int8 projection GEMM of K5 (swin_attn.cu) and
-// K3 (mlp_int8.cu) for Hopper (sm_90a), w8a8:
+// The LN-quant pass and the int8 projection GEMM of K2 (mhsa_int8.cu), K5
+// (swin_attn.cu) and K3 (mlp_int8.cu) for Hopper (sm_90a), w8a8:
 //
 //   ln_quant_kernel:       xq(M, D) = int8(LN(x) * s' + b')
 //   hopper_gemm_s8_kernel: out(M, Nc) = epilogue(A(M, K) @ W(Nc, K)^T)
@@ -7,10 +7,11 @@
 // ln_quant_kernel runs LayerNorm once per row, writing the int8 row the
 // GEMM then reads by TMA (a LayerNorm prologue in the GEMM would run in
 // each of the QKV GEMM's 3C / 128 column tiles: 3x at Swin stage 0, 24x
-// at stage 3, as K2's still does). A warp takes a run of R = 2048 / D rows
-// (at most 16; D <= 1024: up to 4 KB), reads them by 16-byte loads, all in
-// flight at once (one 256-byte row a warp kept too few loads in flight in
-// K4's LayerNorm), and stages them in shared memory. The statistics keep
+// at stage 3, 18x at DINOv2-B, as the first port's K2 did). A warp takes a
+// run of R = 2048 / D rows (at most 16; D <= 1024: up to 4 KB), reads them
+// by 16-byte loads, all in flight at once (one 256-byte row a warp kept too
+// few loads in flight in K4's LayerNorm), and stages them in shared
+// memory. The statistics keep
 // int8_common.cuh::ln_quant_row's two-pass f32 arithmetic in its order:
 // lane l sums elements l, l + 32, ... of the row, then the warp's xor
 // butterfly; the same for the squared deviations. So the mean, 1/std and
@@ -29,18 +30,18 @@
 // four k32 products a stage. M, K and column tails are TMA's zero fill;
 // the int32 sums are exact in any order. The epilogue works from the
 // registers in f32 with the plain versions' rounding points, in the
-// expressions of int8_attn.cuh's projections, stages the output tile in the
-// last k tile's stage (128-byte swizzle) and stores it by TMA, which drops
-// rows >= M and columns past the output:
-//   EPI_QK8V:    acc * s + b; columns below qk_cols (K5's q | k, 2C)
-//                round_clip_i8 into qk8 (M, 2C), the rest rounded to bf16
-//                into v (M, C);
+// expressions of the first port's K2 projections, stages the output tile
+// in the last k tile's stage (128-byte swizzle) and stores it by TMA, which
+// drops rows >= M and columns past the output:
+//   EPI_QK8V:    acc * s + b; columns below qk_cols (K2's and K5's q | k,
+//                2C) round_clip_i8 into qk8 (M, 2C), the rest rounded to
+//                bf16 into v (M, C);
 //   EPI_GELU8:   h = acc * s + b, tanh GELU in f32 (tanhf), * inv_a_mid,
 //                round_clip_i8 into K3's int8 hidden;
 //   EPI_RESID:   acc * s + b + resid, bf16 (K5's out projection);
-//   EPI_RESID_G: (acc * s + b) * gamma + resid, bf16 (K3's fc2, gamma a
-//                compile-time choice so the product keeps its fused
-//                multiply-add).
+//   EPI_RESID_G: (acc * s + b) * gamma + resid, bf16 (K3's fc2 and K2's
+//                out projection, gamma a compile-time choice so the product
+//                keeps its fused multiply-add).
 // What bounds it on the H100: at DINOv2-B/14, B=64, K3's fc1 and fc2 are
 // 77.6 GOP each (0.039 ms at 1,979 int8 TOP/s) against 65 / 104 MB (0.020
 // / 0.031 ms at 3.35 TB/s): operations; at Swin-B-384 stage 0 (589,824 x

@@ -376,7 +376,7 @@ extern "C" int geovpr_vit_train_bwd_all(
       cudaSuccess)
     return (int)e;
   // LN recompute, dWqkv = h^T dqkv, dbqkv = sum dqkv
-  ln_rows_kernel<<<cdiv(M, 8), 256, 0, st>>>(
+  ln_stats_kernel<<<cdiv(M, 8), 256, 0, st>>>(
       xb, static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias),
       eps, M, D, hb, static_cast<float2*>(stats));
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;

@@ -187,15 +187,6 @@ __device__ __forceinline__ uint32_t sw_addr(uint32_t base, int r, int c) {
          ((c ^ (lr & 7)) << 4);
 }
 
-// 2^x for x <= 100 by the SFU's ex2, flushing a result below 2^-126 to 0
-// (exp2f keeps it as a subnormal: an f32 row sum, or a bf16 p, that a
-// term below 2^-126 would change does not occur here)
-__device__ __forceinline__ float sw_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // One warp: query rows [r_base, r_base + 16 kR) of head hh of a task
 // against all kN keys; writes bf16 ctx over the same rows and head of the
 // q tile. tab: the head's ((2W-1)^2) bias table in the exp2 domain; wrap:
@@ -277,7 +268,7 @@ __device__ __forceinline__ void sw_attend(uint32_t qs, uint32_t ks,
                                 tab[pos[i][hi] - pk[j][c]]);
             if (kMasked && ((box[i][hi] ^ bk[j][c]) & wrap))
               v = __fadd_rn(v, kMaskL2);
-            const float p = sw_exp2(fminf(v, 100.f));
+            const float p = exp2_ftz(fminf(v, 100.f));
             l[i][hi] += p;
             s[j][2 * hi + c] = p;
           }
@@ -582,7 +573,7 @@ __device__ __forceinline__ void sw8_attend(uint32_t qs, uint32_t ks,
                                 tab[pos[i][hi] - kpos[j][c]]);
             if (kMasked && ((box[i][hi] ^ kbox[j][c]) & wrap))
               v = __fadd_rn(v, kMaskL2);
-            const float p = sw_exp2(fminf(v, 100.f));
+            const float p = exp2_ftz(fminf(v, 100.f));
             l[i][hi] += p;
             s[j][2 * hi + c] = p;
           }

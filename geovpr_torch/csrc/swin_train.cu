@@ -20,7 +20,7 @@
 //
 // Numerics follow the JAX bodies. K9a: LN in f32; qkv in f32 stored as bf16
 // unscaled, q scaled by dh^-0.5 log2(e) from the f32 value and rounded to
-// bf16 on a separate copy (bf16_gemm.cuh EPI_QKV_TRAIN); bias and mask in the
+// bf16 on a separate copy (bf16_gemm.cuh's ln_qkv_gemm_kernel); bias and mask in the
 // exp2 domain; p = exp2(min(s, 100)) with no max-shift, normalised by the
 // reciprocal of its f32 row sum, stored as bf16 and used in bf16 (never
 // fp16: p reaches 2^100 before the normalisation) for P.V. K9b/K9c: dp =
@@ -41,12 +41,28 @@
 // gradients and dbias; all but x..dx and p are under 1 MB) against
 // ~60 GFLOP: both bound by bytes (0.118 and
 // 0.130 ms at 3.35 TB/s; the measured times, from chip_smoke.py, are in
-// PERF.md beside the card and its power limit). This first version adds a
-// scaled-q copy and the scratch tensors between launches (da, dqkv, the LN
-// output, partial sums) and uses WMMA / mma.sync without a copy pipeline;
-// keeping dqkv on chip and wgmma/TMA are the first things a faster version
-// changes. The kernels allocate nothing; the caller passes the scratch.
+// PERF.md beside the card and its power limit). K9a and the cores keep
+// the first version's WMMA / mma.sync without a copy pipeline, a scaled-q
+// copy and the scratch tensors between launches (da, dqkv, the LN output,
+// partial sums).
+//
+// K9c's launches (`geovpr_swin_train_bwd_all_parts` runs a range of them,
+// for timing one by one): 0 da, 1 dWo, 2 dbo, 3 the core, 4 the LN
+// recompute, 5 dWqkv, 6 dbqkv, 7 dh, 8 the LN VJP. Its four products run
+// on hopper_gemm.cuh's persistent TMA + wgmma GEMM: da = g Wo^T and dh =
+// dqkv Wqkv^T read the (in, out) weights as the K-major B operand and round
+// once to bf16; dWo = ctx^T g and dWqkv = h^T dqkv read both operands as
+// boxes of rows (A MN-major), split the rows into the first version's
+// chunks (train_gemm.cuh's split_rows over its 64 x 64 tiles) whose f32
+// partials one reduce_partials launch adds in order. Each output element
+// takes its k16 steps in the first version's order, one tensor-core
+// product each, so where the card's wgmma and mma.sync k16 products round
+// alike the four products keep the first version's bits (and a training
+// run its trajectory). The column sums (dbo, dbqkv), the core, the LN
+// recompute and VJP are the first version's. The kernels allocate nothing;
+// the caller passes the scratch.
 
+#include "hopper_gemm.cuh"
 #include "train_gemm.cuh"
 #include "window_attn.cuh"
 
@@ -495,7 +511,10 @@ cudaError_t core_bwd(cudaStream_t st, const bf16* qkv, const bf16* p,
 // Raises the kernels' dynamic shared-memory limits on the current device.
 extern "C" int geovpr_swin_train_init(void) {
   cudaError_t e;
-  if ((e = allow_smem(gemm_kernel<true, EPI_QKV_TRAIN>, kMaxSmemT)) != cudaSuccess ||
+  if (tmap_encode_fn() == nullptr) return (int)cudaErrorSymbolNotFound;
+  if ((e = allow_gemm_smem<HG_EPI_NONE, true>()) != cudaSuccess ||
+      (e = allow_gemm_smem<HG_EPI_F32, false, true>()) != cudaSuccess ||
+      (e = allow_smem(ln_qkv_gemm_kernel, kMaxSmemT)) != cudaSuccess ||
       (e = allow_smem(swin_train_attn_fwd_kernel, fwd_smem_bytes(12))) != cudaSuccess)
     return (int)e;
   return (int)allow_smem(swin_train_attn_bwd_kernel, CoreSmem::bytes);
@@ -524,13 +543,12 @@ extern "C" int geovpr_swin_train_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
 
-  gemm_kernel<true, EPI_QKV_TRAIN>
-      <<<dim3(cdiv(3 * C, GEMM_BN), cdiv(M, GEMM_BM)), GEMM_THREADS,
-         gemm_smem_bytes(C), st>>>(
-          static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
-          static_cast<const float*>(bqkv), static_cast<const float*>(ln_scale),
-          static_cast<const float*>(ln_bias), eps, nullptr, nullptr,
-          static_cast<bf16*>(qkv), M, C, 3 * C, qscale, C, static_cast<bf16*>(qs));
+  ln_qkv_gemm_kernel<<<dim3(cdiv(3 * C, GEMM_BN), cdiv(M, GEMM_BM)),
+                       GEMM_THREADS, gemm_smem_bytes(C), st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), eps, static_cast<bf16*>(qkv), M, C,
+      3 * C, qscale, C, static_cast<bf16*>(qs));
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   swin_train_attn_fwd_kernel<<<dim3(BW, H), 2 * TR_N, fwd_smem_bytes(win), st>>>(
@@ -559,19 +577,26 @@ extern "C" int geovpr_swin_train_bwd_core(
                        S, C, H, win, shift, scale);
 }
 
-// K9c. Inputs: x (M, C), qkv (M, 3C), p (BW, H, N, N), ctx (M, C), g (M, C)
-// bf16; wqkv (C, 3C), wo (C, C) bf16; ln_scale, ln_bias f32. Outputs: dx
-// (M, C) bf16; dwqkv (C, 3C), dbqkv (3C), dwo (C, C), dbo (C), dbias
-// (H, N, N), dls, dlb (C) f32. Scratch: da, h (M, C) and dqkv (M, 3C) bf16,
-// stats (M) float2, part f32 (geovpr_swin_train_scratch_floats).
-extern "C" int geovpr_swin_train_bwd_all(
+// K9c's launches first..last: 0 da = bf16(g Wo^T); 1 dWo = ctx^T g (and
+// its reduce); 2 dbo = sum g; 3 the attention core (and its dbias reduce);
+// 4 the LN recompute; 5 dWqkv = h^T dqkv (and its reduce); 6 dbqkv = sum
+// dqkv; 7 dh = bf16(dqkv Wqkv^T) into the da buffer; 8 the LN VJP and its
+// two reduces. Returns a cudaError_t as int. Inputs: x (M, C), qkv (M, 3C),
+// p (BW, H, N, N), ctx (M, C), g (M, C) bf16; wqkv (C, 3C), wo (C, C)
+// bf16; ln_scale, ln_bias f32. Outputs: dx (M, C) bf16; dwqkv (C, 3C),
+// dbqkv (3C), dwo (C, C), dbo (C), dbias (H, N, N), dls, dlb (C) f32.
+// Scratch: da, h (M, C) and dqkv (M, 3C) bf16, stats (M) float2, part f32
+// (geovpr_swin_train_scratch_floats). A launch alone reads what the
+// earlier launches of an earlier call left in the scratch.
+extern "C" int geovpr_swin_train_bwd_all_parts(
     const void* x, const void* qkv, const void* p, const void* ctx,
     const void* g, const void* wqkv, const void* wo, const void* ln_scale,
     const void* ln_bias, void* da, void* dqkv, void* h, void* stats,
     void* part, void* dx, void* dwqkv, void* dbqkv, void* dwo, void* dbo,
     void* dbias, void* dls, void* dlb, int B, int S, int C, int H, int win,
-    int shift, float eps, float scale, void* stream) {
-  if (!train_shapes_ok(B, S, C, H, win, shift) || C > 512)
+    int shift, float eps, float scale, int first, int last, void* stream) {
+  if (!train_shapes_ok(B, S, C, H, win, shift) || C > 512 || first < 0 ||
+      last > 8 || first > last)
     return (int)cudaErrorInvalidValue;
   const int M = B * S * S;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -582,53 +607,83 @@ extern "C" int geovpr_swin_train_bwd_all(
   bf16* dqkvb = static_cast<bf16*>(dqkv);
   bf16* hb = static_cast<bf16*>(h);
   float* pt = static_cast<float*>(part);
-  cudaError_t e;
-  int S1, c1;
-
-  // da = bf16(g Wo^T)
-  if ((e = tgemm<false, true, TG_BF16>(st, gb, C, static_cast<const bf16*>(wo), C,
-                                       M, C, C, 1, C, nullptr, dab, nullptr)) !=
-      cudaSuccess)
-    return (int)e;
-  // dWo = ctx^T g, dbo = sum g
-  split_rows(M, cdiv(C, TG_BM) * cdiv(C, TG_BN), &S1, &c1);
-  if ((e = tgemm<true, false, TG_F32>(st, static_cast<const bf16*>(ctx), C, gb, C,
-                                      C, C, M, S1, c1, nullptr, nullptr, pt)) !=
-          cudaSuccess ||
-      (e = reduce(st, pt, S1, (size_t)C * C, static_cast<float*>(dwo))) != cudaSuccess ||
-      (e = colsum(st, gb, M, C, pt, static_cast<float*>(dbo))) != cudaSuccess)
-    return (int)e;
-  // the attention core: dqkv, dbias
-  if ((e = core_bwd(st, qkvb, static_cast<const bf16*>(p), dab, dqkvb, pt,
-                    static_cast<float*>(dbias), B, S, C, H, win, shift, scale)) !=
-      cudaSuccess)
-    return (int)e;
-  // LN recompute, dWqkv = h^T dqkv, dbqkv = sum dqkv
-  ln_rows_kernel<<<cdiv(M, 8), 256, 0, st>>>(
-      xb, static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias),
-      eps, M, C, hb, static_cast<float2*>(stats));
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  split_rows(M, cdiv(C, TG_BM) * cdiv(3 * C, TG_BN), &S1, &c1);
-  if ((e = tgemm<true, false, TG_F32>(st, hb, C, dqkvb, 3 * C, C, 3 * C, M, S1,
-                                      c1, nullptr, nullptr, pt)) != cudaSuccess ||
-      (e = reduce(st, pt, S1, (size_t)C * 3 * C, static_cast<float*>(dwqkv))) !=
-          cudaSuccess ||
-      (e = colsum(st, dqkvb, M, 3 * C, pt, static_cast<float*>(dbqkv))) != cudaSuccess)
-    return (int)e;
-  // dh = bf16(dqkv Wqkv^T) into the da buffer, then the LN VJP
-  if ((e = tgemm<false, true, TG_BF16>(st, dqkvb, 3 * C,
-                                       static_cast<const bf16*>(wqkv), 3 * C, M, C,
-                                       3 * C, 1, 3 * C, nullptr, dab, nullptr)) !=
-      cudaSuccess)
-    return (int)e;
   const int parts = LN_VJP_BLOCKS * LN_VJP_WARPS;
-  float* pls = pt;
-  float* plb = pt + (size_t)parts * C;
-  if ((e = ln_vjp(st, xb, dab, static_cast<const float2*>(stats),
-                  static_cast<const float*>(ln_scale), nullptr, M, C,
-                  static_cast<bf16*>(dx), pls, plb)) != cudaSuccess)
-    return (int)e;
-  if ((e = reduce(st, pls, parts, C, static_cast<float*>(dls))) != cudaSuccess)
-    return (int)e;
-  return (int)reduce(st, plb, parts, C, static_cast<float*>(dlb));
+  const HgEpilogue ep{nullptr, nullptr, nullptr, 1.f, 0, pt};
+  CUtensorMap ta;
+  cudaError_t e = cudaSuccess;
+  int splits, chunk;
+  for (int k = first; k <= last && e == cudaSuccess; ++k) {
+    switch (k) {
+      case 0:  // da = bf16(g Wo^T), Wo (C, C) read K-major
+        if (!map_rows(&ta, gb, M, C)) return (int)cudaErrorInvalidValue;
+        e = launch_gemm<HG_EPI_NONE, true>(ta, static_cast<const bf16*>(wo),
+                                           C, C, ep, dab, M, st);
+        break;
+      case 1:  // dWo = ctx^T g: partials over chunks of rows, then reduced
+        split_rows(M, cdiv(C, TG_BM) * cdiv(C, TG_BN), &splits, &chunk);
+        if (!map_tiles64(&ta, static_cast<const bf16*>(ctx), M, C))
+          return (int)cudaErrorInvalidValue;
+        if ((e = launch_gemm<HG_EPI_F32, false, true>(
+                 ta, gb, M, C, ep, nullptr, C, st, chunk)) == cudaSuccess)
+          e = reduce(st, pt, splits, (size_t)C * C, static_cast<float*>(dwo));
+        break;
+      case 2:  // dbo = sum g
+        e = colsum(st, gb, M, C, pt, static_cast<float*>(dbo));
+        break;
+      case 3:  // the attention core: dqkv, dbias
+        e = core_bwd(st, qkvb, static_cast<const bf16*>(p), dab, dqkvb, pt,
+                     static_cast<float*>(dbias), B, S, C, H, win, shift,
+                     scale);
+        break;
+      case 4:  // the LN recompute
+        ln_stats_kernel<<<cdiv(M, 8), 256, 0, st>>>(
+            xb, static_cast<const float*>(ln_scale),
+            static_cast<const float*>(ln_bias), eps, M, C, hb,
+            static_cast<float2*>(stats));
+        e = cudaGetLastError();
+        break;
+      case 5:  // dWqkv = h^T dqkv, as dWo
+        split_rows(M, cdiv(C, TG_BM) * cdiv(3 * C, TG_BN), &splits, &chunk);
+        if (!map_tiles64(&ta, hb, M, C)) return (int)cudaErrorInvalidValue;
+        if ((e = launch_gemm<HG_EPI_F32, false, true>(
+                 ta, dqkvb, M, 3 * C, ep, nullptr, C, st, chunk)) ==
+            cudaSuccess)
+          e = reduce(st, pt, splits, (size_t)C * 3 * C,
+                     static_cast<float*>(dwqkv));
+        break;
+      case 6:  // dbqkv = sum dqkv
+        e = colsum(st, dqkvb, M, 3 * C, pt, static_cast<float*>(dbqkv));
+        break;
+      case 7:  // dh = bf16(dqkv Wqkv^T) into the da buffer, Wqkv (C, 3C)
+               // read K-major
+        if (!map_rows(&ta, dqkvb, M, 3 * C)) return (int)cudaErrorInvalidValue;
+        e = launch_gemm<HG_EPI_NONE, true>(ta, static_cast<const bf16*>(wqkv),
+                                           3 * C, C, ep, dab, M, st);
+        break;
+      default:  // the LN VJP -> dx and the partials of dls, dlb
+        if ((e = ln_vjp(st, xb, dab, static_cast<const float2*>(stats),
+                        static_cast<const float*>(ln_scale), nullptr, M, C,
+                        static_cast<bf16*>(dx), pt, pt + (size_t)parts * C)) ==
+                cudaSuccess &&
+            (e = reduce(st, pt, parts, C, static_cast<float*>(dls))) ==
+                cudaSuccess)
+          e = reduce(st, pt + (size_t)parts * C, parts, C,
+                     static_cast<float*>(dlb));
+    }
+  }
+  return (int)e;
+}
+
+// K9c, all its launches (the whole backward).
+extern "C" int geovpr_swin_train_bwd_all(
+    const void* x, const void* qkv, const void* p, const void* ctx,
+    const void* g, const void* wqkv, const void* wo, const void* ln_scale,
+    const void* ln_bias, void* da, void* dqkv, void* h, void* stats,
+    void* part, void* dx, void* dwqkv, void* dbqkv, void* dwo, void* dbo,
+    void* dbias, void* dls, void* dlb, int B, int S, int C, int H, int win,
+    int shift, float eps, float scale, void* stream) {
+  return geovpr_swin_train_bwd_all_parts(
+      x, qkv, p, ctx, g, wqkv, wo, ln_scale, ln_bias, da, dqkv, h, stats,
+      part, dx, dwqkv, dbqkv, dwo, dbo, dbias, dls, dlb, B, S, C, H, win,
+      shift, eps, scale, 0, 8, stream);
 }

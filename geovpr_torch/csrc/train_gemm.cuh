@@ -1,8 +1,9 @@
-// The row-stream pieces shared by the training backward kernels K9c
-// (swin_train.cu) and K8c (mhsa_train.cu), for Hopper (sm_90a): a WMMA
-// GEMM with transposed operands read in place and a split-K partial-sum
-// epilogue, the fixed-order reduction of partial sums, column sums, and
-// the LayerNorm recompute and VJP, one warp per row. No atomics: every
+// The row-stream pieces of the training kernels K9a, K9c (swin_train.cu)
+// and K8c (mhsa_train.cu), for Hopper (sm_90a): a WMMA GEMM with
+// transposed operands read in place and a split-K partial-sum epilogue
+// (K8c's products and K9a's out projection; K9c's run on hopper_gemm.cuh),
+// the fixed-order reduction of partial sums, column sums, and the
+// LayerNorm recompute and VJP, one warp per row. No atomics: every
 // cross-CTA sum is a partial per CTA and one reduce_partials launch that
 // adds the partials in order, so a training step repeats bit for bit.
 
@@ -187,7 +188,7 @@ __global__ void colsum_partials_kernel(const bf16* __restrict__ x, int M,
 // The LN recompute of K9c, one warp per row: f32 two-pass statistics (as
 // bf16_gemm.cuh's prologue), h = bf16(xhat * ls + lb), and each row's mean
 // and 1/std for the VJP.
-__global__ void ln_rows_kernel(const bf16* __restrict__ x,
+__global__ void ln_stats_kernel(const bf16* __restrict__ x,
                                const float* __restrict__ ls,
                                const float* __restrict__ lb, float eps, int M,
                                int C, bf16* __restrict__ h,

@@ -103,8 +103,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         # takes the first and last of its four launches
         "geovpr_mhsa_block_bf16": [vp] * 11 + [ci] * 4 + [cf, vp],
         "geovpr_mhsa_block_parts": [vp] * 11 + [ci] * 4 + [cf, ci, ci, vp],
-        # K2 (mhsa_int8.cu): 14 pointers, B N D H, eps, cs2, stream
+        # K2 (mhsa_int8.cu): 14 pointers, B N D H, eps, cs2, stream; _parts
+        # also takes the first and last of its four launches
         "geovpr_mhsa_block_int8": [vp] * 14 + [ci] * 4 + [cf, cf, vp],
+        "geovpr_mhsa_int8_parts": [vp] * 14 + [ci] * 4 + [cf, cf, ci, ci, vp],
         # K3 (mlp_int8.cu): 14 pointers, M D HID, inv_a_mid, eps, stream;
         # _parts also takes the first and last of its three launches
         "geovpr_mlp_block_int8": [vp] * 14 + [ci] * 3 + [cf, cf, vp],
@@ -125,10 +127,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         # K7 (window_attn.cu): 6 pointers, BW H N nW, qscale, stream
         "geovpr_window_attention": [vp] * 6 + [ci] * 4 + [cf, vp],
         # K9a/K9b/K9c (swin_train.cu): pointers, B S C H win shift, floats,
-        # stream
+        # stream; K9c's _parts also takes the first and last of its launches
         "geovpr_swin_train_fwd": [vp] * 13 + [ci] * 6 + [cf, cf, vp],
         "geovpr_swin_train_bwd_core": [vp] * 6 + [ci] * 6 + [cf, vp],
         "geovpr_swin_train_bwd_all": [vp] * 22 + [ci] * 6 + [cf, cf, vp],
+        "geovpr_swin_train_bwd_all_parts": [vp] * 22 + [ci] * 6 + [cf, cf, ci,
+                                                                  ci, vp],
         "geovpr_swin_train_scratch_floats": [ci] * 5,
         # K8b/K8c (mhsa_train.cu; K8a is K1): pointers, B N D H, floats, stream
         "geovpr_vit_train_bwd_core": [vp] * 4 + [ci] * 4 + [cf, vp],

@@ -295,29 +295,98 @@ def fused_mhsa_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
     mats = {k: got[k] for k in ("wqkv_q_t", "wo_q_t")}
     vecs = {k: v for k, v in got.items() if k not in mats}
     check_int8_kernel_args(x, mats, vecs)
-    if d // num_heads != _KERNEL_HEAD_DIM or d > 1024:
-        raise ValueError(f"the kernel takes head dim {_KERNEL_HEAD_DIM} and "
-                         f"D <= 1024, got D={d}, {num_heads} heads")
-    from geovpr_torch.ops._build import library_on
-    lib = library_on(x.device.index, "geovpr_mhsa_int8_init")
-    m = b * n
-    qk8 = torch.empty((m, 2 * d), dtype=torch.int8, device=x.device)
-    v = torch.empty((m, d), dtype=torch.bfloat16, device=x.device)
-    ctx8 = torch.empty((m, d), dtype=torch.int8, device=x.device)
-    out = torch.empty_like(x)
+    err = k2_shape_error(d, num_heads)
+    if err:
+        raise ValueError(err)
+    bufs = k2_buffers(x)
+    lib, args = _k2_args(x, got, num_heads, ln_eps, cs, bufs)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_mhsa_block_int8(
-            x.data_ptr(), ln_scale_q.data_ptr(), ln_bias_q.data_ptr(),
-            wqkv_q_t.data_ptr(), sqkv_eff.data_ptr(), bqkv_eff.data_ptr(),
-            wo_q_t.data_ptr(), so_eff.data_ptr(), bo.data_ptr(),
-            gamma.data_ptr(), qk8.data_ptr(), v.data_ptr(), ctx8.data_ptr(),
-            out.data_ptr(), b, n, d, num_heads, float(ln_eps),
-            float(cs) * LOG2E,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        rc = lib.geovpr_mhsa_block_int8(*args, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"mhsa_int8 kernel launch failed: CUDA error {rc}")
     fused_mhsa_block_int8.launches += 1
-    return out
+    return bufs[3]
+
+
+def k2_shape_error(d: int, num_heads: int) -> str | None:
+    """The rule of K2's kernels (`csrc/mhsa_int8.cu`), or None where they
+    take the shape: head dim 64 (the attention's q8 and k8 boxes are one
+    head of 64 bytes) and D <= 1024 (the LN-quant pass stages a row in one
+    warp)."""
+    if d % num_heads or d // num_heads != _KERNEL_HEAD_DIM:
+        return (f"K2 takes head dim {_KERNEL_HEAD_DIM}, got D={d}, "
+                f"{num_heads} heads")
+    if d > 1024:
+        return f"K2 takes D <= 1024, got D={d}"
+    return None
+
+
+def k2_buffers(x: torch.Tensor) -> tuple:
+    """K2's scratch and output for x (B, N, D): qk8 (B*N, 2D) int8, v (B*N,
+    D) bf16, ctx8 (B*N, D) int8 (the LN-quant rows until the attention
+    writes it) and out."""
+    m, d = x.shape[0] * x.shape[1], x.shape[-1]
+    return (torch.empty((m, 2 * d), dtype=torch.int8, device=x.device),
+            torch.empty((m, d), dtype=torch.bfloat16, device=x.device),
+            torch.empty((m, d), dtype=torch.int8, device=x.device),
+            torch.empty_like(x))
+
+
+_K2_ARGS = ("ln_scale_q", "ln_bias_q", "wqkv_q_t", "sqkv_eff", "bqkv_eff",
+            "wo_q_t", "so_eff", "bo", "gamma")
+K2_PARTS = ("ln_quant", "qkv_gemm", "attention", "out_proj")
+
+
+def _k2_args(x, got: dict, num_heads: int, ln_eps: float, cs, bufs):
+    """The library and K2's C arguments (but the stream) for a checked
+    CUDA x, its arguments `got` by name and the (qk8, v, ctx8, out)
+    buffers `bufs`."""
+    from geovpr_torch.ops._build import library_on
+    lib = library_on(x.device.index, "geovpr_mhsa_int8_init")
+    ptrs = [x] + [got[k] for k in _K2_ARGS] + list(bufs)
+    if any(t.data_ptr() % 16 for t in ptrs):
+        raise ValueError("K2 reads its tensors by TMA and 16-byte loads: "
+                         "each must start 16-byte aligned")
+    b, n, d = x.shape
+    return lib, (*(t.data_ptr() for t in ptrs), b, n, d, num_heads,
+                 float(ln_eps), float(cs) * LOG2E)
+
+
+def k2_launch_part(part: int, x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff,
+                   bqkv_eff, wo_q_t, so_eff, bo, gamma, num_heads: int,
+                   ln_eps: float = 1e-6, cs=None, *, bufs) -> None:
+    """One of K2's four launches (an index into K2_PARTS) alone, on the
+    CUDA arguments of `fused_mhsa_block_int8` (default mode) and the
+    `k2_buffers` `bufs`, whose contents from an earlier call it reads.
+    chip_smoke.py times K2's launches one by one with it and the card tests
+    check each against its plain part; it counts no launch."""
+    got = dict(zip(_K2_ARGS, (ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff,
+                              bqkv_eff, wo_q_t, so_eff, bo, gamma)))
+    err = k2_shape_error(x.shape[-1], num_heads)
+    if err:
+        raise ValueError(err)
+    lib, args = _k2_args(x, got, num_heads, ln_eps, cs, bufs)
+    with torch.cuda.device(x.device):
+        rc = lib.geovpr_mhsa_int8_parts(*args, part, part, _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"mhsa_int8 kernel launch failed: CUDA error {rc}")
+
+
+def vit_attention8_reference(qk8, v, num_heads: int, n: int, cs):
+    """Plain version of K2's attention launch: ctx8 (B*N, D) int8 from qk8
+    (B*N, 2D) int8 (q | k) and v (B*N, D) bf16 of images of N tokens, in
+    the default mode of `mhsa_block_int8_reference`."""
+    m, d = v.shape
+    b = m // n
+
+    def heads(t):
+        return t.reshape(b, n, num_heads, d // num_heads).transpose(1, 2)
+
+    si = _exact_bmm(heads(qk8[:, :d]), heads(qk8[:, d:]).transpose(-1, -2))
+    cs2 = torch.tensor(float(cs) * LOG2E, dtype=torch.float32)
+    p = torch.exp2(torch.clamp(si * cs2.to(si.device), max=100.0))
+    ctx = _mm(p.to(torch.bfloat16), heads(v)) / p.sum(-1, keepdim=True)
+    return round_clip_int8(ctx.transpose(1, 2).reshape(m, d))
 
 
 fused_mhsa_block_int8.launches = 0

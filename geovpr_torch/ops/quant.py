@@ -96,6 +96,16 @@ def ln_quant_reference(x: torch.Tensor, ln_scale_q: torch.Tensor,
                            * ln_scale_q + ln_bias_q)
 
 
+def qk8v_reference(xq, wqkv_q_t, sqkv_eff, bqkv_eff):
+    """Plain version of the int8 GEMM's QK8V epilogue (the QKV launch of K2
+    and K5): from the LN-quant rows xq (M, C) int8, qk8 (M, 2C) int8 (q |
+    k) and v (M, C) bf16, rounded from the f32 dequantised sums as the
+    half-blocks' plain versions round them."""
+    c = xq.shape[-1]
+    f = int_mm(xq, wqkv_q_t.t()).float() * sqkv_eff + bqkv_eff
+    return round_clip_int8(f[:, :2 * c]), f[:, 2 * c:].to(torch.bfloat16)
+
+
 def int8_resid_reference(a8: torch.Tensor, w_q_t: torch.Tensor,
                          s_eff: torch.Tensor, b: torch.Tensor,
                          res: torch.Tensor, gamma=None) -> torch.Tensor:

@@ -512,15 +512,6 @@ def k5_launch_part(part: int, x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff,
             f"swin_attn_int8 kernel launch failed: CUDA error {rc}")
 
 
-def swin_qkv8_reference(xq, wqkv_q_t, sqkv_eff, bqkv_eff):
-    """Plain version of K5's QKV launch: from the LN-quant rows xq (M, C)
-    int8, qk8 (M, 2C) int8 (q | k) and v (M, C) bf16, rounded from the f32
-    dequantised sums as `swin_attn_block_int8_reference` rounds them."""
-    c = xq.shape[-1]
-    f = int_mm(xq, wqkv_q_t.t()).float() * sqkv_eff + bqkv_eff
-    return round_clip_int8(f[:, :2 * c]), f[:, 2 * c:].to(torch.bfloat16)
-
-
 def swin_attention8_reference(qk8, v, table, num_heads: int, resolution: int,
                               window: int, shift: int, cs):
     """Plain version of K5's attention launch: ctx8 (M, C) int8 from the
@@ -635,6 +626,46 @@ def _ln_parts(x2d, ln_scale, ln_bias, ln_eps, dt):
     return xhat, rstd, (xhat * ln_scale.float() + ln_bias.float()).to(dt)
 
 
+def bwd_product_reference(a, w):
+    """Plain version of K9c's da = g Wo^T and dh = dqkv Wqkv^T launches:
+    a (M, K) times the transpose of an (in, out) weight w (N, K), f32
+    accumulation, rounded once to a's dtype."""
+    return _mm(a, w.t()).to(a.dtype)
+
+
+def weight_grad_reference(a, b, chunk: int | None = None):
+    """Plain version of K9c's dWo = ctx^T g and dWqkv = h^T dqkv launches:
+    a^T b in f32 over the rows of a (M, C) and b (M, N). With `chunk`, as
+    the kernel sums: one f32 partial per `chunk` rows, the partials added
+    in order (`wgrad_chunk` gives the kernel's chunk)."""
+    if chunk is None:
+        return _mm(a.t(), b)
+    out = _mm(a[:chunk].t(), b[:chunk])
+    for i in range(chunk, a.shape[0], chunk):
+        out = out + _mm(a[i:i + chunk].t(), b[i:i + chunk])
+    return out
+
+
+def wgrad_chunk(k: int, m: int, nc: int) -> int:
+    """The rows of a chunk of K9c's weight gradient (M, Nc) summed over K
+    rows: `csrc/train_gemm.cuh::split_rows` over its 64 x 64 output tiles,
+    about 528 items, whole 32-row steps."""
+    tiles = -(-m // 64) * -(-nc // 64)
+    splits = max(1, min(-(-528 // tiles), -(-k // 32)))
+    return -(-(-(-k // splits)) // 32) * 32
+
+
+def ln_vjp_reference(dh, xhat, rstd, ln_scale):
+    """Plain version of K9c's LN VJP launch: from dh (M, C) and the LN
+    recompute's xhat and 1/std, dx (f32, before its rounding), dls and
+    dlb."""
+    dhf = dh.float()
+    dxhat = dhf * ln_scale.float()
+    dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx, (dhf * xhat).sum(0), dhf.sum(0)
+
+
 def swin_attn_train_bwd_reference(xw, ln_scale, ln_bias, wqkv, wo, qkv, ctx,
                                   p, g, num_heads: int,
                                   ln_eps: float = 1e-5, split: bool = False):
@@ -650,8 +681,8 @@ def swin_attn_train_bwd_reference(xw, ln_scale, ln_bias, wqkv, wo, qkv, ctx,
     dt = xw.dtype
     m = bw * n
     gb = g.reshape(m, c).to(dt)
-    da = _mm(gb, wo.t()).to(dt)
-    dwo = _mm(ctx.t(), gb)
+    da = bwd_product_reference(gb, wo)
+    dwo = weight_grad_reference(ctx, gb)
     dbo = gb.float().sum(0)
     dqkv, dbias = swin_attn_core_bwd_reference(qkv, p, da, num_heads)
     x2d = xw.reshape(m, c)
@@ -660,18 +691,14 @@ def swin_attn_train_bwd_reference(xw, ln_scale, ln_bias, wqkv, wo, qkv, ctx,
             xs, ls, lb = (t.detach().requires_grad_() for t in
                           (x2d, ln_scale, ln_bias))
             h = _ln_parts(xs, ls, lb, ln_eps, dt)[2]
-            dh = _mm(dqkv, wqkv.t()).to(dt)
+            dh = bwd_product_reference(dqkv, wqkv)
             dx, dls, dlb = torch.autograd.grad(h, (xs, ls, lb), dh)
         h = h.detach()
     else:
         xhat, rstd, h = _ln_parts(x2d, ln_scale, ln_bias, ln_eps, dt)
-        dhf = _mm(dqkv, wqkv.t()).to(dt).float()
-        dls = (dhf * xhat).sum(0)
-        dlb = dhf.sum(0)
-        dxhat = dhf * ln_scale.float()
-        dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
-                     - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-    dwqkv = _mm(h.t(), dqkv)
+        dx, dls, dlb = ln_vjp_reference(bwd_product_reference(dqkv, wqkv),
+                                        xhat, rstd, ln_scale)
+    dwqkv = weight_grad_reference(h, dqkv)
     dbqkv = dqkv.float().sum(0)
     return (dx.to(dt).reshape(bw, n, c), dls.float(), dlb.float(),
             dwqkv.to(wqkv.dtype), dbqkv, dwo.to(wo.dtype), dbo, dbias)
@@ -877,34 +904,78 @@ def fused_swin_attn_bwd_all(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p, g,
     if c > 512:
         raise ValueError(f"K9c takes C <= 512 (the split backward with K9b "
                          f"takes the wider blocks), got C={c}")
-    lib = _train_lib(x.device)
-    n = window * window
-    dev, m = x.device, b * l
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    da, h, dx = (torch.empty_like(x) for _ in range(3))
-    dqkv = torch.empty_like(qkv)
-    stats = f32(m, 2)
-    part = _train_scratch(lib, b, resolution, c, num_heads, window, dev)
-    dwqkv, dbqkv, dwo, dbo = f32(c, 3 * c), f32(3 * c), f32(c, c), f32(c)
-    dbias, dls, dlb = f32(num_heads, n, n), f32(c), f32(c)
-    with torch.cuda.device(dev):
-        rc = lib.geovpr_swin_train_bwd_all(
-            x.data_ptr(), qkv.data_ptr(), p.data_ptr(), ctx.data_ptr(),
-            g.data_ptr(), wqkv.data_ptr(), wo.data_ptr(), ln_scale.data_ptr(),
-            ln_bias.data_ptr(), da.data_ptr(), dqkv.data_ptr(), h.data_ptr(),
-            stats.data_ptr(), part.data_ptr(), dx.data_ptr(),
-            dwqkv.data_ptr(), dbqkv.data_ptr(), dwo.data_ptr(),
-            dbo.data_ptr(), dbias.data_ptr(), dls.data_ptr(), dlb.data_ptr(),
-            b, resolution, c, num_heads, window, shift, float(ln_eps),
-            float((c // num_heads) ** -0.5), _stream(dev))
+    bufs = k9c_buffers(x, num_heads, resolution, window)
+    lib, args = _k9c_args(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p, g,
+                          num_heads, resolution, window, shift, ln_eps, bufs)
+    with torch.cuda.device(x.device):
+        rc = lib.geovpr_swin_train_bwd_all(*args, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"swin_train_bwd_all launch failed: CUDA error "
                            f"{rc}")
     fused_swin_attn_bwd_all.launches += 1
-    return dx, dls, dlb, dwqkv, dbqkv, dwo, dbo, dbias
+    return tuple(bufs[k] for k in _K9C_OUTS)
+
+
+# K9c's launches, as `geovpr_swin_train_bwd_all_parts` numbers them (a
+# product's reduce of its partial sums runs with it)
+K9C_PARTS = ("da", "dwo", "dbo", "core", "ln_rows", "dwqkv", "dbqkv", "dh",
+             "ln_vjp")
+_K9C_OUTS = ("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo", "dbo", "dbias")
+
+
+def k9c_buffers(x: torch.Tensor, num_heads: int, resolution: int,
+                window: int) -> dict:
+    """K9c's scratch and outputs for a CUDA stream x (B, L, C), by name:
+    da (dh once the dh launch has run), h, dqkv, stats, part and the
+    outputs `fused_swin_attn_bwd_all` returns."""
+    b, l, c = x.shape
+    n = window * window
+    lib = _train_lib(x.device)
+    dev = x.device
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    return dict(
+        da=torch.empty_like(x), h=torch.empty_like(x), dx=torch.empty_like(x),
+        dqkv=torch.empty((b, l, 3 * c), dtype=x.dtype, device=dev),
+        stats=f32(b * l, 2),
+        part=_train_scratch(lib, b, resolution, c, num_heads, window, dev),
+        dwqkv=f32(c, 3 * c), dbqkv=f32(3 * c), dwo=f32(c, c), dbo=f32(c),
+        dbias=f32(num_heads, n, n), dls=f32(c), dlb=f32(c))
+
+
+def _k9c_args(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p, g, num_heads,
+              resolution, window, shift, ln_eps, bufs: dict):
+    """The library and K9c's C arguments (but the first and last launch
+    and the stream) for checked CUDA tensors and `k9c_buffers` `bufs`."""
+    lib = _train_lib(x.device)
+    ptrs = [x, qkv, p, ctx, g, wqkv, wo, ln_scale, ln_bias] + [
+        bufs[k] for k in ("da", "dqkv", "h", "stats", "part", "dx", "dwqkv",
+                          "dbqkv", "dwo", "dbo", "dbias", "dls", "dlb")]
+    c = x.shape[-1]
+    return lib, (*(t.data_ptr() for t in ptrs), x.shape[0], resolution, c,
+                 num_heads, window, shift, float(ln_eps),
+                 float((c // num_heads) ** -0.5))
+
+
+def k9c_launch_part(part: int, x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p,
+                    g, num_heads: int, resolution: int, window: int,
+                    shift: int, ln_eps: float = 1e-5, *, bufs) -> None:
+    """One of K9c's launches (an index into K9C_PARTS, with the reduce of
+    its partial sums) alone, on the CUDA arguments of
+    `fused_swin_attn_bwd_all` and the `k9c_buffers` `bufs`, whose contents
+    from an earlier call it reads. chip_smoke.py times K9c's launches one
+    by one with it and the card tests check each against its plain part;
+    it counts no launch."""
+    lib, args = _k9c_args(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p, g,
+                          num_heads, resolution, window, shift, ln_eps, bufs)
+    with torch.cuda.device(x.device):
+        rc = lib.geovpr_swin_train_bwd_all_parts(*args, part, part,
+                                                 _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"swin_train_bwd_all launch failed: CUDA error "
+                           f"{rc}")
 
 
 fused_swin_attn_bwd_all.launches = 0

@@ -224,6 +224,77 @@ def test_int8_model_launches_once_per_layer(cuda):
     assert torch.isfinite(out.tokens.float()).all()
 
 
+def _k2_launch_checks(x, k2, h):
+    """K2's four launches alone (`k2_launch_part`), each fed the plain
+    parts' output of the launch before it, against its plain part: int8
+    within one step in at most 1% of the elements, bf16 within one
+    spacing (as K5's launches are held)."""
+    from geovpr_torch.ops import mhsa as mh
+    from geovpr_torch.ops.quant import (int8_resid_reference,
+                                        ln_quant_reference, qk8v_reference)
+    b, n, d = x.shape
+    qk8, v, ctx8, out = bufs = mh.k2_buffers(x)
+    xq = ln_quant_reference(x, k2["ln_scale_q"], k2["ln_bias_q"], 1e-6)
+    mh.k2_launch_part(0, x, **k2, num_heads=h, bufs=bufs)
+    torch.cuda.synchronize()
+    assert _int8_flips(ctx8, xq)
+    ctx8.copy_(xq)
+    mh.k2_launch_part(1, x, **k2, num_heads=h, bufs=bufs)
+    torch.cuda.synchronize()
+    qk_p, v_p = qk8v_reference(xq, k2["wqkv_q_t"], k2["sqkv_eff"],
+                               k2["bqkv_eff"])
+    assert _int8_flips(qk8, qk_p) and _bf16_close(v, v_p)
+    qk8.copy_(qk_p)
+    v.copy_(v_p)
+    mh.k2_launch_part(2, x, **k2, num_heads=h, bufs=bufs)
+    torch.cuda.synchronize()
+    ctx_p = mh.vit_attention8_reference(qk_p, v_p, h, n, k2["cs"])
+    assert _int8_flips(ctx8, ctx_p)
+    assert ctx_p.abs().max() > 16
+    ctx8.copy_(ctx_p)
+    mh.k2_launch_part(3, x, **k2, num_heads=h, bufs=bufs)
+    torch.cuda.synchronize()
+    want = int8_resid_reference(ctx_p, k2["wo_q_t"], k2["so_eff"], k2["bo"],
+                                x.reshape(b * n, d), gamma=k2["gamma"])
+    assert _bf16_close(out.reshape(b * n, d), want)
+
+
+@pytest.mark.parametrize("shape", [(2, 257, 768, 12), (3, 50, 384, 6),
+                                   (2, 17, 64, 1), (1, 1370, 1024, 16)])
+def test_k2_launches_match_their_plain_parts(cuda, shape):
+    """At DINOv2-B/14's N = 257 (a one-key last tile), small-14's width,
+    one head with a 17-token tail and large-14's width at N = 1370."""
+    b, n, d, h = shape
+    x, k2, _ = int8_block_case(b, n, d, h, cuda)
+    with torch.inference_mode():
+        _k2_launch_checks(x, k2, h)
+
+
+def test_k2_launches_one_by_one_equal_the_whole(cuda):
+    """K2's four launches run alone (`k2_launch_part`, which chip_smoke.py
+    times) leave one whole call's output, bit for bit, and count no
+    launch."""
+    from geovpr_torch.ops import mhsa as mh
+    x, k2, _ = int8_block_case(2, 257, 768, 12, cuda)
+    with torch.inference_mode():
+        out = mh.fused_mhsa_block_int8(x, **k2, num_heads=12)
+        bufs = mh.k2_buffers(x)
+        before = mh.fused_mhsa_block_int8.launches
+        for part in range(len(mh.K2_PARTS)):
+            mh.k2_launch_part(part, x, **k2, num_heads=12, bufs=bufs)
+        torch.cuda.synchronize()
+    assert mh.fused_mhsa_block_int8.launches == before
+    assert torch.equal(bufs[3], out)
+
+
+def test_k2_refuses_what_its_rule_refuses(cuda):
+    """Head dim 32 (two heads at D = 64): `k2_shape_error`'s words, before
+    any launch."""
+    x, k2, _ = int8_block_case(1, 5, 64, 1, cuda)
+    with torch.inference_mode(), pytest.raises(ValueError, match="head dim"):
+        fused_mhsa_block_int8(x, **k2, num_heads=2)
+
+
 _SWIN_SHAPES = [(2, 128, 4, 24, 12, 6), (2, 64, 2, 8, 4, 2),
                 (1, 1024, 32, 12, 12, 0), (3, 256, 8, 24, 12, 0)]
 # K4 also at Swin-B-384 stage 0's geometry (S = 96: 8 x 8 windows, the
@@ -347,7 +418,8 @@ def test_k5_launches_match_their_plain_parts(cuda, shape):
     attention's int8 context within one step in at most 1%, the out
     projection within one bf16 spacing."""
     from geovpr_torch.ops import swin_block as sb
-    from geovpr_torch.ops.quant import int8_resid_reference, ln_quant_reference
+    from geovpr_torch.ops.quant import (int8_resid_reference,
+                                        ln_quant_reference, qk8v_reference)
     x, blk = swin_block_case(shape, cuda, int8=True)
     kw = k5_kwargs(blk)
     m, c = x.shape[0] * x.shape[1], x.shape[-1]
@@ -360,8 +432,8 @@ def test_k5_launches_match_their_plain_parts(cuda, shape):
         ctx8.copy_(xq)
         sb.k5_launch_part(1, x, **kw, bufs=bufs)
         torch.cuda.synchronize()
-        qk_p, v_p = sb.swin_qkv8_reference(xq, kw["wqkv_q_t"],
-                                           kw["sqkv_eff"], kw["bqkv_eff"])
+        qk_p, v_p = qk8v_reference(xq, kw["wqkv_q_t"], kw["sqkv_eff"],
+                                   kw["bqkv_eff"])
         assert _int8_flips(qk8, qk_p) and _bf16_close(v, v_p)
         qk8.copy_(qk_p)
         v.copy_(v_p)
@@ -696,6 +768,79 @@ def test_k9_refuses_what_it_does_not_take(cuda):
                 torch.zeros(1, 144, 3072, dtype=torch.bfloat16, device=cuda),
                 wide, torch.zeros(1, 32, 144, 144, dtype=torch.bfloat16,
                                   device=cuda), wide, 32, 12, 12, 0)
+
+
+def _f32_close(got, want):
+    """An f32 sum over rows against its plain part summed in another order:
+    within 1e-5 of the largest value plus 1e-4 relative."""
+    err = (got - want).abs()
+    return bool((err <= 1e-5 * want.abs().max() + 1e-4 * want.abs()).all())
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 4, 24, 12, 6),
+                                   (1, 512, 16, 24, 12, 6),
+                                   (2, 192, 6, 24, 12, 6)])
+def test_k9c_launches_match_their_plain_parts(cuda, shape):
+    """K9c's four products on the TMA + wgmma GEMM against their plain
+    parts, after a whole backward run launch by launch: dh and da (the
+    (in, out) weights read K-major) within one bf16 spacing, dWo and
+    dWqkv (rows of both operands, in `wgrad_chunk` chunks) within f32
+    reassociation. C = 192 takes 64-wide column tiles and a second row
+    tile of the weight gradients that ends past C."""
+    from chip_smoke import k9_case
+    from geovpr_torch.ops import swin_block as sb
+    a, g, geom = k9_case(shape, cuda)
+    geo = tuple(geom.values())
+    c = shape[1]
+    with torch.no_grad():
+        _, qkv, ctx, p = sb.fused_swin_attn_train_fwd(
+            a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["bqkv"],
+            a["wo"], a["bo"], a["table"], *geo, 1e-5)
+        args = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["wo"], qkv,
+                ctx, p, g, *geo, 1e-5)
+        bufs = sb.k9c_buffers(a["x"], *geo[:3])
+        for part in range(len(sb.K9C_PARTS)):
+            sb.k9c_launch_part(part, *args, bufs=bufs)
+        torch.cuda.synchronize()
+        m = g.numel() // c
+        g2, dqkv, h = (t.reshape(m, -1) for t in (g, bufs["dqkv"],
+                                                  bufs["h"]))
+        assert _bf16_close(bufs["da"].reshape(m, c),
+                           sb.bwd_product_reference(dqkv, a["wqkv"]))
+        assert _f32_close(bufs["dwo"], sb.weight_grad_reference(
+            ctx.reshape(m, c), g2, sb.wgrad_chunk(m, c, c)))
+        assert _f32_close(bufs["dwqkv"], sb.weight_grad_reference(
+            h, dqkv, sb.wgrad_chunk(m, c, 3 * c)))
+        sb.k9c_launch_part(0, *args, bufs=bufs)
+        torch.cuda.synchronize()
+        assert _bf16_close(bufs["da"].reshape(m, c),
+                           sb.bwd_product_reference(g2, a["wo"]))
+
+
+def test_k9c_launches_one_by_one_equal_the_whole(cuda):
+    """K9c's launches run alone (`k9c_launch_part`, which chip_smoke.py
+    times) leave one whole call's outputs, bit for bit, and count no
+    launch: its sums have a fixed order."""
+    from chip_smoke import k9_case
+    from geovpr_torch.ops import swin_block as sb
+    a, g, geom = k9_case((2, 128, 4, 24, 12, 6), cuda)
+    geo = tuple(geom.values())
+    with torch.no_grad():
+        _, qkv, ctx, p = sb.fused_swin_attn_train_fwd(
+            a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["bqkv"],
+            a["wo"], a["bo"], a["table"], *geo, 1e-5)
+        args = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["wo"], qkv,
+                ctx, p, g, *geo, 1e-5)
+        whole = sb.fused_swin_attn_bwd_all(*args)
+        bufs = sb.k9c_buffers(a["x"], *geo[:3])
+        before = sb.fused_swin_attn_bwd_all.launches
+        for part in range(len(sb.K9C_PARTS)):
+            sb.k9c_launch_part(part, *args, bufs=bufs)
+        torch.cuda.synchronize()
+    assert sb.fused_swin_attn_bwd_all.launches == before
+    for name, want in zip(("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo",
+                           "dbo", "dbias"), whole):
+        assert torch.equal(bufs[name], want), name
 
 
 def test_swin_train_launches_per_step(cuda):

@@ -1,9 +1,10 @@
-"""The Hopper designs of K5 (the w8a8 Swin attention half-block) and K3
-(the w8a8 MLP half-block), on the CPU.
+"""The Hopper designs of K2 (the w8a8 ViT attention half-block), K5 (the
+w8a8 Swin attention half-block) and K3 (the w8a8 MLP half-block), on the
+CPU.
 
-Both run as separate launches on the card: K5 as LN-quant -> QKV GEMM ->
-int8-score window attention -> out projection, K3 as LN-quant -> fc1 ->
-fc2. The card's tests hold each launch against its plain part
+All three run as separate launches on the card: K2 as LN-quant -> QKV
+GEMM -> int8-score attention -> out projection, K5 the same with a window
+attention, K3 as LN-quant -> fc1 -> fc2. The card's tests hold each launch against its plain part
 (tests/test_torch_cuda.py); here the plain parts, composed, equal the
 whole plain versions bit for bit, so those per-launch checks cover the
 half-blocks. Beside them: the per-launch bounds chip_smoke.py prints, the
@@ -18,21 +19,25 @@ import torch
 from jax.experimental import pallas as pl
 
 import geovpr.ops.pallas_mlp as pmlp
-from chip_smoke import (PEAK_INT8, SWIN_ATTN_SHAPES, bounds, int8_block_case,
-                        k3_part_bounds, k5_kwargs, k5_part_bounds,
-                        swin_block_case, swin_bounds)
+from chip_smoke import (KERNEL_SHAPES, PEAK_INT8, SWIN_ATTN_SHAPES, bounds,
+                        int8_block_case, k2_part_bounds, k3_part_bounds,
+                        k5_kwargs, k5_part_bounds, swin_block_case,
+                        swin_bounds)
 from geovpr_torch.cli.presets import ANGLE_PRESETS, GEOPOSE_PRESETS
 from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
 from geovpr_torch.models.swin import SWIN_VARIANTS, SwinBlock, SwinTransformer
+from geovpr_torch.ops.mhsa import (K2_PARTS, k2_shape_error,
+                                   mhsa_block_int8_reference,
+                                   vit_attention8_reference)
 from geovpr_torch.ops.mlp_int8 import (K3_PARTS, fused_mlp_block_int8,
                                        k3_shape_error, mlp_block_int8_reference,
                                        mlp_fc1_int8_reference)
-from geovpr_torch.ops.quant import int8_resid_reference, ln_quant_reference
+from geovpr_torch.ops.quant import (int8_resid_reference, ln_quant_reference,
+                                    qk8v_reference)
 from geovpr_torch.ops.swin_block import (K5_PARTS, fused_swin_attn_block_int8,
                                          fused_window_ok, k5_shape_error,
                                          swin_attention8_reference,
-                                         swin_attn_block_int8_reference,
-                                         swin_qkv8_reference)
+                                         swin_attn_block_int8_reference)
 
 CPU = torch.device("cpu")
 # (B, C, H, S, w, shift): window 4 shifted and not, window 8, window 12
@@ -45,7 +50,7 @@ def _k5_parts(x, kw):
     """K5's four plain parts in turn, as the card's launches run them."""
     b, l, c = x.shape
     xq = ln_quant_reference(x, kw["ln_scale_q"], kw["ln_bias_q"], 1e-5)
-    qk8, v = swin_qkv8_reference(xq, kw["wqkv_q_t"], kw["sqkv_eff"],
+    qk8, v = qk8v_reference(xq, kw["wqkv_q_t"], kw["sqkv_eff"],
                                  kw["bqkv_eff"])
     ctx8 = swin_attention8_reference(qk8, v, kw["table"], kw["num_heads"],
                                      kw["resolution"], kw["window"],
@@ -68,6 +73,36 @@ def test_k5_parts_compose_to_the_plain_version(shape):
         ((m, c), torch.int8), ((m, 2 * c), torch.int8),
         ((m, c), torch.bfloat16), ((m, c), torch.int8)]
     # the attention is not idle: its int8 context spans the int8 range
+    assert mids[3].abs().max() > 16
+
+
+def _k2_parts(x, k2, h):
+    """K2's four plain parts in turn, as the card's launches run them."""
+    b, n, d = x.shape
+    xq = ln_quant_reference(x, k2["ln_scale_q"], k2["ln_bias_q"], 1e-6)
+    qk8, v = qk8v_reference(xq, k2["wqkv_q_t"], k2["sqkv_eff"],
+                            k2["bqkv_eff"])
+    ctx8 = vit_attention8_reference(qk8, v, h, n, k2["cs"])
+    out = int8_resid_reference(ctx8, k2["wo_q_t"], k2["so_eff"], k2["bo"],
+                               x.reshape(b * n, d), gamma=k2["gamma"])
+    return (xq, qk8, v, ctx8), out.reshape(b, n, d)
+
+
+@pytest.mark.parametrize("shape", [(2, 20, 128, 2), (1, 257, 128, 2),
+                                   (2, 17, 64, 1)])
+def test_k2_parts_compose_to_the_plain_version(shape):
+    """DINOv2 blocks at N = 20 and 17 (a masked tail of a 16-key tile) and
+    N = 257 (the base model's tokens: four 64-key tiles and one key)."""
+    b, n, d, h = shape
+    x, k2, _ = int8_block_case(b, n, d, h, CPU)
+    with torch.inference_mode():
+        mids, out = _k2_parts(x, k2, h)
+        want = mhsa_block_int8_reference(x, **k2, num_heads=h)
+    assert torch.equal(out, want)
+    m = b * n
+    assert [(t.shape, t.dtype) for t in mids] == [
+        ((m, d), torch.int8), ((m, 2 * d), torch.int8),
+        ((m, d), torch.bfloat16), ((m, d), torch.int8)]
     assert mids[3].abs().max() > 16
 
 
@@ -128,6 +163,24 @@ def test_k5_part_bounds_add_up(shape, want):
     assert all(v["bytes_bound_ms"] > 0 for v in parts.values())
 
 
+# the sums of K2's four launch bounds (ms) at chip_smoke.py's K2 shapes
+K2_SPLIT_MS = (0.07861, 0.0004906, 0.01885)
+
+
+@pytest.mark.parametrize("shape, want", zip(KERNEL_SHAPES, K2_SPLIT_MS))
+def test_k2_part_bounds_add_up(shape, want):
+    """The QKV GEMM's, the attention's and the out projection's products
+    are the half-block's operations (at their own rates); the four bounds
+    add up to the split's bound."""
+    parts = {p: k2_part_bounds(p, *shape) for p in K2_PARTS}
+    products = sum(v["ops_bound_ms"] for p, v in parts.items()
+                   if p != "ln_quant")
+    assert products == pytest.approx(bounds("K2", *shape)["ops_bound_ms"])
+    assert sum(v["bound_ms"] for v in parts.values()) == pytest.approx(
+        want, rel=1e-3)
+    assert all(v["bytes_bound_ms"] > 0 for v in parts.values())
+
+
 # (rows, D, hidden) -> the sum of K3's three launch bounds (ms): DINOv2-B/14
 # at B=64, Swin-B-384 stages 0-3 at B=64
 _K3_SPLITS = [((64 * 257, 768, 3072), 0.0897),
@@ -181,6 +234,22 @@ def test_k5_and_k3_rules_take_every_int8_block_of(preset):
         assert k5_shape_error(c, m.num_heads, m.window, m.shift) is None, (
             c, m.num_heads, m.window, m.shift)
         assert k3_shape_error(c, 4 * c) is None, c
+
+
+@pytest.mark.parametrize("variant", sorted(DINOV2_VARIANTS))
+def test_k2_rule_takes_every_dinov2_block(variant):
+    v = DINOV2_VARIANTS[variant]
+    assert k2_shape_error(v["hidden_size"], v["num_heads"]) is None
+
+
+@pytest.mark.parametrize("d, heads, words", [
+    (128, 4, "head dim"),        # head dim 32: a q8 box is one 64-byte head
+    (100, 3, "head dim"),        # D not a multiple of the heads
+    (1088, 17, "D <= 1024"),     # beyond the LN-quant pass's staging
+])
+def test_k2_rule_refuses(d, heads, words):
+    err = k2_shape_error(d, heads)
+    assert err is not None and words in err and "K2" in err
 
 
 @pytest.mark.parametrize("variant", ["base-14", "large-14"])

@@ -23,8 +23,12 @@ import torch
 from jax.experimental import pallas as pl
 
 import geovpr.ops.pallas_swin_block as psb
-from geovpr_torch.ops.swin_block import (swin_attn_train_bwd_reference,
-                                         swin_attn_train_reference)
+from geovpr_torch.ops.swin_block import (_ln_parts, bwd_product_reference,
+                                         ln_vjp_reference,
+                                         swin_attn_core_bwd_reference,
+                                         swin_attn_train_bwd_reference,
+                                         swin_attn_train_reference,
+                                         weight_grad_reference, wgrad_chunk)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -123,6 +127,58 @@ def test_vjp_matches_jax(interpret, monkeypatch, case, split):
             ("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo", "dbo", "dbias"),
             (dx, dls, dlb, dwqkv, dbqkv, dwo, dbo, dbias), want):
         _close(got, w, name)
+
+
+def _k9c_parts(xw, ls, lb, wqkv, wo, qkv, ctx, p, g, h, chunk):
+    """K9c's plain parts in the order of its launches (da, dWo, dbo, the
+    core, the LN recompute, dWqkv, dbqkv, dh, the LN VJP), the weight
+    gradients summed in `chunk`-row partials as the kernel sums them."""
+    bw, n, c = xw.shape
+    dt, m = xw.dtype, bw * n
+    gb = g.reshape(m, c)
+    da = bwd_product_reference(gb, wo)
+    dwo = weight_grad_reference(ctx, gb, chunk)
+    dbo = gb.float().sum(0)
+    dqkv, dbias = swin_attn_core_bwd_reference(qkv, p, da, h)
+    xhat, rstd, hh = _ln_parts(xw.reshape(m, c), ls, lb, 1e-5, dt)
+    dwqkv = weight_grad_reference(hh, dqkv, chunk)
+    dbqkv = dqkv.float().sum(0)
+    dx, dls, dlb = ln_vjp_reference(bwd_product_reference(dqkv, wqkv), xhat,
+                                    rstd, ls)
+    return (dx.to(dt).reshape(bw, n, c), dls, dlb, dwqkv.to(wqkv.dtype),
+            dbqkv, dwo.to(wo.dtype), dbo, dbias)
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k9c_parts_compose_to_the_plain_version(dtype, chunked):
+    """The plain parts of K9c's launches, composed, equal the all-in-one
+    plain version bit for bit; summed over the kernel's chunks of rows
+    (`wgrad_chunk`: four 32-row chunks at this M = 128), only dWo and dWqkv
+    move, by the f32 reassociation: within 1e-5 of their largest value
+    (and one bf16 spacing where they are rounded to bf16)."""
+    bw, n, c, h, nw, with_mask = CASES[0]
+    args, mask, g = _case(*CASES[0])
+    xw, ls, lb, wqkv, bqkv, wo, bo, bias = map(_t, args)
+    xw, wqkv, wo, gt = (t.to(dtype) for t in (xw, wqkv, wo, _t(g)))
+    _, qkv, ctx, p = swin_attn_train_reference(xw, ls, lb, wqkv, bqkv, wo, bo,
+                                               bias, _t(mask), h)
+    assert wgrad_chunk(bw * n, c, c) == wgrad_chunk(bw * n, c, 3 * c) == 32
+    chunk = 32 if chunked else None
+    got = _k9c_parts(xw, ls, lb, wqkv, wo, qkv, ctx, p, gt, h, chunk)
+    want = swin_attn_train_bwd_reference(xw, ls, lb, wqkv, wo, qkv, ctx, p,
+                                         gt, h)
+    for name, a, b in zip(("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo",
+                           "dbo", "dbias"), got, want):
+        if chunked and name in ("dwqkv", "dwo"):
+            err = (a.float() - b.float()).abs()
+            tol = 1e-5 * b.float().abs().max()
+            if dtype == torch.bfloat16:
+                _, e = torch.frexp(b.float().abs())
+                tol = tol + torch.ldexp(torch.ones_like(err), e - 8)
+            assert (err <= tol).all(), name
+        else:
+            assert a.dtype == b.dtype and torch.equal(a, b), name
 
 
 def _partition(x, res, win):
