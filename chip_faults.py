@@ -20,8 +20,12 @@ backward; K9c with dbias taken from one CTA's partial sum only, its
 weight-gradient GEMM dropping the last chunk of rows, or da reading Wo
 with the wrong major-ness (g Wo for g Wo^T); K8a
 (K1's attention) without the mask of the keys past N; K1's TMA + wgmma
-GEMM (so K8a's) never multiplying the last k tile of a tile; K8b without
-the sum of dp * p; K8c with dWqkv taken from one CTA's partial sum only),
+GEMM (so K8a's) never multiplying the last k tile of a tile; K8b's core
+without the sum of dp * p, or without the mask of the keys past N on the
+one-key tail tile of N = 257; K8c with dWqkv taken from one CTA's partial
+sum only, its dWqkv product skipping the 16-row tail of M = 16 x 257 =
+64 x 64 + 16, or its dgamma GY epilogue summing one warpgroup's rows
+only),
 builds that copy and runs the chip_smoke.py check of that kernel
 (`int8_kernels_vs_plain` for K2/K3 and the int8 GEMM,
 `swin_kernels_vs_plain` for K4/K5/K6,
@@ -144,13 +148,26 @@ FAULTS = {
          "for (int kk = 0; kk < (kt + 1 < ktiles ? HG_BK / 16 : 0); ++kk) {")],
         _K8),
     "K8b sum of dp * p dropped": ("mhsa_train.cu", [
-        ("ds[j][e] = p * (dp[e] - (hi ? sub1 : sub0)) * scale;",
-         "ds[j][e] = p * dp[e] * scale;"),
-        ("ds[j][e] = pv * (dp[e] - sq.z) * scale;",
-         "ds[j][e] = pv * dp[e] * scale;")], _K8),
+        ("ds[c] = p[c] * (dp[e + c] - (half ? sub1 : sub0)) * scale;",
+         "ds[c] = p[c] * dp[e + c] * scale;")], _K8),
+    "K8b key mask dropped on the one-key tail tile": ("mhsa_train.cu", [
+        ("const bool in = kFull || 8 * (i >> 1) + 2 * t + (i & 1) < cols;",
+         "const bool in = true;"),
+        ("if (kFull || 8 * (i >> 1) + 2 * t + (i & 1) < cols)\n        l =",
+         "if (true)\n        l ="),
+        ("if (!kFull && 8 * j + 2 * t + (e & 1) >= cols) continue;", ""),
+        ("p[c] = key + c < cols", "p[c] = true")],
+        _K8),
     "K8c dWqkv from one CTA's partial": ("mhsa_train.cu", [
-        ("reduce(st, pt, S1, (size_t)D * 3 * D, static_cast<float*>(dwqkv))",
-         "reduce(st, pt, 1, (size_t)D * 3 * D, static_cast<float*>(dwqkv))")],
+        ("reduce(st, pt, S1, (size_t)D * 3 * D,",
+         "reduce(st, pt, 1, (size_t)D * 3 * D,")], _K8),
+    "K8c dWqkv skips the 16-row tail of M": ("mhsa_train.cu", [
+        ("ta, dqkvb, M, 3 * D, ep, nullptr, D, st, c1)",
+         "ta, dqkvb, M / 64 * 64, 3 * D, ep, nullptr, D, st, c1)")], _K8),
+    "K8c dgamma's GY epilogue sums one warpgroup's rows only": (
+        "hopper_gemm.cuh", [
+            ("for (int r = 0; r < 64 && row0 + r < M; ++r)",
+             "for (int r = 0; r < 64 && row0 + r < M && wg == 0; ++r)")],
         _K8),
 }
 

@@ -52,8 +52,12 @@ int8-score window attention) at the four Swin-B-384 stages, K3's three
 (LN-quant, fc1, fc2) at those stages' widths and at 64x257x768, K6's two
 (the merge-LN pass, the GEMM) at its three boundaries, and K9c's nine
 (its four TMA + wgmma products, the column sums, the core, the LN
-recompute and VJP) at the three Swin-B-384 training stages that take it;
-K9a and K9c are also timed whole at those stages. For each path it
+recompute and VJP) at the three Swin-B-384 training stages that take it,
+and K8c's eleven (dy, its five TMA + wgmma products, the column sums, the
+TMA-fed core, the LN recompute and VJP) at DINOv2-B/14's training shape;
+K9a and K9c are also timed whole at those stages, and K8b at both DINOv2
+training shapes (base-14's, and large-14's, where it runs alone). For
+each path it
 compares the kernel path with the plain path for the whole model, counts
 the kernels' launches, times the path and the kernels (beside their plain
 versions, one library yardstick each and their bounds), and profiles one
@@ -1976,12 +1980,14 @@ def k8_bounds(kind: str, shape) -> dict:
                 ops_bound_ms=ops_t * 1e3, bytes_bound_ms=bytes_t * 1e3)
 
 
-def k8_kernel_times(device, card: str, shape=K8_MAIN) -> dict:
-    """K8a, K8b and K8c at DINOv2-B/14's training shape (B=16), each in
-    turns with its plain version and its library yardstick
-    (`library_k1`'s forward for K8a and its whole backward for K8c; for
-    K8b the backward of F.scaled_dot_product_attention alone, on the same
-    q, k, v), beside its bound."""
+def k8_kernel_times(device, card: str, shape=K8_MAIN,
+                    names=("K8a", "K8b", "K8c")) -> dict:
+    """K8a, K8b and K8c (those of `names`) at one DINOv2 training shape
+    (B=16; DINOv2-B/14's by default), each in turns with its plain version
+    and its library yardstick (`library_k1`'s forward for K8a and its whole
+    backward for K8c; for K8b the backward of F.scaled_dot_product_attention
+    alone, on the same q, k, v), beside its bound; K8a also launch by
+    launch."""
     import torch.nn.functional as F
 
     from geovpr_torch.ops import mhsa as mh
@@ -2014,7 +2020,8 @@ def k8_kernel_times(device, card: str, shape=K8_MAIN) -> dict:
                 "library": lambda: torch.autograd.grad(
                     y_lib, leaves, g, retain_graph=True)}}
     out = {}
-    for name, fns in cases.items():
+    for name in names:
+        fns = cases[name]
         with torch.no_grad() if name == "K8a" else torch.enable_grad():
             t = interleaved_ms(fns, iters=5)
         out[name] = dict(ms=t["kernel"][0], plain_ms=t["plain"][0],
@@ -2023,7 +2030,76 @@ def k8_kernel_times(device, card: str, shape=K8_MAIN) -> dict:
                          **k8_bounds(name, shape))
         phase("kernel_time", card=repr(card), name=name,
               shape="B{}_N{}_D{}_H{}".format(*shape), **out[name])
-    out["K8a"]["parts"] = k1_part_times(a["x"], a, h, card, "K8a")
+    if "K8a" in names:
+        out["K8a"]["parts"] = k1_part_times(a["x"], a, h, card, "K8a")
+    return out
+
+
+def k8c_part_bounds(part: str, shape) -> dict:
+    """The least time of one of K8c's launches (with the reduce of its
+    partial sums) at (B, N, D, H), M = B N rows: its inputs read once and
+    its outputs written once (bf16 streams and matrices, f32 vectors and
+    weight gradients) over 3.35 TB/s, against its products at the bf16
+    peak or its f32 operations (scaling, column sums, the LayerNorm
+    recompute and VJP) at 67 TFLOP/s."""
+    b, n, d, h = shape
+    m = b * n
+    if part == "dy":             # g, gamma -> dy
+        return part_bound(m * d, PEAK_F32, 2 * m * d * 2 + d * 4)
+    if part == "dbo":            # g, gamma -> dbo
+        return part_bound(2 * m * d, PEAK_F32, m * d * 2 + 2 * d * 4)
+    if part == "da":             # dy, Wo -> da
+        return part_bound(2 * m * d * d, PEAK_BF16,
+                          2 * m * d * 2 + d * d * 2)
+    if part == "dwo":            # ctx, dy -> dWo (f32)
+        return part_bound(2 * m * d * d, PEAK_BF16,
+                          2 * m * d * 2 + d * d * 4)
+    if part == "dgamma":         # ctx, Wo, bo, g -> dgamma
+        return part_bound(2 * m * d * d, PEAK_BF16,
+                          2 * m * d * 2 + d * d * 2 + 2 * d * 4)
+    if part == "core":           # qkv, da -> dqkv
+        return part_bound(5 * 2 * b * h * n * n * (d // h), PEAK_BF16,
+                          7 * m * d * 2)
+    if part == "ln_rows":        # x, ln_scale, ln_bias -> h, stats
+        return part_bound(8 * m * d, PEAK_F32,
+                          2 * m * d * 2 + 2 * d * 4 + m * 8)
+    if part == "dwqkv":          # h, dqkv -> dWqkv (f32)
+        return part_bound(6 * m * d * d, PEAK_BF16,
+                          4 * m * d * 2 + 3 * d * d * 4)
+    if part == "dbqkv":          # dqkv -> dbqkv
+        return part_bound(3 * m * d, PEAK_F32, 3 * m * d * 2 + 3 * d * 4)
+    if part == "dh":             # dqkv, Wqkv -> dh
+        return part_bound(6 * m * d * d, PEAK_BF16,
+                          4 * m * d * 2 + 3 * d * d * 2)
+    # x, dh, stats, ln_scale, g -> dx, dls, dlb
+    return part_bound(11 * m * d, PEAK_F32,
+                      4 * m * d * 2 + m * 8 + 3 * d * 4)
+
+
+def k8c_part_times(device, card: str, shape=K8_MAIN) -> dict:
+    """K8c's launches (`K8C_PARTS`, each with the reduce of its partial
+    sums) timed one by one in CUDA graphs by `parts_split`, beside
+    `k8c_part_bounds`, at DINOv2-B/14's training shape (B=16), and the
+    whole K8c called from Python (CUDA events, `[kernel_time]
+    name=K8c.call`). The launches are not counted (`k8c_launch_part`)."""
+    from geovpr_torch.ops import mhsa as mh
+
+    h = shape[3]
+    tag = "B{}_N{}_D{}_H{}".format(*shape)
+    a, g = k8_case(shape, device)
+    with torch.no_grad():
+        res = mh.fused_mhsa_train_fwd(*_k8_fwd_args(a, h))
+        ba = _k8_bwd_args(a, res, g, h)
+        call = cuda_ms(lambda: mh.fused_mhsa_bwd_all(*ba), iters=5)
+        phase("kernel_time", card=repr(card), name="K8c.call", shape=tag,
+              ms=call, timed="cuda_events", **k8_bounds("K8c", shape))
+        bufs = mh.k8c_buffers(a["x"], h)
+        out = parts_split(card, "K8c", tag, mh.K8C_PARTS,
+                          lambda i: mh.k8c_launch_part(i, *ba, bufs=bufs),
+                          lambda part: k8c_part_bounds(part, shape))
+    out["call_ms"] = call
+    del a, g, res, ba, bufs
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2485,6 +2561,8 @@ def main() -> int:
     k8_errs = k8_kernels_vs_plain(device)
     dino_launches = dinov2_train_path(device, card)
     k8t = k8_kernel_times(device, card)
+    k8t["K8b"] = k8_kernel_times(device, card, K8_SHAPES[1], ("K8b",))["K8b"]
+    k8c_part_times(device, card)
 
     rows = []
     for name, k, src, replaces, count, err in (
@@ -2547,17 +2625,17 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
-    for name, k, line, src in (("fused_mhsa_train_fwd", "K8a", 1094, "mhsa"),
-                               ("fused_mhsa_bwd_core", "K8b", 1166,
-                                "mhsa_train"),
-                               ("fused_mhsa_bwd_all", "K8c", 1385,
-                                "mhsa_train")):
+    # K8b at large-14's shape, the one path that launches it
+    for name, k, line, src, shape in (
+            ("fused_mhsa_train_fwd", "K8a", 1094, "mhsa", K8_MAIN),
+            ("fused_mhsa_bwd_core", "K8b", 1166, "mhsa_train", K8_SHAPES[1]),
+            ("fused_mhsa_bwd_all", "K8c", 1385, "mhsa_train", K8_MAIN)):
         t = k8t[k]
         rows.append({"name": name, "route": "cuda",
                      "source": f"geovpr_torch/csrc/{src}.cu",
                      "replaces": f"geovpr/ops/pallas_mhsa.py:{line}",
                      "launches": dino_launches[name],
-                     "max_abs_err": k8_errs[(k, K8_MAIN)], "ms": t["ms"],
+                     "max_abs_err": k8_errs[(k, shape)], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})

@@ -1,5 +1,6 @@
-"""K2 and K9c times, the w8a8 models' img/s and the Swin training step's
-device time of several checkouts, in turns, on one CUDA card.
+"""K2, K8b, K8c and K9c times, the w8a8 models' img/s and the Swin-B-384
+and DINOv2-B/14 training steps' device time of several checkouts, in
+turns, on one CUDA card.
 
     python3 chip_versus.py CHECKOUT [CHECKOUT ...]
 
@@ -7,14 +8,20 @@ Each argument (`.` for this checkout, or an unpacked `git archive` of an
 earlier commit in a gitignored directory) runs in a process of its own,
 with its own `geovpr_torch` and `chip_smoke.py` first on the path, builds
 its own kernels and prints `[versus]` lines: the CUDA-event ms of K2 at
-DINOv2-B/14's 64x257x768x12 and of K9c at the three Swin-B-384 stages
-that take it (B=16), the ms per B=64 batch and img/s of the w8a8 DINOv2-B/14
-+ SALAD descriptors (224 px) and the w8a8 Swin-B-384 geopose model (384
-px), each calibrated on its first batch, and one Swin-B-384 training step
-(preset swin_b384_gemini2, B=16): host ms per step over 5 synchronised
-steps, and the device-busy ms of one step under torch.profiler. Inputs and
-weights are chip_smoke.py's, from seed 0. Name the checkouts in turns
-(`OLD . . OLD`) to compare two on one card. Needs one CUDA card.
+DINOv2-B/14's 64x257x768x12, of K8b at DINOv2's training shapes
+16x257x768x12 (base-14) and 16x257x1024x16 (large-14) and K8c at
+16x257x768x12, each in ROUNDS rounds of turns with its library yardstick
+(the backward of F.scaled_dot_product_attention on the same q, k, v for
+K8b, `library_k1`'s whole backward for K8c; the order reversed every other
+round), and of K9c at the three Swin-B-384 stages that take it (B=16), the
+ms per B=64 batch and img/s of the w8a8 DINOv2-B/14 + SALAD descriptors
+(224 px) and the w8a8 Swin-B-384 geopose model (384 px), each calibrated
+on its first batch, and one training step of Swin-B-384 (preset
+swin_b384_gemini2) and of DINOv2-B/14 (dinov2_meanpool_huber), B=16: host
+ms per step over 5 synchronised steps, and the device-busy ms of one step
+under torch.profiler. Inputs and weights are chip_smoke.py's, from seed 0.
+Name the checkouts in turns (`OLD . . OLD`) to compare two on one card.
+Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -28,10 +35,11 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 ITERS = 10
+ROUNDS = 4
 
 
-def _train_step_times(cs, dev, line) -> None:
-    """One Swin-B-384 training step on a fixed batch of 16 synthetic
+def _train_step_times(cs, dev, line, preset: str, name: str) -> None:
+    """One training step of `preset` on a fixed batch of 16 synthetic
     images (dropout and DropPath off): host ms over 5 synchronised steps,
     then the device-busy ms of one step under torch.profiler."""
     import dataclasses
@@ -45,7 +53,7 @@ def _train_step_times(cs, dev, line) -> None:
     from geovpr_torch.train.state import create_train_state
     from geovpr_torch.train.steps import make_train_step
 
-    cfg = build_preset(cs.TRAIN_PRESET)
+    cfg = build_preset(preset)
     size = cfg.data.image_size
     src = cs.synthetic_val(cs.TRAIN_BATCH, size,
                            np.random.default_rng(cs.SEED + 7))
@@ -74,8 +82,50 @@ def _train_step_times(cs, dev, line) -> None:
         torch.cuda.synchronize()
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")) / 1e3
-    line("swin_b384_train_step", f"B{cs.TRAIN_BATCH}", ms,
+    line(name, f"B{cs.TRAIN_BATCH}", ms,
          device_busy_ms=busy if busy else "not measured")
+    del model, st, batch
+    torch.cuda.empty_cache()
+
+
+def _k8_times(cs, dev, line) -> None:
+    """K8b at both DINOv2 training shapes and K8c at base-14's, each in
+    ROUNDS rounds of turns with its library yardstick."""
+    import torch.nn.functional as F
+
+    from geovpr_torch.ops import mhsa as mh
+
+    for shape in cs.K8_SHAPES:
+        h, d = shape[3], shape[2]
+        tag = "B{}_N{}_D{}_H{}".format(*shape)
+        a, g = cs.k8_case(shape, dev)
+        fa = cs._k8_fwd_args(a, h)
+        with torch.no_grad():
+            res = mh.fused_mhsa_train_fwd(*fa)
+        qh, kh, vh = (mh._heads(t, h).contiguous().requires_grad_()
+                      for t in res[1].split(d, dim=-1))
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(qh, kh, vh)
+        g_o = torch.randn(o.shape, device=dev, dtype=o.dtype)
+        fns = {"K8b": lambda: mh.fused_mhsa_bwd_core(res[1], g, h),
+               "K8b_sdpa_backward": lambda: torch.autograd.grad(
+                   o, (qh, kh, vh), g_o, retain_graph=True)}
+        if mh.bwd_all_ok(d):
+            ba = cs._k8_bwd_args(a, res, g, h)
+            leaves = [t.detach().requires_grad_() for t in fa[:8]]
+            with torch.enable_grad():
+                y_lib = cs.library_k1(*leaves, h)
+            fns["K8c"] = lambda: mh.fused_mhsa_bwd_all(*ba)
+            fns["K8c_library_k1_backward"] = lambda: torch.autograd.grad(
+                y_lib, leaves, g, retain_graph=True)
+        names = list(fns)
+        for r in range(ROUNDS):
+            for name in names if r % 2 == 0 else names[::-1]:
+                with torch.enable_grad():
+                    ms = cs.cuda_ms(fns[name], ITERS)
+                line(name, tag, ms, round=r)
+        del a, g, res, qh, kh, vh, o, fns
+        torch.cuda.empty_cache()
 
 
 def run(label: str) -> None:
@@ -142,7 +192,10 @@ def run(label: str) -> None:
              img_per_s=cs.SWIN_BATCH * 1e3 / ms)
         del model, images
     torch.cuda.empty_cache()
-    _train_step_times(cs, dev, line)
+    _k8_times(cs, dev, line)
+    _train_step_times(cs, dev, line, cs.TRAIN_PRESET, "swin_b384_train_step")
+    _train_step_times(cs, dev, line, "dinov2_meanpool_huber",
+                      "dinov2_b14_train_step")
 
 
 def _child(checkout: Path, label: str) -> None:
@@ -160,7 +213,7 @@ def _child(checkout: Path, label: str) -> None:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
-        print(__doc__.strip().splitlines()[3], file=sys.stderr)
+        print(__doc__.strip().splitlines()[4], file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_versus: no CUDA device is available", file=sys.stderr)

@@ -1,7 +1,7 @@
 // The bf16 block GEMM with a LayerNorm prologue of K9a's forward
-// (swin_train.cu), and the warp helpers and WMMA set-up that vit_attn.cuh
-// (K8b/K8c) and train_gemm.cuh (K9a's out projection, K8c) include it for,
-// for Hopper (sm_90a):
+// (swin_train.cu), and the warp helpers and WMMA set-up that
+// train_gemm.cuh (K9a's out projection, the row passes of K9c and K8c)
+// includes it for, for Hopper (sm_90a):
 //
 //   qkv(M, Nc) = LN(x)(M, K) @ W(K, Nc) + bias, and q_s = that * qscale on
 //   the first qcols columns

@@ -271,6 +271,19 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB), "n"(kTransA));
 }
 
+// d (64 x 32) as wgmma_m64n64, N = 32 (d[4 j + 2 half + c], j < 4)
+template <int kTransB, int kTransA = 0>
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, %20, %19;\n}\n"
+      : HP_D8(0), HP_D8(8)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB), "n"(kTransA));
+}
+
 // the same with A (64 x 16) in registers, in the m16n8k16 A-fragment
 // layout of each warp's 16 rows (a[0..3]: rows g / g + 8, k 2t / 2t + 8)
 template <int kTransB>

@@ -35,9 +35,17 @@
 //              dh^-0.5 log2 e on q; K1 passes qcols = 0);
 //   EPI_PROJ:  (acc + bias) * gamma + resid (K1's LayerScale);
 //   EPI_RESID: acc + bias + resid (K4: no LayerScale);
-//   EPI_NONE:  acc (K6, no bias; K9c's da and dh);
+//   EPI_NONE:  acc (K6, no bias; K9c's and K8c's da and dh);
 //   EPI_F32:   acc in f32 to chunk z's slice of ep.part, unrounded (K9c's
-//              weight gradients, below).
+//              and K8c's weight gradients, below);
+//   EPI_GY:    K8c's dgamma partials: no output tile; each warpgroup
+//              stages its 64 rows of acc in f32, 32 columns at a time, in
+//              the tile's last stage, and 32 of its threads write, for its
+//              64-row block y,
+//              ep.part[y Nc + col] = the sum over the block's rows (< M),
+//              in row order, of resid[row][col] (acc + bias[col]) (the
+//              first port's TG_GY: dgamma = sum g (ctx Wo + bo) with y
+//              recomputed in f32).
 // Two operand forms serve the training backward's products, the same
 // kernel with the major-ness of each operand a template parameter: kBK
 // reads W K-major, stored (Nc, K) (da = g Wo^T with Wo stored (in, out):
@@ -62,16 +70,24 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-enum { HG_EPI_QKV, HG_EPI_PROJ, HG_EPI_RESID, HG_EPI_NONE, HG_EPI_F32 };
+enum {
+  HG_EPI_QKV,
+  HG_EPI_PROJ,
+  HG_EPI_RESID,
+  HG_EPI_NONE,
+  HG_EPI_F32,
+  HG_EPI_GY
+};
 
 // What the epilogue adds (see the header note); unused fields are ignored.
 struct HgEpilogue {
   const float* bias;   // (Nc,); null with HG_EPI_NONE and HG_EPI_F32
   const float* gamma;  // (Nc,), HG_EPI_PROJ
-  const bf16* resid;   // (M, Nc), HG_EPI_PROJ and HG_EPI_RESID
+  const bf16* resid;   // (M, Nc), HG_EPI_PROJ, HG_EPI_RESID and HG_EPI_GY
   float qscale;
   int qcols;
-  float* part;         // (splits, M, Nc) f32 partial sums, HG_EPI_F32
+  float* part;         // f32 partial sums: (splits, M, Nc) with HG_EPI_F32,
+                       // (ceil(M / 64), Nc) with HG_EPI_GY
 };
 
 constexpr int HG_BM = 128;        // rows of an output tile
@@ -87,8 +103,10 @@ struct HgTile {
   static constexpr int kStageBytes = kABytes + kBBytes;
   // the ring, its 2 kStages barriers, and the slack of align1024
   static constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
-  // the epilogue stages the bf16 output tile in one stage
+  // the epilogue stages the bf16 output tile in one stage (HG_EPI_GY: 32
+  // f32 columns of it at a time)
   static_assert(HG_BM * BN * 2 <= kStageBytes, "output tile");
+  static_assert(HG_BM * 32 * 4 <= kStageBytes, "GY columns");
 };
 
 constexpr int LN_ROWS = 8;        // rows (warps) of a LayerNorm block
@@ -355,6 +373,40 @@ hopper_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
       held = s;
       continue;
     }
+    if constexpr (kEpi == HG_EPI_GY) {
+      // 32 columns at a time: the warpgroup's 64 x 32 f32 block of acc in
+      // its part of stage s (8-column chunks XOR-swizzled by row), then
+      // thread c < 32 sums column c down the block's rows in order
+      float* cs = reinterpret_cast<float*>(ring + s * T::kStageBytes) +
+                  wg * 64 * 32;
+      const int row0 = m0 + wg * 64;
+#pragma unroll
+      for (int hc = 0; hc < BN / 32; ++hc) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int lr = lr0 + 8 * half;
+            *reinterpret_cast<float2*>(
+                cs + lr * 32 + ((8 * jj) ^ (8 * (lr & 3))) + 2 * t) =
+                make_float2(acc[4 * (4 * hc + jj) + 2 * half],
+                            acc[4 * (4 * hc + jj) + 2 * half + 1]);
+          }
+        named_sync(2 + wg, 128);
+        const int col = n0 + 32 * hc + tid;
+        if (tid < 32 && col < Nc && row0 < M) {
+          const float bc = ep.bias[col];
+          float sum = 0.f;
+          for (int r = 0; r < 64 && row0 + r < M; ++r)
+            sum += __bfloat162float(ep.resid[(size_t)(row0 + r) * Nc + col]) *
+                   (cs[r * 32 + (tid ^ (8 * (r & 3)))] + bc);
+          ep.part[(size_t)(row0 / 64) * Nc + col] = sum;
+        }
+        named_sync(2 + wg, 128);
+      }
+      held = s;
+      continue;
+    }
     unsigned char* out_s =
         ring + s * T::kStageBytes + wg * 64 * BN * 2;  // BN / 64 boxes
 #pragma unroll
@@ -435,7 +487,7 @@ cudaError_t launch_gemm(const CUtensorMap& ta, const bf16* w, int K, int Nc,
   const cuuint32_t box[2] = {64, (cuuint32_t)(kBK ? bn : HG_BK)};
   if (!make_tmap(&tw, w, 2, dims, strides, box)) return cudaErrorInvalidValue;
   CUtensorMap to{};
-  if (kEpi != HG_EPI_F32) {
+  if (kEpi != HG_EPI_F32 && kEpi != HG_EPI_GY) {
     const cuuint64_t odims[2] = {(cuuint64_t)Nc, (cuuint64_t)M};
     const cuuint64_t ostrides[1] = {(cuuint64_t)Nc * 2};
     const cuuint32_t obox[2] = {64, 64};

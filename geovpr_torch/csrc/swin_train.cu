@@ -557,9 +557,9 @@ extern "C" int geovpr_swin_train_fwd(
       static_cast<const float*>(table), C, H, S, win, shift);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  return (int)tgemm<false, false, TG_BF16>(
-      st, static_cast<const bf16*>(ctx), C, static_cast<const bf16*>(wo), C, M,
-      C, C, 1, C, static_cast<const float*>(bo), static_cast<bf16*>(y), nullptr);
+  return (int)tgemm(st, static_cast<const bf16*>(ctx), C,
+                    static_cast<const bf16*>(wo), C, M, C, C,
+                    static_cast<const float*>(bo), static_cast<bf16*>(y));
 }
 
 // K9b. qkv (M, 3C), p (BW, H, N, N), da (M, C) bf16 -> dqkv (M, 3C) bf16,

@@ -1,53 +1,37 @@
 // The row-stream pieces of the training kernels K9a, K9c (swin_train.cu)
-// and K8c (mhsa_train.cu), for Hopper (sm_90a): a WMMA GEMM with
-// transposed operands read in place and a split-K partial-sum epilogue
-// (K8c's products and K9a's out projection; K9c's run on hopper_gemm.cuh),
-// the fixed-order reduction of partial sums, column sums, and the
-// LayerNorm recompute and VJP, one warp per row. No atomics: every
-// cross-CTA sum is a partial per CTA and one reduce_partials launch that
-// adds the partials in order, so a training step repeats bit for bit.
+// and K8c (mhsa_train.cu), for Hopper (sm_90a): K9a's out projection, a
+// WMMA GEMM with a bias epilogue (K9c's and K8c's products run on
+// hopper_gemm.cuh), the fixed row chunks of a weight gradient's partial
+// sums and their fixed-order reduction, column sums, and the LayerNorm
+// recompute and VJP, one warp per row. No atomics: every cross-CTA sum is
+// a partial per CTA and one reduce_partials launch that adds the partials
+// in order, so a training step repeats bit for bit.
 
 #pragma once
 
 #include <algorithm>
-#include <type_traits>
 
 #include "bf16_gemm.cuh"
 
 namespace {
 
-// --------------------------------------------------------- plain GEMMs ----
-// out = op(A) op(B) with f32 accumulation, WMMA 16x16x16 bf16, 64 x 64
-// tiles, 4 warps of 32 x 32. op(A) is (M, K): A row-major (M, K), or with
-// kTA stored (K, M) row-major (a transpose read in place by col-major
-// fragments); op(B) is (K, N): B row-major (K, N), or with kTB stored
-// (N, K). blockIdx.z splits K into chunks of kchunk (a multiple of 32).
-// Epilogues: TG_BF16 writes bf16(acc + bias[col]) (bias may be null);
-// TG_F32 writes the split's partial acc to out_f32 + z * M * N; TG_GY (no
-// K split) writes, for the tile's row block y, the column sums
-// out_f32[y * N + col] = sum over its rows of rowmul[row][col] *
-// (acc + bias[col]), each column summed in row order.
-// Requires the contiguous dimension of each operand to be a multiple of 8.
+// --------------------------------------------------------- plain GEMM ----
+// out(M, N) = bf16(A(M, K) B(K, N) + bias[col]) (bias may be null), both
+// row-major, f32 accumulation, WMMA 16x16x16 bf16, 64 x 64 tiles, 4 warps
+// of 32 x 32. Requires K and N multiples of 8. TG_BM x TG_BN are also the
+// output tiles over which split_rows sizes a weight gradient's row chunks.
 constexpr int TG_BM = 64, TG_BN = 64, TG_BK = 32, TG_THREADS = 128;
-enum { TG_BF16 = 0, TG_F32 = 1, TG_GY = 2 };
 
-template <bool kTA, bool kTB, int kEpi>
 __global__ void __launch_bounds__(TG_THREADS)
 tgemm_kernel(const bf16* __restrict__ a, int lda, const bf16* __restrict__ b,
-             int ldb, int M, int N, int K, int kchunk,
-             const float* __restrict__ bias, bf16* __restrict__ out_bf16,
-             float* __restrict__ out_f32,
-             const bf16* __restrict__ rowmul = nullptr) {
-  constexpr int A_ROWS = kTA ? TG_BK : TG_BM;
-  constexpr int A_LD = (kTA ? TG_BM : TG_BK) + 8;
-  constexpr int B_ROWS = kTB ? TG_BN : TG_BK;
-  constexpr int B_LDT = (kTB ? TG_BK : TG_BN) + 8;
+             int ldb, int M, int N, int K, const float* __restrict__ bias,
+             bf16* __restrict__ out) {
+  constexpr int A_LD = TG_BK + 8;
+  constexpr int B_LDT = TG_BN + 8;
   constexpr int CS_LD = TG_BN + 4;
-  __shared__ __align__(128) bf16 As[A_ROWS * A_LD];
-  __shared__ __align__(128) bf16 Bs[B_ROWS * B_LDT];
+  __shared__ __align__(128) bf16 As[TG_BM * A_LD];
+  __shared__ __align__(128) bf16 Bs[TG_BK * B_LDT];
   __shared__ __align__(128) float Cs[TG_BM * CS_LD];
-  typedef typename std::conditional<kTA, wmma::col_major, wmma::row_major>::type LA;
-  typedef typename std::conditional<kTB, wmma::col_major, wmma::row_major>::type LB;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -55,8 +39,6 @@ tgemm_kernel(const bf16* __restrict__ a, int lda, const bf16* __restrict__ b,
   const int wn = warp & 1;
   const int m0 = blockIdx.y * TG_BM;
   const int n0 = blockIdx.x * TG_BN;
-  const int kbeg = blockIdx.z * kchunk;
-  const int kend = min(K, kbeg + kchunk);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
@@ -64,53 +46,39 @@ tgemm_kernel(const bf16* __restrict__ a, int lda, const bf16* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  for (int k0 = kbeg; k0 < kend; k0 += TG_BK) {
-    // A tile: (rows, 8-element chunks along the contiguous dimension)
-    constexpr int A_CH = (A_LD - 8) / 8;
-    for (int i = tid; i < A_ROWS * A_CH; i += TG_THREADS) {
+  for (int k0 = 0; k0 < K; k0 += TG_BK) {
+    // A tile: (rows, 8-element chunks along k)
+    constexpr int A_CH = TG_BK / 8;
+    for (int i = tid; i < TG_BM * A_CH; i += TG_THREADS) {
       const int r = i / A_CH;
       const int c8 = (i % A_CH) * 8;
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (!kTA) {
-        if (m0 + r < M && k0 + c8 < kend)
-          v = *reinterpret_cast<const uint4*>(a + (size_t)(m0 + r) * lda + k0 + c8);
-      } else {
-        if (k0 + r < kend && m0 + c8 < M)
-          v = *reinterpret_cast<const uint4*>(a + (size_t)(k0 + r) * lda + m0 + c8);
-      }
+      if (m0 + r < M && k0 + c8 < K)
+        v = *reinterpret_cast<const uint4*>(a + (size_t)(m0 + r) * lda + k0 + c8);
       *reinterpret_cast<uint4*>(As + r * A_LD + c8) = v;
     }
-    constexpr int B_CH = (B_LDT - 8) / 8;
-    for (int i = tid; i < B_ROWS * B_CH; i += TG_THREADS) {
+    constexpr int B_CH = TG_BN / 8;
+    for (int i = tid; i < TG_BK * B_CH; i += TG_THREADS) {
       const int r = i / B_CH;
       const int c8 = (i % B_CH) * 8;
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (!kTB) {
-        if (k0 + r < kend && n0 + c8 < N)
-          v = *reinterpret_cast<const uint4*>(b + (size_t)(k0 + r) * ldb + n0 + c8);
-      } else {
-        if (n0 + r < N && k0 + c8 < kend)
-          v = *reinterpret_cast<const uint4*>(b + (size_t)(n0 + r) * ldb + k0 + c8);
-      }
+      if (k0 + r < K && n0 + c8 < N)
+        v = *reinterpret_cast<const uint4*>(b + (size_t)(k0 + r) * ldb + n0 + c8);
       *reinterpret_cast<uint4*>(Bs + r * B_LDT + c8) = v;
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < TG_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb[2];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int mm = wm * 32 + i * 16;
-        wmma::load_matrix_sync(fa[i], kTA ? As + kk * A_LD + mm : As + mm * A_LD + kk,
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * A_LD + kk,
                                A_LD);
-      }
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int nn = wn * 32 + j * 16;
-        wmma::load_matrix_sync(fb[j], kTB ? Bs + nn * B_LDT + kk : Bs + kk * B_LDT + nn,
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], Bs + kk * B_LDT + wn * 32 + j * 16,
                                B_LDT);
-      }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -126,18 +94,6 @@ tgemm_kernel(const bf16* __restrict__ a, int lda, const bf16* __restrict__ b,
       wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * CS_LD + wn * 32 + j * 16,
                               acc[i][j], CS_LD, wmma::mem_row_major);
   __syncthreads();
-  if (kEpi == TG_GY) {
-    for (int c = tid; c < TG_BN; c += TG_THREADS) {
-      const int col = n0 + c;
-      if (col >= N) continue;
-      float s = 0.f;
-      for (int r = 0; r < TG_BM && m0 + r < M; ++r)
-        s += __bfloat162float(rowmul[(size_t)(m0 + r) * N + col]) *
-             (Cs[r * CS_LD + c] + bias[col]);
-      out_f32[(size_t)blockIdx.y * N + col] = s;
-    }
-    return;
-  }
   for (int i = tid; i < TG_BM * TG_BN; i += TG_THREADS) {
     const int r = i / TG_BN;
     const int c = i % TG_BN;
@@ -145,10 +101,7 @@ tgemm_kernel(const bf16* __restrict__ a, int lda, const bf16* __restrict__ b,
     const int col = n0 + c;
     if (row >= M || col >= N) continue;
     const float v = Cs[r * CS_LD + c];
-    if (kEpi == TG_BF16)
-      out_bf16[(size_t)row * N + col] = __float2bfloat16(bias ? v + bias[col] : v);
-    else
-      out_f32[(size_t)blockIdx.z * M * N + (size_t)row * N + col] = v;
+    out[(size_t)row * N + col] = __float2bfloat16(bias ? v + bias[col] : v);
   }
 }
 
@@ -279,7 +232,9 @@ cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
 int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 // split of a reduction over `rows` rows into S chunks (multiples of 32) so
-// that about 4 CTAs per SM run: S = ceil(528 / tiles), at most rows / 32
+// that about 4 CTAs per SM run: S = ceil(528 / tiles), at most rows / 32,
+// tiles counted in TG_BM x TG_BN output tiles (the first port's; K9c's and
+// K8c's weight gradients keep these chunks, and so their bits)
 void split_rows(int rows, int tiles, int* S, int* chunk) {
   int s = cdiv(528, tiles);
   s = std::max(1, std::min(s, cdiv(rows, TG_BK)));
@@ -288,14 +243,10 @@ void split_rows(int rows, int tiles, int* S, int* chunk) {
   *chunk = c;
 }
 
-template <bool kTA, bool kTB, int kEpi>
 cudaError_t tgemm(cudaStream_t st, const bf16* a, int lda, const bf16* b,
-                  int ldb, int M, int N, int K, int splits, int kchunk,
-                  const float* bias, bf16* out_bf16, float* out_f32,
-                  const bf16* rowmul = nullptr) {
-  tgemm_kernel<kTA, kTB, kEpi>
-      <<<dim3(cdiv(N, TG_BN), cdiv(M, TG_BM), splits), TG_THREADS, 0, st>>>(
-          a, lda, b, ldb, M, N, K, kchunk, bias, out_bf16, out_f32, rowmul);
+                  int ldb, int M, int N, int K, const float* bias, bf16* out) {
+  tgemm_kernel<<<dim3(cdiv(N, TG_BN), cdiv(M, TG_BM)), TG_THREADS, 0, st>>>(
+      a, lda, b, ldb, M, N, K, bias, out);
   return cudaGetLastError();
 }
 

@@ -1,123 +1,36 @@
-// The ViT attention core of K8b/K8c (mhsa_train.cu, the half-block
-// backward) for Hopper (sm_90a), head dim 64: 64-row query and key tiles
-// in shared memory, scores and products by mma.sync m16n8k16 in
-// registers, and the softmax p = exp(s - max) / sum in f32 from s =
-// f32(q k^T) * dh^-0.5 with the keys >= N masked (no padding of the token
-// stream), each row's max and sum taken in a first pass over the keys.
-// The backward recomputes the p that K1's forward (mhsa.cu, which K8a
-// launches) rounded to bf16 after its normalisation, as JAX's oracle
-// `_mhsa_block_xla` and its masked training body `_mhsa_train_kernel` do.
-// Fragment layout (PTX ISA, m16n8k16): lane = 4 g + t holds rows g and
-// g + 8 and columns 2t, 2t + 1 of each 8-wide tile.
+// The per-thread arithmetic of K8b, the ViT attention-core backward
+// (mhsa_train.cu), for Hopper (sm_90a), head dim 64, in the accumulator
+// layout of wgmma m64nNk16 (thread 32 w + 4 g + t of the warpgroup holds
+// rows 16 w + g and 16 w + g + 8 and columns 8 j + 2 t, + 1 of each 8-wide
+// group j: d[4 j + 2 half + c]), which is mma.sync m16n8k16's for each
+// warp's 16 rows. The softmax p = exp(s - max) / sum is recomputed in f32
+// from s = f32(q k^T) * dh^-0.5 with the keys >= N masked, each row's max
+// and sum taken in a first pass over the keys (walked in each thread's
+// column order, then stat_reduce across the quad), as K1's
+// forward (mhsa.cu, which K8a launches) formed the p it rounded to bf16
+// and as JAX's oracle `_mhsa_block_xla` and its masked training body
+// `_mhsa_train_kernel` do. The statistics keep the first port's order of
+// operations, so that the core's sums repeat its bits; the division by the
+// row sum is a multiply by its reciprocal with one correction step
+// (vt_prob), which gives the quotient of a correctly rounded division.
 
 #pragma once
 
-#include "bf16_gemm.cuh"
-#include "window_attn.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int VT_DH = 64;            // head dim of every DINOv2 variant
-constexpr int VT_RLD = VT_DH + 8;    // bf16 elements per q/k/v/da row in smem
-constexpr int VT_CH = 64;            // rows of a query or key tile
-constexpr int VT_TLD = VT_CH + 8;    // bf16 elements per row of a transposed tile
-constexpr int VT_THREADS = 128;      // 4 warps of 16 rows
-constexpr int VT_TILE = VT_CH * VT_RLD;
-
-// rows [r0, r0 + 64) of one head's 64 columns (row stride ld) into a bf16
-// tile of row stride VT_RLD; rows >= nrows are zero
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
-                                          int nrows, size_t ld) {
-  for (int i = threadIdx.x; i < VT_CH * 8; i += VT_THREADS) {
-    const int r = i >> 3;
-    const int c8 = (i & 7) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < nrows)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + c8);
-    *reinterpret_cast<uint4*>(dst + r * VT_RLD + c8) = v;
-  }
-}
-
-// the same rows transposed, dst[c * VT_TLD + r]
-__device__ __forceinline__ void load_cols(bf16* dst, const bf16* src, int r0,
-                                          int nrows, size_t ld) {
-  for (int i = threadIdx.x; i < VT_CH * 8; i += VT_THREADS) {
-    const int r = i >> 3;
-    const int c8 = (i & 7) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < nrows)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + c8);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) dst[(c8 + k) * VT_TLD + r] = e[k];
-  }
-}
-
-// mma.sync m16n8k16 A fragments of tile rows r0 and r0 + 8 (16 x 64)
-__device__ __forceinline__ void a_frags(const bf16* s, int r0, int t,
-                                        uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const bf16* p0 = s + r0 * VT_RLD + kk * 16 + 2 * t;
-    const bf16* p1 = p0 + 8 * VT_RLD;
-    a[kk][0] = *reinterpret_cast<const uint32_t*>(p0);
-    a[kk][1] = *reinterpret_cast<const uint32_t*>(p1);
-    a[kk][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-    a[kk][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-  }
-}
-
-// one 16 x 8 tile of A (a_frags) times B^T over the 64 columns, B's row kr
-// (this lane's g) from a tile of row stride VT_RLD: s[e] is row g (e < 2)
-// or g + 8, column 2t + (e & 1)
-__device__ __forceinline__ void tile_dot(const uint32_t (&a)[4][4],
-                                         const bf16* b, int kr, int t,
-                                         float (&s)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) s[e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const bf16* bp = b + kr * VT_RLD + kk * 16 + 2 * t;
-    mma_bf16(s, a[kk], *reinterpret_cast<const uint32_t*>(bp),
-             *reinterpret_cast<const uint32_t*>(bp + 8));
-  }
-}
-
-// acc (16 x 64) += A (16 x 16, packed from two score tiles) times the
-// 16-row slab at column c0 of a transposed tile (64 rows of VT_TLD)
-__device__ __forceinline__ void acc_tile(float (&acc)[8][4],
-                                         const uint32_t (&a)[4],
-                                         const bf16* bt, int c0, int g,
-                                         int t) {
-#pragma unroll
-  for (int jn = 0; jn < 8; ++jn) {
-    const bf16* bp = bt + (jn * 8 + g) * VT_TLD + c0 + 2 * t;
-    mma_bf16(acc[jn], a, *reinterpret_cast<const uint32_t*>(bp),
-             *reinterpret_cast<const uint32_t*>(bp + 8));
-  }
-}
-
-__device__ __forceinline__ void pack_a(const float (&p)[2][4], uint32_t (&a)[4]) {
-  a[0] = pack_bf16(p[0][0], p[0][1]);
-  a[1] = pack_bf16(p[0][2], p[0][3]);
-  a[2] = pack_bf16(p[1][0], p[1][1]);
-  a[3] = pack_bf16(p[1][2], p[1][3]);
-}
+constexpr int VT_DH = 64;        // head dim of every DINOv2 variant
+constexpr int VT_ROWS = 64;      // rows of a query or key tile
+constexpr int VT_TILE = VT_ROWS * VT_DH * 2;  // bytes of a bf16 tile
 
 // the softmax statistics of one query row over this lane's keys: the
-// running max of the scaled scores and the sum of exp(s - max)
+// running max of the scaled scores and the sum of exp(s - max), each key
+// added as the first port's stat_add did: where it raises the max, l = l
+// exp(max - s) + 1 and max = s, else l += exp(s - max)
 struct RowStat {
   float m, l;
 };
-
-__device__ __forceinline__ void stat_add(RowStat& st, float v) {
-  if (v > st.m) {
-    st.l = st.l * expf(st.m - v) + 1.f;
-    st.m = v;
-  } else {
-    st.l += expf(v - st.m);
-  }
-}
 
 // combine the statistics of the four lanes of a quad (the same row)
 __device__ __forceinline__ void stat_reduce(RowStat& st) {
@@ -137,37 +50,75 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// pass 1 of the dq half: the row statistics of the warp's rows
-// (query rows g, g + 8 of qa) over all N keys, k tiles through k_s
-__device__ __forceinline__ void row_stats(const uint32_t (&qa)[4][4],
-                                          bf16* k_s, const bf16* kbase,
-                                          int N, size_t ld, float scale,
-                                          RowStat& st0, RowStat& st1) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  st0 = RowStat{-INFINITY, 0.f};
-  st1 = RowStat{-INFINITY, 0.f};
-  for (int k0 = 0; k0 < N; k0 += VT_CH) {
-    __syncthreads();
-    load_rows(k_s, kbase, k0, N, ld);
-    __syncthreads();
-#pragma unroll
-    for (int kg = 0; kg < VT_CH / 8; ++kg) {
-      float s[4];
-      tile_dot(qa, k_s, kg * 8 + g, t, s);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (k0 + kg * 8 + 2 * t + (e & 1) < N)
-          stat_add(e >= 2 ? st1 : st0, s[e] * scale);
-    }
-  }
-  stat_reduce(st0);
-  stat_reduce(st1);
+// p = exp(s scale - m) / l in f32: the quotient as q = x rl, then q + (x -
+// q l) rl with the remainder exact by fma (Markstein), rl = 1 / l
+// correctly rounded: the correctly rounded quotient, as K1's attention
+// forms it, in a third of the division's instructions
+__device__ __forceinline__ float vt_prob(float s, float scale, float m,
+                                         float l, float rl) {
+  const float x = expf(s * scale - m);
+  const float q = __fmul_rn(x, rl);
+  return __fmaf_rn(__fmaf_rn(-q, l, x), rl, q);
 }
 
-__device__ __forceinline__ float prob(float s, float scale, const RowStat& st) {
-  return expf(s * scale - st.m) / st.l;
+__device__ __forceinline__ uint32_t vt_pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (64 x 64, f32) = A (64 x 64) B^T over dh, both 64 x 64 K-major tiles
+// of 128-byte-swizzled rows (a: the warpgroup's 64 rows, b: 64 rows of
+// the other operand), one k16 step after another onto zeros, as the first
+// port's mma.sync tiles summed; committed as one group, not waited for
+__device__ __forceinline__ void vt_product(float (&d)[32],
+                                           const unsigned char* a,
+                                           const unsigned char* b) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) d[e] = 0.f;
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < VT_DH / 16; ++kk)
+    wgmma_m64n64<0>(d, sw128_desc(a + kk * 32, 16, 1024),
+                    sw128_desc(b + kk * 32, 16, 1024), 1);
+}
+
+// d (64 x 32) = A (64 x 64) B^T over dh, B the 32 rows at b of a K-major
+// tile (vt_product's, N = 32)
+__device__ __forceinline__ void vt_product32(float (&d)[16],
+                                             const unsigned char* a,
+                                             const unsigned char* b) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) d[e] = 0.f;
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < VT_DH / 16; ++kk)
+    wgmma_m64n32<0>(d, sw128_desc(a + kk * 32, 16, 1024),
+                    sw128_desc(b + kk * 32, 16, 1024), 1);
+}
+
+// acc (64 x 64) += A (the warpgroup's 64 x 16 slice kc, in registers) times
+// rows [16 kc, 16 kc + 16) of a 64 x 64 tile read as the MN-major B operand
+// (rows the contraction, columns the head dim), as K1's P V
+__device__ __forceinline__ void vt_acc(float (&acc)[32], const uint32_t (&a)[4],
+                                       const unsigned char* tile, int kc) {
+  wgmma_m64n64_rs<1>(acc, a, sw128_desc(tile + kc * 2048, 1024, 1024), 1);
+}
+
+// writes this thread's rows of a 64 x 64 f32 accumulator, rounded to bf16,
+// into a 128-byte-swizzled tile (the layout TMA stores from)
+__device__ __forceinline__ void vt_stage(unsigned char* tile,
+                                         const float (&d)[32], int lr0,
+                                         int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int lr = lr0 + 8 * half;
+      st_shared_u32(smem_u32(tile + lr * 128 + ((j ^ (lr & 7)) << 4) + 4 * t),
+                    vt_pack(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]));
+    }
 }
 
 }  // namespace

@@ -134,11 +134,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         "geovpr_swin_train_bwd_all_parts": [vp] * 22 + [ci] * 6 + [cf, cf, ci,
                                                                   ci, vp],
         "geovpr_swin_train_scratch_floats": [ci] * 5,
-        # K8b/K8c (mhsa_train.cu; K8a is K1): pointers, B N D H, floats, stream
+        # K8b/K8c (mhsa_train.cu; K8a is K1): pointers, B N D H, floats,
+        # stream; K8c's _parts also takes the first and last of its launches
         "geovpr_vit_train_bwd_core": [vp] * 4 + [ci] * 4 + [cf, vp],
         "geovpr_vit_train_bwd_all": [vp] * 25 + [ci] * 4 + [cf, cf, vp],
+        "geovpr_vit_train_bwd_all_parts": [vp] * 25 + [ci] * 4 + [cf, cf, ci,
+                                                                 ci, vp],
         "geovpr_vit_train_scratch_floats": [ci] * 3,
+        "geovpr_vit_core_scratch_elems": [ci] * 3,
         "geovpr_swin_train_init": [],
+        "geovpr_vit_train_init": [],
         "geovpr_mhsa_max_dim": [],
         "geovpr_mhsa_init": [],
         "geovpr_mhsa_int8_init": [],
@@ -154,6 +159,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     # the entries that return a size, not a cudaError_t
     lib.geovpr_swin_train_scratch_floats.restype = ctypes.c_longlong
     lib.geovpr_vit_train_scratch_floats.restype = ctypes.c_longlong
+    lib.geovpr_vit_core_scratch_elems.restype = ctypes.c_longlong
 
 
 @functools.lru_cache(maxsize=None)

@@ -420,6 +420,30 @@ def bwd_all_ok(d: int) -> bool:
     return (4 * d * d + 6 * d) * 4 <= 11 * 1024 * 1024
 
 
+def k8b_shape_error(d: int, num_heads: int) -> str | None:
+    """The rule of K8b's core (`csrc/mhsa_train.cu`), or None where it
+    takes the shape: head dim 64 (every DINOv2 variant's), any N (the keys
+    stream through a ring of tiles)."""
+    if num_heads <= 0 or d % num_heads or d // num_heads != _KERNEL_HEAD_DIM:
+        return (f"K8b takes head dim {_KERNEL_HEAD_DIM}, got D={d}, "
+                f"{num_heads} heads")
+    return None
+
+
+def k8c_shape_error(d: int, num_heads: int) -> str | None:
+    """The rule of K8c (`csrc/mhsa_train.cu`), or None where it takes the
+    shape: K8b's, and D where `bwd_all_ok` holds (the split backward with
+    K8b takes the wider blocks; its LN VJP holds D <= 832 in a warp's
+    registers)."""
+    err = k8b_shape_error(d, num_heads)
+    if err:
+        return err.replace("K8b", "K8c")
+    if not bwd_all_ok(d):
+        return (f"K8c takes D where bwd_all_ok holds (the split backward "
+                f"with K8b takes the wider blocks), got D={d}")
+    return None
+
+
 def mhsa_train_fwd_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma,
                              num_heads: int, ln_eps: float = 1e-6):
     """Plain K8a: out (B, N, D) and the residuals qkv (B, N, 3D) and ctx
@@ -451,6 +475,58 @@ def mhsa_attn_bwd_core_reference(qkv, da, num_heads: int):
                      dim=-1).reshape(qkv.shape)
 
 
+def vit_bwd_product_reference(a, w):
+    """Plain version of K8c's da = dy Wo^T and dh = dqkv Wqkv^T launches:
+    a (M, K) times the transpose of an (in, out) weight w (N, K), f32
+    accumulation, rounded once to a's dtype."""
+    return _proj(a, w.t().contiguous()).to(a.dtype)
+
+
+def vit_weight_grad_reference(a, b, chunk: int | None = None):
+    """Plain version of K8c's dWo = ctx^T dy and dWqkv = h^T dqkv launches:
+    a^T b in f32 over the rows of a (M, C) and b (M, N). With `chunk`, as
+    the kernel sums: one f32 partial per `chunk` rows, the partials added
+    in order (`swin_block.wgrad_chunk` gives the kernel's chunk)."""
+    if chunk is None:
+        return _proj(a.t().contiguous(), b)
+    out = _proj(a[:chunk].t().contiguous(), b[:chunk])
+    for i in range(chunk, a.shape[0], chunk):
+        out = out + _proj(a[i:i + chunk].t().contiguous(), b[i:i + chunk])
+    return out
+
+
+def vit_dgamma_reference(ctx, wo, bo, gf, block: int | None = None):
+    """Plain version of K8c's dgamma launch: sum over the rows of gf (M, D,
+    f32) times the recomputed y = ctx Wo + bo in f32. With `block`, as the
+    kernel sums: one partial per `block` rows (K8C_GY_ROWS), added in
+    order."""
+    gy = gf * (_proj(ctx, wo) + bo.float())
+    if block is None:
+        return gy.sum(0)
+    out = gy[:block].sum(0)
+    for i in range(block, gy.shape[0], block):
+        out = out + gy[i:i + block].sum(0)
+    return out
+
+
+def vit_ln_vjp_reference(dh, xhat, rstd, ln_scale, gf):
+    """Plain version of K8c's LN VJP launch: from dh (M, D), the LN
+    recompute's xhat and 1/std and gf = g in f32, dx = g + dx_ln in f32
+    (before its rounding), dls and dlb."""
+    dhf = dh.float()
+    dls = (dhf * xhat).sum(0)
+    dlb = dhf.sum(0)
+    dxhat = dhf * ln_scale.float()
+    dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True)) + gf
+    return dx, dls, dlb
+
+
+# The rows of one partial sum of K8c's dgamma launch (a consumer
+# warpgroup's rows of the GEMM that recomputes y = ctx Wo + bo)
+K8C_GY_ROWS = 64
+
+
 def mhsa_train_bwd_reference(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv,
                              ctx, g, num_heads: int, ln_eps: float = 1e-6,
                              split: bool = False, core=None):
@@ -470,12 +546,12 @@ def mhsa_train_bwd_reference(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv,
     gf = g.reshape(m, d).float()
     dy = gf * gamma.float()
     dyb = dy.to(dt)
-    da = _proj(dyb, wo.t().contiguous()).to(dt)
+    da = vit_bwd_product_reference(dyb, wo)
     dqkv = (core or mhsa_attn_bwd_core_reference)(
         qkv, da.reshape(b, n, d), num_heads).reshape(m, 3 * d)
     c2 = ctx.reshape(m, d)
-    dgamma = (gf * (_proj(c2, wo) + bo.float())).sum(0)
-    dwo = _proj(c2.t().contiguous(), dyb)
+    dgamma = vit_dgamma_reference(c2, wo, bo, gf)
+    dwo = vit_weight_grad_reference(c2, dyb)
     dbo = dy.sum(0)
     x2 = x.reshape(m, d)
     if split:
@@ -483,19 +559,15 @@ def mhsa_train_bwd_reference(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv,
             xs, ls, lb = (t.detach().requires_grad_() for t in
                           (x2, ln_scale, ln_bias))
             h = _ln_parts(xs, ls, lb, ln_eps, dt)[2]
-            dh = _proj(dqkv, wqkv.t().contiguous()).to(dt)
+            dh = vit_bwd_product_reference(dqkv, wqkv)
             dx_ln, dls, dlb = torch.autograd.grad(h, (xs, ls, lb), dh)
         h = h.detach()
         dx = gf + dx_ln.float()
     else:
         xhat, rstd, h = _ln_parts(x2, ln_scale, ln_bias, ln_eps, dt)
-        dhf = _proj(dqkv, wqkv.t().contiguous()).to(dt).float()
-        dls = (dhf * xhat).sum(0)
-        dlb = dhf.sum(0)
-        dxhat = dhf * ln_scale.float()
-        dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
-                     - xhat * (dxhat * xhat).mean(-1, keepdim=True)) + gf
-    dwqkv = _proj(h.t().contiguous(), dqkv)
+        dx, dls, dlb = vit_ln_vjp_reference(
+            vit_bwd_product_reference(dqkv, wqkv), xhat, rstd, ln_scale, gf)
+    dwqkv = vit_weight_grad_reference(h, dqkv)
     return (dx.to(dt).reshape(b, n, d), dls.float(), dlb.float(), dwqkv,
             dqkv.float().sum(0), dwo, dbo, dgamma)
 
@@ -530,10 +602,11 @@ def _check_residuals(x, tensors: dict, num_heads: int) -> None:
     check_devices(x, tensors)
 
 
-def _train_lib():
-    """The built library (K8b's and K8c's kernels need no set-up)."""
-    from geovpr_torch.ops._build import load_library
-    return load_library()
+def _train_lib(device):
+    """The built library, with K8b's and K8c's shared-memory limits raised
+    on `device` (once per device)."""
+    from geovpr_torch.ops._build import library_on
+    return library_on(device.index, "geovpr_vit_train_init")
 
 
 def fused_mhsa_train_fwd(x: torch.Tensor, ln_scale: torch.Tensor,
@@ -559,10 +632,19 @@ def fused_mhsa_train_fwd(x: torch.Tensor, ln_scale: torch.Tensor,
 fused_mhsa_train_fwd.launches = 0
 
 
+def _core_scratch(lib, b: int, n: int, num_heads: int, device):
+    """The core's scratch: the bf16 planes of bf16(p) and ds_b, (B H, N, N)
+    with rows padded to a multiple of 8, which its dq launch writes and its
+    dk/dv launch reads."""
+    return torch.empty(lib.geovpr_vit_core_scratch_elems(b, n, num_heads),
+                       dtype=torch.bfloat16, device=device)
+
+
 def fused_mhsa_bwd_core(qkv: torch.Tensor, da: torch.Tensor,
                         num_heads: int) -> torch.Tensor:
     """K8b: qkv (B, N, 3D), da (B, N, D) -> dqkv (B, N, 3D). CPU tensors run
-    the plain version; CUDA tensors launch K8b or raise."""
+    the plain version; CUDA tensors launch K8b (`k8b_shape_error`'s shapes)
+    or raise."""
     b, n, d3 = qkv.shape
     d = d3 // 3
     _check_residuals(da, {"qkv": qkv}, num_heads)
@@ -571,13 +653,15 @@ def fused_mhsa_bwd_core(qkv: torch.Tensor, da: torch.Tensor,
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     _check_cuda_args({"qkv": qkv, "da": da}, d, num_heads)
-    lib = _train_lib()
+    err = k8b_shape_error(d, num_heads)
+    if err:
+        raise ValueError(err)
+    lib = _train_lib(qkv.device)
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((b * n * num_heads, 4), dtype=torch.float32,
-                        device=qkv.device)
+    pds = _core_scratch(lib, b, n, num_heads, qkv.device)
     with torch.cuda.device(qkv.device):
         rc = lib.geovpr_vit_train_bwd_core(
-            qkv.data_ptr(), da.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            qkv.data_ptr(), da.data_ptr(), dqkv.data_ptr(), pds.data_ptr(),
             b, n, d, num_heads, float((d // num_heads) ** -0.5),
             _stream(qkv.device))
     if rc != 0:
@@ -590,13 +674,64 @@ def fused_mhsa_bwd_core(qkv: torch.Tensor, da: torch.Tensor,
 fused_mhsa_bwd_core.launches = 0
 
 
+# K8c's launches, as `geovpr_vit_train_bwd_all_parts` numbers them (a
+# product's reduce of its partial sums runs with it)
+K8C_PARTS = ("dy", "dbo", "da", "dwo", "dgamma", "core", "ln_rows", "dwqkv",
+             "dbqkv", "dh", "ln_vjp")
+_K8C_OUTS = ("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo", "dbo", "dgamma")
+
+
+def k8c_buffers(x: torch.Tensor, num_heads: int) -> dict:
+    """K8c's scratch and outputs for a CUDA stream x (B, N, D), by name: dy,
+    da (dh once the dh launch has run), h, dqkv, stats, pds (the core's
+    planes of bf16(p) and ds_b), part and the outputs `fused_mhsa_bwd_all`
+    returns."""
+    b, n, d = x.shape
+    lib = _train_lib(x.device)
+    dev, m = x.device, b * n
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    return dict(
+        dy=torch.empty_like(x), da=torch.empty_like(x),
+        h=torch.empty_like(x), dx=torch.empty_like(x),
+        dqkv=torch.empty((b, n, 3 * d), dtype=x.dtype, device=dev),
+        stats=f32(m, 2), pds=_core_scratch(lib, b, n, num_heads, dev),
+        part=f32(lib.geovpr_vit_train_scratch_floats(b, n, d)),
+        dwqkv=f32(d, 3 * d), dbqkv=f32(3 * d), dwo=f32(d, d), dbo=f32(d),
+        dgamma=f32(d), dls=f32(d), dlb=f32(d))
+
+
+def _k8c_args(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv, ctx, g,
+              num_heads, ln_eps, bufs: dict):
+    """K8c's C arguments (but the first and last launch and the stream)
+    for checked CUDA tensors and `k8c_buffers` `bufs`."""
+    ptrs = [x, qkv, ctx, g, wqkv, wo, bo, gamma, ln_scale, ln_bias] + [
+        bufs[k] for k in ("dy", "da", "dqkv", "h", "stats", "pds", "part",
+                          "dx", "dwqkv", "dbqkv", "dwo", "dbo", "dgamma",
+                          "dls", "dlb")]
+    b, n, d = x.shape
+    return (*(t.data_ptr() for t in ptrs), b, n, d, num_heads, float(ln_eps),
+            float((d // num_heads) ** -0.5))
+
+
+def _check_k8c(x, tensors: dict, num_heads: int) -> None:
+    """K8c's rule on CUDA tensors (ValueError or TypeError on any other)."""
+    d = x.shape[-1]
+    _check_cuda_args({"x": x, **tensors}, d, num_heads)
+    err = k8c_shape_error(d, num_heads)
+    if err:
+        raise ValueError(err)
+
+
 def fused_mhsa_bwd_all(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv, ctx,
                        g, num_heads: int, ln_eps: float = 1e-6):
     """K8c: the whole attention-half backward from K8a's residuals and g =
     dL/dout (B, N, D). Returns dx (B, N, D) and dls, dlb, dwqkv, dbqkv,
     dwo, dbo, dgamma in f32. CPU tensors run the plain all-in-one form;
-    CUDA tensors launch K8c (where `bwd_all_ok`) or raise."""
-    b, n, d = x.shape
+    CUDA tensors launch K8c (`k8c_shape_error`'s shapes: where
+    `bwd_all_ok`) or raise."""
     tensors = {"ln_scale": ln_scale, "ln_bias": ln_bias, "wqkv": wqkv,
                "wo": wo, "bo": bo, "gamma": gamma, "qkv": qkv, "ctx": ctx,
                "g": g}
@@ -606,39 +741,36 @@ def fused_mhsa_bwd_all(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv, ctx,
                                         gamma, qkv, ctx, g, num_heads, ln_eps)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check_cuda_args({"x": x, **tensors}, d, num_heads)
-    if not bwd_all_ok(d):
-        raise ValueError(f"K8c takes D where bwd_all_ok holds (the split "
-                         f"backward with K8b takes the wider blocks), got "
-                         f"D={d}")
-    lib = _train_lib()
-    dev, m = x.device, b * n
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    dy, da, h, dx = (torch.empty_like(x) for _ in range(4))
-    dqkv = torch.empty_like(qkv)
-    stats, astats = f32(m, 2), f32(m * num_heads, 4)
-    part = f32(lib.geovpr_vit_train_scratch_floats(b, n, d))
-    dwqkv, dbqkv, dwo = f32(d, 3 * d), f32(3 * d), f32(d, d)
-    dbo, dgamma, dls, dlb = f32(d), f32(d), f32(d), f32(d)
-    with torch.cuda.device(dev):
-        rc = lib.geovpr_vit_train_bwd_all(
-            x.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), g.data_ptr(),
-            wqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), gamma.data_ptr(),
-            ln_scale.data_ptr(), ln_bias.data_ptr(), dy.data_ptr(),
-            da.data_ptr(), dqkv.data_ptr(), h.data_ptr(), stats.data_ptr(),
-            astats.data_ptr(), part.data_ptr(), dx.data_ptr(),
-            dwqkv.data_ptr(), dbqkv.data_ptr(), dwo.data_ptr(),
-            dbo.data_ptr(), dgamma.data_ptr(), dls.data_ptr(),
-            dlb.data_ptr(), b, n, d, num_heads, float(ln_eps),
-            float((d // num_heads) ** -0.5), _stream(dev))
+    _check_k8c(x, tensors, num_heads)
+    bufs = k8c_buffers(x, num_heads)
+    args = _k8c_args(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv, ctx, g,
+                     num_heads, ln_eps, bufs)
+    with torch.cuda.device(x.device):
+        rc = _train_lib(x.device).geovpr_vit_train_bwd_all(
+            *args, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"vit_train_bwd_all launch failed: CUDA error "
                            f"{rc}")
     fused_mhsa_bwd_all.launches += 1
-    return dx, dls, dlb, dwqkv, dbqkv, dwo, dbo, dgamma
+    return tuple(bufs[k] for k in _K8C_OUTS)
+
+
+def k8c_launch_part(part: int, x, ln_scale, ln_bias, wqkv, wo, bo, gamma,
+                    qkv, ctx, g, num_heads: int, ln_eps: float = 1e-6, *,
+                    bufs) -> None:
+    """One of K8c's launches (an index into K8C_PARTS, with the reduce of
+    its partial sums) alone, on the CUDA arguments of `fused_mhsa_bwd_all`
+    and the `k8c_buffers` `bufs`, whose contents from an earlier call it
+    reads. chip_smoke.py times K8c's launches one by one with it and the
+    card tests check each against its plain part; it counts no launch."""
+    args = _k8c_args(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv, ctx, g,
+                     num_heads, ln_eps, bufs)
+    with torch.cuda.device(x.device):
+        rc = _train_lib(x.device).geovpr_vit_train_bwd_all_parts(
+            *args, part, part, _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"vit_train_bwd_all launch failed: CUDA error "
+                           f"{rc}")
 
 
 fused_mhsa_bwd_all.launches = 0

@@ -943,6 +943,102 @@ def test_k8_refuses_what_it_does_not_take(cuda):
             mh.fused_mhsa_bwd_all(*_k8_bwd_args(a, res, g, 16))
 
 
+@pytest.mark.parametrize("shape", [(2, 257, 768, 12), (3, 50, 384, 6),
+                                   (2, 17, 64, 1)])
+def test_k8c_launches_match_their_plain_parts(cuda, shape):
+    """K8c's launches against their plain parts, after a whole backward
+    run launch by launch: dy bit for bit; da and dh (the (in, out) weights
+    read K-major) and the LN recompute within one bf16 spacing; dWo and
+    dWqkv (rows of both operands, in `wgrad_chunk` chunks, M = B N with a
+    row tail), dgamma (K8C_GY_ROWS-row partials), dbo, dbqkv, dls and dlb
+    within f32 reassociation; dx within one bf16 spacing; the core on the
+    da launch's output within K9's ratio bound of the bf16 plain core
+    against the f32 one. N = 257 ends on a one-row tile, 50 and 17 inside
+    one tile."""
+    from chip_smoke import _k8_bwd_args, _k8_fwd_args, k8_case, k9_ratio
+    from geovpr_torch.ops import mhsa as mh
+    from geovpr_torch.ops.swin_block import _ln_parts, wgrad_chunk
+    b, n, d, h = shape
+    m = b * n
+    a, g = k8_case(shape, cuda)
+    with torch.no_grad():
+        res = mh.fused_mhsa_train_fwd(*_k8_fwd_args(a, h))
+        args = _k8_bwd_args(a, res, g, h)
+        bufs = mh.k8c_buffers(a["x"], h)
+        for part in range(len(mh.K8C_PARTS)):
+            mh.k8c_launch_part(part, *args, bufs=bufs)
+        torch.cuda.synchronize()
+        gf = g.reshape(m, d).float()
+        dy = bufs["dy"].reshape(m, d)
+        ctx2, dqkv, hh = (t.reshape(m, -1) for t in (res[2], bufs["dqkv"],
+                                                     bufs["h"]))
+        assert torch.equal(dy, (gf * a["gamma"]).to(dy.dtype))
+        assert _f32_close(bufs["dbo"], (gf * a["gamma"]).sum(0))
+        assert _f32_close(bufs["dwo"], mh.vit_weight_grad_reference(
+            ctx2, dy, wgrad_chunk(m, d, d)))
+        assert _f32_close(bufs["dgamma"], mh.vit_dgamma_reference(
+            ctx2, a["wo"], a["bo"], gf, mh.K8C_GY_ROWS))
+        xhat, rstd, h_ref = _ln_parts(a["x"].reshape(m, d), a["ln_scale"],
+                                      a["ln_bias"], 1e-6, a["x"].dtype)
+        assert _bf16_close(hh, h_ref)
+        assert _f32_close(bufs["dwqkv"], mh.vit_weight_grad_reference(
+            hh, dqkv, wgrad_chunk(m, d, 3 * d)))
+        assert _f32_close(bufs["dbqkv"], dqkv.float().sum(0))
+        dh = bufs["da"].reshape(m, d)
+        assert _bf16_close(dh, mh.vit_bwd_product_reference(dqkv,
+                                                            a["wqkv"]))
+        dx, dls, dlb = mh.vit_ln_vjp_reference(dh, xhat, rstd,
+                                               a["ln_scale"], gf)
+        assert _bf16_close(bufs["dx"].reshape(m, d), dx)
+        assert _f32_close(bufs["dls"], dls) and _f32_close(bufs["dlb"], dlb)
+        for part in (mh.K8C_PARTS.index("da"), mh.K8C_PARTS.index("core")):
+            mh.k8c_launch_part(part, *args, bufs=bufs)
+        torch.cuda.synchronize()
+        da = bufs["da"]
+        assert _bf16_close(da.reshape(m, d),
+                           mh.vit_bwd_product_reference(dy, a["wo"]))
+        k9_ratio("K8c.core", "B{}_N{}_D{}_H{}".format(*shape), bufs["dqkv"],
+                 mh.mhsa_attn_bwd_core_reference(res[1], da, h),
+                 mh.mhsa_attn_bwd_core_reference(res[1].float(), da.float(),
+                                                 h))
+
+
+def test_k8c_launches_one_by_one_equal_the_whole(cuda):
+    """K8c's launches run alone (`k8c_launch_part`, which chip_smoke.py
+    times) leave one whole call's outputs, bit for bit, and count no
+    launch: its sums have a fixed order."""
+    from chip_smoke import _k8_bwd_args, _k8_fwd_args, k8_case
+    from geovpr_torch.ops import mhsa as mh
+    a, g = k8_case((2, 257, 768, 12), cuda)
+    with torch.no_grad():
+        res = mh.fused_mhsa_train_fwd(*_k8_fwd_args(a, 12))
+        args = _k8_bwd_args(a, res, g, 12)
+        whole = mh.fused_mhsa_bwd_all(*args)
+        bufs = mh.k8c_buffers(a["x"], 12)
+        before = mh.fused_mhsa_bwd_all.launches
+        for part in range(len(mh.K8C_PARTS)):
+            mh.k8c_launch_part(part, *args, bufs=bufs)
+        torch.cuda.synchronize()
+    assert mh.fused_mhsa_bwd_all.launches == before
+    for name, want in zip(("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo",
+                           "dbo", "dgamma"), whole):
+        assert torch.equal(bufs[name], want), name
+
+
+def test_k8b_refuses_what_its_rule_refuses(cuda):
+    """K8b's and K8c's wrappers raise on the shapes `k8b_shape_error` and
+    `k8c_shape_error` reject, before any launch."""
+    from geovpr_torch.ops import mhsa as mh
+    qkv = torch.zeros(1, 20, 3 * 256, dtype=torch.bfloat16, device=cuda)
+    da = torch.zeros(1, 20, 256, dtype=torch.bfloat16, device=cuda)
+    before = mh.fused_mhsa_bwd_core.launches
+    with pytest.raises(ValueError, match="head dim"):
+        mh.fused_mhsa_bwd_core(qkv, da, 8)
+    assert mh.fused_mhsa_bwd_core.launches == before
+    assert mh.k8b_shape_error(256, 4) is None
+    assert "K8c" in mh.k8c_shape_error(1024, 16)
+
+
 @pytest.mark.parametrize("variant", ["base", "large"])
 def test_dinov2_train_launches_per_step(cuda, variant):
     """A two-block DINOv2 under grad: one K8a and one K8c (D = 768) or one

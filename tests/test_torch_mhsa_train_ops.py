@@ -7,7 +7,9 @@ f32 on both sides, so that the rounding points are exact and what is
 compared is the algorithm. JAX takes its masked bodies at N = 20
 (`_mhsa_train_kernel`, `_attn_bwd_kernel`) and its key-split bodies at
 N = 129 (`_mhsa_train_kernel_v3`, `_attn_bwd_kernel_v3`), padding N to 16
-rows; the port takes the residuals unpadded. Tolerances: rtol and atol
+rows; the port takes the residuals unpadded (and N = 65 for the core, whose
+card kernel ends on a one-key tile as at DINOv2's N = 257). Tolerances:
+rtol and atol
 2e-5 for the forward and the core backward (the v3 body's exp2 softmax with
 the scale folded into q, and the padded rows' sums, move f32 roundoff
 only); rtol 1e-4 and atol 1e-5 for the whole backward and the autograd
@@ -30,6 +32,9 @@ from geovpr_torch.ops import mhsa as tm
 # (B, N, D, H): the masked bodies, the key-split bodies, the split backward
 MASKED, KEY_SPLIT, SPLIT = (2, 20, 128, 2), (2, 129, 128, 2), (1, 20, 1024,
                                                                16)
+# N = 65 = 64 + 1, as DINOv2's N = 257 = 4 * 64 + 1: the card's core ends on
+# a one-key (one-query) tile
+ONE_KEY_TAIL = (1, 65, 128, 2)
 
 
 @pytest.fixture(autouse=True)
@@ -82,8 +87,8 @@ def test_forward_matches_jax(shape):
     np.testing.assert_allclose(ctx.numpy(), _unpad(jctx, b, n), **tol)
 
 
-@pytest.mark.parametrize("shape", [MASKED, KEY_SPLIT, SPLIT],
-                         ids=["masked", "key_split", "split"])
+@pytest.mark.parametrize("shape", [MASKED, KEY_SPLIT, SPLIT, ONE_KEY_TAIL],
+                         ids=["masked", "key_split", "split", "one_key_tail"])
 def test_core_backward_matches_jax(shape):
     """K8b: dqkv from the forward's qkv and a da that is zero on JAX's
     padded rows (as the padded g makes it)."""
@@ -183,3 +188,89 @@ def test_wrappers_take_the_plain_path_only_on_the_cpu():
     meta = [t.to("meta") for t in ta]
     with pytest.raises(ValueError, match="unsupported device"):
         tm.fused_mhsa_train_fwd(*meta, 1)
+
+
+def _k8c_parts(x, ls, lb, wqkv, wo, bo, gamma, qkv, ctx, g, h, chunked):
+    """K8c's plain parts in the order of its launches (K8C_PARTS: dy, dbo,
+    da, dWo, dgamma, the core, the LN recompute, dWqkv, dbqkv, dh, the LN
+    VJP); `chunked` sums the weight gradients in the kernel's row chunks
+    (`wgrad_chunk`) and dgamma in its K8C_GY_ROWS-row partials."""
+    from geovpr_torch.ops.swin_block import _ln_parts, wgrad_chunk
+    b, n, d = x.shape
+    dt, m = x.dtype, b * n
+    gf = g.reshape(m, d).float()
+    dy = gf * gamma.float()
+    dyb = dy.to(dt)
+    dbo = dy.sum(0)
+    da = tm.vit_bwd_product_reference(dyb, wo)
+    c2 = ctx.reshape(m, d)
+    dwo = tm.vit_weight_grad_reference(
+        c2, dyb, wgrad_chunk(m, d, d) if chunked else None)
+    dgamma = tm.vit_dgamma_reference(c2, wo, bo, gf,
+                                     tm.K8C_GY_ROWS if chunked else None)
+    dqkv = tm.mhsa_attn_bwd_core_reference(qkv, da.reshape(b, n, d),
+                                           h).reshape(m, 3 * d)
+    xhat, rstd, hh = _ln_parts(x.reshape(m, d), ls, lb, 1e-6, dt)
+    dwqkv = tm.vit_weight_grad_reference(
+        hh, dqkv, wgrad_chunk(m, d, 3 * d) if chunked else None)
+    dbqkv = dqkv.float().sum(0)
+    dh = tm.vit_bwd_product_reference(dqkv, wqkv)
+    dx, dls, dlb = tm.vit_ln_vjp_reference(dh, xhat, rstd, ls, gf)
+    return (dx.to(dt).reshape(b, n, d), dls, dlb, dwqkv, dbqkv, dwo, dbo,
+            dgamma)
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8c_parts_compose_to_the_plain_version(dtype, chunked):
+    """The plain parts of K8c's launches, composed, equal the all-in-one
+    plain version bit for bit; summed as the kernel sums (M = 130 rows:
+    five 32-row chunks of the weight gradients, the last of two rows, and
+    three 64-row partials of dgamma, the last of two), only dWo, dWqkv and
+    dgamma move, by the f32 reassociation: within 1e-5 of their largest
+    value (and one bf16 spacing where the inputs are bf16)."""
+    from geovpr_torch.ops.swin_block import wgrad_chunk
+    b, n, d, h = ONE_KEY_TAIL[0] * 2, *ONE_KEY_TAIL[1:]
+    m = b * n
+    assert wgrad_chunk(m, d, d) == wgrad_chunk(m, d, 3 * d) == 32
+    assert m % 32 and m % tm.K8C_GY_ROWS
+    assert tm.K8C_PARTS == ("dy", "dbo", "da", "dwo", "dgamma", "core",
+                            "ln_rows", "dwqkv", "dbqkv", "dh", "ln_vjp")
+    args, g = _inputs((b, n, d, h), seed=4)
+    x, ls, lb, wqkv, bqkv, wo, bo, gamma = map(_t, args)
+    x, wqkv, wo, gt = (t.to(dtype) for t in (x, wqkv, wo, _t(g)))
+    _, qkv, ctx = tm.mhsa_train_fwd_reference(x, ls, lb, wqkv, bqkv, wo, bo,
+                                              gamma, h)
+    got = _k8c_parts(x, ls, lb, wqkv, wo, bo, gamma, qkv, ctx, gt, h,
+                     chunked)
+    want = tm.mhsa_train_bwd_reference(x, ls, lb, wqkv, wo, bo, gamma, qkv,
+                                       ctx, gt, h)
+    for name, a, w in zip(("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo",
+                           "dbo", "dgamma"), got, want):
+        if chunked and name in ("dwqkv", "dwo", "dgamma"):
+            err = (a.float() - w.float()).abs()
+            tol = 1e-5 * w.float().abs().max()
+            if dtype == torch.bfloat16:
+                _, e = torch.frexp(w.float().abs())
+                tol = tol + torch.ldexp(torch.ones_like(err), e - 8)
+            assert (err <= tol).all(), name
+        else:
+            assert a.dtype == w.dtype and torch.equal(a, w), name
+
+
+@pytest.mark.parametrize("variant", ["small-14", "base-14", "large-14"])
+def test_k8_shape_rules_take_every_dinov2_variant(variant):
+    """K8b's rule takes every DINOv2 variant's block; K8c's those where
+    `bwd_all_ok` holds (large-14 takes the split backward with K8b); both
+    refuse a head dim other than 64."""
+    from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
+    spec = DINOV2_VARIANTS[variant]
+    d, h = spec["hidden_size"], spec["num_heads"]
+    assert tm.k8b_shape_error(d, h) is None
+    if tm.bwd_all_ok(d):
+        assert tm.k8c_shape_error(d, h) is None
+    else:
+        assert "bwd_all_ok" in tm.k8c_shape_error(d, h)
+    for err in (tm.k8b_shape_error(d, 2 * h), tm.k8c_shape_error(d, h // 2),
+                tm.k8b_shape_error(d + 32, h)):
+        assert err is not None and "head dim 64" in err
