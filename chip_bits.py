@@ -11,8 +11,8 @@ launches, keeping qkv and ctx) at 64x257x768x12 and 2x1370x768x12, K3 (the
 w8a8 MLP half-block) at 64x257x768x12 and at Swin-B-384's stage 0 and 3
 widths (B=16), K4 and K5 (the bf16 and w8a8 Swin half-blocks) at stage 0
 (B=16), K6 at C = 128, K9a (the Swin training forward, its y, qkv, ctx and
-p), K9b (the core backward) and K9c (the whole backward) at stage 0
-(B=16), K8b and K8c (the ViT half-block's backward) at 16x257x768x12, and
+p) and K9b (the core backward) at stages 0 and 3 and K9c (the whole
+backward) at stage 0 (B=16), K8b and K8c (the ViT half-block's backward) at 16x257x768x12, and
 K7 at Swin-T-224's stage 0. K2 is not among them: its attention sums in
 another order than the first port's. The
 inputs are saved beside the outputs and compared too, so a change in how
@@ -34,6 +34,7 @@ K1_SHAPES = ((64, 257, 768, 12), (2, 1370, 768, 12))
 SWIN_SHAPES = ((16, 128, 4, 96, 12, 6), (16, 1024, 32, 12, 12, 0))
 K7_SHAPE = (1024, 3, 49, 64)
 K9_SHAPE = (16, 128, 4, 96, 12, 6)
+K9_STAGE3 = (16, 1024, 32, 12, 12, 0)
 K8_SHAPE = (16, 257, 768, 12)
 
 
@@ -101,6 +102,15 @@ def run(out_path: str) -> None:
             outs[1], outs[2], outs[3], g, *geom.values(), 1e-5)
         res.update({f"K9c.{k}": o for k, o in zip(cs.K8_OUTS[:7] + (
             "dbias",), outs)})
+        a, g, geom = cs.k9_case(K9_STAGE3, dev)
+        res["input.K9a.stage3.x"] = a["x"]
+        outs = fused_swin_attn_train_fwd(
+            *(a[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "bqkv",
+                             "wo", "bo", "table")), *geom.values(), 1e-5)
+        res.update({f"K9a.stage3.{i}": o for i, o in enumerate(outs)})
+        dqkv, dbias = fused_swin_attn_bwd_core(outs[1], outs[3], g,
+                                               *geom.values())
+        res.update({"K9b.stage3.dqkv": dqkv, "K9b.stage3.dbias": dbias})
         a, g = cs.k8_case(K8_SHAPE, dev)
         res["input.K8.x"] = a["x"]
         _, qkv, ctx = mh.fused_mhsa_train_fwd(*cs._k8_fwd_args(a, K8_SHAPE[3]))

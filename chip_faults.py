@@ -15,8 +15,11 @@ from their unwrapped origin; K7 counting the
 pad keys past N, or without the shift mask; K6's merge-LN pass with x10
 and x01 swapped in the concat order, or reading x01 from the token below
 instead of the token to the right;
-K9a without the shift mask; K9b without the sum of dp * p in the softmax
-backward; K9c with dbias taken from one CTA's partial sum only, its
+K9a's attention without the shift mask, or its QKV GEMM writing the
+scaled q copy unscaled; the core backward (K9b, and K9c's launch 3)
+without the sum of dp * p in the softmax backward, or loading the wrapped
+quarters of a shifted window from their unwrapped origin; K9c with dbias
+taken from one CTA's partial sum only, its
 weight-gradient GEMM dropping the last chunk of rows, or da reading Wo
 with the wrong major-ness (g Wo for g Wo^T); K8a
 (K1's attention) without the mask of the keys past N; K1's TMA + wgmma
@@ -114,14 +117,20 @@ FAULTS = {
         ("r01 = x + (base + 1) * C;", "r01 = x + (base + S) * C;")],
         _SWIN.format(attn=(), merge=((16, 128, 96),))),
     "K9a shift mask dropped": ("swin_train.cu", [
-        ("if (shift && (hi ? lab1 : lab0) != lab_s[key]) v = __fadd_rn(v, "
-         "kMaskL2T);",
-         "if (false && (hi ? lab1 : lab0) != lab_s[key]) v = __fadd_rn(v, "
-         "kMaskL2T);")],
+        ("if (kMasked && masked) v = __fadd_rn(v, kMaskL2T);",
+         "if (false) v = __fadd_rn(v, kMaskL2T);")],
+        _K9.format(shape=_STAGE0)),
+    "K9a scaled q copy written unscaled": ("hopper_gemm.cuh", [
+        ("(kEpi == HG_EPI_QKV2 && round == 1);",
+         "(kEpi == HG_EPI_QKV2 && round == 2);")],
         _K9.format(shape=_STAGE0)),
     "K9b sum of dp * p dropped": ("swin_train.cu", [
         ("ds[e] = pv[e] * (dp[e] - (e >= 2 ? sub1 : sub0));",
          "ds[e] = pv[e] * dp[e];")],
+        _K9.format(shape=_STAGE0)),
+    "K9b wrapped quarters loaded unwrapped": ("swin_train.cu", [
+        ("src = sw_box_origin<TR_W>(wx, wy, box, S, shift);",
+         "src = sw_box_origin<TR_W>(wx, wy, box, 1 << 30, shift);")],
         _K9.format(shape=_STAGE0)),
     "K9c dbias from one CTA's partial": ("swin_train.cu", [
         ("reduce(st, part, G, (size_t)H * TR_N * TR_N, dbias)",

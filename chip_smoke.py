@@ -53,10 +53,14 @@ int8-score window attention) at the four Swin-B-384 stages, K3's three
 (the merge-LN pass, the GEMM) at its three boundaries, and K9c's nine
 (its four TMA + wgmma products, the column sums, the core, the LN
 recompute and VJP) at the three Swin-B-384 training stages that take it,
-and K8c's eleven (dy, its five TMA + wgmma products, the column sums, the
-TMA-fed core, the LN recompute and VJP) at DINOv2-B/14's training shape;
-K9a and K9c are also timed whole at those stages, and K8b at both DINOv2
-training shapes (base-14's, and large-14's, where it runs alone). For
+K9a's four (LayerNorm, the TMA + wgmma QKV GEMM with its scaled-q copy,
+the TMA-fed two-pass window attention that stores p, the out projection)
+at the four Swin-B-384 stages, and K8c's eleven (dy, its five TMA + wgmma
+products, the column sums, the TMA-fed core, the LN recompute and VJP) at
+DINOv2-B/14's training shape; K9a and K9b (the core backward) are also
+timed whole at the four Swin-B-384 stages, K9c at the three that take it,
+and K8b at both DINOv2 training shapes (base-14's, and large-14's, where
+it runs alone). For
 each path it
 compares the kernel path with the plain path for the whole model, counts
 the kernels' launches, times the path and the kernels (beside their plain
@@ -1781,6 +1785,55 @@ def k9_kernel_times(device, card: str, shape=K9_MAIN,
     return out
 
 
+def k9a_part_bounds(part: str, shape) -> dict:
+    """The least time of one of K9a's four launches at (B, C, H, S, w,
+    shift), M = B S^2 rows: its inputs read once and its outputs written
+    once over 3.35 TB/s, against its products at the bf16 peak or its f32
+    operations (the LayerNorm) at 67 TFLOP/s."""
+    b, c, h, res, win, _ = shape
+    m, n = b * res * res, win * win
+    bw = m // n
+    if part == "layernorm":      # x, ln_scale, ln_bias -> h
+        return part_bound(8 * m * c, PEAK_F32, 2 * m * c * 2 + 2 * c * 4)
+    if part == "qkv_gemm":       # h, Wqkv, bqkv -> qkv, the scaled q copy
+        return part_bound(6 * m * c * c, PEAK_BF16,
+                          (m * c + 3 * c * c + 4 * m * c) * 2 + 3 * c * 4)
+    if part == "attention":      # q copy, k, v, table -> ctx, p
+        att = 2 * bw * h * n * n * (c // h)
+        return part_bound(2 * att, PEAK_BF16,
+                          4 * m * c * 2 + bw * h * n * n * 2
+                          + (2 * win - 1) ** 2 * h * 4)
+    # ctx, Wo, bo -> y
+    return part_bound(2 * m * c * c, PEAK_BF16,
+                      (2 * m * c + c * c) * 2 + c * 4)
+
+
+def k9a_part_times(device, card: str, shapes=K9_SHAPES) -> dict:
+    """K9a's four launches (`K9A_PARTS`) timed one by one in CUDA graphs by
+    `parts_split`, beside `k9a_part_bounds`, at the four Swin-B-384
+    stages (B=16), after one whole call has filled the buffers they read.
+    The launches are not counted (`k9a_launch_part`)."""
+    from geovpr_torch.ops import swin_block as sb
+
+    out = {}
+    for shape in shapes:
+        tag = "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape)
+        a, _, geom = k9_case(shape, device)
+        fa = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["bqkv"],
+              a["wo"], a["bo"], a["table"], *geom.values(), 1e-5)
+        with torch.no_grad():
+            bufs = sb.k9a_buffers(a["x"], geom["num_heads"], geom["window"])
+            for i in range(len(sb.K9A_PARTS)):
+                sb.k9a_launch_part(i, *fa, bufs=bufs)
+            out[shape] = parts_split(
+                card, "K9a", tag, sb.K9A_PARTS,
+                lambda i: sb.k9a_launch_part(i, *fa, bufs=bufs),
+                lambda part: k9a_part_bounds(part, shape))
+        del a, fa, bufs
+        torch.cuda.empty_cache()
+    return out
+
+
 def k9c_part_bounds(part: str, shape) -> dict:
     """The least time of one of K9c's launches (with the reduce of its
     partial sums) at (B, C, H, S, w, shift), M = B S^2 rows: its inputs
@@ -2554,9 +2607,12 @@ def main() -> int:
     train_launches = train_path(device, card)
     k9t = k9_kernel_times(device, card)
     for shape in K9_SHAPES[1:]:
-        k9_kernel_times(device, card, shape,
-                        ("K9a",) if shape[1] > 512 else ("K9a", "K9c"))
+        t = k9_kernel_times(device, card, shape, ("K9a", "K9b") if
+                            shape[1] > 512 else ("K9a", "K9b", "K9c"))
+    # K9b runs at stage 3 (C = 1024) alone: its row reports that stage
+    k9t["K9b"] = t["K9b"]
     k9c_part_times(device, card)
+    k9a_part_times(device, card)
 
     k8_errs = k8_kernels_vs_plain(device)
     dino_launches = dinov2_train_path(device, card)
@@ -2612,16 +2668,16 @@ def main() -> int:
                  "plain_ms": k7t["plain_ms"], "bound_ms": k7t["bound_ms"],
                  "bound_by": k7t["bound_by"],
                  "library_ms": k7t["library_ms"]})
-    for name, k, line, err in (
-            ("fused_swin_attn_train_fwd", "K9a", 1263, "K9a"),
-            ("fused_swin_attn_bwd_core", "K9b", 1351, "K9b"),
-            ("fused_swin_attn_bwd_all", "K9c", 910, "K9c")):
+    for name, k, line, shape in (
+            ("fused_swin_attn_train_fwd", "K9a", 1263, K9_MAIN),
+            ("fused_swin_attn_bwd_core", "K9b", 1351, K9_SHAPES[3]),
+            ("fused_swin_attn_bwd_all", "K9c", 910, K9_MAIN)):
         t = k9t[k]
         rows.append({"name": name, "route": "cuda",
                      "source": "geovpr_torch/csrc/swin_train.cu",
                      "replaces": f"geovpr/ops/pallas_swin_block.py:{line}",
                      "launches": train_launches[name],
-                     "max_abs_err": k9_errs[(err, K9_MAIN)], "ms": t["ms"],
+                     "max_abs_err": k9_errs[(k, shape)], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})

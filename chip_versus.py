@@ -1,8 +1,8 @@
-"""K2, K8b, K8c and K9c times, the w8a8 models' img/s and the Swin-B-384
-and DINOv2-B/14 training steps' device time of several checkouts, in
-turns, on one CUDA card.
+"""K2, K8b, K8c, K9a, K9b and K9c times, the w8a8 models' img/s and the
+Swin-B-384 and DINOv2-B/14 training steps' device time of several
+checkouts, in turns, on one CUDA card.
 
-    python3 chip_versus.py CHECKOUT [CHECKOUT ...]
+    python3 chip_versus.py [--only=SECTION,...] CHECKOUT [CHECKOUT ...]
 
 Each argument (`.` for this checkout, or an unpacked `git archive` of an
 earlier commit in a gitignored directory) runs in a process of its own,
@@ -13,7 +13,10 @@ DINOv2-B/14's 64x257x768x12, of K8b at DINOv2's training shapes
 16x257x768x12, each in ROUNDS rounds of turns with its library yardstick
 (the backward of F.scaled_dot_product_attention on the same q, k, v for
 K8b, `library_k1`'s whole backward for K8c; the order reversed every other
-round), and of K9c at the three Swin-B-384 stages that take it (B=16), the
+round), of K9c at the three Swin-B-384 stages that take it (B=16), of
+K9a and of the core backward (K9b's launch, which K9c's launch 3 shares)
+at the four Swin-B-384 stages (B=16), each whole and kernel by kernel
+(the device ms of each kernel name under torch.profiler), the
 ms per B=64 batch and img/s of the w8a8 DINOv2-B/14 + SALAD descriptors
 (224 px) and the w8a8 Swin-B-384 geopose model (384 px), each calibrated
 on its first batch, and one training step of Swin-B-384 (preset
@@ -21,7 +24,8 @@ swin_b384_gemini2) and of DINOv2-B/14 (dinov2_meanpool_huber), B=16: host
 ms per step over 5 synchronised steps, and the device-busy ms of one step
 under torch.profiler. Inputs and weights are chip_smoke.py's, from seed 0.
 Name the checkouts in turns (`OLD . . OLD`) to compare two on one card.
-Needs one CUDA card.
+`--only` runs the named sections alone, of: k2, k9c, k9, models, k8,
+swin_step, dinov2_step. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 REPO = Path(__file__).resolve().parent
 ITERS = 10
 ROUNDS = 4
+SECTIONS = ("k2", "k9c", "k9", "models", "k8", "swin_step", "dinov2_step")
 
 
 def _train_step_times(cs, dev, line, preset: str, name: str) -> None:
@@ -128,8 +133,52 @@ def _k8_times(cs, dev, line) -> None:
         torch.cuda.empty_cache()
 
 
-def run(label: str) -> None:
-    """In the child: this process's checkout's kernels and models."""
+def _kernel_name(key: str) -> str:
+    """A profiler key's kernel name with its template arguments, without
+    its return type, namespace and parameters."""
+    name = key.replace("(anonymous namespace)::", "").split("(")[0]
+    return name[5:] if name.startswith("void ") else name
+
+
+def _k9_times(cs, dev, line) -> None:
+    """K9a and the core backward (`fused_swin_attn_bwd_core`: the core and
+    the reduce of its dbias partials) at the four Swin-B-384 stages: the
+    CUDA-event ms of a whole call, then the device ms of each kernel of
+    one call by name under torch.profiler (averaged over ITERS calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from geovpr_torch.ops import swin_block as sb
+
+    with torch.no_grad():
+        for shape in cs.K9_SHAPES:
+            tag = "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape)
+            a, g, geom = cs.k9_case(shape, dev)
+            geo = tuple(geom.values())
+            fa = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["bqkv"],
+                  a["wo"], a["bo"], a["table"], *geo, 1e-5)
+            _, qkv, ctx, p = sb.fused_swin_attn_train_fwd(*fa)
+            fns = (("K9a", lambda: sb.fused_swin_attn_train_fwd(*fa)),
+                   ("K9b", lambda: sb.fused_swin_attn_bwd_core(qkv, p, g,
+                                                               *geo)))
+            for name, fn in fns:
+                ms = cs.cuda_ms(fn, ITERS)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(ITERS):
+                        fn()
+                    torch.cuda.synchronize()
+                kernels = {_kernel_name(e.key):
+                           e.self_device_time_total / ITERS / 1e3
+                           for e in prof.key_averages()
+                           if e.self_device_time_total > 0}
+                line(name, tag, ms, kernels=kernels)
+            del a, g, qkv, ctx, p, fns
+            torch.cuda.empty_cache()
+
+
+def run(label: str, sections=SECTIONS) -> None:
+    """In the child: this process's checkout's kernels and models, the
+    sections of SECTIONS named in `sections`."""
     import numpy as np
 
     import chip_smoke as cs
@@ -150,55 +199,64 @@ def run(label: str) -> None:
         cs.phase("versus", checkout=label, card=repr(card), name=name,
                  shape=shape, ms=ms, **more)
 
-    with torch.inference_mode():
-        b, n, d, h = cs.MAIN_SHAPE
-        x, k2, _ = cs.int8_block_case(b, n, d, h, dev)
-        line("K2", f"B{b}_N{n}_D{d}_H{h}", cs.cuda_ms(
-            lambda: fused_mhsa_block_int8(x, **k2, num_heads=h), ITERS))
-        del x, k2
-    with torch.no_grad():
-        for shape in cs.K9_SHAPES[:3]:
-            a, g, geom = cs.k9_case(shape, dev)
-            geo = tuple(geom.values())
-            _, qkv, ctx, p = sb.fused_swin_attn_train_fwd(
-                a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["bqkv"],
-                a["wo"], a["bo"], a["table"], *geo, 1e-5)
-            ba = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["wo"],
-                  qkv, ctx, p, g, *geo, 1e-5)
-            line("K9c", "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape),
-                 cs.cuda_ms(lambda: sb.fused_swin_attn_bwd_all(*ba), ITERS))
-            del a, g, qkv, ctx, p, ba
+    if "k2" in sections:
+        with torch.inference_mode():
+            b, n, d, h = cs.MAIN_SHAPE
+            x, k2, _ = cs.int8_block_case(b, n, d, h, dev)
+            line("K2", f"B{b}_N{n}_D{d}_H{h}", cs.cuda_ms(
+                lambda: fused_mhsa_block_int8(x, **k2, num_heads=h), ITERS))
+            del x, k2
+    if "k9c" in sections:
+        with torch.no_grad():
+            for shape in cs.K9_SHAPES[:3]:
+                a, g, geom = cs.k9_case(shape, dev)
+                geo = tuple(geom.values())
+                _, qkv, ctx, p = sb.fused_swin_attn_train_fwd(
+                    a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"],
+                    a["bqkv"], a["wo"], a["bo"], a["table"], *geo, 1e-5)
+                ba = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"],
+                      a["wo"], qkv, ctx, p, g, *geo, 1e-5)
+                line("K9c", "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape),
+                     cs.cuda_ms(lambda: sb.fused_swin_attn_bwd_all(*ba),
+                                ITERS))
+                del a, g, qkv, ctx, p, ba
+            torch.cuda.empty_cache()
+    if "k9" in sections:
+        _k9_times(cs, dev, line)
+    if "models" in sections:
+        with torch.inference_mode():
+            gallery = cs.synthetic_gallery(cs.BATCH, cs.IMAGE_SIZE,
+                                           np.random.default_rng(cs.SEED))
+            images = normalize(torch.from_numpy(gallery.images).to(dev))
+            model = build_model(cs.VARIANT, cs.IMAGE_SIZE, dev, seed=cs.SEED,
+                                int8=True)
+            quantize_for_serving(model, [images])
+            ms = cs.cuda_ms(lambda: model(images), ITERS)
+            line("dinov2_b14_salad_int8", f"B{cs.BATCH}", ms,
+                 img_per_s=cs.BATCH * 1e3 / ms)
+            del model, images
+
+            source = cs.synthetic_val(cs.SWIN_BATCH, 384,
+                                      np.random.default_rng(cs.SEED))
+            images = normalize(torch.from_numpy(source.images).to(dev))
+            model, _ = cs.swin_model(dev, source.targets, int8=True)
+            quantize_for_serving(model, [images])
+            ms = cs.cuda_ms(lambda: model(images), ITERS)
+            line("swin_b384_int8", f"B{cs.SWIN_BATCH}", ms,
+                 img_per_s=cs.SWIN_BATCH * 1e3 / ms)
+            del model, images
         torch.cuda.empty_cache()
-
-    with torch.inference_mode():
-        gallery = cs.synthetic_gallery(cs.BATCH, cs.IMAGE_SIZE,
-                                       np.random.default_rng(cs.SEED))
-        images = normalize(torch.from_numpy(gallery.images).to(dev))
-        model = build_model(cs.VARIANT, cs.IMAGE_SIZE, dev, seed=cs.SEED,
-                            int8=True)
-        quantize_for_serving(model, [images])
-        ms = cs.cuda_ms(lambda: model(images), ITERS)
-        line("dinov2_b14_salad_int8", f"B{cs.BATCH}", ms,
-             img_per_s=cs.BATCH * 1e3 / ms)
-        del model, images
-
-        source = cs.synthetic_val(cs.SWIN_BATCH, 384,
-                                  np.random.default_rng(cs.SEED))
-        images = normalize(torch.from_numpy(source.images).to(dev))
-        model, _ = cs.swin_model(dev, source.targets, int8=True)
-        quantize_for_serving(model, [images])
-        ms = cs.cuda_ms(lambda: model(images), ITERS)
-        line("swin_b384_int8", f"B{cs.SWIN_BATCH}", ms,
-             img_per_s=cs.SWIN_BATCH * 1e3 / ms)
-        del model, images
-    torch.cuda.empty_cache()
-    _k8_times(cs, dev, line)
-    _train_step_times(cs, dev, line, cs.TRAIN_PRESET, "swin_b384_train_step")
-    _train_step_times(cs, dev, line, "dinov2_meanpool_huber",
-                      "dinov2_b14_train_step")
+    if "k8" in sections:
+        _k8_times(cs, dev, line)
+    if "swin_step" in sections:
+        _train_step_times(cs, dev, line, cs.TRAIN_PRESET,
+                          "swin_b384_train_step")
+    if "dinov2_step" in sections:
+        _train_step_times(cs, dev, line, "dinov2_meanpool_huber",
+                          "dinov2_b14_train_step")
 
 
-def _child(checkout: Path, label: str) -> None:
+def _child(checkout: Path, label: str, sections) -> None:
     code = (f"import sys; sys.path[:0] = [{str(checkout)!r}]\n"
             f"import geovpr_torch\n"
             f"assert geovpr_torch.__file__.startswith({str(checkout)!r})\n"
@@ -206,12 +264,18 @@ def _child(checkout: Path, label: str) -> None:
             f"spec = u.spec_from_file_location('chip_versus_run', "
             f"{str(REPO / 'chip_versus.py')!r})\n"
             f"mod = u.module_from_spec(spec); spec.loader.exec_module(mod)\n"
-            f"mod.run({label!r})\n")
+            f"mod.run({label!r}, {tuple(sections)!r})\n")
     subprocess.run([sys.executable, "-c", code], cwd=checkout, check=True)
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+    argv = list(sys.argv[1:] if argv is None else argv)
+    sections = SECTIONS
+    if argv and argv[0].startswith("--only="):
+        sections = tuple(argv.pop(0)[len("--only="):].split(","))
+        if not set(sections) <= set(SECTIONS):
+            print(f"chip_versus: sections are {SECTIONS}", file=sys.stderr)
+            return 2
     if not argv:
         print(__doc__.strip().splitlines()[4], file=sys.stderr)
         return 2
@@ -220,7 +284,7 @@ def main(argv=None) -> int:
         return 1
     for i, arg in enumerate(argv):
         checkout = Path(arg).resolve()
-        _child(checkout, f"{i}:{arg}")
+        _child(checkout, f"{i}:{arg}", sections)
     return 0
 
 

@@ -1,16 +1,17 @@
 // Hopper (sm_90a) building blocks of the TMA-fed kernels (hopper_gemm.cuh,
 // hopper_gemm_s8.cuh, mhsa.cu, mhsa_int8.cu, swin_attn.cu, patch_merge.cu,
 // mlp_int8.cu, swin_train.cu):
-// mbarriers, TMA tile loads and stores, warpgroup matrix multiplies (wgmma,
-// bf16 and int8) on 128-byte-swizzled shared-memory tiles, ldmatrix on the
-// same tiles, and the host's tensor-map encoding.
+// mbarriers, TMA tile loads and stores, bulk copies, warpgroup matrix
+// multiplies (wgmma, bf16 and int8) on 128-byte-swizzled shared-memory
+// tiles, ldmatrix on the same tiles, and the host's tensor-map encoding.
 //
 // Every GEMM tile here is 128 bytes (64 bf16, 128 int8) wide in its
 // contiguous dimension, written by TMA with CU_TENSOR_MAP_SWIZZLE_128B at a
 // 1024-byte-aligned address: row r of the tile sits at r * 128 bytes, its
 // 16-byte chunks permuted by r % 8. (K2's and K5's int8 q and k tiles are
 // 64 bytes wide, with the 64-byte swizzle, read by ldmatrix: mhsa_int8.cu,
-// swin_attn.cu.) wgmma reads such a tile through a descriptor (PTX ISA,
+// swin_attn.cu; so are the one-head bf16 tiles of K9's core backward,
+// swin_train.cu.) wgmma reads such a tile through a descriptor (PTX ISA,
 // "Matrix Descriptor Format"): the start address, the leading and stride
 // byte offsets (LBO, SBO) and the 128-byte swizzle mode.
 //   K-major operand (K contiguous: A of the forward products, K of q k^T,
@@ -126,6 +127,26 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A bulk copy of `bytes` (a multiple of 16) contiguous bytes from global
+// memory at src (16-byte aligned) into shared memory at dst, completion
+// counted in bytes on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// a 16-byte store that streams past the caches (the data is read again
+// only by a later kernel)
+__device__ __forceinline__ void st_global_cs(void* dst, uint4 v) {
+  asm volatile("st.global.cs.v4.b32 [%0], {%1, %2, %3, %4};" ::"l"(dst),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
 // TMA store of the box at the given coordinates from shared memory at src;
 // elements out of bounds are not written. Tracked as a bulk group
 // (bulk_commit, bulk_wait_read).
@@ -177,6 +198,14 @@ __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
 }
 __device__ __forceinline__ void st_shared_u16(uint32_t addr, uint16_t v) {
   asm volatile("st.shared.b16 [%0], %1;" ::"r"(addr), "h"(v) : "memory");
+}
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // four 8 x 8 bf16 matrices, lanes 8 i .. 8 i + 7 giving the row addresses

@@ -1,6 +1,6 @@
 // The LayerNorm and projection GEMMs of K1 (mhsa.cu), K4 (swin_attn.cu)
-// and K6 (patch_merge.cu), and the four products of K9c (swin_train.cu),
-// for Hopper (sm_90a), bf16:
+// and K6 (patch_merge.cu), K9a's projections and K9c's four products
+// (swin_train.cu), for Hopper (sm_90a), bf16:
 //
 //   ln_rows_kernel:     y(M, D) = bf16(LN(x) * ln_scale + ln_bias)
 //   hopper_gemm_kernel: out(M, Nc) = epilogue(A(M, K) @ W(K, Nc))
@@ -32,7 +32,13 @@
 // >= Nc: the rounding of a direct store, but whole 128-byte rows instead
 // of 4-byte pairs, and the next tile's loads overlap the epilogue:
 //   EPI_QKV:   acc + bias, times qscale on the first qcols columns (K4's
-//              dh^-0.5 log2 e on q; K1 passes qcols = 0);
+//              dh^-0.5 log2 e on q; K1, and K9a's out projection, pass
+//              qcols = 0);
+//   EPI_QKV2:  K9a's QKV: acc + bias to out on every column, and on the
+//              tiles of the first qcols columns (qcols a multiple of the
+//              tile width) also (acc + bias) * qscale to out2 (M, qcols),
+//              each rounded once from f32: the tile is staged and stored
+//              twice, unscaled first;
 //   EPI_PROJ:  (acc + bias) * gamma + resid (K1's LayerScale);
 //   EPI_RESID: acc + bias + resid (K4: no LayerScale);
 //   EPI_NONE:  acc (K6, no bias; K9c's and K8c's da and dh);
@@ -76,7 +82,8 @@ enum {
   HG_EPI_RESID,
   HG_EPI_NONE,
   HG_EPI_F32,
-  HG_EPI_GY
+  HG_EPI_GY,
+  HG_EPI_QKV2
 };
 
 // What the epilogue adds (see the header note); unused fields are ignored.
@@ -221,7 +228,8 @@ inline cudaError_t launch_ln_rows(const bf16* x, const float* scale,
 // gradient, ctx^T of dWo = ctx^T g). W (K, Nc): tm_w maps it MN-major,
 // stored (K, Nc) in 64 x 64 boxes, or with kBK K-major, stored (Nc, K) in
 // 64-k x BN-row boxes (the (in, out) weight of da = g Wo^T). tm_out maps
-// out (M, Nc) in 64 x 64 boxes; HG_EPI_F32 writes f32 partial sums to
+// out (M, Nc) in 64 x 64 boxes (tm_out2 HG_EPI_QKV2's out2 (M, qcols));
+// HG_EPI_F32 writes f32 partial sums to
 // ep.part instead. K splits into chunks of kchunk (a multiple of 16):
 // the work items are the ceil(M / 128) x ceil(Nc / BN) output tiles of
 // each chunk, column tiles fastest, then row tiles, then chunks; item i
@@ -233,6 +241,7 @@ __global__ void __launch_bounds__(HG_THREADS, 2)
 hopper_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
                    const __grid_constant__ CUtensorMap tm_w,
                    const __grid_constant__ CUtensorMap tm_out,
+                   const __grid_constant__ CUtensorMap tm_out2,
                    const HgEpilogue ep, int M, int K, int Nc, int kchunk) {
   using T = HgTile<BN>;
   extern __shared__ unsigned char hg_smem[];
@@ -409,57 +418,68 @@ hopper_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
     }
     unsigned char* out_s =
         ring + s * T::kStageBytes + wg * 64 * BN * 2;  // BN / 64 boxes
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = n0 + 8 * j + 2 * t;
-      if (col >= Nc) continue;
-      float2 bb = make_float2(0.f, 0.f);
-      if (kEpi != HG_EPI_NONE)
-        bb = *reinterpret_cast<const float2*>(ep.bias + col);
-      float2 gg = make_float2(1.f, 1.f);
-      if (kEpi == HG_EPI_PROJ)
-        gg = *reinterpret_cast<const float2*>(ep.gamma + col);
-      const bool scaled = kEpi == HG_EPI_QKV && col < ep.qcols;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = r0 + 8 * half;
-        if (row >= M) continue;
-        const size_t at = (size_t)row * Nc + col;
-        const int lr = lr0 + 8 * half;
-        float v0 = acc[4 * j + 2 * half];
-        float v1 = acc[4 * j + 2 * half + 1];
-        if (kEpi != HG_EPI_NONE) {
-          v0 += bb.x;
-          v1 += bb.y;
-        }
-        if (scaled) {
-          v0 *= ep.qscale;
-          v1 *= ep.qscale;
-        }
-        if (kEpi == HG_EPI_PROJ || kEpi == HG_EPI_RESID) {
-          const float2 r = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(ep.resid + at));
-          if (kEpi == HG_EPI_PROJ) {
-            v0 = v0 * gg.x + r.x;
-            v1 = v1 * gg.y + r.y;
-          } else {
-            v0 += r.x;
-            v1 += r.y;
-          }
-        }
-        __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
-        st_shared_u32(smem_u32(out_s + (j / 8) * 8192 + lr * 128 +
-                               (((j % 8) ^ (lr & 7)) << 4) + 4 * t),
-                      *reinterpret_cast<uint32_t*>(&v));
+    // HG_EPI_QKV2 stages and stores a q tile twice: qkv, then the scaled
+    // copy once the first stores have read the stage
+    const int rounds = kEpi == HG_EPI_QKV2 && n0 < ep.qcols ? 2 : 1;
+    for (int round = 0; round < rounds; ++round) {
+      if (round == 1) {
+        if (tid == 0) bulk_wait_read();
+        named_sync(2 + wg, 128);
       }
-    }
-    fence_proxy_async();
-    named_sync(2 + wg, 128);
-    if (tid == 0) {
 #pragma unroll
-      for (int c = 0; c < BN / 64; ++c)
-        tma_store_2d(&tm_out, out_s + c * 8192, n0 + 64 * c, m0 + wg * 64);
-      bulk_commit();
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        if (col >= Nc) continue;
+        float2 bb = make_float2(0.f, 0.f);
+        if (kEpi != HG_EPI_NONE)
+          bb = *reinterpret_cast<const float2*>(ep.bias + col);
+        float2 gg = make_float2(1.f, 1.f);
+        if (kEpi == HG_EPI_PROJ)
+          gg = *reinterpret_cast<const float2*>(ep.gamma + col);
+        const bool scaled = (kEpi == HG_EPI_QKV && col < ep.qcols) ||
+                            (kEpi == HG_EPI_QKV2 && round == 1);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = r0 + 8 * half;
+          if (row >= M) continue;
+          const size_t at = (size_t)row * Nc + col;
+          const int lr = lr0 + 8 * half;
+          float v0 = acc[4 * j + 2 * half];
+          float v1 = acc[4 * j + 2 * half + 1];
+          if (kEpi != HG_EPI_NONE) {
+            v0 += bb.x;
+            v1 += bb.y;
+          }
+          if (scaled) {
+            v0 *= ep.qscale;
+            v1 *= ep.qscale;
+          }
+          if (kEpi == HG_EPI_PROJ || kEpi == HG_EPI_RESID) {
+            const float2 r = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(ep.resid + at));
+            if (kEpi == HG_EPI_PROJ) {
+              v0 = v0 * gg.x + r.x;
+              v1 = v1 * gg.y + r.y;
+            } else {
+              v0 += r.x;
+              v1 += r.y;
+            }
+          }
+          __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+          st_shared_u32(smem_u32(out_s + (j / 8) * 8192 + lr * 128 +
+                                 (((j % 8) ^ (lr & 7)) << 4) + 4 * t),
+                        *reinterpret_cast<uint32_t*>(&v));
+        }
+      }
+      fence_proxy_async();
+      named_sync(2 + wg, 128);
+      if (tid == 0) {
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c)
+          tma_store_2d(round == 1 ? &tm_out2 : &tm_out, out_s + c * 8192,
+                       n0 + 64 * c, m0 + wg * 64);
+        bulk_commit();
+      }
     }
     // the stage goes back to the producer once the stores have read it,
     // which the next tile's first k step waits for
@@ -477,7 +497,8 @@ hopper_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
 template <int kEpi, bool kBK = false, bool kAT = false>
 cudaError_t launch_gemm(const CUtensorMap& ta, const bf16* w, int K, int Nc,
                         const HgEpilogue& ep, bf16* out, int M,
-                        cudaStream_t s, int kchunk = 0) {
+                        cudaStream_t s, int kchunk = 0,
+                        bf16* out2 = nullptr) {
   const int bn = Nc % 128 == 0 ? 128 : 64;
   if (kchunk <= 0) kchunk = K;
   CUtensorMap tw;
@@ -494,6 +515,15 @@ cudaError_t launch_gemm(const CUtensorMap& ta, const bf16* w, int K, int Nc,
     if (!make_tmap(&to, out, 2, odims, ostrides, obox))
       return cudaErrorInvalidValue;
   }
+  CUtensorMap to2{};
+  if (kEpi == HG_EPI_QKV2) {
+    const cuuint64_t dims2[2] = {(cuuint64_t)ep.qcols, (cuuint64_t)M};
+    const cuuint64_t strides2[1] = {(cuuint64_t)ep.qcols * 2};
+    const cuuint32_t obox[2] = {64, 64};
+    if (ep.qcols % bn != 0 ||
+        !make_tmap(&to2, out2, 2, dims2, strides2, obox))
+      return cudaErrorInvalidValue;
+  }
   int dev = 0, sms = 0;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
@@ -506,12 +536,12 @@ cudaError_t launch_gemm(const CUtensorMap& ta, const bf16* w, int K, int Nc,
   const int grid = (int)(items < 2 * sms ? items : 2 * sms);
   if (bn == 128)
     hopper_gemm_kernel<128, kEpi, kBK, kAT>
-        <<<grid, HG_THREADS, HgTile<128>::kSmem, s>>>(ta, tw, to, ep, M, K,
-                                                       Nc, kchunk);
+        <<<grid, HG_THREADS, HgTile<128>::kSmem, s>>>(ta, tw, to, to2, ep, M,
+                                                       K, Nc, kchunk);
   else
     hopper_gemm_kernel<64, kEpi, kBK, kAT>
-        <<<grid, HG_THREADS, HgTile<64>::kSmem, s>>>(ta, tw, to, ep, M, K,
-                                                      Nc, kchunk);
+        <<<grid, HG_THREADS, HgTile<64>::kSmem, s>>>(ta, tw, to, to2, ep, M,
+                                                      K, Nc, kchunk);
   return cudaGetLastError();
 }
 

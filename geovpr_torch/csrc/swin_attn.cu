@@ -46,7 +46,9 @@
 // at stage 3). The sum, 0.586 / 0.293 / 0.160 / 0.112 ms, is what this
 // split can reach; one fused pass could reach 0.12 / 0.10 / 0.09 / 0.08.
 //
-// swin_attn_tma_kernel. The stream stays in raster order: a 4-d tensor map
+// swin_attn_tma_kernel (its window geometry, SwTile, sw_box_origin and
+// sw_addr, in swin_window.cuh, which K9's kernels share). The stream stays
+// in raster order: a 4-d tensor map
 // of qkv (3C columns, x, y, image) in boxes of (64 columns = two heads,
 // w/2, w/2, 1) reads a window as its four quarters, each from its own
 // raster origin. Swin shifts by w/2 or not at all, so the cyclic shift
@@ -80,7 +82,8 @@
 // warp over the rows and head it read) and stored by TMA in the same
 // boxes; stores past the C columns (odd H) are dropped by TMA.
 //
-// Gone from the first version: K4's WMMA GEMMs (bf16_gemm.cuh), which pinned
+// Gone from the first version: K4's WMMA GEMMs (a bf16_gemm.cuh since
+// removed), which pinned
 // a 64 x (C + 8) A block and an f32 C tile in shared memory (one CTA an SM
 // at C = 1024); the attention's per-(window, head) CTA, its synchronous
 // gathers of 64-byte head slices and its element-by-element V transpose.
@@ -124,6 +127,7 @@
 // allocate nothing; the caller passes the scratch.
 
 #include "hopper_gemm_s8.cuh"
+#include "swin_window.cuh"
 #include "window_attn.cuh"
 
 namespace {
@@ -133,59 +137,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaskL2 = -100.f * kLog2e;
 
 // ------------------------------------------------ K4's window attention --
-
-// Geometry of swin_attn_tma_kernel at window side W (4, 8, 12 or 16: N =
-// W^2 a multiple of 16 up to 256).
-template <int W>
-struct SwTile {
-  static constexpr int kH = W / 2;                // side of a quarter (box)
-  static constexpr int kN = W * W;                // tokens of a window
-  static constexpr int kBoxRows = kH * kH;
-  static constexpr int kBoxBytes = kBoxRows * 128;  // rows of two heads
-  static constexpr int kSlot = (kBoxBytes + 1023) / 1024 * 1024;
-  static constexpr int kTensor = 4 * kSlot;       // q, k or v of a task
-  static constexpr int kStageBytes = 3 * kTensor;
-  static constexpr int kStages = W == 16 ? 2 : 3;
-  static constexpr int kT = 2 * W - 1;            // side of the bias grid
-  static constexpr int kTiles = kN / 16;          // query tiles of a head
-  // query tiles a warp takes at once (sharing each key tile's K and V
-  // fragments), warps of a consumer group (a task: two heads), groups
-  static constexpr int kR = W == 12 ? 3 : W == 4 ? 1 : 2;
-  static constexpr int kGroupWarps = 2 * kTiles / kR;
-  static constexpr int kGroups = W == 16 ? 1 : 2;
-  static constexpr int kGroupThreads = 32 * kGroupWarps;
-  static constexpr int kThreads = kGroups * kGroupThreads;
-  // the ring, each group's two bias tables, the tokens' bias positions,
-  // kStages barriers and align1024's slack
-  static constexpr int kSmem = kStages * kStageBytes +
-                               kGroups * 2 * kT * kT * 4 + kN * 4 +
-                               kStages * 8 + 1024;
-};
-
-// Raster origin (x, y) of quarter `box` of window (wx, wy) in the rolled
-// frame: (box >> 1, box & 1) is the quarter's row and column in the
-// window, token (ly, lx) of the box is raster token (x + lx, y + ly).
-template <int W>
-__device__ __forceinline__ int2 sw_box_origin(int wx, int wy, int box, int S,
-                                              int shift) {
-  int x = wx * W + shift + (box & 1) * (W / 2);
-  int y = wy * W + shift + (box >> 1) * (W / 2);
-  if (x >= S) x -= S;  // the cyclic shift wraps the last window column
-  if (y >= S) y -= S;  // and the last window row
-  return make_int2(x, y);
-}
-
-// Shared-memory address of chunk c (16 bytes: chunk 4 hh + j holds dims
-// 8 j .. 8 j + 7 of head hh of the pair) of token r (box-major: r =
-// box * kBoxRows + ly * kH + lx) of a q, k or v tile at `base`, through
-// the 128-byte swizzle of the 1024-byte-aligned box slot.
-template <int W>
-__device__ __forceinline__ uint32_t sw_addr(uint32_t base, int r, int c) {
-  using T = SwTile<W>;
-  const int lr = r % T::kBoxRows;
-  return base + (r / T::kBoxRows) * T::kSlot + lr * 128 +
-         ((c ^ (lr & 7)) << 4);
-}
 
 // One warp: query rows [r_base, r_base + 16 kR) of head hh of a task
 // against all kN keys; writes bf16 ctx over the same rows and head of the

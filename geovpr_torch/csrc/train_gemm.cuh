@@ -1,112 +1,35 @@
-// The row-stream pieces of the training kernels K9a, K9c (swin_train.cu)
-// and K8c (mhsa_train.cu), for Hopper (sm_90a): K9a's out projection, a
-// WMMA GEMM with a bias epilogue (K9c's and K8c's products run on
-// hopper_gemm.cuh), the fixed row chunks of a weight gradient's partial
-// sums and their fixed-order reduction, column sums, and the LayerNorm
+// The row-stream pieces of the training kernels K9c (swin_train.cu) and
+// K8c (mhsa_train.cu), for Hopper (sm_90a): the fixed row chunks of a
+// weight gradient's partial sums (their products run on hopper_gemm.cuh)
+// and their fixed-order reduction, column sums, and the LayerNorm
 // recompute and VJP, one warp per row. No atomics: every cross-CTA sum is
 // a partial per CTA and one reduce_partials launch that adds the partials
 // in order, so a training step repeats bit for bit.
 
 #pragma once
 
-#include <algorithm>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "bf16_gemm.cuh"
+#include <algorithm>
 
 namespace {
 
-// --------------------------------------------------------- plain GEMM ----
-// out(M, N) = bf16(A(M, K) B(K, N) + bias[col]) (bias may be null), both
-// row-major, f32 accumulation, WMMA 16x16x16 bf16, 64 x 64 tiles, 4 warps
-// of 32 x 32. Requires K and N multiples of 8. TG_BM x TG_BN are also the
-// output tiles over which split_rows sizes a weight gradient's row chunks.
-constexpr int TG_BM = 64, TG_BN = 64, TG_BK = 32, TG_THREADS = 128;
+typedef __nv_bfloat16 bf16;
 
-__global__ void __launch_bounds__(TG_THREADS)
-tgemm_kernel(const bf16* __restrict__ a, int lda, const bf16* __restrict__ b,
-             int ldb, int M, int N, int K, const float* __restrict__ bias,
-             bf16* __restrict__ out) {
-  constexpr int A_LD = TG_BK + 8;
-  constexpr int B_LDT = TG_BN + 8;
-  constexpr int CS_LD = TG_BN + 4;
-  __shared__ __align__(128) bf16 As[TG_BM * A_LD];
-  __shared__ __align__(128) bf16 Bs[TG_BK * B_LDT];
-  __shared__ __align__(128) float Cs[TG_BM * CS_LD];
+// TG_BM x TG_BN are the output tiles over which split_rows sizes a weight
+// gradient's row chunks (the first port's WMMA GEMM's), TG_BK their step.
+constexpr int TG_BM = 64, TG_BN = 64, TG_BK = 32;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
-  const int m0 = blockIdx.y * TG_BM;
-  const int n0 = blockIdx.x * TG_BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+__device__ inline float warp_sum(float v) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += TG_BK) {
-    // A tile: (rows, 8-element chunks along k)
-    constexpr int A_CH = TG_BK / 8;
-    for (int i = tid; i < TG_BM * A_CH; i += TG_THREADS) {
-      const int r = i / A_CH;
-      const int c8 = (i % A_CH) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m0 + r < M && k0 + c8 < K)
-        v = *reinterpret_cast<const uint4*>(a + (size_t)(m0 + r) * lda + k0 + c8);
-      *reinterpret_cast<uint4*>(As + r * A_LD + c8) = v;
-    }
-    constexpr int B_CH = TG_BN / 8;
-    for (int i = tid; i < TG_BK * B_CH; i += TG_THREADS) {
-      const int r = i / B_CH;
-      const int c8 = (i % B_CH) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (k0 + r < K && n0 + c8 < N)
-        v = *reinterpret_cast<const uint4*>(b + (size_t)(k0 + r) * ldb + n0 + c8);
-      *reinterpret_cast<uint4*>(Bs + r * B_LDT + c8) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TG_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * A_LD + kk,
-                               A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * B_LDT + wn * 32 + j * 16,
-                               B_LDT);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * CS_LD + wn * 32 + j * 16,
-                              acc[i][j], CS_LD, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < TG_BM * TG_BN; i += TG_THREADS) {
-    const int r = i / TG_BN;
-    const int c = i % TG_BN;
-    const int row = m0 + r;
-    const int col = n0 + c;
-    if (row >= M || col >= N) continue;
-    const float v = Cs[r * CS_LD + c];
-    out[(size_t)row * N + col] = __float2bfloat16(bias ? v + bias[col] : v);
-  }
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 // out[e] = sum_s part[s * n + e], s in order: the deterministic reduction
-// of every partial sum above.
+// of every partial sum of the training kernels.
 __global__ void reduce_partials_kernel(const float* __restrict__ part, int S,
                                        size_t n, float* __restrict__ out) {
   for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
@@ -138,9 +61,11 @@ __global__ void colsum_partials_kernel(const bf16* __restrict__ x, int M,
   part[(size_t)blockIdx.y * C + c] = s;
 }
 
-// The LN recompute of K9c, one warp per row: f32 two-pass statistics (as
-// bf16_gemm.cuh's prologue), h = bf16(xhat * ls + lb), and each row's mean
-// and 1/std for the VJP.
+// The LayerNorm of K9a's launch 0 and K9c's LN recompute, one warp per
+// row: f32 two-pass statistics (each lane's columns l, l + 32, ... in
+// order, then warp_sum's butterfly: the first port's order), h =
+// bf16(xhat * ls + lb), and, where stats is given, each row's mean and
+// 1/std for the VJP.
 __global__ void ln_stats_kernel(const bf16* __restrict__ x,
                                const float* __restrict__ ls,
                                const float* __restrict__ lb, float eps, int M,
@@ -163,7 +88,7 @@ __global__ void ln_stats_kernel(const bf16* __restrict__ x,
     const float d = __bfloat162float(xr[c]) - mu;
     h[(size_t)row * C + c] = __float2bfloat16(d * rstd * ls[c] + lb[c]);
   }
-  if (lane == 0) stats[row] = make_float2(mu, rstd);
+  if (stats && lane == 0) stats[row] = make_float2(mu, rstd);
 }
 
 // The LN VJP of K9c and K8c, one warp per row, CPL = C / 32 columns a lane:
@@ -241,13 +166,6 @@ void split_rows(int rows, int tiles, int* S, int* chunk) {
   int c = cdiv(cdiv(rows, s), TG_BK) * TG_BK;
   *S = cdiv(rows, c);
   *chunk = c;
-}
-
-cudaError_t tgemm(cudaStream_t st, const bf16* a, int lda, const bf16* b,
-                  int ldb, int M, int N, int K, const float* bias, bf16* out) {
-  tgemm_kernel<<<dim3(cdiv(N, TG_BN), cdiv(M, TG_BM)), TG_THREADS, 0, st>>>(
-      a, lda, b, ldb, M, N, K, bias, out);
-  return cudaGetLastError();
 }
 
 cudaError_t reduce(cudaStream_t st, const float* part, int S, size_t n, float* out) {

@@ -127,8 +127,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         # K7 (window_attn.cu): 6 pointers, BW H N nW, qscale, stream
         "geovpr_window_attention": [vp] * 6 + [ci] * 4 + [cf, vp],
         # K9a/K9b/K9c (swin_train.cu): pointers, B S C H win shift, floats,
-        # stream; K9c's _parts also takes the first and last of its launches
+        # stream; the _parts entries also take the first and last of their
+        # launches
         "geovpr_swin_train_fwd": [vp] * 13 + [ci] * 6 + [cf, cf, vp],
+        "geovpr_swin_train_fwd_parts": [vp] * 13 + [ci] * 6 + [cf, cf, ci,
+                                                              ci, vp],
         "geovpr_swin_train_bwd_core": [vp] * 6 + [ci] * 6 + [cf, vp],
         "geovpr_swin_train_bwd_all": [vp] * 22 + [ci] * 6 + [cf, cf, vp],
         "geovpr_swin_train_bwd_all_parts": [vp] * 22 + [ci] * 6 + [cf, cf, ci,

@@ -715,10 +715,30 @@ def _rows_to_raster(t, resolution, window, shift):
                         shift)
 
 
-def _check_train_cuda(tensors: dict, c, num_heads, window):
+def k9_shape_error(c: int, num_heads: int, window: int,
+                   shift: int) -> str | None:
+    """The rule of K9's kernels (`csrc/swin_train.cu`: K9a's four launches,
+    the core backward of K9b and K9c), or None where they take the shape:
+    head dim 32, window 12 (N = 144: the attention's and the core's
+    tiling), C a multiple of 64 up to 1024 (the LayerNorm holds a row in a
+    warp's registers) and a shift of 0 or window // 2, Swin's own (a
+    quarter window is one TMA box, so the cyclic shift never splits one).
+    K9c also asks C <= 512 (`fused_swin_attn_bwd_all`)."""
+    if (c % num_heads or c // num_heads != _KERNEL_HEAD_DIM
+            or window != _TRAIN_WINDOW or c % 64 or c > 1024):
+        return (f"the training kernels take head dim {_KERNEL_HEAD_DIM}, "
+                f"window {_TRAIN_WINDOW} and C a multiple of 64 up to 1024, "
+                f"got C={c}, {num_heads} heads, window {window}")
+    if shift not in (0, window // 2):
+        return (f"K9 takes a shift of 0 or window // 2 = {window // 2} (a "
+                f"quarter window is one TMA box), got shift {shift}")
+    return None
+
+
+def _check_train_cuda(tensors: dict, c, num_heads, window, shift):
     """What the training kernels take on CUDA: bf16 stream, residuals and
-    matrices, f32 vectors and table, contiguous; head dim 32, window 12,
-    C a multiple of 64 up to 1024."""
+    matrices, f32 vectors and table, contiguous and 16-byte aligned (TMA);
+    `k9_shape_error`'s geometry."""
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -726,12 +746,12 @@ def _check_train_cuda(tensors: dict, c, num_heads, window):
                                           "bo", "table") else torch.bfloat16)
         if t.dtype != want:
             raise TypeError(f"{name} must be {want} on CUDA, got {t.dtype}")
-    if (c // num_heads != _KERNEL_HEAD_DIM or window != _TRAIN_WINDOW
-            or c % 64 or c > 1024):
-        raise ValueError(
-            f"the training kernels take head dim {_KERNEL_HEAD_DIM}, window "
-            f"{_TRAIN_WINDOW} and C a multiple of 64 up to 1024, got C={c}, "
-            f"{num_heads} heads, window {window}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned (the "
+                             f"training kernels read it by TMA)")
+    err = k9_shape_error(c, num_heads, window, shift)
+    if err:
+        raise ValueError(err)
 
 
 def _check_residuals(b, l, c, num_heads, resolution, window, shift,
@@ -758,6 +778,59 @@ def _train_lib(device):
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# K9a's launches, as `geovpr_swin_train_fwd_parts` numbers them
+K9A_PARTS = ("layernorm", "qkv_gemm", "attention", "out_proj")
+
+
+def train_ln_reference(x2d, ln_scale, ln_bias, ln_eps: float = 1e-5):
+    """Plain version of K9a's LayerNorm launch: LN(x) * ln_scale + ln_bias
+    of the rows x2d (M, C), in f32 with two-pass statistics, rounded to
+    x2d's dtype."""
+    return (layer_norm_f32(x2d.float(), ln_eps) * ln_scale.float()
+            + ln_bias.float()).to(x2d.dtype)
+
+
+def train_qkv_reference(h, wqkv, bqkv, num_heads: int):
+    """Plain version of K9a's QKV launch: from the LN output h (M, C), qkv
+    = h Wqkv + bqkv (M, 3C) unscaled and the scaled q copy (M, C), its
+    first C columns times dh^-0.5 log2(e), each rounded once from the f32
+    value to h's dtype."""
+    c = h.shape[-1]
+    qkvf = _mm(h, wqkv) + bqkv.float()
+    qscale = torch.full((c,), (c // num_heads) ** -0.5 * LOG2E,
+                        device=h.device)
+    return qkvf.to(h.dtype), (qkvf[:, :c] * qscale).to(h.dtype)
+
+
+def train_attention_reference(qs, qkv, table, num_heads: int,
+                              resolution: int, window: int, shift: int):
+    """Plain version of K9a's attention launch on the raster stream: from
+    the scaled q copy qs (B, L, C) and qkv (B, L, 3C) (its k and v), ctx
+    (B, L, C) and p (BW, H, N, N) in qs's dtype: scores + bias [+ mask] in
+    the exp2 domain, p = exp2(min(s, 100)) times the reciprocal of its f32
+    row sum, rounded, and ctx = p v rounded once."""
+    dt = qs.dtype
+    c = qs.shape[-1]
+    q = _heads(to_windows(qs, resolution, window, shift), num_heads)
+    k, v = (_heads(t, num_heads) for t in to_windows(
+        qkv[..., c:], resolution, window, shift).split(c, dim=-1))
+    mask = shift_mask(resolution, window, shift, qs.device)
+    s = add_bias_mask(_mm(q, k.transpose(-1, -2)),
+                      relative_position_bias(table.float(), window) * LOG2E,
+                      None if mask is None else mask.float() * LOG2E)
+    p = torch.exp2(torch.clamp(s, max=100.0))
+    p = (p * (1.0 / p.sum(-1, keepdim=True))).to(dt)
+    bw, _, n, _ = p.shape
+    ctx = _unheads(_mm(p, v)).to(dt).reshape(bw, n, c)
+    return from_windows(ctx, resolution, window, shift), p
+
+
+def train_out_proj_reference(ctx2d, wo, bo):
+    """Plain version of K9a's out projection launch: y = ctx Wo + bo (M, C),
+    f32 accumulation, rounded once to ctx's dtype."""
+    return (_mm(ctx2d, wo) + bo.float()).to(ctx2d.dtype)
 
 
 def _train_plain_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, table,
@@ -795,27 +868,64 @@ def fused_swin_attn_train_fwd(x: torch.Tensor, ln_scale: torch.Tensor,
                                 ln_eps)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check_train_cuda({"x": x, **got}, c, num_heads, window)
-    lib = _train_lib(x.device)
-    n = window * window
-    bw = b * l // n
-    qkv = torch.empty((b, l, 3 * c), dtype=x.dtype, device=x.device)
-    qs = torch.empty((b, l, c), dtype=x.dtype, device=x.device)
-    ctx = torch.empty_like(qs)
-    p = torch.empty((bw, num_heads, n, n), dtype=x.dtype, device=x.device)
-    y = torch.empty_like(x)
-    qscale = (c // num_heads) ** -0.5 * LOG2E
+    _check_train_cuda({"x": x, **got}, c, num_heads, window, shift)
+    bufs = k9a_buffers(x, num_heads, window)
+    lib, args = _k9a_args(x, got, num_heads, resolution, window, shift,
+                          ln_eps, bufs)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_swin_train_fwd(
-            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-            table.data_ptr(), qkv.data_ptr(), qs.data_ptr(), ctx.data_ptr(),
-            p.data_ptr(), y.data_ptr(), b, resolution, c, num_heads, window,
-            shift, float(ln_eps), float(qscale), _stream(x.device))
+        rc = lib.geovpr_swin_train_fwd(*args, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"swin_train_fwd launch failed: CUDA error {rc}")
     fused_swin_attn_train_fwd.launches += 1
-    return y, qkv, ctx, p
+    return bufs["y"], bufs["qkv"], bufs["ctx"], bufs["p"]
+
+
+def k9a_buffers(x: torch.Tensor, num_heads: int, window: int) -> dict:
+    """K9a's outputs and scratch for a (B, L, C) stream x, by name: qkv,
+    qs (the scaled q copy), ctx (the LN output until the attention writes
+    ctx), p and y."""
+    b, l, c = x.shape
+    n = window * window
+
+    def bf16(*shape):
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+    return dict(qkv=bf16(b, l, 3 * c), qs=bf16(b, l, c), ctx=bf16(b, l, c),
+                p=bf16(b * l // n, num_heads, n, n), y=bf16(b, l, c))
+
+
+def _k9a_args(x, got: dict, num_heads, resolution, window, shift, ln_eps,
+              bufs: dict):
+    """The library and K9a's C arguments (but the first and last launch
+    and the stream) for checked CUDA tensors and `k9a_buffers` `bufs`."""
+    lib = _train_lib(x.device)
+    ptrs = [x] + [got[k] for k in ("ln_scale", "ln_bias", "wqkv", "bqkv",
+                                   "wo", "bo", "table")] + [
+        bufs[k] for k in ("qkv", "qs", "ctx", "p", "y")]
+    c = x.shape[-1]
+    qscale = (c // num_heads) ** -0.5 * LOG2E
+    return lib, (*(t.data_ptr() for t in ptrs), x.shape[0], resolution, c,
+                 num_heads, window, shift, float(ln_eps), float(qscale))
+
+
+def k9a_launch_part(part: int, x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                    table, num_heads: int, resolution: int, window: int,
+                    shift: int, ln_eps: float = 1e-5, *, bufs) -> None:
+    """One of K9a's four launches (an index into K9A_PARTS) alone, on the
+    CUDA arguments of `fused_swin_attn_train_fwd` and the `k9a_buffers`
+    `bufs`, whose contents from an earlier call it reads. chip_smoke.py
+    times K9a's launches one by one with it and the card tests check each
+    against its plain part; it counts no launch."""
+    got = {"ln_scale": ln_scale, "ln_bias": ln_bias, "wqkv": wqkv,
+           "bqkv": bqkv, "wo": wo, "bo": bo, "table": table}
+    _check_train_cuda({"x": x, **got}, x.shape[-1], num_heads, window, shift)
+    lib, args = _k9a_args(x, got, num_heads, resolution, window, shift,
+                          ln_eps, bufs)
+    with torch.cuda.device(x.device):
+        rc = lib.geovpr_swin_train_fwd_parts(*args, part, part,
+                                             _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"swin_train_fwd launch failed: CUDA error {rc}")
 
 
 fused_swin_attn_train_fwd.launches = 0
@@ -844,7 +954,8 @@ def fused_swin_attn_bwd_core(qkv: torch.Tensor, p: torch.Tensor,
         return _rows_to_raster(dqkv, resolution, window, shift), dbias
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
-    _check_train_cuda({"qkv": qkv, "p": p, "da": da}, c, num_heads, window)
+    _check_train_cuda({"qkv": qkv, "p": p, "da": da}, c, num_heads, window,
+                      shift)
     lib = _train_lib(qkv.device)
     n = window * window
     dqkv = torch.empty_like(qkv)
@@ -900,7 +1011,7 @@ def fused_swin_attn_bwd_all(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p, g,
         raise ValueError(f"unsupported device {x.device}")
     _check_train_cuda({"x": x, "ln_scale": ln_scale, "ln_bias": ln_bias,
                        "wqkv": wqkv, "wo": wo, "qkv": qkv, "ctx": ctx,
-                       "p": p, "g": g}, c, num_heads, window)
+                       "p": p, "g": g}, c, num_heads, window, shift)
     if c > 512:
         raise ValueError(f"K9c takes C <= 512 (the split backward with K9b "
                          f"takes the wider blocks), got C={c}")

@@ -770,6 +770,120 @@ def test_k9_refuses_what_it_does_not_take(cuda):
                                   device=cuda), wide, 32, 12, 12, 0)
 
 
+@pytest.mark.parametrize("shape", _K9_SHAPES + [(2, 192, 6, 24, 12, 6)])
+def test_k9a_launches_match_their_plain_parts(cuda, shape):
+    """Each of K9a's four launches alone (`k9a_launch_part`), fed the plain
+    parts' output of the launch before it, against its plain part
+    (tests/test_torch_swin_train_hopper.py composes the parts to the whole
+    plain version): the LayerNorm, qkv and its scaled q copy and the out
+    projection within one bf16 spacing (f32 sums in another order), the
+    attention's ctx and p within K1's ratio bound (`k9_ratio`: against the
+    f32 plain parts on the f32 block, as chip_smoke.py holds the whole
+    K9a). At C = 192 (H = 6) the GEMMs take 64-wide tiles and the last
+    head pair has one head."""
+    from chip_smoke import k9_case, k9_ratio
+    from geovpr_torch.ops import swin_block as sb
+    a, _, geom = k9_case(shape, cuda)
+    geo = tuple(geom.values())
+    fa = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["bqkv"], a["wo"],
+          a["bo"], a["table"], *geo, 1e-5)
+    b, c, h = shape[:3]
+    m = a["x"].numel() // c
+    tag = "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape)
+    with torch.no_grad():
+        bufs = sb.k9a_buffers(a["x"], h, geom["window"])
+        sb.k9a_launch_part(0, *fa, bufs=bufs)
+        torch.cuda.synchronize()
+        hh = sb.train_ln_reference(a["x"].reshape(m, c), a["ln_scale"],
+                                   a["ln_bias"])
+        assert _bf16_close(bufs["ctx"].reshape(m, c), hh)
+        bufs["ctx"].copy_(hh.reshape(bufs["ctx"].shape))
+        sb.k9a_launch_part(1, *fa, bufs=bufs)
+        torch.cuda.synchronize()
+        qkv, qs = sb.train_qkv_reference(hh, a["wqkv"], a["bqkv"], h)
+        assert _bf16_close(bufs["qkv"].reshape(m, 3 * c), qkv)
+        assert _bf16_close(bufs["qs"].reshape(m, c), qs)
+        bufs["qkv"].copy_(qkv.reshape(bufs["qkv"].shape))
+        bufs["qs"].copy_(qs.reshape(bufs["qs"].shape))
+        sb.k9a_launch_part(2, *fa, bufs=bufs)
+        torch.cuda.synchronize()
+        want = sb.train_attention_reference(
+            bufs["qs"], bufs["qkv"], a["table"], *geo)
+        h32 = sb.train_ln_reference(a["x"].float().reshape(m, c),
+                                    a["ln_scale"], a["ln_bias"])
+        qkv32, qs32 = sb.train_qkv_reference(h32, a["wqkv"].float(),
+                                             a["bqkv"], h)
+        ref = sb.train_attention_reference(
+            qs32.reshape(bufs["qs"].shape), qkv32.reshape(bufs["qkv"].shape),
+            a["table"], *geo)
+        k9_ratio("K9a.attention.ctx", tag, bufs["ctx"], want[0], ref[0])
+        k9_ratio("K9a.attention.p", tag, bufs["p"], want[1], ref[1])
+        bufs["ctx"].copy_(want[0])
+        sb.k9a_launch_part(3, *fa, bufs=bufs)
+        torch.cuda.synchronize()
+        assert _bf16_close(bufs["y"].reshape(m, c), sb.train_out_proj_reference(
+            want[0].reshape(m, c), a["wo"], a["bo"]))
+
+
+def test_k9a_launches_one_by_one_equal_the_whole(cuda):
+    """K9a's four launches run alone (`k9a_launch_part`, which
+    chip_smoke.py times) leave one whole call's outputs, bit for bit, and
+    count no launch."""
+    from chip_smoke import k9_case
+    from geovpr_torch.ops import swin_block as sb
+    a, _, geom = k9_case((2, 128, 4, 24, 12, 6), cuda)
+    fa = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["bqkv"], a["wo"],
+          a["bo"], a["table"], *geom.values(), 1e-5)
+    with torch.no_grad():
+        whole = sb.fused_swin_attn_train_fwd(*fa)
+        bufs = sb.k9a_buffers(a["x"], geom["num_heads"], geom["window"])
+        before = sb.fused_swin_attn_train_fwd.launches
+        for part in range(len(sb.K9A_PARTS)):
+            sb.k9a_launch_part(part, *fa, bufs=bufs)
+        torch.cuda.synchronize()
+    assert sb.fused_swin_attn_train_fwd.launches == before
+    for name, want in zip(("y", "qkv", "ctx", "p"), whole):
+        assert torch.equal(bufs[name], want), name
+
+
+@pytest.mark.parametrize("shape", _K9_SHAPES + [(3, 128, 4, 96, 12, 6)])
+def test_k9_core_matches_its_plain_version(cuda, shape):
+    """The core backward (K9b's launch, and K9c's launch 3) at the four
+    Swin-B-384 stage widths against `swin_attn_core_bwd_reference` on the
+    bf16 plain forward's residuals: dqkv and dbias within K1's ratio bound
+    (`k9_ratio`) of the bf16 plain version against the f32 one on the f32
+    forward's residuals, as chip_smoke.py holds K9b. At B = 3,
+    S = 96 each CTA walks two or three windows, so its ring reloads a
+    stage; the wrapped quarters of the last window row and column load
+    from their wrapped origin."""
+    from chip_smoke import k9_case, k9_ratio
+    from geovpr_torch.ops import swin_block as sb
+    a, g, geom = k9_case(shape, cuda)
+    geo = tuple(geom.values())
+    fa = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["bqkv"], a["wo"],
+          a["bo"], a["table"], *geo, 1e-5)
+    tag = "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape)
+
+    def plain(qk, pp, dd):
+        dq, db = sb.swin_attn_core_bwd_reference(
+            sb._raster_to_rows(qk, *geo[1:]), pp,
+            sb._raster_to_rows(dd, *geo[1:]), geo[0])
+        return sb._rows_to_raster(dq, *geo[1:]), db
+
+    fa32 = tuple(t.float() if torch.is_tensor(t) else t for t in fa)
+    with torch.no_grad():
+        _, qkv, _, p = sb._train_plain_fwd(*fa)
+        _, qkv32, _, p32 = sb._train_plain_fwd(*fa32)
+        before = sb.fused_swin_attn_bwd_core.launches
+        got = sb.fused_swin_attn_bwd_core(qkv, p, g, *geo)
+        torch.cuda.synchronize()
+        want = plain(qkv, p, g)
+        ref = plain(qkv32, p32, g.float())
+    assert sb.fused_swin_attn_bwd_core.launches == before + 1
+    for i, out in enumerate(("dqkv", "dbias")):
+        k9_ratio(f"K9b.{out}", tag, got[i], want[i], ref[i])
+
+
 def _f32_close(got, want):
     """An f32 sum over rows against its plain part summed in another order:
     within 1e-5 of the largest value plus 1e-4 relative."""
