@@ -12,8 +12,11 @@ w8a8 MLP half-block) at 64x257x768x12 and at Swin-B-384's stage 0 and 3
 widths (B=16), K4 and K5 (the bf16 and w8a8 Swin half-blocks) at stage 0
 (B=16), K6 at C = 128, K9a (the Swin training forward, its y, qkv, ctx and
 p) and K9b (the core backward) at stages 0 and 3 and K9c (the whole
-backward) at stage 0 (B=16), K8b and K8c (the ViT half-block's backward) at 16x257x768x12, and
-K7 at Swin-T-224's stage 0. K2 is not among them: its attention sums in
+backward) at stage 0 (B=16), K8b and K8c (the ViT half-block's backward) at 16x257x768x12,
+K7 (on pre-split windows) at Swin-T-224's stage 0, and the Swin-T-224
+heading model (preset swin_t224_sincos_gemini, bf16; K7 and K6 in it) on
+chip_smoke.py's 64 seed-0 images: its pooled features and predictions.
+K2 is not among them: its attention sums in
 another order than the first port's. The
 inputs are saved beside the outputs and compared too, so a change in how
 they are drawn shows as such. It prints one line per tensor and exits
@@ -40,7 +43,10 @@ K8_SHAPE = (16, 257, 768, 12)
 
 def run(out_path: str) -> None:
     """In the child: this process's checkout's kernels on its inputs."""
+    import numpy as np
+
     import chip_smoke as cs
+    from geovpr_torch.data.transforms import normalize
     from geovpr_torch.ops import mhsa as mh
     from geovpr_torch.ops.mlp_int8 import fused_mlp_block_int8
     from geovpr_torch.ops.patch_merge import fused_patch_merge
@@ -121,6 +127,15 @@ def run(out_path: str) -> None:
         q, k, v, bias, mask = cs.k7_case(K7_SHAPE, dev)
         res["input.K7.q"] = q
         res["K7.out"] = window_attention_kernel(q, k, v, bias, mask)
+        del q, k, v, bias, mask
+        source = cs.synthetic_val(cs.ANGLE_BATCH, 224,
+                                  np.random.default_rng(cs.SEED), angles=True)
+        images = torch.from_numpy(source.images).to(dev)
+        model, _ = cs.angle_model(dev, cs.ANGLE_PRESET)
+        out = model.backbone(normalize(images))
+        res["input.angle.images"] = images
+        res["angle.swin_t224.pooled"] = out.pooled
+        res["angle.swin_t224.pred"] = model.head(model.pool(out))
         torch.cuda.synchronize()
     torch.save({k: t.cpu() for k, t in res.items()}, out_path)
 

@@ -11,8 +11,10 @@ K3, whose fc2 has the hidden width as K; K4's window attention without
 the shift mask, without the relative-position bias, or loading the wrapped
 quarters of a shifted window from their unwrapped origin; K5's int8-score
 window attention without the shift mask, or loading its wrapped quarters
-from their unwrapped origin; K7 counting the
-pad keys past N, or without the shift mask; K6's merge-LN pass with x10
+from their unwrapped origin; K7 (its raster mode, the serving path's)
+counting the pad keys past N (their bias columns 0 instead of -inf),
+without the shift mask, or reading (and writing) the wrapped tokens of a
+window row from its unwrapped origin, clamped into the image; K6's merge-LN pass with x10
 and x01 swapped in the concat order, or reading x01 from the token below
 instead of the token to the right;
 K9a's attention without the shift mask, or its QKV GEMM writing the
@@ -56,8 +58,8 @@ _INT8 = ("cs.KERNEL_SHAPES = ({shape!r},); cs.MAIN_SHAPE = {shape!r}; "
 _SWIN = ("cs.swin_kernels_vs_plain(dev, attn_shapes={attn!r}, "
          "merge_shapes={merge!r})")
 _STAGE0 = (16, 128, 4, 96, 12, 6)    # Swin-B-384 stage 0, shifted, B=16
-_K7 = "cs.k7_kernels_vs_plain(dev, shapes={shapes!r})"
-_K7_STAGE0 = (1024, 3, 49, 64)       # Swin-T-224 stage 0, shifted, B=16
+_K7 = "cs.k7_kernels_vs_plain(dev, shapes=(), raster_shapes={shapes!r})"
+_K7_STAGE0 = (16, 96, 3, 56, 7, 3)   # Swin-T-224 stage 0, shifted, B=16
 _K9 = "cs.k9_kernels_vs_plain(dev, shapes=({shape!r},))"
 _K8 = "cs.k8_kernels_vs_plain(dev, shapes=((16, 257, 768, 12),))"
 
@@ -102,12 +104,15 @@ FAULTS = {
          "at = sw_box_origin<W>(wx, wy, box, 1 << 30, shift);")],
         _SWIN.format(attn=(_STAGE0,), merge=())),
     "K7 pad keys counted": ("window_attn.cu", [
-        ("if (key >= N || row >= N) return 0.f;",
-         "if (row >= N) return 0.f;\n"
-         "        if (key >= N) return exp2f(fminf(sv, 100.f));")],
+        ("k >= N ? -INFINITY", "k >= N ? 0.f")],
         _K7.format(shapes=(_K7_STAGE0,))),
     "K7 shift mask dropped": ("window_attn.cu", [
-        ("if (mask_w) x = __fadd_rn(", "if (false) x = __fadd_rn(")],
+        ("x[c] = (rq[hi] ^ rk[c]) & wrap ? __fadd_rn(x[c], kMaskL2)",
+         "x[c] = false ? __fadd_rn(x[c], kMaskL2)")],
+        _K7.format(shapes=(_K7_STAGE0,))),
+    "K7 wrapped window row read from its unwrapped origin": (
+        "window_attn.cu", [
+            ("return o >= S ? o - S : o;", "return o >= S ? S - 1 : o;")],
         _K7.format(shapes=(_K7_STAGE0,))),
     "K6 x10 and x01 swapped": ("patch_merge.cu", [
         ("quad == 1 ? r10 : quad == 2 ? r01",

@@ -17,7 +17,8 @@ end to end from seeded random weights:
   every stage boundary on both;
 - angle (`run_evaluate` with the preset's angle objective), bf16 at full
   width: Swin-T-224 at window 7 + sin/cos MLP head (preset
-  swin_t224_sincos_gemini; K7 in every block, K6 at every boundary), and
+  swin_t224_sincos_gemini; K7's raster mode in every block, K6 at every
+  boundary), and
   EfficientNet-B0 (efficientnet_sincos_gemini) and ConvNeXt-B
   (convnext_direct_maae), which run on cuDNN and launch no kernel of the
   port;
@@ -38,8 +39,9 @@ end to end from seeded random weights:
 Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
 form and the w8a8 MLP half-block, K3 also at the four Swin-B-384 stage
 widths), K4 and K5 (the Swin window-attention half-block, bf16 and w8a8),
-K6 (Swin PatchMerging), K7 (the window-7 attention core on pre-split
-windows), and K9a, K9b and K9c (the Swin attention half-block's training
+K6 (Swin PatchMerging), K7 (the window-7 attention core, on the raster
+qkv and on pre-split windows; the window-7 half is also timed op by op),
+and K9a, K9b and K9c (the Swin attention half-block's training
 forward, core backward and whole backward), and K8a, K8b and K8c (the same
 for the ViT attention half-block of DINOv2; K8a launches K1's kernels and
 keeps the qkv and ctx they write). K1's four launches (LayerNorm, the TMA
@@ -125,14 +127,24 @@ SWIN_MAIN, MERGE_MAIN = SWIN_ATTN_SHAPES[0], SWIN_MERGE_SHAPES[0]
 SWIN_BLOCKS, SWIN_BOUNDARIES = 24, 3
 # angle serving at B=64: Swin-T-224 (window 7; one K7 per block, 2 + 2 + 6
 # + 2, one K6 per boundary), then the two CNN presets. K7's checked shapes
-# (BW, H, N, nW; nW 0 = unshifted) are Swin-T-224's stages 0, 2 and 3 and a
-# window-12 case (N 144) that shows the kernel is not tied to N = 49.
+# on pre-split windows (BW, H, N, nW; nW 0 = unshifted) are Swin-T-224's
+# four stages and a window-12 case (N 144) that shows the kernel is not
+# tied to N = 49; on the raster qkv (B, C, H, resolution, window, shift)
+# the same four stages, shifted where the stage has shifted blocks.
 ANGLE_PRESET, ANGLE_BATCH, ANGLE_N_VAL = "swin_t224_sincos_gemini", 64, 192
 CNN_PRESETS = ("efficientnet_sincos_gemini", "convnext_direct_maae")
 SWIN_T_BLOCKS = 12
-K7_SHAPES = ((4096, 3, 49, 64), (256, 12, 49, 4), (64, 24, 49, 0),
-             (256, 16, 144, 0))
+SWIN_T_DEPTHS = (2, 2, 6, 2)
+K7_SHAPES = ((4096, 3, 49, 64), (1024, 6, 49, 16), (256, 12, 49, 4),
+             (64, 24, 49, 0), (256, 16, 144, 0))
 K7_MAIN = K7_SHAPES[0]
+K7_RASTER_SHAPES = ((64, 96, 3, 56, 7, 3), (64, 192, 6, 28, 7, 3),
+                    (64, 384, 12, 14, 7, 3), (64, 768, 24, 7, 7, 0))
+K7_RASTER_MAIN = K7_RASTER_SHAPES[0]
+# the SFU's ex2 rate: 16 a clock an SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0), 132 SMs at
+# the H100 SXM's 1,980 MHz boost clock
+SFU_EX2_PER_S = 132 * 16 * 1.98e9
 # Swin-T-224's K6 boundaries (B, C, resolution): 2C = 192 ends on a partial
 # 128-column output tile of patch_merge.cu, which Swin-B's never do
 SWIN_T_MERGE_SHAPES = ((64, 96, 56), (64, 192, 28), (64, 384, 14))
@@ -1008,12 +1020,14 @@ def swin_counters():
     from geovpr_torch.ops.patch_merge import fused_patch_merge
     from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
                                              fused_swin_attn_block_int8)
-    from geovpr_torch.ops.window_attention import window_attention_kernel
+    from geovpr_torch.ops.window_attention import (window_attention_kernel,
+                                                   window_attention_raster)
     return {"fused_swin_attn_block": fused_swin_attn_block,
             "fused_swin_attn_block_int8": fused_swin_attn_block_int8,
             "fused_mlp_block_int8": fused_mlp_block_int8,
             "fused_patch_merge": fused_patch_merge,
-            "window_attention_kernel": window_attention_kernel}
+            "window_attention_kernel": window_attention_kernel,
+            "window_attention_raster": window_attention_raster}
 
 
 def geopose_end_to_end(model, scaler, device, source, out_dir,
@@ -1364,12 +1378,30 @@ def k7_case(shape, device, seed=SEED):
     return q, k, v, bias, mask
 
 
-def k7_kernels_vs_plain(device, shapes=K7_SHAPES) -> dict:
-    """Phase 20: K7 against its plain version at Swin-T-224's B=64 stage
-    shapes (shifted at stages 0 and 2) and at N = 144, under K1's ratio
-    bound."""
+def k7_raster_case(shape, device, seed=SEED):
+    """K7's raster operands at (B, C, H, resolution, window, shift): the
+    unfused half's qkv (B, L, 3C) drawn N(0, 1) in bf16 and a
+    relative-position table ((2w-1)^2, H) drawn at unit scale (f32), with
+    the geometry: `window_attention_raster`'s arguments."""
+    b, c, h, res, win, shift = shape
+    gen = torch.Generator().manual_seed(seed + b + c + res + shift)
+    qkv = torch.randn(b, res * res, 3 * c, generator=gen).bfloat16()
+    table = torch.randn((2 * win - 1) ** 2, h, generator=gen)
+    return qkv.to(device), table.to(device), h, res, win, shift
+
+
+def k7_kernels_vs_plain(device, shapes=K7_SHAPES,
+                        raster_shapes=K7_RASTER_SHAPES) -> dict:
+    """Phase 20: K7 against its plain version under K1's ratio bound, on
+    pre-split windows at Swin-T-224's B=64 stage shapes (shifted at stages
+    0-2) and at N = 144, and on the raster qkv at the same four stages; the
+    raster launch also bit-equal to the split launch on the gathered
+    windows, its context scattered back. Keys: the split shapes, and
+    ("raster", shape)."""
     from geovpr_torch.ops.window_attention import (
-        window_attention_kernel, window_attention_serving_reference)
+        window_attention_kernel, window_attention_raster,
+        window_attention_raster_reference,
+        window_attention_serving_reference, windowed_attention)
 
     errs = {}
     for shape in shapes:
@@ -1382,6 +1414,24 @@ def k7_kernels_vs_plain(device, shapes=K7_SHAPES) -> dict:
         check(k1_within_bound(e), f"K7 error outside its bound at {shape}: "
                                   f"{e}")
         errs[shape] = e["kernel_max"]
+    for shape in raster_shapes:
+        args = k7_raster_case(shape, device)
+        e = ratio_errors(window_attention_raster,
+                         window_attention_raster_reference, args, f32(args))
+        with torch.inference_mode():
+            same = torch.equal(window_attention_raster(*args),
+                               windowed_attention(window_attention_kernel,
+                                                  *args))
+        phase("kernel", name="K7_raster",
+              shape="B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape), **e,
+              max_bound=K1_MAX_RATIO * e["plain_max"],
+              mean_bound=K1_MEAN_RATIO * e["plain_mean"],
+              equal_to_split=same)
+        check(k1_within_bound(e), f"K7 raster error outside its bound at "
+                                  f"{shape}: {e}")
+        check(same, f"K7 raster launch differs from the split launch at "
+                    f"{shape}")
+        errs[("raster", shape)] = e["kernel_max"]
     return errs
 
 
@@ -1459,9 +1509,10 @@ def angle_end_to_end(model, cfg, device, source, out_dir,
 
 def angle_path(device, card: str) -> dict:
     """Phases 21-25: the angle path end to end at B=64, bf16: Swin-T-224
-    (K7 and K6 launches per batch, kernel path against plain path, img/s,
-    profile), then EfficientNet-B0 and ConvNeXt-B (no kernel of the port;
-    finite outputs, img/s, profile). Returns the Swin-T launch counts."""
+    (K7's raster launches and K6's per batch, kernel path against plain
+    path, img/s, profile), then EfficientNet-B0 and ConvNeXt-B (no kernel
+    of the port; finite outputs, img/s, profile). Returns the Swin-T
+    launch counts."""
     from geovpr_torch.data.transforms import normalize
 
     source = synthetic_val(ANGLE_N_VAL, 224, np.random.default_rng(SEED),
@@ -1470,7 +1521,7 @@ def angle_path(device, card: str) -> dict:
     model, cfg = angle_model(device, ANGLE_PRESET)
     with tempfile.TemporaryDirectory() as tmp:
         launches = angle_end_to_end(model, cfg, device, source, tmp, {
-            "window_attention_kernel": SWIN_T_BLOCKS,
+            "window_attention_raster": SWIN_T_BLOCKS,
             "fused_patch_merge": SWIN_BOUNDARIES})
     swin_kernel_path_vs_plain_path(model, images, path="swin-t-bf16")
     model_times(model, images, card, "swin-t-bf16", batch=ANGLE_BATCH)
@@ -1501,14 +1552,33 @@ def angle_path(device, card: str) -> dict:
 def k7_bounds(shape) -> dict:
     """The least time of one K7 call at (BW, H, N, nW): q, k, v read once
     and out written once (bf16), the bias and mask read once (f32), over
-    3.35 TB/s, against q.k^T and P.V (4 BW H N^2 dh) at the bf16 peak."""
+    3.35 TB/s, against q.k^T and P.V (4 BW H N^2 dh) at the bf16 peak;
+    beside it the BW H N^2 exp2s at the SFU's rate."""
     bw, h, n, nw = shape
     nbytes = 4 * bw * h * n * 32 * 2 + (h + nw) * n * n * 4
     ops_t = 4 * bw * h * n * n * 32 / PEAK_BF16
     bytes_t = nbytes / PEAK_BYTES
     return dict(bound_ms=max(ops_t, bytes_t) * 1e3,
                 bound_by="operations" if ops_t >= bytes_t else "bytes",
-                ops_bound_ms=ops_t * 1e3, bytes_bound_ms=bytes_t * 1e3)
+                ops_bound_ms=ops_t * 1e3, bytes_bound_ms=bytes_t * 1e3,
+                exp2s=bw * h * n * n,
+                exp2_ms=bw * h * n * n / SFU_EX2_PER_S * 1e3)
+
+
+def k7_raster_bounds(shape) -> dict:
+    """The least time of one raster K7 call at (B, C, H, resolution,
+    window, shift): qkv read once and ctx written once (bf16), the table
+    read once (f32), over 3.35 TB/s, against the products at the bf16 peak
+    (`k7_bounds` of the same windows: BW = B nW, nW shifted windows)."""
+    b, c, h, res, win, shift = shape
+    nw = (res // win) ** 2
+    inner = k7_bounds((b * nw, h, win * win, nw if shift else 0))
+    nbytes = b * res * res * 4 * c * 2 + (2 * win - 1) ** 2 * h * 4
+    bytes_t = nbytes / PEAK_BYTES
+    ops_t = inner["ops_bound_ms"] / 1e3
+    return dict(inner, bound_ms=max(ops_t, bytes_t) * 1e3,
+                bound_by="operations" if ops_t >= bytes_t else "bytes",
+                bytes_bound_ms=bytes_t * 1e3)
 
 
 def library_k7_mask(bias, mask, bw):
@@ -1519,31 +1589,119 @@ def library_k7_mask(bias, mask, bw):
     return m.bfloat16().repeat(bw // m.shape[0], 1, 1, 1)
 
 
+def interleaved_graph_ms(fns: dict, iters: int = 20) -> dict:
+    """`graph_ms` of each fn (the host's launch cost left out), run in
+    turns a, b, c, c, b, a; returns the mean of each fn's two runs and the
+    runs."""
+    names = list(fns)
+    runs = {k: [] for k in names}
+    for k in names + names[::-1]:
+        runs[k].append(graph_ms(fns[k], iters))
+    return {k: (sum(v) / 2, v) for k, v in runs.items()}
+
+
 def k7_kernel_times(device, card: str) -> dict:
-    """Phase 26: K7 at Swin-T-224 stage 0 (B=64), in turns with its plain
-    version and its library yardstick (F.scaled_dot_product_attention with
-    bias + mask as a float (BW, H, N, N) mask; never on the port's path),
-    beside its bound."""
+    """Phase 26: K7 at Swin-T-224's four stages (B=64), in its raster mode
+    (the serving path's) and on pre-split windows, each in turns with its
+    plain version and its library yardstick (F.scaled_dot_product_attention
+    on the pre-split q, k, v with bias + mask as a float (BW, H, N, N)
+    mask; never on the port's path), each call captured in CUDA graphs
+    (`graph_ms`), beside its bound. Returns the stage-0 raster times."""
     import torch.nn.functional as F
 
     from geovpr_torch.ops.window_attention import (
-        window_attention_kernel, window_attention_serving_reference)
+        _windows_qkv, relative_position_bias, shift_mask,
+        window_attention_kernel, window_attention_raster,
+        window_attention_raster_reference,
+        window_attention_serving_reference)
 
-    q, k, v, bias, mask = args = k7_case(K7_MAIN, device)
-    lib_mask = library_k7_mask(bias, mask, K7_MAIN[0])
-    with torch.inference_mode():
-        t = interleaved_ms({
-            "kernel": lambda: window_attention_kernel(*args),
-            "plain": lambda: window_attention_serving_reference(*args),
-            "library": lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=lib_mask)}, iters=20)
-    out = dict(ms=t["kernel"][0], plain_ms=t["plain"][0],
-               library_ms=t["library"][0],
-               runs={k: v[1] for k, v in t.items()}, **k7_bounds(K7_MAIN))
-    phase("kernel_time", card=repr(card), name="K7",
-          shape="BW{}_H{}_N{}_nW{}".format(*K7_MAIN),
-          launches_per_batch=SWIN_T_BLOCKS, **out)
-    return out
+    out = {}
+    for stage, (shape, rshape) in enumerate(zip(K7_SHAPES,
+                                                K7_RASTER_SHAPES)):
+        rargs = k7_raster_case(rshape, device)
+        qkv, table, h, res, win, shift = rargs
+        q, k, v = (t.contiguous() for t in
+                   _windows_qkv(qkv, res, win, shift, h))
+        bias = relative_position_bias(table, win).contiguous()
+        mask = shift_mask(res, win, shift, device)
+        args = (q, k, v, bias, mask)
+        lib_mask = library_k7_mask(bias, mask, shape[0])
+        launches = SWIN_T_DEPTHS[stage]
+        with torch.inference_mode():
+            t = interleaved_graph_ms({
+                "raster": lambda: window_attention_raster(*rargs),
+                "split": lambda: window_attention_kernel(*args),
+                "raster_plain": lambda: window_attention_raster_reference(
+                    *rargs),
+                "split_plain": lambda: window_attention_serving_reference(
+                    *args),
+                "library": lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=lib_mask)})
+        runs = {k: v[1] for k, v in t.items()}
+        row = dict(ms=t["raster"][0], plain_ms=t["raster_plain"][0],
+                   library_ms=t["library"][0], **k7_raster_bounds(rshape))
+        phase("kernel_time", card=repr(card), name="K7_raster",
+              shape="B{}_C{}_H{}_S{}_w{}_shift{}".format(*rshape),
+              stage=stage, launches_per_batch=launches, timed="cuda_graph",
+              **row, runs=runs)
+        phase("kernel_time", card=repr(card), name="K7",
+              shape="BW{}_H{}_N{}_nW{}".format(*shape), stage=stage,
+              timed="cuda_graph", ms=t["split"][0],
+              plain_ms=t["split_plain"][0], library_ms=t["library"][0],
+              **k7_bounds(shape))
+        out[rshape] = row
+        del rargs, qkv, q, k, v, args, lib_mask
+    torch.cuda.empty_cache()
+    return out[K7_RASTER_MAIN]
+
+
+def k7_half_times(device, card: str) -> None:
+    """Phase 27: the window-7 attention half (`swin_attn_block_unfused` as
+    the model's serving path calls it, K7's raster mode inside) at
+    Swin-T-224's four stages (B=64): CUDA-event ms of a call, then under
+    torch.profiler the device ms and calls of each kernel name and the
+    calls of each aten op (a call, averaged over 10)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from geovpr_torch.ops.swin_block import swin_attn_block_unfused
+    from geovpr_torch.ops.window_attention import window_attention_raster
+
+    iters = 10
+    for rshape in K7_RASTER_SHAPES:
+        b, c, h, res, win, shift = rshape
+        x, blk = swin_block_case(rshape, device)
+        args = k4_args(x, blk)[:8]
+
+        def half():
+            return swin_attn_block_unfused(
+                *args, num_heads=h, resolution=res, window=win, shift=shift,
+                attention=window_attention_raster)
+
+        with torch.inference_mode():
+            ms = cuda_ms(half, iters)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    half()
+                torch.cuda.synchronize()
+        kernels = {e.key[:100]: (e.self_device_time_total / iters / 1e3,
+                                 e.count / iters)
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")}
+        ops = {e.key: e.count / iters for e in prof.key_averages()
+               if e.key.startswith("aten::")}
+        phase("window7_half", card=repr(card),
+              shape="B{}_C{}_H{}_S{}_w{}_shift{}".format(*rshape), ms=ms,
+              device_ms=sum(v[0] for v in kernels.values()) or
+              "not measured", kernels=kernels, ops=ops)
+        # on the card K7 reads and writes the raster rows itself (a CPU
+        # rehearsal runs its plain version, which gathers)
+        check(device.type != "cuda"
+              or not {"aten::roll", "aten::permute"} & set(ops),
+              f"the window-7 half gathers its windows: {sorted(ops)}")
+        del x, blk, args
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------- Swin training / K9a-K9c --
@@ -2602,6 +2760,7 @@ def main() -> int:
                           merge_shapes=SWIN_T_MERGE_SHAPES)
     angle_launches = angle_path(device, card)
     k7t = k7_kernel_times(device, card)
+    k7_half_times(device, card)
 
     k9_errs = k9_kernels_vs_plain(device)
     train_launches = train_path(device, card)
@@ -2660,11 +2819,13 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
-    rows.append({"name": "window_attention_kernel", "route": "cuda",
+    # K7 at Swin-T-224 stage 0 in its raster mode, the angle path's
+    rows.append({"name": "window_attention_raster", "route": "cuda",
                  "source": "geovpr_torch/csrc/window_attn.cu",
                  "replaces": "geovpr/ops/pallas_window_attention.py:182",
-                 "launches": angle_launches["window_attention_kernel"],
-                 "max_abs_err": k7_errs[K7_MAIN], "ms": k7t["ms"],
+                 "launches": angle_launches["window_attention_raster"],
+                 "max_abs_err": k7_errs[("raster", K7_RASTER_MAIN)],
+                 "ms": k7t["ms"],
                  "plain_ms": k7t["plain_ms"], "bound_ms": k7t["bound_ms"],
                  "bound_by": k7t["bound_by"],
                  "library_ms": k7t["library_ms"]})

@@ -1,4 +1,5 @@
-"""K2, K8b, K8c, K9a, K9b and K9c times, the w8a8 models' img/s and the
+"""K2, K7, K8b, K8c, K9a, K9b and K9c times, the window-7 attention half,
+the w8a8 models' and the Swin-T-224 heading model's img/s and the
 Swin-B-384 and DINOv2-B/14 training steps' device time of several
 checkouts, in turns, on one CUDA card.
 
@@ -22,10 +23,20 @@ ms per B=64 batch and img/s of the w8a8 DINOv2-B/14 + SALAD descriptors
 on its first batch, and one training step of Swin-B-384 (preset
 swin_b384_gemini2) and of DINOv2-B/14 (dinov2_meanpool_huber), B=16: host
 ms per step over 5 synchronised steps, and the device-busy ms of one step
-under torch.profiler. Inputs and weights are chip_smoke.py's, from seed 0.
+under torch.profiler. Section k7: K7 at Swin-T-224's four stages at B=64,
+on pre-split windows (`window_attention_kernel`) and, where the checkout
+has it, on the raster qkv (`window_attention_raster`), each in CUDA graphs
+(`ms`, the host's launch cost left out) and by CUDA events around calls
+launched from Python (`event_ms`); then the whole
+window-7 attention half (`swin_attn_block_unfused` as the model's serving
+path calls it) at each stage, its CUDA-event ms and, under
+torch.profiler, the device ms and calls of each kernel and the calls of
+each aten op. Section angle: the Swin-T-224 heading model (preset
+swin_t224_sincos_gemini, bf16) at B=64, ms per batch, img/s and its
+`[breakdown]`. Inputs and weights are chip_smoke.py's, from seed 0.
 Name the checkouts in turns (`OLD . . OLD`) to compare two on one card.
-`--only` runs the named sections alone, of: k2, k9c, k9, models, k8,
-swin_step, dinov2_step. Needs one CUDA card.
+`--only` runs the named sections alone, of: k2, k7, angle, k9c, k9,
+models, k8, swin_step, dinov2_step. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -40,7 +51,15 @@ import torch
 REPO = Path(__file__).resolve().parent
 ITERS = 10
 ROUNDS = 4
-SECTIONS = ("k2", "k9c", "k9", "models", "k8", "swin_step", "dinov2_step")
+SECTIONS = ("k2", "k7", "angle", "k9c", "k9", "models", "k8", "swin_step",
+            "dinov2_step")
+# Swin-T-224 at B=64, stages 0-3: K7's (BW, H, N, nW; nW 0 unshifted) and
+# the half's (B, C, H, resolution, window, shift), shifted where the stage
+# has shifted blocks
+K7_STAGES = ((4096, 3, 49, 64), (1024, 6, 49, 16), (256, 12, 49, 4),
+             (64, 24, 49, 0))
+HALF_STAGES = ((64, 96, 3, 56, 7, 3), (64, 192, 6, 28, 7, 3),
+               (64, 384, 12, 14, 7, 3), (64, 768, 24, 7, 7, 0))
 
 
 def _train_step_times(cs, dev, line, preset: str, name: str) -> None:
@@ -176,6 +195,89 @@ def _k9_times(cs, dev, line) -> None:
             torch.cuda.empty_cache()
 
 
+def _profiled(fn):
+    """Device ms and calls of each kernel name, and calls of each aten op,
+    over ITERS calls of fn under torch.profiler (per call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            fn()
+        torch.cuda.synchronize()
+    kernels, ops = {}, {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            kernels[_kernel_name(e.key)[:100]] = (
+                e.self_device_time_total / ITERS / 1e3, e.count / ITERS)
+        elif e.key.startswith("aten::"):
+            ops[e.key] = e.count / ITERS
+    return kernels, ops
+
+
+def _k7_times(cs, dev, line) -> None:
+    """K7 at Swin-T-224's four stages (B=64) on pre-split windows and, in
+    a checkout that has it, on the raster qkv; then the window-7
+    attention half at each stage as the model's serving path runs it, whole
+    (CUDA events) and kernel by kernel (torch.profiler)."""
+    from geovpr_torch.ops import swin_block as sb
+    from geovpr_torch.ops import window_attention as wa
+
+    raster = getattr(wa, "window_attention_raster", None)
+    with torch.inference_mode():
+        for shape, half in zip(K7_STAGES, HALF_STAGES):
+            tag = "BW{}_H{}_N{}_nW{}".format(*shape)
+            args = cs.k7_case(shape, dev)
+            fns = {"K7": lambda: wa.window_attention_kernel(*args)}
+            if raster is not None:
+                rargs = cs.k7_raster_case(half, dev)
+                fns["K7_raster"] = lambda: raster(*rargs)
+            for name, fn in fns.items():
+                line(name, tag, cs.graph_ms(fn), event_ms=cs.cuda_ms(fn,
+                                                                     ITERS))
+            del args, fns
+        for half in HALF_STAGES:
+            b, c, h, res, win, shift = half
+            x, blk = cs.swin_block_case(half, dev)
+            args = cs.k4_args(x, blk)[:8]
+            attn = raster or wa.window_attention_kernel
+
+            def fn():
+                return sb.swin_attn_block_unfused(
+                    *args, num_heads=h, resolution=res, window=win,
+                    shift=shift, attention=attn)
+
+            ms = cs.cuda_ms(fn, ITERS)
+            kernels, ops = _profiled(fn)
+            line("window7_half", "B{}_C{}_H{}_S{}_w{}_shift{}".format(*half),
+                 ms, kernels=kernels, ops=ops)
+            del x, blk, args
+    torch.cuda.empty_cache()
+
+
+def _angle_times(cs, dev, line, card: str, label: str) -> None:
+    """The Swin-T-224 heading model at B=64, bf16: ms per batch (CUDA
+    events) and img/s, then chip_smoke.py's `[breakdown]` of one batch."""
+    import numpy as np
+
+    from geovpr_torch.data.transforms import normalize
+
+    source = cs.synthetic_val(cs.ANGLE_BATCH, 224,
+                              np.random.default_rng(cs.SEED), angles=True)
+    images = torch.from_numpy(source.images).to(dev)
+    model, _ = cs.angle_model(dev, cs.ANGLE_PRESET)
+    with torch.inference_mode():
+        x = normalize(images)
+        ms = cs.cuda_ms(lambda: model(x), ITERS)
+    line("swin_t224_angle", f"B{cs.ANGLE_BATCH}", ms,
+         img_per_s=cs.ANGLE_BATCH * 1e3 / ms)
+    cs.breakdown(model, images, card, f"swin-t-bf16@{label}",
+                 batch=cs.ANGLE_BATCH)
+    del model, images, x
+    torch.cuda.empty_cache()
+
+
 def run(label: str, sections=SECTIONS) -> None:
     """In the child: this process's checkout's kernels and models, the
     sections of SECTIONS named in `sections`."""
@@ -206,6 +308,10 @@ def run(label: str, sections=SECTIONS) -> None:
             line("K2", f"B{b}_N{n}_D{d}_H{h}", cs.cuda_ms(
                 lambda: fused_mhsa_block_int8(x, **k2, num_heads=h), ITERS))
             del x, k2
+    if "k7" in sections:
+        _k7_times(cs, dev, line)
+    if "angle" in sections:
+        _angle_times(cs, dev, line, card, label)
     if "k9c" in sections:
         with torch.no_grad():
             for shape in cs.K9_SHAPES[:3]:

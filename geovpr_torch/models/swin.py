@@ -14,7 +14,8 @@ embed to the final LN. The JAX package keeps it window-partitioned across
 a stage (`repartition`, `merge_gather`) or in its "alternating" rolled
 layout, both built for Mosaic and VMEM; here the window partition and the
 cyclic shift are the attention kernel's row addressing (K4/K5,
-`geovpr_torch/csrc/swin_attn.cu`), and the stage boundary reads the 2x2
+`geovpr_torch/csrc/swin_attn.cu`; K7's raster mode at window 7,
+`csrc/window_attn.cu`), and the stage boundary reads the 2x2
 neighbours from raster rows (K6, `csrc/patch_merge.cu`). No relayout copy
 runs on the serving path.
 
@@ -23,8 +24,9 @@ Each block's attention half is one call of
 where the window holds a multiple of 16 tokens (window 12); at window 7
 (N = 49, Swin-T-224) it is the JAX package's unfused half, LN and the q/k/v
 and out projections as torch ops around
-`geovpr_torch.ops.window_attention.window_attention_kernel` (K7), as JAX
-runs `window_attention_pallas` there (`fused_window_ok`). On the w8a8 path
+`geovpr_torch.ops.window_attention.window_attention_raster` (K7, which reads
+the windows out of the raster qkv and writes the context back in raster
+order), as JAX runs `window_attention_pallas` there (`fused_window_ok`). On the w8a8 path
 (`int8_attn`, `int8_mlp`, window 12 only) it is
 `fused_swin_attn_block_int8` (K5) and the MLP half, LN included,
 `geovpr_torch.ops.mlp_int8.fused_mlp_block_int8` (K3, no LayerScale, so
@@ -72,7 +74,7 @@ from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
                                          swin_attn_block_unfused)
 from geovpr_torch.ops.window_attention import (  # noqa: F401 (re-exported)
     relative_position_index, shifted_window_labels, shifted_window_mask,
-    window_attention_kernel, window_attention_serving_reference,
+    window_attention_raster, window_attention_raster_reference,
     window_partition, window_reverse)
 
 SWIN_VARIANTS = {
@@ -177,8 +179,8 @@ class SwinBlock(QuantBlock):
                 x = attn(*args, **geom)
             else:
                 x = swin_attn_block_unfused(*args, **geom, attention=(
-                    window_attention_kernel if self.use_kernels
-                    else window_attention_serving_reference))
+                    window_attention_raster if self.use_kernels
+                    else window_attention_raster_reference))
         if self.mlp.int8 and not calibrating:
             mlp = (fused_mlp_block_int8 if self.use_kernels
                    else mlp_block_int8_reference)

@@ -124,8 +124,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         # takes the first and last of its two launches
         "geovpr_patch_merge": [vp] * 6 + [ci] * 3 + [cf, vp],
         "geovpr_patch_merge_parts": [vp] * 6 + [ci] * 3 + [cf, ci, ci, vp],
-        # K7 (window_attn.cu): 6 pointers, BW H N nW, qscale, stream
+        # K7 (window_attn.cu): split mode, 6 pointers, BW H N nW, qscale,
+        # stream; raster mode, 3 pointers, B S C H W shift, qscale, stream
         "geovpr_window_attention": [vp] * 6 + [ci] * 4 + [cf, vp],
+        "geovpr_window_attention_raster": [vp] * 3 + [ci] * 6 + [cf, vp],
         # K9a/K9b/K9c (swin_train.cu): pointers, B S C H win shift, floats,
         # stream; the _parts entries also take the first and last of their
         # launches

@@ -35,11 +35,13 @@ import torch
 from geovpr_torch.ops.quant import (check_devices, check_int8_kernel_args,
                                     check_shapes, int_mm, layer_norm_f32,
                                     round_clip_int8)
-from geovpr_torch.ops.window_attention import (add_bias_mask, from_windows,
+from geovpr_torch.ops.window_attention import (_raster_ctx, _windows_qkv,
+                                               add_bias_mask, from_windows,
                                                relative_position_bias,
                                                relative_position_index,
                                                shift_mask, to_windows,
-                                               window_attention)
+                                               window_attention,
+                                               windowed_attention)
 
 LOG2E = math.log2(math.e)
 _KERNEL_HEAD_DIM = 32
@@ -77,22 +79,6 @@ def _log2_bias_mask(table, window, resolution, shift, device):
     return bias, None if mask is None else mask * LOG2E
 
 
-def _windows_qkv(qkv, resolution, window, shift, num_heads):
-    """(B, L, 3C) raster -> q, k, v each (BW, H, N, dh) in window order."""
-    c = qkv.shape[-1] // 3
-    w = to_windows(qkv, resolution, window, shift)
-    bw, n, _ = w.shape
-    return [t.reshape(bw, n, num_heads, c // num_heads).transpose(1, 2)
-            for t in w.split(c, dim=-1)]
-
-
-def _raster_ctx(ctx, resolution, window, shift):
-    """(BW, H, N, dh) -> raster (B, L, C)."""
-    bw, h, n, dh = ctx.shape
-    return from_windows(ctx.transpose(1, 2).reshape(bw, n, h * dh),
-                        resolution, window, shift)
-
-
 def swin_attn_block_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
                               table, num_heads: int, resolution: int,
                               window: int, shift: int,
@@ -119,19 +105,19 @@ def swin_attn_block_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
 def swin_attn_block_unfused(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
                             table, num_heads: int, resolution: int,
                             window: int, shift: int, ln_eps: float = 1e-5,
-                            calib: dict | None = None,
-                            attention=window_attention):
+                            calib: dict | None = None, attention=None):
     """The JAX package's unfused path (`SwinBlock` without the fused kernel,
     `geovpr/models/swin.py:559-584`): LN, the q/k/v projections (f32
-    accumulation) rounded to x.dtype, `attention` on the (BW, H, N, dh)
-    windows, the out projection rounded to x.dtype, the residual added in
-    x.dtype. `attention` is `window_attention` (JAX's XLA path: scaled
-    scores, max-shifted softmax) for calibration, or on the window-7 serving
-    path `window_attention_kernel` (K7, JAX's `use_pallas=True`) or its
-    plain version. With `calib` (a dict) it records the amaxes the int8
-    calibration reads, at the points JAX sows them: `attn_x` the LN output,
-    `attn_q/k/v` the projections, `attn_ctx` the context before the out
-    projection."""
+    accumulation) rounded to x.dtype, the window attention, the out
+    projection rounded to x.dtype, the residual added in x.dtype.
+    `attention(qkv, table, num_heads, resolution, window, shift)` maps the
+    raster qkv (B, L, 3C) to the raster context (B, L, C): on the window-7
+    serving path `window_attention_raster` (K7, JAX's `use_pallas=True`) or
+    its plain version; None (calibration) runs `window_attention` (JAX's
+    XLA path: scaled scores, max-shifted softmax) on the gathered windows.
+    With `calib` (a dict) it records the amaxes the int8 calibration reads,
+    at the points JAX sows them: `attn_x` the LN output, `attn_q/k/v` the
+    projections, `attn_ctx` the context before the out projection."""
     from geovpr_torch.ops.quant import amax_into
 
     c = x.shape[-1]
@@ -143,12 +129,9 @@ def swin_attn_block_unfused(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
         amax_into(calib, "attn_x", h)
         for key, t in zip(("attn_q", "attn_k", "attn_v"), qkv.split(c, -1)):
             amax_into(calib, key, t)
-    q, k, v = (t.contiguous() for t in
-               _windows_qkv(qkv, resolution, window, shift, num_heads))
-    ctx = attention(q, k, v,
-                    relative_position_bias(table, window).contiguous(),
-                    shift_mask(resolution, window, shift, x.device))
-    ctx = _raster_ctx(ctx, resolution, window, shift)
+    geom = (num_heads, resolution, window, shift)
+    ctx = (windowed_attention(window_attention, qkv, table, *geom)
+           if attention is None else attention(qkv, table, *geom))
     if calib is not None:
         amax_into(calib, "attn_ctx", ctx)
     return x + (_proj(ctx, wo) + bo.float()).to(dt)
@@ -220,7 +203,7 @@ def fused_window_ok(window: int) -> bool:
     """Which attention half a Swin block takes: the fused half-block (K4,
     K5) for windows of N = window**2 tokens in multiples of 16 up to 256,
     the unfused half around K7 (`swin_attn_block_unfused` with
-    `window_attention_kernel`) otherwise, e.g. window 7 (N = 49). The JAX
+    `window_attention_raster`) otherwise, e.g. window 7 (N = 49). The JAX
     package routes with `swin_block_kernel_ok`
     (`geovpr/ops/pallas_swin_block.py:87-92`), which also asks C % 128 == 0:
     that is the TPU's 128-lane rule, which the port's kernels do not have

@@ -6,19 +6,31 @@ The port keeps the Swin token stream in raster (B, L, C) order. Only the
 attention step needs to know which `window**2` rows form a window: here
 `to_windows`/`from_windows` gather them (with the cyclic shift of SW-MSA)
 into (B*nW, N, C) windows and back; the kernels K4/K5
-(`geovpr_torch/csrc/swin_attn.cu`) do the same by address arithmetic.
+(`geovpr_torch/csrc/swin_attn.cu`) and K7's raster entry do the same by
+address arithmetic.
 
 `window_attention` is the JAX package's XLA path (scaled scores, bias,
 mask, max-shifted softmax, P.V with P rounded to v's dtype): the Swin
 calibration pass runs it, as the JAX calibration pass does.
 
-`window_attention_kernel` is kernel K7, the port of
-`geovpr/ops/pallas_window_attention.py::window_attention_pallas` with JAX's
-operands and result: (BW, H, N, dh) q, k, v in, the same out, bias (H, N,
-N), mask (nW, N, N) or None. On a CUDA tensor it launches the hand-written
-Hopper kernel of `geovpr_torch/csrc/window_attn.cu` or raises; on a CPU
-tensor it runs `window_attention_serving_reference`, which rounds where the
-JAX kernel body `_kernel` rounds (serving softmax, `_SKIP_MAX`).
+Kernel K7, the port of
+`geovpr/ops/pallas_window_attention.py::window_attention_pallas`, has two
+entries, two address modes of one hand-written Hopper kernel
+(`geovpr_torch/csrc/window_attn.cu`):
+- `window_attention_raster(qkv, table, num_heads, resolution, window,
+  shift)`, the window-7 serving path's: the unfused half's raster qkv (B,
+  L, 3C) in, the raster context (B, L, C) out, the window partition and the
+  cyclic shift folded into the kernel's addressing, the bias taken from the
+  relative-position table and the shift mask from the geometry. Its plain
+  version, `window_attention_raster_reference`, gathers the windows
+  (`_windows_qkv`), runs `window_attention_serving_reference` and scatters
+  the context back (`_raster_ctx`).
+- `window_attention_kernel(q, k, v, bias, mask)`, with JAX's operands and
+  result: (BW, H, N, dh) q, k, v in, the same out, bias (H, N, N), mask
+  (nW, N, N) or None.
+On a CUDA tensor each launches the kernel or raises; on a CPU tensor each
+runs its plain version, which rounds where the JAX kernel body `_kernel`
+rounds (serving softmax, `_SKIP_MAX`).
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ import torch
 LOG2E = math.log2(math.e)
 _KERNEL_HEAD_DIM = 32
 _KERNEL_MAX_N = 256
+_RASTER_MAX_N = 144
 
 
 def relative_position_index(window: int) -> np.ndarray:
@@ -109,6 +122,22 @@ def from_windows(xw: torch.Tensor, resolution: int, window: int,
     if shift:
         t = torch.roll(t, shifts=(shift, shift), dims=(1, 2))
     return t.reshape(t.shape[0], resolution * resolution, t.shape[-1])
+
+
+def _windows_qkv(qkv, resolution, window, shift, num_heads):
+    """(B, L, 3C) raster -> q, k, v each (BW, H, N, dh) in window order."""
+    c = qkv.shape[-1] // 3
+    w = to_windows(qkv, resolution, window, shift)
+    bw, n, _ = w.shape
+    return [t.reshape(bw, n, num_heads, c // num_heads).transpose(1, 2)
+            for t in w.split(c, dim=-1)]
+
+
+def _raster_ctx(ctx, resolution, window, shift):
+    """(BW, H, N, dh) -> raster (B, L, C)."""
+    bw, h, n, dh = ctx.shape
+    return from_windows(ctx.transpose(1, 2).reshape(bw, n, h * dh),
+                        resolution, window, shift)
 
 
 def _constant(array: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -260,3 +289,107 @@ def window_attention_kernel(q: torch.Tensor, k: torch.Tensor,
 
 
 window_attention_kernel.launches = 0
+
+
+def windowed_attention(attention, qkv, table, num_heads: int,
+                       resolution: int, window: int,
+                       shift: int) -> torch.Tensor:
+    """`attention(q, k, v, bias, mask)` on the windows of the raster qkv
+    (B, L, 3C), q | k | v column blocks: the windows gathered with the
+    cyclic shift (`_windows_qkv`, then contiguous), the (H, N, N) bias from
+    the ((2w-1)^2, H) table, the shift mask of the geometry; the (BW, H, N,
+    dh) context scattered back to raster (B, L, C) (`_raster_ctx`)."""
+    q, k, v = (t.contiguous() for t in
+               _windows_qkv(qkv, resolution, window, shift, num_heads))
+    ctx = attention(q, k, v, relative_position_bias(table, window)
+                    .contiguous(),
+                    shift_mask(resolution, window, shift, qkv.device))
+    return _raster_ctx(ctx, resolution, window, shift)
+
+
+def window_attention_raster_reference(qkv, table, num_heads: int,
+                                      resolution: int, window: int,
+                                      shift: int) -> torch.Tensor:
+    """Plain PyTorch version of K7's raster entry:
+    `window_attention_serving_reference` on the gathered windows, the
+    context scattered back to raster order."""
+    return windowed_attention(window_attention_serving_reference, qkv, table,
+                              num_heads, resolution, window, shift)
+
+
+def k7_raster_shape_error(c: int, num_heads: int, resolution: int,
+                          window: int, shift: int) -> str | None:
+    """The rule of K7's raster mode (`csrc/window_attn.cu`), or None where
+    it takes the shape: head dim 32, a window of up to 144 tokens (the
+    head's bias matrix sits in shared memory) tiling the resolution, 0 <=
+    shift < window."""
+    if c != _KERNEL_HEAD_DIM * num_heads:
+        return (f"K7 takes head dim {_KERNEL_HEAD_DIM}, got C={c} with "
+                f"{num_heads} heads")
+    if (not 0 < window * window <= _RASTER_MAX_N or resolution % window
+            or not 0 <= shift < window):
+        return (f"K7's raster mode takes windows of up to {_RASTER_MAX_N} "
+                f"tokens tiling the resolution and 0 <= shift < window, got "
+                f"window {window}, resolution {resolution}, shift {shift}")
+    return None
+
+
+def window_attention_raster(qkv: torch.Tensor, table: torch.Tensor,
+                            num_heads: int, resolution: int, window: int,
+                            shift: int) -> torch.Tensor:
+    """K7 on the raster qkv (B, L, 3C) of the unfused window-attention half
+    (q | k | v column blocks, head h at columns 32 h of each, q unscaled) and
+    the block's ((2w-1)^2, H) relative-position table; returns the context
+    (B, L, C) in raster order. CPU tensors run the plain version; CUDA
+    tensors launch K7's raster mode (bf16 qkv, f32 table, contiguous and
+    16-byte aligned; `k7_raster_shape_error`; forward only) or raise."""
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv must be (B, L, 3C), got {tuple(qkv.shape)}")
+    b, l, c3 = qkv.shape
+    c = c3 // 3
+    if l != resolution * resolution or c % num_heads:
+        raise ValueError(f"qkv {tuple(qkv.shape)} is not a {resolution}^2 "
+                         f"grid of {num_heads} heads")
+    t = 2 * window - 1
+    if tuple(table.shape) != (t * t, num_heads):
+        raise ValueError(f"table must be {(t * t, num_heads)}, got "
+                         f"{tuple(table.shape)}")
+    if table.device != qkv.device:
+        raise ValueError("qkv and table must be on one device")
+    if qkv.device.type == "cpu":
+        return window_attention_raster_reference(qkv, table, num_heads,
+                                                 resolution, window, shift)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"unsupported device {qkv.device}")
+    if torch.is_grad_enabled() and (qkv.requires_grad or table.requires_grad):
+        raise RuntimeError(
+            "window_attention_raster has no backward kernel (the JAX "
+            "backward is an XLA recompute); run the forward under "
+            "torch.inference_mode()")
+    for name, x, want in (("qkv", qkv, torch.bfloat16),
+                          ("table", table, torch.float32)):
+        if x.dtype != want:
+            raise TypeError(f"{name} must be {want} on CUDA, got {x.dtype}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    err = k7_raster_shape_error(c, num_heads, resolution, window, shift)
+    if err:
+        raise ValueError(err)
+
+    from geovpr_torch.ops._build import library_on
+    lib = library_on(qkv.device.index, "geovpr_window_attention_init")
+    out = torch.empty(b, l, c, dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        rc = lib.geovpr_window_attention_raster(
+            qkv.data_ptr(), table.data_ptr(), out.data_ptr(), b, resolution,
+            c, num_heads, window, shift,
+            float(1.0 / (_KERNEL_HEAD_DIM ** 0.5) * LOG2E),
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"window_attention_raster kernel launch failed: "
+                           f"CUDA error {rc}")
+    window_attention_raster.launches += 1
+    return out
+
+
+window_attention_raster.launches = 0

@@ -10,7 +10,8 @@ import torch
 
 from chip_smoke import (f32, int8_block_case, int8_errors, int8_within_bound,
                         k1_within_bound, k4_args, k5_kwargs, k7_case,
-                        merge_case, ratio_errors, swin_block_case)
+                        k7_raster_case, merge_case, ratio_errors,
+                        swin_block_case)
 from geovpr_torch.ops.mhsa import (fused_mhsa_block, fused_mhsa_block_int8,
                                    mhsa_block_int8_reference,
                                    mhsa_block_reference)
@@ -696,14 +697,77 @@ def test_k7_refuses_what_it_does_not_take(cuda):
                                 mask)
 
 
+# Swin-T-224's four stages (B, C, H, resolution, window, shift) at B = 8,
+# shifted where the stage has shifted blocks
+_K7_RASTER_SHAPES = [(8, 96, 3, 56, 7, 3), (8, 192, 6, 28, 7, 3),
+                     (8, 384, 12, 14, 7, 3), (8, 768, 24, 7, 7, 0)]
+
+
+@pytest.mark.parametrize("shape", _K7_RASTER_SHAPES)
+def test_k7_raster_matches_plain_version(cuda, shape):
+    """K7's raster mode against its plain version (the windows gathered,
+    `window_attention_serving_reference`, scattered back) under K1's bound;
+    one launch a call."""
+    from geovpr_torch.ops.window_attention import (
+        window_attention_raster, window_attention_raster_reference)
+    args = k7_raster_case(shape, cuda)
+    before = window_attention_raster.launches
+    e = ratio_errors(window_attention_raster,
+                     window_attention_raster_reference, args, f32(args))
+    assert window_attention_raster.launches == before + 1
+    assert k1_within_bound(e), e
+
+
+@pytest.mark.parametrize("shape", _K7_RASTER_SHAPES + [
+    (2, 64, 2, 21, 7, 3), (2, 64, 2, 24, 12, 6), (1, 32, 1, 12, 3, 2)])
+def test_k7_raster_equals_split_launch(cuda, shape):
+    """The raster launch is bit-equal to the split launch on the windows
+    `_windows_qkv` gathers, its context scattered back by `_raster_ctx`:
+    the four stages, a 3 x 3 grid of shifted windows, window 12 and a
+    shift other than window // 2."""
+    from geovpr_torch.ops.window_attention import (window_attention_kernel,
+                                                   window_attention_raster,
+                                                   windowed_attention)
+    args = k7_raster_case(shape, cuda)
+    with torch.inference_mode():
+        got = window_attention_raster(*args)
+        want = windowed_attention(window_attention_kernel, *args)
+        torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_k7_raster_refuses_what_it_does_not_take(cuda):
+    from geovpr_torch.ops.window_attention import window_attention_raster
+    qkv, table, h, res, win, shift = k7_raster_case((2, 96, 3, 14, 7, 3),
+                                                    cuda)
+    geom = (h, res, win, shift)
+    with torch.inference_mode():
+        with pytest.raises(TypeError):
+            window_attention_raster(qkv.float(), table, *geom)
+        with pytest.raises(TypeError):
+            window_attention_raster(qkv, table.double(), *geom)
+        with pytest.raises(ValueError, match="contiguous"):
+            window_attention_raster(qkv.transpose(0, 1).contiguous()
+                                    .transpose(0, 1), table, *geom)
+        with pytest.raises(ValueError, match="head dim"):
+            window_attention_raster(qkv, table[:, :1].contiguous(), 1, res,
+                                    win, shift)
+        with pytest.raises(ValueError, match="shift"):
+            window_attention_raster(qkv, table, h, res, win, 7)
+    with pytest.raises(RuntimeError, match="backward"):
+        window_attention_raster(qkv, table.clone().requires_grad_(True),
+                                *geom)
+
+
 def test_swin7_model_launches_per_block(cuda):
-    """A two-stage window-7 Swin: one K7 per block, one K6 at the boundary,
-    no K4."""
+    """A two-stage window-7 Swin: one K7 (its raster mode) per block, one
+    K6 at the boundary, no K4 and no split-mode K7."""
     from geovpr_torch.models.layers import init_weights_
     from geovpr_torch.models.swin import SwinTransformer
     from geovpr_torch.ops.patch_merge import fused_patch_merge
     from geovpr_torch.ops.swin_block import fused_swin_attn_block
-    from geovpr_torch.ops.window_attention import window_attention_kernel
+    from geovpr_torch.ops.window_attention import (window_attention_kernel,
+                                                   window_attention_raster)
 
     model = SwinTransformer(embed_dim=64, depths=(2, 2), num_heads=(2, 4),
                             window_size=7, image_size=56,
@@ -711,12 +775,13 @@ def test_swin7_model_launches_per_block(cuda):
     init_weights_(model, torch.Generator().manual_seed(0))
     model = model.to(cuda).eval()
     x = torch.randn(2, 56, 56, 3, device=cuda)
-    fns = (window_attention_kernel, fused_patch_merge, fused_swin_attn_block)
+    fns = (window_attention_raster, fused_patch_merge, fused_swin_attn_block,
+           window_attention_kernel)
     before = [f.launches for f in fns]
     with torch.inference_mode():
         out = model(x)
         torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(fns, before)] == [4, 1, 0]
+    assert [f.launches - b for f, b in zip(fns, before)] == [4, 1, 0, 0]
     assert torch.isfinite(out.tokens).all()
 
 
