@@ -22,6 +22,13 @@ end to end from seeded random weights:
   EfficientNet-B0 (efficientnet_sincos_gemini) and ConvNeXt-B
   (convnext_direct_maae), which run on cuDNN and launch no kernel of the
   port;
+- fuse (`geovpr_torch.cli.fuse.main`) on 192 non-square JPEGs and a
+  256-image gallery, run directories of full-width models written with
+  the port's `save_checkpoint`: bf16 Swin-B-384 geopose + Swin-T-224 angle
+  + DINOv2-B/14 + SALAD retrieval with --save-index; --int8 with the
+  ConvNeXt-B angle head (K3 with the pre-dwconv residual in every block);
+  EfficientNet-B0 on its dual geometry with --load-index; and the w8a8
+  Swin-T-224 head (torch int8 attention, K3) in a FusedPipeline;
 - training (`geovpr_torch.cli.train.run_train`), Swin-B-384 + MLP head
   (preset swin_b384_gemini2) at full width and the preset's B=16: two
   epochs of 4 steps with validation and checkpoints (K9a in every block,
@@ -38,7 +45,7 @@ end to end from seeded random weights:
 
 Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
 form and the w8a8 MLP half-block, K3 also at the four Swin-B-384 stage
-widths), K4 and K5 (the Swin window-attention half-block, bf16 and w8a8),
+widths and at ConvNeXt-B's four stages with the separate residual), K4 and K5 (the Swin window-attention half-block, bf16 and w8a8),
 K6 (Swin PatchMerging), K7 (the window-7 attention core, on the raster
 qkv and on pre-split windows; the window-7 half is also timed op by op),
 and K9a, K9b and K9c (the Swin attention half-block's training
@@ -74,7 +81,9 @@ JSON device record.
 
 from __future__ import annotations
 
+import contextlib
 import csv
+import io
 import json
 import os
 import subprocess
@@ -703,9 +712,10 @@ def library_k2(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
 
 
 def library_k3(x, ln_scale_q, ln_bias_q, w1q_t, s1_eff, b1, w2q_t, s2_eff,
-               b2, gamma, inv_a_mid, ln_eps=1e-6):
+               b2, gamma, inv_a_mid, ln_eps=1e-6, residual=None):
     """K3's yardstick: F.layer_norm + two torch._int_mm with the
-    quantize / GELU / dequant steps between them."""
+    quantize / GELU / dequant steps between them (and the separate
+    residual where there is one)."""
     import torch.nn.functional as F
     d = x.shape[-1]
     xf = x.reshape(-1, d)
@@ -717,7 +727,8 @@ def library_k3(x, ln_scale_q, ln_bias_q, w1q_t, s1_eff, b1, w2q_t, s2_eff,
                   approximate="tanh")
     gq = torch.clamp(torch.round(hmid * inv_a_mid), -127, 127).to(torch.int8)
     y = torch._int_mm(gq, w2q_t.t()) * s2_eff + b2
-    return (y * gamma + xf).bfloat16().reshape(x.shape)
+    res = xf if residual is None else residual.reshape(-1, d)
+    return (y * gamma + res).bfloat16().reshape(x.shape)
 
 
 def kernel_times(device, card: str) -> dict:
@@ -797,20 +808,25 @@ def model_times(model, images, card: str, path: str, batch=BATCH) -> None:
 def breakdown(model, images, card: str, path: str = "bf16",
               batch=BATCH) -> None:
     """Phase 7 (bf16) / 11 (int8): device time by kernel for one batch
-    (torch.profiler), and the device's idle share of that window (the
-    profiler's own overhead inflates the window, so the share is an upper
-    bound)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    of `model` (`breakdown_fn`)."""
     from geovpr_torch.data.transforms import normalize
 
+    breakdown_fn(lambda: model(normalize(images)), card, path, batch)
+
+
+def breakdown_fn(fn, card: str, path: str, batch: int) -> None:
+    """Device time by kernel for one call of fn() (torch.profiler), and
+    the device's idle share of that window (the profiler's own overhead
+    inflates the window, so the share is an upper bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
     with torch.inference_mode():
-        model(normalize(images))
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model(normalize(images))
+            fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -1702,6 +1718,445 @@ def k7_half_times(device, card: str) -> None:
               f"the window-7 half gathers its windows: {sorted(ops)}")
         del x, blk, args
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------ fused pipeline --
+
+# `geovpr_torch.cli.fuse.main` on 192 non-square JPEGs (480x360 and
+# 360x480) and a 256-image gallery, batches of 64: (a) bf16 Swin-B-384
+# geopose + Swin-T-224 angle + DINOv2-B/14 + SALAD retrieval with
+# --save-index; (b) --int8, the ConvNeXt-B angle head; (c) the
+# EfficientNet-B0 angle head on its dual geometry (Resize(256) +
+# CenterCrop(224) from the decode) with --load-index of (a)'s index. Then a
+# FusedPipeline of the window-7 Swin-T-224 angle head alone in w8a8.
+FUSE_N_TEST, FUSE_N_GALLERY, FUSE_BATCH = 192, 256, 64
+FUSE_SIZES = ((480, 360), (360, 480))
+FUSE_TOP_K = 5
+# the stream: the largest head size (Swin-B-384's; EfficientNet's
+# Resize(256) in (c))
+FUSE_STREAMS = {"fuse-bf16": 384, "fuse-int8": 384, "fuse-dual": 256}
+DINO_BLOCKS, CONVNEXT_BLOCKS = 12, 36
+# ConvNeXt-B's K3 shapes at B=64 (B, side, C; hidden 4C), the pre-dwconv
+# stream as the separate residual
+CONVNEXT_K3_SHAPES = ((64, 56, 128), (64, 28, 256), (64, 14, 512),
+                      (64, 7, 1024))
+
+
+def fuse_images(root: str, rng) -> tuple:
+    """The test folder and the gallery (images and manifest): non-square
+    JPEGs of an upsampled random 8x8 colour field plus noise, the gallery
+    100 m apart."""
+    from PIL import Image
+
+    def image(i):
+        w, h = FUSE_SIZES[i % 2]
+        base = Image.fromarray(rng.integers(0, 256, (8, 8, 3)).astype(
+            np.uint8)).resize((w, h), Image.BILINEAR)
+        arr = np.asarray(base, np.float32) + rng.normal(0, 20, (h, w, 3))
+        return Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
+
+    test_dir, img_dir = os.path.join(root, "test"), os.path.join(root, "img")
+    os.makedirs(test_dir)
+    os.makedirs(img_dir)
+    for i in range(FUSE_N_TEST):
+        image(i).save(os.path.join(test_dir, f"t_{i:04d}.jpg"), quality=90)
+    gallery_csv = os.path.join(root, "gallery.csv")
+    with open(gallery_csv, "w") as f:
+        f.write("filename,timestamp,latitude,longitude,angle,Region_ID\n")
+        for i in range(FUSE_N_GALLERY):
+            image(i).save(os.path.join(img_dir, f"g_{i:04d}.jpg"), quality=90)
+            f.write(f"g_{i:04d}.jpg,0,{219000.0 + 100.0 * i},143000.0,0,1\n")
+    return test_dir, img_dir, gallery_csv
+
+
+def fuse_run_dir(root: str, preset: str) -> str:
+    """A run directory in the port trainer's format (`save_checkpoint`)
+    holding the preset's model at full width from seed 0, perturbed as
+    `swin_model` / `angle_model` perturb it; a geopose scaler at the
+    campus's scale."""
+    from geovpr_torch.cli.evaluate import build_model
+    from geovpr_torch.cli.presets import build_preset
+    from geovpr_torch.objectives.scaler import (identity_scaler,
+                                                scaler_from_arrays)
+    from geovpr_torch.train.checkpoint import save_checkpoint
+    from geovpr_torch.train.state import TrainState, build_optimizer
+
+    cfg = build_preset(preset)
+    model, scaler = build_model(cfg, "cpu", seed=SEED)
+    perturb = perturb_swin_ if cfg.model.family == "swin" else perturb_cnn_
+    perturb(model, torch.Generator().manual_seed(SEED))
+    scaler = (identity_scaler(2) if scaler is None else
+              scaler_from_arrays([219000.0, 143000.0], [300.0, 100.0]))
+    run = os.path.join(root, "runs", preset)
+    save_checkpoint(os.path.join(run, "best"), TrainState(
+        0, model, build_optimizer(model, cfg.optim), scaler, SEED), 1)
+    return run
+
+
+def read_csv(path: str) -> list:
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def fuse_cli(argv: list, expected: dict, path: str) -> tuple:
+    """One `geovpr_torch.cli.fuse.main` run, every kernel's launch count set
+    to 0 just before and read just after and held to `expected`; its JSON
+    record and its CSVs checked: a row per test image sorted by filename
+    with finite values, FUSE_TOP_K matches a test image. Returns (record,
+    launches)."""
+    from geovpr_torch.cli.fuse import main as fuse_main
+
+    counters = {**kernel_counters(), **swin_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        fuse_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update(expected)
+    lines = out.getvalue().strip().splitlines()
+    rec = json.loads(lines[-1])
+    phase("fuse", path=path, wall_s=wall, launches=launches,
+          expected_launches=want, notes=repr(lines[:-1]), **rec)
+    check(launches == want, f"fuse {path}: launches {launches}, expected "
+          f"{want}")
+    check(rec["num_images"] == FUSE_N_TEST, f"fuse {path}: {rec}")
+    names = [f"t_{i:04d}.jpg" for i in range(FUSE_N_TEST)]
+    for key in ("geopose_csv", "angle_csv"):
+        if key in rec:
+            rows = read_csv(rec[key])
+            vals = np.array([[float(v) for k, v in r.items()
+                              if k != "filename"] for r in rows])
+            check([r["filename"] for r in rows] == names
+                  and bool(np.isfinite(vals).all()),
+                  f"fuse {path}: {key} rows or values")
+    if "retrieval_csv" in rec:
+        rows = read_csv(rec["retrieval_csv"])
+        ranks = {}
+        for r in rows:
+            ranks.setdefault(r["query_filename"], []).append(int(r["rank"]))
+        check(sorted(ranks) == names and all(
+            v == list(range(1, FUSE_TOP_K + 1)) for v in ranks.values())
+            and all(np.isfinite(float(r["score"])) for r in rows),
+            f"fuse {path}: retrieval rows")
+    return rec, launches
+
+
+def component_outputs(pipe, images, images_alt=None) -> dict:
+    """Each component's pooled features and raw outputs on one batch, from
+    the stream as the pipeline feeds it (descriptors: the descriptor)."""
+    from geovpr_torch.data.transforms import normalize
+
+    x = images.float() / 255.0
+    out = {}
+    with torch.inference_mode():
+        for name, model, size, resize_to in (
+                ("geopose", pipe.geopose_model, pipe.geopose_size, 0),
+                ("angle", pipe.angle_model, pipe.angle_size,
+                 pipe.angle_resize_to)):
+            if model is None:
+                continue
+            inp = (normalize(images_alt) if name == "angle"
+                   and images_alt is not None
+                   else pipe._head_input(x, size, resize_to))
+            o = model.backbone(inp)
+            out[name] = (o.pooled.float(), model.head(model.pool(o)).float())
+        if pipe.descriptor_model is not None:
+            d = pipe.descriptor_model(pipe._head_input(
+                x, pipe.descriptor_size)).pooled.float()
+            out["descriptor"] = (d, d)
+    return out
+
+
+def fuse_kernel_vs_plain(pipe, images, images_alt, bound, path) -> None:
+    """Each component's kernel path against its plain path
+    (`use_kernels = False` on every module that has it) on one batch:
+    pooled-feature and output cosines at least `bound`."""
+    models = [m for m in (pipe.geopose_model, pipe.angle_model,
+                          pipe.descriptor_model) if m is not None]
+    mods = [m for model in models for m in model.modules()
+            if hasattr(m, "use_kernels")]
+    got = component_outputs(pipe, images, images_alt)
+    for m in mods:
+        m.use_kernels = False
+    try:
+        want = component_outputs(pipe, images, images_alt)
+    finally:
+        for m in mods:
+            m.use_kernels = True
+    cos = torch.nn.functional.cosine_similarity
+    for name, (pooled, preds) in got.items():
+        pw, qw = want[name]
+        c_pool = cos(pooled, pw, dim=1).min().item()
+        c_pred = cos(preds, qw, dim=1).min().item()
+        phase("fuse_model", path=path, component=name,
+              pooled_min_cosine=c_pool, out_min_cosine=c_pred, bound=bound)
+        check(c_pool >= bound and c_pred >= bound,
+              f"fuse {path} {name}: kernel vs plain cosine {c_pool}, "
+              f"{c_pred} < {bound}")
+
+
+def fuse_times(pipe, images, images_alt, card: str, path: str) -> dict:
+    """CUDA-event ms of the fused forward of one batch (images on the
+    device: the decode excluded) and of each head alone on the same
+    stream (its resize and normalize included), img/s; `[fuse_times]`."""
+    x = images.float() / 255.0
+    heads = {}
+    with torch.inference_mode():
+        fused = cuda_ms(lambda: pipe.forward(images, images_alt), iters=10)
+        if pipe.geopose_model is not None:
+            heads["geopose"] = cuda_ms(lambda: pipe.geopose_model(
+                pipe._head_input(x, pipe.geopose_size)), iters=10)
+        if pipe.angle_model is not None and images_alt is None:
+            heads["angle"] = cuda_ms(lambda: pipe.angle_model(
+                pipe._head_input(x, pipe.angle_size, pipe.angle_resize_to)),
+                iters=10)
+        if pipe.descriptor_model is not None:
+            heads["descriptor"] = cuda_ms(lambda: pipe.descriptor_model(
+                pipe._head_input(x, pipe.descriptor_size)), iters=10)
+    b = images.shape[0]
+    phase("fuse_times", card=repr(card), path=path, batch=b, ms=fused,
+          img_per_s=b * 1e3 / fused,
+          **{f"{k}_ms": v for k, v in heads.items()},
+          **{f"{k}_img_per_s": b * 1e3 / v for k, v in heads.items()},
+          heads_sum_ms=sum(heads.values()))
+    return {"ms": fused, **heads}
+
+
+def fuse_batch(source, device):
+    """The first batch of `source` on the device (the decode done once)."""
+    batch = source.get_batch(np.arange(FUSE_BATCH))
+    alt = batch.get("image_alt")
+    return (torch.from_numpy(batch["image"]).to(device),
+            None if alt is None else torch.from_numpy(alt).to(device))
+
+
+def fuse_path(device, card: str) -> dict:
+    """The `[fuse]` phase: `cli.fuse.main` (a), (b), (c) with their launch
+    counts and CSVs, the geopose and dual-geometry angle predictions
+    against `evaluate_and_predict` on the same run directories, each
+    component's kernel path against its plain path, the fused img/s and
+    the resize matmuls' ms, a profile of one bf16 batch; then the w8a8
+    window-7 angle head in a FusedPipeline. Returns the launches of every
+    counted run, summed per kernel."""
+    from geovpr_torch.cli import fuse
+    from geovpr_torch.cli.common import load_trained
+    from geovpr_torch.cli.evaluate import calibrate_int8, evaluate_and_predict
+    from geovpr_torch.cli.presets import objective_for
+    from geovpr_torch.data.pipeline import ImageFolderSource
+    from geovpr_torch.pipeline.fused import FusedPipeline, resize_for_head
+
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    n_test = -(-FUSE_N_TEST // FUSE_BATCH)
+    n_gal = -(-FUSE_N_GALLERY // FUSE_BATCH)
+    with tempfile.TemporaryDirectory() as root:
+        test_dir, img_dir, gallery_csv = fuse_images(
+            root, np.random.default_rng(SEED))
+        runs = {p: fuse_run_dir(root, p) for p in (
+            SWIN_PRESET, ANGLE_PRESET, *CNN_PRESETS)}
+        index = os.path.join(root, "gallery_index.npz")
+        common = ["--test-dir", test_dir, "--device", str(device),
+                  "--top-k", str(FUSE_TOP_K)]
+        gallery = ["--gallery-csv", gallery_csv, "--image-root", img_dir]
+        geo = ["--geopose-preset", SWIN_PRESET, "--geopose-run",
+               runs[SWIN_PRESET]]
+        argv = {
+            "fuse-bf16": common + gallery + geo + [
+                "--angle-preset", ANGLE_PRESET, "--angle-run",
+                runs[ANGLE_PRESET], "--save-index", index],
+            "fuse-int8": common + gallery + geo + [
+                "--int8", "--angle-preset", CNN_PRESETS[1], "--angle-run",
+                runs[CNN_PRESETS[1]]],
+            "fuse-dual": common + [
+                "--load-index", index, "--angle-preset", CNN_PRESETS[0],
+                "--angle-run", runs[CNN_PRESETS[0]]]}
+        expected = {
+            "fuse-bf16": {
+                "fused_mhsa_block": DINO_BLOCKS * (n_gal + n_test),
+                "fused_swin_attn_block": SWIN_BLOCKS * n_test,
+                "fused_patch_merge": 2 * SWIN_BOUNDARIES * n_test,
+                "window_attention_raster": SWIN_T_BLOCKS * n_test},
+            "fuse-int8": {
+                "fused_mhsa_block_int8": DINO_BLOCKS * (n_gal + n_test),
+                "fused_mlp_block_int8": DINO_BLOCKS * (n_gal + n_test) + (
+                    SWIN_BLOCKS + CONVNEXT_BLOCKS) * n_test,
+                "fused_swin_attn_block_int8": SWIN_BLOCKS * n_test,
+                "fused_patch_merge": SWIN_BOUNDARIES * n_test},
+            "fuse-dual": {"fused_mhsa_block": DINO_BLOCKS * n_test}}
+        recs = {}
+        for path in ("fuse-bf16", "fuse-int8", "fuse-dual"):
+            out_dir = os.path.join(root, path)
+            recs[path], launches = fuse_cli(
+                argv[path] + ["--out-dir", out_dir], expected[path], path)
+            add(launches)
+        check({k: r["stream_size"] for k, r in recs.items()}
+              == FUSE_STREAMS, f"stream sizes {recs}")
+
+        # the geopose head at its own size and the dual geometry's angle
+        # head against evaluate_and_predict on the same run directories
+        names = [f"t_{i:04d}.jpg" for i in range(FUSE_N_TEST)]
+        paths = [os.path.join(test_dir, n) for n in names]
+        for path, preset, key in (("fuse-bf16", SWIN_PRESET, "geopose_csv"),
+                                  ("fuse-dual", CNN_PRESETS[0],
+                                   "angle_csv")):
+            model, scaler, cfg = load_trained(preset, runs[preset],
+                                              device=device)
+            src = ImageFolderSource(
+                paths=paths, targets=np.zeros(
+                    (FUSE_N_TEST, 2) if key == "geopose_csv" else FUSE_N_TEST,
+                    np.float32),
+                image_size=cfg.data.image_size, filenames=names,
+                resize_to=cfg.data.eval_resize_to)
+            _, want = evaluate_and_predict(model, scaler, src, FUSE_BATCH,
+                                           device, objective_for(cfg))
+            rows = read_csv(recs[path][key])
+            got = np.array([[float(v) for k, v in r.items()
+                             if k != "filename"] for r in rows])
+            want = want.reshape(got.shape)
+            if key == "geopose_csv":
+                err = np.abs(got - want).max()
+                bound = 1e-4 * float(scaler.scale.min())
+            else:
+                d = np.abs(got - want)
+                err, bound = np.minimum(d, 360 - d).max(), 1e-3
+            phase("fuse_vs_evaluate", path=path, preset=preset,
+                  max_abs_diff=err, bound=bound)
+            check(err <= bound, f"fuse {path} {preset} against "
+                  f"evaluate_and_predict: {err} > {bound}")
+            del model
+
+        # the pipelines again, for their kernels against the plain paths,
+        # times and one profile
+        for path, bound in (("fuse-bf16", MIN_COSINE),
+                            ("fuse-int8", MIN_COSINE_INT8)):
+            pipe, source, _ = fuse.build_pipeline(fuse.parse_args(
+                argv[path] + ["--out-dir", os.path.join(root, "again")]))
+            images, alt = fuse_batch(source, device)
+            fuse_kernel_vs_plain(pipe, images, alt, bound, path)
+            fuse_times(pipe, images, alt, card, path)
+            if path == "fuse-bf16":
+                x = images.float() / 255.0
+                with torch.inference_mode():
+                    ms = cuda_ms(lambda: resize_for_head(x, 224), iters=10)
+                # the descriptor and the angle head each take one
+                phase("fuse_resize", card=repr(card), batch=FUSE_BATCH,
+                      shape=f"{x.shape[1]}to224", ms=ms,
+                      per_batch_ms=2 * ms)
+                breakdown_fn(lambda: pipe.forward(images), card, path,
+                             FUSE_BATCH)
+            del pipe, source, images, alt
+            torch.cuda.empty_cache()
+
+        # the w8a8 window-7 heading head (Swin-T-224) in a FusedPipeline
+        model, _, cfg = load_trained(ANGLE_PRESET, runs[ANGLE_PRESET],
+                                     device=device, int8=True)
+        source = ImageFolderSource(
+            paths=paths, targets=np.zeros((FUSE_N_TEST, 1), np.float32),
+            image_size=cfg.data.image_size, filenames=names)
+        calibrate_int8(model, source, cfg.data.batch_size, device)
+        pipe = FusedPipeline(angle_model=model,
+                             angle_size=cfg.data.image_size,
+                             angle_codec=objective_for(cfg).codec,
+                             batch_size=FUSE_BATCH, device=device)
+        counters = {**kernel_counters(), **swin_counters()}
+        for fn in counters.values():
+            fn.launches = 0
+        res = pipe.run(source)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        want = dict.fromkeys(counters, 0)
+        want.update(fused_mlp_block_int8=SWIN_T_BLOCKS * n_test,
+                    fused_patch_merge=SWIN_BOUNDARIES * n_test)
+        angles = res["angle"]
+        phase("fuse", path="fuse-int8-swin-t", launches=launches,
+              expected_launches=want, angle_min=float(angles.min()),
+              angle_max=float(angles.max()))
+        check(launches == want, f"fuse int8 Swin-T: launches {launches}, "
+              f"expected {want}")
+        check(angles.shape == (FUSE_N_TEST,) and bool(
+            ((angles >= 0) & (angles < 360)).all()), "int8 Swin-T angles")
+        add(launches)
+        images, _ = fuse_batch(source, device)
+        fuse_kernel_vs_plain(pipe, images, None, MIN_COSINE_INT8,
+                             "fuse-int8-swin-t")
+        fuse_times(pipe, images, None, card, "fuse-int8-swin-t")
+        del pipe, model
+    torch.cuda.empty_cache()
+    return total
+
+
+def convnext_k3_case(shape, device, seed=SEED):
+    """K3's arguments at one ConvNeXt-B stage: a block with seeded random
+    weights, perturbed (gamma off its 1e-6 init), its static scales
+    calibrated on x through the float path; returns the dwconv's output h
+    (K3's x), the pre-dwconv stream x (K3's residual) and the folded
+    arguments."""
+    from geovpr_torch.models.convnext import LN_EPS, ConvNeXtBlock, _conv_nhwc
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.quantize import quantize_for_serving
+
+    b, side, c = shape
+    gen = torch.Generator().manual_seed(seed + c)
+    blk = ConvNeXtBlock(c, dtype=torch.bfloat16, int8_mlp=True)
+    init_weights_(blk, gen)
+    perturb_cnn_(blk, gen)
+    x = torch.randn(b, side, side, c, generator=gen).bfloat16().to(device)
+    blk = blk.to(device).eval()
+    quantize_for_serving(blk, [x])
+    with torch.inference_mode():
+        h = _conv_nhwc(blk.dwconv, x).contiguous()
+    return h, x, dict(blk._folded_args(blk._k3), ln_eps=LN_EPS)
+
+
+def convnext_k3(device, card: str) -> dict:
+    """K3 at ConvNeXt-B's four stage shapes with the separate residual:
+    against its plain version under the K2/K3 rule (`[kernel]
+    name=K3_convnext`), then timed in turns with the plain version and the
+    library yardstick beside its bound (`[kernel_time] name=K3`)."""
+    from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
+                                           mlp_block_int8_reference)
+
+    out = {}
+    for shape in CONVNEXT_K3_SHAPES:
+        b, side, c = shape
+        tag = "convnext_B{}_S{}_C{}".format(*shape)
+        h, x, k3 = convnext_k3_case(shape, device)
+        with torch.inference_mode():
+            got = fused_mlp_block_int8(h, **k3, residual=x)
+            torch.cuda.synchronize()
+            want = mlp_block_int8_reference(h, **k3, residual=x)
+            e = int8_errors(got, want,
+                            (k3["s2_eff"] * k3["gamma"]).abs().max().item())
+            phase("kernel", name="K3_convnext", shape=tag, **e,
+                  max_share=INT8_MAX_SHARE)
+            check(int8_within_bound(e),
+                  f"K3 error outside its bound at ConvNeXt {shape}: {e}")
+            t = interleaved_ms({
+                "kernel": lambda: fused_mlp_block_int8(h, **k3, residual=x),
+                "plain": lambda: mlp_block_int8_reference(h, **k3,
+                                                          residual=x),
+                "library": lambda: library_k3(h, **k3, residual=x)},
+                iters=5)
+        out[shape] = dict(ms=t["kernel"][0], plain_ms=t["plain"][0],
+                          library_ms=t["library"][0],
+                          runs={k: v[1] for k, v in t.items()},
+                          max_abs_err=e["max_abs_err"],
+                          **bounds("K3", b, side * side, c, 1,
+                                   residual=True))
+        phase("kernel_time", card=repr(card), name="K3", shape=tag,
+              **out[shape])
+        del h, x, k3, got, want
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------- Swin training / K9a-K9c --
@@ -2762,6 +3217,9 @@ def main() -> int:
     k7t = k7_kernel_times(device, card)
     k7_half_times(device, card)
 
+    fuse_launches = fuse_path(device, card)
+    convnext_k3(device, card)
+
     k9_errs = k9_kernels_vs_plain(device)
     train_launches = train_path(device, card)
     k9t = k9_kernel_times(device, card)
@@ -2856,6 +3314,9 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    # every serving kernel's launches in the fused runs too
+    for row in rows:
+        row["launches"] += fuse_launches.get(row["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -24,7 +24,7 @@ own (`train.checkpoint`), in the JAX CLI's run-directory layout;
 `geovpr.cli.convert` writes it). `--device` defaults to cuda and fails
 when no card is present; pass `--device cpu` to run on the CPU.
 `--async-checkpoint` is refused; `--multihost` and its companions are not
-ported (ROADMAP Queue 1 item 7).
+ported (ROADMAP Queue 1, parallel).
 """
 
 from __future__ import annotations
@@ -68,8 +68,8 @@ def run_train(cfg, train_source, val_source=None, *, save_dir: str = "runs",
     if cfg.data.cache_decoded or cfg.model.remat:
         raise NotImplementedError(
             "data.cache_decoded (CachedImageSource) and model.remat (a "
-            "recompute per block) are not ported yet (ROADMAP Queue 1 item "
-            "9); unset them")
+            "recompute per block) are not ported yet (ROADMAP Queue 1, "
+            "leftovers: CachedImageSource and remat); unset them")
     data = dataclasses.replace(
         cfg.data, **({"batch_size": batch_size} if batch_size else {}))
     train_cfg = dataclasses.replace(
@@ -128,7 +128,7 @@ def main(argv=None):
     p.add_argument("--async-checkpoint", action="store_true",
                    help="not ported: refused")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported (ROADMAP Queue 1 item 7)")
+                   help="not ported (ROADMAP Queue 1, parallel)")
     p.add_argument("--coordinator", default="")
     p.add_argument("--num-processes", type=int, default=0)
     p.add_argument("--process-id", type=int, default=-1)
@@ -143,8 +143,8 @@ def main(argv=None):
     if (args.multihost or args.coordinator or args.num_processes
             or args.process_id >= 0):
         raise NotImplementedError(
-            "multi-host training is not ported yet (ROADMAP Queue 1 item "
-            "7)")
+            "multi-host training is not ported yet (ROADMAP Queue 1, "
+            "parallel)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available; pass --device cpu to "

@@ -1,7 +1,7 @@
 """Input pipeline of the port: in-memory and disk sources, static-shape
 batching and host-to-device prefetch (the counterparts of
 `geovpr.data.pipeline`'s `ArraySource`, `ImageFolderSource`,
-`iterate_batches` and `prefetch_to_device`).
+`DualGeometrySource`, `iterate_batches` and `prefetch_to_device`).
 
 The host code repeats the JAX package's so that the port runs where
 neither jax nor `geovpr` is installed; tests hold it to the originals.
@@ -91,6 +91,65 @@ class ImageFolderSource:
         imgs = list(self._pool.map(self._decode,
                                    [self.paths[i] for i in idx]))
         return {"image": np.stack(imgs), "target": self.targets[idx]}
+
+
+@dataclasses.dataclass
+class DualGeometrySource:
+    """One decode, two geometries per image (the counterpart of
+    `geovpr.data.pipeline.DualGeometrySource`): batches hold the square
+    `image` stream (a bilinear resize to `stream_size`, the geometry every
+    geopose head trained on) and `image_alt`, a short-side bilinear resize
+    to `alt_resize_to` and a centre crop of `alt_size`, EfficientNet's
+    eval transform Resize(256)+CenterCrop(224). The fused pipeline feeds
+    `image_alt` to the angle head as it is, so that its field of view on a
+    non-square photo is the one it was evaluated on. A failed decode gives
+    black frames, as the reference's fallback."""
+
+    paths: Sequence[str]
+    targets: np.ndarray
+    stream_size: int
+    alt_size: int
+    alt_resize_to: int
+    num_threads: int = 8
+    filenames: Optional[list[str]] = None
+
+    def __post_init__(self):
+        self._pool = concurrent.futures.ThreadPoolExecutor(self.num_threads)
+        self.image_size = self.stream_size
+
+    def __len__(self):
+        return len(self.paths)
+
+    def _decode(self, path: str):
+        from PIL import Image
+        try:
+            with Image.open(path) as img:
+                img = img.convert("RGB")
+                square = np.asarray(
+                    img.resize((self.stream_size, self.stream_size),
+                               Image.BILINEAR), np.uint8)
+                w, h = img.size
+                short = min(w, h)
+                nw = round(w * self.alt_resize_to / short)
+                nh = round(h * self.alt_resize_to / short)
+                resized = img.resize((nw, nh), Image.BILINEAR)
+                left = (nw - self.alt_size) // 2
+                top = (nh - self.alt_size) // 2
+                alt = np.asarray(
+                    resized.crop((left, top, left + self.alt_size,
+                                  top + self.alt_size)), np.uint8)
+                return square, alt
+        except Exception:
+            return (np.zeros((self.stream_size, self.stream_size, 3),
+                             np.uint8),
+                    np.zeros((self.alt_size, self.alt_size, 3), np.uint8))
+
+    def get_batch(self, idx: np.ndarray) -> dict:
+        pairs = list(self._pool.map(self._decode,
+                                    [self.paths[i] for i in idx]))
+        return {"image": np.stack([p[0] for p in pairs]),
+                "image_alt": np.stack([p[1] for p in pairs]),
+                "target": self.targets[idx]}
 
 
 def iterate_batches(source, batch_size: int, shuffle: bool = False,

@@ -200,6 +200,6 @@ def build_augment(name: str):
         return pipelines[name]
     if name == "angle_rot":
         raise NotImplementedError(
-            "augment 'angle_rot' (rotation + affine) comes with the rest of "
-            "DINOv2 training (ROADMAP Queue 1 item 2)")
+            "augment 'angle_rot' (rotation + affine) is not ported yet "
+            "(ROADMAP Queue 1, the rest of DINOv2 training)")
     raise ValueError(f"unknown augment pipeline {name!r}")

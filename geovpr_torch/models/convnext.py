@@ -10,10 +10,16 @@ downsample convs have no padding: flax's default "SAME" pads zero where the
 side is a multiple of the stride, as at every supported image size.
 
 The MLP is the port's `Mlp`, whose `gelu_fast` is tanh-approximate in bf16
-and erf-exact in f32, as the JAX module's. The port has no kernel of its
-own here: the convolutions are cuDNN's (the depthwise one in
-`torch.channels_last` memory, so that the NHWC stream needs no copy around
-it) and the MLP cuBLAS's, as the JAX package leaves them to XLA. Submodules
+and erf-exact in f32, as the JAX module's. The convolutions are cuDNN's
+(the depthwise one in `torch.channels_last` memory, so that the NHWC
+stream needs no copy around it) and the bf16 MLP cuBLAS's, as the JAX
+package leaves them to XLA. The w8a8 serving model (`int8_mlp`, the
+port of `Mlp(fused=..., fused_residual=x)`, `geovpr/models/convnext.py:
+71-75`) runs each block's LN -> int8 MLP -> gamma -> +residual as kernel
+K3 (`geovpr_torch.ops.mlp_int8.fused_mlp_block_int8`), LN's eps 1e-6
+folded in and the PRE-dwconv stream as its separate `residual`; the
+`Mlp`'s calibration points (`a_in`, `a_mid`) are recorded on the float
+path, as for the transformers (`geovpr_torch.models.quantize`). Submodules
 are named as the flax scopes (`stem`, `stem_norm`, `downsample{s}_norm`,
 `downsample{s}_conv`, `stage{s}_block{b}` with `dwconv`, `norm`, `mlp`,
 `gamma`; `pool_norm`).
@@ -25,7 +31,9 @@ import torch
 from torch import nn
 
 from geovpr_torch.models.backbone import BackboneOutput
-from geovpr_torch.models.layers import LayerNorm, Mlp
+from geovpr_torch.models.layers import LayerNorm, Mlp, QuantBlock
+from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
+                                       mlp_block_int8_reference)
 
 CONVNEXT_VARIANTS = {
     "tiny-224": dict(depths=(3, 3, 9, 3), dims=(96, 192, 384, 768)),
@@ -41,30 +49,57 @@ def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
-class ConvNeXtBlock(nn.Module):
+class ConvNeXtBlock(QuantBlock):
+    """dwconv 7x7 -> LN -> channel MLP -> LayerScale `gamma` -> +residual
+    (the pre-dwconv stream). `int8_mlp` selects the w8a8 MLP half (K3),
+    its state the JAX "quant" entries of the block's `mlp`, folded once per
+    installed state (see `QuantBlock`); `use_kernels=False` runs K3's
+    plain version."""
+
     def __init__(self, dim: int, layerscale_init: float = 1e-6,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 int8_mlp: bool = False):
         super().__init__()
         self.layerscale_init = layerscale_init
+        self.use_kernels = True
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim,
                                 dtype=dtype, device=device)
         self.norm = LayerNorm(dim, LN_EPS, device=device)
-        self.mlp = Mlp(dim, 4 * dim, dim, dtype=dtype, device=device)
+        self.mlp = Mlp(dim, 4 * dim, dim, dtype=dtype, device=device,
+                       int8=int8_mlp)
         self.gamma = nn.Parameter(torch.empty(dim, device=device))
+        self._k3: dict | None = None
+        self._init_quant(dim, False, int8_mlp)
 
     def _init_weights(self, generator: torch.Generator) -> None:
         del generator
         with torch.no_grad():
             self.gamma.fill_(self.layerscale_init)
 
+    @torch.no_grad()
+    def fold_int8(self) -> None:
+        """Fold the static scales into K3's arguments, with the block's
+        LayerNorm and LayerScale."""
+        if self.mlp.int8:
+            self._k3 = self._fold("k3", self.mlp.int8_args(
+                self.norm.weight, self.norm.bias, self.gamma))
+            self._k3["inv_a_mid"] = float(1.0 / self.mlp.a_mid_scale)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.mlp(self.norm(_conv_nhwc(self.dwconv, x)))
+        h = _conv_nhwc(self.dwconv, x)
+        if self.mlp.int8 and not self.calibrating:
+            mlp = (fused_mlp_block_int8 if self.use_kernels
+                   else mlp_block_int8_reference)
+            return mlp(h.contiguous(), **self._folded_args(self._k3),
+                       ln_eps=LN_EPS, residual=x.contiguous())
+        h = self.mlp(self.norm(h))
         return x + h * self.gamma.to(h.dtype)
 
 
 class ConvNeXt(nn.Module):
     def __init__(self, depths=(3, 3, 27, 3), dims=(128, 256, 512, 1024),
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 int8_mlp: bool = False):
         super().__init__()
         self.dtype = dtype
         kw = dict(dtype=dtype, device=device)
@@ -79,10 +114,19 @@ class ConvNeXt(nn.Module):
                     dims[s - 1], dims[s], 2, stride=2, **kw))
             for b in range(depth):
                 self.add_module(f"stage{s}_block{b}",
-                                ConvNeXtBlock(dims[s], **kw))
+                                ConvNeXtBlock(dims[s], **kw,
+                                              int8_mlp=int8_mlp))
         self.pool_norm = LayerNorm(dims[-1], POOL_LN_EPS, device=device)
         self.num_features = dims[-1]
         self.to(memory_format=torch.channels_last)
+
+    @property
+    def blocks(self) -> list[nn.Module]:
+        """Every block, in order (the modules whose `use_kernels` selects
+        kernel or plain path)."""
+        return [getattr(self, f"stage{s}_block{b}")
+                for s, depth in enumerate(self.depths)
+                for b in range(depth)]
 
     def forward(self, x: torch.Tensor) -> BackboneOutput:
         """x: (B, H, W, 3) NHWC images."""

@@ -283,7 +283,8 @@ class Mlp(nn.Module):
 
 class QuantBlock(nn.Module):
     """The int8 serving state shared by the transformer blocks
-    (`DinoV2Block`, `SwinBlock`): the JAX "quant" collection's attention
+    (`DinoV2Block`, `SwinBlock`) and, for its MLP half only,
+    `ConvNeXtBlock`: the JAX "quant" collection's attention
     entries as buffers of the same names, the folding of a kernel's static
     scales into non-persistent buffers, once per installed state, and the
     quant entries built from calibration amaxes. A block owns `attn` (with

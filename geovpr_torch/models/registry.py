@@ -13,31 +13,17 @@ def supports_int8(family: str) -> bool:
     `supports_int8`): the ViTs and Swin quantize attention and MLPs,
     ConvNeXt its channel MLPs; EfficientNet has none (bandwidth-bound and
     BN-based, so cheaper matmul math buys nothing). The port serves all of
-    them but window-7 Swin and ConvNeXt, see `check_int8_serving`."""
+    them."""
     return family in ("swin", "dinov2", "dinov2_salad", "convnext")
 
 
 def check_int8_serving(cfg: ModelConfig) -> None:
     """The one rule for whether the port serves `cfg` in w8a8: ValueError
-    where the JAX package has no int8 path either (`supports_int8`),
-    NotImplementedError where the port has not ported it yet (window-7
-    Swin, ConvNeXt)."""
+    where the JAX package has no int8 path either (`supports_int8`)."""
     if not supports_int8(cfg.family):
         raise ValueError(
             f"family {cfg.family!r} has no int8 serving path "
             "(supported: swin, dinov2, dinov2_salad, convnext)")
-    if cfg.family == "convnext":
-        raise NotImplementedError(
-            "w8a8 ConvNeXt is not ported yet (ROADMAP Queue 1 item 9: "
-            "its calibration and K3's separate-residual path)")
-    if cfg.family == "swin":
-        from geovpr_torch.models.swin import SWIN_VARIANTS
-        from geovpr_torch.ops.swin_block import fused_window_ok
-        window = SWIN_VARIANTS.get(cfg.variant, {}).get("window_size")
-        if window is not None and not fused_window_ok(window):
-            raise NotImplementedError(
-                f"w8a8 Swin at window {window} is not ported yet (ROADMAP "
-                "Queue 1 item 9: the int8 window-7 attention)")
 
 
 def check_training(cfg: ModelConfig) -> None:
@@ -55,16 +41,16 @@ def check_training(cfg: ModelConfig) -> None:
         if window is not None and not fused_window_ok(window):
             raise NotImplementedError(
                 f"training Swin at window {window} is not ported yet (ROADMAP "
-                "Queue 1 item 4: K7 has no backward yet)")
+                "Queue 1, window-7 Swin training: K7 has no backward yet)")
         return
-    item = {"dinov2_salad": "2: the frozen backbone, freeze -> unfreeze "
-                            "and angle_rot of the DINOv2 + SALAD presets",
-            "efficientnet": "5: BatchNorm in training mode",
-            "convnext": "5: ConvNeXt training"}.get(family)
+    item = {"dinov2_salad": "the rest of DINOv2 training: the frozen "
+                            "backbone, freeze -> unfreeze and angle_rot",
+            "efficientnet": "CNN training: BatchNorm in training mode",
+            "convnext": "CNN training"}.get(family)
     if item is None:
         raise ValueError(f"unknown model family {family!r}")
     raise NotImplementedError(
-        f"training {family} is not ported yet (ROADMAP Queue 1 item {item})")
+        f"training {family} is not ported yet (ROADMAP Queue 1, {item})")
 
 
 def build_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32, *,
@@ -90,7 +76,7 @@ def build_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32, *,
         if cfg.variant not in CONVNEXT_VARIANTS:
             raise ValueError(f"unknown convnext variant {cfg.variant!r}")
         return ConvNeXt(**CONVNEXT_VARIANTS[cfg.variant], dtype=dtype,
-                        device=device)
+                        device=device, int8_mlp=int8)
     if family == "swin":
         from geovpr_torch.models.swin import SWIN_VARIANTS, SwinTransformer
         if cfg.variant not in SWIN_VARIANTS:

@@ -27,11 +27,14 @@ and out projections as torch ops around
 `geovpr_torch.ops.window_attention.window_attention_raster` (K7, which reads
 the windows out of the raster qkv and writes the context back in raster
 order), as JAX runs `window_attention_pallas` there (`fused_window_ok`). On the w8a8 path
-(`int8_attn`, `int8_mlp`, window 12 only) it is
-`fused_swin_attn_block_int8` (K5) and the MLP half, LN included,
+(`int8_attn`, `int8_mlp`) the attention half is
+`fused_swin_attn_block_int8` (K5) at window 12 and
+`swin_attn_block_int8_unfused` at window 7 (torch ops: int8 q.k^T scores,
+the f32 softmax, P.V on bf16 P, the int8 projections, as JAX runs its XLA
+fallback there), and the MLP half, LN included, is
 `geovpr_torch.ops.mlp_int8.fused_mlp_block_int8` (K3, no LayerScale, so
-gamma = ones). Every boundary is `geovpr_torch.ops.patch_merge.
-fused_patch_merge` (K6). `use_kernels=False` selects the plain versions on
+gamma = ones) at both windows. Every boundary is
+`geovpr_torch.ops.patch_merge.fused_patch_merge` (K6). `use_kernels=False` selects the plain versions on
 any device. The patch-embed conv, the bf16 MLP half and the LayerNorms
 outside the kernels are plain torch ops, as the JAX package leaves them to
 XLA. Calibration (`calib` dicts, set by `geovpr_torch.models.quantize`)
@@ -70,6 +73,7 @@ from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
                                          fused_swin_attn_train,
                                          fused_window_ok,
                                          swin_attn_block_int8_reference,
+                                         swin_attn_block_int8_unfused,
                                          swin_attn_block_reference,
                                          swin_attn_block_unfused)
 from geovpr_torch.ops.window_attention import (  # noqa: F401 (re-exported)
@@ -160,8 +164,12 @@ class SwinBlock(QuantBlock):
         table = self.attn.relative_position_bias_table
         calibrating = self.calibrating
         if self.int8_attn and not calibrating:
-            attn = (fused_swin_attn_block_int8 if self.use_kernels
-                    else swin_attn_block_int8_reference)
+            if not fused_window_ok(self.window):
+                attn = swin_attn_block_int8_unfused
+            elif self.use_kernels:
+                attn = fused_swin_attn_block_int8
+            else:
+                attn = swin_attn_block_int8_reference
             x = attn(x, **self._folded_args(self._k5), table=table, **geom)
         else:
             dt = x.dtype

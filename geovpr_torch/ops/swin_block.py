@@ -372,6 +372,61 @@ def swin_attn_block_int8_reference(x, ln_scale_q, ln_bias_q, wqkv_q_t,
     return (out.reshape(b, l, c) + xf).to(x.dtype)
 
 
+def _int8_scores(q8: torch.Tensor, k8: torch.Tensor) -> torch.Tensor:
+    """q8 k8^T of int8-valued (BW, H, N, dh) tensors, exact, as f32 (BW, H,
+    N, N): JAX's int32 einsum. On CUDA a bf16 product with an f32 result:
+    int8 values are exact in bf16, their products in f32, and every partial
+    sum stays below 2^24 (dh 127^2, dh <= 1040), so any order of sums is
+    exact; elsewhere `_exact_bmm`."""
+    if not q8.is_cuda:
+        return _exact_bmm(q8, k8.transpose(-1, -2))
+    bw, h, n, dh = q8.shape
+    s = torch.bmm(q8.reshape(-1, n, dh).to(torch.bfloat16),
+                  k8.reshape(-1, n, dh).to(torch.bfloat16).transpose(1, 2),
+                  out_dtype=torch.float32)
+    return s.reshape(bw, h, n, n)
+
+
+def swin_attn_block_int8_unfused(x, ln_scale_q, ln_bias_q, wqkv_q_t,
+                                 sqkv_eff, bqkv_eff, wo_q_t, so_eff, bo,
+                                 table, num_heads: int, resolution: int,
+                                 window: int, shift: int,
+                                 ln_eps: float = 1e-5, cs=None, cpv=None):
+    """The w8a8 attention half at a window K5 does not take (window 7), as
+    torch ops: JAX runs it in XLA, the fallback of
+    `SwinBlock._attention_int8` (`geovpr/models/swin.py:660-730`), in its
+    default mode (`cs` given, `cpv` None), on the folded arguments of K5.
+    LayerNorm in f32 and the LN-quant, the int8 QKV product
+    (`torch._int_mm`), on the raster rows; the windows of the dequantised
+    qkv gathered in window order with the cyclic shift (`_windows_qkv`),
+    the int8 q.k^T scores times `cs`, plus bias and shift mask, the f32
+    softmax and P.V on bf16 P and v, the bf16 context scattered back to
+    raster order, rounded to int8 for the int8 out projection, and the
+    residual added in f32. The other two modes raise."""
+    if cs is None or cpv is not None:
+        raise NotImplementedError(
+            "the window-7 w8a8 half takes the default mode (int8 scores, "
+            "bf16 P.V): cs=None and the int8-P.V mode are still to port "
+            "(ROADMAP Queue 2)")
+    _check_geometry(x, num_heads, resolution, window, shift)
+    b, l, c = x.shape
+    xf = x.float()
+    xq = round_clip_int8(layer_norm_f32(xf, ln_eps) * ln_scale_q + ln_bias_q)
+    qkv_f = (int_mm(xq.reshape(-1, c), wqkv_q_t.t()).float() * sqkv_eff
+             + bqkv_eff).reshape(b, l, 3 * c)
+    q, k, v = _windows_qkv(qkv_f, resolution, window, shift, num_heads)
+    s = _int8_scores(round_clip_int8(q), round_clip_int8(k)) * cs
+    s = add_bias_mask(s, relative_position_bias(table.float(), window),
+                      shift_mask(resolution, window, shift, x.device))
+    p = torch.softmax(s, dim=-1)
+    ctx = torch.matmul(p.to(torch.bfloat16).float(),
+                       v.to(torch.bfloat16).float()).to(torch.bfloat16)
+    ctxq = round_clip_int8(_raster_ctx(ctx, resolution, window, shift)
+                           .reshape(b * l, c).float())
+    out = int_mm(ctxq, wo_q_t.t()).float() * so_eff + bo
+    return (out.reshape(b, l, c) + xf).to(x.dtype)
+
+
 def score_constant(cs) -> float:
     """The kernels' exp2-domain score constant: cs * log2(e) in f32, as JAX
     forms it from its f32 cs."""

@@ -17,7 +17,7 @@
   multiple of 8, as `torch._int_mm` needs on CUDA (which also needs more
   than 16 query rows: `geovpr_torch.ops.quant.int_mm` pads those).
 
-Not ported yet: the sharded search over a mesh (ROADMAP Queue 1 item 7).
+Not ported yet: the sharded search over a mesh (ROADMAP Queue 1, parallel).
 There is no approximate top-k (`topk_method="approx"` in JAX): torch has no
 counterpart of `jax.lax.approx_max_k`, the search is always exact, and on
 the CPU JAX lowers it to the exact top-k as well (ROADMAP Queue 3).
@@ -105,8 +105,8 @@ class DescriptorIndex:
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError(
-                "the sharded index is not ported yet (ROADMAP Queue 1 item "
-                "7, parallel)")
+                "the sharded index is not ported yet (ROADMAP Queue 1, "
+                "parallel)")
         self.device = torch.device(self.device)
 
     def build(self, descriptors, normalized: bool = True) -> "DescriptorIndex":

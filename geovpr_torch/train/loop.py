@@ -9,7 +9,8 @@ serving forward (K4 and K6 for Swin, K1 for DINOv2) under
 `torch.inference_mode()` on the same f32 parameters, cast per call, and
 reduces the eval sums of `serve.eval` into the metric suite. Not ported:
 the frozen-feature cache and the freeze -> unfreeze phases (ROADMAP Queue
-1 item 2), asynchronous checkpoints and `remat` (item 9), meshes (item 7).
+1, the rest of DINOv2 training), asynchronous checkpoints and `remat` (its
+leftovers), meshes (parallel).
 """
 
 from __future__ import annotations
@@ -58,12 +59,13 @@ class Trainer:
     def __post_init__(self):
         if self.optim_cfg.freeze_backbone_epochs > 0:
             raise NotImplementedError(
-                "freeze -> unfreeze training comes with the rest of DINOv2 "
-                "training (ROADMAP Queue 1 item 2)")
+                "freeze -> unfreeze training is not ported yet (ROADMAP "
+                "Queue 1, the rest of DINOv2 training)")
         if self.train_cfg.async_checkpoint:
             raise NotImplementedError(
-                "asynchronous checkpoints are not ported (ROADMAP Queue 1 "
-                "item 9); checkpoints are written synchronously")
+                "asynchronous checkpoints are not ported (ROADMAP Queue 1, "
+                "leftovers: asynchronous checkpoints); checkpoints are "
+                "written synchronously")
         if not self.run_dir:
             stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
             name = self.train_cfg.run_name or "run"

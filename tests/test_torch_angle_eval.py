@@ -8,9 +8,9 @@ sides through a flax msgpack:
   objective through `make_eval_step`/`summarize_eval` (f32; angles to 1e-3
   deg on the circle, metrics to 1e-4 relative), its CSVs against
   `geovpr.pipeline.export`'s writers on the same predictions (equal bytes);
-- `main` end to end on a folder of PNGs with `--device cpu`, and what it
-  refuses: `--submission-csv` on an angle preset, `--int8` on EfficientNet
-  (no int8 path), window-7 Swin and ConvNeXt (not ported yet).
+- `main` end to end on a folder of PNGs with `--device cpu`, with `--int8`
+  on window-7 Swin and ConvNeXt, and what it refuses: `--submission-csv`
+  on an angle preset, `--int8` on EfficientNet (no int8 path).
 """
 
 import dataclasses
@@ -224,16 +224,27 @@ def test_main_runs_on_cpu(tiny_variants, monkeypatch, tmp_path, capsys,
      "geopose export"),
     ("efficientnet_sincos_gemini", ["--int8"], SystemExit,
      "no int8 serving path"),
-    ("swin_t224_sincos_gemini", ["--int8"], NotImplementedError,
-     "not ported yet"),
-    ("convnext_direct_maae", ["--int8"], NotImplementedError,
-     "not ported yet"),
 ])
 def test_main_refuses(tiny_variants, tmp_path, preset, extra, exc, match):
     _write_pngs(tmp_path, 2)
     with pytest.raises(exc, match=match):
         main(_argv(tmp_path, preset, *extra))
     assert not (tmp_path / "out" / "validation_predictions.csv").exists()
+
+
+@pytest.mark.parametrize("preset", ["swin_t224_sincos_gemini",
+                                    "convnext_direct_maae"])
+def test_main_int8_window7_swin_and_convnext(tiny_variants, tmp_path,
+                                             capsys, preset):
+    """`--int8` on the two angle families whose w8a8 path has no kernel
+    of its own besides K3 (window-7 Swin's attention halves are torch ops;
+    ConvNeXt's blocks K3 with a separate residual): calibrated on the
+    first val batch, then served, finite metrics."""
+    _write_pngs(tmp_path, 3)
+    main(_argv(tmp_path, preset, "--int8"))
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert 0 <= out["metrics"]["maae"] <= 180
+    assert np.isfinite(out["metrics"]["mse"])
 
 
 def test_main_int8_on_an_angle_preset_with_a_w8a8_path(monkeypatch,

@@ -1243,3 +1243,81 @@ def test_dinov2_train_launches_per_step(cuda, variant):
     assert [f.launches - b for f, b in zip(fns, before)] == want
     assert all(bool(torch.isfinite(g).all()) and g.dtype == torch.float32
                for g in grads)
+
+
+@pytest.mark.parametrize("shift", [0, 3])
+def test_window7_int8_half_on_the_card(cuda, shift):
+    """The window-7 w8a8 attention half (torch ops, no kernel of its own)
+    on the card against the same ops on the CPU at Swin-T-224's stage-0
+    width: the int8 scores are exact on both (bf16 products with f32
+    sums), so what differs is the f32 softmax's and the products' order
+    of sums; at most 1% of the outputs a dequant step apart."""
+    from geovpr_torch.ops.swin_block import swin_attn_block_int8_unfused
+    c, heads, res = 96, 3, 14
+    gen = torch.Generator().manual_seed(shift)
+    x = torch.randn(2, res * res, c, generator=gen).bfloat16()
+    args = dict(
+        ln_scale_q=torch.rand(c, generator=gen) * 40 + 20,
+        ln_bias_q=torch.randn(c, generator=gen) * 5,
+        wqkv_q_t=torch.randint(-127, 128, (3 * c, c), generator=gen,
+                               dtype=torch.int8),
+        sqkv_eff=torch.rand(3 * c, generator=gen) * 2e-3,
+        bqkv_eff=torch.randn(3 * c, generator=gen),
+        wo_q_t=torch.randint(-127, 128, (c, c), generator=gen,
+                             dtype=torch.int8),
+        so_eff=torch.rand(c, generator=gen) * 1e-3,
+        bo=torch.randn(c, generator=gen) * 0.1,
+        table=torch.randn(13 * 13, heads, generator=gen))
+    geom = dict(num_heads=heads, resolution=res, window=7, shift=shift,
+                cs=0.01)
+    with torch.inference_mode():
+        want = swin_attn_block_int8_unfused(x, **args, **geom)
+        got = swin_attn_block_int8_unfused(
+            x.to(cuda), **{k: v.to(cuda) for k, v in args.items()}, **geom)
+    e = int8_errors(got.cpu(), want, args["so_eff"].max().item() * 127)
+    assert int8_within_bound(e), e
+
+
+@pytest.mark.parametrize("shape", [(2, 14, 128), (2, 7, 1024)])
+def test_k3_convnext_separate_residual(cuda, shape):
+    """K3 as the w8a8 ConvNeXt block runs it (the dwconv's output in, the
+    pre-dwconv stream as the residual) against its plain version, under
+    chip_smoke.py's K2/K3 rule, and one launch counted."""
+    from chip_smoke import convnext_k3_case
+    h, x, k3 = convnext_k3_case(shape, cuda)
+    with torch.inference_mode():
+        before = fused_mlp_block_int8.launches
+        got = fused_mlp_block_int8(h, **k3, residual=x)
+        torch.cuda.synchronize()
+        want = mlp_block_int8_reference(h, **k3, residual=x)
+    assert fused_mlp_block_int8.launches == before + 1
+    e = int8_errors(got, want,
+                    (k3["s2_eff"] * k3["gamma"]).abs().max().item())
+    assert int8_within_bound(e), e
+
+
+def test_convnext_int8_model_on_the_card(cuda):
+    """A small w8a8 ConvNeXt (ConvNeXt-B's stage widths 128 and 256),
+    calibrated on the card: K3 in every block, its kernel path against its
+    plain path at cosine 0.999."""
+    from geovpr_torch.models.convnext import ConvNeXt
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.quantize import quantize_for_serving
+    from chip_smoke import perturb_cnn_
+    gen = torch.Generator().manual_seed(0)
+    model = ConvNeXt(depths=(2, 1), dims=(128, 256), dtype=torch.bfloat16,
+                     int8_mlp=True)
+    init_weights_(model, gen)
+    perturb_cnn_(model, gen)
+    model = model.to(cuda).eval()
+    x = torch.randn(4, 64, 64, 3, generator=gen).to(cuda)
+    quantize_for_serving(model, [x])
+    with torch.inference_mode():
+        before = fused_mlp_block_int8.launches
+        got = model(x).pooled
+        assert fused_mlp_block_int8.launches == before + 3
+        for blk in model.blocks:
+            blk.use_kernels = False
+        want = model(x).pooled
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+    assert cos.min().item() >= 0.999

@@ -293,15 +293,16 @@ def test_pretrained_dinov2_backbone_overlay(tmp_path):
 
 
 def test_check_training_gates():
-    """DINOv2 trains; DINOv2 + SALAD is refused naming ROADMAP Queue 1 item
-    2, window-7 Swin item 4, the CNNs item 5; an unknown family is an
-    error."""
+    """DINOv2 trains; DINOv2 + SALAD is refused naming ROADMAP Queue 1's
+    rest of DINOv2 training, window-7 Swin its window-7 Swin training, the
+    CNNs its CNN training; an unknown family is an error."""
     check_training(ModelConfig(family="dinov2", variant="large-14"))
     check_training(ModelConfig(family="swin", variant="base-384"))
-    for family, variant, item in (("dinov2_salad", "base-14", "item 2"),
-                                  ("swin", "tiny-224", "item 4"),
-                                  ("efficientnet", "b0", "item 5"),
-                                  ("convnext", "base-224", "item 5")):
+    for family, variant, item in (
+            ("dinov2_salad", "base-14", "the rest of DINOv2 training"),
+            ("swin", "tiny-224", "window-7 Swin training"),
+            ("efficientnet", "b0", "CNN training"),
+            ("convnext", "base-224", "CNN training")):
         with pytest.raises(NotImplementedError, match=item):
             check_training(ModelConfig(family=family, variant=variant))
     with pytest.raises(ValueError, match="unknown model family"):

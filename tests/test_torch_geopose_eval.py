@@ -198,12 +198,27 @@ def test_bridge_reads_regression_model_msgpack(tiny_variant, tmp_path):
 
 
 def test_non_geopose_presets_are_not_ported():
-    """What of the angle presets is still to port: the w8a8 path of
-    window-7 Swin and of ConvNeXt (EfficientNet has none in JAX either)."""
+    """Every angle preset whose family has a w8a8 path in JAX builds its
+    w8a8 model (window-7 Swin and ConvNeXt carry the quant buffers of
+    their halves); EfficientNet has none in JAX either and is refused."""
     from geovpr_torch.cli.presets import build_preset
-    for name in ("convnext_direct_maae", "swin_t224_sincos_acos"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build_model(build_preset(name), "cpu", int8=True)
+    from geovpr_torch.models.swin import SWIN_VARIANTS
+    from geovpr_torch.models.convnext import CONVNEXT_VARIANTS
+    small = {"convnext_direct_maae": (CONVNEXT_VARIANTS, "base-224", dict(
+                 depths=(1, 1), dims=(32, 64))),
+             "swin_t224_sincos_acos": (SWIN_VARIANTS, "tiny-224", dict(
+                 embed_dim=32, depths=(2,), num_heads=(1,), window_size=7,
+                 image_size=224))}
+    for name, (table, variant, spec) in small.items():
+        saved = table[variant]
+        table[variant] = spec
+        try:
+            model, _ = build_model(build_preset(name), "cpu", int8=True)
+        finally:
+            table[variant] = saved
+        names = dict(model.named_buffers())
+        assert any(k.endswith("mlp.fc1_kernel_q") for k in names), name
+        assert ("attn_wqkv_q" in "".join(names)) == (name.startswith("swin"))
     from geovpr_torch.models.registry import build_backbone
     with pytest.raises(ValueError, match="no int8 serving path"):
         build_backbone(ModelConfig(family="efficientnet", variant="b0"),

@@ -1,6 +1,7 @@
 """The port runs without jax and without the JAX package (`geovpr`), through
-`run_retrieval`, the retrieve CLI's `main` with `--int8` and the evaluate
-CLI's `main` (geopose bf16 and `--int8`; angle presets), and chip_smoke.py
+`run_retrieval`, the retrieve CLI's `main` with `--int8`, the evaluate
+CLI's `main` (geopose bf16 and `--int8`; angle presets), the train CLI and
+the fuse CLI's `main` (`--int8`, three components), and chip_smoke.py
 fails where it cannot run."""
 
 import json
@@ -330,6 +331,92 @@ def test_dinov2_train_and_evaluate_cli_run_without_jax_or_geovpr():
     assert np.isfinite(trained["final"]["train_loss"])
     assert scored["validation_csv"].startswith(trained["run_dir"])
     assert np.isfinite(scored["metrics"]["mse"])
+
+
+_FUSE = """
+import sys
+for name in {block!r}:
+    sys.modules[name] = None
+import dataclasses, json, os, tempfile
+import numpy as np
+import torch
+from PIL import Image
+from geovpr_torch.cli import presets
+from geovpr_torch.cli.evaluate import build_model
+from geovpr_torch.cli.fuse import main as fuse
+from geovpr_torch.train.checkpoint import save_checkpoint
+from geovpr_torch.train.state import TrainState, build_optimizer
+torch.set_num_threads(1)  # small models, on cores the test workers share
+from geovpr_torch.models.convnext import CONVNEXT_VARIANTS
+from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
+from geovpr_torch.models.swin import SWIN_VARIANTS
+SWIN_VARIANTS["test"] = dict(embed_dim=32, depths=(2, 2), num_heads=(1, 2),
+                             window_size=4, image_size=32)
+CONVNEXT_VARIANTS["test"] = dict(depths=(1, 1), dims=(32, 64))
+DINOV2_VARIANTS["test"] = dict(hidden_size=64, num_layers=2, num_heads=2)
+for table, name, variant, size, resize_to in (
+        (presets.GEOPOSE_PRESETS, "swin_b384_gemini2", "test", 32, 0),
+        (presets.ANGLE_PRESETS, "convnext_direct_maae", "test", 24, 28)):
+    cfg = table[name]
+    table[name] = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, image_size=size,
+                                      batch_size=2, eval_resize_to=resize_to),
+        model=dataclasses.replace(cfg.model, variant=variant))
+
+with tempfile.TemporaryDirectory() as d:
+    runs = {{}}
+    for name in ("swin_b384_gemini2", "convnext_direct_maae"):
+        cfg = presets.build_preset(name)
+        model, scaler = build_model(cfg, "cpu", seed=0)
+        if scaler is None:
+            from geovpr_torch.objectives.scaler import identity_scaler
+            scaler = identity_scaler(2)
+        runs[name] = os.path.join(d, name)
+        save_checkpoint(os.path.join(runs[name], "best"), TrainState(
+            0, model, build_optimizer(model, cfg.optim), scaler, 0), 1)
+    os.makedirs(os.path.join(d, "img"))
+    os.makedirs(os.path.join(d, "test"))
+    rng = np.random.default_rng(0)
+    with open(os.path.join(d, "gallery.csv"), "w") as f:
+        f.write("filename,timestamp,latitude,longitude,angle,Region_ID\\n")
+        for i in range(4):
+            Image.fromarray(rng.integers(0, 255, (30, 40, 3)).astype(
+                np.uint8)).save(os.path.join(d, "img", f"g{{i}}.png"))
+            Image.fromarray(rng.integers(0, 255, (40, 30, 3)).astype(
+                np.uint8)).save(os.path.join(d, "test", f"t{{i}}.png"))
+            f.write(f"g{{i}}.png,0,{{219000 + i * 50.0}},143000,0,1\\n")
+    fuse(["--test-dir", os.path.join(d, "test"), "--device", "cpu",
+          "--geopose-preset", "swin_b384_gemini2",
+          "--geopose-run", runs["swin_b384_gemini2"],
+          "--angle-preset", "convnext_direct_maae",
+          "--angle-run", runs["convnext_direct_maae"],
+          "--gallery-csv", os.path.join(d, "gallery.csv"),
+          "--image-root", os.path.join(d, "img"), "--salad-variant", "test",
+          "--salad-image-size", "28", "--top-k", "2", "--int8",
+          "--out-dir", os.path.join(d, "out")])
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split(".")[0] in {block!r})
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_fuse_cli_runs_without_jax_or_geovpr():
+    """`geovpr_torch.cli.fuse.main --int8` with all three components (a
+    small window-4 Swin geopose head, a small ConvNeXt angle head on its
+    dual geometry, a small DINOv2 + SALAD with a gallery) on run
+    directories the port's `save_checkpoint` wrote, over folders of PNGs,
+    with jax, flax, optax, orbax and `geovpr` blocked."""
+    block = _BLOCK + ("geovpr",)
+    proc = subprocess.run(
+        [sys.executable, "-c", _FUSE.format(block=block)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = proc.stdout.strip().splitlines()
+    assert out[-1] == "OK"
+    rec = json.loads(out[-2])
+    assert rec["num_images"] == 4 and rec["stream_size"] == 32
+    assert {"geopose_csv", "angle_csv", "retrieval_csv"} <= set(rec)
 
 
 def _import_lines(pattern: str) -> list[str]:

@@ -181,7 +181,7 @@ def test_cli_refuses_what_is_not_ported():
             "--image-root", ".", "--device", "cpu"]
     with pytest.raises(SystemExit, match="async"):
         main(args + ["--async-checkpoint"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="parallel"):
         main(args + ["--multihost"])
     for name in ("swin_t224_sincos_gemini", "dinov2salad_frozen_mlp",
                  "efficientnet_sincos_gemini", "convnext_direct_maae"):
@@ -192,8 +192,8 @@ def test_cli_refuses_what_is_not_ported():
 
 @pytest.mark.parametrize("field", ["cache_decoded", "remat"])
 def test_run_train_refuses_fields_it_does_not_honour(field):
-    """`data.cache_decoded` and `model.remat` are refused, naming ROADMAP
-    Queue 1 item 9, rather than accepted and ignored."""
+    """`data.cache_decoded` and `model.remat` are refused, naming their
+    ROADMAP Queue 1 leftover, rather than accepted and ignored."""
     cfg = presets.build_preset("swin_b384_gemini2")
     if field == "cache_decoded":
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(
@@ -201,5 +201,6 @@ def test_run_train_refuses_fields_it_does_not_honour(field):
     else:
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, remat=True))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="leftovers: CachedImageSource and remat"):
         run_train(cfg, _source(2), device="cpu", save_dir="unused")
