@@ -41,7 +41,17 @@ end to end from seeded random weights:
   --run-dir` on the run it wrote; the same preset at large-14 (D = 1024,
   24 blocks: K8a and K8b in every block); and dinov2_cls_direct_maae (CLS,
   linear head, B=32); each with resumed epochs and kernel-vs-plain
-  gradients.
+  gradients;
+- the rest of the transformer training presets (`run_train`) at full
+  width, cut only in data and epochs: dinov2_sincos_gemini (DINOv2-B/14,
+  angle_rot, B=32) across the freeze -> unfreeze boundary (K8a and K8c in
+  every block of every step of both phases, K1 in validation; the backbone
+  untouched through the frozen epoch, a resume across the boundary);
+  dinov2salad_frozen_mlp (DINOv2-B/14 + SALAD, B=32) with the
+  frozen-feature cache (K1 once per extraction batch, then no launch a
+  step) and without it, bit-equal; and swin_t224_sincos_gemini
+  (Swin-T-224, window 7, B=32), which trains on torch ops as JAX trains on
+  XLA there (no launch a step; K7 and K6 in validation).
 
 Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
 form and the w8a8 MLP half-block, K3 also at the four Swin-B-384 stage
@@ -2818,14 +2828,30 @@ def _cosine(a, b) -> float:
         a.float().flatten(), b.float().flatten(), dim=0).item()
 
 
-def train_grads_vs_plain(trainer, batch, path: str) -> None:
+GRAD_F32_RATIO = 1.25
+
+
+def train_grads_vs_plain(trainer, batch, path: str,
+                         against_f32: bool = False) -> None:
     """On one batch with dropout and DropPath off, the gradient of every
     parameter on the kernel path against the plain path, cosine >= 0.999
     for each tensor. Beside it, for the worst relative-position table of a
     Swin model (the worst tensor of any other), the cosine of the kernel
     path's and of the bf16 plain path's gradient, each against the plain
     path run in f32 (`[train_grads_f32]`): where the two are alike, the
-    kernel's departure is the bf16 path's own cancellation."""
+    kernel's departure is the bf16 path's own cancellation.
+
+    `against_f32` holds the gradient to the f32 plain path instead
+    (`[train_grads_f32_bound]`): each tensor's distance from it, over the
+    f32 gradient's norm, squared and averaged over the tensors, for the
+    kernel path at most GRAD_F32_RATIO squared times the bf16 plain
+    path's (the factor the training kernels' own outputs are held to).
+    Where the bf16 path's own error is a percent of the gradient (sin/cos
+    MSE on DINOv2-B/14's CLS: the bf16 plain path's gradient reads cosine
+    0.988 against the f32 path's), two bf16 paths cannot agree to 0.999
+    however right each is, and one tensor's ratio of two such errors
+    scatters by a quarter; the mean over the model's tensors does not,
+    while a tensor whose gradient is wrong outright still moves it."""
     st, model = trainer.state, trainer.state.model
     saved = _drop_rates(model, 0.0)
     model.train()
@@ -2851,7 +2877,33 @@ def train_grads_vs_plain(trainer, batch, path: str) -> None:
     cos = {n: _cosine(a, b) for n, a, b in zip(names, got, want)}
     worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
     phase("train_grads", path=path, tensors=len(cos),
-          min_cosine=worst[0][1], worst=repr(worst), bound=0.999)
+          min_cosine=worst[0][1], worst=repr(worst),
+          bound="kernel-vs-f32 below" if against_f32 else 0.999)
+    if against_f32:
+        ref = grads(False, torch.float32)
+        _drop_rates(model, saved)
+        ek, ep, ratio = {}, {}, {}
+        for n, k, p, r in zip(names, got, want, ref):
+            scale = r.float().norm().item() or 1.0
+            ek[n] = (k.float() - r.float()).norm().item() / scale
+            ep[n] = (p.float() - r.float()).norm().item() / scale
+            ratio[n] = ek[n] / ep[n] if ep[n] else (
+                1.0 if not ek[n] else float("inf"))
+        mk = sum(v * v for v in ek.values()) / len(ek)
+        mp = sum(v * v for v in ep.values()) / len(ep)
+        rms = (mk / mp) ** 0.5 if mp else (1.0 if not mk else float("inf"))
+        top = sorted(ratio.items(), key=lambda kv: -kv[1])[:3]
+        phase("train_grads_f32_bound", path=path, tensors=len(ratio),
+              rms_ratio=rms, kernel_rms_rel_err=mk ** 0.5,
+              plain_rms_rel_err=mp ** 0.5, worst_tensors=repr([
+                  (n, r, cos[n], _cosine(got[names.index(n)],
+                                         ref[names.index(n)]),
+                  _cosine(want[names.index(n)], ref[names.index(n)]))
+                  for n, r in top]), bound=GRAD_F32_RATIO)
+        check(rms <= GRAD_F32_RATIO,
+              f"kernel path's gradient further from the f32 path than "
+              f"{GRAD_F32_RATIO} x the bf16 plain path's: {rms}, {top}")
+        return
     tables = {n: c for n, c in cos.items()
               if n.endswith("relative_position_bias_table")}
     name = min(tables or cos, key=(tables or cos).get)
@@ -2904,15 +2956,18 @@ def train_loss_falls(device, preset: str = TRAIN_PRESET,
           f"the loss on a fixed batch did not fall: {losses}")
 
 
-def train_times(trainer, batch, card: str, path: str) -> None:
-    """ms per training step (host clock around synchronised steps on one
+def train_times(trainer, batch, card: str, path: str, step=None,
+                phase_name: str = "") -> None:
+    """ms per training step (host clock around 5 synchronised steps on one
     batch), img/s and peak device memory; one step under torch.profiler
-    (device busy and idle share, top device ops)."""
+    (device busy and idle share, top device ops). `step` defaults to the
+    trainer's step; `phase_name` labels a freeze phase."""
     from torch.profiler import ProfilerActivity, profile
 
-    step = trainer._train_step
+    step = step or trainer._train_step
     st = trainer.state
     b = batch["image"].shape[0]
+    tag = {"phase": phase_name} if phase_name else {}
     step(st, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2922,8 +2977,6 @@ def train_times(trainer, batch, card: str, path: str) -> None:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / 5 * 1e3
     peak = torch.cuda.max_memory_allocated()
-    phase("train_times", card=repr(card), path=path, batch=b,
-          ms_per_step=ms, img_per_s=b * 1e3 / ms, peak_mem_bytes=peak)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2932,27 +2985,34 @@ def train_times(trainer, batch, card: str, path: str) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
+    busy_ms = (sum(e.self_device_time_total for e in kernels) / 1e3
+               if kernels else None)
+    phase("train_times", card=repr(card), path=path, **tag, batch=b,
+          ms_per_step=ms, img_per_s=b * 1e3 / ms, peak_mem_bytes=peak,
+          device_busy_ms=busy_ms if kernels else "not measured",
+          idle_share=1 - busy_ms / wall_ms if kernels else "not measured")
     if not kernels:
-        phase("breakdown", card=repr(card), path=path,
+        phase("breakdown", card=repr(card), path=path, **tag,
               device_time="not measured")
         return
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    phase("breakdown", card=repr(card), path=path, batch=b,
+    phase("breakdown", card=repr(card), path=path, **tag, batch=b,
           window_ms=wall_ms, device_busy_ms=busy_ms,
           idle_share=1 - busy_ms / wall_ms)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        phase("device_time", path=path, ms=e.self_device_time_total / 1e3,
-              calls=e.count, share=e.self_device_time_total / 1e3 / busy_ms,
+        phase("device_time", path=path, **tag,
+              ms=e.self_device_time_total / 1e3, calls=e.count,
+              share=e.self_device_time_total / 1e3 / busy_ms,
               name=e.key[:90])
 
 
 def train_run(cfg, train_src, val_src, device, save_dir: str, epochs: int,
-              expected_per: dict, tag: str):
+              expected_per: dict, tag: str, expected_once=None):
     """`run_train` with every launch count set to 0 just before and read
     just after: the counts must equal `expected_per` ({counter: (per
-    step, per validation batch)}; every other counter 0), the losses and
-    validation metrics finite, and the run directory complete. Returns
-    the trainer and the counts."""
+    step, per validation batch)}; every other counter 0) plus
+    `expected_once` ({counter: launches per run}, the frozen-feature
+    cache's extraction), the losses and validation metrics finite, and the
+    run directory complete. Returns the trainer and the counts."""
     from geovpr_torch.cli.train import run_train
 
     counters = train_counters()
@@ -2970,6 +3030,8 @@ def train_run(cfg, train_src, val_src, device, save_dir: str, epochs: int,
     expected = dict.fromkeys(counters, 0)
     expected.update({k: s * steps + v * val_batches
                      for k, (s, v) in expected_per.items()})
+    for k, n in (expected_once or {}).items():
+        expected[k] += n
     hist = trainer.history
     phase("train", path=tag, batch=b, steps=steps, wall_s=wall,
           launches=launches, expected_launches=expected,
@@ -3151,6 +3213,218 @@ def dinov2_train_path(device, card: str) -> dict:
     return total
 
 
+# The rest of the transformer training presets at full width, cut only
+# in data and epochs: (preset, batch, training images, validation images,
+# epochs). dinov2_sincos_gemini also cuts freeze_backbone_epochs 5 -> 1 so
+# that the run crosses the unfreeze.
+SINCOS_CASE = ("dinov2_sincos_gemini", 32, 96, 32, 2)
+SALAD_CASE = ("dinov2salad_frozen_mlp", 32, 128, 32, 2)
+SWIN_T_TRAIN_CASE = ("swin_t224_sincos_gemini", 32, 96, 32, 2)
+
+
+def _case_cfg(case, **optim):
+    import dataclasses
+
+    from geovpr_torch.cli.presets import build_preset
+    preset, batch = case[:2]
+    cfg = build_preset(preset)
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, batch_size=batch),
+        optim=dataclasses.replace(cfg.optim, **optim))
+
+
+def _case_sources(case, cfg, seed):
+    from geovpr_torch.core.config import GeoposeConfig
+    _, _, n_train, n_val, _ = case
+    rng = np.random.default_rng(SEED + seed)
+    size = cfg.data.image_size
+    angles = not isinstance(cfg, GeoposeConfig)
+    return (synthetic_val(n_train, size, rng, angles=angles),
+            synthetic_val(n_val, size, rng, angles=angles))
+
+
+def _reduced(case, cfg, **extra) -> str:
+    preset, batch, n_train, n_val, epochs = case
+    cuts = [f"train_images={n_train}", f"val_images={n_val}",
+            f"epochs={epochs} (preset {cfg.train.epochs})", *(
+                f"{k}={v}" for k, v in extra.items())]
+    return "; ".join(cuts)
+
+
+def _dino_blocks(cfg) -> int:
+    from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
+    return DINOV2_VARIANTS[cfg.model.variant]["num_layers"]
+
+
+def _init_params(cfg) -> dict:
+    """The parameters `create_train_state` draws for `cfg` (drawn on the
+    CPU from the run's seed, the same on any device), on the CPU."""
+    import dataclasses
+
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.regression import RegressionModel
+    model = RegressionModel(
+        dataclasses.replace(cfg.model, image_size=cfg.data.image_size),
+        dtype=torch.bfloat16, train=True)
+    init_weights_(model, torch.Generator().manual_seed(cfg.train.seed))
+    return model.state_dict()
+
+
+def _check_backbone_unchanged(params: dict, init: dict, tag: str,
+                              what: str) -> None:
+    """Every backbone tensor of `params` equal to `init` bit for bit, and
+    some head tensor moved."""
+    moved = [k for k, v in params.items() if not torch.equal(
+        v.detach().cpu(), init[k])]
+    bad = [k for k in moved if k.startswith("backbone.")]
+    phase("train_frozen", path=tag, what=what, backbone_tensors=sum(
+        k.startswith("backbone.") for k in init), backbone_moved=len(bad),
+        head_moved=len(moved) - len(bad))
+    check(not bad and moved, f"{tag}: {what}: backbone tensors moved "
+          f"{bad[:5]}, moved {moved[:5]}")
+
+
+def dinov2_sincos_path(device, card: str) -> dict:
+    """dinov2_sincos_gemini at full width (DINOv2-B/14, CLS, sin/cos MLP
+    head, angle_rot on the device, B=32) through `run_train`: two epochs
+    of 3 steps with `freeze_backbone_epochs` 1, so that epoch 0 trains the
+    head alone and epoch 1, after the unfreeze, the whole model. K8a and
+    K8c run in every block of every step of both phases (JAX computes the
+    frozen backbone's gradient and zeroes it in the optimizer), K1 in
+    every block of every validation batch. The backbone is bit for bit
+    the init after epoch 0 (`checkpoint_0`); the kernel-vs-plain
+    gradients on the unfrozen model; a run resumed at epoch 1 from
+    `checkpoint_0`, which unfreezes as it starts, repeats the unbroken
+    run's losses bit for bit; the step's times in each phase. Returns the
+    launch counts."""
+    import dataclasses
+
+    from geovpr_torch.train.state import build_optimizer
+
+    case = SINCOS_CASE
+    cfg = _case_cfg(case, freeze_backbone_epochs=1)
+    tag = f"{case[0]}-{cfg.model.variant}"
+    train_src, val_src = _case_sources(case, cfg, 11)
+    blocks = _dino_blocks(cfg)
+    phase("train_case", path=tag, reduced=repr(_reduced(
+        case, cfg, freeze_backbone_epochs="1 (preset 5)")))
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, launches = train_run(
+            cfg, train_src, val_src, device, tmp, case[4], {
+                "fused_mhsa_train_fwd": (blocks, 0),
+                "fused_mhsa_bwd_all": (blocks, 0),
+                "fused_mhsa_block": (0, blocks)}, tag)
+        ck = torch.load(os.path.join(trainer.run_dir, "checkpoint_0",
+                                     "state.pt"), weights_only=True)
+        _check_backbone_unchanged(ck["params"], _init_params(cfg), tag,
+                                  "after epoch 0 (frozen)")
+        check(not trainer._frozen_phase
+              and set(trainer.state.opt.mu) == set(
+                  dict(trainer.state.model.named_parameters())),
+              f"{tag}: the run did not end unfrozen")
+        tb = next(iter(_train_batches(train_src, device, case[1])))
+        train_grads_vs_plain(trainer, tb, tag, against_f32=True)
+        train_times(trainer, tb, card, tag, phase_name="unfrozen")
+        st = trainer.state
+        st.opt = build_optimizer(st.model, dataclasses.replace(
+            cfg.optim, backbone_lr_scale=0.0), trainer._total_steps,
+            trainer._steps_per_epoch)
+        train_times(trainer, tb, card, tag, phase_name="frozen")
+        train_resume(cfg, train_src, val_src, device, tmp, trainer, tag)
+        del trainer, st
+        torch.cuda.empty_cache()
+    return launches
+
+
+def salad_frozen_path(device, card: str) -> dict:
+    """dinov2salad_frozen_mlp at full width (DINOv2-B/14 + SALAD, the
+    8,448-d descriptor, MLP head, B=32) through `run_train`: two epochs of
+    4 steps with the frozen-feature cache (K1 in every block of every
+    extraction batch, once per run over the training and validation
+    images, then no kernel launch in any step or validation batch), and
+    the same run without it (K1 in every block of every step and
+    validation batch, the backbone under no grad). The two runs' losses,
+    validation metrics and parameters agree bit for bit, and the backbone
+    and SALAD are the init's. Then the cached step's and the uncached
+    step's times. Returns the cached run's launch counts plus the
+    uncached run's."""
+    import dataclasses
+
+    case = SALAD_CASE
+    cfg = _case_cfg(case)
+    tag = f"{case[0]}-{cfg.model.variant}"
+    train_src, val_src = _case_sources(case, cfg, 12)
+    b, blocks = case[1], _dino_blocks(cfg)
+    extract = -(-len(train_src) // b) + -(-len(val_src) // b)
+    phase("train_case", path=tag, reduced=repr(_reduced(case, cfg)))
+    init = _init_params(cfg)
+    total, runs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for cache in (True, False):
+            c = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, cache_frozen_features=cache))
+            name = f"{tag}-{'cached' if cache else 'uncached'}"
+            trainer, launches = train_run(
+                c, train_src, val_src, device, tmp, case[4],
+                {} if cache else {"fused_mhsa_block": (blocks, blocks)},
+                name, expected_once={"fused_mhsa_block": blocks * extract}
+                if cache else None)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            _check_backbone_unchanged(trainer.state.model.state_dict(), init,
+                                      name, "after the run")
+            runs[cache] = trainer
+        cached, plain = runs[True], runs[False]
+        strip = lambda r: {k: v for k, v in r.items()  # noqa: E731
+                           if k != "seconds"}
+        head_equal = all(
+            torch.equal(a, plain.state.model.state_dict()[k])
+            for k, a in cached.state.model.state_dict().items())
+        same = (cached.step_losses == plain.step_losses
+                and [strip(r) for r in cached.history]
+                == [strip(r) for r in plain.history] and head_equal)
+        phase("train_cache", path=tag, equal=same,
+              cached=cached.step_losses, uncached=plain.step_losses,
+              params_equal=head_equal)
+        check(same, f"{tag}: the cached run differs from the uncached one")
+        tb = next(iter(_train_batches(train_src, device, b)))
+        train_times(plain, tb, card, tag, phase_name="uncached")
+        feats, _, step, _ = cached._maybe_cache_frozen_features(
+            train_src, None)
+        fb = next(iter(_train_batches(feats, device, b)))
+        train_times(cached, fb, card, tag, step=step, phase_name="cached")
+        del cached, plain, runs
+        torch.cuda.empty_cache()
+    return total
+
+
+def swin_t_train_path(device, card: str) -> dict:
+    """swin_t224_sincos_gemini at full width (Swin-T-224, window 7, sin/cos
+    MLP head, geo_light, DropPath 0.1, cosine with warm restarts, clip
+    1.0, B=32) through `run_train`: two epochs of 3 steps. JAX trains
+    window 7 on its XLA route (`pallas_ok` needs `deterministic`), so no
+    kernel of the port runs in a step; validation runs K7's raster entry
+    in every block and K6 at every boundary. Then the kernel-vs-plain
+    gradients (the same route under grad, so equal) with the f32
+    reference, and the step's times. Returns the launch counts."""
+    case = SWIN_T_TRAIN_CASE
+    cfg = _case_cfg(case)
+    tag = case[0]
+    train_src, val_src = _case_sources(case, cfg, 13)
+    phase("train_case", path=tag, reduced=repr(_reduced(case, cfg)))
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, launches = train_run(
+            cfg, train_src, val_src, device, tmp, case[4], {
+                "window_attention_raster": (0, SWIN_T_BLOCKS),
+                "fused_patch_merge": (0, len(SWIN_T_DEPTHS) - 1)}, tag)
+        tb = next(iter(_train_batches(train_src, device, case[1])))
+        train_grads_vs_plain(trainer, tb, tag)
+        train_times(trainer, tb, card, tag)
+        del trainer
+        torch.cuda.empty_cache()
+    return launches
+
+
 def _train_batches(source, device, batch: int = TRAIN_BATCH):
     from geovpr_torch.data.pipeline import iterate_batches, prefetch_to_device
     return prefetch_to_device(iterate_batches(source, batch), device)
@@ -3237,6 +3511,11 @@ def main() -> int:
     k8t["K8b"] = k8_kernel_times(device, card, K8_SHAPES[1], ("K8b",))["K8b"]
     k8c_part_times(device, card)
 
+    rest_launches = {}
+    for path in (dinov2_sincos_path, salad_frozen_path, swin_t_train_path):
+        for k, v in path(device, card).items():
+            rest_launches[k] = rest_launches.get(k, 0) + v
+
     rows = []
     for name, k, src, replaces, count, err in (
             ("fused_mhsa_block", "K1", "geovpr_torch/csrc/mhsa.cu",
@@ -3314,9 +3593,11 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
-    # every serving kernel's launches in the fused runs too
+    # every kernel's launches in the fused runs and in the training runs
+    # of the rest of the transformer presets too
     for row in rows:
-        row["launches"] += fuse_launches.get(row["name"], 0)
+        row["launches"] += (fuse_launches.get(row["name"], 0)
+                            + rest_launches.get(row["name"], 0))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

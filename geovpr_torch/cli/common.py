@@ -16,10 +16,10 @@ def load_trained(preset: str, run_dir: str, checkpoint: str = "best", *,
     JAX's loader retries with the unfrozen optimizer template when a
     freeze -> unfreeze run's checkpoint does not match the frozen one
     (`geovpr/cli/common.py:43-60`). The port's loader reads only the
-    parameters, so no optimizer template can mismatch and there is
-    nothing to retry; freeze -> unfreeze training comes to the port's
-    trainer with ROADMAP Queue 1's rest of DINOv2 training. Orbax run
-    directories of the JAX package are not read here."""
+    parameters, so a checkpoint written after the unfreeze loads as any
+    other, with no retry (the trainer's `restore_latest`, which restores
+    the optimizer too, retries). Orbax run directories of the JAX package
+    are not read here."""
     from geovpr_torch.cli.evaluate import build_model
     from geovpr_torch.cli.presets import build_preset
 

@@ -30,8 +30,8 @@ Kernels on each path: Swin at window 12 runs K4 in every block (K5 and K3
 with `--int8`), Swin-T at window 7 runs K7 inside every block's attention
 half, both run K6 at every stage boundary; DINOv2 runs K1 (K2 and K3 with
 `--int8`); EfficientNet-B0 and ConvNeXt run on cuDNN convolutions and have
-no kernel of their own. `--int8` on window-7 Swin or ConvNeXt is not ported
-yet; EfficientNet has no int8 path. `--device` defaults to cuda and fails
+no kernel of their own. `--int8` serves window-7 Swin (torch int8
+attention ops and K3) and ConvNeXt (K3); EfficientNet has no int8 path. `--device` defaults to cuda and fails
 when no card is present; pass `--device cpu` to run on the CPU.
 """
 

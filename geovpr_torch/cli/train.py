@@ -12,13 +12,22 @@ Trains the presets whose every kernel and module is ported:
 - Swin at window 12 (`swin_b384_gemini2`, `swin_b384_v4_diff_lr`,
   `swin_b384_direct_maae`): each attention half through K9a forward and
   K9c (or K9b, at C = 1024) backward a step, validation through K4 and K6;
-- DINOv2 (`dinov2_meanpool_huber`, `dinov2_cls_direct_maae`, any
-  variant): each attention half through K8a forward and K8c backward a
-  step (K8b and torch products where D fails JAX's size gate
-  `bwd_all_ok`, as at large-14, D = 1024), validation through K1.
-Other presets raise NotImplementedError naming the ROADMAP item, and so do
-the config fields the port does not honour yet (`data.cache_decoded`,
-`model.remat`). Checkpoints are the port's
+- Swin at window 7 (`swin_t224_v1`, `swin_t224_v2`,
+  `swin_t224_sincos_acos`, `swin_t224_sincos_gemini`): each attention
+  half as torch ops under autograd, as JAX trains window 7 on XLA,
+  validation through K7 and K6;
+- DINOv2 (`dinov2_meanpool_huber`, `dinov2_cls_direct_maae`,
+  `dinov2_sincos_gemini` with `angle_rot` and its freeze -> unfreeze
+  phases, any variant): each attention half through K8a forward and K8c
+  backward a step in either phase (K8b and torch products where D fails
+  JAX's size gate `bwd_all_ok`, as at large-14, D = 1024), validation
+  through K1;
+- DINOv2 + SALAD with its backbone frozen (`dinov2salad_frozen_mlp`): the
+  descriptors extracted once through K1 (the frozen-feature cache), then
+  the head alone a step.
+The CNN presets and an unfrozen DINOv2 + SALAD raise NotImplementedError
+naming the ROADMAP item, and so do the config fields the port does not
+honour yet (`data.cache_decoded`, `model.remat`). Checkpoints are the port's
 own (`train.checkpoint`), in the JAX CLI's run-directory layout;
 `--pretrained` reads a flax msgpack of backbone variables (as
 `geovpr.cli.convert` writes it). `--device` defaults to cuda and fails

@@ -10,8 +10,8 @@ the same numbers). Bilinear resampling matches
 order, out-of-range corners clamped (`nearest`) or counted as 0
 (`constant`). `build_augment` gives the pipelines `geo_light` (crop, flip,
 jitter; `swin_finetuning_2.py:78-82`) and `geo_heavy` (flip, jitter,
-rotate 15, Gaussian noise; `swin_attempt_3.py:60-69`). `angle_rot` and
-`random_affine` come with the DINOv2 slice.
+rotate 15, Gaussian noise; `swin_attempt_3.py:60-69`) and `angle_rot`
+(rotate 45, affine zoom and shift, jitter; `dino_v2_gemini.py:57-62`).
 """
 
 from __future__ import annotations
@@ -152,6 +152,37 @@ def rotate(images, angles) -> torch.Tensor:
     return bilinear_sample(images, sy, sx, "constant")
 
 
+# ------------------------------------------------------------- affine --
+
+def draw_affine(gen, batch: int, height: int, width: int,
+                translate=(0.1, 0.1), scale=(0.9, 1.1),
+                device=None) -> dict:
+    """Per image: the zoom s and the shift in pixels, tx up to
+    translate[0] * width and ty up to translate[1] * height, in
+    `random_affine`'s order (`geovpr/data/transforms.py:155-187`)."""
+    return dict(s=_uniform(gen, (batch,), *scale, device),
+                tx=_uniform(gen, (batch,), -translate[0], translate[0],
+                            device) * width,
+                ty=_uniform(gen, (batch,), -translate[1], translate[1],
+                            device) * height)
+
+
+def affine(images, s, tx, ty) -> torch.Tensor:
+    """torchvision RandomAffine(degrees=0) analog: each output pixel read
+    from its source by the inverse map about the centre ((h-1)/2,
+    (w-1)/2), shift then unzoom, bilinear, zero fill."""
+    b, h, w, _ = images.shape
+    yy, xx = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=images.device),
+        torch.arange(w, dtype=torch.float32, device=images.device),
+        indexing="ij")
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    s, tx, ty = s[:, None, None], tx[:, None, None], ty[:, None, None]
+    sy = cy + (yy - cy - ty) / s
+    sx = cx + (xx - cx - tx) / s
+    return bilinear_sample(images, sy, sx, "constant")
+
+
 # ---------------------------------------------------------- gauss noise --
 
 def draw_gauss_noise(gen, shape, var_range=(10.0, 50.0), p: float = 0.2,
@@ -195,11 +226,17 @@ def build_augment(name: str):
         return gauss_noise(x, **draw_gauss_noise(gen, x.shape,
                                                  device=dev)), flipped
 
-    pipelines = {"geo_light": light, "geo_heavy": heavy}
+    def rot(gen, images):
+        # the image rotation does not remap the heading target, as in JAX
+        # (a turn about the optical axis changes roll, not heading)
+        b, h, w, _ = images.shape
+        dev = images.device
+        x = rotate(images, draw_rotate(gen, b, 45.0, device=dev))
+        x = affine(x, **draw_affine(gen, b, h, w, device=dev))
+        return color_jitter(x, **draw_jitter(gen, b, device=dev)), \
+            torch.zeros(b, dtype=torch.bool, device=dev)
+
+    pipelines = {"geo_light": light, "geo_heavy": heavy, "angle_rot": rot}
     if name in pipelines:
         return pipelines[name]
-    if name == "angle_rot":
-        raise NotImplementedError(
-            "augment 'angle_rot' (rotation + affine) is not ported yet "
-            "(ROADMAP Queue 1, the rest of DINOv2 training)")
     raise ValueError(f"unknown augment pipeline {name!r}")

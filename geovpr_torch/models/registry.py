@@ -27,25 +27,23 @@ def check_int8_serving(cfg: ModelConfig) -> None:
 
 
 def check_training(cfg: ModelConfig) -> None:
-    """The one rule for whether the port trains `cfg`: Swin at window 12,
-    whose attention halves have the training kernels K9a-K9c, and DINOv2,
-    whose have K8a-K8c. NotImplementedError, naming the ROADMAP item, for
-    the rest."""
+    """The one rule for whether the port trains `cfg`: Swin (window 12 on
+    the training kernels K9a-K9c, window 7 on JAX's XLA route), DINOv2 on
+    K8a-K8c, and DINOv2 + SALAD with a frozen backbone (its serving
+    forward, K1, under no grad). NotImplementedError, naming the ROADMAP
+    item, for the rest."""
     family = cfg.family
-    if family == "dinov2":
+    if family in ("dinov2", "swin"):
         return
-    if family == "swin":
-        from geovpr_torch.models.swin import SWIN_VARIANTS
-        from geovpr_torch.ops.swin_block import fused_window_ok
-        window = SWIN_VARIANTS.get(cfg.variant, {}).get("window_size")
-        if window is not None and not fused_window_ok(window):
-            raise NotImplementedError(
-                f"training Swin at window {window} is not ported yet (ROADMAP "
-                "Queue 1, window-7 Swin training: K7 has no backward yet)")
-        return
-    item = {"dinov2_salad": "the rest of DINOv2 training: the frozen "
-                            "backbone, freeze -> unfreeze and angle_rot",
-            "efficientnet": "CNN training: BatchNorm in training mode",
+    if family == "dinov2_salad":
+        if cfg.freeze_backbone:
+            return
+        raise NotImplementedError(
+            "training dinov2_salad with its backbone unfrozen is not ported "
+            "yet (ROADMAP Queue 1, leftovers: unfrozen DINOv2 + SALAD "
+            "training, SALAD's Sinkhorn under autograd); set "
+            "model.freeze_backbone")
+    item = {"efficientnet": "CNN training: BatchNorm in training mode",
             "convnext": "CNN training"}.get(family)
     if item is None:
         raise ValueError(f"unknown model family {family!r}")
@@ -104,5 +102,6 @@ def build_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32, *,
         if cfg.variant not in DINOV2_VARIANTS:
             raise ValueError(f"unknown dinov2_salad variant {cfg.variant!r}")
         return DinoV2Salad(variant=cfg.variant,
-                           image_size=cfg.image_size or 224, **kw)
+                           image_size=cfg.image_size or 224, **kw,
+                           param_dtype=torch.float32 if train else None)
     raise ValueError(f"unknown model family {family!r}")

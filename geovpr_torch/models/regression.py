@@ -10,6 +10,13 @@ Submodules are `backbone` and `head`, as in the flax tree. The head holds
 f32 weights and emits f32. `train=True` builds the training model
 (`registry.check_training`): the backbone's parameters in f32, cast to
 the compute dtype in the forward.
+
+`freeze_backbone` (the frozen-descriptor path,
+`geovpr/train/model.py:58-64`) runs the backbone under `torch.no_grad()`,
+JAX's `stop_gradient` on the pooled feature: that is the serving forward
+(K1, and SALAD for `dinov2_salad`), since no preset gives DINOv2 a
+DropPath rate. `pooled_features` and `head_only` are the two halves the
+frozen-feature cache of the training loop runs apart.
 """
 
 from __future__ import annotations
@@ -61,4 +68,17 @@ class RegressionModel(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) normalised NHWC images -> (B, out_dim) f32."""
-        return self.head(self.pool(self.backbone(images)))
+        if self.config.freeze_backbone:
+            with torch.no_grad():
+                feats = self.pooled_features(images)
+        else:
+            feats = self.pooled_features(images)
+        return self.head_only(feats)
+
+    def pooled_features(self, images: torch.Tensor) -> torch.Tensor:
+        """The feature the head reads: backbone, then the pooling."""
+        return self.pool(self.backbone(images))
+
+    def head_only(self, feats: torch.Tensor) -> torch.Tensor:
+        """The head on precomputed `pooled_features`."""
+        return self.head(feats)

@@ -11,6 +11,10 @@ token-wide fc1 matmuls (feat and score, 768 -> 512) share one input and so
 one static activation scale `a_tokens_scale`, and run as exact int8 x int8
 products through `torch._int_mm`, as JAX runs them as an XLA dot outside any
 kernel; the fc2s, the CLS path and Sinkhorn stay in the compute dtype / f32.
+
+A training build (`param_dtype` f32, the frozen-backbone presets) holds
+the Dense layers in f32 and casts them to the compute dtype per call, as
+the other families' training builds do.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ from torch import nn
 
 from geovpr_torch.models.backbone import BackboneOutput
 from geovpr_torch.models.dinov2 import DINOV2_VARIANTS, DinoV2
-from geovpr_torch.models.layers import normalize_l2, register_quant_buffers
+from geovpr_torch.models.layers import (linear, normalize_l2,
+                                        register_quant_buffers)
 from geovpr_torch.ops.quant import (act_scale, amax_into, int_mm,
                                     quantize_act, quantize_weight)
 from geovpr_torch.ops.sinkhorn import salad_assignment
@@ -34,7 +39,7 @@ class SaladHead(nn.Module):
                  cluster_dim: int = 128, token_dim: int = 256,
                  hidden: int = 512, sinkhorn_iters: int = 3,
                  dtype: torch.dtype = torch.float32, device=None,
-                 int8: bool = False):
+                 int8: bool = False, param_dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
         self.sinkhorn_iters = sinkhorn_iters
@@ -42,7 +47,7 @@ class SaladHead(nn.Module):
         self.calib: dict | None = None
 
         def dense(i, o):
-            return nn.Linear(i, o, dtype=dtype, device=device)
+            return nn.Linear(i, o, dtype=param_dtype or dtype, device=device)
 
         self.feat_fc1 = dense(in_dim, hidden)
         self.score_fc1 = dense(in_dim, hidden)
@@ -98,11 +103,12 @@ class SaladHead(nn.Module):
         if self.int8 and self.calib is None:
             f1, s1 = self._fc1_int8(tokens)
         else:
-            f1 = F.relu(self.feat_fc1(tokens))
-            s1 = F.relu(self.score_fc1(tokens))
-        f = self.feat_fc2(f1)
-        s = self.score_fc2(s1)
-        t = self.token_fc2(F.relu(self.token_fc1(cls.to(self.dtype))))
+            f1 = F.relu(linear(tokens, self.feat_fc1))
+            s1 = F.relu(linear(tokens, self.score_fc1))
+        f = linear(f1, self.feat_fc2)
+        s = linear(s1, self.score_fc2)
+        t = linear(F.relu(linear(cls.to(self.dtype), self.token_fc1)),
+                   self.token_fc2)
         # scores to (B, M clusters, N tokens)
         p = salad_assignment(s.transpose(1, 2).float(), self.dustbin,
                              num_iters=self.sinkhorn_iters)
@@ -124,7 +130,8 @@ class DinoV2Salad(nn.Module):
                  token_dim: int = 256, sinkhorn_iters: int = 3,
                  use_kernels: bool = True,
                  dtype: torch.dtype = torch.float32, device=None,
-                 int8_attn: bool = False, int8_mlp: bool = False):
+                 int8_attn: bool = False, int8_mlp: bool = False,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         cfg = DINOV2_VARIANTS[variant]
         self.num_clusters = num_clusters
@@ -133,10 +140,11 @@ class DinoV2Salad(nn.Module):
         self.backbone = DinoV2(**cfg, image_size=image_size,
                                use_kernels=use_kernels, dtype=dtype,
                                device=device, int8_attn=int8_attn,
-                               int8_mlp=int8_mlp)
+                               int8_mlp=int8_mlp, param_dtype=param_dtype)
         self.salad = SaladHead(cfg["hidden_size"], num_clusters, cluster_dim,
                                token_dim, sinkhorn_iters=sinkhorn_iters,
-                               dtype=dtype, device=device, int8=int8_mlp)
+                               dtype=dtype, device=device, int8=int8_mlp,
+                               param_dtype=param_dtype)
 
     @property
     def descriptor_dim(self) -> int:

@@ -52,6 +52,16 @@ over the blocks (`swin.py:875`); the training build passes JAX's 0.1
 parameters in `param_dtype` (f32) and casts them to the compute dtype in
 the forward, as flax keeps f32 params and computes in `dtype`; a serving
 build has `param_dtype = dtype`, so its casts are no-ops.
+
+Training at window 7 (grad enabled, Swin-T-224) takes JAX's route there:
+JAX's `SwinBlock` keeps its window kernel for the deterministic forward
+(`pallas_ok`, `geovpr/models/swin.py:389-391`) and trains on the unfused
+XLA half (`_window_attn_apply`, `:299-328`). Here that is
+`swin_attn_block_unfused` with `window_attention` (scaled scores, the
+max-shifted softmax) on the gathered windows, returning the branch, and
+`x + DropPath(branch)` with the mask drawn per image (`residual_drop`,
+`:441-451`): torch ops under autograd, no K7 launch. Validation keeps K7's
+raster entry and K6.
 """
 
 from __future__ import annotations
@@ -181,6 +191,9 @@ class SwinBlock(QuantBlock):
             elif torch.is_grad_enabled() and fused_window_ok(self.window):
                 x = x + self.drop_path(fused_swin_attn_train(
                     *args, **geom, kernels=self.use_kernels))
+            elif torch.is_grad_enabled():
+                x = x + self.drop_path(swin_attn_block_unfused(
+                    *args, **geom, residual=False))
             elif fused_window_ok(self.window):
                 attn = (fused_swin_attn_block if self.use_kernels
                         else swin_attn_block_reference)

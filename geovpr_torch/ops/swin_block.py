@@ -57,12 +57,42 @@ def _proj(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(..., K) @ (K, N) with f32 accumulation and an f32 result, as JAX's
     `jnp.dot(..., preferred_element_type=jnp.float32)`: bf16 operands on a
     CUDA device go to cuBLAS's tensor cores with an f32 output
-    (`torch.mm(..., out_dtype=torch.float32)`), anything else to an f32
-    matmul."""
+    (`torch.mm(..., out_dtype=torch.float32)`; under autograd through
+    `_ProjF32`, since that product has no derivative), anything else to
+    an f32 matmul."""
     if a.is_cuda and a.dtype == w.dtype == torch.bfloat16:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), w, out_dtype=torch.float32)
-        return out.reshape(*a.shape[:-1], w.shape[-1])
+        if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+            return _ProjF32.apply(a, w)
+        return _mm_f32_out(a, w)
     return _mm(a, w)
+
+
+def _mm_f32_out(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    out = torch.mm(a.reshape(-1, a.shape[-1]), w, out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], w.shape[-1])
+
+
+class _ProjF32(torch.autograd.Function):
+    """`_mm_f32_out` with the VJP JAX takes of a dot with
+    `preferred_element_type=f32`: the f32 cotangent times the other
+    operand in f32, rounded to the operand's dtype (the window-7 training
+    half's projections on the card)."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return _mm_f32_out(a, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).float()
+        da = dw = None
+        if ctx.needs_input_grad[0]:
+            da = (g2 @ w.float().t()).to(a.dtype).reshape(a.shape)
+        if ctx.needs_input_grad[1]:
+            dw = (a.reshape(-1, a.shape[-1]).float().t() @ g2).to(w.dtype)
+        return da, dw
 
 
 def _exact_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -105,7 +135,8 @@ def swin_attn_block_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
 def swin_attn_block_unfused(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
                             table, num_heads: int, resolution: int,
                             window: int, shift: int, ln_eps: float = 1e-5,
-                            calib: dict | None = None, attention=None):
+                            calib: dict | None = None, attention=None,
+                            residual: bool = True):
     """The JAX package's unfused path (`SwinBlock` without the fused kernel,
     `geovpr/models/swin.py:559-584`): LN, the q/k/v projections (f32
     accumulation) rounded to x.dtype, the window attention, the out
@@ -117,7 +148,10 @@ def swin_attn_block_unfused(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
     XLA path: scaled scores, max-shifted softmax) on the gathered windows.
     With `calib` (a dict) it records the amaxes the int8 calibration reads,
     at the points JAX sows them: `attn_x` the LN output, `attn_q/k/v` the
-    projections, `attn_ctx` the context before the out projection."""
+    projections, `attn_ctx` the context before the out projection. With
+    `residual=False` it returns the branch alone, the out projection in
+    x.dtype, so that the window-7 training path can add it through
+    DropPath (`residual_drop`, `geovpr/models/swin.py:441-451`)."""
     from geovpr_torch.ops.quant import amax_into
 
     c = x.shape[-1]
@@ -134,7 +168,8 @@ def swin_attn_block_unfused(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
            if attention is None else attention(qkv, table, *geom))
     if calib is not None:
         amax_into(calib, "attn_ctx", ctx)
-    return x + (_proj(ctx, wo) + bo.float()).to(dt)
+    branch = (_proj(ctx, wo) + bo.float()).to(dt)
+    return x + branch if residual else branch
 
 
 def _check_geometry(x, num_heads, resolution, window, shift):

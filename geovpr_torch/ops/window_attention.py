@@ -31,6 +31,15 @@ entries, two address modes of one hand-written Hopper kernel
 On a CUDA tensor each launches the kernel or raises; on a CPU tensor each
 runs its plain version, which rounds where the JAX kernel body `_kernel`
 rounds (serving softmax, `_SKIP_MAX`).
+
+K7's gradient is JAX's `custom_vjp` (`pallas_window_attention.py:182-207`):
+on CUDA each entry is a `torch.autograd.Function` whose forward is the
+kernel and whose backward is the VJP of the plain `window_attention`
+(JAX's `_window_attention_xla`: scaled scores, max-shifted softmax),
+recomputed on the saved operands: q, k, v, bias and the mask for the
+split entry; the raster qkv and the table, through the window gather and
+the bias gather, for the raster entry. No training path of the port runs
+it: JAX trains window 7 on its XLA route (`geovpr/models/swin.py:389-391`).
 """
 
 from __future__ import annotations
@@ -233,7 +242,8 @@ def window_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     """Window attention over pre-split windows (BW, H, N, dh), with JAX's
     operands. CPU tensors run the plain version; CUDA tensors launch K7
     (bf16 q, k, v; f32 bias and mask; contiguous and 16-byte aligned; head
-    dim 32; N up to 256; BW a multiple of nW; forward only) or raise."""
+    dim 32; N up to 256; BW a multiple of nW) or raise. Its gradient is the
+    VJP of `window_attention` on the same operands."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be one (BW, H, N, dh) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -254,12 +264,6 @@ def window_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         return window_attention_serving_reference(q, k, v, bias, mask)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in tensors.values()):
-        raise RuntimeError(
-            "window_attention_kernel has no backward kernel (the JAX "
-            "backward is an XLA recompute); run the forward under "
-            "torch.inference_mode()")
     for name, t in tensors.items():
         want = torch.float32 if name in ("bias", "mask") else torch.bfloat16
         if t.dtype != want:
@@ -270,7 +274,39 @@ def window_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"the kernel takes head dim {_KERNEL_HEAD_DIM} and "
                          f"windows of up to {_KERNEL_MAX_N} tokens, got "
                          f"dh={dh}, N={n}")
+    return _K7Split.apply(q, k, v, bias, mask)
 
+
+def _plain_vjp(fn, inputs, needs, g):
+    """The gradients of `fn(*inputs)` against `g` for the inputs whose
+    `needs` flag is set (None for the others), through autograd on
+    detached copies: the plain recompute of a kernel's backward."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(inputs, needs)]
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        got = iter(torch.autograd.grad(fn(*leaves), wanted, g)
+                   if wanted else ())
+    return tuple(next(got) if t is not None and t.requires_grad else None
+                 for t in leaves)
+
+
+class _K7Split(torch.autograd.Function):
+    """K7's split entry forward; the VJP of `window_attention` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask):
+        ctx.save_for_backward(q, k, v, bias, mask)
+        return _k7_split_launch(q, k, v, bias, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _plain_vjp(window_attention, ctx.saved_tensors,
+                          ctx.needs_input_grad, g)
+
+
+def _k7_split_launch(q, k, v, bias, mask) -> torch.Tensor:
+    bw, h, n, dh = q.shape
     from geovpr_torch.ops._build import library_on
     lib = library_on(q.device.index, "geovpr_window_attention_init")
     out = torch.empty_like(v)
@@ -342,7 +378,8 @@ def window_attention_raster(qkv: torch.Tensor, table: torch.Tensor,
     the block's ((2w-1)^2, H) relative-position table; returns the context
     (B, L, C) in raster order. CPU tensors run the plain version; CUDA
     tensors launch K7's raster mode (bf16 qkv, f32 table, contiguous and
-    16-byte aligned; `k7_raster_shape_error`; forward only) or raise."""
+    16-byte aligned; `k7_raster_shape_error`) or raise. Its gradient is
+    the VJP of `window_attention` on the gathered windows."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (B, L, 3C), got {tuple(qkv.shape)}")
     b, l, c3 = qkv.shape
@@ -361,11 +398,6 @@ def window_attention_raster(qkv: torch.Tensor, table: torch.Tensor,
                                                  resolution, window, shift)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
-    if torch.is_grad_enabled() and (qkv.requires_grad or table.requires_grad):
-        raise RuntimeError(
-            "window_attention_raster has no backward kernel (the JAX "
-            "backward is an XLA recompute); run the forward under "
-            "torch.inference_mode()")
     for name, x, want in (("qkv", qkv, torch.bfloat16),
                           ("table", table, torch.float32)):
         if x.dtype != want:
@@ -375,7 +407,33 @@ def window_attention_raster(qkv: torch.Tensor, table: torch.Tensor,
     err = k7_raster_shape_error(c, num_heads, resolution, window, shift)
     if err:
         raise ValueError(err)
+    return _K7Raster.apply(qkv, table, num_heads, resolution, window, shift)
 
+
+class _K7Raster(torch.autograd.Function):
+    """K7's raster entry forward; backward, the VJP of `window_attention`
+    on the windows gathered from qkv, with the bias gathered from the
+    table."""
+
+    @staticmethod
+    def forward(ctx, qkv, table, num_heads, resolution, window, shift):
+        ctx.save_for_backward(qkv, table)
+        ctx.geom = (num_heads, resolution, window, shift)
+        return _k7_raster_launch(qkv, table, *ctx.geom)
+
+    @staticmethod
+    def backward(ctx, g):
+        def plain(qkv, table):
+            return windowed_attention(window_attention, qkv, table,
+                                      *ctx.geom)
+        return _plain_vjp(plain, ctx.saved_tensors,
+                          ctx.needs_input_grad[:2], g) + (None,) * 4
+
+
+def _k7_raster_launch(qkv, table, num_heads, resolution, window,
+                      shift) -> torch.Tensor:
+    b, l, c3 = qkv.shape
+    c = c3 // 3
     from geovpr_torch.ops._build import library_on
     lib = library_on(qkv.device.index, "geovpr_window_attention_init")
     out = torch.empty(b, l, c, dtype=qkv.dtype, device=qkv.device)

@@ -1,15 +1,28 @@
 """The host-side training loop (the port of `geovpr.train.loop.Trainer`):
 epochs, shuffling, the plateau LR rule, early stopping, best-model
-tracking, checkpoints and their pruning, `metrics.jsonl`, resume, and a
+tracking, checkpoints and their pruning, `metrics.jsonl`, resume, the
+freeze -> unfreeze phases, the frozen-feature cache, and a
 `torch.profiler` trace of a few steps.
 
 Each step is `train.steps.make_train_step`'s: on the card, per block, K9a
-and K9c / K9b for Swin, K8a and K8c / K8b for DINOv2. Validation runs the
-serving forward (K4 and K6 for Swin, K1 for DINOv2) under
-`torch.inference_mode()` on the same f32 parameters, cast per call, and
-reduces the eval sums of `serve.eval` into the metric suite. Not ported:
-the frozen-feature cache and the freeze -> unfreeze phases (ROADMAP Queue
-1, the rest of DINOv2 training), asynchronous checkpoints and `remat` (its
+and K9c / K9b for window-12 Swin, K8a and K8c / K8b for DINOv2, torch ops
+for window-7 Swin (JAX's XLA route). Validation runs the serving forward
+(K4 or K7, and K6, for Swin, K1 for DINOv2) under `torch.inference_mode()`
+on the same f32 parameters, cast per call, and reduces the eval sums of
+`serve.eval` into the metric suite.
+
+Phases (`geovpr/train/loop.py:85-101`): with `freeze_backbone_epochs` the
+first epochs train the head alone (the optimizer's backbone scale 0: its
+gradient zeroed before the clip, no moments); at the first epoch past
+them, or on a resume that starts past them, a fresh optimizer takes over
+with `unfreeze_lr`, the preset's backbone scale, new moments, count 0 and
+the whole run's schedule horizon. The frozen-feature cache
+(`geovpr/train/loop.py:339-397`): where the model's backbone is frozen
+(`ModelConfig.freeze_backbone`), nothing is augmented and nothing keeps
+batch statistics, `pooled_features` runs once per run over each source,
+and the epochs train and validate the head alone on those features.
+
+Not ported: asynchronous checkpoints and `remat` (ROADMAP Queue 1
 leftovers), meshes (parallel).
 """
 
@@ -27,7 +40,8 @@ import numpy as np
 import torch
 
 from geovpr_torch.core.config import DataConfig, OptimConfig, TrainConfig
-from geovpr_torch.data.pipeline import iterate_batches, prefetch_to_device
+from geovpr_torch.data.pipeline import (ArraySource, iterate_batches,
+                                        prefetch_to_device)
 from geovpr_torch.data.transforms import build_augment, normalize
 from geovpr_torch.objectives.scaler import ScalerState
 from geovpr_torch.serve.eval import add_sums, eval_sums, summarize_eval
@@ -35,8 +49,9 @@ from geovpr_torch.train.checkpoint import (checkpoint_epoch,
                                            latest_checkpoint,
                                            restore_checkpoint,
                                            save_checkpoint)
-from geovpr_torch.train.state import TrainState, create_train_state
-from geovpr_torch.train.steps import make_train_step
+from geovpr_torch.train.state import (TrainState, build_optimizer,
+                                      create_train_state)
+from geovpr_torch.train.steps import make_eval_step, make_train_step
 
 
 @dataclasses.dataclass
@@ -57,10 +72,6 @@ class Trainer:
     step_losses: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
-        if self.optim_cfg.freeze_backbone_epochs > 0:
-            raise NotImplementedError(
-                "freeze -> unfreeze training is not ported yet (ROADMAP "
-                "Queue 1, the rest of DINOv2 training)")
         if self.train_cfg.async_checkpoint:
             raise NotImplementedError(
                 "asynchronous checkpoints are not ported (ROADMAP Queue 1, "
@@ -80,12 +91,35 @@ class Trainer:
         self._train_step = make_train_step(
             self.objective, normalize_fn=self._normalize, augment_fn=aug,
             skip_nonfinite=self.train_cfg.skip_nonfinite_updates)
+        # the head-only warmup phase (`dino_v2_gemini.py:187-222`)
+        self._frozen_phase = self.optim_cfg.freeze_backbone_epochs > 0
+        self._total_steps = 0
+        self._steps_per_epoch = 0
+
+    def _phase_optim_cfg(self) -> OptimConfig:
+        if self._frozen_phase:
+            return dataclasses.replace(self.optim_cfg, backbone_lr_scale=0.0)
+        return self.optim_cfg
+
+    def _unfreeze(self) -> None:
+        """Phase 2: a fresh optimizer over the whole model (new moments,
+        count 0, lr_scale 1), `unfreeze_lr` where it is set, on the whole
+        run's schedule horizon."""
+        self._frozen_phase = False
+        cfg = self.optim_cfg
+        if cfg.unfreeze_lr > 0:
+            cfg = dataclasses.replace(cfg, lr=cfg.unfreeze_lr)
+        self.state.opt = build_optimizer(self.state.model, cfg,
+                                         self._total_steps,
+                                         self._steps_per_epoch)
 
     def init_state(self, total_steps: int = 0,
                    steps_per_epoch: int = 0) -> TrainState:
+        self._total_steps = total_steps
+        self._steps_per_epoch = steps_per_epoch
         self.model.to(self.device)
         self.state = create_train_state(
-            self.model, self.optim_cfg, self.train_cfg.seed,
+            self.model, self._phase_optim_cfg(), self.train_cfg.seed,
             scaler=self.scaler, out_dim=self.objective.out_dim,
             pretrained=self.pretrained, total_steps=total_steps,
             steps_per_epoch=steps_per_epoch)
@@ -95,7 +129,12 @@ class Trainer:
         """Restore the newest `checkpoint_{epoch}` under `run_dir` and
         return the epoch to continue at; 0 when there is none, unless
         `require` (then FileNotFoundError). `init_state` comes first, with
-        the original run's schedule horizon."""
+        the original run's schedule horizon. A checkpoint written after the
+        unfreeze holds moments for the backbone too, so the frozen phase's
+        optimizer refuses it (ValueError): the unfrozen optimizer is built
+        and the restore tried once more, a second failure raising
+        RuntimeError from the first. A parameter of the wrong name or shape
+        raises at once."""
         if self.state is None:
             raise RuntimeError("call init_state() before restore_latest()")
         ckpt = latest_checkpoint(run_dir)
@@ -103,7 +142,18 @@ class Trainer:
             if require:
                 raise FileNotFoundError(f"no checkpoint under {run_dir}")
             return 0
-        self.state, epoch = restore_checkpoint(ckpt, self.state)
+        try:
+            self.state, epoch = restore_checkpoint(ckpt, self.state)
+        except ValueError as e:
+            if not self._frozen_phase:
+                raise
+            self._unfreeze()
+            try:
+                self.state, epoch = restore_checkpoint(ckpt, self.state)
+            except Exception:
+                raise RuntimeError(
+                    f"could not restore {ckpt} with either the frozen-phase "
+                    f"or the unfrozen optimizer") from e
         return epoch + 1
 
     @staticmethod
@@ -149,11 +199,20 @@ class Trainer:
         spe = self.steps_per_epoch(n, self.data_cfg)
         if self.state is None:
             self.init_state(total_steps=spe * epochs, steps_per_epoch=spe)
+        freeze_epochs = self.optim_cfg.freeze_backbone_epochs
+        if self._frozen_phase and start_epoch >= freeze_epochs:
+            self._unfreeze()
+        train_step, cached_eval = self._train_step, None
+        cached = self._maybe_cache_frozen_features(train_source, val_source)
+        if cached is not None:
+            train_source, val_source, train_step, cached_eval = cached
         best, best_epoch, bad_epochs, plateau_bad = (
             self._resume_counters(start_epoch) if start_epoch > 0
             else (float("inf"), -1, 0, 0))
 
         for epoch in range(start_epoch, epochs):
+            if self._frozen_phase and epoch >= freeze_epochs:
+                self._unfreeze()
             t0 = time.time()
             losses, skips = [], []
             batches = iterate_batches(
@@ -164,7 +223,7 @@ class Trainer:
                     batches, self.device, self.data_cfg.prefetch_depth)):
                 if cfg.profile and epoch == start_epoch and i == 1:
                     prof = self._start_profile()
-                m = self._train_step(self.state, batch)
+                m = train_step(self.state, batch)
                 losses.append(m["loss"])
                 skips.append(m["skipped"])
                 if prof is not None and i >= cfg.profile_steps:
@@ -184,7 +243,8 @@ class Trainer:
                       "seconds": round(time.time() - t0, 2)}
 
             if val_source is not None:
-                val = self.evaluate(val_source)
+                val = (self.evaluate(val_source) if cached_eval is None
+                       else self.evaluate(val_source, _step=cached_eval))
                 record.update({f"val_{k}": v for k, v in val.items()})
                 monitored = val[self.objective.monitor]
                 if self.optim_cfg.schedule == "plateau":
@@ -221,6 +281,51 @@ class Trainer:
         self.history_summary = {"best": best, "best_epoch": best_epoch}
         return self.history
 
+    def _maybe_cache_frozen_features(self, train_source, val_source):
+        """(train source, val source, train step, eval forward) over the
+        cached `pooled_features`, or None where the cache does not apply:
+        it needs `cache_frozen_features`, a frozen backbone
+        (`ModelConfig.freeze_backbone`), no augmentation (the features
+        must not change between epochs) and no batch statistics (a frozen
+        BatchNorm would still see each batch). The features are the
+        serving forward's, the one the uncached step runs under no grad,
+        so the trajectory is unchanged."""
+        model_cfg = getattr(self.model, "config", None)
+        if not (self.train_cfg.cache_frozen_features
+                and model_cfg is not None and model_cfg.freeze_backbone
+                and self.data_cfg.augment == "none"
+                and model_cfg.family != "efficientnet"):
+            return None
+        model = self.state.model
+
+        def cache(source):
+            model.eval()
+            feats = targets = None
+            with torch.inference_mode():
+                for batch in prefetch_to_device(
+                        iterate_batches(source, self.data_cfg.batch_size),
+                        self.device, self.data_cfg.prefetch_depth):
+                    idx = batch["_indices"]
+                    f = model.pooled_features(
+                        self._normalize(batch["image"])).float().cpu()
+                    t = batch["target"].float().cpu()
+                    if feats is None:
+                        feats = np.zeros((len(source), f.shape[-1]),
+                                         np.float32)
+                        targets = np.zeros((len(source),) + tuple(
+                            t.shape[1:]), np.float32)
+                    feats[idx] = f[:len(idx)].numpy()
+                    targets[idx] = t[:len(idx)].numpy()
+            return ArraySource(images=feats, targets=targets)
+
+        step = make_train_step(
+            self.objective, normalize_fn=None,
+            skip_nonfinite=self.train_cfg.skip_nonfinite_updates,
+            apply_fn=model.head_only)
+        return (cache(train_source),
+                cache(val_source) if val_source is not None else None,
+                step, make_eval_step(model, None, model.head_only))
+
     def _start_profile(self):
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU]
@@ -248,24 +353,27 @@ class Trainer:
         for d in cands[:-keep]:
             shutil.rmtree(os.path.join(self.run_dir, d), ignore_errors=True)
 
-    def evaluate(self, source) -> dict:
-        """The metric suite over `source` with the serving forward."""
-        metrics, _ = self.evaluate_and_predict(source)
+    def evaluate(self, source, _step=None) -> dict:
+        """The metric suite over `source` with the serving forward, or with
+        the eval step `_step` (the frozen-feature cache evaluates the head
+        on cached features)."""
+        metrics, _ = self.evaluate_and_predict(source, _step)
         return metrics
 
-    def evaluate_and_predict(self, source) -> tuple:
+    def evaluate_and_predict(self, source, _step=None) -> tuple:
         if len(source) == 0:
             raise ValueError("evaluate() on an empty source — check the val "
                              "CSV / --image-root")
         model = self.state.model
         model.eval()
+        forward = _step or make_eval_step(model, self._normalize)
         sums, out = None, None
         with torch.inference_mode():
             for batch in prefetch_to_device(
                     iterate_batches(source, self.data_cfg.batch_size),
                     self.device, self.data_cfg.prefetch_depth):
                 idx = batch["_indices"]
-                preds = model(self._normalize(batch["image"]))
+                preds = forward(batch["image"])
                 decoded = self.objective.decode_predictions(
                     preds, self.state.scaler)
                 sums = add_sums(sums, eval_sums(decoded, batch["target"],

@@ -8,6 +8,11 @@ unbroken one would. NaN-skip as JAX does it: an all-finite flag over the
 loss and every gradient, computed on the device with no host sync; where
 it is false the optimizer keeps the parameters and moments, its integer
 count (and the step) still advance, and the reported loss is 0.
+
+`apply_fn` replaces the model's forward (`geovpr/train/steps.py:31-42`):
+the frozen-feature cache trains `RegressionModel.head_only` on cached
+features, with no normalisation and no augmentation. `make_eval_step` is
+the validation forward, the serving model's or, likewise, the head's.
 """
 
 from __future__ import annotations
@@ -31,12 +36,14 @@ def step_generators(seed: int, step: int, device) -> tuple:
     return tuple(gens)
 
 
-def make_train_step(objective, normalize_fn: Callable = normalize,
+def make_train_step(objective, normalize_fn: Optional[Callable] = normalize,
                     augment_fn: Optional[Callable] = None,
-                    skip_nonfinite: bool = True) -> Callable:
+                    skip_nonfinite: bool = True,
+                    apply_fn: Optional[Callable] = None) -> Callable:
     """train_step(state, batch) -> {"loss", "skipped"} (0-d device
-    tensors); `batch` holds "image" (B, H, W, 3) uint8 or float, "target"
-    (B, T) raw targets and "mask" (B,) bool, on the model's device."""
+    tensors); `batch` holds "image" (B, H, W, 3) uint8 or float (or, with
+    `apply_fn`, whatever it takes), "target" (B, T) raw targets and "mask"
+    (B,) bool, on the model's device."""
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
@@ -53,7 +60,8 @@ def make_train_step(objective, normalize_fn: Callable = normalize,
         enc = objective.encode_targets(targets, state.scaler)
         set_rng(model, drop_gen)
         try:
-            preds = model(normalize_fn(images))
+            preds = (apply_fn or model)(
+                images if normalize_fn is None else normalize_fn(images))
         finally:
             set_rng(model, None)
         loss = objective.loss(preds, enc, batch.get("mask"))
@@ -75,3 +83,15 @@ def make_train_step(objective, normalize_fn: Callable = normalize,
                 "skipped": (~ok).float()}
 
     return train_step
+
+
+def make_eval_step(model, normalize_fn: Optional[Callable] = normalize,
+                   apply_fn: Optional[Callable] = None) -> Callable:
+    """eval_step(images) -> predictions: `apply_fn` (default the model) on
+    the normalised images, or on the batch as it is where `normalize_fn`
+    is None. The caller puts the model in eval mode under
+    `torch.inference_mode()`."""
+    fwd = apply_fn or model
+    if normalize_fn is None:
+        return fwd
+    return lambda images: fwd(normalize_fn(images))

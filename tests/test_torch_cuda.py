@@ -692,9 +692,46 @@ def test_k7_refuses_what_it_does_not_take(cuda):
         with pytest.raises(ValueError, match="256 tokens"):
             window_attention_kernel(big, big, big, torch.zeros(
                 1, 289, 289, device=cuda), None)
-    with pytest.raises(RuntimeError, match="backward"):
-        window_attention_kernel(q, k, v, bias.clone().requires_grad_(True),
-                                mask)
+    # with a gradient it launches too (its backward the plain VJP)
+    out = window_attention_kernel(q, k, v, bias.clone().requires_grad_(True),
+                                  mask)
+    assert out.grad_fn is not None
+
+
+@pytest.mark.parametrize("entry", ["split", "raster"])
+def test_k7_gradients_are_the_plain_versions(cuda, entry):
+    """K7 under autograd, JAX's `custom_vjp`: the forward is the kernel
+    (one launch), the backward the VJP of the plain `window_attention`
+    recompute, so every gradient equals autograd's through the plain
+    path on the same inputs, bit for bit."""
+    from geovpr_torch.ops import window_attention as wa
+    if entry == "split":
+        q, k, v, bias, mask = k7_case((8, 3, 49, 4), cuda)
+        args = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+        launch = lambda a: wa.window_attention_kernel(*a, mask)  # noqa
+        plain = lambda a: wa.window_attention(*a, mask)  # noqa: E731
+        counter = wa.window_attention_kernel
+    else:
+        qkv, table, h, res, win, shift = k7_raster_case(
+            (2, 96, 3, 14, 7, 3), cuda)
+        args = [t.clone().requires_grad_(True) for t in (qkv, table)]
+        launch = lambda a: wa.window_attention_raster(  # noqa: E731
+            *a, h, res, win, shift)
+        plain = lambda a: wa.windowed_attention(  # noqa: E731
+            wa.window_attention, *a, h, res, win, shift)
+        counter = wa.window_attention_raster
+    before = counter.launches
+    out = launch(args)
+    assert counter.launches == before + 1
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)
+                    ).to(out)
+    got = torch.autograd.grad(out, args, g)
+    ref = [t.detach().clone().requires_grad_(True) for t in args]
+    want = torch.autograd.grad(plain(ref), ref, g)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 # Swin-T-224's four stages (B, C, H, resolution, window, shift) at B = 8,
@@ -754,9 +791,10 @@ def test_k7_raster_refuses_what_it_does_not_take(cuda):
                                     win, shift)
         with pytest.raises(ValueError, match="shift"):
             window_attention_raster(qkv, table, h, res, win, 7)
-    with pytest.raises(RuntimeError, match="backward"):
-        window_attention_raster(qkv, table.clone().requires_grad_(True),
-                                *geom)
+    # with a gradient it launches too (its backward the plain VJP)
+    out = window_attention_raster(qkv, table.clone().requires_grad_(True),
+                                  *geom)
+    assert out.grad_fn is not None
 
 
 def test_swin7_model_launches_per_block(cuda):

@@ -293,14 +293,18 @@ def test_pretrained_dinov2_backbone_overlay(tmp_path):
 
 
 def test_check_training_gates():
-    """DINOv2 trains; DINOv2 + SALAD is refused naming ROADMAP Queue 1's
-    rest of DINOv2 training, window-7 Swin its window-7 Swin training, the
-    CNNs its CNN training; an unknown family is an error."""
+    """DINOv2, Swin at either window and DINOv2 + SALAD with its backbone
+    frozen train; an unfrozen DINOv2 + SALAD is refused naming ROADMAP
+    Queue 1's leftover, the CNNs its CNN training; an unknown family is an
+    error."""
     check_training(ModelConfig(family="dinov2", variant="large-14"))
     check_training(ModelConfig(family="swin", variant="base-384"))
+    check_training(ModelConfig(family="swin", variant="tiny-224"))
+    check_training(ModelConfig(family="dinov2_salad", variant="base-14",
+                               freeze_backbone=True))
     for family, variant, item in (
-            ("dinov2_salad", "base-14", "the rest of DINOv2 training"),
-            ("swin", "tiny-224", "window-7 Swin training"),
+            ("dinov2_salad", "base-14",
+             "leftovers: unfrozen DINOv2 \\+ SALAD training"),
             ("efficientnet", "b0", "CNN training"),
             ("convnext", "base-224", "CNN training")):
         with pytest.raises(NotImplementedError, match=item):

@@ -1,7 +1,8 @@
 """The port runs without jax and without the JAX package (`geovpr`), through
 `run_retrieval`, the retrieve CLI's `main` with `--int8`, the evaluate
-CLI's `main` (geopose bf16 and `--int8`; angle presets), the train CLI and
-the fuse CLI's `main` (`--int8`, three components), and chip_smoke.py
+CLI's `main` (geopose bf16 and `--int8`; angle presets), the train CLI
+(window-12 and window-7 Swin, DINOv2 across the unfreeze) and the fuse
+CLI's `main` (`--int8`, three components), and chip_smoke.py
 fails where it cannot run."""
 
 import json
@@ -331,6 +332,74 @@ def test_dinov2_train_and_evaluate_cli_run_without_jax_or_geovpr():
     assert np.isfinite(trained["final"]["train_loss"])
     assert scored["validation_csv"].startswith(trained["run_dir"])
     assert np.isfinite(scored["metrics"]["mse"])
+
+
+_TRAIN_ANGLE = """
+import sys
+for name in {block!r}:
+    sys.modules[name] = None
+import dataclasses, json, os, tempfile
+import numpy as np
+import torch
+from PIL import Image
+from geovpr_torch.cli import presets
+from geovpr_torch.cli.train import main
+torch.set_num_threads(1)  # a small model, on cores the test workers share
+from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
+from geovpr_torch.models.swin import SWIN_VARIANTS
+DINOV2_VARIANTS["test"] = dict(hidden_size=64, num_layers=2, num_heads=2)
+SWIN_VARIANTS["test-w7"] = dict(embed_dim=64, depths=(2, 2),
+                                num_heads=(2, 4), window_size=7,
+                                image_size=56)
+preset = {preset!r}
+size = 56 if preset.startswith("swin") else 28
+cfg = presets.ANGLE_PRESETS[preset]
+presets.ANGLE_PRESETS[preset] = dataclasses.replace(
+    cfg, data=dataclasses.replace(cfg.data, image_size=size, batch_size=2),
+    model=dataclasses.replace(cfg.model, variant="test-w7" if size == 56
+                              else "test"),
+    optim=dataclasses.replace(cfg.optim, freeze_backbone_epochs=min(
+        cfg.optim.freeze_backbone_epochs, 1)))
+
+with tempfile.TemporaryDirectory() as d:
+    os.makedirs(os.path.join(d, "img"))
+    rng = np.random.default_rng(0)
+    with open(os.path.join(d, "labels.csv"), "w") as f:
+        f.write("filename,timestamp,latitude,longitude,angle,Region_ID\\n")
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 255, (60, 60, 3)).astype(
+                np.uint8)).save(os.path.join(d, "img", f"p{{i}}.png"))
+            f.write(f"p{{i}}.png,0,0,0,{{i * 100.0}},1\\n")
+    csv = os.path.join(d, "labels.csv")
+    main(["--preset", preset, "--train-csv", csv, "--val-csv", csv,
+          "--image-root", os.path.join(d, "img"), "--save-dir",
+          os.path.join(d, "runs"), "--epochs", "2", "--device", "cpu"])
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split(".")[0] in {block!r})
+assert not leaked, leaked
+print("OK")
+"""
+
+
+@pytest.mark.parametrize("preset", ["dinov2_sincos_gemini",
+                                    "swin_t224_sincos_gemini"])
+def test_angle_train_cli_runs_without_jax_or_geovpr(preset):
+    """`geovpr_torch.cli.train.main` for two epochs of a small model on the
+    preset, with jax, flax and `geovpr` blocked: DINOv2 with `angle_rot`
+    across the unfreeze (one frozen epoch), window-7 Swin with `geo_light`,
+    DropPath and warm restarts."""
+    block = _BLOCK + ("geovpr",)
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAIN_ANGLE.format(block=block,
+                                                   preset=preset)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = proc.stdout.strip().splitlines()
+    assert out[-1] == "OK"
+    rec = json.loads(out[-2])
+    assert rec["final"]["epoch"] == 1
+    assert np.isfinite(rec["final"]["train_loss"])
+    assert np.isfinite(rec["final"]["val_maae"])
 
 
 _FUSE = """

@@ -4,7 +4,8 @@ CPU writes `metrics.jsonl`, `checkpoint_{epoch}/` and `best/`; the plateau
 and early-stop counters follow the JAX `Trainer`'s rule on a scripted
 validation sequence (both loops driven with their steps and evaluations
 replaced); a run resumed from `checkpoint_0` ends where the unbroken run
-ends, bit for bit; and the CLI refuses what is not ported.
+ends, bit for bit; the window-7 Swin and frozen-backbone DINOv2 presets
+train; and the CLI refuses what is not ported.
 """
 
 import dataclasses
@@ -183,11 +184,54 @@ def test_cli_refuses_what_is_not_ported():
         main(args + ["--async-checkpoint"])
     with pytest.raises(NotImplementedError, match="parallel"):
         main(args + ["--multihost"])
-    for name in ("swin_t224_sincos_gemini", "dinov2salad_frozen_mlp",
-                 "efficientnet_sincos_gemini", "convnext_direct_maae"):
+    for name in ("efficientnet_sincos_gemini", "convnext_direct_maae"):
         cfg = presets.build_preset(name)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_train(cfg, _source(2), device="cpu", save_dir="unused")
+
+
+TINY_W7 = dict(embed_dim=32, depths=(2, 2), num_heads=(1, 2),
+               window_size=7, image_size=56)
+TINY_DINO = dict(hidden_size=64, num_layers=2, num_heads=2)
+
+
+@pytest.mark.parametrize("name", [
+    "swin_t224_v1", "swin_t224_v2", "swin_t224_sincos_acos",
+    "swin_t224_sincos_gemini", "dinov2_sincos_gemini",
+    "dinov2salad_frozen_mlp"])
+def test_run_train_trains_the_transformer_presets(name, tmp_path,
+                                                  monkeypatch):
+    """Each window-7 Swin preset and the two DINOv2 presets with a frozen
+    backbone train two epochs on a tiny registered variant with their own
+    augmentation, head, loss, schedule and phases (dinov2_sincos_gemini
+    with one frozen epoch): finite losses and metrics, a checkpoint per
+    epoch."""
+    from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
+
+    monkeypatch.setitem(SWIN_VARIANTS, "tiny-224", TINY_W7)
+    monkeypatch.setitem(DINOV2_VARIANTS, "base-14", TINY_DINO)
+    cfg = presets.build_preset(name)
+    size = 56 if name.startswith("swin") else 28
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, image_size=size,
+                                      batch_size=2),
+        optim=dataclasses.replace(cfg.optim, freeze_backbone_epochs=min(
+            cfg.optim.freeze_backbone_epochs, 1)),
+        train=dataclasses.replace(cfg.train, epochs=2))
+    rng = np.random.default_rng(0)
+    geo = name in presets.GEOPOSE_PRESETS
+    src = ArraySource(
+        rng.integers(0, 256, (4, size, size, 3)).astype(np.uint8),
+        (rng.normal(size=(4, 2)) * [300, 100] + [219000, 143000]).astype(
+            np.float32) if geo else rng.uniform(0, 360, 4).astype(
+                np.float32))
+    tr = run_train(cfg, src, src, save_dir=str(tmp_path), device="cpu")
+    assert [r["epoch"] for r in tr.history] == [0, 1]
+    for r in tr.history:
+        assert np.isfinite(r["train_loss"]) and np.isfinite(r["val_mse"])
+    assert {"checkpoint_0", "checkpoint_1", "best"} <= set(
+        os.listdir(tr.run_dir))
+    assert not tr._frozen_phase
 
 
 @pytest.mark.parametrize("field", ["cache_decoded", "remat"])

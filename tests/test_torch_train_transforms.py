@@ -96,6 +96,23 @@ def test_rotate(images, max_degrees):
     _close(tt.rotate(_t(images), _t(angles)), want)
 
 
+def test_affine(images):
+    """`affine` given `random_affine`'s draws (zoom, then the shift as
+    fractions of the width and height), and `draw_affine`'s ranges."""
+    key = jax.random.PRNGKey(6)
+    b, h, w, _ = images.shape
+    ks, kx, ky = jax.random.split(key, 3)
+    s = jax.random.uniform(ks, (b,), minval=0.9, maxval=1.1)
+    tx = jax.random.uniform(kx, (b,), minval=-0.1, maxval=0.1) * w
+    ty = jax.random.uniform(ky, (b,), minval=-0.1, maxval=0.1) * h
+    want = jt.random_affine(key, jnp.asarray(images))
+    _close(tt.affine(_t(images), _t(s), _t(tx), _t(ty)), want)
+    d = tt.draw_affine(torch.Generator().manual_seed(0), 64, h, w)
+    assert float(d["s"].min()) >= 0.9 and float(d["s"].max()) < 1.1
+    assert float(d["tx"].abs().max()) <= 0.1 * w
+    assert float(d["ty"].abs().max()) <= 0.1 * h
+
+
 def test_gauss_noise(images):
     key = jax.random.PRNGKey(5)
     b = images.shape[0]
@@ -124,7 +141,8 @@ def test_bilinear_modes_at_edges():
                                    atol=ATOL)
 
 
-@pytest.mark.parametrize("name", ["geo_light", "geo_heavy", "none"])
+@pytest.mark.parametrize("name", ["geo_light", "geo_heavy", "angle_rot",
+                                  "none"])
 def test_build_augment(images, name):
     g = torch.Generator().manual_seed(0)
     out, flipped = tt.build_augment(name)(g, _t(images))
@@ -132,6 +150,14 @@ def test_build_augment(images, name):
     assert bool(torch.isfinite(out).all())
     if name == "none":
         assert torch.equal(out, _t(images)) and not flipped.any()
+    if name == "angle_rot":
+        # rotate 45, affine, jitter from the draws in that order; no flip
+        g = torch.Generator().manual_seed(0)
+        b, h, w, _ = images.shape
+        x = tt.rotate(_t(images), tt.draw_rotate(g, b, 45.0))
+        x = tt.affine(x, **tt.draw_affine(g, b, h, w))
+        x = tt.color_jitter(x, **tt.draw_jitter(g, b))
+        assert torch.equal(out, x) and not flipped.any()
 
 
 @pytest.mark.parametrize("cls,rate", [(DropPath, 0.3), (Dropout, 0.3),

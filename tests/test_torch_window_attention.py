@@ -127,10 +127,79 @@ def test_k7_wrapper_checks_its_inputs():
                                 None)
 
 
+@pytest.mark.parametrize("nw", [0, 4], ids=["nomask", "mask"])
+def test_k7_vjp_matches_jax_custom_vjp(interpret, monkeypatch, nw):
+    """K7's autograd Function (the card's forward replaced by its plain
+    version) against `jax.vjp` of `window_attention_pallas` interpreted,
+    whose backward is its `custom_vjp`'s: the VJP of
+    `_window_attention_xla`. f32, the gradients of q, k, v, the bias and
+    the mask within 1e-5 of each tensor's largest element; the output
+    within 1e-5. Under inference mode the Function is the forward alone."""
+    from geovpr_torch.ops import window_attention as wa
+
+    monkeypatch.setattr(wa, "_k7_split_launch",
+                        wa.window_attention_serving_reference)
+    q, k, v, bias, mask = _case(8, nw, seed=11)
+    g = np.random.default_rng(12).normal(size=q.shape).astype(np.float32)
+    args = [q, k, v, bias] + ([mask] if nw else [])
+    want, vjp = jax.vjp(
+        lambda *a: pwa.window_attention_pallas(
+            *a[:4], a[4] if nw else None, 1.0 / DH ** 0.5),
+        *(jnp.asarray(a) for a in args))
+    wgrads = vjp(jnp.asarray(g))
+    targs = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    got = wa._K7Split.apply(*targs[:4], targs[4] if nw else None)
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=1e-5)
+    for name, t, w in zip("q k v bias mask".split(), targs, wgrads):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=name)
+    with torch.inference_mode():
+        out = wa._K7Split.apply(*(torch.from_numpy(a) for a in args[:4]),
+                                torch.from_numpy(mask) if nw else None)
+    assert torch.equal(out, got.detach())
+
+
+def test_k7_raster_vjp_is_the_split_vjp_through_the_gathers(monkeypatch):
+    """The raster entry's Function (forward replaced by its plain version)
+    gives the gradients of qkv and of the relative-position table that
+    autograd gives through the window gathers around the split entry's
+    Function, bit for bit; the geometry takes none."""
+    from geovpr_torch.ops import window_attention as wa
+
+    monkeypatch.setattr(wa, "_k7_split_launch",
+                        wa.window_attention_serving_reference)
+    monkeypatch.setattr(wa, "_k7_raster_launch",
+                        wa.window_attention_raster_reference)
+    rng = np.random.default_rng(13)
+    geom = (2, 14, 7, 3)
+    qkv = rng.normal(size=(2, 14 * 14, 3 * 64)).astype(np.float32)
+    table = rng.normal(size=(13 * 13, 2)).astype(np.float32)
+    g = torch.from_numpy(rng.normal(size=(2, 14 * 14, 64)).astype(
+        np.float32))
+    grads = []
+    for fn in (lambda x, t: wa._K7Raster.apply(x, t, *geom),
+               lambda x, t: wa.windowed_attention(
+                   lambda *a: wa._K7Split.apply(*a), x, t, *geom)):
+        x = torch.from_numpy(qkv).requires_grad_(True)
+        t = torch.from_numpy(table).requires_grad_(True)
+        fn(x, t).backward(g)
+        grads.append((x.grad, t.grad))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
 def test_geometry_constants_survive_inference_mode():
     """The relative-position index and the shift mask are made once per
     geometry; made first under inference mode, they must still serve a
-    later grad-enabled forward and its backward (which saves the index)."""
+    later grad-enabled forward and its backward (which saves the index),
+    and give what constants made outside inference mode give, bit for
+    bit. The grad-enabled forward is the window-7 training route (JAX's
+    XLA softmax, max-shifted), the inference-mode one the serving route
+    (K7's plain version, exp2 with no max-shift): they agree within f32
+    roundoff."""
     from geovpr_torch.models.layers import init_weights_
     from geovpr_torch.ops import window_attention as wa
 
@@ -140,12 +209,16 @@ def test_geometry_constants_survive_inference_mode():
     init_weights_(model, torch.Generator().manual_seed(0))
     x = torch.from_numpy(_images(1, 2))
     with torch.inference_mode():
-        want = model(x).pooled
+        serving = model(x).pooled
     got = model(x).pooled
     got.sum().backward()
     table = model.stage0_block1.attn.relative_position_bias_table
     assert table.grad is not None and torch.isfinite(table.grad).all()
-    torch.testing.assert_close(got.detach(), want, rtol=0, atol=0)
+    wa._position_index.cache_clear()
+    wa._shift_mask.cache_clear()
+    want = model(x).pooled
+    torch.testing.assert_close(got.detach(), want.detach(), rtol=0, atol=0)
+    torch.testing.assert_close(got.detach(), serving, rtol=0, atol=1e-5)
 
 
 # ------------------------------------------------------- Swin at window 7 --
