@@ -51,7 +51,15 @@ end to end from seeded random weights:
   frozen-feature cache (K1 once per extraction batch, then no launch a
   step) and without it, bit-equal; and swin_t224_sincos_gemini
   (Swin-T-224, window 7, B=32), which trains on torch ops as JAX trains on
-  XLA there (no launch a step; K7 and K6 in validation).
+  XLA there (no launch a step; K7 and K6 in validation);
+- the CNN training presets (`run_train`) at full width, cut only in data
+  and epochs: efficientnet_direct_maae and efficientnet_sincos_gemini
+  (EfficientNet-B0, B=32, BatchNorm in training mode) and
+  convnext_direct_maae (ConvNeXt-B, B=16), on cuDNN and cuBLAS (no launch
+  a step or a bf16 validation batch): the running statistics against
+  flax's formula, a NaN step and a resume bit for bit, bf16 against f32
+  gradients; `cli.evaluate --run-dir` on each run, with `--int8` on the
+  ConvNeXt run (K3 in every block).
 
 Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
 form and the w8a8 MLP half-block, K3 also at the four Swin-B-384 stage
@@ -2831,8 +2839,38 @@ def _cosine(a, b) -> float:
 GRAD_F32_RATIO = 1.25
 
 
+@contextlib.contextmanager
+def kept_batch_stats(model):
+    """Put every BatchNorm running statistic of `model` back after the
+    block: a probe's extra train-mode forwards must not move them."""
+    from geovpr_torch.models.layers import batch_stat_buffers
+    bufs = batch_stat_buffers(model)
+    saved = [b.clone() for b in bufs]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, old in zip(bufs, saved):
+                b.copy_(old)
+
+
+def set_compute_dtype(model, dtype) -> None:
+    """The compute dtype of the backbone and of every submodule that keeps
+    its own (EfficientNet's ConvBNAct and SqueezeExcite)."""
+    for m in model.backbone.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = dtype
+
+
 def train_grads_vs_plain(trainer, batch, path: str,
                          against_f32: bool = False) -> None:
+    """`_train_grads_vs_plain` with the running statistics kept."""
+    with kept_batch_stats(trainer.state.model):
+        _train_grads_vs_plain(trainer, batch, path, against_f32)
+
+
+def _train_grads_vs_plain(trainer, batch, path: str,
+                          against_f32: bool = False) -> None:
     """On one batch with dropout and DropPath off, the gradient of every
     parameter on the kernel path against the plain path, cosine >= 0.999
     for each tensor. Beside it, for the worst relative-position table of a
@@ -2859,19 +2897,21 @@ def train_grads_vs_plain(trainer, batch, path: str,
     names = [n for n, _ in model.named_parameters()]
     compute_dtype = model.backbone.dtype
 
+    blocks = getattr(model.backbone, "blocks", [])
+
     def grads(kernels: bool, dtype=compute_dtype):
-        for m in model.backbone.blocks:
+        for m in blocks:
             m.use_kernels = kernels
-        model.backbone.dtype = dtype
+        set_compute_dtype(model, dtype)
         try:
             loss = trainer.objective.loss(
                 model(trainer._normalize(batch["image"])), enc,
                 batch["mask"])
             return torch.autograd.grad(loss, list(model.parameters()))
         finally:
-            for m in model.backbone.blocks:
+            for m in blocks:
                 m.use_kernels = True
-            model.backbone.dtype = compute_dtype
+            set_compute_dtype(model, compute_dtype)
 
     got, want = grads(True), grads(False)
     cos = {n: _cosine(a, b) for n, a, b in zip(names, got, want)}
@@ -2958,6 +2998,13 @@ def train_loss_falls(device, preset: str = TRAIN_PRESET,
 
 def train_times(trainer, batch, card: str, path: str, step=None,
                 phase_name: str = "") -> None:
+    """`_train_times` with the running statistics kept."""
+    with kept_batch_stats(trainer.state.model):
+        _train_times(trainer, batch, card, path, step, phase_name)
+
+
+def _train_times(trainer, batch, card: str, path: str, step=None,
+                 phase_name: str = "") -> None:
     """ms per training step (host clock around 5 synchronised steps on one
     batch), img/s and peak device memory; one step under torch.profiler
     (device busy and idle share, top device ops). `step` defaults to the
@@ -3006,13 +3053,15 @@ def train_times(trainer, batch, card: str, path: str, step=None,
 
 
 def train_run(cfg, train_src, val_src, device, save_dir: str, epochs: int,
-              expected_per: dict, tag: str, expected_once=None):
+              expected_per: dict, tag: str, expected_once=None,
+              pretrained=None):
     """`run_train` with every launch count set to 0 just before and read
     just after: the counts must equal `expected_per` ({counter: (per
     step, per validation batch)}; every other counter 0) plus
     `expected_once` ({counter: launches per run}, the frozen-feature
     cache's extraction), the losses and validation metrics finite, and the
-    run directory complete. Returns the trainer and the counts."""
+    run directory complete. `pretrained` (a state_dict) is laid over the
+    seeded init. Returns the trainer and the counts."""
     from geovpr_torch.cli.train import run_train
 
     counters = train_counters()
@@ -3020,7 +3069,7 @@ def train_run(cfg, train_src, val_src, device, save_dir: str, epochs: int,
         fn.launches = 0
     t0 = time.perf_counter()
     trainer = run_train(cfg, train_src, val_src, save_dir=save_dir,
-                        device=device, epochs=epochs)
+                        device=device, epochs=epochs, pretrained=pretrained)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
@@ -3052,9 +3101,11 @@ def train_run(cfg, train_src, val_src, device, save_dir: str, epochs: int,
 
 
 def train_resume(cfg, train_src, val_src, device, tmp: str, trainer,
-                 tag: str) -> None:
+                 tag: str, pretrained=None) -> None:
     """A run resumed from the first epoch's checkpoint: every step loss of
-    its epochs must repeat the unbroken run's bit for bit."""
+    its epochs, and every tensor of its last checkpoint (parameters and
+    BatchNorm running statistics), must repeat the unbroken run's bit for
+    bit."""
     import shutil
 
     from geovpr_torch.cli.train import run_train
@@ -3067,12 +3118,21 @@ def train_resume(cfg, train_src, val_src, device, tmp: str, trainer,
     shutil.copytree(os.path.join(trainer.run_dir, "checkpoint_0"),
                     os.path.join(resumed_dir, "checkpoint_0"))
     resumed = run_train(cfg, train_src, val_src, save_dir=tmp, device=device,
-                        epochs=epochs, resume=resumed_dir)
+                        epochs=epochs, resume=resumed_dir,
+                        pretrained=pretrained)
     got = resumed.step_losses
+    last = f"checkpoint_{epochs - 1}"
+    a, b = (torch.load(os.path.join(r.run_dir, last, "state.pt"),
+                       weights_only=True)["params"]
+            for r in (trainer, resumed))
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    stats = sum(k.endswith(("running_mean", "running_var")) for k in a)
     phase("train_resume", path=tag, unbroken=unbroken, resumed=got,
-          equal=got == unbroken)
-    check(got == unbroken,
-          f"{tag}: resumed losses {got} != unbroken {unbroken}")
+          equal=got == unbroken, tensors=len(a), running_stats=stats,
+          tensors_differ=len(differ))
+    check(got == unbroken and not differ,
+          f"{tag}: resumed losses {got} != unbroken {unbroken}, or tensors "
+          f"differ: {differ[:5]}")
 
 
 def train_path(device, card: str) -> dict:
@@ -3111,49 +3171,58 @@ def train_path(device, card: str) -> dict:
 
 
 def evaluate_run_dir(preset: str, run_dir: str, source, batch: int,
-                     blocks: int, device, tag: str) -> None:
-    """`geovpr_torch.cli.evaluate.main --run-dir <run> --checkpoint best`
-    on `source` written out as PNGs with a label CSV: finite metrics, one
-    CSV row per image, and K1 in every block of every batch."""
-    import contextlib
-    import io
-
+                     blocks: int, device, tag: str, per_batch=None,
+                     extra=()) -> dict:
+    """`geovpr_torch.cli.evaluate.main --run-dir <run> --checkpoint best
+    [extra]` on `source` (targets (lat, lon), or headings) written out as
+    PNGs with a label CSV, every launch count set to 0 just before and
+    read just after: finite metrics, one CSV row per image, and the
+    launches `per_batch` ({counter: launches a batch}; default K1 in each
+    of `blocks` blocks) in every batch, every other counter 0. Returns the
+    counts."""
     from PIL import Image
 
     from geovpr_torch.cli.evaluate import main as evaluate
-    from geovpr_torch.ops.mhsa import fused_mhsa_block
 
+    counters = train_counters()
     with tempfile.TemporaryDirectory() as tmp:
         os.makedirs(os.path.join(tmp, "img"))
         with open(os.path.join(tmp, "labels.csv"), "w") as f:
             f.write("filename,timestamp,latitude,longitude,angle,"
                     "Region_ID\n")
-            for name, img, (lat, lon) in zip(source.filenames, source.images,
-                                             source.targets):
+            for name, img, t in zip(source.filenames, source.images,
+                                    source.targets):
                 name = name.replace(".jpg", ".png")
                 Image.fromarray(img).save(os.path.join(tmp, "img", name))
-                f.write(f"{name},0,{float(lat)!r},{float(lon)!r},0,1\n")
+                lat, lon, ang = ((float(t[0]), float(t[1]), 0.0)
+                                 if np.ndim(t) else (0.0, 0.0, float(t)))
+                f.write(f"{name},0,{lat!r},{lon!r},{ang!r},1\n")
         out = io.StringIO()
-        fused_mhsa_block.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         with contextlib.redirect_stdout(out):
             evaluate(["--preset", preset, "--run-dir", run_dir,
                       "--checkpoint", "best", "--val-csv",
                       os.path.join(tmp, "labels.csv"), "--image-root",
                       os.path.join(tmp, "img"), "--batch-size", str(batch),
-                      "--out-dir", tmp, "--device", str(device)])
+                      "--out-dir", tmp, "--device", str(device), *extra])
         torch.cuda.synchronize()
         rec = json.loads(out.getvalue().strip().splitlines()[-1])
         with open(rec["validation_csv"]) as f:
             rows = f.read().splitlines()
     n = len(source)
-    launches = fused_mhsa_block.launches
-    phase("evaluate_run_dir", path=tag, metrics=json.dumps(rec["metrics"]),
-          rows=len(rows) - 1, k1_launches=launches)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    expected = dict.fromkeys(counters, 0)
+    for k, v in (per_batch or {"fused_mhsa_block": blocks}).items():
+        expected[k] = v * -(-n // batch)
+    phase("evaluate_run_dir", path=tag, extra=" ".join(extra),
+          metrics=json.dumps(rec["metrics"]), rows=len(rows) - 1,
+          launches={k: v for k, v in launches.items() if v})
     check(all(np.isfinite(v) for v in rec["metrics"].values())
-          and len(rows) == n + 1
-          and launches == blocks * -(-n // batch),
+          and len(rows) == n + 1 and launches == expected,
           f"{tag}: evaluate --run-dir gave {rec}, {len(rows) - 1} rows, "
-          f"{launches} K1 launches")
+          f"launches {launches}, expected {expected}")
+    return launches
 
 
 def dinov2_train_path(device, card: str) -> dict:
@@ -3425,6 +3494,267 @@ def swin_t_train_path(device, card: str) -> dict:
     return launches
 
 
+# The CNN training presets at full width (EfficientNet-B0 at 224 with
+# BatchNorm in training mode, ConvNeXt-B at 224), cut only in data and
+# epochs: (preset, batch, training images, validation images, epochs).
+CNN_TRAIN_CASES = (("efficientnet_direct_maae", 32, 96, 32, 2),
+                   ("efficientnet_sincos_gemini", 32, 96, 32, 2),
+                   ("convnext_direct_maae", 16, 48, 32, 2))
+CONVNEXT_BLOCKS = 36            # ConvNeXt-B: 3 + 3 + 27 + 3, one K3 each
+EFFICIENTNET_BATCHNORMS = 49
+# the running statistics after a step against flax's formula recomputed in
+# f64 on that step's BatchNorm inputs: max |error| over the tensor's
+# largest element
+BN_STAT_RTOL = 1e-5
+# a gradient that is zero in exact arithmetic (a BatchNorm bias that only
+# a 1x1 conv and another training-mode BatchNorm follow): roundoff in
+# every path, so its cosine is not read
+CNN_ROUNDOFF_GRADS = ("project.bn.bias",)
+# the bf16 gradient's per-tensor cosine against the f32 path's, at least:
+# EfficientNet-B0 no further from f32 than JAX's own bf16 gradient sits
+# (0.9316 on the CPU, `cpu_bf16_grads.py efficientnet_sincos_gemini
+# --batch 8`; the port 0.9824 there); ConvNeXt-B under its CPU reading
+# (0.9926, `cpu_bf16_grads.py convnext_direct_maae --batch 2 --perturb`)
+CNN_GRAD_MIN_COSINE = {"efficientnet": 0.93, "convnext": 0.99}
+
+
+def _state_snapshot(st) -> dict:
+    """The float state a training step moves, and its counters."""
+    return {"model": {k: v.clone() for k, v in st.model.state_dict().items()},
+            "mu": {k: v.clone() for k, v in st.opt.mu.items()},
+            "nu": {k: v.clone() for k, v in st.opt.nu.items()},
+            "count": st.opt.count, "step": st.step}
+
+
+def _state_equal(st, snap) -> list:
+    """The names of the tensors of `st` that differ from `snap`."""
+    sd = st.model.state_dict()
+    return ([k for k, v in snap["model"].items() if not torch.equal(v, sd[k])]
+            + [f"mu.{k}" for k, v in snap["mu"].items()
+               if not torch.equal(v, st.opt.mu[k])]
+            + [f"nu.{k}" for k, v in snap["nu"].items()
+               if not torch.equal(v, st.opt.nu[k])])
+
+
+def _state_restore(st, snap) -> None:
+    st.model.load_state_dict(snap["model"])
+    for key in ("mu", "nu"):
+        for k, v in snap[key].items():
+            getattr(st.opt, key)[k].copy_(v)
+    st.opt.count, st.step = snap["count"], snap["step"]
+
+
+def _perturbed_backbone(cfg) -> dict:
+    """The backbone tensors of the seeded init `create_train_state` draws
+    for `cfg`, with norm and bias vectors, LayerScale gammas and the
+    BatchNorm running statistics moved off their init (`perturb_cnn_`), to
+    lay over a run's init as `pretrained`."""
+    import dataclasses
+
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.regression import RegressionModel
+    model = RegressionModel(
+        dataclasses.replace(cfg.model, image_size=cfg.data.image_size),
+        dtype=torch.bfloat16, train=True)
+    init_weights_(model, torch.Generator().manual_seed(cfg.train.seed))
+    perturb_cnn_(model, torch.Generator().manual_seed(SEED + 21))
+    return {k: v for k, v in model.state_dict().items()
+            if k.startswith("backbone.")}
+
+
+def bn_stats_vs_flax(trainer, batch, tag: str) -> None:
+    """One training step with a hook on every BatchNorm: each running mean
+    and variance after it must equal 0.9 times its value before plus 0.1
+    times flax's statistic of that step's BatchNorm input (the conv
+    output), recomputed in f64: the mean over (B, H, W), and the biased
+    variance max(E[x^2] - E[x]^2, 0); max |error| at most BN_STAT_RTOL of
+    the tensor's largest element. The state is put back after it."""
+    from geovpr_torch.models.layers import BatchNorm
+
+    st = trainer.state
+    bns = [m for m in st.model.modules() if isinstance(m, BatchNorm)]
+    before = [(m.running_mean.double(), m.running_var.double()) for m in bns]
+    stats = {}
+
+    def hook(i):
+        def fn(mod, args, out):
+            x = args[0].detach().double()
+            mean = x.mean((0, 2, 3))
+            var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0)
+            stats[i] = (mean, var)
+        return fn
+
+    snap = _state_snapshot(st)
+    hooks = [m.register_forward_hook(hook(i)) for i, m in enumerate(bns)]
+    try:
+        m = trainer._train_step(st, batch)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    worst, where = 0.0, ""
+    for i, bn in enumerate(bns):
+        for got, old, new, name in (
+                (bn.running_mean, before[i][0], stats[i][0], "mean"),
+                (bn.running_var, before[i][1], stats[i][1], "var")):
+            want = 0.9 * old + 0.1 * new
+            err = ((got.double() - want).abs().max()
+                   / want.abs().max().clamp(min=1e-30)).item()
+            if err > worst:
+                worst, where = err, f"{i}.{name}"
+    moved = sum(not torch.equal(bn.running_var.double(), before[i][1])
+                for i, bn in enumerate(bns))
+    _state_restore(st, snap)
+    phase("train_bn_stats", path=tag, batchnorms=len(bns), moved=moved,
+          max_rel_err=worst, worst=where, bound=BN_STAT_RTOL,
+          skipped=float(m["skipped"]))
+    check(len(bns) == EFFICIENTNET_BATCHNORMS and len(stats) == len(bns)
+          and moved == len(bns) and worst <= BN_STAT_RTOL
+          and float(m["skipped"]) == 0.0,
+          f"{tag}: running statistics against flax's formula: {worst} at "
+          f"{where}, {moved} of {len(bns)} moved")
+
+
+def nan_step_keeps_state(trainer, batch, tag: str) -> None:
+    """A step on the batch with NaN targets: skipped, and every parameter,
+    Adam moment and BatchNorm running statistic bit-equal to its value
+    before it. The counters are put back after it."""
+    st = trainer.state
+    snap = _state_snapshot(st)
+    bad = dict(batch, target=torch.full_like(batch["target"], float("nan")))
+    m = trainer._train_step(st, bad)
+    differ = _state_equal(st, snap)
+    phase("train_nan_step", path=tag, skipped=float(m["skipped"]),
+          loss=float(m["loss"]), tensors=len(snap["model"]) + 2 * len(
+              snap["mu"]), tensors_differ=len(differ))
+    check(float(m["skipped"]) == 1.0 and not differ,
+          f"{tag}: the NaN step was not skipped or moved {differ[:5]}")
+    _state_restore(st, snap)
+
+
+def cnn_grads_vs_f32(trainer, batch, tag: str) -> None:
+    """The bf16 training gradient against the same step's in f32, per
+    tensor, on one batch with dropout and stochastic depth off (the
+    running statistics kept): the cosine of each tensor but those in
+    CNN_ROUNDOFF_GRADS at least the family's CNN_GRAD_MIN_COSINE."""
+    st, model = trainer.state, trainer.state.model
+    enc = trainer.objective.encode_targets(batch["target"], st.scaler)
+    names = [n for n, _ in model.named_parameters()]
+    dtype = model.backbone.dtype
+
+    def grads(dt):
+        set_compute_dtype(model, dt)
+        try:
+            loss = trainer.objective.loss(
+                model(trainer._normalize(batch["image"])), enc,
+                batch["mask"])
+            return torch.autograd.grad(loss, list(model.parameters()))
+        finally:
+            set_compute_dtype(model, dtype)
+
+    with kept_batch_stats(model):
+        saved = _drop_rates(model, 0.0)
+        model.train()
+        g16, g32 = grads(dtype), grads(torch.float32)
+        _drop_rates(model, saved)
+    cos = {n: _cosine(a, b) for n, a, b in zip(names, g16, g32)
+           if not n.endswith(CNN_ROUNDOFF_GRADS)}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    flat = [(a.double().flatten(), b.double().flatten())
+            for n, a, b in zip(names, g16, g32) if n in cos]
+    whole = torch.nn.functional.cosine_similarity(
+        torch.cat([a for a, _ in flat]), torch.cat([b for _, b in flat]),
+        dim=0).item()
+    bound = CNN_GRAD_MIN_COSINE[model.config.family]
+    phase("train_grads_f32", path=tag, tensors=len(cos),
+          min_cosine=worst[0][1],
+          median_cosine=float(np.median(list(cos.values()))),
+          all_cosine=whole, worst=repr(worst), bound=bound)
+    check(worst[0][1] >= bound,
+          f"{tag}: bf16 gradient against f32 below {bound}: {worst}")
+
+
+def cnn_train_path(device, card: str) -> dict:
+    """The CNN training presets at full width through `run_train`, for each
+    of CNN_TRAIN_CASES: EfficientNet-B0 (BatchNorm on the batch's
+    statistics, its running ones moving as flax's) and ConvNeXt-B, from
+    seeded weights with norm and bias vectors, LayerScale gammas and the
+    running statistics perturbed off their init, two epochs of 3 steps.
+    No kernel of the port runs in a step or in a validation batch (cuDNN
+    and cuBLAS under autograd, as JAX trains both on XLA). Checks: finite
+    losses and metrics; every running statistic moved off its start; one
+    step's statistics against flax's formula in f64; a NaN-target step
+    bit-equal; a resumed run bit-equal, losses and every tensor of its
+    last checkpoint; the bf16 gradient against f32; `cli.evaluate
+    --run-dir` on the run (and, for ConvNeXt, `--int8`: K3 in every block
+    of every batch, held to its plain version); the step's times. Returns
+    the launch counts."""
+    from geovpr_torch.cli.common import load_trained
+    from geovpr_torch.cli.evaluate import calibrate_int8
+    from geovpr_torch.models.layers import batch_stat_buffers
+
+    total = {}
+    for case in CNN_TRAIN_CASES:
+        preset, batch = case[:2]
+        cfg = _case_cfg(case)
+        tag = preset
+        train_src, val_src = _case_sources(case, cfg, 14)
+        pre = _perturbed_backbone(cfg)
+        eff = cfg.model.family == "efficientnet"
+        t0 = time.perf_counter()
+        phase("train_case", path=tag, reduced=repr(_reduced(case, cfg)),
+              start="seeded init, perturb_cnn_ on the backbone")
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer, launches = train_run(
+                cfg, train_src, val_src, device, tmp, case[4], {}, tag,
+                pretrained=pre)
+            bufs = dict(zip(
+                [n for n, b in trainer.state.model.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))],
+                batch_stat_buffers(trainer.state.model)))
+            moved = [k for k, v in bufs.items()
+                     if not torch.equal(v.cpu(), pre[k])]
+            phase("train_batch_stats", path=tag, tensors=len(bufs),
+                  moved=len(moved))
+            check(len(moved) == len(bufs) == (
+                2 * EFFICIENTNET_BATCHNORMS if eff else 0),
+                f"{tag}: running statistics moved {len(moved)} of "
+                f"{len(bufs)}")
+            tb = next(iter(_train_batches(train_src, device, batch)))
+            if eff:
+                bn_stats_vs_flax(trainer, tb, tag)
+            nan_step_keeps_state(trainer, tb, tag)
+            train_resume(cfg, train_src, val_src, device, tmp, trainer, tag,
+                         pretrained=pre)
+            cnn_grads_vs_f32(trainer, tb, tag)
+            train_times(trainer, tb, card, tag)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            run_dir = trainer.run_dir
+            del trainer
+            torch.cuda.empty_cache()
+            evaluate_run_dir(preset, run_dir, val_src, batch, 0, device,
+                             tag, per_batch={})
+            if not eff:
+                got = evaluate_run_dir(
+                    preset, run_dir, val_src, batch, 0, device,
+                    f"{tag}-int8", extra=("--int8",),
+                    per_batch={"fused_mlp_block_int8": CONVNEXT_BLOCKS})
+                for k, v in got.items():
+                    total[k] = total.get(k, 0) + v
+                model, _, _ = load_trained(preset, run_dir, device=device,
+                                           int8=True)
+                calibrate_int8(model, val_src, batch, device)
+                images = torch.from_numpy(val_src.images[:batch]).to(device)
+                swin_kernel_path_vs_plain_path(model, images,
+                                               MIN_COSINE_INT8,
+                                               f"{tag}-int8-run")
+                del model
+                torch.cuda.empty_cache()
+        phase("train_case_seconds", path=tag, s=time.perf_counter() - t0)
+    return total
+
+
 def _train_batches(source, device, batch: int = TRAIN_BATCH):
     from geovpr_torch.data.pipeline import iterate_batches, prefetch_to_device
     return prefetch_to_device(iterate_batches(source, batch), device)
@@ -3512,7 +3842,8 @@ def main() -> int:
     k8c_part_times(device, card)
 
     rest_launches = {}
-    for path in (dinov2_sincos_path, salad_frozen_path, swin_t_train_path):
+    for path in (dinov2_sincos_path, salad_frozen_path, swin_t_train_path,
+                 cnn_train_path):
         for k, v in path(device, card).items():
             rest_launches[k] = rest_launches.get(k, 0) + v
 

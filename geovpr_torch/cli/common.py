@@ -8,10 +8,12 @@ def load_trained(preset: str, run_dir: str, checkpoint: str = "best", *,
                  device="cuda", int8: bool = False):
     """The preset's `RegressionModel` on `device` with the parameters of
     `checkpoint` under a run directory that `geovpr_torch.cli.train` wrote
-    ('best', 'latest' or a checkpoint directory's name), its target scaler
-    (None for an angle preset) and the preset's config: (model, scaler,
-    cfg). `int8` builds the w8a8 serving model, to be calibrated before
-    use. Exits where there is no such checkpoint.
+    ('best', 'latest' or a checkpoint directory's name; an EfficientNet
+    run's BatchNorm running statistics come with them, the counterpart of
+    `geovpr/cli/common.py:33`), in eval mode, its target scaler (None for
+    an angle preset) and the preset's config: (model, scaler, cfg). `int8`
+    builds the w8a8 serving model, to be calibrated before use. Exits
+    where there is no such checkpoint.
 
     JAX's loader retries with the unfrozen optimizer template when a
     freeze -> unfreeze run's checkpoint does not match the frozen one

@@ -16,10 +16,12 @@ the mean squared circular error on `manifest.angle`), writes
 (`test_predictions_sorted.csv`, or `test_pred.csv` for angles), with
 `--submission-csv` the geopose submission file, and prints the same JSON as
 the JAX CLI. `--run-dir` reads a run directory that
-`geovpr_torch.cli.train` wrote: the parameters and the scaler of its
-`best/` checkpoint, of the newest `checkpoint_{epoch}/` with `--checkpoint
-latest`, or of the named one; `--out-dir` defaults to the run directory
-there, as in JAX. `--variables` is a flax `msgpack_serialize` file of
+`geovpr_torch.cli.train` wrote: the parameters (an EfficientNet run's
+BatchNorm running statistics with them, as `geovpr/cli/common.py:33`
+carries `batch_stats`) and the scaler of its `best/` checkpoint, of the
+newest `checkpoint_{epoch}/` with `--checkpoint latest`, or of the named
+one; `--out-dir` defaults to the run directory there, as in JAX.
+`--variables` is a flax `msgpack_serialize` file of
 {"params": <RegressionModel params>, "scaler": {"mean": (2,), "scale":
 (2,)}} for geopose, {"params"} or {"params", "batch_stats"} (EfficientNet)
 for angles. At most one of the two may be given; without either the model
@@ -50,10 +52,11 @@ import torch
 def build_model(cfg, device, variables: str = "", seed: int = 0,
                 int8: bool = False, run_dir: str = "",
                 checkpoint: str = "best"):
-    """The preset's `RegressionModel` in its compute dtype on `device`, and
-    for a geopose preset its target scaler (None for an angle preset): from
-    a flax msgpack, from `checkpoint` of a run directory the port's trainer
-    wrote, or a random init seeded with `seed` (and the identity scaler).
+    """The preset's `RegressionModel` in its compute dtype on `device`, in
+    eval mode, and for a geopose preset its target scaler (None for an
+    angle preset): from a flax msgpack, from `checkpoint` of a run
+    directory the port's trainer wrote (its running statistics too), or a
+    random init seeded with `seed` (and the identity scaler).
     `int8` builds the w8a8 serving model, to be calibrated before use."""
     from geovpr_torch.core.config import GeoposeConfig
     from geovpr_torch.models.layers import init_weights_

@@ -16,7 +16,10 @@ device. Where the angle head's eval transform is Resize(256) +
 CenterCrop(224) (`eval_resize_to`), the decode also emits that view of the
 original aspect (`DualGeometrySource`) and the angle head reads it as it
 is. Any component may be left out; the run directories are the port
-trainer's (`geovpr_torch.cli.train`), `--salad-variables` a flax msgpack
+trainer's (`geovpr_torch.cli.train`) for any preset it trains, the CNNs
+included (an EfficientNet run is served on its own BatchNorm running
+statistics, as `geovpr/cli/fuse.py:35-36` carries `batch_stats`), read by
+`cli.common.load_trained`; `--salad-variables` a flax msgpack
 of DinoV2Salad variables (`geovpr.cli.convert --family dinov2_salad`).
 Writes `test_predictions_sorted.csv`, `test_pred.csv` and
 `retrieval_matches.csv` and prints JAX's JSON record last.

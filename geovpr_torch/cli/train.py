@@ -24,10 +24,20 @@ Trains the presets whose every kernel and module is ported:
   through K1;
 - DINOv2 + SALAD with its backbone frozen (`dinov2salad_frozen_mlp`): the
   descriptors extracted once through K1 (the frozen-feature cache), then
-  the head alone a step.
-The CNN presets and an unfrozen DINOv2 + SALAD raise NotImplementedError
-naming the ROADMAP item, and so do the config fields the port does not
-honour yet (`data.cache_decoded`, `model.remat`). Checkpoints are the port's
+  the head alone a step;
+- EfficientNet-B0 (`efficientnet_direct_maae`, `efficientnet_sincos_gemini`)
+  and ConvNeXt-B (`convnext_direct_maae`): cuDNN convolutions and cuBLAS
+  products under autograd, as JAX trains them on XLA, no kernel of the
+  port a step. EfficientNet's BatchNorms normalize with the batch's
+  statistics (every row, a padded tail row included) and move their
+  running ones as flax does (momentum 0.9, the biased variance); a
+  NaN-skipped step keeps the old ones, checkpoints carry them, and
+  validation and `cli.evaluate --run-dir` / `cli.fuse --angle-run` read
+  them. ConvNeXt's validation runs its bf16 serving forward (K3 only in
+  the w8a8 scoring of `cli.evaluate --int8`).
+An unfrozen DINOv2 + SALAD raises NotImplementedError naming the ROADMAP
+item, and so do the config fields the port does not honour yet
+(`data.cache_decoded`, `model.remat`). Checkpoints are the port's
 own (`train.checkpoint`), in the JAX CLI's run-directory layout;
 `--pretrained` reads a flax msgpack of backbone variables (as
 `geovpr.cli.convert` writes it). `--device` defaults to cuda and fails

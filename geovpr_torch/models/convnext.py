@@ -1,5 +1,5 @@
-"""ConvNeXt backbone, serving forward (the port of `geovpr.models.convnext`,
-NHWC input).
+"""ConvNeXt backbone, serving and training forward (the port of
+`geovpr.models.convnext`, NHWC input).
 
 HF `ConvNextModel`: stem Conv k4/s4 + LN; per block depthwise 7x7 (padding
 3) -> LN -> channel MLP (Linear 4x -> GELU -> Linear) -> LayerScale `gamma`
@@ -23,15 +23,27 @@ path, as for the transformers (`geovpr_torch.models.quantize`). Submodules
 are named as the flax scopes (`stem`, `stem_norm`, `downsample{s}_norm`,
 `downsample{s}_conv`, `stage{s}_block{b}` with `dwconv`, `norm`, `mlp`,
 `gamma`; `pool_norm`).
+
+Training (`param_dtype` f32): the stem, downsample and depthwise convs,
+the MLP, the LayerNorms and `gamma` hold f32 parameters, cast to the
+stream's compute dtype per call (the conv weights in channels-last
+memory), so the bf16 MLP runs under autograd with `gelu_fast`'s tanh. JAX
+trains ConvNeXt on XLA: its int8 `Mlp` runs only where `deterministic`
+(`geovpr/models/convnext.py:71-75`), so K3 stays serving-only. Each
+block's branch passes a `DropPath` at JAX's `linspace(0, drop_path_rate,
+total)` rate (`:79`, `:100-101`); the registry passes no rate, as JAX's
+does, so it is the identity at the presets.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from geovpr_torch.models.backbone import BackboneOutput
-from geovpr_torch.models.layers import LayerNorm, Mlp, QuantBlock
+from geovpr_torch.models.layers import DropPath, LayerNorm, Mlp, QuantBlock
 from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
                                        mlp_block_int8_reference)
 
@@ -45,8 +57,12 @@ POOL_LN_EPS = 1e-12
 
 
 def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """A conv on an NHWC (B, H, W, C) stream, returning NHWC."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    """A conv on an NHWC (B, H, W, C) stream in the stream's dtype (the
+    weight and bias cast to it), returning NHWC."""
+    dt = x.dtype
+    return F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dt),
+                    conv.bias.to(dt), conv.stride, conv.padding,
+                    conv.dilation, conv.groups).permute(0, 2, 3, 1)
 
 
 class ConvNeXtBlock(QuantBlock):
@@ -58,7 +74,7 @@ class ConvNeXtBlock(QuantBlock):
 
     def __init__(self, dim: int, layerscale_init: float = 1e-6,
                  dtype: torch.dtype = torch.float32, device=None,
-                 int8_mlp: bool = False):
+                 int8_mlp: bool = False, drop_path: float = 0.0):
         super().__init__()
         self.layerscale_init = layerscale_init
         self.use_kernels = True
@@ -67,6 +83,7 @@ class ConvNeXtBlock(QuantBlock):
         self.norm = LayerNorm(dim, LN_EPS, device=device)
         self.mlp = Mlp(dim, 4 * dim, dim, dtype=dtype, device=device,
                        int8=int8_mlp)
+        self.drop_path = DropPath(drop_path)
         self.gamma = nn.Parameter(torch.empty(dim, device=device))
         self._k3: dict | None = None
         self._init_quant(dim, False, int8_mlp)
@@ -93,16 +110,21 @@ class ConvNeXtBlock(QuantBlock):
             return mlp(h.contiguous(), **self._folded_args(self._k3),
                        ln_eps=LN_EPS, residual=x.contiguous())
         h = self.mlp(self.norm(h))
-        return x + h * self.gamma.to(h.dtype)
+        return x + self.drop_path(h * self.gamma.to(h.dtype))
 
 
 class ConvNeXt(nn.Module):
+    """`param_dtype` (f32 in a training build) holds the parameters;
+    `dtype` is the compute dtype of the stream."""
+
     def __init__(self, depths=(3, 3, 27, 3), dims=(128, 256, 512, 1024),
                  dtype: torch.dtype = torch.float32, device=None,
-                 int8_mlp: bool = False):
+                 int8_mlp: bool = False, drop_path_rate: float = 0.0,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=param_dtype or dtype, device=device)
+        rates = np.linspace(0, drop_path_rate, sum(depths))
         self.stem = nn.Conv2d(3, dims[0], 4, stride=4, **kw)
         self.stem_norm = LayerNorm(dims[0], LN_EPS, device=device)
         self.depths = tuple(depths)
@@ -113,9 +135,9 @@ class ConvNeXt(nn.Module):
                 self.add_module(f"downsample{s}_conv", nn.Conv2d(
                     dims[s - 1], dims[s], 2, stride=2, **kw))
             for b in range(depth):
-                self.add_module(f"stage{s}_block{b}",
-                                ConvNeXtBlock(dims[s], **kw,
-                                              int8_mlp=int8_mlp))
+                self.add_module(f"stage{s}_block{b}", ConvNeXtBlock(
+                    dims[s], **kw, int8_mlp=int8_mlp,
+                    drop_path=float(rates[sum(depths[:s]) + b])))
         self.pool_norm = LayerNorm(dims[-1], POOL_LN_EPS, device=device)
         self.num_features = dims[-1]
         self.to(memory_format=torch.channels_last)

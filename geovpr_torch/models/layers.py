@@ -118,12 +118,24 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the running statistics, computed in f32
-    whatever the input dtype and returned in f32, as flax
-    `nn.BatchNorm(use_running_average=True, dtype=jnp.float32)`
-    (`geovpr/models/efficientnet.py:83-85`). Parameters `weight`, `bias`
-    (flax `scale`, `bias`) and buffers `running_mean`, `running_var` (flax
-    `batch_stats` `mean`, `var`); (B, C, H, W) input."""
+    """flax `nn.BatchNorm(use_running_average=not train, momentum=0.9,
+    epsilon=eps, dtype=jnp.float32)` (`geovpr/models/efficientnet.py:
+    83-85`), computed in f32 whatever the input dtype and returned in f32.
+    Parameters `weight`, `bias` (flax `scale`, `bias`) and buffers
+    `running_mean`, `running_var` (flax `batch_stats` `mean`, `var`);
+    (B, C, H, W) input.
+
+    Eval mode normalizes with the running statistics. Training mode
+    normalizes with the batch's, over (B, H, W) and every row (a padded
+    tail row included, as flax sees it), under autograd: flax's fast
+    variance, max(E[x^2] - E[x]^2, 0), which is the biased one; then
+    y = (x - mean) * (rsqrt(var + eps) * weight) + bias in flax's order.
+    The running statistics move as flax moves them, ra = 0.9 ra + 0.1
+    batch, the biased variance included (torch's `F.batch_norm` would
+    move `running_var` by the unbiased one), in place under no grad: a
+    caller that must undo a step (the NaN skip) restores them."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, channels: int, eps: float, device=None):
         super().__init__()
@@ -144,22 +156,47 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x.float(), self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x.float(), self.running_mean,
+                                self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        # flax's `_compute_stats` with `use_fast_variance`, over (B, H, W)
+        x = x.float()
+        mean = x.mean((0, 2, 3))
+        var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean
+                                    + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None])
+
+
+def batch_stat_buffers(model: nn.Module) -> list:
+    """Every BatchNorm running statistic of `model`, in module order: the
+    float state a training step moves besides the parameters (flax's
+    `batch_stats` collection)."""
+    return [b for m in model.modules() if isinstance(m, BatchNorm)
+            for b in (m.running_mean, m.running_var)]
 
 
 class ConvBNAct(nn.Module):
-    """Conv (no bias, in the compute dtype) -> eval BatchNorm in f32 ->
-    SiLU on that f32 (`geovpr/models/efficientnet.py:56-88`). The input is
-    cast to the compute dtype for the conv; the output is f32. Padding
-    "torch" is symmetric, (k-1)//2 a side (torchvision); "tf" is TF-SAME's
-    asymmetric (k//2 - 1, k//2) for stride 2 (HF / google checkpoints) and
-    symmetric otherwise."""
+    """Conv (no bias, in the compute dtype) -> BatchNorm in f32 -> SiLU on
+    that f32 (`geovpr/models/efficientnet.py:56-88`). The input and the
+    conv weight are cast to the compute dtype `dtype` for the conv (a
+    serving build holds its weight in it, so the cast is a no-op; a
+    training build holds it in `param_dtype`, f32, as flax keeps f32
+    params); the output is f32. Padding "torch" is symmetric, (k-1)//2 a
+    side (torchvision); "tf" is TF-SAME's asymmetric (k//2 - 1, k//2) for
+    stride 2 (HF / google checkpoints) and symmetric otherwise."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  groups: int = 1, use_act: bool = True,
                  conv_padding: str = "torch", bn_eps: float = 1e-3,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         half = kernel // 2
         if conv_padding == "tf" and stride == 2:
@@ -170,16 +207,20 @@ class ConvBNAct(nn.Module):
         else:
             raise ValueError(f"unknown conv_padding {conv_padding!r}")
         self.use_act = use_act
+        self.dtype = dtype
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride, padding=sym,
-                              groups=groups, bias=False, dtype=dtype,
-                              device=device)
+                              groups=groups, bias=False,
+                              dtype=param_dtype or dtype, device=device)
         self.bn = BatchNorm(out_ch, bn_eps, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.conv.weight.dtype)
+        x = x.to(self.dtype)
         if self.pad is not None:
             x = F.pad(x, self.pad)
-        x = self.bn(self.conv(x))
+        conv = self.conv
+        x = self.bn(F.conv2d(x, conv.weight.to(self.dtype), None,
+                             conv.stride, conv.padding, conv.dilation,
+                             conv.groups))
         return F.silu(x) if self.use_act else x
 
 
@@ -187,20 +228,26 @@ class SqueezeExcite(nn.Module):
     """SE gate (`geovpr/models/layers.py:53-71`, torchvision
     `SqueezeExcitation`): spatial mean (in the input's dtype) -> 1x1 conv
     `fc1` -> SiLU -> 1x1 conv `fc2` -> sigmoid, the convs and the gate in
-    the compute dtype, the product in the input's dtype promoted with the
+    the compute dtype `dtype` (weights held in `param_dtype` and cast, as
+    `ConvBNAct`), the product in the input's dtype promoted with the
     gate's; (B, C, H, W)."""
 
     def __init__(self, channels: int, squeeze_channels: int,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
-        self.fc1 = nn.Conv2d(channels, squeeze_channels, 1, dtype=dtype,
+        self.dtype = dtype
+        pdt = param_dtype or dtype
+        self.fc1 = nn.Conv2d(channels, squeeze_channels, 1, dtype=pdt,
                              device=device)
-        self.fc2 = nn.Conv2d(squeeze_channels, channels, 1, dtype=dtype,
+        self.fc2 = nn.Conv2d(squeeze_channels, channels, 1, dtype=pdt,
                              device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.mean(dim=(2, 3), keepdim=True).to(self.fc1.weight.dtype)
-        s = self.fc2(F.silu(self.fc1(s)))
+        dt = self.dtype
+        s = x.mean(dim=(2, 3), keepdim=True).to(dt)
+        s = F.silu(F.conv2d(s, self.fc1.weight.to(dt), self.fc1.bias.to(dt)))
+        s = F.conv2d(s, self.fc2.weight.to(dt), self.fc2.bias.to(dt))
         return x * torch.sigmoid(s)
 
 

@@ -29,11 +29,13 @@ def check_int8_serving(cfg: ModelConfig) -> None:
 def check_training(cfg: ModelConfig) -> None:
     """The one rule for whether the port trains `cfg`: Swin (window 12 on
     the training kernels K9a-K9c, window 7 on JAX's XLA route), DINOv2 on
-    K8a-K8c, and DINOv2 + SALAD with a frozen backbone (its serving
-    forward, K1, under no grad). NotImplementedError, naming the ROADMAP
-    item, for the rest."""
+    K8a-K8c, DINOv2 + SALAD with a frozen backbone (its serving forward,
+    K1, under no grad), and the CNNs on cuDNN and cuBLAS under autograd
+    (EfficientNet-B0 with BatchNorm in training mode, ConvNeXt), as JAX
+    trains them on XLA. NotImplementedError, naming the ROADMAP item, for
+    an unfrozen DINOv2 + SALAD."""
     family = cfg.family
-    if family in ("dinov2", "swin"):
+    if family in ("dinov2", "swin", "efficientnet", "convnext"):
         return
     if family == "dinov2_salad":
         if cfg.freeze_backbone:
@@ -43,12 +45,7 @@ def check_training(cfg: ModelConfig) -> None:
             "yet (ROADMAP Queue 1, leftovers: unfrozen DINOv2 + SALAD "
             "training, SALAD's Sinkhorn under autograd); set "
             "model.freeze_backbone")
-    item = {"efficientnet": "CNN training: BatchNorm in training mode",
-            "convnext": "CNN training"}.get(family)
-    if item is None:
-        raise ValueError(f"unknown model family {family!r}")
-    raise NotImplementedError(
-        f"training {family} is not ported yet (ROADMAP Queue 1, {item})")
+    raise ValueError(f"unknown model family {family!r}")
 
 
 def build_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32, *,
@@ -64,17 +61,18 @@ def build_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32, *,
     if train:
         check_training(cfg)
     kw = dict(dtype=dtype, device=device, int8_attn=int8, int8_mlp=int8)
+    pdt = torch.float32 if train else None
     if family == "efficientnet":
         from geovpr_torch.models.efficientnet import EfficientNetB0
         if cfg.variant != "b0":
             raise ValueError(f"unknown efficientnet variant {cfg.variant!r}")
-        return EfficientNetB0(dtype=dtype, device=device)
+        return EfficientNetB0(dtype=dtype, device=device, param_dtype=pdt)
     if family == "convnext":
         from geovpr_torch.models.convnext import CONVNEXT_VARIANTS, ConvNeXt
         if cfg.variant not in CONVNEXT_VARIANTS:
             raise ValueError(f"unknown convnext variant {cfg.variant!r}")
         return ConvNeXt(**CONVNEXT_VARIANTS[cfg.variant], dtype=dtype,
-                        device=device, int8_mlp=int8)
+                        device=device, int8_mlp=int8, param_dtype=pdt)
     if family == "swin":
         from geovpr_torch.models.swin import SWIN_VARIANTS, SwinTransformer
         if cfg.variant not in SWIN_VARIANTS:
@@ -87,15 +85,14 @@ def build_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32, *,
                 f"image_size={cfg.image_size}")
         if train:   # JAX's SwinTransformer default (`swin.py:843`)
             spec = {"drop_path_rate": 0.1, **spec}
-        return SwinTransformer(**spec, **kw, param_dtype=(
-            torch.float32 if train else None))
+        return SwinTransformer(**spec, **kw, param_dtype=pdt)
     if family == "dinov2":
         from geovpr_torch.models.dinov2 import DINOV2_VARIANTS, DinoV2
         if cfg.variant not in DINOV2_VARIANTS:
             raise ValueError(f"unknown dinov2 variant {cfg.variant!r}")
         return DinoV2(**DINOV2_VARIANTS[cfg.variant],
                       image_size=cfg.image_size or 224, **kw,
-                      param_dtype=torch.float32 if train else None)
+                      param_dtype=pdt)
     if family == "dinov2_salad":
         from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
         from geovpr_torch.models.salad import DinoV2Salad
@@ -103,5 +100,5 @@ def build_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32, *,
             raise ValueError(f"unknown dinov2_salad variant {cfg.variant!r}")
         return DinoV2Salad(variant=cfg.variant,
                            image_size=cfg.image_size or 224, **kw,
-                           param_dtype=torch.float32 if train else None)
+                           param_dtype=pdt)
     raise ValueError(f"unknown model family {family!r}")

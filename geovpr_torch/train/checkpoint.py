@@ -3,14 +3,17 @@ the port's own format, `torch.save` of plain tensors, with the JAX
 package's directory contract.
 
 - `checkpoint_{epoch}/` per epoch and `best/` for the best model, each a
-  directory holding `state.pt` (step, parameters, optimizer moments, count
-  and lr_scale, the target scaler, the seed, the epoch) and the
+  directory holding `state.pt` (step, the model's state_dict: parameters
+  and BatchNorm running statistics, as JAX's checkpoint holds params and
+  batch_stats; optimizer moments, count and lr_scale, the target scaler,
+  the seed, the epoch) and the
   `run_metrics.json` sidecar (the epoch and the loop's counters:
   `bad_epochs`, `plateau_bad`, `best`, `best_epoch`, or the val metrics);
 - writes are atomic: the directory is written under a temporary name and
   renamed into place;
 - `latest_checkpoint` finds the newest `checkpoint_{epoch}`;
-- `load_run_checkpoint` reads the parameters and the scaler of a run
+- `load_run_checkpoint` reads the parameters (with the running
+  statistics) and the scaler of a run
   directory's `best`, `latest` or named checkpoint, as
   `geovpr.cli.common.load_trained` resolves them, for
   `geovpr_torch.cli.evaluate --run-dir`.

@@ -6,10 +6,13 @@ freeze -> unfreeze phases, the frozen-feature cache, and a
 
 Each step is `train.steps.make_train_step`'s: on the card, per block, K9a
 and K9c / K9b for window-12 Swin, K8a and K8c / K8b for DINOv2, torch ops
-for window-7 Swin (JAX's XLA route). Validation runs the serving forward
-(K4 or K7, and K6, for Swin, K1 for DINOv2) under `torch.inference_mode()`
-on the same f32 parameters, cast per call, and reduces the eval sums of
-`serve.eval` into the metric suite.
+for window-7 Swin (JAX's XLA route), cuDNN and cuBLAS under autograd for
+the CNNs (EfficientNet-B0's BatchNorms on the batch's statistics, moving
+their running ones). Validation runs the serving forward (K4 or K7, and
+K6, for Swin, K1 for DINOv2) in eval mode, BatchNorm on its running
+statistics, under `torch.inference_mode()` on the same f32 parameters,
+cast per call, and reduces the eval sums of `serve.eval` into the metric
+suite.
 
 Phases (`geovpr/train/loop.py:85-101`): with `freeze_backbone_epochs` the
 first epochs train the head alone (the optimizer's backbone scale 0: its
@@ -43,6 +46,7 @@ from geovpr_torch.core.config import DataConfig, OptimConfig, TrainConfig
 from geovpr_torch.data.pipeline import (ArraySource, iterate_batches,
                                         prefetch_to_device)
 from geovpr_torch.data.transforms import build_augment, normalize
+from geovpr_torch.models.layers import batch_stat_buffers
 from geovpr_torch.objectives.scaler import ScalerState
 from geovpr_torch.serve.eval import add_sums, eval_sums, summarize_eval
 from geovpr_torch.train.checkpoint import (checkpoint_epoch,
@@ -155,6 +159,12 @@ class Trainer:
                     f"could not restore {ckpt} with either the frozen-phase "
                     f"or the unfrozen optimizer") from e
         return epoch + 1
+
+    @property
+    def has_batch_stats(self) -> bool:
+        """Whether the model keeps batch statistics (EfficientNet's
+        BatchNorms), as JAX's `Trainer.has_batch_stats`."""
+        return bool(batch_stat_buffers(self.model))
 
     @staticmethod
     def steps_per_epoch(n: int, data_cfg: DataConfig) -> int:
@@ -286,15 +296,17 @@ class Trainer:
         cached `pooled_features`, or None where the cache does not apply:
         it needs `cache_frozen_features`, a frozen backbone
         (`ModelConfig.freeze_backbone`), no augmentation (the features
-        must not change between epochs) and no batch statistics (a frozen
-        BatchNorm would still see each batch). The features are the
-        serving forward's, the one the uncached step runs under no grad,
-        so the trajectory is unchanged."""
+        must not change between epochs) and no batch statistics
+        (`geovpr/train/loop.py:357`: a frozen BatchNorm in training mode
+        would still normalize each batch by its own statistics and move
+        them). The features are the serving forward's, the one the
+        uncached step runs under no grad, so the trajectory is
+        unchanged."""
         model_cfg = getattr(self.model, "config", None)
         if not (self.train_cfg.cache_frozen_features
                 and model_cfg is not None and model_cfg.freeze_backbone
                 and self.data_cfg.augment == "none"
-                and model_cfg.family != "efficientnet"):
+                and not self.has_batch_stats):
             return None
         model = self.state.model
 

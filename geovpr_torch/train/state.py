@@ -1,6 +1,7 @@
 """The training state (the port of `geovpr.train.state`): the step, the
-model (its parameters), the optimizer state, the target scaler and the
-seed that every step's random draws derive from."""
+model (its parameters, and the BatchNorm running statistics as its
+buffers: JAX's `batch_stats`), the optimizer state, the target scaler and
+the seed that every step's random draws derive from."""
 
 from __future__ import annotations
 
@@ -40,9 +41,12 @@ def create_train_state(model: nn.Module, optim_cfg: OptimConfig, seed: int,
                        pretrained: Optional[dict] = None,
                        total_steps: int = 0,
                        steps_per_epoch: int = 0) -> TrainState:
-    """A seeded random init of `model` (on its device), with `pretrained`
-    (a state_dict, e.g. the backbone's from `convert_jax`) laid over it,
-    the optimizer at step 0 and the scaler (identity when None)."""
+    """A seeded random init of `model` (on its device; BatchNorm running
+    statistics reset to mean 0, variance 1), with `pretrained` (a
+    state_dict, e.g. the backbone's from `convert_jax`, running statistics
+    included where the flax tree has `batch_stats`) laid over it, as
+    `geovpr/train/state.py:56-58` lays params and batch_stats, the
+    optimizer at step 0 and the scaler (identity when None)."""
     device = next(model.parameters()).device
     init_weights_(model, torch.Generator().manual_seed(seed))
     if pretrained:
@@ -60,9 +64,10 @@ def _merge_pretrained(init: dict, pretrained: dict) -> dict:
     pretrained, head fresh), under the bridge's names for every backbone
     (`backbone.blocks.N.attn.qkv_weight`, `backbone.cls_token`,
     `backbone.pos_embed` for DINOv2; `backbone.stage{s}_block{b}.*` for
-    Swin). Every pretrained key must exist in the model with the same
-    shape (`geovpr/train/state.py:82-106`): an unknown key would leave the
-    real parameter at its random init."""
+    Swin, EfficientNet and ConvNeXt, BatchNorm `running_mean` /
+    `running_var` buffers included). Every pretrained key must exist in
+    the model with the same shape (`geovpr/train/state.py:82-106`): an
+    unknown key would leave the real parameter at its random init."""
     out = dict(init)
     for k, v in pretrained.items():
         if k not in out:

@@ -9,6 +9,12 @@ loss and every gradient, computed on the device with no host sync; where
 it is false the optimizer keeps the parameters and moments, its integer
 count (and the step) still advance, and the reported loss is 0.
 
+Batch statistics (EfficientNet's BatchNorms, `geovpr/train/steps.py:72-77`):
+the forward in training mode moves the running statistics in place. The
+NaN skip restores them too, as JAX's `jnp.where` covers every float leaf,
+`batch_stats` included (`:91-99`): they are copied before the forward and
+put back with `torch.where(ok, new, old)` on the device.
+
 `apply_fn` replaces the model's forward (`geovpr/train/steps.py:31-42`):
 the frozen-feature cache trains `RegressionModel.head_only` on cached
 features, with no normalisation and no augmentation. `make_eval_step` is
@@ -22,7 +28,7 @@ from typing import Callable, Optional
 import torch
 
 from geovpr_torch.data.transforms import normalize
-from geovpr_torch.models.layers import set_rng
+from geovpr_torch.models.layers import batch_stat_buffers, set_rng
 from geovpr_torch.train.state import TrainState
 
 
@@ -58,6 +64,8 @@ def make_train_step(objective, normalize_fn: Optional[Callable] = normalize,
             images = torch.clamp(x01, 0.0, 1.0)
             targets = objective.remap_flip(targets, flipped)
         enc = objective.encode_targets(targets, state.scaler)
+        stats = batch_stat_buffers(model) if skip_nonfinite else []
+        old_stats = [b.clone() for b in stats]
         set_rng(model, drop_gen)
         try:
             preds = (apply_fn or model)(
@@ -75,6 +83,9 @@ def make_train_step(objective, normalize_fn: Optional[Callable] = normalize,
             ok = torch.stack([torch.isfinite(loss)] + [
                 torch.isfinite(g).all() for g in grads.values()]).all()
         state.opt.update(params, grads, ok)
+        with torch.no_grad():
+            for new, old in zip(stats, old_stats):
+                new.copy_(torch.where(ok, new, old))
         state.step += 1
         loss = loss.detach()
         if ok is None:

@@ -345,19 +345,23 @@ from PIL import Image
 from geovpr_torch.cli import presets
 from geovpr_torch.cli.train import main
 torch.set_num_threads(1)  # a small model, on cores the test workers share
+from geovpr_torch.models.convnext import CONVNEXT_VARIANTS
 from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
 from geovpr_torch.models.swin import SWIN_VARIANTS
 DINOV2_VARIANTS["test"] = dict(hidden_size=64, num_layers=2, num_heads=2)
 SWIN_VARIANTS["test-w7"] = dict(embed_dim=64, depths=(2, 2),
                                 num_heads=(2, 4), window_size=7,
                                 image_size=56)
+CONVNEXT_VARIANTS["test"] = dict(depths=(1, 1), dims=(32, 64))
 preset = {preset!r}
-size = 56 if preset.startswith("swin") else 28
 cfg = presets.ANGLE_PRESETS[preset]
+size, variant = {{"swin": (56, "test-w7"), "dinov2": (28, "test"),
+                  "efficientnet": (32, "b0"),
+                  "convnext": (32, "test")}}[cfg.model.family]
 presets.ANGLE_PRESETS[preset] = dataclasses.replace(
-    cfg, data=dataclasses.replace(cfg.data, image_size=size, batch_size=2),
-    model=dataclasses.replace(cfg.model, variant="test-w7" if size == 56
-                              else "test"),
+    cfg, data=dataclasses.replace(cfg.data, image_size=size, batch_size=2,
+                                  eval_resize_to=0),
+    model=dataclasses.replace(cfg.model, variant=variant),
     optim=dataclasses.replace(cfg.optim, freeze_backbone_epochs=min(
         cfg.optim.freeze_backbone_epochs, 1)))
 
@@ -382,12 +386,15 @@ print("OK")
 
 
 @pytest.mark.parametrize("preset", ["dinov2_sincos_gemini",
-                                    "swin_t224_sincos_gemini"])
+                                    "swin_t224_sincos_gemini",
+                                    "efficientnet_sincos_gemini",
+                                    "convnext_direct_maae"])
 def test_angle_train_cli_runs_without_jax_or_geovpr(preset):
     """`geovpr_torch.cli.train.main` for two epochs of a small model on the
     preset, with jax, flax and `geovpr` blocked: DINOv2 with `angle_rot`
     across the unfreeze (one frozen epoch), window-7 Swin with `geo_light`,
-    DropPath and warm restarts."""
+    DropPath and warm restarts, EfficientNet-B0 at 32 px with BatchNorm in
+    training mode, stochastic depth and `geo_light`, a small ConvNeXt."""
     block = _BLOCK + ("geovpr",)
     proc = subprocess.run(
         [sys.executable, "-c", _TRAIN_ANGLE.format(block=block,

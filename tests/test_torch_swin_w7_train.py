@@ -28,7 +28,10 @@ largest element, and Adam's first step, which divides each gradient by its
 own size, turns that into 11 of 535,214 elements outside the tolerance).
 The acos preset therefore takes the batches of seed 1, and the test first
 asserts that every initial prediction lies within 160 degrees of its
-target, so that the comparison stays well conditioned.
+target, so that the comparison stays well conditioned. The batches of
+seed 0 stay under a check of their own: the gradients of the acos loss
+there (before Adam divides them), at the step comparison's tolerance with
+the gradient in the place of the update.
 
 Also: the DropPath route of a window-7 training block against JAX's on
 the same per-image mask, and the projections' autograd Function of the
@@ -196,6 +199,79 @@ def test_three_steps_match_jax(preset, monkeypatch):
     assert tstate.step == int(jstate.step) == STEPS
     # every block of every step took the unfused half, returning the branch
     assert calls == [False] * (sum(VARIANT["depths"]) * STEPS)
+
+
+def test_acos_seed0_gradients_match_jax():
+    """`swin_t224_sincos_acos` on the batches of seed 0, the ones the step
+    comparison above leaves for seed 1 (a prediction there comes to lie
+    near 177 degrees from its target, where the acos slope makes Adam's
+    step ill-conditioned): at each of the three states of JAX's own
+    trajectory over them, the loss and the gradient of every parameter of
+    the port against `jax.grad` of JAX's loss on the same parameters, f32,
+    at the step comparison's tolerance with the gradient in the place of
+    the update: the loss within rtol 1e-5; every element within rtol 1e-5
+    and atol 1e-7 plus 2 % of its tensor's largest gradient element, but
+    for at most 1e-5 of all elements, which stay within 10 % of it. The
+    key bias, whose gradient is roundoff in both packages, is not
+    compared."""
+    from geovpr_torch.data.transforms import normalize
+
+    preset = "swin_t224_sincos_acos"
+    jcfg, tcfg = _cfgs(preset)
+    jstate = j_create_state(
+        JModel(config=jcfg.model, dtype=jnp.float32),
+        j_build_optimizer(jcfg.optim, total_steps=TOTAL_STEPS,
+                          steps_per_epoch=STEPS_PER_EPOCH),
+        jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)), out_dim=2)
+    jstep = jax.jit(j_make_train_step(j_objective_for(jcfg),
+                                      normalize_fn=j_normalize))
+    jobj, tobj = j_objective_for(jcfg), objective_for(tcfg)
+    model = RegressionModel(tcfg.model, dtype=torch.float32, train=True)
+    names = [n for n, _ in model.named_parameters()]
+    worst = 0.0
+    for batch in _batches(False, seed=0):
+        x = j_normalize(jnp.asarray(batch["image"]))
+        enc = jobj.encode_targets(jnp.asarray(batch["target"]), None)
+
+        def jloss(p):
+            preds = jstate.apply_fn({"params": p}, x, train=True,
+                                    deterministic=False)
+            return jobj.loss(preds, enc, jnp.asarray(batch["mask"])), preds
+
+        (jl, jpred), jg = jax.value_and_grad(jloss, has_aux=True)(
+            jstate.params)
+        dot = np.sum(np.asarray(jobj.codec.normalize(jpred))
+                     * np.asarray(enc), axis=-1)
+        worst = max(worst, float(np.degrees(np.arccos(np.clip(
+            dot, -1.0, 1.0))).max()))
+        model.load_state_dict(state_dict_from_flax(jax.tree_util.tree_map(
+            np.asarray, jstate.params)))
+        model.train()
+        tl = tobj.loss(model(normalize(torch.from_numpy(batch["image"]))),
+                       tobj.encode_targets(torch.from_numpy(
+                           batch["target"]), None),
+                       torch.from_numpy(batch["mask"]))
+        tg = dict(zip(names, torch.autograd.grad(tl, list(
+            model.parameters()))))
+        assert float(tl.detach()) == pytest.approx(float(jl), rel=RTOL)
+        want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jg))
+        assert set(want) == set(tg)
+        outliers, total = 0, 0
+        for k, v in want.items():
+            if k.endswith("attn.qkv_bias"):
+                continue
+            v = v.numpy()
+            scale = np.abs(v).max()
+            err = np.abs(tg[k].numpy() - v)
+            assert err.max() <= 0.1 * scale + ATOL, f"{k} off by {err.max()}"
+            outliers += int((err > RTOL * np.abs(v) + ATOL
+                             + UPDATE_SHARE * scale).sum())
+            total += err.size
+        assert outliers <= OUTLIER_SHARE * total, (outliers, total)
+        jstate, _ = jstep(jstate, {k: jnp.asarray(v)
+                                   for k, v in batch.items()})
+    # the trajectory reaches the ill-conditioned case the re-seed avoids
+    assert worst > 160.0, worst
 
 
 DROP_RATE, DROP_KEEP = 0.25, (True, False, True, True)
