@@ -59,7 +59,20 @@ end to end from seeded random weights:
   a step or a bf16 validation batch): the running statistics against
   flax's formula, a NaN step and a resume bit for bit, bf16 against f32
   gradients; `cli.evaluate --run-dir` on each run, with `--int8` on the
-  ConvNeXt run (K3 in every block).
+  ConvNeXt run (K3 in every block);
+- the multi-process path (`geovpr_torch.parallel`), on the one card:
+  `cli.train.main --multihost --coordinator 127.0.0.1:<port>
+  --num-processes 1 --process-id 0` in a child process (a one-rank NCCL
+  mesh) on swin_b384_gemini2 (B=16, two epochs of 2 steps: K9a, K9c and
+  K9b a step, K4 and K6 in validation) and efficientnet_direct_maae
+  (B=32), and `cli.retrieve --multihost --int8` (K2 and K3 a batch, the
+  sharded index), each bit-equal to the same CLI without a mesh
+  (losses, every checkpoint tensor: parameters, moments, BatchNorm
+  statistics; the matches CSV), with the step's ms beside the run without
+  a mesh and the all-reduce of the whole gradient; then two ranks over
+  gloo on the one card (host-staged collectives), DINOv2-B/14 on
+  dinov2_meanpool_huber's B=16 global batch for two steps against one
+  process (K8a and K8c a step on each rank), and a two-shard int8 search.
 
 Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
 form and the w8a8 MLP half-block, K3 also at the four Swin-B-384 stage
@@ -101,6 +114,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import dataclasses
 import io
 import json
 import os
@@ -3760,6 +3774,542 @@ def _train_batches(source, device, batch: int = TRAIN_BATCH):
     return prefetch_to_device(iterate_batches(source, batch), device)
 
 
+# ----------------------------------------------------------- parallel --
+# The multi-process path (`geovpr_torch.parallel`) on the one card:
+# (a) world 1 over NCCL, each CLI as a user launches it (`--multihost
+# --coordinator 127.0.0.1:<port> --num-processes 1 --process-id 0`) in a
+# child process, against the same CLI without a mesh in this process:
+# (preset, batch, image side, train images, val images, epochs)
+PAR_TRAIN_CASES = (("swin_b384_gemini2", 16, 384, 32, 16, 2),
+                   ("efficientnet_direct_maae", 32, 224, 64, 32, 2))
+# retrieve --int8: (gallery images, query images, batch) at 224 px
+PAR_RETRIEVE = (64, 32, 32)
+# (b) world 2 over gloo, both ranks on the one card (gloo stages each
+# collective through the host): dinov2_meanpool_huber at the preset's
+# B=16 global batch, two steps, against world 1 on the same global batch;
+# a sharded int8 search of (gallery rows, queries, k) at 8448-d
+PAR_GLOO_CASE = ("dinov2_meanpool_huber", 16, 224, 2)
+PAR_GLOO_SEARCH = (4096, 64, 5)
+PAR_MIN_COSINE, PAR_LOSS_RTOL = 0.9999, 1e-3
+PAR_STEP_TIMES = 5
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def par_images(root: str, name: str, n: int, size: int, rng,
+               angles: bool = False) -> str:
+    """n square JPEGs of `synthetic_val`'s images under root/img and a
+    label CSV root/{name}.csv; returns the CSV's path."""
+    from PIL import Image
+
+    src = synthetic_val(n, size, rng, angles)
+    img_dir = os.path.join(root, "img")
+    os.makedirs(img_dir, exist_ok=True)
+    path = os.path.join(root, f"{name}.csv")
+    with open(path, "w") as f:
+        f.write("filename,timestamp,latitude,longitude,angle,Region_ID\n")
+        for i in range(n):
+            fname = f"{name}_{i:04d}.jpg"
+            Image.fromarray(src.images[i]).save(os.path.join(img_dir, fname),
+                                                quality=95)
+            lat, lon = ((219000.0 + 100.0 * i, 143000.0) if angles
+                        else tuple(src.targets[i]))
+            ang = src.targets[i] if angles else 0.0
+            f.write(f"{fname},0,{lat},{lon},{ang},1\n")
+    return path
+
+
+def par_step_times(trainer, source) -> dict:
+    """ms a step on the first batch (host clock over PAR_STEP_TIMES
+    synchronised steps, after one more); under a mesh the same step
+    without it in turns (mesh, none, none, mesh: medians of each), and one
+    all-reduce of a flat f32 buffer the size of the trained parameters
+    (CUDA events over 10, after 3)."""
+    import torch.distributed as dist
+
+    from geovpr_torch.data.pipeline import iterate_batches, prefetch_to_device
+    from geovpr_torch.data.transforms import build_augment
+    from geovpr_torch.train.steps import make_train_step
+    mesh = trainer.mesh
+    batch = next(prefetch_to_device(iterate_batches(
+        source, trainer.data_cfg.batch_size), trainer.device, mesh=mesh))
+
+    def ms(step):
+        step(trainer.state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PAR_STEP_TIMES):
+            step(trainer.state, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / PAR_STEP_TIMES * 1e3
+
+    if mesh is None:
+        return {"ms_per_step": ms(trainer._train_step)}
+    aug = trainer.data_cfg.augment
+    plain = make_train_step(
+        trainer.objective, normalize_fn=trainer._normalize,
+        augment_fn=build_augment(aug) if aug != "none" else None,
+        skip_nonfinite=trainer.train_cfg.skip_nonfinite_updates)
+    turns = [("mesh", trainer._train_step), ("none", plain),
+             ("none", plain), ("mesh", trainer._train_step)]
+    got = {"mesh": [], "none": []}
+    for name, step in turns:
+        got[name].append(ms(step))
+    out = {"ms_per_step": float(np.median(got["mesh"])),
+           "ms_per_step_same_process_no_mesh": float(np.median(got["none"])),
+           "turns_ms": got}
+    n = sum(p.numel() for name, p in trainer.state.params.items()
+            if trainer.state.opt.trains(name))
+    flat = torch.zeros(n, device=trainer.device)
+    for _ in range(3):
+        dist.all_reduce(flat, group=mesh.group("data"))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        dist.all_reduce(flat, group=mesh.group("data"))
+    end.record()
+    torch.cuda.synchronize()
+    out.update(grad_values=n, grad_allreduce_ms=start.elapsed_time(end) / 10)
+    return out
+
+
+def par_cli_job(job: dict) -> dict:
+    """One CLI run (`cli.train.main` or `cli.retrieve.main` on `argv`),
+    every launch count set to 0 just before it and read just after (for
+    training: as `run_train` returns, before the step times that follow
+    it while the process group is still up)."""
+    import geovpr_torch.cli.train as cli_train
+    from geovpr_torch.cli.retrieve import main as retrieve_main
+
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    rec = {}
+    if job["cli"] == "retrieve":
+        retrieve_main(job["argv"])
+        torch.cuda.synchronize()
+        rec["launches"] = {k: fn.launches for k, fn in counters.items()}
+        return rec
+    orig = cli_train.run_train
+
+    def run_train(cfg, train_source, val_source=None, **kw):
+        trainer = orig(cfg, train_source, val_source, **kw)
+        torch.cuda.synchronize()
+        rec.update(launches={k: fn.launches for k, fn in counters.items()},
+                   step_losses=trainer.step_losses, run_dir=trainer.run_dir,
+                   history=[{k: v for k, v in r.items() if k != "seconds"}
+                            for r in trainer.history])
+        rec.update(par_step_times(trainer, train_source))
+        return trainer
+
+    cli_train.run_train = run_train
+    try:
+        cli_train.main(job["argv"])
+    finally:
+        cli_train.run_train = orig
+    return rec
+
+
+def parallel_child(spec_path: str) -> int:
+    """A child process of the [parallel] phase: every job of the spec
+    through `par_cli_job`, one JSON line of results."""
+    from geovpr_torch.ops._build import load_library
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    load_library()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    print("[parallel_child] " + json.dumps(
+        [par_cli_job(job) for job in spec["jobs"]]), flush=True)
+    return 0
+
+
+def par_run_child(args: list, tag: str, timeout: float = 900.0) -> list:
+    """Run this script as a child with `args`; its `[parallel_child]`
+    lines, parsed. A failed child fails the phase."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), *args],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"{tag}: child exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return [json.loads(line.split(" ", 1)[1])
+            for line in proc.stdout.splitlines()
+            if line.startswith("[parallel_child] ")]
+
+
+def _state_files(run_dir: str) -> dict:
+    out = {}
+    for d in sorted(os.listdir(run_dir)):
+        path = os.path.join(run_dir, d, "state.pt")
+        if os.path.isfile(path):
+            out[d] = torch.load(path, map_location="cpu", weights_only=True)
+    return out
+
+
+def _tensors_equal(a, b, where: str, differ: list) -> int:
+    """Compare two checkpoint trees leaf by leaf; returns the tensors
+    compared, appending the names that differ."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            differ.append(f"{where}: keys")
+            return 0
+        return sum(_tensors_equal(a[k], b[k], f"{where}.{k}", differ)
+                   for k in a)
+    if isinstance(a, torch.Tensor):
+        if not torch.equal(a, b):
+            differ.append(where)
+        return 1
+    if a != b:
+        differ.append(where)
+    return 0
+
+
+def parallel_world1(device, card: str, root: str) -> dict:
+    """(a): each CLI once in a child over a one-rank NCCL mesh, then the
+    same CLI here without a mesh; the launches, losses, checkpoints
+    (parameters, moments, BatchNorm statistics) and matches must be equal
+    bit for bit. Returns the launch counts of both runs, summed."""
+    rng = np.random.default_rng(SEED + 17)
+    jobs, expected = [], []
+    for preset, b, size, n_train, n_val, epochs in PAR_TRAIN_CASES:
+        angles = "efficientnet" in preset
+        d = os.path.join(root, preset)
+        os.makedirs(d)
+        train_csv = par_images(d, "train", n_train, size, rng, angles)
+        val_csv = par_images(d, "val", n_val, size, rng, angles)
+        argv = ["--preset", preset, "--train-csv", train_csv,
+                "--val-csv", val_csv, "--image-root", os.path.join(d, "img"),
+                "--epochs", str(epochs), "--batch-size", str(b),
+                "--device", device.type]
+        jobs.append({"cli": "train", "tag": preset, "argv": argv,
+                     "save": os.path.join(d, "runs")})
+        steps, vals = epochs * (n_train // b), epochs * -(-n_val // b)
+        per = ({"fused_swin_attn_train_fwd": SWIN_BLOCKS * steps,
+                "fused_swin_attn_bwd_all": TRAIN_K9C_BLOCKS * steps,
+                "fused_swin_attn_bwd_core": TRAIN_K9B_BLOCKS * steps,
+                "fused_swin_attn_block": SWIN_BLOCKS * vals,
+                "fused_patch_merge": SWIN_BOUNDARIES * vals}
+               if preset.startswith("swin") else {})
+        expected.append((steps, per))
+    n_gal, n_q, rb = PAR_RETRIEVE
+    d = os.path.join(root, "retrieve")
+    os.makedirs(d)
+    g_csv = par_images(d, "gallery", n_gal, IMAGE_SIZE, rng)
+    q_csv = par_images(d, "query", n_q, IMAGE_SIZE, rng)
+    jobs.append({"cli": "retrieve", "tag": "retrieve-int8", "argv": [
+        "--gallery-csv", g_csv, "--query-csv", q_csv, "--image-root",
+        os.path.join(d, "img"), "--int8", "--batch-size", str(rb),
+        "--top-k", str(TOP_K), "--variant", VARIANT, "--image-size",
+        str(IMAGE_SIZE), "--device", device.type], "save": d})
+    batches = -(-n_gal // rb) + -(-n_q // rb)
+    expected.append((0, {"fused_mhsa_block_int8": DINO_BLOCKS * batches,
+                         "fused_mlp_block_int8": DINO_BLOCKS * batches}))
+
+    def argv_for(job, mesh: bool):
+        out_flag = "--out-dir" if job["cli"] == "retrieve" else "--save-dir"
+        argv = job["argv"] + [out_flag, os.path.join(
+            job["save"], "mesh" if mesh else "single")]
+        if mesh:
+            argv += ["--multihost", "--coordinator",
+                     f"127.0.0.1:{free_port()}", "--num-processes", "1",
+                     "--process-id", "0"]
+        return argv
+
+    spec = os.path.join(root, "world1.json")
+    with open(spec, "w") as f:
+        json.dump({"jobs": [dict(j, argv=argv_for(j, True)) for j in jobs]},
+                  f)
+    t0 = time.perf_counter()
+    mesh_recs = par_run_child(["--parallel-child", spec], "parallel-world1")
+    check(len(mesh_recs) == 1, f"child printed {len(mesh_recs)} records")
+    mesh_recs = mesh_recs[0]
+    child_s = time.perf_counter() - t0
+    totals = {}
+    for job, got, (steps, per) in zip(jobs, mesh_recs, expected):
+        # through JSON as the child's record came (epoch keys as strings)
+        want = json.loads(json.dumps(par_cli_job(dict(
+            job, argv=argv_for(job, False)))))
+        tag = job["tag"]
+        exp = dict.fromkeys(got["launches"], 0)
+        exp.update(per)
+        for name, rec in (("nccl-world1", got), ("no-mesh", want)):
+            phase("parallel", world=1, backend="nccl" if name !=
+                  "no-mesh" else "none", path=tag, run=name,
+                  launches=rec["launches"], expected_launches=exp,
+                  per_step={k: v / steps for k, v in rec["launches"].items()
+                            if v and steps})
+            check(rec["launches"] == exp,
+                  f"{tag} {name}: launches {rec['launches']}, expected {exp}")
+        for k in exp:
+            totals[k] = totals.get(k, 0) + got["launches"][k] + \
+                want["launches"][k]
+        if job["cli"] == "retrieve":
+            a, b = (read_csv(os.path.join(job["save"], m,
+                                          "retrieval_matches.csv"))
+                    for m in ("mesh", "single"))
+            phase("parallel_retrieve", world=1, path=tag, rows=len(a),
+                  equal=a == b)
+            check(len(a) == n_q * TOP_K and a == b,
+                  f"{tag}: the sharded search's matches differ")
+            continue
+        differ = []
+        files_a, files_b = (_state_files(r["run_dir"]) for r in (got, want))
+        n = _tensors_equal(files_a, files_b, "checkpoints", differ)
+        stats = sum(k.endswith(("running_mean", "running_var"))
+                    for k in files_a["best"]["params"])
+        equal = (got["step_losses"] == want["step_losses"]
+                 and got["history"] == want["history"] and not differ)
+        phase("parallel_train", world=1, backend="nccl", path=tag,
+              card=repr(card), checkpoints=sorted(files_a),
+              tensors_compared=n, running_stats=stats,
+              step_losses=got["step_losses"], equal=equal,
+              differ=differ[:5])
+        check(equal and n > 0, f"{tag}: the NCCL world-1 run differs from "
+              f"the run without a mesh: {differ[:5]}")
+        phase("parallel_times", world=1, backend="nccl", path=tag,
+              card=repr(card), ms_per_step_mesh=got["ms_per_step"],
+              ms_per_step_no_mesh=got["ms_per_step_same_process_no_mesh"],
+              overhead_ms=got["ms_per_step"]
+              - got["ms_per_step_same_process_no_mesh"],
+              turns_ms=got["turns_ms"],
+              ms_per_step_no_mesh_run=want["ms_per_step"],
+              grad_values=got["grad_values"],
+              grad_allreduce_ms=got["grad_allreduce_ms"])
+    phase("parallel_world1_seconds", child=child_s,
+          total=time.perf_counter() - t0)
+    return totals
+
+
+def _gloo_cfg():
+    from geovpr_torch.cli.presets import build_preset
+    return build_preset(PAR_GLOO_CASE[0])
+
+
+def _gloo_batches():
+    """The global batches of (b): synthetic images and (lat, lon)."""
+    _, b, size, steps = PAR_GLOO_CASE
+    src = synthetic_val(b * steps, size, np.random.default_rng(SEED + 23))
+    return [{"image": src.images[i * b:(i + 1) * b],
+             "target": src.targets[i * b:(i + 1) * b],
+             "mask": np.ones(b, bool)} for i in range(steps)]
+
+
+def _gloo_search_data():
+    n, q, _ = PAR_GLOO_SEARCH
+    rng = np.random.default_rng(SEED + 29)
+    g = rng.normal(size=(n, 8448)).astype(np.float32)
+    qs = g[rng.integers(0, n, q)] + 0.5 * rng.normal(size=(q, 8448))
+    return (g / np.linalg.norm(g, axis=1, keepdims=True),
+            (qs / np.linalg.norm(qs, axis=1, keepdims=True)).astype(
+                np.float32))
+
+
+def _gloo_state(device):
+    """The preset's model (bf16 compute, f32 parameters) from seed SEED,
+    its vectors perturbed off their init (`perturb_cnn_`: a bias at zero
+    is all update, and Adam's first steps turn a roundoff gradient into
+    +-lr of either sign), on `device`, with its scaler at the campus's
+    scale."""
+    from geovpr_torch.models.regression import RegressionModel
+    from geovpr_torch.objectives.scaler import scaler_from_arrays
+    from geovpr_torch.train.state import create_train_state
+
+    cfg = _gloo_cfg()
+    model = RegressionModel(
+        dataclasses.replace(cfg.model, image_size=PAR_GLOO_CASE[2]),
+        dtype=getattr(torch, cfg.model.compute_dtype), train=True).to(device)
+    state = create_train_state(
+        model, cfg.optim, SEED, scaler_from_arrays([219000.0, 143000.0],
+                                                   [300.0, 100.0]))
+    with torch.no_grad():
+        perturb_cnn_(state.model, torch.Generator().manual_seed(SEED))
+    return cfg, state
+
+
+def _gloo_steps(device, mesh) -> tuple:
+    """Two steps of (b) on this rank's rows of each global batch (all of
+    them without a mesh); (losses, state, launches, host ms a step)."""
+    from geovpr_torch.cli.presets import objective_for
+    from geovpr_torch.data.pipeline import prefetch_to_device
+    from geovpr_torch.data.transforms import build_augment
+    from geovpr_torch.train.steps import make_train_step
+
+    cfg, state = _gloo_state(device)
+    step = make_train_step(objective_for(cfg),
+                           augment_fn=build_augment(cfg.data.augment),
+                           mesh=mesh)
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, ms = [], []
+    for batch in prefetch_to_device(iter(_gloo_batches()), device, mesh=mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(state, batch)["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, state, {k: fn.launches for k, fn in
+                           counters.items() if fn.launches}, ms
+
+
+def parallel_gloo_rank(rank: int, spec_path: str) -> int:
+    """One rank of (b): world 2 over gloo on cuda:0, against the world-1
+    reference this script saved at `spec`'s path."""
+    from geovpr_torch.ops._build import load_library
+    from geovpr_torch.parallel import create_mesh, initialize_distributed
+    from geovpr_torch.retrieval.index import DescriptorIndex
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    load_library()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = initialize_distributed(spec["rdzv"], 2, rank,
+                                    device=spec["device"], backend="gloo")
+    mesh = create_mesh()
+    losses, state, launches, ms = _gloo_steps(device, mesh)
+    ref = torch.load(spec["ref"], map_location=device, weights_only=True)
+    cos, key_bias = {}, 0.0
+    for k, v in state.model.state_dict().items():
+        if not (v.is_floating_point() and v.numel() > 1):
+            continue
+        a, b = v.double().flatten(), ref["params"][k].double().flatten()
+        if k.endswith("attn.qkv_bias"):
+            # the key bias: its gradient is roundoff (a constant added to
+            # a softmax row), which Adam scales to about +-lr a step of
+            # either sign; bounded, not compared by cosine
+            c = a.numel() // 3
+            key_bias = max(key_bias, float((a[c:2 * c] - b[c:2 * c])
+                                           .abs().max()))
+            a, b = torch.cat([a[:c], a[2 * c:]]), torch.cat([b[:c],
+                                                             b[2 * c:]])
+        cos[k] = float(a @ b / (a.norm() * b.norm()).clamp_min(1e-30))
+    worst = min(cos, key=cos.get)
+    g, q = _gloo_search_data()
+    index = DescriptorIndex(dim=g.shape[1], device=device, quantize=True,
+                            mesh=mesh).build(g)
+    _, idx = index.search(q, k=PAR_GLOO_SEARCH[2])
+    checksum = float(sum(v.double().sum() for v in
+                         state.model.state_dict().values()
+                         if v.is_floating_point()))
+    print("[parallel_child] " + json.dumps({
+        "rank": rank, "losses": losses, "ref_losses": ref["losses"],
+        "min_cosine": cos[worst], "worst": worst, "tensors": len(cos),
+        "key_bias_max_diff": key_bias,
+        "key_bias_bound": 2 * 1.03 * PAR_GLOO_CASE[3] * state.opt.cfg.lr,
+        "launches": launches, "ms_per_step": ms, "checksum": checksum,
+        "search_equal": bool(torch.equal(idx.cpu(), ref["indices"].cpu()))}),
+        flush=True)
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_gloo(device, card: str, root: str) -> dict:
+    """(b): the world-1 reference here (no mesh), then two ranks over gloo
+    on this card, each its rows of the same global batches; every
+    parameter's cosine to the reference >= PAR_MIN_COSINE, the losses
+    within PAR_LOSS_RTOL, the ranks equal, the sharded int8 search's
+    indices the unsharded search's. Returns the ranks' launch counts,
+    summed."""
+    from geovpr_torch.retrieval.index import DescriptorIndex
+
+    losses, state, launches, ms = _gloo_steps(device, None)
+    g, q = _gloo_search_data()
+    _, idx = DescriptorIndex(dim=g.shape[1], device=device,
+                             quantize=True).build(g).search(
+        q, k=PAR_GLOO_SEARCH[2])
+    ref_path = os.path.join(root, "gloo_ref.pt")
+    torch.save({"params": {k: v.cpu() for k, v in
+                           state.model.state_dict().items()},
+                "losses": losses, "indices": idx.cpu()}, ref_path)
+    del state
+    torch.cuda.empty_cache()
+    spec = os.path.join(root, "gloo.json")
+    with open(spec, "w") as f:
+        json.dump({"rdzv": f"file://{os.path.join(root, 'gloo_rdzv')}",
+                   "ref": ref_path, "device": device.type}, f)
+    t0 = time.perf_counter()
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--parallel-gloo", str(r), spec],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(here)) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"gloo rank {r} exited {p.returncode}:\n"
+              f"{out[-2000:]}\n{err[-3000:]}")
+        recs += [json.loads(line.split(" ", 1)[1]) for line in
+                 out.splitlines() if line.startswith("[parallel_child] ")]
+    check(len(recs) == 2, f"{len(recs)} gloo rank records")
+    steps, b = PAR_GLOO_CASE[3], PAR_GLOO_CASE[1]
+    exp = {"fused_mhsa_train_fwd": DINO_BLOCKS * steps,
+           "fused_mhsa_bwd_all": DINO_BLOCKS * steps}
+    for rec in recs:
+        rel = max(abs(a - w) / max(abs(w), 1e-12)
+                  for a, w in zip(rec["losses"], rec["ref_losses"]))
+        phase("parallel_gloo", world=2, backend="gloo (host-staged)",
+              rank=rec["rank"], card=repr(card), batch=b,
+              rank_rows=b // 2, losses=rec["losses"],
+              world1_losses=rec["ref_losses"], loss_max_rel_diff=rel,
+              loss_bound=PAR_LOSS_RTOL, min_param_cosine=rec["min_cosine"],
+              worst_tensor=rec["worst"], tensors=rec["tensors"],
+              cosine_bound=PAR_MIN_COSINE,
+              key_bias_max_diff=rec["key_bias_max_diff"],
+              key_bias_bound=rec["key_bias_bound"], launches=rec["launches"],
+              expected_launches=exp, search_equal=rec["search_equal"],
+              host_staged_ms_per_step=rec["ms_per_step"],
+              world1_ms_per_step=ms)
+        check(rel <= PAR_LOSS_RTOL, f"gloo rank {rec['rank']}: loss off "
+              f"by {rel}")
+        check(rec["min_cosine"] >= PAR_MIN_COSINE,
+              f"gloo rank {rec['rank']}: {rec['worst']} cosine "
+              f"{rec['min_cosine']}")
+        check(rec["key_bias_max_diff"] <= rec["key_bias_bound"],
+              f"gloo rank {rec['rank']}: key bias off by "
+              f"{rec['key_bias_max_diff']}")
+        check(rec["launches"] == exp, f"gloo rank {rec['rank']}: launches "
+              f"{rec['launches']}, expected {exp}")
+        check(rec["search_equal"], "the 2-shard int8 search differs")
+    check(recs[0]["checksum"] == recs[1]["checksum"],
+          "the two ranks' parameters differ")
+    phase("parallel_gloo_seconds", ranks=time.perf_counter() - t0)
+    total = {}
+    for rec in recs:
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def parallel_path(device, card: str) -> dict:
+    """The [parallel] phase: (a) then (b). Returns the launch counts of
+    every run in it (children's included)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        totals = parallel_world1(device, card, root)
+        for k, v in parallel_gloo(device, card, root).items():
+            totals[k] = totals.get(k, 0) + v
+    phase("parallel_seconds", s=time.perf_counter() - t0)
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3843,7 +4393,7 @@ def main() -> int:
 
     rest_launches = {}
     for path in (dinov2_sincos_path, salad_frozen_path, swin_t_train_path,
-                 cnn_train_path):
+                 cnn_train_path, parallel_path):
         for k, v in path(device, card).items():
             rest_launches[k] = rest_launches.get(k, 0) + v
 
@@ -3937,4 +4487,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-child"]:
+        sys.exit(parallel_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--parallel-gloo"]:
+        sys.exit(parallel_gloo_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

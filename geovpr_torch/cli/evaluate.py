@@ -33,8 +33,12 @@ with `--int8`), Swin-T at window 7 runs K7 inside every block's attention
 half, both run K6 at every stage boundary; DINOv2 runs K1 (K2 and K3 with
 `--int8`); EfficientNet-B0 and ConvNeXt run on cuDNN convolutions and have
 no kernel of their own. `--int8` serves window-7 Swin (torch int8
-attention ops and K3) and ConvNeXt (K3); EfficientNet has no int8 path. `--device` defaults to cuda and fails
-when no card is present; pass `--device cpu` to run on the CPU.
+attention ops and K3) and ConvNeXt (K3); EfficientNet has no int8 path.
+`--device` defaults to cuda and fails when no card is present; pass
+`--device cpu` to run on the CPU. `--multihost` (one process per card, as
+`cli.train`'s flag) shards each batch over the ranks, as JAX's CLI scores
+over `create_mesh()` (`geovpr/cli/common.py:32`): the eval sums are
+all-reduced, the predictions gathered, and rank 0 writes and prints.
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ import sys
 
 import numpy as np
 import torch
+
+from geovpr_torch.cli.common import (add_distributed_args, start_mesh,
+                                     stop_mesh)
 
 
 def build_model(cfg, device, variables: str = "", seed: int = 0,
@@ -109,15 +116,19 @@ def calibrate_int8(model, source, batch_size: int, device) -> dict:
 
 
 def evaluate_and_predict(model, scaler, source, batch_size: int, device,
-                         objective=None) -> tuple[dict, np.ndarray]:
+                         objective=None, mesh=None) -> tuple[dict, np.ndarray]:
     """Metrics and per-row decoded predictions in one pass
     (`Trainer.evaluate_and_predict`): eval sums accumulated on the device,
     summarised on the host; predictions in source order, (N, 2) (lat, lon)
-    for geopose (the default objective), (N,) degrees for angles."""
+    for geopose (the default objective), (N,) degrees for angles. With a
+    mesh each rank scores its rows: the sums are all-reduced and the
+    predictions gathered."""
     from geovpr_torch.data.pipeline import iterate_batches, prefetch_to_device
     from geovpr_torch.data.transforms import normalize
     from geovpr_torch.objectives.workloads import GeoposeObjective
-    from geovpr_torch.serve.eval import add_sums, eval_sums, summarize_eval
+    from geovpr_torch.parallel.mesh import gather_rows
+    from geovpr_torch.serve.eval import (add_sums, eval_sums, reduce_sums,
+                                         summarize_eval)
 
     if len(source) == 0:
         raise ValueError("predict on an empty source — check the CSV / "
@@ -126,23 +137,25 @@ def evaluate_and_predict(model, scaler, source, batch_size: int, device,
     sums, out = None, None
     with torch.inference_mode():
         for batch in prefetch_to_device(iterate_batches(source, batch_size),
-                                        device):
+                                        device, mesh=mesh):
             idx = batch["_indices"]
             preds = model(normalize(batch["image"]))
             decoded = objective.decode_predictions(preds, scaler)
             sums = add_sums(sums, eval_sums(decoded, batch["target"],
                                             batch["mask"]))
+            if mesh is not None:
+                decoded = gather_rows(decoded, mesh)
             if out is None:
                 out = np.zeros((len(source),) + tuple(decoded.shape[1:]),
                                np.float32)
             out[idx] = decoded[:len(idx)].cpu().numpy()
-    return summarize_eval(sums), out
+    return summarize_eval(reduce_sums(sums, mesh)), out
 
 
 def run_evaluate(model, scaler, source, *, batch_size: int, out_dir: str,
                  device, int8: bool = False, test_source=None,
                  submission_csv: str = "",
-                 objective=None) -> tuple[dict, np.ndarray]:
+                 objective=None, mesh=None) -> tuple[dict, np.ndarray]:
     """The serving path on in-memory or disk sources (targets as `targets`,
     names as `filenames`): geopose with the default objective ((lat, lon)
     targets), angles with an angle objective (`cli.presets.objective_for`;
@@ -150,8 +163,10 @@ def run_evaluate(model, scaler, source, *, batch_size: int, out_dir: str,
     on the first batch of `source` first; then metrics and predictions over
     `source`, `validation_predictions.csv` in `out_dir`, and with
     `test_source` / `submission_csv` the test and submission CSVs. Returns
-    the CLI's JSON record and the val predictions."""
+    the CLI's JSON record and the val predictions. With a `mesh` every rank
+    calls this and rank 0 writes."""
     from geovpr_torch.objectives.workloads import GeoposeObjective
+    from geovpr_torch.parallel.mesh import barrier, is_writer
     from geovpr_torch.pipeline import export
 
     objective = objective or GeoposeObjective()
@@ -160,34 +175,42 @@ def run_evaluate(model, scaler, source, *, batch_size: int, out_dir: str,
         raise SystemExit("--submission-csv is a geopose export "
                          "(ID,latitude,longitude); this preset is an angle "
                          "workload")
-    os.makedirs(out_dir, exist_ok=True)
+    write = is_writer(mesh)
+    if write:
+        os.makedirs(out_dir, exist_ok=True)
     if int8:
         calibrate_int8(model, source, batch_size, device)
     metrics, preds = evaluate_and_predict(model, scaler, source, batch_size,
-                                          device, objective)
+                                          device, objective, mesh)
     val_csv = os.path.join(out_dir, "validation_predictions.csv")
     write_val = (export.write_geopose_validation_csv if geo
                  else export.write_angle_validation_csv)
-    write_val(val_csv, source.filenames,
-              np.asarray(source.targets, np.float32), preds)
+    if write:
+        write_val(val_csv, source.filenames,
+                  np.asarray(source.targets, np.float32), preds)
     outputs = {"metrics": metrics, "validation_csv": val_csv}
     if submission_csv:
         sub = (submission_csv if os.path.isabs(submission_csv)
                else os.path.join(out_dir, submission_csv))
-        export.write_geopose_preds_csv(sub, source.filenames, preds)
+        if write:
+            export.write_geopose_preds_csv(sub, source.filenames, preds)
         outputs["submission_csv"] = sub
     if test_source is not None:
         _, test_preds = evaluate_and_predict(model, scaler, test_source,
-                                             batch_size, device, objective)
+                                             batch_size, device, objective,
+                                             mesh)
         if geo:
             path = os.path.join(out_dir, "test_predictions_sorted.csv")
-            export.write_geopose_test_csv(path, test_source.filenames,
-                                          test_preds)
+            if write:
+                export.write_geopose_test_csv(path, test_source.filenames,
+                                              test_preds)
         else:
             path = os.path.join(out_dir, "test_pred.csv")
-            export.write_angle_test_csv(path, test_source.filenames,
-                                        test_preds)
+            if write:
+                export.write_angle_test_csv(path, test_source.filenames,
+                                            test_preds)
         outputs["test_csv"] = path
+    barrier(mesh)
     return outputs, preds
 
 
@@ -220,14 +243,17 @@ def main(argv=None):
                    help="eval batch size (default: the preset's)")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda (default) fails without a card")
+    add_distributed_args(p)
     args = p.parse_args(argv)
     if args.variables and args.run_dir:
         p.error("give at most one of --variables and --run-dir")
+    mesh, device = start_mesh(args, args.device)
+    _evaluate(args, mesh, device)
+    stop_mesh(mesh)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device is available; pass --device cpu to "
-                         "run on the CPU")
+
+def _evaluate(args, mesh, device) -> None:
+    from geovpr_torch.parallel.mesh import is_writer
 
     from geovpr_torch.cli.presets import build_preset, objective_for
     from geovpr_torch.core.config import GeoposeConfig
@@ -242,7 +268,7 @@ def main(argv=None):
             check_int8_serving(cfg.model)
         except ValueError as e:
             raise SystemExit(f"--int8: {e}") from None
-    if not (args.variables or args.run_dir):
+    if not (args.variables or args.run_dir) and is_writer(mesh):
         print("WARNING: neither --variables nor --run-dir given; using "
               "random init (predictions will not be meaningful)",
               file=sys.stderr)
@@ -272,8 +298,9 @@ def main(argv=None):
         out_dir=args.out_dir or args.run_dir or "evaluate_out",
         device=device, int8=args.int8,
         test_source=test_source, submission_csv=args.submission_csv,
-        objective=objective_for(cfg))
-    print(json.dumps(outputs))
+        objective=objective_for(cfg), mesh=mesh)
+    if is_writer(mesh):
+        print(json.dumps(outputs))
 
 
 if __name__ == "__main__":

@@ -31,6 +31,11 @@ first test batch with `--load-index`), and the gallery index in int8;
 EfficientNet has none and stays bf16 with a note. `--approx` is accepted
 and searched exactly, as `cli.retrieve` does. `--device` defaults to cuda
 and fails when no card is present; pass `--device cpu` to run on the CPU.
+
+`--multihost` (one process per card, as `cli.train`'s flag) shards each
+fused batch and the gallery extraction over the ranks and gathers the
+outputs, builds (or loads) the index sharded over them, and rank 0 writes
+the CSVs and prints (`geovpr/cli/fuse.py:105-114`, `:214-222`).
 """
 
 from __future__ import annotations
@@ -42,6 +47,9 @@ import sys
 
 import numpy as np
 import torch
+
+from geovpr_torch.cli.common import (add_distributed_args, start_mesh,
+                                     stop_mesh)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -85,13 +93,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "gallery batch")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda (default) fails without a card")
+    add_distributed_args(p)
     return p.parse_args(argv)
 
 
-def build_pipeline(args: argparse.Namespace):
+def build_pipeline(args: argparse.Namespace, mesh=None, device=None):
     """The checks, then every component restored (and calibrated under
     `--int8`), the gallery indexed: (pipeline, test-image source, stream
-    size), ready for `pipe.export(source, args.out_dir)`."""
+    size), ready for `pipe.export(source, args.out_dir)`. With a `mesh`
+    (every rank calls this) the batches and the index are sharded;
+    `device` overrides `args.device` (a rank's own card)."""
     geo = bool(args.geopose_preset and args.geopose_run)
     ang = bool(args.angle_preset and args.angle_run)
     retr = bool(args.gallery_csv or args.load_index)
@@ -106,10 +117,12 @@ def build_pipeline(args: argparse.Namespace):
                          "(--geopose-preset/--geopose-run), angle "
                          "(--angle-preset/--angle-run), or retrieval "
                          "(--gallery-csv)")
-    device = torch.device(args.device)
+    device = torch.device(device or args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available; pass --device cpu to "
                          "run on the CPU")
+    from geovpr_torch.parallel.mesh import is_writer
+    say = print if is_writer(mesh) else (lambda *a, **k: None)
 
     from geovpr_torch.cli.common import load_trained
     from geovpr_torch.cli.evaluate import calibrate_int8
@@ -119,12 +132,13 @@ def build_pipeline(args: argparse.Namespace):
     from geovpr_torch.models.registry import supports_int8
     from geovpr_torch.pipeline.fused import FusedPipeline
 
-    os.makedirs(args.out_dir, exist_ok=True)
+    if is_writer(mesh):
+        os.makedirs(args.out_dir, exist_ok=True)
     names = list_test_images(args.test_dir)
     paths = [os.path.join(args.test_dir, n) for n in names]
     zeros = np.zeros((len(names), 1), np.float32)
 
-    pipe = FusedPipeline(top_k=args.top_k, device=device)
+    pipe = FusedPipeline(top_k=args.top_k, device=device, mesh=mesh)
     sizes, batch_sizes = [], []
 
     def restore(preset, run_dir, component):
@@ -135,7 +149,7 @@ def build_pipeline(args: argparse.Namespace):
         family = build_preset(preset).model.family
         int8 = args.int8 and supports_int8(family)
         if args.int8 and not int8:
-            print(f"note: --int8 skipped for the {component} component "
+            say(f"note: --int8 skipped for the {component} component "
                   f"(family {family!r} has no int8 path)")
         model, scaler, cfg = load_trained(preset, run_dir, args.checkpoint,
                                           device=device, int8=int8)
@@ -170,7 +184,7 @@ def build_pipeline(args: argparse.Namespace):
                                                   save_index)
 
         if not args.salad_variables:
-            print("WARNING: no --salad-variables given; using random init "
+            say("WARNING: no --salad-variables given; using random init "
                   "(descriptors will not be meaningful)")
         model = build_salad(args.salad_variant, args.salad_image_size,
                             device, args.salad_variables, int8=args.int8)
@@ -193,22 +207,24 @@ def build_pipeline(args: argparse.Namespace):
         pipe.descriptor_model = model
         pipe.descriptor_size = args.salad_image_size
         if args.load_index:
-            pipe.index, meta = load_index(args.load_index, device)
+            pipe.index, meta = load_index(args.load_index, device, mesh)
             pipe.gallery_filenames = (
                 list(meta["filenames"]) if "filenames" in meta else
                 [f"row_{i}" for i in range(pipe.index.size)])
         else:
-            g_desc = extract_descriptors(model, g_source, g_batch, device)
+            g_desc = extract_descriptors(model, g_source, g_batch, device,
+                                         mesh)
             pipe.index = DescriptorIndex(dim=g_desc.shape[-1], device=device,
-                                         quantize=args.int8).build(g_desc)
+                                         quantize=args.int8,
+                                         mesh=mesh).build(g_desc)
             pipe.gallery_filenames = gallery.filenames
             if args.save_index:
                 save_index(pipe.index, args.save_index,
                            filenames=gallery.filenames,
                            latlon=np.asarray(gallery.latlon, np.float32))
         if args.approx:
-            print(f"NOTE: --approx {args.approx} ignored; the search is "
-                  "exact", file=sys.stderr)
+            say(f"NOTE: --approx {args.approx} ignored; the search is "
+                "exact", file=sys.stderr)
         sizes.append(args.salad_image_size)
         batch_sizes.append(64)
 
@@ -232,12 +248,17 @@ def build_pipeline(args: argparse.Namespace):
 
 
 def main(argv=None):
+    from geovpr_torch.parallel.mesh import is_writer
+
     args = parse_args(argv)
-    pipe, source, stream_size = build_pipeline(args)
+    mesh, device = start_mesh(args, args.device)
+    pipe, source, stream_size = build_pipeline(args, mesh, device)
     written = pipe.export(source, args.out_dir)
     outputs = {"num_images": len(source), "stream_size": stream_size,
                **{f"{k}_csv": v for k, v in written.items()}}
-    print(json.dumps(outputs))
+    if is_writer(mesh):
+        print(json.dumps(outputs))
+    stop_mesh(mesh)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,7 @@
         --image-root dataset/images --out-dir out \
         [--variables salad.msgpack] [--top-k 5] [--positive-radius 25] \
         [--save-index gallery.npz | --load-index gallery.npz] [--int8]
-        [--device cuda]
+        [--device cuda] [--multihost ...]
 
 Extracts DINOv2+SALAD descriptors (bf16) for gallery and queries, builds a
 device-resident bf16 index, searches cosine top-k, reports proximity
@@ -17,6 +17,12 @@ block runs kernels K2 and K3, and the gallery index is int8 with per-row
 scales. `--variables` reads the flax msgpack `geovpr.cli.retrieve` reads;
 without it the model is a seeded random init. `--device` defaults to cuda
 and fails when no card is present; pass `--device cpu` to run on the CPU.
+
+`--multihost` (one process per card, as `cli.train`'s flag) shards each
+extraction batch over the ranks and gathers the descriptors in source
+order on every rank (a batch that does not divide the ranks runs whole on
+each, as JAX's), builds the index sharded over the ranks, searches the
+replicated queries, and rank 0 writes the CSV and prints.
 """
 
 from __future__ import annotations
@@ -29,18 +35,31 @@ import sys
 import numpy as np
 import torch
 
+from geovpr_torch.cli.common import (add_distributed_args, start_mesh,
+                                     stop_mesh)
+
+
 def extract_descriptors(model, source, batch_size: int,
-                        device) -> np.ndarray:
-    """Batched descriptor extraction over an image source, forward only."""
+                        device, mesh=None) -> np.ndarray:
+    """Batched descriptor extraction over an image source, forward only;
+    with a mesh each rank runs its rows of a batch and every rank gets all
+    descriptors (`geovpr/cli/retrieve.py:34-52`: a batch size the ranks do
+    not divide runs whole on every rank)."""
     from geovpr_torch.data.pipeline import iterate_batches, prefetch_to_device
     from geovpr_torch.data.transforms import normalize
+    from geovpr_torch.parallel.mesh import gather_rows
 
+    if mesh is not None and batch_size % mesh.size != 0:
+        mesh = None
     out = None
     with torch.inference_mode():
         for batch in prefetch_to_device(iterate_batches(source, batch_size),
-                                        device):
+                                        device, mesh=mesh):
             idx = batch["_indices"]
-            desc = model(normalize(batch["image"])).pooled.float().cpu()
+            desc = model(normalize(batch["image"])).pooled.float()
+            if mesh is not None:
+                desc = gather_rows(desc, mesh)
+            desc = desc.cpu()
             if out is None:
                 out = np.zeros((len(source), desc.shape[-1]), np.float32)
             out[idx] = desc[:len(idx)].numpy()
@@ -62,7 +81,7 @@ def calibrate_int8(model, source, batch_size: int, device) -> dict:
 def run_retrieval(model, gallery_source, query_source, *, batch_size: int,
                   top_k: int, positive_radius: float, out_dir: str, device,
                   loaded_index=None, save_index_path: str = "",
-                  int8: bool = False) -> dict:
+                  int8: bool = False, mesh=None) -> dict:
     """The retrieve main path on in-memory or disk sources: extract gallery
     descriptors (or take `loaded_index` = (index, meta) from `load_index`),
     build the index, extract and search the queries, compute proximity
@@ -70,12 +89,15 @@ def run_retrieval(model, gallery_source, query_source, *, batch_size: int,
     latlon as `targets` and names as `filenames`. `int8`: the model (built
     with `build_model(..., int8=True)`) is first calibrated on the first
     gallery batch (the first query batch when the index is loaded), and the
-    gallery index is int8."""
+    gallery index is int8. With a `mesh` every rank calls this: the
+    extraction is sharded, the index too, and rank 0 writes."""
+    from geovpr_torch.parallel.mesh import barrier, is_writer
     from geovpr_torch.retrieval.index import (
         DescriptorIndex, recall_at_k_radius, save_index,
         write_retrieval_matches_csv)
 
-    os.makedirs(out_dir, exist_ok=True)
+    if is_writer(mesh):
+        os.makedirs(out_dir, exist_ok=True)
     if int8:
         calibrate_int8(model, gallery_source if loaded_index is None
                        else query_source, batch_size, device)
@@ -86,16 +108,17 @@ def run_retrieval(model, gallery_source, query_source, *, batch_size: int,
         gallery_latlon = meta.get("latlon")
     else:
         g_desc = extract_descriptors(model, gallery_source, batch_size,
-                                     device)
+                                     device, mesh)
         index = DescriptorIndex(dim=g_desc.shape[-1], device=device,
-                                quantize=int8).build(g_desc)
+                                quantize=int8, mesh=mesh).build(g_desc)
         gallery_filenames = gallery_source.filenames
         gallery_latlon = np.asarray(gallery_source.targets, np.float32)
         if save_index_path:
             save_index(index, save_index_path, filenames=gallery_filenames,
                        latlon=gallery_latlon)
 
-    q_desc = extract_descriptors(model, query_source, batch_size, device)
+    q_desc = extract_descriptors(model, query_source, batch_size, device,
+                                 mesh)
     scores, nbrs = index.search(q_desc, k=top_k)
     scores, nbrs = scores.cpu().numpy(), nbrs.cpu().numpy()
 
@@ -108,8 +131,10 @@ def run_retrieval(model, gallery_source, query_source, *, batch_size: int,
             for k in (1, min(5, top_k), top_k)
         }
     path = os.path.join(out_dir, "retrieval_matches.csv")
-    write_retrieval_matches_csv(path, query_source.filenames,
-                                gallery_filenames, nbrs, scores)
+    if is_writer(mesh):
+        write_retrieval_matches_csv(path, query_source.filenames,
+                                    gallery_filenames, nbrs, scores)
+    barrier(mesh)
     out = {"gallery_size": index.size,
            "num_queries": len(query_source),
            **recalls, "matches_csv": path}
@@ -177,23 +202,27 @@ def main(argv=None):
                         "and K3 in every block, int8 gallery index")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda (default) fails without a card")
+    add_distributed_args(p)
     args = p.parse_args(argv)
 
     if not args.gallery_csv and not args.load_index:
         p.error("either --gallery-csv or --load-index is required")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device is available; pass --device cpu to "
-                         "run on the CPU")
+    mesh, device = start_mesh(args, args.device)
+    _retrieve(args, mesh, device)
+    stop_mesh(mesh)
+
+
+def _retrieve(args, mesh, device) -> None:
+    from geovpr_torch.parallel.mesh import is_writer
 
     from geovpr_torch.data.manifest import load_manifest
     from geovpr_torch.data.pipeline import ImageFolderSource
     from geovpr_torch.retrieval.index import load_index
 
-    if args.approx:
+    if args.approx and is_writer(mesh):
         print(f"NOTE: --approx {args.approx} ignored; the search is exact",
               file=sys.stderr)
-    if not args.variables:
+    if not args.variables and is_writer(mesh):
         print("WARNING: no --variables given; using random init "
               "(descriptors will not be meaningful)")
     model = build_model(args.variant, args.image_size, device,
@@ -211,10 +240,11 @@ def main(argv=None):
         source(args.query_csv), batch_size=args.batch_size,
         top_k=args.top_k, positive_radius=args.positive_radius,
         out_dir=args.out_dir, device=device,
-        loaded_index=(load_index(args.load_index, device)
+        loaded_index=(load_index(args.load_index, device, mesh)
                       if args.load_index else None),
-        save_index_path=args.save_index, int8=args.int8)
-    print(json.dumps(out))
+        save_index_path=args.save_index, int8=args.int8, mesh=mesh)
+    if is_writer(mesh):
+        print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@ flag for flag).
         --image-root images --save-dir runs \
         [--epochs N] [--batch-size B] [--seed S] \
         [--pretrained backbone.msgpack] [--resume DIR | --auto-resume DIR] \
-        [--profile] [--device cuda|cpu]
+        [--profile] [--device cuda|cpu] \
+        [--multihost [--coordinator HOST:PORT --num-processes N \
+                      --process-id R]]
 
 Trains the presets whose every kernel and module is ported:
 - Swin at window 12 (`swin_b384_gemini2`, `swin_b384_v4_diff_lr`,
@@ -42,8 +44,15 @@ own (`train.checkpoint`), in the JAX CLI's run-directory layout;
 `--pretrained` reads a flax msgpack of backbone variables (as
 `geovpr.cli.convert` writes it). `--device` defaults to cuda and fails
 when no card is present; pass `--device cpu` to run on the CPU.
-`--async-checkpoint` is refused; `--multihost` and its companions are not
-ported (ROADMAP Queue 1, parallel).
+`--async-checkpoint` is refused.
+
+`--multihost` runs one process per card, data parallel
+(`geovpr_torch.parallel`): each process initializes the process group
+from `--coordinator`, `--num-processes` and `--process-id` (or from
+torchrun's environment: `torchrun --nproc-per-node N -m
+geovpr_torch.cli.train --multihost ...`), trains on `cuda:{local rank}`
+(or the CPU over gloo with `--device cpu`) with its rows of every batch,
+the gradients all-reduced, and rank 0 writes the run directory.
 """
 
 from __future__ import annotations
@@ -55,6 +64,10 @@ import sys
 
 import numpy as np
 import torch
+
+from geovpr_torch.cli.common import (add_distributed_args, start_mesh,
+                                     stop_mesh)
+from geovpr_torch.parallel.mesh import is_writer
 
 
 def load_pretrained_backbone(path: str) -> dict:
@@ -70,11 +83,12 @@ def run_train(cfg, train_source, val_source=None, *, save_dir: str = "runs",
               device="cuda", epochs: int = 0, batch_size: int = 0,
               seed: int = -1, pretrained: dict | None = None,
               resume: str = "", auto_resume: str = "",
-              profile: bool = False):
+              profile: bool = False, mesh=None):
     """Train preset `cfg` on in-memory or disk sources (targets as
     `targets`): the scaler fitted on the train targets (geopose), a
     seeded random init with `pretrained` laid over it, or the latest
-    checkpoint of `resume` / `auto_resume`. Returns the Trainer (its
+    checkpoint of `resume` / `auto_resume`, data parallel over `mesh`
+    where one is given (every rank calls this). Returns the Trainer (its
     `history`, `step_losses`, `run_dir`, `state`). Raises
     NotImplementedError on `data.cache_decoded` and `model.remat`, which
     the port does not honour yet."""
@@ -104,7 +118,7 @@ def run_train(cfg, train_source, val_source=None, *, save_dir: str = "runs",
     trainer = Trainer(model=model, objective=objective_for(cfg),
                       optim_cfg=cfg.optim, train_cfg=train_cfg,
                       data_cfg=data, device=device, scaler=scaler,
-                      pretrained=pretrained,
+                      pretrained=pretrained, mesh=mesh,
                       run_dir=resume or auto_resume or "")
     start_epoch = 0
     resume_dir = resume or auto_resume
@@ -114,10 +128,11 @@ def run_train(cfg, train_source, val_source=None, *, save_dir: str = "runs",
                            steps_per_epoch=spe)
         start_epoch = trainer.restore_latest(resume_dir,
                                              require=bool(resume))
-        print(f"resumed {resume_dir}; continuing at epoch {start_epoch}"
-              if start_epoch else
-              f"no checkpoint under {resume_dir}; starting fresh there",
-              file=sys.stderr)
+        if is_writer(mesh):
+            print(f"resumed {resume_dir}; continuing at epoch "
+                  f"{start_epoch}" if start_epoch else
+                  f"no checkpoint under {resume_dir}; starting fresh there",
+                  file=sys.stderr)
     trainer.fit(train_source, val_source, start_epoch=start_epoch)
     return trainer
 
@@ -146,11 +161,7 @@ def main(argv=None):
                         "<run_dir>/profile")
     p.add_argument("--async-checkpoint", action="store_true",
                    help="not ported: refused")
-    p.add_argument("--multihost", action="store_true",
-                   help="not ported (ROADMAP Queue 1, parallel)")
-    p.add_argument("--coordinator", default="")
-    p.add_argument("--num-processes", type=int, default=0)
-    p.add_argument("--process-id", type=int, default=-1)
+    add_distributed_args(p)
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda (default) fails without a card")
     args = p.parse_args(argv)
@@ -159,16 +170,12 @@ def main(argv=None):
     if args.async_checkpoint:
         raise SystemExit("--async-checkpoint is not ported: the port writes "
                          "its checkpoints synchronously (drop the flag)")
-    if (args.multihost or args.coordinator or args.num_processes
-            or args.process_id >= 0):
-        raise NotImplementedError(
-            "multi-host training is not ported yet (ROADMAP Queue 1, "
-            "parallel)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device is available; pass --device cpu to "
-                         "run on the CPU")
+    mesh, device = start_mesh(args, args.device)
+    _train(args, mesh, device)
+    stop_mesh(mesh)
 
+
+def _train(args, mesh, device) -> None:
     from geovpr_torch.cli.presets import build_preset
     from geovpr_torch.core.config import GeoposeConfig
     from geovpr_torch.data.manifest import load_manifest
@@ -197,10 +204,11 @@ def main(argv=None):
         seed=args.seed, profile=args.profile,
         pretrained=(load_pretrained_backbone(args.pretrained)
                     if args.pretrained else None),
-        resume=args.resume, auto_resume=args.auto_resume)
-    print(json.dumps({"run_dir": trainer.run_dir,
-                      "final": trainer.history[-1] if trainer.history
-                      else {}}))
+        resume=args.resume, auto_resume=args.auto_resume, mesh=mesh)
+    if is_writer(mesh):
+        print(json.dumps({"run_dir": trainer.run_dir,
+                          "final": trainer.history[-1] if trainer.history
+                          else {}}))
 
 
 if __name__ == "__main__":

@@ -177,23 +177,41 @@ def iterate_batches(source, batch_size: int, shuffle: bool = False,
         yield batch
 
 
-def prefetch_to_device(iterator, device, depth: int = 2):
+def prefetch_to_device(iterator, device, depth: int = 2, mesh=None):
     """Copy each batch's arrays to `device` while earlier batches are still
     being consumed. On CUDA the host arrays are staged in pinned memory and
     copied with `non_blocking=True` on the current stream, so the copy of
     batch i+1 overlaps the compute of batch i. Keys starting with "_" (host
-    metadata such as `_indices`) pass through untouched."""
+    metadata such as `_indices`) pass through untouched.
+
+    With a `mesh` (`geovpr/data/pipeline.py:250-287`) a batch whose rows do
+    not divide the data shards is first padded by repeating row 0 with the
+    mask false (those rows still enter BatchNorm's batch statistics, as
+    in JAX), and each rank takes its rows."""
+    from geovpr_torch.parallel.mesh import pad_batch_to_multiple, shard_rows
+
     device = torch.device(device)
     pin = device.type == "cuda"
     queue = collections.deque()
 
     def put(batch):
+        host = {k: v for k, v in batch.items() if not k.startswith("_")}
+        rows = slice(None)
+        if mesh is not None:
+            shards = mesh.axis_size("data")
+            n = next(iter(host.values())).shape[0]
+            if n % shards:
+                old_mask = host.get("mask")
+                host, pad_mask = pad_batch_to_multiple(host, shards)
+                host["mask"] = (pad_mask if old_mask is None
+                                else np.logical_and(host["mask"], pad_mask))
+            rows = shard_rows(mesh, next(iter(host.values())).shape[0])
         out = {}
-        for k, v in batch.items():
+        for k in dict.fromkeys([*batch, *host]):
             if k.startswith("_"):
-                out[k] = v
+                out[k] = batch[k]
                 continue
-            t = torch.from_numpy(np.ascontiguousarray(v))
+            t = torch.from_numpy(np.ascontiguousarray(host[k][rows]))
             if pin:
                 t = t.pin_memory()
             out[k] = t.to(device, non_blocking=pin)

@@ -203,37 +203,60 @@ def gauss_noise(images, apply, var, noise) -> torch.Tensor:
     return torch.where(apply[:, None, None, None], noisy, images)
 
 
+def _global_draws(b: int, rows):
+    """(draw size, take): with `rows` = (offset, global batch) the draws
+    cover the global batch and `take` keeps this rank's b rows of each,
+    so a data-parallel step draws what one process would; else b and the
+    identity."""
+    if rows is None:
+        return b, lambda d: d
+    offset, n = rows
+
+    def take(d):
+        if isinstance(d, dict):
+            return {k: v[offset:offset + b] for k, v in d.items()}
+        return d[offset:offset + b]
+    return n, take
+
+
 def build_augment(name: str):
-    """The pipeline of `DataConfig.augment`: fn(gen, images) -> (images,
-    flipped (B,) bool), on [0, 1] float images."""
+    """The pipeline of `DataConfig.augment`: fn(gen, images, rows=None) ->
+    (images, flipped (B,) bool), on [0, 1] float images; `rows` places a
+    rank's rows in the global batch (`_global_draws`)."""
     if name == "none":
-        return lambda gen, images: (images, torch.zeros(
+        return lambda gen, images, rows=None: (images, torch.zeros(
             images.shape[0], dtype=torch.bool, device=images.device))
 
-    def light(gen, images):
+    def light(gen, images, rows=None):
         b, dev = images.shape[0], images.device
-        x = resized_crop(images, **draw_resized_crop(gen, b, device=dev))
-        flipped = draw_flip(gen, b, device=dev)
+        n, take = _global_draws(b, rows)
+        x = resized_crop(images, **take(draw_resized_crop(gen, n,
+                                                          device=dev)))
+        flipped = take(draw_flip(gen, n, device=dev))
         x = flip(x, flipped)
-        return color_jitter(x, **draw_jitter(gen, b, device=dev)), flipped
+        return color_jitter(x, **take(draw_jitter(gen, n, device=dev))), \
+            flipped
 
-    def heavy(gen, images):
+    def heavy(gen, images, rows=None):
         b, dev = images.shape[0], images.device
-        flipped = draw_flip(gen, b, device=dev)
+        n, take = _global_draws(b, rows)
+        flipped = take(draw_flip(gen, n, device=dev))
         x = color_jitter(flip(images, flipped),
-                         **draw_jitter(gen, b, device=dev))
-        x = rotate(x, draw_rotate(gen, b, 15.0, device=dev))
-        return gauss_noise(x, **draw_gauss_noise(gen, x.shape,
-                                                 device=dev)), flipped
+                         **take(draw_jitter(gen, n, device=dev)))
+        x = rotate(x, take(draw_rotate(gen, n, 15.0, device=dev)))
+        # the per-pixel noise too is drawn over the global batch
+        return gauss_noise(x, **take(draw_gauss_noise(
+            gen, (n,) + tuple(x.shape[1:]), device=dev))), flipped
 
-    def rot(gen, images):
+    def rot(gen, images, rows=None):
         # the image rotation does not remap the heading target, as in JAX
         # (a turn about the optical axis changes roll, not heading)
         b, h, w, _ = images.shape
         dev = images.device
-        x = rotate(images, draw_rotate(gen, b, 45.0, device=dev))
-        x = affine(x, **draw_affine(gen, b, h, w, device=dev))
-        return color_jitter(x, **draw_jitter(gen, b, device=dev)), \
+        n, take = _global_draws(b, rows)
+        x = rotate(images, take(draw_rotate(gen, n, 45.0, device=dev)))
+        x = affine(x, **take(draw_affine(gen, n, h, w, device=dev)))
+        return color_jitter(x, **take(draw_jitter(gen, n, device=dev))), \
             torch.zeros(b, dtype=torch.bool, device=dev)
 
     pipelines = {"geo_light": light, "geo_heavy": heavy, "angle_rot": rot}

@@ -48,13 +48,14 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator: torch.Generator | None = None
+        self.rows: tuple | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
-                          generator=self.generator, device=x.device) < keep
+        mask = draw_rows(self.generator, self.rows, (x.shape[0],)
+                         + (1,) * (x.dim() - 1), x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -67,6 +68,7 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator: torch.Generator | None = None
+        self.rows: tuple | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
@@ -74,17 +76,32 @@ class Dropout(nn.Module):
         if self.rate >= 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep
+        mask = draw_rows(self.generator, self.rows, x.shape, x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-def set_rng(model: nn.Module, generator: torch.Generator | None) -> None:
+def draw_rows(generator, rows: tuple | None, shape, device) -> torch.Tensor:
+    """Uniform [0, 1) draws of `shape`, whose dim 0 is this rank's rows of
+    a batch: with `rows` = (offset, global batch) the draw covers the
+    global batch and rows [offset, offset + shape[0]) are kept, so every
+    rank of a data-parallel step sees the numbers one process would."""
+    if rows is None:
+        return torch.rand(shape, generator=generator, device=device)
+    offset, n = rows
+    full = torch.rand((n,) + tuple(shape[1:]), generator=generator,
+                      device=device)
+    return full[offset:offset + shape[0]]
+
+
+def set_rng(model: nn.Module, generator: torch.Generator | None,
+            rows: tuple | None = None) -> None:
     """Point every DropPath and Dropout of `model` at `generator`; they
-    draw from it in forward order."""
+    draw from it in forward order, over the global batch where `rows`
+    (offset, global batch) places this rank's rows in it."""
     for m in model.modules():
         if isinstance(m, (DropPath, Dropout)):
             m.generator = generator
+            m.rows = rows
 
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -133,7 +150,14 @@ class BatchNorm(nn.Module):
     The running statistics move as flax moves them, ra = 0.9 ra + 0.1
     batch, the biased variance included (torch's `F.batch_norm` would
     move `running_var` by the unbiased one), in place under no grad: a
-    caller that must undo a step (the NaN skip) restores them."""
+    caller that must undo a step (the NaN skip) restores them.
+
+    Under a mesh with more than one data shard (`set_batch_mesh`), the
+    batch is the global, data-sharded one, as JAX's mean over a sharded
+    batch: the per-channel sums of x and x^2 and the count are
+    all-reduced over `data` (under autograd) before the variance is
+    formed, so every rank normalizes alike and moves the same running
+    statistics."""
 
     MOMENTUM = 0.9
 
@@ -146,6 +170,7 @@ class BatchNorm(nn.Module):
                                                          device=device))
         self.register_buffer("running_var", torch.ones(channels,
                                                        device=device))
+        self.mesh = None
 
     def _init_weights(self, generator: torch.Generator) -> None:
         del generator
@@ -162,8 +187,12 @@ class BatchNorm(nn.Module):
                                 False, 0.0, self.eps)
         # flax's `_compute_stats` with `use_fast_variance`, over (B, H, W)
         x = x.float()
-        mean = x.mean((0, 2, 3))
-        var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+        if self.mesh is not None and self.mesh.axis_size("data") > 1:
+            mean, var = self._global_stats(x)
+        else:
+            mean = x.mean((0, 2, 3))
+            var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean,
+                              min=0.0)
         with torch.no_grad():
             m = self.MOMENTUM
             self.running_mean.copy_(m * self.running_mean
@@ -172,6 +201,24 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((x - mean[:, None, None]) * mul[:, None, None]
                 + self.bias[:, None, None])
+
+    def _global_stats(self, x: torch.Tensor) -> tuple:
+        from geovpr_torch.parallel.mesh import all_reduce_sum_autograd
+        c = x.shape[1]
+        count = x.new_full((1,), x.numel() // c)
+        sums = all_reduce_sum_autograd(torch.cat(
+            [x.sum((0, 2, 3)), (x * x).sum((0, 2, 3)), count]), self.mesh)
+        mean = sums[:c] / sums[2 * c]
+        var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean, min=0.0)
+        return mean, var
+
+
+def set_batch_mesh(model: nn.Module, mesh) -> None:
+    """Make every BatchNorm of `model` take its training statistics over
+    the global batch of `mesh`'s data axis (None: the local batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
 
 
 def batch_stat_buffers(model: nn.Module) -> list:

@@ -14,21 +14,51 @@ Training losses: MSE (`swin_finetuning.py:89`), Huber with torch
 (`swin_angle_finetuning_sin_cos.py:65-69`).
 
 `mask` is an optional (B,) bool tensor; padded rows never contribute.
+
+Under `global_batch(mesh)` (the data-parallel training step) a rank holds
+its rows of the batch, and a masked mean is over the GLOBAL batch, as JAX's
+over a data-sharded array: this rank's masked sum over the valid count
+all-reduced over `data` (the count carries no gradient). The ranks' losses
+then sum to the global loss and their gradients to its gradient. At one
+data shard the arithmetic is the local mean's, op for op.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
 
+_GLOBAL_BATCH = contextvars.ContextVar("geovpr_torch_global_batch",
+                                       default=None)
+
+
+@contextlib.contextmanager
+def global_batch(mesh):
+    """Masked means inside the block are over `mesh`'s global batch (None:
+    the local one)."""
+    token = _GLOBAL_BATCH.set(mesh)
+    try:
+        yield
+    finally:
+        _GLOBAL_BATCH.reset(token)
+
 
 def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-    if mask is None:
+    mesh = _GLOBAL_BATCH.get()
+    if mask is None and mesh is None:
         return x.mean()
+    if mask is None:
+        mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
     m = mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim())).to(x.dtype)
     per_row = x.numel() // mask.numel()
-    denom = torch.clamp(m.sum() * per_row, min=1.0)
+    count = m.sum() * per_row
+    if mesh is not None:
+        from geovpr_torch.parallel.mesh import all_reduce_
+        count = all_reduce_(count.detach().clone(), mesh)
+    denom = torch.clamp(count, min=1.0)
     return (x * m).sum() / denom
 
 

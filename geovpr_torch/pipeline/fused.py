@@ -18,6 +18,11 @@ antialiasing on a downscale, which `F.interpolate` does not do by
 default), and the Resize(256)+CenterCrop(224) crop folded into the weight
 slice. JAX computes this resize in XLA, outside any kernel, so it is
 `torch.matmul` here, in full f32 (no TF32).
+
+With a `mesh` (`geovpr/pipeline/fused.py:68`, `:178-196`) every rank runs
+its rows of each batch and the outputs are gathered over `data`, so every
+rank holds every image's results; the index is the sharded one, and rank 0
+writes the CSVs.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import torch
 
 from geovpr_torch.data.pipeline import iterate_batches, prefetch_to_device
 from geovpr_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD, normalize
+from geovpr_torch.parallel.mesh import (barrier, broadcast_object,
+                                        gather_rows, is_writer)
 from geovpr_torch.pipeline.export import (write_angle_test_csv,
                                           write_geopose_test_csv)
 from geovpr_torch.retrieval.index import write_retrieval_matches_csv
@@ -134,6 +141,7 @@ class FusedPipeline:
     angle_size: int = 0
     descriptor_size: int = 0
     angle_resize_to: int = 0
+    mesh: Any = None
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -181,10 +189,13 @@ class FusedPipeline:
         n = len(source)
         results: dict[str, np.ndarray] = {}
         for batch in prefetch_to_device(
-                iterate_batches(source, self.batch_size), self.device):
+                iterate_batches(source, self.batch_size), self.device,
+                mesh=self.mesh):
             idx = batch["_indices"]
             out = self.forward(batch["image"], batch.get("image_alt"))
             for key, val in out.items():
+                if self.mesh is not None:
+                    val = gather_rows(val, self.mesh)
                 val = val.cpu().numpy()[:len(idx)]
                 if key not in results:
                     results[key] = np.zeros((n,) + val.shape[1:], val.dtype)
@@ -200,10 +211,17 @@ class FusedPipeline:
                filenames: Optional[list[str]] = None) -> dict[str, str]:
         """Run, then write the submission CSVs sorted as `source` is:
         `test_predictions_sorted.csv`, `test_pred.csv` and
-        `retrieval_matches.csv`, for the components present."""
-        os.makedirs(out_dir, exist_ok=True)
+        `retrieval_matches.csv`, for the components present (rank 0
+        writes; every rank returns the paths)."""
         names = filenames or source.filenames
         results = self.run(source)
+        written = (self._write(results, out_dir, names)
+                   if is_writer(self.mesh) else None)
+        barrier(self.mesh)
+        return broadcast_object(written, self.mesh)
+
+    def _write(self, results: dict, out_dir: str, names) -> dict:
+        os.makedirs(out_dir, exist_ok=True)
         written = {}
         if "latlon" in results:
             path = os.path.join(out_dir, "test_predictions_sorted.csv")

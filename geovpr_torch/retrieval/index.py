@@ -1,5 +1,5 @@
 """Device-resident descriptor retrieval (the port of
-`geovpr.retrieval.index`, single device).
+`geovpr.retrieval.index`).
 
 - the database lives on the device in bf16 (2 bytes a dimension), or with
   `quantize=True` as per-row symmetric int8 with one f32 scale a row (1
@@ -17,10 +17,12 @@
   multiple of 8, as `torch._int_mm` needs on CUDA (which also needs more
   than 16 query rows: `geovpr_torch.ops.quant.int_mm` pads those).
 
-Not ported yet: the sharded search over a mesh (ROADMAP Queue 1, parallel).
-There is no approximate top-k (`topk_method="approx"` in JAX): torch has no
-counterpart of `jax.lax.approx_max_k`, the search is always exact, and on
-the CPU JAX lowers it to the exact top-k as well (ROADMAP Queue 3).
+With a mesh (`geovpr_torch.parallel`) the rows are sharded over its data
+axis and a search merges every shard's top-k by an `all_gather` (the
+counterpart of JAX's `shard_map` search). There is no approximate top-k
+(`topk_method="approx"` in JAX): torch has no counterpart of
+`jax.lax.approx_max_k`, the search is always exact, and on the CPU JAX
+lowers it to the exact top-k as well (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import numpy as np
 import torch
 
 from geovpr_torch.models.layers import normalize_l2
+from geovpr_torch.parallel.mesh import (Mesh, all_gather_cat, barrier,
+                                        is_writer)
 from geovpr_torch.ops.quant import int_mm, round_clip_int8
 
 _ROW_QUANTUM = 8   # int8 gallery rows are padded to a multiple of this
@@ -89,24 +93,28 @@ def recall_at_k_radius(retrieved_idx, query_latlon, gallery_latlon,
 @dataclasses.dataclass
 class DescriptorIndex:
     """On-device descriptor database. Build once with `.build(descriptors)`;
-    query with `.search(queries, k)`."""
+    query with `.search(queries, k)`. With a `mesh` the rows are sharded
+    over its `axis`: every rank builds from the same whole rows and keeps
+    its shard."""
 
     dim: int
     dtype: torch.dtype = torch.bfloat16
     device: torch.device | str = "cpu"
     quantize: bool = False
-    mesh: Optional[object] = None
+    mesh: Optional[Mesh] = None
+    axis: str = "data"
     # query rows per score plane; 0 disables chunking
     query_chunk: int = 1024
     _db: Optional[torch.Tensor] = None
     _db_scale: Optional[torch.Tensor] = None
     _n: int = 0
+    # the global row of this rank's first row
+    _offset: int = 0
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the sharded index is not ported yet (ROADMAP Queue 1, "
-                "parallel)")
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise TypeError(f"mesh must be a geovpr_torch.parallel.Mesh, "
+                            f"not {type(self.mesh).__name__}")
         self.device = torch.device(self.device)
 
     def build(self, descriptors, normalized: bool = True) -> "DescriptorIndex":
@@ -117,7 +125,7 @@ class DescriptorIndex:
         if not normalized:
             x = normalize_l2(x.float())
         if self.quantize:
-            self._install_int8(*quantize_rows(x))
+            self._install(*quantize_rows(x))
         else:
             self._install(x.to(self.dtype))
         return self
@@ -125,20 +133,27 @@ class DescriptorIndex:
     def _install(self, rows: torch.Tensor, scale=None,
                  n_real: Optional[int] = None):
         """Place (already cast or quantized) rows, and the int8 rows'
-        scales, on the device. Rows past `n_real` are padding and never
-        appear in a search result."""
-        self._db = rows.to(self.device).contiguous()
-        self._db_scale = None if scale is None else scale.to(self.device)
+        scales, on the device: padded with zero rows (scale 1) to a
+        multiple of the shards (`_rows_multiple` of `geovpr/retrieval/
+        index.py:318-329`), each shard's int8 rows to a multiple of 8, as
+        `torch._int_mm` needs on CUDA, and this rank's shard kept. Rows
+        past `n_real` are padding and never appear in a search result."""
         self._n = int(n_real if n_real is not None else rows.shape[0])
-
-    def _install_int8(self, rows: torch.Tensor, scale: torch.Tensor):
-        """int8 rows padded with zero rows (scale 1) to a multiple of 8."""
-        n = rows.shape[0]
-        pad = -n % _ROW_QUANTUM
+        shards = 1 if self.mesh is None else self.mesh.axis_size(self.axis)
+        shard = -(-rows.shape[0] // shards)
+        if scale is not None:
+            shard = -(-shard // _ROW_QUANTUM) * _ROW_QUANTUM
+        pad = shard * shards - rows.shape[0]
         if pad:
             rows = torch.cat([rows, rows.new_zeros(pad, rows.shape[1])])
-            scale = torch.cat([scale, scale.new_ones(pad)])
-        self._install(rows, scale, n_real=n)
+            if scale is not None:
+                scale = torch.cat([scale, scale.new_ones(pad)])
+        self._offset = 0 if self.mesh is None else \
+            self.mesh.index(self.axis) * shard
+        keep = slice(self._offset, self._offset + shard)
+        self._db = rows[keep].to(self.device).contiguous()
+        self._db_scale = None if scale is None else \
+            scale[keep].to(self.device)
 
     @property
     def size(self) -> int:
@@ -151,14 +166,32 @@ class DescriptorIndex:
                      * self._db_scale[None, :])
         else:
             plane = torch.matmul(q.float(), self._db.float().T)
-        if self._db.shape[0] != self._n:
+        if self._offset + self._db.shape[0] > self._n:
+            # padded rows (global row >= n_real) leave the PLANE, before
+            # the local top-k: masked after it, a padded zero score could
+            # push a real negative-cosine candidate out of this shard's k
             col = torch.arange(plane.shape[1], device=plane.device)
-            plane = plane.masked_fill(col >= self._n, float("-inf"))
+            plane = plane.masked_fill(col + self._offset >= self._n,
+                                      float("-inf"))
         return torch.topk(plane, k, dim=1)
+
+    def _merge(self, scores: torch.Tensor, idx: torch.Tensor, k: int):
+        """The global top-k of every shard's candidates (`geovpr/retrieval/
+        index.py:507-531`): the (Q, local_k) scores and global rows
+        gathered over the axis, ordered by score and, among exact ties,
+        by the lower global row, as `lax.top_k` orders them."""
+        scores = all_gather_cat(scores, self.mesh, self.axis, 1)
+        idx = all_gather_cat(idx, self.mesh, self.axis, 1)
+        by_row = torch.argsort(idx, dim=1)
+        scores = torch.gather(scores, 1, by_row)
+        idx = torch.gather(idx, 1, by_row)
+        scores, pos = torch.sort(scores, dim=1, descending=True, stable=True)
+        return scores[:, :k], torch.gather(idx, 1, pos[:, :k])
 
     def search(self, queries, k: int):
         """Returns (scores (Q, k) f32, indices (Q, k) int64) of cosine top-k
-        matches."""
+        matches. Under a mesh each shard offers its best min(k, shard
+        rows) and every rank returns the same global result."""
         if self._db is None:
             raise ValueError("index not built")
         if k > self._n:
@@ -166,12 +199,25 @@ class DescriptorIndex:
         q = _as_tensor(queries, self.device)
         q = q.float() if self.quantize else q.to(self.dtype)
         chunk = self.query_chunk or q.shape[0]
+        local_k = k if self.mesh is None else min(k, self._db.shape[0])
         scores, idx = [], []
         for start in range(0, q.shape[0], chunk):
-            s, i = self._chunk_topk(q[start:start + chunk], k)
+            s, i = self._chunk_topk(q[start:start + chunk], local_k)
+            if self.mesh is not None:
+                s, i = self._merge(s, i + self._offset, k)
             scores.append(s)
             idx.append(i)
         return torch.cat(scores), torch.cat(idx)
+
+    def whole_rows(self) -> tuple:
+        """(rows, scales or None) of the whole index, the real rows only,
+        gathered over the mesh (every rank of it calls this)."""
+        rows, scale = self._db, self._db_scale
+        if self.mesh is not None:
+            rows = all_gather_cat(rows, self.mesh, self.axis)
+            if scale is not None:
+                scale = all_gather_cat(scale, self.mesh, self.axis)
+        return rows[:self._n], None if scale is None else scale[:self._n]
 
 
 def save_index(index: DescriptorIndex, path: str, filenames=None,
@@ -179,32 +225,38 @@ def save_index(index: DescriptorIndex, path: str, filenames=None,
     """Persist a built index to one `.npz` in the format of
     `geovpr.retrieval.index.save_index` (int8 rows and per-row scales as
     `rows_int8`/`row_scale`, bf16 rows as their uint16 bit pattern), so
-    either package reads the other's file."""
+    either package reads the other's file. Under a mesh every rank calls
+    it: the shards are gathered and rank 0 writes."""
     if index._db is None:
         raise ValueError("index not built")
-    rows = index._db[:index._n].cpu()
-    payload = {"dim": np.int64(index.dim), "n": np.int64(index._n),
-               "quantize": np.bool_(index.quantize)}
-    if index.quantize:
-        payload["rows_int8"] = rows.numpy()
-        payload["row_scale"] = index._db_scale[:index._n].cpu().numpy()
-    elif rows.dtype == torch.bfloat16:
-        payload["rows_bf16_bits"] = rows.view(torch.int16).numpy().view(
-            np.uint16)
-    else:
-        payload["rows"] = rows.numpy()
-    if filenames is not None:
-        payload["filenames"] = np.asarray(filenames, dtype=np.str_)
-    if latlon is not None:
-        payload["latlon"] = np.asarray(latlon, np.float32)
-    with open(path, "wb") as f:
-        np.savez(f, **payload)
+    rows, scale = index.whole_rows()
+    if is_writer(index.mesh):
+        rows = rows.cpu()
+        payload = {"dim": np.int64(index.dim), "n": np.int64(index._n),
+                   "quantize": np.bool_(index.quantize)}
+        if index.quantize:
+            payload["rows_int8"] = rows.numpy()
+            payload["row_scale"] = scale.cpu().numpy()
+        elif rows.dtype == torch.bfloat16:
+            payload["rows_bf16_bits"] = rows.view(torch.int16).numpy().view(
+                np.uint16)
+        else:
+            payload["rows"] = rows.numpy()
+        if filenames is not None:
+            payload["filenames"] = np.asarray(filenames, dtype=np.str_)
+        if latlon is not None:
+            payload["latlon"] = np.asarray(latlon, np.float32)
+        with open(path, "wb") as f:
+            np.savez(f, **payload)
+    barrier(index.mesh)
 
 
-def load_index(path: str, device="cpu"):
-    """Load an index saved by either package's `save_index`. Returns
-    (index, meta) with meta holding the stored gallery metadata
-    ({"filenames", "latlon"})."""
+def load_index(path: str, device="cpu", mesh: Optional[Mesh] = None,
+               axis: str = "data"):
+    """Load an index saved by either package's `save_index`, sharded over
+    `mesh` when one is given (whatever mesh wrote it). Returns (index,
+    meta) with meta holding the stored gallery metadata ({"filenames",
+    "latlon"})."""
     with np.load(path) as z:
         dim = int(z["dim"])
         quantize = bool(z["quantize"])
@@ -218,12 +270,10 @@ def load_index(path: str, device="cpu"):
         else:
             rows = torch.from_numpy(z["rows"].copy())
         meta = {k: z[k] for k in ("filenames", "latlon") if k in z}
-    if quantize:
-        index = DescriptorIndex(dim=dim, device=device, quantize=True)
-        index._install_int8(rows, scale)
-    else:
-        index = DescriptorIndex(dim=dim, dtype=rows.dtype, device=device)
-        index._install(rows)
+    index = DescriptorIndex(dim=dim, dtype=torch.bfloat16 if quantize
+                            else rows.dtype, device=device,
+                            quantize=quantize, mesh=mesh, axis=axis)
+    index._install(rows, scale)
     return index, meta
 
 

@@ -54,6 +54,17 @@ def add_sums(total: Optional[dict], sums: dict) -> dict:
     return {k: total[k] + v for k, v in sums.items()}
 
 
+def reduce_sums(sums: dict, mesh) -> dict:
+    """The sums over every rank's rows: one all-reduce over `data` of the
+    stacked sums (unchanged without a mesh)."""
+    if mesh is None:
+        return sums
+    from geovpr_torch.parallel.mesh import all_reduce_
+    keys = sorted(sums)
+    total = all_reduce_(torch.stack([sums[k].float() for k in keys]), mesh)
+    return dict(zip(keys, total.unbind()))
+
+
 def summarize_eval(sums: dict) -> dict:
     """Host-side reduction into the metric suite: for angles MAAE and the
     mean squared circular error; for geopose MSE averaged over both axes

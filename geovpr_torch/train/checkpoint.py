@@ -18,6 +18,13 @@ package's directory contract.
   `geovpr.cli.common.load_trained` resolves them, for
   `geovpr_torch.cli.evaluate --run-dir`.
 
+Under a mesh (`geovpr/train/checkpoint.py:99-132`) whole tensors go on
+disk: every rank calls `save_checkpoint`, the tensor-parallel moments are
+gathered whole, rank 0 writes and the others wait at a barrier. Every rank
+restores, and the optimizer keeps its part of each split moment, so a run
+saved on one mesh resumes on another (`(4,)` on `(2, 2)` or on one
+process), as JAX restores into the template's shardings.
+
 Reading the JAX package's orbax run directories is not ported (ROADMAP).
 """
 
@@ -31,6 +38,7 @@ from typing import Optional
 import torch
 
 from geovpr_torch.objectives.scaler import ScalerState
+from geovpr_torch.parallel.mesh import barrier, is_writer
 from geovpr_torch.train.state import TrainState
 
 
@@ -43,14 +51,24 @@ def _cpu(tree):
 
 
 def save_checkpoint(path: str, state: TrainState, epoch: int,
-                    metrics: Optional[dict] = None) -> None:
+                    metrics: Optional[dict] = None, mesh=None) -> None:
+    """Write `state` atomically to the directory `path` (with a mesh: on
+    every rank, rank 0 writing)."""
+    opt = _cpu(state.opt.state_dict())       # gathers split moments
+    if is_writer(mesh):
+        _write(path, state, epoch, metrics, opt)
+    barrier(mesh)
+
+
+def _write(path: str, state: TrainState, epoch: int,
+           metrics: Optional[dict], opt: dict) -> None:
     path = os.path.abspath(path)
     tmp = f"{path}.tmp-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     torch.save({"step": state.step, "epoch": epoch, "seed": state.seed,
                 "params": _cpu(state.model.state_dict()),
-                "opt": _cpu(state.opt.state_dict()),
+                "opt": opt,
                 "scaler": {"mean": state.scaler.mean.cpu(),
                            "scale": state.scaler.scale.cpu()}},
                os.path.join(tmp, "state.pt"))

@@ -25,8 +25,18 @@ the whole run's schedule horizon. The frozen-feature cache
 batch statistics, `pooled_features` runs once per run over each source,
 and the epochs train and validate the head alone on those features.
 
+With a `mesh` (`geovpr/train/loop.py:40`, `:249`, `:373`, `:449`, `:475`)
+the Trainer runs on every rank: each batch is padded to the data shards
+and each rank takes its rows (`prefetch_to_device(mesh=...)`), the step is
+data parallel (`train.steps`), a `model` axis splits the optimizer state
+(`parallel.sharding_rules.shard_state`), the eval sums are all-reduced and
+the predictions gathered, and the frozen-feature cache is extracted over
+the sharded source and gathered. Plateau and early stop read the reduced
+numbers, so every rank decides alike; rank 0 writes `metrics.jsonl`, the
+checkpoints and the profile, and every rank restores.
+
 Not ported: asynchronous checkpoints and `remat` (ROADMAP Queue 1
-leftovers), meshes (parallel).
+leftovers).
 """
 
 from __future__ import annotations
@@ -48,7 +58,11 @@ from geovpr_torch.data.pipeline import (ArraySource, iterate_batches,
 from geovpr_torch.data.transforms import build_augment, normalize
 from geovpr_torch.models.layers import batch_stat_buffers
 from geovpr_torch.objectives.scaler import ScalerState
-from geovpr_torch.serve.eval import add_sums, eval_sums, summarize_eval
+from geovpr_torch.parallel.mesh import (barrier, broadcast_object,
+                                        gather_rows, is_writer)
+from geovpr_torch.parallel.sharding_rules import shard_state
+from geovpr_torch.serve.eval import (add_sums, eval_sums, reduce_sums,
+                                     summarize_eval)
 from geovpr_torch.train.checkpoint import (checkpoint_epoch,
                                            latest_checkpoint,
                                            restore_checkpoint,
@@ -68,6 +82,7 @@ class Trainer:
     device: Any = "cuda"
     scaler: Optional[ScalerState] = None
     pretrained: Optional[dict] = None
+    mesh: Any = None
 
     state: Optional[TrainState] = None
     run_dir: str = ""
@@ -84,9 +99,12 @@ class Trainer:
         if not self.run_dir:
             stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
             name = self.train_cfg.run_name or "run"
-            self.run_dir = os.path.join(self.train_cfg.save_dir,
-                                        f"training_{name}_{stamp}")
-        os.makedirs(self.run_dir, exist_ok=True)
+            self.run_dir = broadcast_object(
+                os.path.join(self.train_cfg.save_dir,
+                             f"training_{name}_{stamp}"), self.mesh)
+        if is_writer(self.mesh):
+            os.makedirs(self.run_dir, exist_ok=True)
+        barrier(self.mesh)
         self.device = torch.device(self.device)
         mean, std = self.data_cfg.mean, self.data_cfg.std
         self._normalize = lambda x: normalize(x, mean, std)
@@ -94,7 +112,8 @@ class Trainer:
                if self.data_cfg.augment != "none" else None)
         self._train_step = make_train_step(
             self.objective, normalize_fn=self._normalize, augment_fn=aug,
-            skip_nonfinite=self.train_cfg.skip_nonfinite_updates)
+            skip_nonfinite=self.train_cfg.skip_nonfinite_updates,
+            mesh=self.mesh)
         # the head-only warmup phase (`dino_v2_gemini.py:187-222`)
         self._frozen_phase = self.optim_cfg.freeze_backbone_epochs > 0
         self._total_steps = 0
@@ -116,6 +135,12 @@ class Trainer:
         self.state.opt = build_optimizer(self.state.model, cfg,
                                          self._total_steps,
                                          self._steps_per_epoch)
+        self._shard_state()
+
+    def _shard_state(self) -> None:
+        """Split the optimizer state over a `model` axis."""
+        if self.mesh is not None and "model" in self.mesh.shape:
+            shard_state(self.mesh, self.state)
 
     def init_state(self, total_steps: int = 0,
                    steps_per_epoch: int = 0) -> TrainState:
@@ -127,6 +152,7 @@ class Trainer:
             scaler=self.scaler, out_dim=self.objective.out_dim,
             pretrained=self.pretrained, total_steps=total_steps,
             steps_per_epoch=steps_per_epoch)
+        self._shard_state()
         return self.state
 
     def restore_latest(self, run_dir: str, require: bool = False) -> int:
@@ -230,8 +256,10 @@ class Trainer:
                 drop_remainder=self.data_cfg.drop_remainder_train)
             prof = None
             for i, batch in enumerate(prefetch_to_device(
-                    batches, self.device, self.data_cfg.prefetch_depth)):
-                if cfg.profile and epoch == start_epoch and i == 1:
+                    batches, self.device, self.data_cfg.prefetch_depth,
+                    self.mesh)):
+                if (cfg.profile and epoch == start_epoch and i == 1
+                        and is_writer(self.mesh)):
                     prof = self._start_profile()
                 m = train_step(self.state, batch)
                 losses.append(m["loss"])
@@ -268,7 +296,7 @@ class Trainer:
                 if monitored < best:
                     best, best_epoch, bad_epochs = monitored, epoch, 0
                     save_checkpoint(os.path.join(self.run_dir, "best"),
-                                    self.state, epoch, val)
+                                    self.state, epoch, val, self.mesh)
                 else:
                     bad_epochs += 1
 
@@ -279,15 +307,20 @@ class Trainer:
                     self.state, epoch,
                     metrics={"bad_epochs": bad_epochs,
                              "plateau_bad": plateau_bad,
-                             "best": best, "best_epoch": best_epoch})
-                self._prune_checkpoints()
+                             "best": best, "best_epoch": best_epoch},
+                    mesh=self.mesh)
+                if is_writer(self.mesh):
+                    self._prune_checkpoints()
 
             self.history.append(record)
-            with open(os.path.join(self.run_dir, "metrics.jsonl"), "a") as f:
-                f.write(json.dumps(record) + "\n")
+            if is_writer(self.mesh):
+                with open(os.path.join(self.run_dir, "metrics.jsonl"),
+                          "a") as f:
+                    f.write(json.dumps(record) + "\n")
             if (cfg.early_stop_patience
                     and bad_epochs >= cfg.early_stop_patience):
                 break
+        barrier(self.mesh)
         self.history_summary = {"best": best, "best_epoch": best_epoch}
         return self.history
 
@@ -316,11 +349,12 @@ class Trainer:
             with torch.inference_mode():
                 for batch in prefetch_to_device(
                         iterate_batches(source, self.data_cfg.batch_size),
-                        self.device, self.data_cfg.prefetch_depth):
+                        self.device, self.data_cfg.prefetch_depth,
+                        self.mesh):
                     idx = batch["_indices"]
-                    f = model.pooled_features(
-                        self._normalize(batch["image"])).float().cpu()
-                    t = batch["target"].float().cpu()
+                    f = self._global(model.pooled_features(
+                        self._normalize(batch["image"])).float()).cpu()
+                    t = self._global(batch["target"].float()).cpu()
                     if feats is None:
                         feats = np.zeros((len(source), f.shape[-1]),
                                          np.float32)
@@ -333,10 +367,14 @@ class Trainer:
         step = make_train_step(
             self.objective, normalize_fn=None,
             skip_nonfinite=self.train_cfg.skip_nonfinite_updates,
-            apply_fn=model.head_only)
+            apply_fn=model.head_only, mesh=self.mesh)
         return (cache(train_source),
                 cache(val_source) if val_source is not None else None,
                 step, make_eval_step(model, None, model.head_only))
+
+    def _global(self, t: torch.Tensor) -> torch.Tensor:
+        """The global batch of a per-rank output (gathered over `data`)."""
+        return t if self.mesh is None else gather_rows(t, self.mesh)
 
     def _start_profile(self):
         from torch.profiler import ProfilerActivity, profile
@@ -383,18 +421,19 @@ class Trainer:
         with torch.inference_mode():
             for batch in prefetch_to_device(
                     iterate_batches(source, self.data_cfg.batch_size),
-                    self.device, self.data_cfg.prefetch_depth):
+                    self.device, self.data_cfg.prefetch_depth, self.mesh):
                 idx = batch["_indices"]
                 preds = forward(batch["image"])
                 decoded = self.objective.decode_predictions(
                     preds, self.state.scaler)
                 sums = add_sums(sums, eval_sums(decoded, batch["target"],
                                                 batch["mask"]))
+                decoded = self._global(decoded)
                 if out is None:
                     out = np.zeros((len(source),) + tuple(decoded.shape[1:]),
                                    np.float32)
                 out[idx] = decoded[:len(idx)].cpu().numpy()
-        return summarize_eval(sums), out
+        return summarize_eval(reduce_sums(sums, self.mesh)), out
 
 
 def plateau_rule(monitored: float, best: float, bad: int, patience: int,

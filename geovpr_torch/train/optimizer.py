@@ -15,6 +15,14 @@ cosine with warm restarts whose period counts epochs. "plateau" is the
 host-mutable `lr_scale`, set by the training loop's plateau rule (not
 torch's `ReduceLROnPlateau`, whose counter and threshold differ; Queue 3).
 
+Tensor parallel (`shard`, from `parallel.sharding_rules.shard_state`): a
+split parameter keeps only this rank's part of its moments, its update is
+computed on that part of the (whole, all-reduced) gradient and parameter,
+and the parts are then all-gathered over the `model` line into the whole
+parameter: element for element the unsplit update. `state_dict` gathers
+the moments whole (every rank of the line calls it); `load_state_dict`
+takes whole moments and keeps this rank's part.
+
 Updates run in f32 on the parameters in place. `update` takes a device
 flag `ok`: where it is false (a non-finite loss or gradient) the
 parameters and moments keep their values, with no host sync, while the
@@ -106,13 +114,25 @@ class Optimizer:
         self.schedule = make_schedule(cfg, cfg.lr, total_steps,
                                       steps_per_epoch)
         self.mu = {n: torch.zeros_like(p, dtype=torch.float32)
-                   for n, p in params.items() if self._trains(n)}
+                   for n, p in params.items() if self.trains(n)}
         self.nu = {n: torch.zeros_like(t) for n, t in self.mu.items()}
         self.count = 0
         self.lr_scale = 1.0
+        self.shards: dict = {}
+        self._model_group = None
 
-    def _trains(self, name: str) -> bool:
+    def trains(self, name: str) -> bool:
         return self.factor[self.labels[name]] != 0.0
+
+    def shard(self, shards: dict, model_group) -> None:
+        """Keep this rank's part (`parallel.sharding_rules.Shard`) of the
+        moments of each parameter in `shards` and update only that part,
+        gathering the parts over `model_group` after each update."""
+        self.shards = {n: sh for n, sh in shards.items() if n in self.mu}
+        self._model_group = model_group
+        for n, sh in self.shards.items():
+            self.mu[n] = sh.take(self.mu[n])
+            self.nu[n] = sh.take(self.nu[n])
 
     @torch.no_grad()
     def update(self, params: dict, grads: dict,
@@ -123,7 +143,7 @@ class Optimizer:
         cfg = self.cfg
         g = {n: grads[n].float() for n in params}
         if self.frozen:
-            g = {n: (t if self._trains(n) else torch.zeros_like(t))
+            g = {n: (t if self.trains(n) else torch.zeros_like(t))
                  for n, t in g.items()}
         if cfg.grad_clip_norm > 0:
             norm = torch.sqrt(sum(torch.sum(t * t) for t in g.values()))
@@ -135,11 +155,14 @@ class Optimizer:
         bc1 = 1.0 - torch.tensor(B1, dtype=torch.float32) ** self.count
         bc2 = 1.0 - torch.tensor(B2, dtype=torch.float32) ** self.count
         lr = self.schedule(step)
-        for n, p in params.items():
-            if not self._trains(n):
+        for n, p_whole in params.items():
+            if not self.trains(n):
                 continue
-            mu = (1.0 - B1) * g[n] + B1 * self.mu[n]
-            nu = (1.0 - B2) * g[n] * g[n] + B2 * self.nu[n]
+            sh = self.shards.get(n)
+            gn = g[n] if sh is None else sh.take(g[n])
+            p = p_whole if sh is None else sh.take(p_whole)
+            mu = (1.0 - B1) * gn + B1 * self.mu[n]
+            nu = (1.0 - B2) * gn * gn + B2 * self.nu[n]
             u = (mu / bc1.item()) / (torch.sqrt(nu / bc2.item()) + EPS)
             if self.wd[n]:
                 u = u + self.wd[n] * p.float()
@@ -155,9 +178,24 @@ class Optimizer:
                 p.copy_(torch.where(ok, new, p))
                 self.mu[n].copy_(torch.where(ok, mu, self.mu[n]))
                 self.nu[n].copy_(torch.where(ok, nu, self.nu[n]))
+            if sh is not None:
+                sh.gather_(p_whole, p, self._model_group)
+
+    def _whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        sh = self.shards.get(name)
+        if sh is None:
+            return t
+        shape = list(t.shape)
+        shape[sh.dim] *= sh.parts
+        whole = t.new_empty(shape)
+        sh.gather_(whole, t, self._model_group)
+        return whole
 
     def state_dict(self) -> dict:
-        return {"mu": dict(self.mu), "nu": dict(self.nu),
+        """The moments whole (gathered over the `model` line where they
+        are split), the count and lr_scale."""
+        return {"mu": {n: self._whole(n, t) for n, t in self.mu.items()},
+                "nu": {n: self._whole(n, t) for n, t in self.nu.items()},
                 "count": self.count, "lr_scale": self.lr_scale}
 
     def load_state_dict(self, state: dict) -> None:
@@ -167,6 +205,7 @@ class Optimizer:
                 raise ValueError(f"optimizer state {key}: parameters differ "
                                  f"({sorted(set(state[key]) ^ set(mine))})")
             for n, t in state[key].items():
-                mine[n].copy_(t)
+                sh = self.shards.get(n)
+                mine[n].copy_(t if sh is None else sh.take(t))
         self.count = int(state["count"])
         self.lr_scale = float(state["lr_scale"])

@@ -15,6 +15,21 @@ NaN skip restores them too, as JAX's `jnp.where` covers every float leaf,
 `batch_stats` included (`:91-99`): they are copied before the forward and
 put back with `torch.where(ok, new, old)` on the device.
 
+Data parallel (`mesh`, `geovpr/train/steps.py:8-9`: JAX's batch arrives
+sharded over `data` and XLA inserts the gradient psum): a rank holds its
+rows of the global batch. The loss is the masked mean over the global
+batch (`objectives.losses.global_batch`: each rank's masked sum over the
+all-reduced valid count) and the reported loss its all-reduced sum;
+BatchNorm takes global statistics (`layers.set_batch_mesh`); the random
+draws cover the global batch's shape and each rank keeps its rows
+(`rows`), so a step at any world size draws what one process would. The
+gradients are all-reduced (SUM) over `data` in a few flat f32 buckets,
+the all-finite flag by MIN, so every rank skips a NaN step together; the
+global-norm clip then reads the same reduced gradient on every rank. At
+one data shard every value is the single-process step's, bit for bit.
+Under a `model` axis the optimizer updates this rank's slice and gathers
+it (`parallel.sharding_rules.shard_state`).
+
 `apply_fn` replaces the model's forward (`geovpr/train/steps.py:31-42`):
 the frozen-feature cache trains `RegressionModel.head_only` on cached
 features, with no normalisation and no augmentation. `make_eval_step` is
@@ -28,8 +43,14 @@ from typing import Callable, Optional
 import torch
 
 from geovpr_torch.data.transforms import normalize
-from geovpr_torch.models.layers import batch_stat_buffers, set_rng
+from geovpr_torch.models.layers import (batch_stat_buffers, set_batch_mesh,
+                                        set_rng)
+from geovpr_torch.objectives.losses import global_batch
+from geovpr_torch.parallel.mesh import all_reduce_
 from geovpr_torch.train.state import TrainState
+
+# f32 elements a gradient bucket holds (128 MB)
+BUCKET_ELEMENTS = 1 << 25
 
 
 def step_generators(seed: int, step: int, device) -> tuple:
@@ -42,14 +63,34 @@ def step_generators(seed: int, step: int, device) -> tuple:
     return tuple(gens)
 
 
+def all_reduce_grads_(grads: list, mesh) -> None:
+    """Sum every gradient over `data` in place: flattened into buckets of
+    up to BUCKET_ELEMENTS f32 values, one all-reduce a bucket."""
+    bucket, size = [], 0
+    for g in grads + [None]:
+        if g is not None and size + g.numel() <= BUCKET_ELEMENTS:
+            bucket.append(g)
+            size += g.numel()
+            continue
+        if bucket:
+            flat = all_reduce_(torch.cat([t.reshape(-1) for t in bucket]),
+                               mesh)
+            for t, part in zip(bucket, flat.split([t.numel()
+                                                   for t in bucket])):
+                t.copy_(part.view_as(t))
+        bucket, size = ([g], g.numel()) if g is not None else ([], 0)
+
+
 def make_train_step(objective, normalize_fn: Optional[Callable] = normalize,
                     augment_fn: Optional[Callable] = None,
                     skip_nonfinite: bool = True,
-                    apply_fn: Optional[Callable] = None) -> Callable:
+                    apply_fn: Optional[Callable] = None,
+                    mesh=None) -> Callable:
     """train_step(state, batch) -> {"loss", "skipped"} (0-d device
     tensors); `batch` holds "image" (B, H, W, 3) uint8 or float (or, with
     `apply_fn`, whatever it takes), "target" (B, T) raw targets and "mask"
-    (B,) bool, on the model's device."""
+    (B,) bool, on the model's device: with a `mesh`, this rank's rows of
+    the global batch."""
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
@@ -57,31 +98,46 @@ def make_train_step(objective, normalize_fn: Optional[Callable] = normalize,
         dev = batch["image"].device
         aug_gen, drop_gen = step_generators(state.seed, state.step, dev)
         images, targets = batch["image"], batch["target"]
+        rows = None
+        if mesh is not None:
+            b = images.shape[0]
+            rows = (mesh.index("data") * b, mesh.axis_size("data") * b)
         if augment_fn is not None:
             x01 = images.float() / 255.0 if images.dtype == torch.uint8 \
                 else images
-            x01, flipped = augment_fn(aug_gen, x01)
+            x01, flipped = (augment_fn(aug_gen, x01) if rows is None
+                            else augment_fn(aug_gen, x01, rows))
             images = torch.clamp(x01, 0.0, 1.0)
             targets = objective.remap_flip(targets, flipped)
         enc = objective.encode_targets(targets, state.scaler)
         stats = batch_stat_buffers(model) if skip_nonfinite else []
         old_stats = [b.clone() for b in stats]
-        set_rng(model, drop_gen)
+        set_rng(model, drop_gen, rows)
+        set_batch_mesh(model, mesh)
         try:
             preds = (apply_fn or model)(
                 images if normalize_fn is None else normalize_fn(images))
+            with global_batch(mesh):
+                loss = objective.loss(preds, enc, batch.get("mask"))
+            params = state.params
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        allow_unused=True)
         finally:
             set_rng(model, None)
-        loss = objective.loss(preds, enc, batch.get("mask"))
-        params = state.params
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True)
+            set_batch_mesh(model, None)
         grads = {n: torch.zeros_like(p) if g is None else g
                  for (n, p), g in zip(params.items(), grads)}
         ok = None
         if skip_nonfinite:
             ok = torch.stack([torch.isfinite(loss)] + [
                 torch.isfinite(g).all() for g in grads.values()]).all()
+        if mesh is not None:
+            if ok is not None:
+                ok = all_reduce_(ok.float(), mesh,
+                                 op=torch.distributed.ReduceOp.MIN) > 0.5
+            all_reduce_grads_([g for n, g in grads.items()
+                               if state.opt.trains(n)], mesh)
+            loss = all_reduce_(loss.detach().clone(), mesh)
         state.opt.update(params, grads, ok)
         with torch.no_grad():
             for new, old in zip(stats, old_stats):

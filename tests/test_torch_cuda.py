@@ -1359,3 +1359,57 @@ def test_convnext_int8_model_on_the_card(cuda):
         want = model(x).pooled
     cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
     assert cos.min().item() >= 0.999
+
+
+def test_world1_nccl_step_bit_equal_to_the_single_process_step(cuda,
+                                                                tmp_path):
+    """A DINOv2 step (2 layers, D = 128, 2 heads: K8a and K8c) under a
+    one-rank NCCL mesh equals the step without a mesh bit for bit: the
+    loss, every parameter and moment (the collectives of one rank copy)."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from geovpr_torch.cli.presets import build_preset, objective_for
+    from geovpr_torch.data.pipeline import prefetch_to_device
+    from geovpr_torch.models import dinov2
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.regression import RegressionModel
+    from geovpr_torch.objectives.scaler import identity_scaler
+    from geovpr_torch.parallel import create_mesh, initialize_distributed
+    from geovpr_torch.train.state import TrainState, build_optimizer
+    from geovpr_torch.train.steps import make_train_step
+
+    dinov2.DINOV2_VARIANTS["card-test"] = dict(hidden_size=128, num_layers=2,
+                                               num_heads=2)
+    cfg = build_preset("dinov2_meanpool_huber")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, variant="card-test", image_size=28, head_dropout=0.0))
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.integers(0, 255, (4, 28, 28, 3)).astype(np.uint8),
+             "target": rng.normal(size=(4, 2)).astype(np.float32),
+             "mask": np.ones(4, bool), "_indices": np.arange(4)}
+
+    def run(mesh):
+        model = RegressionModel(cfg.model, train=True).to(cuda)
+        init_weights_(model, torch.Generator().manual_seed(1))
+        state = TrainState(0, model, build_optimizer(model, cfg.optim),
+                           identity_scaler(2).to(cuda), 0)
+        step = make_train_step(objective_for(cfg), mesh=mesh)
+        losses = [step(state, next(prefetch_to_device([batch], cuda,
+                                                      mesh=mesh)))["loss"]
+                  for _ in range(2)]
+        return torch.stack(losses), state
+
+    want, ref = run(None)
+    initialize_distributed(f"file://{tmp_path}/rdzv", 1, 0, device=cuda)
+    try:
+        got, state = run(create_mesh())
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, want)
+    for k, v in ref.model.state_dict().items():
+        assert torch.equal(state.model.state_dict()[k], v), k
+    for k, v in ref.opt.mu.items():
+        assert torch.equal(state.opt.mu[k], v), k

@@ -1,10 +1,12 @@
 """The port runs without jax and without the JAX package (`geovpr`), through
 `run_retrieval`, the retrieve CLI's `main` with `--int8`, the evaluate
 CLI's `main` (geopose bf16 and `--int8`; angle presets), the train CLI
-(window-12 and window-7 Swin, DINOv2 across the unfreeze) and the fuse
+(window-12 and window-7 Swin, DINOv2 across the unfreeze; `--multihost` on
+two spawned ranks) and the fuse
 CLI's `main` (`--int8`, three components), and chip_smoke.py
 fails where it cannot run."""
 
+import dataclasses
 import json
 import os
 import re
@@ -15,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from PIL import Image
 
 REPO = Path(__file__).resolve().parent.parent
 _BLOCK = ("jax", "jaxlib", "flax", "optax", "orbax")
@@ -495,10 +498,51 @@ def test_fuse_cli_runs_without_jax_or_geovpr():
     assert {"geopose_csv", "angle_csv", "retrieval_csv"} <= set(rec)
 
 
+def test_multihost_train_cli_runs_without_jax_or_geovpr(tmp_path):
+    """`geovpr_torch.cli.train.main --multihost` on two spawned ranks over
+    gloo (`--device cpu`, a `file://` rendezvous), one epoch of a small
+    DINOv2 on a folder of PNGs, with jax, flax and `geovpr` blocked in
+    both ranks: they exit 0, rank 0 prints the run's record and neither
+    imported a blocked module."""
+    from geovpr_torch.cli import presets
+    from torch_parallel_ranks import run_ranks
+
+    cfg = presets.GEOPOSE_PRESETS["dinov2_meanpool_huber"]
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, variant="test"),
+        data=dataclasses.replace(cfg.data, image_size=28, batch_size=2))
+    os.makedirs(tmp_path / "img")
+    rng = np.random.default_rng(0)
+    with open(tmp_path / "labels.csv", "w") as f:
+        f.write("filename,timestamp,latitude,longitude,angle,Region_ID\n")
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 255, (40, 40, 3)).astype(
+                np.uint8)).save(tmp_path / "img" / f"p{i}.png")
+            f.write(f"p{i}.png,0,{219000 + i * 50.0},{143000 - i},0,1\n")
+    csv = str(tmp_path / "labels.csv")
+    ranks = run_ranks([("cli_train", dict(
+        world=2, presets={"dinov2_meanpool_huber": cfg},
+        variants={"dinov2": {"test": dict(hidden_size=64, num_layers=2,
+                                          num_heads=2)}},
+        argv=["--preset", "dinov2_meanpool_huber", "--train-csv", csv,
+              "--val-csv", csv, "--image-root", str(tmp_path / "img"),
+              "--save-dir", str(tmp_path / "runs"), "--epochs", "1",
+              "--device", "cpu"]))], 2, tmp_path / "job", init=False,
+        block=True)
+    assert [r["leaked"] for r in ranks] == [[], []]
+    rec = json.loads(ranks[0]["cli_train"].strip().splitlines()[-1])
+    assert rec["final"]["epoch"] == 0
+    assert np.isfinite(rec["final"]["train_loss"])
+    assert ranks[1]["cli_train"].strip() == ""
+
+
 def _import_lines(pattern: str) -> list[str]:
     pat = re.compile(pattern)
     files = sorted((REPO / "geovpr_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "chip_faults.py"]
+    # the multi-process package is in the scan
+    assert {"mesh.py", "sharding_rules.py", "__init__.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
     return [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.match(line)]

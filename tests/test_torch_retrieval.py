@@ -78,9 +78,9 @@ def test_build_normalizes_when_asked():
 
 
 def test_index_rejects_what_is_not_ported():
-    """The sharded index is not ported (the int8 index is:
-    tests/test_torch_index_int8.py); k past the index size raises."""
-    with pytest.raises(NotImplementedError, match="sharded"):
+    """A mesh must be the port's `parallel.Mesh` (the sharded search itself:
+    tests/test_torch_sharded_index.py); k past the index size raises."""
+    with pytest.raises(TypeError, match="Mesh"):
         tidx.DescriptorIndex(dim=DIM, mesh=object())
     t = tidx.DescriptorIndex(dim=DIM).build(_unit(np.random.default_rng(3),
                                                   4))

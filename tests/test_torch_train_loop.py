@@ -182,8 +182,13 @@ def test_cli_refuses_what_is_not_ported():
             "--image-root", ".", "--device", "cpu"]
     with pytest.raises(SystemExit, match="async"):
         main(args + ["--async-checkpoint"])
-    with pytest.raises(NotImplementedError, match="parallel"):
-        main(args + ["--multihost"])
+    # --multihost is ported (tests/test_torch_dp_train.py); with neither
+    # the flags nor torchrun's environment it names what it lacks
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+            mp.delenv(name, raising=False)
+        with pytest.raises(ValueError, match="coordinator"):
+            main(args + ["--multihost"])
     # an unfrozen DINOv2 + SALAD (no preset asks for one), and the config
     # fields the port does not honour yet
     salad = presets.build_preset("dinov2salad_frozen_mlp")
