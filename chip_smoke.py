@@ -72,7 +72,21 @@ end to end from seeded random weights:
   a mesh and the all-reduce of the whole gradient; then two ranks over
   gloo on the one card (host-staged collectives), DINOv2-B/14 on
   dinov2_meanpool_huber's B=16 global batch for two steps against one
-  process (K8a and K8c a step on each rank), and a two-shard int8 search.
+  process (K8a and K8c a step on each rank), and a two-shard int8 search;
+- weight import and the parity protocol, on seeded reference-layout
+  checkpoints at full width that a small exporter here writes from the
+  port's models (HF `SwinModel` keys at base-384 with `regressor.0/3` in
+  the `model_state_dict` wrapper; the serizba/salad hub keys with a
+  1 + 37^2 position table and `regressor.0/2`; torchvision's
+  EfficientNet-B0 with its classifier; `salad/dino_salad.ckpt`), each
+  converted back bit-equal (the resized table aside): `python -m
+  geovpr_torch.cli.convert` on the Swin-B-384 backbone (its msgpack read
+  back bit-equal), then in a child `cli.train --pretrained` from that
+  file (one epoch of 2 steps: K9a, K9c and K9b a step) and `cli.parity`
+  leg by leg against golden numbers this script computes through the
+  plain path from the same weights: every leg passes, the kernel path's
+  predictions against the plain path's, K4 24, K6 3 and K1 12 launches a
+  batch.
 
 Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
 form and the w8a8 MLP half-block, K3 also at the four Swin-B-384 stage
@@ -4310,6 +4324,552 @@ def parallel_path(device, card: str) -> dict:
     return totals
 
 
+# convert and parity (`convert_parity_path`): seeded reference-layout
+# checkpoints of the parity legs at full width (Swin-B-384 at 384 px,
+# DINOv2-B/14 + SALAD at 224 px from the hub's 518-px position grid,
+# EfficientNet-B0 at 224 px), `cli.convert` and `cli.parity` run as
+# children. CP_N_VAL images: two Swin batches of 16, one DINOv2 + SALAD
+# and one EfficientNet batch of 32; `cli.train --pretrained` takes one
+# epoch of CP_TRAIN_STEPS steps of CP_TRAIN_BATCH.
+CP_N_VAL, CP_N_SALAD, CP_HUB_GRID = 32, 8, 37
+CP_TRAIN_BATCH, CP_TRAIN_STEPS = 4, 2
+CP_RECIPES = ("swin_geopose", "dinov2salad_geopose", "efficientnet_sincos")
+
+
+def export_swin_hf(sd: dict, depths) -> dict:
+    """The port's SwinTransformer state_dict -> HF `SwinModel` keys, the
+    converse of `convert_swin_hf` and the bridge: q, k and v cut out of
+    the fused (C, 3C) qkv, (in, out) weights transposed to torch's."""
+    out = {"embeddings.patch_embeddings.projection.weight":
+           sd["patch_embed.weight"],
+           "embeddings.patch_embeddings.projection.bias": sd["patch_embed.bias"],
+           "embeddings.norm.weight": sd["embed_norm.weight"],
+           "embeddings.norm.bias": sd["embed_norm.bias"],
+           "layernorm.weight": sd["norm.weight"],
+           "layernorm.bias": sd["norm.bias"]}
+    for s, depth in enumerate(depths):
+        for b in range(depth):
+            t, f = f"encoder.layers.{s}.blocks.{b}", f"stage{s}_block{b}"
+            w, bias = sd[f"{f}.attn.qkv_weight"], sd[f"{f}.attn.qkv_bias"]
+            c = w.shape[0]
+            for j, name in enumerate(("query", "key", "value")):
+                out[f"{t}.attention.self.{name}.weight"] = \
+                    w[:, j * c:(j + 1) * c].t()
+                out[f"{t}.attention.self.{name}.bias"] = \
+                    bias[j * c:(j + 1) * c]
+            out[f"{t}.attention.self.relative_position_bias_table"] = \
+                sd[f"{f}.attn.relative_position_bias_table"]
+            out[f"{t}.attention.output.dense.weight"] = \
+                sd[f"{f}.attn.proj_weight"].t()
+            out[f"{t}.attention.output.dense.bias"] = sd[f"{f}.attn.proj_bias"]
+            for hf, port in (("layernorm_before", "norm1"),
+                             ("layernorm_after", "norm2"),
+                             ("intermediate.dense", "mlp.fc1"),
+                             ("output.dense", "mlp.fc2")):
+                for leaf in ("weight", "bias"):
+                    out[f"{t}.{hf}.{leaf}"] = sd[f"{f}.{port}.{leaf}"]
+        if s < len(depths) - 1:
+            t, f = f"encoder.layers.{s}.downsample", f"stage{s}_downsample"
+            out[f"{t}.norm.weight"] = sd[f"{f}.norm.weight"]
+            out[f"{t}.norm.bias"] = sd[f"{f}.norm.bias"]
+            out[f"{t}.reduction.weight"] = sd[f"{f}.reduction_weight"].t()
+    return out
+
+
+def export_dinov2_hub(sd: dict, num_layers: int, pos_embed) -> dict:
+    """The port's DinoV2 state_dict -> the facebookresearch ViT keys of the
+    hub SALAD backbone (fused (3D, D) qkv, `blocks.N.*`), shipping
+    `pos_embed` as its position table."""
+    out = {"cls_token": sd["cls_token"], "pos_embed": pos_embed,
+           "patch_embed.proj.weight": sd["patch_embed.weight"],
+           "patch_embed.proj.bias": sd["patch_embed.bias"],
+           "norm.weight": sd["norm.weight"], "norm.bias": sd["norm.bias"]}
+    for i in range(num_layers):
+        t = f"blocks.{i}"
+        out[f"{t}.attn.qkv.weight"] = sd[f"{t}.attn.qkv_weight"].t()
+        out[f"{t}.attn.qkv.bias"] = sd[f"{t}.attn.qkv_bias"]
+        out[f"{t}.attn.proj.weight"] = sd[f"{t}.attn.proj_weight"].t()
+        out[f"{t}.attn.proj.bias"] = sd[f"{t}.attn.proj_bias"]
+        for name in ("norm1.weight", "norm1.bias", "norm2.weight",
+                     "norm2.bias", "ls1.gamma", "ls2.gamma", "mlp.fc1.weight",
+                     "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias"):
+            out[f"{t}.{name}"] = sd[f"{t}.{name}"]
+    return out
+
+
+def export_salad_hub(sd: dict, num_layers: int, pos_embed) -> dict:
+    """The port's DinoV2Salad state_dict -> the serizba/salad hub VPRModel
+    keys: `backbone.model.*` (`export_dinov2_hub`) and `aggregator.*`, the
+    SALAD MLPs on tokens as 1x1 convs, on the global token as Linears."""
+    bb = {k[len("backbone."):]: v for k, v in sd.items()
+          if k.startswith("backbone.")}
+    out = {f"backbone.model.{k}": v for k, v in
+           export_dinov2_hub(bb, num_layers, pos_embed).items()}
+    for hub, port, conv in (("cluster_features.0", "feat_fc1", True),
+                            ("cluster_features.2", "feat_fc2", True),
+                            ("score.0", "score_fc1", True),
+                            ("score.2", "score_fc2", True),
+                            ("token_features.0", "token_fc1", False),
+                            ("token_features.2", "token_fc2", False)):
+        w = sd[f"salad.{port}.weight"]
+        out[f"aggregator.{hub}.weight"] = w[:, :, None, None] if conv else w
+        out[f"aggregator.{hub}.bias"] = sd[f"salad.{port}.bias"]
+    out["aggregator.dust_bin"] = sd["salad.dustbin"]
+    return out
+
+
+def export_efficientnet_tv(sd: dict) -> dict:
+    """The port's EfficientNetB0 state_dict -> torchvision's
+    `efficientnet_b0().features` keys (Conv2dNormActivation: conv at .0,
+    BatchNorm at .1)."""
+    from geovpr_torch.models.efficientnet import B0_STAGES
+
+    out = {}
+
+    def conv_bn(t, f):
+        out[f"{t}.0.weight"] = sd[f"{f}.conv.weight"]
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{t}.1.{leaf}"] = sd[f"{f}.bn.{leaf}"]
+
+    conv_bn("features.0", "stem")
+    for s, spec in enumerate(B0_STAGES):
+        for i in range(spec.layers):
+            t, f = f"features.{s + 1}.{i}.block", f"stage{s}_block{i}"
+            idx = 0
+            if spec.expand_ratio != 1:
+                conv_bn(f"{t}.{idx}", f"{f}.expand")
+                idx += 1
+            conv_bn(f"{t}.{idx}", f"{f}.dw")
+            for fc in ("fc1", "fc2"):
+                for leaf in ("weight", "bias"):
+                    out[f"{t}.{idx + 1}.{fc}.{leaf}"] = \
+                        sd[f"{f}.se.{fc}.{leaf}"]
+            conv_bn(f"{t}.{idx + 2}", f"{f}.project")
+    conv_bn("features.8", "head")
+    return out
+
+
+def _linear_keys(sd: dict, port: str, ref: str) -> dict:
+    return {f"{ref}.weight": sd[f"{port}.weight"],
+            f"{ref}.bias": sd[f"{port}.bias"]}
+
+
+def export_reference(recipe: str, sd: dict, hub_pos_embed=None) -> dict:
+    """A `RegressionModel` state_dict -> the reference's trained-checkpoint
+    layout of `recipe` (`models/convert_reference.py`'s three), each
+    tensor a contiguous copy."""
+    bb = {k[len("backbone."):]: v for k, v in sd.items()
+          if k.startswith("backbone.")}
+    if recipe == "swin_geopose":
+        blocks = [k.split(".")[0][len("stage"):].split("_block")
+                  for k in bb if "_block" in k.split(".")[0]]
+        depths = [1 + max(int(b) for s, b in blocks if int(s) == stage)
+                  for stage in range(1 + max(int(s) for s, _ in blocks))]
+        out = {f"backbone.{k}": v
+               for k, v in export_swin_hf(bb, depths).items()}
+        out.update(_linear_keys(sd, "head.hidden0", "regressor.0"))
+        out.update(_linear_keys(sd, "head.out", "regressor.3"))
+    elif recipe == "dinov2salad_geopose":
+        layers = 1 + max(int(k.split(".")[2]) for k in bb
+                         if k.startswith("backbone.blocks."))
+        out = {f"feature_extractor.{k}": v for k, v in
+               export_salad_hub(bb, layers, hub_pos_embed).items()}
+        out.update(_linear_keys(sd, "head.hidden0", "regressor.0"))
+        out.update(_linear_keys(sd, "head.out", "regressor.2"))
+    else:
+        out = {f"backbone.{k}": v
+               for k, v in export_efficientnet_tv(bb).items()}
+        out.update(_linear_keys(sd, "head.out", "backbone.classifier.1"))
+    return {k: v.contiguous().clone() for k, v in out.items()}
+
+
+def cp_model(recipe: str):
+    """The recipe's preset model as training builds it (f32 parameters),
+    from seed SEED, its vectors (and the Swin tables) perturbed off their
+    init, on the host."""
+    from geovpr_torch.cli.presets import build_preset
+    from geovpr_torch.models.convert_reference import RECIPE_PRESETS
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.regression import RegressionModel
+
+    cfg = build_preset(RECIPE_PRESETS[recipe])
+    model = RegressionModel(dataclasses.replace(
+        cfg.model, image_size=cfg.data.image_size),
+        dtype=getattr(torch, cfg.model.compute_dtype), train=True)
+    init_weights_(model, torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 31)
+    with torch.no_grad():
+        (perturb_swin_ if recipe == "swin_geopose" else perturb_cnn_)(
+            model, gen)
+    return model
+
+
+def cp_write_assets(root: str, rng) -> dict:
+    """The parity assets directory: labels_val.csv (campus-scale (lat,
+    lon), headings in [0, 360)) and JPEGs under images/; each recipe's
+    reference checkpoint (the Swin one in the `model_state_dict` wrapper)
+    with an .npz scaler for the geopose legs; salad/dino_salad.ckpt; the
+    Swin backbone alone as HF `SwinModel` keys. Returns the models they
+    were exported from and the files' paths."""
+    from PIL import Image
+
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    size = max(cp_preset_fields("image_size").values())
+    src = synthetic_val(CP_N_VAL, size, rng)
+    angles = rng.uniform(0.0, 360.0, CP_N_VAL)
+    with open(os.path.join(root, "labels_val.csv"), "w") as f:
+        f.write("filename,timestamp,latitude,longitude,angle,Region_ID\n")
+        for i in range(CP_N_VAL):
+            name = f"val_{i:04d}.jpg"
+            Image.fromarray(src.images[i]).save(os.path.join(img_dir, name),
+                                                quality=95)
+            f.write(f"{name},0,{src.targets[i, 0]},{src.targets[i, 1]},"
+                    f"{angles[i]},1\n")
+    models, paths = {}, {}
+    gen = torch.Generator().manual_seed(SEED + 37)
+    for recipe in CP_RECIPES:
+        model = cp_model(recipe)
+        sd = model.state_dict()
+        d = os.path.join(root, recipe)
+        os.makedirs(d)
+        pos = None
+        if recipe == "dinov2salad_geopose":
+            dim = sd["backbone.backbone.cls_token"].shape[-1]
+            pos = torch.randn(1, 1 + CP_HUB_GRID ** 2, dim,
+                              generator=gen) * 0.02
+            hub = {k[len("backbone."):]: v for k, v in sd.items()
+                   if k.startswith("backbone.")}
+            os.makedirs(os.path.join(root, "salad"))
+            torch.save({k: v.contiguous().clone() for k, v in
+                        export_salad_hub(hub, len(model.backbone.backbone
+                                                  .blocks), pos).items()},
+                       os.path.join(root, "salad", "dino_salad.ckpt"))
+        ckpt = export_reference(recipe, sd, pos)
+        paths[recipe] = os.path.join(d, "model_best.pth")
+        torch.save({"epoch": 49, "model_state_dict": ckpt}
+                   if recipe == "swin_geopose" else ckpt, paths[recipe])
+        if recipe != "efficientnet_sincos":
+            np.savez(os.path.join(d, "latlon_scaler.npz"),
+                     mean=np.float32([219000.0, 143000.0]),
+                     scale=np.float32([300.0, 100.0]))
+        if recipe == "swin_geopose":
+            paths["swin_backbone"] = os.path.join(root, "swin_base_384.pth")
+            torch.save({k[len("backbone."):]: v for k, v in ckpt.items()
+                        if k.startswith("backbone.")}, paths["swin_backbone"])
+        models[recipe] = model
+    return {"models": models, "paths": paths}
+
+
+def cp_preset_fields(field: str) -> dict:
+    """recipe -> its preset's `data.<field>` (image size, batch size)."""
+    from geovpr_torch.cli.presets import build_preset
+    from geovpr_torch.models.convert_reference import RECIPE_PRESETS
+    return {r: getattr(build_preset(RECIPE_PRESETS[r]).data, field)
+            for r in CP_RECIPES}
+
+
+def cp_roundtrip(assets: dict) -> None:
+    """Each exported checkpoint through `convert_reference_checkpoint` and
+    the bridge: bit-equal to the model it came from, but the hub's
+    position table, resized from its grid."""
+    from geovpr_torch.cli.convert import load_state_dict
+    from geovpr_torch.models.convert_jax import state_dict_from_flax
+    from geovpr_torch.models.convert_reference import \
+        convert_reference_checkpoint
+
+    legs = cp_legs()
+    for recipe, model in assets["models"].items():
+        got = state_dict_from_flax(convert_reference_checkpoint(
+            recipe, load_state_dict(assets["paths"][recipe]),
+            **legs[recipe].get("convert_overrides", {})))
+        want = model.state_dict()
+        resized = "backbone.backbone.pos_embed"
+        differ = [k for k in want if k != resized and not (
+            k in got and torch.equal(got[k], want[k]))]
+        phase("convert_roundtrip", recipe=recipe, tensors=len(want),
+              unknown=sorted(set(got) - set(want))[:5], differ=differ[:5],
+              resized_pos_embed=resized in want)
+        check(set(got) == set(want) and not differ,
+              f"{recipe}: the exported checkpoint converts to other tensors "
+              f"({differ[:5]})")
+        if resized in want:
+            check(got[resized].shape == want[resized].shape,
+                  f"{recipe}: pos_embed {tuple(got[resized].shape)}")
+
+
+def cp_overrides() -> dict:
+    """parity_config.json's entries but the goldens: the .npz scalers, and
+    the SALAD grid converted for the preset's image size (224 px: the
+    default)."""
+    size = cp_preset_fields("image_size")["dinov2salad_geopose"]
+    return {"swin_geopose": {"scaler": "latlon_scaler.npz"},
+            "dinov2salad_geopose": {"scaler": "latlon_scaler.npz",
+                                    "convert_overrides": {"image_size": size}},
+            "efficientnet_sincos": {}}
+
+
+def cp_legs() -> dict:
+    """The model legs as `cli.parity` merges DEFAULT_LEGS and
+    parity_config.json, goldens aside."""
+    from geovpr_torch.cli.parity import DEFAULT_LEGS
+    return {k: {**DEFAULT_LEGS[k], **v} for k, v in cp_overrides().items()}
+
+
+def cp_plain_goldens(root: str, device) -> dict:
+    """Each model leg through `cli.parity`'s own leg code in this process,
+    every model's blocks on the plain path (`use_kernels=False`; no
+    kernel may launch): its metrics are the golden numbers, its CSV the
+    plain predictions. Then the descriptor dump of the salad leg: the hub
+    checkpoint converted as the leg converts it, served in bf16 through K1
+    (the leg itself runs f32 torch ops)."""
+    from geovpr_torch.cli import parity
+    from geovpr_torch.cli.convert import load_state_dict
+    from geovpr_torch.models import convert_torch as ct
+    from geovpr_torch.models.convert_jax import state_dict_from_flax
+    from geovpr_torch.models.salad import DinoV2Salad
+
+    legs = cp_legs()
+    orig = parity._build_trainer
+    counters = train_counters()
+
+    def plain_build(*a, **kw):
+        trainer, cfg, data_cfg = orig(*a, **kw)
+        for m in trainer.state.model.modules():
+            if hasattr(m, "use_kernels"):
+                m.use_kernels = False
+        return trainer, cfg, data_cfg
+
+    out = {}
+    parity._build_trainer = plain_build
+    try:
+        for name in CP_RECIPES:
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = parity._run_model_leg(name, legs[name], root,
+                                        os.path.join(root, "plain"), 2.0, 0,
+                                        device)
+            torch.cuda.synchronize()
+            launched = {k: fn.launches for k, fn in counters.items()
+                        if fn.launches}
+            check(not launched, f"{name}: the plain path launched {launched}")
+            out[name] = dict(res, seconds=time.perf_counter() - t0)
+            torch.cuda.empty_cache()
+    finally:
+        parity._build_trainer = orig
+
+    sd = load_state_dict(os.path.join(root, "salad", "dino_salad.ckpt"))
+    size = cp_preset_fields("image_size")["dinov2salad_geopose"]
+    model = DinoV2Salad(variant="base-14", image_size=size,
+                        dtype=torch.bfloat16)
+    model.load_state_dict(state_dict_from_flax(ct.convert_salad_hub(
+        sd, num_layers=len(model.backbone.blocks), target_grid=size // 14)))
+    model.to(device).eval()
+    from geovpr_torch.data.transforms import normalize
+    images = np.random.default_rng(SEED + 41).integers(
+        0, 256, (CP_N_SALAD, size, size, 3), dtype=np.uint8)
+    with torch.inference_mode():
+        desc = model(normalize(torch.from_numpy(images).to(device))).pooled
+    np.savez(os.path.join(root, "salad", "reference_descriptors.npz"),
+             images=images, descriptors=desc.float().cpu().numpy())
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def cp_child(spec_path: str) -> int:
+    """A child process of the [convert_parity] phase: each job is one CLI's
+    `main(argv)` (`geovpr_torch.cli.<cli>`), every launch count set to 0
+    just before it and read just after; one JSON line of results."""
+    import importlib
+
+    from geovpr_torch.ops._build import load_library
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    load_library()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    counters = train_counters()
+    recs = []
+    for job in spec["jobs"]:
+        main_fn = importlib.import_module(f"geovpr_torch.cli.{job['cli']}").main
+        for fn in counters.values():
+            fn.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            main_fn(job["argv"])
+        torch.cuda.synchronize()
+        recs.append({"tag": job["tag"], "seconds": time.perf_counter() - t0,
+                     "launches": {k: fn.launches for k, fn in
+                                  counters.items() if fn.launches},
+                     "last_line": out.getvalue().strip().splitlines()[-1]})
+    print("[cp_child] " + json.dumps(recs), flush=True)
+    return 0
+
+
+def cp_run(args: list, tag: str, timeout: float = 900.0) -> str:
+    """`python3 *args` from the repo's root, as a user launches it; its
+    standard output. A failed child fails the phase."""
+    proc = subprocess.run([sys.executable, *args], capture_output=True,
+                          text=True, timeout=timeout,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"{tag} exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _csv_predictions(path: str, kind: str, scaler=None) -> np.ndarray:
+    """A validation CSV's predictions as the head emits them: (lat, lon)
+    through the scaler's transform, or each heading as (cos, sin)."""
+    rows = read_csv(path)
+    if kind == "angle":
+        a = np.radians([float(r["predicted_angle"]) for r in rows])
+        return np.stack([np.cos(a), np.sin(a)], 1)
+    p = np.array([[float(r["predicted_latitude"]),
+                   float(r["predicted_longitude"])] for r in rows])
+    return (p - scaler[0]) / scaler[1]
+
+
+def convert_parity_path(device, card: str) -> dict:
+    """The [convert_parity] phase: export the seeded reference checkpoints
+    and check they convert back bit-equal; `python -m
+    geovpr_torch.cli.convert` on the Swin-B-384 backbone (the msgpack read
+    back bit-equal); plain-path goldens here; then in a child
+    `cli.train --pretrained` from that msgpack (one epoch of
+    CP_TRAIN_STEPS steps) and `cli.parity` leg by leg, every leg passing,
+    the kernel path's predictions against the plain path's. Returns the
+    child's launch counts."""
+    from geovpr_torch.cli.parity import DEFAULT_LEGS
+    from geovpr_torch.cli.train import load_pretrained_backbone
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        assets = cp_write_assets(root, np.random.default_rng(SEED + 43))
+        export_s = time.perf_counter() - t0
+        cp_roundtrip(assets)
+
+        msgpack = os.path.join(root, "swin_base_384.msgpack")
+        t0 = time.perf_counter()
+        report = json.loads(cp_run(
+            ["-m", "geovpr_torch.cli.convert",
+             assets["paths"]["swin_backbone"], msgpack, "--family", "swin",
+             "--variant", "base-384"], "cli.convert").strip().splitlines()[-1])
+        convert_s = time.perf_counter() - t0
+        swin = assets["models"]["swin_geopose"]
+        got = load_pretrained_backbone(msgpack)
+        want = {f"backbone.{k}": v for k, v in
+                swin.backbone.state_dict().items()}
+        differ = [k for k in want
+                  if not (k in got and torch.equal(got[k], want[k]))]
+        phase("convert", family="swin", variant="base-384",
+              arrays=report["arrays"], uncovered=report["uncovered"],
+              bytes=os.path.getsize(msgpack), tensors=len(want),
+              bit_equal=not differ and set(got) == set(want),
+              seconds=convert_s, export_seconds=export_s)
+        check(report["uncovered"] == [] and not differ
+              and set(got) == set(want),
+              f"cli.convert: the msgpack differs from the exported Swin "
+              f"({differ[:5]}, uncovered {report['uncovered'][:5]})")
+        del assets, swin, got, want
+
+        goldens = cp_plain_goldens(root, device)
+        legs_cfg = cp_overrides()
+        for name, res in goldens.items():
+            legs_cfg[name]["golden"] = {
+                k: res["metrics"][k] for k in DEFAULT_LEGS[name]["golden"]}
+        with open(os.path.join(root, "parity_config.json"), "w") as f:
+            json.dump({"legs": legs_cfg}, f)
+
+        with open(os.path.join(root, "labels_val.csv")) as f:
+            lines = f.readlines()
+        train_csv = os.path.join(root, "labels_train.csv")
+        with open(train_csv, "w") as f:
+            f.writelines(lines[:1 + CP_TRAIN_BATCH * CP_TRAIN_STEPS])
+        jobs = [{"cli": "train", "tag": "train-pretrained", "argv": [
+            "--preset", "swin_b384_gemini2", "--train-csv", train_csv,
+            "--image-root", os.path.join(root, "images"), "--save-dir",
+            os.path.join(root, "runs"), "--epochs", "1", "--batch-size",
+            str(CP_TRAIN_BATCH), "--pretrained", msgpack, "--device",
+            device.type]}]
+        jobs += [{"cli": "parity", "tag": name, "argv": [
+            "--assets", root, "--legs", name, "--device", device.type,
+            "--out", os.path.join(root, f"report_{name}.json")]}
+            for name in (*CP_RECIPES, "salad")]
+        spec = os.path.join(root, "cp_jobs.json")
+        with open(spec, "w") as f:
+            json.dump({"jobs": jobs}, f)
+        t0 = time.perf_counter()
+        stdout = cp_run([os.path.abspath(__file__), "--convert-parity-child",
+                         spec], "convert_parity child")
+        child_s = time.perf_counter() - t0
+        recs = {r["tag"]: r for line in stdout.splitlines()
+                if line.startswith("[cp_child] ")
+                for r in json.loads(line.split(" ", 1)[1])}
+        check(set(recs) == {j["tag"] for j in jobs},
+              f"convert_parity child records: {sorted(recs)}")
+
+        train = recs["train-pretrained"]
+        final = json.loads(train["last_line"])["final"]
+        steps = CP_TRAIN_STEPS
+        exp = {"fused_swin_attn_train_fwd": SWIN_BLOCKS * steps,
+               "fused_swin_attn_bwd_all": TRAIN_K9C_BLOCKS * steps,
+               "fused_swin_attn_bwd_core": TRAIN_K9B_BLOCKS * steps}
+        phase("convert_parity_train", preset="swin_b384_gemini2",
+              pretrained="cli.convert msgpack", batch=CP_TRAIN_BATCH,
+              steps=steps, final=final, launches=train["launches"],
+              expected_launches=exp, seconds=train["seconds"])
+        check(train["launches"] == exp and np.isfinite(final["train_loss"]),
+              f"train --pretrained: launches {train['launches']}, final "
+              f"{final}")
+
+        batches = {name: -(-CP_N_VAL // bs)
+                   for name, bs in cp_preset_fields("batch_size").items()}
+        per_batch = {"swin_geopose": {"fused_swin_attn_block": SWIN_BLOCKS,
+                                      "fused_patch_merge": SWIN_BOUNDARIES},
+                     "dinov2salad_geopose": {"fused_mhsa_block": DINO_BLOCKS},
+                     "efficientnet_sincos": {}, "salad": {}}
+        totals = dict(train["launches"])
+        for name in (*CP_RECIPES, "salad"):
+            rec = recs[name]
+            with open(os.path.join(root, f"report_{name}.json")) as f:
+                leg = json.load(f)["legs"][name]
+            exp = {k: v * batches.get(name, 0)
+                   for k, v in per_batch[name].items()}
+            fields = dict(leg=name, status=leg["status"],
+                          metrics=leg.get("metrics"),
+                          verdicts=leg.get("verdicts"),
+                          n_images=leg.get("n_images"),
+                          launches=rec["launches"], expected_launches=exp,
+                          seconds=rec["seconds"])
+            ok = leg["status"] == "pass" and rec["launches"] == exp
+            if name in goldens:
+                kind = DEFAULT_LEGS[name]["kind"]
+                scaler = ((np.float32([219000.0, 143000.0]),
+                           np.float32([300.0, 100.0]))
+                          if kind == "geopose" else None)
+                a = _csv_predictions(leg["validation_csv"], kind, scaler)
+                b = _csv_predictions(goldens[name]["validation_csv"], kind,
+                                     scaler)
+                cos = float((a * b).sum() / (np.linalg.norm(a)
+                                             * np.linalg.norm(b)))
+                fields.update(golden_seconds=goldens[name]["seconds"],
+                              kernel_vs_plain_cosine=cos,
+                              max_abs_diff=float(np.abs(a - b).max()),
+                              bound=MIN_COSINE)
+                ok &= cos >= MIN_COSINE and np.isfinite(a).all()
+            phase("convert_parity", card=repr(card), **fields)
+            check(ok, f"parity leg {name}: {fields}")
+            for k, v in rec["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+    phase("convert_parity_seconds", child=child_s,
+          total=time.perf_counter() - t_phase)
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4393,7 +4953,7 @@ def main() -> int:
 
     rest_launches = {}
     for path in (dinov2_sincos_path, salad_frozen_path, swin_t_train_path,
-                 cnn_train_path, parallel_path):
+                 cnn_train_path, parallel_path, convert_parity_path):
         for k, v in path(device, card).items():
             rest_launches[k] = rest_launches.get(k, 0) + v
 
@@ -4491,4 +5051,6 @@ if __name__ == "__main__":
         sys.exit(parallel_child(sys.argv[2]))
     if sys.argv[1:2] == ["--parallel-gloo"]:
         sys.exit(parallel_gloo_rank(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--convert-parity-child"]:
+        sys.exit(cp_child(sys.argv[2]))
     sys.exit(main())

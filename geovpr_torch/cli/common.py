@@ -47,17 +47,24 @@ def add_distributed_args(p) -> None:
     p.add_argument("--process-id", type=int, default=-1)
 
 
-def start_mesh(args, device):
-    """(mesh, device) for a CLI run: with `--multihost` the process group
-    is initialized and the mesh covers every rank along `data`, the device
-    becoming this rank's card; else (None, device), the single-process
-    path. Exits where `--device cuda` finds no card."""
+def require_device(device):
+    """`device` as a torch.device; exits where `--device cuda` finds no
+    card (the port's CLIs run on the card unless asked for the CPU)."""
     import torch
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available; pass --device cpu to "
                          "run on the CPU")
+    return device
+
+
+def start_mesh(args, device):
+    """(mesh, device) for a CLI run: with `--multihost` the process group
+    is initialized and the mesh covers every rank along `data`, the device
+    becoming this rank's card; else (None, device), the single-process
+    path. Exits where `--device cuda` finds no card."""
+    device = require_device(device)
     if not args.multihost:
         return None, device
     from geovpr_torch.parallel import create_mesh, initialize_distributed

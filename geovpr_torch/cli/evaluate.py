@@ -223,9 +223,11 @@ def main(argv=None):
                    help="'best', 'latest', or a checkpoint dir name under "
                         "--run-dir")
     p.add_argument("--variables", default="",
-                   help="flax msgpack of {params, scaler} (geopose) or "
-                        "{params[, batch_stats]} (angle); random init if "
-                        "neither this nor --run-dir is given")
+                   help="flax msgpack (the format python -m "
+                        "geovpr_torch.cli.convert writes) of {params, "
+                        "scaler} (geopose) or {params[, batch_stats]} "
+                        "(angle); random init if neither this nor "
+                        "--run-dir is given")
     p.add_argument("--val-csv", required=True)
     p.add_argument("--image-root", required=True)
     p.add_argument("--test-dir", default="")

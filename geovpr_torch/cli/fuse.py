@@ -20,7 +20,8 @@ trainer's (`geovpr_torch.cli.train`) for any preset it trains, the CNNs
 included (an EfficientNet run is served on its own BatchNorm running
 statistics, as `geovpr/cli/fuse.py:35-36` carries `batch_stats`), read by
 `cli.common.load_trained`; `--salad-variables` a flax msgpack
-of DinoV2Salad variables (`geovpr.cli.convert --family dinov2_salad`).
+of DinoV2Salad variables (`python -m geovpr_torch.cli.convert --family
+dinov2_salad`).
 Writes `test_predictions_sorted.csv`, `test_pred.csv` and
 `retrieval_matches.csv` and prints JAX's JSON record last.
 
@@ -77,8 +78,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--image-root", default="",
                    help="image root for --gallery-csv rows")
     p.add_argument("--salad-variables", default="",
-                   help="flax msgpack of DinoV2Salad variables; random "
-                        "init if omitted")
+                   help="flax msgpack of DinoV2Salad variables (python "
+                        "-m geovpr_torch.cli.convert --family "
+                        "dinov2_salad); random init if omitted")
     p.add_argument("--salad-variant", default="base-14")
     p.add_argument("--salad-image-size", type=int, default=224)
     p.add_argument("--top-k", type=int, default=5)

@@ -14,7 +14,8 @@ Recall@k and writes `retrieval_matches.csv`. `--int8` serves the w8a8 path
 instead: the model's static activation scales are calibrated on the first
 gallery batch (else the first query batch), after normalisation, every
 block runs kernels K2 and K3, and the gallery index is int8 with per-row
-scales. `--variables` reads the flax msgpack `geovpr.cli.retrieve` reads;
+scales. `--variables` reads the flax msgpack `geovpr.cli.retrieve` reads
+(`python -m geovpr_torch.cli.convert --family dinov2_salad` writes one);
 without it the model is a seeded random init. `--device` defaults to cuda
 and fails when no card is present; pass `--device cpu` to run on the CPU.
 
@@ -184,8 +185,9 @@ def main(argv=None):
     p.add_argument("--image-root", required=True)
     p.add_argument("--out-dir", default="retrieval_out")
     p.add_argument("--variables", default="",
-                   help="flax msgpack of DinoV2Salad variables; random init "
-                        "if omitted")
+                   help="flax msgpack of DinoV2Salad variables (python "
+                        "-m geovpr_torch.cli.convert --family "
+                        "dinov2_salad); random init if omitted")
     p.add_argument("--variant", default="base-14",
                    help="DINOv2 variant (base-14 | small-14 | large-14)")
     p.add_argument("--image-size", type=int, default=224)

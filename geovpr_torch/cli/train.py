@@ -42,7 +42,8 @@ item, and so do the config fields the port does not honour yet
 (`data.cache_decoded`, `model.remat`). Checkpoints are the port's
 own (`train.checkpoint`), in the JAX CLI's run-directory layout;
 `--pretrained` reads a flax msgpack of backbone variables (as
-`geovpr.cli.convert` writes it). `--device` defaults to cuda and fails
+`python -m geovpr_torch.cli.convert` writes it from a torch, HF or hub
+checkpoint). `--device` defaults to cuda and fails
 when no card is present; pass `--device cpu` to run on the CPU.
 `--async-checkpoint` is refused.
 
@@ -149,7 +150,8 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=-1)
     p.add_argument("--pretrained", default="",
                    help="flax msgpack of BACKBONE variables to initialise "
-                        "from (the head stays fresh)")
+                        "from (the head stays fresh), as python -m "
+                        "geovpr_torch.cli.convert writes it")
     p.add_argument("--resume", default="",
                    help="run dir to resume from (errors if it holds no "
                         "checkpoint)")

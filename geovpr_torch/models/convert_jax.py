@@ -25,7 +25,9 @@ The inverse of `geovpr/models/convert_torch.py`'s layouts:
   so both map by name.
 
 `load_flax_msgpack` reads the `.msgpack` file `geovpr.cli.retrieve
---variables` reads (flax's `msgpack_serialize` format) without flax or jax.
+--variables` reads (flax's `msgpack_serialize` format) without flax or jax;
+`save_flax_msgpack` writes one, byte for byte what flax writes for the
+same numpy tree, so one file serves both packages.
 `optimizer_state_from_flax` carries optax's Adam state (`mu`, `nu`,
 `count`, `lr_scale`) across to the port's `train.optimizer.Optimizer`,
 the moments through the same name and layout map as the parameters.
@@ -167,6 +169,67 @@ def load_flax_msgpack(path: str) -> dict:
     with open(path, "rb") as f:
         tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
     return _unchunk(tree)
+
+
+# flax/serialization.py's MAX_CHUNK_SIZE: a leaf of more bytes is written
+# as a `__msgpack_chunked_array__` of flat chunks (msgpack caps an object
+# at 2**31 - 1 bytes)
+MAX_CHUNK_SIZE = 2**30
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    import msgpack
+    return msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes("C")),
+                         use_bin_type=True)
+
+
+def _ext_pack(x):
+    # the inverse of `_ext_hook`, as flax's `_msgpack_ext_pack`
+    import msgpack
+    if isinstance(x, np.ndarray):
+        return msgpack.ExtType(1, _ndarray_bytes(x))
+    if isinstance(x, np.generic):
+        return msgpack.ExtType(3, _ndarray_bytes(np.asarray(x)))
+    if isinstance(x, complex):
+        return msgpack.ExtType(2, msgpack.packb((x.real, x.imag)))
+    return x
+
+
+def _chunk(arr: np.ndarray) -> dict:
+    size = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    chunks = [flat[i:i + size] for i in range(0, flat.size, size)]
+    return {"__msgpack_chunked_array__": True,
+            "shape": {str(i): d for i, d in enumerate(arr.shape)},
+            "chunks": {str(i): c for i, c in enumerate(chunks)}}
+
+
+def _packable(tree):
+    """The tree as flax hands it to msgpack: every dict rebuilt with its
+    keys sorted (flax copies the tree through `jax.tree_util`, which sorts
+    them), leaves of more than MAX_CHUNK_SIZE bytes chunked."""
+    if isinstance(tree, Mapping):
+        return {k: _packable(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, np.ndarray) and tree.nbytes > MAX_CHUNK_SIZE:
+        return _chunk(tree)
+    return tree
+
+
+def save_flax_msgpack(path: str, tree: Mapping[str, Any]) -> None:
+    """Write a tree of numpy arrays (str-keyed dicts, numpy scalars) as
+    flax's `msgpack_serialize` does: ext type 1 for an ndarray and 3 for a
+    numpy scalar, each as msgpack (shape, dtype name, bytes). The file
+    restores with `flax.serialization.msgpack_restore` and with
+    `load_flax_msgpack`."""
+    try:
+        import msgpack
+    except ImportError as e:
+        raise ImportError("writing flax .msgpack variables needs the "
+                          "`msgpack` package, which is not installed") from e
+    data = msgpack.packb(_packable(tree), default=_ext_pack,
+                         strict_types=True)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def _adam_states(tree) -> list:

@@ -3,8 +3,8 @@
 CLI's `main` (geopose bf16 and `--int8`; angle presets), the train CLI
 (window-12 and window-7 Swin, DINOv2 across the unfreeze; `--multihost` on
 two spawned ranks) and the fuse
-CLI's `main` (`--int8`, three components), and chip_smoke.py
-fails where it cannot run."""
+CLI's `main` (`--int8`, three components), the convert and parity CLIs'
+`main`, and chip_smoke.py fails where it cannot run."""
 
 import dataclasses
 import json
@@ -536,6 +536,86 @@ def test_multihost_train_cli_runs_without_jax_or_geovpr(tmp_path):
     assert ranks[1]["cli_train"].strip() == ""
 
 
+_CONVERT_PARITY = """
+import sys
+for name in {block!r}:
+    sys.modules[name] = None
+import dataclasses, json, os, tempfile
+import numpy as np
+import torch
+from PIL import Image
+import chip_smoke as cs
+from geovpr_torch.cli import convert, parity, presets
+from geovpr_torch.cli.train import load_pretrained_backbone
+from geovpr_torch.models.swin import SWIN_VARIANTS
+SWIN_VARIANTS["test-32"] = dict(embed_dim=32, depths=(2, 2), num_heads=(1, 2),
+                                window_size=4, image_size=32)
+cfg = presets.GEOPOSE_PRESETS["swin_b384_gemini2"]
+presets.GEOPOSE_PRESETS["swin_b384_gemini2"] = dataclasses.replace(
+    cfg, model=dataclasses.replace(cfg.model, variant="test-32"),
+    data=dataclasses.replace(cfg.data, image_size=32, batch_size=4))
+
+model = cs.cp_model("swin_geopose")
+ckpt = cs.export_reference("swin_geopose", model.state_dict())
+with tempfile.TemporaryDirectory() as d:
+    os.makedirs(os.path.join(d, "swin_geopose"))
+    os.makedirs(os.path.join(d, "images"))
+    torch.save({{"model_state_dict": ckpt}},
+               os.path.join(d, "swin_geopose", "model_best.pth"))
+    src = os.path.join(d, "backbone.pth")
+    torch.save({{k[len("backbone."):]: v for k, v in ckpt.items()
+                if k.startswith("backbone.")}}, src)
+    dst = os.path.join(d, "backbone.msgpack")
+    convert.main([src, dst, "--family", "swin", "--variant", "test-32"])
+    got = load_pretrained_backbone(dst)
+    want = {{f"backbone.{{k}}": v for k, v in
+            model.backbone.state_dict().items()}}
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    rng = np.random.default_rng(0)
+    np.savez(os.path.join(d, "swin_geopose", "latlon_scaler.npz"),
+             mean=np.float32([219000.0, 143000.0]),
+             scale=np.float32([300.0, 100.0]))
+    with open(os.path.join(d, "labels_val.csv"), "w") as f:
+        f.write("filename,timestamp,latitude,longitude,angle,Region_ID\\n")
+        for i in range(6):
+            Image.fromarray(rng.integers(0, 255, (40, 40, 3)).astype(
+                np.uint8)).save(os.path.join(d, "images", f"p{{i}}.png"))
+            f.write(f"p{{i}}.png,0,{{219000 + i * 50.0}},{{143000 - i}},"
+                    "0,1\\n")
+    with open(os.path.join(d, "parity_config.json"), "w") as f:
+        json.dump({{"legs": {{"swin_geopose": {{
+            "scaler": "latlon_scaler.npz", "golden": {{"mse": 1e12}},
+            "convert_overrides": {{"depths": [2, 2]}}}}}}}}, f)
+    parity.main(["--assets", d, "--device", "cpu"])
+    with open(os.path.join(d, "parity_report.json")) as f:
+        legs = json.load(f)["legs"]
+    assert legs["swin_geopose"]["status"] == "pass", legs
+    assert legs["swin_geopose"]["n_images"] == 6
+    assert [legs[k]["status"] for k in ("efficientnet_sincos",
+            "dinov2salad_geopose", "salad")] == ["skipped"] * 3, legs
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split(".")[0] in {block!r})
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_convert_and_parity_cli_run_without_jax_or_geovpr():
+    """`geovpr_torch.cli.convert.main` on a Swin backbone in HF keys and
+    `cli.parity.main --device cpu` on its trained-checkpoint layout (a
+    small window-4 Swin and its MLP head, exported by chip_smoke.py's
+    exporter), with jax, flax, optax, orbax and `geovpr` blocked: the
+    msgpack reads back bit-equal through `--pretrained`'s loader and the
+    leg passes."""
+    block = _BLOCK + ("geovpr",)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CONVERT_PARITY.format(block=block)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == "OK"
+
+
 def _import_lines(pattern: str) -> list[str]:
     pat = re.compile(pattern)
     files = sorted((REPO / "geovpr_torch").rglob("*.py")) + [
@@ -543,6 +623,12 @@ def _import_lines(pattern: str) -> list[str]:
     # the multi-process package is in the scan
     assert {"mesh.py", "sharding_rules.py", "__init__.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
+    # and the weight import and parity modules
+    assert {"convert_torch.py", "convert_reference.py",
+            "convert_jax.py"} <= {f.name for f in files
+                                  if f.parent.name == "models"}
+    assert {"convert.py", "parity.py"} <= {f.name for f in files
+                                          if f.parent.name == "cli"}
     return [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.match(line)]
