@@ -86,7 +86,24 @@ end to end from seeded random weights:
   leg by leg against golden numbers this script computes through the
   plain path from the same weights: every leg passes, the kernel path's
   predictions against the plain path's, K4 24, K6 3 and K1 12 launches a
-  batch.
+  batch;
+- the 1M-row gallery (`[index_1m]`): 1,000,000 x 8448 int8 rows built
+  with `DescriptorIndex.build_chunked` from seeded unit rows made on the
+  card in 65,536-row chunks (the build's peak at most the index plus two
+  f32 chunks), 1,024 queries searched single-shot and in 131,072-row
+  blocks, bit-equal, planted near-duplicates found at rank 1;
+- training from image files (`[train_disk]`): unfrozen DINOv2-B/14 + SALAD
+  at full width and B=32 through `run_train` over seeded JPEGs with
+  `model.remat` (K8a twice in every block, K8c once, a step; K1 in
+  validation), the decoded-image cache in RAM and in memmaps, the native
+  decoder (PIL where libjpeg is missing, which the line says) and
+  asynchronous checkpoints: cache, decode, run, checkpoint and resume
+  checks bit for bit, the remat gradient bit-equal to the kept one, the
+  kernel path's gradient against the plain path's; then Swin-B-384 at
+  B=16 with and without remat (peak memory, ms/step, bit-equal
+  gradients).
+  `python3 chip_smoke.py --phases index_1m,train_disk` runs those two
+  alone.
 
 Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
 form and the w8a8 MLP half-block, K3 also at the four Swin-B-384 stage
@@ -2890,15 +2907,64 @@ def set_compute_dtype(model, dtype) -> None:
             m.dtype = dtype
 
 
+def kernel_blocks(model) -> list:
+    """The modules whose `use_kernels` picks the kernel or the plain path:
+    the backbone's blocks, or its inner backbone's (DINOv2 + SALAD)."""
+    bb = model.backbone
+    return list(getattr(bb, "blocks", None)
+                or getattr(getattr(bb, "backbone", None), "blocks", []))
+
+
+# parameters whose gradient is zero in exact arithmetic, roundoff on any
+# path: the Sinkhorn plan ignores a constant added to a whole row of the
+# scores (its first row update absorbs it), which is what the dustbin and
+# score_fc2's bias add
+ROUNDOFF_GRADS = ("backbone.salad.dustbin", "backbone.salad.score_fc2.bias")
+
+
+class SaladRelus:
+    """Stands in for `torch.nn.functional` in `models/salad.py` while a
+    gradient is taken: records the input of each ReLU of the SALAD head
+    (the feat, score and token MLPs, in call order) in `seen`, or, given
+    `masks` (one boolean tensor per ReLU), passes exactly the units marked
+    there (the value x and the gradient 1) and no other."""
+
+    def __init__(self, masks=None):
+        self.seen, self.masks = [], masks
+
+    def __getattr__(self, name):
+        return getattr(torch.nn.functional, name)
+
+    def relu(self, x):
+        self.seen.append(x.detach())
+        if self.masks is None:
+            return torch.relu(x)
+        return torch.where(self.masks[len(self.seen) - 1], x,
+                           torch.zeros_like(x))
+
+
+@contextlib.contextmanager
+def salad_relus(relus):
+    """`relus` (a SaladRelus) in place of the SALAD head's ReLUs."""
+    from geovpr_torch.models import salad
+    old, salad.F = salad.F, relus
+    try:
+        yield relus
+    finally:
+        salad.F = old
+
+
 def train_grads_vs_plain(trainer, batch, path: str,
-                         against_f32: bool = False) -> None:
+                         against_f32: bool = False,
+                         salad_masks: bool = False) -> None:
     """`_train_grads_vs_plain` with the running statistics kept."""
     with kept_batch_stats(trainer.state.model):
-        _train_grads_vs_plain(trainer, batch, path, against_f32)
+        _train_grads_vs_plain(trainer, batch, path, against_f32, salad_masks)
 
 
 def _train_grads_vs_plain(trainer, batch, path: str,
-                          against_f32: bool = False) -> None:
+                          against_f32: bool = False,
+                          salad_masks: bool = False) -> None:
     """On one batch with dropout and DropPath off, the gradient of every
     parameter on the kernel path against the plain path, cosine >= 0.999
     for each tensor. Beside it, for the worst relative-position table of a
@@ -2917,7 +2983,21 @@ def _train_grads_vs_plain(trainer, batch, path: str,
     0.988 against the f32 path's), two bf16 paths cannot agree to 0.999
     however right each is, and one tensor's ratio of two such errors
     scatters by a quarter; the mean over the model's tensors does not,
-    while a tensor whose gradient is wrong outright still moves it."""
+    while a tensor whose gradient is wrong outright still moves it.
+
+    `salad_masks` (DINOv2 + SALAD) takes the plain path's gradient with
+    each ReLU of the SALAD head passing the units the kernel path's ReLU
+    passed, and holds every tensor to the cosine of 0.999 against it (with
+    `against_f32`, besides the bound above, in which the plain path keeps
+    its own ReLUs). A unit whose pre-activation lies within the two
+    paths' rounding of 0 passes on one path and not on the other, and a
+    few such units move the token MLP's gradient by per-mille cosines:
+    `chip_grads.py` read 24 of the token MLP's 16,384 units flipping
+    (|x| <= 0.015), and the plain path against itself with the
+    attention's f32 sums in another order reading 0.9982 on
+    `salad.token_fc1.bias` unmasked and 0.99994 masked. The flips and the
+    unmasked cosines are printed (`[train_grads_relu]`). The parameters
+    of ROUNDOFF_GRADS are only reported."""
     st, model = trainer.state, trainer.state.model
     saved = _drop_rates(model, 0.0)
     model.train()
@@ -2925,33 +3005,67 @@ def _train_grads_vs_plain(trainer, batch, path: str,
     names = [n for n, _ in model.named_parameters()]
     compute_dtype = model.backbone.dtype
 
-    blocks = getattr(model.backbone, "blocks", [])
+    blocks = kernel_blocks(model)
 
-    def grads(kernels: bool, dtype=compute_dtype):
+    def grads(kernels: bool, dtype=compute_dtype, relus=None):
         for m in blocks:
             m.use_kernels = kernels
         set_compute_dtype(model, dtype)
         try:
-            loss = trainer.objective.loss(
-                model(trainer._normalize(batch["image"])), enc,
-                batch["mask"])
-            return torch.autograd.grad(loss, list(model.parameters()))
+            with (salad_relus(relus) if relus is not None
+                  else contextlib.nullcontext()):
+                loss = trainer.objective.loss(
+                    model(trainer._normalize(batch["image"])), enc,
+                    batch["mask"])
+                return torch.autograd.grad(loss, list(model.parameters()))
         finally:
             for m in blocks:
                 m.use_kernels = True
             set_compute_dtype(model, compute_dtype)
 
-    got, want = grads(True), grads(False)
-    cos = {n: _cosine(a, b) for n, a, b in zip(names, got, want)}
+    def cosines(a, b):
+        return {n: _cosine(x, y) for n, x, y in zip(names, a, b)
+                if n not in ROUNDOFF_GRADS}
+
+    kernel_relus, plain_relus = SaladRelus(), SaladRelus()
+    got = grads(True, relus=kernel_relus if salad_masks else None)
+    want = grads(False, relus=plain_relus if salad_masks else None)
+    cos = cosines(got, want)
+    if salad_masks:
+        own = cos
+        masked = grads(False, relus=SaladRelus(
+            [x > 0 for x in kernel_relus.seen]))
+        cos = cosines(got, masked)
+    roundoff = {n: (got[i].float().norm().item(),
+                    want[i].float().norm().item())
+                for i, n in enumerate(names) if n in ROUNDOFF_GRADS}
+    if roundoff:
+        ref = dict(zip(names, want))["backbone.salad.score_fc2.weight"]
+        phase("train_grads_roundoff", path=path, norms=repr(roundoff),
+              score_fc2_weight_grad_norm=ref.float().norm().item())
     worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
     phase("train_grads", path=path, tensors=len(cos),
           min_cosine=worst[0][1], worst=repr(worst),
-          bound="kernel-vs-f32 below" if against_f32 else 0.999)
+          bound="kernel-vs-f32 below" if against_f32 and not salad_masks
+          else 0.999, salad_relus="the kernel path's units" if salad_masks
+          else "each path its own")
+    if salad_masks:
+        flips = [(which, int(((a > 0) != (b > 0)).sum()), a.numel())
+                 for which, a, b in zip(("feat", "score", "token"),
+                                        kernel_relus.seen, plain_relus.seen)]
+        low = sorted(own.items(), key=lambda kv: kv[1])[:3]
+        phase("train_grads_relu", path=path, flipped_units=repr(flips),
+              own_relus_min_cosine=low[0][1], own_relus_worst=repr(low))
+        check(worst[0][1] >= 0.999,
+              f"kernel vs plain gradient cosine below 0.999 with the SALAD "
+              f"head's ReLUs passing the same units: {worst}")
     if against_f32:
         ref = grads(False, torch.float32)
         _drop_rates(model, saved)
         ek, ep, ratio = {}, {}, {}
         for n, k, p, r in zip(names, got, want, ref):
+            if n in ROUNDOFF_GRADS:
+                continue
             scale = r.float().norm().item() or 1.0
             ek[n] = (k.float() - r.float()).norm().item() / scale
             ep[n] = (p.float() - r.float()).norm().item() / scale
@@ -2964,13 +3078,16 @@ def _train_grads_vs_plain(trainer, batch, path: str,
         phase("train_grads_f32_bound", path=path, tensors=len(ratio),
               rms_ratio=rms, kernel_rms_rel_err=mk ** 0.5,
               plain_rms_rel_err=mp ** 0.5, worst_tensors=repr([
-                  (n, r, cos[n], _cosine(got[names.index(n)],
-                                         ref[names.index(n)]),
-                  _cosine(want[names.index(n)], ref[names.index(n)]))
+                  (n, r, _cosine(got[names.index(n)], want[names.index(n)]),
+                   _cosine(got[names.index(n)], ref[names.index(n)]),
+                   _cosine(want[names.index(n)], ref[names.index(n)]))
                   for n, r in top]), bound=GRAD_F32_RATIO)
         check(rms <= GRAD_F32_RATIO,
               f"kernel path's gradient further from the f32 path than "
               f"{GRAD_F32_RATIO} x the bf16 plain path's: {rms}, {top}")
+        return
+    if salad_masks:
+        _drop_rates(model, saved)
         return
     tables = {n: c for n, c in cos.items()
               if n.endswith("relative_position_bias_table")}
@@ -4870,6 +4987,470 @@ def convert_parity_path(device, card: str) -> dict:
     return totals
 
 
+# ------------------------------------------------------ index_1m --
+# The blocked exact index at the first benchmark's size: 1,000,000 x 8448
+# int8 rows built with `build_chunked` from seeded unit rows made on the
+# card in chunks (one f32 chunk is 2.2 GB; the whole f32 gallery would be
+# 33.8 GB), then 1,024 queries searched single-shot and in row blocks.
+INDEX_ROWS, INDEX_DIM, INDEX_CHUNK = 1_000_000, 8448, 65536
+INDEX_QUERIES, INDEX_K, INDEX_BLOCK = 1024, 10, 131072
+INDEX_PLANTED = (17, 65535, 65536, 262_143, 500_000, 917_503, 999_999)
+INDEX_REPEATS = 3
+
+
+def index_1m_path(device, card: str) -> None:
+    """`DescriptorIndex(quantize=True).build_chunked` over INDEX_ROWS
+    seeded unit rows made on the card chunk by chunk (each normalised in
+    place, the rows of INDEX_PLANTED kept aside), the build's peak memory
+    above what was allocated before it at most the index plus two f32
+    chunks; then INDEX_QUERIES queries (the first near-duplicates of the
+    planted rows, the rest seeded unit rows), k = INDEX_K, searched
+    single-shot and with db_block = INDEX_BLOCK (full blocks and a narrow
+    tail): indices equal, scores bit-equal (int32 sums times the same
+    scales), each planted row found at rank 1. Build seconds, search ms
+    and q/s of each mode (host clock around synchronised searches)."""
+    from geovpr_torch.retrieval.index import DescriptorIndex
+
+    n, d, chunk = INDEX_ROWS, INDEX_DIM, INDEX_CHUNK
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    planted = {}
+
+    def unit_rows(rows: int) -> torch.Tensor:
+        x = torch.randn(rows, d, generator=gen, device=device)
+        return x.div_(torch.linalg.vector_norm(x, dim=1, keepdim=True))
+
+    def chunks():
+        for start in range(0, n, chunk):
+            c = unit_rows(min(chunk, n - start))
+            for r in INDEX_PLANTED:
+                if start <= r < start + c.shape[0]:
+                    planted[r] = c[r - start].clone()
+            yield c
+            del c
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = DescriptorIndex(dim=d, device=device, quantize=True)
+    index.build_chunked(chunks(), total=n)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    index_bytes = (index._db.numel() * index._db.element_size()
+                   + index._db_scale.numel() * 4)
+    limit = index_bytes + 2 * chunk * d * 4
+    phase("index_1m_build", card=repr(card), rows=n, dim=d, chunk=chunk,
+          build_s=build_s, rows_per_s=n / build_s, index_bytes=index_bytes,
+          peak_bytes=peak, limit_bytes=limit,
+          f32_gallery_bytes=n * d * 4)
+    check(index.size == n and index._db.shape == (n, d)
+          and index._db.dtype == torch.int8,
+          f"index_1m: built {tuple(index._db.shape)} {index._db.dtype}")
+    check(peak <= limit, f"index_1m: the build's peak {peak} B is above "
+          f"the index plus two f32 chunks ({limit} B)")
+
+    q = unit_rows(INDEX_QUERIES)
+    rows = sorted(planted)
+    qgen = torch.Generator(device=device).manual_seed(SEED + 20)
+    near = torch.stack([planted[r] for r in rows]) + 0.01 * torch.randn(
+        len(rows), d, generator=qgen, device=device) / d ** 0.5
+    q[:len(rows)] = near / torch.linalg.vector_norm(near, dim=1,
+                                                    keepdim=True)
+    results, times = {}, {}
+    for mode, block in (("single_shot", 0), ("blocked", INDEX_BLOCK)):
+        index.db_block = block
+        results[mode] = index.search(q, INDEX_K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(INDEX_REPEATS):
+            index.search(q, INDEX_K)
+        torch.cuda.synchronize()
+        times[mode] = (time.perf_counter() - t0) / INDEX_REPEATS * 1e3
+    (s0, i0), (s1, i1) = results["single_shot"], results["blocked"]
+    same_idx = torch.equal(i0, i1)
+    same_scores = torch.equal(s0, s1)
+    top1 = i1[:len(rows), 0].tolist()
+    blocks = -(-n // INDEX_BLOCK)
+    for mode, ms in times.items():
+        phase("index_1m_search", card=repr(card), mode=mode,
+              db_block=INDEX_BLOCK if mode == "blocked" else 0,
+              blocks=blocks if mode == "blocked" else 1,
+              tail_rows=n - (blocks - 1) * INDEX_BLOCK
+              if mode == "blocked" else n,
+              queries=INDEX_QUERIES, k=INDEX_K, ms=ms,
+              queries_per_s=INDEX_QUERIES / ms * 1e3)
+    phase("index_1m", indices_equal=same_idx, scores_bit_equal=same_scores,
+          planted=rows, planted_top1=top1,
+          planted_top1_scores=s1[:len(rows), 0].tolist())
+    check(same_idx and same_scores,
+          "index_1m: the blocked search differs from the single-shot one")
+    check(top1 == rows, f"index_1m: planted rows {rows} found as {top1}")
+    del index, q, near, results, s0, s1, i0, i1
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------- train_disk --
+# Training from image files: unfrozen DINOv2-B/14 + SALAD
+# (dinov2salad_frozen_mlp with model.freeze_backbone=False and
+# optim.backbone_lr_scale=0.1, no preset asks for it) at 224 px and the
+# preset's B=32 with remat, the decoded-image cache and asynchronous
+# checkpoints, over seeded JPEGs on disk; then Swin-B-384 with and without
+# remat.
+DISK_IMAGES, DISK_VAL, DISK_EPOCHS = 64, 32, 2
+DISK_SIZES = ((480, 360), (360, 480), (320, 320))
+REMAT_SWIN_BATCH = 16
+REMAT_STEPS = 3
+
+
+def disk_images(root: str, n: int, rng) -> tuple:
+    """n seeded JPEGs (non-square, an upsampled random colour field plus
+    noise) and their (lat, lon) targets."""
+    from PIL import Image
+
+    paths = []
+    for i in range(n):
+        w, h = DISK_SIZES[i % len(DISK_SIZES)]
+        base = Image.fromarray(rng.integers(0, 256, (8, 8, 3)).astype(
+            np.uint8)).resize((w, h), Image.BILINEAR)
+        arr = np.asarray(base, np.float32) + rng.normal(0, 20, (h, w, 3))
+        paths.append(os.path.join(root, f"d_{i:04d}.jpg"))
+        Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+            paths[-1], quality=90)
+    targets = np.stack([219000.0 + rng.normal(0, 300.0, n),
+                        143000.0 + rng.normal(0, 100.0, n)], 1)
+    return paths, targets.astype(np.float32)
+
+
+def native_decoder_probe() -> str:
+    """"native", or "pil" where the native decoder cannot be built here:
+    then `decoder="native"` must raise that error (`[native_decoder]`)."""
+    from geovpr_torch.data.decoder import (NativeDecoderUnavailable,
+                                           libjpeg_version)
+    from geovpr_torch.data.pipeline import ImageFolderSource
+
+    have = {p: os.path.exists(p) for p in (
+        "/usr/include/jpeglib.h", "/usr/include/x86_64-linux-gnu/jpeglib.h")}
+    try:
+        version = libjpeg_version()
+    except NativeDecoderUnavailable as e:
+        reason = str(e).splitlines()[0]
+        try:
+            ImageFolderSource(paths=[], targets=np.zeros((0, 2)),
+                              decoder="native")
+            raised = False
+        except NativeDecoderUnavailable:
+            raised = True
+        phase("native_decoder", state="unavailable", reason=repr(reason),
+              headers=have, source_raises=raised,
+              disk_path_decoder="pil (the native decoder cannot be built "
+              "here)")
+        check(raised, "decoder='native' did not raise where the native "
+              "decoder cannot be built")
+        return "pil"
+    phase("native_decoder", state="available", libjpeg_version=version,
+          headers=have)
+    return "native"
+
+
+def _disk_cfg(decoder: str, cache: str, remat: bool = True,
+              async_ckpt: bool = True):
+    import dataclasses
+
+    from geovpr_torch.cli.presets import build_preset
+    cfg = build_preset("dinov2salad_frozen_mlp")
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, freeze_backbone=False,
+                                       remat=remat),
+        data=dataclasses.replace(cfg.data, decoder=decoder,
+                                 cache_decoded=cache),
+        optim=dataclasses.replace(cfg.optim, backbone_lr_scale=0.1),
+        train=dataclasses.replace(cfg.train, async_checkpoint=async_ckpt))
+
+
+def _remat_grads_equal(trainer, batch, tag: str) -> None:
+    """The gradient of every parameter with the blocks recomputed and with
+    them kept, at the same state and batch, the step's dropout generator
+    seeded alike: bit-equal."""
+    from geovpr_torch.models.layers import set_rng
+    from geovpr_torch.train.steps import step_generators
+
+    st, model = trainer.state, trainer.state.model
+    enc = trainer.objective.encode_targets(batch["target"], st.scaler)
+    flags = [m for m in model.modules() if hasattr(m, "remat")]
+    out = {}
+    for remat in (True, False):
+        for m in flags:
+            m.remat = remat
+        model.train()
+        set_rng(model, step_generators(st.seed, st.step,
+                                       batch["image"].device)[1])
+        try:
+            loss = trainer.objective.loss(
+                model(trainer._normalize(batch["image"])), enc,
+                batch["mask"])
+            out[remat] = (loss.detach(), torch.autograd.grad(
+                loss, list(model.parameters()), allow_unused=True))
+        finally:
+            set_rng(model, None)
+    for m in flags:
+        m.remat = True
+    names = [n for n, _ in model.named_parameters()]
+    differ = [n for n, a, b in zip(names, out[True][1], out[False][1])
+              if (a is None) != (b is None)
+              or (a is not None and not torch.equal(a, b))]
+    same_loss = torch.equal(out[True][0], out[False][0])
+    phase("remat_grads", path=tag, tensors=len(names), loss_equal=same_loss,
+          tensors_differ=len(differ), differ=repr(differ[:5]))
+    check(same_loss and not differ,
+          f"{tag}: remat gradient not bit-equal to no remat: {differ[:5]}")
+
+
+def _copy_checkpoint(src: str, run_dir: str) -> str:
+    import shutil
+    os.makedirs(run_dir)
+    shutil.copytree(src, os.path.join(run_dir, "checkpoint_0"))
+    return run_dir
+
+
+def train_disk_path(device, card: str) -> dict:
+    """Unfrozen DINOv2-B/14 + SALAD at full width through `run_train` from
+    DISK_IMAGES seeded JPEGs (DISK_VAL of them the validation source), the
+    preset's B=32, DISK_EPOCHS epochs of 2 steps, with `model.remat`,
+    `data.decoder="native"` (PIL where the native decoder cannot be built
+    here, `[native_decoder]`), `data.cache_decoded` and asynchronous
+    checkpoints: once with the cache in RAM, once in `.npy` memmaps.
+    Launches a step: K8a in every block twice (the forward and the remat
+    recompute), K8c in every block; K1 in every block of a validation
+    batch. Checks: finite losses; the launch counts; the kernel path's
+    gradient against the plain path's per tensor (cosine >= 0.999 on
+    every tensor, the SALAD head's ReLUs passing the same units on both
+    paths; the two SALAD parameters whose gradient is zero in exact
+    arithmetic are only reported), and within GRAD_F32_RATIO of the bf16
+    plain path's distance from the f32 one; the remat gradient bit-equal to the one without remat;
+    each cache holding, after the run, the bytes a fresh decode gives (so
+    epoch 1 read epoch 0's decodes), the decoder's images equal across two
+    decodes and across the two runs; the two runs equal step for step;
+    every checkpoint of the run also written synchronously at the same
+    moment and equal to the asynchronous one tensor for tensor, and a
+    resume from each (epoch 1 again) bit-equal. Then one Swin-B-384 step at
+    B=16 with remat and without (`[remat_step]`: peak memory, ms/step)
+    and their gradients bit-equal with DropPath on. Returns the launch
+    counts of the runs and of the Swin steps."""
+    from geovpr_torch.cli.train import run_train
+    from geovpr_torch.data.decoder import decode_files
+    from geovpr_torch.data.pipeline import CachedImageSource, ImageFolderSource
+    from geovpr_torch.train import loop as loop_mod
+
+    decoder = native_decoder_probe()
+    t_phase = time.perf_counter()
+    total = {}
+    base = _disk_cfg(decoder, "")
+    size, batch = base.data.image_size, base.data.batch_size
+    blocks = _dino_blocks(base)
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir = os.path.join(tmp, "img")
+        os.makedirs(img_dir)
+        paths, targets = disk_images(img_dir, DISK_IMAGES,
+                                     np.random.default_rng(SEED + 21))
+
+        def source(idx, cache_path=""):
+            inner = ImageFolderSource(
+                paths=[paths[i] for i in idx], targets=targets[idx],
+                image_size=size, num_threads=8, decoder=decoder)
+            return CachedImageSource(inner, cache_path=cache_path)
+
+        if decoder == "native":
+            a = decode_files(paths, size, size, threads=8)
+            b = decode_files(paths, size, size, threads=3)
+            decoded, same_decode = a[0], (np.array_equal(a[0], b[0])
+                                          and a[1].all() and b[1].all())
+        else:
+            a = source(np.arange(DISK_IMAGES)).inner.get_batch(
+                np.arange(DISK_IMAGES))["image"]
+            b = source(np.arange(DISK_IMAGES)).inner.get_batch(
+                np.arange(DISK_IMAGES))["image"]
+            decoded, same_decode = a, np.array_equal(a, b)
+        phase("decode_repeat", decoder=decoder, images=DISK_IMAGES,
+              equal=same_decode)
+        check(same_decode, f"{decoder} decodes differ between two runs")
+
+        runs, caches = {}, {}
+        save = loop_mod.save_checkpoint
+        sync_dirs = []
+
+        def save_both(path, state, epoch, *a, **kw):
+            """The loop's save (asynchronous), and a synchronous one of the
+            same state at the same moment beside it."""
+            save(path, state, epoch, *a, **kw)
+            twin = f"{path}.sync"
+            save(twin, state, epoch, *a, **{
+                k: v for k, v in kw.items()
+                if k not in ("async_save", "on_saved")})
+            sync_dirs.append(twin)
+
+        for mode in ("ram", "memmap"):
+            cache = "ram" if mode == "ram" else os.path.join(tmp, "cache")
+            cfg = _disk_cfg(decoder, cache)
+            train_src = source(np.arange(DISK_IMAGES),
+                               "" if mode == "ram" else f"{cache}.train.npy")
+            val_src = source(np.arange(DISK_VAL),
+                             "" if mode == "ram" else f"{cache}.val.npy")
+            tag = f"dinov2salad-unfrozen-{mode}"
+            if mode == "ram":
+                loop_mod.save_checkpoint = save_both
+            try:
+                trainer, launches = train_run(
+                    cfg, train_src, val_src, device,
+                    os.path.join(tmp, mode), DISK_EPOCHS,
+                    {"fused_mhsa_train_fwd": (2 * blocks, 0),
+                     "fused_mhsa_bwd_all": (blocks, 0),
+                     "fused_mhsa_block": (0, blocks)}, tag)
+            finally:
+                loop_mod.save_checkpoint = save
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            check(not trainer._frozen_phase and set(trainer.state.opt.mu)
+                  == set(dict(trainer.state.model.named_parameters())),
+                  f"{tag}: the backbone is not trained")
+            cached = all(np.array_equal(s._cache, decoded[:len(s)])
+                         and s._have.all() for s in (train_src, val_src))
+            on_disk = mode == "ram" or (
+                np.array_equal(np.load(f"{cache}.train.npy"), decoded)
+                and np.array_equal(np.load(f"{cache}.val.npy"),
+                                   decoded[:DISK_VAL]))
+            phase("train_disk_cache", path=tag, decoder=decoder,
+                  cache=cache if mode == "memmap" else "ram",
+                  equal_to_fresh_decode=cached, memmap_files_equal=on_disk)
+            check(cached and on_disk, f"{tag}: the cache differs from a "
+                  f"fresh decode")
+            runs[mode] = trainer
+            caches[mode] = train_src._cache
+        ram, mm = runs["ram"], runs["memmap"]
+        same_runs = (ram.step_losses == mm.step_losses
+                     and np.array_equal(caches["ram"], caches["memmap"]))
+        phase("train_disk_runs", ram=ram.step_losses, memmap=mm.step_losses,
+              equal=same_runs)
+        check(same_runs, "train_disk: the RAM and memmap runs differ")
+
+        differ, compared = [], 0
+        for twin in sync_dirs:
+            a_dir = twin[:-len(".sync")]
+            a = torch.load(os.path.join(a_dir, "state.pt"),
+                           map_location="cpu", weights_only=True)
+            b = torch.load(os.path.join(twin, "state.pt"),
+                           map_location="cpu", weights_only=True)
+            compared += _tensors_equal(a, b, os.path.basename(a_dir), differ)
+        resumed = {}
+        for kind, src in (("async", "checkpoint_0"),
+                          ("sync", "checkpoint_0.sync")):
+            rdir = _copy_checkpoint(os.path.join(ram.run_dir, src),
+                                    os.path.join(tmp, f"resume_{kind}"))
+            cfg = _disk_cfg(decoder, "ram")
+            resumed[kind] = run_train(
+                cfg, source(np.arange(DISK_IMAGES)),
+                source(np.arange(DISK_VAL)), save_dir=tmp, device=device,
+                epochs=DISK_EPOCHS, resume=rdir)
+        last = f"checkpoint_{DISK_EPOCHS - 1}"
+        rd = [_tensors_equal(*(torch.load(
+            os.path.join(r.run_dir, last, "state.pt"), map_location="cpu",
+            weights_only=True) for r in (resumed["async"], resumed["sync"])),
+            last, differ)]
+        unbroken = {e: v for e, v in ram.step_losses.items() if e > 0}
+        same = (not differ and resumed["async"].step_losses
+                == resumed["sync"].step_losses == unbroken)
+        phase("train_disk_resume", async_dirs=len(sync_dirs),
+              tensors=compared + rd[0], differ=repr(differ[:5]),
+              resumed_async=resumed["async"].step_losses,
+              resumed_sync=resumed["sync"].step_losses, unbroken=unbroken,
+              equal=same)
+        check(sync_dirs and same, "train_disk: the asynchronous checkpoint "
+              f"or its resume differs from the synchronous one: "
+              f"{differ[:5]}")
+        tb = next(iter(_train_batches(source(np.arange(DISK_IMAGES)),
+                                      device, batch)))
+        train_grads_vs_plain(ram, tb, "dinov2salad-unfrozen",
+                             against_f32=True, salad_masks=True)
+        _remat_grads_equal(ram, tb, "dinov2salad-unfrozen")
+        train_times(ram, tb, card, "dinov2salad-unfrozen-remat",
+                    phase_name="remat")
+        del ram, mm, runs, resumed, caches, trainer
+        torch.cuda.empty_cache()
+    for k, v in remat_swin_steps(device, card).items():
+        total[k] = total.get(k, 0) + v
+    phase("train_disk_seconds", seconds=time.perf_counter() - t_phase)
+    return total
+
+
+def remat_swin_steps(device, card: str) -> dict:
+    """Swin-B-384 (swin_b384_gemini2 at full width, DropPath 0.1 as its
+    training build, B=16) from a seeded init: REMAT_STEPS steps without
+    remat and with it on one synthetic batch, peak memory and ms/step
+    each (the step's launch counts set to 0 just before the remat steps
+    and read just after: K9a in every block twice, K9c / K9b once); the
+    peak with remat below the one without; and one batch's gradients with
+    and without remat bit-equal (DropPath on, the step's generator).
+    Returns the remat steps' launch counts."""
+    import dataclasses
+    import shutil
+
+    from geovpr_torch.cli.presets import build_preset, objective_for
+    from geovpr_torch.models.regression import RegressionModel
+    from geovpr_torch.objectives.scaler import fit_scaler
+    from geovpr_torch.train.loop import Trainer
+    from geovpr_torch.train.state import create_train_state
+
+    cfg = build_preset("swin_b384_gemini2")
+    size, b = cfg.data.image_size, REMAT_SWIN_BATCH
+    src = synthetic_val(b, size, np.random.default_rng(SEED + 22))
+    batch = {"image": torch.from_numpy(src.images).to(device),
+             "target": torch.from_numpy(src.targets).to(device),
+             "mask": torch.ones(b, dtype=torch.bool, device=device)}
+    model = RegressionModel(dataclasses.replace(cfg.model, image_size=size),
+                            dtype=torch.bfloat16, train=True).to(device)
+    trainer = Trainer(model=model, objective=objective_for(cfg),
+                      optim_cfg=cfg.optim, train_cfg=cfg.train,
+                      data_cfg=cfg.data, device=device,
+                      run_dir=tempfile.mkdtemp())
+    trainer.state = create_train_state(model, cfg.optim, seed=SEED,
+                                       scaler=fit_scaler(src.targets))
+    counters = train_counters()
+    out, launches = {}, {}
+    for remat in (False, True):
+        model.backbone.remat = remat
+        trainer._train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(REMAT_STEPS):
+            trainer._train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / REMAT_STEPS * 1e3
+        counts = {k: fn.launches // REMAT_STEPS for k, fn in counters.items()
+                  if fn.launches}
+        if remat:
+            launches = {k: fn.launches for k, fn in counters.items()}
+        out[remat] = (torch.cuda.max_memory_allocated(), ms)
+        phase("remat_step", card=repr(card), path="swin_b384_gemini2",
+              batch=b, remat=remat, peak_mem_bytes=out[remat][0],
+              ms_per_step=ms, launches_per_step=counts)
+    saved = (out[False][0] - out[True][0]) / max(out[False][0], 1)
+    phase("remat_trade", path="swin_b384_gemini2", card=repr(card),
+          peak_saved_share=saved,
+          time_ratio=out[True][1] / out[False][1])
+    check(out[True][0] < out[False][0],
+          f"remat did not lower Swin-B-384's peak memory: {out}")
+    _remat_grads_equal(trainer, batch, "swin_b384_gemini2")
+    shutil.rmtree(trainer.run_dir, ignore_errors=True)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4952,8 +5533,10 @@ def main() -> int:
     k8c_part_times(device, card)
 
     rest_launches = {}
+    index_1m_path(device, card)
     for path in (dinov2_sincos_path, salad_frozen_path, swin_t_train_path,
-                 cnn_train_path, parallel_path, convert_parity_path):
+                 cnn_train_path, parallel_path, convert_parity_path,
+                 train_disk_path):
         for k, v in path(device, card).items():
             rest_launches[k] = rest_launches.get(k, 0) + v
 
@@ -5046,7 +5629,37 @@ def main() -> int:
     return 0
 
 
+PHASES = {"index_1m": index_1m_path, "train_disk": train_disk_path}
+
+
+def run_phases(names: list) -> int:
+    """Build the kernels and run only the named phases of PHASES
+    (`python3 chip_smoke.py --phases index_1m,train_disk`); the last line
+    is `[phases] ok=True`."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from geovpr_torch.ops._build import load_library
+
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card)
+    t0 = time.perf_counter()
+    load_library()
+    phase("build", seconds=time.perf_counter() - t0)
+    for name in names:
+        t0 = time.perf_counter()
+        PHASES[name](device, card)
+        phase("phase_seconds", name=name, seconds=time.perf_counter() - t0)
+    phase("phases", ok=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phases"]:
+        sys.exit(run_phases(sys.argv[2].split(",")))
     if sys.argv[1:2] == ["--parallel-child"]:
         sys.exit(parallel_child(sys.argv[2]))
     if sys.argv[1:2] == ["--parallel-gloo"]:

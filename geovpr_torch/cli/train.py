@@ -6,7 +6,7 @@ flag for flag).
         --image-root images --save-dir runs \
         [--epochs N] [--batch-size B] [--seed S] \
         [--pretrained backbone.msgpack] [--resume DIR | --auto-resume DIR] \
-        [--profile] [--device cuda|cpu] \
+        [--profile] [--async-checkpoint] [--device cuda|cpu] \
         [--multihost [--coordinator HOST:PORT --num-processes N \
                       --process-id R]]
 
@@ -26,7 +26,9 @@ Trains the presets whose every kernel and module is ported:
   through K1;
 - DINOv2 + SALAD with its backbone frozen (`dinov2salad_frozen_mlp`): the
   descriptors extracted once through K1 (the frozen-feature cache), then
-  the head alone a step;
+  the head alone a step; with `model.freeze_backbone` unset (no preset
+  asks for it) the backbone trains through K8a and K8c and the SALAD head,
+  Sinkhorn included, under autograd;
 - EfficientNet-B0 (`efficientnet_direct_maae`, `efficientnet_sincos_gemini`)
   and ConvNeXt-B (`convnext_direct_maae`): cuDNN convolutions and cuBLAS
   products under autograd, as JAX trains them on XLA, no kernel of the
@@ -37,15 +39,18 @@ Trains the presets whose every kernel and module is ported:
   validation and `cli.evaluate --run-dir` / `cli.fuse --angle-run` read
   them. ConvNeXt's validation runs its bf16 serving forward (K3 only in
   the w8a8 scoring of `cli.evaluate --int8`).
-An unfrozen DINOv2 + SALAD raises NotImplementedError naming the ROADMAP
-item, and so do the config fields the port does not honour yet
-(`data.cache_decoded`, `model.remat`). Checkpoints are the port's
-own (`train.checkpoint`), in the JAX CLI's run-directory layout;
-`--pretrained` reads a flax msgpack of backbone variables (as
+`model.remat` recomputes each transformer block in the backward (the CNN
+families ignore it, as in JAX); `data.cache_decoded` ("ram" or a path
+prefix: `{prefix}.train.npy` and `{prefix}.val.npy` memmaps) caches the
+decoded images of each source (`CachedImageSource`); `data.decoder =
+"native"` decodes with the port's libjpeg decoder, built at first use
+(`geovpr_torch.data.decoder`; it raises where it cannot be built).
+Checkpoints are the port's own (`train.checkpoint`), in the JAX CLI's
+run-directory layout; `--async-checkpoint` writes them on a background
+thread. `--pretrained` reads a flax msgpack of backbone variables (as
 `python -m geovpr_torch.cli.convert` writes it from a torch, HF or hub
-checkpoint). `--device` defaults to cuda and fails
-when no card is present; pass `--device cpu` to run on the CPU.
-`--async-checkpoint` is refused.
+checkpoint). `--device` defaults to cuda and fails when no card is
+present; pass `--device cpu` to run on the CPU.
 
 `--multihost` runs one process per card, data parallel
 (`geovpr_torch.parallel`): each process initializes the process group
@@ -84,30 +89,34 @@ def run_train(cfg, train_source, val_source=None, *, save_dir: str = "runs",
               device="cuda", epochs: int = 0, batch_size: int = 0,
               seed: int = -1, pretrained: dict | None = None,
               resume: str = "", auto_resume: str = "",
-              profile: bool = False, mesh=None):
+              profile: bool = False, async_checkpoint: bool = False,
+              mesh=None):
     """Train preset `cfg` on in-memory or disk sources (targets as
     `targets`): the scaler fitted on the train targets (geopose), a
     seeded random init with `pretrained` laid over it, or the latest
     checkpoint of `resume` / `auto_resume`, data parallel over `mesh`
-    where one is given (every rank calls this). Returns the Trainer (its
-    `history`, `step_losses`, `run_dir`, `state`). Raises
-    NotImplementedError on `data.cache_decoded` and `model.remat`, which
-    the port does not honour yet."""
+    where one is given (every rank calls this), checkpoints written on a
+    background thread with `async_checkpoint`, the decoded images of a
+    decoding source cached as `data.cache_decoded` asks (`cached_source`,
+    as JAX's CLI wraps its sources, `geovpr/cli/train.py:118-124`).
+    Returns the Trainer (its `history`, `step_losses`, `run_dir`,
+    `state`)."""
     from geovpr_torch.cli.presets import objective_for
     from geovpr_torch.core.config import GeoposeConfig
+    from geovpr_torch.data.pipeline import cached_source
     from geovpr_torch.models.regression import RegressionModel
     from geovpr_torch.objectives.scaler import fit_scaler
     from geovpr_torch.train.loop import Trainer
 
-    if cfg.data.cache_decoded or cfg.model.remat:
-        raise NotImplementedError(
-            "data.cache_decoded (CachedImageSource) and model.remat (a "
-            "recompute per block) are not ported yet (ROADMAP Queue 1, "
-            "leftovers: CachedImageSource and remat); unset them")
     data = dataclasses.replace(
         cfg.data, **({"batch_size": batch_size} if batch_size else {}))
+    rank = "" if mesh is None else f".rank{mesh.rank}"
+    train_source = cached_source(train_source, data.cache_decoded,
+                                 f"train{rank}")
+    val_source = cached_source(val_source, data.cache_decoded, f"val{rank}")
     train_cfg = dataclasses.replace(
         cfg.train, save_dir=save_dir, profile=profile,
+        async_checkpoint=async_checkpoint or cfg.train.async_checkpoint,
         **({"epochs": epochs} if epochs else {}),
         **({"seed": seed} if seed >= 0 else {}))
     geo = isinstance(cfg, GeoposeConfig)
@@ -162,16 +171,14 @@ def main(argv=None):
                    help="torch.profiler trace of a few steps into "
                         "<run_dir>/profile")
     p.add_argument("--async-checkpoint", action="store_true",
-                   help="not ported: refused")
+                   help="write checkpoints on a background thread while "
+                        "training goes on")
     add_distributed_args(p)
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda (default) fails without a card")
     args = p.parse_args(argv)
     if args.resume and args.auto_resume:
         p.error("--resume and --auto-resume are mutually exclusive")
-    if args.async_checkpoint:
-        raise SystemExit("--async-checkpoint is not ported: the port writes "
-                         "its checkpoints synchronously (drop the flag)")
     mesh, device = start_mesh(args, args.device)
     _train(args, mesh, device)
     stop_mesh(mesh)
@@ -204,6 +211,7 @@ def _train(args, mesh, device) -> None:
         cfg, make_source(train_manifest), val_source, save_dir=args.save_dir,
         device=device, epochs=args.epochs, batch_size=args.batch_size,
         seed=args.seed, profile=args.profile,
+        async_checkpoint=args.async_checkpoint,
         pretrained=(load_pretrained_backbone(args.pretrained)
                     if args.pretrained else None),
         resume=args.resume, auto_resume=args.auto_resume, mesh=mesh)

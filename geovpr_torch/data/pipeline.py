@@ -1,7 +1,8 @@
-"""Input pipeline of the port: in-memory and disk sources, static-shape
-batching and host-to-device prefetch (the counterparts of
-`geovpr.data.pipeline`'s `ArraySource`, `ImageFolderSource`,
-`DualGeometrySource`, `iterate_batches` and `prefetch_to_device`).
+"""Input pipeline of the port: in-memory and disk sources, the decoded-image
+cache, static-shape batching and host-to-device prefetch (the counterparts
+of `geovpr.data.pipeline`'s `ArraySource`, `ImageFolderSource`,
+`DualGeometrySource`, `CachedImageSource`, `iterate_batches` and
+`prefetch_to_device`).
 
 The host code repeats the JAX package's so that the port runs where
 neither jax nor `geovpr` is installed; tests hold it to the originals.
@@ -35,11 +36,15 @@ class ArraySource:
 
 @dataclasses.dataclass
 class ImageFolderSource:
-    """Disk-backed source: decodes JPEG/PNG with PIL in a thread pool at
+    """Disk-backed source: decodes JPEG/PNG in a thread pool at
     batch-fetch time and resizes on the host (bilinear), as the original.
     An unreadable file becomes a black frame, the reference's fallback
-    (`geovpr/data/pipeline.py:72-79`). Only `decoder="pil"` exists here:
-    the native libjpeg decoder is not ported (ROADMAP)."""
+    (`geovpr/data/pipeline.py:72-79`). `decoder="pil"` decodes with PIL;
+    `decoder="native"` with the port's libjpeg batch decoder
+    (`geovpr_torch.data.decoder`), built when the source is made, which
+    raises `NativeDecoderUnavailable` where it cannot be built; a file
+    libjpeg rejects (a PNG, a corrupt JPEG) is decoded with PIL, as JAX's
+    source does."""
 
     paths: Sequence[str]
     targets: np.ndarray
@@ -52,11 +57,11 @@ class ImageFolderSource:
     resize_to: int = 0
 
     def __post_init__(self):
-        if self.decoder != "pil":
-            raise NotImplementedError(
-                f"decoder={self.decoder!r}: the port has only the PIL "
-                "decoder (the native libjpeg decoder is not ported yet, "
-                "ROADMAP)")
+        if self.decoder == "native":
+            from geovpr_torch.data.decoder import load_library
+            load_library()
+        elif self.decoder != "pil":
+            raise ValueError(f"decoder={self.decoder!r}: 'pil' or 'native'")
         self._pool = concurrent.futures.ThreadPoolExecutor(self.num_threads)
 
     def __len__(self):
@@ -88,8 +93,16 @@ class ImageFolderSource:
             return np.asarray(img, np.uint8)
 
     def get_batch(self, idx: np.ndarray) -> dict:
-        imgs = list(self._pool.map(self._decode,
-                                   [self.paths[i] for i in idx]))
+        paths = [self.paths[i] for i in idx]
+        if self.decoder == "native":
+            from geovpr_torch.data.decoder import decode_files
+            imgs, ok = decode_files(paths, self.image_size, self.image_size,
+                                    threads=self.num_threads,
+                                    resize_short=self.resize_to)
+            for j in np.flatnonzero(~ok):
+                imgs[j] = self._decode(paths[j])
+            return {"image": imgs, "target": self.targets[idx]}
+        imgs = list(self._pool.map(self._decode, paths))
         return {"image": np.stack(imgs), "target": self.targets[idx]}
 
 
@@ -150,6 +163,59 @@ class DualGeometrySource:
         return {"image": np.stack([p[0] for p in pairs]),
                 "image_alt": np.stack([p[1] for p in pairs]),
                 "target": self.targets[idx]}
+
+
+@dataclasses.dataclass
+class CachedImageSource:
+    """The decoded, resized uint8 images of an inner source, cached
+    (`geovpr/data/pipeline.py:180-220`): the first touch of a row decodes
+    it, every later epoch reads the cache, in RAM or (`cache_path`) in a
+    `.npy` memmap on disk for a dataset larger than memory. An all-black
+    frame, the decode-failure sentinel, stays uncached, so that a transient
+    read error is retried the next epoch rather than kept for good."""
+
+    inner: object
+    cache_path: str = ""   # "" keeps the cache in RAM
+
+    def __post_init__(self):
+        n = len(self.inner)
+        s = self.inner.image_size
+        shape = (n, s, s, 3)
+        if self.cache_path:
+            self._cache = np.lib.format.open_memmap(
+                self.cache_path, mode="w+", dtype=np.uint8, shape=shape)
+        else:
+            self._cache = np.zeros(shape, np.uint8)
+        self._have = np.zeros(n, bool)
+        self.filenames = getattr(self.inner, "filenames", None)
+        self.targets = self.inner.targets
+        self.image_size = s
+
+    def __len__(self):
+        return len(self.inner)
+
+    def get_batch(self, idx: np.ndarray) -> dict:
+        missing = np.unique(idx[~self._have[idx]])
+        if missing.size:
+            decoded = self.inner.get_batch(missing)
+            self._cache[missing] = decoded["image"]
+            ok = decoded["image"].reshape(len(missing), -1).any(axis=1)
+            self._have[missing] = ok
+        return {"image": self._cache[idx], "target": self.targets[idx]}
+
+
+def cached_source(source, cache: str, role: str):
+    """`source` behind a `CachedImageSource` as `data.cache_decoded` asks:
+    "" leaves it as it is, "ram" caches in memory, anything else is a path
+    prefix and the cache the memmap `{cache}.{role}.npy` (one file per
+    role: a train and a val cache in one file would truncate each other).
+    A source that decodes nothing (no `image_size`, as `ArraySource`) or is
+    cached already is left as it is."""
+    if (not cache or source is None or isinstance(source, CachedImageSource)
+            or not hasattr(source, "image_size")):
+        return source
+    return CachedImageSource(source, "" if cache == "ram"
+                             else f"{cache}.{role}.npy")
 
 
 def iterate_batches(source, batch_size: int, shuffle: bool = False,

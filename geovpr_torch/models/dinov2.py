@@ -27,6 +27,10 @@ keeps). A training build holds its parameters in f32 (`param_dtype`), as
 Swin's does; a serving build has `param_dtype = dtype`, so its casts are
 no-ops.
 
+`remat` recomputes each block's activations in the backward
+(`layers.remat_call`, JAX's `nn.remat` per block, `dinov2.py:467`): the
+block's K8a launches run once more in each training step.
+
 Not ported: resident padding (`geovpr/models/dinov2.py:437-480`), which
 pads the token stream to the TPU's 16-row sublane quantum across the block
 stack so that the per-layer pad/slice copies around the Mosaic kernel
@@ -42,7 +46,8 @@ from torch import nn
 
 from geovpr_torch.models.backbone import BackboneOutput
 from geovpr_torch.models.layers import (DropPath, LayerNorm, Mlp,
-                                        QuantBlock, lecun_normal_, normal_)
+                                        QuantBlock, lecun_normal_, normal_,
+                                        remat_call)
 from geovpr_torch.ops.mhsa import (fused_mhsa_block, fused_mhsa_block_int8,
                                    fused_mhsa_block_train,
                                    mhsa_attention_unfused,
@@ -183,9 +188,11 @@ class DinoV2(nn.Module):
                  dtype: torch.dtype = torch.float32, device=None,
                  int8_attn: bool = False, int8_mlp: bool = False,
                  drop_path_rate: float = 0.0,
-                 param_dtype: torch.dtype | None = None):
+                 param_dtype: torch.dtype | None = None,
+                 remat: bool = False):
         super().__init__()
         pdt = param_dtype or dtype
+        self.remat = remat
         self.hidden_size = hidden_size
         self.dtype = dtype
         self.patch_size = patch_size
@@ -216,7 +223,8 @@ class DinoV2(nn.Module):
         x = x.flatten(2).transpose(1, 2)                      # (B, h*w, D)
         x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1), x], dim=1)
         x = (x + self.pos_embed.to(dt)).contiguous()
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x)
+            x = remat_call(blk, x) if remat else blk(x)
         x = self.norm(x)
         return BackboneOutput(pooled=x[:, 0], tokens=x[:, 1:], cls=x[:, 0])

@@ -104,6 +104,43 @@ def set_rng(model: nn.Module, generator: torch.Generator | None,
             m.rows = rows
 
 
+def remat_call(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """`module(x)` with its activations recomputed in the backward instead
+    of kept (`torch.utils.checkpoint`, non-reentrant), as JAX's `nn.remat`
+    runs a block (`geovpr/models/dinov2.py:467`, `swin.py:878`). The
+    checkpoint restores only torch's default generators for the recompute;
+    the explicit generators `set_rng` gives the module's DropPath and
+    Dropout are set back to their state at the block's entry here, so the
+    recompute draws the masks (over the global batch's `rows` too) that
+    the forward drew, as `nn.remat` reuses the same key, and to their
+    state before it afterwards. The kernels' autograd Functions keep what
+    they save for the backward, so the recompute launches their forward
+    again."""
+    from torch.utils.checkpoint import checkpoint
+
+    gens = list({id(m.generator): m.generator for m in module.modules()
+                 if isinstance(m, (DropPath, Dropout))
+                 and m.generator is not None}.values())
+    entry = [g.get_state() for g in gens]
+    recompute = False
+
+    def run(x):
+        nonlocal recompute
+        if not recompute:
+            recompute = True
+            return module(x)
+        now = [g.get_state() for g in gens]
+        for g, state in zip(gens, entry):
+            g.set_state(state)
+        try:
+            return module(x)
+        finally:
+            for g, state in zip(gens, now):
+                g.set_state(state)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     """`layer(x)` in x's dtype: a layer held in f32 for training computes
     with its weight and bias cast to the compute dtype, as a flax Dense with

@@ -26,40 +26,22 @@ def check_int8_serving(cfg: ModelConfig) -> None:
             "(supported: swin, dinov2, dinov2_salad, convnext)")
 
 
-def check_training(cfg: ModelConfig) -> None:
-    """The one rule for whether the port trains `cfg`: Swin (window 12 on
-    the training kernels K9a-K9c, window 7 on JAX's XLA route), DINOv2 on
-    K8a-K8c, DINOv2 + SALAD with a frozen backbone (its serving forward,
-    K1, under no grad), and the CNNs on cuDNN and cuBLAS under autograd
-    (EfficientNet-B0 with BatchNorm in training mode, ConvNeXt), as JAX
-    trains them on XLA. NotImplementedError, naming the ROADMAP item, for
-    an unfrozen DINOv2 + SALAD."""
-    family = cfg.family
-    if family in ("dinov2", "swin", "efficientnet", "convnext"):
-        return
-    if family == "dinov2_salad":
-        if cfg.freeze_backbone:
-            return
-        raise NotImplementedError(
-            "training dinov2_salad with its backbone unfrozen is not ported "
-            "yet (ROADMAP Queue 1, leftovers: unfrozen DINOv2 + SALAD "
-            "training, SALAD's Sinkhorn under autograd); set "
-            "model.freeze_backbone")
-    raise ValueError(f"unknown model family {family!r}")
-
-
 def build_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32, *,
                    int8: bool = False, device=None, train: bool = False):
     """`int8` builds the w8a8 serving model (to be calibrated before use),
     where `check_int8_serving` allows it and raises otherwise. `train`
     builds the training model, parameters held in f32 and cast to `dtype`
-    in the forward, where `check_training` allows it and raises
-    otherwise."""
+    in the forward: Swin (window 12 on the training kernels K9a-K9c,
+    window 7 on JAX's XLA route), DINOv2 on K8a-K8c, DINOv2 + SALAD
+    (frozen: its serving forward, K1, under no grad; unfrozen: its
+    backbone on K8a-K8c and the head under autograd) and the CNNs on
+    cuDNN and cuBLAS under autograd, as JAX trains them on XLA; an unknown
+    family is a ValueError. `cfg.remat` recomputes each block in the
+    backward for the transformer families; the CNN families take none, as
+    in JAX (`geovpr/models/registry.py:27-31`, `:64-69`)."""
     family = cfg.family
     if int8:
         check_int8_serving(cfg)
-    if train:
-        check_training(cfg)
     kw = dict(dtype=dtype, device=device, int8_attn=int8, int8_mlp=int8)
     pdt = torch.float32 if train else None
     if family == "efficientnet":
@@ -85,14 +67,15 @@ def build_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32, *,
                 f"image_size={cfg.image_size}")
         if train:   # JAX's SwinTransformer default (`swin.py:843`)
             spec = {"drop_path_rate": 0.1, **spec}
-        return SwinTransformer(**spec, **kw, param_dtype=pdt)
+        return SwinTransformer(**spec, **kw, param_dtype=pdt,
+                               remat=cfg.remat)
     if family == "dinov2":
         from geovpr_torch.models.dinov2 import DINOV2_VARIANTS, DinoV2
         if cfg.variant not in DINOV2_VARIANTS:
             raise ValueError(f"unknown dinov2 variant {cfg.variant!r}")
         return DinoV2(**DINOV2_VARIANTS[cfg.variant],
                       image_size=cfg.image_size or 224, **kw,
-                      param_dtype=pdt)
+                      param_dtype=pdt, remat=cfg.remat)
     if family == "dinov2_salad":
         from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
         from geovpr_torch.models.salad import DinoV2Salad
@@ -100,5 +83,5 @@ def build_backbone(cfg: ModelConfig, dtype: torch.dtype = torch.float32, *,
             raise ValueError(f"unknown dinov2_salad variant {cfg.variant!r}")
         return DinoV2Salad(variant=cfg.variant,
                            image_size=cfg.image_size or 224, **kw,
-                           param_dtype=pdt)
+                           param_dtype=pdt, remat=cfg.remat)
     raise ValueError(f"unknown model family {family!r}")

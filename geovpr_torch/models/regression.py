@@ -8,8 +8,8 @@ mean over the full last hidden state (CLS included for ViTs), "cls" the CLS
 token; the SALAD descriptor is always the feature of `dinov2_salad`.
 Submodules are `backbone` and `head`, as in the flax tree. The head holds
 f32 weights and emits f32. `train=True` builds the training model
-(`registry.check_training`): the backbone's parameters in f32, cast to
-the compute dtype in the forward.
+(`registry.build_backbone(train=True)`): the backbone's parameters in
+f32, cast to the compute dtype in the forward.
 
 `freeze_backbone` (the frozen-descriptor path,
 `geovpr/train/model.py:58-64`) runs the backbone under `torch.no_grad()`,

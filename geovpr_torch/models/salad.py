@@ -12,9 +12,14 @@ one static activation scale `a_tokens_scale`, and run as exact int8 x int8
 products through `torch._int_mm`, as JAX runs them as an XLA dot outside any
 kernel; the fc2s, the CLS path and Sinkhorn stay in the compute dtype / f32.
 
-A training build (`param_dtype` f32, the frozen-backbone presets) holds
-the Dense layers in f32 and casts them to the compute dtype per call, as
-the other families' training builds do.
+A training build (`param_dtype` f32) holds the Dense layers in f32 and
+casts them to the compute dtype per call, as the other families' training
+builds do. With the backbone frozen it runs under no grad (the serving
+forward, K1); unfrozen, the backbone trains as a `dinov2` backbone does
+(K8a forward, K8c backward a block; with `remat` each block recomputed, as
+JAX's `DinoV2Salad(remat=)` remats its backbone's blocks) and the head,
+Sinkhorn included, runs under autograd in the dtypes JAX gives it: the
+Dense layers in the compute dtype, the assignment and aggregation in f32.
 """
 
 from __future__ import annotations
@@ -131,16 +136,19 @@ class DinoV2Salad(nn.Module):
                  use_kernels: bool = True,
                  dtype: torch.dtype = torch.float32, device=None,
                  int8_attn: bool = False, int8_mlp: bool = False,
-                 param_dtype: torch.dtype | None = None):
+                 param_dtype: torch.dtype | None = None,
+                 remat: bool = False):
         super().__init__()
         cfg = DINOV2_VARIANTS[variant]
+        self.dtype = dtype
         self.num_clusters = num_clusters
         self.cluster_dim = cluster_dim
         self.token_dim = token_dim
         self.backbone = DinoV2(**cfg, image_size=image_size,
                                use_kernels=use_kernels, dtype=dtype,
                                device=device, int8_attn=int8_attn,
-                               int8_mlp=int8_mlp, param_dtype=param_dtype)
+                               int8_mlp=int8_mlp, param_dtype=param_dtype,
+                               remat=remat)
         self.salad = SaladHead(cfg["hidden_size"], num_clusters, cluster_dim,
                                token_dim, sinkhorn_iters=sinkhorn_iters,
                                dtype=dtype, device=device, int8=int8_mlp,

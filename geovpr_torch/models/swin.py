@@ -46,7 +46,10 @@ K9b backward), y = proj(W-MSA(LN(x))) with the residual and DropPath added
 outside, as JAX's train path does (`swin.py:554-558`); the MLP half and
 the LayerNorms are torch ops under autograd, and the stage boundaries run
 the plain PatchMerging (JAX trains on XLA's LN + Dense there; K6 is
-forward only). DropPath rates rise linearly from 0 to `drop_path_rate`
+forward only). `remat` recomputes each block's activations in the
+backward (`layers.remat_call`, JAX's `nn.remat` on `SwinBlock`,
+`swin.py:878`; not the boundaries), so K9a runs once more a block a step.
+DropPath rates rise linearly from 0 to `drop_path_rate`
 over the blocks (`swin.py:875`); the training build passes JAX's 0.1
 (`swin.py:843`), a serving build has none. A training build holds its
 parameters in `param_dtype` (f32) and casts them to the compute dtype in
@@ -73,7 +76,7 @@ from torch import nn
 
 from geovpr_torch.models.backbone import BackboneOutput
 from geovpr_torch.models.layers import (DropPath, LayerNorm, Mlp, QuantBlock,
-                                        lecun_normal_)
+                                        lecun_normal_, remat_call)
 from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
                                        mlp_block_int8_reference)
 from geovpr_torch.ops.patch_merge import (fused_patch_merge,
@@ -249,9 +252,11 @@ class SwinTransformer(nn.Module):
                  dtype: torch.dtype = torch.float32, device=None,
                  int8_attn: bool = False, int8_mlp: bool = False,
                  drop_path_rate: float = 0.0,
-                 param_dtype: torch.dtype | None = None):
+                 param_dtype: torch.dtype | None = None,
+                 remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         pdt = param_dtype or dtype
         res = image_size // patch_size
         if res % window_size:
@@ -298,7 +303,10 @@ class SwinTransformer(nn.Module):
         x = F.conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt),
                      conv.bias.to(dt), stride=self.patch_size)
         x = self.embed_norm(x.flatten(2).transpose(1, 2).contiguous())
+        remat = self.remat and torch.is_grad_enabled()
         for name in self.layers:
-            x = getattr(self, name)(x)
+            layer = getattr(self, name)
+            x = (remat_call(layer, x) if remat and isinstance(layer, SwinBlock)
+                 else layer(x))
         tokens = self.norm(x).float()
         return BackboneOutput(pooled=tokens.mean(dim=1), tokens=tokens)

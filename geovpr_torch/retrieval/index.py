@@ -12,17 +12,32 @@
   as the JAX package keeps them outside any kernel;
 - queries are processed in `query_chunk`-row blocks so one (chunk, rows)
   score plane is live at a time;
+- `db_block` > 0 splits the rows too (`chunk_topk`,
+  `geovpr/retrieval/index.py:65-149`): each block of rows offers its top
+  min(k, block) candidates, a row count off the multiple of the block
+  leaves one narrow tail block, and one merge over the candidate strip
+  orders them by score and, among exact ties, by the lower row, as
+  `lax.top_k` does, so one (chunk, block) plane is live at a time and the
+  result is the single-shot one. A row block is a view here, so the rows
+  are not padded to a multiple of the block, as JAX pads them for XLA's
+  reshape (`:318-329`);
 - padded database rows (an index installed with `n_real` < rows) are masked
   to -inf in the plane, before any top-k. The int8 index pads its rows to a
   multiple of 8, as `torch._int_mm` needs on CUDA (which also needs more
-  than 16 query rows: `geovpr_torch.ops.quant.int_mm` pads those).
+  than 16 query rows: `geovpr_torch.ops.quant.int_mm` pads those), so an
+  int8 `db_block` is rounded up to a multiple of 8 as well;
+- `build_chunked` fills a destination preallocated at its padded size on
+  the device chunk by chunk, quantizing or casting each chunk there, so
+  the peak is the final index and one full-precision chunk (a 1M x 8448
+  f32 gallery is 33.8 GB; its int8 index is 8.45 GB).
 
 With a mesh (`geovpr_torch.parallel`) the rows are sharded over its data
 axis and a search merges every shard's top-k by an `all_gather` (the
 counterpart of JAX's `shard_map` search). There is no approximate top-k
 (`topk_method="approx"` in JAX): torch has no counterpart of
-`jax.lax.approx_max_k`, the search is always exact, and on the CPU JAX
-lowers it to the exact top-k as well (ROADMAP Queue 3).
+`jax.lax.approx_max_k`, the field is accepted and the search is always
+exact, and on the CPU JAX lowers it to the exact top-k as well (ROADMAP
+Queue 3).
 """
 
 from __future__ import annotations
@@ -40,6 +55,8 @@ from geovpr_torch.parallel.mesh import (Mesh, all_gather_cat, barrier,
 from geovpr_torch.ops.quant import int_mm, round_clip_int8
 
 _ROW_QUANTUM = 8   # int8 gallery rows are padded to a multiple of this
+# rows `build_chunked` quantizes or casts at a time
+CAST_ROWS = 8192
 
 
 def _as_tensor(x, device=None) -> torch.Tensor:
@@ -90,12 +107,23 @@ def recall_at_k_radius(retrieved_idx, query_latlon, gallery_latlon,
     return hits.float().mean()
 
 
+def _ordered_topk(scores: torch.Tensor, idx: torch.Tensor, k: int):
+    """The top k of candidate (scores, rows) strips (Q, C), ordered by
+    score and, among exact ties, by the lower row, as `lax.top_k` orders
+    them (`torch.topk` on CUDA leaves ties in no set order)."""
+    by_row = torch.argsort(idx, dim=1)
+    scores = torch.gather(scores, 1, by_row)
+    idx = torch.gather(idx, 1, by_row)
+    scores, pos = torch.sort(scores, dim=1, descending=True, stable=True)
+    return scores[:, :k], torch.gather(idx, 1, pos[:, :k])
+
+
 @dataclasses.dataclass
 class DescriptorIndex:
-    """On-device descriptor database. Build once with `.build(descriptors)`;
-    query with `.search(queries, k)`. With a `mesh` the rows are sharded
-    over its `axis`: every rank builds from the same whole rows and keeps
-    its shard."""
+    """On-device descriptor database. Build once with `.build(descriptors)`
+    or `.build_chunked(chunks, total)`; query with `.search(queries, k)`.
+    With a `mesh` the rows are sharded over its `axis`: every rank builds
+    from the same whole rows and keeps its shard."""
 
     dim: int
     dtype: torch.dtype = torch.bfloat16
@@ -105,6 +133,12 @@ class DescriptorIndex:
     axis: str = "data"
     # query rows per score plane; 0 disables chunking
     query_chunk: int = 1024
+    # database rows per score plane (the blocked two-stage top-k); 0 is
+    # single-shot
+    db_block: int = 0
+    # JAX's "exact" or "approx" (`lax.approx_max_k`): accepted, and the
+    # search is always exact here (module docstring)
+    topk_method: str = "exact"
     _db: Optional[torch.Tensor] = None
     _db_scale: Optional[torch.Tensor] = None
     _n: int = 0
@@ -130,26 +164,80 @@ class DescriptorIndex:
             self._install(x.to(self.dtype))
         return self
 
+    def build_chunked(self, chunks, total: int,
+                      normalized: bool = True) -> "DescriptorIndex":
+        """Build from an iterable of row chunks (tensors or arrays) that
+        together carry `total` rows, without ever holding them all at full
+        precision (`geovpr/retrieval/index.py:222-316`): the destination
+        (this rank's shard under a mesh) is preallocated at its padded
+        size on the device and each chunk is moved there, quantized or
+        cast in slices of `CAST_ROWS` rows and written in place. The peak
+        is the final index, one chunk and one slice's temporaries.
+        ValueError when the chunks carry more or fewer rows than
+        `total`."""
+        shard, self._offset = self._layout(total)
+        lo, hi = self._offset, self._offset + shard
+        dst = torch.zeros((shard, self.dim), dtype=torch.int8
+                          if self.quantize else self.dtype,
+                          device=self.device)
+        dst_scale = (torch.ones(shard, device=self.device)
+                     if self.quantize else None)
+        off = 0
+        for c in chunks:
+            n_c = c.shape[0]
+            if off + n_c > total:
+                raise ValueError(f"chunks exceed total={total}")
+            # the chunk's rows that fall in [lo, hi), sliced before the move
+            a, b = max(off, lo), min(off + n_c, hi)
+            if a < b:
+                c = _as_tensor(c)[a - off:b - off]
+                for s in range(0, b - a, CAST_ROWS):
+                    x = c[s:s + CAST_ROWS].to(self.device).float()
+                    if not normalized:
+                        x = normalize_l2(x)
+                    rows = slice(a - lo + s, a - lo + s + x.shape[0])
+                    if self.quantize:
+                        dst[rows], dst_scale[rows] = quantize_rows(x)
+                    else:
+                        dst[rows] = x.to(self.dtype)
+                    del x
+            del c
+            off += n_c
+        if off != total:
+            raise ValueError(f"chunks carried {off} rows, expected "
+                             f"total={total}")
+        self._n = total
+        self._db, self._db_scale = dst, dst_scale
+        return self
+
+    def _layout(self, n: int) -> tuple:
+        """(rows a shard holds, this rank's first global row) of an n-row
+        index: padded with zero rows (scale 1) to a multiple of the shards
+        (`_rows_multiple` of `geovpr/retrieval/index.py:318-329`), each
+        shard's int8 rows to a multiple of 8, as `torch._int_mm` needs on
+        CUDA."""
+        shards = 1 if self.mesh is None else self.mesh.axis_size(self.axis)
+        shard = -(-n // shards)
+        if self.quantize:
+            shard = -(-shard // _ROW_QUANTUM) * _ROW_QUANTUM
+        offset = 0 if self.mesh is None else \
+            self.mesh.index(self.axis) * shard
+        return shard, offset
+
     def _install(self, rows: torch.Tensor, scale=None,
                  n_real: Optional[int] = None):
-        """Place (already cast or quantized) rows, and the int8 rows'
-        scales, on the device: padded with zero rows (scale 1) to a
-        multiple of the shards (`_rows_multiple` of `geovpr/retrieval/
-        index.py:318-329`), each shard's int8 rows to a multiple of 8, as
-        `torch._int_mm` needs on CUDA, and this rank's shard kept. Rows
-        past `n_real` are padding and never appear in a search result."""
+        """Place (already cast or quantized) whole rows, and the int8
+        rows' scales, on the device, padded as `_layout` says, and keep
+        this rank's shard. Rows past `n_real` are padding and never appear
+        in a search result."""
         self._n = int(n_real if n_real is not None else rows.shape[0])
+        shard, self._offset = self._layout(rows.shape[0])
         shards = 1 if self.mesh is None else self.mesh.axis_size(self.axis)
-        shard = -(-rows.shape[0] // shards)
-        if scale is not None:
-            shard = -(-shard // _ROW_QUANTUM) * _ROW_QUANTUM
         pad = shard * shards - rows.shape[0]
         if pad:
             rows = torch.cat([rows, rows.new_zeros(pad, rows.shape[1])])
             if scale is not None:
                 scale = torch.cat([scale, scale.new_ones(pad)])
-        self._offset = 0 if self.mesh is None else \
-            self.mesh.index(self.axis) * shard
         keep = slice(self._offset, self._offset + shard)
         self._db = rows[keep].to(self.device).contiguous()
         self._db_scale = None if scale is None else \
@@ -159,34 +247,59 @@ class DescriptorIndex:
     def size(self) -> int:
         return self._n
 
-    def _chunk_topk(self, q: torch.Tensor, k: int):
+    def _block(self) -> int:
+        """Rows per score plane: `db_block` (an int8 one rounded up to a
+        multiple of 8), or every row of the shard."""
+        rows, block = self._db.shape[0], self.db_block
+        if not block or rows <= block:
+            return rows
         if self._db_scale is not None:
-            q8, q_scale = quantize_rows(q)
-            plane = (int_mm(q8, self._db.T).float() * q_scale[:, None]
-                     * self._db_scale[None, :])
+            block = -(-block // _ROW_QUANTUM) * _ROW_QUANTUM
+        return block
+
+    def _plane(self, q, q_scale, start: int, stop: int) -> torch.Tensor:
+        """The (Q, stop - start) score plane of shard rows [start, stop),
+        padded rows (global row >= n_real) at -inf: masked after the
+        top-k, a padded zero score could push a real negative-cosine
+        candidate out of the k."""
+        db = self._db[start:stop]
+        if q_scale is not None:
+            plane = int_mm(q, db.T).float()
+            plane.mul_(q_scale[:, None]).mul_(
+                self._db_scale[None, start:stop])
         else:
-            plane = torch.matmul(q.float(), self._db.float().T)
-        if self._offset + self._db.shape[0] > self._n:
-            # padded rows (global row >= n_real) leave the PLANE, before
-            # the local top-k: masked after it, a padded zero score could
-            # push a real negative-cosine candidate out of this shard's k
-            col = torch.arange(plane.shape[1], device=plane.device)
-            plane = plane.masked_fill(col + self._offset >= self._n,
-                                      float("-inf"))
-        return torch.topk(plane, k, dim=1)
+            plane = torch.matmul(q, db.float().T)
+        first_pad = self._n - self._offset - start
+        if first_pad < plane.shape[1]:
+            plane[:, max(first_pad, 0):] = float("-inf")
+        return plane
+
+    def _chunk_topk(self, q: torch.Tensor, k: int):
+        """Top-k (scores, shard rows) of one query chunk: single-shot, or
+        block by block with one ordered merge of the candidates."""
+        q_scale = None
+        if self._db_scale is not None:
+            q, q_scale = quantize_rows(q)
+        else:
+            q = q.float()
+        rows, block = self._db.shape[0], self._block()
+        if block == rows:
+            return torch.topk(self._plane(q, q_scale, 0, rows), k, dim=1)
+        cand_s, cand_i = [], []
+        for start in range(0, rows, block):
+            stop = min(start + block, rows)
+            s, i = torch.topk(self._plane(q, q_scale, start, stop),
+                              min(k, stop - start), dim=1)
+            cand_s.append(s)
+            cand_i.append(i + start)
+        return _ordered_topk(torch.cat(cand_s, 1), torch.cat(cand_i, 1), k)
 
     def _merge(self, scores: torch.Tensor, idx: torch.Tensor, k: int):
         """The global top-k of every shard's candidates (`geovpr/retrieval/
         index.py:507-531`): the (Q, local_k) scores and global rows
-        gathered over the axis, ordered by score and, among exact ties,
-        by the lower global row, as `lax.top_k` orders them."""
-        scores = all_gather_cat(scores, self.mesh, self.axis, 1)
-        idx = all_gather_cat(idx, self.mesh, self.axis, 1)
-        by_row = torch.argsort(idx, dim=1)
-        scores = torch.gather(scores, 1, by_row)
-        idx = torch.gather(idx, 1, by_row)
-        scores, pos = torch.sort(scores, dim=1, descending=True, stable=True)
-        return scores[:, :k], torch.gather(idx, 1, pos[:, :k])
+        gathered over the axis, ordered as `_ordered_topk` orders them."""
+        return _ordered_topk(all_gather_cat(scores, self.mesh, self.axis, 1),
+                             all_gather_cat(idx, self.mesh, self.axis, 1), k)
 
     def search(self, queries, k: int):
         """Returns (scores (Q, k) f32, indices (Q, k) int64) of cosine top-k

@@ -11,7 +11,14 @@ package's directory contract.
   `bad_epochs`, `plateau_bad`, `best`, `best_epoch`, or the val metrics);
 - writes are atomic: the directory is written under a temporary name and
   renamed into place;
-- `latest_checkpoint` finds the newest `checkpoint_{epoch}`;
+- `latest_checkpoint` finds the newest `checkpoint_{epoch}` (a directory
+  still being written has its temporary name, so it is never found);
+- asynchronous saves (`async_save`, `geovpr/train/checkpoint.py:44-96`):
+  the state is copied to the host at once (a copy of every tensor, so that
+  the in-place optimizer steps that follow cannot reach what is written)
+  and written on one background thread while training goes on; a new save
+  first waits for the one in flight, and `wait_for_saves` waits for the
+  last (and raises what a write raised);
 - `load_run_checkpoint` reads the parameters (with the running
   statistics) and the scaler of a run
   directory's `best`, `latest` or named checkpoint, as
@@ -20,7 +27,8 @@ package's directory contract.
 
 Under a mesh (`geovpr/train/checkpoint.py:99-132`) whole tensors go on
 disk: every rank calls `save_checkpoint`, the tensor-parallel moments are
-gathered whole, rank 0 writes and the others wait at a barrier. Every rank
+gathered whole, rank 0 writes (or, asynchronously, hands the write to its
+thread) and the others wait at a barrier. Every rank
 restores, and the optimizer keeps its part of each split moment, so a run
 saved on one mesh resumes on another (`(4,)` on `(2, 2)` or on one
 process), as JAX restores into the template's shardings.
@@ -30,10 +38,11 @@ Reading the JAX package's orbax run directories is not ported (ROADMAP).
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import shutil
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -42,36 +51,65 @@ from geovpr_torch.parallel.mesh import barrier, is_writer
 from geovpr_torch.train.state import TrainState
 
 
-def _cpu(tree):
+def _cpu(tree, copy: bool = False):
+    """The tensors of `tree` on the host; `copy` copies a host tensor too
+    (a CUDA tensor's `.cpu()` is a copy already)."""
     if isinstance(tree, dict):
-        return {k: _cpu(v) for k, v in tree.items()}
+        return {k: _cpu(v, copy) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
+        return tree.detach().to("cpu", copy=copy)
     return tree
 
 
+_WRITER: Optional[concurrent.futures.ThreadPoolExecutor] = None
+_IN_FLIGHT: Optional[concurrent.futures.Future] = None
+
+
+def wait_for_saves() -> None:
+    """Block until the asynchronous write in flight, if any, has landed;
+    re-raise what it raised."""
+    global _IN_FLIGHT
+    pending, _IN_FLIGHT = _IN_FLIGHT, None
+    if pending is not None:
+        pending.result()
+
+
 def save_checkpoint(path: str, state: TrainState, epoch: int,
-                    metrics: Optional[dict] = None, mesh=None) -> None:
+                    metrics: Optional[dict] = None, mesh=None,
+                    async_save: bool = False,
+                    on_saved: Optional[Callable[[], None]] = None) -> None:
     """Write `state` atomically to the directory `path` (with a mesh: on
-    every rank, rank 0 writing)."""
-    opt = _cpu(state.opt.state_dict())       # gathers split moments
+    every rank, rank 0 writing). With `async_save` the host copy is taken
+    here and the write runs on the background thread. `on_saved` runs
+    once the directory is in place (on that thread for an asynchronous
+    save), where rank 0 writes."""
+    global _IN_FLIGHT, _WRITER
+    opt = _cpu(state.opt.state_dict(), async_save)   # gathers split moments
     if is_writer(mesh):
-        _write(path, state, epoch, metrics, opt)
+        payload = {"step": state.step, "epoch": epoch, "seed": state.seed,
+                   "params": _cpu(state.model.state_dict(), async_save),
+                   "opt": opt,
+                   "scaler": {"mean": _cpu(state.scaler.mean, async_save),
+                              "scale": _cpu(state.scaler.scale, async_save)}}
+        if async_save:
+            wait_for_saves()
+            if _WRITER is None:
+                _WRITER = concurrent.futures.ThreadPoolExecutor(
+                    1, thread_name_prefix="checkpoint")
+            _IN_FLIGHT = _WRITER.submit(_write, path, payload, epoch,
+                                        metrics, on_saved)
+        else:
+            _write(path, payload, epoch, metrics, on_saved)
     barrier(mesh)
 
 
-def _write(path: str, state: TrainState, epoch: int,
-           metrics: Optional[dict], opt: dict) -> None:
+def _write(path: str, payload: dict, epoch: int, metrics: Optional[dict],
+           on_saved: Optional[Callable[[], None]]) -> None:
     path = os.path.abspath(path)
     tmp = f"{path}.tmp-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save({"step": state.step, "epoch": epoch, "seed": state.seed,
-                "params": _cpu(state.model.state_dict()),
-                "opt": opt,
-                "scaler": {"mean": state.scaler.mean.cpu(),
-                           "scale": state.scaler.scale.cpu()}},
-               os.path.join(tmp, "state.pt"))
+    torch.save(payload, os.path.join(tmp, "state.pt"))
     with open(os.path.join(tmp, "run_metrics.json"), "w") as f:
         json.dump({"epoch": epoch, **{k: float(v) for k, v in
                                       (metrics or {}).items()}}, f)
@@ -80,6 +118,8 @@ def _write(path: str, state: TrainState, epoch: int,
         os.replace(path, old)
     os.replace(tmp, path)
     shutil.rmtree(old, ignore_errors=True)
+    if on_saved is not None:
+        on_saved()
 
 
 def restore_checkpoint(path: str, state: TrainState) -> tuple:

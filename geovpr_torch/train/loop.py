@@ -35,8 +35,10 @@ the sharded source and gathered. Plateau and early stop read the reduced
 numbers, so every rank decides alike; rank 0 writes `metrics.jsonl`, the
 checkpoints and the profile, and every rank restores.
 
-Not ported: asynchronous checkpoints and `remat` (ROADMAP Queue 1
-leftovers).
+With `async_checkpoint` (`geovpr/train/loop.py:310-334`) each checkpoint
+is copied to the host at the save and written on a background thread
+while the next epoch trains; pruning runs once the new checkpoint is in
+place, and `fit` waits for every write before it returns.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ from geovpr_torch.serve.eval import (add_sums, eval_sums, reduce_sums,
 from geovpr_torch.train.checkpoint import (checkpoint_epoch,
                                            latest_checkpoint,
                                            restore_checkpoint,
-                                           save_checkpoint)
+                                           save_checkpoint, wait_for_saves)
 from geovpr_torch.train.state import (TrainState, build_optimizer,
                                       create_train_state)
 from geovpr_torch.train.steps import make_eval_step, make_train_step
@@ -91,11 +93,6 @@ class Trainer:
     step_losses: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
-        if self.train_cfg.async_checkpoint:
-            raise NotImplementedError(
-                "asynchronous checkpoints are not ported (ROADMAP Queue 1, "
-                "leftovers: asynchronous checkpoints); checkpoints are "
-                "written synchronously")
         if not self.run_dir:
             stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
             name = self.train_cfg.run_name or "run"
@@ -296,7 +293,8 @@ class Trainer:
                 if monitored < best:
                     best, best_epoch, bad_epochs = monitored, epoch, 0
                     save_checkpoint(os.path.join(self.run_dir, "best"),
-                                    self.state, epoch, val, self.mesh)
+                                    self.state, epoch, val, self.mesh,
+                                    async_save=cfg.async_checkpoint)
                 else:
                     bad_epochs += 1
 
@@ -308,9 +306,8 @@ class Trainer:
                     metrics={"bad_epochs": bad_epochs,
                              "plateau_bad": plateau_bad,
                              "best": best, "best_epoch": best_epoch},
-                    mesh=self.mesh)
-                if is_writer(self.mesh):
-                    self._prune_checkpoints()
+                    mesh=self.mesh, async_save=cfg.async_checkpoint,
+                    on_saved=self._prune_checkpoints)
 
             self.history.append(record)
             if is_writer(self.mesh):
@@ -320,6 +317,7 @@ class Trainer:
             if (cfg.early_stop_patience
                     and bad_epochs >= cfg.early_stop_patience):
                 break
+        wait_for_saves()
         barrier(self.mesh)
         self.history_summary = {"best": best, "best_epoch": best_epoch}
         return self.history

@@ -1,5 +1,6 @@
 """The port's copies of the JAX package's host data code — `Manifest` /
-`load_manifest` and the PIL `ImageFolderSource` — held to the originals:
+`load_manifest` and `ImageFolderSource` (PIL and native) — held to the
+originals:
 the same manifest from the same CSV, the same uint8 pixels from the same
 JPEG and PNG files (an unreadable file included)."""
 
@@ -68,7 +69,20 @@ def test_image_folder_source_matches_jax(image_dir, resize_to):
     assert not got["image"][m.filenames.index("broken.jpg")].any()
 
 
-def test_image_folder_source_refuses_the_native_decoder(image_dir):
-    with pytest.raises(NotImplementedError, match="native"):
-        ImageFolderSource(paths=[], targets=np.zeros((0, 2), np.float32),
-                          decoder="native")
+@pytest.mark.parametrize("resize_to", [0, 36])
+def test_image_folder_source_refuses_the_native_decoder(image_dir,
+                                                        resize_to):
+    """`decoder="native"`, once refused, decodes: the JPEGs with the port's
+    libjpeg decoder, the PNGs and the unreadable file through the PIL
+    fallback, the same pixels as JAX's `ImageFolderSource(decoder=
+    "native")` (tests/test_torch_data_cache_decoder.py holds the decoders
+    themselves equal)."""
+    m = load_manifest(os.path.join(image_dir, "labels.csv"), image_dir)
+    kw = dict(paths=m.paths(), targets=np.asarray(m.latlon, np.float32),
+              image_size=24, resize_to=resize_to, filenames=m.filenames,
+              decoder="native", num_threads=2)
+    idx = np.arange(len(m))
+    want = JSource(**kw).get_batch(idx)
+    got = ImageFolderSource(**kw).get_batch(idx)
+    np.testing.assert_array_equal(got["image"], want["image"])
+    assert not got["image"][m.filenames.index("broken.jpg")].any()

@@ -18,7 +18,7 @@ taken (2 lr each); the key bias, whose gradient is roundoff in both
 packages, only within its bounded update. Also: the DropPath route of a
 training block (a rate above 0) against JAX's XLA route, the weight bridge
 of an f32 DINOv2 training tree, `--pretrained` on a DINOv2 backbone, and
-the `check_training` gates.
+the families `build_backbone(train=True)` builds.
 """
 
 import dataclasses
@@ -44,7 +44,7 @@ from geovpr_torch.core.config import ModelConfig
 from geovpr_torch.models import dinov2 as tdino
 from geovpr_torch.models.convert_jax import state_dict_from_flax
 from geovpr_torch.models.regression import RegressionModel
-from geovpr_torch.models.registry import check_training
+from geovpr_torch.models.registry import build_backbone
 from geovpr_torch.objectives.scaler import identity_scaler, scaler_from_arrays
 from geovpr_torch.train.state import TrainState, build_optimizer
 from geovpr_torch.train.steps import make_train_step
@@ -294,20 +294,19 @@ def test_pretrained_dinov2_backbone_overlay(tmp_path):
 
 def test_check_training_gates():
     """DINOv2, Swin at either window, DINOv2 + SALAD with its backbone
-    frozen, and the CNNs (EfficientNet-B0, ConvNeXt) train; an unfrozen
-    DINOv2 + SALAD is refused naming ROADMAP Queue 1's leftover; an
-    unknown family is an error."""
-    check_training(ModelConfig(family="dinov2", variant="large-14"))
-    check_training(ModelConfig(family="swin", variant="base-384"))
-    check_training(ModelConfig(family="swin", variant="tiny-224"))
-    check_training(ModelConfig(family="dinov2_salad", variant="base-14",
-                               freeze_backbone=True))
-    for family, variant in (("efficientnet", "b0"),
-                            ("convnext", "base-224")):
-        check_training(ModelConfig(family=family, variant=variant))
-    with pytest.raises(NotImplementedError,
-                       match="leftovers: unfrozen DINOv2 \\+ SALAD training"):
-        check_training(ModelConfig(family="dinov2_salad",
-                                   variant="base-14"))
+    frozen or unfrozen (tests/test_torch_salad_train.py), and the CNNs
+    (EfficientNet-B0, ConvNeXt) build for training, their parameters in
+    f32 whatever the compute dtype; an unknown family is an error."""
+    for family, variant, frozen in (
+            ("dinov2", "large-14", False), ("swin", "base-384", False),
+            ("swin", "tiny-224", False), ("dinov2_salad", "base-14", True),
+            ("dinov2_salad", "base-14", False), ("efficientnet", "b0", False),
+            ("convnext", "base-224", False)):
+        model = build_backbone(
+            ModelConfig(family=family, variant=variant,
+                        freeze_backbone=frozen),
+            torch.bfloat16, device="meta", train=True)
+        assert {p.dtype for p in model.parameters()} == {torch.float32}
     with pytest.raises(ValueError, match="unknown model family"):
-        check_training(ModelConfig(family="resnet", variant="50"))
+        build_backbone(ModelConfig(family="resnet", variant="50"),
+                       device="meta", train=True)

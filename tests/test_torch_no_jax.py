@@ -616,10 +616,74 @@ def test_convert_and_parity_cli_run_without_jax_or_geovpr():
     assert proc.stdout.strip().splitlines()[-1] == "OK"
 
 
+_TRAIN_ASYNC_CACHED_NATIVE = """
+import sys
+for name in {block!r}:
+    sys.modules[name] = None
+import dataclasses, json, os, tempfile
+import numpy as np
+import torch
+from PIL import Image
+from geovpr_torch.cli import presets
+from geovpr_torch.cli.train import main as train
+torch.set_num_threads(1)  # a small model, on cores the test workers share
+from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
+DINOV2_VARIANTS["test"] = dict(hidden_size=64, num_layers=2, num_heads=2)
+with tempfile.TemporaryDirectory() as d:
+    cfg = presets.GEOPOSE_PRESETS["dinov2_meanpool_huber"]
+    presets.GEOPOSE_PRESETS["dinov2_meanpool_huber"] = dataclasses.replace(
+        cfg, data=dataclasses.replace(
+            cfg.data, image_size=28, batch_size=2, decoder="native",
+            cache_decoded=os.path.join(d, "cache")),
+        model=dataclasses.replace(cfg.model, variant="test", remat=True))
+    os.makedirs(os.path.join(d, "img"))
+    rng = np.random.default_rng(0)
+    with open(os.path.join(d, "labels.csv"), "w") as f:
+        f.write("filename,timestamp,latitude,longitude,angle,Region_ID\\n")
+        for i in range(4):
+            Image.fromarray(rng.integers(0, 255, (40, 48, 3)).astype(
+                np.uint8)).save(os.path.join(d, "img", f"p{{i}}.jpg"))
+            f.write(f"p{{i}}.jpg,0,{{219000 + i * 50.0}},{{143000 - i}},"
+                    "0,1\\n")
+    csv = os.path.join(d, "labels.csv")
+    train(["--preset", "dinov2_meanpool_huber", "--train-csv", csv,
+           "--val-csv", csv, "--image-root", os.path.join(d, "img"),
+           "--device", "cpu", "--save-dir", os.path.join(d, "runs"),
+           "--epochs", "2", "--async-checkpoint"])
+    run = os.path.join(d, "runs", os.listdir(os.path.join(d, "runs"))[0])
+    assert {{"best", "checkpoint_0", "checkpoint_1"}} <= set(os.listdir(run))
+    assert {{"cache.train.npy", "cache.val.npy"}} <= set(os.listdir(d))
+    assert np.load(os.path.join(d, "cache.train.npy")).any()
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split(".")[0] in {block!r})
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_async_cached_native_train_cli_runs_without_jax_or_geovpr():
+    """`geovpr_torch.cli.train.main --async-checkpoint` for two epochs of a
+    tiny DINOv2 (remat on) over a folder of JPEGs decoded by the native
+    decoder through `.npy` memmap caches, with jax, flax and `geovpr`
+    blocked."""
+    block = _BLOCK + ("geovpr",)
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAIN_ASYNC_CACHED_NATIVE.format(
+            block=block)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = proc.stdout.strip().splitlines()
+    assert out[-1] == "OK"
+    rec = json.loads(out[-2])
+    assert rec["final"]["epoch"] == 1
+    assert np.isfinite(rec["final"]["train_loss"])
+
+
 def _import_lines(pattern: str) -> list[str]:
     pat = re.compile(pattern)
     files = sorted((REPO / "geovpr_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "chip_faults.py"]
+        REPO / "chip_smoke.py", REPO / "chip_faults.py",
+        REPO / "chip_grads.py"]
     # the multi-process package is in the scan
     assert {"mesh.py", "sharding_rules.py", "__init__.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
@@ -629,6 +693,8 @@ def _import_lines(pattern: str) -> list[str]:
                                   if f.parent.name == "models"}
     assert {"convert.py", "parity.py"} <= {f.name for f in files
                                           if f.parent.name == "cli"}
+    # and the native decoder with its C++ build helper
+    assert "decoder.py" in {f.name for f in files if f.parent.name == "data"}
     return [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.match(line)]

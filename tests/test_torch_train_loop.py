@@ -5,7 +5,8 @@ and early-stop counters follow the JAX `Trainer`'s rule on a scripted
 validation sequence (both loops driven with their steps and evaluations
 replaced); a run resumed from `checkpoint_0` ends where the unbroken run
 ends, bit for bit; the window-7 Swin and frozen-backbone DINOv2 presets
-train; and the CLI refuses what is not ported.
+train; remat and the decoded-image cache repeat the plain run; and the CLI
+refuses what is not ported.
 """
 
 import dataclasses
@@ -177,10 +178,12 @@ def test_plateau_and_early_stop_follow_jax(tmp_path, monkeypatch):
     assert min(r["lr_scale"] for r in got) < 1.0
 
 
-def test_cli_refuses_what_is_not_ported():
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     args = ["--preset", "swin_b384_gemini2", "--train-csv", "x.csv",
             "--image-root", ".", "--device", "cpu"]
-    with pytest.raises(SystemExit, match="async"):
+    # --async-checkpoint is ported (tests/test_torch_async_checkpoint.py):
+    # the flag no longer stops the CLI, which goes on to read the CSV
+    with pytest.raises(FileNotFoundError, match="x.csv"):
         main(args + ["--async-checkpoint"])
     # --multihost is ported (tests/test_torch_dp_train.py); with neither
     # the flags nor torchrun's environment it names what it lacks
@@ -189,17 +192,28 @@ def test_cli_refuses_what_is_not_ported():
             mp.delenv(name, raising=False)
         with pytest.raises(ValueError, match="coordinator"):
             main(args + ["--multihost"])
-    # an unfrozen DINOv2 + SALAD (no preset asks for one), and the config
-    # fields the port does not honour yet
+    # an unfrozen DINOv2 + SALAD (no preset asks for one), remat and the
+    # decoded-image cache are ported: each trains an epoch on a tiny
+    # registered DINOv2
+    from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
+    monkeypatch.setitem(DINOV2_VARIANTS, "base-14", TINY_DINO)
     salad = presets.build_preset("dinov2salad_frozen_mlp")
-    for cfg in (dataclasses.replace(salad, model=dataclasses.replace(
-                    salad.model, freeze_backbone=False)),
-                dataclasses.replace(salad, model=dataclasses.replace(
-                    salad.model, remat=True)),
-                dataclasses.replace(salad, data=dataclasses.replace(
-                    salad.data, cache_decoded="ram"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_train(cfg, _source(2), device="cpu", save_dir="unused")
+    salad = dataclasses.replace(salad, data=dataclasses.replace(
+        salad.data, image_size=28, batch_size=2))
+    rng = np.random.default_rng(0)
+    src = ArraySource(rng.integers(0, 256, (2, 28, 28, 3)).astype(np.uint8),
+                      (rng.normal(size=(2, 2)) * [300, 100]
+                       + [219000, 143000]).astype(np.float32))
+    for i, cfg in enumerate((
+            dataclasses.replace(salad, model=dataclasses.replace(
+                salad.model, freeze_backbone=False)),
+            dataclasses.replace(salad, model=dataclasses.replace(
+                salad.model, freeze_backbone=False, remat=True)),
+            dataclasses.replace(salad, data=dataclasses.replace(
+                salad.data, cache_decoded="ram")))):
+        tr = run_train(cfg, src, src, device="cpu", epochs=1,
+                       save_dir=str(tmp_path / str(i)))
+        assert np.isfinite(tr.history[0]["train_loss"])
 
 
 TINY_W7 = dict(embed_dim=32, depths=(2, 2), num_heads=(1, 2),
@@ -247,16 +261,44 @@ def test_run_train_trains_the_transformer_presets(name, tmp_path,
 
 
 @pytest.mark.parametrize("field", ["cache_decoded", "remat"])
-def test_run_train_refuses_fields_it_does_not_honour(field):
-    """`data.cache_decoded` and `model.remat` are refused, naming their
-    ROADMAP Queue 1 leftover, rather than accepted and ignored."""
-    cfg = presets.build_preset("swin_b384_gemini2")
-    if field == "cache_decoded":
-        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
-            cfg.data, cache_decoded="ram"))
-    else:
+def test_run_train_refuses_fields_it_does_not_honour(field, runs, tmp_path,
+                                                     monkeypatch):
+    """`data.cache_decoded` and `model.remat`, once refused, are honoured:
+    the tiny preset's two epochs with remat (DropPath 0.1 in training
+    mode, every block recomputed) repeat the plain run bit for bit; with
+    `cache_decoded` a path prefix, a source of JPEG files trains through
+    `{prefix}.train.npy` and `{prefix}.val.npy` memmaps to the same losses
+    and parameters as the uncached run on the same files."""
+    from PIL import Image
+
+    from geovpr_torch.data.pipeline import ImageFolderSource
+
+    monkeypatch.setitem(SWIN_VARIANTS, "tiny-test", TINY)
+    cfg, src = _tiny_preset(), _source()
+    if field == "remat":
+        base = runs[0]
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, remat=True))
-    with pytest.raises(NotImplementedError,
-                       match="leftovers: CachedImageSource and remat"):
-        run_train(cfg, _source(2), device="cpu", save_dir="unused")
+    else:
+        paths = []
+        for i, img in enumerate(src.images):
+            paths.append(str(tmp_path / f"{i}.jpg"))
+            Image.fromarray(img).save(paths[-1], quality=90)
+        src = ImageFolderSource(paths=paths, targets=src.targets,
+                                image_size=32, num_threads=2)
+        base = run_train(cfg, src, src, save_dir=str(tmp_path / "plain"),
+                         device="cpu")
+        prefix = str(tmp_path / "cache")
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, cache_decoded=prefix))
+    tr = run_train(cfg, src, src, save_dir=str(tmp_path / "run"),
+                   device="cpu")
+    if field == "cache_decoded":
+        for role in ("train", "val"):
+            cache = np.load(f"{prefix}.{role}.npy")
+            np.testing.assert_array_equal(
+                cache, src.get_batch(np.arange(len(src)))["image"])
+    assert tr.step_losses == base.step_losses
+    for (n, a), b in zip(tr.state.model.state_dict().items(),
+                         base.state.model.state_dict().values()):
+        assert torch.equal(a, b), n

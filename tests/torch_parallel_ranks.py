@@ -186,6 +186,29 @@ def sharded_search(rank, tmp, gallery, queries, configs):
     return out
 
 
+def blocked_search(rank, tmp, gallery, queries, configs):
+    """The sharded index built with `build_chunked` (chunks of `chunk`
+    rows) and searched block by block (`db_block`) for each config
+    (quantize, k, db_block, chunk): every rank's (scores, indices, shard
+    rows)."""
+    import torch
+
+    from geovpr_torch.parallel import create_mesh
+    from geovpr_torch.retrieval.index import DescriptorIndex
+
+    mesh = create_mesh()
+    out = {}
+    for name, cfg in configs.items():
+        index = DescriptorIndex(dim=gallery.shape[1], quantize=cfg["quantize"],
+                                mesh=mesh, db_block=cfg["db_block"])
+        chunks = (torch.from_numpy(gallery[a:a + cfg["chunk"]])
+                  for a in range(0, len(gallery), cfg["chunk"]))
+        index.build_chunked(chunks, total=len(gallery))
+        s, i = index.search(queries, k=cfg["k"])
+        out[name] = (s.numpy(), i.numpy(), index._db.shape[0])
+    return out
+
+
 def retrieve_and_score(rank, tmp, images, latlon):
     """`run_retrieval --int8` over a data mesh (calibration, the sharded
     extraction and index, the CSV from rank 0) on a small-14 DINOv2 +
