@@ -9,10 +9,12 @@ kernels, and saves the outputs of the kernels it runs here on inputs its
 chip_smoke.py draws from seed 0: K1 (bf16 serving) and K8a (K1's
 launches, keeping qkv and ctx) at 64x257x768x12 and 2x1370x768x12, K3 (the
 w8a8 MLP half-block) at 64x257x768x12 and at Swin-B-384's stage 0 and 3
-widths (B=16), K4 and K5 (the bf16 and w8a8 Swin half-blocks) at stage 0
-(B=16), K6 at C = 128, K9a (the Swin training forward, its y, qkv, ctx and
-p) and K9b (the core backward) at stages 0 and 3 and K9c (the whole
-backward) at stage 0 (B=16), K8b and K8c (the ViT half-block's backward) at 16x257x768x12,
+widths (B=16), K4 and K5 (the bf16 and w8a8 Swin half-blocks; K5 in the
+attention mode the environment gives, the default where neither
+GEOVPR_INT8_QK nor GEOVPR_INT8_PV is set) at stage 0 (B=16), K6 at C =
+128, K9a (the Swin training forward, its y, qkv, ctx and p) and K9b (the
+core backward) at stages 0 and 3 and K9c (the whole backward) at stage 0
+(B=16), K8b and K8c (the ViT half-block's backward) at 16x257x768x12,
 K7 (on pre-split windows) at Swin-T-224's stage 0, and the Swin-T-224
 heading model (preset swin_t224_sincos_gemini, bf16; K7 and K6 in it) on
 chip_smoke.py's 64 seed-0 images: its pooled features and predictions.

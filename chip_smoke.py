@@ -101,16 +101,27 @@ end to end from seeded random weights:
   checks bit for bit, the remat gradient bit-equal to the kept one, the
   kernel path's gradient against the plain path's; then Swin-B-384 at
   B=16 with and without remat (peak memory, ms/step, bit-equal
-  gradients).
-  `python3 chip_smoke.py --phases index_1m,train_disk` runs those two
-  alone.
+  gradients);
+- the int8 attention modes (`[int8_modes]`): K2 (64x257x768x12) and K5
+  (the four Swin-B-384 stages at B=64) in int8 P.V and in bf16 scores
+  against their plain versions, timed whole and launch by launch; the
+  w8a8 Swin-T-224 heading model (window 7) in each against its plain path;
+  then `cli.retrieve --int8` (DINOv2-B/14 + SALAD, the seeded gallery as
+  JPEGs) and `cli.evaluate --int8` (swin_b384_gemini2, one batch of 64) in
+  a child process per mode with the mode's environment variable set
+  (GEOVPR_INT8_PV=1, GEOVPR_INT8_QK=0, neither): launches, CSVs, the kernel
+  path against the plain path, and int8 against bf16 of the same weights,
+  the three modes side by side.
+  `python3 chip_smoke.py --phases index_1m,train_disk,int8_modes` runs
+  those phases alone.
 
 Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
 form and the w8a8 MLP half-block, K3 also at the four Swin-B-384 stage
 widths and at ConvNeXt-B's four stages with the separate residual), K4 and K5 (the Swin window-attention half-block, bf16 and w8a8),
 K6 (Swin PatchMerging), K7 (the window-7 attention core, on the raster
 qkv and on pre-split windows; the window-7 half is also timed op by op),
-and K9a, K9b and K9c (the Swin attention half-block's training
+K2 and K5 also in their two other attention modes (int8 P.V, bf16
+scores), and K9a, K9b and K9c (the Swin attention half-block's training
 forward, core backward and whole backward), and K8a, K8b and K8c (the same
 for the ViT attention half-block of DINOv2; K8a launches K1's kernels and
 keeps the qkv and ctx they write). K1's four launches (LayerNorm, the TMA
@@ -483,9 +494,10 @@ def slice_end_to_end(model, device, gallery, out_dir, int8=False) -> dict:
 
 
 def kernel_path_vs_plain_path(model, images, bound=MIN_COSINE,
-                              path="bf16") -> torch.Tensor:
+                              path="bf16", stats=None) -> torch.Tensor:
     """Phase 5 (bf16) / 9 (int8): whole-model descriptors, kernel path vs
-    plain path; returns the kernel path's descriptors."""
+    plain path; returns the kernel path's descriptors (and puts the least
+    cosine into `stats`, a dict, where one is given)."""
     from geovpr_torch.data.transforms import normalize
 
     blocks = model.backbone.blocks
@@ -504,6 +516,8 @@ def kernel_path_vs_plain_path(model, images, bound=MIN_COSINE,
     phase("model", path=path, min_cosine=cos.min().item(),
           mean_cosine=cos.mean().item(), bound=bound,
           max_norm_dev=(norms - 1).abs().max().item())
+    if stats is not None:
+        stats["min_cosine"] = cos.min().item()
     check(cos.min().item() >= bound,
           f"{path} kernel vs plain path cosine {cos.min().item()} < {bound}")
     check(bool(((norms - 1).abs() <= 1e-3).all()), f"{path} not unit-norm")
@@ -520,10 +534,13 @@ def interleaved_ms(fns: dict, iters: int) -> dict:
     return {k: (sum(v) / 2, v) for k, v in runs.items()}
 
 
-def bounds(kind: str, b, n, d, h, residual=False) -> dict:
+def bounds(kind: str, b, n, d, h, residual=False,
+           mode: str = "int8_scores") -> dict:
     """The least time the card could take for one call at these shapes:
     the larger of bytes (each input read once, each output written once)
-    over 3.35 TB/s and operations over the peak rate of their type."""
+    over 3.35 TB/s and operations over the peak rate of their type (K2 in
+    its attention `mode`: the products q.k^T and P.V in int8 or bf16 as
+    the mode forms them)."""
     m, dh = b * n, d // h
     att = 2 * b * h * n * n * dh         # one of q.k^T, P.V
     io = 2 * m * d * 2                   # bf16 x in, out out
@@ -531,7 +548,9 @@ def bounds(kind: str, b, n, d, h, residual=False) -> dict:
         ops_t = (2 * m * d * 4 * d + 2 * att) / PEAK_BF16
         nbytes = io + 4 * d * d * 2 + (2 * d + 3 * d + 2 * d) * 4
     elif kind == "K2":
-        ops_t = (2 * m * d * 4 * d + att) / PEAK_INT8 + att / PEAK_BF16
+        att8 = {"int8_scores": 1, "int8_pv": 2, "bf16_scores": 0}[mode]
+        ops_t = ((2 * m * d * 4 * d + att8 * att) / PEAK_INT8
+                 + (2 - att8) * att / PEAK_BF16)
         nbytes = io + 4 * d * d + (2 * d + 6 * d + 3 * d) * 4
     else:
         hid = 4 * d
@@ -589,23 +608,34 @@ def k1_part_bounds(part: str, b, n, d, h, gamma=True) -> dict:
         2 if gamma else 1) * d * 4)
 
 
-def k2_part_bounds(part: str, b, n, d, h) -> dict:
+# bytes a row-column of the QKV launch's output in each attention mode:
+# qk8 and a bf16 v (int8 scores), q | k | v in int8 (int8 P.V) or bf16
+QKV_OUT_BYTES = {"int8_scores": 4, "int8_pv": 3, "bf16_scores": 6}
+
+
+def attention_rate(mode: str) -> float:
+    """The peak rate of an attention's two products, q k^T and P V, in
+    `mode`: both int8 (int8 P.V), both bf16 (bf16 scores), or one of each
+    (int8 scores: the pair's rate is their mix)."""
+    att8 = {"int8_scores": 1, "int8_pv": 2, "bf16_scores": 0}[mode]
+    return 2 / (att8 / PEAK_INT8 + (2 - att8) / PEAK_BF16)
+
+
+def k2_part_bounds(part: str, b, n, d, h, mode: str = "int8_scores") -> dict:
     """The least time of one of K2's four launches at (B, N, D, H), M = B
-    N rows: bytes (each input read once, each output written once) over
-    3.35 TB/s against operations at their peak (the int8 products at
-    1,979 TOP/s, P V at the bf16 989 TFLOP/s)."""
+    N rows, in the attention `mode`: bytes (each input read once, each
+    output written once) over 3.35 TB/s against operations at their peak
+    (the int8 products at 1,979 TOP/s, the bf16 ones at 989 TFLOP/s)."""
     m = b * n
     if part == "ln_quant":
         return ln_quant_bound(m, d)
-    if part == "qkv_gemm":       # xq, Wqkv, sqkv, bqkv -> qk8, v
+    if part == "qkv_gemm":       # xq, Wqkv, sqkv, bqkv -> qk8, v | qkv
         return part_bound(2 * m * d * 3 * d, PEAK_INT8, m * d + 3 * d * d
-                          + 6 * d * 4 + m * 2 * d + m * d * 2)
-    if part == "attention":      # qk8, v -> ctx8
-        # q k^T in int8 and P V in bf16: the pair's rate is their mix
+                          + 6 * d * 4 + m * d * QKV_OUT_BYTES[mode])
+    if part == "attention":      # qk8, v | qkv -> ctx8
         att = 2 * b * h * n * n * (d // h)
-        ops_t = att / PEAK_INT8 + att / PEAK_BF16
-        return part_bound(2 * att, 2 * att / ops_t,
-                          m * 2 * d + m * d * 2 + m * d)
+        return part_bound(2 * att, attention_rate(mode),
+                          m * d * QKV_OUT_BYTES[mode] + m * d)
     # ctx8, Wo, so, bo, gamma, x -> out
     return part_bound(2 * m * d * d, PEAK_INT8, m * d + d * d + 3 * d * 4
                       + 2 * m * d * 2)
@@ -626,23 +656,22 @@ def ln_quant_bound(m, d) -> dict:
     return part_bound(8 * m * d, PEAK_F32, m * d * 2 + m * d + 2 * d * 4)
 
 
-def k5_part_bounds(part: str, shape) -> dict:
+def k5_part_bounds(part: str, shape, mode: str = "int8_scores") -> dict:
     """The least time of one of K5's four launches at (B, C, H, S, w,
-    shift), M = B S^2 rows: bytes (each input read once, each output
-    written once) over 3.35 TB/s against operations at their peak (the
-    int8 products at 1,979 TOP/s, P V at the bf16 989 TFLOP/s)."""
+    shift), M = B S^2 rows, in the attention `mode`: bytes (each input read
+    once, each output written once) over 3.35 TB/s against operations at
+    their peak (the int8 products at 1,979 TOP/s, the bf16 ones at 989
+    TFLOP/s)."""
     b, c, h, res, win, _ = shape
     m, n = b * res * res, win * win
     if part == "ln_quant":
         return ln_quant_bound(m, c)
-    if part == "qkv_gemm":       # xq, Wqkv, sqkv, bqkv -> qk8, v
+    if part == "qkv_gemm":       # xq, Wqkv, sqkv, bqkv -> qk8, v | qkv
         return part_bound(2 * m * c * 3 * c, PEAK_INT8, m * c + 3 * c * c
-                          + 6 * c * 4 + m * 2 * c + m * c * 2)
-    if part == "attention":      # qk8, v, table -> ctx8
-        # q k^T in int8 and P V in bf16: the pair's rate is their mix
-        ops = 4 * m * n * c
-        ops_t = 2 * m * n * c / PEAK_INT8 + 2 * m * n * c / PEAK_BF16
-        return part_bound(ops, ops / ops_t, m * 2 * c + m * c * 2 + m * c
+                          + 6 * c * 4 + m * c * QKV_OUT_BYTES[mode])
+    if part == "attention":      # qk8, v | qkv, table -> ctx8
+        return part_bound(4 * m * n * c, attention_rate(mode),
+                          m * c * QKV_OUT_BYTES[mode] + m * c
                           + (2 * win - 1) ** 2 * h * 4)
     # ctx8, Wo, so, bo, x -> out
     return part_bound(2 * m * c * c, PEAK_INT8, m * c + c * c + 2 * c * 4
@@ -738,27 +767,32 @@ def k1_part_times(x, args: dict, h: int, card: str, name: str) -> dict:
             lambda part: k1_part_bounds(part, b, n, d, h))
 
 
-def k2_part_times(x, k2: dict, h: int, card: str) -> dict:
-    """K2's four launches (LN-quant, QKV GEMM, int8-score attention, out
-    projection) timed one by one on x and the half-block's folded
-    arguments `k2` by `parts_split`, beside `k2_part_bounds`; the launches
-    are not counted (`k2_launch_part`)."""
+def k2_part_times(x, k2: dict, h: int, card: str,
+                  name: str = "K2") -> dict:
+    """K2's four launches (LN-quant, QKV GEMM, attention, out projection)
+    timed one by one on x and the half-block's folded arguments `k2` (in
+    their attention mode) by `parts_split`, beside `k2_part_bounds`; the
+    launches are not counted (`k2_launch_part`)."""
     from geovpr_torch.ops import mhsa as mh
+    from geovpr_torch.ops.quant import attn_mode
 
     b, n, d = x.shape
+    mode = attn_mode(k2["cs"], k2["cpv"])
     with torch.inference_mode():
-        bufs = mh.k2_buffers(x)
+        bufs = mh.k2_buffers(x, mode)
         return parts_split(
-            card, "K2", f"B{b}_N{n}_D{d}_H{h}", mh.K2_PARTS,
+            card, name, f"B{b}_N{n}_D{d}_H{h}", mh.K2_PARTS,
             lambda i: mh.k2_launch_part(i, x, **k2, num_heads=h, bufs=bufs),
-            lambda part: k2_part_bounds(part, b, n, d, h))
+            lambda part: k2_part_bounds(part, b, n, d, h, mode))
 
 
 def library_k2(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
-               wo_q_t, so_eff, bo, gamma, cs, num_heads):
+               wo_q_t, so_eff, bo, gamma, cs, num_heads, cpv=None, cpl=None):
     """K2's yardstick: F.layer_norm -> quantize -> torch._int_mm (qkv) ->
     dequant -> F.scaled_dot_product_attention in bf16 -> quantize ->
-    torch._int_mm (out projection) + epilogue."""
+    torch._int_mm (out projection) + epilogue. The same call in every
+    attention mode: SDPA in bf16 is the bf16-score mode's form and the
+    nearest yardstick of the int8 ones (no torch call forms int8 P.V)."""
     import torch.nn.functional as F
     b, n, d = x.shape
     xq = torch.clamp(torch.round(F.layer_norm(x.float(), (d,), None, None,
@@ -1149,10 +1183,11 @@ def geopose_end_to_end(model, scaler, device, source, out_dir,
 
 
 def swin_kernel_path_vs_plain_path(model, images, bound=MIN_COSINE,
-                                   path="bf16"):
+                                   path="bf16", stats=None):
     """Phase 14 (bf16) / 17 (int8): pooled features and predictions of the
     kernel path against the plain path on one batch; returns the kernel
-    path's pooled features."""
+    path's pooled features (and puts the least pooled-feature cosine into
+    `stats`, a dict, where one is given)."""
     from geovpr_torch.data.transforms import normalize
 
     def forward():
@@ -1176,6 +1211,8 @@ def swin_kernel_path_vs_plain_path(model, images, bound=MIN_COSINE,
           pred_min_cosine=cos_pred.min().item(),
           pred_max_abs_diff=(preds - preds_p).abs().max().item(),
           bound=bound)
+    if stats is not None:
+        stats["min_cosine"] = cos.min().item()
     check(cos.min().item() >= bound and cos_pred.min().item() >= bound,
           f"{path} Swin kernel vs plain path cosine {cos.min().item()}, "
           f"predictions {cos_pred.min().item()} < {bound}")
@@ -1183,11 +1220,12 @@ def swin_kernel_path_vs_plain_path(model, images, bound=MIN_COSINE,
     return pooled
 
 
-def swin_bounds(kind: str, shape) -> dict:
+def swin_bounds(kind: str, shape, mode: str = "int8_scores") -> dict:
     """The least time of one call of K4 / K5 at (B, C, H, S, w, shift), or
     of K6 at (B, C, S): bytes over 3.35 TB/s against operations over the
     peak of their type (the JAX cost estimate: 8 BW N C^2 + 4 BW H N^2 dh
-    for the half-block)."""
+    for the half-block; K5's attention products as its `mode` forms
+    them)."""
     if kind == "K6":
         b, c, res = shape
         m2 = b * (res // 2) ** 2
@@ -1208,7 +1246,7 @@ def swin_bounds(kind: str, shape) -> dict:
         if kind == "K4":
             ops_t = ops / PEAK_BF16
         else:
-            ops_t = (proj + att) / PEAK_INT8 + att / PEAK_BF16
+            ops_t = proj / PEAK_INT8 + 2 * att / attention_rate(mode)
     bytes_t = nbytes / PEAK_BYTES
     return dict(bound_ms=max(ops_t, bytes_t) * 1e3,
                 bound_by="operations" if ops_t >= bytes_t else "bytes",
@@ -1255,11 +1293,12 @@ def library_k4(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, table, h, res,
 
 def library_k5(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
                wo_q_t, so_eff, bo, cs, table, num_heads, resolution, window,
-               shift, ln_eps=1e-5):
+               shift, ln_eps=1e-5, cpv=None):
     """K5's yardstick: F.layer_norm -> quantize -> torch._int_mm (qkv) ->
     dequant -> K4's windowed bf16 SDPA with the float bias/mask (q and k in
-    their int8 units, scaled by cs) -> quantize -> torch._int_mm (out
-    projection) + epilogue."""
+    their int8 units, scaled by cs; SDPA's own dh^-0.5 in bf16 scores) ->
+    quantize -> torch._int_mm (out projection) + epilogue; the same call in
+    every attention mode, as `library_k2`."""
     import torch.nn.functional as F
 
     from geovpr_torch.ops.window_attention import from_windows, to_windows
@@ -1275,7 +1314,7 @@ def library_k5(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
                for t in qkv.split(c, dim=-1))
     o = F.scaled_dot_product_attention(
         q, k, v, attn_mask=library_mask(table, h, b, resolution, win, shift),
-        scale=float(cs))
+        scale=None if cs is None else float(cs))
     o = from_windows(o.transpose(1, 2).reshape(bw, n, c), resolution, win,
                      shift)
     c8 = torch.clamp(torch.round(o.reshape(-1, c).float()), -127,
@@ -5451,6 +5490,393 @@ def remat_swin_steps(device, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------ the int8 attention modes --
+#
+# The two int8 attention modes besides the default (int8 q.k^T scores, bf16
+# P.V), chosen by the environment variables the JAX package reads:
+# GEOVPR_INT8_PV=1 (int8 P.V) and GEOVPR_INT8_QK=0 (bf16 scores).
+
+INT8_MODE_ENV = {"int8_scores": {}, "int8_pv": {"GEOVPR_INT8_PV": "1"},
+                 "bf16_scores": {"GEOVPR_INT8_QK": "0"}}
+INT8_MODE_FLAGS = {"int8_scores": (True, False), "int8_pv": (True, True),
+                   "bf16_scores": (False, False)}
+OTHER_INT8_MODES = ("int8_pv", "bf16_scores")
+# the evaluate child's validation images: one B=64 batch of Swin-B-384
+MODES_N_VAL = SWIN_BATCH
+
+
+@contextlib.contextmanager
+def int8_mode(mode: str):
+    """The int8 folds of the blocks built inside build in `mode`
+    (`geovpr_torch.ops.quant.INT8_QK_SCORES`, `INT8_PV`, read when a block
+    folds), restored after."""
+    from geovpr_torch.ops import quant
+    saved = quant.INT8_QK_SCORES, quant.INT8_PV
+    quant.INT8_QK_SCORES, quant.INT8_PV = INT8_MODE_FLAGS[mode]
+    try:
+        yield
+    finally:
+        quant.INT8_QK_SCORES, quant.INT8_PV = saved
+
+
+def mode_kernels(device, card: str, mode: str) -> dict:
+    """K2 at the main shape and K5 at the four Swin-B-384 stages (B=64) in
+    `mode`, each against its plain version under the int8 bound
+    (`[kernel] name=K2.<mode>`), then timed in turns with its plain version
+    and its library yardstick beside its bound (`[kernel_time]`), and its
+    four launches one by one in CUDA graphs (`[kernel_time]
+    name=K2.<mode>.<part>`). Returns errors and times by kernel."""
+    from geovpr_torch.ops import swin_block as sb
+    from geovpr_torch.ops.mhsa import (fused_mhsa_block_int8,
+                                       mhsa_block_int8_reference)
+
+    out = {}
+    b, n, d, h = MAIN_SHAPE
+    name = f"K2.{mode}"
+    with int8_mode(mode):
+        x, k2, _ = int8_block_case(b, n, d, h, device)
+    with torch.inference_mode():
+        got = fused_mhsa_block_int8(x, **k2, num_heads=h)
+        torch.cuda.synchronize()
+        want = mhsa_block_int8_reference(x, **k2, num_heads=h)
+        e = int8_errors(got, want, (k2["so_eff"] * k2["gamma"]).abs().max()
+                        .item())
+        tag = "B{}_N{}_D{}_H{}".format(*MAIN_SHAPE)
+        phase("kernel", name=name, shape=tag, **e, max_share=INT8_MAX_SHARE)
+        check(int8_within_bound(e), f"{name} error outside its bound: {e}")
+        t = interleaved_ms({
+            "kernel": lambda: fused_mhsa_block_int8(x, **k2, num_heads=h),
+            "plain": lambda: mhsa_block_int8_reference(x, **k2, num_heads=h),
+            "library": lambda: library_k2(x, **k2, num_heads=h)}, iters=10)
+        out["K2"] = dict(max_abs_err=e["max_abs_err"], ms=t["kernel"][0],
+                         plain_ms=t["plain"][0], library_ms=t["library"][0],
+                         runs={k: v[1] for k, v in t.items()},
+                         **bounds("K2", b, n, d, h, mode=mode))
+        phase("kernel_time", card=repr(card), name=name, shape=tag,
+              **out["K2"])
+    k2_part_times(x, k2, h, card, name)
+    del x, k2, got, want
+
+    name = f"K5.{mode}"
+    for shape in SWIN_ATTN_SHAPES:
+        tag = "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape)
+        with int8_mode(mode):
+            x, blk = swin_block_case(shape, device, int8=True)
+        kw = k5_kwargs(blk)
+        with torch.inference_mode():
+            got = sb.fused_swin_attn_block_int8(x, **kw)
+            torch.cuda.synchronize()
+            want = sb.swin_attn_block_int8_reference(x, **kw)
+            e = int8_errors(got, want, kw["so_eff"].abs().max().item())
+            phase("kernel", name=name, shape=tag, **e,
+                  max_share=INT8_MAX_SHARE)
+            check(int8_within_bound(e),
+                  f"{name} error outside its bound at {shape}: {e}")
+            del got, want
+            t = interleaved_ms({
+                "kernel": lambda: sb.fused_swin_attn_block_int8(x, **kw),
+                "plain": lambda: sb.swin_attn_block_int8_reference(x, **kw),
+                "library": lambda: library_k5(x, **kw)}, iters=3)
+            out[("K5", shape)] = dict(
+                max_abs_err=e["max_abs_err"], ms=t["kernel"][0],
+                plain_ms=t["plain"][0], library_ms=t["library"][0],
+                runs={k: v[1] for k, v in t.items()},
+                **swin_bounds("K5", shape, mode))
+            phase("kernel_time", card=repr(card), name=name, shape=tag,
+                  **out[("K5", shape)])
+            bufs = sb.k5_buffers(x, mode)
+            parts_split(card, name, tag, sb.K5_PARTS,
+                        lambda i: sb.k5_launch_part(i, x, **kw, bufs=bufs),
+                        lambda part: k5_part_bounds(part, shape, mode))
+        del x, blk, kw, bufs
+        torch.cuda.empty_cache()
+    return out
+
+
+def mode_window7_head(device, mode: str) -> None:
+    """The w8a8 Swin-T-224 heading model (window 7: the attention halves
+    in torch ops in `mode`, K3 in every MLP half, K6 at the boundaries),
+    calibrated on a batch of 64: its kernel path against its plain path
+    (`[swin_model] path=swin-t-int8.<mode>`) and its pooled features
+    against the bf16 model's (`[window7_int8_vs_bf16]`)."""
+    from geovpr_torch.cli.evaluate import build_model, calibrate_int8
+    from geovpr_torch.cli.presets import build_preset
+    from geovpr_torch.data.transforms import normalize
+
+    cfg = build_preset(ANGLE_PRESET)
+    source = synthetic_val(ANGLE_BATCH, cfg.data.image_size,
+                           np.random.default_rng(SEED), angles=True)
+    images = torch.from_numpy(source.images).to(device)
+    model, _ = angle_model(device, ANGLE_PRESET)
+    state = model.state_dict()
+    with int8_mode(mode):
+        model8, _ = build_model(cfg, "cpu", seed=SEED, int8=True)
+        model8.load_state_dict(state, strict=False)
+        model8 = model8.to(device)
+        calibrate_int8(model8, source, ANGLE_BATCH, device)
+    folded = [m._k5 for m in model8.backbone.blocks if hasattr(m, "_k5")]
+    check(bool(folded) and all(
+        (f["cs"] is None) == (mode == "bf16_scores")
+        and (f["cpv"] is None) == (mode != "int8_pv") for f in folded),
+        f"window-7 blocks not folded in {mode}")
+    pooled8 = swin_kernel_path_vs_plain_path(
+        model8, images, MIN_COSINE_INT8, f"swin-t-int8.{mode}")
+    with torch.inference_mode():
+        pooled = model.backbone(normalize(images)).pooled.float()
+    cos = torch.nn.functional.cosine_similarity(pooled8, pooled, dim=1)
+    phase("window7_int8_vs_bf16", mode=mode, min_cosine=cos.min().item(),
+          mean_cosine=cos.mean().item())
+    del model, model8
+    torch.cuda.empty_cache()
+
+
+def modes_files(root: str) -> dict:
+    """The CLI children's inputs under root: the [slice] gallery (N_GALLERY
+    JPEGs at 224, positions 100 m apart) and its first N_QUERY images as
+    the queries, and MODES_N_VAL geopose validation JPEGs at 384; returns
+    the manifests' paths."""
+    from PIL import Image
+
+    gallery = synthetic_gallery(N_GALLERY, IMAGE_SIZE,
+                                np.random.default_rng(SEED))
+    img = os.path.join(root, "img")
+    os.makedirs(img, exist_ok=True)
+    out = {}
+    for name, n, prefix in (("gallery", N_GALLERY, "g"),
+                            ("query", N_QUERY, "q")):
+        path = out[name] = os.path.join(root, f"{name}.csv")
+        with open(path, "w") as f:
+            f.write("filename,timestamp,latitude,longitude,angle,Region_ID\n")
+            for i in range(n):
+                fname = f"{prefix}_{i:04d}.jpg"
+                Image.fromarray(gallery.images[i]).save(
+                    os.path.join(img, fname), quality=95)
+                lat, lon = gallery.targets[i]
+                f.write(f"{fname},0,{lat},{lon},0.0,1\n")
+    out["val"] = par_images(root, "val", MODES_N_VAL, 384,
+                            np.random.default_rng(SEED))
+    out["image_root"] = img
+    return out
+
+
+def _captured(module, fn_name: str, store: dict):
+    """Wrap `module.fn_name` so that the model it is called with lands in
+    `store["model"]`; returns the original."""
+    orig = getattr(module, fn_name)
+
+    def wrapper(model, *a, **k):
+        store["model"] = model
+        return orig(model, *a, **k)
+
+    setattr(module, fn_name, wrapper)
+    return orig
+
+
+def modes_retrieve(files: dict, out_dir: str, device, mode: str) -> dict:
+    """`python -m geovpr_torch.cli.retrieve --int8` (DINOv2-B/14 + SALAD at
+    224, the seeded gallery) through its `main`, every launch count set to
+    0 just before and read just after: K2 and K3 12 a batch, the matches
+    CSV; then the int8 model's kernel path against its plain path and its
+    descriptors against the bf16 model's of the same seed."""
+    import geovpr_torch.cli.retrieve as cli
+    from geovpr_torch.data.transforms import normalize
+
+    store = {}
+    orig = _captured(cli, "run_retrieval", store)
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--gallery-csv", files["gallery"], "--query-csv",
+                      files["query"], "--image-root", files["image_root"],
+                      "--out-dir", out_dir, "--batch-size", str(BATCH),
+                      "--top-k", str(TOP_K), "--variant", VARIANT,
+                      "--image-size", str(IMAGE_SIZE), "--int8",
+                      "--device", device.type])
+        torch.cuda.synchronize()
+    finally:
+        cli.run_retrieval = orig
+    launches = {k: fn.launches for k, fn in counters.items()}
+    model = store["model"]
+    n_batches = -(-N_GALLERY // BATCH) + -(-N_QUERY // BATCH)
+    per = len(model.backbone.blocks) * n_batches
+    want = {"fused_mhsa_block": 0, "fused_mhsa_block_int8": per,
+            "fused_mlp_block_int8": per}
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(launches == want, f"retrieve {mode}: launches {launches}, "
+          f"expected {want}")
+    rows = read_csv(rec["matches_csv"])
+    top1 = {r["query_filename"]: r["match_filename"] for r in rows
+            if r["rank"] == "1"}
+    check(len(rows) == N_QUERY * TOP_K and all(
+        top1[f"q_{i:04d}.jpg"] == f"g_{i:04d}.jpg" for i in range(N_QUERY)),
+        f"retrieve {mode}: matches CSV")
+    images = torch.from_numpy(synthetic_gallery(
+        BATCH, IMAGE_SIZE, np.random.default_rng(SEED)).images).to(device)
+    stats = {}
+    got = kernel_path_vs_plain_path(model, images, MIN_COSINE_INT8,
+                                    f"retrieve-int8.{mode}", stats)
+    bf16 = cli.build_model(VARIANT, IMAGE_SIZE, device)
+    bf16.load_state_dict(model.state_dict(), strict=False)
+    with torch.inference_mode():
+        ref = bf16(normalize(images)).pooled.float()
+    cos = torch.nn.functional.cosine_similarity(got, ref, dim=1)
+    del model, bf16
+    torch.cuda.empty_cache()
+    return dict(launches=launches, recall_at_1=rec["recall@1"],
+                csv_rows=len(rows), kernel_vs_plain_min=stats["min_cosine"],
+                int8_vs_bf16_min=cos.min().item(),
+                int8_vs_bf16_mean=cos.mean().item())
+
+
+def modes_evaluate(files: dict, out_dir: str, device, mode: str) -> dict:
+    """`python -m geovpr_torch.cli.evaluate --int8` on swin_b384_gemini2
+    (Swin-B-384 + MLP head) through its `main`, every launch count set to
+    0 just before and read just after: K5 and K3 24 a batch, K6 3, the
+    validation CSV; then the int8 model's kernel path against its plain
+    path and its pooled features against the bf16 model's of the same
+    seed."""
+    import geovpr_torch.cli.evaluate as cli
+    from geovpr_torch.cli.presets import build_preset
+    from geovpr_torch.data.transforms import normalize
+
+    store = {}
+    orig = _captured(cli, "run_evaluate", store)
+    counters = {**kernel_counters(), **swin_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--preset", SWIN_PRESET, "--val-csv", files["val"],
+                      "--image-root", files["image_root"],
+                      "--out-dir", out_dir, "--batch-size", str(SWIN_BATCH),
+                      "--int8", "--device", device.type])
+        torch.cuda.synchronize()
+    finally:
+        cli.run_evaluate = orig
+    launches = {k: fn.launches for k, fn in counters.items()}
+    model = store["model"]
+    n_batches = -(-MODES_N_VAL // SWIN_BATCH)
+    want = dict.fromkeys(counters, 0)
+    want.update(fused_swin_attn_block_int8=SWIN_BLOCKS * n_batches,
+                fused_mlp_block_int8=SWIN_BLOCKS * n_batches,
+                fused_patch_merge=SWIN_BOUNDARIES * n_batches)
+    check(launches == want, f"evaluate {mode}: launches {launches}, "
+          f"expected {want}")
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    rows = read_csv(rec["validation_csv"])
+    check(len(rows) == MODES_N_VAL and all(np.isfinite(v) for v in
+                                           rec["metrics"].values()),
+          f"evaluate {mode}: {len(rows)} CSV rows, {rec['metrics']}")
+    source = synthetic_val(SWIN_BATCH, 384, np.random.default_rng(SEED))
+    images = torch.from_numpy(source.images).to(device)
+    stats = {}
+    got = swin_kernel_path_vs_plain_path(model, images, MIN_COSINE_INT8,
+                                         f"swin-int8.{mode}", stats)
+    bf16, _ = cli.build_model(build_preset(SWIN_PRESET), device)
+    bf16.load_state_dict(model.state_dict(), strict=False)
+    with torch.inference_mode():
+        ref = bf16.backbone(normalize(images)).pooled.float()
+    cos = torch.nn.functional.cosine_similarity(got, ref, dim=1)
+    del model, bf16
+    torch.cuda.empty_cache()
+    return dict(launches=launches, csv_rows=len(rows),
+                kernel_vs_plain_min=stats["min_cosine"],
+                int8_vs_bf16_min=cos.min().item(),
+                int8_vs_bf16_mean=cos.mean().item())
+
+
+def modes_record(spec: dict, device) -> dict:
+    """What a child of the [int8_modes] phase reports: the mode flags the
+    environment gave it, then `modes_retrieve` and `modes_evaluate`."""
+    from geovpr_torch.ops import quant
+
+    mode = spec["mode"]
+    flags = (quant.INT8_QK_SCORES, quant.INT8_PV)
+    check(flags == INT8_MODE_FLAGS[mode],
+          f"{mode}: the environment gave the flags {flags}")
+    return {"mode": mode, "flags": list(flags),
+            "retrieve": modes_retrieve(spec["files"], os.path.join(
+                spec["out"], "retrieve"), device, mode),
+            "evaluate": modes_evaluate(spec["files"], os.path.join(
+                spec["out"], "evaluate"), device, mode)}
+
+
+def modes_child(spec_path: str) -> int:
+    """A child of the [int8_modes] phase, started with the mode's
+    environment variable set: `modes_record` on the card, one
+    `[modes_child]` JSON line."""
+    from geovpr_torch.ops._build import load_library
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    load_library()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rec = modes_record(spec, torch.device("cuda"))
+    print("[modes_child] " + json.dumps(rec), flush=True)
+    return 0
+
+
+def modes_run_child(spec_path: str, env: dict) -> dict:
+    """Run this script as a child with `--modes-child spec_path` and the
+    mode's environment variables `env` (and neither of the two where `env`
+    does not set it); pass its model lines on and return its record. A
+    failed child fails the phase."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--modes-child",
+         spec_path], capture_output=True, text=True, timeout=900,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={**{k: v for k, v in os.environ.items()
+                if k not in ("GEOVPR_INT8_QK", "GEOVPR_INT8_PV")}, **env})
+    for line in proc.stdout.splitlines():
+        if line.startswith(("[model]", "[swin_model]")):
+            print(line, flush=True)
+    check(proc.returncode == 0, f"int8 modes child {spec_path} exited "
+          f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return [json.loads(line.split(" ", 1)[1])
+            for line in proc.stdout.splitlines()
+            if line.startswith("[modes_child] ")][-1]
+
+
+def int8_modes_path(device, card: str) -> dict:
+    """The [int8_modes] phase: for int8 P.V and bf16 scores, K2 and K5
+    against their plain versions and timed (`mode_kernels`) and the w8a8
+    window-7 Swin-T-224 head (`mode_window7_head`); then, in each of the
+    three modes, a child process with the mode's environment variable set
+    runs `cli.retrieve --int8` and `cli.evaluate --int8` (`modes_child`),
+    and the int8-against-bf16 cosines of the three modes are printed side
+    by side (`[int8_modes]`). Returns, for the kernels line, each new
+    mode's errors, times and launches."""
+    out = {}
+    for mode in OTHER_INT8_MODES:
+        out[mode] = mode_kernels(device, card, mode)
+        mode_window7_head(device, mode)
+    with tempfile.TemporaryDirectory() as root:
+        files = modes_files(root)
+        recs = {}
+        for mode, env in INT8_MODE_ENV.items():
+            spec = os.path.join(root, f"{mode}.json")
+            with open(spec, "w") as f:
+                json.dump({"mode": mode, "files": files,
+                           "out": os.path.join(root, mode)}, f)
+            recs[mode] = modes_run_child(spec, env)
+    for path in ("retrieve", "evaluate"):
+        phase("int8_modes", path=path, env=repr(
+            {m: INT8_MODE_ENV[m] for m in recs}), **{
+            f"{m}_{k}": v for m, r in recs.items()
+            for k, v in r[path].items() if k != "launches"})
+    for mode in OTHER_INT8_MODES:
+        out[mode]["launches"] = {
+            "K2": recs[mode]["retrieve"]["launches"]["fused_mhsa_block_int8"],
+            "K5": recs[mode]["evaluate"]["launches"][
+                "fused_swin_attn_block_int8"]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5540,6 +5966,8 @@ def main() -> int:
         for k, v in path(device, card).items():
             rest_launches[k] = rest_launches.get(k, 0) + v
 
+    modes = int8_modes_path(device, card)
+
     rows = []
     for name, k, src, replaces, count, err in (
             ("fused_mhsa_block", "K1", "geovpr_torch/csrc/mhsa.cu",
@@ -5622,6 +6050,25 @@ def main() -> int:
     for row in rows:
         row["launches"] += (fuse_launches.get(row["name"], 0)
                             + rest_launches.get(row["name"], 0))
+    # K2 and K5 in their two other attention modes: errors and times at the
+    # main shapes (K5 at stage 0), launches in the CLI children's runs
+    for mode, mt in modes.items():
+        for name, k, src, replaces, t in (
+                ("fused_mhsa_block_int8", "K2",
+                 "geovpr_torch/csrc/mhsa_int8.cu",
+                 "geovpr/ops/pallas_mhsa.py:554", mt["K2"]),
+                ("fused_swin_attn_block_int8", "K5",
+                 "geovpr_torch/csrc/swin_attn.cu",
+                 "geovpr/ops/pallas_swin_block.py:1159",
+                 mt[("K5", SWIN_MAIN)])):
+            rows.append({"name": f"{name}.{mode}", "route": "cuda",
+                         "source": src, "replaces": replaces,
+                         "launches": mt["launches"][k],
+                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                         "plain_ms": t["plain_ms"],
+                         "bound_ms": t["bound_ms"],
+                         "bound_by": t["bound_by"],
+                         "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -5629,7 +6076,8 @@ def main() -> int:
     return 0
 
 
-PHASES = {"index_1m": index_1m_path, "train_disk": train_disk_path}
+PHASES = {"index_1m": index_1m_path, "train_disk": train_disk_path,
+          "int8_modes": int8_modes_path}
 
 
 def run_phases(names: list) -> int:
@@ -5666,4 +6114,6 @@ if __name__ == "__main__":
         sys.exit(parallel_gloo_rank(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--convert-parity-child"]:
         sys.exit(cp_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--modes-child"]:
+        sys.exit(modes_child(sys.argv[2]))
     sys.exit(main())

@@ -35,7 +35,12 @@
 // drops rows >= M and columns past the output:
 //   EPI_QK8V:    acc * s + b; columns below qk_cols (K2's and K5's q | k,
 //                2C) round_clip_i8 into qk8 (M, 2C), the rest rounded to
-//                bf16 into v (M, C);
+//                bf16 into v (M, C); with qk_cols = Nc (the int8 P.V mode's
+//                q | k | v, 3C) every column into qk8 (M, 3C) and no v;
+//   EPI_QKV16:   (acc * s + b) * qscale on the columns below qk_cols (the
+//                bf16-score mode's q, C; qscale = dh^-0.5 log2(e), JAX's
+//                srow), the rest as they are, rounded once to bf16 into
+//                qkv (M, 3C);
 //   EPI_GELU8:   h = acc * s + b, tanh GELU in f32 (tanhf), * inv_a_mid,
 //                round_clip_i8 into K3's int8 hidden;
 //   EPI_RESID:   acc * s + b + resid, bf16 (K5's out projection);
@@ -54,7 +59,8 @@
 
 namespace {
 
-enum { HS_EPI_QK8V, HS_EPI_GELU8, HS_EPI_RESID, HS_EPI_RESID_G };
+enum { HS_EPI_QK8V, HS_EPI_GELU8, HS_EPI_RESID, HS_EPI_RESID_G,
+       HS_EPI_QKV16 };
 
 // What the epilogue uses (see the header note); unused fields are ignored.
 struct HsEpilogue {
@@ -63,7 +69,9 @@ struct HsEpilogue {
   const float* gamma;  // (Nc,), EPI_RESID_G
   const bf16* resid;   // (M, Nc), EPI_RESID and EPI_RESID_G
   float inv_a_mid;     // EPI_GELU8
-  int qk_cols;         // EPI_QK8V: a multiple of HS_BN
+  int qk_cols;         // EPI_QK8V: a multiple of HS_BN, or Nc; EPI_QKV16:
+                       // the q columns, even
+  float qscale;        // EPI_QKV16
 };
 
 constexpr int HS_BM = 128;   // rows of an output tile
@@ -348,6 +356,10 @@ hopper_gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_a,
         } else {
           float v0 = (float)a0 * sc.x + bb.x;
           float v1 = (float)a1 * sc.y + bb.y;
+          if (kEpi == HS_EPI_QKV16 && col < ep.qk_cols) {
+            v0 *= ep.qscale;
+            v1 *= ep.qscale;
+          }
           if (kEpi == HS_EPI_RESID || kEpi == HS_EPI_RESID_G) {
             const float2 r = __bfloat1622float2(
                 *reinterpret_cast<const __nv_bfloat162*>(
@@ -399,7 +411,7 @@ inline bool map_s8(CUtensorMap* m, const void* a, int rows, int cols,
 
 // out = epilogue(A @ W^T), A (M, K) int8 and W (Nc, K) int8 (K % 16 ==
 // 0); out8 (M, qk_cols or Nc) int8 and out16 (M, Nc - qk_cols or Nc) bf16
-// as the epilogue writes them
+// as the epilogue writes them (no out16 map where that width is 0)
 template <int kEpi>
 cudaError_t launch_gemm_s8(const int8_t* a, const int8_t* w, int M, int K,
                            int Nc, const HsEpilogue& ep, int8_t* out8,
@@ -411,8 +423,9 @@ cudaError_t launch_gemm_s8(const int8_t* a, const int8_t* w, int M, int K,
   if ((kEpi == HS_EPI_QK8V || kEpi == HS_EPI_GELU8) &&
       !map_s8(&t8, out8, M, n8, 64))
     return cudaErrorInvalidValue;
-  if (kEpi != HS_EPI_GELU8) {
-    const int n16 = Nc - (kEpi == HS_EPI_QK8V ? ep.qk_cols : 0);
+  const int n16 = kEpi == HS_EPI_GELU8 ? 0
+                  : Nc - (kEpi == HS_EPI_QK8V ? ep.qk_cols : 0);
+  if (n16 > 0) {
     const cuuint64_t dims[2] = {(cuuint64_t)n16, (cuuint64_t)M};
     const cuuint64_t strides[1] = {(cuuint64_t)n16 * 2};
     const cuuint32_t box[2] = {64, 64};

@@ -138,7 +138,7 @@ class DinoV2Block(QuantBlock):
         installed quant state, not per call), held as non-persistent
         buffers so that `.to(device)` moves them."""
         if self.int8_attn:
-            self._k2 = self._fold("k2", dict(self._attn_int8_fold(),
+            self._k2 = self._fold("k2", dict(self._attn_int8_fold(True),
                                              gamma=self.ls1.gamma.float()))
         if self.mlp.int8:
             self._k3 = self._fold("k3", self.mlp.int8_args(

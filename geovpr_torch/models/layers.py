@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from geovpr_torch.ops import quant
 from geovpr_torch.ops.quant import act_scale, amax_into, quantize_weight
 
 
@@ -449,7 +450,8 @@ class QuantBlock(nn.Module):
     def _fold(self, kernel: str, args: dict) -> dict:
         """Register a kernel's tensor arguments as non-persistent buffers
         (`_k2_ln_scale_q`, ...); return the argument dict naming them,
-        scalars as Python floats."""
+        scalars as Python floats and None (a mode's absent constant) as
+        None."""
         out = {}
         for k, v in args.items():
             if isinstance(v, torch.Tensor) and v.dim() > 0:
@@ -458,7 +460,7 @@ class QuantBlock(nn.Module):
                                      persistent=False)
                 out[k] = name
             else:
-                out[k] = float(v)
+                out[k] = None if v is None else float(v)
         return out
 
     def _folded_args(self, folded: dict | None) -> dict:
@@ -470,29 +472,46 @@ class QuantBlock(nn.Module):
         return {k: getattr(self, v) if isinstance(v, str) else v
                 for k, v in folded.items()}
 
-    def _attn_int8_fold(self) -> dict:
-        """The attention half's fold at the JAX defaults (int8 scores on,
-        int8 P.V off; `_attn_int8_fold` in `geovpr/models/dinov2.py:201-249`
-        and `swin.py:588-629`): 1/a_x into the LN scale and bias; a_x *
-        column scale into the qkv dequant row, with 1/a_q, 1/a_k and 1/a_ctx
-        folded into its q, k and v thirds; a_ctx * column scale into the
-        out-projection row; cs = a_q a_k dh^-0.5."""
+    def _attn_int8_fold(self, last_key: bool) -> dict:
+        """The attention half's fold in the mode `quant.INT8_QK_SCORES` and
+        `quant.INT8_PV` name when it runs (`_attn_int8_fold` in
+        `geovpr/models/dinov2.py:201-249` and `swin.py:588-629`): 1/a_x into
+        the LN scale and bias; a_x * column scale into the qkv dequant row,
+        with its thirds scaled per mode; a_ctx * column scale into the
+        out-projection row. int8 scores: 1/a_q, 1/a_k, 1/a_ctx into the q,
+        k, v thirds, cs = a_q a_k dh^-0.5; int8 P.V: 1/a_v into the v
+        third instead, cpv = a_v / (127 a_ctx) and, with `last_key` (the
+        ViT's key split), cpl = a_v / a_ctx; bf16 scores: 1/a_ctx into the
+        v third alone, cs None."""
         d = self.attn.proj_weight.shape[0]
         a_x, a_ctx = self.attn_a_x, self.attn_a_ctx
-        a_q, a_k = self.attn_a_q, self.attn_a_k
         col3 = torch.arange(3 * d, device=a_x.device)
-        thirds = torch.where(col3 < d, 1.0 / a_q,
-                             torch.where(col3 < 2 * d, 1.0 / a_k,
-                                         1.0 / a_ctx))
-        return dict(ln_scale_q=self.norm1.weight.float() / a_x,
-                    ln_bias_q=self.norm1.bias.float() / a_x,
-                    wqkv_q_t=self.attn_wqkv_q.t().contiguous(),
-                    sqkv_eff=a_x * self.attn_wqkv_scale * thirds,
-                    bqkv_eff=self.attn.qkv_bias.float() * thirds,
-                    wo_q_t=self.attn_wo_q.t().contiguous(),
-                    so_eff=a_ctx * self.attn_wo_scale,
-                    bo=self.attn.proj_bias.float(),
-                    cs=a_q * a_k * (d // self.num_heads) ** -0.5)
+        cs = cpv = cpl = None
+        if quant.INT8_QK_SCORES:
+            a_q, a_k = self.attn_a_q, self.attn_a_k
+            v_fold = 1.0 / a_ctx
+            if quant.INT8_PV:
+                a_v = self.attn_a_v
+                v_fold = 1.0 / a_v
+                cpv = a_v / (127.0 * a_ctx)
+                cpl = a_v / a_ctx
+            thirds = torch.where(col3 < d, 1.0 / a_q,
+                                 torch.where(col3 < 2 * d, 1.0 / a_k,
+                                             v_fold))
+            cs = a_q * a_k * (d // self.num_heads) ** -0.5
+        else:
+            thirds = torch.where(col3 < 2 * d, 1.0, 1.0 / a_ctx)
+        out = dict(ln_scale_q=self.norm1.weight.float() / a_x,
+                   ln_bias_q=self.norm1.bias.float() / a_x,
+                   wqkv_q_t=self.attn_wqkv_q.t().contiguous(),
+                   sqkv_eff=a_x * self.attn_wqkv_scale * thirds,
+                   bqkv_eff=self.attn.qkv_bias.float() * thirds,
+                   wo_q_t=self.attn_wo_q.t().contiguous(),
+                   so_eff=a_ctx * self.attn_wo_scale,
+                   bo=self.attn.proj_bias.float(), cs=cs, cpv=cpv)
+        if last_key:
+            out["cpl"] = cpl
+        return out
 
     def quant_state(self, amax: dict) -> dict:
         """The JAX "quant" entries of this block's attention from its

@@ -164,7 +164,7 @@ class SwinBlock(QuantBlock):
         """Fold the static scales into K5's and K3's arguments (no
         LayerScale: K3's gamma is ones)."""
         if self.int8_attn:
-            self._k5 = self._fold("k5", self._attn_int8_fold())
+            self._k5 = self._fold("k5", self._attn_int8_fold(False))
         if self.mlp.int8:
             self._k3 = self._fold("k3", self.mlp.int8_args(
                 self.norm2.weight, self.norm2.bias,

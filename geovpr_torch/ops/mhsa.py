@@ -18,9 +18,12 @@ import math
 
 import torch
 
-from geovpr_torch.ops.quant import (amax_into, check_devices,
+from geovpr_torch.ops.quant import (amax_into, attn_mode, check_devices,
                                     check_int8_kernel_args, check_shapes,
-                                    int_mm, layer_norm_f32, round_clip_int8)
+                                    int8_resid_reference, layer_norm_f32,
+                                    ln_quant_reference, mode_constants,
+                                    qkv_buffers, qkv_part_reference,
+                                    round_clip_int8)
 from geovpr_torch.ops.swin_block import (_heads, _ln_parts, _proj, _stream,
                                          _unheads)
 
@@ -187,13 +190,14 @@ fused_mhsa_block.launches = 0
 # ------------------------------------------------------------------- K2 ----
 #
 # The w8a8 half-block: the port of `geovpr/ops/pallas_mhsa.py::
-# fused_mhsa_block_int8` (with `cs` given and `cpv` not, the JAX defaults),
-# on the arguments `DinoV2Block`'s int8 fold produces (`geovpr/models/
-# dinov2.py:201-249`). As in K3 the int8 weights are (out, in): wqkv_q_t
-# (3D, D) and wo_q_t (D, D). `cs` is the natural-log score constant
-# a_q a_k dh^-0.5, as `_attention_int8` takes it; the kernel works in the
-# exp2 domain and the wrapper multiplies by log2(e), the factor JAX's
-# caller applies (`dinov2.py:267`).
+# fused_mhsa_block_int8` in its three modes (`quant.ATTN_MODES`), on the
+# arguments `DinoV2Block`'s int8 fold produces (`geovpr/models/dinov2.py:
+# 201-249`). As in K3 the int8 weights are (out, in): wqkv_q_t (3D, D) and
+# wo_q_t (D, D). `cs` is the natural-log score constant a_q a_k dh^-0.5, as
+# `_attention_int8` takes it; the kernel works in the exp2 domain and the
+# wrapper multiplies by log2(e), the factor JAX's caller applies
+# (`dinov2.py:267`). `cpv` = a_v / (127 a_ctx) and `cpl` = a_v / a_ctx
+# dequantise the int8 P.V product and the split-off last key.
 
 LOG2E = math.log2(math.e)
 
@@ -209,53 +213,26 @@ def mhsa_block_int8_reference(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff,
                               bqkv_eff, wo_q_t, so_eff, bo, gamma,
                               num_heads: int, ln_eps: float = 1e-6,
                               cs=None, cpv=None, cpl=None):
-    """Plain PyTorch version, with the rounding points of the XLA fallback
-    `DinoV2Block._attention_int8` (LN -> int8, qkv dequant, q/k -> int8,
-    v -> bf16, ctx -> int8, out in f32) in all three of its modes: `cs`
-    given (int8 q.k^T scores, bf16 P.V; the default), `cs` and `cpv` given
-    (int8 P.V on max-shifted probabilities quantized to 127ths), and `cs`
-    None (bf16 scores). In the default mode the softmax is the one K2 and
-    the JAX kernel body run (`_stage_split_attention_qk8` with `skip_max`):
-    exp2(min(s cs log2(e), 100)) with no max-shift, the unnormalised p
-    rounded to bf16, the f32 sum dividing the context. The fallback's
-    normalised softmax rounds p at another place, which on an H100 moved
+    """Plain PyTorch version of K2 in all three modes of
+    `fused_mhsa_block_int8`: `cs` given (int8 q.k^T scores, bf16 P.V; the
+    default), `cs` and `cpv`, `cpl` given (int8 P.V), `cs` None (bf16
+    scores). Rounding points as JAX's kernel body `_mhsa_kernel_v3_int8`
+    (LN -> int8, the qkv dequant, the attention, ctx -> int8 once, out in
+    f32), its attention as `vit_attention8_reference` says. The XLA
+    fallback `DinoV2Block._attention_int8` normalises p before rounding it
+    (and in bf16 scores rounds q before its scale), which on an H100 moved
     ~5% of the int8 contexts of a DINOv2-B block by one step against the
     kernel; this way kernel and plain version differ only in summation
-    order. The other two modes keep the fallback's max-shifted softmax."""
+    order. Composed of the plain parts of K2's four launches."""
     b, n, d = x.shape
-    dh = d // num_heads
-    xf = x.float()
-    xq = round_clip_int8(layer_norm_f32(xf, ln_eps) * ln_scale_q + ln_bias_q)
-    yi = int_mm(xq.reshape(-1, d), wqkv_q_t.t())
-    qkv_f = (yi.float() * sqkv_eff + bqkv_eff).reshape(b, n, 3 * d)
-
-    def heads(t):
-        return t.reshape(b, n, num_heads, dh).transpose(1, 2)
-
-    if cs is None:
-        q, k, v = qkv_f.to(torch.bfloat16).split(d, dim=-1)
-        s = _mm(heads(q), heads(k).transpose(-1, -2)) * dh ** -0.5
-        p = torch.softmax(s, dim=-1).to(torch.bfloat16)
-        ctx = _mm(p, heads(v))
-    else:
-        q8 = round_clip_int8(qkv_f[..., :d])
-        k8 = round_clip_int8(qkv_f[..., d:2 * d])
-        si = _exact_bmm(heads(q8), heads(k8).transpose(-1, -2))
-        if cpv is None:
-            cs2 = torch.tensor(float(cs) * LOG2E, dtype=torch.float32)
-            p = torch.exp2(torch.clamp(si * cs2.to(si.device), max=100.0))
-            v = qkv_f[..., 2 * d:].to(torch.bfloat16)
-            ctx = _mm(p.to(torch.bfloat16), heads(v)) / p.sum(-1, keepdim=True)
-        else:
-            s = si * cs
-            v8 = round_clip_int8(qkv_f[..., 2 * d:])
-            p = torch.exp(s - s.amax(-1, keepdim=True))
-            z = p.sum(-1, keepdim=True)
-            pi = torch.round(p * 127.0).to(torch.int8)
-            ctx = _exact_bmm(pi, heads(v8)) * cpv / z
-    ctxq = round_clip_int8(ctx.transpose(1, 2).reshape(b * n, d))
-    out = int_mm(ctxq, wo_q_t.t()).float() * so_eff + bo
-    return (out.reshape(b, n, d) * gamma + xf).to(x.dtype)
+    mode = attn_mode(cs, cpv)
+    xq = ln_quant_reference(x, ln_scale_q, ln_bias_q, ln_eps)
+    qk, v = qkv_part_reference(xq, wqkv_q_t, sqkv_eff, bqkv_eff, mode,
+                               (d // num_heads) ** -0.5 * LOG2E)
+    ctx8 = vit_attention8_reference(qk, v, num_heads, n, cs, cpv, cpl)
+    out = int8_resid_reference(ctx8, wo_q_t, so_eff, bo, x.reshape(b * n, d),
+                               gamma=gamma)
+    return out.reshape(b, n, d)
 
 
 def fused_mhsa_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
@@ -265,16 +242,18 @@ def fused_mhsa_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
                           bo: torch.Tensor, gamma: torch.Tensor,
                           num_heads: int, ln_eps: float = 1e-6,
                           cs=None, cpv=None, cpl=None) -> torch.Tensor:
-    """w8a8 fused attention half-block. CPU tensors run the plain version
-    in any mode; CUDA tensors launch K2 (int8 scores with `cs` given, bf16
-    P.V; bf16 x, int8 matrices, f32 vectors, contiguous, head dim 64,
-    forward only) or raise, also on the two modes the kernel does not take
-    (`cs` None, or `cpv`/`cpl` given)."""
+    """w8a8 fused attention half-block. CPU tensors run the plain version;
+    CUDA tensors launch K2 in the mode of (cs, cpv) (bf16 x, int8
+    matrices, f32 vectors, contiguous, head dim 64, forward only) or
+    raise."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, N, D), got {tuple(x.shape)}")
     b, n, d = x.shape
     if d % num_heads:
         raise ValueError(f"D={d} is not divisible by num_heads={num_heads}")
+    mode = attn_mode(cs, cpv)
+    if mode == "int8_pv" and cpl is None:
+        raise ValueError("int8 P.V takes cpl (the last key's constant) too")
     want = {"ln_scale_q": (d,), "ln_bias_q": (d,), "wqkv_q_t": (3 * d, d),
             "sqkv_eff": (3 * d,), "bqkv_eff": (3 * d,), "wo_q_t": (d, d),
             "so_eff": (d,), "bo": (d,), "gamma": (d,)}
@@ -288,18 +267,14 @@ def fused_mhsa_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
             so_eff, bo, gamma, num_heads, ln_eps, cs, cpv, cpl)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if cs is None or cpv is not None or cpl is not None:
-        raise NotImplementedError(
-            "the K2 kernel takes only the default mode (int8 scores, bf16 "
-            "P.V): cs=None and the int8-P.V mode are still to port (ROADMAP)")
     mats = {k: got[k] for k in ("wqkv_q_t", "wo_q_t")}
     vecs = {k: v for k, v in got.items() if k not in mats}
     check_int8_kernel_args(x, mats, vecs)
     err = k2_shape_error(d, num_heads)
     if err:
         raise ValueError(err)
-    bufs = k2_buffers(x)
-    lib, args = _k2_args(x, got, num_heads, ln_eps, cs, bufs)
+    bufs = k2_buffers(x, mode)
+    lib, args = _k2_args(x, got, num_heads, ln_eps, cs, cpv, cpl, bufs)
     with torch.cuda.device(x.device):
         rc = lib.geovpr_mhsa_block_int8(*args, _stream(x.device))
     if rc != 0:
@@ -321,13 +296,12 @@ def k2_shape_error(d: int, num_heads: int) -> str | None:
     return None
 
 
-def k2_buffers(x: torch.Tensor) -> tuple:
-    """K2's scratch and output for x (B, N, D): qk8 (B*N, 2D) int8, v (B*N,
-    D) bf16, ctx8 (B*N, D) int8 (the LN-quant rows until the attention
-    writes it) and out."""
+def k2_buffers(x: torch.Tensor, mode: str = "int8_scores") -> tuple:
+    """K2's scratch and output for x (B, N, D) in `mode`: what the QKV
+    launch writes (`quant.qkv_buffers`), ctx8 (B*N, D) int8
+    (the LN-quant rows until the attention writes it) and out."""
     m, d = x.shape[0] * x.shape[1], x.shape[-1]
-    return (torch.empty((m, 2 * d), dtype=torch.int8, device=x.device),
-            torch.empty((m, d), dtype=torch.bfloat16, device=x.device),
+    return (*qkv_buffers(m, d, mode, x.device),
             torch.empty((m, d), dtype=torch.int8, device=x.device),
             torch.empty_like(x))
 
@@ -337,10 +311,11 @@ _K2_ARGS = ("ln_scale_q", "ln_bias_q", "wqkv_q_t", "sqkv_eff", "bqkv_eff",
 K2_PARTS = ("ln_quant", "qkv_gemm", "attention", "out_proj")
 
 
-def _k2_args(x, got: dict, num_heads: int, ln_eps: float, cs, bufs):
+def _k2_args(x, got: dict, num_heads: int, ln_eps: float, cs, cpv, cpl,
+             bufs):
     """The library and K2's C arguments (but the stream) for a checked
-    CUDA x, its arguments `got` by name and the (qk8, v, ctx8, out)
-    buffers `bufs`."""
+    CUDA x, its arguments `got` by name and the (qk, v, ctx8, out) buffers
+    `bufs` of the mode of (cs, cpv)."""
     from geovpr_torch.ops._build import library_on
     lib = library_on(x.device.index, "geovpr_mhsa_int8_init")
     ptrs = [x] + [got[k] for k in _K2_ARGS] + list(bufs)
@@ -349,43 +324,77 @@ def _k2_args(x, got: dict, num_heads: int, ln_eps: float, cs, bufs):
                          "each must start 16-byte aligned")
     b, n, d = x.shape
     return lib, (*(t.data_ptr() for t in ptrs), b, n, d, num_heads,
-                 float(ln_eps), float(cs) * LOG2E)
+                 float(ln_eps), *mode_constants(
+                     cs, cpv, cpl, d // num_heads,
+                     lambda c: float(c) * LOG2E))
 
 
 def k2_launch_part(part: int, x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff,
                    bqkv_eff, wo_q_t, so_eff, bo, gamma, num_heads: int,
-                   ln_eps: float = 1e-6, cs=None, *, bufs) -> None:
-    """One of K2's four launches (an index into K2_PARTS) alone, on the
-    CUDA arguments of `fused_mhsa_block_int8` (default mode) and the
-    `k2_buffers` `bufs`, whose contents from an earlier call it reads.
-    chip_smoke.py times K2's launches one by one with it and the card tests
-    check each against its plain part; it counts no launch."""
+                   ln_eps: float = 1e-6, cs=None, cpv=None, cpl=None, *,
+                   bufs) -> None:
+    """One of K2's four launches (an index into K2_PARTS) alone, in the
+    mode of (cs, cpv), on the CUDA arguments of `fused_mhsa_block_int8` and
+    the `k2_buffers` of that mode `bufs`, whose contents from an earlier
+    call it reads. chip_smoke.py times K2's launches one by one with it and
+    the card tests check each against its plain part; it counts no
+    launch."""
     got = dict(zip(_K2_ARGS, (ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff,
                               bqkv_eff, wo_q_t, so_eff, bo, gamma)))
     err = k2_shape_error(x.shape[-1], num_heads)
     if err:
         raise ValueError(err)
-    lib, args = _k2_args(x, got, num_heads, ln_eps, cs, bufs)
+    lib, args = _k2_args(x, got, num_heads, ln_eps, cs, cpv, cpl, bufs)
     with torch.cuda.device(x.device):
         rc = lib.geovpr_mhsa_int8_parts(*args, part, part, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"mhsa_int8 kernel launch failed: CUDA error {rc}")
 
 
-def vit_attention8_reference(qk8, v, num_heads: int, n: int, cs):
-    """Plain version of K2's attention launch: ctx8 (B*N, D) int8 from qk8
-    (B*N, 2D) int8 (q | k) and v (B*N, D) bf16 of images of N tokens, in
-    the default mode of `mhsa_block_int8_reference`."""
-    m, d = v.shape
+def vit_attention8_reference(qk, v, num_heads: int, n: int, cs, cpv=None,
+                             cpl=None):
+    """Plain version of K2's attention launch: ctx8 (B*N, D) int8 from the
+    QKV launch's (qk, v) (`qkv_part_reference`) of images of N tokens, in
+    the mode of (cs, cpv), with the softmax of JAX's kernel body
+    (`_stage_split_attention[_qk8]` with `skip_max`, `pallas_mhsa.py:
+    107-220`):
+    - int8 scores: s = (q8 k8^T) cs log2(e), exact int32 sums rounded
+      once; p = exp2(min(s, 100)) with no max-shift, rounded to bf16 for
+      P.V; the f32 row sum divides the context;
+    - bf16 scores: s = f32(q k^T) of the bf16 q (scale folded in) and k,
+      then as int8 scores;
+    - int8 P.V: s as int8 scores; p = exp2(s - max_j s) over every key;
+      z the f32 sum of p; the first N - 1 keys' p rounded to 127ths and
+      multiplied by int8 v exactly, the last key's p kept in f32 (JAX's
+      key split): ctx = (ci cpv + (p_last cpl) v_last) / z.
+    The context is rounded once to int8. JAX keeps the last key's p in f32
+    in every mode; here it is rounded with the rest except in int8 P.V."""
+    mode = attn_mode(cs, cpv)
+    d = qk.shape[-1] // (2 if mode == "int8_scores" else 3)
+    m = qk.shape[0]
     b = m // n
 
     def heads(t):
         return t.reshape(b, n, num_heads, d // num_heads).transpose(1, 2)
 
-    si = _exact_bmm(heads(qk8[:, :d]), heads(qk8[:, d:]).transpose(-1, -2))
-    cs2 = torch.tensor(float(cs) * LOG2E, dtype=torch.float32)
-    p = torch.exp2(torch.clamp(si * cs2.to(si.device), max=100.0))
-    ctx = _mm(p.to(torch.bfloat16), heads(v)) / p.sum(-1, keepdim=True)
+    q, k = heads(qk[:, :d]), heads(qk[:, d:2 * d])
+    if mode == "bf16_scores":
+        s = _mm(q, k.transpose(-1, -2))
+    else:
+        cs2 = torch.tensor(float(cs) * LOG2E, dtype=torch.float32)
+        s = _exact_bmm(q, k.transpose(-1, -2)) * cs2.to(qk.device)
+    if mode == "int8_pv":
+        v8 = heads(qk[:, 2 * d:])
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        z = p.sum(-1, keepdim=True)
+        pi = torch.round(p[..., :n - 1] * 127.0).to(torch.int8)
+        ci = _exact_bmm(pi, v8[..., :n - 1, :])
+        ctx = (ci * cpv + (p[..., n - 1:] * cpl) * v8[..., n - 1:, :].float()
+               ) / z
+    else:
+        p = torch.exp2(torch.clamp(s, max=100.0))
+        vh = heads(qk[:, 2 * d:] if mode == "bf16_scores" else v)
+        ctx = _mm(p.to(torch.bfloat16), vh) / p.sum(-1, keepdim=True)
     return round_clip_int8(ctx.transpose(1, 2).reshape(m, d))
 
 

@@ -6,9 +6,15 @@ Scheme (static post-training quantization, as in the JAX package):
 - activations: symmetric per-tensor int8 with static scales calibrated on
   sample batches (`geovpr_torch.models.quantize`).
 
-The JAX package's two mode switches stay at their defaults here, with no
-environment knob: int8 q·kᵀ score matmuls on (`INT8_QK_SCORES`), int8 P·V
-off (`INT8_PV`).
+The attention halves run in one of three modes, chosen by the same
+environment variables as the JAX package's (`geovpr/ops/quant.py:34-39`),
+read once when this module is imported:
+- `INT8_QK_SCORES` (on unless `GEOVPR_INT8_QK=0`): int8 q·kᵀ scores, bf16
+  P·V (the default); off, bf16 scores;
+- `INT8_PV` (`GEOVPR_INT8_PV=1`, and only with int8 scores): int8 P·V on
+  the max-shifted probabilities quantized to 127ths.
+The model folds read the two flags through this module when they fold
+(`QuantBlock._attn_int8_fold`), so a test may set them per model.
 
 Rounding: `torch.round` rounds half to even, as `jnp.round` does.
 Exactness: an int8 product summed over K terms reaches 127² K, which f32
@@ -18,11 +24,29 @@ through `torch._int_mm` (exact int32 sums).
 
 from __future__ import annotations
 
+import math
+import os
+
 import numpy as np
 import torch
 
-INT8_QK_SCORES = True
-INT8_PV = False
+INT8_QK_SCORES = os.environ.get("GEOVPR_INT8_QK", "1") != "0"
+INT8_PV = os.environ.get("GEOVPR_INT8_PV", "0") == "1" and INT8_QK_SCORES
+
+# The attention modes of the int8 half-blocks K2 and K5, in the order of
+# the kernels' mode codes: int8 scores with bf16 P.V (`cs` given), int8
+# P.V on top (`cs` and `cpv` given), bf16 scores (`cs` None).
+ATTN_MODES = ("int8_scores", "int8_pv", "bf16_scores")
+
+
+def attn_mode(cs, cpv) -> str:
+    """The mode of the folded constants: `cs` None is bf16 scores, `cpv`
+    given int8 P.V (which needs int8 scores, as `INT8_PV` does)."""
+    if cs is None:
+        if cpv is not None:
+            raise ValueError("int8 P.V (cpv) needs int8 scores (cs)")
+        return "bf16_scores"
+    return "int8_scores" if cpv is None else "int8_pv"
 
 
 def quantize_weight(w) -> tuple[torch.Tensor, torch.Tensor]:
@@ -106,6 +130,38 @@ def qk8v_reference(xq, wqkv_q_t, sqkv_eff, bqkv_eff):
     return round_clip_int8(f[:, :2 * c]), f[:, 2 * c:].to(torch.bfloat16)
 
 
+def qkv_part_reference(xq, wqkv_q_t, sqkv_eff, bqkv_eff,
+                       mode: str = "int8_scores", qscale: float = 1.0):
+    """Plain version of the QKV launch of K2 and K5 in each attention mode
+    (`ATTN_MODES`): from the LN-quant rows xq (M, C) int8, the (qk, v) the
+    launch writes. int8 scores: `qk8v_reference`'s qk8 (M, 2C) and v (M, C)
+    bf16; int8 P.V: q | k | v (M, 3C) rounded to int8; bf16 scores: q | k |
+    v (M, 3C) bf16, the q third times `qscale` = dh^-0.5 log2(e) in f32
+    before the rounding (JAX's `srow`). v is empty (M, 0) in the last two."""
+    if mode == "int8_scores":
+        return qk8v_reference(xq, wqkv_q_t, sqkv_eff, bqkv_eff)
+    c = xq.shape[-1]
+    f = int_mm(xq, wqkv_q_t.t()).float() * sqkv_eff + bqkv_eff
+    none = f.new_empty((f.shape[0], 0), dtype=torch.bfloat16)
+    if mode == "int8_pv":
+        return round_clip_int8(f), none
+    f[:, :c] = f[:, :c] * qscale
+    return f.to(torch.bfloat16), none
+
+
+def qkv_buffers(m: int, c: int, mode: str, device) -> tuple:
+    """The (qk, v) buffers of K2's and K5's QKV launch in `mode`, shaped as
+    `qkv_part_reference` returns them: qk8 (M, 2C) int8 and v (M, C) bf16
+    (int8 scores), qkv8 (M, 3C) int8 (int8 P.V) or qkv (M, 3C) bf16 (bf16
+    scores) and an empty v."""
+    if mode == "int8_scores":
+        return (torch.empty((m, 2 * c), dtype=torch.int8, device=device),
+                torch.empty((m, c), dtype=torch.bfloat16, device=device))
+    dt = torch.int8 if mode == "int8_pv" else torch.bfloat16
+    return (torch.empty((m, 3 * c), dtype=dt, device=device),
+            torch.empty((m, 0), dtype=torch.bfloat16, device=device))
+
+
 def int8_resid_reference(a8: torch.Tensor, w_q_t: torch.Tensor,
                          s_eff: torch.Tensor, b: torch.Tensor,
                          res: torch.Tensor, gamma=None) -> torch.Tensor:
@@ -116,6 +172,19 @@ def int8_resid_reference(a8: torch.Tensor, w_q_t: torch.Tensor,
     if gamma is not None:
         y = y * gamma
     return (y + res.float()).to(res.dtype)
+
+
+def mode_constants(cs, cpv, cpl, dh: int, score_constant) -> tuple:
+    """The kernels' trailing scalars: (score constant, mode code, qscale,
+    cpv, cpl). The score constant is cs in the exp2 domain
+    (`score_constant(cs)`; 0 in bf16 scores), the mode code an index into
+    `ATTN_MODES`, qscale = dh^-0.5 log2(e) (the q third's factor in bf16
+    scores), cpv and cpl 0 where the mode has none."""
+    mode = attn_mode(cs, cpv)
+    return (0.0 if cs is None else score_constant(cs),
+            ATTN_MODES.index(mode), dh ** -0.5 * math.log2(math.e),
+            0.0 if cpv is None else float(cpv),
+            0.0 if cpl is None else float(cpl))
 
 
 def check_shapes(want: dict, got: dict) -> None:

@@ -21,7 +21,8 @@ plain versions, which round where the JAX kernels round (`_kernel`,
 - q carries dh^-0.5 * log2(e) from the f32 qkv, before its rounding;
 - scores, bias and mask are in the exp2 domain; the softmax is the serving
   one, p = exp2(min(s, 100)) with no max-shift (`_SKIP_MAX`), P rounded to
-  the compute dtype for P.V, the f32 row sum dividing the context.
+  the compute dtype for P.V, the f32 row sum dividing the context (K5 in
+  int8 P.V: max-shifted, P in 127ths; `swin_attention8_reference`).
 """
 
 from __future__ import annotations
@@ -32,9 +33,12 @@ import math
 import numpy as np
 import torch
 
-from geovpr_torch.ops.quant import (check_devices, check_int8_kernel_args,
-                                    check_shapes, int_mm, layer_norm_f32,
-                                    round_clip_int8)
+from geovpr_torch.ops.quant import (attn_mode, check_devices,
+                                    check_int8_kernel_args, check_shapes,
+                                    int8_resid_reference, int_mm,
+                                    layer_norm_f32, ln_quant_reference,
+                                    mode_constants, qkv_buffers,
+                                    qkv_part_reference, round_clip_int8)
 from geovpr_torch.ops.window_attention import (_raster_ctx, _windows_qkv,
                                                add_bias_mask, from_windows,
                                                relative_position_bias,
@@ -350,76 +354,53 @@ fused_swin_attn_block.launches = 0
 
 # ------------------------------------------------------------------- K5 ----
 #
-# The w8a8 half-block, on the arguments `SwinBlock`'s int8 fold produces
-# (the port of `geovpr/models/swin.py:588-629`; no LayerScale). `cs` is the
-# natural-log score constant a_q a_k dh^-0.5; the kernel works in the exp2
-# domain and the wrapper passes cs * log2(e), the factor JAX's caller
-# applies (`swin.py:654`).
+# The w8a8 half-block in its three modes (`quant.ATTN_MODES`), on the
+# arguments `SwinBlock`'s int8 fold produces (the port of
+# `geovpr/models/swin.py:588-629`; no LayerScale). `cs` is the natural-log
+# score constant a_q a_k dh^-0.5; the kernel works in the exp2 domain and
+# the wrapper passes cs * log2(e), the factor JAX's caller applies
+# (`swin.py:654`). `cpv` = a_v / (127 a_ctx) dequantises the int8 P.V
+# product (no key split: Swin's kernel has none).
 
 def swin_attn_block_int8_reference(x, ln_scale_q, ln_bias_q, wqkv_q_t,
                                    sqkv_eff, bqkv_eff, wo_q_t, so_eff, bo,
                                    table, num_heads: int, resolution: int,
                                    window: int, shift: int,
                                    ln_eps: float = 1e-5, cs=None, cpv=None):
-    """Plain PyTorch version of K5 in all three modes of the JAX fallback
-    `SwinBlock._attention_int8` (`geovpr/models/swin.py:662-729`): `cs`
-    given (int8 q.k^T, bf16 P.V; the default), `cs` and `cpv` given (int8
-    P.V on max-shifted probabilities in 127ths), `cs` None (bf16 scores).
-    The default mode rounds where the kernel and the JAX kernel body
-    (`_swin_attention_stages_qk8`) do: exp2(min(s cs log2(e) + bias +
-    mask, 100)) with no max-shift, P rounded to bf16, the f32 sum dividing
-    the context, which is rounded to int8 once. The fallback differs there
-    (normalised softmax, and the context rounded to bf16 before int8); the
-    other two modes keep the fallback's arithmetic."""
+    """Plain PyTorch version of K5 in all three modes of
+    `fused_swin_attn_block_int8`: `cs` given (int8 q.k^T, bf16 P.V; the
+    default), `cs` and `cpv` given (int8 P.V), `cs` None (bf16 scores).
+    Rounding points as JAX's kernel body `_kernel_int8`, its attention as
+    `swin_attention8_reference` says. The XLA fallback
+    `SwinBlock._attention_int8` (`geovpr/models/swin.py:662-729`, the
+    window-7 half `swin_attn_block_int8_unfused` here) differs there
+    (natural-log softmax, normalised before P is rounded, and the context
+    rounded to bf16 before int8). Composed of the plain parts of K5's four
+    launches."""
     b, l, c = x.shape
-    xf = x.float()
-    xq = round_clip_int8(layer_norm_f32(xf, ln_eps) * ln_scale_q + ln_bias_q)
-    yi = int_mm(xq.reshape(-1, c), wqkv_q_t.t())
-    qkv_f = (yi.float() * sqkv_eff + bqkv_eff).reshape(b, l, 3 * c)
-    bias = relative_position_bias(table.float(), window)
-    mask = shift_mask(resolution, window, shift, x.device)
-
-    def windows(t):
-        return _windows_qkv(t, resolution, window, shift, num_heads)
-
-    if cs is None:
-        ctx = window_attention(*windows(qkv_f.to(torch.bfloat16)), bias,
-                               mask).float()
-    else:
-        q8, k8, v8 = windows(round_clip_int8(qkv_f))
-        si = _exact_bmm(q8, k8.transpose(-1, -2))
-        if cpv is None:
-            bias2, mask2 = _log2_bias_mask(table, window, resolution, shift,
-                                           x.device)
-            s = add_bias_mask(si * score_constant(cs), bias2, mask2)
-            p = torch.exp2(torch.clamp(s, max=100.0))
-            v = windows(qkv_f.to(torch.bfloat16))[2]
-            ctx = _mm(p.to(torch.bfloat16), v) / p.sum(-1, keepdim=True)
-        else:
-            s = add_bias_mask(si * cs, bias, mask)
-            p = torch.exp(s - s.amax(-1, keepdim=True))
-            z = p.sum(-1, keepdim=True)
-            pi = torch.round(p * 127.0).to(torch.int8)
-            ctx = _exact_bmm(pi, v8) * cpv / z
-    ctxq = round_clip_int8(_raster_ctx(ctx, resolution, window, shift)
-                           .reshape(b * l, c))
-    out = int_mm(ctxq, wo_q_t.t()).float() * so_eff + bo
-    return (out.reshape(b, l, c) + xf).to(x.dtype)
+    mode = attn_mode(cs, cpv)
+    xq = ln_quant_reference(x, ln_scale_q, ln_bias_q, ln_eps)
+    qk, v = qkv_part_reference(xq, wqkv_q_t, sqkv_eff, bqkv_eff, mode,
+                               (c // num_heads) ** -0.5 * LOG2E)
+    ctx8 = swin_attention8_reference(qk, v, table, num_heads, resolution,
+                                     window, shift, cs, cpv)
+    out = int8_resid_reference(ctx8, wo_q_t, so_eff, bo, x.reshape(b * l, c))
+    return out.reshape(b, l, c)
 
 
-def _int8_scores(q8: torch.Tensor, k8: torch.Tensor) -> torch.Tensor:
-    """q8 k8^T of int8-valued (BW, H, N, dh) tensors, exact, as f32 (BW, H,
-    N, N): JAX's int32 einsum. On CUDA a bf16 product with an f32 result:
+def _int8_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of int8-valued (..., M, K) and (..., K, N) tensors, exact, as
+    f32: JAX's int32 einsum. On CUDA a bf16 product with an f32 result:
     int8 values are exact in bf16, their products in f32, and every partial
-    sum stays below 2^24 (dh 127^2, dh <= 1040), so any order of sums is
-    exact; elsewhere `_exact_bmm`."""
-    if not q8.is_cuda:
-        return _exact_bmm(q8, k8.transpose(-1, -2))
-    bw, h, n, dh = q8.shape
-    s = torch.bmm(q8.reshape(-1, n, dh).to(torch.bfloat16),
-                  k8.reshape(-1, n, dh).to(torch.bfloat16).transpose(1, 2),
-                  out_dtype=torch.float32)
-    return s.reshape(bw, h, n, n)
+    sum stays below 2^24 (K 127^2 <= 2^24, K <= 1040), so any order of sums
+    is exact; elsewhere `_exact_bmm`."""
+    if not a.is_cuda:
+        return _exact_bmm(a, b)
+    m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+    out = torch.bmm(a.reshape(-1, m, k).to(torch.bfloat16),
+                    b.reshape(-1, k, n).to(torch.bfloat16),
+                    out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], n)
 
 
 def swin_attn_block_int8_unfused(x, ln_scale_q, ln_bias_q, wqkv_q_t,
@@ -430,32 +411,47 @@ def swin_attn_block_int8_unfused(x, ln_scale_q, ln_bias_q, wqkv_q_t,
     """The w8a8 attention half at a window K5 does not take (window 7), as
     torch ops: JAX runs it in XLA, the fallback of
     `SwinBlock._attention_int8` (`geovpr/models/swin.py:660-730`), in its
-    default mode (`cs` given, `cpv` None), on the folded arguments of K5.
-    LayerNorm in f32 and the LN-quant, the int8 QKV product
-    (`torch._int_mm`), on the raster rows; the windows of the dequantised
-    qkv gathered in window order with the cyclic shift (`_windows_qkv`),
-    the int8 q.k^T scores times `cs`, plus bias and shift mask, the f32
-    softmax and P.V on bf16 P and v, the bf16 context scattered back to
-    raster order, rounded to int8 for the int8 out projection, and the
-    residual added in f32. The other two modes raise."""
-    if cs is None or cpv is not None:
-        raise NotImplementedError(
-            "the window-7 w8a8 half takes the default mode (int8 scores, "
-            "bf16 P.V): cs=None and the int8-P.V mode are still to port "
-            "(ROADMAP Queue 2)")
+    three modes, on the folded arguments of K5. LayerNorm in f32 and the
+    LN-quant, the int8 QKV product (`torch._int_mm`), on the raster rows;
+    the windows of the dequantised qkv gathered in window order with the
+    cyclic shift (`_windows_qkv`); then, in the natural-log domain, bias
+    and shift mask added to the scores:
+    - int8 scores (`cs`): q8 k8^T times cs, the f32 softmax, P.V on bf16 P
+      and v, the context rounded to bf16;
+    - int8 P.V (`cs`, `cpv`): the same scores, p = exp(s - max) in f32, z
+      its sum, p rounded to 127ths, times the int8 v exactly, * cpv / z;
+    - bf16 scores (`cs` None): bf16 q, k, v, f32 scores times dh^-0.5, the
+      softmax, bf16 P.V, the context rounded to bf16 (`window_attention`).
+    The context is scattered back to raster order, rounded to int8 for the
+    int8 out projection, and the residual added in f32."""
     _check_geometry(x, num_heads, resolution, window, shift)
+    mode = attn_mode(cs, cpv)
     b, l, c = x.shape
     xf = x.float()
     xq = round_clip_int8(layer_norm_f32(xf, ln_eps) * ln_scale_q + ln_bias_q)
     qkv_f = (int_mm(xq.reshape(-1, c), wqkv_q_t.t()).float() * sqkv_eff
              + bqkv_eff).reshape(b, l, 3 * c)
-    q, k, v = _windows_qkv(qkv_f, resolution, window, shift, num_heads)
-    s = _int8_scores(round_clip_int8(q), round_clip_int8(k)) * cs
-    s = add_bias_mask(s, relative_position_bias(table.float(), window),
-                      shift_mask(resolution, window, shift, x.device))
-    p = torch.softmax(s, dim=-1)
-    ctx = torch.matmul(p.to(torch.bfloat16).float(),
-                       v.to(torch.bfloat16).float()).to(torch.bfloat16)
+    bias = relative_position_bias(table.float(), window)
+    mask = shift_mask(resolution, window, shift, x.device)
+    if mode == "bf16_scores":
+        ctx = window_attention(*_windows_qkv(qkv_f.to(torch.bfloat16),
+                                             resolution, window, shift,
+                                             num_heads), bias, mask)
+    else:
+        q, k, v = _windows_qkv(qkv_f, resolution, window, shift, num_heads)
+        s = _int8_product(round_clip_int8(q),
+                          round_clip_int8(k).transpose(-1, -2)) * cs
+        s = add_bias_mask(s, bias, mask)
+        if mode == "int8_pv":
+            p = torch.exp(s - s.amax(-1, keepdim=True))
+            z = p.sum(-1, keepdim=True)
+            pi = torch.round(p * 127.0).to(torch.int8)
+            ctx = _int8_product(pi, round_clip_int8(v)) * cpv / z
+        else:
+            p = torch.softmax(s, dim=-1)
+            ctx = torch.matmul(p.to(torch.bfloat16).float(),
+                               v.to(torch.bfloat16).float()
+                               ).to(torch.bfloat16)
     ctxq = round_clip_int8(_raster_ctx(ctx, resolution, window, shift)
                            .reshape(b * l, c).float())
     out = int_mm(ctxq, wo_q_t.t()).float() * so_eff + bo
@@ -479,12 +475,11 @@ def fused_swin_attn_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
                                ln_eps: float = 1e-5, cs=None,
                                cpv=None) -> torch.Tensor:
     """w8a8 Swin attention half-block on the raster stream. CPU tensors run
-    the plain version in any mode; CUDA tensors launch K5 (int8 scores with
-    `cs` given, bf16 P.V; bf16 x, int8 matrices, f32 vectors and table,
-    contiguous, `k5_shape_error`'s geometry, forward only) or raise, also
-    on the two modes the kernel does not take (`cs` None, or `cpv`
-    given)."""
+    the plain version; CUDA tensors launch K5 in the mode of (cs, cpv)
+    (bf16 x, int8 matrices, f32 vectors and table, contiguous,
+    `k5_shape_error`'s geometry, forward only) or raise."""
     _check_geometry(x, num_heads, resolution, window, shift)
+    mode = attn_mode(cs, cpv)
     got = _k5_got(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
                   wo_q_t, so_eff, bo, table, num_heads, window)
     if x.device.type == "cpu":
@@ -494,19 +489,15 @@ def fused_swin_attn_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
             cs, cpv)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if cs is None or cpv is not None:
-        raise NotImplementedError(
-            "the K5 kernel takes only the default mode (int8 scores, bf16 "
-            "P.V): cs=None and the int8-P.V mode are still to port (ROADMAP)")
     mats = {k: got[k] for k in ("wqkv_q_t", "wo_q_t")}
     vecs = {k: v for k, v in got.items() if k not in mats}
     check_int8_kernel_args(x, mats, vecs)
     err = k5_shape_error(x.shape[-1], num_heads, window, shift)
     if err:
         raise ValueError(err)
-    bufs = k5_buffers(x)
+    bufs = k5_buffers(x, mode)
     lib, args = _k5_args(x, got, num_heads, resolution, window, shift, ln_eps,
-                         cs, bufs)
+                         cs, cpv, bufs)
     with torch.cuda.device(x.device):
         rc = lib.geovpr_swin_attn_int8(*args, _stream(x.device))
     if rc != 0:
@@ -532,30 +523,32 @@ def _k5_got(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff, wo_q_t,
     return got
 
 
-def k5_buffers(x: torch.Tensor) -> tuple:
-    """K5's scratch and output for x (B, L, C): qk8 (B*L, 2C) int8, v (B*L,
-    C) bf16, ctx8 (B*L, C) int8 (the LN-quant rows until the attention
-    writes it) and out."""
+def k5_buffers(x: torch.Tensor, mode: str = "int8_scores") -> tuple:
+    """K5's scratch and output for x (B, L, C) in `mode`: what the QKV
+    launch writes (`quant.qkv_buffers`), ctx8 (B*L, C) int8 (the
+    LN-quant rows until the attention writes it) and out."""
     m, c = x.shape[0] * x.shape[1], x.shape[-1]
-    return (torch.empty((m, 2 * c), dtype=torch.int8, device=x.device),
-            torch.empty((m, c), dtype=torch.bfloat16, device=x.device),
+    return (*qkv_buffers(m, c, mode, x.device),
             torch.empty((m, c), dtype=torch.int8, device=x.device),
             torch.empty_like(x))
 
 
 def _k5_args(x, got: dict, num_heads, resolution, window, shift, ln_eps, cs,
-             bufs):
+             cpv, bufs):
     """The library and K5's C arguments (but the stream) for a checked
-    CUDA x and the (qk8, v, ctx8, out) buffers `bufs`."""
+    CUDA x and the (qk, v, ctx8, out) buffers `bufs` of the mode of (cs,
+    cpv)."""
     from geovpr_torch.ops._build import library_on
     lib = library_on(x.device.index, "geovpr_swin_init")
     ptrs = [x] + list(got.values()) + list(bufs)
     if any(t.data_ptr() % 16 for t in ptrs):
         raise ValueError("K5 reads its tensors by TMA and 16-byte loads: "
                          "each must start 16-byte aligned")
-    return lib, (*(t.data_ptr() for t in ptrs), x.shape[0], resolution,
-                 x.shape[-1], num_heads, window, shift, float(ln_eps),
-                 score_constant(cs))
+    c = x.shape[-1]
+    return lib, (*(t.data_ptr() for t in ptrs), x.shape[0], resolution, c,
+                 num_heads, window, shift, float(ln_eps),
+                 *mode_constants(cs, cpv, None, c // num_heads,
+                                 score_constant)[:4])
 
 
 K5_PARTS = ("ln_quant", "qkv_gemm", "attention", "out_proj")
@@ -564,19 +557,20 @@ K5_PARTS = ("ln_quant", "qkv_gemm", "attention", "out_proj")
 def k5_launch_part(part: int, x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff,
                    bqkv_eff, wo_q_t, so_eff, bo, table, num_heads: int,
                    resolution: int, window: int, shift: int,
-                   ln_eps: float = 1e-5, cs=None, *, bufs) -> None:
-    """One of K5's four launches (an index into K5_PARTS) alone, on the
-    arguments of `fused_swin_attn_block_int8` (CUDA tensors it takes) and
-    the `k5_buffers` `bufs`, whose contents from an earlier call it reads.
-    chip_smoke.py times K5's launches one by one with it and the card tests
-    check each against its plain version; it counts no launch."""
+                   ln_eps: float = 1e-5, cs=None, cpv=None, *, bufs) -> None:
+    """One of K5's four launches (an index into K5_PARTS) alone, in the
+    mode of (cs, cpv), on the arguments of `fused_swin_attn_block_int8`
+    (CUDA tensors it takes) and the `k5_buffers` of that mode `bufs`, whose
+    contents from an earlier call it reads. chip_smoke.py times K5's
+    launches one by one with it and the card tests check each against its
+    plain version; it counts no launch."""
     got = _k5_got(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
                   wo_q_t, so_eff, bo, table, num_heads, window)
     err = k5_shape_error(x.shape[-1], num_heads, window, shift)
     if err:
         raise ValueError(err)
     lib, args = _k5_args(x, got, num_heads, resolution, window, shift, ln_eps,
-                         cs, bufs)
+                         cs, cpv, bufs)
     with torch.cuda.device(x.device):
         rc = lib.geovpr_swin_attn_int8_parts(*args, part, part,
                                              _stream(x.device))
@@ -585,12 +579,24 @@ def k5_launch_part(part: int, x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff,
             f"swin_attn_int8 kernel launch failed: CUDA error {rc}")
 
 
-def swin_attention8_reference(qk8, v, table, num_heads: int, resolution: int,
-                              window: int, shift: int, cs):
+def swin_attention8_reference(qk, v, table, num_heads: int, resolution: int,
+                              window: int, shift: int, cs, cpv=None):
     """Plain version of K5's attention launch: ctx8 (M, C) int8 from the
-    raster qk8 (M, 2C) int8 and v (M, C) bf16, in the default mode of
-    `swin_attn_block_int8_reference`."""
-    m, c = v.shape
+    raster (qk, v) of the QKV launch (`qkv_part_reference`) in the mode of
+    (cs, cpv), with the softmax of JAX's kernel body
+    (`_swin_attention_stages[_qk8]`, `pallas_swin_block.py:243-380`) and
+    the bias and mask in the exp2 domain (times log2(e) in f32):
+    - int8 scores: s = (q8 k8^T) cs log2(e), exact sums rounded once, +
+      bias [+ mask]; p = exp2(min(s, 100)) with no max-shift, rounded to
+      bf16 for P.V; the f32 row sum divides the context;
+    - bf16 scores: s = f32(q k^T) of the bf16 q (scale folded in) and k,
+      + bias [+ mask], then as int8 scores;
+    - int8 P.V: s as int8 scores; p = exp2(s - max_j s); z the f32 sum of
+      p; p rounded to 127ths, times the int8 v exactly: ctx = ci (cpv / z).
+    The context is rounded once to int8."""
+    mode = attn_mode(cs, cpv)
+    c = qk.shape[-1] // (2 if mode == "int8_scores" else 3)
+    m = qk.shape[0]
     b = m // (resolution * resolution)
 
     def heads(t):
@@ -598,11 +604,23 @@ def swin_attention8_reference(qk8, v, table, num_heads: int, resolution: int,
         bw, n, _ = w.shape
         return w.reshape(bw, n, num_heads, -1).transpose(1, 2)
 
-    si = _exact_bmm(heads(qk8[:, :c]), heads(qk8[:, c:]).transpose(-1, -2))
-    bias2, mask2 = _log2_bias_mask(table, window, resolution, shift, v.device)
-    s = add_bias_mask(si * score_constant(cs), bias2, mask2)
-    p = torch.exp2(torch.clamp(s, max=100.0))
-    ctx = _mm(p.to(torch.bfloat16), heads(v)) / p.sum(-1, keepdim=True)
+    q, k = heads(qk[:, :c]), heads(qk[:, c:2 * c])
+    bias2, mask2 = _log2_bias_mask(table, window, resolution, shift,
+                                   qk.device)
+    if mode == "bf16_scores":
+        s = _mm(q, k.transpose(-1, -2))
+    else:
+        s = _exact_bmm(q, k.transpose(-1, -2)) * score_constant(cs)
+    s = add_bias_mask(s, bias2, mask2)
+    if mode == "int8_pv":
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        z = p.sum(-1, keepdim=True)
+        pi = torch.round(p * 127.0).to(torch.int8)
+        ctx = _exact_bmm(pi, heads(qk[:, 2 * c:])) * (cpv / z)
+    else:
+        p = torch.exp2(torch.clamp(s, max=100.0))
+        vh = heads(qk[:, 2 * c:] if mode == "bf16_scores" else v)
+        ctx = _mm(p.to(torch.bfloat16), vh) / p.sum(-1, keepdim=True)
     return round_clip_int8(_raster_ctx(ctx, resolution, window, shift)
                            .reshape(m, c))
 

@@ -183,10 +183,8 @@ def test_k3_matches_plain_version(cuda, shape, residual):
 def test_int8_kernels_refuse_what_they_do_not_take(cuda):
     x, k2, k3 = int8_block_case(1, 5, 64, 1, cuda)
     with torch.inference_mode():
-        with pytest.raises(NotImplementedError):
-            fused_mhsa_block_int8(x, **{**k2, "cs": None}, num_heads=1)
-        with pytest.raises(NotImplementedError):
-            fused_mhsa_block_int8(x, **k2, num_heads=1, cpv=1.0, cpl=1.0)
+        with pytest.raises(ValueError, match="cpl"):
+            fused_mhsa_block_int8(x, **{**k2, "cpv": 1.0}, num_heads=1)
         with pytest.raises(TypeError):
             fused_mhsa_block_int8(x.float(), **k2, num_heads=1)
         with pytest.raises(TypeError):
@@ -225,16 +223,27 @@ def test_int8_model_launches_once_per_layer(cuda):
     assert torch.isfinite(out.tokens.float()).all()
 
 
-def _k2_launch_checks(x, k2, h):
-    """K2's four launches alone (`k2_launch_part`), each fed the plain
-    parts' output of the launch before it, against its plain part: int8
+def _qkv_launch_close(mode, qk, v, qk_p, v_p):
+    """The QKV launch's outputs against its plain part in `mode`: int8
     within one step in at most 1% of the elements, bf16 within one
-    spacing (as K5's launches are held)."""
+    spacing."""
+    if mode == "bf16_scores":
+        return _bf16_close(qk, qk_p) and v.numel() == 0
+    return _int8_flips(qk, qk_p) and _bf16_close(v, v_p)
+
+
+def _k2_launch_checks(x, k2, h):
+    """K2's four launches alone (`k2_launch_part`), in the attention mode
+    of the fold `k2`, each fed the plain parts' output of the launch before
+    it, against its plain part: int8 within one step in at most 1% of the
+    elements, bf16 within one spacing (as K5's launches are held)."""
     from geovpr_torch.ops import mhsa as mh
-    from geovpr_torch.ops.quant import (int8_resid_reference,
-                                        ln_quant_reference, qk8v_reference)
+    from geovpr_torch.ops.quant import (attn_mode, int8_resid_reference,
+                                        ln_quant_reference,
+                                        qkv_part_reference)
     b, n, d = x.shape
-    qk8, v, ctx8, out = bufs = mh.k2_buffers(x)
+    mode = attn_mode(k2["cs"], k2["cpv"])
+    qk, v, ctx8, out = bufs = mh.k2_buffers(x, mode)
     xq = ln_quant_reference(x, k2["ln_scale_q"], k2["ln_bias_q"], 1e-6)
     mh.k2_launch_part(0, x, **k2, num_heads=h, bufs=bufs)
     torch.cuda.synchronize()
@@ -242,14 +251,16 @@ def _k2_launch_checks(x, k2, h):
     ctx8.copy_(xq)
     mh.k2_launch_part(1, x, **k2, num_heads=h, bufs=bufs)
     torch.cuda.synchronize()
-    qk_p, v_p = qk8v_reference(xq, k2["wqkv_q_t"], k2["sqkv_eff"],
-                               k2["bqkv_eff"])
-    assert _int8_flips(qk8, qk_p) and _bf16_close(v, v_p)
-    qk8.copy_(qk_p)
+    qk_p, v_p = qkv_part_reference(xq, k2["wqkv_q_t"], k2["sqkv_eff"],
+                                   k2["bqkv_eff"], mode,
+                                   (d // h) ** -0.5 * mh.LOG2E)
+    assert _qkv_launch_close(mode, qk, v, qk_p, v_p)
+    qk.copy_(qk_p)
     v.copy_(v_p)
     mh.k2_launch_part(2, x, **k2, num_heads=h, bufs=bufs)
     torch.cuda.synchronize()
-    ctx_p = mh.vit_attention8_reference(qk_p, v_p, h, n, k2["cs"])
+    ctx_p = mh.vit_attention8_reference(qk_p, v_p, h, n, k2["cs"],
+                                        k2["cpv"], k2["cpl"])
     assert _int8_flips(ctx8, ctx_p)
     assert ctx_p.abs().max() > 16
     ctx8.copy_(ctx_p)
@@ -406,51 +417,60 @@ def _bf16_close(got, want):
     return bool((err <= bf16_spacing(want.float()) + 1e-6).all())
 
 
-@pytest.mark.parametrize("shape", [(2, 128, 4, 24, 12, 6),
-                                   (2, 128, 4, 96, 12, 6),
-                                   (1, 1024, 32, 12, 12, 0),
-                                   (2, 64, 2, 16, 8, 4)])
-def test_k5_launches_match_their_plain_parts(cuda, shape):
-    """Each of K5's four launches alone (`k5_launch_part`), fed the plain
-    parts' output of the launch before it, against its plain part
-    (tests/test_torch_int8_hopper.py composes the parts to the whole plain
-    version): LN-quant and the QKV GEMM's int8 columns within one int8 step
-    in at most 1% of the elements, v within one bf16 spacing, the
-    attention's int8 context within one step in at most 1%, the out
-    projection within one bf16 spacing."""
+def _k5_launch_checks(x, kw):
+    """Each of K5's four launches alone (`k5_launch_part`), in the
+    attention mode of the fold `kw`, fed the plain parts' output of the
+    launch before it, against its plain part (tests/test_torch_int8_hopper.py
+    composes the parts to the whole plain version): LN-quant and the QKV
+    GEMM's int8 columns within one int8 step in at most 1% of the elements,
+    its bf16 columns within one bf16 spacing, the attention's int8 context
+    within one step in at most 1%, the out projection within one bf16
+    spacing."""
     from geovpr_torch.ops import swin_block as sb
-    from geovpr_torch.ops.quant import (int8_resid_reference,
-                                        ln_quant_reference, qk8v_reference)
-    x, blk = swin_block_case(shape, cuda, int8=True)
-    kw = k5_kwargs(blk)
+    from geovpr_torch.ops.quant import (attn_mode, int8_resid_reference,
+                                        ln_quant_reference,
+                                        qkv_part_reference)
     m, c = x.shape[0] * x.shape[1], x.shape[-1]
+    mode = attn_mode(kw["cs"], kw["cpv"])
+    qk, v, ctx8, out = bufs = sb.k5_buffers(x, mode)
+    xq = ln_quant_reference(x, kw["ln_scale_q"], kw["ln_bias_q"], 1e-5)
+    sb.k5_launch_part(0, x, **kw, bufs=bufs)
+    torch.cuda.synchronize()
+    assert _int8_flips(ctx8, xq)
+    ctx8.copy_(xq)
+    sb.k5_launch_part(1, x, **kw, bufs=bufs)
+    torch.cuda.synchronize()
+    qk_p, v_p = qkv_part_reference(xq, kw["wqkv_q_t"], kw["sqkv_eff"],
+                                   kw["bqkv_eff"], mode,
+                                   (c // kw["num_heads"]) ** -0.5 * sb.LOG2E)
+    assert _qkv_launch_close(mode, qk, v, qk_p, v_p)
+    qk.copy_(qk_p)
+    v.copy_(v_p)
+    sb.k5_launch_part(2, x, **kw, bufs=bufs)
+    torch.cuda.synchronize()
+    ctx_p = sb.swin_attention8_reference(
+        qk_p, v_p, kw["table"], kw["num_heads"], kw["resolution"],
+        kw["window"], kw["shift"], kw["cs"], kw["cpv"])
+    assert _int8_flips(ctx8, ctx_p)
+    assert ctx_p.abs().max() > 16
+    ctx8.copy_(ctx_p)
+    sb.k5_launch_part(3, x, **kw, bufs=bufs)
+    torch.cuda.synchronize()
+    want = int8_resid_reference(ctx_p, kw["wo_q_t"], kw["so_eff"],
+                                kw["bo"], x.reshape(m, c))
+    assert _bf16_close(out.reshape(m, c), want)
+
+
+_K5_PART_SHAPES = [(2, 128, 4, 24, 12, 6), (2, 128, 4, 96, 12, 6),
+                   (1, 1024, 32, 12, 12, 0), (2, 64, 2, 16, 8, 4)]
+
+
+@pytest.mark.parametrize("shape", _K5_PART_SHAPES)
+def test_k5_launches_match_their_plain_parts(cuda, shape):
+    """`_k5_launch_checks` in the default mode."""
+    x, blk = swin_block_case(shape, cuda, int8=True)
     with torch.inference_mode():
-        qk8, v, ctx8, out = bufs = sb.k5_buffers(x)
-        xq = ln_quant_reference(x, kw["ln_scale_q"], kw["ln_bias_q"], 1e-5)
-        sb.k5_launch_part(0, x, **kw, bufs=bufs)
-        torch.cuda.synchronize()
-        assert _int8_flips(ctx8, xq)
-        ctx8.copy_(xq)
-        sb.k5_launch_part(1, x, **kw, bufs=bufs)
-        torch.cuda.synchronize()
-        qk_p, v_p = qk8v_reference(xq, kw["wqkv_q_t"], kw["sqkv_eff"],
-                                   kw["bqkv_eff"])
-        assert _int8_flips(qk8, qk_p) and _bf16_close(v, v_p)
-        qk8.copy_(qk_p)
-        v.copy_(v_p)
-        sb.k5_launch_part(2, x, **kw, bufs=bufs)
-        torch.cuda.synchronize()
-        ctx_p = sb.swin_attention8_reference(
-            qk_p, v_p, kw["table"], kw["num_heads"], kw["resolution"],
-            kw["window"], kw["shift"], kw["cs"])
-        assert _int8_flips(ctx8, ctx_p)
-        assert ctx_p.abs().max() > 16
-        ctx8.copy_(ctx_p)
-        sb.k5_launch_part(3, x, **kw, bufs=bufs)
-        torch.cuda.synchronize()
-        want = int8_resid_reference(ctx_p, kw["wo_q_t"], kw["so_eff"],
-                                    kw["bo"], x.reshape(m, c))
-        assert _bf16_close(out.reshape(m, c), want)
+        _k5_launch_checks(x, k5_kwargs(blk))
 
 
 @pytest.mark.parametrize("shape", [(2, 128, 4, 24, 12, 6),
@@ -470,6 +490,104 @@ def test_k5_launches_one_by_one_equal_the_whole(cuda, shape):
             sb.k5_launch_part(part, x, **kw, bufs=bufs)
         torch.cuda.synchronize()
     assert sb.fused_swin_attn_block_int8.launches == before
+    assert torch.equal(bufs[3], out)
+
+
+# ------------------------------------------------ the other two modes ----
+
+_OTHER_MODES = {"int8_pv": (True, True), "bf16_scores": (False, False)}
+
+
+@pytest.fixture(params=sorted(_OTHER_MODES))
+def int8_mode(request, monkeypatch):
+    """int8 P.V or bf16 scores: the mode flags the int8 folds read
+    (`geovpr_torch.ops.quant.INT8_QK_SCORES`, `INT8_PV`), set for the
+    test; the blocks it builds fold in that mode."""
+    from geovpr_torch.ops import quant
+    qk, pv = _OTHER_MODES[request.param]
+    monkeypatch.setattr(quant, "INT8_QK_SCORES", qk)
+    monkeypatch.setattr(quant, "INT8_PV", pv)
+    return request.param
+
+
+@pytest.mark.parametrize("shape", _INT8_SHAPES)
+def test_k2_matches_plain_version_in_mode(cuda, int8_mode, shape):
+    """`test_k2_matches_plain_version` in int8 P.V and bf16 scores."""
+    b, n, d, h = shape
+    x, k2, _ = int8_block_case(b, n, d, h, cuda)
+    assert (k2["cs"] is None) == (int8_mode == "bf16_scores")
+    assert (k2["cpv"] is None) == (int8_mode != "int8_pv")
+    with torch.inference_mode():
+        before = fused_mhsa_block_int8.launches
+        got = fused_mhsa_block_int8(x, **k2, num_heads=h)
+        torch.cuda.synchronize()
+        want = mhsa_block_int8_reference(x, **k2, num_heads=h)
+    assert fused_mhsa_block_int8.launches == before + 1
+    e = int8_errors(got, want, (k2["so_eff"] * k2["gamma"]).abs().max()
+                    .item())
+    assert int8_within_bound(e), e
+
+
+@pytest.mark.parametrize("shape", [(2, 257, 768, 12), (2, 17, 64, 1),
+                                   (1, 1370, 1024, 16)])
+def test_k2_launches_match_their_plain_parts_in_mode(cuda, int8_mode, shape):
+    """`_k2_launch_checks` in int8 P.V (the last key split off: one key of
+    a 64-key tile at N = 257 and 17) and bf16 scores."""
+    b, n, d, h = shape
+    x, k2, _ = int8_block_case(b, n, d, h, cuda)
+    with torch.inference_mode():
+        _k2_launch_checks(x, k2, h)
+
+
+def test_k2_launches_one_by_one_equal_the_whole_in_mode(cuda, int8_mode):
+    from geovpr_torch.ops import mhsa as mh
+    x, k2, _ = int8_block_case(2, 257, 768, 12, cuda)
+    with torch.inference_mode():
+        out = mh.fused_mhsa_block_int8(x, **k2, num_heads=12)
+        bufs = mh.k2_buffers(x, int8_mode)
+        for part in range(len(mh.K2_PARTS)):
+            mh.k2_launch_part(part, x, **k2, num_heads=12, bufs=bufs)
+        torch.cuda.synchronize()
+    assert torch.equal(bufs[3], out)
+
+
+@pytest.mark.parametrize("shape", _K5_SHAPES)
+def test_k5_matches_plain_version_in_mode(cuda, int8_mode, shape):
+    """`test_k5_matches_plain_version` in int8 P.V and bf16 scores."""
+    from geovpr_torch.ops.swin_block import (fused_swin_attn_block_int8,
+                                             swin_attn_block_int8_reference)
+    x, blk = swin_block_case(shape, cuda, int8=True)
+    kw = k5_kwargs(blk)
+    assert (kw["cs"] is None) == (int8_mode == "bf16_scores")
+    assert (kw["cpv"] is None) == (int8_mode != "int8_pv")
+    with torch.inference_mode():
+        before = fused_swin_attn_block_int8.launches
+        got = fused_swin_attn_block_int8(x, **kw)
+        torch.cuda.synchronize()
+        want = swin_attn_block_int8_reference(x, **kw)
+    assert fused_swin_attn_block_int8.launches == before + 1
+    e = int8_errors(got, want, kw["so_eff"].abs().max().item())
+    assert int8_within_bound(e), e
+
+
+@pytest.mark.parametrize("shape", _K5_PART_SHAPES)
+def test_k5_launches_match_their_plain_parts_in_mode(cuda, int8_mode, shape):
+    """`_k5_launch_checks` in int8 P.V and bf16 scores."""
+    x, blk = swin_block_case(shape, cuda, int8=True)
+    with torch.inference_mode():
+        _k5_launch_checks(x, k5_kwargs(blk))
+
+
+def test_k5_launches_one_by_one_equal_the_whole_in_mode(cuda, int8_mode):
+    from geovpr_torch.ops import swin_block as sb
+    x, blk = swin_block_case((2, 128, 4, 24, 12, 6), cuda, int8=True)
+    kw = k5_kwargs(blk)
+    with torch.inference_mode():
+        out = sb.fused_swin_attn_block_int8(x, **kw)
+        bufs = sb.k5_buffers(x, int8_mode)
+        for part in range(len(sb.K5_PARTS)):
+            sb.k5_launch_part(part, x, **kw, bufs=bufs)
+        torch.cuda.synchronize()
     assert torch.equal(bufs[3], out)
 
 
@@ -605,10 +723,8 @@ def test_swin_kernels_refuse_what_they_do_not_take(cuda):
         fused_swin_attn_block(xm, *args[1:])
     x, blk = swin_block_case((1, 64, 2, 8, 4, 2), cuda, int8=True)
     kw = k5_kwargs(blk)
-    with torch.inference_mode(), pytest.raises(NotImplementedError):
-        fused_swin_attn_block_int8(x, **{**kw, "cs": None})
-    with torch.inference_mode(), pytest.raises(NotImplementedError):
-        fused_swin_attn_block_int8(x, **kw, cpv=1.0)
+    with torch.inference_mode(), pytest.raises(ValueError, match="needs"):
+        fused_swin_attn_block_int8(x, **{**kw, "cs": None, "cpv": 1.0})
     with torch.inference_mode(), pytest.raises(ValueError, match="shift"):
         fused_swin_attn_block_int8(x, **{**kw, "shift": 1})
     with torch.inference_mode(), pytest.raises(ValueError, match="aligned"):
@@ -1392,7 +1508,9 @@ def test_world1_nccl_step_bit_equal_to_the_single_process_step(cuda,
              "mask": np.ones(4, bool), "_indices": np.arange(4)}
 
     def run(mesh):
-        model = RegressionModel(cfg.model, train=True).to(cuda)
+        # f32 parameters, bf16 compute: what K8a and K8c take
+        model = RegressionModel(cfg.model, torch.bfloat16,
+                                train=True).to(cuda)
         init_weights_(model, torch.Generator().manual_seed(1))
         state = TrainState(0, model, build_optimizer(model, cfg.optim),
                            identity_scaler(2).to(cuda), 0)

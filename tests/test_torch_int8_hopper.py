@@ -26,18 +26,19 @@ from chip_smoke import (KERNEL_SHAPES, PEAK_INT8, SWIN_ATTN_SHAPES, bounds,
 from geovpr_torch.cli.presets import ANGLE_PRESETS, GEOPOSE_PRESETS
 from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
 from geovpr_torch.models.swin import SWIN_VARIANTS, SwinBlock, SwinTransformer
-from geovpr_torch.ops.mhsa import (K2_PARTS, k2_shape_error,
+from geovpr_torch.ops.mhsa import (K2_PARTS, LOG2E, k2_shape_error,
                                    mhsa_block_int8_reference,
                                    vit_attention8_reference)
 from geovpr_torch.ops.mlp_int8 import (K3_PARTS, fused_mlp_block_int8,
                                        k3_shape_error, mlp_block_int8_reference,
                                        mlp_fc1_int8_reference)
-from geovpr_torch.ops.quant import (int8_resid_reference, ln_quant_reference,
-                                    qk8v_reference)
+from geovpr_torch.ops.quant import (attn_mode, int8_resid_reference,
+                                    ln_quant_reference, qkv_part_reference)
 from geovpr_torch.ops.swin_block import (K5_PARTS, fused_swin_attn_block_int8,
                                          fused_window_ok, k5_shape_error,
                                          swin_attention8_reference,
                                          swin_attn_block_int8_reference)
+from torch_int8_modes import set_int8_mode
 
 CPU = torch.device("cpu")
 # (B, C, H, S, w, shift): window 4 shifted and not, window 8, window 12
@@ -47,17 +48,20 @@ _K5_CASES = [(2, 64, 2, 8, 4, 2), (1, 64, 2, 8, 4, 0), (1, 64, 2, 16, 8, 4),
 
 
 def _k5_parts(x, kw):
-    """K5's four plain parts in turn, as the card's launches run them."""
+    """K5's four plain parts in turn, as the card's launches run them, in
+    the attention mode of the fold `kw`."""
     b, l, c = x.shape
+    mode = attn_mode(kw["cs"], kw["cpv"])
     xq = ln_quant_reference(x, kw["ln_scale_q"], kw["ln_bias_q"], 1e-5)
-    qk8, v = qk8v_reference(xq, kw["wqkv_q_t"], kw["sqkv_eff"],
-                                 kw["bqkv_eff"])
-    ctx8 = swin_attention8_reference(qk8, v, kw["table"], kw["num_heads"],
+    qk, v = qkv_part_reference(xq, kw["wqkv_q_t"], kw["sqkv_eff"],
+                               kw["bqkv_eff"], mode,
+                               (c // kw["num_heads"]) ** -0.5 * LOG2E)
+    ctx8 = swin_attention8_reference(qk, v, kw["table"], kw["num_heads"],
                                      kw["resolution"], kw["window"],
-                                     kw["shift"], kw["cs"])
+                                     kw["shift"], kw["cs"], kw["cpv"])
     out = int8_resid_reference(ctx8, kw["wo_q_t"], kw["so_eff"], kw["bo"],
                                x.reshape(b * l, c))
-    return (xq, qk8, v, ctx8), out.reshape(b, l, c)
+    return (xq, qk, v, ctx8), out.reshape(b, l, c)
 
 
 @pytest.mark.parametrize("shape", _K5_CASES)
@@ -76,16 +80,42 @@ def test_k5_parts_compose_to_the_plain_version(shape):
     assert mids[3].abs().max() > 16
 
 
+# what the QKV launch writes in the two other modes: q | k | v (M, 3C)
+_MODE_QKV = {"int8_pv": torch.int8, "bf16_scores": torch.bfloat16}
+
+
+@pytest.mark.parametrize("shape", _K5_CASES[1:4])
+@pytest.mark.parametrize("mode", sorted(_MODE_QKV))
+def test_k5_parts_compose_in_mode(monkeypatch, mode, shape):
+    """The same in int8 P.V and bf16 scores, the block folded in the mode:
+    the QKV launch writes q | k | v (M, 3C) in int8 or bf16 and no v."""
+    set_int8_mode(monkeypatch, mode)
+    x, blk = swin_block_case(shape, CPU, int8=True)
+    kw = k5_kwargs(blk)
+    with torch.inference_mode():
+        mids, out = _k5_parts(x, kw)
+        want = swin_attn_block_int8_reference(x, **kw)
+    assert torch.equal(out, want)
+    m, c = x.shape[0] * x.shape[1], x.shape[-1]
+    assert [(t.shape, t.dtype) for t in mids] == [
+        ((m, c), torch.int8), ((m, 3 * c), _MODE_QKV[mode]),
+        ((m, 0), torch.bfloat16), ((m, c), torch.int8)]
+    assert mids[3].abs().max() > 16
+
+
 def _k2_parts(x, k2, h):
-    """K2's four plain parts in turn, as the card's launches run them."""
+    """K2's four plain parts in turn, as the card's launches run them, in
+    the attention mode of the fold `k2`."""
     b, n, d = x.shape
+    mode = attn_mode(k2["cs"], k2["cpv"])
     xq = ln_quant_reference(x, k2["ln_scale_q"], k2["ln_bias_q"], 1e-6)
-    qk8, v = qk8v_reference(xq, k2["wqkv_q_t"], k2["sqkv_eff"],
-                            k2["bqkv_eff"])
-    ctx8 = vit_attention8_reference(qk8, v, h, n, k2["cs"])
+    qk, v = qkv_part_reference(xq, k2["wqkv_q_t"], k2["sqkv_eff"],
+                               k2["bqkv_eff"], mode, (d // h) ** -0.5 * LOG2E)
+    ctx8 = vit_attention8_reference(qk, v, h, n, k2["cs"], k2["cpv"],
+                                    k2["cpl"])
     out = int8_resid_reference(ctx8, k2["wo_q_t"], k2["so_eff"], k2["bo"],
                                x.reshape(b * n, d), gamma=k2["gamma"])
-    return (xq, qk8, v, ctx8), out.reshape(b, n, d)
+    return (xq, qk, v, ctx8), out.reshape(b, n, d)
 
 
 @pytest.mark.parametrize("shape", [(2, 20, 128, 2), (1, 257, 128, 2),
@@ -103,6 +133,25 @@ def test_k2_parts_compose_to_the_plain_version(shape):
     assert [(t.shape, t.dtype) for t in mids] == [
         ((m, d), torch.int8), ((m, 2 * d), torch.int8),
         ((m, d), torch.bfloat16), ((m, d), torch.int8)]
+    assert mids[3].abs().max() > 16
+
+
+@pytest.mark.parametrize("shape", [(2, 20, 128, 2), (1, 257, 128, 2)])
+@pytest.mark.parametrize("mode", sorted(_MODE_QKV))
+def test_k2_parts_compose_in_mode(monkeypatch, mode, shape):
+    """The same in int8 P.V (the last key split off in f32) and bf16
+    scores, the block folded in the mode."""
+    set_int8_mode(monkeypatch, mode)
+    b, n, d, h = shape
+    x, k2, _ = int8_block_case(b, n, d, h, CPU)
+    with torch.inference_mode():
+        mids, out = _k2_parts(x, k2, h)
+        want = mhsa_block_int8_reference(x, **k2, num_heads=h)
+    assert torch.equal(out, want)
+    m = b * n
+    assert [(t.shape, t.dtype) for t in mids] == [
+        ((m, d), torch.int8), ((m, 3 * d), _MODE_QKV[mode]),
+        ((m, 0), torch.bfloat16), ((m, d), torch.int8)]
     assert mids[3].abs().max() > 16
 
 

@@ -11,11 +11,13 @@ flip moves an output by at most |w_q| x one dequant step. The bound is the
 JAX package's own one-step bound, 1.5 x max|step| + 1e-3
 (tests/test_pallas_ops.py:458-460), and most elements must agree to 1e-5.
 Measured here: K3 against the JAX kernel 9.5e-7 (f32 rounding, no flip),
-against the fallback 0; K2 against the JAX kernel 6e-8, against the
-fallback 0 in all three modes (its default mode forms the softmax
-differently, exp2 without max-shift and P rounded to bf16 before
-normalisation, but no context lands on the other side of a rounding
-boundary at this size).
+against the fallback 0; K2 against the JAX kernel 6e-8 to 1.2e-7 in the
+three modes, against the fallback 0 in all three (its
+modes form the softmax as the kernel body does, exp2 without max-shift and
+P rounded to bf16 before normalisation, or int8 P.V in the exp2 domain, but
+no context lands on the other side of a rounding boundary at this size);
+K2 against the JAX kernel at a DINOv2 block's widths under the card's int8
+bound (`chip_smoke.int8_within_bound`).
 """
 
 import jax.numpy as jnp
@@ -28,10 +30,12 @@ import geovpr.ops.pallas_mhsa as pmhsa
 import geovpr.ops.pallas_mlp as pmlp
 from geovpr.models.dinov2 import DinoV2Block as JBlock
 from geovpr.models.layers import Mlp as JMlp
+from chip_smoke import int8_block_case, int8_errors, int8_within_bound
 from geovpr_torch.ops.mhsa import (LOG2E, fused_mhsa_block_int8,
                                    mhsa_block_int8_reference)
 from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
                                        mlp_block_int8_reference)
+from torch_int8_modes import MODES, set_int8_mode
 
 
 @pytest.fixture
@@ -177,19 +181,67 @@ def _port_attn_args(a):
 CS = float(np.float32(0.9 * DH ** -0.5))
 
 
-def test_k2_plain_matches_jax_kernel(interpret):
-    """JAX's v3 int8 body (key split at n = 128 + 1, exp2, no max-shift);
-    the port rounds the last key's p to bf16 where JAX keeps it f32."""
+def _mode_constants(mode):
+    """(cs, cpv, cpl) of `_attn_case`'s fold in `mode`."""
+    cs = None if mode == "bf16_scores" else CS
+    if mode != "int8_pv":
+        return cs, None, None
+    return cs, np.float32(2.0 / 127), np.float32(2.0)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_k2_plain_matches_jax_kernel(interpret, mode):
+    """JAX's v3 int8 body (key split at n = 128 + 1, exp2, no max-shift but
+    in int8 P.V) in each attention mode; the port rounds the last key's p
+    to bf16 where JAX keeps it f32 (but in int8 P.V). Measured 6e-8 (int8
+    scores, bf16 scores) and 1.2e-7 (int8 P.V), no element off by 1e-5."""
     x, a = _attn_case()
+    cs, cpv, cpl = _mode_constants(mode)
     want = pmhsa.fused_mhsa_block_int8(
         jnp.asarray(x), *(jnp.asarray(a[k]) for k in _K2_ORDER),
-        num_heads=H, cs=jnp.float32(CS) * pmhsa._LOG2E)
+        num_heads=H, cs=None if cs is None else
+        jnp.float32(cs) * pmhsa._LOG2E,
+        cpv=None if cpv is None else jnp.asarray(cpv),
+        cpl=None if cpl is None else jnp.asarray(cpl))
     assert want is not None
-    got = mhsa_block_int8_reference(_t(x), **_port_attn_args(a),
-                                    num_heads=H, cs=CS)
+    got = mhsa_block_int8_reference(
+        _t(x), **_port_attn_args(a), num_heads=H, cs=cs,
+        cpv=None if cpv is None else float(cpv),
+        cpl=None if cpl is None else float(cpl))
     err = np.abs(got.numpy() - np.asarray(want))
     assert err.max() <= _one_step_bound(a["so_eff"] * a["gamma"]), err.max()
     assert np.mean(err > 1e-5) <= 0.02
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_k2_plain_matches_jax_kernel_at_block_width(interpret, monkeypatch,
+                                                    mode):
+    """The same at a DINOv2 block's width (D = 128, two heads of 64, N =
+    129, bf16 x) on the block's own fold in `mode`
+    (`chip_smoke.int8_block_case`: its int8 q, k and contexts span the int8
+    range, where `_attn_case`'s q and k round to 0), under the card's int8
+    bound for bf16 outputs (`int8_within_bound`: at most 1% of the elements
+    off by more than 1e-3, max within 1.5 dequant steps + 1e-3 + two bf16
+    spacings); measured shares 0.6% (int8 scores), 0 (int8 P.V), 0.5%
+    (bf16 scores), each a context flip moving a bf16 output one spacing."""
+    set_int8_mode(monkeypatch, mode)
+    x, k2, _ = int8_block_case(2, 129, 128, 2, torch.device("cpu"))
+    assert (k2["cs"] is None) == (mode == "bf16_scores")
+    assert (k2["cpv"] is None) == (mode != "int8_pv")
+    j = {k: None if v is None else jnp.asarray(
+        v.numpy() if isinstance(v, torch.Tensor) else np.float32(v))
+        for k, v in k2.items()}
+    want = pmhsa.fused_mhsa_block_int8(
+        jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+        j["ln_scale_q"], j["ln_bias_q"], j["wqkv_q_t"].T, j["sqkv_eff"],
+        j["bqkv_eff"], j["wo_q_t"].T, j["so_eff"], j["bo"], j["gamma"],
+        num_heads=2, cpv=j["cpv"], cpl=j["cpl"],
+        cs=None if j["cs"] is None else j["cs"] * pmhsa._LOG2E)
+    assert want is not None
+    got = mhsa_block_int8_reference(x, **k2, num_heads=2)
+    e = int8_errors(got, torch.from_numpy(np.array(want.astype(jnp.float32))),
+                    (k2["so_eff"] * k2["gamma"]).abs().max().item())
+    assert int8_within_bound(e), e
 
 
 @pytest.mark.parametrize("mode", ["int8_scores", "int8_pv", "bf16_scores"])

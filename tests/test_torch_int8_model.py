@@ -13,6 +13,7 @@ activations it feeds by a dequant step.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from jax.experimental import pallas as pl
 
@@ -23,6 +24,7 @@ from geovpr.models.salad import DinoV2Salad as JDinoV2Salad
 from geovpr_torch.models import salad as tsalad
 from geovpr_torch.models.convert_jax import state_dict_from_flax
 from geovpr_torch.models.salad import DinoV2Salad
+from torch_int8_modes import MODES, set_int8_mode
 
 TINY = dict(hidden_size=64, num_layers=2, num_heads=4)
 
@@ -49,10 +51,13 @@ def _port_model(variant, image_size, dtype, variables):
     return tm.eval()
 
 
-def test_int8_model_f32_matches_jax_fallback(monkeypatch):
+@pytest.mark.parametrize("mode", MODES)
+def test_int8_model_f32_matches_jax_fallback(monkeypatch, mode):
     """f32, JAX on its XLA fallbacks (`_attention_int8`, the fused `Mlp`
-    branch, int8 SALAD fc1s); measured min cosine 0.99985 -> bound
-    0.9995."""
+    branch, int8 SALAD fc1s), each side folding the attention in `mode`;
+    measured min cosine 0.99985 (int8 P.V 0.99989, bf16 scores 0.99987)
+    -> bound 0.9995."""
+    set_int8_mode(monkeypatch, mode)
     monkeypatch.setitem(jsalad.DINOV2_VARIANTS, "tiny", TINY)
     monkeypatch.setitem(tsalad.DINOV2_VARIANTS, "tiny", TINY)
     x = np.random.default_rng(5).normal(size=(3, 28, 28, 3)).astype(
@@ -69,11 +74,14 @@ def test_int8_model_f32_matches_jax_fallback(monkeypatch):
     assert _cosine(got, want).min() >= 0.9995
 
 
-def test_int8_model_bf16_matches_jax_kernels(monkeypatch):
+@pytest.mark.parametrize("mode", MODES)
+def test_int8_model_bf16_matches_jax_kernels(monkeypatch, mode):
     """bf16 at 257 tokens (patch 2 on 32x32 images), JAX's int8 kernels K2
     and K3 interpreted with the backend reported as "tpu", so its resident
     padding is active (the stream runs padded to 272 rows); the port's plain
-    versions run unpadded. Measured min cosine 0.99998 -> bound 0.9995."""
+    versions run unpadded; each side folds the attention in `mode`.
+    Measured min cosine 0.99998 in each mode -> bound 0.9995."""
+    set_int8_mode(monkeypatch, mode)
     variant = dict(TINY, patch_size=2)
     monkeypatch.setitem(jsalad.DINOV2_VARIANTS, "tiny257", variant)
     monkeypatch.setitem(tsalad.DINOV2_VARIANTS, "tiny257", variant)

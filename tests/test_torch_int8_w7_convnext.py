@@ -36,6 +36,7 @@ from geovpr_torch.models.quantize import quantize_for_serving
 from geovpr_torch.models.registry import check_int8_serving
 from geovpr_torch.models.swin import SwinBlock, SwinTransformer
 from geovpr_torch.ops import swin_block as sb
+from torch_int8_modes import set_int8_mode
 
 SWIN7 = dict(embed_dim=64, depths=(2, 2), num_heads=(2, 4), window_size=7,
              image_size=56)
@@ -143,18 +144,32 @@ def test_window7_int8_half_arithmetic(shift):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
 
 
-def test_window7_int8_half_refuses_other_modes():
-    x = torch.zeros(1, 49, 64)
-    kw = dict(ln_scale_q=torch.ones(64), ln_bias_q=torch.zeros(64),
-              wqkv_q_t=torch.zeros(192, 64, dtype=torch.int8),
-              sqkv_eff=torch.ones(192), bqkv_eff=torch.zeros(192),
-              wo_q_t=torch.zeros(64, 64, dtype=torch.int8),
-              so_eff=torch.ones(64), bo=torch.zeros(64),
-              table=torch.zeros(169, 2), num_heads=2, resolution=7,
-              window=7, shift=0)
-    for mode in (dict(cs=None), dict(cs=1.0, cpv=1.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-            sb.swin_attn_block_int8_unfused(x, **kw, **mode)
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("mode", ["int8_pv", "bf16_scores"])
+def test_window7_int8_half_matches_jax_fallback_in_mode(monkeypatch, mode,
+                                                       shift):
+    """`test_window7_int8_half_matches_jax_fallback` in the two other
+    attention modes, each package folding the JAX-calibrated state in that
+    mode (`INT8_PV`, `INT8_QK_SCORES` set in both): the same bounds
+    (measured 2.8e-7 of the scale and 0.9999998 in both modes: no int8
+    rounding flipped)."""
+    set_int8_mode(monkeypatch, mode)
+    c, heads, res = 64, 2, 14
+    x = np.random.default_rng(shift).normal(size=(2, res * res, c)).astype(
+        np.float32)
+    jm = JSwinBlock(dim=c, num_heads=heads, resolution=res, window=7,
+                    shift=shift, int8_attn=True)
+    vq = j_quantize(jm, _params(jm, x, shift), [jnp.asarray(x)])
+    del vq["quant"]["mlp"]          # the MLP half stays float
+    want = np.asarray(jax.jit(jm.apply)(vq, jnp.asarray(x)))
+    tm = _port(SwinBlock(c, heads, res, 7, shift, int8_attn=True), vq)
+    assert (tm._k5["cs"] is None) == (mode == "bf16_scores")
+    assert (tm._k5["cpv"] is None) == (mode != "int8_pv")
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(x))
+    err = np.abs(got.numpy() - want).max()
+    assert err <= 1e-3 * np.abs(want).max(), err
+    assert _cosine(got, want).min() >= 0.99999
 
 
 def test_window7_int8_model_matches_jax_fallback():

@@ -146,3 +146,38 @@ def test_bridge_keeps_the_quant_collection(tiny_variant):
     np.testing.assert_array_equal(
         blk._k3_w1q_t.numpy(),
         np.asarray(vq["quant"]["backbone"]["block1"]["mlp"]["fc1_kernel_q"]).T)
+
+
+@pytest.mark.parametrize("env, want", [
+    ({}, (True, False)),
+    ({"GEOVPR_INT8_PV": "1"}, (True, True)),
+    ({"GEOVPR_INT8_QK": "0"}, (False, False)),
+    ({"GEOVPR_INT8_QK": "0", "GEOVPR_INT8_PV": "1"}, (False, False)),
+])
+def test_mode_variables_set_the_jax_flags(env, want):
+    """The environment variables give the port the mode flags JAX's give
+    it, read when each `quant` module is imported: a fresh process per
+    setting, the two packages side by side; int8 P.V needs int8 scores."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("import geovpr.ops.quant as j, geovpr_torch.ops.quant as t; "
+            "print(j.INT8_QK_SCORES, j.INT8_PV, t.INT8_QK_SCORES, t.INT8_PV)")
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("GEOVPR_INT8_QK", "GEOVPR_INT8_PV")}
+    out = subprocess.run([sys.executable, "-c", code], env={**base, **env},
+                         capture_output=True, text=True, check=True,
+                         cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))))
+    flags = out.stdout.split()
+    assert flags[:2] == flags[2:] == [str(w) for w in want], out.stdout
+
+
+def test_attn_mode_of_the_folded_constants():
+    assert tquant.attn_mode(0.1, None) == "int8_scores"
+    assert tquant.attn_mode(0.1, 0.2) == "int8_pv"
+    assert tquant.attn_mode(None, None) == "bf16_scores"
+    with pytest.raises(ValueError, match="needs int8 scores"):
+        tquant.attn_mode(None, 0.2)
+    assert tquant.ATTN_MODES.index("int8_scores") == 0

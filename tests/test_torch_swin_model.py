@@ -25,6 +25,7 @@ from geovpr.models.swin import SwinTransformer as JSwin
 from geovpr_torch.models.convert_jax import state_dict_from_flax
 from geovpr_torch.models.quantize import quantize_for_serving
 from geovpr_torch.models.swin import LN_EPS, SwinTransformer
+from torch_int8_modes import MODES, set_int8_mode
 
 SMALL = dict(embed_dim=32, depths=(2, 2), num_heads=(1, 2), window_size=4,
              image_size=32)
@@ -138,11 +139,14 @@ def test_int8_f32_matches_jax_fallback():
                    np.asarray(want.tokens).reshape(-1, 64)).min() >= 0.99
 
 
-def test_int8_bf16_matches_jax_kernels(jax_kernels):
+@pytest.mark.parametrize("mode", MODES)
+def test_int8_bf16_matches_jax_kernels(jax_kernels, monkeypatch, mode):
     """int8 in bf16: JAX's K5, K3 and fused boundary kernels interpreted
     (alternating layout) against the port's plain versions, the JAX quant
-    collection on both sides. Cosine bound 0.9995 on the pooled features
-    (measured 0.99998)."""
+    collection on both sides, each folding the attention in `mode`. Cosine
+    bound 0.9995 on the pooled features (measured 0.99998 in each
+    mode)."""
+    set_int8_mode(monkeypatch, mode)
     cfg = KERNEL2
     x = _images(cfg, 1, 3)
     jm = JSwin(**cfg, drop_path_rate=0.0, int8_mlp=True, int8_attn=True,

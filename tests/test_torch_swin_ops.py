@@ -29,7 +29,10 @@ from geovpr_torch.ops.patch_merge import (fused_patch_merge,
 from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
                                          fused_swin_attn_block_int8,
                                          swin_attn_block_int8_reference,
+                                         swin_attn_block_int8_unfused,
                                          swin_attn_block_reference)
+
+from torch_int8_modes import MODES, set_int8_mode  # noqa: E402
 
 B, RES, WIN, C, H = 2, 24, 12, 128, 4     # kernel-eligible: N=144, C=128
 
@@ -186,11 +189,15 @@ def _rows_off(err, tol):
 
 
 @pytest.mark.parametrize("shift", [0, WIN // 2])
-def test_k5_plain_matches_jax_kernel(interpret, shift):
+@pytest.mark.parametrize("mode", MODES)
+def test_k5_plain_matches_jax_kernel(interpret, monkeypatch, mode, shift):
     """K5's plain version against `fused_swin_attn_block_int8` interpreted,
-    on the port's fold: the same arithmetic, so at most 1% of the rows may
-    differ by more than 1e-5 (measured: 1 row of 1,152, one context flip, at
-    shift 0; none shifted), each within the flip bound of `_int8_errors`."""
+    in each attention mode, on the port's fold in that mode: the same
+    arithmetic, so at most 1% of the rows may differ by more than 1e-5
+    (measured, of 1,152 rows: int8 scores 1 at shift 0 (one context flip),
+    none shifted; int8 P.V none at shift 0, 1 shifted; bf16 scores 2 at
+    shift 0, none shifted), each within the flip bound of `_int8_errors`."""
+    set_int8_mode(monkeypatch, mode)
     x, blk, k5 = _int8_block(shift)
     n = WIN * WIN
     table = blk.attn.relative_position_bias_table.detach().numpy()
@@ -204,7 +211,9 @@ def test_k5_plain_matches_jax_kernel(interpret, shift):
         jnp.asarray(to_windows(x.numpy(), RES, WIN, shift)), j["ln_scale_q"],
         j["ln_bias_q"], j["wqkv_q_t"].T, j["sqkv_eff"], j["bqkv_eff"],
         j["wo_q_t"].T, j["so_eff"], j["bo"], jnp.asarray(bias), mask, H,
-        1e-5, cs=jnp.float32(k5["cs"]) * _SWIN_LOG2E)
+        1e-5, cs=None if k5["cs"] is None else
+        jnp.float32(k5["cs"]) * _SWIN_LOG2E,
+        cpv=None if k5["cpv"] is None else jnp.float32(k5["cpv"]))
     with torch.no_grad():
         got = swin_attn_block_int8_reference(
             x, **k5, table=blk.attn.relative_position_bias_table,
@@ -219,16 +228,21 @@ def test_k5_plain_matches_jax_kernel(interpret, shift):
 def test_k5_plain_matches_jax_fallback(mode):
     """All three modes against the JAX block's XLA int8 fallback
     (`SwinBlock._attention_int8`, `geovpr/models/swin.py:662-729`), driven
-    through the JAX block on windows with the port's quant state. The
-    default mode forms the softmax as the kernel does (exp2, no max-shift,
-    unnormalised P rounded to bf16) and rounds the context to int8 once,
-    where the fallback normalises first and rounds the context to bf16
-    before int8 (`swin.py:713-722`; ROADMAP Queue 3). bf16 spaces values of
-    64..127 by 0.5, so the double rounding moves many int8 contexts by one:
-    99% of the rows differ here (pinned: at least half), while the
-    attention branch (out - x) keeps cosine 0.99992 and max error 1.2% of
-    its largest value (bounds 0.9995 and 3%). The other two modes repeat
-    the fallback's arithmetic: bound 1e-4."""
+    through the JAX block on windows with the port's quant state. The plain
+    version forms the softmax as the kernel body does (exp2 domain; in the
+    default and bf16 scores no max-shift, unnormalised P rounded to bf16)
+    and rounds the context to int8 once, where the fallback normalises
+    first and rounds the context to bf16 before int8 (`swin.py:713-722`;
+    ROADMAP Queue 3). bf16 spaces values of 64..127 by 0.5, so the double
+    rounding moves many int8 contexts by one: 99% of the rows differ here
+    in both modes (pinned: at least half), while the attention branch (out
+    - x) keeps cosine 0.99992 (bf16 scores 0.99991) and max error 1.2% (bf16
+    scores 1.5%) of its largest value (bounds 0.9995 and 3%). In int8 P.V
+    the two differ only in the exp2 domain and ci (cpv / z) for ci cpv / z:
+    bound 1e-4 (measured 0). The window-7 half
+    (`swin_attn_block_int8_unfused`), which repeats the fallback's
+    arithmetic, is held to 1e-4 in the two other modes (measured 0); in
+    the default mode one of its contexts flips here (0.004)."""
     import geovpr.models.swin as jswin
     shift = WIN // 2
     x, blk, k5 = _int8_block(shift, seed=6)
@@ -266,23 +280,28 @@ def test_k5_plain_matches_jax_fallback(mode):
     want = jb._attention_int8(jnp.asarray(to_windows(x.numpy(), RES, WIN,
                                                      shift)),
                               attn_args, jnp.asarray(bias), mask)
+    kw["cpv"] = None if cpv is None else float(cpv)
+    geom = dict(table=blk.attn.relative_position_bias_table, num_heads=H,
+                resolution=RES, window=WIN, shift=shift)
     with torch.no_grad():
-        got = swin_attn_block_int8_reference(
-            x, **kw, table=blk.attn.relative_position_bias_table,
-            num_heads=H, resolution=RES, window=WIN, shift=shift,
-            cpv=None if cpv is None else float(cpv))
-    err = np.abs(got.numpy() - _raster(want, shift))
-    if mode == "qk8":
-        xf = x.numpy()
-        g = (got.numpy() - xf).ravel()
-        w = (_raster(want, shift) - xf).ravel()
-        cos = g @ w / np.linalg.norm(g) / np.linalg.norm(w)
-        assert cos >= 0.9995, cos
-        assert err.max() <= 0.03 * np.abs(w).max(), err.max()
-        # the double rounding is visible: most rows differ
-        assert _rows_off(err, 1e-5) >= 0.5
-    else:
+        got = swin_attn_block_int8_reference(x, **kw, **geom)
+        fallback = swin_attn_block_int8_unfused(x, **kw, **geom)
+    want = _raster(want, shift)
+    err = np.abs(got.numpy() - want)
+    if mode != "qk8":
+        # the window-7 half repeats the fallback's arithmetic (measured 0)
+        assert np.abs(fallback.numpy() - want).max() <= 1e-4
+    if mode == "qk8_pv8":
         assert err.max() <= 1e-4, err.max()
+        return
+    xf = x.numpy()
+    g = (got.numpy() - xf).ravel()
+    w = (want - xf).ravel()
+    cos = g @ w / np.linalg.norm(g) / np.linalg.norm(w)
+    assert cos >= 0.9995, cos
+    assert err.max() <= 0.03 * np.abs(w).max(), err.max()
+    # the double rounding is visible: most rows differ
+    assert _rows_off(err, 1e-5) >= 0.5
 
 
 def _merge_case(res, c, seed=0):
