@@ -30,14 +30,18 @@ without the sum of dp * p, or without the mask of the keys past N on the
 one-key tail tile of N = 257; K8c with dWqkv taken from one CTA's partial
 sum only, its dWqkv product skipping the 16-row tail of M = 16 x 257 =
 64 x 64 + 16, or its dgamma GY epilogue summing one warpgroup's rows
-only),
+only; the f32 forms (`csrc/f32_serving.cu`): K1 without the mask of the
+keys past N, K4 without the shift mask (in the raster window attention
+that K7's f32 raster mode shares), K6 with x10 and x01 swapped, K7
+counting the pad keys past N = 49),
 builds that copy and runs the chip_smoke.py check of that kernel
 (`int8_kernels_vs_plain` for K2/K3 and the int8 GEMM,
 `swin_kernels_vs_plain` for K4/K5/K6,
 `k7_kernels_vs_plain` for K7, `k9_kernels_vs_plain` for K9a-K9c,
-`k8_kernels_vs_plain` for K1's GEMM and K8a-K8c) against it at one
-shape. Arguments, where given, pick the faults whose names start with
-them (`python3 chip_faults.py K8`). It prints the check's error line for
+`k8_kernels_vs_plain` for K1's GEMM and K8a-K8c, `f32_kernels_vs_plain`
+for the f32 forms) against it at one shape. Arguments, where given, pick
+the faults whose names start with them (`python3 chip_faults.py K8`,
+`python3 chip_faults.py f32`). It prints the check's error line for
 the faulty kernel and whether the check rejected it, and exits non-zero
 if a planted fault passes. Needs one CUDA card; the checkout itself is
 never modified.
@@ -62,6 +66,8 @@ _K7 = "cs.k7_kernels_vs_plain(dev, shapes=(), raster_shapes={shapes!r})"
 _K7_STAGE0 = (16, 96, 3, 56, 7, 3)   # Swin-T-224 stage 0, shifted, B=16
 _K9 = "cs.k9_kernels_vs_plain(dev, shapes=({shape!r},))"
 _K8 = "cs.k8_kernels_vs_plain(dev, shapes=((16, 257, 768, 12),))"
+_F32 = ("cs.f32_kernels_vs_plain(dev, k1={k1!r}, k4={k4!r}, k6={k6!r}, "
+        "k7={k7!r})")
 
 # name -> (source file, [(original text, faulty text)], check to run)
 FAULTS = {
@@ -183,6 +189,21 @@ FAULTS = {
             ("for (int r = 0; r < 64 && row0 + r < M; ++r)",
              "for (int r = 0; r < 64 && row0 + r < M && wg == 0; ++r)")],
         _K8),
+    "f32 K1 key mask past N dropped": ("f32_serving.cu", [
+        ("s[r] = key < a.N ? __fmul_rn(s[r], a.scale) : -INFINITY;",
+         "s[r] = __fmul_rn(s[r], a.scale);")],
+        _F32.format(k1=((16, 257, 768, 12),), k4=(), k6=(), k7=())),
+    "f32 K4 shift mask dropped": ("f32_serving.cu", [
+        ("if (a.shift && qlab[r] != klab) x = __fadd_rn(x, kMaskL2);",
+         "if (false) x = __fadd_rn(x, kMaskL2);")],
+        _F32.format(k1=(), k4=(_STAGE0,), k6=(), k7=())),
+    "f32 K6 x10 and x01 swapped": ("f32_serving.cu", [
+        ("quad == 1 ? p10 : quad == 2 ? p01",
+         "quad == 1 ? p01 : quad == 2 ? p10")],
+        _F32.format(k1=(), k4=(), k6=((16, 128, 96),), k7=())),
+    "f32 K7 pad keys counted": ("f32_serving.cu", [
+        ("s[r] = kin ? x : -INFINITY;", "s[r] = kin ? x : 0.f;")],
+        _F32.format(k1=(), k4=(), k6=(), k7=(_K7_STAGE0,))),
 }
 
 _RUN = """

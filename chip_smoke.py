@@ -111,9 +111,22 @@ end to end from seeded random weights:
   a child process per mode with the mode's environment variable set
   (GEOVPR_INT8_PV=1, GEOVPR_INT8_QK=0, neither): launches, CSVs, the kernel
   path against the plain path, and int8 against bf16 of the same weights,
-  the three modes side by side.
-  `python3 chip_smoke.py --phases index_1m,train_disk,int8_modes` runs
-  those phases alone.
+  the three modes side by side;
+- f32 serving (`[f32_serving]`), for models built with
+  compute_dtype="float32": the f32 forms of K1 (64x257x768x12), K4 (the
+  four Swin-B-384 stages, B=64), K6 (C = 128, 256, 512) and K7's raster
+  mode (the four Swin-T-224 stages, B=64) against their plain f32 versions
+  with TF32 off (the branch's relative error within 1e-5), timed beside
+  their plain versions, their f32 library yardsticks and their bounds at
+  the CUDA cores' f32 peak; Swin-B-384 geopose, Swin-T-224 heading and
+  DINOv2-B/14 + SALAD in f32, kernel path against plain path (K4 24, K6
+  3; K7 12, K6 3; K1 12 launches a batch of 64); and `cli.parity` in a
+  child on seeded reference-layout checkpoints, swin_geopose and a
+  Swin-T-224 heading leg at compute_dtype float32 and the salad leg (f32
+  by itself), each passing against the plain path's goldens on the same
+  weights.
+  `python3 chip_smoke.py --phases index_1m,train_disk,int8_modes,f32_serving`
+  runs those phases alone.
 
 Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
 form and the w8a8 MLP half-block, K3 also at the four Swin-B-384 stage
@@ -121,7 +134,7 @@ widths and at ConvNeXt-B's four stages with the separate residual), K4 and K5 (t
 K6 (Swin PatchMerging), K7 (the window-7 attention core, on the raster
 qkv and on pre-split windows; the window-7 half is also timed op by op),
 K2 and K5 also in their two other attention modes (int8 P.V, bf16
-scores), and K9a, K9b and K9c (the Swin attention half-block's training
+scores), K1, K4, K6 and K7 also in their f32 forms, and K9a, K9b and K9c (the Swin attention half-block's training
 forward, core backward and whole backward), and K8a, K8b and K8c (the same
 for the ViT attention half-block of DINOv2; K8a launches K1's kernels and
 keeps the qkv and ctx they write). K1's four launches (LayerNorm, the TMA
@@ -566,16 +579,18 @@ def bounds(kind: str, b, n, d, h, residual=False,
 def library_k1(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma, h):
     """K1's yardstick (timed only here, never called by the port):
     F.layer_norm -> torch.matmul -> F.scaled_dot_product_attention ->
-    torch.matmul + epilogue, all bf16."""
+    torch.matmul + epilogue, all in x's dtype (bf16, or f32 with TF32
+    off)."""
     import torch.nn.functional as F
     b, n, d = x.shape
-    hx = F.layer_norm(x.float(), (d,), ln_scale, ln_bias, 1e-6).bfloat16()
-    qkv = (torch.matmul(hx, wqkv) + bqkv).bfloat16()
+    dt = x.dtype
+    hx = F.layer_norm(x.float(), (d,), ln_scale, ln_bias, 1e-6).to(dt)
+    qkv = (torch.matmul(hx, wqkv) + bqkv).to(dt)
     q, k, v = (t.reshape(b, n, h, d // h).transpose(1, 2)
                for t in qkv.split(d, dim=-1))
     o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(
         b, n, d)
-    return ((torch.matmul(o, wo) + bo) * gamma + x).bfloat16()
+    return ((torch.matmul(o, wo) + bo) * gamma + x).to(dt)
 
 
 def part_bound(ops, peak, nbytes) -> dict:
@@ -588,23 +603,26 @@ def part_bound(ops, peak, nbytes) -> dict:
                 ops=ops)
 
 
-def k1_part_bounds(part: str, b, n, d, h, gamma=True) -> dict:
+def k1_part_bounds(part: str, b, n, d, h, gamma=True, peak=PEAK_BF16,
+                   width=2) -> dict:
     """The least time of one of K1's four launches at (B, N, D, H), B N
     rows attending in groups of N: bytes (each input read once, each
-    output written once) over 3.35 TB/s against operations at their peak
-    (the products in bf16, LayerNorm's ~8 f32 operations an element).
-    K4's launches are the same with B windows of N tokens and no gamma."""
-    m = b * n
+    output written once; `width` bytes a value of the stream, the
+    matrices and the buffers, 4 a vector's) over 3.35 TB/s against
+    operations at their peak (the products at `peak`, bf16 by default;
+    LayerNorm's ~8 f32 operations an element). K4's launches are the same
+    with B windows of N tokens and no gamma."""
+    m, w = b * n, width
     if part == "layernorm":      # x -> LN(x); scale and bias
-        return part_bound(8 * m * d, PEAK_F32, 2 * m * d * 2 + 2 * d * 4)
+        return part_bound(8 * m * d, PEAK_F32, 2 * m * d * w + 2 * d * 4)
     if part == "qkv_gemm":       # LN(x), Wqkv, bqkv -> qkv
-        return part_bound(2 * m * d * 3 * d, PEAK_BF16, m * d * 2 + 3 * d * d
-                          * 2 + 3 * d * 4 + m * 3 * d * 2)
+        return part_bound(2 * m * d * 3 * d, peak, m * d * w + 3 * d * d
+                          * w + 3 * d * 4 + m * 3 * d * w)
     if part == "attention":      # qkv -> ctx: q k^T and P V, once each
-        return part_bound(4 * b * h * n * n * (d // h), PEAK_BF16,
-                          m * 3 * d * 2 + m * d * 2)
+        return part_bound(4 * b * h * n * n * (d // h), peak,
+                          m * 3 * d * w + m * d * w)
     # ctx, Wo, bo, gamma, x -> out
-    return part_bound(2 * m * d * d, PEAK_BF16, 3 * m * d * 2 + d * d * 2 + (
+    return part_bound(2 * m * d * d, peak, 3 * m * d * w + d * d * w + (
         2 if gamma else 1) * d * 4)
 
 
@@ -641,13 +659,13 @@ def k2_part_bounds(part: str, b, n, d, h, mode: str = "int8_scores") -> dict:
                       + 2 * m * d * 2)
 
 
-def k4_part_bounds(part: str, shape) -> dict:
+def k4_part_bounds(part: str, shape, peak=PEAK_BF16, width=2) -> dict:
     """K1's formulas for one of K4's four launches at (B, C, H, S, w,
     shift): the B S^2 / w^2 windows of N = w^2 tokens in place of K1's
     images, no gamma."""
     b, c, h, res, win, _ = shape
     return k1_part_bounds(part, b * res * res // (win * win), win * win, c,
-                          h, gamma=False)
+                          h, gamma=False, peak=peak, width=width)
 
 
 def ln_quant_bound(m, d) -> dict:
@@ -692,17 +710,18 @@ def k3_part_bounds(part: str, m, d, hid) -> dict:
                       + 3 * d * 4 + 2 * m * d * 2)
 
 
-def k6_part_bounds(part: str, shape) -> dict:
+def k6_part_bounds(part: str, shape, peak=PEAK_BF16, width=2) -> dict:
     """One of K6's two launches at (B, C, S): the merge-LN pass (x read
-    once, bf16 LN(merged) (M2, 4C) written; ~8 f32 operations an element)
-    and the GEMM (LN(merged) and W read, out written)."""
+    once, LN(merged) (M2, 4C) written; ~8 f32 operations an element) and
+    the GEMM (LN(merged) and W read, out written, the product at `peak`),
+    `width` bytes a value (4 a vector's)."""
     b, c, res = shape
-    m2 = b * (res // 2) ** 2
+    m2, w = b * (res // 2) ** 2, width
     if part == "merge_ln":
         return part_bound(8 * m2 * 4 * c, PEAK_F32,
-                          2 * m2 * 4 * c * 2 + 2 * 4 * c * 4)
-    return part_bound(2 * m2 * 4 * c * 2 * c, PEAK_BF16,
-                      m2 * 4 * c * 2 + 8 * c * c * 2 + m2 * 2 * c * 2)
+                          2 * m2 * 4 * c * w + 2 * 4 * c * 4)
+    return part_bound(2 * m2 * 4 * c * 2 * c, peak,
+                      m2 * 4 * c * w + 8 * c * c * w + m2 * 2 * c * w)
 
 
 def graph_ms(fn, iters: int = 20) -> float:
@@ -945,22 +964,23 @@ def breakdown_fn(fn, card: str, path: str, batch: int) -> None:
 
 # ----------------------------------------------------------- Swin / K4-K6 --
 
-def swin_block_case(shape, device, int8=False, seed=SEED, x_scale=1.0):
-    """x and a Swin block at one stage's widths, seeded random weights with
-    perturbed vectors and a random relative-position table (so that a
-    dropped bias, scale or table shows); int8: its static scales calibrated
-    on x through the plain float path."""
+def swin_block_case(shape, device, int8=False, seed=SEED, x_scale=1.0,
+                    dtype=torch.bfloat16):
+    """x and a Swin block at one stage's widths in `dtype`, seeded random
+    weights with perturbed vectors and a random relative-position table (so
+    that a dropped bias, scale or table shows); int8: its static scales
+    calibrated on x through the plain float path."""
     from geovpr_torch.models.layers import init_weights_
     from geovpr_torch.models.quantize import quantize_for_serving
     from geovpr_torch.models.swin import SwinBlock
 
     b, c, h, res, win, shift = shape
     gen = torch.Generator().manual_seed(seed + c + shift)
-    blk = SwinBlock(c, h, res, win, shift, dtype=torch.bfloat16,
-                    int8_attn=int8, int8_mlp=int8)
+    blk = SwinBlock(c, h, res, win, shift, dtype=dtype, int8_attn=int8,
+                    int8_mlp=int8)
     init_weights_(blk, gen)
     perturb_swin_(blk, gen)
-    x = (torch.randn(b, res * res, c, generator=gen) * x_scale).bfloat16()
+    x = (torch.randn(b, res * res, c, generator=gen) * x_scale).to(dtype)
     blk = blk.to(device).eval()
     x = x.to(device)
     if int8:
@@ -1016,14 +1036,14 @@ def f32(args):
     return [a.float() if isinstance(a, torch.Tensor) else a for a in args]
 
 
-def merge_case(shape, device, seed=SEED):
+def merge_case(shape, device, seed=SEED, dtype=torch.bfloat16):
     b, c, res = shape
     gen = torch.Generator().manual_seed(seed + c)
-    x = torch.randn(b, res * res, c, generator=gen).bfloat16().to(device)
+    x = torch.randn(b, res * res, c, generator=gen).to(dtype).to(device)
     ln_s = (1 + 0.1 * torch.randn(4 * c, generator=gen)).to(device)
     ln_b = (0.1 * torch.randn(4 * c, generator=gen)).to(device)
     w = (torch.randn(4 * c, 2 * c, generator=gen) * (4 * c) ** -0.5
-         ).bfloat16().to(device)
+         ).to(dtype).to(device)
     return x, ln_s, ln_b, w, res
 
 
@@ -1254,8 +1274,8 @@ def swin_bounds(kind: str, shape, mode: str = "int8_scores") -> dict:
                 ops=ops)
 
 
-def library_mask(table, h, b, res, win, shift):
-    """The yardsticks' float attention mask, bf16 (BW, H, N, N): the
+def library_mask(table, h, b, res, win, shift, dtype=torch.bfloat16):
+    """The yardsticks' float attention mask in `dtype` (BW, H, N, N): the
     relative-position bias [+ the shift mask, window w of an image taking
     mask w]."""
     from geovpr_torch.ops.window_attention import (relative_position_bias,
@@ -1266,7 +1286,7 @@ def library_mask(table, h, b, res, win, shift):
     if sm is not None:
         mask = (mask.reshape(1, 1, h, n, n) + sm[None, :, None]).reshape(
             1, -1, h, n, n).expand(b, -1, -1, -1, -1).reshape(-1, h, n, n)
-    return mask.bfloat16()
+    return mask.to(dtype)
 
 
 def library_k4(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, table, h, res,
@@ -1274,21 +1294,23 @@ def library_k4(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, table, h, res,
     """K4's yardstick (timed only here, never called by the port):
     F.layer_norm -> torch.matmul -> windows (torch.roll + partition) ->
     F.scaled_dot_product_attention with bias [+ mask] as a float mask ->
-    back to raster -> torch.matmul + bias + residual, all bf16."""
+    back to raster -> torch.matmul + bias + residual, all in x's dtype
+    (bf16, or f32 with TF32 off)."""
     import torch.nn.functional as F
 
     from geovpr_torch.ops.window_attention import from_windows, to_windows
     b, l, c = x.shape
-    hx = F.layer_norm(x.float(), (c,), ln_scale, ln_bias, ln_eps).bfloat16()
-    qkv = to_windows((torch.matmul(hx, wqkv) + bqkv).bfloat16(), res, win,
+    dt = x.dtype
+    hx = F.layer_norm(x.float(), (c,), ln_scale, ln_bias, ln_eps).to(dt)
+    qkv = to_windows((torch.matmul(hx, wqkv) + bqkv).to(dt), res, win,
                      shift)
     bw, n, _ = qkv.shape
     q, k, v = (t.reshape(bw, n, h, c // h).transpose(1, 2)
                for t in qkv.split(c, dim=-1))
     o = F.scaled_dot_product_attention(
-        q, k, v, attn_mask=library_mask(table, h, b, res, win, shift))
+        q, k, v, attn_mask=library_mask(table, h, b, res, win, shift, dt))
     o = from_windows(o.transpose(1, 2).reshape(bw, n, c), res, win, shift)
-    return (torch.matmul(o, wo) + bo + x).bfloat16()
+    return (torch.matmul(o, wo) + bo + x).to(dt)
 
 
 def library_k5(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
@@ -1324,13 +1346,14 @@ def library_k5(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
 
 
 def library_k6(x, ln_scale, ln_bias, w, res, ln_eps=1e-5):
-    """K6's yardstick: the 2x2 gather -> F.layer_norm -> torch.matmul."""
+    """K6's yardstick: the 2x2 gather -> F.layer_norm -> torch.matmul, in
+    x's dtype."""
     import torch.nn.functional as F
 
     from geovpr_torch.ops.patch_merge import merge_gather
     m = merge_gather(x, res)
     ln = F.layer_norm(m.float(), (m.shape[-1],), ln_scale, ln_bias,
-                      ln_eps).bfloat16()
+                      ln_eps).to(x.dtype)
     return torch.matmul(ln, w)
 
 
@@ -1496,14 +1519,14 @@ def k7_case(shape, device, seed=SEED):
     return q, k, v, bias, mask
 
 
-def k7_raster_case(shape, device, seed=SEED):
+def k7_raster_case(shape, device, seed=SEED, dtype=torch.bfloat16):
     """K7's raster operands at (B, C, H, resolution, window, shift): the
-    unfused half's qkv (B, L, 3C) drawn N(0, 1) in bf16 and a
+    unfused half's qkv (B, L, 3C) drawn N(0, 1) in `dtype` and a
     relative-position table ((2w-1)^2, H) drawn at unit scale (f32), with
     the geometry: `window_attention_raster`'s arguments."""
     b, c, h, res, win, shift = shape
     gen = torch.Generator().manual_seed(seed + b + c + res + shift)
-    qkv = torch.randn(b, res * res, 3 * c, generator=gen).bfloat16()
+    qkv = torch.randn(b, res * res, 3 * c, generator=gen).to(dtype)
     table = torch.randn((2 * win - 1) ** 2, h, generator=gen)
     return qkv.to(device), table.to(device), h, res, win, shift
 
@@ -1699,12 +1722,12 @@ def k7_raster_bounds(shape) -> dict:
                 bytes_bound_ms=bytes_t * 1e3)
 
 
-def library_k7_mask(bias, mask, bw):
+def library_k7_mask(bias, mask, bw, dtype=torch.bfloat16):
     """The float mask of K7's yardstick: bias [+ each window's shift mask]
-    tiled to (BW, H, N, N) bf16 (window w takes mask w mod nW), built once,
-    outside the timing."""
+    tiled to (BW, H, N, N) in `dtype` (window w takes mask w mod nW), built
+    once, outside the timing."""
     m = bias[None] if mask is None else bias[None] + mask[:, None]
-    return m.bfloat16().repeat(bw // m.shape[0], 1, 1, 1)
+    return m.to(dtype).repeat(bw // m.shape[0], 1, 1, 1)
 
 
 def interleaved_graph_ms(fns: dict, iters: int = 20) -> dict:
@@ -4639,16 +4662,16 @@ def export_reference(recipe: str, sd: dict, hub_pos_embed=None) -> dict:
     return {k: v.contiguous().clone() for k, v in out.items()}
 
 
-def cp_model(recipe: str):
-    """The recipe's preset model as training builds it (f32 parameters),
-    from seed SEED, its vectors (and the Swin tables) perturbed off their
-    init, on the host."""
+def cp_model(recipe: str, preset: str = ""):
+    """The recipe's preset model (or `preset`'s, in the recipe's layout) as
+    training builds it (f32 parameters), from seed SEED, its vectors (and
+    the Swin tables) perturbed off their init, on the host."""
     from geovpr_torch.cli.presets import build_preset
     from geovpr_torch.models.convert_reference import RECIPE_PRESETS
     from geovpr_torch.models.layers import init_weights_
     from geovpr_torch.models.regression import RegressionModel
 
-    cfg = build_preset(RECIPE_PRESETS[recipe])
+    cfg = build_preset(preset or RECIPE_PRESETS[recipe])
     model = RegressionModel(dataclasses.replace(
         cfg.model, image_size=cfg.data.image_size),
         dtype=getattr(torch, cfg.model.compute_dtype), train=True)
@@ -4660,18 +4683,24 @@ def cp_model(recipe: str):
     return model
 
 
-def cp_write_assets(root: str, rng) -> dict:
+def cp_write_assets(root: str, rng, legs: dict | None = None) -> dict:
     """The parity assets directory: labels_val.csv (campus-scale (lat,
-    lon), headings in [0, 360)) and JPEGs under images/; each recipe's
-    reference checkpoint (the Swin one in the `model_state_dict` wrapper)
+    lon), headings in [0, 360)) and JPEGs under images/; each leg's
+    reference checkpoint (the Swin ones in the `model_state_dict` wrapper)
     with an .npz scaler for the geopose legs; salad/dino_salad.ckpt; the
-    Swin backbone alone as HF `SwinModel` keys. Returns the models they
-    were exported from and the files' paths."""
+    Swin-B-384 backbone alone as HF `SwinModel` keys. `legs` maps a leg's
+    directory to its (recipe, preset), each recipe's own by default.
+    Returns the models they were exported from and the files' paths, by
+    leg."""
     from PIL import Image
 
+    from geovpr_torch.cli.presets import build_preset
+    from geovpr_torch.models.convert_reference import RECIPE_PRESETS
+
+    legs = legs or {r: (r, RECIPE_PRESETS[r]) for r in CP_RECIPES}
     img_dir = os.path.join(root, "images")
     os.makedirs(img_dir)
-    size = max(cp_preset_fields("image_size").values())
+    size = max(build_preset(p).data.image_size for _, p in legs.values())
     src = synthetic_val(CP_N_VAL, size, rng)
     angles = rng.uniform(0.0, 360.0, CP_N_VAL)
     with open(os.path.join(root, "labels_val.csv"), "w") as f:
@@ -4684,10 +4713,10 @@ def cp_write_assets(root: str, rng) -> dict:
                     f"{angles[i]},1\n")
     models, paths = {}, {}
     gen = torch.Generator().manual_seed(SEED + 37)
-    for recipe in CP_RECIPES:
-        model = cp_model(recipe)
+    for name, (recipe, preset) in legs.items():
+        model = cp_model(recipe, preset)
         sd = model.state_dict()
-        d = os.path.join(root, recipe)
+        d = os.path.join(root, name)
         os.makedirs(d)
         pos = None
         if recipe == "dinov2salad_geopose":
@@ -4702,18 +4731,18 @@ def cp_write_assets(root: str, rng) -> dict:
                                                   .blocks), pos).items()},
                        os.path.join(root, "salad", "dino_salad.ckpt"))
         ckpt = export_reference(recipe, sd, pos)
-        paths[recipe] = os.path.join(d, "model_best.pth")
+        paths[name] = os.path.join(d, "model_best.pth")
         torch.save({"epoch": 49, "model_state_dict": ckpt}
-                   if recipe == "swin_geopose" else ckpt, paths[recipe])
+                   if recipe == "swin_geopose" else ckpt, paths[name])
         if recipe != "efficientnet_sincos":
             np.savez(os.path.join(d, "latlon_scaler.npz"),
                      mean=np.float32([219000.0, 143000.0]),
                      scale=np.float32([300.0, 100.0]))
-        if recipe == "swin_geopose":
+        if name == "swin_geopose":
             paths["swin_backbone"] = os.path.join(root, "swin_base_384.pth")
             torch.save({k[len("backbone."):]: v for k, v in ckpt.items()
                         if k.startswith("backbone.")}, paths["swin_backbone"])
-        models[recipe] = model
+        models[name] = model
     return {"models": models, "paths": paths}
 
 
@@ -4773,19 +4802,23 @@ def cp_legs() -> dict:
 
 
 def cp_plain_goldens(root: str, device) -> dict:
-    """Each model leg through `cli.parity`'s own leg code in this process,
-    every model's blocks on the plain path (`use_kernels=False`; no
-    kernel may launch): its metrics are the golden numbers, its CSV the
-    plain predictions. Then the descriptor dump of the salad leg: the hub
-    checkpoint converted as the leg converts it, served in bf16 through K1
-    (the leg itself runs f32 torch ops)."""
-    from geovpr_torch.cli import parity
-    from geovpr_torch.cli.convert import load_state_dict
-    from geovpr_torch.models import convert_torch as ct
-    from geovpr_torch.models.convert_jax import state_dict_from_flax
-    from geovpr_torch.models.salad import DinoV2Salad
-
+    """Each model leg through `cli.parity`'s own leg code in this process
+    on the plain path (`cp_plain_legs`): its metrics are the golden
+    numbers, its CSV the plain predictions. Then the descriptor dump of the
+    salad leg, served in bf16 through K1 (the leg itself runs in f32)."""
     legs = cp_legs()
+    out = cp_plain_legs(root, device, {k: legs[k] for k in CP_RECIPES})
+    cp_salad_dump(root, device, torch.bfloat16, True)
+    return out
+
+
+def cp_plain_legs(root: str, device, legs: dict) -> dict:
+    """Each model leg of `legs` (name -> the leg as `cli.parity` merges
+    it) through `cli.parity`'s own leg code in this process, every model's
+    blocks on the plain path (`use_kernels=False`; no kernel may launch):
+    its report, with the seconds it took."""
+    from geovpr_torch.cli import parity
+
     orig = parity._build_trainer
     counters = train_counters()
 
@@ -4799,7 +4832,7 @@ def cp_plain_goldens(root: str, device) -> dict:
     out = {}
     parity._build_trainer = plain_build
     try:
-        for name in CP_RECIPES:
+        for name in legs:
             for fn in counters.values():
                 fn.launches = 0
             t0 = time.perf_counter()
@@ -4814,11 +4847,22 @@ def cp_plain_goldens(root: str, device) -> dict:
             torch.cuda.empty_cache()
     finally:
         parity._build_trainer = orig
+    return out
+
+
+def cp_salad_dump(root: str, device, dtype, use_kernels: bool) -> None:
+    """The salad leg's reference_descriptors.npz: CP_N_SALAD seeded images
+    and their descriptors from the hub checkpoint, converted as the leg
+    converts it, served in `dtype` on the kernel path or the plain path."""
+    from geovpr_torch.cli.convert import load_state_dict
+    from geovpr_torch.models import convert_torch as ct
+    from geovpr_torch.models.convert_jax import state_dict_from_flax
+    from geovpr_torch.models.salad import DinoV2Salad
 
     sd = load_state_dict(os.path.join(root, "salad", "dino_salad.ckpt"))
     size = cp_preset_fields("image_size")["dinov2salad_geopose"]
-    model = DinoV2Salad(variant="base-14", image_size=size,
-                        dtype=torch.bfloat16)
+    model = DinoV2Salad(variant="base-14", image_size=size, dtype=dtype,
+                        use_kernels=use_kernels)
     model.load_state_dict(state_dict_from_flax(ct.convert_salad_hub(
         sd, num_layers=len(model.backbone.blocks), target_grid=size // 14)))
     model.to(device).eval()
@@ -4831,7 +4875,6 @@ def cp_plain_goldens(root: str, device) -> dict:
              images=images, descriptors=desc.float().cpu().numpy())
     del model
     torch.cuda.empty_cache()
-    return out
 
 
 def cp_child(spec_path: str) -> int:
@@ -4987,7 +5030,9 @@ def convert_parity_path(device, card: str) -> dict:
         per_batch = {"swin_geopose": {"fused_swin_attn_block": SWIN_BLOCKS,
                                       "fused_patch_merge": SWIN_BOUNDARIES},
                      "dinov2salad_geopose": {"fused_mhsa_block": DINO_BLOCKS},
-                     "efficientnet_sincos": {}, "salad": {}}
+                     "efficientnet_sincos": {},
+                     "salad": {"fused_mhsa_block": DINO_BLOCKS}}
+        batches["salad"] = 1        # CP_N_SALAD images, one forward
         totals = dict(train["launches"])
         for name in (*CP_RECIPES, "salad"):
             rec = recs[name]
@@ -5019,7 +5064,9 @@ def convert_parity_path(device, card: str) -> dict:
                 ok &= cos >= MIN_COSINE and np.isfinite(a).all()
             phase("convert_parity", card=repr(card), **fields)
             check(ok, f"parity leg {name}: {fields}")
+            # the salad leg runs in f32: its launches are the f32 forms'
             for k, v in rec["launches"].items():
+                k = f"{k}.f32" if name == "salad" else k
                 totals[k] = totals.get(k, 0) + v
     phase("convert_parity_seconds", child=child_s,
           total=time.perf_counter() - t_phase)
@@ -5877,6 +5924,441 @@ def int8_modes_path(device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------- f32_serving --
+# The f32 forms of the serving kernels (`csrc/f32_serving.cu`), which a
+# model built with compute_dtype="float32" runs (`cli.parity`'s legs): K1
+# at DINOv2-B/14's shape, K4 at the four Swin-B-384 stages and K6 at its
+# three boundaries, K7's raster mode at the four Swin-T-224 stages (B=64),
+# each against its plain f32 version with TF32 off. The error is the
+# branch's: |(kernel - x) - (plain - x)| / |plain - x| in the 2-norm (x the
+# residual of K1 and K4; K6 and K7 have none), within F32_BRANCH_REL; the
+# plain version with TF32 on (a single-pass TF32 product) is measured
+# beside it. Then the three models
+# in f32, kernel path against plain path (cosine per row at least
+# F32_MIN_COSINE), and `cli.parity` in a child on seeded reference-layout
+# checkpoints. The bound's f32 peak is the CUDA cores': 2 x F32_LANES x the
+# SM clock `nvidia-smi` reports as the card's maximum.
+F32_BRANCH_REL = 1e-5
+F32_MIN_COSINE = 0.99999
+F32_LANES = 132 * 128            # the H100 SXM's FFMA lanes
+F32_TIME_ITERS = 10
+# launches a batch of each checked shape on the main paths: K1 a DINOv2-B/14
+# layer, K4 a Swin-B-384 block of the stage (2, 2, 18, 2), K6 a boundary,
+# K7 a Swin-T-224 block of the stage (2, 2, 6, 2)
+F32_PER_BATCH = {("K1", MAIN_SHAPE): 12,
+                 **{("K4", s): n for s, n in zip(SWIN_ATTN_SHAPES,
+                                                 (2, 2, 18, 2))},
+                 **{("K6", s): 1 for s in SWIN_MERGE_SHAPES},
+                 **{("K7", s): n for s, n in zip(K7_RASTER_SHAPES,
+                                                 SWIN_T_DEPTHS)}}
+# the [f32_serving] parity legs: directory -> (recipe, preset); the salad
+# hub checkpoint comes with dinov2salad_geopose's
+F32_SWIN_T_LEG = "swin_t_angle"
+F32_ASSET_LEGS = {"swin_geopose": ("swin_geopose", SWIN_PRESET),
+                  "dinov2salad_geopose": ("dinov2salad_geopose",
+                                          "dinov2salad_frozen_mlp"),
+                  F32_SWIN_T_LEG: ("swin_geopose", ANGLE_PRESET)}
+
+
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def f32_peak(sm_mhz: float) -> float:
+    """The card's f32 rate outside the tensor cores: one FFMA (two
+    operations) a lane a clock."""
+    return 2 * F32_LANES * sm_mhz * 1e6
+
+
+def f32_bounds(kind: str, shape, peak: float) -> dict:
+    """The least time of one f32 call: operations at `peak` (JAX's
+    CostEstimate formulas, `pallas_mhsa.py:1083-1086`,
+    `pallas_swin_block.py:1096-1099`, `pallas_patch_merge.py:160-161`,
+    `pallas_window_attention.py:173-174`) against the bytes (each input
+    read once, each output written once, 4 bytes a value) at 3.35 TB/s.
+    K1 at (B, N, D, H); K4 and K7 (raster) at (B, C, H, S, w, shift); K6
+    at (B, C, S)."""
+    if kind == "K6":
+        b, c, res = shape
+        m2 = b * (res // 2) ** 2
+        ops = 2 * m2 * 4 * c * 2 * c
+        values = b * res * res * c + m2 * 2 * c + 8 * c * c + 8 * c
+    elif kind == "K1":
+        b, n, d, h = shape
+        ops = 2 * b * n * d * 4 * d + 4 * b * h * n * n * (d // h)
+        values = 2 * b * n * d + 4 * d * d + 7 * d
+    else:
+        b, c, h, res, win, _ = shape
+        m, n = b * res * res, win * win
+        att = 4 * (m // n) * h * n * n * (c // h)
+        table = (2 * win - 1) ** 2 * h
+        if kind == "K4":
+            ops = 8 * m * c * c + att
+            values = 2 * m * c + 4 * c * c + 6 * c + table
+        else:
+            ops = att
+            values = 4 * m * c + table
+    return dict(part_bound(ops, peak, 4 * values), bytes=4 * values)
+
+
+# each f32 form's launch-by-launch bounds: the bf16 formulas at the f32
+# peak, 4 bytes a value
+F32_PART_BOUNDS = {
+    "K1": lambda part, s, peak: k1_part_bounds(part, *s, peak=peak,
+                                               width=4),
+    "K4": lambda part, s, peak: k4_part_bounds(part, s, peak, 4),
+    "K6": lambda part, s, peak: k6_part_bounds(part, s, peak, 4)}
+
+
+def f32_k1_case(shape, device, seed=SEED):
+    """K1's arguments in f32 at (B, N, D, H), drawn as `block_inputs`
+    draws them (x at K1_X_SCALE), never rounded to bf16."""
+    b, n, d, h = shape
+    gen = torch.Generator().manual_seed(seed + n)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(device)
+
+    return (r(b, n, d, scale=K1_X_SCALE), r(d, scale=0.1) + 1,
+            r(d, scale=0.1), r(d, 3 * d, scale=d ** -0.5), r(3 * d, scale=0.1),
+            r(d, d, scale=d ** -0.5), r(d, scale=0.1), r(d, scale=0.5), h)
+
+
+def f32_branch_error(got, want, x=None) -> dict:
+    """The f32 check's measure: the branch's relative error in the 2-norm
+    (the branch is out - x where the kernel adds a residual x), and the
+    largest |kernel - plain|, in f64."""
+    g, w = got.double(), want.double()
+    base = w if x is None else w - x.double()
+    return dict(finite=bool(torch.isfinite(got).all()),
+                branch_rel_err=((g - w).norm() / base.norm()).item(),
+                max_abs_err=(g - w).abs().max().item(),
+                bound=F32_BRANCH_REL)
+
+
+def f32_cases(device, k1=(MAIN_SHAPE,), k4=SWIN_ATTN_SHAPES,
+              k6=SWIN_MERGE_SHAPES, k7=K7_RASTER_SHAPES):
+    """(kind, shape, kernel, plain, library, args, residual, parts) for each
+    checked shape, built one at a time: the f32 wrappers, their plain
+    versions, their library yardsticks (f32 torch ops; K7's SDPA on the
+    windows gathered outside the call), and the launch-by-launch entry."""
+    import torch.nn.functional as F
+
+    from geovpr_torch.ops import mhsa as mh
+    from geovpr_torch.ops import patch_merge as pm
+    from geovpr_torch.ops import swin_block as sb
+    from geovpr_torch.ops import window_attention as wa
+
+    for shape in k1:
+        args = f32_k1_case(shape, device)
+        got, bufs = mh._check(*args), f32_bufs(args[0], "K1")
+        yield ("K1", shape, mh.fused_mhsa_block, mh.mhsa_block_reference,
+               library_k1, args, args[0],
+               (mh.K1_PARTS, lambda i, a=args, g=got, b=bufs:
+                mh.k1_launch_part(i, a[0], g, a[-1], 1e-6, b)))
+        del args, got, bufs
+    for shape in k4:
+        x, blk = swin_block_case(shape, device, x_scale=K1_X_SCALE,
+                                 dtype=torch.float32)
+        args, bufs = k4_args(x, blk), f32_bufs(x, "K4")
+        yield ("K4", shape, sb.fused_swin_attn_block,
+               sb.swin_attn_block_reference, library_k4, args, x,
+               (sb.K4_PARTS, lambda i, a=args, b=bufs: sb.k4_launch_part(
+                   i, *a, bufs=b)))
+        del x, blk, args, bufs
+    for shape in k6:
+        args = merge_case(shape, device, dtype=torch.float32)
+        bufs = f32_bufs(args[0], "K6")
+        yield ("K6", shape, pm.fused_patch_merge, pm.patch_merge_reference,
+               library_k6, args, None,
+               (pm.K6_PARTS, lambda i, a=args, b=bufs: pm.k6_launch_part(
+                   i, *a, bufs=b)))
+        del args, bufs
+    for shape in k7:
+        args = k7_raster_case(shape, device, dtype=torch.float32)
+        qkv, table, h, res, win, shift = args
+        q, k, v = (t.contiguous() for t in
+                   wa._windows_qkv(qkv, res, win, shift, h))
+        mask = library_k7_mask(
+            wa.relative_position_bias(table, win).contiguous(),
+            wa.shift_mask(res, win, shift, device), q.shape[0],
+            torch.float32)
+        yield ("K7", shape, wa.window_attention_raster,
+               wa.window_attention_raster_reference,
+               lambda *_, q=q, k=k, v=v, m=mask:
+               F.scaled_dot_product_attention(q, k, v, attn_mask=m),
+               args, None, None)
+        del args, qkv, q, k, v, mask
+        torch.cuda.empty_cache()
+
+
+def f32_bufs(x, kind: str) -> tuple:
+    """The buffers K1's, K4's or K6's launches run on one by one on x:
+    (qkv, ctx, out), K6's (LN(merged), out)."""
+    if kind == "K6":
+        b, l, c = x.shape
+        return x.new_empty(b, l // 4, 4 * c), x.new_empty(b, l // 4, 2 * c)
+    b, n, d = x.shape
+    return (x.new_empty(b, n, 3 * d), x.new_empty(b, n, d),
+            x.new_empty(b, n, d))
+
+
+def f32_kernels_vs_plain(device, card: str | None = None, **shapes) -> dict:
+    """Part 1 of [f32_serving]: each f32 kernel against its plain version
+    (`[kernel] name=K1.f32` ..., `f32_branch_error` within F32_BRANCH_REL);
+    with `card`, each also timed in CUDA graphs in turns with its plain
+    version and its library yardstick beside its bound (`[kernel_time]`)
+    and K1's, K4's and K6's launches one by one (`[kernel_split]`).
+    `shapes` (k1=, k4=, k6=, k7=) narrows the shapes, as chip_faults.py
+    does. Returns each shape's error and times."""
+    peak = f32_peak(max_sm_clock_mhz()) if card else None
+    out = {}
+    for kind, shape, kernel, plain, library, args, x, parts in f32_cases(
+            device, **shapes):
+        tag = "_".join(map(str, shape))
+        with torch.inference_mode():
+            before = kernel.launches
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            check(kernel.launches == before + 1,
+                  f"{kind}.f32 did not launch at {shape}")
+            want = plain(*args)
+            e = f32_branch_error(got, want, x)
+            tf32 = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                e["tf32_plain_branch_rel_err"] = f32_branch_error(
+                    plain(*args), want, x)["branch_rel_err"]
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+            del got, want
+        phase("kernel", name=f"{kind}.f32", shape=tag, **e)
+        check(e["finite"] and e["branch_rel_err"] <= F32_BRANCH_REL,
+              f"{kind}.f32 error outside its bound at {shape}: {e}")
+        row = dict(max_abs_err=e["max_abs_err"],
+                   branch_rel_err=e["branch_rel_err"])
+        if card:
+            with torch.inference_mode():
+                t = interleaved_graph_ms({
+                    "kernel": lambda: kernel(*args),
+                    "plain": lambda: plain(*args),
+                    "library": lambda: library(*args)}, F32_TIME_ITERS)
+            row.update(ms=t["kernel"][0], plain_ms=t["plain"][0],
+                       library_ms=t["library"][0],
+                       runs={k: v[1] for k, v in t.items()},
+                       **f32_bounds(kind, shape, peak))
+            phase("kernel_time", card=repr(card), name=f"{kind}.f32",
+                  shape=tag, timed="cuda_graph", peak_f32=peak,
+                  launches_per_batch=F32_PER_BATCH.get((kind, shape)),
+                  **row)
+            if parts:
+                with torch.inference_mode():
+                    parts_split(card, f"{kind}.f32", tag, parts[0],
+                                parts[1], lambda part, k=kind, s=shape:
+                                F32_PART_BOUNDS[k](part, s, peak))
+            torch.cuda.synchronize()
+        out[(kind, shape)] = row
+        del args, x, parts
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_model_cases():
+    """The [f32_serving] models: (path, preset, the launches a batch of
+    SWIN_BATCH images makes)."""
+    return (("swin-b-384-f32", SWIN_PRESET,
+             {"fused_swin_attn_block": SWIN_BLOCKS,
+              "fused_patch_merge": SWIN_BOUNDARIES}),
+            ("swin-t-224-f32", ANGLE_PRESET,
+             {"window_attention_raster": SWIN_T_BLOCKS,
+              "fused_patch_merge": SWIN_BOUNDARIES}))
+
+
+def f32_models(device) -> dict:
+    """Part 2 of [f32_serving]: Swin-B-384 geopose (swin_b384_gemini2: K4,
+    K6), Swin-T-224 heading (swin_t224_sincos_gemini: K7's raster mode, K6)
+    and DINOv2-B/14 + SALAD (K1) built with compute_dtype="float32" from
+    seed 0, on 64 seeded images: the kernel path against the plain path on
+    the same weights (pooled features, predictions, descriptors: cosine at
+    least F32_MIN_COSINE a row), every launch count set to 0 just before
+    the kernel path and read just after (`[f32_model]`). Returns the
+    launches by counter."""
+    from geovpr_torch.cli.evaluate import build_model
+    from geovpr_torch.cli.presets import build_preset
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.salad import DinoV2Salad
+
+    counters = {**kernel_counters(), **swin_counters()}
+    totals = {}
+
+    def run(path, want, compare):
+        for fn in counters.values():
+            fn.launches = 0
+        compare()
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        phase("f32_model", path=path, batch=SWIN_BATCH, launches=got,
+              expected_launches=want)
+        check(got == want, f"{path}: launches {got}, expected {want}")
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+
+    for path, preset, want in f32_model_cases():
+        cfg = build_preset(preset)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype="float32"))
+        model, _ = build_model(cfg, "cpu", seed=SEED)
+        perturb_swin_(model, torch.Generator().manual_seed(SEED))
+        model = model.to(device)
+        images = torch.from_numpy(synthetic_val(
+            SWIN_BATCH, cfg.data.image_size, np.random.default_rng(SEED))
+            .images).to(device)
+        run(path, want, lambda: swin_kernel_path_vs_plain_path(
+            model, images, F32_MIN_COSINE, path))
+        del model, images
+        torch.cuda.empty_cache()
+
+    model = DinoV2Salad(variant=VARIANT, image_size=IMAGE_SIZE,
+                        dtype=torch.float32)
+    init_weights_(model, torch.Generator().manual_seed(SEED))
+    model = model.to(device).eval()
+    images = torch.from_numpy(synthetic_gallery(
+        BATCH, IMAGE_SIZE, np.random.default_rng(SEED)).images).to(device)
+    run("dinov2-b14-salad-f32", {"fused_mhsa_block": DINO_BLOCKS},
+        lambda: kernel_path_vs_plain_path(model, images, F32_MIN_COSINE,
+                                          "dinov2-b14-salad-f32"))
+    del model, images
+    torch.cuda.empty_cache()
+    return totals
+
+
+def f32_parity_legs() -> dict:
+    """parity_config.json's legs of [f32_serving], goldens to be filled:
+    swin_geopose at compute_dtype float32; a Swin-T-224 heading leg on the
+    swin_geopose recipe's layout (HF `SwinModel` + regressor.{0,3}) at
+    depths 2, 2, 6, 2, at float32; the salad leg, f32 by itself."""
+    from geovpr_torch.models.swin import SWIN_VARIANTS
+
+    f32 = {"compute_dtype": "float32"}
+    return {"swin_geopose": {"scaler": "latlon_scaler.npz",
+                             "model_overrides": f32},
+            F32_SWIN_T_LEG: {
+                "recipe": "swin_geopose", "preset": ANGLE_PRESET,
+                "checkpoint": "model_best.pth", "kind": "angle",
+                "golden": {"maae": 0.0}, "model_overrides": f32,
+                "convert_overrides": {"depths": list(
+                    SWIN_VARIANTS["tiny-224"]["depths"])}},
+            "salad": {"golden": {"descriptor_cosine_min": F32_MIN_COSINE}}}
+
+
+def f32_parity(device, card: str) -> dict:
+    """Part 3 of [f32_serving]: seeded reference-layout checkpoints of the
+    legs of `f32_parity_legs` (`cp_write_assets`), their goldens from the
+    plain path in f32 on the same weights (`cp_plain_legs`; the salad dump
+    from the plain path in f32), then `cli.parity` leg by leg in a child
+    process (`cp_child`): each leg passes by the CLI's own rule, its
+    predictions (or descriptors) against the plain path's have cosine at
+    least F32_MIN_COSINE, and K4 24 and K6 3 a batch (swin_geopose), K7 12
+    and K6 3 (the Swin-T-224 leg), K1 12 (salad) launch
+    (`[f32_parity]`). Returns the child's launches by counter."""
+    from geovpr_torch.cli.parity import DEFAULT_LEGS
+    from geovpr_torch.cli.presets import build_preset
+
+    legs = f32_parity_legs()
+    merged = {k: {**DEFAULT_LEGS.get(k, {}), **v} for k, v in legs.items()}
+    sizes = {k: build_preset(merged[k]["preset"]).data.batch_size
+             for k in ("swin_geopose", F32_SWIN_T_LEG)}
+    per_batch = {"swin_geopose": {"fused_swin_attn_block": SWIN_BLOCKS,
+                                  "fused_patch_merge": SWIN_BOUNDARIES},
+                 F32_SWIN_T_LEG: {"window_attention_raster": SWIN_T_BLOCKS,
+                                  "fused_patch_merge": SWIN_BOUNDARIES},
+                 "salad": {"fused_mhsa_block": DINO_BLOCKS}}
+    totals = {}
+    with tempfile.TemporaryDirectory() as root:
+        cp_write_assets(root, np.random.default_rng(SEED + 43),
+                        F32_ASSET_LEGS)
+        model_legs = ("swin_geopose", F32_SWIN_T_LEG)
+        goldens = cp_plain_legs(root, device,
+                                {k: merged[k] for k in model_legs})
+        cp_salad_dump(root, device, torch.float32, False)
+        for name in model_legs:
+            legs[name]["golden"] = {k: goldens[name]["metrics"][k]
+                                    for k in merged[name]["golden"]}
+        with open(os.path.join(root, "parity_config.json"), "w") as f:
+            json.dump({"legs": legs}, f)
+        jobs = [{"cli": "parity", "tag": name, "argv": [
+            "--assets", root, "--legs", name, "--device", device.type,
+            "--out", os.path.join(root, f"report_{name}.json")]}
+            for name in legs]
+        spec = os.path.join(root, "f32_jobs.json")
+        with open(spec, "w") as f:
+            json.dump({"jobs": jobs}, f)
+        stdout = cp_run([os.path.abspath(__file__), "--convert-parity-child",
+                         spec], "f32_serving parity child")
+        recs = {r["tag"]: r for line in stdout.splitlines()
+                if line.startswith("[cp_child] ")
+                for r in json.loads(line.split(" ", 1)[1])}
+        check(set(recs) == set(legs), f"f32 parity records: {sorted(recs)}")
+        for name in legs:
+            rec = recs[name]
+            with open(os.path.join(root, f"report_{name}.json")) as f:
+                leg = json.load(f)["legs"][name]
+            batches = 1 if name == "salad" else -(-CP_N_VAL // sizes[name])
+            exp = {k: v * batches for k, v in per_batch[name].items()}
+            fields = dict(leg=name, status=leg["status"],
+                          metrics=leg.get("metrics"),
+                          verdicts=leg.get("verdicts"),
+                          n_images=leg.get("n_images"),
+                          launches=rec["launches"], expected_launches=exp,
+                          seconds=rec["seconds"], bound=F32_MIN_COSINE)
+            ok = leg["status"] == "pass" and rec["launches"] == exp
+            if name == "salad":
+                cos = leg["metrics"]["descriptor_cosine_min"]
+            else:
+                kind = merged[name]["kind"]
+                scaler = ((np.float32([219000.0, 143000.0]),
+                           np.float32([300.0, 100.0]))
+                          if kind == "geopose" else None)
+                a = _csv_predictions(leg["validation_csv"], kind, scaler)
+                b = _csv_predictions(goldens[name]["validation_csv"], kind,
+                                     scaler)
+                cos = float(((a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                                                * np.linalg.norm(b, axis=1)))
+                            .min())
+                fields.update(golden_seconds=goldens[name]["seconds"],
+                              max_abs_diff=float(np.abs(a - b).max()))
+                ok &= bool(np.isfinite(a).all())
+            fields["kernel_vs_plain_min_cosine"] = cos
+            phase("f32_parity", card=repr(card), **fields)
+            check(ok and cos >= F32_MIN_COSINE,
+                  f"f32 parity leg {name}: {fields}")
+            for k, v in rec["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def f32_serving_path(device, card: str) -> dict:
+    """The [f32_serving] phase: the f32 kernels against their plain
+    versions and timed (`f32_kernels_vs_plain`), the three models in f32
+    (`f32_models`) and `cli.parity` on f32 legs (`f32_parity`). Returns,
+    for the kernels line, the kernels' errors and times by (kind, shape)
+    and the launches of the models and the parity child (`launches`, by
+    counter)."""
+    t0 = time.perf_counter()
+    out = f32_kernels_vs_plain(device, card)
+    launches = f32_models(device)
+    for k, v in f32_parity(device, card).items():
+        launches[k] = launches.get(k, 0) + v
+    phase("f32_serving", launches=launches,
+          seconds=time.perf_counter() - t0)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5967,6 +6449,7 @@ def main() -> int:
             rest_launches[k] = rest_launches.get(k, 0) + v
 
     modes = int8_modes_path(device, card)
+    f32s = f32_serving_path(device, card)
 
     rows = []
     for name, k, src, replaces, count, err in (
@@ -6069,6 +6552,28 @@ def main() -> int:
                          "bound_ms": t["bound_ms"],
                          "bound_by": t["bound_by"],
                          "library_ms": t["library_ms"]})
+    # the f32 forms of K1, K4, K6 and K7 (csrc/f32_serving.cu) at the main
+    # shapes, launches in [f32_serving]'s models and parity child and in
+    # [convert_parity]'s salad leg
+    for name, k, replaces, shape in (
+            ("fused_mhsa_block", "K1", "geovpr/ops/pallas_mhsa.py:904",
+             MAIN_SHAPE),
+            ("fused_swin_attn_block", "K4",
+             "geovpr/ops/pallas_swin_block.py:1125", SWIN_MAIN),
+            ("fused_patch_merge", "K6", "geovpr/ops/pallas_patch_merge.py:112",
+             MERGE_MAIN),
+            ("window_attention_raster", "K7",
+             "geovpr/ops/pallas_window_attention.py:182", K7_RASTER_MAIN)):
+        t = f32s[(k, shape)]
+        rows.append({"name": f"{name}.f32", "route": "cuda",
+                     "source": "geovpr_torch/csrc/f32_serving.cu",
+                     "replaces": replaces,
+                     "launches": f32s["launches"].get(name, 0)
+                     + rest_launches.get(f"{name}.f32", 0),
+                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -6077,7 +6582,7 @@ def main() -> int:
 
 
 PHASES = {"index_1m": index_1m_path, "train_disk": train_disk_path,
-          "int8_modes": int8_modes_path}
+          "int8_modes": int8_modes_path, "f32_serving": f32_serving_path}
 
 
 def run_phases(names: list) -> int:

@@ -33,10 +33,13 @@ path calls it) at each stage, its CUDA-event ms and, under
 torch.profiler, the device ms and calls of each kernel and the calls of
 each aten op. Section angle: the Swin-T-224 heading model (preset
 swin_t224_sincos_gemini, bf16) at B=64, ms per batch, img/s and its
-`[breakdown]`. Inputs and weights are chip_smoke.py's, from seed 0.
-Name the checkouts in turns (`OLD . . OLD`) to compare two on one card.
-`--only` runs the named sections alone, of: k2, k7, angle, k9c, k9,
-models, k8, swin_step, dinov2_step. Needs one CUDA card.
+`[breakdown]`. Section k1: K1 at 64x257x768x12 and K8a (K1's launches,
+keeping qkv and ctx) at 16x257x768x12, by CUDA events around K1_CALLS
+calls launched from Python (`event_ms`, the wrappers' host work included)
+and in CUDA graphs (`ms`). Inputs and weights are chip_smoke.py's, from
+seed 0. Name the checkouts in turns (`OLD . . OLD`) to compare two on one
+card. `--only` runs the named sections alone, of: k1, k2, k7, angle, k9c,
+k9, models, k8, swin_step, dinov2_step. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -51,8 +54,9 @@ import torch
 REPO = Path(__file__).resolve().parent
 ITERS = 10
 ROUNDS = 4
-SECTIONS = ("k2", "k7", "angle", "k9c", "k9", "models", "k8", "swin_step",
-            "dinov2_step")
+K1_CALLS = 200
+SECTIONS = ("k1", "k2", "k7", "angle", "k9c", "k9", "models", "k8",
+            "swin_step", "dinov2_step")
 # Swin-T-224 at B=64, stages 0-3: K7's (BW, H, N, nW; nW 0 unshifted) and
 # the half's (B, C, H, resolution, window, shift), shifted where the stage
 # has shifted blocks
@@ -109,6 +113,28 @@ def _train_step_times(cs, dev, line, preset: str, name: str) -> None:
     line(name, f"B{cs.TRAIN_BATCH}", ms,
          device_busy_ms=busy if busy else "not measured")
     del model, st, batch
+    torch.cuda.empty_cache()
+
+
+def _k1_times(cs, dev, line) -> None:
+    """K1 at DINOv2-B/14's serving shape and K8a at its training shape:
+    `cuda_ms` over K1_CALLS calls (`event_ms`) and `graph_ms` (`ms`)."""
+    from geovpr_torch.ops import mhsa as mh
+
+    a, _ = cs.k8_case(cs.K8_MAIN, dev)
+    fa = cs._k8_fwd_args(a, cs.K8_MAIN[3])
+    b, n, d, h = cs.MAIN_SHAPE
+    x, vecs, mats = cs.block_inputs(b, n, d, torch.Generator().manual_seed(
+        cs.SEED), dev)
+    k1 = (x, vecs["ln_scale"], vecs["ln_bias"], mats["wqkv"], vecs["bqkv"],
+          mats["wo"], vecs["bo"], vecs["gamma"], h)
+    with torch.no_grad():
+        for name, shape, fn in (
+                ("K8a", cs.K8_MAIN, lambda: mh.fused_mhsa_train_fwd(*fa)),
+                ("K1", cs.MAIN_SHAPE, lambda: mh.fused_mhsa_block(*k1))):
+            line(name, "B{}_N{}_D{}_H{}".format(*shape), cs.graph_ms(fn),
+                 event_ms=cs.cuda_ms(fn, K1_CALLS))
+    del a, fa, x, vecs, mats, k1
     torch.cuda.empty_cache()
 
 
@@ -301,6 +327,8 @@ def run(label: str, sections=SECTIONS) -> None:
         cs.phase("versus", checkout=label, card=repr(card), name=name,
                  shape=shape, ms=ms, **more)
 
+    if "k1" in sections:
+        _k1_times(cs, dev, line)
     if "k2" in sections:
         with torch.inference_mode():
             b, n, d, h = cs.MAIN_SHAPE

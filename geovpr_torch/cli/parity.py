@@ -12,7 +12,9 @@ command is the one-shot protocol for an environment that HAS those assets:
 it converts each trained checkpoint (`models/convert_reference.py`),
 evaluates it on the real validation split with the exact reference eval
 semantics (`train/loop.py::Trainer.evaluate_and_predict`, on the card:
-K4 and K6 for Swin-B-384, K1 for the frozen DINOv2), and diffs the
+K4 and K6 for Swin-B-384, K7 and K6 for a window-7 Swin, K1 for the frozen
+DINOv2, in bf16 or, with `"model_overrides": {"compute_dtype":
+"float32"}` in parity_config.json, in their f32 forms), and diffs the
 measured metrics against the golden numbers recomputed from the
 reference's committed prediction CSVs (SURVEY.md §6).
 
@@ -248,9 +250,9 @@ def _run_salad_leg(leg: dict, assets: str, tolerance_pct: float,
     cosine against the torch-side dump.
 
     The model runs in f32, as JAX's leg builds it (`dtype=jnp.float32`):
-    the leg measures the converter's fidelity, not serving. K1 takes bf16
-    only, so the blocks run the port's torch-op route, chosen by name
-    (`use_kernels=False`), on the card too (ROADMAP Queue 2: K1 at f32)."""
+    the leg measures the converter's fidelity, not serving. On the card its
+    blocks launch K1's f32 form, as JAX's leg runs its kernel in f32 on the
+    TPU."""
     import torch
 
     from geovpr_torch.cli.convert import load_state_dict
@@ -272,7 +274,7 @@ def _run_salad_leg(leg: dict, assets: str, tolerance_pct: float,
     ov = dict(leg.get("model_overrides", {}))
     variant = ov.pop("variant", "base-14")
     model = DinoV2Salad(variant=variant, image_size=size,
-                        dtype=torch.float32, use_kernels=False, **ov)
+                        dtype=torch.float32, **ov)
     variables = ct.convert_salad_hub(
         sd, num_layers=DINOV2_VARIANTS[variant]["num_layers"],
         target_grid=size // 14)

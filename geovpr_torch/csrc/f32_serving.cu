@@ -1,0 +1,860 @@
+// The f32 forms of the serving kernels K1, K4, K6 and K7 for Hopper
+// (sm_90a), for a model built with compute_dtype="float32":
+//
+//   K1  out = x + gamma * (MHSA(LN(x)) @ Wo + bo)            (DINOv2)
+//   K4  out = x + proj(W-MSA(LN(x)) + rel-pos bias [+ shift mask])  (Swin)
+//   K6  out = LN(concat[x00, x10, x01, x11]) @ W          (Swin boundary)
+//   K7  out = softmax(q k^T dh^-0.5 + bias [+ mask]) v    (window core)
+//
+// Replaces, in f32, geovpr/ops/pallas_mhsa.py::fused_mhsa_block (:904,
+// pallas_call :1064; f32 takes the masked body _mhsa_kernel :351),
+// pallas_swin_block.py::fused_swin_attn_block (:1125, _forward :1070),
+// pallas_patch_merge.py::fused_patch_merge_rolled (:112, pallas_call
+// :143) and pallas_window_attention.py::window_attention_pallas (:182,
+// pallas_call :149), whose Pallas bodies take any dtype. The bf16 forms
+// (mhsa.cu, swin_attn.cu, patch_merge.cu, window_attn.cu) are separate
+// kernels; nothing here is shared with them.
+//
+// Numerics: f32 operands and f32 sums throughout, as the f32 plain
+// versions (geovpr_torch/ops/*::*_reference) compute:
+// - LayerNorm with two-pass statistics, (x - mu) * (1 / sqrt(var + eps)) *
+//   scale + bias (K6 over the merged 4C row, in the merge order
+//   x00 | x10 | x01 | x11);
+// - products on the CUDA cores (FFMA), each output a sequential sum over
+//   k; no TF32;
+// - K1's softmax: s = (q . k) dh^-0.5, keys past N masked, the row max
+//   subtracted, p = exp(s - max) / sum (expf, a correctly rounded
+//   division), then P V;
+// - K4's and K7's serving softmax: q scaled by dh^-0.5 log2(e) in f32,
+//   s = q . k + table * log2(e) [+ (-100) * log2(e) across regions], p =
+//   2^min(s, 100) with no max-shift, context = (P V) / sum p.
+//
+// What bounds it on the H100: operations. f32 has no tensor-core path (a
+// single-pass TF32 product keeps a 10-bit mantissa; chip_smoke.py prints
+// the plain version's error with TF32 on beside the check), so the peak
+// is the CUDA cores' 2 x 128 FFMA lanes x 132 SMs x the SM clock,
+// ~67 TFLOP/s at 1.98 GHz. K1 at DINOv2-B/14 (64 x 257 x 768, 12 heads)
+// is 77.6 GFLOP of projections and 13.0 of attention, ~1.35 ms, against
+// 0.03 ms of bytes; K4 at Swin-B-384's stage 0 is 77.3 + 43.5 GFLOP.
+// Every design choice below is for that rate: register-blocked products,
+// operands from shared memory, nothing recomputed but K1's scores.
+//
+// Launches (K1 and K4 four, K6 two, K7 one), each on the caller's stream:
+// - f32_ln_kernel<kMerge>: one warp a row, float4 loads, three passes
+//   over the row (mean, squared deviations, normalised store) that the
+//   warp's L1 serves after the first; kMerge reads the 4C row of a merged
+//   token from its four source rows.
+// - f32_gemm_kernel<kEpi>: C = A W (A (M, K) row-major, W (K, N) (in,
+//   out)), 128 x 128 tiles of 256 threads, 8 x 8 outputs a thread (two 4 x 4
+//   quadrants 64 apart, so the fragments are float4 reads without bank
+//   conflicts), k tiles of 8 double-buffered in shared memory with the next
+//   tile's global loads in registers during the current tile's FFMAs;
+//   epilogues: + bias (QKV), + bias + x (K4's out projection), (+ bias) *
+//   gamma + x (K1's), none (K6).
+// - f32_attn_kernel<DH, kMode>: a CTA one (query block, head, image) of
+//   K1, or one (window, head, query block) of K4 / K7, each warp FA_R
+//   query rows; key tiles of FA_KT rows through shared memory (K at a
+//   stride of DH + 1, so that a lane's key row is conflict-free), a lane
+//   one key of each
+//   32-key chunk: the scores of the warp's rows, then P written to the
+//   warp's shared slice and P V with a lane one output column (two at DH
+//   = 64). K1 makes two passes over the keys (per-lane running max and
+//   sum, combined across the warp, then p), the windows one.
+// The attention's shared memory (Q block, a K and a V tile, the warps' P
+// slices, the head's table column) stays under FA_SMEM_LIMIT; the wrappers
+// allocate every buffer: qkv and ctx (which holds LN(x) until the
+// attention writes the context), K6's LN(merged).
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float F32_LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float f32_warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float f32_warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float4 f32_ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// ------------------------------------------------------------ LayerNorm --
+
+constexpr int LN_WARPS = 8;
+
+// y (rows, D) = LN(row) * scale + bias. kMerge: row m is K6's merged token
+// (b, y, x) of the next stage, D = 4C, read from the four tokens (2y + i,
+// 2x + j) of x (B, S*S, C) in the order x00 | x10 | x01 | x11.
+template <bool kMerge>
+__global__ void __launch_bounds__(32 * LN_WARPS)
+f32_ln_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+              const float* __restrict__ bias, float* __restrict__ y,
+              int rows, int D, int S, int C, float eps) {
+  const int row = blockIdx.x * LN_WARPS + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const float* p00 = x + (long long)row * D;
+  const float *p10 = p00, *p01 = p00, *p11 = p00;
+  if (kMerge) {
+    const int S2 = S / 2;
+    const int b = row / (S2 * S2), rem = row - b * S2 * S2;
+    const int yo = rem / S2, xo = rem - yo * S2;
+    const long long t = ((long long)b * S + 2 * yo) * S + 2 * xo;
+    p00 = x + t * C;
+    p10 = x + (t + S) * C;
+    p01 = x + (t + 1) * C;
+    p11 = x + (t + S + 1) * C;
+  }
+  // the 4 floats at column c of the (merged) row; C % 4 == 0, so a chunk
+  // never straddles two source tokens
+  auto chunk = [&](int c) -> float4 {
+    if (!kMerge) return f32_ld4(p00 + c);
+    const int quad = c / C;
+    const float* src = quad == 0 ? p00 : quad == 1 ? p10 : quad == 2 ? p01
+                                                                     : p11;
+    return f32_ld4(src + (c - quad * C));
+  };
+  float sum = 0.f;
+  for (int c = 4 * lane; c < D; c += 128) {
+    const float4 v = chunk(c);
+    sum += v.x;
+    sum += v.y;
+    sum += v.z;
+    sum += v.w;
+  }
+  const float mu = f32_warp_sum(sum) / (float)D;
+  float sq = 0.f;
+  for (int c = 4 * lane; c < D; c += 128) {
+    const float4 v = chunk(c);
+    const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
+    sq += d0 * d0;
+    sq += d1 * d1;
+    sq += d2 * d2;
+    sq += d3 * d3;
+  }
+  const float rstd = 1.f / sqrtf(f32_warp_sum(sq) / (float)D + eps);
+  float* out = y + (long long)row * D;
+  for (int c = 4 * lane; c < D; c += 128) {
+    const float4 v = chunk(c), sc = f32_ld4(scale + c), bi = f32_ld4(bias + c);
+    float4 o;
+    o.x = __fadd_rn(__fmul_rn(__fmul_rn(v.x - mu, rstd), sc.x), bi.x);
+    o.y = __fadd_rn(__fmul_rn(__fmul_rn(v.y - mu, rstd), sc.y), bi.y);
+    o.z = __fadd_rn(__fmul_rn(__fmul_rn(v.z - mu, rstd), sc.z), bi.z);
+    o.w = __fadd_rn(__fmul_rn(__fmul_rn(v.w - mu, rstd), sc.w), bi.w);
+    *reinterpret_cast<float4*>(out + c) = o;
+  }
+}
+
+cudaError_t launch_ln(const float* x, const float* scale, const float* bias,
+                      float* y, int rows, int D, int S, int C, float eps,
+                      bool merge, cudaStream_t s) {
+  const dim3 grid((rows + LN_WARPS - 1) / LN_WARPS);
+  if (merge)
+    f32_ln_kernel<true><<<grid, 32 * LN_WARPS, 0, s>>>(x, scale, bias, y,
+                                                        rows, D, S, C, eps);
+  else
+    f32_ln_kernel<false><<<grid, 32 * LN_WARPS, 0, s>>>(x, scale, bias, y,
+                                                         rows, D, S, C, eps);
+  return cudaGetLastError();
+}
+
+// ----------------------------------------------------------------- GEMM --
+
+constexpr int GB_M = 128, GB_N = 128, GB_K = 8, GB_THREADS = 256;
+enum { EPI_NONE = 0, EPI_BIAS = 1, EPI_BIAS_RESID = 2, EPI_GAMMA_RESID = 3 };
+
+// out (M, N) = epilogue(A (M, K) W (K, N)); K % 8 == 0, N % 4 == 0, every
+// pointer 16-byte aligned. Rows past M read as zero and are not stored;
+// columns past N likewise, in whole float4s.
+template <int kEpi>
+__global__ void __launch_bounds__(GB_THREADS)
+f32_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                const float* __restrict__ bias,
+                const float* __restrict__ gamma,
+                const float* __restrict__ res, float* __restrict__ out,
+                int M, int N, int K) {
+  __shared__ __align__(16) float As[2][GB_K][GB_M];  // A tile, k-major
+  __shared__ __align__(16) float Bs[2][GB_K][GB_N];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
+  // this thread's global loads: A row ar, k columns ac..ac+3; W row br,
+  // columns bc..bc+3
+  const int ar = tid >> 1, ac = (tid & 1) * 4;
+  const int br = tid >> 5, bc = (tid & 31) * 4;
+  const bool a_in = m0 + ar < M, b_in = n0 + bc < N;
+  const float* a_src = A + (long long)(a_in ? m0 + ar : 0) * K + ac;
+  const float* b_src = W + (long long)br * N + (b_in ? n0 + bc : 0);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // this thread's outputs: rows ty*4 + i and 64 + ty*4 + i, columns tx*4 +
+  // j and 64 + tx*4 + j
+  const int ty = tid / 16, tx = tid % 16;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  float4 ra = a_in ? f32_ld4(a_src) : zero;
+  float4 rb = b_in ? f32_ld4(b_src) : zero;
+  auto stage = [&](int buf) {
+    As[buf][ac + 0][ar] = ra.x;
+    As[buf][ac + 1][ar] = ra.y;
+    As[buf][ac + 2][ar] = ra.z;
+    As[buf][ac + 3][ar] = ra.w;
+    *reinterpret_cast<float4*>(&Bs[buf][br][bc]) = rb;
+  };
+  stage(0);
+  __syncthreads();
+  const int ktiles = K / GB_K;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int cur = kt & 1;
+    const bool more = kt + 1 < ktiles;
+    if (more) {
+      const int k0 = (kt + 1) * GB_K;
+      ra = a_in ? f32_ld4(a_src + k0) : zero;
+      rb = b_in ? f32_ld4(b_src + (long long)k0 * N) : zero;
+    }
+#pragma unroll
+    for (int k = 0; k < GB_K; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[cur][k][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&Bs[cur][k][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (more) stage(cur ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (m >= M) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = n0 + half * 64 + tx * 4;
+      if (n >= N) continue;
+      float v[4] = {acc[i][4 * half], acc[i][4 * half + 1],
+                    acc[i][4 * half + 2], acc[i][4 * half + 3]};
+      if (kEpi != EPI_NONE) {
+        const float4 b4 = f32_ld4(bias + n);
+        const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = __fadd_rn(v[j], bb[j]);
+      }
+      if (kEpi == EPI_GAMMA_RESID) {
+        const float4 g4 = f32_ld4(gamma + n);
+        const float gg[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = __fmul_rn(v[j], gg[j]);
+      }
+      if (kEpi == EPI_BIAS_RESID || kEpi == EPI_GAMMA_RESID) {
+        const float4 r4 = f32_ld4(res + (long long)m * N + n);
+        const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = __fadd_rn(v[j], rr[j]);
+      }
+      *reinterpret_cast<float4*>(out + (long long)m * N + n) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+template <int kEpi>
+cudaError_t launch_gemm_f32(const float* A, const float* W, const float* bias,
+                            const float* gamma, const float* res, float* out,
+                            int M, int N, int K, cudaStream_t s) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % GB_K || N % 4 ||
+      (M + GB_M - 1) / GB_M > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid((N + GB_N - 1) / GB_N, (M + GB_M - 1) / GB_M);
+  f32_gemm_kernel<kEpi><<<grid, GB_THREADS, 0, s>>>(A, W, bias, gamma, res,
+                                                     out, M, N, K);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ attention --
+
+constexpr int FA_R = 8;         // query rows of a warp
+constexpr int FA_KT = 64;       // keys of a shared-memory tile
+constexpr int FA_MAX_N = 256;   // a window's tokens at most
+constexpr int FA_WIN_ROWS = 144;  // a window CTA's query rows at most
+constexpr int FA_SMEM_LIMIT = 96 * 1024;
+enum { FA_VIT = 0, FA_RASTER = 1, FA_SPLIT = 2 };
+
+struct FaArgs {
+  // VIT and RASTER: q, k and v point into one qkv buffer at the q, k and v
+  // column blocks, rows of `ld` floats; SPLIT: three (BW, H, N, DH) tensors
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* bias;  // RASTER: the ((2W-1)^2, H) table; SPLIT: (H, N, N)
+  const float* mask;  // SPLIT: (nW, N, N) or null
+  float* out;
+  int N;      // tokens (keys) of a sequence or a window
+  int H;
+  int ld;     // row stride of q, k and v
+  int ldo;    // row stride of out
+  int S, W, shift;  // RASTER geometry
+  int nW;           // SPLIT: windows of the mask
+  int qrows;        // query rows of a CTA (blockIdx.z its query block)
+  float scale;      // VIT: dh^-0.5 on q . k; windows: dh^-0.5 log2(e) on q
+};
+
+// The CTA's problem: its head, query rows, and how token i becomes a row
+// of q, k, v and out. K1: blockIdx (query block, head, image); the
+// windows: (window, head, query block).
+template <int kMode>
+struct FaGeo {
+  int b, h, q0, wy, wx;
+  __device__ FaGeo(const FaArgs& a) : wy(0), wx(0) {
+    h = blockIdx.y;
+    if (kMode == FA_VIT) {
+      b = blockIdx.z;
+      q0 = blockIdx.x * a.qrows;
+    } else {
+      b = blockIdx.x;
+      q0 = blockIdx.z * a.qrows;
+    }
+    if (kMode == FA_RASTER) {
+      const int nw = a.S / a.W;
+      const int gw = blockIdx.x;
+      b = gw / (nw * nw);
+      const int wi = gw - b * nw * nw;
+      wy = wi / nw;
+      wx = wi - wy * nw;
+    }
+  }
+  // raster: token (ty, tx) of window (wy, wx) in the frame rolled by
+  // -shift is the raster token ((Y + shift) mod S, (X + shift) mod S)
+  __device__ long long row(const FaArgs& a, int i) const {
+    if (kMode == FA_VIT) return (long long)b * a.N + i;
+    if (kMode == FA_SPLIT) return ((long long)b * a.H + h) * a.N + i;
+    const int ty = i / a.W, tx = i - ty * a.W;
+    int ry = wy * a.W + ty + a.shift;
+    int rx = wx * a.W + tx + a.shift;
+    if (ry >= a.S) ry -= a.S;
+    if (rx >= a.S) rx -= a.S;
+    return ((long long)b * a.S + ry) * a.S + rx;
+  }
+  // the shift mask's region of rolled-frame coordinate t: [0, S - W),
+  // [S - W, S - shift), [S - shift, S)
+  __device__ int region(const FaArgs& a, int t) const {
+    return t < a.S - a.W ? 0 : t < a.S - a.shift ? 1 : 2;
+  }
+};
+
+// threads of a CTA at most: K1's query blocks of <= 64 rows, the windows'
+// of <= FA_WIN_ROWS
+constexpr int fa_threads_bound(int mode) {
+  return mode == FA_VIT ? 256 : 32 * FA_WIN_ROWS / FA_R;
+}
+
+template <int DH, int kMode>
+__global__ void __launch_bounds__(kMode == FA_VIT ? 256
+                                                  : 32 * FA_WIN_ROWS / FA_R)
+f32_attn_kernel(FaArgs a) {
+  static_assert(DH % 32 == 0, "a lane owns DH / 32 output columns");
+  constexpr int KLD = DH + 1;
+  constexpr int E = DH / 32;
+  extern __shared__ __align__(16) float fa_smem[];
+  const int nwarps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  float* sq = fa_smem;                    // [nwarps * FA_R][DH]
+  float* sk = sq + nwarps * FA_R * DH;    // [FA_KT][KLD]
+  float* sv = sk + FA_KT * KLD;           // [FA_KT][DH]
+  float* sp = sv + FA_KT * DH;            // [nwarps][32][FA_R]
+  float* stab = sp + nwarps * 32 * FA_R;  // RASTER: [(2W-1)^2]
+
+  const FaGeo<kMode> g(a);
+  const int nq = min(a.qrows, a.N - g.q0);
+  const int col = kMode == FA_SPLIT ? 0 : g.h * DH;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int idx = threadIdx.x; idx < nwarps * FA_R * DH / 4;
+       idx += blockDim.x) {
+    const int r = idx / (DH / 4), c = 4 * (idx - r * (DH / 4));
+    float4 v = zero;
+    if (r < nq) {
+      v = f32_ld4(a.q + g.row(a, g.q0 + r) * a.ld + col + c);
+      if (kMode != FA_VIT) {
+        v.x = __fmul_rn(v.x, a.scale);
+        v.y = __fmul_rn(v.y, a.scale);
+        v.z = __fmul_rn(v.z, a.scale);
+        v.w = __fmul_rn(v.w, a.scale);
+      }
+    }
+    *reinterpret_cast<float4*>(sq + r * DH + c) = v;
+  }
+  const int tw = 2 * a.W - 1;
+  if (kMode == FA_RASTER)
+    for (int t = threadIdx.x; t < tw * tw; t += blockDim.x)
+      stab[t] = __fmul_rn(a.bias[(long long)t * a.H + g.h], F32_LOG2E);
+
+  // this warp's rows: the token, and for RASTER its table position and
+  // shift region
+  const int r0 = warp * FA_R;
+  int qtok[FA_R], qpos[FA_R], qlab[FA_R];
+#pragma unroll
+  for (int r = 0; r < FA_R; ++r) {
+    qtok[r] = g.q0 + min(r0 + r, max(nq - 1, 0));
+    qpos[r] = qlab[r] = 0;
+    if (kMode == FA_RASTER) {
+      const int ty = qtok[r] / a.W, tx = qtok[r] - ty * a.W;
+      qpos[r] = ty * tw + tx;
+      qlab[r] = 3 * g.region(a, g.wy * a.W + ty) + g.region(a, g.wx * a.W + tx);
+    }
+  }
+  const float kMaskL2 = __fmul_rn(-100.f, F32_LOG2E);
+  const int pos_base = (a.W - 1) * 2 * a.W;  // (W-1)(2W-1) + W - 1
+
+  float m[FA_R], l[FA_R], acc[FA_R][E];
+#pragma unroll
+  for (int r = 0; r < FA_R; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
+  }
+  float* wp = sp + warp * 32 * FA_R;
+  constexpr int kPasses = kMode == FA_VIT ? 2 : 1;
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const bool last = pass == kPasses - 1;
+    for (int t0 = 0; t0 < a.N; t0 += FA_KT) {
+      const int nk = min(FA_KT, a.N - t0);
+      __syncthreads();  // the previous tile is read (and Q is staged)
+      for (int idx = threadIdx.x; idx < FA_KT * DH / 4; idx += blockDim.x) {
+        const int j = idx / (DH / 4), c = 4 * (idx - j * (DH / 4));
+        float4 kv = zero, vv = zero;
+        if (j < nk) {
+          const long long off = g.row(a, t0 + j) * a.ld + col + c;
+          kv = f32_ld4(a.k + off);
+          if (last) vv = f32_ld4(a.v + off);
+        }
+        sk[j * KLD + c] = kv.x;
+        sk[j * KLD + c + 1] = kv.y;
+        sk[j * KLD + c + 2] = kv.z;
+        sk[j * KLD + c + 3] = kv.w;
+        if (last) *reinterpret_cast<float4*>(sv + j * DH + c) = vv;
+      }
+      __syncthreads();
+#pragma unroll 1
+      for (int c32 = 0; c32 < FA_KT / 32; ++c32) {
+        const int jt = c32 * 32 + lane;  // this lane's key in the tile
+        const int key = t0 + jt;
+        const bool kin = jt < nk;
+        float s[FA_R];
+#pragma unroll
+        for (int r = 0; r < FA_R; ++r) s[r] = 0.f;
+        const float* krow = sk + jt * KLD;
+#pragma unroll 4
+        for (int d = 0; d < DH; d += 4) {
+          const float k0 = krow[d], k1 = krow[d + 1], k2 = krow[d + 2],
+                      k3 = krow[d + 3];
+#pragma unroll
+          for (int r = 0; r < FA_R; ++r) {
+            const float4 q4 = f32_ld4(sq + (r0 + r) * DH + d);
+            s[r] = fmaf(q4.x, k0, s[r]);
+            s[r] = fmaf(q4.y, k1, s[r]);
+            s[r] = fmaf(q4.z, k2, s[r]);
+            s[r] = fmaf(q4.w, k3, s[r]);
+          }
+        }
+        if (kMode == FA_VIT) {
+#pragma unroll
+          for (int r = 0; r < FA_R; ++r)
+            s[r] = key < a.N ? __fmul_rn(s[r], a.scale) : -INFINITY;
+        } else {
+          int kpos = 0, klab = 0;
+          if (kMode == FA_RASTER && kin) {
+            const int ty = key / a.W, tx = key - ty * a.W;
+            kpos = ty * tw + tx;
+            klab = 3 * g.region(a, g.wy * a.W + ty) +
+                   g.region(a, g.wx * a.W + tx);
+          }
+#pragma unroll
+          for (int r = 0; r < FA_R; ++r) {
+            float x = s[r];
+            if (kin) {
+              if (kMode == FA_RASTER) {
+                x = __fadd_rn(x, stab[qpos[r] - kpos + pos_base]);
+                if (a.shift && qlab[r] != klab) x = __fadd_rn(x, kMaskL2);
+              } else {
+                const long long at = ((long long)g.h * a.N + qtok[r]) * a.N + key;
+                x = __fadd_rn(x, __fmul_rn(a.bias[at], F32_LOG2E));
+                if (a.mask) {
+                  const long long mw = g.b % a.nW;
+                  x = __fadd_rn(x, __fmul_rn(
+                      a.mask[(mw * a.N + qtok[r]) * a.N + key], F32_LOG2E));
+                }
+              }
+            }
+            s[r] = kin ? x : -INFINITY;
+          }
+        }
+        if (!last) {  // K1's first pass: this lane's running max and sum
+#pragma unroll
+          for (int r = 0; r < FA_R; ++r) {
+            if (s[r] > m[r]) {
+              l[r] = __fmul_rn(l[r], expf(m[r] - s[r]));
+              m[r] = s[r];
+            }
+            if (s[r] > -INFINITY) l[r] = __fadd_rn(l[r], expf(s[r] - m[r]));
+          }
+          continue;
+        }
+        float p[FA_R];
+#pragma unroll
+        for (int r = 0; r < FA_R; ++r) {
+          if (kMode == FA_VIT) {
+            p[r] = __fdiv_rn(expf(s[r] - m[r]), l[r]);
+          } else {
+            p[r] = exp2f(fminf(s[r], 100.f));
+            l[r] = __fadd_rn(l[r], p[r]);
+          }
+        }
+        __syncwarp();
+        *reinterpret_cast<float4*>(wp + lane * FA_R) =
+            make_float4(p[0], p[1], p[2], p[3]);
+        *reinterpret_cast<float4*>(wp + lane * FA_R + 4) =
+            make_float4(p[4], p[5], p[6], p[7]);
+        __syncwarp();
+        const float* vt = sv + (c32 * 32) * DH + lane;
+#pragma unroll 4
+        for (int j = 0; j < 32; ++j) {
+          const float4 pa = f32_ld4(wp + j * FA_R);
+          const float4 pb = f32_ld4(wp + j * FA_R + 4);
+          const float pj[FA_R] = {pa.x, pa.y, pa.z, pa.w,
+                                  pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            const float vv = vt[j * DH + 32 * e];
+#pragma unroll
+            for (int r = 0; r < FA_R; ++r)
+              acc[r][e] = fmaf(pj[r], vv, acc[r][e]);
+          }
+        }
+      }
+    }
+    if (!last) {  // each row's max and sum over the whole warp
+#pragma unroll
+      for (int r = 0; r < FA_R; ++r) {
+        const float mr = f32_warp_max(m[r]);
+        const float part =
+            m[r] == -INFINITY ? 0.f : __fmul_rn(l[r], expf(m[r] - mr));
+        m[r] = mr;
+        l[r] = f32_warp_sum(part);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < FA_R; ++r) {
+    const float sum = kMode == FA_VIT ? 1.f : f32_warp_sum(l[r]);
+    if (r0 + r >= nq) continue;
+    float* o = a.out + g.row(a, g.q0 + r0 + r) * a.ldo + col + lane;
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      o[32 * e] = kMode == FA_VIT ? acc[r][e] : __fdiv_rn(acc[r][e], sum);
+  }
+}
+
+int fa_smem_bytes(int dh, int nwarps, int table) {
+  return 4 * (nwarps * FA_R * dh + FA_KT * (dh + 1) + FA_KT * dh +
+              nwarps * 32 * FA_R + table);
+}
+
+template <int DH, int kMode>
+cudaError_t launch_attn(const FaArgs& a, dim3 grid, cudaStream_t s) {
+  const int nwarps = (a.qrows + FA_R - 1) / FA_R;
+  if (nwarps <= 0 || 32 * nwarps > fa_threads_bound(kMode))
+    return cudaErrorInvalidValue;
+  const int tw = 2 * a.W - 1;
+  const int smem =
+      fa_smem_bytes(DH, nwarps, kMode == FA_RASTER ? tw * tw : 0);
+  if (smem > FA_SMEM_LIMIT) return cudaErrorInvalidValue;
+  f32_attn_kernel<DH, kMode><<<grid, 32 * nwarps, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// K7's raster attention on the qkv (B*S*S, 3C) of K4 or of the window-7
+// half, the context into out (B*S*S, C).
+// the windows' query blocks: as few as hold FA_WIN_ROWS rows each, as even
+// as N allows
+int window_blocks(int n) { return (n + FA_WIN_ROWS - 1) / FA_WIN_ROWS; }
+
+cudaError_t launch_raster(const float* qkv, const float* table, float* out,
+                          int B, int S, int C, int H, int W, int shift,
+                          float qscale, cudaStream_t s) {
+  FaArgs a{};
+  a.q = qkv;
+  a.k = qkv + C;
+  a.v = qkv + 2 * C;
+  a.bias = table;
+  a.out = out;
+  a.N = W * W;
+  a.H = H;
+  a.ld = 3 * C;
+  a.ldo = C;
+  a.S = S;
+  a.W = W;
+  a.shift = shift;
+  a.nW = 1;
+  const int nblk = window_blocks(W * W);
+  a.qrows = (W * W + nblk - 1) / nblk;
+  a.scale = qscale;
+  const int nw = S / W;
+  return launch_attn<32, FA_RASTER>(a, dim3(B * nw * nw, H, nblk), s);
+}
+
+}  // namespace
+
+// Raises the attention kernels' dynamic shared-memory limits on the
+// current device; returns a cudaError_t as int.
+extern "C" int geovpr_f32_serving_init(void) {
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(f32_attn_kernel<64, FA_VIT>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                FA_SMEM_LIMIT)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(f32_attn_kernel<32, FA_RASTER>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                FA_SMEM_LIMIT)) != cudaSuccess)
+    return (int)e;
+  return (int)cudaFuncSetAttribute(
+      f32_attn_kernel<32, FA_SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, FA_SMEM_LIMIT);
+}
+
+// K1 in f32, launches first..last (0 LayerNorm, 1 QKV GEMM, 2 attention, 3
+// out projection); returns a cudaError_t as int. x, the matrices, qkv
+// (B*N, 3D), ctx (B*N, D; LN(x) until the attention writes the context)
+// and out are f32, as the vectors; all 16-byte aligned; D = 64 H. A launch
+// alone reads what the earlier launches of an earlier call left in qkv and
+// ctx.
+extern "C" int geovpr_mhsa_f32_parts(
+    const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv,
+    const void* bqkv, const void* wo, const void* bo, const void* gamma,
+    void* qkv, void* ctx, void* out, int B, int N, int D, int H, float eps,
+    int first, int last, void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0 || D != 64 * H || B > 65535 || H > 65535 ||
+      first < 0 || last > 3 || first > last)
+    return (int)cudaErrorInvalidValue;
+  const int M = B * N;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  float* qkvf = static_cast<float*>(qkv);
+  float* ctxf = static_cast<float*>(ctx);
+  cudaError_t e = cudaSuccess;
+  for (int part = first; part <= last; ++part) {
+    switch (part) {
+      case 0:
+        e = launch_ln(xf, static_cast<const float*>(ln_scale),
+                      static_cast<const float*>(ln_bias), ctxf, M, D, 0, 0,
+                      eps, false, s);
+        break;
+      case 1:
+        e = launch_gemm_f32<EPI_BIAS>(ctxf, static_cast<const float*>(wqkv),
+                                      static_cast<const float*>(bqkv),
+                                      nullptr, nullptr, qkvf, M, 3 * D, D, s);
+        break;
+      case 2: {
+        // query blocks of at most 64 rows, as even as N allows
+        const int nblk = (N + 63) / 64;
+        FaArgs a{};
+        a.q = qkvf;
+        a.k = qkvf + D;
+        a.v = qkvf + 2 * D;
+        a.out = ctxf;
+        a.N = N;
+        a.H = H;
+        a.ld = 3 * D;
+        a.ldo = D;
+        a.W = 1;
+        a.nW = 1;
+        a.qrows = (N + nblk - 1) / nblk;
+        a.scale = 1.f / sqrtf(64.f);
+        e = launch_attn<64, FA_VIT>(a, dim3(nblk, H, B), s);
+        break;
+      }
+      default:
+        e = launch_gemm_f32<EPI_GAMMA_RESID>(
+            ctxf, static_cast<const float*>(wo), static_cast<const float*>(bo),
+            static_cast<const float*>(gamma), xf, static_cast<float*>(out), M,
+            D, D, s);
+    }
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+extern "C" int geovpr_mhsa_block_f32(
+    const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv,
+    const void* bqkv, const void* wo, const void* bo, const void* gamma,
+    void* qkv, void* ctx, void* out, int B, int N, int D, int H, float eps,
+    void* stream) {
+  return geovpr_mhsa_f32_parts(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                               gamma, qkv, ctx, out, B, N, D, H, eps, 0, 3,
+                               stream);
+}
+
+// K4 in f32 on the raster stream x (B, S*S, C), launches first..last (0
+// LayerNorm, 1 QKV GEMM, 2 window attention, 3 out projection + x);
+// returns a cudaError_t as int. qkv (B*S*S, 3C) holds q unscaled (the
+// attention scales it by qscale = dh^-0.5 log2(e)); ctx (B*S*S, C) holds
+// LN(x) until the attention writes the context. C = 32 H, S a multiple of
+// win, win*win <= 256, 0 <= shift < win; all f32, 16-byte aligned.
+extern "C" int geovpr_swin_attn_f32_parts(
+    const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv,
+    const void* bqkv, const void* wo, const void* bo, const void* table,
+    void* qkv, void* ctx, void* out, int B, int S, int C, int H, int win,
+    int shift, float eps, float qscale, int first, int last, void* stream) {
+  if (B <= 0 || H <= 0 || C != 32 * H || win <= 0 || win * win > FA_MAX_N ||
+      S <= 0 || S % win || shift < 0 || shift >= win || H > 65535 ||
+      (long long)B * (S / win) * (S / win) > 0x7fffffff || first < 0 ||
+      last > 3 || first > last)
+    return (int)cudaErrorInvalidValue;
+  const int M = B * S * S;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  float* qkvf = static_cast<float*>(qkv);
+  float* ctxf = static_cast<float*>(ctx);
+  cudaError_t e = cudaSuccess;
+  for (int part = first; part <= last; ++part) {
+    switch (part) {
+      case 0:
+        e = launch_ln(xf, static_cast<const float*>(ln_scale),
+                      static_cast<const float*>(ln_bias), ctxf, M, C, 0, 0,
+                      eps, false, s);
+        break;
+      case 1:
+        e = launch_gemm_f32<EPI_BIAS>(ctxf, static_cast<const float*>(wqkv),
+                                      static_cast<const float*>(bqkv),
+                                      nullptr, nullptr, qkvf, M, 3 * C, C, s);
+        break;
+      case 2:
+        e = launch_raster(qkvf, static_cast<const float*>(table), ctxf, B, S,
+                          C, H, win, shift, qscale, s);
+        break;
+      default:
+        e = launch_gemm_f32<EPI_BIAS_RESID>(
+            ctxf, static_cast<const float*>(wo), static_cast<const float*>(bo),
+            nullptr, xf, static_cast<float*>(out), M, C, C, s);
+    }
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+extern "C" int geovpr_swin_attn_f32(
+    const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv,
+    const void* bqkv, const void* wo, const void* bo, const void* table,
+    void* qkv, void* ctx, void* out, int B, int S, int C, int H, int win,
+    int shift, float eps, float qscale, void* stream) {
+  return geovpr_swin_attn_f32_parts(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                                    table, qkv, ctx, out, B, S, C, H, win,
+                                    shift, eps, qscale, 0, 3, stream);
+}
+
+// K6 in f32, launches first..last (0 merge-LN into lnbuf (B*S*S/4, 4C), 1
+// the product with w (4C, 2C) into out (B*S*S/4, 2C)); returns a
+// cudaError_t as int. C % 4 == 0, S even; all f32, 16-byte aligned.
+extern "C" int geovpr_patch_merge_f32_parts(
+    const void* x, const void* ln_scale, const void* ln_bias, const void* w,
+    void* lnbuf, void* out, int B, int S, int C, float eps, int first,
+    int last, void* stream) {
+  if (B <= 0 || S <= 0 || S % 2 || C <= 0 || C % 4 || first < 0 ||
+      last > 1 || first > last)
+    return (int)cudaErrorInvalidValue;
+  const int M2 = B * (S / 2) * (S / 2);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lnf = static_cast<float*>(lnbuf);
+  cudaError_t e = cudaSuccess;
+  for (int part = first; part <= last; ++part) {
+    if (part == 0)
+      e = launch_ln(static_cast<const float*>(x),
+                    static_cast<const float*>(ln_scale),
+                    static_cast<const float*>(ln_bias), lnf, M2, 4 * C, S, C,
+                    eps, true, s);
+    else
+      e = launch_gemm_f32<EPI_NONE>(lnf, static_cast<const float*>(w),
+                                    nullptr, nullptr, nullptr,
+                                    static_cast<float*>(out), M2, 2 * C,
+                                    4 * C, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+extern "C" int geovpr_patch_merge_f32(const void* x, const void* ln_scale,
+                                      const void* ln_bias, const void* w,
+                                      void* lnbuf, void* out, int B, int S,
+                                      int C, float eps, void* stream) {
+  return geovpr_patch_merge_f32_parts(x, ln_scale, ln_bias, w, lnbuf, out, B,
+                                      S, C, eps, 0, 1, stream);
+}
+
+// K7 in f32 on JAX's operands: q, k, v and out (BW, H, N, 32), bias (H, N,
+// N), mask (nW, N, N) or null (BW a multiple of nW), all f32 and
+// contiguous; 1 <= N <= 256. Returns a cudaError_t as int.
+extern "C" int geovpr_window_attention_f32(const void* q, const void* k,
+                                           const void* v, const void* bias,
+                                           const void* mask, void* out,
+                                           int BW, int H, int N, int nW,
+                                           float qscale, void* stream) {
+  if (BW <= 0 || H <= 0 || H > 65535 || N <= 0 || N > FA_MAX_N ||
+      (mask && (nW <= 0 || BW % nW)))
+    return (int)cudaErrorInvalidValue;
+  FaArgs a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.bias = static_cast<const float*>(bias);
+  a.mask = static_cast<const float*>(mask);
+  a.out = static_cast<float*>(out);
+  a.N = N;
+  a.H = H;
+  a.ld = 32;
+  a.ldo = 32;
+  a.W = 1;
+  a.nW = mask ? nW : 1;
+  const int nblk = window_blocks(N);
+  a.qrows = (N + nblk - 1) / nblk;
+  a.scale = qscale;
+  return (int)launch_attn<32, FA_SPLIT>(a, dim3(BW, H, nblk),
+                                        static_cast<cudaStream_t>(stream));
+}
+
+// K7 in f32 on the raster qkv (B, S*S, 3C) of the window-attention half:
+// the context (B, S*S, C) into out; table ((2W-1)^2, H); C = 32 H, W*W <=
+// 256, S a multiple of W, 0 <= shift < W. Returns a cudaError_t as int.
+extern "C" int geovpr_window_attention_raster_f32(
+    const void* qkv, const void* table, void* out, int B, int S, int C, int H,
+    int W, int shift, float qscale, void* stream) {
+  if (B <= 0 || H <= 0 || H > 65535 || C != 32 * H || W <= 0 ||
+      W * W > FA_MAX_N || S <= 0 || S % W || shift < 0 || shift >= W ||
+      (long long)B * (S / W) * (S / W) > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_raster(static_cast<const float*>(qkv),
+                            static_cast<const float*>(table),
+                            static_cast<float*>(out), B, S, C, H, W, shift,
+                            qscale, static_cast<cudaStream_t>(stream));
+}

@@ -133,6 +133,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         # stream; raster mode, 3 pointers, B S C H W shift, qscale, stream
         "geovpr_window_attention": [vp] * 6 + [ci] * 4 + [cf, vp],
         "geovpr_window_attention_raster": [vp] * 3 + [ci] * 6 + [cf, vp],
+        # the f32 forms of K1, K4, K6 and K7 (f32_serving.cu): the bf16
+        # entries' arguments
+        "geovpr_mhsa_block_f32": [vp] * 11 + [ci] * 4 + [cf, vp],
+        "geovpr_mhsa_f32_parts": [vp] * 11 + [ci] * 4 + [cf, ci, ci, vp],
+        "geovpr_swin_attn_f32": [vp] * 11 + [ci] * 6 + [cf, cf, vp],
+        "geovpr_swin_attn_f32_parts": [vp] * 11 + [ci] * 6 + [cf, cf, ci, ci,
+                                                             vp],
+        "geovpr_patch_merge_f32": [vp] * 6 + [ci] * 3 + [cf, vp],
+        "geovpr_patch_merge_f32_parts": [vp] * 6 + [ci] * 3 + [cf, ci, ci,
+                                                               vp],
+        "geovpr_window_attention_f32": [vp] * 6 + [ci] * 4 + [cf, vp],
+        "geovpr_window_attention_raster_f32": [vp] * 3 + [ci] * 6 + [cf, vp],
         # K9a/K9b/K9c (swin_train.cu): pointers, B S C H win shift, floats,
         # stream; the _parts entries also take the first and last of their
         # launches
@@ -161,6 +173,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "geovpr_swin_init": [],
         "geovpr_patch_merge_init": [],
         "geovpr_window_attention_init": [],
+        "geovpr_f32_serving_init": [],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

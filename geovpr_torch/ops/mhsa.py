@@ -1,5 +1,5 @@
 """Fused pre-LN attention half-blocks and their plain versions: kernel K1
-(bf16 serving), kernel K2 (w8a8 serving) and, below, the training
+(bf16 and f32 serving), kernel K2 (w8a8 serving) and, below, the training
 half-block's kernels K8a (forward), K8b and K8c (backward).
 
     out = x + gamma * (MHSA(LN(x)) @ Wo + bo)
@@ -8,8 +8,10 @@ The port of `geovpr/ops/pallas_mhsa.py::fused_mhsa_block` (serving forward),
 with the same signature and layouts: x (B, N, D); wqkv (D, 3D) with q|k|v
 column blocks; wo (D, D); gamma (D,) LayerScale. On a CUDA tensor the
 wrapper launches the hand-written Hopper kernel in `geovpr_torch/csrc/mhsa.cu`
-or raises; on a CPU tensor it runs `mhsa_block_reference`, the plain PyTorch
-version of the same arithmetic (the JAX oracle `_mhsa_block_xla`).
+(bf16) or its f32 form in `geovpr_torch/csrc/f32_serving.cu` (a model built
+with compute_dtype="float32"), or raises; on a CPU tensor it runs
+`mhsa_block_reference`, the plain PyTorch version of the same arithmetic
+(the JAX oracle `_mhsa_block_xla`).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from geovpr_torch.ops.quant import (amax_into, attn_mode, check_devices,
                                     int8_resid_reference, layer_norm_f32,
                                     ln_quant_reference, mode_constants,
                                     qkv_buffers, qkv_part_reference,
-                                    round_clip_int8)
+                                    round_clip_int8, serving_dtype_error)
 from geovpr_torch.ops.swin_block import (_heads, _ln_parts, _proj, _stream,
                                          _unheads)
 
@@ -115,8 +117,9 @@ def fused_mhsa_block(x: torch.Tensor, ln_scale: torch.Tensor,
                      gamma: torch.Tensor, num_heads: int,
                      ln_eps: float = 1e-6) -> torch.Tensor:
     """Fused pre-LN attention half-block. CPU tensors run the plain version;
-    CUDA tensors launch the kernel (bf16 activations and matrices, f32
-    vectors, contiguous, head dim 64, forward only) or raise."""
+    CUDA tensors launch the kernel (bf16 or f32 activations and matrices,
+    `k1_dtype_error`; f32 vectors, contiguous, head dim 64, forward only) or
+    raise."""
     got = _check(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma, num_heads)
     if x.device.type == "cpu":
         return mhsa_block_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
@@ -129,23 +132,26 @@ def fused_mhsa_block(x: torch.Tensor, ln_scale: torch.Tensor,
             "fused_mhsa_block is the serving forward (K1) and has no "
             "backward: under grad call fused_mhsa_block_train (K8a-K8c), or "
             "run the forward under torch.inference_mode()")
-    _check_cuda_args({"x": x, **got}, x.shape[-1], num_heads)
+    _check_cuda_args({"x": x, **got}, x.shape[-1], num_heads,
+                     k1_dtype_error)
     out = _launch_k1(x, got, num_heads, ln_eps)[0]
     fused_mhsa_block.launches += 1
     return out
 
 
 def _launch_k1(x, got: dict, num_heads: int, ln_eps: float):
-    """K1's launches on a checked bf16 CUDA stream x (B, N, D): out and
-    the qkv (B, N, 3D; post-bias, unscaled) and ctx (B, N, D) that K1
-    writes to device memory between its launches."""
+    """K1's launches on a checked bf16 or f32 CUDA stream x (B, N, D):
+    out and the qkv (B, N, 3D; post-bias, unscaled) and ctx (B, N, D) that
+    K1 writes to device memory between its launches."""
     b, n, d = x.shape
     qkv = torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device)
     ctx = torch.empty_like(x)
     out = torch.empty_like(x)
     lib, args = _k1_args(x, got, num_heads, ln_eps, (qkv, ctx, out))
+    entry = (lib.geovpr_mhsa_block_f32 if x.dtype == torch.float32
+             else lib.geovpr_mhsa_block_bf16)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_mhsa_block_bf16(*args, _stream(x.device))
+        rc = entry(*args, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"mhsa kernel launch failed: CUDA error {rc}")
     return out, qkv, ctx
@@ -153,9 +159,14 @@ def _launch_k1(x, got: dict, num_heads: int, ln_eps: float):
 
 def _k1_args(x, got: dict, num_heads: int, ln_eps: float, bufs):
     """The library and K1's C arguments (but the stream) for x and the
-    (qkv, ctx, out) buffers `bufs`."""
+    (qkv, ctx, out) buffers `bufs`; the f32 form takes any D = 64 H."""
     b, n, d = x.shape
-    lib, max_dim = _kernel_library(x.device.index)
+    if x.dtype == torch.float32:
+        from geovpr_torch.ops._build import library_on
+        lib, max_dim = library_on(x.device.index,
+                                  "geovpr_f32_serving_init"), d
+    else:
+        lib, max_dim = _kernel_library(x.device.index)
     if d > max_dim:
         raise ValueError(f"D={d} exceeds the largest D the kernels take "
                          f"({max_dim})")
@@ -174,12 +185,14 @@ K1_PARTS = ("layernorm", "qkv_gemm", "attention", "out_proj")
 def k1_launch_part(part: int, x, got: dict, num_heads: int, ln_eps: float,
                    bufs) -> None:
     """One of K1's four launches (an index into K1_PARTS) alone on a
-    checked bf16 CUDA stream x and the (qkv, ctx, out) buffers `bufs` of
-    an earlier call, whose contents it reads. chip_smoke.py times K1's
-    launches one by one with it; it counts no launch."""
+    checked bf16 or f32 CUDA stream x and the (qkv, ctx, out) buffers
+    `bufs` of an earlier call, whose contents it reads. chip_smoke.py times
+    K1's launches one by one with it; it counts no launch."""
     lib, args = _k1_args(x, got, num_heads, ln_eps, bufs)
+    entry = (lib.geovpr_mhsa_f32_parts if x.dtype == torch.float32
+             else lib.geovpr_mhsa_block_parts)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_mhsa_block_parts(*args, part, part, _stream(x.device))
+        rc = entry(*args, part, part, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"mhsa kernel launch failed: CUDA error {rc}")
 
@@ -584,15 +597,34 @@ def mhsa_train_bwd_reference(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv,
 _F32_VECTORS = ("ln_scale", "ln_bias", "bqkv", "bo", "gamma")
 
 
-def _check_cuda_args(tensors: dict, d: int, num_heads: int) -> None:
-    """What K1 and the training kernels take on CUDA: bf16 stream,
-    residuals and matrices, f32 vectors, all contiguous; head dim 64."""
+def k1_dtype_error(dtypes: dict) -> str | None:
+    """K1's type rule on CUDA (name -> dtype of its tensors): x, wqkv and
+    wo all bf16 (`csrc/mhsa.cu`) or all f32 (`csrc/f32_serving.cu`), the
+    vectors f32. The message, or None where the rule holds."""
+    return serving_dtype_error("K1", dtypes, ("x", "wqkv", "wo"))
+
+
+def k8_dtype_error(dtypes: dict) -> str | None:
+    """The type rule of the training kernels K8a-K8c on CUDA: bf16 stream,
+    residuals, gradients and matrices, f32 vectors (their f32 forms are
+    still to be ported). The message, or None where the rule holds."""
+    for name, t in dtypes.items():
+        want = torch.float32 if name in _F32_VECTORS else torch.bfloat16
+        if t != want:
+            return f"{name} must be {want} on CUDA, got {t}"
+    return None
+
+
+def _check_cuda_args(tensors: dict, d: int, num_heads: int,
+                     dtype_error=k8_dtype_error) -> None:
+    """What K1 (`dtype_error=k1_dtype_error`) and the training kernels take
+    on CUDA: the types of `dtype_error`, all contiguous; head dim 64."""
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        want = torch.float32 if name in _F32_VECTORS else torch.bfloat16
-        if t.dtype != want:
-            raise TypeError(f"{name} must be {want} on CUDA, got {t.dtype}")
+    err = dtype_error({k: t.dtype for k, t in tensors.items()})
+    if err:
+        raise TypeError(err)
     if d // num_heads != _KERNEL_HEAD_DIM:
         raise ValueError(f"the kernels take head dim "
                          f"{_KERNEL_HEAD_DIM}, got D={d}, {num_heads} heads")

@@ -15,15 +15,16 @@ the port never builds.
 
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel of
 `geovpr_torch/csrc/patch_merge.cu` (two launches: the merge-LN pass, then
-the TMA + wgmma GEMM) or raises; on a CPU tensor it runs
-`patch_merge_reference`.
+the TMA + wgmma GEMM; in f32 the two launches of `csrc/f32_serving.cu`) or
+raises; on a CPU tensor it runs `patch_merge_reference`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from geovpr_torch.ops.quant import check_devices, check_shapes, layer_norm_f32
+from geovpr_torch.ops.quant import (check_devices, check_shapes,
+                                    layer_norm_f32, serving_dtype_error)
 
 _K6_MAX_C = 1024
 
@@ -58,12 +59,20 @@ def k6_shape_error(c: int) -> str | None:
     return None
 
 
+def k6_dtype_error(dtypes: dict) -> str | None:
+    """K6's type rule on CUDA (name -> dtype of its tensors): x and w both
+    bf16 (`csrc/patch_merge.cu`) or both f32 (`csrc/f32_serving.cu`), the
+    LayerNorm's vectors f32. The message, or None where the rule holds."""
+    return serving_dtype_error("K6", dtypes, ("x", "w"))
+
+
 def fused_patch_merge(x: torch.Tensor, ln_scale: torch.Tensor,
                       ln_bias: torch.Tensor, w: torch.Tensor,
                       resolution: int, ln_eps: float = 1e-5) -> torch.Tensor:
     """Swin stage boundary on the raster stream. CPU tensors run the plain
-    version; CUDA tensors launch K6 (bf16 x and w, f32 LN vectors,
-    contiguous, `k6_shape_error`'s widths, forward only) or raise."""
+    version; CUDA tensors launch K6 (bf16 or f32 x and w, f32 LN vectors:
+    `k6_dtype_error`; contiguous, `k6_shape_error`'s widths, forward only)
+    or raise."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, L, C), got {tuple(x.shape)}")
     b, l, c = x.shape
@@ -85,21 +94,19 @@ def fused_patch_merge(x: torch.Tensor, ln_scale: torch.Tensor,
                                        (x, *got.values())):
         raise RuntimeError("fused_patch_merge has no backward kernel; run "
                            "the forward under torch.inference_mode()")
-    for name, t in (("x", x), ("w", w)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16 on CUDA, got {t.dtype}")
-    for name in ("ln_scale", "ln_bias"):
-        if got[name].dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {got[name].dtype}")
+    err = k6_dtype_error({k: t.dtype for k, t in (("x", x), *got.items())})
+    if err:
+        raise TypeError(err)
     err = k6_shape_error(c)
     if err:
         raise ValueError(err)
     bufs = (torch.empty((b, l // 4, 4 * c), dtype=x.dtype, device=x.device),
             torch.empty((b, l // 4, 2 * c), dtype=x.dtype, device=x.device))
     lib, args = _k6_args(x, got, resolution, ln_eps, bufs)
+    entry = (lib.geovpr_patch_merge_f32 if x.dtype == torch.float32
+             else lib.geovpr_patch_merge)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_patch_merge(
-            *args, torch.cuda.current_stream(x.device).cuda_stream)
+        rc = entry(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"patch_merge kernel launch failed: CUDA error {rc}")
@@ -111,7 +118,9 @@ def _k6_args(x, got: dict, resolution: int, ln_eps: float, bufs):
     """The library and K6's C arguments (but the stream) for a checked
     CUDA x and the (LN(merged) (B, L/4, 4C), out) buffers `bufs`."""
     from geovpr_torch.ops._build import library_on
-    lib = library_on(x.device.index, "geovpr_patch_merge_init")
+    init = ("geovpr_f32_serving_init" if x.dtype == torch.float32
+            else "geovpr_patch_merge_init")
+    lib = library_on(x.device.index, init)
     ptrs = [x, got["ln_scale"], got["ln_bias"], got["w"], *bufs]
     if any(t.data_ptr() % 16 for t in ptrs):
         raise ValueError("K6 reads its tensors by TMA and 16-byte loads: "
@@ -126,18 +135,20 @@ K6_PARTS = ("merge_ln", "gemm")
 def k6_launch_part(part: int, x, ln_scale, ln_bias, w, resolution: int,
                    ln_eps: float = 1e-5, *, bufs) -> None:
     """One of K6's two launches (an index into K6_PARTS) alone, on the
-    arguments of `fused_patch_merge` (bf16 CUDA tensors it takes) and the
-    (LN(merged), out) buffers `bufs` of an earlier call, whose contents it
-    reads. chip_smoke.py times K6's launches one by one with it; it counts
-    no launch."""
+    arguments of `fused_patch_merge` (bf16 or f32 CUDA tensors it takes)
+    and the (LN(merged), out) buffers `bufs` of an earlier call, whose
+    contents it reads. chip_smoke.py times K6's launches one by one with
+    it; it counts no launch."""
     err = k6_shape_error(x.shape[-1])
     if err:
         raise ValueError(err)
     lib, args = _k6_args(x, {"ln_scale": ln_scale, "ln_bias": ln_bias,
                              "w": w}, resolution, ln_eps, bufs)
+    entry = (lib.geovpr_patch_merge_f32_parts if x.dtype == torch.float32
+             else lib.geovpr_patch_merge_parts)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_patch_merge_parts(
-            *args, part, part, torch.cuda.current_stream(x.device).cuda_stream)
+        rc = entry(*args, part, part,
+                   torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"patch_merge kernel launch failed: CUDA error {rc}")

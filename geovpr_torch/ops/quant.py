@@ -204,6 +204,25 @@ def check_devices(x, tensors: dict) -> None:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
+def serving_dtype_error(name: str, dtypes: dict,
+                        stream: tuple) -> str | None:
+    """The type rule of the serving kernels K1, K4, K6 and K7 on CUDA,
+    each of which has a bf16 and an f32 form: the tensors named in
+    `stream` (the activations and the matrices) all bf16 or all f32, every
+    other tensor of `dtypes` (name -> dtype: vectors, tables, bias, mask)
+    f32. The message, or None where the rule holds."""
+    got = [dtypes[k] for k in stream]
+    if got[0] not in (torch.bfloat16, torch.float32) or any(
+            t != got[0] for t in got):
+        return (f"{name} takes {', '.join(stream)} all torch.bfloat16 or all "
+                f"torch.float32 on CUDA, got " + ", ".join(
+                    f"{k} {t}" for k, t in zip(stream, got)))
+    for k, t in dtypes.items():
+        if k not in stream and t != torch.float32:
+            return f"{name} takes {k} in torch.float32 on CUDA, got {t}"
+    return None
+
+
 def check_int8_kernel_args(x, mats: dict, vecs: dict, extra=()) -> None:
     """What the int8 kernels take on CUDA: bf16 x (and `extra` tensors),
     int8 matrices, f32 vectors, all contiguous, on x's device, forward

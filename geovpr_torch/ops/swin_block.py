@@ -15,7 +15,8 @@ the block; the shift mask follows from (resolution, window, shift). wqkv is
 matrices are (out, in), as K2 takes them.
 
 On a CUDA tensor the wrappers launch the hand-written Hopper kernels of
-`geovpr_torch/csrc/swin_attn.cu` or raise; on a CPU tensor they run the
+`geovpr_torch/csrc/swin_attn.cu` (K4 in f32: `csrc/f32_serving.cu`) or
+raise; on a CPU tensor they run the
 plain versions, which round where the JAX kernels round (`_kernel`,
 `_kernel_int8`, `pallas_swin_block.py:418-517`):
 - q carries dh^-0.5 * log2(e) from the f32 qkv, before its rounding;
@@ -38,7 +39,8 @@ from geovpr_torch.ops.quant import (attn_mode, check_devices,
                                     int8_resid_reference, int_mm,
                                     layer_norm_f32, ln_quant_reference,
                                     mode_constants, qkv_buffers,
-                                    qkv_part_reference, round_clip_int8)
+                                    qkv_part_reference, round_clip_int8,
+                                    serving_dtype_error)
 from geovpr_torch.ops.window_attention import (_raster_ctx, _windows_qkv,
                                                add_bias_mask, from_windows,
                                                relative_position_bias,
@@ -225,6 +227,14 @@ def k4_shape_error(c: int, num_heads: int, window: int,
     return _swin_rule_error("K4", c, num_heads, window, shift)
 
 
+def k4_dtype_error(dtypes: dict) -> str | None:
+    """K4's type rule on CUDA (name -> dtype of its tensors): x, wqkv and
+    wo all bf16 (`csrc/swin_attn.cu`) or all f32 (`csrc/f32_serving.cu`),
+    the vectors and the table f32. The message, or None where the rule
+    holds."""
+    return serving_dtype_error("K4", dtypes, ("x", "wqkv", "wo"))
+
+
 def k5_shape_error(c: int, num_heads: int, window: int,
                    shift: int) -> str | None:
     """The rule of K5's kernels (`csrc/swin_attn.cu`), or None where they
@@ -259,9 +269,9 @@ def fused_swin_attn_block(x: torch.Tensor, ln_scale: torch.Tensor,
                           num_heads: int, resolution: int, window: int,
                           shift: int, ln_eps: float = 1e-5) -> torch.Tensor:
     """Swin attention half-block on the raster stream. CPU tensors run the
-    plain version; CUDA tensors launch K4 (bf16 x and matrices, f32
-    vectors and table, contiguous, `k4_shape_error`'s geometry, forward
-    only) or raise."""
+    plain version; CUDA tensors launch K4 (bf16 or f32 x and matrices, f32
+    vectors and table: `k4_dtype_error`; contiguous, `k4_shape_error`'s
+    geometry, forward only) or raise."""
     _check_geometry(x, num_heads, resolution, window, shift)
     b, l, c = x.shape
     got = {"ln_scale": ln_scale, "ln_bias": ln_bias, "wqkv": wqkv,
@@ -285,12 +295,9 @@ def fused_swin_attn_block(x: torch.Tensor, ln_scale: torch.Tensor,
             "fused_swin_attn_block (K4) is the serving half-block and has no "
             "backward; under grad the block runs fused_swin_attn_train (K9), "
             "or run this forward under torch.inference_mode()")
-    for name, t in (("x", x), ("wqkv", wqkv), ("wo", wo)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16 on CUDA, got {t.dtype}")
-    for name in ("ln_scale", "ln_bias", "bqkv", "bo", "table"):
-        if got[name].dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {got[name].dtype}")
+    err = k4_dtype_error({k: t.dtype for k, t in (("x", x), *got.items())})
+    if err:
+        raise TypeError(err)
     err = k4_shape_error(c, num_heads, window, shift)
     if err:
         raise ValueError(err)
@@ -300,8 +307,10 @@ def fused_swin_attn_block(x: torch.Tensor, ln_scale: torch.Tensor,
             torch.empty_like(x))
     lib, args = _k4_args(x, got, num_heads, resolution, window, shift,
                          ln_eps, bufs)
+    entry = (lib.geovpr_swin_attn_f32 if x.dtype == torch.float32
+             else lib.geovpr_swin_attn_bf16)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_swin_attn_bf16(*args, _stream(x.device))
+        rc = entry(*args, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"swin_attn kernel launch failed: CUDA error {rc}")
     fused_swin_attn_block.launches += 1
@@ -313,7 +322,8 @@ def _k4_args(x, got: dict, num_heads, resolution, window, shift, ln_eps,
     """The library and K4's C arguments (but the stream) for a checked
     CUDA x and the (qkv, ctx, out) buffers `bufs`."""
     from geovpr_torch.ops._build import library_on
-    lib = library_on(x.device.index, "geovpr_swin_init")
+    lib = library_on(x.device.index, "geovpr_f32_serving_init"
+                     if x.dtype == torch.float32 else "geovpr_swin_init")
     ptrs = [x] + [got[k] for k in ("ln_scale", "ln_bias", "wqkv", "bqkv",
                                    "wo", "bo", "table")] + list(bufs)
     if any(t.data_ptr() % 16 for t in ptrs):
@@ -332,10 +342,10 @@ def k4_launch_part(part: int, x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
                    table, num_heads: int, resolution: int, window: int,
                    shift: int, ln_eps: float = 1e-5, *, bufs) -> None:
     """One of K4's four launches (an index into K4_PARTS) alone, on the
-    arguments of `fused_swin_attn_block` (bf16 CUDA tensors it takes) and
-    the (qkv (B*L, 3C), ctx (B*L, C), out) buffers `bufs` of an earlier
-    call, whose contents it reads. chip_smoke.py times K4's launches one by
-    one with it; it counts no launch."""
+    arguments of `fused_swin_attn_block` (bf16 or f32 CUDA tensors it
+    takes) and the (qkv (B*L, 3C), ctx (B*L, C), out) buffers `bufs` of an
+    earlier call, whose contents it reads. chip_smoke.py times K4's
+    launches one by one with it; it counts no launch."""
     got = {"ln_scale": ln_scale, "ln_bias": ln_bias, "wqkv": wqkv,
            "bqkv": bqkv, "wo": wo, "bo": bo, "table": table}
     err = k4_shape_error(x.shape[-1], num_heads, window, shift)
@@ -343,8 +353,10 @@ def k4_launch_part(part: int, x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
         raise ValueError(err)
     lib, args = _k4_args(x, got, num_heads, resolution, window, shift,
                          ln_eps, bufs)
+    entry = (lib.geovpr_swin_attn_f32_parts if x.dtype == torch.float32
+             else lib.geovpr_swin_attn_parts)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_swin_attn_parts(*args, part, part, _stream(x.device))
+        rc = entry(*args, part, part, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"swin_attn kernel launch failed: CUDA error {rc}")
 
@@ -826,17 +838,28 @@ def k9_shape_error(c: int, num_heads: int, window: int,
     return None
 
 
+def k9_dtype_error(dtypes: dict) -> str | None:
+    """The type rule of the training kernels K9a-K9c on CUDA: bf16 stream,
+    residuals, gradients and matrices, f32 vectors and table (their f32
+    forms are still to be ported). The message, or None where the rule
+    holds."""
+    for name, t in dtypes.items():
+        want = (torch.float32 if name in ("ln_scale", "ln_bias", "bqkv",
+                                          "bo", "table") else torch.bfloat16)
+        if t != want:
+            return f"{name} must be {want} on CUDA, got {t}"
+    return None
+
+
 def _check_train_cuda(tensors: dict, c, num_heads, window, shift):
-    """What the training kernels take on CUDA: bf16 stream, residuals and
-    matrices, f32 vectors and table, contiguous and 16-byte aligned (TMA);
-    `k9_shape_error`'s geometry."""
+    """What the training kernels take on CUDA: `k9_dtype_error`'s types,
+    contiguous and 16-byte aligned (TMA); `k9_shape_error`'s geometry."""
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        want = (torch.float32 if name in ("ln_scale", "ln_bias", "bqkv",
-                                          "bo", "table") else torch.bfloat16)
-        if t.dtype != want:
-            raise TypeError(f"{name} must be {want} on CUDA, got {t.dtype}")
+        err = k9_dtype_error({name: t.dtype})
+        if err:
+            raise TypeError(err)
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start 16-byte aligned (the "
                              f"training kernels read it by TMA)")

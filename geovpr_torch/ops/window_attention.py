@@ -28,9 +28,11 @@ entries, two address modes of one hand-written Hopper kernel
 - `window_attention_kernel(q, k, v, bias, mask)`, with JAX's operands and
   result: (BW, H, N, dh) q, k, v in, the same out, bias (H, N, N), mask
   (nW, N, N) or None.
-On a CUDA tensor each launches the kernel or raises; on a CPU tensor each
-runs its plain version, which rounds where the JAX kernel body `_kernel`
-rounds (serving softmax, `_SKIP_MAX`).
+On a CUDA tensor each launches the kernel or raises (bf16 operands; f32
+operands, for a model built with compute_dtype="float32", launch the f32
+form of both modes in `geovpr_torch/csrc/f32_serving.cu`); on a CPU tensor
+each runs its plain version, which rounds where the JAX kernel body
+`_kernel` rounds (serving softmax, `_SKIP_MAX`).
 
 K7's gradient is JAX's `custom_vjp` (`pallas_window_attention.py:182-207`):
 on CUDA each entry is a `torch.autograd.Function` whose forward is the
@@ -50,6 +52,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from geovpr_torch.ops.quant import serving_dtype_error
 
 LOG2E = math.log2(math.e)
 _KERNEL_HEAD_DIM = 32
@@ -236,13 +240,28 @@ def window_attention_serving_reference(q: torch.Tensor, k: torch.Tensor,
     return out.to(dt)
 
 
+def k7_dtype_error(dtypes: dict) -> str | None:
+    """The type rule of K7's split entry on CUDA (name -> dtype of q, k, v,
+    bias and, where given, mask): q, k and v all bf16 (`csrc/
+    window_attn.cu`) or all f32 (`csrc/f32_serving.cu`), bias and mask
+    f32. The message, or None where the rule holds."""
+    return serving_dtype_error("K7", dtypes, ("q", "k", "v"))
+
+
+def k7_raster_dtype_error(dtypes: dict) -> str | None:
+    """The type rule of K7's raster entry on CUDA: qkv bf16 or f32, the
+    table f32. The message, or None where the rule holds."""
+    return serving_dtype_error("K7", dtypes, ("qkv",))
+
+
 def window_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, bias: torch.Tensor,
                             mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Window attention over pre-split windows (BW, H, N, dh), with JAX's
     operands. CPU tensors run the plain version; CUDA tensors launch K7
-    (bf16 q, k, v; f32 bias and mask; contiguous and 16-byte aligned; head
-    dim 32; N up to 256; BW a multiple of nW) or raise. Its gradient is the
+    (bf16 or f32 q, k, v; f32 bias and mask: `k7_dtype_error`; contiguous
+    and 16-byte aligned; head dim 32; N up to 256; BW a multiple of nW) or
+    raise. Its gradient is the
     VJP of `window_attention` on the same operands."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be one (BW, H, N, dh) shape, got "
@@ -264,10 +283,10 @@ def window_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         return window_attention_serving_reference(q, k, v, bias, mask)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    err = k7_dtype_error({k: t.dtype for k, t in tensors.items()})
+    if err:
+        raise TypeError(err)
     for name, t in tensors.items():
-        want = torch.float32 if name in ("bias", "mask") else torch.bfloat16
-        if t.dtype != want:
-            raise TypeError(f"{name} must be {want} on CUDA, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if dh != _KERNEL_HEAD_DIM or n > _KERNEL_MAX_N:
@@ -308,10 +327,14 @@ class _K7Split(torch.autograd.Function):
 def _k7_split_launch(q, k, v, bias, mask) -> torch.Tensor:
     bw, h, n, dh = q.shape
     from geovpr_torch.ops._build import library_on
-    lib = library_on(q.device.index, "geovpr_window_attention_init")
+    f32 = q.dtype == torch.float32
+    lib = library_on(q.device.index, "geovpr_f32_serving_init" if f32
+                     else "geovpr_window_attention_init")
+    entry = (lib.geovpr_window_attention_f32 if f32
+             else lib.geovpr_window_attention)
     out = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        rc = lib.geovpr_window_attention(
+        rc = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(), bw, h,
             n, 1 if mask is None else mask.shape[0],
@@ -377,8 +400,9 @@ def window_attention_raster(qkv: torch.Tensor, table: torch.Tensor,
     (q | k | v column blocks, head h at columns 32 h of each, q unscaled) and
     the block's ((2w-1)^2, H) relative-position table; returns the context
     (B, L, C) in raster order. CPU tensors run the plain version; CUDA
-    tensors launch K7's raster mode (bf16 qkv, f32 table, contiguous and
-    16-byte aligned; `k7_raster_shape_error`) or raise. Its gradient is
+    tensors launch K7's raster mode (bf16 or f32 qkv, f32 table:
+    `k7_raster_dtype_error`; contiguous and 16-byte aligned;
+    `k7_raster_shape_error`) or raise. Its gradient is
     the VJP of `window_attention` on the gathered windows."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (B, L, 3C), got {tuple(qkv.shape)}")
@@ -398,10 +422,10 @@ def window_attention_raster(qkv: torch.Tensor, table: torch.Tensor,
                                                  resolution, window, shift)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
-    for name, x, want in (("qkv", qkv, torch.bfloat16),
-                          ("table", table, torch.float32)):
-        if x.dtype != want:
-            raise TypeError(f"{name} must be {want} on CUDA, got {x.dtype}")
+    err = k7_raster_dtype_error({"qkv": qkv.dtype, "table": table.dtype})
+    if err:
+        raise TypeError(err)
+    for name, x in (("qkv", qkv), ("table", table)):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     err = k7_raster_shape_error(c, num_heads, resolution, window, shift)
@@ -435,10 +459,14 @@ def _k7_raster_launch(qkv, table, num_heads, resolution, window,
     b, l, c3 = qkv.shape
     c = c3 // 3
     from geovpr_torch.ops._build import library_on
-    lib = library_on(qkv.device.index, "geovpr_window_attention_init")
+    f32 = qkv.dtype == torch.float32
+    lib = library_on(qkv.device.index, "geovpr_f32_serving_init" if f32
+                     else "geovpr_window_attention_init")
+    entry = (lib.geovpr_window_attention_raster_f32 if f32
+             else lib.geovpr_window_attention_raster)
     out = torch.empty(b, l, c, dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
-        rc = lib.geovpr_window_attention_raster(
+        rc = entry(
             qkv.data_ptr(), table.data_ptr(), out.data_ptr(), b, resolution,
             c, num_heads, window, shift,
             float(1.0 / (_KERNEL_HEAD_DIM ** 0.5) * LOG2E),

@@ -8,7 +8,8 @@ This file imports no jax, so it also runs where only the port is installed:
 import pytest
 import torch
 
-from chip_smoke import (f32, int8_block_case, int8_errors, int8_within_bound,
+from chip_smoke import (F32_BRANCH_REL, f32, f32_branch_error, f32_k1_case,
+                        int8_block_case, int8_errors, int8_within_bound,
                         k1_within_bound, k4_args, k5_kwargs, k7_case,
                         k7_raster_case, merge_case, ratio_errors,
                         swin_block_case)
@@ -117,11 +118,116 @@ def test_kernel_refuses_misaligned_tensors(cuda):
         fused_mhsa_block(*args)
 
 
+def _f32_within_bound(kernel, plain, args, x=None):
+    """The f32 forms' check (chip_smoke.py's [f32_serving]): one launch,
+    and the branch's relative error against the plain f32 version (TF32
+    off) within F32_BRANCH_REL."""
+    with torch.inference_mode():
+        before = kernel.launches
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+    assert kernel.launches == before + 1
+    assert got.dtype == torch.float32
+    e = f32_branch_error(got, want, x)
+    assert e["finite"] and e["branch_rel_err"] <= F32_BRANCH_REL, e
+
+
 def test_kernel_refuses_float32_activations(cuda):
+    """K1 refuses f32 activations with bf16 matrices, and f16; with f32
+    activations and matrices it runs its f32 form (`csrc/f32_serving.cu`),
+    within the f32 bound of its plain version."""
     args = _args(1, 5, 64, 1, cuda)
     args[0] = args[0].float()
     with torch.inference_mode(), pytest.raises(TypeError):
         fused_mhsa_block(*args)
+    half = [a.half() if i in (0, 3, 5) else a for i, a in enumerate(args)]
+    with torch.inference_mode(), pytest.raises(TypeError):
+        fused_mhsa_block(*half)
+    args = f32_k1_case((2, 65, 128, 2), cuda)
+    _f32_within_bound(fused_mhsa_block, mhsa_block_reference, args, args[0])
+
+
+@pytest.mark.parametrize("shape", [(64, 257, 768, 12), (3, 50, 384, 6),
+                                   (2, 17, 64, 1), (2, 1370, 768, 12),
+                                   (1, 257, 1024, 16)])
+def test_k1_f32_matches_plain_version(cuda, shape):
+    """K1's f32 form at DINOv2-B/14's shape, a one-query tail block (N =
+    257 = 4 x 64 + 1), N below one key tile, many key tiles, and D =
+    1024."""
+    args = f32_k1_case(shape, cuda)
+    _f32_within_bound(fused_mhsa_block, mhsa_block_reference, args, args[0])
+
+
+def test_f32_launches_one_by_one_equal_the_whole(cuda):
+    """K1's, K4's and K6's f32 launches run one by one on their buffers
+    give the whole call's output bit for bit."""
+    from geovpr_torch.ops import mhsa as mh
+    from geovpr_torch.ops import patch_merge as pm
+    from geovpr_torch.ops import swin_block as sb
+    args = f32_k1_case((2, 65, 128, 2), cuda)
+    x, h = args[0], args[-1]
+    got = mh._check(*args)
+    bufs = (x.new_empty(2, 65, 384), x.new_empty(2, 65, 128),
+            x.new_empty(2, 65, 128))
+    with torch.inference_mode():
+        whole = fused_mhsa_block(*args)
+        for i in range(len(mh.K1_PARTS)):
+            mh.k1_launch_part(i, x, got, h, 1e-6, bufs)
+        torch.cuda.synchronize()
+    assert torch.equal(bufs[2], whole)
+    x, blk = swin_block_case((2, 64, 2, 24, 12, 6), cuda,
+                             dtype=torch.float32)
+    a = k4_args(x, blk)
+    bufs = (x.new_empty(2 * 576, 192), x.new_empty(2 * 576, 64),
+            torch.empty_like(x))
+    with torch.inference_mode():
+        whole = sb.fused_swin_attn_block(*a)
+        for i in range(len(sb.K4_PARTS)):
+            sb.k4_launch_part(i, *a, bufs=bufs)
+        torch.cuda.synchronize()
+    assert torch.equal(bufs[2], whole)
+    a = merge_case((2, 96, 14), cuda, dtype=torch.float32)
+    bufs = (a[0].new_empty(2, 49, 384), a[0].new_empty(2, 49, 192))
+    with torch.inference_mode():
+        whole = pm.fused_patch_merge(*a)
+        for i in range(len(pm.K6_PARTS)):
+            pm.k6_launch_part(i, *a, bufs=bufs)
+        torch.cuda.synchronize()
+    assert torch.equal(bufs[1], whole)
+
+
+def test_f32_models_launch_per_block(cuda):
+    """A two-stage window-12 Swin, a window-7 Swin and a two-layer DINOv2
+    built in f32 go through the f32 kernels: one K4 or K7 a block, one K6
+    a boundary, one K1 a layer."""
+    from geovpr_torch.models.dinov2 import DinoV2
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.swin import SwinTransformer
+    from geovpr_torch.ops.patch_merge import fused_patch_merge
+    from geovpr_torch.ops.swin_block import fused_swin_attn_block
+    from geovpr_torch.ops.window_attention import window_attention_raster
+    fns = (fused_swin_attn_block, window_attention_raster, fused_patch_merge,
+           fused_mhsa_block)
+    g = torch.Generator().manual_seed(0)
+    for model, size, want in (
+            (SwinTransformer(embed_dim=64, depths=(2, 2), num_heads=(2, 4),
+                             window_size=12, image_size=96,
+                             dtype=torch.float32), 96, [4, 0, 1, 0]),
+            (SwinTransformer(embed_dim=64, depths=(2, 2), num_heads=(2, 4),
+                             window_size=7, image_size=56,
+                             dtype=torch.float32), 56, [0, 4, 1, 0]),
+            (DinoV2(hidden_size=128, num_layers=2, num_heads=2,
+                    image_size=56, dtype=torch.float32), 56, [0, 0, 0, 2])):
+        init_weights_(model, g)
+        model = model.to(cuda).eval()
+        x = torch.randn(2, size, size, 3, generator=g).to(cuda)
+        before = [f.launches for f in fns]
+        with torch.inference_mode():
+            out = model(x)
+            torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(fns, before)] == want
+        assert torch.isfinite(out.pooled).all()
 
 
 def test_model_launches_once_per_layer(cuda):
@@ -691,6 +797,24 @@ def test_k6_matches_plain_version(cuda, shape):
     assert k1_within_bound(e), e
 
 
+@pytest.mark.parametrize("shape", [(64, 128, 96), (2, 256, 48), (1, 512, 24),
+                                   (2, 96, 56), (3, 64, 10), (2, 40, 8)])
+def test_k6_f32_matches_plain_version(cuda, shape):
+    """K6's f32 form at Swin-B-384's first boundary (B=64), the next two,
+    Swin-T-224's first (2C = 192: a partial 128-column tile) and small or
+    odd widths; it refuses f16 and mixed types."""
+    from geovpr_torch.ops.patch_merge import (fused_patch_merge,
+                                              patch_merge_reference)
+    args = merge_case(shape, cuda, dtype=torch.float32)
+    _f32_within_bound(fused_patch_merge, patch_merge_reference, args)
+    x, ln_s, ln_b, w, res = args
+    with torch.inference_mode():
+        with pytest.raises(TypeError):
+            fused_patch_merge(x, ln_s, ln_b, w.bfloat16(), res)
+        with pytest.raises(TypeError):
+            fused_patch_merge(x.half(), ln_s, ln_b, w.half(), res)
+
+
 def test_k6_refuses_what_it_does_not_take(cuda):
     from geovpr_torch.ops.patch_merge import fused_patch_merge
     x, ln_s, ln_b, w, res = merge_case((1, 64, 8), cuda)
@@ -704,12 +828,20 @@ def test_k6_refuses_what_it_does_not_take(cuda):
 
 
 def test_swin_kernels_refuse_what_they_do_not_take(cuda):
+    """K4 refuses an f32 x with bf16 matrices and f16; f32 throughout runs
+    its f32 form within the f32 bound."""
     from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
-                                             fused_swin_attn_block_int8)
+                                             fused_swin_attn_block_int8,
+                                             swin_attn_block_reference)
     x, blk = swin_block_case((1, 64, 2, 8, 4, 2), cuda)
     args = list(k4_args(x, blk))
+    _f32_within_bound(fused_swin_attn_block, swin_attn_block_reference,
+                      f32(args), x.float())
     with torch.inference_mode(), pytest.raises(TypeError):
-        fused_swin_attn_block(x.float(), *args[1:])
+        fused_swin_attn_block(x.float(), *args[1:])      # bf16 matrices
+    with torch.inference_mode(), pytest.raises(TypeError):
+        fused_swin_attn_block(*(a.half() if i in (0, 3, 5) else a
+                                for i, a in enumerate(args)))
     table = args[7][:, :1].contiguous()                # one head of 64
     with torch.inference_mode(), pytest.raises(ValueError, match="head dim"):
         fused_swin_attn_block(*args[:7], table, 1, *args[9:])
@@ -770,6 +902,22 @@ _K7_SHAPES = [(8, 3, 49, 4), (4, 2, 49, 0), (2, 16, 144, 0), (4, 1, 144, 4),
               (2, 1, 225, 0)]
 
 
+@pytest.mark.parametrize("shape", _K4_SHAPES + [(64, 128, 4, 96, 12, 6),
+                                               (64, 1024, 32, 12, 12, 0)])
+def test_k4_f32_matches_plain_version(cuda, shape):
+    """K4's f32 form, x at 1e-2 as K1's check (the branch dominates),
+    at the bf16 test shapes and Swin-B-384's first and last stages (B=64);
+    it refuses mixed types."""
+    from geovpr_torch.ops.swin_block import (fused_swin_attn_block,
+                                             swin_attn_block_reference)
+    x, blk = swin_block_case(shape, cuda, x_scale=1e-2, dtype=torch.float32)
+    args = k4_args(x, blk)
+    _f32_within_bound(fused_swin_attn_block, swin_attn_block_reference, args,
+                      x)
+    with torch.inference_mode(), pytest.raises(TypeError):
+        fused_swin_attn_block(x, *args[1:3], args[3].bfloat16(), *args[4:])
+
+
 @pytest.mark.parametrize("shape", _K7_SHAPES)
 def test_k7_matches_plain_version(cuda, shape):
     """K1's bound: max and mean |error| against the f32 plain version
@@ -785,10 +933,29 @@ def test_k7_matches_plain_version(cuda, shape):
     assert k1_within_bound(e), e
 
 
+@pytest.mark.parametrize("shape", _K7_SHAPES + [(4, 2, 256, 0)])
+def test_k7_f32_matches_plain_version(cuda, shape):
+    """K7's f32 form on pre-split windows: N = 49, 144 and 225 with and
+    without the shift mask, and N = 256 (32 warps)."""
+    from geovpr_torch.ops.window_attention import (
+        window_attention_kernel, window_attention_serving_reference)
+    args = f32(k7_case(shape, cuda))
+    _f32_within_bound(window_attention_kernel,
+                      window_attention_serving_reference, args)
+
+
 def test_k7_refuses_what_it_does_not_take(cuda):
-    from geovpr_torch.ops.window_attention import window_attention_kernel
+    """K7 refuses mixed and f16 operands and f64 or bf16 bias and mask; in
+    f32 throughout it runs its f32 form within the f32 bound."""
+    from geovpr_torch.ops.window_attention import (
+        window_attention_kernel, window_attention_serving_reference)
     q, k, v, bias, mask = k7_case((8, 3, 49, 4), cuda)
+    _f32_within_bound(window_attention_kernel,
+                      window_attention_serving_reference,
+                      (q.float(), k.float(), v.float(), bias, mask))
     with torch.inference_mode():
+        with pytest.raises(TypeError):
+            window_attention_kernel(q.half(), k.half(), v.half(), bias, mask)
         with pytest.raises(TypeError):
             window_attention_kernel(q.float(), k, v, bias, mask)
         with pytest.raises(TypeError):
@@ -872,6 +1039,26 @@ def test_k7_raster_matches_plain_version(cuda, shape):
 
 
 @pytest.mark.parametrize("shape", _K7_RASTER_SHAPES + [
+    (64, 96, 3, 56, 7, 3), (2, 64, 2, 24, 12, 6), (1, 32, 1, 12, 3, 2)])
+def test_k7_raster_f32_matches_plain_version(cuda, shape):
+    """K7's raster mode in f32 (the window-7 half of a model built in f32)
+    at Swin-T-224's four stages (B=8, and stage 0 at B=64), window 12 and
+    a shift other than window // 2: the f32 bound, and bit-equal to the
+    f32 split launch on the gathered windows."""
+    from geovpr_torch.ops.window_attention import (
+        window_attention_kernel, window_attention_raster,
+        window_attention_raster_reference, windowed_attention)
+    args = k7_raster_case(shape, cuda, dtype=torch.float32)
+    _f32_within_bound(window_attention_raster,
+                      window_attention_raster_reference, args)
+    with torch.inference_mode():
+        got = window_attention_raster(*args)
+        want = windowed_attention(window_attention_kernel, *args)
+        torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", _K7_RASTER_SHAPES + [
     (2, 64, 2, 21, 7, 3), (2, 64, 2, 24, 12, 6), (1, 32, 1, 12, 3, 2)])
 def test_k7_raster_equals_split_launch(cuda, shape):
     """The raster launch is bit-equal to the split launch on the windows
@@ -890,13 +1077,19 @@ def test_k7_raster_equals_split_launch(cuda, shape):
 
 
 def test_k7_raster_refuses_what_it_does_not_take(cuda):
-    from geovpr_torch.ops.window_attention import window_attention_raster
+    """The raster mode refuses an f16 qkv and an f64 table; an f32 qkv runs
+    its f32 form within the f32 bound."""
+    from geovpr_torch.ops.window_attention import (
+        window_attention_raster, window_attention_raster_reference)
     qkv, table, h, res, win, shift = k7_raster_case((2, 96, 3, 14, 7, 3),
                                                     cuda)
     geom = (h, res, win, shift)
+    _f32_within_bound(window_attention_raster,
+                      window_attention_raster_reference,
+                      (qkv.float(), table, *geom))
     with torch.inference_mode():
         with pytest.raises(TypeError):
-            window_attention_raster(qkv.float(), table, *geom)
+            window_attention_raster(qkv.half(), table, *geom)
         with pytest.raises(TypeError):
             window_attention_raster(qkv, table.double(), *geom)
         with pytest.raises(ValueError, match="contiguous"):

@@ -85,8 +85,11 @@ def test_reference_matches_jax_oracle(n, dtype):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
 
 
-def test_wrapper_on_cpu_runs_the_plain_version():
-    args = _torch_args(_inputs(17, seed=2), torch.bfloat16)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_wrapper_on_cpu_runs_the_plain_version(dtype):
+    """On CPU tensors, bf16 or f32 (the two forms K1 has on the card), the
+    wrapper runs the plain version and counts no launch."""
+    args = _torch_args(_inputs(17, seed=2), getattr(torch, dtype))
     before = fused_mhsa_block.launches
     got = fused_mhsa_block(*args, num_heads=H)
     assert fused_mhsa_block.launches == before   # no kernel on the CPU
