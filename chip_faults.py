@@ -33,13 +33,16 @@ sum only, its dWqkv product skipping the 16-row tail of M = 16 x 257 =
 only; the f32 forms (`csrc/f32_serving.cu`): K1 without the mask of the
 keys past N, K4 without the shift mask (in the raster window attention
 that K7's f32 raster mode shares), K6 with x10 and x01 swapped, K7
-counting the pad keys past N = 49),
+counting the pad keys past N = 49; `csrc/f32_train.cu`: K8b without the
+mask of the keys past N, K8c with one row chunk left out of dWqkv's
+partial sums),
 builds that copy and runs the chip_smoke.py check of that kernel
 (`int8_kernels_vs_plain` for K2/K3 and the int8 GEMM,
 `swin_kernels_vs_plain` for K4/K5/K6,
 `k7_kernels_vs_plain` for K7, `k9_kernels_vs_plain` for K9a-K9c,
 `k8_kernels_vs_plain` for K1's GEMM and K8a-K8c, `f32_kernels_vs_plain`
-for the f32 forms) against it at one shape. Arguments, where given, pick
+for the f32 serving forms, `f32_train_kernels_vs_plain` for the f32
+training forms) against it at one shape. Arguments, where given, pick
 the faults whose names start with them (`python3 chip_faults.py K8`,
 `python3 chip_faults.py f32`). It prints the check's error line for
 the faulty kernel and whether the check rejected it, and exits non-zero
@@ -68,6 +71,7 @@ _K9 = "cs.k9_kernels_vs_plain(dev, shapes=({shape!r},))"
 _K8 = "cs.k8_kernels_vs_plain(dev, shapes=((16, 257, 768, 12),))"
 _F32 = ("cs.f32_kernels_vs_plain(dev, k1={k1!r}, k4={k4!r}, k6={k6!r}, "
         "k7={k7!r})")
+_F32T = "cs.f32_train_kernels_vs_plain(dev, k8a=(), k8b={k8b!r}, k8c={k8c!r})"
 
 # name -> (source file, [(original text, faulty text)], check to run)
 FAULTS = {
@@ -204,6 +208,14 @@ FAULTS = {
     "f32 K7 pad keys counted": ("f32_serving.cu", [
         ("s[r] = kin ? x : -INFINITY;", "s[r] = kin ? x : 0.f;")],
         _F32.format(k1=(), k4=(), k6=(), k7=(_K7_STAGE0,))),
+    "f32 K8b key mask past N dropped": ("f32_train.cu", [
+        ("return key < N;", "return true;")],
+        _F32T.format(k8b=((16, 257, 768, 12),), k8c=())),
+    "f32 K8c dWqkv leaves one row chunk out of its partials": (
+        "f32_train.cu", [
+            ("reduce(st, pt, S1, (size_t)D * 3 * D,",
+             "reduce(st, pt, S1 - 1, (size_t)D * 3 * D,")],
+        _F32T.format(k8b=(), k8c=((16, 257, 768, 12),))),
 }
 
 _RUN = """

@@ -124,9 +124,26 @@ end to end from seeded random weights:
   child on seeded reference-layout checkpoints, swin_geopose and a
   Swin-T-224 heading leg at compute_dtype float32 and the salad leg (f32
   by itself), each passing against the plain path's goldens on the same
-  weights.
-  `python3 chip_smoke.py --phases index_1m,train_disk,int8_modes,f32_serving`
-  runs those phases alone.
+  weights;
+- f32 training (`[f32_training]`), for a DINOv2 built with
+  compute_dtype="float32": the f32 forms of K8a (K1's f32 launches,
+  16x257x768x12), K8b (16x257x1024x16 and 16x257x768x12) and K8c
+  (16x257x768x12, whole and launch by launch) against their plain f32
+  versions with TF32 off (each output's relative error within 1e-5, a
+  near-cancelling column sum held to twice the plain version's own error
+  against f64 instead), timed beside their plain versions, their f32
+  library yardsticks and their bounds; then `run_train` at full width in
+  f32 on dinov2_meanpool_huber at base-14 (K8a and K8c 12 a step, K1 12 a
+  validation batch) and at large-14 (24 blocks: K8a and K8b 24 a step)
+  and the unfrozen DINOv2-B/14 + SALAD under remat (K8a 24, K8c
+  12 a step):
+  launches, finite losses, kernel against plain gradients (cosine at
+  least 0.99999 a tensor), a resume and remat bit for bit, a falling loss
+  on a fixed batch, the step's times beside the bf16 step's; and
+  `cli.evaluate --run-dir` on the base-14 run, serving on K1.f32.
+  `python3 chip_smoke.py --phases
+  index_1m,train_disk,int8_modes,f32_serving,f32_training` runs those
+  phases alone.
 
 Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
 form and the w8a8 MLP half-block, K3 also at the four Swin-B-384 stage
@@ -134,8 +151,10 @@ widths and at ConvNeXt-B's four stages with the separate residual), K4 and K5 (t
 K6 (Swin PatchMerging), K7 (the window-7 attention core, on the raster
 qkv and on pre-split windows; the window-7 half is also timed op by op),
 K2 and K5 also in their two other attention modes (int8 P.V, bf16
-scores), K1, K4, K6 and K7 also in their f32 forms, and K9a, K9b and K9c (the Swin attention half-block's training
-forward, core backward and whole backward), and K8a, K8b and K8c (the same
+scores), K1, K4, K6 and K7 also in their f32 forms, K8a, K8b and K8c also
+in theirs (K8c.f32's eleven launches timed one by one), and K9a, K9b and
+K9c (the Swin attention half-block's training forward, core backward and
+whole backward), and K8a, K8b and K8c (the same
 for the ViT attention half-block of DINOv2; K8a launches K1's kernels and
 keeps the qkv and ctx they write). K1's four launches (LayerNorm, the TMA
 + wgmma QKV GEMM, the attention, the out projection) are also timed one
@@ -724,14 +743,15 @@ def k6_part_bounds(part: str, shape, peak=PEAK_BF16, width=2) -> dict:
                       m2 * 4 * c * w + 8 * c * c * w + m2 * 2 * c * w)
 
 
-def graph_ms(fn, iters: int = 20) -> float:
+def graph_ms(fn, iters: int = 20, stream=None) -> float:
     """Mean device time of fn() in ms, `iters` calls captured in one CUDA
     graph and replayed, so that the host's cost of launching (Python,
-    ctypes, tens of microseconds a call) does not count."""
+    ctypes, tens of microseconds a call) does not count. `stream`: the
+    stream to capture on (torch's own capture stream by default)."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -1730,14 +1750,14 @@ def library_k7_mask(bias, mask, bw, dtype=torch.bfloat16):
     return m.to(dtype).repeat(bw // m.shape[0], 1, 1, 1)
 
 
-def interleaved_graph_ms(fns: dict, iters: int = 20) -> dict:
-    """`graph_ms` of each fn (the host's launch cost left out), run in
-    turns a, b, c, c, b, a; returns the mean of each fn's two runs and the
-    runs."""
+def interleaved_graph_ms(fns: dict, iters: int = 20, stream=None) -> dict:
+    """`graph_ms` of each fn (the host's launch cost left out; captured on
+    `stream`), run in turns a, b, c, c, b, a; returns the mean of each
+    fn's two runs and the runs."""
     names = list(fns)
     runs = {k: [] for k in names}
     for k in names + names[::-1]:
-        runs[k].append(graph_ms(fns[k], iters))
+        runs[k].append(graph_ms(fns[k], iters, stream))
     return {k: (sum(v) / 2, v) for k, v in runs.items()}
 
 
@@ -2826,45 +2846,47 @@ def k8_kernel_times(device, card: str, shape=K8_MAIN,
     return out
 
 
-def k8c_part_bounds(part: str, shape) -> dict:
+def k8c_part_bounds(part: str, shape, peak=PEAK_BF16, w=2,
+                    vec_peak=PEAK_F32) -> dict:
     """The least time of one of K8c's launches (with the reduce of its
     partial sums) at (B, N, D, H), M = B N rows: its inputs read once and
-    its outputs written once (bf16 streams and matrices, f32 vectors and
-    weight gradients) over 3.35 TB/s, against its products at the bf16
-    peak or its f32 operations (scaling, column sums, the LayerNorm
-    recompute and VJP) at 67 TFLOP/s."""
+    its outputs written once (`w`-byte streams and matrices: bf16, or 4
+    for K8c.f32; f32 vectors and weight gradients) over 3.35 TB/s, against
+    its products at `peak` (the bf16 peak, or K8c.f32's f32 one) or its
+    f32 operations (scaling, column sums, the LayerNorm recompute and VJP)
+    at `vec_peak`."""
     b, n, d, h = shape
     m = b * n
     if part == "dy":             # g, gamma -> dy
-        return part_bound(m * d, PEAK_F32, 2 * m * d * 2 + d * 4)
+        return part_bound(m * d, vec_peak, 2 * m * d * w + d * 4)
     if part == "dbo":            # g, gamma -> dbo
-        return part_bound(2 * m * d, PEAK_F32, m * d * 2 + 2 * d * 4)
+        return part_bound(2 * m * d, vec_peak, m * d * w + 2 * d * 4)
     if part == "da":             # dy, Wo -> da
-        return part_bound(2 * m * d * d, PEAK_BF16,
-                          2 * m * d * 2 + d * d * 2)
+        return part_bound(2 * m * d * d, peak,
+                          2 * m * d * w + d * d * w)
     if part == "dwo":            # ctx, dy -> dWo (f32)
-        return part_bound(2 * m * d * d, PEAK_BF16,
-                          2 * m * d * 2 + d * d * 4)
+        return part_bound(2 * m * d * d, peak,
+                          2 * m * d * w + d * d * 4)
     if part == "dgamma":         # ctx, Wo, bo, g -> dgamma
-        return part_bound(2 * m * d * d, PEAK_BF16,
-                          2 * m * d * 2 + d * d * 2 + 2 * d * 4)
+        return part_bound(2 * m * d * d, peak,
+                          2 * m * d * w + d * d * w + 2 * d * 4)
     if part == "core":           # qkv, da -> dqkv
-        return part_bound(5 * 2 * b * h * n * n * (d // h), PEAK_BF16,
-                          7 * m * d * 2)
+        return part_bound(5 * 2 * b * h * n * n * (d // h), peak,
+                          7 * m * d * w)
     if part == "ln_rows":        # x, ln_scale, ln_bias -> h, stats
-        return part_bound(8 * m * d, PEAK_F32,
-                          2 * m * d * 2 + 2 * d * 4 + m * 8)
+        return part_bound(8 * m * d, vec_peak,
+                          2 * m * d * w + 2 * d * 4 + m * 8)
     if part == "dwqkv":          # h, dqkv -> dWqkv (f32)
-        return part_bound(6 * m * d * d, PEAK_BF16,
-                          4 * m * d * 2 + 3 * d * d * 4)
+        return part_bound(6 * m * d * d, peak,
+                          4 * m * d * w + 3 * d * d * 4)
     if part == "dbqkv":          # dqkv -> dbqkv
-        return part_bound(3 * m * d, PEAK_F32, 3 * m * d * 2 + 3 * d * 4)
+        return part_bound(3 * m * d, vec_peak, 3 * m * d * w + 3 * d * 4)
     if part == "dh":             # dqkv, Wqkv -> dh
-        return part_bound(6 * m * d * d, PEAK_BF16,
-                          4 * m * d * 2 + 3 * d * d * 2)
+        return part_bound(6 * m * d * d, peak,
+                          4 * m * d * w + 3 * d * d * w)
     # x, dh, stats, ln_scale, g -> dx, dls, dlb
-    return part_bound(11 * m * d, PEAK_F32,
-                      4 * m * d * 2 + m * 8 + 3 * d * 4)
+    return part_bound(11 * m * d, vec_peak,
+                      4 * m * d * w + m * 8 + 3 * d * 4)
 
 
 def k8c_part_times(device, card: str, shape=K8_MAIN) -> dict:
@@ -3165,13 +3187,15 @@ def _train_grads_vs_plain(trainer, batch, path: str,
 
 
 def train_loss_falls(device, preset: str = TRAIN_PRESET,
-                     steps: int = 5) -> None:
-    """A fresh model of `preset`, dropout and DropPath off, `steps` steps
-    on one fixed batch of 16 synthetic images: the last loss is below the
-    first. Adam's first step from a random init overshoots (the second
-    loss is the largest), so the run needs steps enough to come back
-    below the start: 5 for Swin-B-384; 12 for DINOv2-B/14, whose fifth
-    loss still read 0.623 against a first of 0.519 on an H100."""
+                     steps: int = 5, cfg=None, dtype=torch.bfloat16,
+                     tag: str = "") -> None:
+    """A fresh model of `preset` (or of the config `cfg`) in compute dtype
+    `dtype`, dropout and DropPath off, `steps` steps on one fixed batch of
+    16 synthetic images: the last loss is below the first. Adam's first
+    step from a random init overshoots (the second loss is the largest),
+    so the run needs steps enough to come back below the start: 5 for
+    Swin-B-384; 12 for DINOv2-B/14, whose fifth loss still read 0.623
+    against a first of 0.519 on an H100."""
     import dataclasses
 
     from geovpr_torch.cli.presets import build_preset, objective_for
@@ -3181,13 +3205,13 @@ def train_loss_falls(device, preset: str = TRAIN_PRESET,
     from geovpr_torch.train.state import create_train_state
     from geovpr_torch.train.steps import make_train_step
 
-    cfg = build_preset(preset)
+    cfg = cfg or build_preset(preset)
     geo = isinstance(cfg, GeoposeConfig)
     size = cfg.data.image_size
     src = synthetic_val(TRAIN_BATCH, size, np.random.default_rng(SEED + 7),
                         angles=not geo)
     model = RegressionModel(dataclasses.replace(cfg.model, image_size=size),
-                            dtype=torch.bfloat16, train=True).to(device)
+                            dtype=dtype, train=True).to(device)
     st = create_train_state(model, cfg.optim, seed=SEED,
                             scaler=fit_scaler(src.targets) if geo else None,
                             out_dim=cfg.model.out_dim)
@@ -3198,7 +3222,8 @@ def train_loss_falls(device, preset: str = TRAIN_PRESET,
              "mask": torch.ones(TRAIN_BATCH, dtype=torch.bool,
                                 device=device)}
     losses = [float(step(st, batch)["loss"]) for _ in range(steps)]
-    phase("train_fixed_batch", preset=preset, losses=losses)
+    phase("train_fixed_batch", preset=preset, **({"path": tag} if tag
+                                                 else {}), losses=losses)
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"the loss on a fixed batch did not fall: {losses}")
 
@@ -5258,13 +5283,14 @@ def _disk_cfg(decoder: str, cache: str, remat: bool = True,
 def _remat_grads_equal(trainer, batch, tag: str) -> None:
     """The gradient of every parameter with the blocks recomputed and with
     them kept, at the same state and batch, the step's dropout generator
-    seeded alike: bit-equal."""
+    seeded alike: bit-equal. The model's remat flags are put back."""
     from geovpr_torch.models.layers import set_rng
     from geovpr_torch.train.steps import step_generators
 
     st, model = trainer.state, trainer.state.model
     enc = trainer.objective.encode_targets(batch["target"], st.scaler)
     flags = [m for m in model.modules() if hasattr(m, "remat")]
+    saved = [m.remat for m in flags]
     out = {}
     for remat in (True, False):
         for m in flags:
@@ -5280,8 +5306,8 @@ def _remat_grads_equal(trainer, batch, tag: str) -> None:
                 loss, list(model.parameters()), allow_unused=True))
         finally:
             set_rng(model, None)
-    for m in flags:
-        m.remat = True
+    for m, remat in zip(flags, saved):
+        m.remat = remat
     names = [n for n, _ in model.named_parameters()]
     differ = [n for n, a, b in zip(names, out[True][1], out[False][1])
               if (a is None) != (b is None)
@@ -6359,6 +6385,577 @@ def f32_serving_path(device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------- f32_training --
+# The f32 forms of DINOv2's training kernels, which a DINOv2 built with
+# compute_dtype="float32" trains on: K8a.f32 (K1's f32 launches, keeping
+# qkv and ctx), K8b.f32 and K8c.f32 (`csrc/f32_train.cu`), each against its
+# plain f32 version with TF32 off: every output's relative error in the
+# 2-norm within F32_BRANCH_REL (out's as the branch out - x). A near-
+# cancelling column sum (F32_COLSUM_OUTS) that misses it is held instead to
+# F32_COLSUM_SLACK x the f32 plain version's own error against an f64
+# evaluation. K8a at DINOv2-B/14's training shape (B=16), K8b there and at
+# large-14's (D = 1024, where `bwd_all_ok` fails and the split route runs
+# it), K8c at base-14's, whole and launch by launch. Then `run_train` on
+# the F32_TRAIN_CASES paths.
+F32_K8A_SHAPES = (K8_MAIN,)
+F32_K8B_SHAPES = (K8_SHAPES[1], K8_MAIN)
+F32_K8C_SHAPES = (K8_MAIN,)
+F32_COLSUM_OUTS = ("dbqkv", "dbo", "dgamma", "dls", "dlb")
+F32_COLSUM_SLACK = 2.0
+# f32 training at full width and depth, cut in data and epochs: (path,
+# preset, variant, batch, training images, validation images, unfrozen
+# SALAD backbone under model.remat). Launches a step: K8a in every block
+# (twice under remat: the forward and the recompute) and K8c, or K8b where
+# `bwd_all_ok` fails (large-14); K1 in every block of a validation batch.
+F32_TRAIN_CASES = (
+    ("dinov2-b14-f32", "dinov2_meanpool_huber", "base-14", 16, 32, 16,
+     False),
+    ("dinov2-l14-f32", "dinov2_meanpool_huber", "large-14", 16, 32, 16,
+     False),
+    ("dinov2salad-unfrozen-remat-f32", "dinov2salad_frozen_mlp", "base-14",
+     32, 64, 32, True))
+F32_TRAIN_EPOCHS = 2
+F32_FALL_STEPS = 12
+# launches a training step of each checked shape on those paths: K8a and
+# K8c in each of DINOv2-B/14's 12 blocks, K8b in each of -L/14's 24 (none
+# at base-14, where K8c runs)
+F32_PER_STEP = {("K8a", K8_MAIN): 12, ("K8c", K8_MAIN): 12,
+                ("K8b", K8_SHAPES[1]): 24, ("K8b", K8_MAIN): 0}
+# a roundoff-only gradient (the key bias, ROUNDOFF_GRADS) over the norm of
+# its tensor's real part (the query and value biases) or of
+# score_fc2.weight's gradient, at most
+F32_ROUNDOFF_REL = 1e-3
+
+
+def f32_train_bounds(kind: str, shape, peak: float) -> dict:
+    """The least time of one f32 K8 call at (B, N, D, H), counted as the
+    bf16 rows count it (`k8_bounds`) with 4 bytes a value: operations at
+    `peak` (K8a 8 M D^2 + two N x N x dh products a head; K8b the five
+    such products of the core backward; K8c those and 18 M D^2 of
+    products) against the bytes at 3.35 TB/s."""
+    b, n, d, h = shape
+    m = b * n
+    att = 2 * b * h * n * n * (d // h)
+    if kind == "K8a":
+        ops = 8 * m * d * d + 2 * att
+        values = m * d + 4 * d * d + 7 * d + 5 * m * d
+    elif kind == "K8b":
+        ops = 5 * att
+        values = 7 * m * d
+    else:
+        ops = 5 * att + 18 * m * d * d
+        values = 7 * m * d + 4 * d * d + 4 * d + 4 * d * d + 7 * d
+    return dict(part_bound(ops, peak, 4 * values), bytes=4 * values)
+
+
+def k8_f64_grads(x, ls, lb, wqkv, bqkv, wo, bo, gamma, g, h) -> dict:
+    """The half-block's gradients (K8_OUTS) in f64 by autograd of its
+    forward written out in f64, from the f32 inputs: the f64 evaluation
+    that a near-cancelling column sum is measured against."""
+    leaves = [t.detach().double().requires_grad_() for t in
+              (x, ls, lb, wqkv, bqkv, wo, bo, gamma)]
+    xx, s, bb, wq, bq, w_o, b_o, gm = leaves
+    b, n, d = x.shape
+    with torch.enable_grad():
+        mu = xx.mean(-1, keepdim=True)
+        var = ((xx - mu) ** 2).mean(-1, keepdim=True)
+        qkv = ((xx - mu) / torch.sqrt(var + 1e-6) * s + bb) @ wq + bq
+        q, k, v = (t.reshape(b, n, h, d // h).transpose(1, 2)
+                   for t in qkv.split(d, dim=-1))
+        p = torch.softmax(q @ k.transpose(-1, -2) * (d // h) ** -0.5, -1)
+        ctx = (p @ v).transpose(1, 2).reshape(b, n, d)
+        out = (ctx @ w_o + b_o) * gm + xx
+        grads = torch.autograd.grad(out, leaves, g.double())
+    return dict(zip(K8_OUTS, grads))
+
+
+def f32_train_error(name: str, tag: str, out: str, got, want,
+                    ref64=None) -> dict:
+    """One f32 training output against its plain version
+    (`f32_branch_error`, `[kernel]`): within F32_BRANCH_REL, or, for a
+    column sum of F32_COLSUM_OUTS that misses it, within F32_COLSUM_SLACK x
+    the plain version's own error against `ref64()` (the f64 evaluation,
+    made only then)."""
+    e = f32_branch_error(got, want)
+    ok = e["finite"] and e["branch_rel_err"] <= F32_BRANCH_REL
+    if not ok and e["finite"] and out in F32_COLSUM_OUTS and ref64:
+        r = ref64().double().reshape(got.shape)
+        scale = r.norm().item() or 1.0
+        e.update(kernel_vs_f64=(got.double() - r).norm().item() / scale,
+                 plain_vs_f64=(want.double() - r).norm().item() / scale,
+                 bound="colsum")
+        ok = e["kernel_vs_f64"] <= F32_COLSUM_SLACK * e["plain_vs_f64"]
+    phase("kernel", name=name, shape=tag, **e)
+    check(ok, f"{name} error outside its bound at {tag}: {e}")
+    return e
+
+
+def f32_train_case(shape, device, seed=SEED):
+    """K8's f32 operands at (B, N, D, H): K1's f32 case (`f32_k1_case`) and
+    an upstream gradient g drawn N(0, 1)."""
+    args = f32_k1_case(shape, device, seed)
+    gen = torch.Generator().manual_seed(seed + 2 * shape[2])
+    return args, torch.randn(*shape[:3], generator=gen).to(device)
+
+
+def library_backward(forward, inputs, grad, stream):
+    """An autograd backward as a yardstick that a CUDA graph captures: the
+    backward's ops run on their forward's stream, so `forward()` (the
+    output of which `inputs` are leaves) runs here once on `stream`, the
+    stream `graph_ms` is then given to capture on. Returns fn() giving
+    the gradients of `inputs` for the output gradient `grad`."""
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.enable_grad():
+        out = forward()
+    torch.cuda.current_stream().wait_stream(stream)
+    return lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True)
+
+
+def library_k8b(qkv, h, g_o, stream):
+    """K8b's yardstick: the backward of F.scaled_dot_product_attention
+    alone, in qkv's dtype, on the heads of qkv (B, N, 3D), capturable on
+    `stream` (`library_backward`)."""
+    import torch.nn.functional as F
+
+    from geovpr_torch.ops import mhsa as mh
+    d = qkv.shape[-1] // 3
+    qh, kh, vh = (mh._heads(t, h).contiguous().requires_grad_()
+                  for t in qkv.split(d, dim=-1))
+    return library_backward(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh), (qh, kh, vh), g_o, stream)
+
+
+def f32_train_times(card: str, name: str, tag: str, fns: dict, bound: dict,
+                    per_step: int, stream=None) -> dict:
+    """kernel, plain and library of `fns` in turns (a, b, c, c, b, a), each
+    in a CUDA graph (`interleaved_graph_ms`) captured on `stream` (the
+    stream a `library_backward` yardstick's forward ran on)."""
+    t = interleaved_graph_ms(fns, F32_TIME_ITERS, stream)
+    row = dict(ms=t["kernel"][0], plain_ms=t["plain"][0],
+               library_ms=t["library"][0],
+               runs={k: v[1] for k, v in t.items()}, **bound)
+    phase("kernel_time", card=repr(card), name=name, shape=tag,
+          timed="cuda_graph", launches_per_step=per_step, **row)
+    return row
+
+
+def k8c_f32_parts_vs_plain(args, g, res, h, tag: str) -> dict:
+    """K8c.f32 launch by launch (`k8c_launch_part`), each launch's outputs
+    against its plain part on the inputs the earlier launches left in the
+    buffers (`f32_train_error`, `[kernel] name=K8c.f32.<part>.<out>`), then
+    each output of the launches against the whole call's, bit for bit.
+    Returns the buffers."""
+    from geovpr_torch.ops import mhsa as mh
+    from geovpr_torch.ops.swin_block import _ln_parts
+    x, ls, lb, wqkv, bqkv, wo, bo, gamma = args[:8]
+    b, n, d = x.shape
+    m = b * n
+    ba = (x, ls, lb, wqkv, wo, bo, gamma, res[1], res[2], g, h, 1e-6)
+    bufs = mh.k8c_buffers(x, h)
+    gf, c2, x2 = g.reshape(m, d), res[2].reshape(m, d), x.reshape(m, d)
+    xhat, rstd, h_ref = _ln_parts(x2, ls, lb, 1e-6, x.dtype)
+
+    def cur(k):
+        return bufs[k].reshape(m, -1) if bufs[k].dim() == 3 else bufs[k]
+
+    def dy64():
+        return gf.double() * gamma.double()
+
+    def lnvjp64(which):
+        dh = cur("da").double()
+        return (dh * xhat.double()).sum(0) if which == "dls" else dh.sum(0)
+
+    # part -> [(output, plain part, f64 evaluation of a column sum)]
+    checks = {
+        "dy": [("dy", lambda: gf * gamma, None)],
+        "dbo": [("dbo", lambda: (gf * gamma).sum(0),
+                 lambda: dy64().sum(0))],
+        "da": [("da", lambda: mh.vit_bwd_product_reference(cur("dy"), wo),
+                None)],
+        "dwo": [("dwo", lambda: mh.vit_weight_grad_reference(c2, cur("dy")),
+                 None)],
+        "dgamma": [("dgamma", lambda: mh.vit_dgamma_reference(c2, wo, bo,
+                                                              gf),
+                    lambda: (gf.double() * (c2.double() @ wo.double()
+                                            + bo.double())).sum(0))],
+        "core": [("dqkv", lambda: mh.mhsa_attn_bwd_core_reference(
+            res[1], bufs["da"], h).reshape(m, 3 * d), None)],
+        "ln_rows": [("h", lambda: h_ref, None)],
+        "dwqkv": [("dwqkv", lambda: mh.vit_weight_grad_reference(
+            cur("h"), cur("dqkv")), None)],
+        "dbqkv": [("dbqkv", lambda: cur("dqkv").sum(0),
+                   lambda: cur("dqkv").double().sum(0))],
+        "dh": [("da", lambda: mh.vit_bwd_product_reference(cur("dqkv"),
+                                                           wqkv), None)],
+        "ln_vjp": [
+            (k, lambda i=i: mh.vit_ln_vjp_reference(cur("da"), xhat, rstd,
+                                                    ls, gf)[i],
+             None if k == "dx" else lambda k=k: lnvjp64(k))
+            for i, k in enumerate(("dx", "dls", "dlb"))]}
+    with torch.no_grad():
+        for i, part in enumerate(mh.K8C_PARTS):
+            mh.k8c_launch_part(i, *ba, bufs=bufs)
+            torch.cuda.synchronize()
+            for out, plain, ref64 in checks[part]:
+                f32_train_error(f"K8c.f32.{part}.{out}", tag, out, cur(out),
+                                plain(), ref64)
+        whole = mh.fused_mhsa_bwd_all(*ba)
+        torch.cuda.synchronize()
+    differ = [k for k, w in zip(K8_OUTS, whole) if not torch.equal(
+        bufs[k].reshape(w.shape), w)]
+    phase("k8c_f32_parts", shape=tag, parts=len(mh.K8C_PARTS),
+          differ_from_whole=differ)
+    check(not differ, f"K8c.f32's launches one by one differ from the whole "
+          f"call at {tag}: {differ}")
+    return bufs
+
+
+def f32_train_kernels_vs_plain(device, card: str | None = None,
+                               k8a=F32_K8A_SHAPES, k8b=F32_K8B_SHAPES,
+                               k8c=F32_K8C_SHAPES) -> dict:
+    """Part 1 of [f32_training]: K8a.f32, K8b.f32 and K8c.f32 against
+    their plain f32 versions (`f32_train_error`; K8b and K8c on the plain
+    forward's residuals, so that each is checked alone), each call one
+    launch; K8c.f32 also launch by launch (`k8c_f32_parts_vs_plain`). With
+    `card`, each also timed in CUDA graphs in turns with its plain version
+    and its f32 library yardstick (K1's torch ops, SDPA's backward, the
+    autograd of K1's torch ops) beside its bound (`[kernel_time]`), and
+    K8c.f32's launches one by one (`[kernel_split] name=K8c.f32`).
+    `k8a=`, `k8b=`, `k8c=` narrow the shapes, as chip_faults.py does.
+    Returns each kernel's error and times by (kind, shape)."""
+    from geovpr_torch.ops import mhsa as mh
+
+    peak = f32_peak(max_sm_clock_mhz()) if card else None
+    out = {}
+
+    def launched(fn, before, kind, shape):
+        torch.cuda.synchronize()
+        check(fn.launches == before + 1, f"{kind}.f32 did not launch at "
+              f"{shape}")
+
+    for shape in k8a:
+        h, tag = shape[3], "B{}_N{}_D{}_H{}".format(*shape)
+        args, _ = f32_train_case(shape, device)
+        fa = (*args[:8], h, 1e-6)
+        with torch.no_grad():
+            before = mh.fused_mhsa_train_fwd.launches
+            got = mh.fused_mhsa_train_fwd(*fa)
+            launched(mh.fused_mhsa_train_fwd, before, "K8a", shape)
+            want = mh.mhsa_train_fwd_reference(*fa)
+        e = f32_branch_error(got[0], want[0], args[0])
+        phase("kernel", name="K8a.f32.out", shape=tag, **e)
+        check(e["finite"] and e["branch_rel_err"] <= F32_BRANCH_REL,
+              f"K8a.f32 out error outside its bound at {tag}: {e}")
+        for i, name in ((1, "qkv"), (2, "ctx")):
+            f32_train_error(f"K8a.f32.{name}", tag, name, got[i], want[i])
+        row = dict(max_abs_err=e["max_abs_err"])
+        if card:
+            with torch.no_grad():
+                row.update(f32_train_times(
+                    card, "K8a.f32", tag,
+                    {"kernel": lambda: mh.fused_mhsa_train_fwd(*fa),
+                     "plain": lambda: mh.mhsa_train_fwd_reference(*fa),
+                     "library": lambda: library_k1(*fa[:9])},
+                    f32_train_bounds("K8a", shape, peak),
+                    F32_PER_STEP[("K8a", shape)]))
+        out[("K8a", shape)] = row
+        del args, got, want
+
+    for shape in k8b:
+        h, tag = shape[3], "B{}_N{}_D{}_H{}".format(*shape)
+        args, da = f32_train_case(shape, device)
+        with torch.no_grad():
+            qkv = mh.mhsa_train_fwd_reference(*args[:8], h, 1e-6)[1]
+            before = mh.fused_mhsa_bwd_core.launches
+            got = mh.fused_mhsa_bwd_core(qkv, da, h)
+            launched(mh.fused_mhsa_bwd_core, before, "K8b", shape)
+            want = mh.mhsa_attn_bwd_core_reference(qkv, da, h)
+        e = f32_train_error("K8b.f32.dqkv", tag, "dqkv", got, want)
+        row = dict(max_abs_err=e["max_abs_err"])
+        if card:
+            g_o = torch.randn(shape[0], h, shape[1], shape[2] // h,
+                              device=device)
+            stream = torch.cuda.Stream()
+            with torch.no_grad():
+                row.update(f32_train_times(
+                    card, "K8b.f32", tag,
+                    {"kernel": lambda: mh.fused_mhsa_bwd_core(qkv, da, h),
+                     "plain": lambda: mh.mhsa_attn_bwd_core_reference(
+                         qkv, da, h),
+                     "library": library_k8b(qkv, h, g_o, stream)},
+                    f32_train_bounds("K8b", shape, peak),
+                    F32_PER_STEP[("K8b", shape)], stream))
+        out[("K8b", shape)] = row
+        del args, da, qkv, got, want
+        torch.cuda.empty_cache()
+
+    for shape in k8c:
+        h, tag = shape[3], "B{}_N{}_D{}_H{}".format(*shape)
+        args, g = f32_train_case(shape, device)
+        x, ls, lb, wqkv, bqkv, wo, bo, gamma = args[:8]
+        with torch.no_grad():
+            res = mh.mhsa_train_fwd_reference(*args[:8], h, 1e-6)
+            ba = (x, ls, lb, wqkv, wo, bo, gamma, res[1], res[2], g, h, 1e-6)
+            before = mh.fused_mhsa_bwd_all.launches
+            got = mh.fused_mhsa_bwd_all(*ba)
+            launched(mh.fused_mhsa_bwd_all, before, "K8c", shape)
+            want = mh.mhsa_train_bwd_reference(*ba)
+        f64 = {}
+
+        def ref64(k):
+            if not f64:
+                f64.update(k8_f64_grads(*args[:8], g, h))
+            return f64[k]
+
+        row = {}
+        for i, name in enumerate(K8_OUTS):
+            e = f32_train_error(f"K8c.f32.{name}", tag, name, got[i], want[i],
+                                lambda k=name: ref64(k))
+            if name == "dx":
+                row["max_abs_err"] = e["max_abs_err"]
+        del got, want
+        bufs = k8c_f32_parts_vs_plain(args, g, res, h, tag)
+        if card:
+            leaves = [t.detach().requires_grad_() for t in args[:8]]
+            stream = torch.cuda.Stream()
+            with torch.no_grad():
+                row.update(f32_train_times(
+                    card, "K8c.f32", tag,
+                    {"kernel": lambda: mh.fused_mhsa_bwd_all(*ba),
+                     "plain": lambda: mh.mhsa_train_bwd_reference(*ba),
+                     "library": library_backward(
+                         lambda: library_k1(*leaves, h), leaves, g,
+                         stream)},
+                    f32_train_bounds("K8c", shape, peak),
+                    F32_PER_STEP[("K8c", shape)], stream))
+                parts_split(card, "K8c.f32", tag, mh.K8C_PARTS,
+                            lambda i: mh.k8c_launch_part(i, *ba, bufs=bufs),
+                            lambda part: k8c_part_bounds(
+                                part, shape, peak, 4, peak))
+            del leaves
+        out[("K8c", shape)] = row
+        del args, g, res, ba, bufs
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def k8_dtypes():
+    """The stream dtypes the DINOv2 kernels were called with inside the
+    block: K1's and K8a's launches (`_launch_k1`) and K8b's and K8c's
+    library entries (`_train_entries`), as a set of (role, dtype)."""
+    from geovpr_torch.ops import mhsa as mh
+    seen = set()
+    k1, entries = mh._launch_k1, mh._train_entries
+
+    def rec_k1(x, *a, **kw):
+        seen.add(("k1", x.dtype))
+        return k1(x, *a, **kw)
+
+    def rec_entries(device, dtype=torch.bfloat16):
+        seen.add(("k8bc", dtype))
+        return entries(device, dtype)
+
+    mh._launch_k1, mh._train_entries = rec_k1, rec_entries
+    try:
+        yield seen
+    finally:
+        mh._launch_k1, mh._train_entries = k1, entries
+
+
+def f32_train_cfg(preset: str, variant: str, batch: int, salad: bool,
+                  dtype: str = "float32"):
+    """The preset at `variant`, batch `batch` and compute dtype `dtype`;
+    for the SALAD preset its backbone unfrozen under remat, as
+    [train_disk] trains it (backbone LR x 0.1)."""
+    from geovpr_torch.cli.presets import build_preset
+    cfg = build_preset(preset)
+    model = dict(variant=variant, compute_dtype=dtype)
+    if salad:
+        model.update(freeze_backbone=False, remat=True)
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **model),
+        data=dataclasses.replace(cfg.data, batch_size=batch))
+    if salad:
+        cfg = dataclasses.replace(cfg, optim=dataclasses.replace(
+            cfg.optim, backbone_lr_scale=0.1))
+    return cfg
+
+
+def f32_grads_vs_plain(trainer, batch, tag: str) -> None:
+    """On one batch with dropout and DropPath off, the gradient of every
+    parameter on the f32 kernel path against the f32 plain path: cosine at
+    least F32_MIN_COSINE a tensor (`[train_grads] dtype=float32`), the
+    SALAD head's ReLUs passing on the plain path the units the kernel
+    path's passed. The key bias (the middle third of each qkv_bias) and
+    ROUNDOFF_GRADS have a gradient of zero in exact arithmetic: each path's
+    is bounded by F32_ROUNDOFF_REL of its tensor's query and value biases'
+    (of score_fc2.weight's), not compared."""
+    st, model = trainer.state, trainer.state.model
+    names = [n for n, _ in model.named_parameters()]
+    blocks = kernel_blocks(model)
+    salad = any(".salad." in n for n in names)
+    enc = trainer.objective.encode_targets(batch["target"], st.scaler)
+
+    def grads(kernels: bool, relus=None):
+        for m in blocks:
+            m.use_kernels = kernels
+        try:
+            with (salad_relus(relus) if relus is not None
+                  else contextlib.nullcontext()):
+                loss = trainer.objective.loss(
+                    model(trainer._normalize(batch["image"])), enc,
+                    batch["mask"])
+                return torch.autograd.grad(loss, list(model.parameters()))
+        finally:
+            for m in blocks:
+                m.use_kernels = True
+
+    with kept_batch_stats(model):
+        saved = _drop_rates(model, 0.0)
+        model.train()
+        try:
+            relus = SaladRelus() if salad else None
+            got = grads(True, relus)
+            want = grads(False, SaladRelus([x > 0 for x in relus.seen])
+                         if salad else None)
+        finally:
+            _drop_rates(model, saved)
+    cos, roundoff = {}, {}
+    by_name = dict(zip(names, zip(got, want)))
+    for n, (a, b) in by_name.items():
+        if n in ROUNDOFF_GRADS:
+            ref = by_name["backbone.salad.score_fc2.weight"][1].norm().item()
+            roundoff[n] = max(a.norm().item(), b.norm().item()) / ref
+            continue
+        if n.endswith("attn.qkv_bias"):
+            d = a.numel() // 3
+            real = torch.cat([b[:d], b[2 * d:]]).norm().item()
+            roundoff[n + "[key]"] = max(a[d:2 * d].norm().item(),
+                                        b[d:2 * d].norm().item()) / real
+            a, b = torch.cat([a[:d], a[2 * d:]]), torch.cat([b[:d],
+                                                             b[2 * d:]])
+        cos[n] = _cosine(a, b)
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    top = max(roundoff.items(), key=lambda kv: kv[1])
+    phase("train_grads", path=tag, dtype="float32", tensors=len(cos),
+          min_cosine=worst[0][1], worst=repr(worst), bound=F32_MIN_COSINE,
+          roundoff_tensors=len(roundoff), roundoff_max=repr(top),
+          roundoff_bound=F32_ROUNDOFF_REL,
+          salad_relus="the kernel path's units" if salad else "none")
+    check(worst[0][1] >= F32_MIN_COSINE,
+          f"{tag}: f32 kernel vs plain gradient cosine below "
+          f"{F32_MIN_COSINE}: {worst}")
+    check(top[1] <= F32_ROUNDOFF_REL,
+          f"{tag}: a roundoff-only gradient is not roundoff: {top}")
+
+
+def f32_vs_bf16_times(trainer, batch, card: str, tag: str) -> None:
+    """The step's times (`train_times`: ms/step, device-busy ms, idle
+    share, the top device ops) in f32, then with the backbone's compute
+    dtype set to bf16 on the same weights and batch (the bf16 kernels),
+    then f32 again: `[train_times] phase=f32 / bf16`."""
+    model = trainer.state.model
+    for dtype in (torch.float32, torch.bfloat16):
+        set_compute_dtype(model, dtype)
+        try:
+            train_times(trainer, batch, card, tag,
+                        phase_name=str(dtype).split(".")[-1])
+        finally:
+            set_compute_dtype(model, torch.float32)
+
+
+@contextlib.contextmanager
+def preset_as(name: str, cfg):
+    """`build_preset(name)` gives `cfg` inside the block (the CLIs build
+    their model from the preset)."""
+    from geovpr_torch.cli import presets
+    table = next(t for t in (presets.GEOPOSE_PRESETS, presets.ANGLE_PRESETS,
+                             presets.RETRIEVAL_PRESETS) if name in t)
+    old, table[name] = table[name], cfg
+    try:
+        yield
+    finally:
+        table[name] = old
+
+
+def f32_train_paths(device, card: str) -> dict:
+    """Part 2 of [f32_training]: `run_train` at full width in f32 on each
+    of F32_TRAIN_CASES, from seeded random weights on synthetic images and
+    targets, F32_TRAIN_EPOCHS epochs: the launches (every count set to 0
+    just before and read just after), every kernel call on an f32 stream,
+    finite losses and metrics, the run directory; the kernel path's
+    gradient against the plain path's (`f32_grads_vs_plain`); a resumed
+    run bit-equal to the unbroken one; remat bit-equal to no remat; a
+    falling loss on a fixed batch; the step's times beside the same
+    preset's bf16 step. On base-14 also `cli.evaluate --run-dir` on the
+    run, serving on K1.f32. Returns the launches by counter."""
+    from geovpr_torch.core.config import GeoposeConfig
+    from geovpr_torch.models.dinov2 import DINOV2_VARIANTS
+    from geovpr_torch.ops.mhsa import bwd_all_ok
+
+    total = {}
+    for tag, preset, variant, batch, n_train, n_val, salad in \
+            F32_TRAIN_CASES:
+        t0 = time.perf_counter()
+        cfg = f32_train_cfg(preset, variant, batch, salad)
+        spec = DINOV2_VARIANTS[variant]
+        blocks = spec["num_layers"]
+        geo = isinstance(cfg, GeoposeConfig)
+        rng = np.random.default_rng(SEED + 11)
+        size = cfg.data.image_size
+        train_src = synthetic_val(n_train, size, rng, angles=not geo)
+        val_src = synthetic_val(n_val, size, rng, angles=not geo)
+        bwd = ("fused_mhsa_bwd_all" if bwd_all_ok(spec["hidden_size"])
+               else "fused_mhsa_bwd_core")
+        with tempfile.TemporaryDirectory() as tmp:
+            with k8_dtypes() as seen:
+                trainer, launches = train_run(
+                    cfg, train_src, val_src, device, tmp, F32_TRAIN_EPOCHS,
+                    {"fused_mhsa_train_fwd": ((2 if salad else 1) * blocks,
+                                              0),
+                     bwd: (blocks, 0), "fused_mhsa_block": (0, blocks)}, tag)
+            phase("f32_train_dtypes", path=tag, seen=sorted(map(str, seen)))
+            check({dt for _, dt in seen} == {torch.float32},
+                  f"{tag}: a DINOv2 kernel ran on a non-f32 stream: {seen}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            tb = next(iter(_train_batches(train_src, device, batch)))
+            f32_grads_vs_plain(trainer, tb, tag)
+            train_resume(cfg, train_src, val_src, device, tmp, trainer, tag)
+            _remat_grads_equal(trainer, tb, tag)
+            if variant == "base-14" and not salad:
+                with preset_as(preset, cfg), k8_dtypes() as seen:
+                    got = evaluate_run_dir(preset, trainer.run_dir, val_src,
+                                           batch, blocks, device, tag)
+                check(seen == {("k1", torch.float32)},
+                      f"{tag}: evaluate --run-dir served on {seen}")
+                total["fused_mhsa_block"] = (total.get("fused_mhsa_block", 0)
+                                             + got["fused_mhsa_block"])
+            f32_vs_bf16_times(trainer, tb, card, tag)
+            del trainer
+            torch.cuda.empty_cache()
+        train_loss_falls(device, preset, F32_FALL_STEPS, cfg=cfg,
+                         dtype=torch.float32, tag=tag)
+        torch.cuda.empty_cache()
+        phase("f32_train_case", path=tag, seconds=time.perf_counter() - t0)
+    return total
+
+
+def f32_training_path(device, card: str) -> dict:
+    """The [f32_training] phase: the f32 training kernels against their
+    plain versions and timed (`f32_train_kernels_vs_plain`), then f32
+    DINOv2 training through `run_train` (`f32_train_paths`). Returns, for
+    the kernels line, the kernels' errors and times by (kind, shape) and
+    the paths' launches (`launches`, by counter)."""
+    t0 = time.perf_counter()
+    out = f32_train_kernels_vs_plain(device, card)
+    out["launches"] = f32_train_paths(device, card)
+    phase("f32_training", launches=out["launches"],
+          seconds=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6450,6 +7047,7 @@ def main() -> int:
 
     modes = int8_modes_path(device, card)
     f32s = f32_serving_path(device, card)
+    f32t = f32_training_path(device, card)
 
     rows = []
     for name, k, src, replaces, count, err in (
@@ -6569,7 +7167,25 @@ def main() -> int:
                      "source": "geovpr_torch/csrc/f32_serving.cu",
                      "replaces": replaces,
                      "launches": f32s["launches"].get(name, 0)
+                     + f32t["launches"].get(name, 0)
                      + rest_launches.get(f"{name}.f32", 0),
+                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
+    # the f32 forms of K8a (K1's f32 launches), K8b and K8c
+    # (csrc/f32_train.cu) at DINOv2-B/14's training shape (K8b at
+    # -L/14's, the one path that launches it), launches in [f32_training]'s
+    # paths
+    for name, k, line, src, shape in (
+            ("fused_mhsa_train_fwd", "K8a", 1094, "f32_serving", K8_MAIN),
+            ("fused_mhsa_bwd_core", "K8b", 1166, "f32_train", K8_SHAPES[1]),
+            ("fused_mhsa_bwd_all", "K8c", 1385, "f32_train", K8_MAIN)):
+        t = f32t[(k, shape)]
+        rows.append({"name": f"{name}.f32", "route": "cuda",
+                     "source": f"geovpr_torch/csrc/{src}.cu",
+                     "replaces": f"geovpr/ops/pallas_mhsa.py:{line}",
+                     "launches": f32t["launches"].get(name, 0),
                      "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
@@ -6582,7 +7198,8 @@ def main() -> int:
 
 
 PHASES = {"index_1m": index_1m_path, "train_disk": train_disk_path,
-          "int8_modes": int8_modes_path, "f32_serving": f32_serving_path}
+          "int8_modes": int8_modes_path, "f32_serving": f32_serving_path,
+          "f32_training": f32_training_path}
 
 
 def run_phases(names: list) -> int:

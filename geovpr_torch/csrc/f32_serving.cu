@@ -44,13 +44,11 @@
 //   over the row (mean, squared deviations, normalised store) that the
 //   warp's L1 serves after the first; kMerge reads the 4C row of a merged
 //   token from its four source rows.
-// - f32_gemm_kernel<kEpi>: C = A W (A (M, K) row-major, W (K, N) (in,
-//   out)), 128 x 128 tiles of 256 threads, 8 x 8 outputs a thread (two 4 x 4
-//   quadrants 64 apart, so the fragments are float4 reads without bank
-//   conflicts), k tiles of 8 double-buffered in shared memory with the next
-//   tile's global loads in registers during the current tile's FFMAs;
-//   epilogues: + bias (QKV), + bias + x (K4's out projection), (+ bias) *
-//   gamma + x (K1's), none (K6).
+// - f32_gemm_kernel<kEpi> (f32_gemm.cuh, shared with f32_train.cu): C =
+//   A W (A (M, K) row-major, W (K, N) (in, out)), 128 x 128 tiles of 256
+//   threads, 8 x 8 outputs a thread, k tiles of 8 double-buffered in shared
+//   memory; epilogues: + bias (QKV), + bias + x (K4's out projection), (+
+//   bias) * gamma + x (K1's), none (K6).
 // - f32_attn_kernel<DH, kMode>: a CTA one (query block, head, image) of
 //   K1, or one (window, head, query block) of K4 / K7, each warp FA_R
 //   query rows; key tiles of FA_KT rows through shared memory (K at a
@@ -65,30 +63,11 @@
 // allocate every buffer: qkv and ctx (which holds LN(x) until the
 // attention writes the context), K6's LN(merged).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "f32_gemm.cuh"
 
 namespace {
 
 constexpr float F32_LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float f32_warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float f32_warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float4 f32_ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 
 // ------------------------------------------------------------ LayerNorm --
 
@@ -167,129 +146,6 @@ cudaError_t launch_ln(const float* x, const float* scale, const float* bias,
   else
     f32_ln_kernel<false><<<grid, 32 * LN_WARPS, 0, s>>>(x, scale, bias, y,
                                                          rows, D, S, C, eps);
-  return cudaGetLastError();
-}
-
-// ----------------------------------------------------------------- GEMM --
-
-constexpr int GB_M = 128, GB_N = 128, GB_K = 8, GB_THREADS = 256;
-enum { EPI_NONE = 0, EPI_BIAS = 1, EPI_BIAS_RESID = 2, EPI_GAMMA_RESID = 3 };
-
-// out (M, N) = epilogue(A (M, K) W (K, N)); K % 8 == 0, N % 4 == 0, every
-// pointer 16-byte aligned. Rows past M read as zero and are not stored;
-// columns past N likewise, in whole float4s.
-template <int kEpi>
-__global__ void __launch_bounds__(GB_THREADS)
-f32_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                const float* __restrict__ bias,
-                const float* __restrict__ gamma,
-                const float* __restrict__ res, float* __restrict__ out,
-                int M, int N, int K) {
-  __shared__ __align__(16) float As[2][GB_K][GB_M];  // A tile, k-major
-  __shared__ __align__(16) float Bs[2][GB_K][GB_N];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
-  // this thread's global loads: A row ar, k columns ac..ac+3; W row br,
-  // columns bc..bc+3
-  const int ar = tid >> 1, ac = (tid & 1) * 4;
-  const int br = tid >> 5, bc = (tid & 31) * 4;
-  const bool a_in = m0 + ar < M, b_in = n0 + bc < N;
-  const float* a_src = A + (long long)(a_in ? m0 + ar : 0) * K + ac;
-  const float* b_src = W + (long long)br * N + (b_in ? n0 + bc : 0);
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  // this thread's outputs: rows ty*4 + i and 64 + ty*4 + i, columns tx*4 +
-  // j and 64 + tx*4 + j
-  const int ty = tid / 16, tx = tid % 16;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  float4 ra = a_in ? f32_ld4(a_src) : zero;
-  float4 rb = b_in ? f32_ld4(b_src) : zero;
-  auto stage = [&](int buf) {
-    As[buf][ac + 0][ar] = ra.x;
-    As[buf][ac + 1][ar] = ra.y;
-    As[buf][ac + 2][ar] = ra.z;
-    As[buf][ac + 3][ar] = ra.w;
-    *reinterpret_cast<float4*>(&Bs[buf][br][bc]) = rb;
-  };
-  stage(0);
-  __syncthreads();
-  const int ktiles = K / GB_K;
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < ktiles;
-    if (more) {
-      const int k0 = (kt + 1) * GB_K;
-      ra = a_in ? f32_ld4(a_src + k0) : zero;
-      rb = b_in ? f32_ld4(b_src + (long long)k0 * N) : zero;
-    }
-#pragma unroll
-    for (int k = 0; k < GB_K; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[cur][k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[cur][k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (more) stage(cur ^ 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int n = n0 + half * 64 + tx * 4;
-      if (n >= N) continue;
-      float v[4] = {acc[i][4 * half], acc[i][4 * half + 1],
-                    acc[i][4 * half + 2], acc[i][4 * half + 3]};
-      if (kEpi != EPI_NONE) {
-        const float4 b4 = f32_ld4(bias + n);
-        const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = __fadd_rn(v[j], bb[j]);
-      }
-      if (kEpi == EPI_GAMMA_RESID) {
-        const float4 g4 = f32_ld4(gamma + n);
-        const float gg[4] = {g4.x, g4.y, g4.z, g4.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = __fmul_rn(v[j], gg[j]);
-      }
-      if (kEpi == EPI_BIAS_RESID || kEpi == EPI_GAMMA_RESID) {
-        const float4 r4 = f32_ld4(res + (long long)m * N + n);
-        const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = __fadd_rn(v[j], rr[j]);
-      }
-      *reinterpret_cast<float4*>(out + (long long)m * N + n) =
-          make_float4(v[0], v[1], v[2], v[3]);
-    }
-  }
-}
-
-template <int kEpi>
-cudaError_t launch_gemm_f32(const float* A, const float* W, const float* bias,
-                            const float* gamma, const float* res, float* out,
-                            int M, int N, int K, cudaStream_t s) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % GB_K || N % 4 ||
-      (M + GB_M - 1) / GB_M > 65535)
-    return cudaErrorInvalidValue;
-  const dim3 grid((N + GB_N - 1) / GB_N, (M + GB_M - 1) / GB_M);
-  f32_gemm_kernel<kEpi><<<grid, GB_THREADS, 0, s>>>(A, W, bias, gamma, res,
-                                                     out, M, N, K);
   return cudaGetLastError();
 }
 

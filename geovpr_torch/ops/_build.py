@@ -164,6 +164,14 @@ def _declare(lib: ctypes.CDLL) -> None:
                                                                  ci, vp],
         "geovpr_vit_train_scratch_floats": [ci] * 3,
         "geovpr_vit_core_scratch_elems": [ci] * 3,
+        # the f32 forms of K8b and K8c (f32_train.cu): the bf16 entries'
+        # arguments
+        "geovpr_vit_f32_bwd_core": [vp] * 4 + [ci] * 4 + [cf, vp],
+        "geovpr_vit_f32_bwd_all": [vp] * 25 + [ci] * 4 + [cf, cf, vp],
+        "geovpr_vit_f32_bwd_all_parts": [vp] * 25 + [ci] * 4 + [cf, cf, ci,
+                                                               ci, vp],
+        "geovpr_vit_f32_scratch_floats": [ci] * 3,
+        "geovpr_vit_f32_core_scratch_floats": [ci] * 3,
         "geovpr_swin_train_init": [],
         "geovpr_vit_train_init": [],
         "geovpr_mhsa_max_dim": [],
@@ -174,6 +182,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "geovpr_patch_merge_init": [],
         "geovpr_window_attention_init": [],
         "geovpr_f32_serving_init": [],
+        "geovpr_f32_train_init": [],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -183,6 +192,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.geovpr_swin_train_scratch_floats.restype = ctypes.c_longlong
     lib.geovpr_vit_train_scratch_floats.restype = ctypes.c_longlong
     lib.geovpr_vit_core_scratch_elems.restype = ctypes.c_longlong
+    lib.geovpr_vit_f32_scratch_floats.restype = ctypes.c_longlong
+    lib.geovpr_vit_f32_core_scratch_floats.restype = ctypes.c_longlong
 
 
 @functools.lru_cache(maxsize=None)

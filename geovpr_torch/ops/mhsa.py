@@ -1,6 +1,7 @@
 """Fused pre-LN attention half-blocks and their plain versions: kernel K1
 (bf16 and f32 serving), kernel K2 (w8a8 serving) and, below, the training
-half-block's kernels K8a (forward), K8b and K8c (backward).
+half-block's kernels K8a (forward), K8b and K8c (backward), in bf16 and
+f32.
 
     out = x + gamma * (MHSA(LN(x)) @ Wo + bo)
 
@@ -426,7 +427,10 @@ fused_mhsa_block_int8.launches = 0
 # counterpart. K8a on the card is K1's launches (`csrc/mhsa.cu`), which
 # write qkv and ctx to device memory anyway: the training forward keeps
 # them. K8b and K8c are `csrc/mhsa_train.cu`; K1's attention and their p
-# recompute share `csrc/vit_attn.cuh`. The kernels and the plain versions
+# recompute share `csrc/vit_attn.cuh`. A model built with
+# compute_dtype="float32" trains on their f32 forms: K1's f32 launches
+# (`csrc/f32_serving.cu`) and `csrc/f32_train.cu`, chosen by x.dtype as
+# K1's wrapper chooses (`k8_dtype_error`). The kernels and the plain versions
 # round where JAX's masked bodies round (`_mhsa_train_kernel`,
 # `_attn_bwd_kernel`, `_mhsa_bwd_all_kernel`) and its split composition
 # (`:971-1012`) rounds.
@@ -437,8 +441,10 @@ def bwd_all_ok(d: int) -> bool:
     `pallas_mhsa.py:1226-1237`): its f32 dWqkv (D, 3D) and dWo (D, D)
     accumulators and six D vectors within 11 MiB. It holds at base-14 (D =
     768, K8c) and fails at large-14 (D = 1024), where the split backward runs
-    K8b. JAX's second clause, which rejects f32 activations at production
-    sizes, is not copied: the card trains in bf16 only."""
+    K8b, in bf16 and in f32 alike. JAX's second clause, which sends an f32
+    stream with NP D 4 > 512 KiB to the split route, is not copied: it is a
+    TPU VMEM limit (the whole stream resident in VMEM), and the card's K8c
+    streams its rows in either dtype."""
     return (4 * d * d + 6 * d) * 4 <= 11 * 1024 * 1024
 
 
@@ -594,9 +600,6 @@ def mhsa_train_bwd_reference(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv,
             dqkv.float().sum(0), dwo, dbo, dgamma)
 
 
-_F32_VECTORS = ("ln_scale", "ln_bias", "bqkv", "bo", "gamma")
-
-
 def k1_dtype_error(dtypes: dict) -> str | None:
     """K1's type rule on CUDA (name -> dtype of its tensors): x, wqkv and
     wo all bf16 (`csrc/mhsa.cu`) or all f32 (`csrc/f32_serving.cu`), the
@@ -604,24 +607,46 @@ def k1_dtype_error(dtypes: dict) -> str | None:
     return serving_dtype_error("K1", dtypes, ("x", "wqkv", "wo"))
 
 
+# the tensors of K8a-K8c that share one dtype: the stream, the matrices,
+# the residuals and the gradients
+_K8_STREAM = ("x", "wqkv", "wo", "qkv", "ctx", "g", "da")
+
+
 def k8_dtype_error(dtypes: dict) -> str | None:
-    """The type rule of the training kernels K8a-K8c on CUDA: bf16 stream,
-    residuals, gradients and matrices, f32 vectors (their f32 forms are
-    still to be ported). The message, or None where the rule holds."""
+    """The type rule of the training kernels K8a-K8c on CUDA (name -> dtype
+    of the tensors a wrapper takes): the stream, matrices, residuals and
+    gradients (`_K8_STREAM`) all bf16 (`csrc/mhsa.cu`,
+    `csrc/mhsa_train.cu`) or all f32 (`csrc/f32_serving.cu`,
+    `csrc/f32_train.cu`), every other tensor (the vectors) f32. The
+    message, naming the tensor that breaks the rule, or None where it
+    holds."""
+    stream = [k for k in _K8_STREAM if k in dtypes]
+    got = [dtypes[k] for k in stream]
+    want = max(got, key=got.count) if got else torch.bfloat16
+    if want not in (torch.bfloat16, torch.float32):
+        return (f"K8 takes {', '.join(stream)} all torch.bfloat16 or all "
+                f"torch.float32 on CUDA, got {want}")
+    for name in stream:
+        if dtypes[name] != want:
+            return (f"K8 takes {', '.join(stream)} in one dtype, "
+                    f"torch.bfloat16 or torch.float32, on CUDA: {name} is "
+                    f"{dtypes[name]}, the rest {want}")
     for name, t in dtypes.items():
-        want = torch.float32 if name in _F32_VECTORS else torch.bfloat16
-        if t != want:
-            return f"{name} must be {want} on CUDA, got {t}"
+        if name not in stream and t != torch.float32:
+            return f"K8 takes {name} in torch.float32 on CUDA, got {t}"
     return None
 
 
 def _check_cuda_args(tensors: dict, d: int, num_heads: int,
                      dtype_error=k8_dtype_error) -> None:
     """What K1 (`dtype_error=k1_dtype_error`) and the training kernels take
-    on CUDA: the types of `dtype_error`, all contiguous; head dim 64."""
+    on CUDA: the types of `dtype_error`, all contiguous and 16-byte aligned
+    (TMA, float4 loads); head dim 64."""
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned")
     err = dtype_error({k: t.dtype for k, t in tensors.items()})
     if err:
         raise TypeError(err)
@@ -643,11 +668,30 @@ def _check_residuals(x, tensors: dict, num_heads: int) -> None:
     check_devices(x, tensors)
 
 
-def _train_lib(device):
-    """The built library, with K8b's and K8c's shared-memory limits raised
-    on `device` (once per device)."""
+# the C entries of K8b and K8c by stream dtype: the core, the whole
+# backward, its launches one by one, the sizes of its scratch and of the
+# core's planes
+_K8_ENTRIES = {
+    torch.bfloat16: ("geovpr_vit_train_bwd_core", "geovpr_vit_train_bwd_all",
+                     "geovpr_vit_train_bwd_all_parts",
+                     "geovpr_vit_train_scratch_floats",
+                     "geovpr_vit_core_scratch_elems"),
+    torch.float32: ("geovpr_vit_f32_bwd_core", "geovpr_vit_f32_bwd_all",
+                    "geovpr_vit_f32_bwd_all_parts",
+                    "geovpr_vit_f32_scratch_floats",
+                    "geovpr_vit_f32_core_scratch_floats")}
+
+
+def _train_entries(device, dtype=torch.bfloat16) -> dict:
+    """The C entries of K8b's and K8c's form for a `dtype` stream
+    (`_K8_ENTRIES`) by their role: core, all, parts, scratch, core_scratch;
+    the built library's shared-memory limits of that form raised on
+    `device` first (once per device)."""
     from geovpr_torch.ops._build import library_on
-    return library_on(device.index, "geovpr_vit_train_init")
+    lib = library_on(device.index, "geovpr_f32_train_init"
+                     if dtype == torch.float32 else "geovpr_vit_train_init")
+    return dict(zip(("core", "all", "parts", "scratch", "core_scratch"),
+                    (getattr(lib, n) for n in _K8_ENTRIES[dtype])))
 
 
 def fused_mhsa_train_fwd(x: torch.Tensor, ln_scale: torch.Tensor,
@@ -656,8 +700,9 @@ def fused_mhsa_train_fwd(x: torch.Tensor, ln_scale: torch.Tensor,
                          bo: torch.Tensor, gamma: torch.Tensor,
                          num_heads: int, ln_eps: float = 1e-6):
     """K8a: out (B, N, D), qkv (B, N, 3D) and ctx (B, N, D). CPU tensors
-    run the plain version; CUDA tensors launch K1's kernels, keeping the
-    qkv and ctx they write as the residuals, or raise."""
+    run the plain version; CUDA tensors launch K1's kernels (bf16, or their
+    f32 form for an f32 set, `k8_dtype_error`), keeping the qkv and ctx they
+    write as the residuals, or raise."""
     got = _check(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, gamma, num_heads)
     if x.device.type == "cpu":
         return mhsa_train_fwd_reference(x, ln_scale, ln_bias, wqkv, bqkv, wo,
@@ -673,19 +718,22 @@ def fused_mhsa_train_fwd(x: torch.Tensor, ln_scale: torch.Tensor,
 fused_mhsa_train_fwd.launches = 0
 
 
-def _core_scratch(lib, b: int, n: int, num_heads: int, device):
-    """The core's scratch: the bf16 planes of bf16(p) and ds_b, (B H, N, N)
-    with rows padded to a multiple of 8, which its dq launch writes and its
-    dk/dv launch reads."""
-    return torch.empty(lib.geovpr_vit_core_scratch_elems(b, n, num_heads),
-                       dtype=torch.bfloat16, device=device)
+def _core_scratch(entries: dict, b: int, n: int, num_heads: int, device,
+                  dtype=torch.bfloat16):
+    """The core's scratch, which its dq launch writes and its dk/dv launch
+    reads: for a bf16 stream the bf16 planes of bf16(p) and ds_b, (B H, N,
+    N) with rows padded to a multiple of 8; for an f32 one the f32 planes of
+    p and ds dh^-0.5, rows padded to a multiple of 4. `entries` as
+    `_train_entries` gives them."""
+    return torch.empty(entries["core_scratch"](b, n, num_heads), dtype=dtype,
+                       device=device)
 
 
 def fused_mhsa_bwd_core(qkv: torch.Tensor, da: torch.Tensor,
                         num_heads: int) -> torch.Tensor:
     """K8b: qkv (B, N, 3D), da (B, N, D) -> dqkv (B, N, 3D). CPU tensors run
-    the plain version; CUDA tensors launch K8b (`k8b_shape_error`'s shapes)
-    or raise."""
+    the plain version; CUDA tensors launch K8b (`k8b_shape_error`'s shapes;
+    both bf16 or both f32, `k8_dtype_error`) or raise."""
     b, n, d3 = qkv.shape
     d = d3 // 3
     _check_residuals(da, {"qkv": qkv}, num_heads)
@@ -697,11 +745,11 @@ def fused_mhsa_bwd_core(qkv: torch.Tensor, da: torch.Tensor,
     err = k8b_shape_error(d, num_heads)
     if err:
         raise ValueError(err)
-    lib = _train_lib(qkv.device)
+    entries = _train_entries(qkv.device, qkv.dtype)
     dqkv = torch.empty_like(qkv)
-    pds = _core_scratch(lib, b, n, num_heads, qkv.device)
+    pds = _core_scratch(entries, b, n, num_heads, qkv.device, qkv.dtype)
     with torch.cuda.device(qkv.device):
-        rc = lib.geovpr_vit_train_bwd_core(
+        rc = entries["core"](
             qkv.data_ptr(), da.data_ptr(), dqkv.data_ptr(), pds.data_ptr(),
             b, n, d, num_heads, float((d // num_heads) ** -0.5),
             _stream(qkv.device))
@@ -723,12 +771,12 @@ _K8C_OUTS = ("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo", "dbo", "dgamma")
 
 
 def k8c_buffers(x: torch.Tensor, num_heads: int) -> dict:
-    """K8c's scratch and outputs for a CUDA stream x (B, N, D), by name: dy,
-    da (dh once the dh launch has run), h, dqkv, stats, pds (the core's
-    planes of bf16(p) and ds_b), part and the outputs `fused_mhsa_bwd_all`
-    returns."""
+    """K8c's scratch and outputs for a CUDA stream x (B, N, D), bf16 or
+    f32, by name: dy, da (dh once the dh launch has run), h, dqkv, stats,
+    pds (the core's planes, `_core_scratch`, in x.dtype), part and the
+    outputs `fused_mhsa_bwd_all` returns."""
     b, n, d = x.shape
-    lib = _train_lib(x.device)
+    entries = _train_entries(x.device, x.dtype)
     dev, m = x.device, b * n
 
     def f32(*shape):
@@ -738,8 +786,9 @@ def k8c_buffers(x: torch.Tensor, num_heads: int) -> dict:
         dy=torch.empty_like(x), da=torch.empty_like(x),
         h=torch.empty_like(x), dx=torch.empty_like(x),
         dqkv=torch.empty((b, n, 3 * d), dtype=x.dtype, device=dev),
-        stats=f32(m, 2), pds=_core_scratch(lib, b, n, num_heads, dev),
-        part=f32(lib.geovpr_vit_train_scratch_floats(b, n, d)),
+        stats=f32(m, 2),
+        pds=_core_scratch(entries, b, n, num_heads, dev, x.dtype),
+        part=f32(entries["scratch"](b, n, d)),
         dwqkv=f32(d, 3 * d), dbqkv=f32(3 * d), dwo=f32(d, d), dbo=f32(d),
         dgamma=f32(d), dls=f32(d), dlb=f32(d))
 
@@ -772,7 +821,7 @@ def fused_mhsa_bwd_all(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv, ctx,
     dL/dout (B, N, D). Returns dx (B, N, D) and dls, dlb, dwqkv, dbqkv,
     dwo, dbo, dgamma in f32. CPU tensors run the plain all-in-one form;
     CUDA tensors launch K8c (`k8c_shape_error`'s shapes: where
-    `bwd_all_ok`) or raise."""
+    `bwd_all_ok`; bf16 or f32, `k8_dtype_error`) or raise."""
     tensors = {"ln_scale": ln_scale, "ln_bias": ln_bias, "wqkv": wqkv,
                "wo": wo, "bo": bo, "gamma": gamma, "qkv": qkv, "ctx": ctx,
                "g": g}
@@ -787,8 +836,8 @@ def fused_mhsa_bwd_all(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv, ctx,
     args = _k8c_args(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv, ctx, g,
                      num_heads, ln_eps, bufs)
     with torch.cuda.device(x.device):
-        rc = _train_lib(x.device).geovpr_vit_train_bwd_all(
-            *args, _stream(x.device))
+        rc = _train_entries(x.device, x.dtype)["all"](*args,
+                                                       _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"vit_train_bwd_all launch failed: CUDA error "
                            f"{rc}")
@@ -807,7 +856,7 @@ def k8c_launch_part(part: int, x, ln_scale, ln_bias, wqkv, wo, bo, gamma,
     args = _k8c_args(x, ln_scale, ln_bias, wqkv, wo, bo, gamma, qkv, ctx, g,
                      num_heads, ln_eps, bufs)
     with torch.cuda.device(x.device):
-        rc = _train_lib(x.device).geovpr_vit_train_bwd_all_parts(
+        rc = _train_entries(x.device, x.dtype)["parts"](
             *args, part, part, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"vit_train_bwd_all launch failed: CUDA error "

@@ -1592,6 +1592,115 @@ def test_dinov2_train_launches_per_step(cuda, variant):
                for g in grads)
 
 
+_K8_F32_SHAPES = [(2, 257, 768, 12), (3, 50, 384, 6), (2, 17, 64, 1),
+                  (2, 257, 1024, 16)]
+
+
+@pytest.mark.parametrize("shape", _K8_F32_SHAPES)
+def test_k8_f32_matches_plain_version(cuda, shape):
+    """chip_smoke's [f32_training] kernel check at small batches: K8a.f32,
+    K8b.f32 and (where `bwd_all_ok` holds) K8c.f32, whole and launch by
+    launch, against their plain f32 versions within F32_BRANCH_REL; one
+    launch each (N = 17 and 50 end inside a 64-row tile, N = 257 on a
+    one-key tile)."""
+    from chip_smoke import f32_train_kernels_vs_plain
+    from geovpr_torch.ops import mhsa as mh
+    fns = (mh.fused_mhsa_train_fwd, mh.fused_mhsa_bwd_core,
+           mh.fused_mhsa_bwd_all)
+    before = [f.launches for f in fns]
+    k8c = mh.bwd_all_ok(shape[2])
+    f32_train_kernels_vs_plain(cuda, k8a=(shape,), k8b=(shape,),
+                               k8c=(shape,) if k8c else ())
+    # K8c.f32 once whole in the check and once after its launches one by
+    # one
+    assert [f.launches - b for f, b in zip(fns, before)] == \
+        [1, 1, 2 if k8c else 0]
+
+
+def test_k8c_f32_launches_one_by_one_equal_the_whole(cuda):
+    """K8c.f32's launches run alone (`k8c_launch_part`, which chip_smoke.py
+    times) leave one whole call's outputs, bit for bit, and count no
+    launch: its sums have a fixed order, so repeated calls agree too."""
+    from chip_smoke import f32_train_case
+    from geovpr_torch.ops import mhsa as mh
+    args, g = f32_train_case((2, 257, 768, 12), cuda)
+    x, ls, lb, wqkv, bqkv, wo, bo, gamma = args[:8]
+    with torch.no_grad():
+        res = mh.fused_mhsa_train_fwd(*args[:8], 12)
+        ba = (x, ls, lb, wqkv, wo, bo, gamma, res[1], res[2], g, 12)
+        whole = mh.fused_mhsa_bwd_all(*ba)
+        again = mh.fused_mhsa_bwd_all(*ba)
+        bufs = mh.k8c_buffers(x, 12)
+        before = mh.fused_mhsa_bwd_all.launches
+        for part in range(len(mh.K8C_PARTS)):
+            mh.k8c_launch_part(part, *ba, bufs=bufs)
+        torch.cuda.synchronize()
+    assert mh.fused_mhsa_bwd_all.launches == before
+    assert bufs["pds"].dtype == torch.float32
+    for name, want, rep in zip(("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo",
+                                "dbo", "dgamma"), whole, again):
+        assert want.dtype == torch.float32
+        assert torch.equal(bufs[name], want) and torch.equal(rep, want), name
+
+
+@pytest.mark.parametrize("variant", ["base", "large"])
+def test_dinov2_f32_train_launches_per_step(cuda, variant):
+    """A two-block DINOv2 built with compute dtype f32 under grad: one
+    K8a.f32 and one K8c.f32 (D = 768) or K8b.f32 (D = 1024) per block, each
+    on an f32 stream, no K1, and finite f32 gradients for every
+    parameter."""
+    from chip_smoke import k8_dtypes
+    from geovpr_torch.models.dinov2 import DinoV2
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.ops import mhsa as mh
+
+    d, h = (768, 12) if variant == "base" else (1024, 16)
+    model = DinoV2(hidden_size=d, num_layers=2, num_heads=h, image_size=42,
+                   dtype=torch.float32, param_dtype=torch.float32)
+    init_weights_(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).train()
+    x = torch.randn(2, 42, 42, 3, device=cuda)
+    fns = (mh.fused_mhsa_train_fwd, mh.fused_mhsa_bwd_all,
+           mh.fused_mhsa_bwd_core, mh.fused_mhsa_block)
+    before = [f.launches for f in fns]
+    with k8_dtypes() as seen:
+        loss = model(x).tokens.float().square().sum()
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+    want = [2, 2, 0, 0] if variant == "base" else [2, 0, 2, 0]
+    assert [f.launches - b for f, b in zip(fns, before)] == want
+    assert seen == {("k1", torch.float32), ("k8bc", torch.float32)}
+    assert all(bool(torch.isfinite(g).all()) and g.dtype == torch.float32
+               for g in grads)
+
+
+def test_k8_f32_refuses_a_mixed_set_on_cuda(cuda):
+    """An f32 stream with bf16 matrices, residuals or gradients (or the
+    other way round) raises TypeError naming the tensor, before any
+    launch: no f32 CUDA call gives way to the plain version."""
+    from chip_smoke import f32_train_case
+    from geovpr_torch.ops import mhsa as mh
+    args, g = f32_train_case((1, 20, 128, 2), cuda)
+    x, ls, lb, wqkv, bqkv, wo, bo, gamma = args[:8]
+    fns = (mh.fused_mhsa_train_fwd, mh.fused_mhsa_bwd_core,
+           mh.fused_mhsa_bwd_all)
+    before = [f.launches for f in fns]
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="wqkv is torch.bfloat16"):
+            mh.fused_mhsa_train_fwd(x, ls, lb, wqkv.bfloat16(), bqkv, wo, bo,
+                                    gamma, 2)
+        res = mh.mhsa_train_fwd_reference(*args[:8], 2)
+        with pytest.raises(TypeError, match="da is torch.bfloat16"):
+            mh.fused_mhsa_bwd_core(res[1], g.bfloat16(), 2)
+        with pytest.raises(TypeError, match="g is torch.bfloat16"):
+            mh.fused_mhsa_bwd_all(x, ls, lb, wqkv, wo, bo, gamma, res[1],
+                                  res[2], g.bfloat16(), 2)
+        with pytest.raises(TypeError, match="bo"):
+            mh.fused_mhsa_bwd_all(x, ls, lb, wqkv, wo, bo.bfloat16(), gamma,
+                                  res[1], res[2], g, 2)
+    assert [f.launches for f in fns] == before
+
+
 @pytest.mark.parametrize("shift", [0, 3])
 def test_window7_int8_half_on_the_card(cuda, shift):
     """The window-7 w8a8 attention half (torch ops, no kernel of its own)
