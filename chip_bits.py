@@ -15,9 +15,12 @@ GEOVPR_INT8_QK nor GEOVPR_INT8_PV is set) at stage 0 (B=16), K6 at C =
 128, K9a (the Swin training forward, its y, qkv, ctx and p) and K9b (the
 core backward) at stages 0 and 3 and K9c (the whole backward) at stage 0
 (B=16), K8b and K8c (the ViT half-block's backward) at 16x257x768x12,
-K7 (on pre-split windows) at Swin-T-224's stage 0, and the Swin-T-224
+K7 (on pre-split windows) at Swin-T-224's stage 0, the Swin-T-224
 heading model (preset swin_t224_sincos_gemini, bf16; K7 and K6 in it) on
-chip_smoke.py's 64 seed-0 images: its pooled features and predictions.
+chip_smoke.py's 64 seed-0 images: its pooled features and predictions;
+and the f32 forms: K1.f32 at 64x257x768x12, K4.f32 at Swin-B-384's stage
+0 (B=16), K6.f32 at C = 128, K7.f32's raster mode at Swin-T-224's stage 0
+(B=64), K8a.f32, K8b.f32 and K8c.f32 at 16x257x768x12.
 K2 is not among them: its attention sums in
 another order than the first port's. The
 inputs are saved beside the outputs and compared too, so a change in how
@@ -38,6 +41,7 @@ REPO = Path(__file__).resolve().parent
 K1_SHAPES = ((64, 257, 768, 12), (2, 1370, 768, 12))
 SWIN_SHAPES = ((16, 128, 4, 96, 12, 6), (16, 1024, 32, 12, 12, 0))
 K7_SHAPE = (1024, 3, 49, 64)
+K7_RASTER_SHAPE = (64, 96, 3, 56, 7, 3)
 K9_SHAPE = (16, 128, 4, 96, 12, 6)
 K9_STAGE3 = (16, 1024, 32, 12, 12, 0)
 K8_SHAPE = (16, 257, 768, 12)
@@ -57,7 +61,8 @@ def run(out_path: str) -> None:
                                              fused_swin_attn_bwd_all,
                                              fused_swin_attn_bwd_core,
                                              fused_swin_attn_train_fwd)
-    from geovpr_torch.ops.window_attention import window_attention_kernel
+    from geovpr_torch.ops.window_attention import (window_attention_kernel,
+                                                   window_attention_raster)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -126,6 +131,32 @@ def run(out_path: str) -> None:
         outs = mh.fused_mhsa_bwd_all(*cs._k8_bwd_args(a, (None, qkv, ctx), g,
                                                       K8_SHAPE[3]))
         res.update({f"K8c.{k}": o for k, o in zip(cs.K8_OUTS, outs)})
+        f32 = torch.float32
+        args = cs.f32_k1_case(K1_SHAPES[0], dev)
+        res["input.K1.f32.x"] = args[0]
+        res["K1.f32.out"] = mh.fused_mhsa_block(*args)
+        x, blk = cs.swin_block_case(SWIN_SHAPES[0], dev, x_scale=1e-2,
+                                    dtype=f32)
+        res["input.K4.f32.x"] = x
+        res["K4.f32.out"] = fused_swin_attn_block(*cs.k4_args(x, blk))
+        m = cs.merge_case((16, 128, 96), dev, dtype=f32)
+        res["input.K6.f32.x"] = m[0]
+        res["K6.f32.out"] = fused_patch_merge(*m)
+        args = cs.k7_raster_case(K7_RASTER_SHAPE, dev, dtype=f32)
+        res["input.K7.f32.qkv"] = args[0]
+        res["K7.f32.out"] = window_attention_raster(*args)
+        args, g = cs.f32_train_case(K8_SHAPE, dev)
+        h = K8_SHAPE[3]
+        res["input.K8.f32.x"] = args[0]
+        out, qkv, ctx = mh.fused_mhsa_train_fwd(*args[:8], h, 1e-6)
+        res.update({"K8a.f32.out": out, "K8a.f32.qkv": qkv,
+                    "K8a.f32.ctx": ctx})
+        res["K8b.f32.dqkv"] = mh.fused_mhsa_bwd_core(qkv, g, h)
+        x, ls, lb, wqkv, _, wo, bo, gamma = args[:8]
+        outs = mh.fused_mhsa_bwd_all(x, ls, lb, wqkv, wo, bo, gamma, qkv, ctx,
+                                     g, h, 1e-6)
+        res.update({f"K8c.f32.{k}": o for k, o in zip(cs.K8_OUTS, outs)})
+        del args, g, x, qkv, ctx, outs
         q, k, v, bias, mask = cs.k7_case(K7_SHAPE, dev)
         res["input.K7.q"] = q
         res["K7.out"] = window_attention_kernel(q, k, v, bias, mask)

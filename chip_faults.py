@@ -33,16 +33,19 @@ sum only, its dWqkv product skipping the 16-row tail of M = 16 x 257 =
 only; the f32 forms (`csrc/f32_serving.cu`): K1 without the mask of the
 keys past N, K4 without the shift mask (in the raster window attention
 that K7's f32 raster mode shares), K6 with x10 and x01 swapped, K7
-counting the pad keys past N = 49; `csrc/f32_train.cu`: K8b without the
-mask of the keys past N, K8c with one row chunk left out of dWqkv's
-partial sums),
+counting the pad keys past N = 49, K9a's training attention without the
+shift mask or storing p before its normalisation; `csrc/f32_train.cu`:
+K8b without the mask of the keys past N, K8c with one row chunk left out
+of dWqkv's partial sums, K9b's core without the sum of dp * p, K9c with
+dbias summed from one window's ds only),
 builds that copy and runs the chip_smoke.py check of that kernel
 (`int8_kernels_vs_plain` for K2/K3 and the int8 GEMM,
 `swin_kernels_vs_plain` for K4/K5/K6,
 `k7_kernels_vs_plain` for K7, `k9_kernels_vs_plain` for K9a-K9c,
 `k8_kernels_vs_plain` for K1's GEMM and K8a-K8c, `f32_kernels_vs_plain`
-for the f32 serving forms, `f32_train_kernels_vs_plain` for the f32
-training forms) against it at one shape. Arguments, where given, pick
+for the f32 serving forms, `f32_train_kernels_vs_plain` and
+`f32_k9_kernels_vs_plain` for the f32 training forms) against it at one
+shape. Arguments, where given, pick
 the faults whose names start with them (`python3 chip_faults.py K8`,
 `python3 chip_faults.py f32`). It prints the check's error line for
 the faulty kernel and whether the check rejected it, and exits non-zero
@@ -72,6 +75,9 @@ _K8 = "cs.k8_kernels_vs_plain(dev, shapes=((16, 257, 768, 12),))"
 _F32 = ("cs.f32_kernels_vs_plain(dev, k1={k1!r}, k4={k4!r}, k6={k6!r}, "
         "k7={k7!r})")
 _F32T = "cs.f32_train_kernels_vs_plain(dev, k8a=(), k8b={k8b!r}, k8c={k8c!r})"
+_F32K9 = ("cs.f32_k9_kernels_vs_plain(dev, k9a={k9a!r}, k9b={k9b!r}, "
+          "k9c={k9c!r})")
+_STAGE3 = (16, 1024, 32, 12, 12, 0)  # Swin-B-384 stage 3, B=16
 
 # name -> (source file, [(original text, faulty text)], check to run)
 FAULTS = {
@@ -216,6 +222,22 @@ FAULTS = {
             ("reduce(st, pt, S1, (size_t)D * 3 * D,",
              "reduce(st, pt, S1 - 1, (size_t)D * 3 * D,")],
         _F32T.format(k8b=(), k8c=((16, 257, 768, 12),))),
+    "f32 K9a shift mask dropped": ("f32_serving.cu", [
+        ("if (a.shift && qlab[r] != klab) x = __fadd_rn(x, kMaskL2);",
+         "if (a.shift && qlab[r] != klab && kMode != FA_TRAIN)\n"
+         "                  x = __fadd_rn(x, kMaskL2);")],
+        _F32K9.format(k9a=(_STAGE0,), k9b=(), k9c=())),
+    "f32 K9a stores p unnormalised": ("f32_serving.cu", [
+        ("r) * a.N + key] = p[r];",
+         "r) * a.N + key] = exp2f(fminf(s[r], 100.f));")],
+        _F32K9.format(k9a=(_STAGE0,), k9b=(), k9c=())),
+    "f32 K9b sum of dp * p dropped": ("f32_train.cu", [
+        ("    sub = f32_warp_sum(sub);\n", "    sub = 0.f;\n")],
+        _F32K9.format(k9a=(), k9b=(_STAGE3,), k9c=())),
+    "f32 K9c dbias from one CTA's partial": ("f32_train.cu", [
+        ("return f32_colsum(st, part, bw, hnn, part + (size_t)bw * hnn, dbias);",
+         "return f32_colsum(st, part, 1, hnn, part + (size_t)bw * hnn, dbias);")],
+        _F32K9.format(k9a=(), k9b=(), k9c=(_STAGE0,))),
 }
 
 _RUN = """

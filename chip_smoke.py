@@ -2317,23 +2317,24 @@ K9_SHAPES = ((16, 128, 4, 96, 12, 6), (16, 256, 8, 48, 12, 6),
 K9_MAIN = K9_SHAPES[0]
 
 
-def k9_case(shape, device, seed=SEED):
-    """K9's operands at one stage: x at K1_X_SCALE (bf16), LN vectors and
-    biases off their init, bf16 matrices at fan-in scale, a table drawn
-    N(0, 1) (zero at init), and an upstream gradient g drawn N(0, 1)."""
+def k9_case(shape, device, seed=SEED, dtype=torch.bfloat16):
+    """K9's operands at one stage: x at K1_X_SCALE (in `dtype`, the
+    stream's), LN vectors and biases off their init, matrices at fan-in
+    scale (in `dtype`), a table drawn N(0, 1) (zero at init), and an
+    upstream gradient g drawn N(0, 1) (in `dtype`)."""
     b, c, h, res, win, shift = shape
     gen = torch.Generator().manual_seed(seed + c + shift)
 
     def r(*s, scale=1.0):
         return torch.randn(*s, generator=gen) * scale
 
-    args = dict(x=r(b, res * res, c, scale=K1_X_SCALE).bfloat16(),
+    args = dict(x=r(b, res * res, c, scale=K1_X_SCALE).to(dtype),
                 ln_scale=1 + r(c, scale=0.1), ln_bias=r(c, scale=0.1),
-                wqkv=r(c, 3 * c, scale=c ** -0.5).bfloat16(),
+                wqkv=r(c, 3 * c, scale=c ** -0.5).to(dtype),
                 bqkv=r(3 * c, scale=0.1),
-                wo=r(c, c, scale=c ** -0.5).bfloat16(), bo=r(c, scale=0.1),
+                wo=r(c, c, scale=c ** -0.5).to(dtype), bo=r(c, scale=0.1),
                 table=r((2 * win - 1) ** 2, h))
-    g = r(b, res * res, c).bfloat16()
+    g = r(b, res * res, c).to(dtype)
     geom = dict(num_heads=h, resolution=res, window=win, shift=shift)
     return ({k: v.to(device) for k, v in args.items()}, g.to(device), geom)
 
@@ -2482,15 +2483,14 @@ def k9_bounds(kind: str, shape) -> dict:
 def k9_kernel_times(device, card: str, shape=K9_MAIN,
                     names=("K9a", "K9b", "K9c")) -> dict:
     """K9a, K9b and K9c (those of `names`) at one Swin-B-384 stage (B=16;
-    stage 0 by default), each in turns with
-    its plain version and its library yardstick (`library_k4`'s forward for
-    K9a and its whole backward for K9c, each with K4's residual add, one
-    elementwise pass; for K9b the backward of F.scaled_dot_product_attention
-    alone, on the same windows and float mask), beside its bound."""
-    import torch.nn.functional as F
-
+    stage 0 by default), each in turns with its plain version and its
+    library yardstick (`library_k4`'s forward for K9a and its whole
+    backward for K9c, each with K4's residual add, one elementwise pass;
+    for K9b the backward of F.scaled_dot_product_attention alone, on the
+    same windows and float mask), beside its bound, all three in CUDA
+    graphs (`interleaved_graph_ms`; the autograd yardsticks captured on
+    the stream their forward ran on, `library_backward`)."""
     from geovpr_torch.ops import swin_block as sb
-    from geovpr_torch.ops.window_attention import to_windows
 
     a, g, geom = k9_case(shape, device)
     geo = tuple(geom.values())
@@ -2501,69 +2501,90 @@ def k9_kernel_times(device, card: str, shape=K9_MAIN,
         _, qkv, ctx, p = sb.fused_swin_attn_train_fwd(*fa)
     ba = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["wo"], qkv, ctx,
           p, g, *geo, 1e-5)
-    b, c = shape[0], shape[1]
-    leaves = [t.detach().requires_grad_() for t in fa[:8]]
-    qkv_w = to_windows(qkv, *geo[1:])
-    n = qkv_w.shape[1]
-    qh, kh, vh = (t.reshape(-1, n, geo[0], c // geo[0]).transpose(1, 2)
-                  .contiguous().requires_grad_()
-                  for t in qkv_w.split(c, dim=-1))
-    lib_mask = library_mask(a["table"], geo[0], b, *geo[1:])
-    with torch.enable_grad():
-        y_lib = library_k4(*leaves, *geo)
-        o_lib = F.scaled_dot_product_attention(qh, kh, vh,
-                                               attn_mask=lib_mask)
-    g_o = torch.randn(o_lib.shape, device=device, dtype=o_lib.dtype)
-    cases = {
-        "K9a": {"kernel": lambda: sb.fused_swin_attn_train_fwd(*fa),
-                "plain": lambda: sb._train_plain_fwd(*fa),
-                "library": lambda: library_k4(*fa[:8], *geo)},
-        "K9b": {"kernel": lambda: sb.fused_swin_attn_bwd_core(qkv, p, g,
-                                                              *geo),
-                "plain": lambda: sb.swin_attn_core_bwd_reference(
-                    sb._raster_to_rows(qkv, *geo[1:]), p,
-                    sb._raster_to_rows(g, *geo[1:]), geo[0]),
-                "library": lambda: torch.autograd.grad(
-                    o_lib, (qh, kh, vh), g_o, retain_graph=True)},
-        "K9c": {"kernel": lambda: sb.fused_swin_attn_bwd_all(*ba),
-                "plain": lambda: sb._train_plain_bwd(*ba, split=False),
-                "library": lambda: torch.autograd.grad(
-                    y_lib, leaves, g, retain_graph=True)}}
+    stream = torch.cuda.Stream()
     for name in names:
-        fns = cases[name]
-        with torch.no_grad() if name == "K9a" else torch.enable_grad():
-            t = interleaved_ms(fns, iters=5)
+        fns = k9_timing_cases(name, shape, fa, ba, g, stream)
+        with torch.no_grad():
+            t = interleaved_graph_ms(fns, F32_TIME_ITERS, stream)
         out[name] = dict(ms=t["kernel"][0], plain_ms=t["plain"][0],
                          library_ms=t["library"][0],
                          runs={k: v[1] for k, v in t.items()},
                          **k9_bounds(name, shape))
         phase("kernel_time", card=repr(card), name=name,
               shape="B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape),
-              **out[name])
+              timed="cuda_graph", **out[name])
+        del fns
     return out
 
 
-def k9a_part_bounds(part: str, shape) -> dict:
+def k9_timing_cases(name: str, shape, fa, ba, g, stream) -> dict:
+    """kernel, plain and library of K9a, K9b or K9c on the forward
+    arguments `fa` and the backward arguments `ba` (the residuals of a
+    forward; g the upstream gradient, K9b's da), in their dtype: the
+    library yardsticks `library_k4`'s forward (K9a), the backward of
+    F.scaled_dot_product_attention on the windows of qkv with the bias
+    [+ mask] as a float mask (K9b) and the autograd of `library_k4` (K9c),
+    the backward ones capturable on `stream` (`library_backward`)."""
+    import torch.nn.functional as F
+
+    from geovpr_torch.ops import swin_block as sb
+    from geovpr_torch.ops.window_attention import to_windows
+
+    geo = fa[8:12]
+    if name == "K9a":
+        return {"kernel": lambda: sb.fused_swin_attn_train_fwd(*fa),
+                "plain": lambda: sb._train_plain_fwd(*fa),
+                "library": lambda: library_k4(*fa[:8], *geo)}
+    qkv, p = ba[5], ba[7]
+    if name == "K9b":
+        c = qkv.shape[-1] // 3
+        qkv_w = to_windows(qkv, *geo[1:])
+        n = qkv_w.shape[1]
+        qh, kh, vh = (t.reshape(-1, n, geo[0], c // geo[0]).transpose(1, 2)
+                      .contiguous().requires_grad_()
+                      for t in qkv_w.split(c, dim=-1))
+        mask = library_mask(fa[7], geo[0], shape[0], *geo[1:], qkv.dtype)
+        g_o = torch.randn(qh.shape, device=qkv.device, dtype=qkv.dtype)
+        return {"kernel": lambda: sb.fused_swin_attn_bwd_core(qkv, p, g,
+                                                              *geo),
+                "plain": lambda: sb.swin_attn_core_bwd_reference(
+                    sb._raster_to_rows(qkv, *geo[1:]), p,
+                    sb._raster_to_rows(g, *geo[1:]), geo[0]),
+                "library": library_backward(
+                    lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=mask), (qh, kh, vh), g_o,
+                    stream)}
+    leaves = [t.detach().requires_grad_() for t in fa[:8]]
+    return {"kernel": lambda: sb.fused_swin_attn_bwd_all(*ba),
+            "plain": lambda: sb._train_plain_bwd(*ba, split=False),
+            "library": library_backward(lambda: library_k4(*leaves, *geo),
+                                        leaves, g, stream)}
+
+
+def k9a_part_bounds(part: str, shape, peak=PEAK_BF16, w=2) -> dict:
     """The least time of one of K9a's four launches at (B, C, H, S, w,
     shift), M = B S^2 rows: its inputs read once and its outputs written
-    once over 3.35 TB/s, against its products at the bf16 peak or its f32
-    operations (the LayerNorm) at 67 TFLOP/s."""
+    once (`w`-byte streams: bf16, or 4 for K9a.f32, which writes no scaled
+    q copy) over 3.35 TB/s, against its products at `peak` (the bf16 peak,
+    or K9a.f32's f32 one) or its f32 operations (the LayerNorm) at 67
+    TFLOP/s."""
     b, c, h, res, win, _ = shape
     m, n = b * res * res, win * win
     bw = m // n
     if part == "layernorm":      # x, ln_scale, ln_bias -> h
-        return part_bound(8 * m * c, PEAK_F32, 2 * m * c * 2 + 2 * c * 4)
-    if part == "qkv_gemm":       # h, Wqkv, bqkv -> qkv, the scaled q copy
-        return part_bound(6 * m * c * c, PEAK_BF16,
-                          (m * c + 3 * c * c + 4 * m * c) * 2 + 3 * c * 4)
-    if part == "attention":      # q copy, k, v, table -> ctx, p
+        return part_bound(8 * m * c, PEAK_F32, 2 * m * c * w + 2 * c * 4)
+    if part == "qkv_gemm":       # h, Wqkv, bqkv -> qkv [, the scaled q copy]
+        outs = 4 if w == 2 else 3
+        return part_bound(6 * m * c * c, peak,
+                          (m * c + 3 * c * c + outs * m * c) * w + 3 * c * 4)
+    if part == "attention":      # q [copy], k, v, table -> ctx, p
         att = 2 * bw * h * n * n * (c // h)
-        return part_bound(2 * att, PEAK_BF16,
-                          4 * m * c * 2 + bw * h * n * n * 2
+        return part_bound(2 * att, peak,
+                          4 * m * c * w + bw * h * n * n * w
                           + (2 * win - 1) ** 2 * h * 4)
     # ctx, Wo, bo -> y
-    return part_bound(2 * m * c * c, PEAK_BF16,
-                      (2 * m * c + c * c) * 2 + c * 4)
+    return part_bound(2 * m * c * c, peak,
+                      (2 * m * c + c * c) * w + c * 4)
 
 
 def k9a_part_times(device, card: str, shapes=K9_SHAPES) -> dict:
@@ -2592,43 +2613,41 @@ def k9a_part_times(device, card: str, shapes=K9_SHAPES) -> dict:
     return out
 
 
-def k9c_part_bounds(part: str, shape) -> dict:
+def k9c_part_bounds(part: str, shape, peak=PEAK_BF16, w=2) -> dict:
     """The least time of one of K9c's launches (with the reduce of its
     partial sums) at (B, C, H, S, w, shift), M = B S^2 rows: its inputs
-    read once and its outputs written once (bf16 streams, f32 vectors and
-    weight gradients) over 3.35 TB/s, against its products at the bf16
-    peak or its f32 operations (column sums, the LayerNorm recompute and
-    VJP) at 67 TFLOP/s."""
+    read once and its outputs written once (`w`-byte streams: bf16, or 4
+    for K9c.f32; f32 vectors and weight gradients) over 3.35 TB/s, against
+    its products at `peak` (the bf16 peak, or K9c.f32's f32 one) or its f32
+    operations (column sums, the LayerNorm recompute and VJP) at 67
+    TFLOP/s."""
     b, c, h, res, win, _ = shape
     m, n = b * res * res, win * win
     bw = m // n
     if part == "da":             # g, Wo -> da
-        return part_bound(2 * m * c * c, PEAK_BF16,
-                          2 * m * c * 2 + c * c * 2)
+        return part_bound(2 * m * c * c, peak, 2 * m * c * w + c * c * w)
     if part == "dwo":            # ctx, g -> dWo (f32)
-        return part_bound(2 * m * c * c, PEAK_BF16,
-                          2 * m * c * 2 + c * c * 4)
+        return part_bound(2 * m * c * c, peak, 2 * m * c * w + c * c * 4)
     if part == "dbo":            # g -> dbo
-        return part_bound(m * c, PEAK_F32, m * c * 2 + c * 4)
+        return part_bound(m * c, PEAK_F32, m * c * w + c * 4)
     if part == "core":           # qkv, p, da -> dqkv, dbias
         att = 2 * bw * h * n * n * (c // h)
-        return part_bound(4 * att, PEAK_BF16, (3 * m * c + m * c
-                                               + 3 * m * c) * 2
-                          + bw * h * n * n * 2 + h * n * n * 4)
+        return part_bound(4 * att, peak, (3 * m * c + m * c + 3 * m * c) * w
+                          + bw * h * n * n * w + h * n * n * 4)
     if part == "ln_rows":        # x, ln_scale, ln_bias -> h, stats
         return part_bound(8 * m * c, PEAK_F32,
-                          2 * m * c * 2 + 2 * c * 4 + m * 8)
+                          2 * m * c * w + 2 * c * 4 + m * 8)
     if part == "dwqkv":          # h, dqkv -> dWqkv (f32)
-        return part_bound(6 * m * c * c, PEAK_BF16,
-                          4 * m * c * 2 + 3 * c * c * 4)
+        return part_bound(6 * m * c * c, peak,
+                          4 * m * c * w + 3 * c * c * 4)
     if part == "dbqkv":          # dqkv -> dbqkv
-        return part_bound(3 * m * c, PEAK_F32, 3 * m * c * 2 + 3 * c * 4)
+        return part_bound(3 * m * c, PEAK_F32, 3 * m * c * w + 3 * c * 4)
     if part == "dh":             # dqkv, Wqkv -> dh
-        return part_bound(6 * m * c * c, PEAK_BF16,
-                          4 * m * c * 2 + 3 * c * c * 2)
+        return part_bound(6 * m * c * c, peak,
+                          4 * m * c * w + 3 * c * c * w)
     # x, dh, stats, ln_scale -> dx, dls, dlb
     return part_bound(10 * m * c, PEAK_F32,
-                      3 * m * c * 2 + m * 8 + 3 * c * 4)
+                      3 * m * c * w + m * 8 + 3 * c * 4)
 
 
 def k9c_part_times(device, card: str, shapes=K9_SHAPES[:3]) -> dict:
@@ -2797,10 +2816,10 @@ def k8_kernel_times(device, card: str, shape=K8_MAIN,
     (B=16; DINOv2-B/14's by default), each in turns with its plain version
     and its library yardstick (`library_k1`'s forward for K8a and its whole
     backward for K8c; for K8b the backward of F.scaled_dot_product_attention
-    alone, on the same q, k, v), beside its bound; K8a also launch by
-    launch."""
-    import torch.nn.functional as F
-
+    alone, on the same q, k, v), beside its bound, all three in CUDA
+    graphs (`interleaved_graph_ms`; the autograd yardsticks captured on
+    the stream their forward ran on, `library_backward`); K8a also launch
+    by launch."""
     from geovpr_torch.ops import mhsa as mh
 
     h = shape[3]
@@ -2810,37 +2829,37 @@ def k8_kernel_times(device, card: str, shape=K8_MAIN,
         res = mh.fused_mhsa_train_fwd(*fa)
     ba = _k8_bwd_args(a, res, g, h)
     d = shape[2]
-    leaves = [t.detach().requires_grad_() for t in fa[:8]]
-    qh, kh, vh = (mh._heads(t, h).contiguous().requires_grad_()
-                  for t in res[1].split(d, dim=-1))
-    with torch.enable_grad():
-        y_lib = library_k1(*leaves, h)
-        o_lib = F.scaled_dot_product_attention(qh, kh, vh)
-    g_o = torch.randn(o_lib.shape, device=device, dtype=o_lib.dtype)
-    cases = {
-        "K8a": {"kernel": lambda: mh.fused_mhsa_train_fwd(*fa),
-                "plain": lambda: mh.mhsa_train_fwd_reference(*fa),
-                "library": lambda: library_k1(*fa[:9])},
-        "K8b": {"kernel": lambda: mh.fused_mhsa_bwd_core(res[1], g, h),
-                "plain": lambda: mh.mhsa_attn_bwd_core_reference(res[1], g,
-                                                                 h),
-                "library": lambda: torch.autograd.grad(
-                    o_lib, (qh, kh, vh), g_o, retain_graph=True)},
-        "K8c": {"kernel": lambda: mh.fused_mhsa_bwd_all(*ba),
+    stream = torch.cuda.Stream()
+
+    def cases(name):
+        if name == "K8a":
+            return {"kernel": lambda: mh.fused_mhsa_train_fwd(*fa),
+                    "plain": lambda: mh.mhsa_train_fwd_reference(*fa),
+                    "library": lambda: library_k1(*fa[:9])}
+        if name == "K8b":
+            g_o = torch.randn(shape[0], h, shape[1], d // h, device=device,
+                              dtype=res[1].dtype)
+            return {"kernel": lambda: mh.fused_mhsa_bwd_core(res[1], g, h),
+                    "plain": lambda: mh.mhsa_attn_bwd_core_reference(
+                        res[1], g, h),
+                    "library": library_k8b(res[1], h, g_o, stream)}
+        leaves = [t.detach().requires_grad_() for t in fa[:8]]
+        return {"kernel": lambda: mh.fused_mhsa_bwd_all(*ba),
                 "plain": lambda: mh.mhsa_train_bwd_reference(*ba),
-                "library": lambda: torch.autograd.grad(
-                    y_lib, leaves, g, retain_graph=True)}}
+                "library": library_backward(lambda: library_k1(*leaves, h),
+                                            leaves, g, stream)}
+
     out = {}
     for name in names:
-        fns = cases[name]
-        with torch.no_grad() if name == "K8a" else torch.enable_grad():
-            t = interleaved_ms(fns, iters=5)
+        with torch.no_grad():
+            t = interleaved_graph_ms(cases(name), F32_TIME_ITERS, stream)
         out[name] = dict(ms=t["kernel"][0], plain_ms=t["plain"][0],
                          library_ms=t["library"][0],
                          runs={k: v[1] for k, v in t.items()},
                          **k8_bounds(name, shape))
         phase("kernel_time", card=repr(card), name=name,
-              shape="B{}_N{}_D{}_H{}".format(*shape), **out[name])
+              shape="B{}_N{}_D{}_H{}".format(*shape), timed="cuda_graph",
+              **out[name])
     if "K8a" in names:
         out["K8a"]["parts"] = k1_part_times(a["x"], a, h, card, "K8a")
     return out
@@ -6400,7 +6419,7 @@ def f32_serving_path(device, card: str) -> dict:
 F32_K8A_SHAPES = (K8_MAIN,)
 F32_K8B_SHAPES = (K8_SHAPES[1], K8_MAIN)
 F32_K8C_SHAPES = (K8_MAIN,)
-F32_COLSUM_OUTS = ("dbqkv", "dbo", "dgamma", "dls", "dlb")
+F32_COLSUM_OUTS = ("dbqkv", "dbo", "dgamma", "dls", "dlb", "dbias")
 F32_COLSUM_SLACK = 2.0
 # f32 training at full width and depth, cut in data and epochs: (path,
 # preset, variant, batch, training images, validation images, unfrozen
@@ -6739,6 +6758,366 @@ def f32_train_kernels_vs_plain(device, card: str | None = None,
     return out
 
 
+# The f32 forms of Swin's training kernels, which a window-12 Swin built
+# with compute_dtype="float32" trains on: K9a.f32 (K4.f32's launches with
+# the FA_TRAIN attention, `csrc/f32_serving.cu`) at the four Swin-B-384
+# stages (B=16), K9b.f32 (`csrc/f32_train.cu`) at stage 3, where the split
+# route runs it, and at stage 0, K9c.f32 at stages 0-2, each whole and
+# launch by launch against its plain f32 version with TF32 off
+# (`f32_train_error`).
+F32_K9A_SHAPES = K9_SHAPES
+F32_K9B_SHAPES = (K9_SHAPES[3], K9_MAIN)
+F32_K9C_SHAPES = K9_SHAPES[:3]
+K9_OUTS = ("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo", "dbo", "dbias")
+# launches a training step of swin_b384_gemini2 (2 + 2 + 18 + 2 blocks) of
+# each checked shape: K9a in every block, K9c in the blocks of stages 0-2,
+# K9b in stage 3's (none at stage 0, where K9c runs)
+F32_K9_PER_STEP = {
+    **{("K9a", s): n for s, n in zip(K9_SHAPES, (2, 2, 18, 2))},
+    **{("K9c", s): n for s, n in zip(K9_SHAPES[:3], (2, 2, 18))},
+    ("K9b", K9_SHAPES[3]): 2, ("K9b", K9_MAIN): 0}
+
+
+def f32_swin_train_bounds(kind: str, shape, peak: float) -> dict:
+    """The least time of one f32 K9 call at (B, C, H, S, w, shift),
+    counted as the bf16 rows count it (`k9_bounds`) with 4 bytes a value:
+    operations at `peak` (K9a 8 M C^2 + two N x N x dh products a head and
+    window; K9b the four such products of the core backward; K9c those and
+    16 M C^2 of products) against the bytes at 3.35 TB/s (each input read
+    once, each output written once: the stream, the residuals and the
+    gradients 4 bytes a value, the p plane (BW, H, N, N) among them)."""
+    b, c, h, res, win, _ = shape
+    m, n = b * res * res, win * win
+    bw = m // n
+    att = 2 * bw * h * n * n * (c // h)          # one N x N x dh product
+    plane = bw * h * n * n
+    table = (2 * win - 1) ** 2 * h
+    if kind == "K9a":
+        # x, the weights, ln_scale, ln_bias, bqkv, bo, the table -> y, qkv,
+        # ctx, p
+        ops = 8 * m * c * c + 2 * att
+        values = m * c + 4 * c * c + 6 * c + table + 5 * m * c + plane
+    elif kind == "K9b":
+        # qkv, p, da -> dqkv, dbias
+        ops = 4 * att
+        values = 7 * m * c + plane + h * n * n
+    else:
+        # x, qkv, ctx, g, p, the weights, ln_scale, ln_bias -> dx, dls, dlb,
+        # dwqkv, dbqkv, dwo, dbo, dbias
+        ops = 4 * att + 16 * m * c * c
+        values = 7 * m * c + plane + 4 * c * c + 2 * c + 4 * c * c + 6 * c \
+            + h * n * n
+    return dict(part_bound(ops, peak, 4 * values), bytes=4 * values)
+
+
+def k9_f64_grads(a: dict, g, geom: dict) -> dict:
+    """The window-12 half-block's gradients (K9_OUTS; dbias that of the
+    (H, N, N) bias) in f64 by autograd of its forward written out in f64
+    from the f32 inputs `a` (k9_case's) and g: the f64 evaluation that a
+    near-cancelling column sum is measured against."""
+    from geovpr_torch.ops.window_attention import (from_windows,
+                                                   relative_position_bias,
+                                                   shift_mask, to_windows)
+    h, res, win, shift = (geom[k] for k in ("num_heads", "resolution",
+                                            "window", "shift"))
+    names = ("x", "ln_scale", "ln_bias", "wqkv", "bqkv", "wo", "bo")
+    leaves = [a[k].detach().double().requires_grad_() for k in names]
+    bias = relative_position_bias(a["table"].double(), win).detach()
+    leaves.append(bias.requires_grad_())
+    x, ls, lb, wq, bq, w_o, b_o, bb = leaves
+    c = x.shape[-1]
+    mask = shift_mask(res, win, shift, x.device)
+    with torch.enable_grad():
+        mu = x.mean(-1, keepdim=True)
+        var = ((x - mu) ** 2).mean(-1, keepdim=True)
+        qkv = to_windows(((x - mu) / torch.sqrt(var + 1e-5) * ls + lb) @ wq
+                         + bq, res, win, shift)
+        bw, n, _ = qkv.shape
+        q, k, v = (t.reshape(bw, n, h, c // h).transpose(1, 2)
+                   for t in qkv.split(c, dim=-1))
+        s = q @ k.transpose(-1, -2) * (c // h) ** -0.5 + bb
+        if mask is not None:
+            s = (s.reshape(-1, mask.shape[0], h, n, n)
+                 + mask.double()[None, :, None]).reshape(bw, h, n, n)
+        ctx = (torch.softmax(s, -1) @ v).transpose(1, 2).reshape(bw, n, c)
+        y = from_windows(ctx, res, win, shift) @ w_o + b_o
+        grads = torch.autograd.grad(y, leaves, g.double())
+    return dict(zip(K9_OUTS, grads))
+
+
+def k9_core_f64_dbias(qkv, p, da, geom: dict):
+    """K9b's dbias (H, N, N) in f64 from the f32 residuals: the sum over
+    the windows of ds = p (dp - sum_j dp p), dp = da v^T, each in f64."""
+    from geovpr_torch.ops import swin_block as sb
+    geo = (geom["resolution"], geom["window"], geom["shift"])
+    h = geom["num_heads"]
+    c = da.shape[-1]
+    bw, _, n, _ = p.shape
+    v = sb._heads(sb._raster_to_rows(qkv, *geo)[:, 2 * c:].double()
+                  .reshape(bw, n, c), h)
+    dah = sb._heads(sb._raster_to_rows(da, *geo).double().reshape(bw, n, c),
+                    h)
+    pd = p.double()
+    dp = dah @ v.transpose(-1, -2)
+    return (pd * (dp - (dp * pd).sum(-1, keepdim=True))).sum(0)
+
+
+def k9a_f32_parts_vs_plain(fa, tag: str) -> dict:
+    """K9a.f32 launch by launch (`k9a_launch_part`), each launch's outputs
+    against its plain part on what the launch before it left in the
+    buffers (`f32_train_error`, `[kernel] name=K9a.f32.<part>.<out>`; the
+    attention's scaled q is formed from the buffer's qkv as the kernel
+    forms it), then each buffer against the whole call's, bit for bit.
+    Returns the buffers."""
+    from geovpr_torch.ops import swin_block as sb
+    x, ls, lb, wqkv, bqkv, wo, bo, table = fa[:8]
+    h, res, win, shift = fa[8:12]
+    b, l, c = x.shape
+    bufs = sb.k9a_buffers(x, h, win)
+    qscale = torch.full((c,), (c // h) ** -0.5 * sb.LOG2E,
+                        device=x.device)
+    checks = {
+        "layernorm": lambda: [("h", bufs["ctx"], sb.train_ln_reference(
+            x.reshape(-1, c), ls, lb).reshape(b, l, c))],
+        "qkv_gemm": lambda: [("qkv", bufs["qkv"], sb.train_qkv_reference(
+            bufs["ctx"].reshape(-1, c), wqkv, bqkv, h)[0].reshape(b, l, -1))],
+        "attention": lambda: list(zip(("ctx", "p"), (bufs["ctx"], bufs["p"]),
+                                      sb.train_attention_reference(
+            bufs["qkv"][..., :c] * qscale, bufs["qkv"], table, h, res, win,
+            shift))),
+        "out_proj": lambda: [("y", bufs["y"], sb.train_out_proj_reference(
+            bufs["ctx"].reshape(-1, c), wo, bo).reshape(b, l, c))]}
+    with torch.no_grad():
+        for i, part in enumerate(sb.K9A_PARTS):
+            sb.k9a_launch_part(i, *fa, bufs=bufs)
+            torch.cuda.synchronize()
+            # the plain part on the buffers the launch read (no launch
+            # writes what it reads)
+            for out, got, ref in checks[part]():
+                f32_train_error(f"K9a.f32.{part}.{out}", tag, out, got, ref)
+        whole = sb.fused_swin_attn_train_fwd(*fa)
+        torch.cuda.synchronize()
+    differ = [k for k, w in zip(("y", "qkv", "ctx", "p"), whole)
+              if not torch.equal(bufs[k], w)]
+    phase("k9a_f32_parts", shape=tag, parts=len(sb.K9A_PARTS),
+          differ_from_whole=differ)
+    check(not differ, f"K9a.f32's launches one by one differ from the whole "
+          f"call at {tag}: {differ}")
+    return bufs
+
+
+def k9c_f32_parts_vs_plain(a, g, res, geom, tag: str) -> dict:
+    """K9c.f32 launch by launch (`k9c_launch_part`), each launch's outputs
+    against its plain part on the inputs the earlier launches left in the
+    buffers (`f32_train_error`, `[kernel] name=K9c.f32.<part>.<out>`), then
+    each output of the launches against the whole call's, bit for bit.
+    Returns the buffers."""
+    from geovpr_torch.ops import swin_block as sb
+    geo = tuple(geom.values())
+    x, ls, lb = a["x"], a["ln_scale"], a["ln_bias"]
+    b, l, c = x.shape
+    m = b * l
+    ba = (x, ls, lb, a["wqkv"], a["wo"], res[1], res[2], res[3], g, *geo,
+          1e-5)
+    bufs = sb.k9c_buffers(x, *geo[:3])
+    g2, c2 = g.reshape(m, c), res[2].reshape(m, c)
+    xhat, rstd, h_ref = sb._ln_parts(x.reshape(m, c), ls, lb, 1e-5, x.dtype)
+
+    def cur(k):
+        """A buffer, the (B, L, .) ones as rows."""
+        return (bufs[k].reshape(m, -1) if k in ("da", "h", "dqkv", "dx")
+                else bufs[k])
+
+    def core():
+        dq, db = sb.swin_attn_core_bwd_reference(
+            sb._raster_to_rows(res[1], *geo[1:]), res[3],
+            sb._raster_to_rows(bufs["da"], *geo[1:]), geo[0])
+        return sb._rows_to_raster(dq, *geo[1:]).reshape(m, -1), db
+
+    def lnvjp64(which):
+        dh = cur("da").double()
+        return (dh * xhat.double()).sum(0) if which == "dls" else dh.sum(0)
+
+    # part -> [(output, plain part, f64 evaluation of a column sum)]
+    checks = {
+        "da": [("da", lambda: sb.bwd_product_reference(g2, a["wo"]), None)],
+        "dwo": [("dwo", lambda: sb.weight_grad_reference(c2, g2), None)],
+        "dbo": [("dbo", lambda: g2.sum(0), lambda: g2.double().sum(0))],
+        "core": [("dqkv", lambda: core()[0], None),
+                 ("dbias", lambda: core()[1], lambda: k9_core_f64_dbias(
+                     res[1], res[3], bufs["da"], geom))],
+        "ln_rows": [("h", lambda: h_ref, None)],
+        "dwqkv": [("dwqkv", lambda: sb.weight_grad_reference(
+            cur("h"), cur("dqkv")), None)],
+        "dbqkv": [("dbqkv", lambda: cur("dqkv").sum(0),
+                   lambda: cur("dqkv").double().sum(0))],
+        "dh": [("da", lambda: sb.bwd_product_reference(cur("dqkv"),
+                                                       a["wqkv"]), None)],
+        "ln_vjp": [
+            (k, lambda i=i: sb.ln_vjp_reference(cur("da"), xhat, rstd,
+                                                ls)[i],
+             None if k == "dx" else lambda k=k: lnvjp64(k))
+            for i, k in enumerate(("dx", "dls", "dlb"))]}
+    with torch.no_grad():
+        for i, part in enumerate(sb.K9C_PARTS):
+            sb.k9c_launch_part(i, *ba, bufs=bufs)
+            torch.cuda.synchronize()
+            for out, plain, ref64 in checks[part]:
+                f32_train_error(f"K9c.f32.{part}.{out}", tag, out, cur(out),
+                                plain(), ref64)
+        whole = sb.fused_swin_attn_bwd_all(*ba)
+        torch.cuda.synchronize()
+    differ = [k for k, w in zip(K9_OUTS, whole) if not torch.equal(
+        bufs[k].reshape(w.shape), w)]
+    phase("k9c_f32_parts", shape=tag, parts=len(sb.K9C_PARTS),
+          differ_from_whole=differ)
+    check(not differ, f"K9c.f32's launches one by one differ from the whole "
+          f"call at {tag}: {differ}")
+    return bufs
+
+
+def f32_k9_kernels_vs_plain(device, card: str | None = None,
+                            k9a=F32_K9A_SHAPES, k9b=F32_K9B_SHAPES,
+                            k9c=F32_K9C_SHAPES) -> dict:
+    """Part 1b of [f32_training]: K9a.f32, K9b.f32 and K9c.f32 against
+    their plain f32 versions (`f32_train_error`: every output within
+    F32_BRANCH_REL, a column sum of F32_COLSUM_OUTS within F32_COLSUM_SLACK
+    x the plain version's own error against f64; K9b and K9c on the plain
+    forward's residuals, so that each is checked alone), each call one
+    launch, and K9a.f32 and K9c.f32 launch by launch. With `card`, each
+    also timed in CUDA graphs in turns with its plain version and its f32
+    library yardstick (`k9_timing_cases`) beside its bound
+    (`[kernel_time]`), and, at stage 0, K9a.f32's and K9c.f32's launches
+    one by one (`[kernel_split]`). `k9a=`, `k9b=`, `k9c=` narrow the
+    shapes, as chip_faults.py does. Returns each kernel's error and times
+    by (kind, shape)."""
+    from geovpr_torch.ops import swin_block as sb
+
+    peak = f32_peak(max_sm_clock_mhz()) if card else None
+    out = {}
+
+    def tag_of(shape):
+        return "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape)
+
+    def launched(fn, before, kind, shape):
+        torch.cuda.synchronize()
+        check(fn.launches == before + 1, f"{kind}.f32 did not launch at "
+              f"{shape}")
+
+    def case(shape):
+        a, g, geom = k9_case(shape, device, dtype=torch.float32)
+        fa = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["bqkv"],
+              a["wo"], a["bo"], a["table"], *geom.values(), 1e-5)
+        return a, g, geom, fa
+
+    def timed(kind, shape, fa, ba, g, row):
+        stream = torch.cuda.Stream()
+        with torch.no_grad():
+            row.update(f32_train_times(
+                card, f"{kind}.f32", tag_of(shape),
+                k9_timing_cases(kind, shape, fa, ba, g, stream),
+                f32_swin_train_bounds(kind, shape, peak),
+                F32_K9_PER_STEP[(kind, shape)], stream))
+
+    for shape in k9a:
+        tag = tag_of(shape)
+        a, g, geom, fa = case(shape)
+        with torch.no_grad():
+            before = sb.fused_swin_attn_train_fwd.launches
+            got = sb.fused_swin_attn_train_fwd(*fa)
+            launched(sb.fused_swin_attn_train_fwd, before, "K9a", shape)
+            want = sb._train_plain_fwd(*fa)
+        row = {}
+        for i, name in enumerate(("y", "qkv", "ctx", "p")):
+            e = f32_train_error(f"K9a.f32.{name}", tag, name, got[i],
+                                want[i])
+            if name == "y":
+                row["max_abs_err"] = e["max_abs_err"]
+        del got, want
+        bufs = k9a_f32_parts_vs_plain(fa, tag)
+        if card:
+            timed("K9a", shape, fa, None, g, row)
+            if shape == K9_MAIN:
+                with torch.no_grad():
+                    parts_split(card, "K9a.f32", tag, sb.K9A_PARTS,
+                                lambda i: sb.k9a_launch_part(i, *fa,
+                                                             bufs=bufs),
+                                lambda part: k9a_part_bounds(part, shape,
+                                                             peak, 4))
+        out[("K9a", shape)] = row
+        del a, g, fa, bufs
+        torch.cuda.empty_cache()
+
+    for shape in k9b:
+        tag = tag_of(shape)
+        a, g, geom, fa = case(shape)
+        geo = tuple(geom.values())
+        with torch.no_grad():
+            _, qkv, ctx, p = sb._train_plain_fwd(*fa)
+            before = sb.fused_swin_attn_bwd_core.launches
+            got = sb.fused_swin_attn_bwd_core(qkv, p, g, *geo)
+            launched(sb.fused_swin_attn_bwd_core, before, "K9b", shape)
+            dq, db = sb.swin_attn_core_bwd_reference(
+                sb._raster_to_rows(qkv, *geo[1:]), p,
+                sb._raster_to_rows(g, *geo[1:]), geo[0])
+            want = (sb._rows_to_raster(dq, *geo[1:]), db)
+        e = f32_train_error("K9b.f32.dqkv", tag, "dqkv", got[0], want[0])
+        f32_train_error("K9b.f32.dbias", tag, "dbias", got[1], want[1],
+                        lambda: k9_core_f64_dbias(qkv, p, g, geom))
+        row = dict(max_abs_err=e["max_abs_err"])
+        del got, want, dq, db
+        if card:
+            ba = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["wo"],
+                  qkv, ctx, p, g, *geo, 1e-5)
+            timed("K9b", shape, fa, ba, g, row)
+            del ba
+        out[("K9b", shape)] = row
+        del a, g, fa, qkv, ctx, p
+        torch.cuda.empty_cache()
+
+    for shape in k9c:
+        tag = tag_of(shape)
+        a, g, geom, fa = case(shape)
+        geo = tuple(geom.values())
+        with torch.no_grad():
+            res = sb._train_plain_fwd(*fa)
+            ba = (a["x"], a["ln_scale"], a["ln_bias"], a["wqkv"], a["wo"],
+                  res[1], res[2], res[3], g, *geo, 1e-5)
+            before = sb.fused_swin_attn_bwd_all.launches
+            got = sb.fused_swin_attn_bwd_all(*ba)
+            launched(sb.fused_swin_attn_bwd_all, before, "K9c", shape)
+            want = sb._train_plain_bwd(*ba, split=False)
+        f64 = {}
+
+        def ref64(k):
+            if not f64:
+                f64.update(k9_f64_grads(a, g, geom))
+            return f64[k]
+
+        row = {}
+        for i, name in enumerate(K9_OUTS):
+            e = f32_train_error(f"K9c.f32.{name}", tag, name, got[i],
+                                want[i], lambda k=name: ref64(k))
+            if name == "dx":
+                row["max_abs_err"] = e["max_abs_err"]
+        del got, want
+        f64.clear()
+        bufs = k9c_f32_parts_vs_plain(a, g, res, geom, tag)
+        if card:
+            timed("K9c", shape, fa, ba, g, row)
+            if shape == K9_MAIN:
+                with torch.no_grad():
+                    parts_split(card, "K9c.f32", tag, sb.K9C_PARTS,
+                                lambda i: sb.k9c_launch_part(i, *ba,
+                                                             bufs=bufs),
+                                lambda part: k9c_part_bounds(part, shape,
+                                                             peak, 4))
+        out[("K9c", shape)] = row
+        del a, g, fa, res, ba, bufs
+        torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def k8_dtypes():
     """The stream dtypes the DINOv2 kernels were called with inside the
@@ -6942,15 +7321,261 @@ def f32_train_paths(device, card: str) -> dict:
     return total
 
 
+# f32 Swin training at full width and depth (window 12, 24 blocks), cut in
+# data and epochs: (path, preset, variant, batch, training images,
+# validation images), F32_TRAIN_EPOCHS epochs of 2 steps. Launches a step:
+# K9a.f32 in every block (twice under remat), K9c.f32 in the 22 blocks of
+# stages 0-2, K9b.f32 in stage 3's 2; a validation batch K4.f32 in every
+# block and K6.f32 at the 3 boundaries. It runs in a child process that
+# leaves torch's TF32 settings at their defaults, as the CLIs do.
+F32_SWIN_CASE = ("swin-b384-f32", "swin_b384_gemini2", "base-384", 16, 32,
+                 16)
+F32_SWIN_FALL_STEPS = 5
+
+
+@contextlib.contextmanager
+def k9_dtypes():
+    """The stream dtypes the Swin kernels were called with inside the
+    block: K9a-K9c's C entries (`swin_block._train_entries`), K4's
+    (`swin_block._k4_args`) and K6's (`patch_merge._k6_args`), as a set
+    of (role, dtype)."""
+    from geovpr_torch.ops import patch_merge as pm
+    from geovpr_torch.ops import swin_block as sb
+    seen = set()
+    entries, k4, k6 = sb._train_entries, sb._k4_args, pm._k6_args
+
+    def rec_entries(device, dtype):
+        seen.add(("k9", dtype))
+        return entries(device, dtype)
+
+    def rec_k4(x, *a, **kw):
+        seen.add(("k4", x.dtype))
+        return k4(x, *a, **kw)
+
+    def rec_k6(x, *a, **kw):
+        seen.add(("k6", x.dtype))
+        return k6(x, *a, **kw)
+
+    sb._train_entries, sb._k4_args, pm._k6_args = rec_entries, rec_k4, rec_k6
+    try:
+        yield seen
+    finally:
+        sb._train_entries, sb._k4_args, pm._k6_args = entries, k4, k6
+
+
+def f32_tf32_conv_check(device) -> None:
+    """The f32 Swin-B-384's patch embedding (3 -> 128 channels, 4 x 4 at
+    stride 4, 384 px, B=16; seeded weights) with cuDNN's TF32 setting as
+    torch leaves it, with TF32 off, and through the port's
+    `layers.conv2d` with the setting as torch leaves it: the output's and
+    the weight gradient's relative error in the 2-norm against f64
+    (`[tf32_conv]`). The port's must be within F32_BRANCH_REL, and the
+    process-wide setting must be as it was."""
+    import torch.nn.functional as F
+
+    from geovpr_torch.models.layers import conv2d
+
+    gen = torch.Generator().manual_seed(SEED + 31)
+    x = (torch.rand(16, 3, 384, 384, generator=gen) * 4 - 2).to(device)
+    w = (torch.randn(128, 3, 4, 4, generator=gen) * 48 ** -0.5).to(device)
+    bias = (torch.randn(128, generator=gen) * 0.1).to(device)
+    g = torch.randn(16, 128, 96, 96, generator=gen).to(device)
+    default = torch.backends.cudnn.allow_tf32
+    w64 = w.double().requires_grad_()
+    with torch.enable_grad():
+        y64 = F.conv2d(x.double(), w64, bias.double(), stride=4)
+        dw64 = torch.autograd.grad(y64, w64, g.double())[0]
+
+    def errs(conv):
+        wl = w.detach().requires_grad_()
+        with torch.enable_grad():
+            y = conv(x, wl, bias, 4)
+            dw = torch.autograd.grad(y, wl, g)[0]
+        return [((a.double() - r).norm() / r.norm()).item()
+                for a, r in ((y, y64), (dw, dw64))]
+
+    e_default = errs(lambda *a: F.conv2d(*a[:3], stride=a[3]))
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        e_off = errs(lambda *a: F.conv2d(*a[:3], stride=a[3]))
+    finally:
+        torch.backends.cudnn.allow_tf32 = default
+    e_port = errs(conv2d)
+    phase("tf32_conv", allow_tf32=default, default_rel_err=e_default[0],
+          default_dw_rel_err=e_default[1], off_rel_err=e_off[0],
+          off_dw_rel_err=e_off[1], port_rel_err=e_port[0],
+          port_dw_rel_err=e_port[1], bound=F32_BRANCH_REL,
+          default_misses=max(e_default) > F32_BRANCH_REL)
+    check(max(e_port) <= F32_BRANCH_REL and max(e_off) <= F32_BRANCH_REL,
+          f"f32 patch embedding off f64 with TF32 off: port {e_port}, "
+          f"cudnn {e_off}")
+    check(torch.backends.cudnn.allow_tf32 == default,
+          "the port's conv2d left cuDNN's TF32 setting changed")
+
+
+def f32_remat_step(trainer, batch, tag: str, expected: dict) -> dict:
+    """One training step with the blocks recomputed (`model.remat`)
+    against the same step without, from the same state (the step's
+    DropPath generator seeded alike): every parameter and Adam moment
+    bit-equal. The remat step's launches (every count set to 0 just before,
+    read just after) must be `expected`; returns them. The state is put
+    back after."""
+    st, model = trainer.state, trainer.state.model
+    flags = [m for m in model.modules() if hasattr(m, "remat")]
+    saved = [m.remat for m in flags]
+    counters = train_counters()
+    snap = _state_snapshot(st)
+    try:
+        for m in flags:
+            m.remat = False
+        trainer._train_step(st, batch)
+        plain = _state_snapshot(st)
+        _state_restore(st, snap)
+        for m in flags:
+            m.remat = True
+        for fn in counters.values():
+            fn.launches = 0
+        trainer._train_step(st, batch)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        differ = _state_equal(st, plain)
+    finally:
+        for m, r in zip(flags, saved):
+            m.remat = r
+        _state_restore(st, snap)
+    want = dict.fromkeys(counters, 0)
+    want.update(expected)
+    phase("remat_step_equal", path=tag, launches={
+        k: v for k, v in launches.items() if v}, tensors_differ=len(differ),
+        differ=repr(differ[:5]))
+    check(launches == want, f"{tag}: remat step launches {launches}, "
+          f"expected {want}")
+    check(not differ, f"{tag}: the remat step is not bit-equal to the step "
+          f"without remat: {differ[:5]}")
+    return launches
+
+
+def f32_swin_train_record(device, card: str) -> dict:
+    """`run_train` on F32_SWIN_CASE in f32 from seeded random weights on
+    synthetic images and (lat, lon) targets, F32_TRAIN_EPOCHS epochs: the
+    launches (every count set to 0 just before and read just after), every
+    Swin kernel call on an f32 stream, finite losses and metrics, the run
+    directory; the kernel path's gradient against the plain path's
+    (`f32_grads_vs_plain`); a resumed run bit-equal to the unbroken one;
+    remat's gradient and one remat step bit-equal to no remat
+    (`f32_remat_step`); `cli.evaluate --run-dir` serving the run on K4.f32
+    and K6.f32; the step's times and peak memory beside the same weights'
+    bf16 step; a falling loss on a fixed batch. Returns the launches by
+    counter."""
+    from geovpr_torch.models.swin import SWIN_VARIANTS
+
+    tag, preset, variant, batch, n_train, n_val = F32_SWIN_CASE
+    t0 = time.perf_counter()
+    cfg = f32_train_cfg(preset, variant, batch, False)
+    spec = SWIN_VARIANTS[variant]
+    blocks, merges = sum(spec["depths"]), len(spec["depths"]) - 1
+    k9c = sum(d for d, h in zip(spec["depths"], spec["num_heads"])
+              if 32 * h <= 512)
+    rng = np.random.default_rng(SEED + 13)
+    size = cfg.data.image_size
+    train_src = synthetic_val(n_train, size, rng)
+    val_src = synthetic_val(n_val, size, rng)
+    with tempfile.TemporaryDirectory() as tmp:
+        with k9_dtypes() as seen:
+            trainer, launches = train_run(
+                cfg, train_src, val_src, device, tmp, F32_TRAIN_EPOCHS,
+                {"fused_swin_attn_train_fwd": (blocks, 0),
+                 "fused_swin_attn_bwd_all": (k9c, 0),
+                 "fused_swin_attn_bwd_core": (blocks - k9c, 0),
+                 "fused_swin_attn_block": (0, blocks),
+                 "fused_patch_merge": (0, merges)}, tag)
+        phase("f32_train_dtypes", path=tag, seen=sorted(map(str, seen)))
+        check({dt for _, dt in seen} == {torch.float32},
+              f"{tag}: a Swin kernel ran on a non-f32 stream: {seen}")
+        tb = next(iter(_train_batches(train_src, device, batch)))
+        f32_grads_vs_plain(trainer, tb, tag)
+        train_resume(cfg, train_src, val_src, device, tmp, trainer, tag)
+        _remat_grads_equal(trainer, tb, tag)
+        for k, v in f32_remat_step(trainer, tb, tag, {
+                "fused_swin_attn_train_fwd": 2 * blocks,
+                "fused_swin_attn_bwd_all": k9c,
+                "fused_swin_attn_bwd_core": blocks - k9c}).items():
+            launches[k] += v
+        with preset_as(preset, cfg), k9_dtypes() as seen:
+            got = evaluate_run_dir(
+                preset, trainer.run_dir, val_src, batch, blocks, device, tag,
+                per_batch={"fused_swin_attn_block": blocks,
+                           "fused_patch_merge": merges})
+        check(seen == {("k4", torch.float32), ("k6", torch.float32)},
+              f"{tag}: evaluate --run-dir served on {seen}")
+        for k, v in got.items():
+            launches[k] += v
+        f32_vs_bf16_times(trainer, tb, card, tag)
+        del trainer
+        torch.cuda.empty_cache()
+    train_loss_falls(device, preset, F32_SWIN_FALL_STEPS, cfg=cfg,
+                     dtype=torch.float32, tag=tag)
+    phase("f32_train_case", path=tag, seconds=time.perf_counter() - t0)
+    return launches
+
+
+def f32_swin_child(spec_path: str) -> int:
+    """The f32 Swin training child of [f32_training]: cuDNN's and the
+    matmuls' TF32 settings left as torch sets them (a CLI sets neither),
+    `f32_tf32_conv_check`, then `f32_swin_train_record`; one
+    `[f32_swin_child]` JSON line with the launches."""
+    from geovpr_torch.ops._build import load_library
+
+    load_library()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = torch.device("cuda")
+    phase("f32_swin_child", allow_tf32_cudnn=torch.backends.cudnn.allow_tf32,
+          allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
+    f32_tf32_conv_check(device)
+    launches = f32_swin_train_record(device, spec["card"])
+    print("[f32_swin_child] " + json.dumps({"launches": launches}),
+          flush=True)
+    return 0
+
+
+def f32_swin_train_path(device, card: str) -> dict:
+    """Part 3 of [f32_training]: `f32_swin_child` in a child process
+    (`python3 chip_smoke.py --f32-swin-child SPEC`), its phase lines passed
+    on; a failed child fails the phase. Returns its launches."""
+    with tempfile.TemporaryDirectory() as root:
+        spec = os.path.join(root, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"card": card}, f)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--f32-swin-child",
+             spec], capture_output=True, text=True, timeout=900,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in proc.stdout.splitlines():
+        if line.startswith("[") and not line.startswith("[f32_swin_child] {"):
+            print(line, flush=True)
+    check(proc.returncode == 0, f"the f32 Swin training child exited "
+          f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return [json.loads(line.split(" ", 1)[1])
+            for line in proc.stdout.splitlines()
+            if line.startswith("[f32_swin_child] {")][-1]["launches"]
+
+
 def f32_training_path(device, card: str) -> dict:
     """The [f32_training] phase: the f32 training kernels against their
-    plain versions and timed (`f32_train_kernels_vs_plain`), then f32
-    DINOv2 training through `run_train` (`f32_train_paths`). Returns, for
-    the kernels line, the kernels' errors and times by (kind, shape) and
-    the paths' launches (`launches`, by counter)."""
+    plain versions and timed (`f32_train_kernels_vs_plain`,
+    `f32_k9_kernels_vs_plain`), then f32 DINOv2 training through
+    `run_train` (`f32_train_paths`) and f32 Swin training in a child
+    (`f32_swin_train_path`). Returns, for the kernels line, the kernels'
+    errors and times by (kind, shape) and the paths' launches
+    (`launches`, by counter)."""
     t0 = time.perf_counter()
     out = f32_train_kernels_vs_plain(device, card)
-    out["launches"] = f32_train_paths(device, card)
+    out.update(f32_k9_kernels_vs_plain(device, card))
+    launches = f32_train_paths(device, card)
+    for k, v in f32_swin_train_path(device, card).items():
+        launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
     phase("f32_training", launches=out["launches"],
           seconds=time.perf_counter() - t0)
     return out
@@ -6976,6 +7601,13 @@ def main() -> int:
     t0 = time.perf_counter()
     load_library()
     phase("build", seconds=time.perf_counter() - t0)
+    last = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """`[phase_seconds]` of the stage that ends here."""
+        now = time.perf_counter()
+        phase("phase_seconds", name=name, seconds=now - last[0])
+        last[0] = now
 
     errs = kernel_vs_plain(device)
     errs8 = int8_kernels_vs_plain(device)
@@ -7004,11 +7636,13 @@ def main() -> int:
     breakdown(model8, images, card, "int8")
     del model8
     kt = kernel_times(device, card)
+    lap("dinov2_serving")
 
     swin_errs = swin_kernels_vs_plain(device)
     swin_launches = swin_path(device, card)
     skt = swin_kernel_times(device, card)
     swin_part_times(device, card)
+    lap("swin_serving")
 
     k7_errs = k7_kernels_vs_plain(device)
     swin_kernels_vs_plain(device, attn_shapes=(),
@@ -7016,9 +7650,11 @@ def main() -> int:
     angle_launches = angle_path(device, card)
     k7t = k7_kernel_times(device, card)
     k7_half_times(device, card)
+    lap("angle_serving")
 
     fuse_launches = fuse_path(device, card)
     convnext_k3(device, card)
+    lap("fuse")
 
     k9_errs = k9_kernels_vs_plain(device)
     train_launches = train_path(device, card)
@@ -7030,24 +7666,31 @@ def main() -> int:
     k9t["K9b"] = t["K9b"]
     k9c_part_times(device, card)
     k9a_part_times(device, card)
+    lap("swin_train")
 
     k8_errs = k8_kernels_vs_plain(device)
     dino_launches = dinov2_train_path(device, card)
     k8t = k8_kernel_times(device, card)
     k8t["K8b"] = k8_kernel_times(device, card, K8_SHAPES[1], ("K8b",))["K8b"]
     k8c_part_times(device, card)
+    lap("dinov2_train")
 
     rest_launches = {}
     index_1m_path(device, card)
+    lap("index_1m")
     for path in (dinov2_sincos_path, salad_frozen_path, swin_t_train_path,
                  cnn_train_path, parallel_path, convert_parity_path,
                  train_disk_path):
         for k, v in path(device, card).items():
             rest_launches[k] = rest_launches.get(k, 0) + v
+        lap(path.__name__)
 
     modes = int8_modes_path(device, card)
+    lap("int8_modes")
     f32s = f32_serving_path(device, card)
+    lap("f32_serving")
     f32t = f32_training_path(device, card)
+    lap("f32_training")
 
     rows = []
     for name, k, src, replaces, count, err in (
@@ -7190,6 +7833,25 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    # the f32 forms of K9a (K4.f32's launches with the training attention,
+    # csrc/f32_serving.cu), K9b and K9c (csrc/f32_train.cu) at Swin-B-384's
+    # stage 0 (K9b at stage 3, the one path that launches it), launches in
+    # [f32_training]'s Swin child
+    for name, k, line, src, shape in (
+            ("fused_swin_attn_train_fwd", "K9a", 1263, "f32_serving",
+             K9_MAIN),
+            ("fused_swin_attn_bwd_core", "K9b", 1351, "f32_train",
+             K9_SHAPES[3]),
+            ("fused_swin_attn_bwd_all", "K9c", 910, "f32_train", K9_MAIN)):
+        t = f32t[(k, shape)]
+        rows.append({"name": f"{name}.f32", "route": "cuda",
+                     "source": f"geovpr_torch/csrc/{src}.cu",
+                     "replaces": f"geovpr/ops/pallas_swin_block.py:{line}",
+                     "launches": f32t["launches"].get(name, 0),
+                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -7238,4 +7900,6 @@ if __name__ == "__main__":
         sys.exit(cp_child(sys.argv[2]))
     if sys.argv[1:2] == ["--modes-child"]:
         sys.exit(modes_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--f32-swin-child"]:
+        sys.exit(f32_swin_child(sys.argv[2]))
     sys.exit(main())

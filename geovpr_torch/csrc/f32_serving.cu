@@ -6,6 +6,14 @@
 //   K6  out = LN(concat[x00, x10, x01, x11]) @ W          (Swin boundary)
 //   K7  out = softmax(q k^T dh^-0.5 + bias [+ mask]) v    (window core)
 //
+// and, on the same launches, the f32 Swin training forward K9a.f32: y =
+// proj(W-MSA(LN(x))) with no residual, keeping qkv (unscaled), the
+// normalised probabilities p (BW, H, N, N) and ctx for the backward
+// (f32_train.cu). It replaces, in f32, pallas_swin_block.py::
+// _swin_train_fwd_pallas (:1263, pallas_call :1318, body _train_kernel
+// :560): K4.f32's LayerNorm and QKV GEMM, the window attention in its
+// FA_TRAIN mode, and the out projection with the bias epilogue.
+//
 // Replaces, in f32, geovpr/ops/pallas_mhsa.py::fused_mhsa_block (:904,
 // pallas_call :1064; f32 takes the masked body _mhsa_kernel :351),
 // pallas_swin_block.py::fused_swin_attn_block (:1125, _forward :1070),
@@ -27,7 +35,10 @@
 //   division), then P V;
 // - K4's and K7's serving softmax: q scaled by dh^-0.5 log2(e) in f32,
 //   s = q . k + table * log2(e) [+ (-100) * log2(e) across regions], p =
-//   2^min(s, 100) with no max-shift, context = (P V) / sum p.
+//   2^min(s, 100) with no max-shift, context = (P V) / sum p;
+// - K9a's training softmax on the same scores: p = 2^min(s, 100) times
+//   the correctly rounded reciprocal of its row sum (the p the backward
+//   reads), context = P V of that p.
 //
 // What bounds it on the H100: operations. f32 has no tensor-core path (a
 // single-pass TF32 product keeps a 10-bit mantissa; chip_smoke.py prints
@@ -57,7 +68,9 @@
 //   32-key chunk: the scores of the warp's rows, then P written to the
 //   warp's shared slice and P V with a lane one output column (two at DH
 //   = 64). K1 makes two passes over the keys (per-lane running max and
-//   sum, combined across the warp, then p), the windows one.
+//   sum, combined across the warp, then p), the serving windows one;
+//   FA_TRAIN (K9a.f32) two on the raster windows: the row sums of p, then
+//   p times their reciprocal, stored to the p plane and summed into P V.
 // The attention's shared memory (Q block, a K and a V tile, the warps' P
 // slices, the head's table column) stays under FA_SMEM_LIMIT; the wrappers
 // allocate every buffer: qkv and ctx (which holds LN(x) until the
@@ -156,7 +169,13 @@ constexpr int FA_KT = 64;       // keys of a shared-memory tile
 constexpr int FA_MAX_N = 256;   // a window's tokens at most
 constexpr int FA_WIN_ROWS = 144;  // a window CTA's query rows at most
 constexpr int FA_SMEM_LIMIT = 96 * 1024;
-enum { FA_VIT = 0, FA_RASTER = 1, FA_SPLIT = 2 };
+enum { FA_VIT = 0, FA_RASTER = 1, FA_SPLIT = 2, FA_TRAIN = 3 };
+
+// the modes that address the raster stream's windows (K4, K7's raster
+// mode, and K9a's training attention)
+__host__ __device__ constexpr bool fa_raster(int mode) {
+  return mode == FA_RASTER || mode == FA_TRAIN;
+}
 
 struct FaArgs {
   // VIT and RASTER: q, k and v point into one qkv buffer at the q, k and v
@@ -175,6 +194,7 @@ struct FaArgs {
   int nW;           // SPLIT: windows of the mask
   int qrows;        // query rows of a CTA (blockIdx.z its query block)
   float scale;      // VIT: dh^-0.5 on q . k; windows: dh^-0.5 log2(e) on q
+  float* p;         // TRAIN: the normalised p (BW, H, N, N), window order
 };
 
 // The CTA's problem: its head, query rows, and how token i becomes a row
@@ -192,7 +212,7 @@ struct FaGeo {
       b = blockIdx.x;
       q0 = blockIdx.z * a.qrows;
     }
-    if (kMode == FA_RASTER) {
+    if (fa_raster(kMode)) {
       const int nw = a.S / a.W;
       const int gw = blockIdx.x;
       b = gw / (nw * nw);
@@ -263,7 +283,7 @@ f32_attn_kernel(FaArgs a) {
     *reinterpret_cast<float4*>(sq + r * DH + c) = v;
   }
   const int tw = 2 * a.W - 1;
-  if (kMode == FA_RASTER)
+  if (fa_raster(kMode))
     for (int t = threadIdx.x; t < tw * tw; t += blockDim.x)
       stab[t] = __fmul_rn(a.bias[(long long)t * a.H + g.h], F32_LOG2E);
 
@@ -275,7 +295,7 @@ f32_attn_kernel(FaArgs a) {
   for (int r = 0; r < FA_R; ++r) {
     qtok[r] = g.q0 + min(r0 + r, max(nq - 1, 0));
     qpos[r] = qlab[r] = 0;
-    if (kMode == FA_RASTER) {
+    if (fa_raster(kMode)) {
       const int ty = qtok[r] / a.W, tx = qtok[r] - ty * a.W;
       qpos[r] = ty * tw + tx;
       qlab[r] = 3 * g.region(a, g.wy * a.W + ty) + g.region(a, g.wx * a.W + tx);
@@ -293,7 +313,7 @@ f32_attn_kernel(FaArgs a) {
     for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
   }
   float* wp = sp + warp * 32 * FA_R;
-  constexpr int kPasses = kMode == FA_VIT ? 2 : 1;
+  constexpr int kPasses = kMode == FA_VIT || kMode == FA_TRAIN ? 2 : 1;
   for (int pass = 0; pass < kPasses; ++pass) {
     const bool last = pass == kPasses - 1;
     for (int t0 = 0; t0 < a.N; t0 += FA_KT) {
@@ -342,7 +362,7 @@ f32_attn_kernel(FaArgs a) {
             s[r] = key < a.N ? __fmul_rn(s[r], a.scale) : -INFINITY;
         } else {
           int kpos = 0, klab = 0;
-          if (kMode == FA_RASTER && kin) {
+          if (fa_raster(kMode) && kin) {
             const int ty = key / a.W, tx = key - ty * a.W;
             kpos = ty * tw + tx;
             klab = 3 * g.region(a, g.wy * a.W + ty) +
@@ -352,7 +372,7 @@ f32_attn_kernel(FaArgs a) {
           for (int r = 0; r < FA_R; ++r) {
             float x = s[r];
             if (kin) {
-              if (kMode == FA_RASTER) {
+              if (fa_raster(kMode)) {
                 x = __fadd_rn(x, stab[qpos[r] - kpos + pos_base]);
                 if (a.shift && qlab[r] != klab) x = __fadd_rn(x, kMaskL2);
               } else {
@@ -367,6 +387,12 @@ f32_attn_kernel(FaArgs a) {
             }
             s[r] = kin ? x : -INFINITY;
           }
+        }
+        if (!last && kMode == FA_TRAIN) {  // K9a's first pass: the sums
+#pragma unroll
+          for (int r = 0; r < FA_R; ++r)
+            if (kin) l[r] = __fadd_rn(l[r], exp2f(fminf(s[r], 100.f)));
+          continue;
         }
         if (!last) {  // K1's first pass: this lane's running max and sum
 #pragma unroll
@@ -384,6 +410,12 @@ f32_attn_kernel(FaArgs a) {
         for (int r = 0; r < FA_R; ++r) {
           if (kMode == FA_VIT) {
             p[r] = __fdiv_rn(expf(s[r] - m[r]), l[r]);
+          } else if (kMode == FA_TRAIN) {
+            // l holds the reciprocal of the row sum after the first pass
+            p[r] = kin ? __fmul_rn(exp2f(fminf(s[r], 100.f)), l[r]) : 0.f;
+            if (kin && r0 + r < nq)
+              a.p[(((long long)blockIdx.x * a.H + g.h) * a.N + g.q0 + r0 +
+                   r) * a.N + key] = p[r];
           } else {
             p[r] = exp2f(fminf(s[r], 100.f));
             l[r] = __fadd_rn(l[r], p[r]);
@@ -412,7 +444,10 @@ f32_attn_kernel(FaArgs a) {
         }
       }
     }
-    if (!last) {  // each row's max and sum over the whole warp
+    if (!last && kMode == FA_TRAIN) {  // each row's 1 / sum over the warp
+#pragma unroll
+      for (int r = 0; r < FA_R; ++r) l[r] = __fdiv_rn(1.f, f32_warp_sum(l[r]));
+    } else if (!last) {  // each row's max and sum over the whole warp
 #pragma unroll
       for (int r = 0; r < FA_R; ++r) {
         const float mr = f32_warp_max(m[r]);
@@ -425,12 +460,13 @@ f32_attn_kernel(FaArgs a) {
   }
 #pragma unroll
   for (int r = 0; r < FA_R; ++r) {
-    const float sum = kMode == FA_VIT ? 1.f : f32_warp_sum(l[r]);
+    const bool plain = kMode == FA_VIT || kMode == FA_TRAIN;
+    const float sum = plain ? 1.f : f32_warp_sum(l[r]);
     if (r0 + r >= nq) continue;
     float* o = a.out + g.row(a, g.q0 + r0 + r) * a.ldo + col + lane;
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      o[32 * e] = kMode == FA_VIT ? acc[r][e] : __fdiv_rn(acc[r][e], sum);
+      o[32 * e] = plain ? acc[r][e] : __fdiv_rn(acc[r][e], sum);
   }
 }
 
@@ -446,7 +482,7 @@ cudaError_t launch_attn(const FaArgs& a, dim3 grid, cudaStream_t s) {
     return cudaErrorInvalidValue;
   const int tw = 2 * a.W - 1;
   const int smem =
-      fa_smem_bytes(DH, nwarps, kMode == FA_RASTER ? tw * tw : 0);
+      fa_smem_bytes(DH, nwarps, fa_raster(kMode) ? tw * tw : 0);
   if (smem > FA_SMEM_LIMIT) return cudaErrorInvalidValue;
   f32_attn_kernel<DH, kMode><<<grid, 32 * nwarps, smem, s>>>(a);
   return cudaGetLastError();
@@ -482,6 +518,36 @@ cudaError_t launch_raster(const float* qkv, const float* table, float* out,
   return launch_attn<32, FA_RASTER>(a, dim3(B * nw * nw, H, nblk), s);
 }
 
+// K9a.f32's attention on the raster qkv (B*S*S, 3C): ctx (B*S*S, C) and
+// the normalised p (BW, H, N, N) of each window, in the raster mode's
+// query blocks (one of N = 144 rows at window 12), each row's sums over
+// all the window's keys.
+cudaError_t launch_train_attn(const float* qkv, const float* table,
+                              float* out, float* p, int B, int S, int C,
+                              int H, int W, int shift, float qscale,
+                              cudaStream_t s) {
+  FaArgs a{};
+  a.q = qkv;
+  a.k = qkv + C;
+  a.v = qkv + 2 * C;
+  a.bias = table;
+  a.out = out;
+  a.p = p;
+  a.N = W * W;
+  a.H = H;
+  a.ld = 3 * C;
+  a.ldo = C;
+  a.S = S;
+  a.W = W;
+  a.shift = shift;
+  a.nW = 1;
+  const int nblk = window_blocks(W * W);
+  a.qrows = (W * W + nblk - 1) / nblk;
+  a.scale = qscale;
+  const int nw = S / W;
+  return launch_attn<32, FA_TRAIN>(a, dim3(B * nw * nw, H, nblk), s);
+}
+
 }  // namespace
 
 // Raises the attention kernels' dynamic shared-memory limits on the
@@ -492,6 +558,10 @@ extern "C" int geovpr_f32_serving_init(void) {
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 FA_SMEM_LIMIT)) != cudaSuccess ||
       (e = cudaFuncSetAttribute(f32_attn_kernel<32, FA_RASTER>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                FA_SMEM_LIMIT)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaFuncSetAttribute(f32_attn_kernel<32, FA_TRAIN>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 FA_SMEM_LIMIT)) != cudaSuccess)
     return (int)e;
@@ -628,6 +698,72 @@ extern "C" int geovpr_swin_attn_f32(
   return geovpr_swin_attn_f32_parts(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
                                     table, qkv, ctx, out, B, S, C, H, win,
                                     shift, eps, qscale, 0, 3, stream);
+}
+
+// K9a.f32 on the raster stream x (B, S*S, C), launches first..last (0
+// LayerNorm, 1 QKV GEMM with the bias, 2 the window attention, 3 out
+// projection with the bias, no residual); returns a cudaError_t as int.
+// Outputs: qkv (B*S*S, 3C) unscaled (the attention scales q by qscale =
+// dh^-0.5 log2(e) as it stages it, the product the bf16 form writes as
+// its scaled q copy), ctx (B*S*S, C; LN(x) until the attention writes the
+// context), p (BW, H, N, N) the normalised probabilities in window order,
+// y (B*S*S, C). K4.f32's geometry rule; all f32, 16-byte aligned. A launch
+// alone reads what the earlier launches of an earlier call left in the
+// buffers. geovpr_f32_serving_init must have run on the current device.
+extern "C" int geovpr_swin_f32_train_fwd_parts(
+    const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv,
+    const void* bqkv, const void* wo, const void* bo, const void* table,
+    void* qkv, void* ctx, void* p, void* y, int B, int S, int C, int H,
+    int win, int shift, float eps, float qscale, int first, int last,
+    void* stream) {
+  if (B <= 0 || H <= 0 || C != 32 * H || win <= 0 || win * win > FA_MAX_N ||
+      S <= 0 || S % win || shift < 0 || shift >= win || H > 65535 ||
+      (long long)B * (S / win) * (S / win) > 0x7fffffff || first < 0 ||
+      last > 3 || first > last)
+    return (int)cudaErrorInvalidValue;
+  const int M = B * S * S;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* qkvf = static_cast<float*>(qkv);
+  float* ctxf = static_cast<float*>(ctx);
+  cudaError_t e = cudaSuccess;
+  for (int part = first; part <= last; ++part) {
+    switch (part) {
+      case 0:
+        e = launch_ln(static_cast<const float*>(x),
+                      static_cast<const float*>(ln_scale),
+                      static_cast<const float*>(ln_bias), ctxf, M, C, 0, 0,
+                      eps, false, s);
+        break;
+      case 1:
+        e = launch_gemm_f32<EPI_BIAS>(ctxf, static_cast<const float*>(wqkv),
+                                      static_cast<const float*>(bqkv),
+                                      nullptr, nullptr, qkvf, M, 3 * C, C, s);
+        break;
+      case 2:
+        e = launch_train_attn(qkvf, static_cast<const float*>(table), ctxf,
+                              static_cast<float*>(p), B, S, C, H, win, shift,
+                              qscale, s);
+        break;
+      default:
+        e = launch_gemm_f32<EPI_BIAS>(ctxf, static_cast<const float*>(wo),
+                                      static_cast<const float*>(bo), nullptr,
+                                      nullptr, static_cast<float*>(y), M, C,
+                                      C, s);
+    }
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+extern "C" int geovpr_swin_f32_train_fwd(
+    const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv,
+    const void* bqkv, const void* wo, const void* bo, const void* table,
+    void* qkv, void* ctx, void* p, void* y, int B, int S, int C, int H,
+    int win, int shift, float eps, float qscale, void* stream) {
+  return geovpr_swin_f32_train_fwd_parts(x, ln_scale, ln_bias, wqkv, bqkv, wo,
+                                         bo, table, qkv, ctx, p, y, B, S, C, H,
+                                         win, shift, eps, qscale, 0, 3,
+                                         stream);
 }
 
 // K6 in f32, launches first..last (0 merge-LN into lnbuf (B*S*S/4, 4C), 1

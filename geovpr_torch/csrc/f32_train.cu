@@ -57,12 +57,40 @@
 // the column sums, the LN recompute and VJP are row passes in f32. No
 // atomics: a training step repeats bit for bit.
 //
+// The f32 Swin training backward, for a Swin built with
+// compute_dtype="float32" (window 12, head dim 32, on the raster stream,
+// from the residuals of K9a.f32 in f32_serving.cu: qkv and ctx in raster
+// order, the normalised p (BW, H, N, N) in window order):
+//
+//   K9b.f32 (core bwd): dqkv and dbias from the stored p, no recompute:
+//                       dp = da v^T, ds = p (dp - sum_j dp p), dbias = sum
+//                       of ds over the windows, dq = (ds dh^-0.5) k, dk =
+//                       (ds dh^-0.5)^T q, dv = p^T da
+//   K9c.f32 (all bwd):  da = g Wo^T, dWo, dbo, the core, the LN recompute,
+//                       dWqkv, dbqkv, dh = dqkv Wqkv^T, the LN VJP -> dx,
+//                       dls, dlb (K8c.f32's launches without dy and dgamma:
+//                       Swin has no LayerScale, and the residual stays
+//                       outside)
+//
+// Replaces, in f32, pallas_swin_block.py::_swin_attn_bwd_pallas (:1351,
+// pallas_call :1369, body _train_bwd_kernel :704) and
+// _swin_attn_bwd_all_pallas (:910, pallas_call :934, body
+// _train_bwd_all_kernel :783), whose bodies write x.dtype. The core is one
+// launch over (window, head) CTAs (f32_swin_core_kernel: the head's q, k,
+// v, da rows and its p plane in shared memory, 156 KB; the window's tokens
+// addressed in the raster stream through the cyclic shift), writing ds to
+// an f32 plane that a column-sum launch and its reduce add over the
+// windows in a fixed order (no atomics). K9c.f32's products, column sums
+// and LN passes are K8c.f32's.
+//
 // What bounds it on the H100: operations. At DINOv2-B/14 training shapes
 // (B = 16, N = 257, D = 768, 12 heads) K8c.f32 is ~51.8 GFLOP (18 M D^2 of
 // products and five N x N x dh products a head), ~0.77 ms at the CUDA
-// cores' ~67 TFLOP/s; the measured times, from chip_smoke.py, are in
-// PERF.md beside the card and its power limit. The kernels allocate
-// nothing; the caller passes outputs and scratch.
+// cores' ~67 TFLOP/s; K9c.f32 at Swin-B-384's stage 0 (B = 16, C = 128, 4
+// heads) is 38.7 GFLOP of products and 21.7 of the core, ~0.90 ms, and
+// K9b.f32 at stage 3 2.7 GFLOP, 0.041 ms. The measured times, from
+// chip_smoke.py, are in PERF.md beside the card and its power limit. The
+// kernels allocate nothing; the caller passes outputs and scratch.
 
 #include "f32_gemm.cuh"
 #include "train_gemm.cuh"
@@ -404,11 +432,12 @@ __global__ void f32_ln_stats_kernel(const float* __restrict__ x,
   if (lane == 0) stats[row] = make_float2(mu, rstd);
 }
 
-// The LN VJP with + g, one warp a row, CPL = C / 32 columns a lane: dx =
-// rstd (dh ls - mean(dh ls) - xhat mean(dh ls xhat)) + g, and the warp's
-// partial sums of dh xhat (dls) and dh (dlb) over its rows at row
-// blockIdx.x * warps + warp of part_ls / part_lb.
-template <int CPL>
+// The LN VJP, one warp a row, CPL = C / 32 columns a lane: dx = rstd (dh
+// ls - mean(dh ls) - xhat mean(dh ls xhat)), + g with kG (K8c; Swin's K9c
+// has no residual inside), and the warp's partial sums of dh xhat (dls)
+// and dh (dlb) over its rows at row blockIdx.x * warps + warp of part_ls /
+// part_lb.
+template <int CPL, bool kG>
 __global__ void __launch_bounds__(256)
 f32_ln_vjp_kernel(const float* __restrict__ x, const float* __restrict__ dh,
                   const float2* __restrict__ stats,
@@ -446,8 +475,8 @@ f32_ln_vjp_kernel(const float* __restrict__ x, const float* __restrict__ dh,
 #pragma unroll
     for (int i = 0; i < CPL; ++i) {
       const size_t o = (size_t)row * C + lane + 32 * i;
-      dx[o] = __fadd_rn(__fmul_rn(st.y, dxh[i] - m1 - __fmul_rn(xh[i], m2)),
-                        g[o]);
+      const float v = __fmul_rn(st.y, dxh[i] - m1 - __fmul_rn(xh[i], m2));
+      dx[o] = kG ? __fadd_rn(v, g[o]) : v;
     }
   }
 #pragma unroll
@@ -457,6 +486,7 @@ f32_ln_vjp_kernel(const float* __restrict__ x, const float* __restrict__ dh,
   }
 }
 
+// the LN VJP of every row; g null: no residual (K9c)
 cudaError_t f32_ln_vjp(cudaStream_t st, const float* x, const float* dh,
                        const float2* stats, const float* ls, const float* g,
                        int M, int C, float* dx, float* part_ls,
@@ -464,8 +494,14 @@ cudaError_t f32_ln_vjp(cudaStream_t st, const float* x, const float* dh,
   switch (C / 32) {
 #define GEOVPR_F32_LN_VJP(cpl)                                              \
   case cpl:                                                                 \
-    f32_ln_vjp_kernel<cpl><<<LN_VJP_BLOCKS, LN_VJP_WARPS * 32, 0, st>>>(    \
-        x, dh, stats, ls, g, M, dx, part_ls, part_lb);                      \
+    if (g)                                                                  \
+      f32_ln_vjp_kernel<cpl, true>                                          \
+          <<<LN_VJP_BLOCKS, LN_VJP_WARPS * 32, 0, st>>>(                    \
+              x, dh, stats, ls, g, M, dx, part_ls, part_lb);                \
+    else                                                                    \
+      f32_ln_vjp_kernel<cpl, false>                                         \
+          <<<LN_VJP_BLOCKS, LN_VJP_WARPS * 32, 0, st>>>(                    \
+              x, dh, stats, ls, g, M, dx, part_ls, part_lb);                \
     break;
     GEOVPR_F32_LN_VJP(2) GEOVPR_F32_LN_VJP(4) GEOVPR_F32_LN_VJP(6)
     GEOVPR_F32_LN_VJP(8) GEOVPR_F32_LN_VJP(10) GEOVPR_F32_LN_VJP(12)
@@ -477,6 +513,185 @@ cudaError_t f32_ln_vjp(cudaStream_t st, const float* x, const float* dh,
   }
   return cudaGetLastError();
 }
+
+
+// ------------------------------------------------------------ K9b.f32 ----
+
+constexpr int SC_N = 144;          // a window's tokens (window 12)
+constexpr int SC_DH = 32;          // head dim
+constexpr int SC_THREADS = 576;  // 18 warps: 8 query rows a warp
+constexpr int SC_VLD = SC_DH + 4;  // v's row stride: float4 rows whose
+                                   // quarter-warp reads are conflict-free
+constexpr int SC_SMEM =
+    4 * (SC_N * SC_N + 3 * SC_N * SC_DH + SC_N * SC_VLD + SC_N);
+
+struct SwinCoreArgs {
+  const float* qkv;  // (B*S*S, 3C), raster rows
+  const float* p;    // (BW, H, N, N), window order
+  const float* da;   // (B*S*S, C), raster rows
+  float* dqkv;       // (B*S*S, 3C), raster rows
+  float* ds;         // (BW, H, N, N): ds (not scaled), for dbias
+  int S, W, shift, C, H;
+  float scale;       // dh^-0.5
+};
+
+// the raster row of token i of window gw, in the frame rolled by -shift:
+// token (ty, tx) of window (wy, wx) is ((Y + shift) mod S, (X + shift) mod
+// S), as the forward's raster windows address it
+__device__ __forceinline__ int sc_row(const SwinCoreArgs& a, int gw, int i) {
+  const int nw = a.S / a.W;
+  const int b = gw / (nw * nw), wi = gw - b * nw * nw;
+  const int wy = wi / nw, wx = wi - wy * nw;
+  const int ty = i / a.W, tx = i - ty * a.W;
+  int ry = wy * a.W + ty + a.shift, rx = wx * a.W + tx + a.shift;
+  if (ry >= a.S) ry -= a.S;
+  if (rx >= a.S) rx -= a.S;
+  return (b * a.S + ry) * a.S + rx;
+}
+
+__device__ __forceinline__ void sc_outer(float (&acc)[4][4], float4 a4,
+                                         float4 b4) {
+  const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+  const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+}
+
+__device__ __forceinline__ void sc_store(float* dst, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// The core backward of one (window, head), grid (BW, H): the head's q, k,
+// v and da rows of the window and its p plane in shared memory; dv = p^T
+// da; then, a warp a query row, dp = da v^T, ds = p (dp - sum_j dp p)
+// (stored to the ds plane, and ds dh^-0.5 over p in shared memory); then
+// dq = (ds dh^-0.5) k and dk = (ds dh^-0.5)^T q. Each output a sequential
+// sum over its k index, 4 x 4 outputs a thread.
+__global__ void __launch_bounds__(SC_THREADS)
+f32_swin_core_kernel(SwinCoreArgs a) {
+  extern __shared__ __align__(16) float sc_smem[];
+  float* P = sc_smem;                  // [N][N]: p, then ds dh^-0.5
+  float* qs = P + SC_N * SC_N;         // [N][DH]
+  float* ks = qs + SC_N * SC_DH;       // [N][DH]
+  float* das = ks + SC_N * SC_DH;      // [N][DH]
+  float* vs = das + SC_N * SC_DH;      // [N][VLD]
+  int* rows = reinterpret_cast<int*>(vs + SC_N * SC_VLD);
+  const int gw = blockIdx.x, h = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int C = a.C;
+  const long long ld3 = 3LL * C;
+  const int col = h * SC_DH;
+  const long long plane = ((long long)gw * a.H + h) * SC_N * SC_N;
+  for (int i = tid; i < SC_N; i += SC_THREADS) rows[i] = sc_row(a, gw, i);
+  __syncthreads();
+  for (int idx = tid; idx < SC_N * SC_DH / 4; idx += SC_THREADS) {
+    const int i = idx / (SC_DH / 4), c4 = (idx % (SC_DH / 4)) * 4;
+    const float* src = a.qkv + (long long)rows[i] * ld3 + col + c4;
+    *reinterpret_cast<float4*>(qs + i * SC_DH + c4) = f32_ld4(src);
+    *reinterpret_cast<float4*>(ks + i * SC_DH + c4) = f32_ld4(src + C);
+    *reinterpret_cast<float4*>(vs + i * SC_VLD + c4) = f32_ld4(src + 2 * C);
+    *reinterpret_cast<float4*>(das + i * SC_DH + c4) =
+        f32_ld4(a.da + (long long)rows[i] * C + col + c4);
+  }
+  for (int idx = tid; idx < SC_N * SC_N / 4; idx += SC_THREADS)
+    *reinterpret_cast<float4*>(P + 4 * idx) = f32_ld4(a.p + plane + 4 * idx);
+  __syncthreads();
+
+  // dv = p^T da: a thread 4 keys x 4 columns, summed over the query rows
+  constexpr int kItems = (SC_N / 4) * (SC_DH / 4);
+  for (int it = tid; it < kItems; it += SC_THREADS) {
+    const int j0 = (it / (SC_DH / 4)) * 4, d0 = (it % (SC_DH / 4)) * 4;
+    float acc[4][4] = {};
+    for (int i = 0; i < SC_N; ++i)
+      sc_outer(acc, f32_ld4(P + i * SC_N + j0), f32_ld4(das + i * SC_DH + d0));
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      sc_store(a.dqkv + (long long)rows[j0 + jj] * ld3 + 2 * C + col + d0,
+               acc[jj]);
+  }
+  __syncthreads();
+
+  // a warp a query row: dp, the row's sum of dp p, ds; a lane the keys
+  // lane + 32 t
+  const int warp = tid >> 5, lane = tid & 31;
+  constexpr int kT = (SC_N + 31) / 32;
+  for (int i = warp; i < SC_N; i += SC_THREADS / 32) {
+    float4 dr[SC_DH / 4];
+#pragma unroll
+    for (int e = 0; e < SC_DH / 4; ++e) dr[e] = f32_ld4(das + i * SC_DH + 4 * e);
+    float dp[kT], pr[kT];
+    float sub = 0.f;
+#pragma unroll
+    for (int t = 0; t < kT; ++t) {
+      const int j = lane + 32 * t;
+      dp[t] = pr[t] = 0.f;
+      if (j >= SC_N) continue;
+      float d = 0.f;
+#pragma unroll
+      for (int e = 0; e < SC_DH / 4; ++e) {
+        const float4 v4 = f32_ld4(vs + j * SC_VLD + 4 * e);
+        d = fmaf(dr[e].x, v4.x, d);
+        d = fmaf(dr[e].y, v4.y, d);
+        d = fmaf(dr[e].z, v4.z, d);
+        d = fmaf(dr[e].w, v4.w, d);
+      }
+      dp[t] = d;
+      pr[t] = P[i * SC_N + j];
+      sub = fmaf(d, pr[t], sub);
+    }
+    sub = f32_warp_sum(sub);
+#pragma unroll
+    for (int t = 0; t < kT; ++t) {
+      const int j = lane + 32 * t;
+      if (j >= SC_N) continue;
+      const float dsv = __fmul_rn(pr[t], dp[t] - sub);
+      a.ds[plane + i * SC_N + j] = dsv;
+      P[i * SC_N + j] = __fmul_rn(dsv, a.scale);
+    }
+  }
+  __syncthreads();
+
+  // dq = dsb k (4 query rows x 4 columns) and dk = dsb^T q (4 keys x 4
+  // columns), dsb = ds dh^-0.5
+  for (int it = tid; it < 2 * kItems; it += SC_THREADS) {
+    const bool is_dk = it >= kItems;
+    const int w = is_dk ? it - kItems : it;
+    const int r0 = (w / (SC_DH / 4)) * 4, d0 = (w % (SC_DH / 4)) * 4;
+    float acc[4][4] = {};
+    if (is_dk) {
+      for (int i = 0; i < SC_N; ++i)
+        sc_outer(acc, f32_ld4(P + i * SC_N + r0), f32_ld4(qs + i * SC_DH + d0));
+    } else {
+      for (int j = 0; j < SC_N; j += 4) {
+        float4 ar[4], bk[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) ar[r] = f32_ld4(P + (r0 + r) * SC_N + j);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          bk[jj] = f32_ld4(ks + (j + jj) * SC_DH + d0);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float av[4] = {ar[r].x, ar[r].y, ar[r].z, ar[r].w};
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            acc[r][0] = fmaf(av[jj], bk[jj].x, acc[r][0]);
+            acc[r][1] = fmaf(av[jj], bk[jj].y, acc[r][1]);
+            acc[r][2] = fmaf(av[jj], bk[jj].z, acc[r][2]);
+            acc[r][3] = fmaf(av[jj], bk[jj].w, acc[r][3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      sc_store(a.dqkv + (long long)rows[r0 + r] * ld3 + (is_dk ? C : 0) + col +
+                   d0,
+               acc[r]);
+  }
+}
+
 
 // ---------------------------------------------------------------- host ----
 
@@ -531,6 +746,64 @@ long long f32_bwd_scratch_floats(int M, int D) {
   need = std::max(need, (long long)colsum_parts(M, 3 * D) * 3 * D);
   need = std::max(need, (long long)colsum_parts(M, D) * D);
   need = std::max(need, 2LL * LN_VJP_BLOCKS * LN_VJP_WARPS * D);
+  return need;
+}
+
+
+// K9 on f32: the window geometry the core takes (window 12, head dim 32)
+bool swin_f32_shapes_ok(int B, int S, int C, int H, int win, int shift) {
+  return B > 0 && H > 0 && H <= 65535 && C == H * SC_DH && win * win == SC_N &&
+         S > 0 && S % win == 0 && shift >= 0 && shift < win &&
+         (long long)B * S * S <= 0x7fffffff;
+}
+
+// the core's scratch: the ds plane, then the partial sums of its column
+// sums over the windows
+long long swin_f32_core_floats(int B, int S, int H, int win) {
+  const int bw = B * (S / win) * (S / win);
+  const int hnn = H * SC_N * SC_N;
+  return (long long)bw * hnn + (long long)colsum_parts(bw, hnn) * hnn;
+}
+
+// K9b.f32: dqkv and dbias (the ds plane summed over the windows in a fixed
+// order: partials, then one reduce)
+cudaError_t swin_f32_core_bwd(cudaStream_t st, const float* qkv,
+                              const float* p, const float* da, float* dqkv,
+                              float* part, float* dbias, int B, int S, int C,
+                              int H, int win, int shift, float scale) {
+  SwinCoreArgs a{};
+  a.qkv = qkv;
+  a.p = p;
+  a.da = da;
+  a.dqkv = dqkv;
+  a.ds = part;
+  a.S = S;
+  a.W = win;
+  a.shift = shift;
+  a.C = C;
+  a.H = H;
+  a.scale = scale;
+  const int bw = B * (S / win) * (S / win);
+  f32_swin_core_kernel<<<dim3(bw, H), SC_THREADS, SC_SMEM, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int hnn = H * SC_N * SC_N;
+  return f32_colsum(st, part, bw, hnn, part + (size_t)bw * hnn, dbias);
+}
+
+// f32 scratch K9b.f32 and K9c.f32 take as `part`: the core's, or the
+// largest partial-sum buffer of K9c's other launches
+long long swin_f32_scratch_floats(int B, int S, int C, int H, int win) {
+  const int M = B * S * S;
+  int s1, c1, s3, c3;
+  f32_wgrad_split(M, C, C, &s1, &c1);
+  f32_wgrad_split(M, C, 3 * C, &s3, &c3);
+  long long need = swin_f32_core_floats(B, S, H, win);
+  need = std::max(need, (long long)s1 * C * C);
+  need = std::max(need, (long long)s3 * C * 3 * C);
+  need = std::max(need, (long long)colsum_parts(M, 3 * C) * 3 * C);
+  need = std::max(need, (long long)colsum_parts(M, C) * C);
+  need = std::max(need, 2LL * LN_VJP_BLOCKS * LN_VJP_WARPS * C);
   return need;
 }
 
@@ -694,4 +967,148 @@ extern "C" int geovpr_vit_f32_bwd_all(
       x, qkv, ctx, g, wqkv, wo, bo, gamma, ln_scale, ln_bias, dy, da, dqkv, h,
       stats, pds, part, dx, dwqkv, dbqkv, dwo, dbo, dgamma, dls, dlb, B, N,
       D, H, eps, scale, 0, 10, stream);
+}
+
+extern "C" int geovpr_f32_serving_init(void);
+
+// K9's f32 forms: raises the dynamic shared-memory limits of K9a.f32's
+// window attention (geovpr_f32_serving_init, f32_serving.cu) and of the
+// K9b.f32 core on the current device; returns a cudaError_t as int.
+extern "C" int geovpr_f32_swin_train_init(void) {
+  const int e = geovpr_f32_serving_init();
+  if (e != 0) return e;
+  return (int)allow_smem(f32_swin_core_kernel, SC_SMEM);
+}
+
+// Floats of f32 scratch geovpr_swin_f32_bwd_core and geovpr_swin_f32_bwd_all
+// take as `part`.
+extern "C" long long geovpr_swin_f32_scratch_floats(int B, int S, int C,
+                                                    int H, int win) {
+  return swin_f32_scratch_floats(B, S, C, H, win);
+}
+
+// K9b.f32. qkv (M, 3C) and da (M, C) raster rows, p (BW, H, N, N) window
+// order, all f32 -> dqkv (M, 3C) raster rows and dbias (H, N, N); scratch
+// part (geovpr_swin_f32_scratch_floats). M = B S^2, window 12, C = 32 H;
+// all 16-byte aligned. scale = dh^-0.5. geovpr_f32_swin_train_init must
+// have run on the current device.
+extern "C" int geovpr_swin_f32_bwd_core(
+    const void* qkv, const void* p, const void* da, void* dqkv, void* part,
+    void* dbias, int B, int S, int C, int H, int win, int shift, float scale,
+    void* stream) {
+  if (!swin_f32_shapes_ok(B, S, C, H, win, shift))
+    return (int)cudaErrorInvalidValue;
+  return (int)swin_f32_core_bwd(
+      static_cast<cudaStream_t>(stream), static_cast<const float*>(qkv),
+      static_cast<const float*>(p), static_cast<const float*>(da),
+      static_cast<float*>(dqkv), static_cast<float*>(part),
+      static_cast<float*>(dbias), B, S, C, H, win, shift, scale);
+}
+
+// K9c.f32's launches first..last: 0 da = g Wo^T; 1 dWo = ctx^T g (and its
+// reduce); 2 dbo = sum g; 3 the core (K9b.f32: dqkv, dbias); 4 the LN
+// recompute (h, stats); 5 dWqkv = h^T dqkv (and its reduce); 6 dbqkv = sum
+// dqkv; 7 dh = dqkv Wqkv^T into the da buffer; 8 the LN VJP -> dx and the
+// reduces of dls, dlb. The arguments are geovpr_swin_train_bwd_all_parts'
+// (swin_train.cu), every tensor f32: x, ctx, g (M, C) and qkv (M, 3C)
+// raster rows, p (BW, H, N, N), wqkv (C, 3C), wo (C, C), ln_scale,
+// ln_bias; outputs dx (M, C), dwqkv, dbqkv, dwo, dbo, dbias, dls, dlb;
+// scratch da, h (M, C), dqkv (M, 3C), stats (M) float2, part
+// (geovpr_swin_f32_scratch_floats); all 16-byte aligned. C <= 512. A
+// launch alone reads what the earlier launches of an earlier call left in
+// the scratch. geovpr_f32_swin_train_init must have run on the current
+// device.
+extern "C" int geovpr_swin_f32_bwd_all_parts(
+    const void* x, const void* qkv, const void* p, const void* ctx,
+    const void* g, const void* wqkv, const void* wo, const void* ln_scale,
+    const void* ln_bias, void* da, void* dqkv, void* h, void* stats,
+    void* part, void* dx, void* dwqkv, void* dbqkv, void* dwo, void* dbo,
+    void* dbias, void* dls, void* dlb, int B, int S, int C, int H, int win,
+    int shift, float eps, float scale, int first, int last, void* stream) {
+  if (!swin_f32_shapes_ok(B, S, C, H, win, shift) || C > 512 || first < 0 ||
+      last > 8 || first > last)
+    return (int)cudaErrorInvalidValue;
+  const int M = B * S * S;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* gf = static_cast<const float*>(g);
+  float* daf = static_cast<float*>(da);
+  float* dqkvf = static_cast<float*>(dqkv);
+  float* hf = static_cast<float*>(h);
+  float* pt = static_cast<float*>(part);
+  const int parts = LN_VJP_BLOCKS * LN_VJP_WARPS;
+  cudaError_t e = cudaSuccess;
+  int S1, c1;
+  for (int k = first; k <= last && e == cudaSuccess; ++k) {
+    switch (k) {
+      case 0:  // da = g Wo^T, Wo (C, C) read transposed
+        e = launch_gemm_f32<EPI_NONE, false, true>(
+            gf, static_cast<const float*>(wo), nullptr, nullptr, nullptr, daf,
+            M, C, C, st);
+        break;
+      case 1:  // dWo = ctx^T g: partials over chunks of rows, then reduced
+        f32_wgrad_split(M, C, C, &S1, &c1);
+        if ((e = launch_gemm_f32<EPI_NONE, true>(
+                 static_cast<const float*>(ctx), gf, nullptr, nullptr, nullptr,
+                 pt, C, C, M, st, c1)) == cudaSuccess)
+          e = reduce(st, pt, S1, (size_t)C * C, static_cast<float*>(dwo));
+        break;
+      case 2:  // dbo = sum g
+        e = f32_colsum(st, gf, M, C, pt, static_cast<float*>(dbo));
+        break;
+      case 3:  // the attention core: dqkv, dbias
+        e = swin_f32_core_bwd(st, static_cast<const float*>(qkv),
+                              static_cast<const float*>(p), daf, dqkvf, pt,
+                              static_cast<float*>(dbias), B, S, C, H, win,
+                              shift, scale);
+        break;
+      case 4:  // the LN recompute
+        f32_ln_stats_kernel<<<cdiv(M, 8), 256, 0, st>>>(
+            static_cast<const float*>(x), static_cast<const float*>(ln_scale),
+            static_cast<const float*>(ln_bias), eps, M, C, hf,
+            static_cast<float2*>(stats));
+        e = cudaGetLastError();
+        break;
+      case 5:  // dWqkv = h^T dqkv, as dWo
+        f32_wgrad_split(M, C, 3 * C, &S1, &c1);
+        if ((e = launch_gemm_f32<EPI_NONE, true>(hf, dqkvf, nullptr, nullptr,
+                                                 nullptr, pt, C, 3 * C, M, st,
+                                                 c1)) == cudaSuccess)
+          e = reduce(st, pt, S1, (size_t)C * 3 * C,
+                     static_cast<float*>(dwqkv));
+        break;
+      case 6:  // dbqkv = sum dqkv
+        e = f32_colsum(st, dqkvf, M, 3 * C, pt, static_cast<float*>(dbqkv));
+        break;
+      case 7:  // dh = dqkv Wqkv^T into the da buffer
+        e = launch_gemm_f32<EPI_NONE, false, true>(
+            dqkvf, static_cast<const float*>(wqkv), nullptr, nullptr, nullptr,
+            daf, M, C, 3 * C, st);
+        break;
+      default:  // the LN VJP, and the partials of dls, dlb
+        if ((e = f32_ln_vjp(st, static_cast<const float*>(x), daf,
+                            static_cast<const float2*>(stats),
+                            static_cast<const float*>(ln_scale), nullptr, M,
+                            C, static_cast<float*>(dx), pt,
+                            pt + (size_t)parts * C)) == cudaSuccess &&
+            (e = reduce(st, pt, parts, C, static_cast<float*>(dls))) ==
+                cudaSuccess)
+          e = reduce(st, pt + (size_t)parts * C, parts, C,
+                     static_cast<float*>(dlb));
+    }
+  }
+  return (int)e;
+}
+
+// K9c.f32, all its launches (the whole backward).
+extern "C" int geovpr_swin_f32_bwd_all(
+    const void* x, const void* qkv, const void* p, const void* ctx,
+    const void* g, const void* wqkv, const void* wo, const void* ln_scale,
+    const void* ln_bias, void* da, void* dqkv, void* h, void* stats,
+    void* part, void* dx, void* dwqkv, void* dbqkv, void* dwo, void* dbo,
+    void* dbias, void* dls, void* dlb, int B, int S, int C, int H, int win,
+    int shift, float eps, float scale, void* stream) {
+  return geovpr_swin_f32_bwd_all_parts(
+      x, qkv, p, ctx, g, wqkv, wo, ln_scale, ln_bias, da, dqkv, h, stats,
+      part, dx, dwqkv, dbqkv, dwo, dbo, dbias, dls, dlb, B, S, C, H, win,
+      shift, eps, scale, 0, 8, stream);
 }

@@ -39,11 +39,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from geovpr_torch.models.backbone import BackboneOutput
-from geovpr_torch.models.layers import DropPath, LayerNorm, Mlp, QuantBlock
+from geovpr_torch.models.layers import (DropPath, LayerNorm, Mlp, QuantBlock,
+                                        conv2d)
 from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
                                        mlp_block_int8_reference)
 
@@ -60,9 +60,9 @@ def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """A conv on an NHWC (B, H, W, C) stream in the stream's dtype (the
     weight and bias cast to it), returning NHWC."""
     dt = x.dtype
-    return F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dt),
-                    conv.bias.to(dt), conv.stride, conv.padding,
-                    conv.dilation, conv.groups).permute(0, 2, 3, 1)
+    return conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dt),
+                  conv.bias.to(dt), conv.stride, conv.padding,
+                  conv.dilation, conv.groups).permute(0, 2, 3, 1)
 
 
 class ConvNeXtBlock(QuantBlock):

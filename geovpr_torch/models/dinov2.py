@@ -41,13 +41,12 @@ so those copies never exist here.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from geovpr_torch.models.backbone import BackboneOutput
 from geovpr_torch.models.layers import (DropPath, LayerNorm, Mlp,
-                                        QuantBlock, lecun_normal_, normal_,
-                                        remat_call)
+                                        QuantBlock, conv2d, lecun_normal_,
+                                        normal_, remat_call)
 from geovpr_torch.ops.mhsa import (fused_mhsa_block, fused_mhsa_block_int8,
                                    fused_mhsa_block_train,
                                    mhsa_attention_unfused,
@@ -218,8 +217,8 @@ class DinoV2(nn.Module):
         """x: (B, H, W, 3) NHWC images."""
         conv, dt = self.patch_embed, self.dtype
         b = x.shape[0]
-        x = F.conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt),
-                     conv.bias.to(dt), stride=self.patch_size)  # (B, D, h, w)
+        x = conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt),
+                   conv.bias.to(dt), stride=self.patch_size)  # (B, D, h, w)
         x = x.flatten(2).transpose(1, 2)                      # (B, h*w, D)
         x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1), x], dim=1)
         x = (x + self.pos_embed.to(dt)).contiguous()

@@ -8,6 +8,7 @@ explicit `torch.Generator` with the JAX package's initialiser families
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -16,6 +17,64 @@ from torch import nn
 
 from geovpr_torch.ops import quant
 from geovpr_torch.ops.quant import act_scale, amax_into, quantize_weight
+
+
+@contextlib.contextmanager
+def _exact_conv():
+    """cuDNN's TF32 off and its deterministic algorithms on inside the
+    block, the process-wide settings restored after: torch's default lets
+    cuDNN convolve f32 in TF32 (a 10-bit mantissa) and pick a weight
+    gradient algorithm that sums in a varying order, so that a training
+    step would not repeat bit for bit."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32, cudnn.deterministic = False, True
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic = prev
+
+
+class _Conv2dF32(torch.autograd.Function):
+    """F.conv2d and its backward inside `_exact_conv`."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (bias is not None, stride, padding, dilation, groups)
+        with _exact_conv():
+            return F.conv2d(x, weight, bias, stride, padding, dilation,
+                            groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        has_bias, stride, padding, dilation, groups = ctx.conf
+        need = ctx.needs_input_grad
+        with _exact_conv():
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                g, x, weight, [weight.shape[0]] if has_bias else None,
+                _pair(stride), _pair(padding), _pair(dilation), False,
+                [0, 0], groups, [need[0], need[1], has_bias and need[2]])
+        return dx, dw, db, None, None, None, None
+
+
+def _pair(v) -> list:
+    return list(v) if isinstance(v, (tuple, list)) else [v, v]
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor | None = None, stride=1, padding=0,
+           dilation=1, groups=1) -> torch.Tensor:
+    """`F.conv2d`, in full f32 for an f32 x: cuDNN's TF32 off and its
+    deterministic algorithms on while the convolution and its backward run
+    (`_Conv2dF32`), as the JAX package convolves f32 in f32 and a training
+    step repeats bit for bit; other dtypes go to `F.conv2d` as they are.
+    The models' convolutions all come here."""
+    if x.dtype != torch.float32:
+        return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+    return _Conv2dF32.apply(x, weight, bias, stride, padding, dilation,
+                            groups)
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -303,9 +362,9 @@ class ConvBNAct(nn.Module):
         if self.pad is not None:
             x = F.pad(x, self.pad)
         conv = self.conv
-        x = self.bn(F.conv2d(x, conv.weight.to(self.dtype), None,
-                             conv.stride, conv.padding, conv.dilation,
-                             conv.groups))
+        x = self.bn(conv2d(x, conv.weight.to(self.dtype), None,
+                           conv.stride, conv.padding, conv.dilation,
+                           conv.groups))
         return F.silu(x) if self.use_act else x
 
 
@@ -331,8 +390,8 @@ class SqueezeExcite(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         s = x.mean(dim=(2, 3), keepdim=True).to(dt)
-        s = F.silu(F.conv2d(s, self.fc1.weight.to(dt), self.fc1.bias.to(dt)))
-        s = F.conv2d(s, self.fc2.weight.to(dt), self.fc2.bias.to(dt))
+        s = F.silu(conv2d(s, self.fc1.weight.to(dt), self.fc1.bias.to(dt)))
+        s = conv2d(s, self.fc2.weight.to(dt), self.fc2.bias.to(dt))
         return x * torch.sigmoid(s)
 
 

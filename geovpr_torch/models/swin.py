@@ -71,12 +71,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from geovpr_torch.models.backbone import BackboneOutput
 from geovpr_torch.models.layers import (DropPath, LayerNorm, Mlp, QuantBlock,
-                                        lecun_normal_, remat_call)
+                                        conv2d, lecun_normal_, remat_call)
 from geovpr_torch.ops.mlp_int8 import (fused_mlp_block_int8,
                                        mlp_block_int8_reference)
 from geovpr_torch.ops.patch_merge import (fused_patch_merge,
@@ -300,8 +299,8 @@ class SwinTransformer(nn.Module):
     def forward(self, x: torch.Tensor) -> BackboneOutput:
         """x: (B, H, W, 3) NHWC images."""
         conv, dt = self.patch_embed, self.dtype
-        x = F.conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt),
-                     conv.bias.to(dt), stride=self.patch_size)
+        x = conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt),
+                   conv.bias.to(dt), stride=self.patch_size)
         x = self.embed_norm(x.flatten(2).transpose(1, 2).contiguous())
         remat = self.remat and torch.is_grad_enabled()
         for name in self.layers:

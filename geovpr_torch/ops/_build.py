@@ -156,6 +156,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         "geovpr_swin_train_bwd_all_parts": [vp] * 22 + [ci] * 6 + [cf, cf, ci,
                                                                   ci, vp],
         "geovpr_swin_train_scratch_floats": [ci] * 5,
+        # the f32 forms of K9a (f32_serving.cu: the bf16 entry's arguments
+        # without the scaled q copy), K9b and K9c (f32_train.cu: the bf16
+        # entries' arguments)
+        "geovpr_swin_f32_train_fwd": [vp] * 12 + [ci] * 6 + [cf, cf, vp],
+        "geovpr_swin_f32_train_fwd_parts": [vp] * 12 + [ci] * 6 + [cf, cf,
+                                                                  ci, ci,
+                                                                  vp],
+        "geovpr_swin_f32_bwd_core": [vp] * 6 + [ci] * 6 + [cf, vp],
+        "geovpr_swin_f32_bwd_all": [vp] * 22 + [ci] * 6 + [cf, cf, vp],
+        "geovpr_swin_f32_bwd_all_parts": [vp] * 22 + [ci] * 6 + [cf, cf, ci,
+                                                                ci, vp],
+        "geovpr_swin_f32_scratch_floats": [ci] * 5,
         # K8b/K8c (mhsa_train.cu; K8a is K1): pointers, B N D H, floats,
         # stream; K8c's _parts also takes the first and last of its launches
         "geovpr_vit_train_bwd_core": [vp] * 4 + [ci] * 4 + [cf, vp],
@@ -183,6 +195,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "geovpr_window_attention_init": [],
         "geovpr_f32_serving_init": [],
         "geovpr_f32_train_init": [],
+        "geovpr_f32_swin_train_init": [],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -194,6 +207,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.geovpr_vit_core_scratch_elems.restype = ctypes.c_longlong
     lib.geovpr_vit_f32_scratch_floats.restype = ctypes.c_longlong
     lib.geovpr_vit_f32_core_scratch_floats.restype = ctypes.c_longlong
+    lib.geovpr_swin_f32_scratch_floats.restype = ctypes.c_longlong
 
 
 @functools.lru_cache(maxsize=None)

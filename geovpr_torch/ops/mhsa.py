@@ -26,7 +26,8 @@ from geovpr_torch.ops.quant import (amax_into, attn_mode, check_devices,
                                     int8_resid_reference, layer_norm_f32,
                                     ln_quant_reference, mode_constants,
                                     qkv_buffers, qkv_part_reference,
-                                    round_clip_int8, serving_dtype_error)
+                                    round_clip_int8, serving_dtype_error,
+                                    training_dtype_error)
 from geovpr_torch.ops.swin_block import (_heads, _ln_parts, _proj, _stream,
                                          _unheads)
 
@@ -619,22 +620,8 @@ def k8_dtype_error(dtypes: dict) -> str | None:
     `csrc/mhsa_train.cu`) or all f32 (`csrc/f32_serving.cu`,
     `csrc/f32_train.cu`), every other tensor (the vectors) f32. The
     message, naming the tensor that breaks the rule, or None where it
-    holds."""
-    stream = [k for k in _K8_STREAM if k in dtypes]
-    got = [dtypes[k] for k in stream]
-    want = max(got, key=got.count) if got else torch.bfloat16
-    if want not in (torch.bfloat16, torch.float32):
-        return (f"K8 takes {', '.join(stream)} all torch.bfloat16 or all "
-                f"torch.float32 on CUDA, got {want}")
-    for name in stream:
-        if dtypes[name] != want:
-            return (f"K8 takes {', '.join(stream)} in one dtype, "
-                    f"torch.bfloat16 or torch.float32, on CUDA: {name} is "
-                    f"{dtypes[name]}, the rest {want}")
-    for name, t in dtypes.items():
-        if name not in stream and t != torch.float32:
-            return f"K8 takes {name} in torch.float32 on CUDA, got {t}"
-    return None
+    holds (`quant.training_dtype_error`)."""
+    return training_dtype_error("K8", dtypes, _K8_STREAM)
 
 
 def _check_cuda_args(tensors: dict, d: int, num_heads: int,

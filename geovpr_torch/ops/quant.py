@@ -223,6 +223,31 @@ def serving_dtype_error(name: str, dtypes: dict,
     return None
 
 
+def training_dtype_error(name: str, dtypes: dict,
+                         stream: tuple) -> str | None:
+    """The type rule of the training kernels K8a-K8c and K9a-K9c on CUDA,
+    each of which has a bf16 and an f32 form: the tensors of `dtypes`
+    (name -> dtype) named in `stream` (the activations, matrices, residuals
+    and gradients) all bf16 or all f32, every other one (the vectors, the
+    table) f32. The message, naming the tensor that breaks the rule against
+    the dtype most of the stream has, or None where it holds."""
+    names = [k for k in stream if k in dtypes]
+    got = [dtypes[k] for k in names]
+    want = max(got, key=got.count) if got else torch.bfloat16
+    if want not in (torch.bfloat16, torch.float32):
+        return (f"{name} takes {', '.join(names)} all torch.bfloat16 or all "
+                f"torch.float32 on CUDA, got {want}")
+    for k in names:
+        if dtypes[k] != want:
+            return (f"{name} takes {', '.join(names)} in one dtype, "
+                    f"torch.bfloat16 or torch.float32, on CUDA: {k} is "
+                    f"{dtypes[k]}, the rest {want}")
+    for k, t in dtypes.items():
+        if k not in names and t != torch.float32:
+            return f"{name} takes {k} in torch.float32 on CUDA, got {t}"
+    return None
+
+
 def check_int8_kernel_args(x, mats: dict, vecs: dict, extra=()) -> None:
     """What the int8 kernels take on CUDA: bf16 x (and `extra` tensors),
     int8 matrices, f32 vectors, all contiguous, on x's device, forward

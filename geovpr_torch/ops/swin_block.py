@@ -40,7 +40,7 @@ from geovpr_torch.ops.quant import (attn_mode, check_devices,
                                     layer_norm_f32, ln_quant_reference,
                                     mode_constants, qkv_buffers,
                                     qkv_part_reference, round_clip_int8,
-                                    serving_dtype_error)
+                                    serving_dtype_error, training_dtype_error)
 from geovpr_torch.ops.window_attention import (_raster_ctx, _windows_qkv,
                                                add_bias_mask, from_windows,
                                                relative_position_bias,
@@ -653,7 +653,11 @@ fused_swin_attn_block_int8.launches = 0
 # `_train_bwd_all_kernel`); the wrappers take the raster stream as K4 does,
 # so the shifted blocks' partition and its inverse (JAX's `repartition` and
 # `roll_relayout`, K10b) are the kernels' row addressing. On CUDA the
-# residuals are qkv and ctx in raster order and p (BW, H, N, N).
+# residuals are qkv and ctx in raster order and p (BW, H, N, N). Each
+# kernel has a bf16 form (`csrc/swin_train.cu`) and an f32 form for a Swin
+# built with compute_dtype="float32" (K9a.f32 on K4.f32's launches in
+# `csrc/f32_serving.cu`, K9b.f32 and K9c.f32 in `csrc/f32_train.cu`); the
+# wrappers take the form of the stream's dtype (`k9_dtype_error`).
 
 _TRAIN_WINDOW = 12          # the training kernels take N = 144
 
@@ -838,31 +842,36 @@ def k9_shape_error(c: int, num_heads: int, window: int,
     return None
 
 
+# the tensors of K9a-K9c that share one dtype: the stream, the matrices,
+# the residuals and the gradients
+_K9_STREAM = ("x", "wqkv", "wo", "qkv", "ctx", "p", "g", "da")
+
+
 def k9_dtype_error(dtypes: dict) -> str | None:
-    """The type rule of the training kernels K9a-K9c on CUDA: bf16 stream,
-    residuals, gradients and matrices, f32 vectors and table (their f32
-    forms are still to be ported). The message, or None where the rule
-    holds."""
-    for name, t in dtypes.items():
-        want = (torch.float32 if name in ("ln_scale", "ln_bias", "bqkv",
-                                          "bo", "table") else torch.bfloat16)
-        if t != want:
-            return f"{name} must be {want} on CUDA, got {t}"
-    return None
+    """The type rule of the training kernels K9a-K9c on CUDA (name -> dtype
+    of the tensors a wrapper takes): the stream, matrices, residuals and
+    gradients (`_K9_STREAM`) all bf16 (`csrc/swin_train.cu`) or all f32
+    (K9a.f32 in `csrc/f32_serving.cu`, K9b.f32 and K9c.f32 in
+    `csrc/f32_train.cu`), the vectors and the table f32. The message,
+    naming the tensor that breaks the rule, or None where it holds
+    (`quant.training_dtype_error`)."""
+    return training_dtype_error("K9", dtypes, _K9_STREAM)
 
 
 def _check_train_cuda(tensors: dict, c, num_heads, window, shift):
-    """What the training kernels take on CUDA: `k9_dtype_error`'s types,
-    contiguous and 16-byte aligned (TMA); `k9_shape_error`'s geometry."""
+    """What the training kernels take on CUDA: contiguous and 16-byte
+    aligned (TMA, float4 loads); `k9_dtype_error`'s types, the whole set
+    at once; `k9_shape_error`'s geometry."""
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        err = k9_dtype_error({name: t.dtype})
-        if err:
-            raise TypeError(err)
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start 16-byte aligned (the "
-                             f"training kernels read it by TMA)")
+                             f"training kernels read it by TMA and 16-byte "
+                             f"loads)")
+    err = k9_dtype_error({k: t.dtype for k, t in tensors.items()})
+    if err:
+        raise TypeError(err)
     err = k9_shape_error(c, num_heads, window, shift)
     if err:
         raise ValueError(err)
@@ -885,9 +894,32 @@ def _check_residuals(b, l, c, num_heads, resolution, window, shift,
     check_devices(first, tensors)
 
 
-def _train_lib(device):
+# the C entries of K9a-K9c by stream dtype, by role: the library's init
+# (the shared-memory limits of that form), K9a whole and by launches, K9b,
+# K9c whole and by launches, and the floats of the backward's scratch
+_K9_ENTRIES = {
+    torch.bfloat16: dict(
+        init="geovpr_swin_train_init", fwd="geovpr_swin_train_fwd",
+        fwd_parts="geovpr_swin_train_fwd_parts",
+        core="geovpr_swin_train_bwd_core", all="geovpr_swin_train_bwd_all",
+        all_parts="geovpr_swin_train_bwd_all_parts",
+        scratch="geovpr_swin_train_scratch_floats"),
+    torch.float32: dict(
+        init="geovpr_f32_swin_train_init", fwd="geovpr_swin_f32_train_fwd",
+        fwd_parts="geovpr_swin_f32_train_fwd_parts",
+        core="geovpr_swin_f32_bwd_core", all="geovpr_swin_f32_bwd_all",
+        all_parts="geovpr_swin_f32_bwd_all_parts",
+        scratch="geovpr_swin_f32_scratch_floats")}
+
+
+def _train_entries(device, dtype) -> dict:
+    """The C entries of K9's form for a `dtype` stream (`_K9_ENTRIES`) by
+    role, the form's init run on `device` first (once per device)."""
     from geovpr_torch.ops._build import library_on
-    return library_on(device.index, "geovpr_swin_train_init")
+    names = _K9_ENTRIES[dtype]
+    lib = library_on(device.index, names["init"])
+    return {role: getattr(lib, n) for role, n in names.items()
+            if role != "init"}
 
 
 def _stream(device):
@@ -984,10 +1016,10 @@ def fused_swin_attn_train_fwd(x: torch.Tensor, ln_scale: torch.Tensor,
         raise ValueError(f"unsupported device {x.device}")
     _check_train_cuda({"x": x, **got}, c, num_heads, window, shift)
     bufs = k9a_buffers(x, num_heads, window)
-    lib, args = _k9a_args(x, got, num_heads, resolution, window, shift,
-                          ln_eps, bufs)
+    entries, args = _k9a_args(x, got, num_heads, resolution, window, shift,
+                              ln_eps, bufs)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_swin_train_fwd(*args, _stream(x.device))
+        rc = entries["fwd"](*args, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"swin_train_fwd launch failed: CUDA error {rc}")
     fused_swin_attn_train_fwd.launches += 1
@@ -995,31 +1027,38 @@ def fused_swin_attn_train_fwd(x: torch.Tensor, ln_scale: torch.Tensor,
 
 
 def k9a_buffers(x: torch.Tensor, num_heads: int, window: int) -> dict:
-    """K9a's outputs and scratch for a (B, L, C) stream x, by name: qkv,
-    qs (the scaled q copy), ctx (the LN output until the attention writes
-    ctx), p and y."""
+    """K9a's outputs and scratch for a (B, L, C) stream x (bf16 or f32), by
+    name: qkv, ctx (the LN output until the attention writes ctx), p and y;
+    for a bf16 stream also qs, the scaled q copy (the f32 form's attention
+    scales q as it reads it, the same f32 product)."""
     b, l, c = x.shape
     n = window * window
 
-    def bf16(*shape):
+    def buf(*shape):
         return torch.empty(shape, dtype=x.dtype, device=x.device)
 
-    return dict(qkv=bf16(b, l, 3 * c), qs=bf16(b, l, c), ctx=bf16(b, l, c),
-                p=bf16(b * l // n, num_heads, n, n), y=bf16(b, l, c))
+    bufs = dict(qkv=buf(b, l, 3 * c), ctx=buf(b, l, c),
+                p=buf(b * l // n, num_heads, n, n), y=buf(b, l, c))
+    if x.dtype == torch.bfloat16:
+        bufs["qs"] = buf(b, l, c)
+    return bufs
 
 
 def _k9a_args(x, got: dict, num_heads, resolution, window, shift, ln_eps,
               bufs: dict):
-    """The library and K9a's C arguments (but the first and last launch
-    and the stream) for checked CUDA tensors and `k9a_buffers` `bufs`."""
-    lib = _train_lib(x.device)
+    """K9a's C entries (`_train_entries`) and C arguments (but the first
+    and last launch and the stream) for checked CUDA tensors and
+    `k9a_buffers` `bufs`."""
+    outs = ("qkv", "qs", "ctx", "p", "y") if "qs" in bufs else (
+        "qkv", "ctx", "p", "y")
     ptrs = [x] + [got[k] for k in ("ln_scale", "ln_bias", "wqkv", "bqkv",
                                    "wo", "bo", "table")] + [
-        bufs[k] for k in ("qkv", "qs", "ctx", "p", "y")]
+        bufs[k] for k in outs]
     c = x.shape[-1]
     qscale = (c // num_heads) ** -0.5 * LOG2E
-    return lib, (*(t.data_ptr() for t in ptrs), x.shape[0], resolution, c,
-                 num_heads, window, shift, float(ln_eps), float(qscale))
+    return _train_entries(x.device, x.dtype), (
+        *(t.data_ptr() for t in ptrs), x.shape[0], resolution, c, num_heads,
+        window, shift, float(ln_eps), float(qscale))
 
 
 def k9a_launch_part(part: int, x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
@@ -1033,11 +1072,10 @@ def k9a_launch_part(part: int, x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
     got = {"ln_scale": ln_scale, "ln_bias": ln_bias, "wqkv": wqkv,
            "bqkv": bqkv, "wo": wo, "bo": bo, "table": table}
     _check_train_cuda({"x": x, **got}, x.shape[-1], num_heads, window, shift)
-    lib, args = _k9a_args(x, got, num_heads, resolution, window, shift,
-                          ln_eps, bufs)
+    entries, args = _k9a_args(x, got, num_heads, resolution, window, shift,
+                              ln_eps, bufs)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_swin_train_fwd_parts(*args, part, part,
-                                             _stream(x.device))
+        rc = entries["fwd_parts"](*args, part, part, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"swin_train_fwd launch failed: CUDA error {rc}")
 
@@ -1045,9 +1083,10 @@ def k9a_launch_part(part: int, x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
 fused_swin_attn_train_fwd.launches = 0
 
 
-def _train_scratch(lib, b, resolution, c, num_heads, window, device):
-    floats = lib.geovpr_swin_train_scratch_floats(b, resolution, c,
-                                                  num_heads, window)
+def _train_scratch(entries, b, resolution, c, num_heads, window, device):
+    """The f32 scratch K9b and K9c take (`part`): their partial sums; in
+    the f32 form also the core's ds plane (BW, H, N, N)."""
+    floats = entries["scratch"](b, resolution, c, num_heads, window)
     return torch.empty(floats, dtype=torch.float32, device=device)
 
 
@@ -1056,7 +1095,8 @@ def fused_swin_attn_bwd_core(qkv: torch.Tensor, p: torch.Tensor,
                              resolution: int, window: int, shift: int):
     """K9b on raster residuals: qkv (B, L, 3C), p (BW, H, N, N), da (B, L,
     C) -> dqkv (B, L, 3C), dbias (H, N, N) f32. CPU tensors run the plain
-    version; CUDA tensors launch K9b or raise."""
+    version; CUDA tensors launch K9b (all bf16 or all f32,
+    `k9_dtype_error`) or raise."""
     b, l, c3 = qkv.shape
     c = c3 // 3
     _check_residuals(b, l, c, num_heads, resolution, window, shift,
@@ -1070,15 +1110,15 @@ def fused_swin_attn_bwd_core(qkv: torch.Tensor, p: torch.Tensor,
         raise ValueError(f"unsupported device {qkv.device}")
     _check_train_cuda({"qkv": qkv, "p": p, "da": da}, c, num_heads, window,
                       shift)
-    lib = _train_lib(qkv.device)
+    entries = _train_entries(qkv.device, qkv.dtype)
     n = window * window
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((num_heads, n, n), dtype=torch.float32,
                         device=qkv.device)
-    part = _train_scratch(lib, b, resolution, c, num_heads, window,
+    part = _train_scratch(entries, b, resolution, c, num_heads, window,
                           qkv.device)
     with torch.cuda.device(qkv.device):
-        rc = lib.geovpr_swin_train_bwd_core(
+        rc = entries["core"](
             qkv.data_ptr(), p.data_ptr(), da.data_ptr(), dqkv.data_ptr(),
             part.data_ptr(), dbias.data_ptr(), b, resolution, c, num_heads,
             window, shift, float((c // num_heads) ** -0.5),
@@ -1110,8 +1150,8 @@ def fused_swin_attn_bwd_all(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p, g,
     """K9c on the raster stream: the whole attention-half backward from
     K9a's residuals and g = dL/dy (B, L, C). Returns dx (B, L, C), dls,
     dlb, dwqkv, dbqkv, dwo, dbo (f32) and dbias (H, N, N) f32. CPU tensors
-    run the plain all-in-one form; CUDA tensors launch K9c (C <= 512) or
-    raise."""
+    run the plain all-in-one form; CUDA tensors launch K9c (C <= 512; all
+    bf16 or all f32, `k9_dtype_error`) or raise."""
     b, l, c = x.shape
     _check_residuals(b, l, c, num_heads, resolution, window, shift, {
         "x": x, "ln_scale": ln_scale, "ln_bias": ln_bias, "wqkv": wqkv,
@@ -1130,10 +1170,11 @@ def fused_swin_attn_bwd_all(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p, g,
         raise ValueError(f"K9c takes C <= 512 (the split backward with K9b "
                          f"takes the wider blocks), got C={c}")
     bufs = k9c_buffers(x, num_heads, resolution, window)
-    lib, args = _k9c_args(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p, g,
-                          num_heads, resolution, window, shift, ln_eps, bufs)
+    entries, args = _k9c_args(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p, g,
+                              num_heads, resolution, window, shift, ln_eps,
+                              bufs)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_swin_train_bwd_all(*args, _stream(x.device))
+        rc = entries["all"](*args, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"swin_train_bwd_all launch failed: CUDA error "
                            f"{rc}")
@@ -1150,12 +1191,12 @@ _K9C_OUTS = ("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo", "dbo", "dbias")
 
 def k9c_buffers(x: torch.Tensor, num_heads: int, resolution: int,
                 window: int) -> dict:
-    """K9c's scratch and outputs for a CUDA stream x (B, L, C), by name:
-    da (dh once the dh launch has run), h, dqkv, stats, part and the
-    outputs `fused_swin_attn_bwd_all` returns."""
+    """K9c's scratch and outputs for a CUDA stream x (B, L, C), bf16 or
+    f32, by name: da (dh once the dh launch has run), h, dqkv, stats, part
+    and the outputs `fused_swin_attn_bwd_all` returns."""
     b, l, c = x.shape
     n = window * window
-    lib = _train_lib(x.device)
+    entries = _train_entries(x.device, x.dtype)
     dev = x.device
 
     def f32(*shape):
@@ -1165,23 +1206,24 @@ def k9c_buffers(x: torch.Tensor, num_heads: int, resolution: int,
         da=torch.empty_like(x), h=torch.empty_like(x), dx=torch.empty_like(x),
         dqkv=torch.empty((b, l, 3 * c), dtype=x.dtype, device=dev),
         stats=f32(b * l, 2),
-        part=_train_scratch(lib, b, resolution, c, num_heads, window, dev),
+        part=_train_scratch(entries, b, resolution, c, num_heads, window,
+                            dev),
         dwqkv=f32(c, 3 * c), dbqkv=f32(3 * c), dwo=f32(c, c), dbo=f32(c),
         dbias=f32(num_heads, n, n), dls=f32(c), dlb=f32(c))
 
 
 def _k9c_args(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p, g, num_heads,
               resolution, window, shift, ln_eps, bufs: dict):
-    """The library and K9c's C arguments (but the first and last launch
-    and the stream) for checked CUDA tensors and `k9c_buffers` `bufs`."""
-    lib = _train_lib(x.device)
+    """K9c's C entries (`_train_entries`) and C arguments (but the first
+    and last launch and the stream) for checked CUDA tensors and
+    `k9c_buffers` `bufs`."""
     ptrs = [x, qkv, p, ctx, g, wqkv, wo, ln_scale, ln_bias] + [
         bufs[k] for k in ("da", "dqkv", "h", "stats", "part", "dx", "dwqkv",
                           "dbqkv", "dwo", "dbo", "dbias", "dls", "dlb")]
     c = x.shape[-1]
-    return lib, (*(t.data_ptr() for t in ptrs), x.shape[0], resolution, c,
-                 num_heads, window, shift, float(ln_eps),
-                 float((c // num_heads) ** -0.5))
+    return _train_entries(x.device, x.dtype), (
+        *(t.data_ptr() for t in ptrs), x.shape[0], resolution, c, num_heads,
+        window, shift, float(ln_eps), float((c // num_heads) ** -0.5))
 
 
 def k9c_launch_part(part: int, x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p,
@@ -1193,11 +1235,11 @@ def k9c_launch_part(part: int, x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p,
     from an earlier call it reads. chip_smoke.py times K9c's launches one
     by one with it and the card tests check each against its plain part;
     it counts no launch."""
-    lib, args = _k9c_args(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p, g,
-                          num_heads, resolution, window, shift, ln_eps, bufs)
+    entries, args = _k9c_args(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p, g,
+                              num_heads, resolution, window, shift, ln_eps,
+                              bufs)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_swin_train_bwd_all_parts(*args, part, part,
-                                                 _stream(x.device))
+        rc = entries["all_parts"](*args, part, part, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"swin_train_bwd_all launch failed: CUDA error "
                            f"{rc}")
@@ -1211,8 +1253,9 @@ def swin_attn_train_bwd_split(x, ln_scale, ln_bias, wqkv, wo, qkv, ctx, p,
                               window: int, shift: int, ln_eps: float = 1e-5):
     """The split backward of the C > 512 blocks (`_train_bwd_core`'s else
     branch): da, dWo, dbo, the LN recompute and VJP, dWqkv, dbqkv and dh as
-    torch ops (bf16 products with f32 accumulation, as JAX leaves them to
-    XLA) around K9b (`fused_swin_attn_bwd_core`). Same returns as
+    torch ops (products in the stream dtype with f32 accumulation, as JAX
+    leaves them to XLA; f32 ones in full f32, torch's default) around K9b
+    (`fused_swin_attn_bwd_core`). Same returns as
     `fused_swin_attn_bwd_all`."""
     b, l, c = x.shape
     dt = x.dtype

@@ -1833,3 +1833,122 @@ def test_world1_nccl_step_bit_equal_to_the_single_process_step(cuda,
         assert torch.equal(state.model.state_dict()[k], v), k
     for k, v in ref.opt.mu.items():
         assert torch.equal(state.opt.mu[k], v), k
+
+
+_K9_F32_SHAPES = [(2, 128, 4, 24, 12, 6), (1, 256, 8, 24, 12, 6),
+                  (1, 512, 16, 24, 12, 6), (2, 1024, 32, 12, 12, 0)]
+
+
+@pytest.mark.parametrize("shape", _K9_F32_SHAPES)
+def test_k9_f32_matches_plain_version(cuda, shape):
+    """chip_smoke's [f32_training] K9 check at small batches of
+    Swin-B-384's four stage widths: K9a.f32 and (C <= 512) K9c.f32, whole
+    and launch by launch, and K9b.f32 against their plain f32 versions
+    within F32_BRANCH_REL (a column sum within F32_COLSUM_SLACK x the plain
+    version's own error against f64); one launch each call."""
+    from chip_smoke import f32_k9_kernels_vs_plain
+    from geovpr_torch.ops import swin_block as sb
+    fns = (sb.fused_swin_attn_train_fwd, sb.fused_swin_attn_bwd_core,
+           sb.fused_swin_attn_bwd_all)
+    before = [f.launches for f in fns]
+    k9c = shape[1] <= 512
+    f32_k9_kernels_vs_plain(cuda, k9a=(shape,), k9b=(shape,),
+                            k9c=(shape,) if k9c else ())
+    # K9a.f32 and K9c.f32 once whole in the check and once after their
+    # launches one by one
+    assert [f.launches - b for f, b in zip(fns, before)] == \
+        [2, 1, 2 if k9c else 0]
+
+
+def test_k9_f32_repeats_bit_for_bit(cuda):
+    """K9a.f32, K9b.f32 and K9c.f32 called twice on the same inputs give
+    the same bits (fixed-order sums, no atomics): a step and its resume
+    agree."""
+    from chip_smoke import k9_case
+    from geovpr_torch.ops import swin_block as sb
+    a, g, geom = k9_case((2, 128, 4, 24, 12, 6), cuda, dtype=torch.float32)
+    geo = tuple(geom.values())
+    fa = [a[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "bqkv", "wo",
+                         "bo", "table")]
+    with torch.no_grad():
+        runs = []
+        for _ in range(2):
+            y, qkv, ctx, p = sb.fused_swin_attn_train_fwd(*fa, *geo)
+            core = sb.fused_swin_attn_bwd_core(qkv, p, g, *geo)
+            grads = sb.fused_swin_attn_bwd_all(fa[0], fa[1], fa[2], fa[3],
+                                               fa[5], qkv, ctx, p, g, *geo)
+            runs.append((y, qkv, ctx, p, *core, *grads))
+        torch.cuda.synchronize()
+    assert all(t.dtype == torch.float32 for t in runs[0])
+    assert all(torch.equal(u, v) for u, v in zip(*runs))
+
+
+def test_swin_f32_train_launches_per_step(cuda):
+    """A two-stage window-12 Swin built in f32 (C = 320, then 640) under
+    grad: one K9a.f32 per block, K9c.f32 in the C <= 512 blocks and
+    K9b.f32 in the C = 640 one, each on an f32 stream, no K4, and finite
+    f32 gradients for every parameter."""
+    from chip_smoke import k9_dtypes
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.swin import SwinTransformer
+    from geovpr_torch.ops import swin_block as sb
+
+    model = SwinTransformer(embed_dim=320, depths=(2, 1), num_heads=(10, 20),
+                            window_size=12, image_size=96,
+                            dtype=torch.float32)
+    init_weights_(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).train()
+    x = torch.randn(2, 96, 96, 3, device=cuda)
+    fns = (sb.fused_swin_attn_train_fwd, sb.fused_swin_attn_bwd_all,
+           sb.fused_swin_attn_bwd_core, sb.fused_swin_attn_block)
+    before = [f.launches for f in fns]
+    with k9_dtypes() as seen:
+        loss = model(x).pooled.square().sum()
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [3, 2, 1, 0]
+    assert seen == {("k9", torch.float32)}
+    assert all(bool(torch.isfinite(g).all()) and g.dtype == torch.float32
+               for g in grads)
+
+
+def test_k9_f32_refuses_a_mixed_set_on_cuda(cuda):
+    """An f32 stream with bf16 matrices, residuals or gradients (or the
+    other way round) raises TypeError naming the tensor, before any
+    launch: no f32 CUDA call gives way to the plain version."""
+    from chip_smoke import k9_case
+    from geovpr_torch.ops import swin_block as sb
+    a, g, geom = k9_case((1, 128, 4, 24, 12, 6), cuda, dtype=torch.float32)
+    geo = tuple(geom.values())
+    fa = [a[k] for k in ("x", "ln_scale", "ln_bias", "wqkv", "bqkv", "wo",
+                         "bo", "table")]
+    fns = (sb.fused_swin_attn_train_fwd, sb.fused_swin_attn_bwd_core,
+           sb.fused_swin_attn_bwd_all)
+    before = [f.launches for f in fns]
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="wqkv is torch.bfloat16"):
+            sb.fused_swin_attn_train_fwd(*fa[:3], fa[3].bfloat16(), *fa[4:],
+                                         *geo)
+        with pytest.raises(TypeError, match="x is torch.bfloat16"):
+            sb.fused_swin_attn_train_fwd(fa[0].bfloat16(), *fa[1:], *geo)
+        _, qkv, ctx, p = sb._train_plain_fwd(*fa, *geo, 1e-5)
+        with pytest.raises(TypeError, match="p is torch.bfloat16"):
+            sb.fused_swin_attn_bwd_core(qkv, p.bfloat16(), g, *geo)
+        with pytest.raises(TypeError, match="g is torch.bfloat16"):
+            sb.fused_swin_attn_bwd_all(fa[0], fa[1], fa[2], fa[3], fa[5], qkv,
+                                       ctx, p, g.bfloat16(), *geo)
+    assert [f.launches for f in fns] == before
+
+
+def test_f32_patch_embedding_runs_without_tf32(cuda):
+    """chip_smoke's TF32 check of the f32 Swin-B-384's patch embedding with
+    cuDNN's TF32 setting at torch's default (on): the port's `conv2d`, its
+    output and weight gradient, within F32_BRANCH_REL of f64, and the
+    setting as it was after the call."""
+    from chip_smoke import f32_tf32_conv_check
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        f32_tf32_conv_check(cuda)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev

@@ -2,9 +2,10 @@
 f32 activations and matrices (`geovpr_torch/csrc/f32_serving.cu`) as
 well as bf16 ones, for models built with compute_dtype="float32".
 
-Here, without a card: the type rules as pure functions (the Swin
-training kernels K9 still refuse f32; DINOv2's K8 take it,
-tests/test_torch_f32_training.py), the f32 models' blocks and boundaries
+Here, without a card: the type rules as pure functions (the training
+kernels' too: DINOv2's K8 and Swin's K9 take an f32 set as well,
+tests/test_torch_f32_training.py and
+tests/test_torch_f32_swin_training.py), the f32 models' blocks and boundaries
 routed through the kernel wrappers with f32 streams and matrices (on CPU
 tensors the wrappers run their plain versions), `cli.parity`'s salad leg
 built with its kernels on, and the bound arithmetic of chip_smoke.py's
@@ -82,23 +83,21 @@ def test_serving_rules_refuse_mixed_types(kernel):
     (k9_dtype_error, ("ln_scale", "ln_bias", "bqkv", "bo", "table"))],
     ids=["K8", "K9"])
 def test_training_rules_still_refuse_f32(rule, vectors):
-    """K8a-K8c take an all-bf16 and an all-f32 set (the f32 forms in
-    `csrc/f32_serving.cu` and `csrc/f32_train.cu`) and refuse a mixed one,
-    naming the odd tensor; K9a-K9c take bf16 only and refuse f32 (Swin's
-    f32 training is later work)."""
+    """K8a-K8c and K9a-K9c take an all-bf16 and an all-f32 set (the f32
+    forms in `csrc/f32_serving.cu` and `csrc/f32_train.cu`) and refuse a
+    mixed one, naming the odd tensor, and a vector off f32."""
     tensors = ("x", "wqkv", "wo", "qkv", "ctx", "g")
     vecs = dict.fromkeys(vectors, F32)
     assert rule({**dict.fromkeys(tensors, BF16), **vecs}) is None
-    if rule is k8_dtype_error:
-        assert rule({**dict.fromkeys(tensors, F32), **vecs}) is None
+    assert rule({**dict.fromkeys(tensors, F32), **vecs}) is None
     for name in tensors:
         err = rule({**dict.fromkeys(tensors, BF16), **vecs, name: F32})
+        assert err and f"{name} is torch.float32" in err
+        err = rule({**dict.fromkeys(tensors, F32), **vecs, name: BF16})
+        assert err and f"{name} is torch.bfloat16" in err
+    for name in vectors:
+        err = rule({**dict.fromkeys(tensors, F32), **vecs, name: BF16})
         assert err and name in err
-        if rule is k8_dtype_error:
-            err = rule({**dict.fromkeys(tensors, F32), **vecs, name: BF16})
-            assert err and f"{name} is torch.bfloat16" in err
-    if rule is k9_dtype_error:
-        assert rule({**dict.fromkeys(tensors, F32), **vecs})
 
 
 def _recorded(monkeypatch, module, name, mats, calls):
