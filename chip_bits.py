@@ -7,11 +7,14 @@ Each checkout runs in a process of its own (its `geovpr_torch` and its
 `chip_smoke.py` first on the path, this file's `run`), builds its own
 kernels, and saves the outputs of the kernels it runs here on inputs its
 chip_smoke.py draws from seed 0: K1 (bf16 serving) and K8a (K1's
-launches, keeping qkv and ctx) at 64x257x768x12 and 2x1370x768x12, K3 (the
-w8a8 MLP half-block) at 64x257x768x12 and at Swin-B-384's stage 0 and 3
-widths (B=16), K4 and K5 (the bf16 and w8a8 Swin half-blocks; K5 in the
-attention mode the environment gives, the default where neither
-GEOVPR_INT8_QK nor GEOVPR_INT8_PV is set) at stage 0 (B=16), K6 at C =
+launches, keeping qkv and ctx) at 64x257x768x12 and 2x1370x768x12, K2 (the
+w8a8 ViT attention half-block) at 64x257x768x12, K3 (the w8a8 MLP
+half-block) at 64x257x768x12, at Swin-B-384's stage 0 and 3 widths (B=16)
+and at ConvNeXt-B's stage 2 with the separate residual (B=16), K4 and K5
+(the bf16 and w8a8 Swin half-blocks) at stage 0 (B=16), K2 and K5 in the
+attention mode the environment gives (the default where neither
+GEOVPR_INT8_QK nor GEOVPR_INT8_PV is set) and in int8 P.V and bf16 scores
+too, K6 at C =
 128, K9a (the Swin training forward, its y, qkv, ctx and p) and K9b (the
 core backward) at stages 0 and 3 and K9c (the whole backward) at stage 0
 (B=16), K8b and K8c (the ViT half-block's backward) at 16x257x768x12,
@@ -20,9 +23,7 @@ heading model (preset swin_t224_sincos_gemini, bf16; K7 and K6 in it) on
 chip_smoke.py's 64 seed-0 images: its pooled features and predictions;
 and the f32 forms: K1.f32 at 64x257x768x12, K4.f32 at Swin-B-384's stage
 0 (B=16), K6.f32 at C = 128, K7.f32's raster mode at Swin-T-224's stage 0
-(B=64), K8a.f32, K8b.f32 and K8c.f32 at 16x257x768x12.
-K2 is not among them: its attention sums in
-another order than the first port's. The
+(B=64), K8a.f32, K8b.f32 and K8c.f32 at 16x257x768x12. The
 inputs are saved beside the outputs and compared too, so a change in how
 they are drawn shows as such. It prints one line per tensor and exits
 non-zero if any differs. Needs one CUDA card.
@@ -45,6 +46,7 @@ K7_RASTER_SHAPE = (64, 96, 3, 56, 7, 3)
 K9_SHAPE = (16, 128, 4, 96, 12, 6)
 K9_STAGE3 = (16, 1024, 32, 12, 12, 0)
 K8_SHAPE = (16, 257, 768, 12)
+CONVNEXT_K3_SHAPE = (16, 14, 512)
 
 
 def run(out_path: str) -> None:
@@ -81,10 +83,26 @@ def run(out_path: str) -> None:
             res.update({f"K8a.{tag}.out": out, f"K8a.{tag}.qkv": qkv,
                         f"K8a.{tag}.ctx": ctx})
         b, n, d, h = K1_SHAPES[0]
-        x, _, k3 = cs.int8_block_case(b, n, d, h, dev)
+        x, k2, k3 = cs.int8_block_case(b, n, d, h, dev)
         res["input.K3.x"] = x
         res["input.K3.w1q_t"] = k3["w1q_t"]
         res["K3.out"] = fused_mlp_block_int8(x, **k3)
+        res["input.K2.wqkv_q_t"] = k2["wqkv_q_t"]
+        res["K2.out"] = mh.fused_mhsa_block_int8(x, **k2, num_heads=h)
+        for mode in ("int8_pv", "bf16_scores"):
+            with cs.int8_mode(mode):
+                x, k2, _ = cs.int8_block_case(b, n, d, h, dev)
+            res[f"K2.{mode}.out"] = mh.fused_mhsa_block_int8(x, **k2,
+                                                             num_heads=h)
+            with cs.int8_mode(mode):
+                x, blk = cs.swin_block_case(SWIN_SHAPES[0], dev, int8=True)
+            res[f"K5.{mode}.out"] = fused_swin_attn_block_int8(
+                x, **cs.k5_kwargs(blk))
+        del x, k2, k3, blk
+        h2, xr, k3 = cs.convnext_k3_case(CONVNEXT_K3_SHAPE, dev)
+        res["input.K3.convnext.x"] = h2
+        res["K3.convnext.out"] = fused_mlp_block_int8(h2, **k3, residual=xr)
+        del h2, xr, k3
         for shape in SWIN_SHAPES:
             tag = "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape)
             x, blk = cs.swin_block_case(shape, dev, int8=True)

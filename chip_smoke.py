@@ -140,10 +140,26 @@ end to end from seeded random weights:
   launches, finite losses, kernel against plain gradients (cosine at
   least 0.99999 a tensor), a resume and remat bit for bit, a falling loss
   on a fixed batch, the step's times beside the bf16 step's; and
-  `cli.evaluate --run-dir` on the base-14 run, serving on K1.f32.
+  `cli.evaluate --run-dir` on the base-14 run, serving on K1.f32;
+- w8a8 with an f32 stream (`[int8_f32]`), for int8 models built with
+  compute_dtype="float32": the f32 forms of K3 (64x257x768, the four
+  Swin-B-384 stages and ConvNeXt-B's four with the separate residual), K2
+  (64x257x768x12) and K5 (the four Swin-B-384 stages, B=64), K2 and K5 at
+  their main shapes also in int8 P.V and bf16 scores, against their plain
+  f32 versions (the LN-quant rows and the residual epilogue checked launch
+  by launch, the rest of the call under the int8 bound, the whole call
+  within limits set from its readings), timed beside their
+  plain versions, library yardsticks and bounds; Swin-B-384 geopose,
+  Swin-T-224 heading, ConvNeXt-B and DINOv2-B/14 with mean pooling in f32
+  with int8 at B=64, kernel path against plain path (K5 24 on a bf16
+  stream, K3 24 on the f32 one, K6 3; K3 12, K6 3; K3 36; K2 12 on bf16,
+  K3 12), each beside the bf16 w8a8 model on the same weights; then
+  `run_evaluate --int8` on swin_b384_gemini2 at float32, `cli.evaluate
+  --run-dir --int8` on an f32 ConvNeXt-B run and a `cli.fuse --int8`
+  batch over f32 Swin-B-384 and ConvNeXt-B runs.
   `python3 chip_smoke.py --phases
-  index_1m,train_disk,int8_modes,f32_serving,f32_training` runs those
-  phases alone.
+  index_1m,train_disk,int8_modes,f32_serving,f32_training,int8_f32` runs
+  those phases alone.
 
 Kernels checked: K1 (bf16 ViT attention half-block), K2 and K3 (its w8a8
 form and the w8a8 MLP half-block, K3 also at the four Swin-B-384 stage
@@ -152,7 +168,8 @@ K6 (Swin PatchMerging), K7 (the window-7 attention core, on the raster
 qkv and on pre-split windows; the window-7 half is also timed op by op),
 K2 and K5 also in their two other attention modes (int8 P.V, bf16
 scores), K1, K4, K6 and K7 also in their f32 forms, K8a, K8b and K8c also
-in theirs (K8c.f32's eleven launches timed one by one), and K9a, K9b and
+in theirs (K8c.f32's eleven launches timed one by one), K2, K3 and K5 in
+their f32-stream forms, and K9a, K9b and
 K9c (the Swin attention half-block's training forward, core backward and
 whole backward), and K8a, K8b and K8c (the same
 for the ViT attention half-block of DINOv2; K8a launches K1's kernels and
@@ -339,18 +356,19 @@ def k1_errors(b, n, d, h, device, x_scale=K1_X_SCALE) -> dict:
                 plain_max=p_err.max().item(), plain_mean=p_err.mean().item())
 
 
-def int8_block_case(b, n, d, h, device, seed=SEED, x_scale=1.0):
+def int8_block_case(b, n, d, h, device, seed=SEED, x_scale=1.0,
+                    dtype=torch.bfloat16):
     """x and the folded arguments of K2 and K3 for one DINOv2 block with
     seeded random weights (vectors perturbed, so a dropped bias or scale
-    shows), its static scales calibrated on x through the plain float path
-    as `quantize_for_serving` does."""
+    shows) in `dtype` (the stream's: bf16, or f32 as a model built with
+    compute_dtype="float32" has it), its static scales calibrated on x
+    through the plain float path as `quantize_for_serving` does."""
     from geovpr_torch.models.dinov2 import DinoV2Block
     from geovpr_torch.models.layers import init_weights_
     from geovpr_torch.models.quantize import quantize_for_serving
 
     gen = torch.Generator().manual_seed(seed + n)
-    blk = DinoV2Block(d, h, dtype=torch.bfloat16, int8_attn=True,
-                      int8_mlp=True)
+    blk = DinoV2Block(d, h, dtype=dtype, int8_attn=True, int8_mlp=True)
     init_weights_(blk, gen)
     with torch.no_grad():
         for p in (blk.norm1.weight, blk.norm2.weight):
@@ -360,7 +378,7 @@ def int8_block_case(b, n, d, h, device, seed=SEED, x_scale=1.0):
             p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
         for p in (blk.ls1.gamma, blk.ls2.gamma):
             p.copy_(torch.randn(d, generator=gen) * 0.5)
-    x = (torch.randn(b, n, d, generator=gen) * x_scale).bfloat16().to(device)
+    x = (torch.randn(b, n, d, generator=gen) * x_scale).to(dtype).to(device)
     blk = blk.to(device).eval()
     quantize_for_serving(blk, [x])
     return x, blk._folded_args(blk._k2), blk._folded_args(blk._k3)
@@ -567,15 +585,16 @@ def interleaved_ms(fns: dict, iters: int) -> dict:
 
 
 def bounds(kind: str, b, n, d, h, residual=False,
-           mode: str = "int8_scores") -> dict:
+           mode: str = "int8_scores", width: int = 2) -> dict:
     """The least time the card could take for one call at these shapes:
-    the larger of bytes (each input read once, each output written once)
-    over 3.35 TB/s and operations over the peak rate of their type (K2 in
-    its attention `mode`: the products q.k^T and P.V in int8 or bf16 as
-    the mode forms them)."""
+    the larger of bytes (each input read once, each output written once;
+    `width` bytes a value of the stream: x, out and K3's residual, 2 in
+    bf16, 4 in f32) over 3.35 TB/s and operations over the peak rate of
+    their type (K2 in its attention `mode`: the products q.k^T and P.V in
+    int8 or bf16 as the mode forms them)."""
     m, dh = b * n, d // h
     att = 2 * b * h * n * n * dh         # one of q.k^T, P.V
-    io = 2 * m * d * 2                   # bf16 x in, out out
+    io = 2 * m * d * width               # x in, out out
     if kind == "K1":
         ops_t = (2 * m * d * 4 * d + 2 * att) / PEAK_BF16
         nbytes = io + 4 * d * d * 2 + (2 * d + 3 * d + 2 * d) * 4
@@ -587,7 +606,7 @@ def bounds(kind: str, b, n, d, h, residual=False,
     else:
         hid = 4 * d
         ops_t = 4 * m * d * hid / PEAK_INT8
-        nbytes = io + (m * d * 2 if residual else 0) + 2 * d * hid + (
+        nbytes = io + (m * d * width if residual else 0) + 2 * d * hid + (
             2 * d + 2 * hid + 3 * d) * 4
     bytes_t = nbytes / PEAK_BYTES
     return dict(bound_ms=max(ops_t, bytes_t) * 1e3,
@@ -826,17 +845,19 @@ def k2_part_times(x, k2: dict, h: int, card: str,
 
 
 def library_k2(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
-               wo_q_t, so_eff, bo, gamma, cs, num_heads, cpv=None, cpl=None):
+               wo_q_t, so_eff, bo, gamma, cs, num_heads, cpv=None, cpl=None,
+               ln_eps=1e-6):
     """K2's yardstick: F.layer_norm -> quantize -> torch._int_mm (qkv) ->
     dequant -> F.scaled_dot_product_attention in bf16 -> quantize ->
-    torch._int_mm (out projection) + epilogue. The same call in every
-    attention mode: SDPA in bf16 is the bf16-score mode's form and the
-    nearest yardstick of the int8 ones (no torch call forms int8 P.V)."""
+    torch._int_mm (out projection) + epilogue, the output in x's dtype.
+    The same call in every attention mode: SDPA in bf16 is the bf16-score
+    mode's form and the nearest yardstick of the int8 ones (no torch call
+    forms int8 P.V)."""
     import torch.nn.functional as F
     b, n, d = x.shape
-    xq = torch.clamp(torch.round(F.layer_norm(x.float(), (d,), None, None,
-                                              1e-6) * ln_scale_q + ln_bias_q),
-                     -127, 127).to(torch.int8).reshape(-1, d)
+    xq = torch.clamp(torch.round(F.layer_norm(
+        x.float(), (d,), None, None, ln_eps) * ln_scale_q + ln_bias_q),
+        -127, 127).to(torch.int8).reshape(-1, d)
     qkv = (torch._int_mm(xq, wqkv_q_t.t()) * sqkv_eff + bqkv_eff).bfloat16()
     q, k, v = (t.reshape(b, n, num_heads, d // num_heads).transpose(1, 2)
                for t in qkv.split(d, dim=-1))
@@ -844,14 +865,14 @@ def library_k2(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
     c8 = torch.clamp(torch.round(o.transpose(1, 2).reshape(-1, d).float()),
                      -127, 127).to(torch.int8)
     out = torch._int_mm(c8, wo_q_t.t()) * so_eff + bo
-    return (out.reshape(b, n, d) * gamma + x).bfloat16()
+    return (out.reshape(b, n, d) * gamma + x).to(x.dtype)
 
 
 def library_k3(x, ln_scale_q, ln_bias_q, w1q_t, s1_eff, b1, w2q_t, s2_eff,
                b2, gamma, inv_a_mid, ln_eps=1e-6, residual=None):
     """K3's yardstick: F.layer_norm + two torch._int_mm with the
     quantize / GELU / dequant steps between them (and the separate
-    residual where there is one)."""
+    residual where there is one), the output in x's dtype."""
     import torch.nn.functional as F
     d = x.shape[-1]
     xf = x.reshape(-1, d)
@@ -864,7 +885,7 @@ def library_k3(x, ln_scale_q, ln_bias_q, w1q_t, s1_eff, b1, w2q_t, s2_eff,
     gq = torch.clamp(torch.round(hmid * inv_a_mid), -127, 127).to(torch.int8)
     y = torch._int_mm(gq, w2q_t.t()) * s2_eff + b2
     res = xf if residual is None else residual.reshape(-1, d)
-    return (y * gamma + res).bfloat16().reshape(x.shape)
+    return (y * gamma + res).to(x.dtype).reshape(x.shape)
 
 
 def kernel_times(device, card: str) -> dict:
@@ -1184,10 +1205,11 @@ def swin_counters():
 
 
 def geopose_end_to_end(model, scaler, device, source, out_dir,
-                       int8=False) -> tuple[dict, np.ndarray]:
+                       int8=False, tag=None) -> tuple[dict, np.ndarray]:
     """Phase 13 (bf16) / 16 (int8): the geopose path through run_evaluate
     (int8: calibration on the first batch, then the w8a8 model), every
-    kernel's launch count set to 0 just before and read just after."""
+    kernel's launch count set to 0 just before and read just after;
+    `[geopose] path=<tag>` (by default int8 or bf16)."""
     from geovpr_torch.cli.evaluate import run_evaluate
 
     counters = {**kernel_counters(), **swin_counters()}
@@ -1206,7 +1228,7 @@ def geopose_end_to_end(model, scaler, device, source, out_dir,
     for k in (("fused_swin_attn_block_int8", "fused_mlp_block_int8") if int8
               else ("fused_swin_attn_block",)):
         expected[k] = SWIN_BLOCKS * n_batches
-    phase("geopose", path="int8" if int8 else "bf16", wall_s=wall,
+    phase("geopose", path=tag or ("int8" if int8 else "bf16"), wall_s=wall,
           batches=n_batches, launches=launches, expected_launches=expected,
           **out["metrics"])
     check(launches == expected,
@@ -1260,12 +1282,14 @@ def swin_kernel_path_vs_plain_path(model, images, bound=MIN_COSINE,
     return pooled
 
 
-def swin_bounds(kind: str, shape, mode: str = "int8_scores") -> dict:
+def swin_bounds(kind: str, shape, mode: str = "int8_scores",
+                width: int = 2) -> dict:
     """The least time of one call of K4 / K5 at (B, C, H, S, w, shift), or
     of K6 at (B, C, S): bytes over 3.35 TB/s against operations over the
     peak of their type (the JAX cost estimate: 8 BW N C^2 + 4 BW H N^2 dh
     for the half-block; K5's attention products as its `mode` forms
-    them)."""
+    them). `width`: K5's bytes a value of the stream, x and out (2 in
+    bf16, 4 in f32)."""
     if kind == "K6":
         b, c, res = shape
         m2 = b * (res // 2) ** 2
@@ -1281,7 +1305,7 @@ def swin_bounds(kind: str, shape, mode: str = "int8_scores") -> dict:
         proj = 8 * m * c * c
         ops = proj + 2 * att
         wbytes = 4 * c * c * (2 if kind == "K4" else 1)
-        nbytes = 2 * m * c * 2 + wbytes + (2 * c + 6 * c + 2 * c) * 4 + (
+        nbytes = 2 * m * c * width + wbytes + (2 * c + 6 * c + 2 * c) * 4 + (
             (2 * win - 1) ** 2 * h * 4)
         if kind == "K4":
             ops_t = ops / PEAK_BF16
@@ -1339,8 +1363,8 @@ def library_k5(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
     """K5's yardstick: F.layer_norm -> quantize -> torch._int_mm (qkv) ->
     dequant -> K4's windowed bf16 SDPA with the float bias/mask (q and k in
     their int8 units, scaled by cs; SDPA's own dh^-0.5 in bf16 scores) ->
-    quantize -> torch._int_mm (out projection) + epilogue; the same call in
-    every attention mode, as `library_k2`."""
+    quantize -> torch._int_mm (out projection) + epilogue, the output in
+    x's dtype; the same call in every attention mode, as `library_k2`."""
     import torch.nn.functional as F
 
     from geovpr_torch.ops.window_attention import from_windows, to_windows
@@ -1362,7 +1386,7 @@ def library_k5(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
     c8 = torch.clamp(torch.round(o.reshape(-1, c).float()), -127,
                      127).to(torch.int8)
     out = torch._int_mm(c8, wo_q_t.t()) * so_eff + bo
-    return (out.reshape(b, l, c) + x).bfloat16()
+    return (out.reshape(b, l, c) + x).to(x.dtype)
 
 
 def library_k6(x, ln_scale, ln_bias, w, res, ln_eps=1e-5):
@@ -1887,10 +1911,11 @@ CONVNEXT_K3_SHAPES = ((64, 56, 128), (64, 28, 256), (64, 14, 512),
                       (64, 7, 1024))
 
 
-def fuse_images(root: str, rng) -> tuple:
-    """The test folder and the gallery (images and manifest): non-square
-    JPEGs of an upsampled random 8x8 colour field plus noise, the gallery
-    100 m apart."""
+def fuse_images(root: str, rng, n_test: int = FUSE_N_TEST,
+                n_gallery: int = FUSE_N_GALLERY) -> tuple:
+    """The test folder of `n_test` images and the gallery of `n_gallery`
+    (images and manifest): non-square JPEGs of an upsampled random 8x8
+    colour field plus noise, the gallery 100 m apart."""
     from PIL import Image
 
     def image(i):
@@ -1903,12 +1928,12 @@ def fuse_images(root: str, rng) -> tuple:
     test_dir, img_dir = os.path.join(root, "test"), os.path.join(root, "img")
     os.makedirs(test_dir)
     os.makedirs(img_dir)
-    for i in range(FUSE_N_TEST):
+    for i in range(n_test):
         image(i).save(os.path.join(test_dir, f"t_{i:04d}.jpg"), quality=90)
     gallery_csv = os.path.join(root, "gallery.csv")
     with open(gallery_csv, "w") as f:
         f.write("filename,timestamp,latitude,longitude,angle,Region_ID\n")
-        for i in range(FUSE_N_GALLERY):
+        for i in range(n_gallery):
             image(i).save(os.path.join(img_dir, f"g_{i:04d}.jpg"), quality=90)
             f.write(f"g_{i:04d}.jpg,0,{219000.0 + 100.0 * i},143000.0,0,1\n")
     return test_dir, img_dir, gallery_csv
@@ -1943,12 +1968,13 @@ def read_csv(path: str) -> list:
         return list(csv.DictReader(f))
 
 
-def fuse_cli(argv: list, expected: dict, path: str) -> tuple:
+def fuse_cli(argv: list, expected: dict, path: str,
+             n_test: int = FUSE_N_TEST) -> tuple:
     """One `geovpr_torch.cli.fuse.main` run, every kernel's launch count set
     to 0 just before and read just after and held to `expected`; its JSON
-    record and its CSVs checked: a row per test image sorted by filename
-    with finite values, FUSE_TOP_K matches a test image. Returns (record,
-    launches)."""
+    record and its CSVs checked: a row per test image (`n_test`) sorted by
+    filename with finite values, FUSE_TOP_K matches a test image. Returns
+    (record, launches)."""
     from geovpr_torch.cli.fuse import main as fuse_main
 
     counters = {**kernel_counters(), **swin_counters()}
@@ -1969,8 +1995,8 @@ def fuse_cli(argv: list, expected: dict, path: str) -> tuple:
           expected_launches=want, notes=repr(lines[:-1]), **rec)
     check(launches == want, f"fuse {path}: launches {launches}, expected "
           f"{want}")
-    check(rec["num_images"] == FUSE_N_TEST, f"fuse {path}: {rec}")
-    names = [f"t_{i:04d}.jpg" for i in range(FUSE_N_TEST)]
+    check(rec["num_images"] == n_test, f"fuse {path}: {rec}")
+    names = [f"t_{i:04d}.jpg" for i in range(n_test)]
     for key in ("geopose_csv", "angle_csv"):
         if key in rec:
             rows = read_csv(rec[key])
@@ -2239,22 +2265,22 @@ def fuse_path(device, card: str) -> dict:
     return total
 
 
-def convnext_k3_case(shape, device, seed=SEED):
+def convnext_k3_case(shape, device, seed=SEED, dtype=torch.bfloat16):
     """K3's arguments at one ConvNeXt-B stage: a block with seeded random
-    weights, perturbed (gamma off its 1e-6 init), its static scales
-    calibrated on x through the float path; returns the dwconv's output h
-    (K3's x), the pre-dwconv stream x (K3's residual) and the folded
-    arguments."""
+    weights in `dtype`, perturbed (gamma off its 1e-6 init), its static
+    scales calibrated on x through the float path; returns the dwconv's
+    output h (K3's x), the pre-dwconv stream x (K3's residual) and the
+    folded arguments."""
     from geovpr_torch.models.convnext import LN_EPS, ConvNeXtBlock, _conv_nhwc
     from geovpr_torch.models.layers import init_weights_
     from geovpr_torch.models.quantize import quantize_for_serving
 
     b, side, c = shape
     gen = torch.Generator().manual_seed(seed + c)
-    blk = ConvNeXtBlock(c, dtype=torch.bfloat16, int8_mlp=True)
+    blk = ConvNeXtBlock(c, dtype=dtype, int8_mlp=True)
     init_weights_(blk, gen)
     perturb_cnn_(blk, gen)
-    x = torch.randn(b, side, side, c, generator=gen).bfloat16().to(device)
+    x = torch.randn(b, side, side, c, generator=gen).to(dtype).to(device)
     blk = blk.to(device).eval()
     quantize_for_serving(blk, [x])
     with torch.inference_mode():
@@ -7581,6 +7607,538 @@ def f32_training_path(device, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- int8_f32 --
+# w8a8 serving with an f32 stream: a model built with
+# compute_dtype="float32" and int8, as `cli.evaluate --int8` and `cli.fuse
+# --int8` build it from an f32 configuration or run directory. The f32
+# forms of K2, K3 and K5 (`csrc/hopper_gemm_s8.cuh`'s LN-quant pass and
+# residual epilogues in the stream's type) against their plain f32
+# versions: K3 at DINOv2-B/14's rows, at the four Swin-B-384 stages and at
+# ConvNeXt-B's four stages with the separate residual; K2 at the main
+# shape; K5 at the four Swin-B-384 stages; K2 and K5 (stage 0) also in int8
+# P.V and bf16 scores. A call is held in four checks
+# (`int8_f32_launch_checks`):
+# - its LN-quant launch alone: the int8 rows against `ln_quant_reference`,
+#   within one step in at most INT8_F32_LN_SHARE of them;
+# - the rest of the half-block, the call's output against the plain
+#   version fed the kernel's own int8 rows, under `int8_within_bound`. Fed
+#   the plain rows instead, the call misses that bound at Swin-B-384's
+#   stages 2 and 3 (1.0% to 1.8% of the outputs off by more than 1e-3,
+#   measured on an H100): an f32 LayerNorm sums 24-bit values, whose sum
+#   rounds otherwise in another order (bf16's 8-bit ones mostly sum
+#   exactly), and the rare int8 row value it flips (under 1e-6 of them)
+#   moves a token's q, k and v and with them a window of contexts. The two
+#   bf16 spacings stay in the bound although the output is f32: one
+#   flipped int8 context value moves an output by up to 127 dequant steps
+#   (a full-scale weight), and a row may hold a few such flips; the
+#   spacings are what the bf16 form's check allows the same flips;
+# - its out projection (K3's fc2) alone on the kernel's own int8 input
+#   against `int8_resid_reference` in f32: the branch's relative error
+#   within F32_BRANCH_REL;
+# and the whole call against the plain version on the same x: its largest
+# error and its share of elements off by more than 1e-3 within the limits
+# of INT8_F32_CALL_LIMITS, about twice the largest of each kernel's
+# readings at these shapes on an H100 (K3: 0.0332 and 0.067 %; K2: 0.0122
+# and 0.184 %; K5: 0.0394 and 1.49 %, the same in every run), so that a
+# fault in the f32 pieces that the three parts' looser bounds let through
+# fails here. The limits hold at these shapes only: one flipped row of a
+# 98-row call (K3 at 2 x 49 x 1024) moves 0.44 % of its outputs. Then each is timed in CUDA
+# graphs beside its library yardstick, with its bound at 4 bytes a value
+# of the stream, and its plain version beside them by CUDA events (the
+# plain K2 and K5 copy a host constant in the call, which a graph cannot
+# capture). Then the four int8 model families at full width in f32,
+# calibrated on a batch of 64, the kernel path against the plain path, and
+# the entry points (`run_evaluate --int8`, `cli.evaluate --run-dir --int8`,
+# `cli.fuse --int8`) on f32 configurations and run directories.
+INT8_F32_TIME_ITERS = 5
+# the share of int8 LN-quant values one step off (readings <= 9.3e-7)
+INT8_F32_LN_SHARE = 1e-4
+# the whole call against the plain version: (largest error, share of
+# elements off by more than INT8_ABS_TOL) by kernel
+INT8_F32_CALL_LIMITS = {"K3": (0.07, 2e-3), "K2": (0.025, 4e-3),
+                        "K5": (0.08, 0.03)}
+# the models: (path, preset, {counter: launches a batch of 64}, {(kernel,
+# stream dtype): launches a batch}); the blocks hand K2 and K5 a bf16
+# stream (`layers.int8_kernel_route`) and K3 the f32 one
+INT8_F32_MODELS = (
+    ("swin-b-384", SWIN_PRESET,
+     {"fused_swin_attn_block_int8": SWIN_BLOCKS,
+      "fused_mlp_block_int8": SWIN_BLOCKS,
+      "fused_patch_merge": SWIN_BOUNDARIES},
+     {("K5", torch.bfloat16): SWIN_BLOCKS,
+      ("K3", torch.float32): SWIN_BLOCKS}),
+    ("swin-t-224", ANGLE_PRESET,
+     {"fused_mlp_block_int8": SWIN_T_BLOCKS,
+      "fused_patch_merge": SWIN_BOUNDARIES},
+     {("K3", torch.float32): SWIN_T_BLOCKS}),
+    ("convnext-b", CNN_PRESETS[1],
+     {"fused_mlp_block_int8": CONVNEXT_BLOCKS},
+     {("K3", torch.float32): CONVNEXT_BLOCKS}),
+    ("dinov2-b14-meanpool", "dinov2_meanpool_huber",
+     {"fused_mhsa_block_int8": DINO_BLOCKS,
+      "fused_mlp_block_int8": DINO_BLOCKS},
+     {("K2", torch.bfloat16): DINO_BLOCKS,
+      ("K3", torch.float32): DINO_BLOCKS}))
+INT8_F32_N_FUSE = 64
+# the attention modes in the order [int8_f32] checks them, the default first
+ATTN_MODE_ORDER = ("int8_scores", "int8_pv", "bf16_scores")
+
+
+@contextlib.contextmanager
+def int8_stream_dtypes():
+    """The stream dtypes K2, K3 and K5 are launched on inside the block,
+    counted by (kernel, dtype): each wrapper's type check
+    (`check_int8_kernel_args` with the kernel's rule) is recorded."""
+    from geovpr_torch.ops import mhsa as mh
+    from geovpr_torch.ops import mlp_int8 as mi
+    from geovpr_torch.ops import swin_block as sb
+
+    seen: dict = {}
+    saved = {m: m.check_int8_kernel_args for m in (mh, mi, sb)}
+
+    def wrap(fn):
+        def rec(x, mats, vecs, dtype_error, extra=()):
+            key = (dtype_error.__name__[:2].upper(), x.dtype)
+            seen[key] = seen.get(key, 0) + 1
+            return fn(x, mats, vecs, dtype_error, extra)
+        return rec
+
+    for m, fn in saved.items():
+        m.check_int8_kernel_args = wrap(fn)
+    try:
+        yield seen
+    finally:
+        for m, fn in saved.items():
+            m.check_int8_kernel_args = fn
+
+
+def int8_rows_errors(got, want) -> dict:
+    """An int8 launch's output against its plain part: the largest step
+    and the share of values off."""
+    d = (got.int() - want.int()).abs()
+    return dict(int8_max_step=d.max().item(),
+                int8_off_share=(d > 0).float().mean().item())
+
+
+def int8_f32_launch_checks(kind: str, x, a: dict, got, eps: float,
+                           residual=None, limits=None) -> dict:
+    """The checks of one f32 call of K2, K3 or K5 (`kind`) on x with the
+    folded arguments `a` (K5's: `k5_kwargs`), whose output was `got`: its
+    LN-quant launch alone (`int8_rows_errors`), the rest of the half-block
+    fed the kernel's int8 rows (`int8_errors` of got against it), its out
+    projection alone on the kernel's own int8 input (`f32_branch_error`),
+    the whole call against the plain version (`call`: its largest error
+    and share over INT8_ABS_TOL, beside `limits`, (max, share), where they
+    are given: INT8_F32_CALL_LIMITS hold at [int8_f32]'s shapes, where the
+    rare flipped row averages out; a call of a few rows, as the card tests
+    make, moves about 1 % of its outputs by one such row). The launches
+    run alone count no launch."""
+    from geovpr_torch.ops import mhsa as mh
+    from geovpr_torch.ops import mlp_int8 as mi
+    from geovpr_torch.ops import swin_block as sb
+    from geovpr_torch.ops.quant import (attn_mode, int8_resid_reference,
+                                        ln_quant_reference,
+                                        qkv_part_reference)
+
+    d = x.shape[-1]
+    m = x.numel() // d
+    r = (x if residual is None else residual).reshape(m, d)
+    plain = {"K2": mh.mhsa_block_int8_reference,
+             "K3": mi.mlp_block_int8_reference,
+             "K5": sb.swin_attn_block_int8_reference}[kind]
+    err = (got.double() - plain(
+        x, **a, ln_eps=eps, **({} if residual is None
+                               else {"residual": residual})).double()).abs()
+    call = dict(max_abs_err=err.max().item(),
+                share_over_1e3=(err > INT8_ABS_TOL).float().mean().item(),
+                **({} if limits is None else dict(max_limit=limits[0],
+                                                  share_limit=limits[1])))
+    del err
+    if kind == "K3":
+        bufs = mi.k3_buffers(x, a["w1q_t"].shape[0])
+        for i in range(len(mi.K3_PARTS)):
+            mi.k3_launch_part(i, x, **a, ln_eps=eps, residual=residual,
+                              bufs=bufs)
+        torch.cuda.synchronize()
+        xq, mid, out = bufs[0], bufs[1], bufs[2]
+        rest = int8_resid_reference(mi.mlp_fc1_int8_reference(
+            xq, a["w1q_t"], a["s1_eff"], a["b1"], a["inv_a_mid"]),
+            a["w2q_t"], a["s2_eff"], a["b2"], r, a["gamma"])
+        w, s, b, gamma = a["w2q_t"], a["s2_eff"], a["b2"], a["gamma"]
+        step = (a["s2_eff"] * a["gamma"]).abs().max().item()
+    else:
+        mode = attn_mode(a["cs"], a["cpv"])
+        if kind == "K2":
+            bufs = mh.k2_buffers(x, mode)
+            h = a["num_heads"]
+
+            def launch(i):
+                mh.k2_launch_part(i, x, **a, ln_eps=eps, bufs=bufs)
+
+            def attention(qk, v):
+                return mh.vit_attention8_reference(qk, v, h, x.shape[1],
+                                                   a["cs"], a["cpv"],
+                                                   a["cpl"])
+            gamma = a["gamma"]
+        else:
+            bufs = sb.k5_buffers(x, mode)
+            h = a["num_heads"]
+
+            def launch(i):
+                sb.k5_launch_part(i, x, **a, ln_eps=eps, bufs=bufs)
+
+            def attention(qk, v):
+                return sb.swin_attention8_reference(
+                    qk, v, a["table"], h, a["resolution"], a["window"],
+                    a["shift"], a["cs"], a["cpv"])
+            gamma = None
+        launch(0)
+        torch.cuda.synchronize()
+        xq = bufs[2].clone()
+        for i in range(1, 4):
+            launch(i)
+        torch.cuda.synchronize()
+        mid, out = bufs[2], bufs[3]
+        qk, v = qkv_part_reference(xq, a["wqkv_q_t"], a["sqkv_eff"],
+                                   a["bqkv_eff"], mode,
+                                   (d // h) ** -0.5 * mh.LOG2E)
+        w, s, b = a["wo_q_t"], a["so_eff"], a["bo"]
+        rest = int8_resid_reference(attention(qk, v), w, s, b, r, gamma)
+        del qk, v
+        step = (s * (1.0 if gamma is None else gamma)).abs().max().item()
+    return dict(
+        ln_quant=int8_rows_errors(xq, ln_quant_reference(
+            x, a["ln_scale_q"], a["ln_bias_q"], eps)),
+        rest=int8_errors(got.reshape(m, d), rest, step),
+        epilogue=f32_branch_error(out.reshape(m, d), int8_resid_reference(
+            mid, w, s, b, r, gamma), r),
+        call=call)
+
+
+def int8_f32_within_bound(c: dict) -> bool:
+    """`int8_f32_launch_checks`'s checks hold (the whole call's where it
+    was given limits)."""
+    lq, ep, call = c["ln_quant"], c["epilogue"], c["call"]
+    return (lq["int8_max_step"] <= 1
+            and lq["int8_off_share"] <= INT8_F32_LN_SHARE
+            and int8_within_bound(c["rest"]) and ep["finite"]
+            and ep["branch_rel_err"] <= F32_BRANCH_REL
+            and call["max_abs_err"] <= call.get("max_limit", float("inf"))
+            and call["share_over_1e3"] <= call.get("share_limit", 1.0))
+
+
+def int8_f32_cases(device, k3=True, k2=True, k5=True):
+    """(kind, tag, mode, args, eps, plain, library, bound) for each checked
+    case of [int8_f32], built one at a time on f32 streams: `args` the
+    wrapper's keyword arguments but eps (x, the folded arguments, K3's
+    residual, K2's num_heads, K5's geometry)."""
+    from geovpr_torch.ops import mhsa as mh
+    from geovpr_torch.ops import mlp_int8 as mi
+    from geovpr_torch.ops import swin_block as sb
+
+    f32 = torch.float32
+    if k3:
+        b, n, d, h = MAIN_SHAPE
+        x, _, a = int8_block_case(b, n, d, h, device, dtype=f32)
+        yield ("K3", "B{}_N{}_D{}".format(b, n, d), None, dict(x=x, **a),
+               1e-6, mi.mlp_block_int8_reference, library_k3,
+               bounds("K3", b, n, d, h, width=4))
+        del x, a
+        for shape in SWIN_ATTN_SHAPES:
+            b, c, h, res, win, shift = shape
+            x, blk = swin_block_case(shape, device, int8=True, dtype=f32)
+            yield ("K3", "swin_B{}_C{}_S{}".format(b, c, res), None,
+                   dict(x=x, **blk._folded_args(blk._k3)), 1e-5,
+                   mi.mlp_block_int8_reference, library_k3,
+                   bounds("K3", b, res * res, c, 1, width=4))
+            del x, blk
+        for shape in CONVNEXT_K3_SHAPES:
+            b, side, c = shape
+            h2, x, a = convnext_k3_case(shape, device, dtype=f32)
+            eps = a.pop("ln_eps")
+            yield ("K3", "convnext_B{}_S{}_C{}".format(*shape), None,
+                   dict(x=h2, **a, residual=x), eps,
+                   mi.mlp_block_int8_reference, library_k3,
+                   bounds("K3", b, side * side, c, 1, residual=True,
+                          width=4))
+            del h2, x, a
+    if k2:
+        b, n, d, h = MAIN_SHAPE
+        for mode in ATTN_MODE_ORDER:
+            with int8_mode(mode):
+                x, a, _ = int8_block_case(b, n, d, h, device, dtype=f32)
+            yield ("K2", "B{}_N{}_D{}_H{}".format(*MAIN_SHAPE), mode,
+                   dict(x=x, **a, num_heads=h), 1e-6,
+                   mh.mhsa_block_int8_reference, library_k2,
+                   bounds("K2", b, n, d, h, mode=mode, width=4))
+            del x, a
+    if k5:
+        for shape in SWIN_ATTN_SHAPES:
+            for mode in (ATTN_MODE_ORDER if shape == SWIN_MAIN
+                         else ATTN_MODE_ORDER[:1]):
+                with int8_mode(mode):
+                    x, blk = swin_block_case(shape, device, int8=True,
+                                             dtype=f32)
+                yield ("K5", "B{}_C{}_H{}_S{}_w{}_shift{}".format(*shape),
+                       mode, dict(x=x, **k5_kwargs(blk)), 1e-5,
+                       sb.swin_attn_block_int8_reference, library_k5,
+                       swin_bounds("K5", shape, mode, width=4))
+                del x, blk
+                torch.cuda.empty_cache()
+
+
+def int8_f32_kernels_vs_plain(device, card: str | None = None,
+                              **which) -> dict:
+    """Part 1 of [int8_f32]: each case of `int8_f32_cases` (`which`: k3=,
+    k2=, k5= to narrow them) launched once on its f32 stream, held by
+    `int8_f32_launch_checks` (`[kernel] name=K3.f32` ...), then, with
+    `card`, timed in CUDA graphs in turns with its library yardstick
+    beside its bound and its plain version (`[kernel_time]`). Returns each
+    case's error and times by (kind, tag, mode)."""
+    from geovpr_torch.ops import mhsa as mh
+    from geovpr_torch.ops import mlp_int8 as mi
+    from geovpr_torch.ops import swin_block as sb
+
+    wrappers = {"K2": mh.fused_mhsa_block_int8,
+                "K3": mi.fused_mlp_block_int8,
+                "K5": sb.fused_swin_attn_block_int8}
+    out = {}
+    for kind, tag, mode, args, eps, plain, library, bnd in int8_f32_cases(
+            device, **which):
+        name = f"{kind}.f32" + (f".{mode}" if mode and mode != "int8_scores"
+                                else "")
+        kernel = wrappers[kind]
+        a = {k: v for k, v in args.items() if k not in ("x", "residual")}
+        with torch.inference_mode():
+            before = kernel.launches
+            got = kernel(**args, ln_eps=eps)
+            torch.cuda.synchronize()
+            check(kernel.launches == before + 1 and got.dtype == torch.float32,
+                  f"{name} did not launch on f32 at {tag}")
+            c = int8_f32_launch_checks(kind, args["x"], a, got, eps,
+                                       args.get("residual"),
+                                       INT8_F32_CALL_LIMITS[kind])
+            del got
+        phase("kernel", name=name, shape=tag, max_share=INT8_MAX_SHARE,
+              ln_share_limit=INT8_F32_LN_SHARE,
+              **{f"{k}_{m}": v for k, r in c.items() for m, v in r.items()})
+        check(int8_f32_within_bound(c),
+              f"{name} outside its bounds at {tag}: {c}")
+        row = dict(max_abs_err=c["call"]["max_abs_err"])
+        if card:
+            with torch.inference_mode():
+                t = interleaved_graph_ms({
+                    "kernel": lambda: kernel(**args, ln_eps=eps),
+                    "library": lambda: library(**args, ln_eps=eps)},
+                    INT8_F32_TIME_ITERS)
+                t.update(interleaved_ms({
+                    "plain": lambda: plain(**args, ln_eps=eps)},
+                    INT8_F32_TIME_ITERS))
+            row.update(ms=t["kernel"][0], plain_ms=t["plain"][0],
+                       library_ms=t["library"][0],
+                       runs={k: v[1] for k, v in t.items()}, **bnd)
+            phase("kernel_time", card=repr(card), name=name, shape=tag,
+                  timed="cuda_graph", plain_timed="cuda_events", **row)
+        out[(kind, tag, mode)] = row
+        del args, a
+        torch.cuda.empty_cache()
+    return out
+
+
+def int8_f32_model(preset: str, device, dtype: str, state=None):
+    """The preset's w8a8 RegressionModel at full width with compute_dtype
+    `dtype`, from seed 0 perturbed as `perturb_swin_` (Swin, DINOv2) or
+    `perturb_cnn_` (ConvNeXt), or with the float weights `state`; not yet
+    calibrated. Returns (model, cfg)."""
+    from geovpr_torch.cli.evaluate import build_model
+    from geovpr_torch.cli.presets import build_preset
+
+    cfg = build_preset(preset)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype=dtype))
+    model, _ = build_model(cfg, "cpu", seed=SEED, int8=True)
+    if state is None:
+        perturb = (perturb_cnn_ if cfg.model.family == "convnext"
+                   else perturb_swin_)
+        perturb(model, torch.Generator().manual_seed(SEED))
+    else:
+        model.load_state_dict(state, strict=False)
+    return model.to(device), cfg
+
+
+def int8_f32_models(device) -> dict:
+    """Part 2 of [int8_f32]: each of INT8_F32_MODELS in f32 with int8,
+    calibrated on a batch of 64 seeded images (`calibrate_int8`): every
+    launch count set to 0 just before the kernel path and read just after
+    (and the stream dtypes each int8 kernel took), then the plain path
+    (which keeps f32 where the kernel path rounds at K2 and K5, as JAX's
+    XLA route does): pooled features and predictions at cosine at least
+    MIN_COSINE_INT8 a row; the bf16 w8a8 model on the same weights and
+    images beside it (`[int8_f32_model]`). Returns the launches by
+    counter."""
+    from geovpr_torch.cli.evaluate import calibrate_int8
+    from geovpr_torch.data.transforms import normalize
+
+    counters = {**kernel_counters(), **swin_counters()}
+    totals: dict = {}
+    for path, preset, want, want_dtypes in INT8_F32_MODELS:
+        model, cfg = int8_f32_model(preset, device, "float32")
+        source = synthetic_val(SWIN_BATCH, cfg.data.image_size,
+                               np.random.default_rng(SEED))
+        images = normalize(torch.from_numpy(source.images).to(device))
+        calibrate_int8(model, source, SWIN_BATCH, device)
+        mods = [m for m in model.modules() if hasattr(m, "use_kernels")]
+
+        def forward(m):
+            feats = m.pooled_features(images)
+            return feats.float(), m.head_only(feats).float()
+
+        with torch.inference_mode():
+            for fn in counters.values():
+                fn.launches = 0
+            with int8_stream_dtypes() as seen:
+                pooled, preds = forward(model)
+                torch.cuda.synchronize()
+            got = {k: fn.launches for k, fn in counters.items()
+                   if fn.launches}
+            for m in mods:
+                m.use_kernels = False
+            try:
+                pooled_p, preds_p = forward(model)
+            finally:
+                for m in mods:
+                    m.use_kernels = True
+        cos = torch.nn.functional.cosine_similarity(pooled, pooled_p, dim=1)
+        cos_pred = torch.nn.functional.cosine_similarity(preds, preds_p,
+                                                         dim=1)
+        state = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model
+        model16, _ = int8_f32_model(preset, device, "bfloat16", state)
+        calibrate_int8(model16, source, SWIN_BATCH, device)
+        with torch.inference_mode():
+            pooled16, _ = forward(model16)
+        cos16 = torch.nn.functional.cosine_similarity(pooled, pooled16,
+                                                      dim=1)
+        dtypes = {f"{k}.{str(t)[6:]}": v for (k, t), v in seen.items()}
+        phase("int8_f32_model", path=path, batch=SWIN_BATCH,
+              pooled_min_cosine=cos.min().item(),
+              pred_min_cosine=cos_pred.min().item(), bound=MIN_COSINE_INT8,
+              vs_bf16_int8_min_cosine=cos16.min().item(),
+              vs_bf16_int8_mean_cosine=cos16.mean().item(),
+              launches=got, expected_launches=want, stream_dtypes=dtypes)
+        check(got == want and seen == want_dtypes,
+              f"{path}: launches {got} on {seen}, expected {want} on "
+              f"{want_dtypes}")
+        check(bool(torch.isfinite(pooled).all() and torch.isfinite(
+            preds).all()), f"{path}: f32 int8 outputs not finite")
+        check(cos.min().item() >= MIN_COSINE_INT8
+              and cos_pred.min().item() >= MIN_COSINE_INT8,
+              f"{path}: kernel vs plain path cosine {cos.min().item()}, "
+              f"predictions {cos_pred.min().item()}")
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+        del model16, state, images
+        torch.cuda.empty_cache()
+    return totals
+
+
+def int8_f32_entry_points(device, card: str) -> dict:
+    """Part 3 of [int8_f32]: the entry points on f32 configurations and
+    run directories, every launch count set to 0 just before each and read
+    just after, and the stream dtypes of K2, K3 and K5: `run_evaluate(...,
+    int8=True)` on swin_b384_gemini2 at compute_dtype float32 (one batch of
+    64); `cli.evaluate --run-dir <run> --int8` on an f32 ConvNeXt-B angle
+    run directory written with the port's `save_checkpoint`
+    (convnext_direct_maae); one `cli.fuse.main --int8` batch over f32
+    Swin-B-384 geopose and ConvNeXt-B angle run directories: the CSVs,
+    finite metrics, launches (`[geopose]`, `[evaluate_run_dir]`,
+    `[fuse]`). Returns the launches by counter."""
+    from geovpr_torch.cli.presets import build_preset
+    from geovpr_torch.objectives.scaler import scaler_from_arrays
+
+    totals: dict = {}
+
+    def add(launches, seen, want_dtypes, path):
+        phase("int8_f32_dtypes", path=path, stream_dtypes={
+            f"{k}.{str(t)[6:]}": v for (k, t), v in seen.items()})
+        check(seen == want_dtypes, f"{path}: int8 kernels on {seen}, "
+              f"expected {want_dtypes}")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    f32 = {p: dataclasses.replace(c, model=dataclasses.replace(
+        c.model, compute_dtype="float32")) for p, c in (
+        (p, build_preset(p)) for p in (SWIN_PRESET, CNN_PRESETS[1]))}
+    swin_dtypes = {("K5", torch.bfloat16): SWIN_BLOCKS,
+                   ("K3", torch.float32): SWIN_BLOCKS}
+    conv_dtypes = {("K3", torch.float32): CONVNEXT_BLOCKS}
+    with tempfile.TemporaryDirectory() as root:
+        model, cfg = int8_f32_model(SWIN_PRESET, device, "float32")
+        source = synthetic_val(SWIN_BATCH, cfg.data.image_size,
+                               np.random.default_rng(SEED + 1))
+        scaler = scaler_from_arrays(source.targets.mean(0),
+                                    source.targets.std(0)).to(device)
+        with int8_stream_dtypes() as seen:
+            launches, _ = geopose_end_to_end(
+                model, scaler, device, source, os.path.join(root, "eval"),
+                int8=True, tag="int8-f32")
+        add(launches, seen, swin_dtypes, "run_evaluate")
+        del model
+        torch.cuda.empty_cache()
+
+        with preset_as(SWIN_PRESET, f32[SWIN_PRESET]), \
+                preset_as(CNN_PRESETS[1], f32[CNN_PRESETS[1]]):
+            runs = {p: fuse_run_dir(root, p) for p in f32}
+            conv_cfg = f32[CNN_PRESETS[1]]
+            val = synthetic_val(SWIN_BATCH, conv_cfg.data.image_size,
+                                np.random.default_rng(SEED + 2), angles=True)
+            with int8_stream_dtypes() as seen:
+                launches = evaluate_run_dir(
+                    CNN_PRESETS[1], runs[CNN_PRESETS[1]], val, SWIN_BATCH,
+                    0, device, "convnext-b-int8-f32",
+                    per_batch={"fused_mlp_block_int8": CONVNEXT_BLOCKS},
+                    extra=("--int8",))
+            add(launches, seen, conv_dtypes, "evaluate_run_dir")
+
+            test_dir, _, _ = fuse_images(os.path.join(root, "fuse"),
+                                         np.random.default_rng(SEED),
+                                         INT8_F32_N_FUSE, 0)
+            argv = ["--test-dir", test_dir, "--device", str(device),
+                    "--batch-size", str(INT8_F32_N_FUSE),
+                    "--int8", "--geopose-preset", SWIN_PRESET,
+                    "--geopose-run", runs[SWIN_PRESET], "--angle-preset",
+                    CNN_PRESETS[1], "--angle-run", runs[CNN_PRESETS[1]],
+                    "--out-dir", os.path.join(root, "fuse_out")]
+            with int8_stream_dtypes() as seen:
+                _, launches = fuse_cli(argv, {
+                    "fused_swin_attn_block_int8": SWIN_BLOCKS,
+                    "fused_mlp_block_int8": SWIN_BLOCKS + CONVNEXT_BLOCKS,
+                    "fused_patch_merge": SWIN_BOUNDARIES}, "fuse-int8-f32",
+                    INT8_F32_N_FUSE)
+            add(launches, seen, {
+                ("K5", torch.bfloat16): SWIN_BLOCKS,
+                ("K3", torch.float32): SWIN_BLOCKS + CONVNEXT_BLOCKS},
+                "fuse")
+    return totals
+
+
+def int8_f32_path(device, card: str) -> dict:
+    """The [int8_f32] phase: the f32 forms of K2, K3 and K5 against their
+    plain versions and timed (`int8_f32_kernels_vs_plain`), the four model
+    families in f32 with int8 (`int8_f32_models`) and the entry points
+    (`int8_f32_entry_points`). Returns, for the kernels line, the cases'
+    errors and times and the launches (`launches`, by counter; the launches
+    on an f32 stream by kernel, `f32_launches`)."""
+    t0 = time.perf_counter()
+    out = int8_f32_kernels_vs_plain(device, card)
+    launches = int8_f32_models(device)
+    for k, v in int8_f32_entry_points(device, card).items():
+        launches[k] = launches.get(k, 0) + v
+    phase("int8_f32", launches=launches, seconds=time.perf_counter() - t0)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7691,6 +8249,8 @@ def main() -> int:
     lap("f32_serving")
     f32t = f32_training_path(device, card)
     lap("f32_training")
+    i8f = int8_f32_path(device, card)
+    lap("int8_f32")
 
     rows = []
     for name, k, src, replaces, count, err in (
@@ -7852,6 +8412,37 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    # the f32 forms of K3, K2 and K5 (csrc/hopper_gemm_s8.cuh's LN-quant
+    # pass and residual epilogues in the stream's type) at the main shapes
+    # in the default mode; launches on an f32 stream in [int8_f32]'s models
+    # and entry points, where K3 takes the f32 stream and K2 and K5 a bf16
+    # one (the blocks cast around them, as JAX's do: their f32 forms have
+    # no launch there, and their bf16 launches go to the bf16 rows, as
+    # [int8_f32]'s K6 launches, all on f32 streams, go to K6.f32's)
+    for name, k, src, replaces, tag in (
+            ("fused_mlp_block_int8", "K3", "mlp_int8", "pallas_mlp.py:91",
+             "B{}_N{}_D{}".format(*MAIN_SHAPE[:3])),
+            ("fused_mhsa_block_int8", "K2", "mhsa_int8", "pallas_mhsa.py:554",
+             "B{}_N{}_D{}_H{}".format(*MAIN_SHAPE)),
+            ("fused_swin_attn_block_int8", "K5", "swin_attn",
+             "pallas_swin_block.py:1159",
+             "B{}_C{}_H{}_S{}_w{}_shift{}".format(*SWIN_MAIN))):
+        t = i8f[(k, tag, None if k == "K3" else "int8_scores")]
+        rows.append({"name": f"{name}.f32", "route": "cuda",
+                     "source": f"geovpr_torch/csrc/{src}.cu",
+                     "replaces": f"geovpr/ops/{replaces}",
+                     "launches": i8f["launches"].get(name, 0)
+                     if k == "K3" else 0,
+                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
+    for row in rows:
+        if row["name"] in ("fused_mhsa_block_int8",
+                           "fused_swin_attn_block_int8"):
+            row["launches"] += i8f["launches"].get(row["name"], 0)
+        elif row["name"] == "fused_patch_merge.f32":
+            row["launches"] += i8f["launches"].get("fused_patch_merge", 0)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -7861,7 +8452,7 @@ def main() -> int:
 
 PHASES = {"index_1m": index_1m_path, "train_disk": train_disk_path,
           "int8_modes": int8_modes_path, "f32_serving": f32_serving_path,
-          "f32_training": f32_training_path}
+          "f32_training": f32_training_path, "int8_f32": int8_f32_path}
 
 
 def run_phases(names: list) -> int:

@@ -53,6 +53,13 @@
 // Launches 0, 1 and 3 keep the first port's expressions (ln_quant_row's
 // order of f32 sums; acc * s + b fused; (acc * s + b) * gamma + x with
 // gamma a compile-time epilogue, so it is one fused multiply-add).
+// The f32 form (`geovpr_mhsa_int8_parts` with f32 set; JAX's kernel takes
+// an f32 x and writes x.dtype, pallas_mhsa.py:611) runs the same launches
+// on an f32 x and out: launch 0 reads f32 rows, launch 3 adds the f32
+// residual and stores f32, unrounded; launches 1 and 2 read and write int8
+// and bf16 as in the bf16 form. The models hand K2 a bf16 stream
+// (DinoV2Block casts around it, as JAX's does), so the f32 form is the
+// op's, not the path's.
 //
 // What bounds each launch on the H100 (DINOv2-B/14, B=64: 16,448 rows, D
 // 768, 12 heads): the LN-quant pass by bytes (0.011 ms at 3.35 TB/s); the
@@ -638,33 +645,25 @@ extern "C" int geovpr_mhsa_int8_init(void) {
   if ((e = allow_gemm_s8_smem<HS_EPI_QK8V>()) != cudaSuccess ||
       (e = allow_gemm_s8_smem<HS_EPI_QKV16>()) != cudaSuccess ||
       (e = allow_gemm_s8_smem<HS_EPI_RESID_G>()) != cudaSuccess ||
+      (e = allow_gemm_s8_smem<HS_EPI_RESID_G, float>()) != cudaSuccess ||
       (e = allow_attn8_smem<A8_MODE_QK8>()) != cudaSuccess ||
       (e = allow_attn8_smem<A8_MODE_PV8>()) != cudaSuccess)
     return (int)e;
   return (int)allow_attn8_smem<A8_MODE_BF16>();
 }
 
-// K2's launches first..last (0 LN-quant, 1 QKV GEMM, 2 attention, 3 out
-// projection) in attention mode `mode` (0 int8 scores, 1 int8 P.V, 2 bf16
-// scores); returns a cudaError_t as int: 0 when every launch was accepted.
-// x and out (B*N, D) bf16; wqkv_t (3D, D) and wo_t (D, D) int8,
-// k-contiguous; ln_scale, ln_bias (1/a_x folded in), sqkv, bqkv, so, bo and
-// gamma f32; all 16-byte aligned. Scratch: qk and v as the QKV launch
-// writes them (int8 scores: qk8 (B*N, 2D) int8 and v (B*N, D) bf16; int8
-// P.V: qkv8 (B*N, 3D) int8; bf16 scores: qkv (B*N, 3D) bf16; v unused in
-// the last two), ctx8 (B*N, D) int8 (the LN-quant output until the
-// attention writes ctx8). D = 64 H <= 1024. cs2 = a_q a_k dh^-0.5 log2(e)
-// (int8 scores and P.V); qscale = dh^-0.5 log2(e) (bf16 scores); cpv =
-// a_v / (127 a_ctx) and cpl = a_v / a_ctx (int8 P.V). A launch alone reads
-// what the earlier launches of an earlier call left in the scratch.
-// geovpr_mhsa_int8_init must have run on the current device.
-extern "C" int geovpr_mhsa_int8_parts(
-    const void* x, const void* ln_scale, const void* ln_bias,
-    const void* wqkv_t, const void* sqkv, const void* bqkv, const void* wo_t,
-    const void* so, const void* bo, const void* gamma, void* qk, void* v,
-    void* ctx8, void* out, int B, int N, int D, int H, float eps, float cs2,
-    int mode, float qscale, float cpv, float cpl, int first, int last,
-    void* stream) {
+namespace {
+
+// K2's launches first..last on a stream of type T (bf16 or f32), the
+// arguments of geovpr_mhsa_int8_parts
+template <typename T>
+int mhsa_int8_parts(const void* x, const void* ln_scale, const void* ln_bias,
+                    const void* wqkv_t, const void* sqkv, const void* bqkv,
+                    const void* wo_t, const void* so, const void* bo,
+                    const void* gamma, void* qk, void* v, void* ctx8,
+                    void* out, int B, int N, int D, int H, float eps,
+                    float cs2, int mode, float qscale, float cpv, float cpl,
+                    int first, int last, void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || D != H * A8_DH || D > A8_MAX_DIM ||
       B > 65535 || mode < A8_MODE_QK8 || mode > A8_MODE_BF16 || first < 0 ||
       last > 3 || first > last)
@@ -686,7 +685,7 @@ extern "C" int geovpr_mhsa_int8_parts(
   for (int part = first; part <= last; ++part) {
     switch (part) {
       case 0:
-        e = launch_ln_quant(static_cast<const bf16*>(x),
+        e = launch_ln_quant(static_cast<const T*>(x),
                             static_cast<const float*>(ln_scale),
                             static_cast<const float*>(ln_bias), c8, M, D, eps,
                             s);
@@ -695,11 +694,10 @@ extern "C" int geovpr_mhsa_int8_parts(
         e = mode == A8_MODE_BF16
                 ? launch_gemm_s8<HS_EPI_QKV16>(
                       c8, static_cast<const int8_t*>(wqkv_t), M, D, 3 * D,
-                      qkv_ep, nullptr, static_cast<bf16*>(qk), s)
+                      qkv_ep, nullptr, qk, s)
                 : launch_gemm_s8<HS_EPI_QK8V>(
                       c8, static_cast<const int8_t*>(wqkv_t), M, D, 3 * D,
-                      qkv_ep, static_cast<int8_t*>(qk),
-                      static_cast<bf16*>(v), s);
+                      qkv_ep, static_cast<int8_t*>(qk), v, s);
         break;
       case 2:
         e = mode == A8_MODE_QK8
@@ -712,28 +710,45 @@ extern "C" int geovpr_mhsa_int8_parts(
                                                  cs2, cpv, cpl, s);
         break;
       default:
-        e = launch_gemm_s8<HS_EPI_RESID_G>(
+        e = launch_gemm_s8<HS_EPI_RESID_G, T>(
             c8, static_cast<const int8_t*>(wo_t), M, D, D,
             HsEpilogue{static_cast<const float*>(so),
                        static_cast<const float*>(bo),
-                       static_cast<const float*>(gamma),
-                       static_cast<const bf16*>(x), 0.f, 0},
-            nullptr, static_cast<bf16*>(out), s);
+                       static_cast<const float*>(gamma), x, 0.f, 0},
+            nullptr, out, s);
     }
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
 }
 
-// K2, all four launches (the whole half-block).
-extern "C" int geovpr_mhsa_block_int8(
+}  // namespace
+
+// K2's launches first..last (0 LN-quant, 1 QKV GEMM, 2 attention, 3 out
+// projection) in attention mode `mode` (0 int8 scores, 1 int8 P.V, 2 bf16
+// scores) and the form of the stream's type (f32 0: bf16 x and out; 1:
+// f32, the scratch and the middle launches the bf16 form's); returns a
+// cudaError_t as int: 0 when every launch was accepted. x and out (B*N,
+// D); wqkv_t (3D, D) and wo_t (D, D) int8, k-contiguous; ln_scale, ln_bias
+// (1/a_x folded in), sqkv, bqkv, so, bo and gamma f32; all 16-byte
+// aligned. Scratch: qk and v as the QKV launch writes them (int8 scores:
+// qk8 (B*N, 2D) int8 and v (B*N, D) bf16; int8 P.V: qkv8 (B*N, 3D) int8;
+// bf16 scores: qkv (B*N, 3D) bf16; v unused in the last two), ctx8 (B*N,
+// D) int8 (the LN-quant output until the attention writes ctx8). D = 64 H
+// <= 1024. cs2 = a_q a_k dh^-0.5 log2(e) (int8 scores and P.V); qscale =
+// dh^-0.5 log2(e) (bf16 scores); cpv = a_v / (127 a_ctx) and cpl = a_v /
+// a_ctx (int8 P.V). A launch alone reads what the earlier launches of an
+// earlier call left in the scratch; the whole half-block is parts 0..3.
+// geovpr_mhsa_int8_init must have run on the current device.
+extern "C" int geovpr_mhsa_int8_parts(
     const void* x, const void* ln_scale, const void* ln_bias,
     const void* wqkv_t, const void* sqkv, const void* bqkv, const void* wo_t,
     const void* so, const void* bo, const void* gamma, void* qk, void* v,
     void* ctx8, void* out, int B, int N, int D, int H, float eps, float cs2,
-    int mode, float qscale, float cpv, float cpl, void* stream) {
-  return geovpr_mhsa_int8_parts(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv,
-                                wo_t, so, bo, gamma, qk, v, ctx8, out, B, N,
-                                D, H, eps, cs2, mode, qscale, cpv, cpl, 0, 3,
-                                stream);
+    int mode, float qscale, float cpv, float cpl, int f32, int first,
+    int last, void* stream) {
+  return (f32 ? mhsa_int8_parts<float> : mhsa_int8_parts<bf16>)(
+      x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wo_t, so, bo, gamma, qk, v,
+      ctx8, out, B, N, D, H, eps, cs2, mode, qscale, cpv, cpl, first, last,
+      stream);
 }

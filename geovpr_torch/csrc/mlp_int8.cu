@@ -20,7 +20,13 @@
 //      gamma + res -> out (M, D) bf16.
 // The int32 sums are exact, the epilogues round where the plain version
 // rounds, and the LN-quant pass keeps ln_quant_row's order of f32 sums
-// (hopper_gemm_s8.cuh).
+// (hopper_gemm_s8.cuh). The f32 form (`geovpr_mlp_int8_parts` with f32
+// set, for a model built with compute_dtype="float32", as JAX's kernel
+// takes an f32 x and writes x.dtype) runs the same three launches on an
+// f32 x, res and out:
+// the LN-quant pass reads f32 rows and fc2's epilogue adds the f32
+// residual and stores f32, unrounded; fc1 and the int8 hidden are the
+// bf16 form's.
 //
 // What the TPU kernel keeps on chip is the (rows, 4D) hidden activation: a
 // 512-row f32 block (6 MB) in VMEM. Here the int8 hidden (a_mid is a
@@ -44,24 +50,24 @@
 // the first launch; returns a cudaError_t.
 extern "C" int geovpr_mlp_int8_init(void) {
   if (tmap_encode_fn() == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cudaError_t e = allow_gemm_s8_smem<HS_EPI_GELU8>();
-  if (e != cudaSuccess) return (int)e;
-  return (int)allow_gemm_s8_smem<HS_EPI_RESID_G>();
+  cudaError_t e;
+  if ((e = allow_gemm_s8_smem<HS_EPI_GELU8>()) != cudaSuccess ||
+      (e = allow_gemm_s8_smem<HS_EPI_RESID_G>()) != cudaSuccess)
+    return (int)e;
+  return (int)allow_gemm_s8_smem<HS_EPI_RESID_G, float>();
 }
 
-// K3's launches first..last (0 LN-quant, 1 fc1, 2 fc2); returns a
-// cudaError_t as int: 0 when every launch was accepted. x, res and out are
-// (M, D) bf16 (res may equal x); w1t is (HID, D) and w2t (D, HID) int8,
-// k-contiguous; the vectors are f32; all 16-byte aligned. Scratch: xq (M,
-// D) and hidden (M, HID) int8. D and HID multiples of 16, D <= 1024. A
-// launch alone reads what the earlier launches of an earlier call left in
-// the scratch. geovpr_mlp_int8_init must have run on the current device.
-extern "C" int geovpr_mlp_int8_parts(
-    const void* x, const void* res, const void* ln_scale, const void* ln_bias,
-    const void* w1t, const void* s1, const void* b1, const void* w2t,
-    const void* s2, const void* b2, const void* gamma, void* xq, void* hidden,
-    void* out, int M, int D, int HID, float inv_a_mid, float eps, int first,
-    int last, void* stream) {
+namespace {
+
+// K3's launches first..last on a stream of type T (bf16 or f32), the
+// arguments of geovpr_mlp_int8_parts
+template <typename T>
+int mlp_int8_parts(const void* x, const void* res, const void* ln_scale,
+                   const void* ln_bias, const void* w1t, const void* s1,
+                   const void* b1, const void* w2t, const void* s2,
+                   const void* b2, const void* gamma, void* xq, void* hidden,
+                   void* out, int M, int D, int HID, float inv_a_mid,
+                   float eps, int first, int last, void* stream) {
   if (M <= 0 || D <= 0 || HID <= 0 || D % 16 || HID % 16 ||
       D > HG_MAX_DIM || first < 0 || last > 2 || first > last)
     return (int)cudaErrorInvalidValue;
@@ -72,7 +78,7 @@ extern "C" int geovpr_mlp_int8_parts(
   for (int part = first; part <= last; ++part) {
     switch (part) {
       case 0:
-        e = launch_ln_quant(static_cast<const bf16*>(x),
+        e = launch_ln_quant(static_cast<const T*>(x),
                             static_cast<const float*>(ln_scale),
                             static_cast<const float*>(ln_bias), xq8, M, D, eps,
                             s);
@@ -86,27 +92,36 @@ extern "C" int geovpr_mlp_int8_parts(
             h8, nullptr, s);
         break;
       default:
-        e = launch_gemm_s8<HS_EPI_RESID_G>(
+        e = launch_gemm_s8<HS_EPI_RESID_G, T>(
             h8, static_cast<const int8_t*>(w2t), M, HID, D,
             HsEpilogue{static_cast<const float*>(s2),
                        static_cast<const float*>(b2),
-                       static_cast<const float*>(gamma),
-                       static_cast<const bf16*>(res), 0.f, 0},
-            nullptr, static_cast<bf16*>(out), s);
+                       static_cast<const float*>(gamma), res, 0.f, 0},
+            nullptr, out, s);
     }
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
 }
 
-// K3, all three launches (the whole half-block).
-extern "C" int geovpr_mlp_block_int8(
+}  // namespace
+
+// K3's launches first..last (0 LN-quant, 1 fc1, 2 fc2) in the form of the
+// stream's type (f32 0: bf16 x, res and out; 1: f32); returns a
+// cudaError_t as int: 0 when every launch was accepted. x, res and out are
+// (M, D) (res may equal x); w1t is (HID, D) and w2t (D, HID) int8,
+// k-contiguous; the vectors are f32; all 16-byte aligned. Scratch: xq (M,
+// D) and hidden (M, HID) int8. D and HID multiples of 16, D <= 1024. A
+// launch alone reads what the earlier launches of an earlier call left in
+// the scratch; the whole half-block is parts 0..2. geovpr_mlp_int8_init
+// must have run on the current device.
+extern "C" int geovpr_mlp_int8_parts(
     const void* x, const void* res, const void* ln_scale, const void* ln_bias,
     const void* w1t, const void* s1, const void* b1, const void* w2t,
     const void* s2, const void* b2, const void* gamma, void* xq, void* hidden,
-    void* out, int M, int D, int HID, float inv_a_mid, float eps,
-    void* stream) {
-  return geovpr_mlp_int8_parts(x, res, ln_scale, ln_bias, w1t, s1, b1, w2t,
-                               s2, b2, gamma, xq, hidden, out, M, D, HID,
-                               inv_a_mid, eps, 0, 2, stream);
+    void* out, int M, int D, int HID, float inv_a_mid, float eps, int f32,
+    int first, int last, void* stream) {
+  return (f32 ? mlp_int8_parts<float> : mlp_int8_parts<bf16>)(
+      x, res, ln_scale, ln_bias, w1t, s1, b1, w2t, s2, b2, gamma, xq, hidden,
+      out, M, D, HID, inv_a_mid, eps, first, last, stream);
 }

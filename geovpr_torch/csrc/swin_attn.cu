@@ -109,6 +109,11 @@
 //      P.V swin_attn8_tma_kernel<W, true> on qkv8; in bf16 scores K4's
 //      swin_attn_tma_kernel<W, true> on qkv, its context rounded to int8;
 //   3. hopper_gemm_s8_kernel<EPI_RESID>: ctx8 Wo^T so + bo + x.
+// K5's f32 form (`geovpr_swin_attn_int8_parts` with f32 set; JAX's kernel
+// writes xw.dtype, pallas_swin_block.py:1230) runs the same launches on an
+// f32 x and out: launch 0 reads f32 rows, launch 3 adds the f32 residual and
+// stores f32, unrounded; launches 1 and 2 are the bf16 form's. The models
+// hand K5 a bf16 stream (SwinBlock casts around it, as JAX's does).
 // What bounds each launch on the H100 (Swin-B-384, B=64; stages 0 / 1 / 2
 // / 3): the LN-quant pass by bytes (0.068 / 0.034 / 0.017 / 0.008 ms); the
 // QKV GEMM by bytes at stages 0-1 (0.113 / 0.056 ms: qk8 and v written;
@@ -1043,6 +1048,7 @@ extern "C" int geovpr_swin_init(void) {
       (e = allow_gemm_s8_smem<HS_EPI_QK8V>()) != cudaSuccess ||
       (e = allow_gemm_s8_smem<HS_EPI_QKV16>()) != cudaSuccess ||
       (e = allow_gemm_s8_smem<HS_EPI_RESID>()) != cudaSuccess ||
+      (e = allow_gemm_s8_smem<HS_EPI_RESID, float>()) != cudaSuccess ||
       (e = allow_swin_attn_smem<4>()) != cudaSuccess ||
       (e = allow_swin_attn_smem<8>()) != cudaSuccess ||
       (e = allow_swin_attn_smem<12>()) != cudaSuccess)
@@ -1122,26 +1128,19 @@ extern "C" int geovpr_swin_attn_bf16(
                                 eps, qscale, 0, 3, stream);
 }
 
-// K5's launches first..last (0 LN-quant, 1 QKV GEMM, 2 window attention, 3
-// out projection) in attention mode `mode` (0 int8 scores, 1 int8 P.V, 2
-// bf16 scores); returns a cudaError_t as int. x and out (B*S*S, C) bf16;
-// wqkv_t (3C, C) and wo_t (C, C) int8, k-contiguous; ln_scale, ln_bias
-// (1/a_x folded in), sqkv, bqkv, so, bo and the table f32; all 16-byte
-// aligned. Scratch: qk and v as the QKV launch writes them (int8 scores:
-// qk8 (B*S*S, 2C) int8 and v (B*S*S, C) bf16; int8 P.V: qkv8 (B*S*S, 3C)
-// int8; bf16 scores: qkv (B*S*S, 3C) bf16; v unused in the last two), ctx8
-// (B*S*S, C) int8 (the LN-quant output until the attention writes ctx8).
-// cs2 = a_q a_k dh^-0.5 log2(e) (int8 scores and P.V); qscale = dh^-0.5
-// log2(e) (bf16 scores); cpv = a_v / (127 a_ctx) (int8 P.V). A launch
-// alone reads what the earlier launches of an earlier call left in the
-// scratch. geovpr_swin_init must have run on the current device.
-extern "C" int geovpr_swin_attn_int8_parts(
-    const void* x, const void* ln_scale, const void* ln_bias,
-    const void* wqkv_t, const void* sqkv, const void* bqkv, const void* wo_t,
-    const void* so, const void* bo, const void* table, void* qk, void* v,
-    void* ctx8, void* out, int B, int S, int C, int H, int win, int shift,
-    float eps, float cs2, int mode, float qscale, float cpv, int first,
-    int last, void* stream) {
+namespace {
+
+// K5's launches first..last on a stream of type T (bf16 or f32), the
+// arguments of geovpr_swin_attn_int8_parts
+template <typename T>
+int swin_attn_int8_parts(const void* x, const void* ln_scale,
+                         const void* ln_bias, const void* wqkv_t,
+                         const void* sqkv, const void* bqkv, const void* wo_t,
+                         const void* so, const void* bo, const void* table,
+                         void* qk, void* v, void* ctx8, void* out, int B,
+                         int S, int C, int H, int win, int shift, float eps,
+                         float cs2, int mode, float qscale, float cpv,
+                         int first, int last, void* stream) {
   if (!k5_shapes_ok(B, S, C, H, win, shift) || mode < 0 || mode > 2 ||
       first < 0 || last > 3 || first > last)
     return (int)cudaErrorInvalidValue;
@@ -1161,7 +1160,7 @@ extern "C" int geovpr_swin_attn_int8_parts(
   for (int part = first; part <= last; ++part) {
     switch (part) {
       case 0:
-        e = launch_ln_quant(static_cast<const bf16*>(x),
+        e = launch_ln_quant(static_cast<const T*>(x),
                             static_cast<const float*>(ln_scale),
                             static_cast<const float*>(ln_bias), c8, M, C, eps,
                             s);
@@ -1169,11 +1168,10 @@ extern "C" int geovpr_swin_attn_int8_parts(
       case 1:
         e = mode == 2 ? launch_gemm_s8<HS_EPI_QKV16>(
                             c8, static_cast<const int8_t*>(wqkv_t), M, C,
-                            3 * C, qkv_ep, nullptr, static_cast<bf16*>(qk), s)
+                            3 * C, qkv_ep, nullptr, qk, s)
                       : launch_gemm_s8<HS_EPI_QK8V>(
                             c8, static_cast<const int8_t*>(wqkv_t), M, C,
-                            3 * C, qkv_ep, static_cast<int8_t*>(qk),
-                            static_cast<bf16*>(v), s);
+                            3 * C, qkv_ep, static_cast<int8_t*>(qk), v, s);
         break;
       case 2:
         e = win == 4    ? launch_k5_attention<4>(mode, qk, vb, c8, tab, B, S,
@@ -1186,27 +1184,43 @@ extern "C" int geovpr_swin_attn_int8_parts(
                                                   C, H, shift, cs2, cpv, s);
         break;
       default:
-        e = launch_gemm_s8<HS_EPI_RESID>(
+        e = launch_gemm_s8<HS_EPI_RESID, T>(
             c8, static_cast<const int8_t*>(wo_t), M, C, C,
             HsEpilogue{static_cast<const float*>(so),
-                       static_cast<const float*>(bo), nullptr,
-                       static_cast<const bf16*>(x), 0.f, 0},
-            nullptr, static_cast<bf16*>(out), s);
+                       static_cast<const float*>(bo), nullptr, x, 0.f, 0},
+            nullptr, out, s);
     }
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
 }
 
-// K5, all four launches (the whole half-block).
-extern "C" int geovpr_swin_attn_int8(
+}  // namespace
+
+// K5's launches first..last (0 LN-quant, 1 QKV GEMM, 2 window attention, 3
+// out projection) in attention mode `mode` (0 int8 scores, 1 int8 P.V, 2
+// bf16 scores) and the form of the stream's type (f32 0: bf16 x and out;
+// 1: f32, the scratch and the middle launches the bf16 form's); returns a
+// cudaError_t as int. x and out (B*S*S, C); wqkv_t (3C, C) and wo_t (C, C)
+// int8, k-contiguous; ln_scale, ln_bias (1/a_x folded in), sqkv, bqkv, so,
+// bo and the table f32; all 16-byte aligned. Scratch: qk and v as the QKV
+// launch writes them (int8 scores: qk8 (B*S*S, 2C) int8 and v (B*S*S, C)
+// bf16; int8 P.V: qkv8 (B*S*S, 3C) int8; bf16 scores: qkv (B*S*S, 3C)
+// bf16; v unused in the last two), ctx8 (B*S*S, C) int8 (the LN-quant
+// output until the attention writes ctx8). cs2 = a_q a_k dh^-0.5 log2(e)
+// (int8 scores and P.V); qscale = dh^-0.5 log2(e) (bf16 scores); cpv = a_v
+// / (127 a_ctx) (int8 P.V). A launch alone reads what the earlier launches
+// of an earlier call left in the scratch; the whole half-block is parts
+// 0..3. geovpr_swin_init must have run on the current device.
+extern "C" int geovpr_swin_attn_int8_parts(
     const void* x, const void* ln_scale, const void* ln_bias,
     const void* wqkv_t, const void* sqkv, const void* bqkv, const void* wo_t,
     const void* so, const void* bo, const void* table, void* qk, void* v,
     void* ctx8, void* out, int B, int S, int C, int H, int win, int shift,
-    float eps, float cs2, int mode, float qscale, float cpv, void* stream) {
-  return geovpr_swin_attn_int8_parts(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv,
-                                     wo_t, so, bo, table, qk, v, ctx8, out, B,
-                                     S, C, H, win, shift, eps, cs2, mode,
-                                     qscale, cpv, 0, 3, stream);
+    float eps, float cs2, int mode, float qscale, float cpv, int f32,
+    int first, int last, void* stream) {
+  return (f32 ? swin_attn_int8_parts<float> : swin_attn_int8_parts<bf16>)(
+      x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wo_t, so, bo, table, qk, v,
+      ctx8, out, B, S, C, H, win, shift, eps, cs2, mode, qscale, cpv, first,
+      last, stream);
 }

@@ -149,8 +149,8 @@ class DinoV2Block(QuantBlock):
         if self.int8_attn and not calibrating:
             attn = (fused_mhsa_block_int8 if self.use_kernels
                     else mhsa_block_int8_reference)
-            x = attn(x, **self._folded_args(self._k2),
-                     num_heads=self.num_heads, ln_eps=LN_EPS)
+            x = self._int8_attention(attn, x, **self._folded_args(self._k2),
+                                     num_heads=self.num_heads, ln_eps=LN_EPS)
         else:
             dt = x.dtype
             args = (x, self.norm1.weight, self.norm1.bias,

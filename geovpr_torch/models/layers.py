@@ -472,6 +472,16 @@ class Mlp(nn.Module):
                     gamma=gamma.float())
 
 
+def int8_kernel_route(x: torch.Tensor, use_kernels: bool) -> bool:
+    """Whether a block's w8a8 attention half runs on its kernel (K2, K5):
+    `use_kernels` set and x on CUDA, the counterpart of JAX's `use_pallas`
+    on the TPU backend. There the block hands the kernel a bf16 stream and
+    casts its output back to x's dtype, as JAX's blocks do around their
+    Pallas calls (`geovpr/models/dinov2.py:261-268`, `swin.py:646-657`);
+    elsewhere the stream keeps its dtype, as on JAX's XLA fallback."""
+    return use_kernels and x.is_cuda
+
+
 class QuantBlock(nn.Module):
     """The int8 serving state shared by the transformer blocks
     (`DinoV2Block`, `SwinBlock`) and, for its MLP half only,
@@ -530,6 +540,15 @@ class QuantBlock(nn.Module):
                 "a state_dict that carries one")
         return {k: getattr(self, v) if isinstance(v, str) else v
                 for k, v in folded.items()}
+
+    def _int8_attention(self, attn, x: torch.Tensor, **kwargs):
+        """The w8a8 attention half `attn` (the kernel's wrapper or its
+        plain version) on x, through a bf16 stream on the kernel route
+        (`int8_kernel_route`), the output in x's dtype."""
+        if (int8_kernel_route(x, self.use_kernels)
+                and x.dtype != torch.bfloat16):
+            return attn(x.bfloat16(), **kwargs).to(x.dtype)
+        return attn(x, **kwargs)
 
     def _attn_int8_fold(self, last_key: bool) -> dict:
         """The attention half's fold in the mode `quant.INT8_QK_SCORES` and

@@ -176,13 +176,13 @@ class SwinBlock(QuantBlock):
         table = self.attn.relative_position_bias_table
         calibrating = self.calibrating
         if self.int8_attn and not calibrating:
+            args = dict(self._folded_args(self._k5), table=table, **geom)
             if not fused_window_ok(self.window):
-                attn = swin_attn_block_int8_unfused
-            elif self.use_kernels:
-                attn = fused_swin_attn_block_int8
+                x = swin_attn_block_int8_unfused(x, **args)
             else:
-                attn = swin_attn_block_int8_reference
-            x = attn(x, **self._folded_args(self._k5), table=table, **geom)
+                x = self._int8_attention(
+                    fused_swin_attn_block_int8 if self.use_kernels
+                    else swin_attn_block_int8_reference, x, **args)
         else:
             dt = x.dtype
             args = (x, self.norm1.weight, self.norm1.bias,

@@ -104,27 +104,24 @@ def _declare(lib: ctypes.CDLL) -> None:
         "geovpr_mhsa_block_bf16": [vp] * 11 + [ci] * 4 + [cf, vp],
         "geovpr_mhsa_block_parts": [vp] * 11 + [ci] * 4 + [cf, ci, ci, vp],
         # K2 (mhsa_int8.cu): 14 pointers, B N D H, eps, cs2, mode, qscale,
-        # cpv, cpl, stream; _parts also takes the first and last of its four
-        # launches
-        "geovpr_mhsa_block_int8": [vp] * 14 + [ci] * 4 + [cf, cf, ci, cf, cf,
-                                                         cf, vp],
+        # cpv, cpl, the stream's form (f32 0 or 1), the first and last of
+        # its four launches, stream
         "geovpr_mhsa_int8_parts": [vp] * 14 + [ci] * 4 + [cf, cf, ci, cf, cf,
-                                                         cf, ci, ci, vp],
-        # K3 (mlp_int8.cu): 14 pointers, M D HID, inv_a_mid, eps, stream;
-        # _parts also takes the first and last of its three launches
-        "geovpr_mlp_block_int8": [vp] * 14 + [ci] * 3 + [cf, cf, vp],
-        "geovpr_mlp_int8_parts": [vp] * 14 + [ci] * 3 + [cf, cf, ci, ci, vp],
+                                                         cf, ci, ci, ci, vp],
+        # K3 (mlp_int8.cu): 14 pointers, M D HID, inv_a_mid, eps, the
+        # stream's form, the first and last of its three launches, stream
+        "geovpr_mlp_int8_parts": [vp] * 14 + [ci] * 3 + [cf, cf, ci, ci, ci,
+                                                        vp],
         # K4 (swin_attn.cu): 11 pointers, B S C H win shift, eps, qscale,
         # stream; _parts also takes the first and last of its four launches
         "geovpr_swin_attn_bf16": [vp] * 11 + [ci] * 6 + [cf, cf, vp],
         "geovpr_swin_attn_parts": [vp] * 11 + [ci] * 6 + [cf, cf, ci, ci, vp],
         # K5 (swin_attn.cu): 14 pointers, B S C H win shift, eps, cs2, mode,
-        # qscale, cpv, stream; _parts also takes the first and last of its
-        # four launches
-        "geovpr_swin_attn_int8": [vp] * 14 + [ci] * 6 + [cf, cf, ci, cf, cf,
-                                                        vp],
+        # qscale, cpv, the stream's form, the first and last of its four
+        # launches, stream
         "geovpr_swin_attn_int8_parts": [vp] * 14 + [ci] * 6 + [cf, cf, ci, cf,
-                                                              cf, ci, ci, vp],
+                                                              cf, ci, ci, ci,
+                                                              vp],
         # K6 (patch_merge.cu): 6 pointers, B S C, eps, stream; _parts also
         # takes the first and last of its two launches
         "geovpr_patch_merge": [vp] * 6 + [ci] * 3 + [cf, vp],

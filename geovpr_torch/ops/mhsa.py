@@ -23,6 +23,7 @@ import torch
 
 from geovpr_torch.ops.quant import (amax_into, attn_mode, check_devices,
                                     check_int8_kernel_args, check_shapes,
+                                    int8_attn_dtype_rule,
                                     int8_resid_reference, layer_norm_f32,
                                     ln_quant_reference, mode_constants,
                                     qkv_buffers, qkv_part_reference,
@@ -258,9 +259,9 @@ def fused_mhsa_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
                           num_heads: int, ln_eps: float = 1e-6,
                           cs=None, cpv=None, cpl=None) -> torch.Tensor:
     """w8a8 fused attention half-block. CPU tensors run the plain version;
-    CUDA tensors launch K2 in the mode of (cs, cpv) (bf16 x, int8
-    matrices, f32 vectors, contiguous, head dim 64, forward only) or
-    raise."""
+    CUDA tensors launch K2 in the mode of (cs, cpv), in the form of x's
+    dtype (bf16 or f32 x, int8 matrices, f32 vectors: `k2_dtype_error`;
+    contiguous, head dim 64, forward only) or raise."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, N, D), got {tuple(x.shape)}")
     b, n, d = x.shape
@@ -284,18 +285,23 @@ def fused_mhsa_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
         raise ValueError(f"unsupported device {x.device}")
     mats = {k: got[k] for k in ("wqkv_q_t", "wo_q_t")}
     vecs = {k: v for k, v in got.items() if k not in mats}
-    check_int8_kernel_args(x, mats, vecs)
+    check_int8_kernel_args(x, mats, vecs, k2_dtype_error)
     err = k2_shape_error(d, num_heads)
     if err:
         raise ValueError(err)
     bufs = k2_buffers(x, mode)
     lib, args = _k2_args(x, got, num_heads, ln_eps, cs, cpv, cpl, bufs)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_mhsa_block_int8(*args, _stream(x.device))
+        rc = lib.geovpr_mhsa_int8_parts(*args, 0, len(K2_PARTS) - 1,
+                                        _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"mhsa_int8 kernel launch failed: CUDA error {rc}")
     fused_mhsa_block_int8.launches += 1
     return bufs[3]
+
+
+# K2's type rule on CUDA (`quant.int8_attn_dtype_rule`)
+k2_dtype_error = int8_attn_dtype_rule("K2")
 
 
 def k2_shape_error(d: int, num_heads: int) -> str | None:
@@ -328,9 +334,10 @@ K2_PARTS = ("ln_quant", "qkv_gemm", "attention", "out_proj")
 
 def _k2_args(x, got: dict, num_heads: int, ln_eps: float, cs, cpv, cpl,
              bufs):
-    """The library and K2's C arguments (but the stream) for a checked
-    CUDA x, its arguments `got` by name and the (qk, v, ctx8, out) buffers
-    `bufs` of the mode of (cs, cpv)."""
+    """The library and K2's C arguments up to the form of x's dtype (but
+    the launches and the stream) for a checked CUDA x, its arguments `got`
+    by name and the (qk, v, ctx8, out) buffers `bufs` of the mode of (cs,
+    cpv)."""
     from geovpr_torch.ops._build import library_on
     lib = library_on(x.device.index, "geovpr_mhsa_int8_init")
     ptrs = [x] + [got[k] for k in _K2_ARGS] + list(bufs)
@@ -341,7 +348,8 @@ def _k2_args(x, got: dict, num_heads: int, ln_eps: float, cs, cpv, cpl,
     return lib, (*(t.data_ptr() for t in ptrs), b, n, d, num_heads,
                  float(ln_eps), *mode_constants(
                      cs, cpv, cpl, d // num_heads,
-                     lambda c: float(c) * LOG2E))
+                     lambda c: float(c) * LOG2E),
+                 int(x.dtype == torch.float32))
 
 
 def k2_launch_part(part: int, x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff,

@@ -13,9 +13,11 @@ k-contiguous.
 
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel in
 `geovpr_torch/csrc/mlp_int8.cu` (three launches: LN-quant, fc1 with the
-GELU epilogue, fc2 with the residual epilogue; `K3_PARTS`) or raises; on a
-CPU tensor it runs `mlp_block_int8_reference`, the plain PyTorch version of
-the same arithmetic.
+GELU epilogue, fc2 with the residual epilogue; `K3_PARTS`) in the form of
+the stream's dtype: bf16, or f32 for a model built with
+compute_dtype="float32" (`k3_dtype_error`), or raises; on a CPU tensor it
+runs `mlp_block_int8_reference`, the plain PyTorch version of the same
+arithmetic, which computes in f32 and rounds once to x's dtype.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from geovpr_torch.ops.quant import (check_int8_kernel_args, check_shapes,
-                                    int_mm, layer_norm_f32, round_clip_int8)
+                                    int8_stream_dtype_error, int_mm,
+                                    layer_norm_f32, round_clip_int8)
 
 _K3_MAX_D = 1024
 
@@ -68,6 +71,16 @@ def k3_shape_error(d: int, hidden: int) -> str | None:
     return None
 
 
+def k3_dtype_error(dtypes: dict) -> str | None:
+    """K3's type rule on CUDA (name -> dtype of its tensors): x and the
+    separate residual, where there is one, both bf16 or both f32 (the
+    output is x's), the matrices int8, the vectors f32
+    (`quant.int8_stream_dtype_error`). The message, or None where the rule
+    holds."""
+    return int8_stream_dtype_error("K3", dtypes, ("x", "residual"),
+                                   ("w1q_t", "w2q_t"))
+
+
 def _k3_got(x, ln_scale_q, ln_bias_q, w1q_t, s1_eff, b1, w2q_t, s2_eff, b2,
             gamma, residual) -> dict:
     """K3's tensor arguments by name, their shapes checked."""
@@ -95,9 +108,10 @@ def fused_mlp_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
                          residual: torch.Tensor | None = None
                          ) -> torch.Tensor:
     """out = residual + gamma * MLP_int8(LN(x)); x (..., D), any leading
-    shape. CPU tensors run the plain version; CUDA tensors launch K3 (bf16
-    x and residual, int8 matrices, f32 vectors, contiguous,
-    `k3_shape_error`'s widths, forward only) or raise."""
+    shape. CPU tensors run the plain version; CUDA tensors launch K3 in
+    the form of x's dtype (x and residual bf16 or f32, int8 matrices, f32
+    vectors: `k3_dtype_error`; contiguous, `k3_shape_error`'s widths,
+    forward only) or raise."""
     got = _k3_got(x, ln_scale_q, ln_bias_q, w1q_t, s1_eff, b1, w2q_t, s2_eff,
                   b2, gamma, residual)
     if x.device.type == "cpu":
@@ -109,8 +123,9 @@ def fused_mlp_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
     bufs = k3_buffers(x, w1q_t.shape[0])
     lib, args = _k3_args(x, got, inv_a_mid, ln_eps, residual, bufs)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_mlp_block_int8(
-            *args, torch.cuda.current_stream(x.device).cuda_stream)
+        rc = lib.geovpr_mlp_int8_parts(
+            *args, 0, len(K3_PARTS) - 1,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mlp_int8 kernel launch failed: CUDA error {rc}")
     fused_mlp_block_int8.launches += 1
@@ -128,11 +143,13 @@ def k3_buffers(x: torch.Tensor, hidden: int) -> tuple:
 
 
 def _k3_args(x, got: dict, inv_a_mid, ln_eps, residual, bufs):
-    """The library and K3's C arguments (but the stream) for a CUDA x, or
-    raise on what the kernels do not take."""
+    """The library and K3's C arguments up to the form of x's dtype (but
+    the launches and the stream) for a CUDA x, or raise on what the
+    kernels do not take."""
     mats = {k: got[k] for k in ("w1q_t", "w2q_t")}
     vecs = {k: v for k, v in got.items() if k not in mats}
-    check_int8_kernel_args(x, mats, vecs, extra=() if residual is None
+    check_int8_kernel_args(x, mats, vecs, k3_dtype_error,
+                           extra=() if residual is None
                            else (("residual", residual),))
     d, hidden = x.shape[-1], got["w1q_t"].shape[0]
     err = k3_shape_error(d, hidden)
@@ -146,7 +163,8 @@ def _k3_args(x, got: dict, inv_a_mid, ln_eps, residual, bufs):
     from geovpr_torch.ops._build import library_on
     lib = library_on(x.device.index, "geovpr_mlp_int8_init")
     return lib, (*(t.data_ptr() for t in ptrs), x.numel() // d, d, hidden,
-                 float(inv_a_mid), float(ln_eps))
+                 float(inv_a_mid), float(ln_eps),
+                 int(x.dtype == torch.float32))
 
 
 K3_PARTS = ("ln_quant", "fc1", "fc2")

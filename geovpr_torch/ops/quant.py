@@ -248,10 +248,48 @@ def training_dtype_error(name: str, dtypes: dict,
     return None
 
 
-def check_int8_kernel_args(x, mats: dict, vecs: dict, extra=()) -> None:
-    """What the int8 kernels take on CUDA: bf16 x (and `extra` tensors),
-    int8 matrices, f32 vectors, all contiguous, on x's device, forward
-    only. Raises on anything else."""
+def int8_stream_dtype_error(name: str, dtypes: dict, stream: tuple,
+                            mats: tuple) -> str | None:
+    """The type rule of the w8a8 kernels K2, K3 and K5 on CUDA, each of
+    which has a bf16 and an f32 form (`csrc/hopper_gemm_s8.cuh`'s LN-quant
+    pass and residual epilogues in the stream's type): the tensors of
+    `dtypes` (name -> dtype) named in `stream` (x, and K3's separate
+    residual where there is one) all bf16 or all f32, the output x's; those
+    named in `mats` int8; every other one f32. The message, or None where
+    the rule holds."""
+    names = [k for k in stream if k in dtypes]
+    got = [dtypes[k] for k in names]
+    if got[0] not in (torch.bfloat16, torch.float32) or any(
+            t != got[0] for t in got):
+        return (f"{name} takes {', '.join(names)} all torch.bfloat16 or all "
+                f"torch.float32 on CUDA, got " + ", ".join(
+                    f"{k} {t}" for k, t in zip(names, got)))
+    for k, t in dtypes.items():
+        if k in mats and t != torch.int8:
+            return f"{name} takes {k} in torch.int8, got {t}"
+        if k not in mats and k not in names and t != torch.float32:
+            return f"{name} takes {k} in torch.float32 on CUDA, got {t}"
+    return None
+
+
+def int8_attn_dtype_rule(name: str):
+    """The type rule of the w8a8 attention half-block `name` (K2, K5) on
+    CUDA as a function of name -> dtype, named `k2_dtype_error` ...: x
+    bf16 or f32 (the output is x's), wqkv_q_t and wo_q_t int8, the vectors
+    (and K5's table) f32 (`int8_stream_dtype_error`)."""
+    def rule(dtypes: dict) -> str | None:
+        return int8_stream_dtype_error(name, dtypes, ("x",),
+                                       ("wqkv_q_t", "wo_q_t"))
+    rule.__name__ = rule.__qualname__ = f"{name.lower()}_dtype_error"
+    return rule
+
+
+def check_int8_kernel_args(x, mats: dict, vecs: dict, dtype_error,
+                           extra=()) -> None:
+    """What the int8 kernels take on CUDA: x (and `extra` tensors, K3's
+    residual) bf16 or f32 in one dtype, int8 matrices, f32 vectors
+    (`dtype_error`, the kernel's rule on name -> dtype), all contiguous, on
+    x's device, forward only. Raises on anything else."""
     tensors = {"x": x, **dict(extra), **mats, **vecs}
     for name, t in tensors.items():
         if t.device != x.device:
@@ -262,12 +300,6 @@ def check_int8_kernel_args(x, mats: dict, vecs: dict, extra=()) -> None:
                                        for t in tensors.values()):
         raise RuntimeError("the int8 serving kernels have no backward; run "
                            "the forward under torch.inference_mode()")
-    for name, t in (("x", x), *dict(extra).items()):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16 on CUDA, got {t.dtype}")
-    for name, t in mats.items():
-        if t.dtype != torch.int8:
-            raise TypeError(f"{name} must be int8, got {t.dtype}")
-    for name, t in vecs.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    err = dtype_error({k: t.dtype for k, t in tensors.items()})
+    if err:
+        raise TypeError(err)

@@ -36,6 +36,7 @@ import torch
 
 from geovpr_torch.ops.quant import (attn_mode, check_devices,
                                     check_int8_kernel_args, check_shapes,
+                                    int8_attn_dtype_rule,
                                     int8_resid_reference, int_mm,
                                     layer_norm_f32, ln_quant_reference,
                                     mode_constants, qkv_buffers,
@@ -487,9 +488,10 @@ def fused_swin_attn_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
                                ln_eps: float = 1e-5, cs=None,
                                cpv=None) -> torch.Tensor:
     """w8a8 Swin attention half-block on the raster stream. CPU tensors run
-    the plain version; CUDA tensors launch K5 in the mode of (cs, cpv)
-    (bf16 x, int8 matrices, f32 vectors and table, contiguous,
-    `k5_shape_error`'s geometry, forward only) or raise."""
+    the plain version; CUDA tensors launch K5 in the mode of (cs, cpv), in
+    the form of x's dtype (bf16 or f32 x, int8 matrices, f32 vectors and
+    table: `k5_dtype_error`; contiguous, `k5_shape_error`'s geometry,
+    forward only) or raise."""
     _check_geometry(x, num_heads, resolution, window, shift)
     mode = attn_mode(cs, cpv)
     got = _k5_got(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff,
@@ -503,7 +505,7 @@ def fused_swin_attn_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
         raise ValueError(f"unsupported device {x.device}")
     mats = {k: got[k] for k in ("wqkv_q_t", "wo_q_t")}
     vecs = {k: v for k, v in got.items() if k not in mats}
-    check_int8_kernel_args(x, mats, vecs)
+    check_int8_kernel_args(x, mats, vecs, k5_dtype_error)
     err = k5_shape_error(x.shape[-1], num_heads, window, shift)
     if err:
         raise ValueError(err)
@@ -511,12 +513,17 @@ def fused_swin_attn_block_int8(x: torch.Tensor, ln_scale_q: torch.Tensor,
     lib, args = _k5_args(x, got, num_heads, resolution, window, shift, ln_eps,
                          cs, cpv, bufs)
     with torch.cuda.device(x.device):
-        rc = lib.geovpr_swin_attn_int8(*args, _stream(x.device))
+        rc = lib.geovpr_swin_attn_int8_parts(*args, 0, len(K5_PARTS) - 1,
+                                             _stream(x.device))
     if rc != 0:
         raise RuntimeError(
             f"swin_attn_int8 kernel launch failed: CUDA error {rc}")
     fused_swin_attn_block_int8.launches += 1
     return bufs[3]
+
+
+# K5's type rule on CUDA (`quant.int8_attn_dtype_rule`)
+k5_dtype_error = int8_attn_dtype_rule("K5")
 
 
 def _k5_got(x, ln_scale_q, ln_bias_q, wqkv_q_t, sqkv_eff, bqkv_eff, wo_q_t,
@@ -547,9 +554,9 @@ def k5_buffers(x: torch.Tensor, mode: str = "int8_scores") -> tuple:
 
 def _k5_args(x, got: dict, num_heads, resolution, window, shift, ln_eps, cs,
              cpv, bufs):
-    """The library and K5's C arguments (but the stream) for a checked
-    CUDA x and the (qk, v, ctx8, out) buffers `bufs` of the mode of (cs,
-    cpv)."""
+    """The library and K5's C arguments up to the form of x's dtype (but
+    the launches and the stream) for a checked CUDA x and the (qk, v, ctx8,
+    out) buffers `bufs` of the mode of (cs, cpv)."""
     from geovpr_torch.ops._build import library_on
     lib = library_on(x.device.index, "geovpr_swin_init")
     ptrs = [x] + list(got.values()) + list(bufs)
@@ -560,7 +567,8 @@ def _k5_args(x, got: dict, num_heads, resolution, window, shift, ln_eps, cs,
     return lib, (*(t.data_ptr() for t in ptrs), x.shape[0], resolution, c,
                  num_heads, window, shift, float(ln_eps),
                  *mode_constants(cs, cpv, None, c // num_heads,
-                                 score_constant)[:4])
+                                 score_constant)[:4],
+                 int(x.dtype == torch.float32))
 
 
 K5_PARTS = ("ln_quant", "qkv_gemm", "attention", "out_proj")

@@ -291,10 +291,10 @@ def test_int8_kernels_refuse_what_they_do_not_take(cuda):
     with torch.inference_mode():
         with pytest.raises(ValueError, match="cpl"):
             fused_mhsa_block_int8(x, **{**k2, "cpv": 1.0}, num_heads=1)
+        with pytest.raises(TypeError):       # f16: neither form's
+            fused_mhsa_block_int8(x.half(), **k2, num_heads=1)
         with pytest.raises(TypeError):
-            fused_mhsa_block_int8(x.float(), **k2, num_heads=1)
-        with pytest.raises(TypeError):
-            fused_mlp_block_int8(x.float(), **k3)
+            fused_mlp_block_int8(x.half(), **k3)
         with pytest.raises(TypeError):
             fused_mlp_block_int8(x, **{**k3, "w1q_t": k3["w1q_t"].float()})
         with pytest.raises(ValueError, match="multiples of 16"):
@@ -342,7 +342,8 @@ def _k2_launch_checks(x, k2, h):
     """K2's four launches alone (`k2_launch_part`), in the attention mode
     of the fold `k2`, each fed the plain parts' output of the launch before
     it, against its plain part: int8 within one step in at most 1% of the
-    elements, bf16 within one spacing (as K5's launches are held)."""
+    elements, bf16 within one spacing (as K5's launches are held), the f32
+    stream's output as `_out_close` holds it."""
     from geovpr_torch.ops import mhsa as mh
     from geovpr_torch.ops.quant import (attn_mode, int8_resid_reference,
                                         ln_quant_reference,
@@ -374,7 +375,7 @@ def _k2_launch_checks(x, k2, h):
     torch.cuda.synchronize()
     want = int8_resid_reference(ctx_p, k2["wo_q_t"], k2["so_eff"], k2["bo"],
                                 x.reshape(b * n, d), gamma=k2["gamma"])
-    assert _bf16_close(out.reshape(b * n, d), want)
+    assert _out_close(out.reshape(b * n, d), want, x.reshape(b * n, d))
 
 
 @pytest.mark.parametrize("shape", [(2, 257, 768, 12), (3, 50, 384, 6),
@@ -523,6 +524,16 @@ def _bf16_close(got, want):
     return bool((err <= bf16_spacing(want.float()) + 1e-6).all())
 
 
+def _out_close(got, want, res):
+    """The out projection's launch against its plain part: a bf16 output
+    within one spacing (`_bf16_close`), an f32 one (the f32 stream's form)
+    with the branch (out - res) within F32_BRANCH_REL in the 2-norm."""
+    if got.dtype == torch.bfloat16:
+        return _bf16_close(got, want)
+    e = f32_branch_error(got, want, res)
+    return e["finite"] and e["branch_rel_err"] <= F32_BRANCH_REL
+
+
 def _k5_launch_checks(x, kw):
     """Each of K5's four launches alone (`k5_launch_part`), in the
     attention mode of the fold `kw`, fed the plain parts' output of the
@@ -531,7 +542,7 @@ def _k5_launch_checks(x, kw):
     GEMM's int8 columns within one int8 step in at most 1% of the elements,
     its bf16 columns within one bf16 spacing, the attention's int8 context
     within one step in at most 1%, the out projection within one bf16
-    spacing."""
+    spacing (`_out_close`: the f32 stream's within F32_BRANCH_REL)."""
     from geovpr_torch.ops import swin_block as sb
     from geovpr_torch.ops.quant import (attn_mode, int8_resid_reference,
                                         ln_quant_reference,
@@ -564,7 +575,7 @@ def _k5_launch_checks(x, kw):
     torch.cuda.synchronize()
     want = int8_resid_reference(ctx_p, kw["wo_q_t"], kw["so_eff"],
                                 kw["bo"], x.reshape(m, c))
-    assert _bf16_close(out.reshape(m, c), want)
+    assert _out_close(out.reshape(m, c), want, x.reshape(m, c))
 
 
 _K5_PART_SHAPES = [(2, 128, 4, 24, 12, 6), (2, 128, 4, 96, 12, 6),
@@ -1952,3 +1963,133 @@ def test_f32_patch_embedding_runs_without_tf32(cuda):
         f32_tf32_conv_check(cuda)
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+# ------------------------------------------------- w8a8 on an f32 stream --
+# K2, K3 and K5 on an f32 stream (a model built with
+# compute_dtype="float32"): the LN-quant pass reads f32 rows and the
+# residual epilogue adds the f32 residual and stores f32. Held as
+# chip_smoke.py's [int8_f32] holds them (`int8_f32_launch_checks`: the
+# LN-quant launch alone, the rest of the call against the plain version fed
+# the kernel's int8 rows under the int8 bound, the out projection alone),
+# and each launch alone against its plain part.
+
+_INT8_MODES = ["int8_scores", "int8_pv", "bf16_scores"]
+
+
+@pytest.mark.parametrize("mode", _INT8_MODES)
+@pytest.mark.parametrize("shape", [(2, 257, 768, 12), (3, 50, 384, 6)])
+def test_k2_int8_f32_matches_plain_version(cuda, shape, mode):
+    from chip_smoke import (int8_f32_launch_checks, int8_f32_within_bound,
+                            int8_mode)
+    b, n, d, h = shape
+    with int8_mode(mode):
+        x, k2, _ = int8_block_case(b, n, d, h, cuda, dtype=torch.float32)
+    with torch.inference_mode():
+        before = fused_mhsa_block_int8.launches
+        got = fused_mhsa_block_int8(x, **k2, num_heads=h)
+        torch.cuda.synchronize()
+        assert fused_mhsa_block_int8.launches == before + 1
+        assert got.dtype == torch.float32
+        c = int8_f32_launch_checks("K2", x, dict(k2, num_heads=h), got, 1e-6)
+        assert int8_f32_within_bound(c), c
+        _k2_launch_checks(x, k2, h)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("shape", [(2, 257, 768, 12), (2, 576, 128, 4),
+                                   (2, 49, 1024, 16)])
+def test_k3_int8_f32_matches_plain_version(cuda, shape, residual):
+    """At DINOv2-B/14's width, Swin-B-384 stage 0's (C = 128: an LN-quant
+    warp takes eight f32 rows) and stage 3's (C = 1024: one row); with
+    and without the separate residual (ConvNeXt's block shape); its three
+    launches one by one leave the whole call's output."""
+    from chip_smoke import int8_f32_launch_checks, int8_f32_within_bound
+    from geovpr_torch.ops import mlp_int8 as mi
+    b, n, d, h = shape
+    x, _, k3 = int8_block_case(b, n, d, h, cuda, dtype=torch.float32)
+    res = torch.randn_like(x) if residual else None
+    with torch.inference_mode():
+        before = fused_mlp_block_int8.launches
+        got = fused_mlp_block_int8(x, **k3, residual=res)
+        torch.cuda.synchronize()
+        assert fused_mlp_block_int8.launches == before + 1
+        assert got.dtype == torch.float32
+        c = int8_f32_launch_checks("K3", x, k3, got, 1e-6, res)
+        assert int8_f32_within_bound(c), c
+        bufs = mi.k3_buffers(x, k3["w1q_t"].shape[0])
+        for part in range(len(mi.K3_PARTS)):
+            mi.k3_launch_part(part, x, **k3, residual=res, bufs=bufs)
+        torch.cuda.synchronize()
+        assert torch.equal(bufs[2], got)
+
+
+@pytest.mark.parametrize("mode", _INT8_MODES)
+@pytest.mark.parametrize("shape", [(2, 128, 4, 24, 12, 6),
+                                   (1, 1024, 32, 12, 12, 0)])
+def test_k5_int8_f32_matches_plain_version(cuda, shape, mode):
+    from chip_smoke import (int8_f32_launch_checks, int8_f32_within_bound,
+                            int8_mode)
+    from geovpr_torch.ops import swin_block as sb
+    with int8_mode(mode):
+        x, blk = swin_block_case(shape, cuda, int8=True, dtype=torch.float32)
+    kw = k5_kwargs(blk)
+    with torch.inference_mode():
+        before = sb.fused_swin_attn_block_int8.launches
+        got = sb.fused_swin_attn_block_int8(x, **kw)
+        torch.cuda.synchronize()
+        assert sb.fused_swin_attn_block_int8.launches == before + 1
+        assert got.dtype == torch.float32
+        c = int8_f32_launch_checks("K5", x, kw, got, 1e-5)
+        assert int8_f32_within_bound(c), c
+        _k5_launch_checks(x, kw)
+
+
+def test_int8_f32_refuses_f16_and_mixed_streams(cuda):
+    """`k2_dtype_error`, `k3_dtype_error` and `k5_dtype_error` on the card:
+    an f16 x, and K3's residual in another dtype than x, raise TypeError
+    naming the kernel, before any launch."""
+    from geovpr_torch.ops import swin_block as sb
+    x, k2, k3 = int8_block_case(1, 5, 64, 1, cuda, dtype=torch.float32)
+    x5, blk = swin_block_case((1, 64, 2, 8, 4, 2), cuda, int8=True,
+                              dtype=torch.float32)
+    with torch.inference_mode():
+        with pytest.raises(TypeError, match="K2"):
+            fused_mhsa_block_int8(x.half(), **k2, num_heads=1)
+        with pytest.raises(TypeError, match="K3"):
+            fused_mlp_block_int8(x.half(), **k3)
+        with pytest.raises(TypeError, match="K3"):
+            fused_mlp_block_int8(x, **k3, residual=x.bfloat16())
+        with pytest.raises(TypeError, match="K5"):
+            sb.fused_swin_attn_block_int8(x5.half(), **k5_kwargs(blk))
+
+
+def test_int8_f32_model_routes_on_the_card(cuda):
+    """A small f32 int8 DINOv2 on the card: K2 takes a bf16 stream (the
+    block casts around it, as JAX's does), K3 the f32 one, once a layer;
+    the stream stays f32; the kernel route against the plain route (which
+    keeps f32 through the attention) at cosine >= 0.999 a token."""
+    from chip_smoke import int8_stream_dtypes
+    from geovpr_torch.models.dinov2 import DinoV2
+    from geovpr_torch.models.layers import init_weights_
+    from geovpr_torch.models.quantize import quantize_for_serving
+
+    model = DinoV2(hidden_size=128, num_layers=2, num_heads=2, image_size=28,
+                   dtype=torch.float32, int8_attn=True, int8_mlp=True)
+    init_weights_(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    x = torch.randn(3, 28, 28, 3, device=cuda)
+    quantize_for_serving(model, [x])
+    with torch.inference_mode(), int8_stream_dtypes() as seen:
+        out = model(x).tokens
+        torch.cuda.synchronize()
+    assert seen == {("K2", torch.bfloat16): 2, ("K3", torch.float32): 2}
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    for m in model.modules():
+        if hasattr(m, "use_kernels"):
+            m.use_kernels = False
+    with torch.inference_mode():
+        plain = model(x).tokens
+    cos = torch.nn.functional.cosine_similarity(out.flatten(0, 1),
+                                                plain.flatten(0, 1), dim=-1)
+    assert cos.min() >= 0.999
