@@ -35,9 +35,12 @@ keys past N, K4 without the shift mask (in the raster window attention
 that K7's f32 raster mode shares), K6 with x10 and x01 swapped, K7
 counting the pad keys past N = 49, K9a's training attention without the
 shift mask or storing p before its normalisation; `csrc/f32_train.cu`:
-K8b without the mask of the keys past N, K8c with one row chunk left out
-of dWqkv's partial sums, K9b's core without the sum of dp * p, K9c with
-dbias summed from one window's ds only),
+K8b's softmax rows without the mask of the keys past N, or its core
+dropping the ragged tail's keys (at N = 257 the one key past the last
+whole 32), K8c with one row chunk left out of dWqkv's partial sums, K9b's
+core without the sum of dp * p, K9c with dbias summed from one window's
+ds only; `csrc/f32_gemm.cuh`: the f32 GEMM's ring never multiplying its
+last k stage, caught through K8c's products),
 builds that copy and runs the chip_smoke.py check of that kernel
 (`int8_kernels_vs_plain` for K2/K3 and the int8 GEMM,
 `swin_kernels_vs_plain` for K4/K5/K6,
@@ -215,8 +218,16 @@ FAULTS = {
         ("s[r] = kin ? x : -INFINITY;", "s[r] = kin ? x : 0.f;")],
         _F32.format(k1=(), k4=(), k6=(), k7=(_K7_STAGE0,))),
     "f32 K8b key mask past N dropped": ("f32_train.cu", [
-        ("return key < N;", "return true;")],
+        ("  if (key0 + 3 < N) return v;", "  return v;")],
         _F32T.format(k8b=((16, 257, 768, 12),), k8c=())),
+    "f32 K8b core's tail key dropped": ("f32_train.cu", [
+        ("const int c0 = 32 * whole, tail = nk - c0;",
+         "const int c0 = 32 * whole, tail = 0;")],
+        _F32T.format(k8b=((16, 257, 768, 12),), k8c=())),
+    "f32 GEMM ring's last k stage never multiplied": ("f32_gemm.cuh", [
+        ("  for (int kt = 0; kt < ktiles; ++kt) {",
+         "  for (int kt = 0; kt < ktiles - 1; ++kt) {")],
+        _F32T.format(k8b=(), k8c=((16, 257, 768, 12),))),
     "f32 K8c dWqkv leaves one row chunk out of its partials": (
         "f32_train.cu", [
             ("reduce(st, pt, S1, (size_t)D * 3 * D,",

@@ -56,10 +56,10 @@
 //   warp's L1 serves after the first; kMerge reads the 4C row of a merged
 //   token from its four source rows.
 // - f32_gemm_kernel<kEpi> (f32_gemm.cuh, shared with f32_train.cu): C =
-//   A W (A (M, K) row-major, W (K, N) (in, out)), 128 x 128 tiles of 256
-//   threads, 8 x 8 outputs a thread, k tiles of 8 double-buffered in shared
-//   memory; epilogues: + bias (QKV), + bias + x (K4's out projection), (+
-//   bias) * gamma + x (K1's), none (K6).
+//   A W (A (M, K) row-major, W (K, N) (in, out)), 128 x 64 tiles of 128
+//   threads, 8 x 8 outputs a thread, k tiles of 16 through a three-stage
+//   cp.async ring on mbarriers; epilogues: + bias (QKV), + bias + x (K4's
+//   out projection), (+ bias) * gamma + x (K1's), none (K6).
 // - f32_attn_kernel<DH, kMode>: a CTA one (query block, head, image) of
 //   K1, or one (window, head, query block) of K4 / K7, each warp FA_R
 //   query rows; key tiles of FA_KT rows through shared memory (K at a

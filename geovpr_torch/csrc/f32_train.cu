@@ -20,30 +20,46 @@
 // Numerics, as the masked bodies compute them in f32, with no rounding to
 // a narrower type anywhere (JAX's rounding points, dy, da, the LN output
 // and dh to x.dtype, are no-ops in f32):
-// - s = (q . k) dh^-0.5 with the keys >= N masked; p = exp(s - max) / sum,
-//   the two-pass softmax of K1.f32's attention (per-thread running max and
-//   sum over the keys, combined across the row's threads, then expf and a
-//   correctly rounded division);
+// - s = (q . k) dh^-0.5 over the keys < N; p = exp(s - max) / sum, a
+//   two-pass softmax over each query row's stored scores (the row max,
+//   then one exponential a score, 2^((s - max) log2 e) on the SFU, and the
+//   row sum), p = e times the reciprocal of the sum (one division a row);
 // - dp = da v^T; ds = p (dp - sum_j dp p); dq = (ds dh^-0.5) k, dk =
 //   (ds dh^-0.5)^T q, dv = p^T da;
 // - products on the CUDA cores (FFMA), each output a sequential sum; no
 //   TF32 (PERF.md: a single-pass TF32 product misses the f32 bound).
 //
-// The core (K8b.f32, and K8c.f32's launch 5) is two launches over a grid
-// of (64-row tiles, H, B), 256 threads a CTA, 4 x 4 outputs a thread of
-// each 64 x 64 product, its operands in shared memory (k-major, float4
-// reads):
-//   f32_core_dq_kernel: a query tile's q and da stay resident; the key
-//     tiles are read three times: pass 1 the rows' max and sum (s), pass 2
-//     sum_j dp p (s, dp), pass 3 ds and dq += (ds dh^-0.5) k (s, dp and
-//     the product). Pass 3 also writes p and ds dh^-0.5 to two f32 planes
-//     P and dS (B H, N, N rounded up to 4).
-//   f32_core_dkdv_kernel: per key tile, the query tiles' P and dS columns
-//     with q and da: dv += P^T da and dk += dS^T q.
-// Recomputing s twice and dp once in the dq half costs three N x N x dh
-// products a head; the planes cost 2 x 4 B H N^2 bytes written and read
-// (139 MB at large-14, B = 16). Keys >= N are masked in the softmax (their
-// k and v rows read as zero); rows >= N read as zero and are not stored.
+// The core (K8b.f32, and K8c.f32's launch 5) is two launches. Each streams
+// its operands' 16-byte row pieces into shared memory by cp.async from
+// every thread, each fill's arrival counted on an mbarrier
+// (cp.async.mbarrier.arrive.noinc): the dk / dv CTA through a three-stage
+// ring, two stages ahead of its products; the dq CTA through one tile,
+// whose fill the products of the SM's other dq CTA overlap (a two-stage
+// ring of half the keys measured slower):
+//   f32_core_dq_kernel, a 32-row query tile a CTA of 4 warps (two CTAs an
+//     SM, so that one's loads and row passes overlap the other's
+//     products): the tile's score rows stay on chip (S and DP, 2 x 32 x N
+//     floats: 67 KB at N = 257, in shared memory up to N = 280; past that
+//     the CTA's own rows of the P and dS planes hold them), so that the
+//     key rows stream three times for three products: S = q k^T, DP = da
+//     v^T, then dq = ds k, and sum_j dp p is a row pass over S and DP
+//     instead of a product. It writes p and ds dh^-0.5 to two f32 planes P
+//     and dS (B H, N, N rounded up to 4).
+//   f32_core_dkdv_kernel, a 64-key tile a CTA of 8 warps: the query rows'
+//     P and dS columns with q and da: dv = P^T da, dk = dS^T q.
+// Five N x N x dh products a head, the five the bound counts (the first
+// port ran eight). The planes cost 2 x 4 B H N^2 bytes written and read
+// (137 MB each way at large-14, B = 16: 41 us each way at 3.35 TB/s),
+// against the two products a recompute of s and dp in the dk / dv half
+// would add (65 us at the FFMA peak). The ragged tail costs its tokens: a
+// warp's 8 query rows or 16 keys that lie past N are skipped, and the keys
+// past the last whole 32 of a key tile (one at N = 257) are computed as
+// (row, key) dot products over the CTA's threads; a dk / dv stage reads
+// the tile's keys rounded up to 4. Register tiles: a lane 8 rows x 4 keys
+// of S and DP, 4 x 4 of dq, 8 keys x 4 columns of dk or dv; shared rows at
+// a stride of 68 floats, so that 16-byte reads of 8 rows hit distinct
+// banks. A warp's 8 score rows pass at once (8 independent chains of loads
+// and warp sums).
 //
 // K8c.f32's launches (`geovpr_vit_f32_bwd_all_parts` runs a range of them,
 // for timing one by one): 0 dy, 1 dbo, 2 da, 3 dWo, 4 dgamma, 5 the core,
@@ -51,7 +67,7 @@
 // run on f32_gemm.cuh's FFMA GEMM: da = dy Wo^T and dh = dqkv Wqkv^T read
 // the (in, out) weights transposed (kTW); dWo = ctx^T dy and dWqkv = h^T
 // dqkv read the row-major activations as A^T (kTA), in train_gemm.cuh's
-// split_rows chunks of rows (counted over the GEMM's 128 x 128 tiles)
+// split_rows chunks of rows (counted over the GEMM's 128 x 64 tiles)
 // whose f32 partials one reduce_partials launch adds in order; dgamma
 // recomputes y = ctx Wo + bo with the GY epilogue's 128-row partials. dy,
 // the column sums, the LN recompute and VJP are row passes in f32. No
@@ -99,13 +115,26 @@ namespace {
 
 // ------------------------------------------------------------ K8b.f32 ----
 
-constexpr int FC_T = 64;         // rows of a query or key tile
-constexpr int FC_DH = 64;        // head dim
-constexpr int FC_TILE = FC_T * FC_DH;
-constexpr int FC_THREADS = 256;
-constexpr int FC_DS_LD = 68;     // row stride of the staged ds^T tile
-constexpr int FC_DQ_SMEM = 4 * (5 * FC_TILE + FC_T * FC_DS_LD);
-constexpr int FC_KV_SMEM = 4 * (4 * FC_TILE);
+constexpr int FC_DH = 64;          // head dim
+constexpr int FC_LD = FC_DH + 4;   // row stride of a staged q, da, k or v
+                                   // row: 8 lanes' 16-byte reads of 8
+                                   // rows hit distinct banks
+constexpr int FC_BQ = 32;          // query rows of a dq CTA, 8 a warp
+constexpr int FC_KT = 128;         // key rows of a dq CTA's k or v tile
+constexpr int FC_BK = 64;          // keys of a dk / dv CTA
+constexpr int FC_QT = 32;          // query rows of a dk / dv ring stage
+constexpr int FC_THREADS = 256;    // a dk / dv CTA's 8 warps
+constexpr int FC_DQ_THREADS = 128;  // a dq CTA's 4 warps
+constexpr int FC_KV_STAGES = 3;    // a dk / dv CTA's ring
+constexpr int FC_BAR_BYTES = 64;   // the mbarriers, before the tiles
+constexpr int FC_DQ_SMEM_MAX = 115712;  // two dq CTAs an SM (228 KB, 1 KB
+                                        // reserved a CTA)
+// the dq CTA's fixed shared memory: the barrier, q (then da) rows, a k or
+// v tile; the score rows follow when they fit (f32_rows_in_smem)
+constexpr int FC_DQ_FIXED =
+    FC_BAR_BYTES + 4 * (FC_BQ * FC_LD + FC_KT * FC_LD);
+constexpr int FC_KV_STAGE = 4 * FC_QT * FC_LD;  // P, dS, q, da rows
+constexpr int FC_KV_SMEM = FC_BAR_BYTES + 4 * FC_KV_STAGES * FC_KV_STAGE;
 
 struct CoreArgs {
   const float* qkv;  // (B*N, 3D)
@@ -118,249 +147,425 @@ struct CoreArgs {
   float scale;       // dh^-0.5
 };
 
-// the keys past N (the tail tile's padding) are masked out of the softmax
-__device__ __forceinline__ bool fc_key_in(int key, int N) { return key < N; }
+constexpr float kFcLog2e = 1.4426950408889634f;
 
-// rows r0.. r0 + 63 (those < N) of the 64 columns at `col` of a (B*N, ldm)
-// matrix of image b into dst transposed, dst[e][r] (rows >= N zero)
-__device__ __forceinline__ void fc_load_t(float* dst, const float* src,
-                                          long long ldm, int b, int N,
-                                          int r0, int col) {
-  for (int idx = threadIdx.x; idx < FC_TILE / 4; idx += FC_THREADS) {
-    const int r = idx % FC_T, e4 = (idx / FC_T) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < N)
-      v = f32_ld4(src + ((long long)b * N + r0 + r) * ldm + col + e4);
-    dst[(e4 + 0) * FC_T + r] = v.x;
-    dst[(e4 + 1) * FC_T + r] = v.y;
-    dst[(e4 + 2) * FC_T + r] = v.z;
-    dst[(e4 + 3) * FC_T + r] = v.w;
-  }
+// v (the keys key0 .. key0 + 3 of a score row, key0 < N) with the
+// components of keys past N replaced by `fill`
+__device__ __forceinline__ float4 fc_mask(float4 v, int key0, int N,
+                                          float fill) {
+  if (key0 + 3 < N) return v;
+  if (key0 + 1 >= N) v.y = fill;
+  if (key0 + 2 >= N) v.z = fill;
+  v.w = fill;
+  return v;
 }
 
-// the same rows into dst as they are, dst[r][e]; `lim` bounds the
-// columns (a plane's row length)
-__device__ __forceinline__ void fc_load_n(float* dst, const float* src,
-                                          long long ldm, long long row0,
-                                          int rows, int col, long long lim) {
-  for (int idx = threadIdx.x; idx < FC_TILE / 4; idx += FC_THREADS) {
-    const int r = idx / (FC_DH / 4), e4 = (idx % (FC_DH / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows && col + e4 < lim)
-      v = f32_ld4(src + (row0 + r) * ldm + col + e4);
-    *reinterpret_cast<float4*>(dst + r * FC_DH + e4) = v;
-  }
-}
-
-// acc[i][j] += sum_k A[k][4 ty + i] B[k][4 tx + j], k < 64 (A, B k-major
-// with row strides lda, ldb)
-__device__ __forceinline__ void fc_mma(float (&acc)[4][4], const float* A,
-                                       int lda, const float* B, int ldb,
-                                       int ty, int tx) {
-#pragma unroll 8
-  for (int k = 0; k < FC_T; ++k) {
-    const float4 a4 = f32_ld4(A + k * lda + 4 * ty);
-    const float4 b4 = f32_ld4(B + k * ldb + 4 * tx);
-    const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-    const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+// the max and the sum of each of R rows' lane values over the warp, the R
+// butterflies in lockstep
+template <int R>
+__device__ __forceinline__ void fc_rows_max(float (&v)[R]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int o = 16; o > 0; o >>= 1)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int i = 0; i < R; ++i)
+      v[i] = fmaxf(v[i], __shfl_xor_sync(0xffffffffu, v[i], o));
+}
+
+template <int R>
+__device__ __forceinline__ void fc_rows_sum(float (&v)[R]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < R; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+}
+
+// rows r < rows of the 64 columns at src (row stride ldm) into dst [r][e]
+// at a stride of FC_LD; rows past `rows` zero
+__device__ __forceinline__ void fc_stage_rows(float* dst, const float* src,
+                                              long long ldm, int rows,
+                                              int tid) {
+  for (int idx = tid; idx < FC_BQ * FC_DH / 4; idx += FC_DQ_THREADS) {
+    const int r = idx >> 4, e4 = (idx & 15) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows) v = f32_ld4(src + r * ldm + e4);
+    *reinterpret_cast<float4*>(dst + r * FC_LD + e4) = v;
   }
 }
 
-__device__ __forceinline__ void fc_zero(float (&acc)[4][4]) {
+// acc[i][j] = sum_e A[i][e] B[lane + 32 j][e] in e order, i < 8, j < J: a
+// warp's 8 rows of A (broadcast) against a key row a lane of B
+template <int J>
+__device__ __forceinline__ void fc_nt8(float (&acc)[8][4], const float* A,
+                                       const float* B, int lane) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int e = 0; e < FC_DH; e += 4) {
+    float4 bq[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      bq[j] = f32_ld4(B + (lane + 32 * j) * FC_LD + e);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 aq = f32_ld4(A + i * FC_LD + e);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        acc[i][j] = fmaf(aq.x, bq[j].x, acc[i][j]);
+        acc[i][j] = fmaf(aq.y, bq[j].y, acc[i][j]);
+        acc[i][j] = fmaf(aq.z, bq[j].z, acc[i][j]);
+        acc[i][j] = fmaf(aq.w, bq[j].w, acc[i][j]);
+      }
+    }
+  }
+}
+
+template <int J>
+__device__ __forceinline__ void fc_rows8(const float* A, const float* B,
+                                         float* out, long long lds, int r0,
+                                         int nrows, float mul, int lane) {
+  float acc[8][4];
+  fc_nt8<J>(acc, A + r0 * FC_LD, B, lane);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (r0 + i >= nrows) break;
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      out[(r0 + i) * lds + lane + 32 * j] = __fmul_rn(acc[i][j], mul);
+  }
+}
+
+// out[r][c] = mul * sum_e A[r][e] B[c][e] for r < nrows, c < nk (one dq
+// key tile's keys; out at the tile's first key, rows of lds): each warp
+// its 8 rows by the whole 32-key columns (a lane one key of each), then the
+// last nk % 32 keys (the ragged tail) by (row, key) pairs over the CTA's
+// threads, so that a tail costs its tokens. Each score a sequential sum
+// over e; mul = 1 is exact.
+__device__ __forceinline__ void fc_scores(const float* A, const float* B,
+                                          float* out, long long lds, int nk,
+                                          int nrows, float mul, int tid) {
+  const int lane = tid & 31, r0 = 8 * (tid >> 5);
+  const int whole = nk >> 5;
+  if (r0 < nrows) switch (whole) {
+      case 4: fc_rows8<4>(A, B, out, lds, r0, nrows, mul, lane); break;
+      case 3: fc_rows8<3>(A, B, out, lds, r0, nrows, mul, lane); break;
+      case 2: fc_rows8<2>(A, B, out, lds, r0, nrows, mul, lane); break;
+      case 1: fc_rows8<1>(A, B, out, lds, r0, nrows, mul, lane); break;
+      default: break;
+    }
+  const int c0 = 32 * whole, tail = nk - c0;
+  for (int p = tid; p < nrows * tail; p += FC_DQ_THREADS) {
+    const int r = p / tail, c = c0 + p - r * tail;
+    const float* ar = A + r * FC_LD;
+    const float* br = B + c * FC_LD;
+    float v = 0.f;
+#pragma unroll 4
+    for (int e = 0; e < FC_DH; e += 4) {
+      const float4 aq = f32_ld4(ar + e), bq = f32_ld4(br + e);
+      v = fmaf(aq.x, bq.x, v);
+      v = fmaf(aq.y, bq.y, v);
+      v = fmaf(aq.z, bq.z, v);
+      v = fmaf(aq.w, bq.w, v);
+    }
+    out[r * lds + c] = __fmul_rn(v, mul);
+  }
+}
+
+// dq of one 32-row query tile (grid (ceil(N / 32), H, B)), and its rows of
+// the P and dS planes. The head's k rows, its v rows, then its k rows
+// again stream through one shared tile of FC_KT key rows, which every
+// thread fills by 16-byte cp.async, each fill's arrival counted on an
+// mbarrier (a fill waits for the products of the last; the SM's other CTA
+// computes meanwhile); the 4 warps, 8 query rows each:
+//   pass 1  S = (q k^T) dh^-0.5 (q resident), the whole score rows;
+//   stats   each row's max, e = exp(S - max) in place and 1 / sum e;
+//   pass 2  DP = da v^T (da resident);
+//   rows    D = sum_j DP e / sum e, then p = e / sum e and ds dh^-0.5 =
+//           p (DP - D) dh^-0.5 to the P and dS planes and in place;
+//   pass 3  dq = (ds dh^-0.5) k.
+// kSmemRows: the S and DP rows in shared memory (N <= 280); else the
+// CTA's own rows of the P and dS planes hold them (any N).
+template <bool kSmemRows>
+__global__ void __launch_bounds__(FC_DQ_THREADS, 2)
+f32_core_dq_kernel(CoreArgs a) {
+  extern __shared__ __align__(16) unsigned char fc_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(fc_raw);
+  float* qa = reinterpret_cast<float*>(fc_raw + FC_BAR_BYTES);
+  float* kt = qa + FC_BQ * FC_LD;  // the k or v tile
+  const int q0 = blockIdx.x * FC_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int N = a.N;
+  const int nrows = min(FC_BQ, N - q0);
+  const long long ld3 = 3LL * a.D;
+  const int col = h * FC_DH;
+  const long long row0 = ((long long)b * a.H + h) * N + q0;
+  float* Pp = a.P + row0 * a.ld;
+  float* dSp = a.dS + row0 * a.ld;
+  const long long lds = a.ld;
+  float* S = kSmemRows ? kt + FC_KT * FC_LD : Pp;
+  float* Dp = kSmemRows ? S + FC_BQ * lds : dSp;
+  const int tiles = (N + FC_KT - 1) / FC_KT;
+  const int tid = threadIdx.x;
+  if (tid == 0) mbar_init(full, FC_DQ_THREADS);
+  mbar_fence_init();
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31, r0 = 8 * warp;
+  int fill = 0;
+  // a pass over the head's key tiles of the k (off 1) or v (off 2) rows:
+  // body(tile, first key, keys), each tile loaded once every thread is
+  // past the last one's products
+  auto pass = [&](int off, auto body) {
+    for (int t = 0; t < tiles; ++t, ++fill) {
+      const int k0 = t * FC_KT, nk = min(FC_KT, N - k0);
+      const float* src =
+          a.qkv + ((long long)b * N + k0) * ld3 + off * a.D + col;
+      __syncthreads();
+      for (int c = tid; c < nk * (FC_DH / 4); c += FC_DQ_THREADS) {
+        const int r = c >> 4, e4 = (c & 15) * 4;
+        cp_async16(kt + r * FC_LD + e4, src + r * ld3 + e4, 16);
+      }
+      cp_async_arrive(full);
+      mbar_wait(full, fill & 1);
+      body(k0, nk);
+    }
+  };
+
+  fc_stage_rows(qa, a.qkv + ((long long)b * N + q0) * ld3 + col, ld3, nrows,
+                tid);
+  __syncthreads();
+  pass(1, [&](int k0, int nk) {
+    fc_scores(qa, kt, S + k0, lds, nk, nrows, a.scale, tid);
+  });
+  __syncthreads();  // every score written; q read for the last time
+
+  // the warp's 8 rows at once (8 independent chains; a row past nrows
+  // reads row nrows - 1 and writes nothing), a lane its float4s lane + 32 t
+  // of each: the max, e = exp(s - max) in place (the SFU's 2^x of (s - max)
+  // log2 e; 0 past N), and 1 / sum e
+  const int nv = (N + 3) >> 2;
+  int roff[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) roff[i] = min(r0 + i, nrows - 1) * (int)lds;
+  float rl[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (r0 < nrows) {
+    float m[8], l[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) m[i] = -INFINITY, l[i] = 0.f;
+    for (int c = lane; c < nv; c += 32)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 v = fc_mask(f32_ld4(S + roff[i] + 4 * c), 4 * c, N,
+                                 -INFINITY);
+        m[i] = fmaxf(fmaxf(m[i], fmaxf(v.x, v.y)), fmaxf(v.z, v.w));
+      }
+    fc_rows_max(m);
+    for (int c = lane; c < nv; c += 32)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 v = fc_mask(f32_ld4(S + roff[i] + 4 * c), 4 * c, N,
+                                 -INFINITY);
+        const float4 e = make_float4(exp2_ftz((v.x - m[i]) * kFcLog2e),
+                                     exp2_ftz((v.y - m[i]) * kFcLog2e),
+                                     exp2_ftz((v.z - m[i]) * kFcLog2e),
+                                     exp2_ftz((v.w - m[i]) * kFcLog2e));
+        if (r0 + i < nrows)
+          *reinterpret_cast<float4*>(S + roff[i] + 4 * c) = e;
+        l[i] = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(l[i], e.x), e.y), e.z),
+                         e.w);
+      }
+    fc_rows_sum(l);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) rl[i] = 1.f / l[i];
+  }
+  fc_stage_rows(qa, a.da + ((long long)b * N + q0) * a.D + col, a.D, nrows,
+                tid);
+  __syncthreads();
+  pass(2, [&](int k0, int nk) {
+    fc_scores(qa, kt, Dp + k0, lds, nk, nrows, 1.f, tid);
+  });
+  __syncthreads();  // every dp written
+
+  // the warp's 8 rows at once: D = sum_j dp p, then p and ds dh^-0.5 to
+  // the planes (0 past N), ds dh^-0.5 over dp
+  if (r0 < nrows) {
+    float sub[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sub[i] = 0.f;
+    for (int c = lane; c < nv; c += 32)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 e = f32_ld4(S + roff[i] + 4 * c);
+        const float4 d = fc_mask(f32_ld4(Dp + roff[i] + 4 * c), 4 * c, N, 0.f);
+        sub[i] = fmaf(d.x, __fmul_rn(e.x, rl[i]), sub[i]);
+        sub[i] = fmaf(d.y, __fmul_rn(e.y, rl[i]), sub[i]);
+        sub[i] = fmaf(d.z, __fmul_rn(e.z, rl[i]), sub[i]);
+        sub[i] = fmaf(d.w, __fmul_rn(e.w, rl[i]), sub[i]);
+      }
+    fc_rows_sum(sub);
+    for (int c = lane; c < nv; c += 32)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (r0 + i >= nrows) continue;
+        const float4 e = f32_ld4(S + roff[i] + 4 * c);
+        const float4 d = fc_mask(f32_ld4(Dp + roff[i] + 4 * c), 4 * c, N, 0.f);
+        const float rr = rl[i];
+        const float4 pv = make_float4(__fmul_rn(e.x, rr), __fmul_rn(e.y, rr),
+                                      __fmul_rn(e.z, rr), __fmul_rn(e.w, rr));
+        const float4 dsv = make_float4(
+            __fmul_rn(__fmul_rn(pv.x, d.x - sub[i]), a.scale),
+            __fmul_rn(__fmul_rn(pv.y, d.y - sub[i]), a.scale),
+            __fmul_rn(__fmul_rn(pv.z, d.z - sub[i]), a.scale),
+            __fmul_rn(__fmul_rn(pv.w, d.w - sub[i]), a.scale));
+        const long long g = (long long)(r0 + i) * a.ld + 4 * c;
+        *reinterpret_cast<float4*>(Pp + g) = pv;
+        *reinterpret_cast<float4*>(dSp + g) = dsv;
+        *reinterpret_cast<float4*>(Dp + roff[i] + 4 * c) = dsv;
+      }
+  }
+  __syncwarp();  // the dq product reads only this warp's rows
+
+  // dq = (ds dh^-0.5) k: a lane rows r0 + 4 rg + i, columns 4 cg + j
+  const int rg = lane >> 4, cg = lane & 15;
+  const float* ar[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    ar[i] = Dp + min(r0 + 4 * rg + i, nrows - 1) * lds;
+  float dq[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-}
-
-// a row's 16 threads (the lanes of one half-warp) combined
-__device__ __forceinline__ float fc_row_sum(float v) {
+    for (int j = 0; j < 4; ++j) dq[i][j] = 0.f;
+  const bool rows_in = r0 < nrows;
+  pass(1, [&](int k0, int nk) {
+    if (!rows_in) return;
+    int c = 0;
+    for (; c + 4 <= nk; c += 4) {
+      float4 av[4], kv[4];
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float fc_row_max(float v) {
+      for (int i = 0; i < 4; ++i) av[i] = f32_ld4(ar[i] + k0 + c);
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// dq of one query tile (grid (ceil(N / 64), H, B)), and its rows of the P
-// and dS planes
-__global__ void __launch_bounds__(FC_THREADS, 2)
-f32_core_dq_kernel(CoreArgs a) {
-  extern __shared__ __align__(16) float fc_smem[];
-  float* qT = fc_smem;          // [d][r]
-  float* daT = qT + FC_TILE;    // [d][r]
-  float* kT = daT + FC_TILE;    // [d][key]
-  float* vT = kT + FC_TILE;     // [d][key]
-  float* kN = vT + FC_TILE;     // [key][d]
-  float* dsT = kN + FC_TILE;    // [key][r], rows of FC_DS_LD
-  const int q0 = blockIdx.x * FC_T, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int N = a.N;
-  const long long ld3 = 3LL * a.D;
-  const int col = h * FC_DH;
-  const int tiles = (N + FC_T - 1) / FC_T;
-  fc_load_t(qT, a.qkv, ld3, b, N, q0, col);
-  fc_load_t(daT, a.da, a.D, b, N, q0, col);
-
-  // pass 1: this thread's running max and sum of its rows 4 ty + i over
-  // its keys, then over the row's 16 threads
-  float m[4], l[4];
+      for (int kk = 0; kk < 4; ++kk)
+        kv[kk] = f32_ld4(kt + (c + kk) * FC_LD + 4 * cg);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  float s[4][4], dp[4][4];
-  for (int t = 0; t < tiles; ++t) {
-    __syncthreads();  // the last tile is read (and q, da are staged)
-    fc_load_t(kT, a.qkv, ld3, b, N, t * FC_T, a.D + col);
-    __syncthreads();
-    fc_zero(s);
-    fc_mma(s, qT, FC_T, kT, FC_T, ty, tx);
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (!fc_key_in(t * FC_T + 4 * tx + j, N)) continue;
-        const float v = __fmul_rn(s[i][j], a.scale);
-        if (v > m[i]) {
-          l[i] = __fmul_rn(l[i], expf(m[i] - v));
-          m[i] = v;
+        for (int i = 0; i < 4; ++i) {
+          const float x = f4_at(av[i], kk);
+          dq[i][0] = fmaf(x, kv[kk].x, dq[i][0]);
+          dq[i][1] = fmaf(x, kv[kk].y, dq[i][1]);
+          dq[i][2] = fmaf(x, kv[kk].z, dq[i][2]);
+          dq[i][3] = fmaf(x, kv[kk].w, dq[i][3]);
         }
-        l[i] = __fadd_rn(l[i], expf(v - m[i]));
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float mr = fc_row_max(m[i]);
-    const float part =
-        m[i] == -INFINITY ? 0.f : __fmul_rn(l[i], expf(m[i] - mr));
-    m[i] = mr;
-    l[i] = fc_row_sum(part);
-  }
-
-  // p of this thread's score (i, j) of key tile t (0 for a masked key)
-  auto prob = [&](int t, int i, int j) -> float {
-    if (!fc_key_in(t * FC_T + 4 * tx + j, N)) return 0.f;
-    return __fdiv_rn(expf(__fmul_rn(s[i][j], a.scale) - m[i]), l[i]);
-  };
-
-  // pass 2: sum_j dp p of each row
-  float sub[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int t = 0; t < tiles; ++t) {
-    __syncthreads();
-    fc_load_t(kT, a.qkv, ld3, b, N, t * FC_T, a.D + col);
-    fc_load_t(vT, a.qkv, ld3, b, N, t * FC_T, 2 * a.D + col);
-    __syncthreads();
-    fc_zero(s);
-    fc_zero(dp);
-    fc_mma(s, qT, FC_T, kT, FC_T, ty, tx);
-    fc_mma(dp, daT, FC_T, vT, FC_T, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sub[i] = fmaf(dp[i][j], prob(t, i, j), sub[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) sub[i] = fc_row_sum(sub[i]);
-
-  // pass 3: ds, the planes' rows and dq += (ds dh^-0.5) k
-  const int bh = b * a.H + h;
-  float dq[4][4];
-  fc_zero(dq);
-  for (int t = 0; t < tiles; ++t) {
-    __syncthreads();
-    fc_load_t(kT, a.qkv, ld3, b, N, t * FC_T, a.D + col);
-    fc_load_t(vT, a.qkv, ld3, b, N, t * FC_T, 2 * a.D + col);
-    fc_load_n(kN, a.qkv, ld3, (long long)b * N + t * FC_T, N - t * FC_T,
-              a.D + col, ld3);
-    __syncthreads();
-    fc_zero(s);
-    fc_zero(dp);
-    fc_mma(s, qT, FC_T, kT, FC_T, ty, tx);
-    fc_mma(dp, daT, FC_T, vT, FC_T, ty, tx);
-    // each row's p and ds dh^-0.5: staged (ds transposed) for the dq
-    // product and stored to the planes
-    const int key0 = t * FC_T + 4 * tx;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float pv[4], dsv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        pv[j] = prob(t, i, j);
-        dsv[j] = __fmul_rn(__fmul_rn(pv[j], dp[i][j] - sub[i]), a.scale);
-        dsT[(4 * tx + j) * FC_DS_LD + 4 * ty + i] = dsv[j];
-      }
-      const int r = q0 + 4 * ty + i;
-      if (r >= N || key0 >= a.ld) continue;
-      const long long at = ((long long)bh * N + r) * a.ld + key0;
-      *reinterpret_cast<float4*>(a.P + at) =
-          make_float4(pv[0], pv[1], pv[2], pv[3]);
-      *reinterpret_cast<float4*>(a.dS + at) =
-          make_float4(dsv[0], dsv[1], dsv[2], dsv[3]);
     }
-    __syncthreads();
-    fc_mma(dq, dsT, FC_DS_LD, kN, FC_DH, ty, tx);
-  }
+    for (; c < nk; ++c) {
+      const float4 k4 = f32_ld4(kt + c * FC_LD + 4 * cg);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = ar[i][k0 + c];
+        dq[i][0] = fmaf(x, k4.x, dq[i][0]);
+        dq[i][1] = fmaf(x, k4.y, dq[i][1]);
+        dq[i][2] = fmaf(x, k4.z, dq[i][2]);
+        dq[i][3] = fmaf(x, k4.w, dq[i][3]);
+      }
+    }
+  });
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = q0 + 4 * ty + i;
-    if (r < N)
-      *reinterpret_cast<float4*>(a.dqkv + ((long long)b * N + r) * ld3 + col +
-                                 4 * tx) =
+    const int r = r0 + 4 * rg + i;
+    if (r < nrows)
+      *reinterpret_cast<float4*>(a.dqkv + ((long long)b * N + q0 + r) * ld3 +
+                                 col + 4 * cg) =
           make_float4(dq[i][0], dq[i][1], dq[i][2], dq[i][3]);
   }
 }
 
-// dk = dS^T q and dv = P^T da of one key tile (grid (ceil(N / 64), H, B)),
-// summed over the query tiles in order
+// dv = P^T da and dk = dS^T q of one 64-key tile (grid (ceil(N / 64), H,
+// B)), summed over the queries in order. 32 query rows a stage of the P
+// and dS planes (the tile's keys, rounded up to 4), q and da stream
+// through a three-stage ring, which every thread fills by 16-byte
+// cp.async two stages ahead (an mbarrier a stage); warps 0-3 sum dv, 4-7
+// dk, a lane 8 keys x 4 columns; a warp whose 16 keys lie past N skips.
 __global__ void __launch_bounds__(FC_THREADS, 2)
 f32_core_dkdv_kernel(CoreArgs a) {
-  extern __shared__ __align__(16) float fc_smem[];
-  float* ps = fc_smem;           // [query][key]
-  float* dss = ps + FC_TILE;     // [query][key]
-  float* qs = dss + FC_TILE;     // [query][d]
-  float* das = qs + FC_TILE;     // [query][d]
-  const int k0 = blockIdx.x * FC_T, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  extern __shared__ __align__(16) unsigned char fc_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(fc_raw);
+  float* ring = reinterpret_cast<float*>(fc_raw + FC_BAR_BYTES);
+  const int k0 = blockIdx.x * FC_BK, h = blockIdx.y, b = blockIdx.z;
   const int N = a.N;
+  const int nk = min(FC_BK, N - k0), pc = (nk + 3) >> 2;
   const long long ld3 = 3LL * a.D;
   const int col = h * FC_DH;
-  const long long plane0 = (long long)(b * a.H + h) * N;
-  const int tiles = (N + FC_T - 1) / FC_T;
-  float dk[4][4], dv[4][4];
-  fc_zero(dk);
-  fc_zero(dv);
-  for (int t = 0; t < tiles; ++t) {
-    const int rows = N - t * FC_T;
-    __syncthreads();
-    fc_load_n(ps, a.P, a.ld, plane0 + t * FC_T, rows, k0, a.ld);
-    fc_load_n(dss, a.dS, a.ld, plane0 + t * FC_T, rows, k0, a.ld);
-    fc_load_n(qs, a.qkv, ld3, (long long)b * N + t * FC_T, rows, col, ld3);
-    fc_load_n(das, a.da, a.D, (long long)b * N + t * FC_T, rows, col, a.D);
-    __syncthreads();
-    fc_mma(dv, ps, FC_T, das, FC_DH, ty, tx);
-    fc_mma(dk, dss, FC_T, qs, FC_DH, ty, tx);
+  const long long plane0 = ((long long)b * a.H + h) * N;
+  const int stages = (N + FC_QT - 1) / FC_QT;
+  const int tid = threadIdx.x;
+  if (tid < FC_KV_STAGES) mbar_init(&full[tid], FC_THREADS);
+  mbar_fence_init();
+  __syncthreads();
+
+  // stage t: query rows < N, the planes' pc float4s of the tile's keys
+  auto load = [&](int t) {
+    const int q0 = t * FC_QT, nq = min(FC_QT, N - q0);
+    float* st = ring + (t % FC_KV_STAGES) * FC_KV_STAGE;
+    for (int c = tid; c < nq * pc; c += FC_THREADS) {
+      const int r = c / pc, e4 = (c - r * pc) * 4;
+      const long long pr = (plane0 + q0 + r) * a.ld + k0 + e4;
+      cp_async16(st + r * FC_LD + e4, a.P + pr, 16);
+      cp_async16(st + (FC_QT + r) * FC_LD + e4, a.dS + pr, 16);
+    }
+    for (int c = tid; c < nq * (FC_DH / 4); c += FC_THREADS) {
+      const int r = c >> 4, e4 = (c & 15) * 4;
+      const long long tok = (long long)b * N + q0 + r;
+      cp_async16(st + (2 * FC_QT + r) * FC_LD + e4,
+                 a.qkv + tok * ld3 + col + e4, 16);
+      cp_async16(st + (3 * FC_QT + r) * FC_LD + e4,
+                 a.da + tok * a.D + col + e4, 16);
+    }
+    cp_async_arrive(&full[t % FC_KV_STAGES]);
+  };
+  for (int t = 0; t < FC_KV_STAGES - 1 && t < stages; ++t) load(t);
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int grp = warp >> 2, wk = 16 * (warp & 3);  // 0 dv, 1 dk; keys
+  const int kg = 4 * (lane >> 4), cg = 4 * (lane & 15);
+  const bool keys_in = wk < nk;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int t = 0; t < stages; ++t) {
+    const int s = t % FC_KV_STAGES;
+    const int nq = min(FC_QT, N - t * FC_QT);
+    mbar_wait(&full[s], (t / FC_KV_STAGES) & 1);
+    __syncthreads();  // every thread is past stage t - 1: refill it
+    if (t + FC_KV_STAGES - 1 < stages) load(t + FC_KV_STAGES - 1);
+    if (keys_in) {
+      const float* st = ring + s * FC_KV_STAGE;
+      const float* A = st + grp * FC_QT * FC_LD + wk + kg;  // P or dS
+      const float* Bm = st + (3 - grp) * FC_QT * FC_LD + cg;  // da or q
+      for (int q = 0; q < nq; ++q) {
+        const float4 a0 = f32_ld4(A + q * FC_LD);
+        const float4 a1 = f32_ld4(A + q * FC_LD + 8);
+        const float4 bq = f32_ld4(Bm + q * FC_LD);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[i][0] = fmaf(av[i], bq.x, acc[i][0]);
+          acc[i][1] = fmaf(av[i], bq.y, acc[i][1]);
+          acc[i][2] = fmaf(av[i], bq.z, acc[i][2]);
+          acc[i][3] = fmaf(av[i], bq.w, acc[i][3]);
+        }
+      }
+    }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * ty + i;
+  for (int i = 0; i < 8; ++i) {
+    const int key = k0 + wk + kg + (i < 4 ? i : 4 + i);
     if (key >= N) continue;
-    float* o = a.dqkv + ((long long)b * N + key) * ld3 + col + 4 * tx;
-    *reinterpret_cast<float4*>(o + a.D) =
-        make_float4(dk[i][0], dk[i][1], dk[i][2], dk[i][3]);
-    *reinterpret_cast<float4*>(o + 2 * a.D) =
-        make_float4(dv[i][0], dv[i][1], dv[i][2], dv[i][3]);
+    *reinterpret_cast<float4*>(a.dqkv + ((long long)b * N + key) * ld3 +
+                               (2 - grp) * a.D + col + cg) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   }
 }
 
@@ -700,12 +905,21 @@ bool f32_vit_shapes_ok(int B, int N, int D, int H) {
          D == H * FC_DH && (long long)B * N <= 0x7fffffff;
 }
 
-// the P and dS planes' row length: N rounded up to 4 (float4 stores)
+// the P and dS planes' row length: N rounded up to 4 (16-byte rows of
+// whole float4s, which the dk / dv ring's cp.async copies read)
 long long f32_plane_ld(int N) { return (N + 3) / 4 * 4; }
 
 long long f32_core_scratch_floats(int B, int N, int H) {
   return 2LL * B * H * N * f32_plane_ld(N);
 }
+
+// the dq CTA's shared memory with its S and DP rows in it
+long long f32_dq_smem_rows(int N) {
+  return FC_DQ_FIXED + 2LL * 4 * FC_BQ * f32_plane_ld(N);
+}
+
+// whether the dq CTA's score rows fit its shared memory (N <= 280)
+bool f32_rows_in_smem(int N) { return f32_dq_smem_rows(N) <= FC_DQ_SMEM_MAX; }
 
 cudaError_t f32_core_bwd(cudaStream_t st, const float* qkv, const float* da,
                          float* dqkv, float* pds, int B, int N, int D, int H,
@@ -721,16 +935,21 @@ cudaError_t f32_core_bwd(cudaStream_t st, const float* qkv, const float* da,
   a.D = D;
   a.H = H;
   a.scale = scale;
-  const dim3 grid((N + FC_T - 1) / FC_T, H, B);
-  f32_core_dq_kernel<<<grid, FC_THREADS, FC_DQ_SMEM, st>>>(a);
+  const dim3 dq_grid(cdiv(N, FC_BQ), H, B), kv_grid(cdiv(N, FC_BK), H, B);
+  if (f32_rows_in_smem(N))
+    f32_core_dq_kernel<true>
+        <<<dq_grid, FC_DQ_THREADS, f32_dq_smem_rows(N), st>>>(a);
+  else
+    f32_core_dq_kernel<false>
+        <<<dq_grid, FC_DQ_THREADS, FC_DQ_FIXED, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  f32_core_dkdv_kernel<<<grid, FC_THREADS, FC_KV_SMEM, st>>>(a);
+  f32_core_dkdv_kernel<<<kv_grid, FC_THREADS, FC_KV_SMEM, st>>>(a);
   return cudaGetLastError();
 }
 
 // the split of a weight gradient's M rows into chunks (split_rows over the
-// f32 GEMM's 128 x 128 tiles of its (rows, cols) output)
+// f32 GEMM's 128 x 64 tiles of its (rows, cols) output)
 void f32_wgrad_split(int M, int rows, int cols, int* S, int* chunk) {
   split_rows(M, cdiv(rows, GB_M) * cdiv(cols, GB_N), S, chunk);
 }
@@ -812,9 +1031,10 @@ long long swin_f32_scratch_floats(int B, int S, int C, int H, int win) {
 // Raises the core's dynamic shared-memory limits on the current device;
 // returns a cudaError_t as int.
 extern "C" int geovpr_f32_train_init(void) {
-  cudaError_t e = allow_smem(f32_core_dq_kernel, FC_DQ_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  return (int)allow_smem(f32_core_dkdv_kernel, FC_KV_SMEM);
+  cudaError_t e = allow_smem(f32_core_dq_kernel<true>, FC_DQ_SMEM_MAX);
+  if (e == cudaSuccess) e = allow_smem(f32_core_dq_kernel<false>, FC_DQ_FIXED);
+  if (e == cudaSuccess) e = allow_smem(f32_core_dkdv_kernel, FC_KV_SMEM);
+  return (int)e;
 }
 
 // Floats of f32 scratch geovpr_vit_f32_bwd_all takes as `part`.

@@ -761,13 +761,25 @@ def weight_grad_reference(a, b, chunk: int | None = None):
     return out
 
 
-def wgrad_chunk(k: int, m: int, nc: int) -> int:
-    """The rows of a chunk of K9c's weight gradient (M, Nc) summed over K
-    rows: `csrc/train_gemm.cuh::split_rows` over its 64 x 64 output tiles,
-    about 528 items, whole 32-row steps."""
-    tiles = -(-m // 64) * -(-nc // 64)
+def _split_rows(k: int, tiles: int) -> int:
+    """`csrc/train_gemm.cuh::split_rows`: the rows of a chunk of a sum over
+    k rows split for `tiles` output tiles, about 528 items, whole 32-row
+    steps."""
     splits = max(1, min(-(-528 // tiles), -(-k // 32)))
     return -(-(-(-k // splits)) // 32) * 32
+
+
+def wgrad_chunk(k: int, m: int, nc: int) -> int:
+    """The rows of a chunk of K9c's weight gradient (M, Nc) summed over K
+    rows: `split_rows` over its 64 x 64 output tiles."""
+    return _split_rows(k, -(-m // 64) * -(-nc // 64))
+
+
+def f32_wgrad_chunk(k: int, m: int, nc: int) -> int:
+    """The same for the f32 forms K8c.f32 and K9c.f32
+    (`csrc/f32_train.cu::f32_wgrad_split`): `split_rows` over the f32
+    GEMM's 128 x 64 output tiles."""
+    return _split_rows(k, -(-m // 128) * -(-nc // 64))
 
 
 def ln_vjp_reference(dh, xhat, rstd, ln_scale):

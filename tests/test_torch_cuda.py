@@ -809,11 +809,13 @@ def test_k6_matches_plain_version(cuda, shape):
 
 
 @pytest.mark.parametrize("shape", [(64, 128, 96), (2, 256, 48), (1, 512, 24),
-                                   (2, 96, 56), (3, 64, 10), (2, 40, 8)])
+                                   (2, 96, 56), (3, 64, 10), (2, 40, 8),
+                                   (3, 40, 10)])
 def test_k6_f32_matches_plain_version(cuda, shape):
     """K6's f32 form at Swin-B-384's first boundary (B=64), the next two,
-    Swin-T-224's first (2C = 192: a partial 128-column tile) and small or
-    odd widths; it refuses f16 and mixed types."""
+    Swin-T-224's first (2C = 192) and small or odd widths (at C = 40 on a
+    10 x 10 grid the f32 GEMM's M = 75 rows and N = 80 columns end inside
+    its 128 x 64 tiles); it refuses f16 and mixed types."""
     from geovpr_torch.ops.patch_merge import (fused_patch_merge,
                                               patch_merge_reference)
     args = merge_case(shape, cuda, dtype=torch.float32)
@@ -1604,7 +1606,8 @@ def test_dinov2_train_launches_per_step(cuda, variant):
 
 
 _K8_F32_SHAPES = [(2, 257, 768, 12), (3, 50, 384, 6), (2, 17, 64, 1),
-                  (2, 257, 1024, 16)]
+                  (2, 257, 1024, 16), (2, 256, 768, 12), (1, 281, 128, 2),
+                  (2, 50, 192, 3)]
 
 
 @pytest.mark.parametrize("shape", _K8_F32_SHAPES)
@@ -1612,8 +1615,13 @@ def test_k8_f32_matches_plain_version(cuda, shape):
     """chip_smoke's [f32_training] kernel check at small batches: K8a.f32,
     K8b.f32 and (where `bwd_all_ok` holds) K8c.f32, whole and launch by
     launch, against their plain f32 versions within F32_BRANCH_REL; one
-    launch each (N = 17 and 50 end inside a 64-row tile, N = 257 on a
-    one-key tile)."""
+    launch each (N = 17 and 50 end inside a query tile and a key stage,
+    N = 256 has no ragged tail, N = 257 one key past the last whole 32 and
+    one query past the last whole tile, N = 281 keeps its score rows in the
+    P and dS planes: past the 280 keys the dq CTA holds in shared memory;
+    at D = 192 the f32 GEMM's M = 100 rows, the weight gradients' 192
+    output rows (1.5 tiles of 128) and their K = 100 rows of partial sums
+    end inside a tile)."""
     from chip_smoke import f32_train_kernels_vs_plain
     from geovpr_torch.ops import mhsa as mh
     fns = (mh.fused_mhsa_train_fwd, mh.fused_mhsa_bwd_core,
@@ -1626,6 +1634,23 @@ def test_k8_f32_matches_plain_version(cuda, shape):
     # one
     assert [f.launches - b for f, b in zip(fns, before)] == \
         [1, 1, 2 if k8c else 0]
+
+
+def test_k8b_f32_repeats_bit_for_bit(cuda):
+    """K8b.f32 called twice on the same inputs gives the same bits (fixed-
+    order sums, no atomics) at DINOv2-B/14's N = 257 and past the score
+    rows' shared memory (N = 281): a large-14 step and its resume agree."""
+    from chip_smoke import f32_train_case
+    from geovpr_torch.ops import mhsa as mh
+    for shape in ((2, 257, 768, 12), (1, 281, 128, 2)):
+        args, da = f32_train_case(shape, cuda)
+        with torch.no_grad():
+            qkv = mh.mhsa_train_fwd_reference(*args[:8], shape[3], 1e-6)[1]
+            runs = [mh.fused_mhsa_bwd_core(qkv, da, shape[3])
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+        assert runs[0].dtype == torch.float32
+        assert torch.equal(runs[0], runs[1]), shape
 
 
 def test_k8c_f32_launches_one_by_one_equal_the_whole(cuda):

@@ -7,8 +7,11 @@ Here, without a card: the type rule `k8_dtype_error` as a pure function,
 `bwd_all_ok` against JAX's gate in both dtypes, the f32 gradients of
 `fused_mhsa_block_train` (the port's K8c plain route) against `jax.grad`
 of `fused_mhsa_block` where JAX's f32 clause sends it to its split route,
-the wrappers on f32 CPU tensors, and the bound arithmetic of
-chip_smoke.py's [f32_training] phase. The kernels themselves are checked on
+the wrappers on f32 CPU tensors, the bound arithmetic of chip_smoke.py's
+[f32_training] phase, and the split of a weight gradient's rows into
+partial sums over the f32 GEMM's 128 x 64 output tiles
+(`swin_block.f32_wgrad_chunk`, as `csrc/f32_train.cu::f32_wgrad_split`
+counts it). The kernels themselves are checked on
 the card (tests/test_torch_cuda.py, `-k f32`).
 """
 
@@ -169,3 +172,43 @@ def test_f32_training_bounds_by_hand():
     assert k8a["bound_ms"] == pytest.approx(0.3385, rel=5e-3)
     # bytes: 4 a value, each input read once and each output written once
     assert cs.f32_train_bounds("K8b", base, peak)["bytes"] == 4 * 7 * m * 768
+
+
+@pytest.mark.parametrize("k, m, nc, chunk", [
+    (4112, 768, 768, 544),      # DINOv2-B/14's dWo at B = 16: 72 tiles
+    (4112, 768, 2304, 1376),    # its dWqkv: 216 tiles
+    (147456, 128, 128, 576),    # Swin-B-384 stage 0's dWo (K9c.f32)
+    (100, 192, 192, 32),        # a card test's ragged shape
+    (16, 64, 64, 32)])          # fewer rows than one 32-row step
+def test_f32_wgrad_chunk_counts_128_by_64_tiles(k, m, nc, chunk):
+    """The chunk by hand: S = min(ceil(528 / tiles), ceil(K / 32)) splits
+    over ceil(M / 128) x ceil(Nc / 64) tiles, each split rounded up to
+    whole 32-row steps; the chunks cover K, none of them empty."""
+    from geovpr_torch.ops.swin_block import f32_wgrad_chunk
+    got = f32_wgrad_chunk(k, m, nc)
+    assert got == chunk and got % 32 == 0
+    parts = -(-k // got)
+    assert (parts - 1) * got < k <= parts * got
+    assert parts <= max(1, -(-528 // (-(-m // 128) * -(-nc // 64))))
+
+
+def test_f32_chunk_follows_its_own_tile_not_bf16s():
+    """The bf16 products keep their 64 x 64 tiles (and so their bits):
+    at DINOv2-B/14's dWo the two splits differ."""
+    from geovpr_torch.ops.swin_block import f32_wgrad_chunk, wgrad_chunk
+    assert wgrad_chunk(4112, 768, 768) == 1056
+    assert f32_wgrad_chunk(4112, 768, 768) == 544
+
+
+def test_f32_chunked_weight_grad_sums_every_row():
+    """The plain weight gradient summed in the kernel's chunks matches the
+    one-pass sum: every row lands in one partial."""
+    from geovpr_torch.ops.swin_block import (f32_wgrad_chunk,
+                                             weight_grad_reference)
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.normal(size=(100, 192)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(100, 192)).astype(np.float32))
+    whole = weight_grad_reference(a, b)
+    parts = weight_grad_reference(a, b, f32_wgrad_chunk(100, 192, 192))
+    np.testing.assert_allclose(parts.numpy(), whole.numpy(), rtol=1e-5,
+                               atol=1e-5)

@@ -35,6 +35,10 @@ MASKED, KEY_SPLIT, SPLIT = (2, 20, 128, 2), (2, 129, 128, 2), (1, 20, 1024,
 # N = 65 = 64 + 1, as DINOv2's N = 257 = 4 * 64 + 1: the card's core ends on
 # a one-key (one-query) tile
 ONE_KEY_TAIL = (1, 65, 128, 2)
+# the f32 card core's edges, one head: N = 256 (no ragged tail), 257 (one
+# key past the last whole 32, one query past the last 32-row tile), 281
+# (past the 280 keys whose score rows a dq CTA keeps in shared memory)
+F32_CORE_EDGES = ((1, 256, 64, 1), (1, 257, 64, 1), (1, 281, 64, 1))
 
 
 @pytest.fixture(autouse=True)
@@ -87,8 +91,10 @@ def test_forward_matches_jax(shape):
     np.testing.assert_allclose(ctx.numpy(), _unpad(jctx, b, n), **tol)
 
 
-@pytest.mark.parametrize("shape", [MASKED, KEY_SPLIT, SPLIT, ONE_KEY_TAIL],
-                         ids=["masked", "key_split", "split", "one_key_tail"])
+@pytest.mark.parametrize("shape", [MASKED, KEY_SPLIT, SPLIT, ONE_KEY_TAIL,
+                                   *F32_CORE_EDGES],
+                         ids=["masked", "key_split", "split", "one_key_tail",
+                              "n256", "n257", "n281"])
 def test_core_backward_matches_jax(shape):
     """K8b: dqkv from the forward's qkv and a da that is zero on JAX's
     padded rows (as the padded g makes it)."""

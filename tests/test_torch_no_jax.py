@@ -683,7 +683,7 @@ def _import_lines(pattern: str) -> list[str]:
     pat = re.compile(pattern)
     files = sorted((REPO / "geovpr_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "chip_faults.py",
-        REPO / "chip_grads.py"]
+        REPO / "chip_grads.py", REPO / "chip_turns.py"]
     # the multi-process package is in the scan
     assert {"mesh.py", "sharding_rules.py", "__init__.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
