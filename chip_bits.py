@@ -21,9 +21,12 @@ core backward) at stages 0 and 3 and K9c (the whole backward) at stage 0
 K7 (on pre-split windows) at Swin-T-224's stage 0, the Swin-T-224
 heading model (preset swin_t224_sincos_gemini, bf16; K7 and K6 in it) on
 chip_smoke.py's 64 seed-0 images: its pooled features and predictions;
-and the f32 forms: K1.f32 at 64x257x768x12, K4.f32 at Swin-B-384's stage
-0 (B=16), K6.f32 at C = 128, K7.f32's raster mode at Swin-T-224's stage 0
-(B=64), K8a.f32, K8b.f32 and K8c.f32 at 16x257x768x12. The
+and the f32 forms: K1.f32 at 64x257x768x12 and 2x1370x768x12 (its two
+attention routes), K4.f32 at Swin-B-384's stage 0 (B=16), K6.f32 at C =
+128, K7.f32's raster mode at Swin-T-224's stage 0 (B=64), K8a.f32, K8b.f32
+and K8c.f32 at 16x257x768x12, K8b and K8c on K8a's residuals, K8c also on
+the plain forward's (`K8c.f32.plain_fwd.*`: its own bits, whatever K8a's
+ctx). The
 inputs are saved beside the outputs and compared too, so a change in how
 they are drawn shows as such. It prints one line per tensor and exits
 non-zero if any differs. Needs one CUDA card.
@@ -153,6 +156,9 @@ def run(out_path: str) -> None:
         args = cs.f32_k1_case(K1_SHAPES[0], dev)
         res["input.K1.f32.x"] = args[0]
         res["K1.f32.out"] = mh.fused_mhsa_block(*args)
+        args = cs.f32_k1_case(K1_SHAPES[1], dev)
+        res["input.K1.f32.N1370.x"] = args[0]
+        res["K1.f32.N1370.out"] = mh.fused_mhsa_block(*args)
         x, blk = cs.swin_block_case(SWIN_SHAPES[0], dev, x_scale=1e-2,
                                     dtype=f32)
         res["input.K4.f32.x"] = x
@@ -174,6 +180,11 @@ def run(out_path: str) -> None:
         outs = mh.fused_mhsa_bwd_all(x, ls, lb, wqkv, wo, bo, gamma, qkv, ctx,
                                      g, h, 1e-6)
         res.update({f"K8c.f32.{k}": o for k, o in zip(cs.K8_OUTS, outs)})
+        _, qkv, ctx = mh.mhsa_train_fwd_reference(*args[:8], h, 1e-6)
+        outs = mh.fused_mhsa_bwd_all(x, ls, lb, wqkv, wo, bo, gamma, qkv, ctx,
+                                     g, h, 1e-6)
+        res.update({f"K8c.f32.plain_fwd.{k}": o
+                    for k, o in zip(cs.K8_OUTS, outs)})
         del args, g, x, qkv, ctx, outs
         q, k, v, bias, mask = cs.k7_case(K7_SHAPE, dev)
         res["input.K7.q"] = q

@@ -30,17 +30,23 @@ without the sum of dp * p, or without the mask of the keys past N on the
 one-key tail tile of N = 257; K8c with dWqkv taken from one CTA's partial
 sum only, its dWqkv product skipping the 16-row tail of M = 16 x 257 =
 64 x 64 + 16, or its dgamma GY epilogue summing one warpgroup's rows
-only; the f32 forms (`csrc/f32_serving.cu`): K1 without the mask of the
-keys past N, K4 without the shift mask (in the raster window attention
-that K7's f32 raster mode shares), K6 with x10 and x01 swapped, K7
-counting the pad keys past N = 49, K9a's training attention without the
+only; the f32 forms (`csrc/f32_serving.cu`): K1's attention with the
+score columns past N = 257 set to 0 instead of -inf, its streamed route
+(N = 1370) without the mask of the keys past N, its attention dropping
+the ragged tail's key (at N = 257 the one key of the last stage) or
+taking each row's max over the first key tile only (an attention sink
+past it overflows e^x), K4 without the shift mask (in the raster window
+attention that K7's f32 raster mode shares), K6 with x10 and x01 swapped,
+K7 counting the pad keys past N = 49, K9a's training attention without the
 shift mask or storing p before its normalisation; `csrc/f32_train.cu`:
 K8b's softmax rows without the mask of the keys past N, or its core
 dropping the ragged tail's keys (at N = 257 the one key past the last
-whole 32), K8c with one row chunk left out of dWqkv's partial sums, K9b's
-core without the sum of dp * p, K9c with dbias summed from one window's
-ds only; `csrc/f32_gemm.cuh`: the f32 GEMM's ring never multiplying its
-last k stage, caught through K8c's products),
+whole 32), K8c with one row chunk left out of dWqkv's
+partial sums, K9b's core without the sum of dp * p, K9c with dbias summed
+from one window's ds only; `csrc/f32_gemm.cuh`: the f32 GEMM's ring never
+multiplying its last k stage, caught through K8c's products, and its
+128 x 128 tiles never loading the last k tile of A (zeros in its place),
+caught through K1.f32's QKV GEMM at M = 64 x 257),
 builds that copy and runs the chip_smoke.py check of that kernel
 (`int8_kernels_vs_plain` for K2/K3 and the int8 GEMM,
 `swin_kernels_vs_plain` for K4/K5/K6,
@@ -203,9 +209,32 @@ FAULTS = {
              "for (int r = 0; r < 64 && row0 + r < M && wg == 0; ++r)")],
         _K8),
     "f32 K1 key mask past N dropped": ("f32_serving.cu", [
+        ("S[r * lds + N + p - r * (lds - N)] = -INFINITY;",
+         "S[r * lds + N + p - r * (lds - N)] = 0.f;")],
+        _F32.format(k1=((16, 257, 768, 12),), k4=(), k6=(), k7=())),
+    "f32 K1 streamed route's key mask past N dropped": ("f32_serving.cu", [
         ("s[r] = key < a.N ? __fmul_rn(s[r], a.scale) : -INFINITY;",
          "s[r] = __fmul_rn(s[r], a.scale);")],
+        _F32.format(k1=((2, 1370, 768, 12),), k4=(), k6=(), k7=())),
+    "f32 K1 attention's ragged tail key dropped": ("f32_serving.cu", [
+        ("      for (int c = 0; c < nk; ++c) {",
+         "      for (int c = 0; c < nk - 1; ++c) {")],
         _F32.format(k1=((16, 257, 768, 12),), k4=(), k6=(), k7=())),
+    "f32 K1 attention's row max over one key tile only": ("f32_serving.cu", [
+        ("          for (int c = lane; c < nv; c += 32)\n#pragma unroll\n"
+         "            for (int i = 0; i < 8; ++i) {\n"
+         "              const float4 v = f32_ld4(S + roff[i] + 4 * c);\n"
+         "              m[i] =",
+         "          for (int c = lane; c < min(nv, FV_KT / 4); c += 32)\n"
+         "#pragma unroll\n"
+         "            for (int i = 0; i < 8; ++i) {\n"
+         "              const float4 v = f32_ld4(S + roff[i] + 4 * c);\n"
+         "              m[i] =")],
+        _F32.format(k1=((16, 257, 768, 12),), k4=(), k6=(), k7=())),
+    "f32 GEMM's wide tiles never load their last k tile": ("f32_gemm.cuh", [
+        ("      ra = a_in ? f32_ld4(a_src + k0) : zero;",
+         "      ra = a_in && kt + 2 < ktiles ? f32_ld4(a_src + k0) : zero;")],
+        _F32.format(k1=((64, 257, 768, 12),), k4=(), k6=(), k7=())),
     "f32 K4 shift mask dropped": ("f32_serving.cu", [
         ("if (a.shift && qlab[r] != klab) x = __fadd_rn(x, kMaskL2);",
          "if (false) x = __fadd_rn(x, kMaskL2);")],
@@ -225,8 +254,10 @@ FAULTS = {
          "const int c0 = 32 * whole, tail = 0;")],
         _F32T.format(k8b=((16, 257, 768, 12),), k8c=())),
     "f32 GEMM ring's last k stage never multiplied": ("f32_gemm.cuh", [
-        ("  for (int kt = 0; kt < ktiles; ++kt) {",
-         "  for (int kt = 0; kt < ktiles - 1; ++kt) {")],
+        ("  for (int kt = 0; kt < ktiles; ++kt) {\n    const int s = kt % "
+         "GB_STAGES;",
+         "  for (int kt = 0; kt < ktiles - 1; ++kt) {\n    const int s = kt % "
+         "GB_STAGES;")],
         _F32T.format(k8b=(), k8c=((16, 257, 768, 12),))),
     "f32 K8c dWqkv leaves one row chunk out of its partials": (
         "f32_train.cu", [

@@ -113,7 +113,10 @@ end to end from seeded random weights:
   path against the plain path, and int8 against bf16 of the same weights,
   the three modes side by side;
 - f32 serving (`[f32_serving]`), for models built with
-  compute_dtype="float32": the f32 forms of K1 (64x257x768x12), K4 (the
+  compute_dtype="float32": the f32 forms of K1 (64x257x768x12, whose
+  attention keeps its score rows on chip, and 2x1370x768x12, the streamed
+  route; each through its route and, its attention launch alone, on an
+  attention sink), K4 (the
   four Swin-B-384 stages, B=64), K6 (C = 128, 256, 512) and K7's raster
   mode (the four Swin-T-224 stages, B=64) against their plain f32 versions
   with TF32 off (the branch's relative error within 1e-5), timed beside
@@ -127,7 +130,8 @@ end to end from seeded random weights:
   weights;
 - f32 training (`[f32_training]`), for a DINOv2 built with
   compute_dtype="float32": the f32 forms of K8a (K1's f32 launches,
-  16x257x768x12), K8b (16x257x1024x16 and 16x257x768x12) and K8c
+  16x257x768x12, whole and launch by launch), K8b (16x257x1024x16 and
+  16x257x768x12) and K8c
   (16x257x768x12, whole and launch by launch) against their plain f32
   versions with TF32 off (each output's relative error within 1e-5, a
   near-cancelling column sum held to twice the plain version's own error
@@ -6011,6 +6015,16 @@ def int8_modes_path(device, card: str) -> dict:
 # SM clock `nvidia-smi` reports as the card's maximum.
 F32_BRANCH_REL = 1e-5
 F32_MIN_COSINE = 0.99999
+# K1.f32 at DINOv2-B/14's shape, whose attention keeps its score rows on
+# chip, and at a long sequence (518 px), which takes the streamed route
+# (`mhsa.k1_f32_attention_route`)
+F32_K1_SHAPES = (MAIN_SHAPE, (2, 1370, 768, 12))
+# the attention-sink case: the sink key's index, and its and the queries'
+# common component (the first head dim), so that every row's score of the
+# sink, 10 x 96 / 8 = 120 (+- 1), exceeds its other scores (~ N(0, 1.6))
+# by more than e^x's f32 range (88.7)
+F32_SINK_KEY = 200
+F32_SINK_Q, F32_SINK_K = 10.0, 96.0
 F32_LANES = 132 * 128            # the H100 SXM's FFMA lanes
 F32_TIME_ITERS = 10
 # launches a batch of each checked shape on the main paths: K1 a DINOv2-B/14
@@ -6111,7 +6125,7 @@ def f32_branch_error(got, want, x=None) -> dict:
                 bound=F32_BRANCH_REL)
 
 
-def f32_cases(device, k1=(MAIN_SHAPE,), k4=SWIN_ATTN_SHAPES,
+def f32_cases(device, k1=F32_K1_SHAPES, k4=SWIN_ATTN_SHAPES,
               k6=SWIN_MERGE_SHAPES, k7=K7_RASTER_SHAPES):
     """(kind, shape, kernel, plain, library, args, residual, parts) for each
     checked shape, built one at a time: the f32 wrappers, their plain
@@ -6167,6 +6181,52 @@ def f32_cases(device, k1=(MAIN_SHAPE,), k4=SWIN_ATTN_SHAPES,
         torch.cuda.empty_cache()
 
 
+def f32_sink_qkv(shape, device, seed=SEED):
+    """K1.f32's qkv (B, N, 3D) at (B, N, D, H) with an attention sink:
+    q, k, v drawn N(0, 1), then every query's first head dim set to
+    F32_SINK_Q and the sink key's (F32_SINK_KEY, or the last key) to
+    F32_SINK_K in every head, so that its score exceeds each row's others
+    by more than 88.7: a softmax whose max is not the row's own overflows
+    e^x there."""
+    b, n, d, h = shape
+    gen = torch.Generator().manual_seed(seed + 3 * n)
+    qkv = torch.randn(b, n, 3 * d, generator=gen)
+    heads = qkv.view(b, n, 3, h, d // h)
+    heads[:, :, 0, :, 0] = F32_SINK_Q
+    heads[:, min(F32_SINK_KEY, n - 1), 1, :, 0] = F32_SINK_K
+    return qkv.to(device)
+
+
+def k1_attention_reference(qkv, h: int):
+    """The plain f32 attention of K1's launch 2: ctx (B, N, D) =
+    softmax(q k^T dh^-0.5) v on the heads of qkv (B, N, 3D)."""
+    from geovpr_torch.ops import mhsa as mh
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    q, k, v = (mh._heads(t, h) for t in qkv.split(d, dim=-1))
+    p = torch.softmax(mh._mm(q, k.transpose(-1, -2)) * (d // h) ** -0.5, -1)
+    return mh._unheads(mh._mm(p, v)).reshape(b, n, d)
+
+
+def f32_k1_sink_check(args, shape, tag: str) -> dict:
+    """K1.f32's attention launch alone (`k1_launch_part`) on
+    `f32_sink_qkv` against `k1_attention_reference`, within
+    F32_BRANCH_REL (`[kernel] name=K1.f32.attention_sink`)."""
+    from geovpr_torch.ops import mhsa as mh
+    x, h = args[0], args[-1]
+    qkv = f32_sink_qkv(shape, x.device)
+    bufs = (qkv, torch.empty_like(x), torch.empty_like(x))
+    with torch.inference_mode():
+        mh.k1_launch_part(2, x, mh._check(*args), h, 1e-6, bufs)
+        torch.cuda.synchronize()
+        e = f32_branch_error(bufs[1], k1_attention_reference(qkv, h))
+    phase("kernel", name="K1.f32.attention_sink", shape=tag,
+          route=mh.k1_f32_attention_route(shape[1]), **e)
+    check(e["finite"] and e["branch_rel_err"] <= F32_BRANCH_REL,
+          f"K1.f32's attention outside its bound on a sink at {shape}: {e}")
+    return e
+
+
 def f32_bufs(x, kind: str) -> tuple:
     """The buffers K1's, K4's or K6's launches run on one by one on x:
     (qkv, ctx, out), K6's (LN(merged), out)."""
@@ -6185,18 +6245,28 @@ def f32_kernels_vs_plain(device, card: str | None = None, **shapes) -> dict:
     version and its library yardstick beside its bound (`[kernel_time]`)
     and K1's, K4's and K6's launches one by one (`[kernel_split]`).
     `shapes` (k1=, k4=, k6=, k7=) narrows the shapes, as chip_faults.py
-    does. Returns each shape's error and times."""
+    does. K1 also through the attention route its N names
+    (`K1_F32_ROUTE_LAUNCHES`) and on an attention sink
+    (`f32_k1_sink_check`). Returns each shape's error and times."""
+    from geovpr_torch.ops import mhsa as mh
+
     peak = f32_peak(max_sm_clock_mhz()) if card else None
     out = {}
     for kind, shape, kernel, plain, library, args, x, parts in f32_cases(
             device, **shapes):
         tag = "_".join(map(str, shape))
+        route = mh.k1_f32_attention_route(shape[1]) if kind == "K1" else None
         with torch.inference_mode():
             before = kernel.launches
+            routed = mh.K1_F32_ROUTE_LAUNCHES.get(route, 0)
             got = kernel(*args)
             torch.cuda.synchronize()
             check(kernel.launches == before + 1,
                   f"{kind}.f32 did not launch at {shape}")
+            check(route is None or
+                  mh.K1_F32_ROUTE_LAUNCHES[route] == routed + 1,
+                  f"K1.f32's attention did not take its {route} route at "
+                  f"{shape}")
             want = plain(*args)
             e = f32_branch_error(got, want, x)
             tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -6207,9 +6277,11 @@ def f32_kernels_vs_plain(device, card: str | None = None, **shapes) -> dict:
             finally:
                 torch.backends.cuda.matmul.allow_tf32 = tf32
             del got, want
-        phase("kernel", name=f"{kind}.f32", shape=tag, **e)
+        phase("kernel", name=f"{kind}.f32", shape=tag, route=route, **e)
         check(e["finite"] and e["branch_rel_err"] <= F32_BRANCH_REL,
               f"{kind}.f32 error outside its bound at {shape}: {e}")
+        if kind == "K1":
+            f32_k1_sink_check(args, shape, tag)
         row = dict(max_abs_err=e["max_abs_err"],
                    branch_rel_err=e["branch_rel_err"])
         if card:
@@ -6665,7 +6737,8 @@ def f32_train_kernels_vs_plain(device, card: str | None = None,
     `card`, each also timed in CUDA graphs in turns with its plain version
     and its f32 library yardstick (K1's torch ops, SDPA's backward, the
     autograd of K1's torch ops) beside its bound (`[kernel_time]`), and
-    K8c.f32's launches one by one (`[kernel_split] name=K8c.f32`).
+    K8a.f32's and K8c.f32's launches one by one (`[kernel_split]
+    name=K8a.f32`, `name=K8c.f32`).
     `k8a=`, `k8b=`, `k8c=` narrow the shapes, as chip_faults.py does.
     Returns each kernel's error and times by (kind, shape)."""
     from geovpr_torch.ops import mhsa as mh
@@ -6703,6 +6776,14 @@ def f32_train_kernels_vs_plain(device, card: str | None = None,
                      "library": lambda: library_k1(*fa[:9])},
                     f32_train_bounds("K8a", shape, peak),
                     F32_PER_STEP[("K8a", shape)]))
+                x, got_args = args[0], mh._check(*fa[:9])
+                bufs = f32_bufs(x, "K1")
+                parts_split(card, "K8a.f32", tag, mh.K1_PARTS,
+                            lambda i: mh.k1_launch_part(i, x, got_args, h,
+                                                        1e-6, bufs),
+                            lambda part: F32_PART_BOUNDS["K1"](part, shape,
+                                                               peak))
+                del bufs
         out[("K8a", shape)] = row
         del args, got, want
 

@@ -1,6 +1,6 @@
-"""The f32 attention-backward core (K8b.f32) and the whole f32 ViT
-attention-half backward (K8c.f32) of several checkouts, in turns in one
-process, on one CUDA card.
+"""The f32 ViT attention half-block's kernels of several checkouts, in
+turns in one process, on one CUDA card: its forward (K1.f32, K8a.f32), the
+attention-backward core (K8b.f32) and the whole backward (K8c.f32).
 
     python3 chip_turns.py CHECKOUT [CHECKOUT ...]
 
@@ -21,10 +21,14 @@ in turns, forward then backward order, for ROUNDS rounds:
   of its launches that run the core or a product one by one
   (`geovpr_vit_f32_bwd_all_parts`, on buffers a whole call filled): da,
   dWo, dgamma, the core, dWqkv, dh;
-- the f32 GEMM's serving callers, their GEMM launches one by one on
-  buffers a whole call filled: K1.f32's QKV and out projections at
-  64x257x768x12 (`geovpr_mhsa_f32_parts`) and K6.f32's at Swin-B-384's
-  first boundary, 64x96^2x128 (`geovpr_patch_merge_f32_parts`).
+- K1.f32 at 64x257x768x12 and K8a.f32 (the same launches) at
+  16x257x768x12 (`geovpr_mhsa_f32_parts`), whole and each of its four
+  launches (LayerNorm, QKV GEMM, attention, out projection) alone on
+  buffers a whole call filled; beside the attention launch, one f32
+  `F.scaled_dot_product_attention` on the heads of the same qkv (TF32
+  off), a yardstick that the port never calls;
+- K6.f32's GEMM launch at Swin-B-384's first boundary, 64x96^2x128
+  (`geovpr_patch_merge_f32_parts`), alone on buffers a whole call filled.
 Then one call of each under torch.profiler: the device ms of each kernel
 name. Each checkout's outputs are printed beside the first checkout's
 (relative Frobenius error) and held against its own second call, bit for
@@ -57,7 +61,9 @@ K8C_TIMED = {"da": 2, "dwo": 3, "dgamma": 4, "core": 5, "dwqkv": 7,
 K8C_BUFS = ("dy", "da", "dqkv", "h", "stats", "pds", "part", "dx", "dwqkv",
             "dbqkv", "dwo", "dbo", "dgamma", "dls", "dlb")
 K8C_OUTS = ("dx", "dls", "dlb", "dwqkv", "dbqkv", "dwo", "dbo", "dgamma")
-K1_SHAPE = (64, 257, 768, 12)
+# K1.f32's and K8a.f32's shapes (the four launches of one C entry)
+K1_SHAPES = {"K1.f32": (64, 257, 768, 12), "K8a.f32": (16, 257, 768, 12)}
+K1_PARTS = ("layernorm", "qkv_gemm", "attention", "out_proj")
 K6_SHAPE = (64, 128, 96)  # (B, C, resolution)
 
 
@@ -136,34 +142,45 @@ def k8c(lib, ins, shape):
     return fn, bufs
 
 
-def serving_gemms(lib, k1, k6) -> dict:
-    """fn() of each GEMM launch of K1.f32 and K6.f32 in `lib`, alone on
-    buffers one whole call of each filled: K1's from `k1` (f32_k1_case's
-    arguments), K6's from `k6` (merge_case's)."""
-    x, *rest, h = k1
+def k1(lib, args):
+    """fn(part) running K1.f32 of `lib` (its four launches for part None,
+    else that launch alone) on `args` (f32_k1_case's) into its own qkv,
+    ctx and out, and those buffers."""
+    x, *rest, h = args
     b, n, d = x.shape
-    dev = x.device
-    bufs = (f32(dev, b, n, 3 * d), f32(dev, b, n, d), f32(dev, b, n, d))
+    bufs = (f32(x.device, b, n, 3 * d), f32(x.device, b, n, d),
+            f32(x.device, b, n, d))
     ka = (*(t.data_ptr() for t in (x, *rest, *bufs)), b, n, d, h, 1e-6)
+
+    def fn(part=None):
+        first, last = (0, 3) if part is None else (part, part)
+        rc = lib.geovpr_mhsa_f32_parts(*ka, first, last, stream())
+        if rc != 0:
+            raise RuntimeError(f"geovpr_mhsa_f32_parts: CUDA error {rc}")
+    fn.scratch = bufs  # alive as long as fn (see k8b)
+    return fn, bufs
+
+
+def k6_gemm(lib, k6):
+    """fn() of K6.f32's GEMM launch in `lib`, alone on buffers one whole
+    call filled from `k6` (merge_case's arguments)."""
     xm, ls, lb, w, res = k6
-    bm, c = xm.shape[0], xm.shape[-1]
+    bm, c, dev = xm.shape[0], xm.shape[-1], xm.device
     mb = (f32(dev, bm, res * res // 4, 4 * c),
           f32(dev, bm, res * res // 4, 2 * c))
     ma = (*(t.data_ptr() for t in (xm, ls, lb, w, *mb)), bm, res, c, 1e-5)
 
-    def part(entry, args, first, last):
+    def part(first, last):
         def fn():
-            rc = entry(*args, first, last, stream())
+            rc = lib.geovpr_patch_merge_f32_parts(*ma, first, last, stream())
             if rc != 0:
-                raise RuntimeError(f"{entry.__name__}: CUDA error {rc}")
-        fn.scratch = (bufs, mb)  # alive as long as fn (see k8b)
+                raise RuntimeError(f"geovpr_patch_merge_f32_parts: CUDA "
+                                   f"error {rc}")
+        fn.scratch = mb  # alive as long as fn (see k8b)
         return fn
 
-    part(lib.geovpr_mhsa_f32_parts, ka, 0, 3)()
-    part(lib.geovpr_patch_merge_f32_parts, ma, 0, 1)()
-    return {"K1.f32.qkv_gemm": part(lib.geovpr_mhsa_f32_parts, ka, 1, 1),
-            "K1.f32.out_proj": part(lib.geovpr_mhsa_f32_parts, ka, 3, 3),
-            "K6.f32.gemm": part(lib.geovpr_patch_merge_f32_parts, ma, 1, 1)}
+    part(0, 1)()
+    return part(1, 1)
 
 
 def kernel_ms(fn) -> dict:
@@ -205,6 +222,8 @@ def main(argv: list) -> int:
         print(__doc__ if not argv else "chip_turns: no CUDA device",
               file=sys.stderr)
         return 2
+    import torch.nn.functional as F
+
     from geovpr_torch.ops import mhsa as mh
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -271,14 +290,43 @@ def main(argv: list) -> int:
                       flush=True)
         del calls, ins, res, args, g
         torch.cuda.empty_cache()
-        k1 = cs.f32_k1_case(K1_SHAPE, dev)
+        for name, shape in K1_SHAPES.items():
+            h, tag = shape[3], "B{}_N{}_D{}_H{}".format(*shape)
+            args = cs.f32_k1_case(shape, dev)
+            calls = [k1(lib, args) for lib in libs]
+            outs = []
+            for fn, bufs in calls:
+                fn()
+                first = [t.clone() for t in bufs]
+                fn()
+                torch.cuda.synchronize()
+                outs.append(dict(
+                    rel={k: rel(t, w) for k, t, w in zip(
+                        ("qkv", "ctx", "out"), bufs, calls[0][1])},
+                    repeat_equal=all(torch.equal(a, t)
+                                     for a, t in zip(first, bufs))))
+            runs = turns([fn for fn, _ in calls])
+            report(name, tag, runs, outs, [kernel_ms(fn) for fn, _ in calls])
+            for i, part in enumerate(K1_PARTS):
+                runs = turns([lambda fn=fn, i=i: fn(i) for fn, _ in calls])
+                for c, r in zip(argv, runs):
+                    print(f"[turns] name={name}.{part} shape={tag} "
+                          f"checkout={c} ms={sum(r) / len(r)} runs={r}",
+                          flush=True)
+            d = shape[2]
+            q, k, v = (mh._heads(t, h).contiguous()
+                       for t in calls[0][1][0].split(d, dim=-1))
+            r = [cs.graph_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                             ITERS) for _ in range(ROUNDS)]
+            print(f"[turns] name={name}.attention.sdpa_f32 shape={tag} "
+                  f"ms={sum(r) / len(r)} runs={r}", flush=True)
+            del args, calls, q, k, v
+            torch.cuda.empty_cache()
         k6 = cs.merge_case(K6_SHAPE, dev, dtype=torch.float32)
-        gemms = [serving_gemms(lib, k1, k6) for lib in libs]
-        for name in gemms[0]:
-            runs = turns([fns[name] for fns in gemms])
-            for c, r in zip(argv, runs):
-                print(f"[turns] name={name} checkout={c} "
-                      f"ms={sum(r) / len(r)} runs={r}", flush=True)
+        runs = turns([k6_gemm(lib, k6) for lib in libs])
+        for c, r in zip(argv, runs):
+            print(f"[turns] name=K6.f32.gemm checkout={c} "
+                  f"ms={sum(r) / len(r)} runs={r}", flush=True)
     print(f"[turns] ok={not failed} failed={failed}")
     return 1 if failed else 0
 

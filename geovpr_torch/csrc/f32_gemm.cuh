@@ -32,6 +32,23 @@
 // (+ bias) * gamma + res (K1's), and EPI_GY: no output tile, but the
 // column sums over the tile's rows of res (M, N) * (A W + bias), one
 // partial row a 128-row tile at out + blockIdx.y N (K8c's dgamma).
+//
+// f32_gemm_wide_kernel<kEpi>: the same product for A (M, K) and W (K, N)
+// with an output tile, in 128 x 128 tiles of 256 threads, 8 x 8 outputs a
+// thread; k tiles of 8 double-buffered in shared memory, A's stored
+// k-major (each thread's 16-byte global read of 4 k transposed into four
+// columns), so that a thread reads its 8 rows and 8 columns of each k as
+// four float4s; the next tile's global loads wait in registers during
+// the current tile's FFMAs. Each A tile is read from L2 once a 128-column
+// tile, half as often as the 128 x 64 tiles read it.
+//
+// launch_gemm_f32 chooses the tile by the grid (gemm_f32_wide_tiles): the
+// 128 x 128 tiles where the product allows them and its 128 x 64 tiles
+// would take more than three waves of three CTAs on each SM (K1.f32's
+// projections at B = 64, most of K4.f32's and K9a.f32's, K6.f32's at C <=
+// 256), the 128 x 64 tiles elsewhere (every product of M = 4112,
+// K8a.f32's and K8c.f32's, where three waves are whole). Each output is the same sequential sum
+// over k in either kernel, so the choice changes no bit.
 
 #pragma once
 
@@ -286,6 +303,120 @@ f32_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
   }
 }
 
+constexpr int GW_N = 128, GW_K = 8, GW_THREADS = 256;
+
+// N % 4 == 0, K % 8 == 0, every pointer 16-byte aligned; rows past M read
+// as zero and are not stored, columns past N likewise in whole float4s.
+template <int kEpi>
+__global__ void __launch_bounds__(GW_THREADS)
+f32_gemm_wide_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ gamma,
+                     const float* __restrict__ res, float* __restrict__ out,
+                     int M, int N, int K) {
+  static_assert(kEpi != EPI_GY, "an output tile");
+  __shared__ __align__(16) float As[2][GW_K][GB_M];  // A tile, k-major
+  __shared__ __align__(16) float Bs[2][GW_K][GW_N];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GW_N;
+  // this thread's global loads: A row ar, k columns ac..ac+3; W k row br,
+  // columns bc..bc+3
+  const int ar = tid >> 1, ac = (tid & 1) * 4;
+  const int br = tid >> 5, bc = (tid & 31) * 4;
+  const bool a_in = m0 + ar < M, b_in = n0 + bc < N;
+  const float* a_src = A + (long long)(a_in ? m0 + ar : 0) * K + ac;
+  const float* b_src = W + (long long)br * N + (b_in ? n0 + bc : 0);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // this thread's outputs: rows ty*4 + i and 64 + ty*4 + i, columns tx*4 +
+  // j and 64 + tx*4 + j
+  const int ty = tid / 16, tx = tid % 16;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  // the k tile at k0 into registers, then into shared memory
+  const int ktiles = K / GW_K;
+  float4 ra = a_in ? f32_ld4(a_src) : zero;
+  float4 rb = b_in ? f32_ld4(b_src) : zero;
+  auto stage = [&](int buf) {
+    As[buf][ac + 0][ar] = ra.x;
+    As[buf][ac + 1][ar] = ra.y;
+    As[buf][ac + 2][ar] = ra.z;
+    As[buf][ac + 3][ar] = ra.w;
+    *reinterpret_cast<float4*>(&Bs[buf][br][bc]) = rb;
+  };
+  stage(0);
+  __syncthreads();
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int cur = kt & 1;
+    const bool more = kt + 1 < ktiles;
+    if (more) {
+      const int k0 = (kt + 1) * GW_K;
+      ra = a_in ? f32_ld4(a_src + k0) : zero;
+      rb = b_in ? f32_ld4(b_src + (long long)k0 * N) : zero;
+    }
+#pragma unroll
+    for (int k = 0; k < GW_K; ++k) {
+      const float4 a0 = f32_ld4(&As[cur][k][ty * 4]);
+      const float4 a1 = f32_ld4(&As[cur][k][64 + ty * 4]);
+      const float4 b0 = f32_ld4(&Bs[cur][k][tx * 4]);
+      const float4 b1 = f32_ld4(&Bs[cur][k][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (more) stage(cur ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (m >= M) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = n0 + half * 64 + tx * 4;
+      if (n >= N) continue;
+      float v[4] = {acc[i][4 * half], acc[i][4 * half + 1],
+                    acc[i][4 * half + 2], acc[i][4 * half + 3]};
+      if (kEpi != EPI_NONE) {
+        const float4 b4 = f32_ld4(bias + n);
+        const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = __fadd_rn(v[j], bb[j]);
+      }
+      if (kEpi == EPI_GAMMA_RESID) {
+        const float4 g4 = f32_ld4(gamma + n);
+        const float gg[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = __fmul_rn(v[j], gg[j]);
+      }
+      if (kEpi == EPI_BIAS_RESID || kEpi == EPI_GAMMA_RESID) {
+        const float4 r4 = f32_ld4(res + (long long)m * N + n);
+        const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = __fadd_rn(v[j], rr[j]);
+      }
+      *reinterpret_cast<float4*>(out + (long long)m * N + n) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// whether an (M, N) product of A (M, K) and W (K, N) takes the 128 x 128
+// tiles: where its 128 x 64 tiles would take more than three waves of
+// three CTAs on each of the 132 SMs
+constexpr bool gemm_f32_wide_tiles(int M, int N) {
+  return (long long)((M + GB_M - 1) / GB_M) * ((N + GB_N - 1) / GB_N) >
+         3LL * 3 * 132;
+}
+
 // kchunk: with kTA, the rows of K each partial sums (a multiple of 16),
 // and the partials cdiv(K, kchunk) are written at out + z M N; else unused.
 template <int kEpi, bool kTA = false, bool kTW = false>
@@ -298,6 +429,14 @@ cudaError_t launch_gemm_f32(const float* A, const float* W, const float* bias,
               (K + kchunk - 1) / kchunk > 65535)
            : K % 8))
     return cudaErrorInvalidValue;
+  if constexpr (!kTA && !kTW && kEpi != EPI_GY) {
+    if (gemm_f32_wide_tiles(M, N)) {
+      const dim3 grid((N + GW_N - 1) / GW_N, (M + GB_M - 1) / GB_M);
+      f32_gemm_wide_kernel<kEpi><<<grid, GW_THREADS, 0, s>>>(
+          A, W, bias, gamma, res, out, M, N, K);
+      return cudaGetLastError();
+    }
+  }
   const dim3 grid((N + GB_N - 1) / GB_N, (M + GB_M - 1) / GB_M,
                   kTA ? (K + kchunk - 1) / kchunk : 1);
   f32_gemm_kernel<kEpi, kTA, kTW><<<grid, GB_THREADS, 0, s>>>(

@@ -30,9 +30,10 @@
 //   x00 | x10 | x01 | x11);
 // - products on the CUDA cores (FFMA), each output a sequential sum over
 //   k; no TF32;
-// - K1's softmax: s = (q . k) dh^-0.5, keys past N masked, the row max
-//   subtracted, p = exp(s - max) / sum (expf, a correctly rounded
-//   division), then P V;
+// - K1's softmax: s = (q . k) dh^-0.5, keys past N masked, the exact row
+//   max subtracted; up to N = FV_MAX_N (564) e = 2^((s - max) log2 e) on
+//   the SFU and ctx = (E V) times the reciprocal of sum e, past it p =
+//   exp(s - max) / sum (expf, a correctly rounded division), then P V;
 // - K4's and K7's serving softmax: q scaled by dh^-0.5 log2(e) in f32,
 //   s = q . k + table * log2(e) [+ (-100) * log2(e) across regions], p =
 //   2^min(s, 100) with no max-shift, context = (P V) / sum p;
@@ -48,7 +49,8 @@
 // is 77.6 GFLOP of projections and 13.0 of attention, ~1.35 ms, against
 // 0.03 ms of bytes; K4 at Swin-B-384's stage 0 is 77.3 + 43.5 GFLOP.
 // Every design choice below is for that rate: register-blocked products,
-// operands from shared memory, nothing recomputed but K1's scores.
+// operands from shared memory, nothing recomputed but the scores of K1's
+// streamed route past FV_MAX_N.
 //
 // Launches (K1 and K4 four, K6 two, K7 one), each on the caller's stream:
 // - f32_ln_kernel<kMerge>: one warp a row, float4 loads, three passes
@@ -58,17 +60,25 @@
 // - f32_gemm_kernel<kEpi> (f32_gemm.cuh, shared with f32_train.cu): C =
 //   A W (A (M, K) row-major, W (K, N) (in, out)), 128 x 64 tiles of 128
 //   threads, 8 x 8 outputs a thread, k tiles of 16 through a three-stage
-//   cp.async ring on mbarriers; epilogues: + bias (QKV), + bias + x (K4's
-//   out projection), (+ bias) * gamma + x (K1's), none (K6).
+//   cp.async ring on mbarriers; where those tiles would take more than
+//   three waves (K1's projections at B = 64, most of K4's, K6's),
+//   f32_gemm_wide_kernel's 128 x 128 tiles of 256 threads, k tiles of 8
+//   double-buffered; epilogues: + bias (QKV), + bias + x (K4's out
+//   projection), (+ bias) * gamma + x (K1's), none (K6).
+// - f32_vit_attn_kernel: K1's attention up to N = FV_MAX_N (564), a CTA one
+//   (32-row query tile, head, image) whose score rows stay in shared
+//   memory: S = q k^T once, the rows' exact max and sums, then E V (see
+//   its note). Past FV_MAX_N K1 takes f32_attn_kernel's FA_VIT mode
+//   (ops/mhsa.py::k1_f32_attention_route names the rule).
 // - f32_attn_kernel<DH, kMode>: a CTA one (query block, head, image) of
-//   K1, or one (window, head, query block) of K4 / K7, each warp FA_R
-//   query rows; key tiles of FA_KT rows through shared memory (K at a
-//   stride of DH + 1, so that a lane's key row is conflict-free), a lane
-//   one key of each
-//   32-key chunk: the scores of the warp's rows, then P written to the
-//   warp's shared slice and P V with a lane one output column (two at DH
-//   = 64). K1 makes two passes over the keys (per-lane running max and
-//   sum, combined across the warp, then p), the serving windows one;
+//   K1 past FV_MAX_N, or one (window, head, query block) of K4 / K7, each
+//   warp FA_R query rows; key tiles of FA_KT rows through shared memory
+//   (K at a stride of DH + 1, so that a lane's key row is conflict-free),
+//   a lane one key of each 32-key chunk: the scores of the warp's rows,
+//   then P written to the warp's shared slice and P V with a lane one
+//   output column (two at DH = 64). K1 makes two passes over the keys
+//   (per-lane running max and sum, combined across the warp, then p), the
+//   serving windows one;
 //   FA_TRAIN (K9a.f32) two on the raster windows: the row sums of p, then
 //   p times their reciprocal, stored to the p plane and summed into P V.
 // The attention's shared memory (Q block, a K and a V tile, the warps' P
@@ -488,6 +498,306 @@ cudaError_t launch_attn(const FaArgs& a, dim3 grid, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------- K1's attention, rows on chip --
+
+// K1.f32's attention (launch 2) for N <= FV_MAX_N: a CTA one (32-row query
+// tile, head, image) of 4 warps; three CTAs an SM up to N = 260 (75 KB
+// each: DINOv2's N = 257), two up to FV_MAX_N. The tile's q rows and the
+// head's k rows, then its v rows, stream through a two-stage ring of
+// FV_KT key rows (64 columns at h 64 of the qkv rows, stride 3D), which
+// every thread fills by 16-byte cp.async, each fill's arrival counted on
+// its stage's mbarrier; the next stage loads while the current one is
+// used. The tile's whole score rows stay in shared memory:
+//   pass 1  S = (q k^T) dh^-0.5 once over all keys: a stage of FV_KT keys
+//           as a 4 x 4 tile a thread (rows ty + 8 i, keys tx + 16 j), q
+//           and k read as float4s along the head dim; a stage of fewer
+//           than 16 keys (the ragged tail: one key at N = 257) as (row,
+//           key) dot products, each split over 4 lanes, so that it costs
+//           its keys; keys past N to -inf;
+//   rows    a warp's 8 rows: the exact max over the N keys, e = exp(s -
+//           max) in place (the SFU's 2^x of (s - max) log2 e), 1 / sum e;
+//   pass 3  ctx = (E V) / sum e: a lane 4 of its warp's rows x 4 columns,
+//           e and v read as float4s over 4 keys, one multiply an output at
+//           the end.
+// Rows of the ring past N (the next image's, or past the tensor) are never
+// loaded; the products read them only for outputs they do not store. The
+// score columns past N hold -inf. q row r is stored with its 16-byte chunk
+// c at chunk c ^ (r & 1), so that a warp's two q rows (ty, ty + 1) sit in
+// different banks; k and v rows are padded to FV_LD floats.
+constexpr int FV_DH = 64;          // head dim
+constexpr int FV_LD = FV_DH + 4;   // row stride of a staged k or v row
+constexpr int FV_BQ = 32;          // query rows of a CTA, 8 a warp
+constexpr int FV_THREADS = 128;
+constexpr int FV_KT = 64;          // key rows of a ring stage
+constexpr int FV_STAGES = 2;
+constexpr int FV_CTAS = 3;         // CTAs an SM at N = 257
+constexpr int FV_BAR_BYTES = 16;   // the mbarriers, before the rows
+constexpr int FV_SMEM_MAX = 115712;  // two CTAs an SM (228 KB, 1 KB
+                                     // reserved a CTA)
+constexpr int FV_FIXED =
+    FV_BAR_BYTES + 4 * (FV_BQ * FV_DH + FV_STAGES * FV_KT * FV_LD);
+// the score rows' stride: N rounded up to 4 floats
+__host__ __device__ constexpr int fv_lds(int n) { return (n + 3) & ~3; }
+constexpr int fv_smem(int n) { return FV_FIXED + 4 * FV_BQ * fv_lds(n); }
+// the longest sequence whose score rows fit two CTAs an SM (564); past it
+// K1.f32 runs f32_attn_kernel<64, FA_VIT>
+constexpr int FV_MAX_N = (FV_SMEM_MAX - FV_FIXED) / (4 * FV_BQ) & ~3;
+static_assert(fv_smem(FV_MAX_N) <= FV_SMEM_MAX, "two CTAs an SM");
+static_assert(FV_CTAS * (fv_smem(257) + 1024) <= 233472,
+              "three CTAs an SM at DINOv2's N = 257");
+
+__global__ void __launch_bounds__(FV_THREADS, FV_CTAS)
+f32_vit_attn_kernel(const float* __restrict__ qkv, float* __restrict__ out,
+                    int N, int D, float scale) {
+  extern __shared__ __align__(16) unsigned char fv_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(fv_raw);
+  float* sq = reinterpret_cast<float*>(fv_raw + FV_BAR_BYTES);
+  float* ring = sq + FV_BQ * FV_DH;               // [stage][key][FV_LD]
+  float* S = ring + FV_STAGES * FV_KT * FV_LD;    // [row][lds]
+  const int q0 = blockIdx.x * FV_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int nrows = min(FV_BQ, N - q0);
+  const int lds = fv_lds(N);
+  const long long ld3 = 3LL * D;
+  const float* head = qkv + (long long)b * N * ld3 + h * FV_DH;
+  const int tiles = (N + FV_KT - 1) / FV_KT;  // key tiles a pass
+  const int tid = threadIdx.x, lane = tid & 31, r0 = 8 * (tid >> 5);
+  if (tid < FV_STAGES) mbar_init(&full[tid], FV_THREADS);
+  mbar_fence_init();
+  __syncthreads();
+
+  // ring tile t into its stage: the k rows of key tile t, or for t >=
+  // tiles the v rows of key tile t - tiles; with t = 0 also the q rows
+  // (rows past N zero-filled)
+  auto load = [&](int t) {
+    const int k0 = (t < tiles ? t : t - tiles) * FV_KT;
+    const int nk = min(FV_KT, N - k0);
+    const float* src = head + k0 * ld3 + (t < tiles ? D : 2 * D);
+    float* st = ring + (t % FV_STAGES) * FV_KT * FV_LD;
+    for (int c = tid; c < nk * (FV_DH / 4); c += FV_THREADS) {
+      const int r = c >> 4, e4 = (c & 15) * 4;
+      cp_async16(st + r * FV_LD + e4, src + r * ld3 + e4, 16);
+    }
+    if (t == 0)
+      for (int c = tid; c < FV_BQ * (FV_DH / 4); c += FV_THREADS) {
+        const int r = c >> 4, e4 = (c & 15) * 4;
+        const bool in = r < nrows;
+        cp_async16(sq + r * FV_DH + (e4 ^ ((r & 1) << 2)),
+                   in ? head + (q0 + r) * ld3 + e4 : head, in ? 16 : 0);
+      }
+    cp_async_arrive(&full[t % FV_STAGES]);
+  };
+
+  // pass 1 of a stage's nk keys at key k0
+  const int ty = tid >> 4, tx = tid & 15, qsw = (ty & 1) << 2;
+  auto scores = [&](const float* st, int k0, int nk) {
+    if (nk >= 16) {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      const float* qr = sq + ty * FV_DH;
+      const float* kr = st + tx * FV_LD;
+#pragma unroll 4
+      for (int e = 0; e < FV_DH; e += 4) {
+        float4 qv[4], kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = f32_ld4(qr + 8 * i * FV_DH + (e ^ qsw));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kv[j] = f32_ld4(kr + 16 * j * FV_LD + e);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[i][j] = fmaf(qv[i].x, kv[j].x, acc[i][j]);
+            acc[i][j] = fmaf(qv[i].y, kv[j].y, acc[i][j]);
+            acc[i][j] = fmaf(qv[i].z, kv[j].z, acc[i][j]);
+            acc[i][j] = fmaf(qv[i].w, kv[j].w, acc[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (ty + 8 * i < nrows && tx + 16 * j < nk)
+            S[(ty + 8 * i) * lds + k0 + tx + 16 * j] =
+                __fmul_rn(acc[i][j], scale);
+    } else {
+      // row tid / 4, dims 16 (tid % 4) .. + 15, summed over the 4 lanes
+      const int r = tid >> 2, part = tid & 3;
+      const float* qr = sq + r * FV_DH;
+      const int rsw = (r & 1) << 2;
+      for (int c = 0; c < nk; ++c) {
+        const float* kr = st + c * FV_LD + 16 * part;
+        float v = 0.f;
+#pragma unroll
+        for (int e = 0; e < 16; e += 4) {
+          const float4 a = f32_ld4(qr + ((16 * part + e) ^ rsw));
+          const float4 k = f32_ld4(kr + e);
+          v = fmaf(a.x, k.x, v);
+          v = fmaf(a.y, k.y, v);
+          v = fmaf(a.z, k.z, v);
+          v = fmaf(a.w, k.w, v);
+        }
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (part == 0 && r < nrows) S[r * lds + k0 + c] = __fmul_rn(v, scale);
+      }
+    }
+  };
+
+  // the warp's 8 rows (a row past nrows reads row nrows - 1 and writes
+  // nothing): 1 / sum e, and the pass-3 sums of a lane's rows r0 + 4 rg +
+  // i, columns 4 cg .. 4 cg + 3
+  const int rg = lane >> 4, cg = lane & 15;
+  float rl[8];
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const float* er[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    er[i] = S + min(r0 + 4 * rg + i, nrows - 1) * lds;
+  const bool rows_in = r0 < nrows;
+
+  load(0);
+  if (2 * tiles > 1) load(1);
+  for (int t = 0; t < 2 * tiles; ++t) {
+    mbar_wait(&full[t % FV_STAGES], (t / FV_STAGES) & 1);
+    const float* st = ring + (t % FV_STAGES) * FV_KT * FV_LD;
+    const int k0 = (t < tiles ? t : t - tiles) * FV_KT;
+    const int nk = min(FV_KT, N - k0);
+    if (t < tiles) {
+      scores(st, k0, nk);
+      if (t == tiles - 1) {
+        for (int p = tid; p < nrows * (lds - N); p += FV_THREADS) {
+          const int r = p / (lds - N);
+          S[r * lds + N + p - r * (lds - N)] = -INFINITY;
+        }
+        __syncthreads();  // every score row whole
+        // the warp's 8 rows at once (8 independent chains), a lane its
+        // float4s lane + 32 c of each: the max, e in place, 1 / sum e
+        const int nv = lds >> 2;
+        int roff[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) roff[i] = min(r0 + i, nrows - 1) * lds;
+        float m[8], l[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) m[i] = -INFINITY, l[i] = 0.f;
+        if (rows_in) {
+          for (int c = lane; c < nv; c += 32)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float4 v = f32_ld4(S + roff[i] + 4 * c);
+              m[i] = fmaxf(fmaxf(m[i], fmaxf(v.x, v.y)), fmaxf(v.z, v.w));
+            }
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], o));
+          for (int c = lane; c < nv; c += 32)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float4 v = f32_ld4(S + roff[i] + 4 * c);
+              const float4 e =
+                  make_float4(exp2_ftz((v.x - m[i]) * F32_LOG2E),
+                              exp2_ftz((v.y - m[i]) * F32_LOG2E),
+                              exp2_ftz((v.z - m[i]) * F32_LOG2E),
+                              exp2_ftz((v.w - m[i]) * F32_LOG2E));
+              if (r0 + i < nrows)
+                *reinterpret_cast<float4*>(S + roff[i] + 4 * c) = e;
+              l[i] = __fadd_rn(
+                  __fadd_rn(__fadd_rn(__fadd_rn(l[i], e.x), e.y), e.z), e.w);
+            }
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              l[i] += __shfl_xor_sync(0xffffffffu, l[i], o);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) rl[i] = 1.f / l[i];
+        __syncwarp();  // pass 3 reads only this warp's rows
+      }
+    } else if (rows_in) {
+      int c = 0;
+      for (; c + 4 <= nk; c += 4) {
+        float4 ev[4], vv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ev[i] = f32_ld4(er[i] + k0 + c);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          vv[kk] = f32_ld4(st + (c + kk) * FV_LD + 4 * cg);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float x = f4_at(ev[i], kk);
+            acc[i][0] = fmaf(x, vv[kk].x, acc[i][0]);
+            acc[i][1] = fmaf(x, vv[kk].y, acc[i][1]);
+            acc[i][2] = fmaf(x, vv[kk].z, acc[i][2]);
+            acc[i][3] = fmaf(x, vv[kk].w, acc[i][3]);
+          }
+      }
+      for (; c < nk; ++c) {  // the ragged tail's keys
+        const float4 v4 = f32_ld4(st + c * FV_LD + 4 * cg);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x = er[i][k0 + c];
+          acc[i][0] = fmaf(x, v4.x, acc[i][0]);
+          acc[i][1] = fmaf(x, v4.y, acc[i][1]);
+          acc[i][2] = fmaf(x, v4.z, acc[i][2]);
+          acc[i][3] = fmaf(x, v4.w, acc[i][3]);
+        }
+      }
+    }
+    __syncthreads();  // every thread is past stage t, which tile t + 2 refills
+    if (t + FV_STAGES < 2 * tiles) load(t + FV_STAGES);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + 4 * rg + i;
+    const float inv = rg ? rl[4 + i] : rl[i];
+    if (r < nrows)
+      *reinterpret_cast<float4*>(out + ((long long)b * N + q0 + r) * D +
+                                 h * FV_DH + 4 * cg) =
+          make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv,
+                      acc[i][3] * inv);
+  }
+}
+
+// K1.f32's attention on qkv (B*N, 3D) into ctx (B*N, D): the rows-on-chip
+// kernel for N <= FV_MAX_N, else the streamed f32_attn_kernel<64, FA_VIT>
+// (query blocks of at most 64 rows, as even as N allows)
+cudaError_t launch_vit_attn(const float* qkv, float* ctx, int B, int N,
+                            int D, int H, cudaStream_t s) {
+  const float scale = 1.f / sqrtf(64.f);
+  if (N <= FV_MAX_N) {
+    f32_vit_attn_kernel<<<dim3((N + FV_BQ - 1) / FV_BQ, H, B), FV_THREADS,
+                          fv_smem(N), s>>>(qkv, ctx, N, D, scale);
+    return cudaGetLastError();
+  }
+  const int nblk = (N + 63) / 64;
+  FaArgs a{};
+  a.q = qkv;
+  a.k = qkv + D;
+  a.v = qkv + 2 * D;
+  a.out = ctx;
+  a.N = N;
+  a.H = H;
+  a.ld = 3 * D;
+  a.ldo = D;
+  a.W = 1;
+  a.nW = 1;
+  a.qrows = (N + nblk - 1) / nblk;
+  a.scale = scale;
+  return launch_attn<64, FA_VIT>(a, dim3(nblk, H, B), s);
+}
+
 // K7's raster attention on the qkv (B*S*S, 3C) of K4 or of the window-7
 // half, the context into out (B*S*S, C).
 // the windows' query blocks: as few as hold FA_WIN_ROWS rows each, as even
@@ -554,7 +864,10 @@ cudaError_t launch_train_attn(const float* qkv, const float* table,
 // current device; returns a cudaError_t as int.
 extern "C" int geovpr_f32_serving_init(void) {
   cudaError_t e;
-  if ((e = cudaFuncSetAttribute(f32_attn_kernel<64, FA_VIT>,
+  if ((e = cudaFuncSetAttribute(f32_vit_attn_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                FV_SMEM_MAX)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(f32_attn_kernel<64, FA_VIT>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 FA_SMEM_LIMIT)) != cudaSuccess ||
       (e = cudaFuncSetAttribute(f32_attn_kernel<32, FA_RASTER>,
@@ -569,6 +882,11 @@ extern "C" int geovpr_f32_serving_init(void) {
       f32_attn_kernel<32, FA_SPLIT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, FA_SMEM_LIMIT);
 }
+
+// The longest N whose attention keeps its score rows on chip
+// (f32_vit_attn_kernel); ops/mhsa.py::k1_f32_attention_route holds the
+// same limit.
+extern "C" int geovpr_mhsa_f32_rows_max_n(void) { return FV_MAX_N; }
 
 // K1 in f32, launches first..last (0 LayerNorm, 1 QKV GEMM, 2 attention, 3
 // out projection); returns a cudaError_t as int. x, the matrices, qkv
@@ -602,25 +920,9 @@ extern "C" int geovpr_mhsa_f32_parts(
                                       static_cast<const float*>(bqkv),
                                       nullptr, nullptr, qkvf, M, 3 * D, D, s);
         break;
-      case 2: {
-        // query blocks of at most 64 rows, as even as N allows
-        const int nblk = (N + 63) / 64;
-        FaArgs a{};
-        a.q = qkvf;
-        a.k = qkvf + D;
-        a.v = qkvf + 2 * D;
-        a.out = ctxf;
-        a.N = N;
-        a.H = H;
-        a.ld = 3 * D;
-        a.ldo = D;
-        a.W = 1;
-        a.nW = 1;
-        a.qrows = (N + nblk - 1) / nblk;
-        a.scale = 1.f / sqrtf(64.f);
-        e = launch_attn<64, FA_VIT>(a, dim3(nblk, H, B), s);
+      case 2:
+        e = launch_vit_attn(qkvf, ctxf, B, N, D, H, s);
         break;
-      }
       default:
         e = launch_gemm_f32<EPI_GAMMA_RESID>(
             ctxf, static_cast<const float*>(wo), static_cast<const float*>(bo),

@@ -415,7 +415,10 @@ class Mlp(nn.Module):
       JAX's "quant" collection (`a_in_scale`, `fc1_kernel_q` (in, hidden)
       int8, ...). The int8 forward is the fused half-block (LN -> K3),
       driven by the owning block (`DinoV2Block`) with scales folded once,
-      when the state is installed.
+      when the state is installed. Called on its own (and not
+      calibrating, which runs the float path), it runs JAX's unfused
+      arithmetic (`geovpr/models/layers.py:168-182`): `int8_dense`
+      -> tanh GELU in f32 -> `int8_dense`, returned in x's dtype.
     """
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int | None = None,
@@ -439,6 +442,14 @@ class Mlp(nn.Module):
                 ("fc2_bias", (out_dim,), f32, 0.0)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8 and self.calib is None:
+            h = x.reshape(-1, x.shape[-1]).float()
+            h = quant.int8_dense(h, self.a_in_scale, self.fc1_kernel_q,
+                                 self.fc1_kernel_scale, self.fc1_bias)
+            h = F.gelu(h, approximate="tanh")
+            h = quant.int8_dense(h, self.a_mid_scale, self.fc2_kernel_q,
+                                 self.fc2_kernel_scale, self.fc2_bias)
+            return h.reshape(*x.shape[:-1], -1).to(x.dtype)
         if self.calib is not None:
             amax_into(self.calib, "a_in", x)
         h = gelu_fast(linear(x, self.fc1))

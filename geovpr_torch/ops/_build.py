@@ -191,6 +191,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "geovpr_patch_merge_init": [],
         "geovpr_window_attention_init": [],
         "geovpr_f32_serving_init": [],
+        "geovpr_mhsa_f32_rows_max_n": [],
         "geovpr_f32_train_init": [],
         "geovpr_f32_swin_train_init": [],
     }

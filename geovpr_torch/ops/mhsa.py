@@ -142,6 +142,31 @@ def fused_mhsa_block(x: torch.Tensor, ln_scale: torch.Tensor,
     return out
 
 
+# K1.f32's attention launch (and so K8a.f32's) keeps a 32-row query tile's
+# score rows in shared memory up to this N, two CTAs an SM (FV_MAX_N in
+# `csrc/f32_serving.cu`, which `geovpr_mhsa_f32_rows_max_n` returns)
+K1_F32_ROWS_MAX_N = 564
+
+
+def k1_f32_attention_route(n: int) -> str:
+    """The kernel that runs K1.f32's (and K8a.f32's) attention launch on
+    sequences of n tokens, a rule of shape between two hand-written
+    kernels: "rows_on_chip" (`f32_vit_attn_kernel`: q k^T once into the
+    score rows in shared memory, their exact max and sums, then E V) up to
+    K1_F32_ROWS_MAX_N tokens (DINOv2 at up to 322 px; every preset's N =
+    257, at 224 px, among them);
+    "streamed" (`f32_attn_kernel`'s FA_VIT mode: two passes over the key
+    tiles, a running max and sum, then P V) past it."""
+    if n <= 0:
+        raise ValueError(f"a sequence of {n} tokens")
+    return "rows_on_chip" if n <= K1_F32_ROWS_MAX_N else "streamed"
+
+
+# the f32 attention launches of K1's wrapper calls (K1.f32 and K8a.f32) by
+# `k1_f32_attention_route`
+K1_F32_ROUTE_LAUNCHES = {"rows_on_chip": 0, "streamed": 0}
+
+
 def _launch_k1(x, got: dict, num_heads: int, ln_eps: float):
     """K1's launches on a checked bf16 or f32 CUDA stream x (B, N, D):
     out and the qkv (B, N, 3D; post-bias, unscaled) and ctx (B, N, D) that
@@ -157,6 +182,8 @@ def _launch_k1(x, got: dict, num_heads: int, ln_eps: float):
         rc = entry(*args, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"mhsa kernel launch failed: CUDA error {rc}")
+    if x.dtype == torch.float32:
+        K1_F32_ROUTE_LAUNCHES[k1_f32_attention_route(n)] += 1
     return out, qkv, ctx
 
 

@@ -150,13 +150,29 @@ def test_kernel_refuses_float32_activations(cuda):
 
 @pytest.mark.parametrize("shape", [(64, 257, 768, 12), (3, 50, 384, 6),
                                    (2, 17, 64, 1), (2, 1370, 768, 12),
-                                   (1, 257, 1024, 16)])
+                                   (1, 257, 1024, 16), (1, 564, 128, 2),
+                                   (1, 565, 128, 2)])
 def test_k1_f32_matches_plain_version(cuda, shape):
-    """K1's f32 form at DINOv2-B/14's shape, a one-query tail block (N =
-    257 = 4 x 64 + 1), N below one key tile, many key tiles, and D =
-    1024."""
+    """K1's f32 form at DINOv2-B/14's shape (a one-query tail tile, N =
+    257 = 8 x 32 + 1, and one key past the last whole 32), N below one key
+    tile, many key tiles (the streamed route), D = 1024, and N on each side
+    of the attention's route limit (`k1_f32_attention_route`: 564 keeps
+    its score rows on chip, 565 streams); each through the route the rule
+    names (`K1_F32_ROUTE_LAUNCHES`)."""
+    from geovpr_torch.ops import mhsa as mh
     args = f32_k1_case(shape, cuda)
+    route = mh.k1_f32_attention_route(shape[1])
+    before = mh.K1_F32_ROUTE_LAUNCHES[route]
     _f32_within_bound(fused_mhsa_block, mhsa_block_reference, args, args[0])
+    assert mh.K1_F32_ROUTE_LAUNCHES[route] == before + 1
+
+
+def test_k1_f32_route_limit_matches_the_library(cuda):
+    """The route rule's limit is the library's (FV_MAX_N)."""
+    from geovpr_torch.ops import mhsa as mh
+    from geovpr_torch.ops._build import load_library
+    assert load_library().geovpr_mhsa_f32_rows_max_n() == \
+        mh.K1_F32_ROWS_MAX_N
 
 
 def test_f32_launches_one_by_one_equal_the_whole(cuda):
@@ -1607,7 +1623,7 @@ def test_dinov2_train_launches_per_step(cuda, variant):
 
 _K8_F32_SHAPES = [(2, 257, 768, 12), (3, 50, 384, 6), (2, 17, 64, 1),
                   (2, 257, 1024, 16), (2, 256, 768, 12), (1, 281, 128, 2),
-                  (2, 50, 192, 3)]
+                  (2, 50, 192, 3), (1, 564, 128, 2), (1, 565, 128, 2)]
 
 
 @pytest.mark.parametrize("shape", _K8_F32_SHAPES)
@@ -1619,6 +1635,8 @@ def test_k8_f32_matches_plain_version(cuda, shape):
     N = 256 has no ragged tail, N = 257 one key past the last whole 32 and
     one query past the last whole tile, N = 281 keeps its score rows in the
     P and dS planes: past the 280 keys the dq CTA holds in shared memory;
+    K8a.f32's attention keeps its score rows on chip at N = 564 and
+    streams at 565, `k1_f32_attention_route`;
     at D = 192 the f32 GEMM's M = 100 rows, the weight gradients' 192
     output rows (1.5 tiles of 128) and their K = 100 rows of partial sums
     end inside a tile)."""

@@ -24,7 +24,8 @@ from geovpr_torch.cli import parity
 from geovpr_torch.cli.evaluate import build_model
 from geovpr_torch.cli.presets import build_preset
 from geovpr_torch.models import dinov2, salad, swin
-from geovpr_torch.ops.mhsa import k1_dtype_error, k8_dtype_error
+from geovpr_torch.ops.mhsa import (K1_F32_ROWS_MAX_N, k1_dtype_error,
+                                   k1_f32_attention_route, k8_dtype_error)
 from geovpr_torch.ops.patch_merge import k6_dtype_error
 from geovpr_torch.ops.swin_block import k4_dtype_error, k9_dtype_error
 from geovpr_torch.ops.window_attention import (k7_dtype_error,
@@ -227,3 +228,35 @@ def test_f32_bounds_match_hand_counts(kind, shape, ops, nbytes, bound_by):
         max(ops / peak, nbytes / cs.PEAK_BYTES) * 1e3, rel=1e-12)
     if kind == "K1":
         assert got["bound_ms"] == pytest.approx(1.354, abs=1e-3)
+
+
+@pytest.mark.parametrize("n, route", [
+    (1, "rows_on_chip"), (257, "rows_on_chip"), (530, "rows_on_chip"),
+    (564, "rows_on_chip"), (565, "streamed"), (1370, "streamed")])
+def test_k1_f32_attention_route_is_a_rule_of_shape(n, route):
+    """K1.f32's (and K8a.f32's) attention launch keeps a 32-row query
+    tile's score rows on chip up to K1_F32_ROWS_MAX_N tokens and takes the
+    streamed kernel past it; DINOv2's N = 257 (224 px, every preset) keeps
+    its rows on chip."""
+    assert k1_f32_attention_route(n) == route
+    with pytest.raises(ValueError):
+        k1_f32_attention_route(0)
+
+
+def test_k1_f32_rows_limit_is_two_ctas_an_sm():
+    """The limit as `csrc/f32_serving.cu` derives it (FV_MAX_N): a CTA's
+    16 bytes of barriers, 32 q rows of 64 floats, two ring stages of 64 key
+    rows at 68 floats, and 32 score rows of N rounded up to 4 floats,
+    within 115,712 bytes, two such CTAs in an SM's 228 KB (1 KB reserved a
+    CTA); at DINOv2's N = 257 three fit. The card tests hold the library's
+    `geovpr_mhsa_f32_rows_max_n` to the same number."""
+    fixed = 16 + 4 * (32 * 64 + 2 * 64 * 68)
+
+    def smem(n):
+        return fixed + 4 * 32 * ((n + 3) // 4 * 4)
+
+    assert 2 * (smem(K1_F32_ROWS_MAX_N) + 1024) <= 228 * 1024
+    assert 2 * (smem(K1_F32_ROWS_MAX_N + 4) + 1024) > 228 * 1024
+    assert K1_F32_ROWS_MAX_N % 4 == 0
+    assert 3 * (smem(257) + 1024) <= 228 * 1024
+
